@@ -1,0 +1,265 @@
+"""Generic stream elements on the flagship path: app source, tensor_sink,
+queue (thread boundary) and the capsfilter that parse_launch makes for
+inline caps.
+
+These are the L0 GStreamer elements the reference assumes exist plus the
+reference's own tensor_sink (gsttensor_sink.c: appsink-like sink emitting
+new-data signals). The JAX package's tee, identity, file I/O and video test
+source are not ported yet.
+"""
+
+from __future__ import annotations
+
+import queue as _queue
+import threading
+from typing import Callable, List, Optional
+
+from nnstreamer_tpu_torch.analysis import lockwitness
+from nnstreamer_tpu_torch.analysis.schema import Prop
+from nnstreamer_tpu_torch.buffer import CLOCK_TIME_NONE, Buffer, Event
+from nnstreamer_tpu_torch.caps import Caps
+from nnstreamer_tpu_torch.log import get_logger
+from nnstreamer_tpu_torch.pipeline.element import (
+    Element,
+    FlowReturn,
+    Pad,
+    SourceElement,
+    element_register,
+)
+
+log = get_logger("elements")
+
+
+@element_register
+class AppSrc(SourceElement):
+    """Application-fed source. push_buffer()/end_of_stream() from any thread.
+
+    Props: caps (Caps or caps string), is_live, max_buffers."""
+
+    ELEMENT_NAME = "appsrc"
+    PROPERTY_SCHEMA = {
+        "caps": Prop("caps", doc="stream caps"),
+        "is_live": Prop("bool"),
+        "max_buffers": Prop("int", doc="0 = unbounded feed queue"),
+    }
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self._q: "_queue.Queue" = _queue.Queue(
+            maxsize=int(self.properties.get("max_buffers", 0) or 0)
+        )
+
+    def push_buffer(self, buf_or_tensors, pts: int = CLOCK_TIME_NONE) -> None:
+        if not isinstance(buf_or_tensors, Buffer):
+            tensors = buf_or_tensors if isinstance(buf_or_tensors, (list, tuple)) else [buf_or_tensors]
+            buf_or_tensors = Buffer(tensors=list(tensors), pts=pts)
+        self._q.put(buf_or_tensors)
+
+    def end_of_stream(self) -> None:
+        self._q.put(None)
+
+    def negotiate(self) -> Optional[Caps]:
+        caps = self.properties.get("caps")
+        if isinstance(caps, str):
+            caps = Caps.from_string(caps)
+        return caps
+
+    def create(self) -> Optional[Buffer]:
+        while True:
+            try:
+                return self._q.get(timeout=0.1)
+            except _queue.Empty:
+                if self.pipeline is not None and not self.pipeline._running.is_set():
+                    return None
+
+
+@element_register
+class TensorSink(Element):
+    """Terminal sink emitting new-data callbacks and collecting results.
+
+    Parity: tensor_sink (gsttensor_sink.c:644 LoC) — ``new-data`` signal,
+    ``emit-signal``/``sync`` props. Also usable as generic appsink/fakesink.
+    """
+
+    ELEMENT_NAME = "tensor_sink"
+    ALIASES = ("appsink", "fakesink")
+    PROPERTY_SCHEMA = {
+        "collect": Prop("bool", doc="keep buffers in .collected"),
+        "max_buffers": Prop("int"),
+        "materialize": Prop("bool",
+                            doc="false = hand device buffers to the app"),
+        "emit_signal": Prop("bool"),
+        "sync": Prop("bool"),
+        "silent": Prop("bool"),
+    }
+
+    #: retention cap for collected[] and the pull queue — prevents unbounded
+    #: growth in long-running pipelines (override with max-buffers prop;
+    #: production pipelines should use callbacks + collect=false)
+    DEFAULT_MAX_BUFFERS = 4096
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self.callbacks: List[Callable[[Buffer], None]] = []
+        self.collected: List[Buffer] = []
+        self._collect = bool(self.properties.get("collect", True))
+        self._max = int(self.properties.get("max_buffers", self.DEFAULT_MAX_BUFFERS))
+        self._q: "_queue.Queue" = _queue.Queue(maxsize=self._max)
+
+    def _setup_pads(self) -> None:
+        self.add_sink_pad("sink")
+
+    def connect_new_data(self, cb: Callable[[Buffer], None]) -> None:
+        self.callbacks.append(cb)
+
+    def chain(self, pad: Pad, buf: Buffer) -> FlowReturn:
+        # sinks synchronize async device work by materializing on host unless
+        # the app asked for raw (possibly device-resident) buffers
+        if self.properties.get("materialize", True):
+            # as_numpy brings every device tensor over in ONE batched
+            # device→host transfer
+            buf = buf.with_tensors(buf.as_numpy())
+        for cb in self.callbacks:
+            cb(buf)
+        if self._collect:
+            self.collected.append(buf)
+            if len(self.collected) > self._max:
+                del self.collected[0]
+        try:
+            self._q.put_nowait(buf)
+        except _queue.Full:  # appsink drop=true semantics: discard oldest
+            try:
+                self._q.get_nowait()
+            except _queue.Empty:
+                pass
+            try:
+                self._q.put_nowait(buf)
+            except _queue.Full:
+                pass
+        return FlowReturn.OK
+
+    def pull(self, timeout: Optional[float] = 5.0) -> Optional[Buffer]:
+        """Blocking appsink-style pull; timeout<=0 polls without blocking."""
+        try:
+            if timeout is not None and timeout <= 0:
+                return self._q.get_nowait()
+            return self._q.get(timeout=timeout)
+        except _queue.Empty:
+            return None
+
+
+@element_register
+class QueueElement(Element):
+    """Thread boundary with a bounded buffer queue — the stage-parallelism
+    construct (SURVEY.md §2.6 item 1). Props: max_size_buffers (default 16),
+    leaky ('no'|'downstream': drop newest when full, for live QoS)."""
+
+    ELEMENT_NAME = "queue"
+    ALIASES = ("queue2",)
+    PROPERTY_SCHEMA = {
+        "max_size_buffers": Prop("int", doc="bounded depth (default 16)"),
+        "leaky": Prop("enum", enum=("no", "downstream"),
+                      doc="downstream = drop newest when full"),
+    }
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self._q: "_queue.Queue" = _queue.Queue(
+            maxsize=int(self.properties.get("max_size_buffers", 16))
+        )
+        self._thread: Optional[threading.Thread] = None
+        self._alive = False
+        self._pending = 0
+        self._plock = lockwitness.make_lock("queue.pending")
+
+    def start(self) -> None:
+        self._alive = True
+        self._thread = threading.Thread(target=self._loop, name=f"q:{self.name}", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._alive = False
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+        # drop anything left
+        while not self._q.empty():
+            try:
+                self._q.get_nowait()
+            except _queue.Empty:
+                break
+
+    def chain(self, pad: Pad, buf: Buffer) -> FlowReturn:
+        item = ("buf", buf)
+        with self._plock:
+            self._pending += 1
+        if self.properties.get("leaky") == "downstream":
+            try:
+                self._q.put_nowait(item)
+            except _queue.Full:
+                with self._plock:
+                    self._pending -= 1
+                return FlowReturn.OK  # leak (drop) newest
+        else:
+            self._q.put(item)  # backpressure: block upstream thread
+        return FlowReturn.OK
+
+    def _on_sink_event(self, pad: Pad, event: Event) -> None:
+        if event.type == "caps":  # caps handled synchronously by Pad
+            return
+        with self._plock:
+            self._pending += 1
+        self._q.put(("evt", event))
+
+    def _loop(self) -> None:
+        while self._alive:
+            try:
+                kind, item = self._q.get(timeout=0.1)
+            except _queue.Empty:
+                continue
+            try:
+                if kind == "buf":
+                    self.push(item)
+                else:
+                    for sp in self.src_pads:
+                        sp.push_event(item)
+            except Exception as e:  # noqa: BLE001 — worker thread must report, not die silently
+                log.exception("queue %s downstream error", self.name)
+                self.post_error(e)
+                self._alive = False
+            finally:
+                with self._plock:
+                    self._pending -= 1
+
+    def is_idle(self) -> bool:
+        with self._plock:
+            return self._pending == 0
+
+
+@element_register
+class CapsFilter(Element):
+    """Pass-through that constrains negotiation (gst capsfilter).
+    Prop: caps (Caps or string)."""
+
+    ELEMENT_NAME = "capsfilter"
+    PROPERTY_SCHEMA = {"caps": Prop("caps", required=True)}
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        caps = self.properties.get("caps")
+        if isinstance(caps, str):
+            caps = Caps.from_string(caps)
+        self.caps_prop: Optional[Caps] = caps
+        if caps is not None:
+            self.sink_pad.template = caps
+            self.src_pad.template = caps
+
+    def transform_caps(self, pad: Pad, caps: Caps) -> Optional[Caps]:
+        if self.caps_prop is None:
+            return caps
+        out = caps.intersect(self.caps_prop)
+        if out.is_empty():
+            from nnstreamer_tpu_torch.log import ElementError
+
+            raise ElementError(self.name, f"caps {caps} rejected by filter {self.caps_prop}")
+        return out.fixate() if not out.is_fixed() else out

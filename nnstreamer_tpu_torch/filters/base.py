@@ -1,0 +1,261 @@
+"""Filter framework ABI — the stable contract between tensor_filter and
+NN backends.
+
+Mirrors GstTensorFilterFramework v1
+(nnstreamer_plugin_api_filter.h:290-441): open/close lifecycle, invoke,
+getModelInfo (GET_IN_OUT_INFO / SET_INPUT_INFO), eventHandler
+(RELOAD_MODEL etc.), per-framework statistics
+(nnstreamer_plugin_api_filter.h:143-148), and the shared-model table that
+lets N filter instances share one loaded model
+(``shared_model_table`` tensor_filter_common.c:102, API
+nnstreamer_plugin_api_filter.h:544-590).
+
+A backend subclasses FilterFramework and registers a *factory* under
+registry type 'filter'. Instances are per-open (or shared via
+shared_tensor_filter_key).
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from nnstreamer_tpu_torch import registry
+from nnstreamer_tpu_torch.analysis import lockwitness
+from nnstreamer_tpu_torch.log import get_logger
+from nnstreamer_tpu_torch.types import TensorsInfo
+
+log = get_logger("filter")
+
+
+@dataclass
+class FilterProperties:
+    """Subset of GstTensorFilterProperties the backends consume
+    (nnstreamer_plugin_api_filter.h:96-141)."""
+
+    framework: str = "auto"
+    model_files: List[str] = field(default_factory=list)  # num_models >1: caffe2-style pairs
+    custom: str = ""  # free-form custom_properties (:129)
+    accelerator: str = ""  # e.g. 'true:cpu' (default: cuda)
+    input_info: Optional[TensorsInfo] = None  # user override / negotiated
+    output_info: Optional[TensorsInfo] = None
+    shared_key: Optional[str] = None  # shared-tensor-filter-key (:544-590)
+    invoke_dynamic: bool = False  # flexible output per invoke (:135 invoke-dynamic)
+
+    @property
+    def model_file(self) -> Optional[str]:
+        return self.model_files[0] if self.model_files else None
+
+    def custom_dict(self) -> Dict[str, str]:
+        """Parse 'k1:v1,k2:v2' custom strings (common backend convention)."""
+        out: Dict[str, str] = {}
+        for part in self.custom.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            k, _, v = part.partition(":")
+            out[k.strip()] = v.strip()
+        return out
+
+
+@dataclass
+class FilterStatistics:
+    """GstTensorFilterFrameworkStatistics parity
+    (nnstreamer_plugin_api_filter.h:143-148). Thread-safe: one framework
+    instance may be shared across parallel filter branches
+    (shared-tensor-filter-key + round_robin serving)."""
+
+    total_invoke_num: int = 0
+    total_invoke_latency_us: int = 0
+    total_overhead_latency_us: int = 0
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def record(self, invoke_us: float, overhead_us: float = 0.0) -> None:
+        with self._lock:
+            self.total_invoke_num += 1
+            self.total_invoke_latency_us += int(invoke_us)
+            self.total_overhead_latency_us += int(overhead_us)
+
+
+class FilterFramework:
+    """Backend base class (GstTensorFilterFramework v1 vtable analogue)."""
+
+    #: framework name (subplugin registry key)
+    NAME: str = "base"
+    #: backend executes asynchronously (returned CUDA tensors may not be
+    #: computed yet); sinks synchronize
+    ASYNC: bool = False
+    #: backend tolerates set_input_info reshape requests
+    RESHAPABLE: bool = False
+    #: backend runs on (and accepts/produces) device-resident tensors —
+    #: tensor_filter's accepts_device/produces_device source of truth
+    DEVICE_CAPABLE: bool = False
+
+    def __init__(self):
+        self.props: Optional[FilterProperties] = None
+        self.stats = FilterStatistics()
+
+    # -- lifecycle (open/close, nnstreamer_plugin_api_filter.h:290-296) ----
+    def open(self, props: FilterProperties) -> None:
+        self.props = props
+
+    def close(self) -> None:
+        self.props = None
+
+    # -- model info (getModelInfo GET_IN_OUT_INFO, :418-441) ---------------
+    def get_model_info(self) -> Tuple[Optional[TensorsInfo], Optional[TensorsInfo]]:
+        """Returns (input_info, output_info); either may be None if the model
+        accepts any shape (then set_input_info decides)."""
+        raise NotImplementedError
+
+    def set_input_info(self, in_info: TensorsInfo) -> Tuple[TensorsInfo, TensorsInfo]:
+        """SET_INPUT_INFO: propose an input shape; backend answers with the
+        (possibly adjusted) in/out infos. Negotiation may probe several
+        shapes before settling — do not commit resources until invoke
+        (plugin_api_filter.h:333-336)."""
+        raise NotImplementedError(f"{self.NAME} is not reshapable")
+
+    # -- hot path ----------------------------------------------------------
+    def invoke(self, inputs: Sequence[Any]) -> List[Any]:
+        """One frame in → one frame out. Inputs are ndarray-likes matching
+        input_info; outputs likewise. May return device-resident tensors
+        when ASYNC."""
+        raise NotImplementedError
+
+    def compile_stats(self) -> dict:
+        """Build counters (the counterpart of the JAX backend's jit trace
+        count). Base backends build nothing per input signature."""
+        return {"jit_traces": 0}
+
+    # -- events (eventHandler, RELOAD_MODEL :351-357) ----------------------
+    def handle_event(self, event_type: str, data: Optional[dict] = None) -> None:
+        if event_type == "reload_model" and self.props is not None:
+            props = self.props
+            self.close()
+            self.open(props)
+
+    # -- capability flags --------------------------------------------------
+    @property
+    def name(self) -> str:
+        return self.NAME
+
+
+def detect_framework(models: List[str]) -> str:
+    """Framework auto-detection: model extension → configured priority list
+    (gst_tensor_filter_detect_framework tensor_filter_common.c:1224-1270,
+    _detect_framework_from_config :1177). Zoo names (no extension) run on
+    the backend registered as ``jax`` (this package's torch/CUDA one)."""
+    import os
+
+    from nnstreamer_tpu_torch import registry as reg
+    from nnstreamer_tpu_torch.config import conf
+
+    if not models:
+        raise ValueError("no framework/model given")
+    if os.path.isdir(models[0]) and os.path.exists(
+        os.path.join(models[0], "saved_model.pb")
+    ):
+        return "tensorflow"
+    ext = os.path.splitext(models[0])[1].lstrip(".").lower()
+    if not ext:
+        return "jax"
+    for cand in conf().framework_priority(ext):
+        cand = conf().resolve_alias(cand)
+        if reg.get(reg.FILTER, cand) is not None:
+            return cand
+    return "python3" if ext == "py" else "jax"
+
+
+# --- shared model table (tensor_filter_common.c:102) -----------------------
+_shared_table: Dict[str, Tuple[FilterFramework, int]] = {}
+_shared_lock = lockwitness.make_lock("filters.shared_table")
+
+
+def _framework_name_conflict(fw: FilterFramework, name: str) -> bool:
+    """True when ``name`` denotes a DIFFERENT backend than ``fw``. The
+    registry registers one class under several names (pytorch/torch,
+    onnx/onnxruntime, the tflite family), so an alias mismatch is not a
+    conflict — resolve ``name`` and accept it when it yields fw's own
+    class."""
+    if fw.name == name:
+        return False
+    factory = registry.get(registry.FILTER, name)
+    if isinstance(factory, type) and isinstance(fw, factory):
+        return False  # alias of the same backend class
+    return True
+
+
+def _shared_props_conflict(fw: FilterFramework, name: str,
+                           props: FilterProperties) -> Optional[str]:
+    """A shared-key hit must describe the SAME open: a reuse that differs
+    in framework/model/custom/accelerator/info overrides would silently
+    serve a framework opened with other properties (e.g. a donate:1
+    latency pipeline handed a non-donating instance). Returns a
+    human-readable mismatch description, or None when the reuse is
+    sound."""
+    opened = fw.props
+    if opened is None:
+        return None  # not opened through acquire (custom factories)
+    if _framework_name_conflict(fw, name):
+        return f"framework: opened with {fw.name!r}, requested {name!r}"
+    checks = (
+        ("model", list(opened.model_files), list(props.model_files)),
+        ("custom", opened.custom, props.custom),
+        ("accelerator", opened.accelerator, props.accelerator),
+        ("invoke-dynamic", opened.invoke_dynamic, props.invoke_dynamic),
+        ("input override", opened.input_info, props.input_info),
+        ("output override", opened.output_info, props.output_info),
+    )
+    for field_name, have, want in checks:
+        if have != want:
+            return f"{field_name}: opened with {have!r}, requested {want!r}"
+    return None
+
+
+def acquire_framework(
+    name: str, props: FilterProperties
+) -> FilterFramework:
+    """Instantiate (or share) an opened framework. With a shared_key, N filter
+    instances reuse one open model (nnstreamer_plugin_api_filter.h:544-590).
+    Reuse asserts the properties match the original open (ADVICE r5): a
+    key collision across differing configs raises instead of silently
+    serving the wrong framework."""
+    key = props.shared_key
+    if key:
+        with _shared_lock:
+            if key in _shared_table:
+                fw, refs = _shared_table[key]
+                conflict = _shared_props_conflict(fw, name, props)
+                if conflict:
+                    raise ValueError(
+                        f"shared-tensor-filter-key {key!r} is already open "
+                        f"with different properties ({conflict}); use a "
+                        "distinct key per configuration"
+                    )
+                _shared_table[key] = (fw, refs + 1)
+                return fw
+    factory = registry.get(registry.FILTER, name)
+    if factory is None:
+        raise ValueError(
+            f"unknown filter framework {name!r}; available: {registry.available(registry.FILTER)}"
+        )
+    fw: FilterFramework = factory() if callable(factory) else factory
+    fw.open(props)
+    if key:
+        with _shared_lock:
+            _shared_table[key] = (fw, 1)
+    return fw
+
+
+def release_framework(fw: FilterFramework, shared_key: Optional[str] = None) -> None:
+    if shared_key:
+        with _shared_lock:
+            entry = _shared_table.get(shared_key)
+            if entry is not None:
+                _, refs = entry
+                if refs > 1:
+                    _shared_table[shared_key] = (fw, refs - 1)
+                    return
+                del _shared_table[shared_key]
+    fw.close()

@@ -1,0 +1,123 @@
+"""Model zoo for the torch/CUDA filter backend (counterpart of the JAX
+package's ``models/__init__.py``).
+
+A model is an ``nn.Module`` whose weights are placed on the device once,
+when the bundle is built, plus an ``apply_fn(*inputs) -> output`` the
+filter calls per buffer. The zoo registers builders by name so pipelines
+can say ``tensor_filter framework=jax model=mobilenet_v2`` (the JAX
+package's launch lines run unchanged). Weights come from
+``custom=params:<file>.npz`` (a saved state dict, e.g. carried across from
+the JAX package by :mod:`models.convert`) or are made from
+``custom=seed:<n>`` with numpy.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from nnstreamer_tpu_torch.types import TensorsInfo
+
+_zoo: Dict[str, Callable[..., "ModelBundle"]] = {}
+
+
+@dataclass
+class ModelBundle:
+    """Everything the filter backend needs to run a model."""
+
+    apply_fn: Callable  # apply_fn(*inputs) -> output tensor or tuple
+    module: torch.nn.Module  # weights, already on the bundle's device
+    input_info: Optional[TensorsInfo] = None
+    output_info: Optional[TensorsInfo] = None
+    #: output info for a proposed input info (the counterpart of the JAX
+    #: backend's jax.eval_shape probe) — computed from shapes, no launch
+    infer_output: Optional[Callable[[TensorsInfo], TensorsInfo]] = None
+
+
+def register_model(name: str):
+    """Decorator: register ``builder(custom: dict, device) -> ModelBundle``."""
+
+    def deco(builder):
+        _zoo[name.lower()] = builder
+        return builder
+
+    return deco
+
+
+def _load_builtins() -> None:
+    import importlib
+
+    importlib.import_module("nnstreamer_tpu_torch.models.mobilenet_v2")
+
+
+def load_or_init(module: torch.nn.Module, custom: Dict[str, str],
+                 init_fn: Callable[[torch.nn.Module, int], None]) -> None:
+    """Shared builder plumbing: weights from a saved state dict
+    (``custom=params:<file>.npz``, one array per state-dict key) or
+    deterministic numpy init from ``custom=seed:<n>``."""
+    params_path = custom.get("params")
+    if params_path:
+        with np.load(params_path) as z:
+            state = {k: torch.from_numpy(np.array(z[k])) for k in z.files}
+        module.load_state_dict(state)
+    else:
+        init_fn(module, int(custom.get("seed", 0)))
+
+
+def preprocess_frames(x: torch.Tensor, scale: str = "pm1",
+                      compute_dtype: torch.dtype = torch.bfloat16
+                      ) -> torch.Tensor:
+    """Shared frame preprocessing: uint8 normalization (``scale``: 'pm1' →
+    [-1, 1); 'unit' → [0, 1)) and batch-dim fixup.
+
+    A uint8 CUDA tensor goes through the ``normalize_u8`` kernel, which
+    writes the compute dtype directly; a CPU tensor computes the JAX
+    package's expression as written, in float32."""
+    if x.dtype == torch.uint8:
+        if x.is_cuda:
+            from nnstreamer_tpu_torch.ops.preprocess import normalize_u8
+
+            scale_v, offset = ((1.0 / 127.5, -1.0) if scale == "pm1"
+                               else (1.0 / 255.0, 0.0))
+            x = normalize_u8(x, scale=scale_v, offset=offset,
+                             out_dtype=compute_dtype)
+        else:
+            x = (x.to(torch.float32) / 127.5 - 1.0 if scale == "pm1"
+                 else x.to(torch.float32) / 255.0)
+    if x.dim() == 3:
+        x = x[None]
+    return x
+
+
+def resolve_fused_apply(custom: Dict[str, str], model, make_fused,
+                        scale: str = "pm1"):
+    """Shared ``custom=fused:pallas|xla`` wiring: ``pallas`` runs the
+    BN-folded forward through the package's CUDA kernels, ``xla`` the same
+    folded forward in plain PyTorch. BN folds once, here (at open).
+    Returns None when the custom key is absent."""
+    fused = custom.get("fused")
+    if fused is None:
+        return None
+    if fused not in ("pallas", "xla"):
+        raise ValueError(f"unknown fused mode {fused!r} (use fused:pallas "
+                         "or fused:xla)")
+    raw = make_fused(model, mode="kernel" if fused == "pallas" else "plain")
+
+    def apply_fn(x):
+        return raw(preprocess_frames(x, scale, model.dtype))
+
+    return apply_fn
+
+
+def get_model(name: str, custom: Optional[Dict[str, str]] = None,
+              device="cuda") -> ModelBundle:
+    name = name.lower()
+    if name not in _zoo:
+        _load_builtins()
+    if name not in _zoo:
+        raise ValueError(f"unknown model {name!r}; zoo: {sorted(_zoo)}")
+    return _zoo[name](custom or {}, torch.device(device))
+

@@ -1,0 +1,272 @@
+"""MobileNet-v2 — the flagship classification model (counterpart of the
+JAX package's ``models/mobilenet_v2.py``; the reference's image-labeling
+example runs mobilenet_v2_1.0_224.tflite).
+
+``nn.Module``s with the JAX package's public layout: NHWC in, logits out,
+the same ``CFG``, channel rounding and ``size``/``width``/``classes``
+customs and caps (``3:{size}:{size}:1`` uint8 in, ``{classes}:1`` float32
+out). Convolutions use TF/XLA 'SAME' padding, as flax does.
+
+Two forwards:
+  - the module's own (unfused): conv + BatchNorm + relu6 layers, as the
+    flax module computes them;
+  - :func:`_make_fused_apply`: BatchNorm folded once, the 13 stride-1
+    inverted-residual blocks through the fused-block kernel on CUDA
+    (``fused:pallas``) or its plain version (``fused:xla``); the stem, the
+    4 stride-2 blocks, the head 1x1 conv, the pool and the Dense layer are
+    torch ops, as the JAX package computes them with XLA outside any
+    Pallas kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from nnstreamer_tpu_torch.models import (
+    ModelBundle,
+    load_or_init,
+    preprocess_frames,
+    register_model,
+    resolve_fused_apply,
+)
+from nnstreamer_tpu_torch.types import TensorInfo, TensorsInfo
+
+
+def _make_divisible(v: float, divisor: int = 8) -> int:
+    """Round channel counts the way the reference architecture does, keeping
+    them multiples of 8."""
+    new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+def _same_pad_nchw(x: torch.Tensor, k: int, stride: int,
+                   dilation: int = 1) -> torch.Tensor:
+    """Pad an NCHW tensor for a TF/XLA 'SAME' conv (extra on the high
+    side, as flax pads)."""
+    k_eff = (k - 1) * dilation + 1
+    pads = []
+    for size in (x.shape[3], x.shape[2]):  # F.pad order: W, then H
+        out = -(-size // stride)
+        total = max((out - 1) * stride + k_eff - size, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads) if any(pads) else x
+
+
+def _conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d,
+             dtype: torch.dtype) -> torch.Tensor:
+    """NCHW conv ('SAME') then inference BatchNorm, in ``dtype``."""
+    k, s, d = conv.kernel_size[0], conv.stride[0], conv.dilation[0]
+    y = F.conv2d(_same_pad_nchw(x.to(dtype), k, s, d), conv.weight.to(dtype),
+                 stride=s, dilation=d, groups=conv.groups)
+    y = F.batch_norm(y.float(), bn.running_mean, bn.running_var, bn.weight,
+                     bn.bias, training=False, eps=bn.eps)
+    return y.to(dtype)
+
+
+def _relu6(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, 0.0, 6.0)
+
+
+class InvertedResidual(nn.Module):
+    """MobileNet-v2 inverted residual block (expand → depthwise → project).
+    NHWC in and out. ``dilation`` > 1 dilates the depthwise conv."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int, expand: int,
+                 dilation: int = 1, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        hidden = in_ch * expand
+        self.stride, self.dtype = stride, dtype
+        self.expand_conv = (nn.Conv2d(in_ch, hidden, 1, bias=False)
+                            if expand != 1 else None)
+        self.expand_bn = nn.BatchNorm2d(hidden) if expand != 1 else None
+        self.dw_conv = nn.Conv2d(hidden, hidden, 3, stride=stride,
+                                 dilation=dilation, groups=hidden, bias=False)
+        self.dw_bn = nn.BatchNorm2d(hidden)
+        self.proj_conv = nn.Conv2d(hidden, out_ch, 1, bias=False)
+        self.proj_bn = nn.BatchNorm2d(out_ch)
+        self.use_residual = stride == 1 and in_ch == out_ch
+
+    def forward_nchw(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        h = x
+        if self.expand_conv is not None:
+            h = _relu6(_conv_bn(h, self.expand_conv, self.expand_bn, dt))
+        h = _relu6(_conv_bn(h, self.dw_conv, self.dw_bn, dt))
+        h = _conv_bn(h, self.proj_conv, self.proj_bn, dt)
+        if self.use_residual:
+            h = h + x.to(dt)
+        return h
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.forward_nchw(x.permute(0, 3, 1, 2))
+        return y.permute(0, 2, 3, 1)
+
+
+class MobileNetV2(nn.Module):
+    """width_mult-scalable MobileNet-v2, NHWC, 1001 classes (tflite zoo
+    convention: background + 1000 imagenet)."""
+
+    # (expand, out_ch, repeats, stride)
+    CFG: Sequence[Tuple[int, int, int, int]] = (
+        (1, 16, 1, 1),
+        (6, 24, 2, 2),
+        (6, 32, 3, 2),
+        (6, 64, 4, 2),
+        (6, 96, 3, 1),
+        (6, 160, 3, 2),
+        (6, 320, 1, 1),
+    )
+
+    def __init__(self, num_classes: int = 1001, width_mult: float = 1.0,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.num_classes, self.width_mult, self.dtype = (
+            num_classes, width_mult, dtype)
+        ch = _make_divisible(32 * width_mult)
+        self.stem_conv = nn.Conv2d(3, ch, 3, stride=2, bias=False)
+        self.stem_bn = nn.BatchNorm2d(ch)
+        blocks = []
+        for expand, c, n, s in self.CFG:
+            out_ch = _make_divisible(c * width_mult)
+            for i in range(n):
+                blocks.append(InvertedResidual(ch, out_ch, s if i == 0 else 1,
+                                               expand, dtype=dtype))
+                ch = out_ch
+        self.blocks = nn.ModuleList(blocks)
+        last = _make_divisible(1280 * max(1.0, width_mult))
+        self.head_conv = nn.Conv2d(ch, last, 1, bias=False)
+        self.head_bn = nn.BatchNorm2d(last)
+        self.classifier = nn.Linear(last, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC float frames → float32 logits (the unfused forward)."""
+        dt = self.dtype
+        y = _relu6(_conv_bn(x.permute(0, 3, 1, 2), self.stem_conv,
+                            self.stem_bn, dt))
+        for blk in self.blocks:
+            y = blk.forward_nchw(y)
+        y = _relu6(_conv_bn(y, self.head_conv, self.head_bn, dt))
+        y = y.float().mean(dim=(2, 3))  # global average pool
+        return self.classifier(y)
+
+
+def init_weights(model: nn.Module, seed: int) -> None:
+    """Deterministic weights from ``np.random.default_rng(seed)``: He-normal
+    convs, BatchNorm scale/bias and running statistics that are not the
+    identity, a small random classifier with zero-mean rows.
+
+    This does NOT reproduce the JAX package's ``seed:`` weights: those come
+    from flax's initializers and ``jax.random``, which this package cannot
+    run. To run both packages on the same weights, carry the flax variables
+    across with :func:`models.convert.from_jax_variables` and load them
+    with ``custom=params:<file>.npz``."""
+    rng = np.random.default_rng(seed)
+    state = model.state_dict()
+    new = {}
+    for name, t in state.items():
+        shape = tuple(t.shape)
+        if name.endswith("num_batches_tracked"):
+            new[name] = t
+            continue
+        if "conv" in name:  # conv weight, OIHW
+            fan_in = int(np.prod(shape[1:]))
+            a = rng.normal(0.0, np.sqrt(2.0 / fan_in), shape)
+        elif name.endswith("running_var"):
+            a = rng.uniform(0.8, 1.2, shape)
+        elif name.endswith("running_mean"):
+            a = rng.normal(0.0, 0.1, shape)
+        elif "bn" in name and name.endswith("weight"):
+            a = rng.uniform(0.8, 1.2, shape)
+        elif name.endswith("bias"):
+            a = rng.normal(0.0, 0.1, shape)
+        else:  # classifier weight [out, in], rows centered: the pooled
+            # relu6 features are all positive, and an uncentered row's sum
+            # would decide the class for every frame alike
+            a = rng.normal(0.0, 1.0 / np.sqrt(shape[1]), shape)
+            a -= a.mean(axis=1, keepdims=True)
+        new[name] = torch.from_numpy(a.astype(np.float32))
+    model.load_state_dict(new)
+
+
+def _make_fused_apply(model: MobileNetV2, mode: str = "kernel",
+                      compute_dtype: torch.dtype = None):
+    """BN-folded forward, the counterpart of the JAX ``_make_fused_apply``.
+    ``mode``: 'kernel' (stride-1 blocks through the fused-block kernel on
+    CUDA; its plain version on the CPU) or 'plain' (every block through
+    :func:`inverted_residual_plain`). Folding and the casts to the compute
+    dtype happen once, here, on the model's device."""
+    from nnstreamer_tpu_torch.ops.fused_block import (
+        cast_folded,
+        fold_conv_bn,
+        fold_inverted_residual,
+        fused_inverted_residual,
+        inverted_residual_plain,
+    )
+
+    if mode not in ("kernel", "plain"):
+        raise ValueError(f"unknown fused forward mode {mode!r}")
+    cd = compute_dtype or model.dtype
+    dev = model.stem_conv.weight.device
+    block_fn = fused_inverted_residual if mode == "kernel" else \
+        inverted_residual_plain
+    with torch.no_grad():
+        k, b = fold_conv_bn(model.stem_conv, model.stem_bn)
+        stem = cast_folded({"w": k, "b": b}, cd, dev)
+        blocks = [(cast_folded(fold_inverted_residual(blk), cd, dev),
+                   blk.stride) for blk in model.blocks]
+        k, b = fold_conv_bn(model.head_conv, model.head_bn)
+        head = cast_folded({"w": k[:, :, 0, 0].t(), "b": b}, cd, dev)
+        dense_w = model.classifier.weight.detach().float().t().contiguous()
+        dense_b = model.classifier.bias.detach().float()
+
+    def forward(x: torch.Tensor) -> torch.Tensor:
+        y = _same_pad_nchw(x.to(cd).permute(0, 3, 1, 2), 3, 2)
+        y = F.conv2d(y, stem["w"], stride=2)
+        y = _relu6(y + stem["b"].to(cd).reshape(1, -1, 1, 1))
+        y = y.permute(0, 2, 3, 1).contiguous()  # NHWC for the blocks
+        for fw, stride in blocks:
+            y = block_fn(y, fw, stride=stride, compute_dtype=cd)
+        B, H, W, C = y.shape
+        o = y.reshape(-1, C) @ head["w"] + head["b"].to(cd)
+        o = _relu6(o).reshape(B, H * W, -1)
+        pooled = o.float().mean(dim=1).to(cd).float()
+        return pooled @ dense_w + dense_b
+
+    return torch.no_grad()(forward)
+
+
+def infer_output(in_info: TensorsInfo, classes: int) -> TensorsInfo:
+    """[B, H, W, 3] (or [H, W, 3]) frames → [B, classes] float32 logits."""
+    shape = in_info.tensors[0].np_shape()
+    batch = shape[0] if len(shape) == 4 else 1
+    return TensorsInfo(tensors=[
+        TensorInfo.from_np_shape((batch, classes), "float32")])
+
+
+def build(custom: Dict[str, str], device: torch.device) -> ModelBundle:
+    size = int(custom.get("size", 224))
+    width = float(custom.get("width", 1.0))
+    classes = int(custom.get("classes", 1001))
+    model = MobileNetV2(num_classes=classes, width_mult=width)
+    load_or_init(model, custom, init_weights)
+    model = model.to(device).eval()
+    apply_fn = resolve_fused_apply(custom, model, _make_fused_apply)
+    if apply_fn is None:
+        def apply_fn(x):
+            with torch.no_grad():
+                return model(preprocess_frames(x, "pm1", model.dtype))
+    return ModelBundle(
+        apply_fn=apply_fn, module=model,
+        input_info=TensorsInfo.from_strings(f"3:{size}:{size}:1", "uint8"),
+        output_info=TensorsInfo.from_strings(f"{classes}:1", "float32"),
+        infer_output=lambda info: infer_output(info, classes))
+
+
+register_model("mobilenet_v2")(build)

@@ -1,0 +1,26 @@
+"""Device ops with hand-written CUDA kernels for the H100 (sm_90a), each
+with its plain PyTorch version beside it — the counterparts of the JAX
+package's Pallas kernels on the flagship path.
+
+  fused_inverted_residual   ops/fused_block.py   csrc/fused_block.cu
+  normalize_u8              ops/preprocess.py    csrc/preprocess.cu
+  arith_chain               ops/transform_ops.py csrc/transform_ops.cu
+
+A wrapper runs its plain version only for a tensor on the CPU; a CUDA
+tensor launches the kernel or raises (ops/_cuda.py builds and loads them).
+"""
+
+from nnstreamer_tpu_torch.ops.fused_block import (  # noqa: F401
+    fold_conv_bn,
+    fold_inverted_residual,
+    fused_inverted_residual,
+    inverted_residual_plain,
+)
+from nnstreamer_tpu_torch.ops.preprocess import (  # noqa: F401
+    normalize_u8,
+    normalize_u8_plain,
+)
+from nnstreamer_tpu_torch.ops.transform_ops import (  # noqa: F401
+    arith_chain,
+    arith_chain_plain,
+)

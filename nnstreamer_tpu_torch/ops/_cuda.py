@@ -1,0 +1,187 @@
+"""Build, load and call the package's hand-written CUDA kernels.
+
+The sources in ``nnstreamer_tpu_torch/csrc`` are compiled with ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, and bound with
+``ctypes``. The build runs at first use (never at import): one ``nvcc -c``
+per source, all started together, then one link. The library lands in
+``build/torch_kernels/<hash>/`` beside the package, keyed by a hash of the
+sources and flags, so an edit rebuilds and an unchanged tree reuses it.
+
+Every entry point launches on PyTorch's current stream and returns
+``cudaGetLastError()``; :func:`check` raises on anything but 0. Nothing here
+falls back: a failed build or launch raises.
+
+Each kernel wrapper counts its launches in :data:`LAUNCHES`, adding one
+where it launches its kernel and nowhere else, so a run can show that the
+main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Optional
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+
+#: ``-fmad=false`` is deliberately absent: the kernels spell every rounding
+#: they care about with __fmul_rn/__fadd_rn/__fdiv_rn, and use fmaf where
+#: a contracted sum is intended. --use_fast_math is off.
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC"]
+
+#: dtype codes shared with csrc/common.cuh
+DTYPE_CODES = {
+    torch.float32: 0,
+    torch.bfloat16: 1,
+    torch.float16: 2,
+    torch.uint8: 3,
+    torch.int8: 4,
+    torch.uint16: 5,
+    torch.int16: 6,
+    torch.int32: 7,
+}
+
+#: launches per kernel wrapper (plain integers; reset_launches zeroes them)
+LAUNCHES: Dict[str, int] = {
+    "fused_inverted_residual": 0,
+    "normalize_u8": 0,
+    "arith_chain": 0,
+}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+
+#: C signatures: every pointer (device or host) and the stream as c_void_p
+_SIGNATURES = {
+    "nnstpu_normalize_u8": [_P, _P, _LL, _F, _F, _I, _I, _P],
+    "nnstpu_arith_chain": [_P, _P, _LL, _I, _I, _P, _P, _I, _I, _F, _F, _I,
+                           _P],
+    "nnstpu_fused_inverted_residual": [_P] * 8 + [_I] * 12 + [_LL, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+#: seconds the last build took in this process (0.0 when it reused a
+#: library built earlier)
+build_seconds = 0.0
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def on_cpu(x: torch.Tensor) -> bool:
+    """The one dispatch rule of every kernel wrapper: the plain PyTorch
+    version runs only for a tensor on the CPU; a CUDA tensor goes to the
+    kernel. Any other device raises."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for tensors on {x.device}")
+
+
+def _sources():
+    return sorted(f for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh", ".h")))
+
+
+def _nvcc() -> str:
+    cand = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(cand):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
+                           "the CUDA kernels cannot be built")
+    return cand
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in _sources():
+        h.update(f.encode())
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()[:16]
+
+
+def _build(out_dir: str) -> str:
+    """Compile each .cu in parallel, then link; returns the library path.
+    Serialised across processes by a lock file in ``out_dir``."""
+    global build_seconds
+    lib_path = os.path.join(out_dir, "libnnstpu_kernels.so")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(lib_path):
+            return lib_path
+        t0 = time.perf_counter()
+        nvcc = _nvcc()
+        cus = [f for f in _sources() if f.endswith(".cu")]
+        procs = []
+        for f in cus:
+            obj = os.path.join(out_dir, f[:-3] + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c",
+                   os.path.join(CSRC, f), "-o", obj]
+            procs.append((f, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        errors = []
+        for f, _, p in procs:
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                errors.append(f"{f}:\n{out.decode(errors='replace')}")
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        tmp = lib_path + f".tmp{os.getpid()}"
+        link = subprocess.run(
+            [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", tmp,
+             *[obj for _, obj, _ in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n"
+                               + link.stdout.decode(errors="replace"))
+        os.replace(tmp, lib_path)
+        build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            path = _build(os.path.join(BUILD_ROOT, _digest()))
+            handle = ctypes.CDLL(path)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} "
+                           f"({torch.cuda.get_device_name()})")
+
+
+def stream_handle(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
