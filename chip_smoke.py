@@ -22,6 +22,24 @@ Phases, each printing one JSON line:
   profile    one more run of the line under torch.profiler: device time
              by kernel and the device's idle share;
   transform  tensor_transform acceleration=device bit-equal to numpy;
+  attention  the flash-attention kernel against its plain version (the
+             blockwise recurrence at the kernel's 64-key blocks) at causal
+             8x8192x128 (the stream line), 768x197x64 (ViT-S/16 at batch
+             128) and a ragged causal 3x1000x32: max error against the
+             stated tolerance; kernel, plain and bound ms, and the time of
+             torch's scaled_dot_product_attention at the same shape
+             (library_ms, timed only);
+  stream     the long-context line (appsrc ! tensor_aggregator !
+             tensor_filter model=stream_transformer ! tensor_sink) at seq
+             8192, dim 1024, 8 heads, depth 4: 8 windows after 2 warm-up
+             windows, windows and frames per second, p50 window latency,
+             4 flash_attention launches per forward, the output against a
+             twin of the model whose attention is the plain version; then
+             a profile line of 2 more windows;
+  vit        the ViT-S/16 labeling line (224x224, depth 6, 1000 classes,
+             128 frames per tensor): 6 flash_attention launches and 1
+             normalize_u8 launch per forward, logits against the plain
+             twin, frames per second and p50 batch latency;
 
 then one ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -269,25 +287,29 @@ def check_fused_block(torch, results):
 
 # -- phase: the flagship slice ---------------------------------------------
 
-def _flagship(labels: str, fused: str = "pallas") -> str:
+def _labeling_line(labels: str, model: str, custom: str) -> str:
     return (
         f"appsrc name=src caps=video/x-raw,format=RGB,width={SIZE},"
         f"height={SIZE},framerate=1000/1 "
         f"! tensor_converter frames-per-tensor={BATCH} "
-        f"! tensor_filter name=f framework=jax model=mobilenet_v2 "
-        f"custom=seed:0,postproc:argmax,fused:{fused} "
-        f"fetch-window={FETCH_WINDOW} "
+        f"! tensor_filter name=f framework=jax model={model} "
+        f"custom={custom} fetch-window={FETCH_WINDOW} "
         f"! queue ! tensor_decoder mode=image_labeling option1={labels} "
         f"! tensor_sink name=out")
 
 
-def _drive(torch, labels, frames, n_batches):
-    """Push n_batches of frames through the flagship line; returns
+def _flagship(labels: str, fused: str = "pallas") -> str:
+    return _labeling_line(labels, "mobilenet_v2",
+                          f"seed:0,postproc:argmax,fused:{fused}")
+
+
+def _drive(line, frames, n_batches):
+    """Push n_batches of frames through a labeling line; returns
     (labels per batch, seconds, p50 batch latency ms, pipeline)."""
     from nnstreamer_tpu_torch.buffer import Buffer
     from nnstreamer_tpu_torch.pipeline import parse_launch
 
-    p = parse_launch(_flagship(labels))
+    p = parse_launch(line)
     pushed, arrived = {}, {}
     p["out"].connect_new_data(
         lambda b: arrived.__setitem__(b.pts, time.perf_counter()))
@@ -298,10 +320,10 @@ def _drive(torch, labels, frames, n_batches):
         pushed[i] = time.perf_counter()
     p["src"].end_of_stream()
     if not p.bus.wait_eos(600):
-        raise TimeoutError("flagship line did not reach EOS")
+        raise TimeoutError("labeling line did not reach EOS")
     secs = time.perf_counter() - t0
     if p.bus.error is not None:
-        raise RuntimeError(f"flagship line failed: {p.bus.error.data}")
+        raise RuntimeError(f"labeling line failed: {p.bus.error.data}")
     lat = [(arrived[k] - pushed[k]) * 1e3 for k in arrived]
     out = [b.meta["label"] for b in p["out"].collected]
     return out, secs, statistics.median(lat), p
@@ -322,10 +344,10 @@ def check_slice(torch, results, workdir):
                       np.ones((SIZE // 4, SIZE // 4, 1))).astype(np.uint8)
               for _ in range(BATCH)]
     # warm-up run (cuDNN/cuBLAS plans, allocator) — not the measured one
-    _, _, _, p = _drive(torch, labels, frames, 2)
+    _, _, _, p = _drive(_flagship(labels), frames, 2)
     p.stop()
     _cuda.reset_launches()
-    out, secs, p50, p = _drive(torch, labels, frames, N_BATCHES)
+    out, secs, p50, p = _drive(_flagship(labels), frames, N_BATCHES)
     launches = dict(_cuda.LAUNCHES)
     forward = p["f"].fw._bundle.apply_fn  # the filter's own forward
     p.stop()
@@ -365,16 +387,25 @@ def check_slice(torch, results, workdir):
 
 
 def profile_slice(torch, labels, frames, n_batches: int = 4) -> None:
-    """One more run of the line under torch.profiler: device time by
-    kernel name and the device's idle share over the run's wall time
-    (first push to EOS). Device times are null when the profiler sees no
-    device activity."""
+    """One more run of the line under torch.profiler."""
+    def run():
+        _, secs, _, p = _drive(_flagship(labels), frames, n_batches)
+        p.stop()
+        return secs
+
+    emit("profile", line="flagship", batches=n_batches,
+         **device_profile(torch, run))
+
+
+def device_profile(torch, run) -> dict:
+    """Device time by kernel name and the device's idle share over the wall
+    time ``run()`` returns (first push to the last output). Device times
+    are null when the profiler sees no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, secs, _, p = _drive(torch, labels, frames, n_batches)
-        p.stop()
+        secs = run()
     by_name = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -384,10 +415,9 @@ def profile_slice(torch, labels, frames, n_batches: int = 4) -> None:
     busy_ms = sum(by_name.values()) / 1e3
     wall_ms = secs * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    emit("profile", batches=n_batches, wall_ms=wall_ms,
-         device_busy_ms=busy_ms or None,
-         idle_share=(1.0 - busy_ms / wall_ms) if busy_ms else None,
-         top_device=[{"name": k[:90], "ms": v / 1e3} for k, v in top])
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms or None,
+            "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
+            "top_device": [{"name": k[:90], "ms": v / 1e3} for k, v in top]}
 
 
 def check_transform(torch, results):
@@ -427,6 +457,298 @@ def check_transform(torch, results):
     results["arith_launches"] = launches
 
 
+# -- phase: the attention kernel against its plain version -----------------
+
+#: |kernel - plain| <= ATTN_TOL + ATTN_TOL * |plain|: both round p to bf16
+#: at the same running max (the same 64-key blocks) and the output once;
+#: only the order of the float32 sums differs, which can flip a bf16
+#: rounding of p or of the output (1 ulp = 2^-8 relative) — allow 4
+ATTN_TOL = 2.0 ** -6
+
+#: the long-context line (examples/long_context.py) at the repo's causal
+#: 8x8192x128 attention shape: head_dim 1024 / 8 = 128
+STREAM = {"seq": 8192, "feat": 64, "dim": 1024, "depth": 4, "heads": 8}
+STREAM_CHUNK = 512
+#: ViT-S/16 (bench_suite.py, tools/mfu_table.py), depth 6
+VIT = {"size": SIZE, "patch": 16, "depth": 6, "dim": 384, "heads": 6,
+       "classes": 1000}
+N_WARMUP = 2
+#: model outputs against the plain-attention instance on the same weights:
+#: the JAX package's bf16 tolerance for logits
+#: (tests/test_fused_block.py::test_model_zoo_fused_custom)
+MODEL_ATOL, MODEL_RTOL = 0.15, 0.05
+#: least share of ViT frames whose argmax must agree with the plain twin:
+#: random weights leave near-ties that a reordered float32 sum can flip
+VIT_ARGMAX_FLOOR = 0.95
+
+
+def _custom(cfg: dict) -> str:
+    return ",".join(f"{k}:{v}" for k, v in cfg.items())
+
+
+def attention_work(bh: int, sq: int, sk: int, d: int, causal: bool):
+    """(bytes, operations) one attention call needs: q, k, v read once and o
+    written once in bf16; 4*d operations (two products) per (q, k) pair the
+    mask keeps (positions count from 0 in both)."""
+    if not causal:
+        pairs = sq * sk
+    elif sq <= sk:
+        pairs = sq * (sq + 1) // 2
+    else:
+        pairs = sk * (sk + 1) // 2 + (sq - sk) * sk
+    return 2.0 * bh * d * (2 * sq + 2 * sk), 4.0 * bh * d * pairs
+
+
+def check_attention(torch, results):
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.ops.attention import (
+        BLOCK_K,
+        flash_attention_cuda,
+        flash_attention_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    hd = STREAM["dim"] // STREAM["heads"]
+    vit_hd = VIT["dim"] // VIT["heads"]
+    vit_tokens = (SIZE // VIT["patch"]) ** 2 + 1
+    # (case, bh, seq, head_dim, causal, on a main path)
+    cases = [("stream", STREAM["heads"], STREAM["seq"], hd, True, True),
+             ("vit", BATCH * VIT["heads"], vit_tokens, vit_hd, False, True),
+             ("ragged", 3, 1000, 32, True, False)]
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
+           "ops": 0.0, "err": 0.0}
+    for case, bh, s, d, causal, main in cases:
+        q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+
+        def kern():
+            return flash_attention_cuda(q, k, v, causal=causal)
+
+        def plain():
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         block_k=BLOCK_K)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        ok = bool(torch.isfinite(got.float()).all()) and within(
+            got, want, ATTN_TOL, ATTN_TOL)
+        row = {"kernel": "flash_attention", "case": case,
+               "shape": [bh, s, d], "causal": causal, "dtype": "bfloat16",
+               "block_k": BLOCK_K, "max_abs_err": err, "atol": ATTN_TOL,
+               "rtol": ATTN_TOL, "ok": ok}
+        if main:
+            def library():
+                return F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], is_causal=causal)
+
+            nbytes, ops = attention_work(bh, s, s, d, causal)
+            row["ms"] = cuda_ms(kern)
+            row["plain_ms"] = cuda_ms(plain, reps=5, warmup=1)
+            row["library_ms"] = cuda_ms(library)
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops,
+                                                        "bfloat16")
+            row["tflops"] = ops / row["ms"] / 1e9
+            for key in ("ms", "plain_ms", "library_ms"):
+                tot[key] += row[key]
+            tot["bytes"] += nbytes
+            tot["ops"] += ops
+        emit("attention", **row)
+        if not ok:
+            raise AssertionError(f"flash_attention disagrees: {row}")
+        tot["err"] = max(tot["err"], err)
+    b_ms, b_by = bound_ms(tot["bytes"], tot["ops"], "bfloat16")
+    results["flash_attention"] = {
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "library_ms": tot["library_ms"], "max_abs_err": tot["err"],
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _plain_twin(module, cls, cfg):
+    """A second instance of the filter's model with the kernel's plain
+    version as its attention, on the same weights: the oracle."""
+    import functools
+
+    from nnstreamer_tpu_torch.ops.attention import (
+        BLOCK_K,
+        flash_attention_plain,
+    )
+
+    twin = cls(**cfg, attention=functools.partial(flash_attention_plain,
+                                                  block_k=BLOCK_K))
+    twin.load_state_dict(module.state_dict())
+    return twin.to("cuda").eval()
+
+
+# -- phase: the long-context stream line -----------------------------------
+
+def _stream_line() -> str:
+    feat, seq = STREAM["feat"], STREAM["seq"]
+    return (f"appsrc name=src caps=other/tensors,format=static,"
+            f"dimensions={feat}:{STREAM_CHUNK},types=float32 "
+            f"! tensor_aggregator frames_in={STREAM_CHUNK} frames_out={seq} "
+            f"frames_dim=1 ! tensor_filter name=f framework=jax "
+            f"model=stream_transformer custom=seed:0,{_custom(STREAM)} "
+            f"! tensor_sink name=out")
+
+
+class _StreamDriver:
+    """The stream line, open across its runs: push whole windows of
+    chunks, wait for their outputs at the sink."""
+
+    def __init__(self, window):
+        from nnstreamer_tpu_torch.pipeline import parse_launch
+
+        self.chunks = [window[i:i + STREAM_CHUNK]
+                       for i in range(0, len(window), STREAM_CHUNK)]
+        self.p = parse_launch(_stream_line())
+        self.arrived = []
+        self.p["out"].connect_new_data(
+            lambda b: self.arrived.append(time.perf_counter()))
+        self.p.play()
+        self.pts = 0
+
+    def run(self, n_windows: int):
+        """Push n_windows windows; returns (seconds from the first push to
+        the last output, p50 ms from a window's last chunk to its output)."""
+        from nnstreamer_tpu_torch.buffer import Buffer
+
+        start = len(self.arrived)
+        last_push = []
+        t0 = time.perf_counter()
+        for _ in range(n_windows):
+            for c in self.chunks:
+                self.p["src"].push_buffer(Buffer(tensors=[c], pts=self.pts))
+                self.pts += 1
+            last_push.append(time.perf_counter())
+        deadline = time.monotonic() + 600
+        while len(self.arrived) < start + n_windows:
+            if self.p.bus.error is not None:
+                raise RuntimeError(f"stream line failed: "
+                                   f"{self.p.bus.error.data}")
+            if time.monotonic() > deadline:
+                raise TimeoutError("stream line: outputs did not arrive")
+            time.sleep(0.001)
+        secs = self.arrived[-1] - t0
+        lat = [(a - b) * 1e3 for a, b in zip(self.arrived[start:], last_push)]
+        return secs, statistics.median(lat)
+
+    def close(self):
+        self.p["src"].end_of_stream()
+        if not self.p.bus.wait_eos(120) or self.p.bus.error is not None:
+            raise RuntimeError(f"stream line failed at EOS: {self.p.bus.error}")
+        outs = [b.tensors[0] for b in self.p["out"].collected]
+        self.p.stop()
+        return outs
+
+
+def check_stream(torch, results):
+    import numpy as np
+
+    from nnstreamer_tpu_torch.models.vit import StreamTransformer
+    from nnstreamer_tpu_torch.ops import _cuda
+
+    seq, feat = STREAM["seq"], STREAM["feat"]
+    window = np.random.default_rng(3).normal(
+        size=(seq, feat)).astype(np.float32)
+    drv = _StreamDriver(window)
+    drv.run(N_WARMUP)
+    _cuda.reset_launches()
+    secs, p50 = drv.run(N_BATCHES)
+    launches = dict(_cuda.LAUNCHES)
+    if launches["flash_attention"] != STREAM["depth"] * N_BATCHES:
+        raise AssertionError(f"stream: launch counts per {N_BATCHES} "
+                             f"forwards: {launches}")
+    results["stream_launches"] = launches
+    prof = device_profile(torch, lambda: drv.run(N_WARMUP)[0])
+    bundle = drv.p["f"].fw._bundle  # the filter's own model
+    outs = drv.close()
+    # the filter's forward on one window against the plain-attention twin
+    twin = _plain_twin(bundle.module, StreamTransformer, STREAM)
+    x = torch.from_numpy(window).cuda()
+    with torch.inference_mode():
+        got = bundle.apply_fn(x).float()
+        want = twin(x[None]).float()
+    torch.cuda.synchronize()
+    last = np.asarray(outs[-1])
+    finite = bool(torch.isfinite(got).all()) and bool(np.isfinite(last).all())
+    ok = (finite and tuple(got.shape) == (1, seq, feat)
+          and last.shape == (1, seq, feat)
+          and within(got, want, MODEL_ATOL, MODEL_RTOL))
+    emit("stream", windows=N_BATCHES, frames=N_BATCHES * seq, seconds=secs,
+         windows_per_s=N_BATCHES / secs, frames_per_s=N_BATCHES * seq / secs,
+         p50_window_latency_ms=p50, launches=launches,
+         out_max_abs_err=max_err(got, want), out_atol=MODEL_ATOL,
+         out_rtol=MODEL_RTOL, out_ok=ok, finite=finite,
+         outputs=len(outs), card=results["card"])
+    emit("profile", line="stream", windows=N_WARMUP, **prof)
+    if not ok:
+        raise AssertionError("stream output disagrees with the plain "
+                             "forward or is not finite")
+
+
+# -- phase: the ViT-S/16 labeling line -------------------------------------
+
+def check_vit(torch, results, workdir):
+    import numpy as np
+
+    from nnstreamer_tpu_torch.models import preprocess_frames
+    from nnstreamer_tpu_torch.models.vit import ViT
+    from nnstreamer_tpu_torch.ops import _cuda
+
+    classes = VIT["classes"]
+    labels = os.path.join(workdir, "vit_labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class{i}" for i in range(classes)) + "\n")
+    rng = np.random.default_rng(4)
+    frames = [np.kron(rng.integers(0, 256, (4, 4, 3)),
+                      np.ones((SIZE // 4, SIZE // 4, 1))).astype(np.uint8)
+              for _ in range(BATCH)]
+    line = _labeling_line(labels, "vit",
+                          f"seed:0,postproc:argmax,{_custom(VIT)}")
+    _, _, _, p = _drive(line, frames, N_WARMUP)
+    p.stop()
+    _cuda.reset_launches()
+    out, secs, p50, p = _drive(line, frames, N_BATCHES)
+    launches = dict(_cuda.LAUNCHES)
+    bundle = p["f"].fw._bundle
+    p.stop()
+    n_frames = sum(len(b) for b in out)
+    if len(out) != N_BATCHES or n_frames != N_BATCHES * BATCH:
+        raise AssertionError(f"vit: expected {N_BATCHES * BATCH} labels, got "
+                             f"{n_frames} in {len(out)} buffers")
+    names = {f"class{i}" for i in range(classes)}
+    if not all(lab in names for b in out for lab in b):
+        raise AssertionError("vit: a label is not from the labels file")
+    if launches["flash_attention"] != VIT["depth"] * N_BATCHES or \
+            launches["normalize_u8"] != N_BATCHES:
+        raise AssertionError(f"vit: launch counts per {N_BATCHES} forwards: "
+                             f"{launches}")
+    results["vit_launches"] = launches
+    twin = _plain_twin(bundle.module, ViT, VIT)
+    x = torch.from_numpy(np.stack(frames)).cuda()
+    with torch.inference_mode():
+        got = bundle.apply_fn(x).float()
+        want = twin(preprocess_frames(x, "pm1", torch.bfloat16)).float()
+    torch.cuda.synchronize()
+    ok = bool(torch.isfinite(got).all()) and within(got, want, MODEL_ATOL,
+                                                    MODEL_RTOL)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    ok = ok and agree >= VIT_ARGMAX_FLOOR
+    emit("vit", frames=n_frames, batches=len(out), seconds=secs,
+         fps=n_frames / secs, p50_batch_latency_ms=p50,
+         fetch_window=FETCH_WINDOW, launches=launches,
+         logits_max_abs_err=max_err(got, want), logits_atol=MODEL_ATOL,
+         logits_rtol=MODEL_RTOL, logits_ok=ok, argmax_agreement=agree,
+         argmax_floor=VIT_ARGMAX_FLOOR,
+         distinct_labels=len({lab for b in out for lab in b}),
+         card=results["card"])
+    if not ok:
+        raise AssertionError("vit logits or labels disagree with the plain "
+                             "forward")
+
+
 def main() -> int:
     import torch
 
@@ -452,23 +774,32 @@ def main() -> int:
     check_fused_block(torch, results)
     check_slice(torch, results, workdir)
     check_transform(torch, results)
+    check_attention(torch, results)
+    check_stream(torch, results)
+    check_vit(torch, results, workdir)
 
     src = {"fused_inverted_residual": "nnstreamer_tpu_torch/csrc/fused_block.cu",
            "normalize_u8": "nnstreamer_tpu_torch/csrc/preprocess.cu",
-           "arith_chain": "nnstreamer_tpu_torch/csrc/transform_ops.cu"}
+           "arith_chain": "nnstreamer_tpu_torch/csrc/transform_ops.cu",
+           "flash_attention": "nnstreamer_tpu_torch/csrc/attention.cu"}
     rep = {"fused_inverted_residual": "nnstreamer_tpu/ops/fused_block.py:430",
            "normalize_u8": "nnstreamer_tpu/ops/preprocess.py:63",
-           "arith_chain": "nnstreamer_tpu/ops/transform_ops.py:75"}
-    launches = dict(results["launches"], arith_chain=results["arith_launches"])
+           "arith_chain": "nnstreamer_tpu/ops/transform_ops.py:75",
+           "flash_attention": "nnstreamer_tpu/ops/attention.py:180"}
+    # launches summed over the main-path runs of every line
+    launches = {name: sum(results[run][name] for run in (
+        "launches", "stream_launches", "vit_launches")) for name in src}
+    launches["arith_chain"] += results["arith_launches"]
     kernels = []
-    for name in ("fused_inverted_residual", "normalize_u8", "arith_chain"):
+    for name in src:
         r = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src[name],
             "replaces": rep[name], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

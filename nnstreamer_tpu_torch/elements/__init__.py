@@ -1,6 +1,7 @@
 """Built-in elements. Importing this package registers all element classes
 (parity: the single plugin registerer, gst/nnstreamer/registerer/nnstreamer.c:53-75)."""
 
+import nnstreamer_tpu_torch.elements.aggregator  # noqa: F401
 import nnstreamer_tpu_torch.elements.basic  # noqa: F401
 import nnstreamer_tpu_torch.elements.converter  # noqa: F401
 import nnstreamer_tpu_torch.elements.decoder  # noqa: F401

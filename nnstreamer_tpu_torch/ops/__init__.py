@@ -5,11 +5,19 @@ package's Pallas kernels on the flagship path.
   fused_inverted_residual   ops/fused_block.py   csrc/fused_block.cu
   normalize_u8              ops/preprocess.py    csrc/preprocess.cu
   arith_chain               ops/transform_ops.py csrc/transform_ops.cu
+  flash_attention           ops/attention.py     csrc/attention.cu
 
 A wrapper runs its plain version only for a tensor on the CPU; a CUDA
 tensor launches the kernel or raises (ops/_cuda.py builds and loads them).
 """
 
+from nnstreamer_tpu_torch.ops.attention import (  # noqa: F401
+    flash_attention,
+    flash_attention_auto,
+    flash_attention_cuda,
+    flash_attention_plain,
+    plain_attention,
+)
 from nnstreamer_tpu_torch.ops.fused_block import (  # noqa: F401
     fold_conv_bn,
     fold_inverted_residual,

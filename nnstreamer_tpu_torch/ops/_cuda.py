@@ -57,6 +57,7 @@ LAUNCHES: Dict[str, int] = {
     "fused_inverted_residual": 0,
     "normalize_u8": 0,
     "arith_chain": 0,
+    "flash_attention": 0,
 }
 
 _P = ctypes.c_void_p
@@ -70,6 +71,7 @@ _SIGNATURES = {
     "nnstpu_arith_chain": [_P, _P, _LL, _I, _I, _P, _P, _I, _I, _F, _F, _I,
                            _P],
     "nnstpu_fused_inverted_residual": [_P] * 8 + [_I] * 12 + [_LL, _P],
+    "nnstpu_flash_attention": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

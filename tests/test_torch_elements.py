@@ -116,3 +116,87 @@ def test_registry_is_separate_from_the_jax_package():
         assert element_class(name).__module__.startswith(
             "nnstreamer_tpu_torch.")
         assert jax_cls(name).__module__.startswith("nnstreamer_tpu.")
+
+
+# -- tensor_aggregator ------------------------------------------------------
+
+#: (per-buffer numpy shape, aggregator properties, buffers pushed)
+AGG_CASES = {
+    "windows": ((4, 8), "frames_in=4 frames_out=8 frames_dim=1", 6),
+    "overlap": ((4, 8), "frames_in=4 frames_out=6 frames_flush=2 "
+                        "frames_dim=1", 6),
+    "inner_dim": ((2, 3, 8), "frames_in=1 frames_out=3 frames_dim=0", 5),
+    "new_axis": ((3, 8), "frames_in=1 frames_out=2 frames_dim=2", 5),
+}
+
+
+def _agg_line(shape, props):
+    dims = ":".join(str(d) for d in reversed(shape))
+    return (f"appsrc name=src caps=other/tensors,format=static,"
+            f"dimensions={dims},types=float32,framerate=30/1 "
+            f"! tensor_aggregator {props} ! tensor_sink name=out")
+
+
+def _agg_run(mod, buffer_cls, line, chunks):
+    """The buffers tensor_aggregator pushes (seen at its src, before the
+    sink brings them to the host)."""
+    p = mod.parse_launch(line.replace("tensor_aggregator",
+                                      "tensor_aggregator name=agg"))
+    agg, pushed = p["agg"], []
+    real_push = agg.push
+
+    def push(buf, *a, **kw):
+        pushed.append(buf)
+        return real_push(buf, *a, **kw)
+
+    agg.push = push
+    p.play()
+    for i, c in enumerate(chunks):
+        p["src"].push_buffer(buffer_cls(tensors=[c], pts=i))
+    p["src"].end_of_stream()
+    assert p.bus.wait_eos(60)
+    assert p.bus.error is None, p.bus.error
+    assert len(p["out"].collected) == len(pushed)
+    p.stop()
+    return pushed
+
+
+@pytest.mark.parametrize("kind", ["numpy", "torch"])
+@pytest.mark.parametrize("case", sorted(AGG_CASES))
+def test_aggregator_windows_match(case, kind):
+    """Windows, flush and frames_dim as the JAX element gives them: the
+    same arrays, the same pts. torch tensors go through torch.split and
+    torch.cat and come out as torch tensors."""
+    shape, props, n = AGG_CASES[case]
+    rng = np.random.default_rng(8)
+    chunks = [rng.normal(size=shape).astype(np.float32) for _ in range(n)]
+    line = _agg_line(shape, props)
+    want = _agg_run(jax_pipeline, JaxBuffer, line, chunks)
+    port_in = chunks if kind == "numpy" else [torch.from_numpy(c)
+                                              for c in chunks]
+    got = _agg_run(port_pipeline, PortBuffer, line, port_in)
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        t = g.tensors[0]
+        assert isinstance(t, torch.Tensor) == (kind == "torch")
+        np.testing.assert_array_equal(np.asarray(t), np.asarray(w.tensors[0]))
+        assert g.pts == w.pts
+
+
+@pytest.mark.parametrize("case", sorted(AGG_CASES))
+def test_aggregator_caps_match(case):
+    """Output caps (dims and framerate) from the same input caps."""
+    from nnstreamer_tpu.caps import Caps as JaxCaps
+    from nnstreamer_tpu_torch.caps import Caps as PortCaps
+
+    shape, props, _ = AGG_CASES[case]
+    line = _agg_line(shape, props)
+    caps_str = line.split("caps=", 1)[1].split(" ", 1)[0]
+    out = []
+    for mod, caps_cls in ((jax_pipeline, JaxCaps), (port_pipeline, PortCaps)):
+        agg = mod.parse_launch(line.replace(
+            "tensor_aggregator", "tensor_aggregator name=agg"))["agg"]
+        out.append(str(agg.transform_caps(agg.sink_pads[0],
+                                          caps_cls(caps_str))))
+    assert out[0] == out[1]
+    assert "framerate=" in out[1]
