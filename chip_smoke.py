@@ -9,10 +9,11 @@ Phases, each printing one JSON line:
              from csrc/ with nvcc;
   kernel     every hand-written kernel against its plain PyTorch version on
              the card, at the flagship path's shapes: max abs error against
-             the stated tolerance, kernel and plain times (CUDA events,
-             median of 20 after warm-up) and the least time the card could
-             take for the same work (bytes at 3.35 TB/s or operations at
-             the peak rate for their type, whichever is larger);
+             the stated tolerance, kernel and plain times (CUDA events
+             around back-to-back calls, after warm-up) and the least time
+             the card could take for the same work (bytes at 3.35 TB/s or
+             operations at the peak rate for their type, whichever is
+             larger);
   slice      the flagship image-labeling line through the port's
              parse_launch at full width (MobileNet-v2 1.0, 224x224 RGB,
              1001 classes, 128 frames per tensor): one label per frame,
@@ -36,6 +37,23 @@ Phases, each printing one JSON line:
              4 flash_attention launches per forward, the output against a
              twin of the model whose attention is the plain version; then
              a profile line of 2 more windows;
+  chunk      the ring's chunk kernel against its plain version (the chunk
+             recurrence at the kernel's 64-key blocks) at the stream line's
+             sp=4 shard, 8x2048x128, on carries from an earlier hop: the
+             diagonal, past, future and non-causal hops, and two ragged
+             causal cases (3x1000x32 with offsets); the future hop leaves
+             the carries bit-identical, the others hold acc/l, m and l
+             within stated tolerances; kernel, plain and bound ms per hop;
+  ring       ring_attention over make_mesh(sp=4, devices=[cuda:0] * 4) at
+             causal 8x8192x128 against the same ring over the plain chunk
+             update, cross-checked (with their own tolerance) against
+             flash_attention_cuda, as is ulysses_attention at 1x8x8192x128;
+             16 flash_chunk launches per ring call and 4 flash_attention
+             per Ulysses call; ring, Ulysses, flash and SDPA ms; then the
+             stream line's StreamTransformer on the filter's own weights
+             with the ring as its attention (64 flash_chunk launches)
+             against the filter's flash forward, and both forwards' ms;
+             and a profile line of 5 ring calls;
   vit        the ViT-S/16 labeling line (224x224, depth 6, 1000 classes,
              128 frames per tensor): 6 flash_attention launches and 1
              normalize_u8 launch per forward, logits against the plain
@@ -81,21 +99,29 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of fn(), after warm-up."""
+    """Milliseconds per call of fn(), after warm-up: the median over up to
+    5 groups of back-to-back calls (``reps`` in all), each group timed by
+    two CUDA events. Back to back, a kernel that takes longer than its
+    host-side launch keeps the card busy, so this is its device time; a
+    call whose host side is the slower (a launch that does no work) is
+    timed by its host side."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    groups = max(1, min(5, reps))
+    per = max(1, reps // groups)
     times = []
-    for _ in range(reps):
+    for _ in range(groups):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(per):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / per)
     return statistics.median(times)
 
 
@@ -486,17 +512,28 @@ def _custom(cfg: dict) -> str:
     return ",".join(f"{k}:{v}" for k, v in cfg.items())
 
 
-def attention_work(bh: int, sq: int, sk: int, d: int, causal: bool):
-    """(bytes, operations) one attention call needs: q, k, v read once and o
-    written once in bf16; 4*d operations (two products) per (q, k) pair the
-    mask keeps (positions count from 0 in both)."""
-    if not causal:
-        pairs = sq * sk
-    elif sq <= sk:
-        pairs = sq * (sq + 1) // 2
+def attention_work(bh: int, sq: int, sk: int, d: int, causal: bool,
+                   q_offset: int = 0, k_offset: int = 0,
+                   carries: bool = False):
+    """(bytes, operations) one attention call needs: 4*d operations (two
+    products) per (q, k) pair the mask keeps, at the global positions
+    q_offset + i >= k_offset + j; q, k, v read once in bf16 and either o
+    written once in bf16 (a flash call) or, for a chunk update
+    (``carries``), the float32 carries m, l, acc read and written once. A
+    chunk no row sees needs nothing: its carries pass through."""
+    import numpy as np
+
+    if causal:
+        pairs = int(np.clip(q_offset - k_offset + 1 + np.arange(sq), 0,
+                            sk).sum())
     else:
-        pairs = sk * (sk + 1) // 2 + (sq - sk) * sk
-    return 2.0 * bh * d * (2 * sq + 2 * sk), 4.0 * bh * d * pairs
+        pairs = sq * sk
+    if not carries:
+        return 2.0 * bh * d * (2 * sq + 2 * sk), 4.0 * bh * d * pairs
+    if pairs == 0:
+        return 0.0, 0.0
+    return (bh * (2.0 * d * (sq + 2 * sk) + 8.0 * sq * (2 + d)),
+            4.0 * bh * d * pairs)
 
 
 def check_attention(torch, results):
@@ -663,6 +700,7 @@ def check_stream(torch, results):
     results["stream_launches"] = launches
     prof = device_profile(torch, lambda: drv.run(N_WARMUP)[0])
     bundle = drv.p["f"].fw._bundle  # the filter's own model
+    results["stream_module"], results["stream_window"] = bundle.module, window
     outs = drv.close()
     # the filter's forward on one window against the plain-attention twin
     twin = _plain_twin(bundle.module, StreamTransformer, STREAM)
@@ -686,6 +724,237 @@ def check_stream(torch, results):
     if not ok:
         raise AssertionError("stream output disagrees with the plain "
                              "forward or is not finite")
+
+
+# -- phase: the ring's chunk kernel against its plain version --------------
+
+#: the stream line's attention (causal 8x8192x128) over an sp=4 mesh on the
+#: one card: 4 shards of 2048, 16 chunk launches per ring call, 4 on the
+#: diagonal, 6 in the past and 6 in the masked future
+SP = 4
+#: chunk carries, kernel against plain from the same carries: m is a max of
+#: float32 dot products of 128 bf16 pairs summed in another order, so it
+#: moves by a few float32 ulps of those sums; l sums the same float32 exps
+#: in another order, at an m that moved by that much: both far inside
+#: 1e-4. acc / l, the hop's output, is held at ATTN_TOL, as the flash kernel
+CHUNK_M_ATOL = 1e-4
+CHUNK_L_RTOL = 1e-4
+#: ring (or Ulysses) against flash_attention_cuda on the same q/k/v: the ring
+#: folds a row's keys in another order (its diagonal chunk first, then the
+#: earlier ones), so every p is rounded to bf16 at another running max, not
+#: only a few: |Δ| <= 2^-9 max|v| (p's rounding) + 2 bf16 ulps of the output;
+#: 2^-5 absolute and relative holds that with room for max|v| up to 8
+XCHECK_TOL = 2.0 ** -5
+
+
+def _carries(torch, bh, sq, d):
+    return (torch.full((bh, sq), -1e30, device="cuda"),
+            torch.zeros((bh, sq), device="cuda"),
+            torch.zeros((bh, sq, d), device="cuda"))
+
+
+def check_chunk(torch, results):
+    from nnstreamer_tpu_torch.ops.attention import (
+        BLOCK_K,
+        flash_chunk_cuda,
+        flash_chunk_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bh, n = STREAM["heads"], STREAM["seq"] // SP
+    d = STREAM["dim"] // STREAM["heads"]
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    # (case, q/k/v/earlier-chunk shapes, q_offset, k_offset, causal, timed):
+    # the ring's shard 2 at its hops, on carries from an earlier hop over a
+    # past chunk, so they are non-zero; then two ragged causal cases, the
+    # second with its first q tiles wholly before the chunk
+    cases = [("diagonal", (bh, n, n, d), 2 * n, 2 * n, True, True),
+             ("past", (bh, n, n, d), 2 * n, n, True, True),
+             ("future", (bh, n, n, d), 2 * n, 3 * n, True, True),
+             ("noncausal", (bh, n, n, d), 2 * n, n, False, True),
+             ("ragged", (3, 1000, 1000, 32), 1000, 700, True, False),
+             ("ragged_head", (3, 1000, 1000, 32), 0, 300, True, False)]
+    rows = {}
+    for case, (b, sq, sk, hd), q_off, k_off, causal, timed in cases:
+        q, k, v, k0, v0 = (bf16(b, s, hd) for s in (sq, sk, sk, sk, sk))
+        scale = 1.0 / hd ** 0.5
+        kw = dict(q_offset=q_off, k_offset=k_off, causal=causal, scale=scale)
+        carries = flash_chunk_plain(
+            q, k0, v0, *_carries(torch, b, sq, hd), q_offset=q_off,
+            k_offset=q_off - sk if causal else 0, causal=causal, scale=scale)
+        before = [c.clone() for c in carries]
+        got = flash_chunk_cuda(q, k, v, *[c.clone() for c in carries], **kw)
+        want = flash_chunk_plain(q, k, v, *carries, block_k=BLOCK_K, **kw)
+        torch.cuda.synchronize()
+        out_got, out_want = (c[2] / c[1].clamp(min=1e-37)[..., None]
+                             for c in (got, want))
+        err = max_err(out_got, out_want)
+        m_err = max_err(got[0], want[0])
+        l_rel = float(((got[1] - want[1]).abs()
+                       / want[1].abs().clamp(min=1e-30)).max())
+        finite = all(bool(torch.isfinite(c).all()) for c in got)
+        if case == "future":
+            same = all(torch.equal(g.view(torch.int32), c.view(torch.int32))
+                       for g, c in zip(got, before))
+            ok = same and all(torch.equal(w, c) for w, c in zip(want, before))
+        else:
+            ok = (finite and within(out_got, out_want, ATTN_TOL, ATTN_TOL)
+                  and m_err <= CHUNK_M_ATOL and l_rel <= CHUNK_L_RTOL)
+        row = {"kernel": "flash_chunk", "case": case, "shape": [b, sq, sk, hd],
+               "q_offset": q_off, "k_offset": k_off, "causal": causal,
+               "dtype": "bfloat16", "block_k": BLOCK_K, "max_abs_err": err,
+               "atol": ATTN_TOL, "rtol": ATTN_TOL, "m_max_abs_err": m_err,
+               "m_atol": CHUNK_M_ATOL, "l_max_rel_err": l_rel,
+               "l_rtol": CHUNK_L_RTOL, "ok": ok}
+        if case == "future":
+            row["bit_identical"] = ok
+        if timed:
+            work = [c.clone() for c in carries]
+            row["ms"] = cuda_ms(lambda: flash_chunk_cuda(q, k, v, *work, **kw))
+            row["plain_ms"] = cuda_ms(lambda: flash_chunk_plain(
+                q, k, v, *carries, block_k=BLOCK_K, **kw), reps=5, warmup=1)
+            nbytes, ops = attention_work(b, sq, sk, hd, causal, q_off, k_off,
+                                         carries=True)
+            row["bytes"], row["ops"] = nbytes, ops
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops,
+                                                        "bfloat16")
+            row["tflops"] = ops / row["ms"] / 1e9
+            row["library_ms"] = None
+        emit("chunk", **row)
+        if not ok:
+            raise AssertionError(f"flash_chunk disagrees: {row}")
+        rows[case] = row
+    # the kernels line: one ring call's 16 hops at the stream shape
+    hops = {"diagonal": SP, "past": SP * (SP - 1) // 2,
+            "future": SP * (SP - 1) // 2}
+    tot = {key: sum(rows[c][key] * k for c, k in hops.items())
+           for key in ("ms", "plain_ms", "bytes", "ops")}
+    b_ms, b_by = bound_ms(tot["bytes"], tot["ops"], "bfloat16")
+    results["flash_chunk"] = {
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "library_ms": None,
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "bound_ms": b_ms, "bound_by": b_by, "hops": hops}
+
+
+# -- phase: sequence-parallel attention over an sp mesh on the card --------
+
+def check_ring(torch, results):
+    import functools
+
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.models.vit import StreamTransformer
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.ops.attention import (
+        flash_attention_cuda,
+        ring_attention,
+        ring_attention_plain,
+        ulysses_attention,
+    )
+    from nnstreamer_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(sp=SP, devices=[torch.device("cuda", 0)] * SP)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bh, s = STREAM["heads"], STREAM["seq"]
+    d = STREAM["dim"] // STREAM["heads"]
+    q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+
+    def ring():
+        return ring_attention(q, k, v, mesh, "sp", causal=True)
+
+    def plain():
+        return ring_attention_plain(q, k, v, mesh, "sp", causal=True)
+
+    def flash():
+        return flash_attention_cuda(q, k, v, causal=True)
+
+    def ulysses():
+        return ulysses_attention(q[None], k[None], v[None], mesh, "sp",
+                                 causal=True)
+
+    def library():
+        return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                              is_causal=True)
+
+    _cuda.reset_launches()
+    got = ring()
+    torch.cuda.synchronize()
+    ring_launches = dict(_cuda.LAUNCHES)
+    _cuda.reset_launches()
+    uly = ulysses()[0]
+    torch.cuda.synchronize()
+    uly_launches = dict(_cuda.LAUNCHES)
+    want, ref = plain(), flash()
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    ok = bool(torch.isfinite(got.float()).all()) and within(
+        got, want, ATTN_TOL, ATTN_TOL)
+    x_ok = within(got, ref, XCHECK_TOL, XCHECK_TOL)
+    u_ok = within(uly, ref, XCHECK_TOL, XCHECK_TOL)
+    counts_ok = (ring_launches["flash_chunk"] == SP * SP
+                 and ring_launches["flash_attention"] == 0
+                 and uly_launches["flash_attention"] == SP
+                 and uly_launches["flash_chunk"] == 0)
+    row = {"shape": [bh, s, d], "causal": True, "dtype": "bfloat16",
+           "sp": SP, "devices": [str(dv) for dv in mesh.axis_devices("sp")],
+           "max_abs_err_vs_plain_ring": err, "atol": ATTN_TOL,
+           "rtol": ATTN_TOL, "ok": ok,
+           "max_abs_err_vs_flash": max_err(got, ref),
+           "ulysses_max_abs_err_vs_flash": max_err(uly, ref),
+           "ulysses_bit_equal_flash": bool(torch.equal(uly, ref)),
+           "xcheck_tol": XCHECK_TOL, "xcheck_ok": x_ok and u_ok,
+           "ring_launches": ring_launches, "ulysses_launches": uly_launches,
+           "ring_ms": cuda_ms(ring, reps=10),
+           "plain_ring_ms": cuda_ms(plain, reps=1, warmup=1),
+           "ulysses_ms": cuda_ms(ulysses, reps=10),
+           "flash_ms": cuda_ms(flash, reps=10),
+           "sdpa_ms": cuda_ms(library, reps=10), "card": results["card"]}
+    emit("ring", **row)
+    if not (ok and x_ok and u_ok and counts_ok):
+        raise AssertionError(f"ring/ulysses: {row}")
+
+    def five_rings():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            ring()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    emit("profile", line="ring", calls=5, **device_profile(torch, five_rings))
+
+    # the stream transformer at full width with the ring as its attention,
+    # on the filter's own weights, against the filter's (flash) forward
+    flash_model = results["stream_module"]
+    ring_model = StreamTransformer(**STREAM, attention=functools.partial(
+        ring_attention, mesh=mesh, axis_name="sp"))
+    ring_model.load_state_dict(flash_model.state_dict())
+    ring_model = ring_model.to("cuda").eval()
+    x = torch.from_numpy(results["stream_window"]).cuda()[None]
+    with torch.inference_mode():
+        want = flash_model(x).float()
+        _cuda.reset_launches()
+        got = ring_model(x).float()
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+        ring_fwd_ms = cuda_ms(lambda: ring_model(x), reps=5, warmup=1)
+        flash_fwd_ms = cuda_ms(lambda: flash_model(x), reps=5, warmup=1)
+    ok = (bool(torch.isfinite(got).all())
+          and tuple(got.shape) == (1, STREAM["seq"], STREAM["feat"])
+          and within(got, want, MODEL_ATOL, MODEL_RTOL))
+    emit("ring", model="stream_transformer", sp=SP, launches=launches,
+         out_max_abs_err=max_err(got, want), out_atol=MODEL_ATOL,
+         out_rtol=MODEL_RTOL, out_ok=ok, ring_forward_ms=ring_fwd_ms,
+         flash_forward_ms=flash_fwd_ms, card=results["card"])
+    if not ok or launches["flash_chunk"] != SP * SP * STREAM["depth"] \
+            or launches["flash_attention"] != 0:
+        raise AssertionError(f"ring stream transformer: {launches}, ok={ok}")
+    results["ring_launches"] = launches
 
 
 # -- phase: the ViT-S/16 labeling line -------------------------------------
@@ -776,19 +1045,24 @@ def main() -> int:
     check_transform(torch, results)
     check_attention(torch, results)
     check_stream(torch, results)
+    check_chunk(torch, results)
+    check_ring(torch, results)
     check_vit(torch, results, workdir)
 
     src = {"fused_inverted_residual": "nnstreamer_tpu_torch/csrc/fused_block.cu",
            "normalize_u8": "nnstreamer_tpu_torch/csrc/preprocess.cu",
            "arith_chain": "nnstreamer_tpu_torch/csrc/transform_ops.cu",
-           "flash_attention": "nnstreamer_tpu_torch/csrc/attention.cu"}
+           "flash_attention": "nnstreamer_tpu_torch/csrc/attention.cu",
+           "flash_chunk": "nnstreamer_tpu_torch/csrc/attention.cu"}
     rep = {"fused_inverted_residual": "nnstreamer_tpu/ops/fused_block.py:430",
            "normalize_u8": "nnstreamer_tpu/ops/preprocess.py:63",
            "arith_chain": "nnstreamer_tpu/ops/transform_ops.py:75",
-           "flash_attention": "nnstreamer_tpu/ops/attention.py:180"}
+           "flash_attention": "nnstreamer_tpu/ops/attention.py:180",
+           "flash_chunk": "nnstreamer_tpu/ops/attention.py:347"}
     # launches summed over the main-path runs of every line
     launches = {name: sum(results[run][name] for run in (
-        "launches", "stream_launches", "vit_launches")) for name in src}
+        "launches", "stream_launches", "vit_launches", "ring_launches"))
+        for name in src}
     launches["arith_chain"] += results["arith_launches"]
     kernels = []
     for name in src:

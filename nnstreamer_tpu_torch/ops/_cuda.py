@@ -58,6 +58,7 @@ LAUNCHES: Dict[str, int] = {
     "normalize_u8": 0,
     "arith_chain": 0,
     "flash_attention": 0,
+    "flash_chunk": 0,
 }
 
 _P = ctypes.c_void_p
@@ -72,6 +73,7 @@ _SIGNATURES = {
                            _P],
     "nnstpu_fused_inverted_residual": [_P] * 8 + [_I] * 12 + [_LL, _P],
     "nnstpu_flash_attention": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
+    "nnstpu_flash_chunk": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
