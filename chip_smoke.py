@@ -24,12 +24,15 @@ Phases, each printing one JSON line:
              by kernel and the device's idle share;
   transform  tensor_transform acceleration=device bit-equal to numpy;
   attention  the flash-attention kernel against its plain version (the
-             blockwise recurrence at the kernel's 64-key blocks) at causal
+             blockwise recurrence at the kernel's 128-key blocks) at causal
              8x8192x128 (the stream line), 768x197x64 (ViT-S/16 at batch
-             128) and a ragged causal 3x1000x32: max error against the
-             stated tolerance; kernel, plain and bound ms, and the time of
-             torch's scaled_dot_product_attention at the same shape
-             (library_ms, timed only);
+             128), a ragged causal 3x1000x32 and 4x777x64 and a ragged
+             non-causal 2x333x128 (each head dim on both mask paths): max
+             error against the stated tolerance; kernel, plain and bound ms,
+             and the time of torch's scaled_dot_product_attention at the
+             same shape (library_ms, timed only); every line also gives the
+             kernel's registers per thread, dynamic shared memory and
+             resident CTAs per SM;
   stream     the long-context line (appsrc ! tensor_aggregator !
              tensor_filter model=stream_transformer ! tensor_sink) at seq
              8192, dim 1024, 8 heads, depth 4: 8 windows after 2 warm-up
@@ -38,7 +41,7 @@ Phases, each printing one JSON line:
              twin of the model whose attention is the plain version; then
              a profile line of 2 more windows;
   chunk      the ring's chunk kernel against its plain version (the chunk
-             recurrence at the kernel's 64-key blocks) at the stream line's
+             recurrence at the kernel's 128-key blocks) at the stream line's
              sp=4 shard, 8x2048x128, on carries from an earlier hop: the
              diagonal, past, future and non-causal hops, and two ragged
              causal cases (3x1000x32 with offsets); the future hop leaves
@@ -486,9 +489,10 @@ def check_transform(torch, results):
 # -- phase: the attention kernel against its plain version -----------------
 
 #: |kernel - plain| <= ATTN_TOL + ATTN_TOL * |plain|: both round p to bf16
-#: at the same running max (the same 64-key blocks) and the output once;
-#: only the order of the float32 sums differs, which can flip a bf16
-#: rounding of p or of the output (1 ulp = 2^-8 relative) — allow 4
+#: at the same running max (the same 128-key blocks, BLOCK_K) and the
+#: output once; only the order of the float32 sums and exp's last bits
+#: differ, which can flip a bf16 rounding of p or of the output (1 ulp =
+#: 2^-8 relative) — allow 4
 ATTN_TOL = 2.0 ** -6
 
 #: the long-context line (examples/long_context.py) at the repo's causal
@@ -543,6 +547,7 @@ def check_attention(torch, results):
         BLOCK_K,
         flash_attention_cuda,
         flash_attention_plain,
+        flash_kernel_attributes,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -552,7 +557,9 @@ def check_attention(torch, results):
     # (case, bh, seq, head_dim, causal, on a main path)
     cases = [("stream", STREAM["heads"], STREAM["seq"], hd, True, True),
              ("vit", BATCH * VIT["heads"], vit_tokens, vit_hd, False, True),
-             ("ragged", 3, 1000, 32, True, False)]
+             ("ragged", 3, 1000, 32, True, False),
+             ("ragged64", 4, 777, 64, True, False),
+             ("noncausal128", 2, 333, 128, False, False)]
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
            "ops": 0.0, "err": 0.0}
     for case, bh, s, d, causal, main in cases:
@@ -574,7 +581,7 @@ def check_attention(torch, results):
         row = {"kernel": "flash_attention", "case": case,
                "shape": [bh, s, d], "causal": causal, "dtype": "bfloat16",
                "block_k": BLOCK_K, "max_abs_err": err, "atol": ATTN_TOL,
-               "rtol": ATTN_TOL, "ok": ok}
+               "rtol": ATTN_TOL, "ok": ok, **flash_kernel_attributes(d)}
         if main:
             def library():
                 return F.scaled_dot_product_attention(
@@ -758,6 +765,7 @@ def check_chunk(torch, results):
         BLOCK_K,
         flash_chunk_cuda,
         flash_chunk_plain,
+        flash_kernel_attributes,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -809,7 +817,8 @@ def check_chunk(torch, results):
                "dtype": "bfloat16", "block_k": BLOCK_K, "max_abs_err": err,
                "atol": ATTN_TOL, "rtol": ATTN_TOL, "m_max_abs_err": m_err,
                "m_atol": CHUNK_M_ATOL, "l_max_rel_err": l_rel,
-               "l_rtol": CHUNK_L_RTOL, "ok": ok}
+               "l_rtol": CHUNK_L_RTOL, "ok": ok,
+               **flash_kernel_attributes(hd, carry=True)}
         if case == "future":
             row["bit_identical"] = ok
         if timed:

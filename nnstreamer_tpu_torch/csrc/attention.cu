@@ -1,4 +1,4 @@
-// Flash attention on the tensor cores, two kernels from one template:
+// Flash attention on Hopper's tensor cores, two kernels from one CTA body:
 //
 //   flash_fwd_kernel   o = softmax(q kᵀ * scale [causal mask]) v, fresh
 //                      carries, the output normalised and rounded to bf16;
@@ -21,76 +21,281 @@
 // 128, block-divisible sequences, an 8 MiB VMEM budget) is the TPU's; these
 // kernels have none. Here the offsets are kernel arguments (no rebuild per
 // hop) and a CTA whose rows all precede the chunk's first key returns
-// before it reads K/V or touches the carries.
+// before it touches a barrier, K/V or the carries.
 //
-// Design (simple and right first; wgmma, TMA and warp specialisation are
-// later work). One CTA of 4 warps owns one (batch*head, 64-row q tile);
-// each warp owns 16 q rows. The warp's q fragments stay in registers for
-// the whole loop. K/V tiles of 64 keys are streamed through shared memory
-// by a loop inside the CTA: K row-major, V transposed, both rows padded by
-// 16 bytes so the fragment loads are free of bank conflicts. Both products
-// run on the tensor cores through mma.sync m16n8k16 (bf16 in, float32
-// accumulate): s = q kᵀ with the q fragments as A and K as B, then p v with
-// the s accumulators re-packed in registers as A (p never touches shared
-// memory) and Vᵀ as B. The running (m, l, acc) live in float32 registers;
-// the chunk kernel loads them from the carries in the accumulator layout
-// (each thread its rows g and g+8, columns 2t and 2t+1 of every n-tile)
-// and stores them back the same way. Rows are reduced across the 4 threads
-// of a quad with shuffles. Ragged tails are masked: K/V rows past sk are
-// zero in shared memory and their scores are masked, q rows past sq are
-// zero and never stored. Causal CTAs stop after the K tile that holds their
-// last real row's global diagonal and are launched longest first.
-//
-// Bound on the H100: operations at long sequence. 4*bh*sq*sk*d flops
+// Bound on an H100 SXM (published peaks at its 700 W limit: 989 TFLOP/s
+// bf16 dense, 3.35 TB/s): operations at long sequence, 4*bh*sq*sk*d flops
 // (about half with the causal mask) against reading q, k, v and writing o
-// once: causal 8x8192x128 is 137 GFLOP and 67 MB, 0.139 ms at 989 TFLOP/s.
-// At ViT's 197 tokens and d 64 it is bytes. A hop of the chunk kernel also
-// moves its carries in and out: at the ring's 8x2048x128 shards a diagonal
-// hop is 8.6 GFLOP against 29.6 MB (q and K/V in bf16, 12.6 MB; the f32 acc
-// round trip, 16.8 MB, the largest stream; m and l), about 0.009 ms by
-// either count. These kernels stage K/V with synchronous loads (no
-// copy/compute overlap) and issue mma.sync, not wgmma, so they reach a
-// fraction of the tensor-core rate.
+// once: causal 8x8192x128 is 137 GFLOP and 67 MB, 0.139 ms by operations.
+// At ViT's 197 tokens and d 64 it is bytes: 768x197x64 moves 77 MB, 0.023
+// ms. A hop of the chunk kernel also moves its carries in and out: at the
+// ring's 8x2048x128 shards a diagonal hop is 8.6 GFLOP against 29.6 MB (the
+// f32 acc round trip, 16.8 MB, the largest stream), about 0.009 ms either
+// way; a past hop 17.2 GFLOP, 0.017 ms by operations.
+//
+// Design for that bound: both products on wgmma, K/V streamed by TMA, and
+// warp specialisation, so that the tensor cores are fed without threads
+// spending instructions on copies. One CTA of three warpgroups owns one
+// (batch*head, 128-row q tile):
+//   - a producer warpgroup gives up its registers (setmaxnreg.dec); one
+//     thread loads the q tile once and then 128-key K and V tiles into a
+//     ring of three stages in dynamic shared memory with TMA
+//     (cp.async.bulk.tensor, 3-D maps over (d, seq, bh), so rows past sq or
+//     sk are zero-filled and never read from the next head), each stage
+//     guarded by full (transaction-count) and empty mbarriers;
+//   - two consumer warpgroups take its registers (setmaxnreg.inc), 64 q
+//     rows each. s = q kᵀ is wgmma m64n128k16 with both operands in shared
+//     memory, K-major. p stays in registers: the f32 s accumulators of two
+//     neighbouring 8-column groups, rounded to bf16, are the A fragment of
+//     one k-step of o += p v (the wgmma accumulator layout per warp is the
+//     A-register layout), and V is read as TMA left it, (keys, d), through
+//     the transpose bit (MN-major B). The tensor cores run a tile ahead:
+//     a warpgroup issues s of tile j and p v of tile j - 1 together and
+//     runs the softmax of tile j while p v is still in flight, so each
+//     warpgroup overlaps its own exp work with its products (a K/V stage
+//     is freed only when its p v is done, hence the third stage). The
+//     online softmax runs in registers, rows reduced across the 4 threads
+//     of a quad; the causal and ragged masks run only on tiles that cross
+//     a row's diagonal or the end of the keys. The running (m, l, acc) are
+//     float32 registers; the chunk kernel loads them from the carries in
+//     the accumulator layout (each thread its rows g and g+8, columns 8i+2t
+//     and 8i+2t+1) and stores them back the same way.
+// Shared rows are swizzled as wide as a row allows (128 B at d 64, 64 B at
+// d 32, two 64-column panels at d 128), the same mode in the tensor maps
+// and the wgmma descriptors. Causal CTAs stop after the K tile that holds
+// their last real row's global diagonal and are launched longest first.
 //
 // Rounding points, as _block_attn: s = (q kᵀ in f32) * scale; masked
 // entries -1e30; m_safe = 0 for rows with no unmasked key yet, and corr = 0
 // for a row whose carried m is still -1e30 (the dead-row guard, which the
 // chunk kernel meets on rows that have seen no key in earlier hops);
-// p = exp(s - m_safe) in f32; l = corr * l + sum(p) in f32; p rounded to
-// bf16 before p v, which accumulates in f32 into corr * acc; the flash
-// output acc / max(l, 1e-37) rounded to bf16 (the chunk kernel stores acc
-// and l unnormalised). Only the order of the float32 sums differs from the
-// plain versions at the same 64-key blocks.
+// p = exp(s - m_safe) in f32 (as exp2 of a fused (s - m_safe) * log2 e);
+// l = corr * l + sum(p) in f32; p rounded to bf16 before p v, which
+// accumulates in f32 into corr * acc; the flash output acc / max(l, 1e-37)
+// rounded to bf16 (the chunk kernel stores acc and l unnormalised). Only
+// the order of the float32 sums and exp's last bits differ from the plain
+// versions at the same 128-key blocks.
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockQ = kWarps * 16;  // q rows per CTA
-constexpr int kBlockK = 64;           // keys per K/V tile
-constexpr int kPad = 8;               // bf16 of padding per shared row
+constexpr int kBlockQ = 128;   // q rows per CTA, 64 per consumer warpgroup
+constexpr int kBlockK = 128;   // keys per K/V tile
+constexpr int kStages = 3;     // K/V tiles in flight
+constexpr int kConsumers = 2;  // consumer warpgroups
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kBlockQ == 64 * kConsumers && kBlockK == kBlockQ,
+              "q and K/V tiles share one shared-memory tile shape");
+
+// One 128-row tile of q, K or V in shared memory: kPanels panels of 128
+// rows by kCols bf16, each row kRowBytes wide and swizzled across it.
+template <int D>
+struct Tile {
+  static constexpr int kCols = D < 64 ? D : 64;
+  static constexpr int kRowBytes = kCols * 2;  // 64 or 128: the swizzle
+  static constexpr int kPanels = D / kCols;
+  static constexpr int kPanelBytes = kBlockK * kRowBytes;
+  static constexpr int kBytes = kPanels * kPanelBytes;
+  static constexpr int kStepsPerPanel = kCols / 16;  // k-steps of q kᵀ
+  // wgmma descriptor layout type: 1 = 128-byte swizzle, 2 = 64-byte
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;
+  // q, kStages K and V tiles, the barriers, and room to align to 1024 B
+  static constexpr int kSmem = (1 + 2 * kStages) * kBytes + 1024 + 128;
+};
+
+struct FlashArgs {
+  __nv_bfloat16* o;  // flash: the output
+  float* m;          // chunk: the carries, updated in place
+  float* l;
+  float* acc;
+  int sq, sk, n_tiles, q_offset, k_offset, causal;
+  float scale;
+};
+
+// -- PTX wrappers -----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of the given parity has completed (a fresh barrier
+// is in phase 0: waiting on parity 1 passes at once).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One TMA box of a 3-D map (coordinates innermost first) into shared
+// memory; its bytes count against the barrier's transaction count.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle layout type.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma operands across
+// the asynchronous instructions that use them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+#define WG_ACC4(d, i) \
+  "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3])
+#define WG_ACC16(d, i) \
+  WG_ACC4(d, i), WG_ACC4(d, (i) + 4), WG_ACC4(d, (i) + 8), WG_ACC4(d, (i) + 12)
+#define WG_ACC32(d) WG_ACC16(d, 0), WG_ACC16(d, 16)
+#define WG_ACC64(d) WG_ACC16(d, 0), WG_ACC16(d, 16), WG_ACC16(d, 32), \
+                    WG_ACC16(d, 48)
+
+// s[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B K-major in shared
+// memory (descriptors da, db); scale_d = 0 overwrites s.
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC64(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// o[64 x D] += P[64 x 16] * V[16 x D]: P from registers (the A fragment a),
+// V MN-major in shared memory (descriptor db, transpose bit set).
+__device__ __forceinline__ void wgmma_pv(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_pv(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_pv(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : WG_ACC16(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d[16x8] += a[16x16] * b[16x8], bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(d[0]), "f"(d[1]), "f"(d[2]), "f"(d[3]));
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -103,36 +308,136 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-struct FlashArgs {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  __nv_bfloat16* o;  // flash: the output
-  float* m;          // chunk: the carries, updated in place
-  float* l;
-  float* acc;
-  int sq, sk, n_tiles, q_offset, k_offset, causal;
+// s[64 x 128] = q[64 x D] kᵀ for one warpgroup: q_wg its 64 q rows, kt the
+// K tile, both K-major (8-row groups 8 rows apart, each k-step 32 bytes
+// further along a swizzled row, 64-column panels a panel apart). Committed
+// as one group.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_wg,
+                                         uint32_t kt) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int st = 0; st < D / 16; ++st) {
+    const uint32_t off = (st / T::kStepsPerPanel) * T::kPanelBytes +
+                         (st % T::kStepsPerPanel) * 32;
+    wgmma_qk(sc, smem_desc(q_wg + off, 16, 8 * T::kRowBytes, T::kLayout),
+             smem_desc(kt + off, 16, 8 * T::kRowBytes, T::kLayout), st > 0);
+  }
+  wgmma_commit();
+}
+
+// o[64 x D] += bf16(p)[64 x 128] v: pa the A fragments of p's 8 k-steps,
+// vt the V tile, MN-major (8-key groups 8 rows apart, each k-step 16 rows
+// further, 64-column panels a panel apart). Committed as one group.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         const uint32_t (&pa)[kBlockK / 16][4],
+                                         uint32_t vt) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int j = 0; j < kBlockK / 16; ++j)
+    wgmma_pv(acc, pa[j],
+             smem_desc(vt + 16 * j * T::kRowBytes, T::kPanelBytes,
+                       8 * T::kRowBytes, T::kLayout));
+  wgmma_commit();
+}
+
+// The online softmax of one 128-key tile for one thread's rows g and g+8,
+// s in the accumulator layout: scale (and mask) s, update the running max m
+// and sum l, set corr to the factor that rescales acc, and leave p =
+// exp(s - m_safe) in s.
+struct Softmax {
   float scale;
+  int sk, causal, t;
+  int qpos[2];   // the rows' global positions less the chunk's first key's
+  int first;     // the warpgroup's least such position
+
+  __device__ __forceinline__ void tile(float (&sc)[kBlockK / 2], int k0,
+                                       float (&m)[2],
+                                       float (&l)[2], float (&corr)[2]) const {
+    // mask only a tile that crosses the end of the keys or, when causal, a
+    // row's diagonal
+    if (k0 + kBlockK > sk || (causal && first < k0 + kBlockK - 1)) {
+#pragma unroll
+      for (int i = 0; i < kBlockK / 2; ++i) {
+        const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+        const bool keep = col < sk && (!causal || qpos[(i / 2) & 1] >= col);
+        sc[i] = keep ? sc[i] * scale : kNegInf;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBlockK / 2; ++i) sc[i] *= scale;
+    }
+    // row maxima and sums in 4 independent chains per row
+    float part[2][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) part[i / 4][i % 4] = kNegInf;
+#pragma unroll
+    for (int i = 0; i < kBlockK / 2; ++i)
+      part[(i / 2) & 1][(i / 4) & 3] =
+          fmaxf(part[(i / 2) & 1][(i / 4) & 3], sc[i]);
+    float m_log2[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mb = fmaxf(fmaxf(part[h][0], part[h][1]),
+                             fmaxf(part[h][2], part[h][3]));
+      const float m_new = fmaxf(m[h], quad_max(mb));
+      const float m_safe = m_new <= kNegInf / 2 ? 0.0f : m_new;
+      corr[h] = m[h] <= kNegInf / 2 ? 0.0f : expf(m[h] - m_safe);
+      m_log2[h] = m_safe * kLog2e;
+      m[h] = m_new;
+    }
+    // p = exp(s - m_safe); a masked score gives exp2(-1.4e30) = 0
+#pragma unroll
+    for (int i = 0; i < 8; ++i) part[i / 4][i % 4] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kBlockK / 2; ++i) {
+      sc[i] = ex2(fmaf(sc[i], kLog2e, -m_log2[(i / 2) & 1]));
+      part[(i / 2) & 1][(i / 4) & 3] += sc[i];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float rs = (part[h][0] + part[h][1]) + (part[h][2] + part[h][3]);
+      l[h] = __fadd_rn(__fmul_rn(corr[h], l[h]), quad_sum(rs));
+    }
+  }
 };
 
-// Fragment layout of mma m16n8k16 (g = lane / 4, t = lane % 4):
-//   A (16x16, row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
-//     a3 (g+8, 2t+8..);
-//   B (16x8, k x n): b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g);
-//   C (16x8): c0 c1 (g, 2t..2t+1), c2 c3 (g+8, 2t..2t+1).
-// The body of one CTA; kCarry = false: flash_fwd_kernel, true:
-// flash_chunk_kernel.
-template <int D, bool kCarry>
-__device__ __forceinline__ void flash_tile(const FlashArgs& a) {
-  constexpr int KS = D / 16;          // k-steps of q kᵀ
-  constexpr int NS = kBlockK / 8;     // n-tiles of s
-  constexpr int NO = D / 8;           // n-tiles of the output
-  constexpr int CH = D / 8;           // 16-byte chunks per K/V row
-  constexpr int LDK = D + kPad;       // shared row stride of K
-  constexpr int LDV = kBlockK + kPad; // shared row stride of Vᵀ
+template <int D>
+__device__ __forceinline__ void rescale(float (&acc)[D / 2],
+                                        const float (&corr)[2]) {
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i / 2) & 1];
+}
 
-  __shared__ __align__(16) __nv_bfloat16 ks[kBlockK * LDK];
-  __shared__ __align__(16) __nv_bfloat16 vt[D * LDV];
+// bf16(p): the s accumulators of column groups 2j and 2j+1 are the A
+// fragment of k-step j of p v.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[kBlockK / 16][4],
+                                       const float (&sc)[kBlockK / 2]) {
+#pragma unroll
+  for (int j = 0; j < kBlockK / 16; ++j) {
+    pa[j][0] = pack_bf16(sc[8 * j], sc[8 * j + 1]);
+    pa[j][1] = pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
+    pa[j][2] = pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
+    pa[j][3] = pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
+  }
+}
+
+// -- the CTA body -----------------------------------------------------------
+
+// Accumulator layout of wgmma m64nN (f32), per thread of warp w of the
+// warpgroup (g = lane / 4, t = lane % 4): d[4i + e] holds row 16w + g +
+// 8 (e / 2), column 8i + 2t + e % 2. The A fragment of a k16 step in
+// registers is the same layout over two 8-column groups:
+// a = {(g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)}.
+// kCarry = false: flash_fwd_kernel, true: flash_chunk_kernel.
+template <int D, bool kCarry>
+__device__ __forceinline__ void flash_tile(const CUtensorMap& tq,
+                                           const CUtensorMap& tk,
+                                           const CUtensorMap& tv,
+                                           const FlashArgs& a) {
+  using T = Tile<D>;
+  constexpr int NO = D / 8;        // 8-column groups of the output
 
   const int sq = a.sq, sk = a.sk, n_tiles = a.n_tiles, causal = a.causal;
   // One flat grid of n_tiles * bh CTAs. Causal: tile-major from the last
@@ -142,7 +447,8 @@ __device__ __forceinline__ void flash_tile(const FlashArgs& a) {
   const int bh = static_cast<int>(gridDim.x) / n_tiles;
   const int tile = causal ? n_tiles - 1 - static_cast<int>(blockIdx.x) / bh
                           : static_cast<int>(blockIdx.x) % n_tiles;
-  const long long head = causal ? blockIdx.x % bh : blockIdx.x / n_tiles;
+  const int head = causal ? static_cast<int>(blockIdx.x) % bh
+                          : static_cast<int>(blockIdx.x) / n_tiles;
   const int q0 = tile * kBlockQ;
 
   // key tiles this CTA folds in: causal CTAs stop after the tile holding
@@ -155,214 +461,306 @@ __device__ __forceinline__ void flash_tile(const FlashArgs& a) {
     n_kb = min(n_kb, last / kBlockK + 1);
   }
 
-  const __nv_bfloat16* qh = a.q + head * sq * D;
-  const __nv_bfloat16* kh = a.k + head * sk * D;
-  const __nv_bfloat16* vh = a.v + head * sk * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  // the rows' global positions less the chunk's first key's
-  const int qpos[2] = {row[0] + a.q_offset - a.k_offset,
-                       row[1] + a.q_offset - a.k_offset};
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + T::kBytes;                   // + stage * kBytes
+  const uint32_t v_s = base + (1 + kStages) * T::kBytes;   // + stage * kBytes
+  const uint32_t bars = base + (1 + 2 * kStages) * T::kBytes;
+  const uint32_t q_full = bars;
+  const uint32_t k_full = bars + 8;                        // + 8 * stage
+  const uint32_t v_full = bars + 8 * (1 + kStages);
+  const uint32_t empty = bars + 8 * (1 + 2 * kStages);
 
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int st = 0; st < KS; ++st) {
-    const int c = st * 16 + 2 * t;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // h: row g or g+8
-      const bool in = row[h] < sq;
-      const __nv_bfloat16* p = qh + static_cast<long long>(row[h]) * D + c;
-      qf[st][h] = in ? ld32(p) : 0u;
-      qf[st][h + 2] = in ? ld32(p + 8) : 0u;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128 * kConsumers);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float acc[NO][4];
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.0f, 0.0f};
+  const int wg = static_cast<int>(threadIdx.x) / 128;
+  if (wg == 0) {
+    // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, T::kBytes);
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-  if constexpr (kCarry) {
+      for (int p = 0; p < T::kPanels; ++p)
+        tma_load(q_s + p * T::kPanelBytes, tq, q_full, p * T::kCols, q0, head);
+      for (int kb = 0; kb < n_kb; ++kb) {
+        const int s = kb % kStages;
+        mbar_wait(empty + 8 * s, ((kb / kStages) & 1) ^ 1);
+        const uint32_t kd = k_s + s * T::kBytes, vd = v_s + s * T::kBytes;
+        mbar_expect_tx(k_full + 8 * s, T::kBytes);
+#pragma unroll
+        for (int p = 0; p < T::kPanels; ++p)
+          tma_load(kd + p * T::kPanelBytes, tk, k_full + 8 * s, p * T::kCols,
+                   kb * kBlockK, head);
+        mbar_expect_tx(v_full + 8 * s, T::kBytes);
+#pragma unroll
+        for (int p = 0; p < T::kPanels; ++p)
+          tma_load(vd + p * T::kPanelBytes, tv, v_full + 8 * s, p * T::kCols,
+                   kb * kBlockK, head);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int c = wg - 1;  // consumer warpgroup: q rows 64c .. 64c + 63
+    const int tid = static_cast<int>(threadIdx.x) % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row[2] = {q0 + 64 * c + 16 * warp + g,
+                        q0 + 64 * c + 16 * warp + g + 8};
+    const int shift = a.q_offset - a.k_offset;
+
+    float acc[D / 2];
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    if constexpr (kCarry) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (row[h] >= sq) continue;
+        const long long r = static_cast<long long>(head) * sq + row[h];
+        m[h] = a.m[r];
+        l[h] = a.l[r];
+        const float* ap = a.acc + r * D + 2 * t;
+#pragma unroll
+        for (int i = 0; i < NO; ++i) {
+          const float2 v = *reinterpret_cast<const float2*>(ap + 8 * i);
+          acc[4 * i + 2 * h] = v.x;
+          acc[4 * i + 2 * h + 1] = v.y;
+        }
+      }
+    }
+
+    // The tensor cores run one tile ahead of the softmax: iteration kb
+    // issues s = q kᵀ of tile kb and then o += bf16(p) v of tile kb - 1,
+    // waits for s alone, and runs the softmax of tile kb while the previous
+    // tile's p v is still on the tensor cores. pa holds bf16(p) of the
+    // tile whose p v comes next. Tile 0 has no p v before it and the last
+    // p v no tile after it, so both are outside the loop, which keeps the
+    // loop body free of branches around the asynchronous products.
+    const Softmax sm{a.scale, sk, causal, t,
+                     {row[0] + shift, row[1] + shift}, q0 + 64 * c + shift};
+    const uint32_t q_wg = q_s + 64 * c * T::kRowBytes;
+    float sc[kBlockK / 2], corr[2];
+    uint32_t pa[kBlockK / 16][4];
+    mbar_wait(q_full, 0);
+    if (n_kb > 0) {
+      mbar_wait(k_full, 0);
+      fence_regs(sc);
+      wgmma_fence();
+      issue_qk<D>(sc, q_wg, k_s);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      sm.tile(sc, 0, m, l, corr);
+      rescale<D>(acc, corr);
+      pack_p(pa, sc);
+    }
+    for (int kb = 1; kb < n_kb; ++kb) {
+      const int s = kb % kStages, ps = (kb - 1) % kStages;
+      mbar_wait(k_full + 8 * s, (kb / kStages) & 1);
+      fence_regs(sc);
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+      issue_qk<D>(sc, q_wg, k_s + s * T::kBytes);
+      mbar_wait(v_full + 8 * ps, ((kb - 1) / kStages) & 1);
+      issue_pv<D>(acc, pa, v_s + ps * T::kBytes);
+      wgmma_wait<1>();  // s is ready; p v may still run
+      fence_regs(sc);
+      sm.tile(sc, kb * kBlockK, m, l, corr);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      mbar_arrive(empty + 8 * ps);  // the previous tile's K and V are used
+      rescale<D>(acc, corr);
+      pack_p(pa, sc);
+    }
+    if (n_kb > 0) {  // the last tile's p v
+      const int ps = (n_kb - 1) % kStages;
+      mbar_wait(v_full + 8 * ps, ((n_kb - 1) / kStages) & 1);
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+      issue_pv<D>(acc, pa, v_s + ps * T::kBytes);
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (row[h] >= sq) continue;
-      const long long r = head * sq + row[h];
-      m[h] = a.m[r];
-      l[h] = a.l[r];
-      const float* ap = a.acc + r * D + 2 * t;
+      const long long r = static_cast<long long>(head) * sq + row[h];
+      if constexpr (kCarry) {
+        a.m[r] = m[h];
+        a.l[r] = l[h];
+        float* ap = a.acc + r * D + 2 * t;
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const float2 c = *reinterpret_cast<const float2*>(ap + n * 8);
-        acc[n][2 * h] = c.x;
-        acc[n][2 * h + 1] = c.y;
-      }
-    }
-  }
-
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * kBlockK;
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < kBlockK * CH; i += kThreads) {
-      const int r = i / CH, c = i % CH;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < sk)
-        val = *reinterpret_cast<const uint4*>(
-            kh + static_cast<long long>(k0 + r) * D + c * 8);
-      *reinterpret_cast<uint4*>(ks + r * LDK + c * 8) = val;
-    }
-    // Vᵀ: each item takes a pair of keys and 8 dims, so every shared store
-    // is one 32-bit word of two neighbouring keys
-    for (int i = threadIdx.x; i < (kBlockK / 2) * CH; i += kThreads) {
-      const int kp = i % (kBlockK / 2), c = i / (kBlockK / 2);
-      const int key = k0 + 2 * kp;
-      uint4 va = make_uint4(0u, 0u, 0u, 0u), vb = va;
-      const __nv_bfloat16* src = vh + static_cast<long long>(key) * D + c * 8;
-      if (key < sk) va = *reinterpret_cast<const uint4*>(src);
-      if (key + 1 < sk) vb = *reinterpret_cast<const uint4*>(src + D);
-      const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&va);
-      const __nv_bfloat16* y = reinterpret_cast<const __nv_bfloat16*>(&vb);
+        for (int i = 0; i < NO; ++i)
+          *reinterpret_cast<float2*>(ap + 8 * i) =
+              make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+      } else {
+        const float den = fmaxf(l[h], 1e-37f);
+        __nv_bfloat16* op = a.o + r * D + 2 * t;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        __nv_bfloat162 pr;
-        pr.x = x[j];
-        pr.y = y[j];
-        *reinterpret_cast<__nv_bfloat162*>(vt + (c * 8 + j) * LDV + 2 * kp) =
-            pr;
-      }
-    }
-    __syncthreads();
-
-    // s = q kᵀ (16 rows x 64 keys per warp)
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-#pragma unroll
-    for (int st = 0; st < KS; ++st) {
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const __nv_bfloat16* kp = ks + (n * 8 + g) * LDK + st * 16 + 2 * t;
-        mma_16816(s[n], qf[st], ld32(kp), ld32(kp + 8));
-      }
-    }
-
-    // scale, mask, block row max
-    float mb[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2;
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const bool keep = col < sk && (!causal || qpos[h] >= col);
-        s[n][e] = keep ? s[n][e] * a.scale : kNegInf;
-        mb[h] = fmaxf(mb[h], s[n][e]);
-      }
-    }
-    float m_safe[2], corr[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float m_new = fmaxf(m[h], quad_max(mb[h]));
-      m_safe[h] = m_new <= kNegInf / 2 ? 0.0f : m_new;
-      corr[h] = m[h] <= kNegInf / 2 ? 0.0f : expf(m[h] - m_safe[h]);
-      m[h] = m_new;
-    }
-    // p = exp(s - m_safe); a masked score gives exp(-1e30 - m_safe) = 0
-    float rs[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2;
-        s[n][e] = expf(s[n][e] - m_safe[h]);
-        rs[h] += s[n][e];
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      l[h] = __fadd_rn(__fmul_rn(corr[h], l[h]), quad_sum(rs[h]));
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-
-    // acc += bf16(p) v: the s accumulators of key tiles 2j, 2j+1 are the
-    // A fragment of k-step j
-#pragma unroll
-    for (int j = 0; j < kBlockK / 16; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const __nv_bfloat16* vp = vt + (n * 8 + g) * LDV + j * 16 + 2 * t;
-        mma_16816(acc[n], pa, ld32(vp), ld32(vp + 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (row[h] >= sq) continue;
-    const long long r = head * sq + row[h];
-    if constexpr (kCarry) {
-      a.m[r] = m[h];
-      a.l[r] = l[h];
-      float* ap = a.acc + r * D + 2 * t;
-#pragma unroll
-      for (int n = 0; n < NO; ++n)
-        *reinterpret_cast<float2*>(ap + n * 8) =
-            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
-    } else {
-      const float den = fmaxf(l[h], 1e-37f);
-      __nv_bfloat16* op = a.o + r * D;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        *reinterpret_cast<uint32_t*>(op + n * 8 + 2 * t) =
-            pack_bf16(acc[n][2 * h] / den, acc[n][2 * h + 1] / den);
+        for (int i = 0; i < NO; ++i)
+          *reinterpret_cast<uint32_t*>(op + 8 * i) = pack_bf16(
+              acc[4 * i + 2 * h] / den, acc[4 * i + 2 * h + 1] / den);
       }
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashArgs a) {
-  flash_tile<D, false>(a);
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const FlashArgs a) {
+  flash_tile<D, false>(tq, tk, tv, a);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_chunk_kernel(const FlashArgs a) {
-  flash_tile<D, true>(a);
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_chunk_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const FlashArgs a) {
+  flash_tile<D, true>(tq, tk, tv, a);
+}
+
+// -- host side --------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function: fetched once through the
+// runtime's driver entry point, so the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The 3-D map (d, rows, bh) of one contiguous bf16 tensor, read in boxes of
+// one panel: Tile<D>::kCols columns by 128 rows of one head, swizzled as the
+// kernel's descriptors expect. Rows past `rows` read as zeros.
+template <int D>
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int bh) {
+  using T = Tile<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(rows) * D * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(T::kCols),
+                             static_cast<cuuint32_t>(kBlockK), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D, bool kCarry>
-void launch_d(const FlashArgs& a, unsigned int grid, cudaStream_t s) {
+const void* kernel_of() {
   if constexpr (kCarry)
-    flash_chunk_kernel<D><<<grid, kThreads, 0, s>>>(a);
+    return reinterpret_cast<const void*>(&flash_chunk_kernel<D>);
   else
-    flash_fwd_kernel<D><<<grid, kThreads, 0, s>>>(a);
+    return reinterpret_cast<const void*>(&flash_fwd_kernel<D>);
+}
+
+// Dynamic shared memory above 48 KB needs the attribute, once per device.
+template <int D, bool kCarry>
+cudaError_t allow_smem() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel_of<D, kCarry>(),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Tile<D>::kSmem);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+template <int D, bool kCarry>
+int launch_d(const FlashArgs& a, const void* q, const void* k, const void* v,
+             int bh, unsigned int grid, cudaStream_t s) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map<D>(&tq, q, a.sq, bh) || !make_map<D>(&tk, k, a.sk, bh) ||
+      !make_map<D>(&tv, v, a.sk, bh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem<D, kCarry>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if constexpr (kCarry)
+    flash_chunk_kernel<D><<<grid, kThreads, Tile<D>::kSmem, s>>>(tq, tk, tv, a);
+  else
+    flash_fwd_kernel<D><<<grid, kThreads, Tile<D>::kSmem, s>>>(tq, tk, tv, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kCarry>
-int launch(FlashArgs a, int bh, int d, cudaStream_t s) {
-  if (bh <= 0 || a.sq <= 0) return 0;
+int launch(FlashArgs a, const void* q, const void* k, const void* v, int bh,
+           int d, cudaStream_t s) {
+  if (bh <= 0 || a.sq <= 0 || a.sk <= 0) return 0;
   a.n_tiles = (a.sq + kBlockQ - 1) / kBlockQ;
   if (static_cast<long long>(bh) * a.n_tiles > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const unsigned int grid = static_cast<unsigned int>(a.n_tiles) * bh;
   switch (d) {
-    case 32: launch_d<32, kCarry>(a, grid, s); break;
-    case 64: launch_d<64, kCarry>(a, grid, s); break;
-    case 128: launch_d<128, kCarry>(a, grid, s); break;
+    case 32: return launch_d<32, kCarry>(a, q, k, v, bh, grid, s);
+    case 64: return launch_d<64, kCarry>(a, q, k, v, bh, grid, s);
+    case 128: return launch_d<128, kCarry>(a, q, k, v, bh, grid, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool kCarry>
+int attributes_d(int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = allow_smem<D, kCarry>();
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, kernel_of<D, kCarry>());
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &ctas, kernel_of<D, kCarry>(), kThreads, Tile<D>::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = Tile<D>::kSmem;
+  out[2] = ctas;
+  return 0;
 }
 
 }  // namespace
@@ -375,30 +773,40 @@ NNSTPU_EXPORT int nnstpu_flash_attention(const void* q, const void* k,
                                          int causal, void* stream) {
   if (sk <= 0 && bh > 0 && sq > 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  FlashArgs a{static_cast<const __nv_bfloat16*>(q),
-              static_cast<const __nv_bfloat16*>(k),
-              static_cast<const __nv_bfloat16*>(v),
-              static_cast<__nv_bfloat16*>(o), nullptr, nullptr, nullptr,
+  FlashArgs a{static_cast<__nv_bfloat16*>(o), nullptr, nullptr, nullptr,
               sq, sk, 0, 0, 0, causal, scale};
-  return launch<false>(a, bh, d, static_cast<cudaStream_t>(stream));
+  return launch<false>(a, q, k, v, bh, d, static_cast<cudaStream_t>(stream));
 }
 
 // One ring hop: q (bh, sq, d), k, v (bh, sk, d) contiguous bf16 on 16-byte
 // boundaries; m, l (bh, sq) and acc (bh, sq, d) contiguous float32 carries,
 // updated in place (ops/attention.py flash_chunk_cuda checks and arranges
 // it). q_offset and k_offset are the global positions of q's and k's first
-// rows; sk may be 0 (the carries pass through).
+// rows; sk may be 0 (the carries pass through, nothing is launched).
 NNSTPU_EXPORT int nnstpu_flash_chunk(const void* q, const void* k,
                                      const void* v, void* m, void* l,
                                      void* acc, int bh, int sq, int sk, int d,
                                      int q_offset, int k_offset, float scale,
                                      int causal, void* stream) {
   if (sk < 0) return static_cast<int>(cudaErrorInvalidValue);
-  FlashArgs a{static_cast<const __nv_bfloat16*>(q),
-              static_cast<const __nv_bfloat16*>(k),
-              static_cast<const __nv_bfloat16*>(v), nullptr,
-              static_cast<float*>(m), static_cast<float*>(l),
+  FlashArgs a{nullptr, static_cast<float*>(m), static_cast<float*>(l),
               static_cast<float*>(acc), sq, sk, 0, q_offset, k_offset,
               causal, scale};
-  return launch<true>(a, bh, d, static_cast<cudaStream_t>(stream));
+  return launch<true>(a, q, k, v, bh, d, static_cast<cudaStream_t>(stream));
+}
+
+// What one instantiation asks of the card, on the current device: out[0]
+// registers per thread at launch (the warpgroups then move them with
+// setmaxnreg), out[1] dynamic shared memory bytes, out[2] resident CTAs per
+// SM.
+NNSTPU_EXPORT int nnstpu_flash_attributes(int d, int carry, int* out) {
+  switch (d * 2 + (carry ? 1 : 0)) {
+    case 64: return attributes_d<32, false>(out);
+    case 65: return attributes_d<32, true>(out);
+    case 128: return attributes_d<64, false>(out);
+    case 129: return attributes_d<64, true>(out);
+    case 256: return attributes_d<128, false>(out);
+    case 257: return attributes_d<128, true>(out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

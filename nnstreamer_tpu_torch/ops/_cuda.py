@@ -11,6 +11,12 @@ Every entry point launches on PyTorch's current stream and returns
 ``cudaGetLastError()``; :func:`check` raises on anything but 0. Nothing here
 falls back: a failed build or launch raises.
 
+The link takes no driver library: the attention kernels' TMA maps are
+encoded by the driver's ``cuTensorMapEncodeTiled``, which
+``csrc/attention.cu`` fetches at run time through the CUDA runtime's
+``cudaGetDriverEntryPoint`` (``...ByVersion`` from CUDA 12.5), so the
+library links only the runtime, as nvcc does by default.
+
 Each kernel wrapper counts its launches in :data:`LAUNCHES`, adding one
 where it launches its kernel and nowhere else, so a run can show that the
 main path went through the kernels.
@@ -74,6 +80,7 @@ _SIGNATURES = {
     "nnstpu_fused_inverted_residual": [_P] * 8 + [_I] * 12 + [_LL, _P],
     "nnstpu_flash_attention": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
     "nnstpu_flash_chunk": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+    "nnstpu_flash_attributes": [_I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

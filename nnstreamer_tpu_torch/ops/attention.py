@@ -52,6 +52,7 @@ in float32; the output ``acc / max(l, 1e-37)`` rounded once.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -60,9 +61,11 @@ from nnstreamer_tpu_torch.ops import _cuda
 
 _NEG_INF = -1e30
 
-#: the kernel's tile: query rows per CTA and keys per K/V tile
-BLOCK_Q = 64
-BLOCK_K = 64
+#: the kernel's tile (``kBlockQ``/``kBlockK`` in csrc/attention.cu): query
+#: rows per CTA, 64 per consumer warpgroup, and keys per K/V tile; the plain
+#: versions run at BLOCK_K, since p's bf16 rounding depends on the block
+BLOCK_Q = 128
+BLOCK_K = 128
 #: head dims the kernel is instantiated for (csrc/attention.cu)
 HEAD_DIMS = (32, 64, 128)
 
@@ -264,7 +267,7 @@ def flash_chunk_cuda(q, k, v, m, l, acc, *, q_offset: int, k_offset: int,
                   "flash_chunk: tensors on different devices")
     _cuda.require(max(abs(q_offset), abs(k_offset)) < 2 ** 30,
                   f"flash_chunk offsets out of range: {q_offset}, {k_offset}")
-    if bh == 0 or sq == 0:
+    if bh == 0 or sq == 0 or sk == 0:
         return m, l, acc
     q, k, v = (_aligned(t) for t in (q, k, v))
     lib = _cuda.lib()
@@ -279,8 +282,20 @@ def flash_chunk_cuda(q, k, v, m, l, acc, *, q_offset: int, k_offset: int,
     return m, l, acc
 
 
+def flash_kernel_attributes(d: int, carry: bool = False) -> dict:
+    """What the kernel for head_dim ``d`` (the chunk kernel with ``carry``)
+    asks of the current CUDA device: registers per thread at launch (the
+    warpgroups then trade them with ``setmaxnreg``), dynamic shared memory
+    and resident CTAs per SM."""
+    _cuda.require(d in HEAD_DIMS, f"no kernel for head_dim {d}")
+    out = (ctypes.c_int * 3)()
+    _cuda.check(_cuda.lib().nnstpu_flash_attributes(d, int(bool(carry)), out),
+                "flash_kernel_attributes")
+    return dict(zip(("registers", "dynamic_smem_bytes", "ctas_per_sm"), out))
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, on a 16-byte boundary (the kernel's vector loads)."""
+    """Contiguous, on a 16-byte boundary (the TMA maps' base address)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

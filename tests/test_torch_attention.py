@@ -1,7 +1,7 @@
 """The port's single-device attention against the JAX package's.
 
 On the CPU the kernel wrapper runs its plain version (the blockwise
-recurrence at the kernel's 64-key blocks); chip_smoke.py holds the CUDA
+recurrence at the kernel's 128-key blocks); chip_smoke.py holds the CUDA
 kernel against that plain version on the card. The same numpy inputs go
 through the JAX functions — ``flash_attention_pallas`` in interpret mode,
 as the JAX package's own tests run it (tests/test_ops.py) — and through
@@ -10,6 +10,9 @@ at |port - jax| <= 2^-6 + 2^-6 |jax|, the tolerance the card's check uses
 (the two round p and the output at the same points; only float32 sums are
 taken in another order, which can flip a bf16 rounding).
 """
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -64,7 +67,7 @@ def _assert_bf16_close(got, want):
 
 #: the port's two plain routes to the Pallas kernel's result: the
 #: recurrence at the Pallas test's blocks, and the kernel wrapper on a CPU
-#: tensor (the recurrence at the CUDA kernel's 64-key blocks)
+#: tensor (the recurrence at the CUDA kernel's BLOCK_K keys)
 PORT_FNS = {
     "plain_b32": lambda q, k, v, **kw: port_attn.flash_attention_plain(
         q, k, v, block_k=32, **kw),
@@ -159,8 +162,8 @@ def test_auto_cpu_routing_matches_jax(shape, causal, monkeypatch):
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_ragged_vit_shape_matches_naive(causal):
-    """ViT's 197 tokens at head_dim 64: four 64-key blocks, the last one of
-    5 keys — the kernel's ragged tail, on its plain version."""
+    """ViT's 197 tokens at head_dim 64: two 128-key blocks, the last one of
+    69 keys — the kernel's ragged tail, on its plain version."""
     q, k, v = _qkv((3, 197, 64), 11)
     want = _naive(q, k, v, causal)
     got = _port(port_attn.flash_attention_cuda, q, k, v, causal=causal)
@@ -183,11 +186,46 @@ def test_block_boundaries_decide_bf16_rounding():
     bf16 roundings (and this is why chip_smoke compares at BLOCK_K)."""
     q, k, v = _qkv((2, 256, 64), 13)
     args = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
-    a = port_attn.flash_attention_plain(*args, block_k=64)
+    a = port_attn.flash_attention_plain(*args, block_k=port_attn.BLOCK_K)
     b = port_attn.flash_attention_plain(*args, block_k=256)
     assert torch.equal(port_attn.flash_attention_cuda(*args), a)
     assert not torch.equal(a, b)
     _assert_bf16_close(a.float().numpy(), b.float().numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_at_kernel_block_matches_pallas_kernel(dtype, causal):
+    """The plain version at the CUDA kernel's tile against the Pallas
+    kernel in interpret mode at the same 128-row, 128-key blocks."""
+    q, k, v = _qkv((2, 256, 128), 14)
+    want = _jax(jax_attn.flash_attention_pallas, q, k, v, getattr(jnp, dtype),
+                causal=causal, block_q=port_attn.BLOCK_Q,
+                block_k=port_attn.BLOCK_K, interpret=True)
+    got = _port(port_attn.flash_attention_plain, q, k, v,
+                getattr(torch, dtype), causal=causal,
+                block_k=port_attn.BLOCK_K)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=ATOL)
+    else:
+        _assert_bf16_close(got, want)
+
+
+def test_kernel_source_declares_the_wrapper_tile():
+    """The plain versions run at BLOCK_K because the kernel does: the tile
+    csrc/attention.cu declares is the one the wrapper states."""
+    with open(os.path.join(_cuda.CSRC, "attention.cu")) as fh:
+        src = fh.read()
+    tile = dict(re.findall(r"constexpr int (kBlock[QK]) = (\d+);", src))
+    assert tile == {"kBlockQ": str(port_attn.BLOCK_Q),
+                    "kBlockK": str(port_attn.BLOCK_K)}
+
+
+def test_kernel_attributes_refuse_a_head_dim_without_a_kernel():
+    """The card-side query names only instantiated head dims; another one
+    is refused before the library is built or loaded."""
+    with pytest.raises(ValueError, match="no kernel for head_dim 48"):
+        port_attn.flash_kernel_attributes(48)
 
 
 def test_wrapper_counts_no_launch_on_cpu_and_refuses_other_devices():

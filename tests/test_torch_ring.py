@@ -6,7 +6,7 @@ conftest's 8 virtual host devices (its ring and Ulysses under
 ``shard_map``, jitted so each call compiles once); the port's mesh is
 ``make_mesh(sp=8, devices=[cpu] * 8)``, one process driving eight shards.
 On the CPU the chunk-kernel wrapper runs its plain version (the chunk
-recurrence at the kernel's 64-key blocks); chip_smoke.py holds the CUDA
+recurrence at the kernel's 128-key blocks); chip_smoke.py holds the CUDA
 kernel against that plain version on the card. ``flash_chunk_pallas`` runs
 in interpret mode, patched as the JAX package's own tests patch it.
 
@@ -75,7 +75,7 @@ def _fresh(bh, sq, d):
 
 
 #: the port's two plain routes to the chunk: the recurrence at the Pallas
-#: test's blocks, and the kernel wrapper on a CPU tensor (64-key blocks)
+#: test's blocks, and the kernel wrapper on a CPU tensor (BLOCK_K keys)
 def _plain_at(block_k):
     def fn(*args, **kw):
         return port_attn.flash_chunk_plain(*args, block_k=block_k, **kw)
@@ -195,6 +195,39 @@ def test_chunk_whole_block_bf16_matches_xla_hop(offsets, causal):
         _assert_bf16_close(_f32(g), _f32(w))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offsets", [(256, 0), (256, 256)],
+                         ids=["past", "diagonal"])
+def test_chunk_plain_at_kernel_block_matches_pallas_kernel(dtype, offsets):
+    """flash_chunk_plain at the CUDA kernel's BLOCK_K against the Pallas
+    chunk kernel in interpret mode at 128-row, 128-key blocks, on carries
+    from an earlier hop: a causal hop over a past chunk, then one on the
+    diagonal."""
+    bh, sq, d = 2, 256, 128
+    scale = 1.0 / d ** 0.5
+    q, k, v, k0, v0 = (_np((bh, sq, d), 70 + i) for i in range(5))
+    first = dict(q_offset=offsets[0], k_offset=offsets[0] - sq, causal=True,
+                 scale=scale)
+    hop = dict(q_offset=offsets[0], k_offset=offsets[1], causal=True,
+               scale=scale)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jq, jk, jv, jk0, jv0 = (jnp.asarray(a, jdt) for a in (q, k, v, k0, v0))
+    blocks = dict(block_q=port_attn.BLOCK_Q, block_k=port_attn.BLOCK_K)
+    want = _pallas_chunk(jq, jk0, jv0, *_fresh(bh, sq, d), **first, **blocks)
+    want = _pallas_chunk(jq, jk, jv, *want, **hop, **blocks)
+    tq, tk, tv, tk0, tv0 = (_t(a, tdt) for a in (q, k, v, k0, v0))
+    got = port_attn.flash_chunk_plain(tq, tk0, tv0, *map(_t, _fresh(bh, sq, d)),
+                                      **first)
+    got = port_attn.flash_chunk_plain(tq, tk, tv, *got, **hop)
+    got, want = [_f32(x) for x in got], [_f32(x) for x in want]
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g, w, atol=ATOL, rtol=ATOL)
+    if dtype == "float32":
+        np.testing.assert_allclose(_out(*got), _out(*want), atol=ATOL)
+    else:
+        _assert_bf16_close(_out(*got), _out(*want))
+
+
 def test_chunk_wrapper_updates_in_place_and_counts_no_launch_on_cpu():
     bh, sq, d = 1, 40, 32
     q, k = _t(_np((bh, sq, d), 19)), _t(_np((bh, 70, d), 20))
@@ -282,7 +315,7 @@ def test_ring_plain_is_the_ring_at_the_kernel_block(meshes, causal):
     assert torch.equal(ring, port_attn.ring_attention_plain(
         *args, mesh, causal=causal))
     _assert_bf16_close(_f32(ring), _f32(port_attn.ring_attention_plain(
-        *args, mesh, causal=causal, block_k=128)))
+        *args, mesh, causal=causal, block_k=32)))
 
 
 def test_ring_takes_the_sp_axis_of_a_wider_mesh():
