@@ -96,8 +96,10 @@ def preprocess_frames(x: torch.Tensor, scale: str = "pm1",
 def resolve_fused_apply(custom: Dict[str, str], model, make_fused,
                         scale: str = "pm1"):
     """Shared ``custom=fused:pallas|xla`` wiring: ``pallas`` runs the
-    BN-folded forward through the package's CUDA kernels, ``xla`` the same
-    folded forward in plain PyTorch. BN folds once, here (at open).
+    BN-folded forward through the package's CUDA kernels (``make_fused``
+    mode 'kernel'), ``xla`` the same folded forward as the JAX package's
+    ``fused:xla`` computes it, outside any kernel (mode 'xla'). BN folds
+    once, here (at open).
     Returns None when the custom key is absent."""
     fused = custom.get("fused")
     if fused is None:
@@ -105,7 +107,7 @@ def resolve_fused_apply(custom: Dict[str, str], model, make_fused,
     if fused not in ("pallas", "xla"):
         raise ValueError(f"unknown fused mode {fused!r} (use fused:pallas "
                          "or fused:xla)")
-    raw = make_fused(model, mode="kernel" if fused == "pallas" else "plain")
+    raw = make_fused(model, mode="kernel" if fused == "pallas" else "xla")
 
     def apply_fn(x):
         return raw(preprocess_frames(x, scale, model.dtype))

@@ -12,10 +12,11 @@ Two forwards:
     flax module computes them;
   - :func:`_make_fused_apply`: BatchNorm folded once, the 13 stride-1
     inverted-residual blocks through the fused-block kernel on CUDA
-    (``fused:pallas``) or its plain version (``fused:xla``); the stem, the
-    4 stride-2 blocks, the head 1x1 conv, the pool and the Dense layer are
-    torch ops, as the JAX package computes them with XLA outside any
-    Pallas kernel.
+    (``fused:pallas``; its plain version on the CPU) or every block through
+    three convolutions (``fused:xla``, as the JAX package's ``fused:xla``
+    runs ``inverted_residual_xla``); the stem, the 4 stride-2 blocks, the
+    head 1x1 conv, the pool and the Dense layer are torch ops, as the JAX
+    package computes them with XLA outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -198,31 +199,46 @@ def init_weights(model: nn.Module, seed: int) -> None:
 def _make_fused_apply(model: MobileNetV2, mode: str = "kernel",
                       compute_dtype: torch.dtype = None):
     """BN-folded forward, the counterpart of the JAX ``_make_fused_apply``.
-    ``mode``: 'kernel' (stride-1 blocks through the fused-block kernel on
-    CUDA; its plain version on the CPU) or 'plain' (every block through
-    :func:`inverted_residual_plain`). Folding and the casts to the compute
-    dtype happen once, here, on the model's device."""
-    from nnstreamer_tpu_torch.ops.fused_block import (
-        cast_folded,
-        fold_conv_bn,
-        fold_inverted_residual,
-        fused_inverted_residual,
-        inverted_residual_plain,
-    )
+    ``mode``:
+      - 'kernel' (``fused:pallas``): stride-1 blocks through
+        :func:`fused_inverted_residual` (the kernel on CUDA, its plain
+        version on the CPU), stride-2 blocks through
+        :func:`inverted_residual_conv`, as the JAX package sends them to
+        ``inverted_residual_xla``;
+      - 'xla' (``fused:xla``): every block through
+        :func:`inverted_residual_conv`;
+      - 'plain': the 'kernel' forward with the kernel's plain version in
+        its place (stride-1 blocks through :func:`inverted_residual_plain`,
+        stride-2 blocks through :func:`inverted_residual_conv` as in
+        'kernel'): the whole-model oracle on the card, which differs from
+        'kernel' only where the kernel runs.
+    Folding and the casts to the compute dtype happen once, here, on the
+    model's device."""
+    from nnstreamer_tpu_torch.ops import fused_block as fb
 
-    if mode not in ("kernel", "plain"):
+    if mode not in ("kernel", "xla", "plain"):
         raise ValueError(f"unknown fused forward mode {mode!r}")
     cd = compute_dtype or model.dtype
     dev = model.stem_conv.weight.device
-    block_fn = fused_inverted_residual if mode == "kernel" else \
-        inverted_residual_plain
+
+    def route(stride: int):
+        if mode == "xla" or stride != 1:
+            return fb.inverted_residual_conv, cd
+        if mode == "plain":
+            return fb.inverted_residual_plain, torch.float32
+        return fb.fused_inverted_residual, torch.float32
+
     with torch.no_grad():
-        k, b = fold_conv_bn(model.stem_conv, model.stem_bn)
-        stem = cast_folded({"w": k, "b": b}, cd, dev)
-        blocks = [(cast_folded(fold_inverted_residual(blk), cd, dev),
-                   blk.stride) for blk in model.blocks]
-        k, b = fold_conv_bn(model.head_conv, model.head_bn)
-        head = cast_folded({"w": k[:, :, 0, 0].t(), "b": b}, cd, dev)
+        k, b = fb.fold_conv_bn(model.stem_conv, model.stem_bn)
+        stem = fb.cast_folded({"w": k, "b": b}, cd, dev)
+        blocks = []
+        for blk in model.blocks:
+            fn, bias_dtype = route(blk.stride)
+            blocks.append((fn, fb.cast_folded(fb.fold_inverted_residual(blk),
+                                              cd, dev, bias_dtype),
+                           blk.stride))
+        k, b = fb.fold_conv_bn(model.head_conv, model.head_bn)
+        head = fb.cast_folded({"w": k[:, :, 0, 0].t(), "b": b}, cd, dev)
         dense_w = model.classifier.weight.detach().float().t().contiguous()
         dense_b = model.classifier.bias.detach().float()
 
@@ -231,8 +247,8 @@ def _make_fused_apply(model: MobileNetV2, mode: str = "kernel",
         y = F.conv2d(y, stem["w"], stride=2)
         y = _relu6(y + stem["b"].to(cd).reshape(1, -1, 1, 1))
         y = y.permute(0, 2, 3, 1).contiguous()  # NHWC for the blocks
-        for fw, stride in blocks:
-            y = block_fn(y, fw, stride=stride, compute_dtype=cd)
+        for fn, fw, stride in blocks:
+            y = fn(y, fw, stride=stride, compute_dtype=cd)
         B, H, W, C = y.shape
         o = y.reshape(-1, C) @ head["w"] + head["b"].to(cd)
         o = _relu6(o).reshape(B, H * W, -1)

@@ -77,7 +77,8 @@ _SIGNATURES = {
     "nnstpu_normalize_u8": [_P, _P, _LL, _F, _F, _I, _I, _P],
     "nnstpu_arith_chain": [_P, _P, _LL, _I, _I, _P, _P, _I, _I, _F, _F, _I,
                            _P],
-    "nnstpu_fused_inverted_residual": [_P] * 8 + [_I] * 12 + [_LL, _P],
+    "nnstpu_fused_inverted_residual": [_P, _P, _P, _I, _P],
+    "nnstpu_fused_attributes": [_I, _LL, _P],
     "nnstpu_flash_attention": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
     "nnstpu_flash_chunk": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
     "nnstpu_flash_attributes": [_I, _I, _P],

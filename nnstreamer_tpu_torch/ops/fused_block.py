@@ -12,27 +12,45 @@ folded dict has the JAX package's layout: ``w1`` [Cin, Ch] (absent when
 expand == 1), ``wd`` [9, Ch] tap-major, ``w2`` [Ch, Cout], float32 biases
 ``b1``/``bd``/``b2``.
 
-Routing, as in the JAX package: stride-1 blocks on a CUDA tensor launch the
-kernel for every shape (it masks ragged tiles itself, so there is no
-counterpart of ``_tiling_valid``/``fused_block_eligible``); stride-2 and
-dilated blocks run :func:`inverted_residual_plain`, as the JAX package
-sends them to ``inverted_residual_xla``; a CPU tensor runs the plain
-version.
+Three functions compute the block:
+  - :func:`fused_inverted_residual`, the kernel's wrapper: a stride-1
+    block on a CUDA tensor launches the kernel for every shape (it masks
+    ragged tiles itself, so there is no counterpart of
+    ``_tiling_valid``/``fused_block_eligible``); a CPU tensor runs the
+    plain version; a stride-2 block goes to :func:`inverted_residual_conv`,
+    as the JAX function sends it to ``inverted_residual_xla``;
+  - :func:`inverted_residual_plain`, the kernel's plain version: the
+    kernel's rounding points spelled out in PyTorch (the CPU tests' path
+    and the kernel's oracle on the card);
+  - :func:`inverted_residual_conv`, the counterpart of
+    ``inverted_residual_xla``: three convolutions, as the JAX package runs
+    the stride-2 blocks and ``fused:xla`` outside any Pallas kernel.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import ctypes
+import functools
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from nnstreamer_tpu_torch.ops import _cuda
 
-#: threads x accumulators per thread of the kernel (csrc/fused_block.cu)
+#: float32 kernel: threads x accumulators per thread (csrc/fused_block.cu)
 _MAX_OUTPUTS = 256 * 32
-#: shared memory one CTA may use (the card allows 227 KB)
-_SMEM_BUDGET = 200 * 1024
+#: dynamic shared memory one CTA may use (the H100's 227 KB opt-in limit)
+_SMEM_BUDGET = 227 * 1024
+#: bfloat16 kernel: (FM, FN) 16x16 project fragments per warp along pixels
+#: and output channels, one instantiation each; keep in step with
+#: csrc/fused_block.cu kVariants
+_TC_VARIANTS = ((2, 1), (2, 2), (1, 3), (1, 5), (1, 6))
+_TC_WARPS = 16
+#: hidden channels per chunk, in the order of preference (multiples of 16)
+_TC_CHUNKS = (64, 48, 32, 16)
+#: most output pixels in one bfloat16 work item
+_TC_MAX_PIXELS = 512
 
 
 def fold_conv_bn(conv: torch.nn.Conv2d, bn: torch.nn.BatchNorm2d
@@ -65,12 +83,16 @@ def fold_inverted_residual(block) -> Dict[str, torch.Tensor]:
 
 
 def cast_folded(folded: Dict[str, Any], compute_dtype: torch.dtype,
-                device=None) -> Dict[str, torch.Tensor]:
-    """Weights in the compute dtype, biases in float32, all contiguous on
-    ``device`` — the form the kernel reads (done once, at model open)."""
+                device=None, bias_dtype: torch.dtype = torch.float32
+                ) -> Dict[str, torch.Tensor]:
+    """Weights in the compute dtype, biases in ``bias_dtype``, all
+    contiguous on ``device``. The defaults are the form the kernel reads;
+    :func:`inverted_residual_conv` adds its biases in the compute dtype, so
+    its blocks take ``bias_dtype=compute_dtype``. Done once, at model
+    open."""
     out = {}
     for k, v in folded.items():
-        dt = torch.float32 if k.startswith("b") else compute_dtype
+        dt = bias_dtype if k.startswith("b") else compute_dtype
         out[k] = v.to(device=device, dtype=dt).contiguous()
     return out
 
@@ -134,12 +156,134 @@ def inverted_residual_plain(x: torch.Tensor, folded: Dict[str, Any], *,
     return o
 
 
+def inverted_residual_conv(x: torch.Tensor, folded: Dict[str, Any], *,
+                           stride: int = 1, dilation: int = 1,
+                           residual: Optional[bool] = None,
+                           compute_dtype: torch.dtype = torch.bfloat16
+                           ) -> torch.Tensor:
+    """The block as three convolutions on NHWC tensors — the counterpart of
+    the JAX package's ``inverted_residual_xla``, which runs outside any
+    Pallas kernel (the stride-2 and dilated blocks, and ``fused:xla``).
+
+    The NHWC tensors are viewed as channels-last NCHW (no copy) for
+    ``F.conv2d``: the 1x1 convs and the depthwise conv (``groups=Ch``) with
+    TF "SAME" padding (:func:`_same_pads`, the extra pad on the high side).
+    It rounds where the JAX function rounds: each conv's output in the
+    compute dtype, then ``+ b`` in the compute dtype as a separate add,
+    relu6, and the residual add in the compute dtype."""
+    cd = compute_dtype
+    B, H, W, Cin = x.shape
+    w1 = folded.get("w1")
+    wd, bd, w2, b2 = folded["wd"], folded["bd"], folded["w2"], folded["b2"]
+    Ch, Cout = wd.shape[-1], w2.shape[-1]
+    if residual is None:
+        residual = stride == 1 and Cin == Cout
+
+    def bias(b):
+        return b.to(cd).reshape(1, -1, 1, 1)
+
+    xc = x.to(cd).permute(0, 3, 1, 2)  # NCHW view of the NHWC tensor
+    h = xc
+    if w1 is not None:
+        h = _relu6(F.conv2d(h, w1.to(cd).t().reshape(Ch, Cin, 1, 1))
+                   + bias(folded["b1"]))
+    k_eff = 2 * dilation + 1
+    pt, pb = _same_pads(H, stride, k_eff)
+    pl, pr = _same_pads(W, stride, k_eff)
+    if pt or pb or pl or pr:
+        h = F.pad(h, (pl, pr, pt, pb))  # post-activation zeros
+    d = F.conv2d(h, wd.to(cd).t().reshape(Ch, 1, 3, 3), stride=stride,
+                 dilation=dilation, groups=Ch)
+    d = _relu6(d + bias(bd))
+    o = F.conv2d(d, w2.to(cd).t().reshape(Cout, Ch, 1, 1)) + bias(b2)
+    if residual:
+        o = o + xc
+    return o.permute(0, 2, 3, 1)
+
+
+class FusedPlan(NamedTuple):
+    """What one launch of ``csrc/fused_block.cu`` needs besides the
+    tensors. ``kind`` "tc": the bfloat16 kernel (tensor-core 1x1s,
+    persistent CTAs over (image, R rows) work items, every output channel
+    in one CTA); "fma": the float32 kernel (one CTA per image, R rows and
+    CoT output channels)."""
+    kind: str
+    R: int         # output rows per work item
+    Cc: int        # hidden channels per chunk
+    CoT: int       # output channels per CTA
+    variant: int   # index into _TC_VARIANTS ("tc"); -1 ("fma")
+    WM: int        # warps along pixels; the rest along channels ("tc")
+    smem: int      # dynamic shared memory bytes per CTA
+
+
+def _r16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def _tc_smem(H: int, W: int, Cin: int, Cout: int, R: int, Cc: int,
+             expand: bool) -> int:
+    """Dynamic shared memory of the bfloat16 kernel: two input buffers,
+    two weight buffers, the hidden tile, the depthwise output (aliased by
+    the output stage) and b2. Keep in step with csrc/fused_block.cu
+    make_layout, which refuses a launch given less."""
+    cin_p, cout_p = _r16(Cin), _r16(Cout)
+    xs = _r16(2 * _r16(min(R + 2, H) * W) * (cin_p + 8))
+    wd = (_r16(2 * cin_p * (Cc + 8)) if expand else 0) + _r16(
+        2 * Cc * (cout_p + 8))
+    wbuf = wd + _r16(2 * 9 * Cc) + 2 * _r16(4 * Cc)
+    hid = _r16(2 * (R + 2) * (W + 2) * (Cc + 8))
+    stage = _r16(2 * _r16(R * W) * max(Cc + 8, cout_p + 8))
+    return 2 * xs + 2 * wbuf + hid + stage + _r16(4 * cout_p)
+
+
+def _tc_fit(R: int, W: int, Cout: int) -> Optional[Tuple[int, int]]:
+    """(variant, WM) with the fewest accumulators whose warps cover the
+    [R*W x Cout] project output in 16x16 fragments, or None."""
+    mt, nt = -(-R * W // 16), _r16(Cout) // 16
+    best = None
+    for v, (fm, fn) in enumerate(_TC_VARIANTS):
+        for wm in (1, 2, 4, 8, 16):
+            if mt <= fm * wm and nt <= fn * (_TC_WARPS // wm):
+                if best is None or fm * fn < best[0]:
+                    best = (fm * fn, v, wm)
+    return None if best is None else best[1:]
+
+
+@functools.lru_cache(maxsize=None)
 def _plan_tiles(H: int, W: int, Cin: int, Ch: int, Cout: int,
-                itemsize: int) -> Tuple[int, int, int, int]:
-    """Tile plan for the kernel: (R output rows, CoT output channels, Cc
-    hidden channels per chunk, shared-memory bytes). R*W*CoT fits the
-    kernel's register accumulators; the shared-memory tiles fit the
-    budget, shrinking the hidden chunk first and then the row tile."""
+                itemsize: int, expand: bool = True) -> FusedPlan:
+    """The launch plan for one block shape (cached: the per-call host path
+    is a lookup).
+
+    bfloat16 (itemsize 2): the most rows per work item with R*W at most
+    ``_TC_MAX_PIXELS`` (whole images at 14x14 and 7x7, so nothing is
+    recomputed; 4-14 rows at 28x28 and up), split evenly over H; the hidden
+    chunk that pads Ch least (largest first); the variant with the fewest
+    accumulators that covers R*W x Cout; all within ``_SMEM_BUDGET``,
+    shrinking the chunk and then R.
+
+    float32 (itemsize 4): R*W*CoT fits the FMA kernel's register
+    accumulators (``_MAX_OUTPUTS``); the shared-memory tiles fit the budget,
+    shrinking the hidden chunk first and then the row tile."""
+    if itemsize == 2:
+        chunks = sorted(_TC_CHUNKS, key=lambda c: (-(-Ch // c) * c - Ch, -c))
+        rows = sorted({-(-H // n) for n in range(1, H + 1)}, reverse=True)
+        for r in rows:
+            if r > 1 and r * W > _TC_MAX_PIXELS:
+                continue
+            fit = _tc_fit(r, W, Cout)
+            if fit is None:
+                continue
+            for cc in chunks:
+                smem = _tc_smem(H, W, Cin, Cout, r, cc, expand)
+                if smem <= _SMEM_BUDGET:
+                    return FusedPlan("tc", r, cc, Cout, fit[0], fit[1], smem)
+        raise ValueError(f"fused block: no bfloat16 plan for H={H} W={W} "
+                         f"Cin={Cin} Ch={Ch} Cout={Cout} within "
+                         f"{_SMEM_BUDGET} bytes of shared memory and "
+                         f"{_TC_WARPS} warps of {_TC_VARIANTS} fragments")
+    if itemsize != 4:
+        raise ValueError(f"fused block: no kernel for itemsize {itemsize}")
     if W > _MAX_OUTPUTS:
         raise ValueError(f"fused block: width {W} exceeds the kernel's "
                          f"{_MAX_OUTPUTS}-output tile")
@@ -150,8 +294,8 @@ def _plan_tiles(H: int, W: int, Cin: int, Ch: int, Cout: int,
     cc = min(32, Ch)
 
     def smem(r, cc):
-        return itemsize * ((r + 2) * W * Cin + (r + 2) * (W + 2) * cc
-                           + r * W * cc + Cin * cc + cc * cot)
+        return 4 * ((r + 2) * W * Cin + (r + 2) * (W + 2) * cc
+                    + r * W * cc + Cin * cc + cc * cot)
 
     while smem(r, cc) > _SMEM_BUDGET:
         if cc > 8:
@@ -163,7 +307,89 @@ def _plan_tiles(H: int, W: int, Cin: int, Ch: int, Cout: int,
                 f"fused block: H={H} W={W} Cin={Cin} needs "
                 f"{smem(r, cc)} bytes of shared memory per CTA, more "
                 f"than {_SMEM_BUDGET}")
-    return r, cot, cc, smem(r, cc)
+    return FusedPlan("fma", r, cc, cot, -1, 0, smem(r, cc))
+
+
+def fused_kernel_attributes(plan: FusedPlan) -> dict:
+    """What the kernel of ``plan`` asks of the current CUDA device:
+    registers per thread, dynamic shared memory and resident CTAs per SM."""
+    out = (ctypes.c_int * 3)()
+    _cuda.check(_cuda.lib().nnstpu_fused_attributes(plan.variant, plan.smem,
+                                                    out),
+                "fused_kernel_attributes")
+    return dict(zip(("registers", "dynamic_smem_bytes", "ctas_per_sm"), out))
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_ctas(plan: FusedPlan, device_index: int) -> int:
+    """CTAs of ``plan``'s kernel the card holds at once: the persistent
+    grid's size."""
+    with torch.cuda.device(device_index):
+        per_sm = fused_kernel_attributes(plan)["ctas_per_sm"]
+    _cuda.require(per_sm >= 1, f"fused block: {plan} does not fit an SM")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return sms * per_sm
+
+
+class _Weights(NamedTuple):
+    """One folded dict in the kernel's form on one device, checked once."""
+    source: Tuple[Tuple[str, Any], ...]  # the dict's items when prepared
+    tensors: Dict[str, torch.Tensor]     # what the pointers point into
+    ptrs: Tuple[int, ...]                # w1, b1, wd, bd, w2, b2 (0: none)
+    Cin: int
+    Ch: int
+    Cout: int
+    launches: Dict[tuple, Any]           # _launch_params by input shape
+
+
+#: prepared weights by (id of the folded dict, dtype, device); an entry is
+#: used only while the dict still holds the very tensors it was made from
+_WEIGHTS: Dict[tuple, _Weights] = {}
+_WEIGHTS_MAX = 256
+
+
+def _weights(folded: Dict[str, Any], cd: torch.dtype, device) -> _Weights:
+    """Cast and check ``folded`` once; later calls with the same dict (the
+    model's folded blocks, cast at open) cost a lookup."""
+    key = (id(folded), cd, device)
+    hit = _WEIGHTS.get(key)
+    if hit is not None and len(hit.source) == len(folded) and all(
+            folded.get(k) is v for k, v in hit.source):
+        return hit
+    fw = cast_folded(folded, cd, device)  # no copy when already cast
+    w1 = fw.get("w1")
+    Ch, Cout = fw["wd"].shape[-1], fw["w2"].shape[-1]
+    _cuda.require(tuple(fw["wd"].shape) == (9, Ch), "wd must be [9, Ch]")
+    _cuda.require(fw["w2"].shape[0] == Ch, "w2 must be [Ch, Cout]")
+    Cin = Ch if w1 is None else w1.shape[0]
+    _cuda.require(w1 is None or tuple(w1.shape) == (Cin, Ch),
+                  "w1 must be [Cin, Ch]")
+    ptrs = tuple(fw[k].data_ptr() if k in fw else 0
+                 for k in ("w1", "b1", "wd", "bd", "w2", "b2"))
+    w = _Weights(tuple(folded.items()), fw, ptrs, Cin, Ch, Cout, {})
+    if len(_WEIGHTS) >= _WEIGHTS_MAX:
+        _WEIGHTS.pop(next(iter(_WEIGHTS)))
+    _WEIGHTS[key] = w
+    return w
+
+
+def _launch_params(w: _Weights, B: int, H: int, W: int, residual: bool,
+                   cd: torch.dtype, dev: int):
+    """The C entry point's fixed arguments for one block and input shape
+    (csrc/fused_block.cu, the P_* order), as a host array built once."""
+    key = (B, H, W, residual, cd, dev)
+    params = w.launches.get(key)
+    if params is None:
+        expand = w.ptrs[0] != 0
+        plan = _plan_tiles(H, W, w.Cin, w.Ch, w.Cout,
+                           torch.finfo(cd).bits // 8, expand)
+        grid = min(B * -(-H // plan.R), _resident_ctas(plan, dev)) \
+            if plan.kind == "tc" else 0
+        vals = (*w.ptrs, B, H, W, w.Cin, w.Ch, w.Cout, plan.R, plan.CoT,
+                plan.Cc, plan.variant, plan.WM, grid, int(expand),
+                int(residual), _cuda.DTYPE_CODES[cd], plan.smem)
+        params = w.launches[key] = (ctypes.c_longlong * len(vals))(*vals)
+    return params
 
 
 def fused_inverted_residual(x: torch.Tensor, folded: Dict[str, Any], *,
@@ -174,40 +400,43 @@ def fused_inverted_residual(x: torch.Tensor, folded: Dict[str, Any], *,
     """Run one inverted-residual block as a single fused kernel.
 
     x: [B, H, W, Cin]; folded: w1/b1 (absent for expand=1), wd [9, Ch],
-    bd, w2 [Ch, Cout], b2. Returns [B, H, W, Cout] in compute_dtype."""
-    if stride != 1 or _cuda.on_cpu(x):
-        return inverted_residual_plain(x, folded, stride=stride,
-                                       residual=residual,
+    bd, w2 [Ch, Cout], b2. Returns [B, H, W, Cout] in compute_dtype. A
+    stride-2 block runs :func:`inverted_residual_conv`. The weights are
+    cast and checked once per folded dict, and the plan and the launch
+    arguments once per input shape, so a call costs the input checks and
+    one launch."""
+    if stride != 1:
+        return inverted_residual_conv(x, folded, stride=stride,
+                                      residual=residual,
+                                      compute_dtype=compute_dtype)
+    if _cuda.on_cpu(x):
+        return inverted_residual_plain(x, folded, residual=residual,
                                        compute_dtype=compute_dtype)
     cd = compute_dtype
     _cuda.require(cd in (torch.float32, torch.bfloat16),
                   f"fused block computes in float32 or bfloat16, not {cd}")
     _cuda.require(x.dim() == 4, f"fused block takes NHWC, got {tuple(x.shape)}")
     B, H, W, Cin = x.shape
-    fw = cast_folded(folded, cd, x.device)
-    w1 = fw.get("w1")
-    Ch, Cout = fw["wd"].shape[-1], fw["w2"].shape[-1]
-    _cuda.require(fw["wd"].shape == (9, Ch), "wd must be [9, Ch]")
-    _cuda.require(fw["w2"].shape[0] == Ch, "w2 must be [Ch, Cout]")
-    if w1 is not None:
-        _cuda.require(tuple(w1.shape) == (Cin, Ch), "w1 must be [Cin, Ch]")
-    else:
-        _cuda.require(Ch == Cin, "expand=1 needs Ch == Cin")
+    w = _weights(folded, cd, x.device)
+    _cuda.require(Cin == w.Cin, f"x has {Cin} channels, the block takes "
+                  f"{w.Cin}")
     if residual is None:
-        residual = Cin == Cout
-    _cuda.require(not residual or Cin == Cout, "residual needs Cin == Cout")
-    xc = x.to(cd).contiguous()
-    out = torch.empty((B, H, W, Cout), dtype=cd, device=x.device)
-    r, cot, cc, smem = _plan_tiles(H, W, Cin, Ch, Cout, xc.element_size())
+        residual = Cin == w.Cout
+    _cuda.require(not residual or Cin == w.Cout, "residual needs Cin == Cout")
+    xc = x if x.dtype == cd and x.is_contiguous() else x.to(cd).contiguous()
+    out = torch.empty((B, H, W, w.Cout), dtype=cd, device=x.device)
+    dev = x.device.index
+    if dev is None:
+        dev = torch.cuda.current_device()
+    params = _launch_params(w, B, H, W, bool(residual), cd, dev)
     lib = _cuda.lib()
-    with torch.cuda.device(x.device):
-        err = lib.nnstpu_fused_inverted_residual(
-            xc.data_ptr(), w1.data_ptr() if w1 is not None else None,
-            fw["b1"].data_ptr() if w1 is not None else None,
-            fw["wd"].data_ptr(), fw["bd"].data_ptr(), fw["w2"].data_ptr(),
-            fw["b2"].data_ptr(), out.data_ptr(), B, H, W, Cin, Ch, Cout,
-            r, cot, cc, int(w1 is not None), int(residual),
-            _cuda.DTYPE_CODES[cd], smem, _cuda.stream_handle(x))
+    args = (xc.data_ptr(), out.data_ptr(), params, len(params),
+            _cuda.stream_handle(x))
+    if torch.cuda.current_device() == dev:
+        err = lib.nnstpu_fused_inverted_residual(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.nnstpu_fused_inverted_residual(*args)
     _cuda.check(err, "fused_inverted_residual")
     _cuda.LAUNCHES["fused_inverted_residual"] += 1
     return out

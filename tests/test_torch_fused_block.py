@@ -3,11 +3,18 @@
 The same folded weights and inputs (numpy, from a seed) go through the JAX
 Pallas kernel in interpret mode and its XLA path, and through the port's
 ``fused_inverted_residual`` — which on a CPU tensor runs
-``inverted_residual_plain``; chip_smoke.py holds the CUDA kernel against
-that plain version on the card. Tolerances are the JAX package's own
+``inverted_residual_plain`` (stride 1) or ``inverted_residual_conv``
+(stride 2); chip_smoke.py holds the CUDA kernel against that plain version
+on the card. ``inverted_residual_conv`` is held against the JAX
+``inverted_residual_xla``. Tolerances are the JAX package's own
 (tests/test_fused_block.py): float32 compute, 1e-4 against the folded
-paths, 2e-4 against the flax module.
+paths, 2e-4 against the flax module; bfloat16 compute at 2^-6 absolute and
+relative (a few bf16 ulps: both round at the same points, their float32
+sums run in another order).
 """
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -25,12 +32,20 @@ from nnstreamer_tpu_torch.models.mobilenet_v2 import (  # noqa: E402
     InvertedResidual,
     MobileNetV2,
 )
+from nnstreamer_tpu_torch.ops import _cuda  # noqa: E402
 from nnstreamer_tpu_torch.ops.fused_block import (  # noqa: E402
     _MAX_OUTPUTS,
     _SMEM_BUDGET,
+    _TC_MAX_PIXELS,
+    _TC_VARIANTS,
+    _TC_WARPS,
+    _launch_params,
     _plan_tiles,
+    _tc_smem,
+    _weights,
     fold_inverted_residual,
     fused_inverted_residual,
+    inverted_residual_conv,
     inverted_residual_plain,
 )
 
@@ -95,8 +110,7 @@ def test_prime_size_matches():
     got = fused_inverted_residual(torch.from_numpy(x), _torch(fw),
                                   compute_dtype=torch.float32).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
-    r, cot, cc, smem = _plan_tiles(113, 113, cin, ch, cin, 2)
-    assert r * 113 * cot <= _MAX_OUTPUTS and smem <= _SMEM_BUDGET
+    _assert_plan_fits(113, 113, cin, ch, cin, 2)
 
 
 @pytest.mark.parametrize("stride,expand", [(1, 6), (1, 1), (2, 6)])
@@ -161,6 +175,26 @@ def _mbv2_stride1_shapes(size=224, width=1.0):
     return out
 
 
+def _assert_plan_fits(H, W, cin, ch, cout, itemsize, expand=True):
+    """The plan's limits, as the kernel checks them before a launch."""
+    plan = _plan_tiles(H, W, cin, ch, cout, itemsize, expand)
+    assert plan.smem <= _SMEM_BUDGET
+    assert 1 <= plan.R <= H and 1 <= plan.Cc
+    if itemsize == 4:
+        assert plan.kind == "fma" and 1 <= plan.CoT <= cout
+        assert plan.R * W * plan.CoT <= _MAX_OUTPUTS
+        return plan
+    fm, fn = _TC_VARIANTS[plan.variant]
+    assert plan.kind == "tc" and plan.CoT == cout
+    assert plan.Cc % 16 == 0 and plan.Cc <= 64
+    assert plan.R == 1 or plan.R * W <= _TC_MAX_PIXELS
+    # the warps' 16x16 project fragments cover R*W pixels x Cout channels
+    assert -(-plan.R * W // 16) <= fm * plan.WM
+    assert -(-cout // 16) <= fn * (_TC_WARPS // plan.WM)
+    assert plan.smem == _tc_smem(H, W, cin, cout, plan.R, plan.Cc, expand)
+    return plan
+
+
 def test_tile_plan_covers_every_main_path_shape():
     shapes = _mbv2_stride1_shapes()
     assert len(shapes) == 13
@@ -168,7 +202,140 @@ def test_tile_plan_covers_every_main_path_shape():
     assert shapes[-1] == (7, 7, 160, 960, 320)
     for itemsize in (2, 4):
         for H, W, cin, ch, cout in shapes:
-            r, cot, cc, smem = _plan_tiles(H, W, cin, ch, cout, itemsize)
-            assert 1 <= r <= H and 1 <= cot <= cout and 1 <= cc <= ch
-            assert r * W * cot <= _MAX_OUTPUTS
-            assert smem <= _SMEM_BUDGET
+            plan = _assert_plan_fits(H, W, cin, ch, cout, itemsize,
+                                     expand=ch != cin)
+            if itemsize == 2 and H <= 14:  # whole images: no halo recompute
+                assert plan.R == H
+    # the prime size, with Cout above one warp column's fragments
+    plan = _assert_plan_fits(113, 113, 8, 48, 80, 2)
+    assert plan.R * 113 <= _TC_MAX_PIXELS
+
+
+def test_kernel_variants_match_the_source():
+    """The planner's (FM, FN) table is the kernel's instantiation table."""
+    src = open(os.path.join(_cuda.CSRC, "fused_block.cu")).read()
+    table = re.search(r"kVariants\[\]\[2\] = \{(.*?)\};", src).group(1)
+    pairs = tuple(tuple(int(v) for v in m)
+                  for m in re.findall(r"\{(\d+), (\d+)\}", table))
+    assert pairs == _TC_VARIANTS
+    for v, (fm, fn) in enumerate(_TC_VARIANTS):
+        assert f"case {v}: return reinterpret_cast<const void*>(" \
+               f"&fused_ir_tc_kernel<{fm}, {fn}>);" in src
+
+
+#: (stride, expand, dilation, size, cin, cout, residual)
+_CONV_CASES = [
+    (1, 6, 1, 8, 8, 8, None),     # residual
+    (1, 6, 1, 8, 8, 8, False),    # Cin == Cout, residual off
+    (1, 6, 1, 9, 8, 16, None),    # odd size, no residual
+    (1, 1, 1, 8, 16, 8, None),    # expand=1
+    (2, 6, 1, 8, 8, 16, None),    # stride 2, even: SAME pads (0, 1)
+    (2, 6, 1, 9, 8, 8, None),     # stride 2, odd
+    (2, 1, 1, 10, 16, 16, None),  # stride 2, expand=1, Cin == Cout
+    (1, 6, 2, 9, 8, 8, None),     # dilation 2, odd, residual
+    (1, 6, 2, 12, 8, 16, None),   # dilation 2
+    (2, 6, 2, 11, 8, 8, None),    # stride 2 and dilation 2
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("stride,expand,dilation,size,cin,cout,residual",
+                         _CONV_CASES)
+def test_conv_matches_jax_xla(stride, expand, dilation, size, cin, cout,
+                              residual, dtype):
+    """inverted_residual_conv against the JAX inverted_residual_xla on the
+    same folded weights: float32 at 1e-4, bfloat16 at 2^-6."""
+    rng = np.random.default_rng(10 + stride + 3 * dilation + size)
+    ch = cin * expand
+    fw = _rand_folded(rng, cin, ch, cout, expand != 1)
+    x = rng.normal(0, 1, (2, size, size, cin)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(inverted_residual_xla(
+        jnp.asarray(x).astype(jdt), _jax(fw), stride=stride,
+        dilation=dilation, residual=residual,
+        compute_dtype=jdt).astype(jnp.float32))
+    got = inverted_residual_conv(
+        torch.from_numpy(x).to(tdt), _torch(fw), stride=stride,
+        dilation=dilation, residual=residual, compute_dtype=tdt)
+    assert got.dtype == tdt and tuple(got.shape) == want.shape
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -6
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=tol)
+
+
+def _bf16_rne(v):
+    """Round float64 values to the nearest bfloat16 (ties to even), once,
+    without going through float32: 8 significant bits."""
+    m, e = np.frexp(v)  # v = m * 2**e, 0.5 <= |m| < 1
+    return np.ldexp(np.rint(m * 256.0) / 256.0, e)
+
+
+@pytest.mark.parametrize("lo,hi", [(-60, -20), (-8, 8), (20, 60)])
+def test_bf16_product_rounds_to_nearest(lo, hi):
+    """The fact the kernel's depthwise relies on: a product of two bf16
+    values is exact in float32, so rounding the float32 product to bf16
+    (the plain version's ``(tap.float() * wd.float()).to(bf16)``) is one
+    rounding to nearest of the exact product, as mul.rn.bf16x2 computes it.
+    Pairs in the float32 normal range; below it the plain path rounds twice
+    and may differ by one bf16 ulp."""
+    rng = np.random.default_rng(lo + 100)
+    n = 20000
+    a = torch.from_numpy(rng.uniform(1, 2, n) * np.exp2(
+        rng.integers(lo, hi, n)) * rng.choice([-1, 1], n)).to(torch.bfloat16)
+    b = torch.from_numpy(rng.uniform(1, 2, n) * np.exp2(
+        rng.integers(lo, hi, n)) * rng.choice([-1, 1], n)).to(torch.bfloat16)
+    exact = a.double() * b.double()
+    assert torch.equal((a.float() * b.float()).double(), exact)
+    plain = (a.float() * b.float()).to(torch.bfloat16)
+    np.testing.assert_array_equal(plain.double().numpy(),
+                                  _bf16_rne(exact.numpy()))
+    # ties occur: the sample exercises round-half-to-even, not only nearest
+    scaled = np.frexp(exact.numpy())[0] * 256.0
+    assert (np.abs(scaled - np.floor(scaled) - 0.5) == 0).any()
+
+
+def test_weights_are_cast_once_per_folded_dict():
+    """The wrapper's per-call host path: a folded dict already in the
+    kernel's form is used as it is, its checks run once, and a dict whose
+    tensors were replaced is prepared anew."""
+    fw = _torch(_rand_folded(np.random.default_rng(8), 8, 48, 16, True))
+    fw = {k: v.to(torch.float32 if k.startswith("b") else torch.bfloat16)
+          for k, v in fw.items()}
+    dev = torch.device("cpu")
+    w = _weights(fw, torch.bfloat16, dev)
+    assert w is _weights(fw, torch.bfloat16, dev)
+    assert all(w.tensors[k] is v for k, v in fw.items())  # no copy
+    assert (w.Cin, w.Ch, w.Cout) == (8, 48, 16)
+    assert w.ptrs == tuple(fw[k].data_ptr() for k in
+                           ("w1", "b1", "wd", "bd", "w2", "b2"))
+    fw["w2"] = fw["w2"].clone()
+    w2 = _weights(fw, torch.bfloat16, dev)
+    assert w2 is not w and w2.ptrs[4] == fw["w2"].data_ptr()
+    # float32 weights for a bfloat16 block are cast (once)
+    w32 = _weights(_torch(_rand_folded(np.random.default_rng(9), 8, 48, 8,
+                                       False)), torch.bfloat16, dev)
+    assert w32.tensors["wd"].dtype == torch.bfloat16 and w32.ptrs[0] == 0
+    with pytest.raises(ValueError, match="w2 must be"):
+        _weights({**fw, "w2": fw["w2"][:8]}, torch.bfloat16, dev)
+
+
+def test_launch_params_follow_the_c_layout():
+    """The cached argument array has the C entry point's P_* order."""
+    src = open(os.path.join(_cuda.CSRC, "fused_block.cu")).read()
+    names = re.findall(r"P_[A-Z0-9]+", re.search(
+        r"enum \{\s*(P_W1.*?P_COUNT)\s*\};", src, re.S).group(1))
+    assert names[-1] == "P_COUNT"
+    idx = {n: i for i, n in enumerate(names)}
+    w = _weights(_torch(_rand_folded(np.random.default_rng(10), 8, 48, 8,
+                                     True)), torch.float32,
+                 torch.device("cpu"))
+    params = _launch_params(w, 3, 9, 11, True, torch.float32, 0)
+    assert len(params) == idx["P_COUNT"]
+    assert params is _launch_params(w, 3, 9, 11, True, torch.float32, 0)
+    plan = _plan_tiles(9, 11, 8, 48, 8, 4, True)
+    want = {"P_W1": w.ptrs[0], "P_W2": w.ptrs[4], "P_B2": w.ptrs[5],
+            "P_B": 3, "P_H": 9, "P_W": 11, "P_CIN": 8, "P_CH": 48,
+            "P_COUT": 8, "P_R": plan.R, "P_COT": plan.CoT, "P_CC": plan.Cc,
+            "P_VARIANT": -1, "P_GRID": 0, "P_EXPAND": 1, "P_RESIDUAL": 1,
+            "P_DTYPE": _cuda.DTYPE_CODES[torch.float32],
+            "P_SMEM": plan.smem}
+    assert {k: params[idx[k]] for k in want} == want

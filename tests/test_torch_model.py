@@ -56,16 +56,91 @@ def test_unfused_module_matches_flax(flax_model):
     assert (got.argmax(-1) == want.argmax(-1)).all()
 
 
-@pytest.mark.parametrize("mode", ["kernel", "plain"])
+@pytest.mark.parametrize("mode", ["kernel", "plain", "xla"])
 def test_fused_forward_matches_flax(flax_model, mode):
-    """'kernel' is the fused:pallas forward (its blocks take the plain
-    version on the CPU), 'plain' the fused:xla forward."""
+    """'kernel' is the fused:pallas forward (its stride-1 blocks take the
+    plain version on the CPU, its stride-2 blocks the convolutions),
+    'plain' every block through the kernel's plain version, 'xla' the
+    fused:xla forward (every block through the convolutions)."""
     variables, x, want = flax_model
     fused = _make_fused_apply(_port(variables), mode=mode,
                               compute_dtype=torch.float32)
     got = fused(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=5e-4, rtol=5e-4)
     assert (got.argmax(-1) == want.argmax(-1)).all()
+
+
+def test_xla_forward_matches_jax_fused_xla(flax_model):
+    """The port's fused:xla forward against the JAX package's own fused:xla
+    forward on the same (converted) weights: f32, 5e-4 and equal argmax, as
+    tests/test_fused_block.py::test_full_model_fused_matches_flax."""
+    from nnstreamer_tpu.models.mobilenet_v2 import (
+        MobileNetV2 as FlaxMBV2,
+        _make_fused_apply as jax_make_fused_apply,
+    )
+
+    variables, x, _ = flax_model
+    jax_fused = jax_make_fused_apply(
+        FlaxMBV2(num_classes=16, width_mult=0.35, dtype=jnp.float32),
+        mode="xla", compute_dtype=jnp.float32)
+    want = np.asarray(jax_fused(variables, jnp.asarray(x)))
+    got = _make_fused_apply(_port(variables), mode="xla",
+                            compute_dtype=torch.float32)(
+        torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=5e-4, rtol=5e-4)
+    assert (got.argmax(-1) == want.argmax(-1)).all()
+
+
+@pytest.mark.parametrize("mode,fused,conv,plain", [
+    ("kernel", 13, 4, 0),
+    ("xla", 0, 17, 0),
+    ("plain", 0, 4, 13),
+])
+def test_fused_forward_routes_blocks(monkeypatch, mode, fused, conv, plain):
+    """Which function each of the 17 blocks goes to: in 'kernel' mode the
+    13 stride-1 blocks to fused_inverted_residual and the 4 stride-2
+    blocks to inverted_residual_conv, and inverted_residual_plain only from
+    inside the kernel's wrapper (its CPU path), never from the forward; in
+    'plain' mode (the kernel-mode forward's oracle) the stride-1 blocks to
+    inverted_residual_plain itself; in 'xla' mode every block to
+    inverted_residual_conv."""
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import init_weights
+    from nnstreamer_tpu_torch.ops import fused_block as fb
+
+    calls = {"fused": [], "conv": [], "plain": [], "plain_outside": 0}
+    inside = []
+
+    def spy(name, real):
+        def wrapped(x, folded, **kw):
+            if name == "plain" and not inside:
+                calls["plain_outside"] += 1
+            calls[name].append(kw.get("stride", 1))
+            inside.append(name)
+            try:
+                return real(x, folded, **kw)
+            finally:
+                inside.pop()
+        return wrapped
+
+    for name, attr in (("fused", "fused_inverted_residual"),
+                       ("conv", "inverted_residual_conv"),
+                       ("plain", "inverted_residual_plain")):
+        monkeypatch.setattr(fb, attr, spy(name, getattr(fb, attr)))
+    model = MobileNetV2(num_classes=8, width_mult=0.35, dtype=torch.float32)
+    init_weights(model, 0)
+    forward = _make_fused_apply(model.eval(), mode=mode,
+                                compute_dtype=torch.float32)
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        0, 1, (1, 32, 32, 3)).astype(np.float32))
+    out = forward(x)
+    assert tuple(out.shape) == (1, 8) and bool(torch.isfinite(out).all())
+    assert calls["fused"] == [1] * fused
+    assert sorted(calls["conv"]) == [1] * (conv - 4) + [2] * 4
+    if mode == "kernel":  # the wrapper's CPU path, once per stride-1 block
+        assert calls["plain"] == [1] * 13 and calls["plain_outside"] == 0
+    else:
+        assert len(calls["plain"]) == calls["plain_outside"] == plain
 
 
 def test_params_npz_round_trip(flax_model, tmp_path):
