@@ -37,16 +37,24 @@ Phases, each printing one JSON line:
              by kernel, the PyTorch elementwise kernels' sum and the
              device's idle share;
   transform  tensor_transform acceleration=device bit-equal to numpy;
+             (the kernel phase also holds arith_chain bit-equal to its
+             plain version for every input and output dtype, on all 256
+             values of 8-bit inputs and all 65,536 of 16-bit ones, for the
+             launch lines' chains, at a ragged size and an unaligned base);
   attention  the flash-attention kernel against its plain version (the
              blockwise recurrence at the kernel's 128-key blocks) at causal
              8x8192x128 (the stream line), 768x197x64 (ViT-S/16 at batch
              128), a ragged causal 3x1000x32 and 4x777x64 and a ragged
-             non-causal 2x333x128 (each head dim on both mask paths): max
-             error against the stated tolerance; kernel, plain and bound ms,
-             and the time of torch's scaled_dot_product_attention at the
-             same shape (library_ms, timed only); every line also gives the
-             kernel's registers per thread, dynamic shared memory and
-             resident CTAs per SM;
+             non-causal 2x333x128 (each head dim on both mask paths), in
+             float32 at the reference's test shapes, in bf16 and float32 at
+             head dims 8, 16, 24, 48, 96 and 256 with ragged and unequal
+             sequences, and in float32 at causal 8x4096x128: max error
+             against the stated tolerance (float32 at 2e-5 abs + 2e-5
+             rel, TF32 off); for the timed shapes kernel, device, plain and
+             bound ms, and the time of torch's scaled_dot_product_attention
+             at the same shape (library_ms, timed only); every line also
+             gives the body and instantiation the kernel ran, its registers
+             per thread, dynamic shared memory and resident CTAs per SM;
   stream     the long-context line (appsrc ! tensor_aggregator !
              tensor_filter model=stream_transformer ! tensor_sink) at seq
              8192, dim 1024, 8 heads, depth 4: 8 windows after 2 warm-up
@@ -58,9 +66,12 @@ Phases, each printing one JSON line:
              recurrence at the kernel's 128-key blocks) at the stream line's
              sp=4 shard, 8x2048x128, on carries from an earlier hop: the
              diagonal, past, future and non-causal hops, and two ragged
-             causal cases (3x1000x32 with offsets); the future hop leaves
+             causal cases (3x1000x32 with offsets); then the diagonal, past,
+             partly masked and future hops at 3x300x300 for head dims 8, 16,
+             24, 48, 96 and 256 in bf16 and float32; a future hop leaves
              the carries bit-identical, the others hold acc/l, m and l
-             within stated tolerances; kernel, plain and bound ms per hop;
+             within stated tolerances; kernel, device, plain and bound ms
+             per timed hop;
   ring       ring_attention over make_mesh(sp=4, devices=[cuda:0] * 4) at
              causal 8x8192x128 against the same ring over the plain chunk
              update, cross-checked (with their own tolerance) against
@@ -71,6 +82,15 @@ Phases, each printing one JSON line:
              with the ring as its attention (64 flash_chunk launches)
              against the filter's flash forward, and both forwards' ms;
              and a profile line of 5 ring calls;
+  longctx    examples/long_context.py's three steps at its own sizes:
+             its stream line (128 one-frame buffers to one window, dim 32,
+             2 heads: bf16 at head_dim 16) against the plain-attention twin,
+             with its flash_attention launch; ring attention on float32
+             (2, 1024, 32) and Ulysses on float32 (2, 8, 1024, 32), causal,
+             over make_mesh(sp=8, devices=[cuda:0] * 8), each against
+             plain_attention at the reference's atol 3e-5 with its kernel's
+             launches; then the reference tests' float32 ring (d 16 and 8)
+             and Ulysses (d 16) shapes the same way;
   vit        the ViT-S/16 labeling line (224x224, depth 6, 1000 classes,
              128 frames per tensor): 6 flash_attention launches and 1
              normalize_u8 launch per forward, logits against the plain
@@ -242,7 +262,7 @@ def check_elementwise(torch, results):
             row["ms"] = cuda_ms(lambda: arith_chain(x, ops, torch.float32))
             row["device_ms"] = device_ms(
                 torch, lambda: arith_chain(x, ops, torch.float32),
-                "arith_chain_kernel")
+                "arith_chain")
             row["plain_ms"] = cuda_ms(
                 lambda: arith_chain_plain(x, ops, torch.float32))
             row["bound_ms"], row["bound_by"] = bound_ms(5 * n, 3 * n, "float32")
@@ -250,6 +270,78 @@ def check_elementwise(torch, results):
         emit("kernel", **row)
         if err != 0.0:
             raise AssertionError(f"arith_chain {row}")
+    check_arith_exhaustive(torch, gen)
+
+
+#: the chains of the repo's launch lines (the tensor_transform preamble,
+#: mul:2, mul:0.5, mul:0.1, add:1) and a clamp
+ARITH_CHAINS = {
+    "preamble": ([("add", -127.5), ("div", 127.5)], None),
+    "mul2": ([("mul", 2.0)], None),
+    "mul0.5": ([("mul", 0.5)], None),
+    "mul0.1": ([("mul", 0.1)], None),
+    "add1": ([("add", 1.0)], None),
+    "preamble_clamp": ([("add", -127.5), ("div", 127.5)], (-0.5, 0.5)),
+}
+
+
+def _bits_equal(torch, a, b) -> bool:
+    """Bit for bit where neither is NaN, and NaN at the same places (the
+    NaN payload a conversion leaves is not the function's)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    na, nb = torch.isnan(a.float()), torch.isnan(b.float())
+    ints = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        a.view(ints)[~na], b.view(ints)[~nb]))
+
+
+def check_arith_exhaustive(torch, gen):
+    """arith_chain bit-equal to its plain version for every input and
+    output dtype and every chain of ARITH_CHAINS: all 256 values of an
+    8-bit input and all 65,536 of a 16-bit one (repeated to a ragged
+    length), int32 and float32 samples with their extremes, each at an
+    aligned base and at an unaligned one (x[1:], the element-by-element
+    path)."""
+    from nnstreamer_tpu_torch.ops import arith_chain, arith_chain_plain
+
+    def tiled(values, reps):
+        return torch.cat([values.repeat(reps), values[:37]])
+
+    u8 = torch.arange(256, device="cuda", dtype=torch.int32)
+    u16 = torch.arange(65536, device="cuda", dtype=torch.int32)
+    i32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (300001,), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    i32[:4] = torch.tensor([-2 ** 31, 2 ** 31 - 1, 0, -1], device="cuda")
+    f32 = torch.randn(300001, generator=gen, device="cuda") * 300.0
+    f32[:8] = torch.tensor([float("inf"), float("-inf"), float("nan"), 0.0,
+                            -0.0, 1e-40, 3.4e38, -3.4e38], device="cuda")
+    inputs = {"uint8": tiled(u8.to(torch.uint8), 1000),
+              "int8": tiled(u8.to(torch.uint8).view(torch.int8), 1000),
+              "uint16": tiled(u16.to(torch.int16), 3).view(torch.uint16),
+              "int16": tiled(u16.to(torch.int16), 3),
+              "int32": i32, "float32": f32}
+    checked, bad = 0, []
+    for name, x in inputs.items():
+        for out in (torch.float32, torch.bfloat16, torch.float16):
+            for chain, (ops, clamp) in ARITH_CHAINS.items():
+                for base in (x, x[1:]):
+                    k = arith_chain(base, ops, out_dtype=out, clamp=clamp)
+                    p = arith_chain_plain(base, ops, out_dtype=out,
+                                          clamp=clamp)
+                    checked += 1
+                    if not _bits_equal(torch, k, p):
+                        bad.append([name, str(out), chain,
+                                    base.data_ptr() % 16,
+                                    max_err(k[~torch.isnan(p.float())],
+                                            p[~torch.isnan(p.float())])])
+    emit("kernel", kernel="arith_chain", case="exhaustive",
+         inputs={n: list(x.shape) for n, x in inputs.items()},
+         outputs=["float32", "bfloat16", "float16"],
+         chains=sorted(ARITH_CHAINS), calls=checked, bit_equal=not bad,
+         mismatches=bad[:10])
+    if bad:
+        raise AssertionError(f"arith_chain not bit-equal: {bad[:10]}")
 
 
 def _blocks(model, stride: int):
@@ -663,15 +755,34 @@ def _custom(cfg: dict) -> str:
     return ",".join(f"{k}:{v}" for k, v in cfg.items())
 
 
+#: float32 attention, kernel against plain at the same 128-key blocks:
+#: both products in float32 (the plain version's matmul with TF32 off),
+#: only the order of the sums and exp's last bits differ
+F32_ATOL = F32_RTOL = 2e-5
+#: head dims of every kind: 8 and 16 the reference's ring and Ulysses
+#: tests (16 also the tensor-core body's D 16), multiples of 8 and odd
+#: widths that only the simple body takes in bf16 (its odd q row stride,
+#: a partial 32-column K stage, V rows at stride d), and the largest the
+#: kernels take
+WIDE_DIMS = (1, 8, 16, 20, 24, 33, 48, 96, 100, 200, 256)
+#: one timed shape for each instantiation the bf16 main-path shapes do
+#: not reach (causal 8 heads x 4096, half the stream line's length): the
+#: tensor-core body at D 16 (bf16, d 16), the simple body at D 32, 64, 128
+#: and 256 (float32)
+TIMED_WIDE = ((16, "bfloat16"), (32, "float32"), (64, "float32"),
+              (128, "float32"), (256, "float32"))
+
+
 def attention_work(bh: int, sq: int, sk: int, d: int, causal: bool,
                    q_offset: int = 0, k_offset: int = 0,
-                   carries: bool = False):
+                   carries: bool = False, itemsize: int = 2):
     """(bytes, operations) one attention call needs: 4*d operations (two
     products) per (q, k) pair the mask keeps, at the global positions
-    q_offset + i >= k_offset + j; q, k, v read once in bf16 and either o
-    written once in bf16 (a flash call) or, for a chunk update
-    (``carries``), the float32 carries m, l, acc read and written once. A
-    chunk no row sees needs nothing: its carries pass through."""
+    q_offset + i >= k_offset + j; q, k, v read once in their dtype
+    (``itemsize`` bytes) and either o written once in it (a flash call)
+    or, for a chunk update (``carries``), the float32 carries m, l, acc
+    read and written once. A chunk no row sees needs nothing: its carries
+    pass through."""
     import numpy as np
 
     if causal:
@@ -680,11 +791,20 @@ def attention_work(bh: int, sq: int, sk: int, d: int, causal: bool,
     else:
         pairs = sq * sk
     if not carries:
-        return 2.0 * bh * d * (2 * sq + 2 * sk), 4.0 * bh * d * pairs
+        return itemsize * bh * d * (2 * sq + 2 * sk), 4.0 * bh * d * pairs
     if pairs == 0:
         return 0.0, 0.0
-    return (bh * (2.0 * d * (sq + 2 * sk) + 8.0 * sq * (2 + d)),
+    return (bh * (itemsize * d * (sq + 2 * sk) + 8.0 * sq * (2 + d)),
             4.0 * bh * d * pairs)
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _tols(torch, dtype):
+    return (ATTN_TOL, ATTN_TOL) if dtype == torch.bfloat16 else (F32_ATOL,
+                                                                 F32_RTOL)
 
 
 def check_attention(torch, results):
@@ -697,21 +817,44 @@ def check_attention(torch, results):
         flash_kernel_attributes,
     )
 
+    # float32 products in float32 on both sides: the plain version's
+    # matmul (and SDPA's, timed only) with TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(2)
     hd = STREAM["dim"] // STREAM["heads"]
     vit_hd = VIT["dim"] // VIT["heads"]
     vit_tokens = (SIZE // VIT["patch"]) ** 2 + 1
-    # (case, bh, seq, head_dim, causal, on a main path)
-    cases = [("stream", STREAM["heads"], STREAM["seq"], hd, True, True),
-             ("vit", BATCH * VIT["heads"], vit_tokens, vit_hd, False, True),
-             ("ragged", 3, 1000, 32, True, False),
-             ("ragged64", 4, 777, 64, True, False),
-             ("noncausal128", 2, 333, 128, False, False)]
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
-           "ops": 0.0, "err": 0.0}
-    for case, bh, s, d, causal, main in cases:
-        q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(3))
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (case, q shape, key length, causal, dtype, timed, on a main path)
+    cases = [("stream", (STREAM["heads"], STREAM["seq"], hd), None, True,
+              bf16, True, True),
+             ("vit", (BATCH * VIT["heads"], vit_tokens, vit_hd), None, False,
+              bf16, True, True),
+             ("ragged", (3, 1000, 32), None, True, bf16, False, False),
+             ("ragged64", (4, 777, 64), None, True, bf16, False, False),
+             ("noncausal128", (2, 333, 128), None, False, bf16, False,
+              False),
+             # float32 at the reference's kernel tests (tests/test_ops.py)
+             ("ref_f32", (2, 64, 128), None, False, f32, False, False),
+             ("ref_f32_causal", (2, 64, 128), None, True, f32, False, False),
+             ("ref_f32_lead", (2, 3, 32, 128), None, False, f32, False,
+              False)]
+    cases += [(f"timed_{dt}_d{d}", (8, 4096, d), None, True,
+               getattr(torch, dt), True, False) for d, dt in TIMED_WIDE]
+    for d in WIDE_DIMS:
+        for dtype in (bf16, f32):
+            cases += [(f"d{d}_causal", (3, 300, d), None, True, dtype, False,
+                       False),
+                      (f"d{d}_unequal", (2, 257, d), 130, False, dtype,
+                       False, False)]
+    tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bytes": 0.0, "ops": 0.0, "err": 0.0}
+    for case, shape, sk, causal, dtype, timed, main in cases:
+        *lead, s, d = shape
+        kshape = (*lead, sk or s, d)
+        q = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(kshape, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
 
         def kern():
             return flash_attention_cuda(q, k, v, causal=causal)
@@ -723,37 +866,44 @@ def check_attention(torch, results):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = max_err(got, want)
-        ok = bool(torch.isfinite(got.float()).all()) and within(
-            got, want, ATTN_TOL, ATTN_TOL)
+        atol, rtol = _tols(torch, dtype)
+        ok = (got.dtype == dtype and bool(torch.isfinite(got.float()).all())
+              and within(got, want, atol, rtol))
         row = {"kernel": "flash_attention", "case": case,
-               "shape": [bh, s, d], "causal": causal, "dtype": "bfloat16",
-               "block_k": BLOCK_K, "max_abs_err": err, "atol": ATTN_TOL,
-               "rtol": ATTN_TOL, "ok": ok, **flash_kernel_attributes(d)}
-        if main:
+               "shape": list(shape), "sk": kshape[-2], "causal": causal,
+               "dtype": _dtype_name(dtype), "block_k": BLOCK_K,
+               "max_abs_err": err, "atol": atol, "rtol": rtol, "ok": ok,
+               **flash_kernel_attributes(d, dtype=dtype)}
+        if timed:
             def library():
                 return F.scaled_dot_product_attention(
                     q[None], k[None], v[None], is_causal=causal)
 
-            nbytes, ops = attention_work(bh, s, s, d, causal)
+            bh = shape[0]
+            nbytes, ops = attention_work(bh, s, kshape[-2], d, causal,
+                                         itemsize=q.element_size())
             row["ms"] = cuda_ms(kern)
+            row["device_ms"] = device_ms(torch, kern, "flash_fwd")
             row["plain_ms"] = cuda_ms(plain, reps=5, warmup=1)
             row["library_ms"] = cuda_ms(library)
-            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops,
-                                                        "bfloat16")
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                nbytes, ops, _dtype_name(dtype))
             row["tflops"] = ops / row["ms"] / 1e9
-            for key in ("ms", "plain_ms", "library_ms"):
-                tot[key] += row[key]
-            tot["bytes"] += nbytes
-            tot["ops"] += ops
+            if main:
+                for key in ("ms", "device_ms", "plain_ms", "library_ms"):
+                    tot[key] = None if tot[key] is None or row[key] is None \
+                        else tot[key] + row[key]
+                tot["bytes"] += nbytes
+                tot["ops"] += ops
         emit("attention", **row)
         if not ok:
             raise AssertionError(f"flash_attention disagrees: {row}")
         tot["err"] = max(tot["err"], err)
     b_ms, b_by = bound_ms(tot["bytes"], tot["ops"], "bfloat16")
     results["flash_attention"] = {
-        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-        "library_ms": tot["library_ms"], "max_abs_err": tot["err"],
-        "bound_ms": b_ms, "bound_by": b_by}
+        "ms": tot["ms"], "device_ms": tot["device_ms"],
+        "plain_ms": tot["plain_ms"], "library_ms": tot["library_ms"],
+        "max_abs_err": tot["err"], "bound_ms": b_ms, "bound_by": b_by}
 
 
 def _plain_twin(module, cls, cfg):
@@ -915,27 +1065,41 @@ def check_chunk(torch, results):
         flash_kernel_attributes,
     )
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(5)
     bh, n = STREAM["heads"], STREAM["seq"] // SP
     d = STREAM["dim"] // STREAM["heads"]
+    bf16, f32 = torch.bfloat16, torch.float32
 
-    def bf16(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(
-            torch.bfloat16)
-
-    # (case, q/k/v/earlier-chunk shapes, q_offset, k_offset, causal, timed):
-    # the ring's shard 2 at its hops, on carries from an earlier hop over a
-    # past chunk, so they are non-zero; then two ragged causal cases, the
-    # second with its first q tiles wholly before the chunk
-    cases = [("diagonal", (bh, n, n, d), 2 * n, 2 * n, True, True),
-             ("past", (bh, n, n, d), 2 * n, n, True, True),
-             ("future", (bh, n, n, d), 2 * n, 3 * n, True, True),
-             ("noncausal", (bh, n, n, d), 2 * n, n, False, True),
-             ("ragged", (3, 1000, 1000, 32), 1000, 700, True, False),
-             ("ragged_head", (3, 1000, 1000, 32), 0, 300, True, False)]
+    # (case, q/k/v/earlier-chunk shapes, q_offset, k_offset, causal, dtype,
+    # timed): the ring's shard 2 at its hops, on carries from an earlier hop
+    # over a past chunk, so they are non-zero; then two ragged causal cases,
+    # the second with its first q tiles wholly before the chunk; then every
+    # hop at every head dim of WIDE_DIMS in both dtypes, ragged: the
+    # diagonal, a past chunk, one whose first rows see none of it, and one
+    # wholly in the future
+    cases = [("diagonal", (bh, n, n, d), 2 * n, 2 * n, True, bf16, True),
+             ("past", (bh, n, n, d), 2 * n, n, True, bf16, True),
+             ("future", (bh, n, n, d), 2 * n, 3 * n, True, bf16, True),
+             ("noncausal", (bh, n, n, d), 2 * n, n, False, bf16, True),
+             ("ragged", (3, 1000, 1000, 32), 1000, 700, True, bf16, False),
+             ("ragged_head", (3, 1000, 1000, 32), 0, 300, True, bf16, False)]
+    for hd in WIDE_DIMS:
+        for dtype in (bf16, f32):
+            name = f"{_dtype_name(dtype)}_d{hd}"
+            cases += [(f"{name}_diagonal", (3, 300, 300, hd), 300, 300, True,
+                       dtype, False),
+                      (f"{name}_past", (3, 300, 300, hd), 600, 0, True, dtype,
+                       False),
+                      (f"{name}_masked", (3, 300, 300, hd), 0, 150, True,
+                       dtype, False),
+                      (f"{name}_future", (3, 300, 300, hd), 0, 300, True,
+                       dtype, False)]
     rows = {}
-    for case, (b, sq, sk, hd), q_off, k_off, causal, timed in cases:
-        q, k, v, k0, v0 = (bf16(b, s, hd) for s in (sq, sk, sk, sk, sk))
+    for case, (b, sq, sk, hd), q_off, k_off, causal, dtype, timed in cases:
+        q, k, v, k0, v0 = (torch.randn((b, s, hd), generator=gen,
+                                       device="cuda").to(dtype)
+                           for s in (sq, sk, sk, sk, sk))
         scale = 1.0 / hd ** 0.5
         kw = dict(q_offset=q_off, k_offset=k_off, causal=causal, scale=scale)
         carries = flash_chunk_plain(
@@ -952,46 +1116,61 @@ def check_chunk(torch, results):
         l_rel = float(((got[1] - want[1]).abs()
                        / want[1].abs().clamp(min=1e-30)).max())
         finite = all(bool(torch.isfinite(c).all()) for c in got)
-        if case == "future":
+        atol, rtol = _tols(torch, dtype)
+        m_atol, l_rtol = ((CHUNK_M_ATOL, CHUNK_L_RTOL) if dtype == bf16
+                          else (F32_ATOL, F32_RTOL))
+        future = case.endswith("future")
+        if future:
             same = all(torch.equal(g.view(torch.int32), c.view(torch.int32))
                        for g, c in zip(got, before))
             ok = same and all(torch.equal(w, c) for w, c in zip(want, before))
         else:
-            ok = (finite and within(out_got, out_want, ATTN_TOL, ATTN_TOL)
-                  and m_err <= CHUNK_M_ATOL and l_rel <= CHUNK_L_RTOL)
+            ok = (finite and within(out_got, out_want, atol, rtol)
+                  and m_err <= m_atol and l_rel <= l_rtol)
         row = {"kernel": "flash_chunk", "case": case, "shape": [b, sq, sk, hd],
                "q_offset": q_off, "k_offset": k_off, "causal": causal,
-               "dtype": "bfloat16", "block_k": BLOCK_K, "max_abs_err": err,
-               "atol": ATTN_TOL, "rtol": ATTN_TOL, "m_max_abs_err": m_err,
-               "m_atol": CHUNK_M_ATOL, "l_max_rel_err": l_rel,
-               "l_rtol": CHUNK_L_RTOL, "ok": ok,
-               **flash_kernel_attributes(hd, carry=True)}
-        if case == "future":
+               "dtype": _dtype_name(dtype), "block_k": BLOCK_K,
+               "max_abs_err": err, "atol": atol, "rtol": rtol,
+               "m_max_abs_err": m_err, "m_atol": m_atol,
+               "l_max_rel_err": l_rel, "l_rtol": l_rtol, "ok": ok,
+               **flash_kernel_attributes(hd, carry=True, dtype=dtype)}
+        if future:
             row["bit_identical"] = ok
         if timed:
             work = [c.clone() for c in carries]
-            row["ms"] = cuda_ms(lambda: flash_chunk_cuda(q, k, v, *work, **kw))
+
+            def kern():
+                return flash_chunk_cuda(q, k, v, *work, **kw)
+
+            row["ms"] = cuda_ms(kern)
+            row["device_ms"] = device_ms(torch, kern, "flash_chunk")
             row["plain_ms"] = cuda_ms(lambda: flash_chunk_plain(
                 q, k, v, *carries, block_k=BLOCK_K, **kw), reps=5, warmup=1)
             nbytes, ops = attention_work(b, sq, sk, hd, causal, q_off, k_off,
-                                         carries=True)
+                                         carries=True,
+                                         itemsize=q.element_size())
             row["bytes"], row["ops"] = nbytes, ops
-            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops,
-                                                        "bfloat16")
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                nbytes, ops, _dtype_name(dtype))
             row["tflops"] = ops / row["ms"] / 1e9
             row["library_ms"] = None
         emit("chunk", **row)
         if not ok:
             raise AssertionError(f"flash_chunk disagrees: {row}")
         rows[case] = row
-    # the kernels line: one ring call's 16 hops at the stream shape
+    # the kernels line: one ring call's 16 hops at the stream shape (a
+    # future hop's device time is its CTAs' early return; the profiler may
+    # see none of it, and the sum is then null)
     hops = {"diagonal": SP, "past": SP * (SP - 1) // 2,
             "future": SP * (SP - 1) // 2}
     tot = {key: sum(rows[c][key] * k for c, k in hops.items())
            for key in ("ms", "plain_ms", "bytes", "ops")}
+    dev = [rows[c]["device_ms"] for c in hops]
     b_ms, b_by = bound_ms(tot["bytes"], tot["ops"], "bfloat16")
     results["flash_chunk"] = {
         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "library_ms": None,
+        "device_ms": None if None in dev else sum(
+            x * k for x, k in zip(dev, hops.values())),
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "bound_ms": b_ms, "bound_by": b_by, "hops": hops}
 
@@ -1113,6 +1292,165 @@ def check_ring(torch, results):
     results["ring_launches"] = launches
 
 
+# -- phase: examples/long_context.py on the card ----------------------------
+
+#: the example's stream line (bf16, dim 32 over 2 heads: head_dim 16)
+LONGCTX = {"seq": 128, "feat": 16, "dim": 32, "depth": 1, "heads": 2}
+#: the example's sequence-parallel steps: sp=8 on one card, float32
+LONGCTX_SP = 8
+#: float32 ring and Ulysses against plain attention: the reference's
+#: tolerance (tests/test_ops.py TestRingAttention, TestUlyssesAttention)
+SP_F32_ATOL = 3e-5
+
+
+def check_longctx(torch, results):
+    """The three steps of examples/long_context.py at its own sizes through
+    the port: the stream line (128 one-frame buffers aggregated to one
+    window, the stream transformer at dim 32, 2 heads, bf16) against its
+    plain-attention twin; ring_attention on float32 (2, 1024, 32) and
+    ulysses_attention on float32 (2, 8, 1024, 32), causal, over
+    make_mesh(sp=8, devices=[cuda:0] * 8), against plain_attention. The
+    data are the example's own (numpy default_rng(0), q = k = v). Then
+    the reference's float32 ring and Ulysses test shapes the same way, and
+    ring and Ulysses at every head dim of WIDE_DIMS in both dtypes: float32
+    against plain_attention, bf16 against the plain ring and the plain
+    flash forward at BLOCK_K (p rounded at the same blocks) at ATTN_TOL."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.models.vit import StreamTransformer
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.ops.attention import (
+        BLOCK_K,
+        flash_attention_plain,
+        flash_kernel_attributes,
+        plain_attention,
+        ring_attention,
+        ring_attention_plain,
+        ulysses_attention,
+    )
+    from nnstreamer_tpu_torch.parallel import make_mesh
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seq, feat = LONGCTX["seq"], LONGCTX["feat"]
+    rng = np.random.default_rng(0)
+    frames = [rng.normal(size=feat).astype(np.float32) for _ in range(seq)]
+    p = parse_launch(
+        f"appsrc name=src caps=other/tensors,format=static,dimensions={feat},"
+        f"types=float32 ! tensor_aggregator frames_in=1 frames_out={seq} "
+        f"frames_dim=1 ! tensor_filter name=f framework=jax "
+        f"model=stream_transformer custom=seed:0,{_custom(LONGCTX)} "
+        f"! tensor_sink name=out")
+    p.play()
+    _cuda.reset_launches()
+    for f in frames:
+        p["src"].push_buffer(Buffer(tensors=[f]))
+    buf = p["out"].pull(timeout=300.0)
+    launches = dict(_cuda.LAUNCHES)
+    bundle = p["f"].fw._bundle
+    p.stop()
+    if buf is None:
+        raise AssertionError("longctx: the stream line gave no output")
+    got = torch.as_tensor(np.asarray(buf.tensors[0])).float()
+    twin = _plain_twin(bundle.module, StreamTransformer, LONGCTX)
+    with torch.inference_mode():
+        want = twin(torch.from_numpy(np.stack(frames)).cuda()[None])
+    want = want.float().cpu()
+    ok = (tuple(got.shape) == (1, seq, feat)
+          and bool(torch.isfinite(got).all())
+          and within(got, want, MODEL_ATOL, MODEL_RTOL)
+          and launches["flash_attention"] == LONGCTX["depth"])
+    hd = LONGCTX["dim"] // LONGCTX["heads"]
+    emit("longctx", step="stream_line", shape=list(got.shape), head_dim=hd,
+         dtype="bfloat16", launches=launches,
+         out_max_abs_err=max_err(got, want), out_atol=MODEL_ATOL,
+         out_rtol=MODEL_RTOL, ok=ok,
+         kernel=flash_kernel_attributes(hd, dtype=torch.bfloat16))
+    if not ok:
+        raise AssertionError(f"longctx stream line: {launches}")
+    total = launches
+
+    mesh = make_mesh(sp=LONGCTX_SP,
+                     devices=[torch.device("cuda", 0)] * LONGCTX_SP)
+    q = torch.from_numpy(rng.normal(size=(2, 1024, 32))).float().cuda()
+    qh = torch.from_numpy(rng.normal(size=(2, 8, 1024, 32))).float().cuda()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def plain_ring(a, b, c, causal):
+        return ring_attention_plain(a, b, c, mesh, "sp", causal=causal)
+
+    def plain_flash(a, b, c, causal):
+        return flash_attention_plain(a, b, c, causal=causal, block_k=BLOCK_K)
+
+    # (step, function, q = k = v or three tensors, causal, launch counted,
+    # plain version); float32 against plain_attention at SP_F32_ATOL
+    steps = [("ring", ring_attention, (q, q, q), True, "flash_chunk",
+              plain_attention),
+             ("ulysses", ulysses_attention, (qh, qh, qh), True,
+              "flash_attention", plain_attention)]
+    for causal in (False, True):
+        steps += [(f"ref_ring_d16_{'causal' if causal else 'full'}",
+                   ring_attention, [randn((2, 256, 16)) for _ in range(3)],
+                   causal, "flash_chunk", plain_attention),
+                  (f"ref_ulysses_d16_{'causal' if causal else 'full'}",
+                   ulysses_attention,
+                   [randn((2, 8, 256, 16)) for _ in range(3)], causal,
+                   "flash_attention", plain_attention)]
+    steps.append(("ref_ring_d8_long", ring_attention,
+                  [randn((1, 1024, 8)) for _ in range(3)], False,
+                  "flash_chunk", plain_attention))
+    for hd in WIDE_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = f"{_dtype_name(dtype)}_d{hd}"
+            f32 = dtype == torch.float32
+            steps += [(f"ring_{name}", ring_attention,
+                       [randn((2, 256, hd), dtype) for _ in range(3)], True,
+                       "flash_chunk", plain_attention if f32 else plain_ring),
+                      (f"ulysses_{name}", ulysses_attention,
+                       [randn((2, 8, 256, hd), dtype) for _ in range(3)],
+                       True, "flash_attention",
+                       plain_attention if f32 else plain_flash)]
+    for step, fn, (a, b, c), causal, kernel, plain in steps:
+        _cuda.reset_launches()
+        out = fn(a, b, c, mesh, "sp", causal=causal)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+        ref = plain(a, b, c, causal=causal)
+        if a.dtype == torch.float32:
+            atol, rtol = SP_F32_ATOL, 0.0
+        else:
+            atol = rtol = ATTN_TOL
+        ok = (out.shape == a.shape and out.dtype == a.dtype
+              and bool(torch.isfinite(out.float()).all())
+              and within(out, ref, atol, rtol) and launches[kernel] > 0)
+        row = {"step": step, "shape": list(a.shape), "causal": causal,
+               "dtype": _dtype_name(a.dtype), "sp": LONGCTX_SP,
+               "launches": launches, "plain": plain.__name__,
+               "max_abs_err_vs_plain": max_err(out, ref),
+               "atol": atol, "rtol": rtol, "ok": ok}
+        if step in ("ring", "ulysses"):
+            def call():
+                return fn(a, b, c, mesh, "sp", causal=causal)
+
+            row["ms"] = cuda_ms(call, reps=5, warmup=1)
+            # the kernel's own time per launch, and its instantiation
+            row["kernel_device_ms"] = device_ms(
+                torch, call, "flash_chunk" if step == "ring" else "flash_fwd",
+                calls=2)
+            row["kernel"] = flash_kernel_attributes(
+                a.shape[-1], carry=step == "ring", dtype=a.dtype)
+        emit("longctx", **row)
+        if not ok:
+            raise AssertionError(f"longctx {step}: {launches}")
+        if step in ("ring", "ulysses"):
+            total = {kk: total[kk] + launches[kk] for kk in total}
+    results["longctx_launches"] = total
+
+
 # -- phase: the ViT-S/16 labeling line -------------------------------------
 
 def check_vit(torch, results, workdir):
@@ -1203,6 +1541,7 @@ def main() -> int:
     check_stream(torch, results)
     check_chunk(torch, results)
     check_ring(torch, results)
+    check_longctx(torch, results)
     check_vit(torch, results, workdir)
 
     src = {"fused_inverted_residual": "nnstreamer_tpu_torch/csrc/fused_block.cu",
@@ -1217,7 +1556,8 @@ def main() -> int:
            "flash_chunk": "nnstreamer_tpu/ops/attention.py:347"}
     # launches summed over the main-path runs of every line
     launches = {name: sum(results[run][name] for run in (
-        "launches", "stream_launches", "vit_launches", "ring_launches"))
+        "launches", "stream_launches", "vit_launches", "ring_launches",
+        "longctx_launches"))
         for name in src}
     launches["arith_chain"] += results["arith_launches"]
     kernels = []

@@ -1,15 +1,28 @@
-// Flash attention on Hopper's tensor cores, two kernels from one CTA body:
+// Flash attention on Hopper, two kernels from each of two CTA bodies
+// (flash_fwd_kernel and flash_chunk_kernel from the tensor-core body,
+// flash_fwd_simple_kernel and flash_chunk_simple_kernel from the simple
+// one):
 //
-//   flash_fwd_kernel   o = softmax(q kᵀ * scale [causal mask]) v, fresh
-//                      carries, the output normalised and rounded to bf16;
-//   flash_chunk_kernel one ring hop: folds the attention of q against one
+//   flash_fwd_*        o = softmax(q kᵀ * scale [causal mask]) v, fresh
+//                      carries, the output normalised and rounded to q's
+//                      dtype;
+//   flash_chunk_*      one ring hop: folds the attention of q against one
 //                      K/V chunk into float32 carries (m, l, acc) that it
 //                      loads and stores back unnormalised, in place, with
 //                      causal masking at the global positions
 //                      q_offset + row >= k_offset + col.
 //
-// q: (bh, sq, d), k, v: (bh, sk, d), bfloat16; m, l: (bh, sq) and acc:
-// (bh, sq, d) float32; d in {32, 64, 128}, any sq and sk.
+// q: (bh, sq, d), k, v: (bh, sk, d), bfloat16 or float32; m, l: (bh, sq)
+// and acc: (bh, sq, d) float32; any d from 1 to kMaxHeadDim, any sq and sk.
+// The dtype and d pick the body and its instantiation (instance_of):
+//   - the tensor-core body, flash_tile<D, kCarry>: bfloat16 with d one of
+//     kTcDims (16, the long-context example's head dim, and the main-path
+//     32, 64 and 128), row strides and column bounds compile-time;
+//   - the simple body, flash_simple<NJ, kCarry>: float32 inputs, and bf16
+//     at every other d, at the least D = 16 * NJ of kSimpleDims not below
+//     d.
+//     float32 stays float32: both products are float32 FMAs (no TF32 and
+//     no bf16 cast, which would miss the reference's tolerance).
 //
 // Replaces the Pallas kernels nnstreamer_tpu/ops/attention.py::
 // flash_attention_pallas and flash_chunk_pallas. There one kernel instance
@@ -24,19 +37,21 @@
 // before it touches a barrier, K/V or the carries.
 //
 // Bound on an H100 SXM (published peaks at its 700 W limit: 989 TFLOP/s
-// bf16 dense, 3.35 TB/s): operations at long sequence, 4*bh*sq*sk*d flops
-// (about half with the causal mask) against reading q, k, v and writing o
-// once: causal 8x8192x128 is 137 GFLOP and 67 MB, 0.139 ms by operations.
-// At ViT's 197 tokens and d 64 it is bytes: 768x197x64 moves 77 MB, 0.023
-// ms. A hop of the chunk kernel also moves its carries in and out: at the
-// ring's 8x2048x128 shards a diagonal hop is 8.6 GFLOP against 29.6 MB (the
-// f32 acc round trip, 16.8 MB, the largest stream), about 0.009 ms either
-// way; a past hop 17.2 GFLOP, 0.017 ms by operations.
+// bf16 dense, 67 TFLOP/s float32 without tensor cores, 3.35 TB/s):
+// operations at long sequence, 4*bh*sq*sk*d flops (about half with the
+// causal mask) against reading q, k, v and writing o once: causal
+// 8x8192x128 bf16 is 137 GFLOP and 67 MB, 0.139 ms by operations; causal
+// 8x4096x128 float32 is 34 GFLOP, 0.51 ms by operations. At ViT's 197
+// tokens and d 64 it is bytes: 768x197x64 moves 77 MB, 0.023 ms. A hop of
+// the chunk kernel also moves its carries in and out: at the ring's
+// 8x2048x128 shards a diagonal hop is 8.6 GFLOP against 29.6 MB (the f32
+// acc round trip, 16.8 MB, the largest stream), about 0.009 ms either way;
+// a past hop 17.2 GFLOP, 0.017 ms by operations.
 //
-// Design for that bound: both products on wgmma, K/V streamed by TMA, and
-// warp specialisation, so that the tensor cores are fed without threads
-// spending instructions on copies. One CTA of three warpgroups owns one
-// (batch*head, 128-row q tile):
+// The tensor-core body's design for that bound: both products on wgmma,
+// K/V streamed by TMA, and warp specialisation, so that the tensor cores
+// are fed without threads spending instructions on copies. One CTA of
+// three warpgroups owns one (batch*head, 128-row q tile):
 //   - a producer warpgroup gives up its registers (setmaxnreg.dec); one
 //     thread loads the q tile once and then 128-key K and V tiles into a
 //     ring of three stages in dynamic shared memory with TMA
@@ -60,10 +75,11 @@
 //     float32 registers; the chunk kernel loads them from the carries in
 //     the accumulator layout (each thread its rows g and g+8, columns 8i+2t
 //     and 8i+2t+1) and stores them back the same way.
-// Shared rows are swizzled as wide as a row allows (128 B at d 64, 64 B at
-// d 32, two 64-column panels at d 128), the same mode in the tensor maps
-// and the wgmma descriptors. Causal CTAs stop after the K tile that holds
-// their last real row's global diagonal and are launched longest first.
+// Shared rows are swizzled as wide as a row allows (128 B at D 64, 64 B at
+// D 32, 32 B at D 16, two 64-column panels at D 128), the same mode in the
+// tensor maps and the wgmma descriptors. Causal CTAs stop after the K tile
+// that holds their last real row's global diagonal and are launched
+// longest first.
 //
 // Rounding points, as _block_attn: s = (q kᵀ in f32) * scale; masked
 // entries -1e30; m_safe = 0 for rows with no unmasked key yet, and corr = 0
@@ -75,6 +91,21 @@
 // rounded to bf16 (the chunk kernel stores acc and l unnormalised). Only
 // the order of the float32 sums and exp's last bits differ from the plain
 // versions at the same 128-key blocks.
+//
+// The simple body is written to be right at every d, not to be fast. One
+// CTA of 256 threads owns one (batch*head, 64-row q tile), and each thread
+// 4 of its rows (ty = thread / 16) by every 16th column (tx = thread % 16).
+// The q tile sits in shared memory as float32, rows at an odd stride. For
+// each 128-key block (kBlockK, the plain versions' BLOCK_K, so that a bf16
+// p is rounded at the same running max): s = q kᵀ as 4 x 8 float32 FMA
+// accumulators a thread, K staged 32 head-dim columns at a time (rows
+// padded to 33 floats: no bank conflicts); the online softmax in those
+// registers, rows reduced over the 16 threads that share them; p (rounded
+// to bf16 for a bf16 input) through shared memory; o += p v as 4 x NJ
+// FMA accumulators, V staged 32 keys at a time. Loads convert bf16 to
+// float32 exactly and zero-fill past sq, sk and d. The rounding points are
+// the tensor-core body's, with expf for exp and the output divided in
+// IEEE float32 before its one rounding to q's dtype.
 #include <cuda.h>
 
 #include "common.cuh"
@@ -98,17 +129,26 @@ static_assert(kBlockQ == 64 * kConsumers && kBlockK == kBlockQ,
 template <int D>
 struct Tile {
   static constexpr int kCols = D < 64 ? D : 64;
-  static constexpr int kRowBytes = kCols * 2;  // 64 or 128: the swizzle
+  static constexpr int kRowBytes = kCols * 2;  // 32, 64 or 128: the swizzle
   static constexpr int kPanels = D / kCols;
   static constexpr int kPanelBytes = kBlockK * kRowBytes;
   static constexpr int kBytes = kPanels * kPanelBytes;
   static constexpr int kStepsPerPanel = kCols / 16;  // k-steps of q kᵀ
-  // wgmma descriptor layout type: 1 = 128-byte swizzle, 2 = 64-byte
-  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;
+  // wgmma descriptor layout type: 1 = 128-byte swizzle, 2 = 64, 3 = 32
+  static constexpr uint64_t kLayout =
+      kRowBytes == 128 ? 1 : (kRowBytes == 64 ? 2 : 3);
   // q, kStages K and V tiles, the barriers, and room to align to 1024 B
   static constexpr int kSmem = (1 + 2 * kStages) * kBytes + 1024 + 128;
 };
 
+// The instantiations (tests/test_torch_attention.py reads these lines):
+// the tensor-core body's D, and the simple body's D = 16 * NJ.
+constexpr int kTcDims[] = {16, 32, 64, 128};
+constexpr int kSimpleDims[] = {32, 64, 128, 256};
+constexpr int kMaxHeadDim = 256;
+
+// The tensor-core body's arguments (it reads q, k and v through its tensor
+// maps).
 struct FlashArgs {
   __nv_bfloat16* o;  // flash: the output
   float* m;          // chunk: the carries, updated in place
@@ -116,6 +156,15 @@ struct FlashArgs {
   float* acc;
   int sq, sk, n_tiles, q_offset, k_offset, causal;
   float scale;
+};
+
+// The simple body's: the tensor-core body's, the inputs, head_dim and dtype.
+struct SimpleArgs {
+  FlashArgs f;       // f.o is cast to q's dtype
+  const void* q;
+  const void* k;
+  const void* v;
+  int d, bf16;
 };
 
 // -- PTX wrappers -----------------------------------------------------------
@@ -284,6 +333,17 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[16],
       "%8, %9, %10, %11, %12, %13, %14, %15"
       "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
       : WG_ACC16(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_pv(float (&d)[8],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "1;\n}\n"
+      : WG_ACC4(d, 0), WG_ACC4(d, 4)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -637,7 +697,255 @@ __global__ void __launch_bounds__(kThreads, 1)
   flash_tile<D, true>(tq, tk, tv, a);
 }
 
+// -- the simple body --------------------------------------------------------
+
+constexpr int kSimpleQ = 64;         // q rows per CTA, 4 per thread row
+constexpr int kSimpleThreads = 256;  // 16 thread rows x 16 thread columns
+constexpr int kKc = 32;              // head-dim columns of K per stage
+constexpr int kKld = kKc + 1;        // K stage row stride (floats)
+constexpr int kVk = 32;              // keys of V per stage
+constexpr int kPld = kBlockK + 1;    // p row stride (floats)
+static_assert(kSimpleThreads == 16 * (kSimpleQ / 4) && kBlockK == 16 * 8,
+              "a thread owns 4 rows and every 16th of a block's 128 keys");
+
+// Shared floats of the simple body at head_dim d in the instantiation of
+// width D: q at an odd row stride, p, and one stage that holds a K chunk or
+// a V chunk (a thread reads V up to column D - 1 of its last row).
+__host__ __device__ constexpr int simple_qld(int d) { return d | 1; }
+__host__ __device__ constexpr int simple_stage(int d, int D) {
+  return kBlockK * kKld > kVk * d + D ? kBlockK * kKld : kVk * d + D;
+}
+constexpr int simple_smem(int d, int D) {
+  return 4 * (kSimpleQ * simple_qld(d) + kSimpleQ * kPld +
+              simple_stage(d, D));
+}
+
+__device__ __forceinline__ float load_f32(const void* p, long long i,
+                                          int bf16) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+              : static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ float row_max16(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float row_sum16(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// kCarry = false: flash_fwd_simple_kernel, true: flash_chunk_simple_kernel.
+// A thread's o columns are tx + 16 j, j < NJ; those at d or past it are
+// computed from stage slack and never stored.
+template <int NJ, bool kCarry>
+__device__ __forceinline__ void flash_simple(const SimpleArgs& in) {
+  const FlashArgs& a = in.f;
+  const int sq = a.sq, sk = a.sk, d = in.d, causal = a.causal, bf16 = in.bf16;
+  const int n_tiles = a.n_tiles;
+  const int bh = static_cast<int>(gridDim.x) / n_tiles;
+  const int tile = causal ? n_tiles - 1 - static_cast<int>(blockIdx.x) / bh
+                          : static_cast<int>(blockIdx.x) % n_tiles;
+  const int head = causal ? static_cast<int>(blockIdx.x) % bh
+                          : static_cast<int>(blockIdx.x) / n_tiles;
+  const int q0 = tile * kSimpleQ;
+
+  int n_kb = (sk + kBlockK - 1) / kBlockK;
+  if (causal) {
+    const int last = a.q_offset + min(q0 + kSimpleQ, sq) - 1 - a.k_offset;
+    if (last < 0) return;  // every thread of the CTA, before any barrier
+    n_kb = min(n_kb, last / kBlockK + 1);
+  }
+
+  extern __shared__ float smem_f[];
+  const int qld = simple_qld(d);
+  float* qs = smem_f;                  // [kSimpleQ][qld]
+  float* ps = qs + kSimpleQ * qld;     // [kSimpleQ][kPld]
+  float* st = ps + kSimpleQ * kPld;    // K: [kBlockK][kKld]; V: [kVk][d]
+
+  const int tid = static_cast<int>(threadIdx.x);
+  const int ty = tid / 16, tx = tid % 16;
+  const long long qbase = (static_cast<long long>(head) * sq + q0) * d;
+  const long long kbase = static_cast<long long>(head) * sk * d;
+  for (int i = tid; i < kSimpleQ * d; i += kSimpleThreads) {
+    const int r = i / d, c = i - r * d;
+    qs[r * qld + c] = q0 + r < sq ? load_f32(in.q, qbase + i, bf16) : 0.0f;
+  }
+
+  float m[4], l[4], o[4][NJ];
+  int qpos[4];  // the rows' global positions less the chunk's first key's
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    qpos[i] = row + a.q_offset - a.k_offset;
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) o[i][j] = 0.0f;
+    if (kCarry && row < sq) {
+      const long long r = static_cast<long long>(head) * sq + row;
+      m[i] = a.m[r];
+      l[i] = a.l[r];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        if (tx + 16 * j < d) o[i][j] = a.acc[r * d + tx + 16 * j];
+    }
+  }
+
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const int k0 = kb * kBlockK;
+    // s = q kᵀ over the block's 128 keys, K staged kKc columns at a time
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
+    for (int c0 = 0; c0 < d; c0 += kKc) {
+      const int w = min(kKc, d - c0);
+      __syncthreads();  // the stage is free; q (first pass) is written
+      for (int i = tid; i < kBlockK * kKc; i += kSimpleThreads) {
+        const int r = i / kKc, c = i % kKc;
+        st[r * kKld + c] =
+            k0 + r < sk && c < w
+                ? load_f32(in.k, kbase + static_cast<long long>(k0 + r) * d +
+                                    c0 + c, bf16)
+                : 0.0f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < w; ++c) {
+        float qv[4], kv[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qv[i] = qs[(4 * ty + i) * qld + c0 + c];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) kv[j] = st[(tx + 16 * j) * kKld + c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
+    }
+    // the online softmax of the block, p to shared memory
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mb = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = k0 + tx + 16 * j;
+        const bool keep = col < sk && (!causal || qpos[i] >= col);
+        s[i][j] = keep ? s[i][j] * a.scale : kNegInf;
+        mb = fmaxf(mb, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max16(mb));
+      const float m_safe = m_new <= kNegInf / 2 ? 0.0f : m_new;
+      const float corr = m[i] <= kNegInf / 2 ? 0.0f : expf(m[i] - m_safe);
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = s[i][j] <= kNegInf / 2 ? 0.0f : expf(s[i][j] - m_safe);
+        rs += p;
+        ps[(4 * ty + i) * kPld + tx + 16 * j] =
+            bf16 ? round_to<__nv_bfloat16>(p) : p;
+      }
+      l[i] = __fadd_rn(__fmul_rn(corr, l[i]), row_sum16(rs));
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) o[i][j] *= corr;
+    }
+    // o += p v, V staged kVk keys at a time
+    for (int v0 = 0; v0 < kBlockK && k0 + v0 < sk; v0 += kVk) {
+      __syncthreads();  // p is written; the stage is free
+      const long long vbase = kbase + static_cast<long long>(k0 + v0) * d;
+      const int rows = min(kVk, sk - k0 - v0);
+      for (int i = tid; i < kVk * d; i += kSimpleThreads)
+        st[i] = i < rows * d ? load_f32(in.v, vbase + i, bf16) : 0.0f;
+      __syncthreads();
+#pragma unroll 4
+      for (int kk = 0; kk < kVk; ++kk) {
+        float pv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pv[i] = ps[(4 * ty + i) * kPld + v0 + kk];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float vv = st[kk * d + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) o[i][j] = fmaf(pv[i], vv, o[i][j]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= sq) continue;
+    const long long r = static_cast<long long>(head) * sq + row;
+    if constexpr (kCarry) {
+      if (tx == 0) {
+        a.m[r] = m[i];
+        a.l[r] = l[i];
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        if (tx + 16 * j < d) a.acc[r * d + tx + 16 * j] = o[i][j];
+    } else {
+      const float den = fmaxf(l[i], 1e-37f);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = tx + 16 * j;
+        if (col >= d) continue;
+        const float y = __fdiv_rn(o[i][j], den);
+        if (bf16)
+          a.o[r * d + col] = from_f32<__nv_bfloat16>(y);
+        else
+          reinterpret_cast<float*>(a.o)[r * d + col] = y;
+      }
+    }
+  }
+}
+
+template <int NJ>
+__global__ void __launch_bounds__(kSimpleThreads)
+    flash_fwd_simple_kernel(const SimpleArgs a) {
+  flash_simple<NJ, false>(a);
+}
+
+template <int NJ>
+__global__ void __launch_bounds__(kSimpleThreads)
+    flash_chunk_simple_kernel(const SimpleArgs a) {
+  flash_simple<NJ, true>(a);
+}
+
 // -- host side --------------------------------------------------------------
+
+// Which body and instantiation run head_dim d in the given dtype: the
+// tensor-core body for bf16 with d one of kTcDims, else the simple body at
+// the least D of kSimpleDims not below d. false when no kernel takes them.
+struct Instance {
+  bool tc;
+  int D;
+};
+
+bool instance_of(int d, int dtype, Instance* in) {
+  if (d < 1 || d > kMaxHeadDim || (dtype != DT_BF16 && dtype != DT_F32))
+    return false;
+  if (dtype == DT_BF16)
+    for (int D : kTcDims)
+      if (D == d) {
+        *in = {true, D};
+        return true;
+      }
+  for (int D : kSimpleDims)
+    if (D >= d) {
+      *in = {false, D};
+      return true;
+    }
+  return false;
+}
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -682,131 +990,198 @@ bool make_map(CUtensorMap* map, const void* ptr, int rows, int bh) {
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(T::kCols),
                              static_cast<cuuint32_t>(kBlockK), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : (T::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B);
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(ptr), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                    : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D, bool kCarry>
-const void* kernel_of() {
-  if constexpr (kCarry)
-    return reinterpret_cast<const void*>(&flash_chunk_kernel<D>);
-  else
-    return reinterpret_cast<const void*>(&flash_fwd_kernel<D>);
-}
+constexpr auto tc_kernel =
+    kCarry ? &flash_chunk_kernel<D> : &flash_fwd_kernel<D>;
+template <int NJ, bool kCarry>
+constexpr auto simple_kernel =
+    kCarry ? &flash_chunk_simple_kernel<NJ> : &flash_fwd_simple_kernel<NJ>;
 
-// Dynamic shared memory above 48 KB needs the attribute, once per device.
-template <int D, bool kCarry>
-cudaError_t allow_smem() {
+// Dynamic shared memory above 48 KB needs the attribute, once per device
+// and kernel.
+template <auto Kernel>
+cudaError_t allow_smem(int bytes) {
   static bool done[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 64 && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel_of<D, kCarry>(),
+  err = cudaFuncSetAttribute(Kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Tile<D>::kSmem);
+                             bytes);
   if (err == cudaSuccess && dev < 64) done[dev] = true;
   return err;
 }
 
 template <int D, bool kCarry>
-int launch_d(const FlashArgs& a, const void* q, const void* k, const void* v,
-             int bh, unsigned int grid, cudaStream_t s) {
+int launch_tc(const SimpleArgs& in, int bh, unsigned int grid,
+              cudaStream_t s) {
+  constexpr auto kernel = tc_kernel<D, kCarry>;
   CUtensorMap tq, tk, tv;
-  if (!make_map<D>(&tq, q, a.sq, bh) || !make_map<D>(&tk, k, a.sk, bh) ||
-      !make_map<D>(&tv, v, a.sk, bh))
+  if (!make_map<D>(&tq, in.q, in.f.sq, bh) ||
+      !make_map<D>(&tk, in.k, in.f.sk, bh) ||
+      !make_map<D>(&tv, in.v, in.f.sk, bh))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = allow_smem<D, kCarry>();
+  const cudaError_t err = allow_smem<kernel>(Tile<D>::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if constexpr (kCarry)
-    flash_chunk_kernel<D><<<grid, kThreads, Tile<D>::kSmem, s>>>(tq, tk, tv, a);
-  else
-    flash_fwd_kernel<D><<<grid, kThreads, Tile<D>::kSmem, s>>>(tq, tk, tv, a);
+  kernel<<<grid, kThreads, Tile<D>::kSmem, s>>>(tq, tk, tv, in.f);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int NJ, bool kCarry>
+int launch_simple(const SimpleArgs& in, unsigned int grid, cudaStream_t s) {
+  const cudaError_t err = allow_smem<simple_kernel<NJ, kCarry>>(
+      simple_smem(16 * NJ, 16 * NJ));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  simple_kernel<NJ, kCarry><<<grid, kSimpleThreads,
+                              simple_smem(in.d, 16 * NJ), s>>>(in);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// in.f.n_tiles and in.bf16 are set here.
 template <bool kCarry>
-int launch(FlashArgs a, const void* q, const void* k, const void* v, int bh,
-           int d, cudaStream_t s) {
+int launch(SimpleArgs in, int bh, int dtype, cudaStream_t s) {
+  Instance inst;
+  if (!instance_of(in.d, dtype, &inst))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FlashArgs& a = in.f;
   if (bh <= 0 || a.sq <= 0 || a.sk <= 0) return 0;
-  a.n_tiles = (a.sq + kBlockQ - 1) / kBlockQ;
+  in.bf16 = dtype == DT_BF16;
+  const int rows = inst.tc ? kBlockQ : kSimpleQ;
+  a.n_tiles = (a.sq + rows - 1) / rows;
   if (static_cast<long long>(bh) * a.n_tiles > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const unsigned int grid = static_cast<unsigned int>(a.n_tiles) * bh;
-  switch (d) {
-    case 32: return launch_d<32, kCarry>(a, q, k, v, bh, grid, s);
-    case 64: return launch_d<64, kCarry>(a, q, k, v, bh, grid, s);
-    case 128: return launch_d<128, kCarry>(a, q, k, v, bh, grid, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (inst.tc) {
+    switch (inst.D) {
+      case 16: return launch_tc<16, kCarry>(in, bh, grid, s);
+      case 32: return launch_tc<32, kCarry>(in, bh, grid, s);
+      case 64: return launch_tc<64, kCarry>(in, bh, grid, s);
+      case 128: return launch_tc<128, kCarry>(in, bh, grid, s);
+    }
+  } else {
+    switch (inst.D) {
+      case 32: return launch_simple<2, kCarry>(in, grid, s);
+      case 64: return launch_simple<4, kCarry>(in, grid, s);
+      case 128: return launch_simple<8, kCarry>(in, grid, s);
+      case 256: return launch_simple<16, kCarry>(in, grid, s);
+    }
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int D, bool kCarry>
-int attributes_d(int* out) {
+template <typename Kernel>
+int attributes_of(Kernel kernel, cudaError_t allowed, int threads, int smem,
+                  int* out) {
   cudaFuncAttributes attr;
-  cudaError_t err = allow_smem<D, kCarry>();
-  if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&attr, kernel_of<D, kCarry>());
+  cudaError_t err = allowed;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   int ctas = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &ctas, kernel_of<D, kCarry>(), kThreads, Tile<D>::kSmem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel,
+                                                        threads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = attr.numRegs;
-  out[1] = Tile<D>::kSmem;
+  out[1] = smem;
   out[2] = ctas;
   return 0;
 }
 
-}  // namespace
-
-// q, o: (bh, sq, d) and k, v: (bh, sk, d), contiguous bf16 on 16-byte
-// boundaries (ops/attention.py flash_attention_cuda checks and arranges it).
-NNSTPU_EXPORT int nnstpu_flash_attention(const void* q, const void* k,
-                                         const void* v, void* o, int bh,
-                                         int sq, int sk, int d, float scale,
-                                         int causal, void* stream) {
-  if (sk <= 0 && bh > 0 && sq > 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  FlashArgs a{static_cast<__nv_bfloat16*>(o), nullptr, nullptr, nullptr,
-              sq, sk, 0, 0, 0, causal, scale};
-  return launch<false>(a, q, k, v, bh, d, static_cast<cudaStream_t>(stream));
+template <int D, bool kCarry>
+int attributes_tc(int* out) {
+  constexpr auto kernel = tc_kernel<D, kCarry>;
+  return attributes_of(kernel, allow_smem<kernel>(Tile<D>::kSmem), kThreads,
+                       Tile<D>::kSmem, out);
 }
 
-// One ring hop: q (bh, sq, d), k, v (bh, sk, d) contiguous bf16 on 16-byte
-// boundaries; m, l (bh, sq) and acc (bh, sq, d) contiguous float32 carries,
-// updated in place (ops/attention.py flash_chunk_cuda checks and arranges
-// it). q_offset and k_offset are the global positions of q's and k's first
-// rows; sk may be 0 (the carries pass through, nothing is launched).
+template <int NJ, bool kCarry>
+int attributes_simple(int d, int* out) {
+  return attributes_of(
+      simple_kernel<NJ, kCarry>,
+      allow_smem<simple_kernel<NJ, kCarry>>(simple_smem(16 * NJ, 16 * NJ)),
+      kSimpleThreads, simple_smem(d, 16 * NJ), out);
+}
+
+template <bool kCarry>
+int attributes(int d, int dtype, int* out) {
+  Instance in;
+  if (!instance_of(d, dtype, &in))
+    return static_cast<int>(cudaErrorInvalidValue);
+  out[3] = in.tc ? 1 : 0;
+  out[4] = in.D;
+  if (in.tc) {
+    switch (in.D) {
+      case 16: return attributes_tc<16, kCarry>(out);
+      case 32: return attributes_tc<32, kCarry>(out);
+      case 64: return attributes_tc<64, kCarry>(out);
+      case 128: return attributes_tc<128, kCarry>(out);
+    }
+  } else {
+    switch (in.D) {
+      case 32: return attributes_simple<2, kCarry>(d, out);
+      case 64: return attributes_simple<4, kCarry>(d, out);
+      case 128: return attributes_simple<8, kCarry>(d, out);
+      case 256: return attributes_simple<16, kCarry>(d, out);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// q, o: (bh, sq, d) and k, v: (bh, sk, d), contiguous, of dtype DT_BF16 or
+// DT_F32, on 16-byte boundaries (ops/attention.py flash_attention_cuda
+// checks and arranges it).
+NNSTPU_EXPORT int nnstpu_flash_attention(const void* q, const void* k,
+                                         const void* v, void* o, int bh,
+                                         int sq, int sk, int d, int dtype,
+                                         float scale, int causal,
+                                         void* stream) {
+  if (sk <= 0 && bh > 0 && sq > 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SimpleArgs in{{static_cast<__nv_bfloat16*>(o), nullptr, nullptr,
+                       nullptr, sq, sk, 0, 0, 0, causal, scale},
+                      q, k, v, d, 0};
+  return launch<false>(in, bh, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// One ring hop: q (bh, sq, d), k, v (bh, sk, d) contiguous, of dtype
+// DT_BF16 or DT_F32, on 16-byte boundaries; m, l (bh, sq) and acc (bh, sq,
+// d) contiguous float32 carries, updated in place (ops/attention.py
+// flash_chunk_cuda checks and arranges it). q_offset and k_offset are the
+// global positions of q's and k's first rows; sk may be 0 (the carries
+// pass through, nothing is launched).
 NNSTPU_EXPORT int nnstpu_flash_chunk(const void* q, const void* k,
                                      const void* v, void* m, void* l,
                                      void* acc, int bh, int sq, int sk, int d,
-                                     int q_offset, int k_offset, float scale,
-                                     int causal, void* stream) {
+                                     int dtype, int q_offset, int k_offset,
+                                     float scale, int causal, void* stream) {
   if (sk < 0) return static_cast<int>(cudaErrorInvalidValue);
-  FlashArgs a{nullptr, static_cast<float*>(m), static_cast<float*>(l),
-              static_cast<float*>(acc), sq, sk, 0, q_offset, k_offset,
-              causal, scale};
-  return launch<true>(a, q, k, v, bh, d, static_cast<cudaStream_t>(stream));
+  const SimpleArgs in{{nullptr, static_cast<float*>(m), static_cast<float*>(l),
+                       static_cast<float*>(acc), sq, sk, 0, q_offset,
+                       k_offset, causal, scale},
+                      q, k, v, d, 0};
+  return launch<true>(in, bh, dtype, static_cast<cudaStream_t>(stream));
 }
 
-// What one instantiation asks of the card, on the current device: out[0]
-// registers per thread at launch (the warpgroups then move them with
-// setmaxnreg), out[1] dynamic shared memory bytes, out[2] resident CTAs per
-// SM.
-NNSTPU_EXPORT int nnstpu_flash_attributes(int d, int carry, int* out) {
-  switch (d * 2 + (carry ? 1 : 0)) {
-    case 64: return attributes_d<32, false>(out);
-    case 65: return attributes_d<32, true>(out);
-    case 128: return attributes_d<64, false>(out);
-    case 129: return attributes_d<64, true>(out);
-    case 256: return attributes_d<128, false>(out);
-    case 257: return attributes_d<128, true>(out);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// What the instantiation that head_dim d in dtype reaches asks of the card,
+// on the current device: out[0] registers per thread at launch (the
+// tensor-core body's warpgroups then move them with setmaxnreg), out[1]
+// dynamic shared memory bytes, out[2] resident CTAs per SM, out[3] 1 for
+// the tensor-core body and 0 for the simple one, out[4] its D.
+NNSTPU_EXPORT int nnstpu_flash_attributes(int d, int carry, int dtype,
+                                          int* out) {
+  return carry ? attributes<true>(d, dtype, out)
+               : attributes<false>(d, dtype, out);
 }

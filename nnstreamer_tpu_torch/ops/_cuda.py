@@ -79,9 +79,9 @@ _SIGNATURES = {
                            _P],
     "nnstpu_fused_inverted_residual": [_P, _P, _P, _I, _P],
     "nnstpu_fused_attributes": [_I, _LL, _P],
-    "nnstpu_flash_attention": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
-    "nnstpu_flash_chunk": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
-    "nnstpu_flash_attributes": [_I, _I, _P],
+    "nnstpu_flash_attention": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
+    "nnstpu_flash_chunk": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    "nnstpu_flash_attributes": [_I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

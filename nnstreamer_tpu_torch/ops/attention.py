@@ -19,14 +19,15 @@ Single device:
     wrappers, counterparts of ``flash_attention_pallas`` and
     ``flash_chunk_pallas``. A CUDA tensor launches the hand-written kernel
     in ``csrc/attention.cu`` or raises; a CPU tensor runs the plain version
-    at the kernel's own block size;
+    at the kernel's own block size. The kernels take bfloat16 and float32
+    at any head_dim from 1 to :data:`MAX_HEAD_DIM` (:func:`kernel_instance`
+    names the body and instantiation each one runs);
   - :func:`flash_attention_auto`: the model's entry point. A CUDA tensor
-    always goes to the kernel, which takes ragged sequences and head_dim
-    32, 64 and 128: the JAX package's tiling gate (head_dim % 128, block
-    divisibility, the VMEM budget) and its ``NNSTPU_PALLAS`` opt-out are
-    TPU matters and have no counterpart. A CPU tensor keeps the JAX
-    package's routing among the plain functions, so the CPU tests compare
-    like with like.
+    always goes to the kernel, which takes ragged sequences: the JAX
+    package's tiling gate (head_dim % 128, block divisibility, the VMEM
+    budget) and its ``NNSTPU_PALLAS`` opt-out are TPU matters and have no
+    counterpart. A CPU tensor keeps the JAX package's routing among the
+    plain functions, so the CPU tests compare like with like.
 
 Sequence parallel, over an axis of a :class:`parallel.mesh.Mesh` that one
 process drives (the reference runs the same algorithms under
@@ -66,8 +67,14 @@ _NEG_INF = -1e30
 #: versions run at BLOCK_K, since p's bf16 rounding depends on the block
 BLOCK_Q = 128
 BLOCK_K = 128
-#: head dims the kernel is instantiated for (csrc/attention.cu)
-HEAD_DIMS = (32, 64, 128)
+#: the kernels' instantiations (kTcDims, kSimpleDims, kMaxHeadDim in
+#: csrc/attention.cu): the tensor-core body's D, the simple body's D, and
+#: the largest head_dim either takes
+TC_HEAD_DIMS = (16, 32, 64, 128)
+SIMPLE_HEAD_DIMS = (32, 64, 128, 256)
+MAX_HEAD_DIM = 256
+#: the dtypes the kernels read and write
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 #: the JAX package's short-sequence cutover for its non-kernel route
 _PLAIN_SEQ_LIMIT = 512 * 512
@@ -185,24 +192,46 @@ def plain_attention(q, k, v, *, causal: bool = False,
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
+def kernel_instance(d: int, dtype: torch.dtype):
+    """``(body, D)``: the CTA body and instantiation the kernels run for
+    head_dim ``d`` in ``dtype``, as ``instance_of`` in csrc/attention.cu
+    picks them. The tensor-core body (wgmma, TMA) takes bf16 at ``d`` in
+    :data:`TC_HEAD_DIMS`; the simple body (float32 FMAs) takes the rest at
+    the least D of :data:`SIMPLE_HEAD_DIMS` not below ``d``."""
+    _check_kernel_dims("flash attention", d, dtype)
+    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+        return "tensor_core", d
+    return "simple", min(D for D in SIMPLE_HEAD_DIMS if D >= d)
+
+
+def _check_kernel_dims(what: str, d: int, dtype: torch.dtype) -> None:
+    _cuda.require(dtype in KERNEL_DTYPES, f"{what} takes bfloat16 or "
+                  f"float32 on CUDA, got {dtype}")
+    _cuda.require(1 <= d <= MAX_HEAD_DIM, f"{what} takes head_dim 1 to "
+                  f"{MAX_HEAD_DIM}, got {d}")
+
+
+def _check_kernel_inputs(what: str, q, k, v) -> None:
+    _cuda.require(q.dtype == k.dtype == v.dtype, f"{what} takes q, k, v of "
+                  f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    _check_kernel_dims(what, q.shape[-1], q.dtype)
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = False,
                          scale: Optional[float] = None):
     """Flash-attention forward through the hand-written CUDA kernel.
 
-    q: (..., sq, d); k, v: (..., sk, d) with the same leading dims; bf16;
-    d in :data:`HEAD_DIMS`; any sq, sk. A CPU tensor runs
-    :func:`flash_attention_plain` at the kernel's ``BLOCK_K``."""
+    q: (..., sq, d); k, v: (..., sk, d) with the same leading dims; bf16 or
+    float32, the output in their dtype; d from 1 to :data:`MAX_HEAD_DIM`;
+    any sq, sk. A CPU tensor runs :func:`flash_attention_plain` at the
+    kernel's ``BLOCK_K``."""
     *lead, sq, d = q.shape
     sk = k.shape[-2]
-    scale = _scale(d, scale)
     if _cuda.on_cpu(q):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      block_k=BLOCK_K)
-    _cuda.require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
-                  "flash_attention takes bfloat16 q, k, v on CUDA, got "
-                  f"{q.dtype}, {k.dtype}, {v.dtype}")
-    _cuda.require(d in HEAD_DIMS, f"flash_attention takes head_dim in "
-                  f"{HEAD_DIMS}, got {d}")
+    _check_kernel_inputs("flash_attention", q, k, v)
+    scale = _scale(d, scale)
     _cuda.require(k.shape == v.shape and tuple(k.shape[:-2]) == tuple(lead)
                   and k.shape[-1] == d,
                   f"flash_attention shapes disagree: q {tuple(q.shape)}, "
@@ -219,8 +248,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = False,
     with torch.cuda.device(q.device):
         err = lib.nnstpu_flash_attention(
             q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), bh,
-            sq, sk, d, float(scale), int(bool(causal)),
-            _cuda.stream_handle(q))
+            sq, sk, d, _cuda.DTYPE_CODES[q.dtype], float(scale),
+            int(bool(causal)), _cuda.stream_handle(q))
     _cuda.check(err, "flash_attention")
     _cuda.LAUNCHES["flash_attention"] += 1
     return out.reshape(q.shape)
@@ -232,26 +261,23 @@ def flash_chunk_cuda(q, k, v, m, l, acc, *, q_offset: int, k_offset: int,
     carries IN PLACE and returns them: a caller that compares carries
     clones them first.
 
-    q: (bh, sq, d); k, v: (bh, sk, d), bf16, d in :data:`HEAD_DIMS`, any sq
-    and sk; m, l: (bh, sq) and acc: (bh, sq, d), float32, contiguous and
-    16-byte aligned. A CPU tensor runs :func:`flash_chunk_plain` at the
-    kernel's ``BLOCK_K`` and copies its result into the carries."""
+    q: (bh, sq, d); k, v: (bh, sk, d), bf16 or float32, d from 1 to
+    :data:`MAX_HEAD_DIM`, any sq and sk; m, l: (bh, sq) and acc: (bh, sq,
+    d), float32, contiguous and 16-byte aligned. A CPU tensor runs
+    :func:`flash_chunk_plain` at the kernel's ``BLOCK_K`` and copies its
+    result into the carries."""
     bh, sq, d = q.shape
     sk = k.shape[-2]
-    scale = _scale(d, scale)
     if _cuda.on_cpu(q):
         new = flash_chunk_plain(q, k, v, m, l, acc, q_offset=q_offset,
                                 k_offset=k_offset, causal=causal,
-                                scale=scale, block_k=BLOCK_K)
+                                scale=_scale(d, scale), block_k=BLOCK_K)
         for carry, value in zip((m, l, acc), new):
             if value is not carry:
                 carry.copy_(value)
         return m, l, acc
-    _cuda.require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
-                  "flash_chunk takes bfloat16 q, k, v on CUDA, got "
-                  f"{q.dtype}, {k.dtype}, {v.dtype}")
-    _cuda.require(d in HEAD_DIMS, f"flash_chunk takes head_dim in "
-                  f"{HEAD_DIMS}, got {d}")
+    _check_kernel_inputs("flash_chunk", q, k, v)
+    scale = _scale(d, scale)
     _cuda.require(k.shape == v.shape and k.shape[0] == bh and k.shape[-1] == d
                   and m.shape == l.shape == (bh, sq)
                   and acc.shape == q.shape,
@@ -274,24 +300,31 @@ def flash_chunk_cuda(q, k, v, m, l, acc, *, q_offset: int, k_offset: int,
     with torch.cuda.device(q.device):
         err = lib.nnstpu_flash_chunk(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
-            l.data_ptr(), acc.data_ptr(), bh, sq, sk, d, int(q_offset),
-            int(k_offset), float(scale), int(bool(causal)),
-            _cuda.stream_handle(q))
+            l.data_ptr(), acc.data_ptr(), bh, sq, sk, d,
+            _cuda.DTYPE_CODES[q.dtype], int(q_offset), int(k_offset),
+            float(scale), int(bool(causal)), _cuda.stream_handle(q))
     _cuda.check(err, "flash_chunk")
     _cuda.LAUNCHES["flash_chunk"] += 1
     return m, l, acc
 
 
-def flash_kernel_attributes(d: int, carry: bool = False) -> dict:
-    """What the kernel for head_dim ``d`` (the chunk kernel with ``carry``)
-    asks of the current CUDA device: registers per thread at launch (the
-    warpgroups then trade them with ``setmaxnreg``), dynamic shared memory
-    and resident CTAs per SM."""
-    _cuda.require(d in HEAD_DIMS, f"no kernel for head_dim {d}")
-    out = (ctypes.c_int * 3)()
-    _cuda.check(_cuda.lib().nnstpu_flash_attributes(d, int(bool(carry)), out),
-                "flash_kernel_attributes")
-    return dict(zip(("registers", "dynamic_smem_bytes", "ctas_per_sm"), out))
+def flash_kernel_attributes(d: int, carry: bool = False,
+                            dtype: torch.dtype = torch.bfloat16) -> dict:
+    """What the instantiation that head_dim ``d`` in ``dtype`` reaches (the
+    chunk kernel's with ``carry``) asks of the current CUDA device:
+    registers per thread at launch (the tensor-core body's warpgroups then
+    trade them with ``setmaxnreg``), dynamic shared memory and resident
+    CTAs per SM, with the body and its D (:func:`kernel_instance`)."""
+    body, D = kernel_instance(d, dtype)
+    out = (ctypes.c_int * 5)()
+    _cuda.check(_cuda.lib().nnstpu_flash_attributes(
+        d, int(bool(carry)), _cuda.DTYPE_CODES[dtype], out),
+        "flash_kernel_attributes")
+    if (out[3] == 1) != (body == "tensor_core") or out[4] != D:
+        raise RuntimeError(f"the library runs head_dim {d} {dtype} on "
+                           f"body {out[3]} at D {out[4]}, not {body} {D}")
+    return {"registers": out[0], "dynamic_smem_bytes": out[1],
+            "ctas_per_sm": out[2], "body": body, "instance_d": D}
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

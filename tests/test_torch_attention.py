@@ -11,6 +11,8 @@ at |port - jax| <= 2^-6 + 2^-6 |jax|, the tolerance the card's check uses
 taken in another order, which can flip a bf16 rounding).
 """
 
+import contextlib
+import ctypes
 import os
 import re
 
@@ -222,10 +224,10 @@ def test_kernel_source_declares_the_wrapper_tile():
 
 
 def test_kernel_attributes_refuse_a_head_dim_without_a_kernel():
-    """The card-side query names only instantiated head dims; another one
+    """The card-side query names only head dims a kernel takes; another one
     is refused before the library is built or loaded."""
-    with pytest.raises(ValueError, match="no kernel for head_dim 48"):
-        port_attn.flash_kernel_attributes(48)
+    with pytest.raises(ValueError, match="head_dim 1 to 256, got 257"):
+        port_attn.flash_kernel_attributes(257)
 
 
 def test_wrapper_counts_no_launch_on_cpu_and_refuses_other_devices():
@@ -242,4 +244,228 @@ def test_wrapper_counts_no_launch_on_cpu_and_refuses_other_devices():
 def test_kernel_is_built_and_bound():
     assert "attention.cu" in _cuda._sources()
     assert "nnstpu_flash_attention" in _cuda._SIGNATURES
-    assert port_attn.HEAD_DIMS == (32, 64, 128)
+    assert port_attn.MAX_HEAD_DIM == 256
+    assert port_attn.KERNEL_DTYPES == (torch.bfloat16, torch.float32)
+
+
+# -- every head dim and both dtypes ----------------------------------------
+
+#: head dims of every kind: the tensor-core body's 16, multiples of 8 and
+#: odd widths that the simple body takes, and the largest
+WIDE_DIMS = (1, 8, 16, 20, 24, 33, 48, 96, 100, 200, 256)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("causal", [False, True])
+def test_every_head_dim_matches_jax_blockwise(dtype, d, causal):
+    """The wrapper on a CPU tensor against the JAX package's XLA route
+    (its blockwise recurrence) at the kernels' 128-key blocks, so that a
+    bf16 p is rounded at the same running max."""
+    q, k, v = _qkv((2, 256, d), 20 + d)
+    want = _jax(jax_attn.flash_attention, q, k, v, getattr(jnp, dtype),
+                causal=causal, block_size=port_attn.BLOCK_K)
+    got = _port(port_attn.flash_attention_cuda, q, k, v,
+                getattr(torch, dtype), causal=causal)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=ATOL)
+    else:
+        _assert_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("sq,sk", [(100, 300), (300, 100)])
+def test_every_head_dim_ragged_matches_jax(d, sq, sk):
+    """Ragged causal sequences at every head dim, float32, against the
+    JAX package's plain attention."""
+    q, k, v = _qkv((2, sq, d), 30 + d, sk=sk)
+    want = _jax(jax_attn.plain_attention, q, k, v, causal=True)
+    got = _port(port_attn.flash_attention_cuda, q, k, v, causal=True)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_stream_transformer_at_the_example_width_matches_flax():
+    """examples/long_context.py's model, dim 32 and 2 heads (head_dim
+    16), float32, against flax on the same weights."""
+    from nnstreamer_tpu.models import vit as jax_vit
+    from nnstreamer_tpu_torch.models.convert import from_jax_variables
+    from nnstreamer_tpu_torch.models.vit import StreamTransformer
+
+    cfg = dict(seq=128, feat=16, dim=32, depth=1, heads=2)
+    rng = np.random.default_rng(40)
+    model = jax_vit.StreamTransformer(dtype=jnp.float32, causal=True, **cfg)
+    x = rng.normal(size=(2, 128, 16)).astype(np.float32)
+    variables = model.init(jax.random.PRNGKey(4), jnp.asarray(x))
+    variables = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + rng.normal(0, 0.02, a.shape).astype(
+            np.float32), jax.device_get(variables))
+    want = np.asarray(model.apply(variables, jnp.asarray(x)))
+    port = StreamTransformer(dtype=torch.float32, causal=True, **cfg,
+                             attention=port_attn.flash_attention_cuda)
+    port.load_state_dict(from_jax_variables(variables))
+    with torch.no_grad():
+        got = port.eval()(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 128, 16)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+# -- the CUDA branch of the wrappers, against a recording library ----------
+
+def _read(ptr: int, n: int, code: int) -> np.ndarray:
+    """n values of dtype code ``code`` (float32 or bf16) at a host
+    pointer, as float32."""
+    if code == _cuda.DTYPE_CODES[torch.float32]:
+        return np.ctypeslib.as_array((ctypes.c_float * n).from_address(
+            ptr)).copy()
+    raw = np.ctypeslib.as_array((ctypes.c_uint16 * n).from_address(ptr))
+    return (raw.astype(np.uint32) << 16).view(np.float32)
+
+
+class _RecordingLib:
+    """Stands in for the kernel library: records what each entry point is
+    given, reading the q/k/v buffers at the pointers it gets."""
+
+    def __init__(self):
+        self.calls = []
+
+    def nnstpu_flash_attention(self, q, k, v, o, bh, sq, sk, d, code, scale,
+                               causal, stream):
+        self.calls.append(dict(
+            q=_read(q, bh * sq * d, code), k=_read(k, bh * sk * d, code),
+            v=_read(v, bh * sk * d, code), o=o, shape=(bh, sq, sk, d),
+            code=code, scale=scale, causal=causal))
+        return 0
+
+    def nnstpu_flash_chunk(self, q, k, v, m, l, acc, bh, sq, sk, d, code,
+                           q_offset, k_offset, scale, causal, stream):
+        self.calls.append(dict(
+            q=_read(q, bh * sq * d, code), k=_read(k, bh * sk * d, code),
+            v=_read(v, bh * sk * d, code), carries=(m, l, acc),
+            shape=(bh, sq, sk, d), code=code, offsets=(q_offset, k_offset),
+            scale=scale, causal=causal))
+        return 0
+
+
+@pytest.fixture
+def recording_lib(monkeypatch):
+    """The wrappers' CUDA branch on CPU tensors: every tensor counts as a
+    CUDA one, and the library is the recorder."""
+    rec = _RecordingLib()
+    monkeypatch.setattr(_cuda, "on_cpu", lambda x: False)
+    monkeypatch.setattr(_cuda, "lib", lambda: rec)
+    monkeypatch.setattr(_cuda, "stream_handle", lambda x: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    _cuda.reset_launches()
+    yield rec
+    _cuda.reset_launches()
+
+
+def _strided(shape, seed, dtype):
+    """A non-contiguous tensor of ``shape``: the wrapper must hand the
+    kernel a contiguous copy with row stride d."""
+    *lead, s, d = shape
+    a = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(*lead, d, s)).astype(np.float32)).to(dtype)
+    return a.transpose(-1, -2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [8, 16, 256])
+def test_cuda_branch_passes_dtype_dim_and_rows(recording_lib, dtype, d):
+    tdt = getattr(torch, dtype)
+    code = _cuda.DTYPE_CODES[tdt]
+    q, k, v = (_strided((2, 3, s, d), i, tdt)
+               for i, s in enumerate((40, 70, 70)))
+    out = port_attn.flash_attention_cuda(q, k, v, causal=True)
+    assert out.shape == q.shape and out.dtype == tdt
+    call, = recording_lib.calls
+    assert call["shape"] == (6, 40, 70, d) and call["code"] == code
+    assert call["causal"] == 1 and call["o"] == out.data_ptr()
+    assert call["scale"] == pytest.approx(1 / d ** 0.5)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        np.testing.assert_array_equal(call[name], t.float().reshape(-1).numpy())
+    assert _cuda.LAUNCHES["flash_attention"] == 1
+
+    q3, k3 = q.reshape(6, 40, d), k.reshape(6, 70, d)
+    carries = [c.clone() for c in port_attn._fresh_carries(6, 40, d, "cpu")]
+    port_attn.flash_chunk_cuda(q3, k3, k3, *carries, q_offset=70,
+                               k_offset=0, causal=True, scale=0.5)
+    call = recording_lib.calls[-1]
+    assert call["shape"] == (6, 40, 70, d) and call["code"] == code
+    assert call["offsets"] == (70, 0) and call["scale"] == 0.5
+    assert call["carries"] == tuple(c.data_ptr() for c in carries)
+    np.testing.assert_array_equal(call["q"], q3.float().reshape(-1).numpy())
+    assert _cuda.LAUNCHES["flash_chunk"] == 1
+
+
+def _refused_cases():
+    f32, bf16 = torch.float32, torch.bfloat16
+    return {"d0": ((2, 16, 0), (f32,) * 3, "head_dim 1 to 256, got 0"),
+            "d257": ((2, 16, 257), (f32,) * 3, "head_dim 1 to 256, got 257"),
+            "d257_bf16": ((2, 16, 257), (bf16,) * 3, "got 257"),
+            "float16": ((2, 16, 64), (torch.float16,) * 3,
+                        "bfloat16 or float32 on CUDA, got torch.float16"),
+            "mixed": ((2, 16, 64), (f32, bf16, f32), "of one dtype")}
+
+
+@pytest.mark.parametrize("case", sorted(_refused_cases()))
+@pytest.mark.parametrize("fn", ["flash", "chunk"])
+def test_cuda_branch_refuses_what_no_kernel_takes(recording_lib, case, fn):
+    shape, dtypes, msg = _refused_cases()[case]
+    q, k, v = (torch.zeros(shape, dtype=dt) for dt in dtypes)
+    with pytest.raises(ValueError, match=msg):
+        if fn == "flash":
+            port_attn.flash_attention_cuda(q, k, v)
+        else:
+            port_attn.flash_chunk_cuda(
+                q, k, v, *port_attn._fresh_carries(2, 16, shape[-1], "cpu"),
+                q_offset=0, k_offset=0)
+    assert not recording_lib.calls
+
+
+@pytest.mark.parametrize("d,dtype", [(0, torch.float32),
+                                     (257, torch.bfloat16),
+                                     (64, torch.float16)])
+def test_kernel_attributes_refuse_outside_the_limits(d, dtype):
+    with pytest.raises(ValueError):
+        port_attn.flash_kernel_attributes(d, dtype=dtype)
+
+
+def _cu_table(name: str):
+    with open(os.path.join(_cuda.CSRC, "attention.cu")) as fh:
+        src = fh.read()
+    m = re.search(rf"constexpr int {name}\[\] = \{{([^}}]*)\}};", src)
+    return tuple(int(x) for x in m.group(1).split(",")), src
+
+
+def test_instantiation_table_matches_the_wrapper_limits():
+    """The kernel source's instantiation tables are the wrapper's, every
+    entry has a launch case, and every head dim from 1 to the limit in
+    either dtype reaches one of them at a D not below it."""
+    tc, src = _cu_table("kTcDims")
+    simple, _ = _cu_table("kSimpleDims")
+    assert tc == port_attn.TC_HEAD_DIMS
+    assert simple == port_attn.SIMPLE_HEAD_DIMS
+    limit = int(re.search(r"constexpr int kMaxHeadDim = (\d+);",
+                          src).group(1))
+    assert limit == port_attn.MAX_HEAD_DIM == simple[-1]
+    for D in tc:
+        assert f"case {D}: return launch_tc<{D}, kCarry>" in src
+    for D in simple:
+        assert f"case {D}: return launch_simple<{D // 16}, kCarry>" in src
+    for dtype in port_attn.KERNEL_DTYPES:
+        for d in range(1, limit + 1):
+            body, D = port_attn.kernel_instance(d, dtype)
+            assert D >= d and D in (tc if body == "tensor_core" else simple)
+            assert (body == "tensor_core") == (dtype == torch.bfloat16
+                                               and d in tc)
+            if body == "tensor_core":
+                assert D == d
+    assert port_attn.kernel_instance(64, torch.bfloat16) == ("tensor_core",
+                                                             64)
+    assert port_attn.kernel_instance(16, torch.bfloat16) == ("tensor_core", 16)
+    assert port_attn.kernel_instance(8, torch.bfloat16) == ("simple", 32)
+    assert port_attn.kernel_instance(48, torch.bfloat16) == ("simple", 64)
+    assert port_attn.kernel_instance(64, torch.float32) == ("simple", 64)
+    assert port_attn.kernel_instance(20, torch.bfloat16) == ("simple", 32)

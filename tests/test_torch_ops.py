@@ -109,6 +109,42 @@ def test_arith_chain_matches_numpy_per_op(ops):
     np.testing.assert_array_equal(got, want)
 
 
+#: the chains of the repo's launch lines (tensor_transform mode=arithmetic:
+#: the typecast preamble, mul:2, mul:0.5, mul:0.1, add:1) and a clamp
+LAUNCH_LINE_CHAINS = {
+    "preamble": ([("add", -127.5), ("div", 127.5)], None),
+    "mul2": ([("mul", 2.0)], None),
+    "mul0.5": ([("mul", 0.5)], None),
+    "mul0.1": ([("mul", 0.1)], None),
+    "add1": ([("add", 1.0)], None),
+    "preamble_clamp": ([("add", -127.5), ("div", 127.5)], (-0.5, 0.5)),
+}
+
+
+@pytest.mark.parametrize("out", ["float32", "float16"])
+@pytest.mark.parametrize("chain", sorted(LAUNCH_LINE_CHAINS))
+@pytest.mark.parametrize("dtype", [np.uint8, np.int8])
+def test_arith_chain_plain_exhaustive_8bit_matches_numpy(dtype, chain, out):
+    """Every one of the 256 values of an 8-bit input, through the plain
+    version (the CUDA kernel's table is held bit-equal to it on the card),
+    against numpy's per-op float32 arithmetic, then one rounding to the
+    output dtype."""
+    ops, clamp = LAUNCH_LINE_CHAINS[chain]
+    x = np.arange(256, dtype=np.uint8).view(dtype)
+    want = x.astype(np.float32)
+    for k, v in ops:
+        v = np.float32(v)
+        want = want + v if k == "add" else (want * v if k == "mul"
+                                            else want / v)
+    if clamp is not None:
+        want = np.clip(want, np.float32(clamp[0]), np.float32(clamp[1]))
+    want = want.astype(out)
+    got = arith_chain(torch.from_numpy(x), ops, out_dtype=getattr(torch, out),
+                      clamp=clamp).numpy()
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+
+
 def test_arith_chain_unknown_op_raises():
     with pytest.raises(ValueError, match="unknown arithmetic op"):
         arith_chain(torch.zeros(8, 128), [("pow", 2.0)])

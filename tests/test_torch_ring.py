@@ -343,6 +343,32 @@ def test_ulysses_matches_jax_ulysses(meshes, jax_ref, causal):
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_head_dim_8_long_sequence_matches_jax(meshes, jax_ref, causal):
+    """The reference's long-sequence case (tests/test_ops.py), head_dim 8:
+    1024 positions in 8 shards of 128."""
+    want = jax_ref("ring_attention", (1, 1024, 8), jnp.float32, causal, 74)
+    got = _port_sp(port_attn.ring_attention, meshes[1], (1, 1024, 8),
+                   torch.float32, causal, 74)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("ring_attention", (2, 1024, 32)),
+    ("ulysses_attention", (2, 8, 1024, 32))])
+def test_long_context_example_matches_jax(meshes, jax_ref, name, shape):
+    """examples/long_context.py's sequence-parallel steps at its own sizes,
+    causal float32 over sp=8, against the JAX function and against plain
+    attention on the whole sequence."""
+    want = jax_ref(name, shape, jnp.float32, True, 76)
+    got = _port_sp(getattr(port_attn, name), meshes[1], shape, torch.float32,
+                   True, 76)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    args = [_t(_np(shape, 76 + i)) for i in range(3)]
+    np.testing.assert_allclose(
+        got, _f32(port_attn.plain_attention(*args, causal=True)), atol=ATOL)
+
+
 def test_ulysses_matches_ring(meshes):
     q, k, v = (_t(_np((1, 8, 128, 8), 80 + i)) for i in range(3))
     uly = port_attn.ulysses_attention(q, k, v, meshes[1], "sp")
