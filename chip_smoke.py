@@ -96,6 +96,35 @@ Phases, each printing one JSON line:
              normalize_u8 launch per forward, logits against the plain
              twin, frames per second and p50 batch latency;
 
+  upload     the flagship line (fetch-window=4) at feed-depth 1, 2 and 4,
+             each run twice (1, 2, 4, 4, 2, 1): frames per second per run
+             with the median and spread per depth, p50 batch latency,
+             labels equal to feed-depth=1's, and from the tracer one h2d
+             crossing per batch and one d2h per fetch window at the filter
+             (with their bytes), the upload-window and fetch-window
+             residencies; then one run each at feed-depth 1 and 2 under
+             trace.torch_profile: device busy ms and idle share, the
+             kernels' streams, and every host-to-device copy by name
+             (Pinned or Pageable), stream, count and ms — at feed-depth 2
+             the input's upload must be pinned and off the kernels' stream;
+             and one span-traced run each at feed-depth 1 and 2: the
+             filter's own host ms per batch, its mean dispatch ms and at
+             depth 2 the prefetch's staging copy (the h2d span);
+  batch      the live-camera form of the line: tensor_converter
+             frames-per-tensor=1 ! tensor_filter batch-size=32
+             fetch-timeout-ms=50 fetch-window=auto, frames pushed one by
+             one: labels equal to the frames-per-tensor=32 line's, the
+             window auto settled on, frames per second; then 40 frames and
+             no EOS, brought out only by the timer thread's quiescence
+             flush, labels again equal;
+  hostspans  the flagship and stream lines with a span tracer attached
+             after warm-up: each element's host ms per batch (window), its
+             chain's inclusive time from Tracer.report() and its own time
+             from the span ring (Tracer.element_self_ms), the host-stack
+             roll-up and the filter's crossings; both span traces and a
+             trace.torch_profile trace of the flagship line checked by
+             validate_chrome_trace;
+
 then one ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
 that last line. It needs a CUDA card: without one it exits 1 at once.
@@ -558,13 +587,18 @@ def _flagship(labels: str, fused: str = "pallas") -> str:
                           f"seed:0,postproc:argmax,fused:{fused}")
 
 
-def _drive(line, frames, n_batches):
+def _drive(line, frames, n_batches, traced=False, spans=False):
     """Push n_batches of frames through a labeling line; returns
-    (labels per batch, seconds, p50 batch latency ms, pipeline)."""
+    (labels per batch, seconds, p50 batch latency ms, pipeline).
+    ``traced`` attaches a tracer (aggregate counters; with ``spans``, the
+    span ring too)."""
+    from nnstreamer_tpu_torch import trace
     from nnstreamer_tpu_torch.buffer import Buffer
     from nnstreamer_tpu_torch.pipeline import parse_launch
 
     p = parse_launch(line)
+    if traced:
+        trace.attach(p, spans=spans)
     pushed, arrived = {}, {}
     p["out"].connect_new_data(
         lambda b: arrived.__setitem__(b.pts, time.perf_counter()))
@@ -599,6 +633,7 @@ def check_slice(torch, results, workdir):
     frames = [np.kron(rng.integers(0, 256, (4, 4, 3)),
                       np.ones((SIZE // 4, SIZE // 4, 1))).astype(np.uint8)
               for _ in range(BATCH)]
+    results["flag_labels"], results["flag_frames"] = labels, frames
     # warm-up run (cuDNN/cuBLAS plans, allocator) — not the measured one
     _, _, _, p = _drive(_flagship(labels), frames, 2)
     p.stop()
@@ -928,60 +963,83 @@ def _stream_line() -> str:
     feat, seq = STREAM["feat"], STREAM["seq"]
     return (f"appsrc name=src caps=other/tensors,format=static,"
             f"dimensions={feat}:{STREAM_CHUNK},types=float32 "
-            f"! tensor_aggregator frames_in={STREAM_CHUNK} frames_out={seq} "
+            f"! tensor_aggregator name=agg frames_in={STREAM_CHUNK} "
+            f"frames_out={seq} "
             f"frames_dim=1 ! tensor_filter name=f framework=jax "
             f"model=stream_transformer custom=seed:0,{_custom(STREAM)} "
             f"! tensor_sink name=out")
 
 
-class _StreamDriver:
-    """The stream line, open across its runs: push whole windows of
-    chunks, wait for their outputs at the sink."""
+class _LineDriver:
+    """A launch line, open across its runs: each unit is a list of
+    buffers (a window's chunks, a batch's frames) whose push yields
+    ``outputs_per_unit`` buffers at the sink; :meth:`run` pushes whole
+    units and waits for their outputs. ``spans`` attaches a span tracer
+    now; :meth:`attach` does it between runs (after a warm-up)."""
 
-    def __init__(self, window):
+    def __init__(self, line, chunks, outputs_per_unit=1, spans=False):
+        from nnstreamer_tpu_torch import trace
         from nnstreamer_tpu_torch.pipeline import parse_launch
 
-        self.chunks = [window[i:i + STREAM_CHUNK]
-                       for i in range(0, len(window), STREAM_CHUNK)]
-        self.p = parse_launch(_stream_line())
+        self.chunks = chunks
+        self.per_unit = outputs_per_unit
+        self.p = parse_launch(line)
         self.arrived = []
         self.p["out"].connect_new_data(
             lambda b: self.arrived.append(time.perf_counter()))
+        if spans:
+            trace.attach(self.p, spans=True)
         self.p.play()
         self.pts = 0
 
-    def run(self, n_windows: int):
-        """Push n_windows windows; returns (seconds from the first push to
-        the last output, p50 ms from a window's last chunk to its output)."""
+    def attach(self):
+        from nnstreamer_tpu_torch import trace
+
+        return trace.attach(self.p, spans=True)
+
+    def run(self, n_units: int):
+        """Push n_units units; returns (seconds from the first push to
+        the last output, p50 ms from a unit's last push to its output)."""
         from nnstreamer_tpu_torch.buffer import Buffer
 
         start = len(self.arrived)
         last_push = []
         t0 = time.perf_counter()
-        for _ in range(n_windows):
+        for _ in range(n_units):
             for c in self.chunks:
                 self.p["src"].push_buffer(Buffer(tensors=[c], pts=self.pts))
                 self.pts += 1
             last_push.append(time.perf_counter())
+        want = start + n_units * self.per_unit
         deadline = time.monotonic() + 600
-        while len(self.arrived) < start + n_windows:
+        while len(self.arrived) < want:
             if self.p.bus.error is not None:
-                raise RuntimeError(f"stream line failed: "
-                                   f"{self.p.bus.error.data}")
+                raise RuntimeError(f"line failed: {self.p.bus.error.data}")
             if time.monotonic() > deadline:
-                raise TimeoutError("stream line: outputs did not arrive")
+                raise TimeoutError("line: outputs did not arrive")
             time.sleep(0.001)
         secs = self.arrived[-1] - t0
-        lat = [(a - b) * 1e3 for a, b in zip(self.arrived[start:], last_push)]
+        ends = self.arrived[start + self.per_unit - 1::self.per_unit]
+        lat = [(a - b) * 1e3 for a, b in zip(ends, last_push)]
         return secs, statistics.median(lat)
 
     def close(self):
         self.p["src"].end_of_stream()
         if not self.p.bus.wait_eos(120) or self.p.bus.error is not None:
-            raise RuntimeError(f"stream line failed at EOS: {self.p.bus.error}")
+            raise RuntimeError(f"line failed at EOS: {self.p.bus.error}")
         outs = [b.tensors[0] for b in self.p["out"].collected]
         self.p.stop()
         return outs
+
+
+class _StreamDriver(_LineDriver):
+    """The stream line: one unit is one window's 512-frame chunks."""
+
+    def __init__(self, window, spans=False):
+        super().__init__(_stream_line(),
+                         [window[i:i + STREAM_CHUNK]
+                          for i in range(0, len(window), STREAM_CHUNK)],
+                         spans=spans)
 
 
 def check_stream(torch, results):
@@ -1512,6 +1570,326 @@ def check_vit(torch, results, workdir):
                              "forward")
 
 
+# -- phase: the upload window on the flagship line --------------------------
+
+#: feed-depth values the upload phase drives, each run twice, in the order
+#: 1, 2, 4, 4, 2, 1
+FEED_DEPTHS = (1, 2, 4)
+
+
+def _flag_line(labels: str, extra: str = "", fpt: int = BATCH) -> str:
+    """The flagship labeling line with tensor_filter properties added
+    (fetch-window=4 unless ``extra`` sets one)."""
+    if "fetch-window" not in extra:
+        extra += f" fetch-window={FETCH_WINDOW}"
+    return (
+        f"appsrc name=src caps=video/x-raw,format=RGB,width={SIZE},"
+        f"height={SIZE},framerate=1000/1 "
+        f"! tensor_converter name=conv frames-per-tensor={fpt} "
+        f"! tensor_filter name=f framework=jax model=mobilenet_v2 "
+        f"custom=seed:0,postproc:argmax,fused:pallas {extra} "
+        f"! queue name=q ! tensor_decoder name=dec mode=image_labeling "
+        f"option1={labels} ! tensor_sink name=out")
+
+
+def _labels_of(p) -> list:
+    """Every label the sink collected, one per frame, in order."""
+    out = []
+    for b in p["out"].collected:
+        lab = b.meta["label"]
+        out.extend(lab if isinstance(lab, list) else [lab])
+    return out
+
+
+def trace_device_stats(path: str, wall_s: float) -> dict:
+    """From a torch.profiler Chrome trace (``trace.torch_profile``): the
+    device's busy time (union of its kernel, memcpy and memset intervals)
+    and idle share over ``wall_s``, the streams the kernels ran on, and
+    every host-to-device copy by name (Kineto says Pinned or Pageable) and
+    stream, with its count and milliseconds."""
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    spans, kernel_streams, h2d = [], set(), {}
+    for e in events:
+        cat = e.get("cat")
+        if cat not in ("kernel", "gpu_memcpy", "gpu_memset") or "dur" not in e:
+            continue
+        t0 = float(e["ts"])
+        spans.append((t0, t0 + float(e["dur"])))
+        stream = (e.get("args") or {}).get("stream")
+        if cat == "kernel":
+            kernel_streams.add(stream)
+        elif "HtoD" in e.get("name", ""):
+            n, ms = h2d.get((e["name"], stream), (0, 0.0))
+            h2d[(e["name"], stream)] = (n + 1, ms + float(e["dur"]) / 1e3)
+    busy_us, end = 0.0, None
+    for t0, t1 in sorted(spans):
+        if end is None or t0 > end:
+            busy_us += t1 - t0
+            end = t1
+        elif t1 > end:
+            busy_us += t1 - end
+            end = t1
+    return {"device_busy_ms": busy_us / 1e3,
+            "idle_share": 1.0 - busy_us / 1e3 / (wall_s * 1e3),
+            "kernel_streams": sorted(kernel_streams, key=str),
+            "h2d": [{"name": name, "stream": stream, "count": n, "ms": ms}
+                    for (name, stream), (n, ms) in sorted(h2d.items(),
+                                                          key=str)],
+            "h2d_pinned_off_kernel_stream": any(
+                "Pinned" in name and stream not in kernel_streams
+                for name, stream in h2d)}
+
+
+def check_upload(torch, results, workdir):
+    """The flagship line at feed-depth 1, 2 and 4 (fetch-window=4), each
+    run twice: frames/s, labels against feed-depth=1, the tracer's
+    crossings and upload-window residency, then one torch.profiler run at
+    depth 1 and one at depth 2 (idle share; which stream the uploads ran
+    on, pinned or pageable)."""
+    from nnstreamer_tpu_torch import trace
+    from nnstreamer_tpu_torch.ops import _cuda
+
+    labels, frames = results["flag_labels"], results["flag_frames"]
+    _, _, _, p = _drive(_flag_line(labels, "feed-depth=2"), frames, 2)
+    p.stop()  # warm-up: the staging ring's first pinned allocations
+    runs = {d: [] for d in FEED_DEPTHS}
+    launches = {}
+    ref_labels, report = None, {}
+    for d in FEED_DEPTHS + FEED_DEPTHS[::-1]:
+        _cuda.reset_launches()
+        out, secs, p50, p = _drive(
+            _flag_line(labels, f"feed-depth={d}"), frames, N_BATCHES,
+            traced=True)
+        for k, v in _cuda.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        got = _labels_of(p)
+        cr = p.tracer.crossings()["per_element"]
+        res = p.tracer.report().get("residency", {})
+        p.stop()
+        if ref_labels is None:
+            ref_labels = got
+        runs[d].append({"fps": N_BATCHES * BATCH / secs, "p50_ms": p50,
+                        "labels_equal_depth1": got == ref_labels})
+        report[d] = {"crossings_f": cr.get("f"),
+                     "crossings_other": {k: v for k, v in cr.items()
+                                         if k != "f"},
+                     "upload_window": res.get("upload-window:f"),
+                     "fetch_window": res.get("fetch-window:f")}
+        want_h2d = (N_BATCHES, N_BATCHES * BATCH * SIZE * SIZE * 3)
+        want_d2h = (N_BATCHES // FETCH_WINDOW, N_BATCHES * BATCH * 4)
+        f = cr.get("f") or {}
+        if (len(got) != N_BATCHES * BATCH or got != ref_labels
+                or (f.get("h2d"), f.get("h2d_bytes")) != want_h2d
+                or (f.get("d2h"), f.get("d2h_bytes")) != want_d2h
+                or (d > 1 and (res.get("upload-window:f") or {})
+                    .get("count") != N_BATCHES)):
+            emit("upload", feed_depth=d, failed=report[d],
+                 labels=len(got), labels_equal=got == ref_labels)
+            raise AssertionError(f"upload: feed-depth={d} run is wrong")
+    runs_n = 2 * len(FEED_DEPTHS)
+    if launches.get("fused_inverted_residual") != 13 * N_BATCHES * runs_n \
+            or launches.get("normalize_u8") != N_BATCHES * runs_n:
+        raise AssertionError(f"upload: launch counts {launches}")
+    results["upload_launches"] = launches
+    profiles = {}
+    for d in (1, 2):
+        logdir = os.path.join(workdir, f"upload_prof_d{d}")
+        with trace.torch_profile(logdir) as path:
+            _, secs, _, p = _drive(_flag_line(labels, f"feed-depth={d}"),
+                                   frames, FETCH_WINDOW)
+            p.stop()
+        profiles[d] = trace_device_stats(path, secs)
+        profiles[d]["wall_ms"] = secs * 1e3
+        profiles[d]["trace_valid"] = trace.validate_chrome_trace(path) == []
+    # the host side: one span-traced run per depth — the filter's own ms
+    # per batch, its invoke dispatch (at depth 1 it includes the pageable
+    # upload) and, at depth 2, the prefetch's staging copy (the h2d span)
+    host = {}
+    for d in (1, 2):
+        _, secs, _, p = _drive(_flag_line(labels, f"feed-depth={d}"),
+                               frames, N_BATCHES, traced=True, spans=True)
+        recs = p.tracer.spans.records()
+        p.stop()
+        ms = {cat: [(r[4] - r[3]) * 1e3 for r in recs if r[2] == cat]
+              for cat in ("h2d", "dispatch")}
+        host[d] = {"wall_ms_per_batch": secs * 1e3 / N_BATCHES,
+                   "filter_own_ms_per_batch":
+                       p.tracer.element_self_ms(N_BATCHES).get("f"),
+                   "dispatch_ms_mean": statistics.fmean(ms["dispatch"]),
+                   "h2d_staging_ms_mean": (statistics.fmean(ms["h2d"])
+                                           if ms["h2d"] else None)}
+    emit("upload", batches=N_BATCHES, batch=BATCH,
+         fetch_window=FETCH_WINDOW,
+         fps={d: [r["fps"] for r in runs[d]] for d in FEED_DEPTHS},
+         fps_median={d: statistics.median(r["fps"] for r in runs[d])
+                     for d in FEED_DEPTHS},
+         fps_spread={d: max(r["fps"] for r in runs[d])
+                     - min(r["fps"] for r in runs[d]) for d in FEED_DEPTHS},
+         p50_batch_latency_ms={d: [r["p50_ms"] for r in runs[d]]
+                               for d in FEED_DEPTHS},
+         labels_equal_depth1=all(r["labels_equal_depth1"]
+                                 for d in FEED_DEPTHS for r in runs[d]),
+         tracer=report, launches=launches, profile=profiles,
+         host_spans=host, card=results["card"])
+    if not profiles[2]["h2d_pinned_off_kernel_stream"]:
+        raise AssertionError("upload: feed-depth=2 shows no pinned upload "
+                             "off the kernels' stream")
+
+
+# -- phase: the live-camera form of the flagship line ------------------------
+
+#: frames per micro-batch on the live line, and the quiescence flush
+LIVE_BATCH = 32
+LIVE_TIMEOUT_MS = 50
+
+
+def check_batch(torch, results):
+    """tensor_converter frames-per-tensor=1 ! tensor_filter batch-size=32
+    fetch-timeout-ms=50 fetch-window=auto, frames pushed one by one: its
+    labels against the frames-per-tensor=32 line on the same frames, the
+    window auto settles on, frames/s; then 40 frames with no EOS, which
+    only the timer thread's flush can bring out."""
+    from nnstreamer_tpu_torch.ops import _cuda
+
+    labels, frames = results["flag_labels"], results["flag_frames"]
+    n_units = 16
+    live = (f"batch-size={LIVE_BATCH} fetch-timeout-ms={LIVE_TIMEOUT_MS} "
+            "fetch-window=auto")
+    ref = _LineDriver(_flag_line(labels, "fetch-window=1", fpt=LIVE_BATCH),
+                      frames[:LIVE_BATCH])
+    ref.run(2)
+    ref.run(n_units)
+    ref.close()
+    want = _labels_of(ref.p)[2 * LIVE_BATCH:]
+    drv = _LineDriver(_flag_line(labels, live, fpt=1), frames[:LIVE_BATCH],
+                      outputs_per_unit=LIVE_BATCH)
+    drv.run(2)  # warm-up
+    _cuda.reset_launches()
+    secs, p50 = drv.run(n_units)
+    launches = dict(_cuda.LAUNCHES)
+    window = drv.p["f"]._auto_window
+    # the quiescence flush: 40 frames, no EOS — the last 8 sit in a
+    # partial batch until fetch-timeout-ms expires on the timer thread
+    n0 = len(drv.arrived)
+    t0 = time.perf_counter()
+    for i in range(40):
+        drv.p["src"].push_buffer(_frame_buf(frames[i % LIVE_BATCH]))
+    deadline = time.monotonic() + 30
+    while len(drv.arrived) < n0 + 40 and time.monotonic() < deadline:
+        time.sleep(0.001)
+    flush_s = time.perf_counter() - t0
+    drv.close()
+    got = _labels_of(drv.p)
+    live_labels = got[2 * LIVE_BATCH:2 * LIVE_BATCH + n_units * LIVE_BATCH]
+    timer_labels = got[(2 + n_units) * LIVE_BATCH:]
+    ok = (live_labels == want and len(timer_labels) == 40
+          and timer_labels == want[:40]
+          and launches.get("fused_inverted_residual") == 13 * n_units
+          and launches.get("normalize_u8") == n_units)
+    results["batch_launches"] = launches
+    emit("batch", frames=n_units * LIVE_BATCH, batch=LIVE_BATCH,
+         seconds=secs, fps=n_units * LIVE_BATCH / secs,
+         p50_batch_latency_ms=p50, auto_window=window,
+         labels_equal_fpt32=live_labels == want,
+         timeout_flush_frames=len(timer_labels),
+         timeout_flush_labels_equal=timer_labels == want[:40],
+         timeout_flush_s=flush_s, launches=launches, card=results["card"])
+    if not ok:
+        raise AssertionError("batch: labels, the timer flush or the launch "
+                             "counts are wrong")
+
+
+def _frame_buf(frame):
+    from nnstreamer_tpu_torch.buffer import Buffer
+
+    return Buffer(tensors=[frame])
+
+
+# -- phase: host time per element ---------------------------------------------
+
+def _element_host_ms(tracer, units: int) -> dict:
+    """Per element: its chain's inclusive host ms per unit (report()'s
+    proctime; an element's chain includes the downstream chains it calls
+    on its thread) and its own ms per unit (the span ring's self time)."""
+    rep = tracer.report()
+    own = tracer.element_self_ms(units)
+    out = {}
+    for el, e in rep.items():
+        pt = e.get("proctime") if isinstance(e, dict) else None
+        if not pt or not pt.get("count"):
+            continue
+        out[el] = {"chains": pt["count"],
+                   "inclusive_ms": pt["mean_us"] * pt["count"] / 1e3 / units,
+                   "own_ms": own.get(el, 0.0)}
+    return out
+
+
+def check_hostspans(torch, results, workdir):
+    """The flagship and stream lines with a span tracer attached after
+    their warm-up: each element's host ms per batch (window), the
+    host-stack roll-up, and a torch_profile trace of the flagship line
+    checked by validate_chrome_trace."""
+    from nnstreamer_tpu_torch import trace
+    from nnstreamer_tpu_torch.ops import _cuda
+
+    labels, frames = results["flag_labels"], results["flag_frames"]
+    launches = {}
+    drv = _LineDriver(_flag_line(labels), frames)
+    drv.run(FETCH_WINDOW)
+    tracer = drv.attach()
+    _cuda.reset_launches()
+    secs, _ = drv.run(N_BATCHES)
+    for k, v in _cuda.LAUNCHES.items():
+        launches[k] = launches.get(k, 0) + v
+    flag = {"batches": N_BATCHES, "wall_ms_per_batch": secs * 1e3 / N_BATCHES,
+            "elements": _element_host_ms(tracer, N_BATCHES),
+            "host_stack": tracer.host_stack_report(N_BATCHES),
+            "crossings": tracer.crossings()["per_element"]}
+    spans_valid = trace.validate_chrome_trace(
+        tracer.export_chrome_trace()) == []
+    drv.close()
+    window = results["stream_window"]
+    sdrv = _StreamDriver(window)
+    sdrv.run(N_WARMUP)
+    stracer = sdrv.attach()
+    _cuda.reset_launches()
+    ssecs, _ = sdrv.run(N_BATCHES)
+    for k, v in _cuda.LAUNCHES.items():
+        launches[k] = launches.get(k, 0) + v
+    stream = {"windows": N_BATCHES,
+              "wall_ms_per_window": ssecs * 1e3 / N_BATCHES,
+              "elements": _element_host_ms(stracer, N_BATCHES),
+              "host_stack": stracer.host_stack_report(N_BATCHES)}
+    spans_valid = spans_valid and trace.validate_chrome_trace(
+        stracer.export_chrome_trace()) == []
+    sdrv.close()
+    logdir = os.path.join(workdir, "hostspans_prof")
+    with trace.torch_profile(logdir) as path:
+        _, psecs, _, p = _drive(_flag_line(labels), frames, FETCH_WINDOW)
+        p.stop()
+    problems = trace.validate_chrome_trace(path)
+    with open(path, encoding="utf-8") as f:
+        n_events = len(json.load(f)["traceEvents"])
+    prof = trace_device_stats(path, psecs)
+    results["hostspans_launches"] = launches
+    emit("hostspans", flagship=flag, stream=stream,
+         span_traces_valid=spans_valid,
+         torch_profile={"path": os.path.relpath(path, ROOT),
+                        "events": n_events, "problems": problems[:5],
+                        "valid": not problems, "wall_ms": psecs * 1e3,
+                        "idle_share": prof["idle_share"],
+                        "device_busy_ms": prof["device_busy_ms"]},
+         launches=launches, card=results["card"])
+    if problems or not spans_valid or not flag["elements"] \
+            or not stream["elements"] \
+            or launches.get("fused_inverted_residual") != 13 * N_BATCHES \
+            or launches.get("flash_attention") != \
+            STREAM["depth"] * N_BATCHES:
+        raise AssertionError("hostspans: a trace is invalid, an element "
+                             "is missing or a kernel did not launch")
+
+
 def main() -> int:
     import torch
 
@@ -1543,6 +1921,9 @@ def main() -> int:
     check_ring(torch, results)
     check_longctx(torch, results)
     check_vit(torch, results, workdir)
+    check_upload(torch, results, workdir)
+    check_batch(torch, results)
+    check_hostspans(torch, results, workdir)
 
     src = {"fused_inverted_residual": "nnstreamer_tpu_torch/csrc/fused_block.cu",
            "normalize_u8": "nnstreamer_tpu_torch/csrc/preprocess.cu",
@@ -1555,9 +1936,10 @@ def main() -> int:
            "flash_attention": "nnstreamer_tpu/ops/attention.py:180",
            "flash_chunk": "nnstreamer_tpu/ops/attention.py:347"}
     # launches summed over the main-path runs of every line
-    launches = {name: sum(results[run][name] for run in (
+    launches = {name: sum(results[run].get(name, 0) for run in (
         "launches", "stream_launches", "vit_launches", "ring_launches",
-        "longctx_launches"))
+        "longctx_launches", "upload_launches", "batch_launches",
+        "hostspans_launches"))
         for name in src}
     launches["arith_chain"] += results["arith_launches"]
     kernels = []

@@ -36,6 +36,16 @@ def is_device_array(x: Any) -> bool:
     return isinstance(x, torch.Tensor) and x.is_cuda
 
 
+def is_backend_tensor(x: Any) -> bool:
+    """True for any torch tensor: a tensor a filter backend made on its
+    device, not yet brought to a host array. It is the counterpart of the
+    JAX package's ``is_device_array`` (a ``jax.Array`` on any device, the
+    CPU included) for the filter's fetch window and the tracer's crossing
+    counts, so a line run with ``accelerator=true:cpu`` windows and counts
+    as it does on the card. On the CPU such a crossing moves nothing."""
+    return isinstance(x, torch.Tensor)
+
+
 def _device_of(parts: Sequence[Any]) -> Optional[torch.device]:
     for p in parts:
         if is_device_array(p):
@@ -203,6 +213,11 @@ class Buffer:
             duration=self.duration,
             meta=dict(self.meta),
         )
+        born = getattr(self, "_nns_born_t", None)
+        if born is not None:
+            # tracer interlatency stamp survives rewraps so src_latency
+            # measures from the true source, not the last transform
+            nb._nns_born_t = born
         return nb
 
     def copy(self) -> "Buffer":

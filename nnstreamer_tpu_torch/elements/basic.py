@@ -1,22 +1,32 @@
-"""Generic stream elements on the flagship path: app source, tensor_sink,
-queue (thread boundary) and the capsfilter that parse_launch makes for
-inline caps.
+"""Generic stream elements: app source, tensor_sink, queue (thread
+boundary), tee, capsfilter, identity, file I/O, video test source
+(counterpart of the JAX package's ``elements/basic.py``).
 
-These are the L0 GStreamer elements the reference assumes exist plus the
-reference's own tensor_sink (gsttensor_sink.c: appsink-like sink emitting
-new-data signals). The JAX package's tee, identity, file I/O and video test
-source are not ported yet.
+These are the L0 GStreamer elements the reference assumes exist
+(appsrc/appsink/filesrc/filesink/queue/tee/videotestsrc used throughout its
+tests) plus the reference's own tensor_sink (gsttensor_sink.c: appsink-like
+sink emitting new-data signals).
 """
 
 from __future__ import annotations
 
 import queue as _queue
 import threading
+import time
 from typing import Callable, List, Optional
+
+import numpy as np
 
 from nnstreamer_tpu_torch.analysis import lockwitness
 from nnstreamer_tpu_torch.analysis.schema import Prop
-from nnstreamer_tpu_torch.buffer import CLOCK_TIME_NONE, Buffer, Event
+from nnstreamer_tpu_torch.buffer import (
+    CLOCK_TIME_NONE,
+    Buffer,
+    Event,
+    is_backend_tensor,
+    materialize_tensors,
+    nbytes_of,
+)
 from nnstreamer_tpu_torch.caps import Caps
 from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.pipeline.element import (
@@ -116,6 +126,10 @@ class TensorSink(Element):
         # sinks synchronize async device work by materializing on host unless
         # the app asked for raw (possibly device-resident) buffers
         if self.properties.get("materialize", True):
+            if any(is_backend_tensor(t) for t in buf.tensors):
+                # no residency planner: the sink is where the d2h lands
+                self._record_crossing("d2h", nbytes=nbytes_of(
+                    [t for t in buf.tensors if is_backend_tensor(t)]))
             # as_numpy brings every device tensor over in ONE batched
             # device→host transfer
             buf = buf.with_tensors(buf.as_numpy())
@@ -190,7 +204,10 @@ class QueueElement(Element):
                 break
 
     def chain(self, pad: Pad, buf: Buffer) -> FlowReturn:
-        item = ("buf", buf)
+        # enqueue stamp rides the item so the pop side can report queue
+        # residency to the tracer (GstShark interlatency role: parked
+        # time is where pipeline p50 hides when proctimes look innocent)
+        item = ("buf", buf, time.perf_counter())
         with self._plock:
             self._pending += 1
         if self.properties.get("leaky") == "downstream":
@@ -209,16 +226,31 @@ class QueueElement(Element):
             return
         with self._plock:
             self._pending += 1
-        self._q.put(("evt", event))
+        self._q.put(("evt", event, 0.0))
 
     def _loop(self) -> None:
         while self._alive:
             try:
-                kind, item = self._q.get(timeout=0.1)
+                kind, item, t_enq = self._q.get(timeout=0.1)
             except _queue.Empty:
                 continue
             try:
                 if kind == "buf":
+                    tracer = (getattr(self.pipeline, "tracer", None)
+                              if self.pipeline else None)
+                    if tracer is not None:
+                        t_deq = time.perf_counter()
+                        tracer.record_residency(
+                            f"queue:{self.name}", t_deq - t_enq)
+                        if tracer.spans is not None:
+                            # queue-wait span on the edge's own virtual
+                            # track, async-id'd by buffer: parked entries
+                            # overlap freely while the element processes
+                            tracer.spans.emit(
+                                "queue-wait", "queue", t_enq, t_deq,
+                                track=f"queue:{self.name}",
+                                aid=getattr(item, "seqnum", id(item)),
+                                args={"queue": self.name})
                     self.push(item)
                 else:
                     for sp in self.src_pads:
@@ -234,6 +266,32 @@ class QueueElement(Element):
     def is_idle(self) -> bool:
         with self._plock:
             return self._pending == 0
+
+
+@element_register
+class Tee(Element):
+    """1→N fan-out; request src pads src_%u (branch parallelism,
+    SURVEY.md §2.6 item 2)."""
+
+    ELEMENT_NAME = "tee"
+
+    def _setup_pads(self) -> None:
+        self.add_sink_pad("sink")
+
+    def request_pad(self, name: str = "src_%u") -> Pad:
+        pad = self._request_indexed_pad(name, "src", self.add_src_pad)
+        # propagate already-negotiated caps to late-linked branches
+        if self.sink_pad.caps is not None:
+            pad.caps = self.sink_pad.caps
+        return pad
+
+    def chain(self, pad: Pad, buf: Buffer) -> FlowReturn:
+        ret = FlowReturn.OK
+        for sp in self.src_pads:
+            r = sp.push(buf.copy())
+            if r == FlowReturn.ERROR:
+                ret = r
+        return ret
 
 
 @element_register
@@ -263,3 +321,153 @@ class CapsFilter(Element):
 
             raise ElementError(self.name, f"caps {caps} rejected by filter {self.caps_prop}")
         return out.fixate() if not out.is_fixed() else out
+
+
+@element_register
+class Identity(Element):
+    """Pass-through; prop sleep_time (ns between buffers) for tests.
+    (The JAX package's full tensor_debug element is not ported.)"""
+
+    ELEMENT_NAME = "identity"
+    PROPERTY_SCHEMA = {
+        "sleep_time": Prop("number", doc="ns between buffers"),
+        "silent": Prop("bool"),
+    }
+
+    def chain(self, pad: Pad, buf: Buffer) -> FlowReturn:
+        st = self.properties.get("sleep_time")
+        if st:
+            time.sleep(st / 1e9)
+        if not self.properties.get("silent", True):
+            log.warning("[%s] %r", self.name, buf)
+        return self.push(buf)
+
+
+@element_register
+class FileSrc(SourceElement):
+    """Reads a file and emits its bytes as one buffer (prop: location,
+    blocksize=-1 for whole file)."""
+
+    ELEMENT_NAME = "filesrc"
+    PROPERTY_SCHEMA = {
+        "location": Prop("str", required=True),
+        "blocksize": Prop("int", doc="-1 = whole file"),
+    }
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self._fh = None
+        self._done = False
+
+    def start(self) -> None:
+        self._fh = open(self.properties["location"], "rb")
+        self._done = False
+
+    def stop(self) -> None:
+        if self._fh:
+            self._fh.close()
+            self._fh = None
+
+    def create(self) -> Optional[Buffer]:
+        if self._done:
+            return None
+        bs = int(self.properties.get("blocksize", -1))
+        data = self._fh.read() if bs <= 0 else self._fh.read(bs)
+        if not data:
+            return None
+        if bs <= 0:
+            self._done = True
+        return Buffer(tensors=[data])
+
+
+@element_register
+class FileSink(Element):
+    """Appends every incoming tensor's raw bytes to a file (prop: location).
+    The golden-test workhorse (SSAT callCompareTest pattern,
+    tests/nnstreamer_filter_tensorflow2_lite/runTest.sh:10-60)."""
+
+    ELEMENT_NAME = "filesink"
+    PROPERTY_SCHEMA = {"location": Prop("str", required=True)}
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self._fh = None
+
+    def _setup_pads(self) -> None:
+        self.add_sink_pad("sink")
+
+    def start(self) -> None:
+        self._fh = open(self.properties["location"], "wb")
+
+    def stop(self) -> None:
+        if self._fh:
+            self._fh.close()
+            self._fh = None
+
+    def chain(self, pad: Pad, buf: Buffer) -> FlowReturn:
+        tensors = buf.tensors
+        if any(is_backend_tensor(t) for t in tensors):
+            self._record_crossing("d2h", nbytes=nbytes_of(
+                [t for t in tensors if is_backend_tensor(t)]))
+            tensors = materialize_tensors(tensors)  # one pipelined fetch
+        for t in tensors:
+            if isinstance(t, (bytes, bytearray, memoryview)):
+                self._fh.write(bytes(t))
+            else:
+                self._fh.write(np.ascontiguousarray(np.asarray(t)).tobytes())
+        return FlowReturn.OK
+
+    def on_eos(self) -> None:
+        if self._fh:
+            self._fh.flush()
+
+
+@element_register
+class VideoTestSrc(SourceElement):
+    """Synthetic video frames for tests/benches. Props: num_buffers,
+    width/height (or caps), format (RGB|GRAY8), pattern (smpte|solid|counter),
+    fps."""
+
+    ELEMENT_NAME = "videotestsrc"
+    SRC_TEMPLATE = "video/x-raw"
+    PROPERTY_SCHEMA = {
+        "num_buffers": Prop("int"),
+        "width": Prop("int"),
+        "height": Prop("int"),
+        "format": Prop("enum", enum=("RGB", "GRAY8")),
+        "pattern": Prop("enum", enum=("smpte", "solid", "counter")),
+        "fps": Prop("int"),
+    }
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self._i = 0
+
+    def negotiate(self) -> Caps:
+        w = int(self.properties.get("width", 320))
+        h = int(self.properties.get("height", 240))
+        fmt = self.properties.get("format", "RGB")
+        fps = int(self.properties.get("fps", 30))
+        return Caps.from_string(
+            f"video/x-raw,format={fmt},width={w},height={h},framerate={fps}/1"
+        )
+
+    def create(self) -> Optional[Buffer]:
+        n = int(self.properties.get("num_buffers", 10))
+        if 0 <= n <= self._i:
+            return None
+        w = int(self.properties.get("width", 320))
+        h = int(self.properties.get("height", 240))
+        fmt = self.properties.get("format", "RGB")
+        ch = 1 if fmt == "GRAY8" else 3
+        pattern = self.properties.get("pattern", "counter")
+        if pattern == "solid":
+            frame = np.full((h, w, ch), self._i % 256, dtype=np.uint8)
+        else:  # counter: deterministic, frame-varying
+            base = (np.arange(h * w * ch, dtype=np.int64) + self._i) % 256
+            frame = base.reshape(h, w, ch).astype(np.uint8)
+        fps = int(self.properties.get("fps", 30))
+        buf = Buffer(tensors=[frame], pts=int(self._i * 1e9 / fps),
+                     duration=int(1e9 / fps))
+        self._i += 1
+        return buf

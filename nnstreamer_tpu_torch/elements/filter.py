@@ -10,24 +10,40 @@ tensor_filter.c:366-478), QoS throttling (:512), shared-tensor-filter-key
 and hot model reload events.
 
 Invoke enqueues CUDA work and returns without synchronising: outputs flow
-downstream as CUDA tensors. ``fetch-window=K|eos`` holds device outputs and
-brings a whole window to the host in ONE batched device→host transfer
-(:func:`buffer.materialize_tensors`).
+downstream as CUDA tensors. The element's amortizers, as in the JAX
+package:
 
-Not ported yet (see ROADMAP.md): micro-batching (``batch-size``), the
-upload window (``feed-depth``), ``fetch-window=auto``, chain/stage fusion,
-the steady loop, mesh sharding, replicas, the AOT cache, rollout, the
-invoke watchdog and ``fallback-framework``. Setting any of them to other
-than its default raises at construction instead of being ignored.
+  - ``batch-size=N`` micro-batches N frames into one invoke (a partial
+    batch at EOS or at the ``fetch-timeout-ms`` quiescence flush is padded
+    with its last frame) and splits the outputs back per frame;
+  - ``feed-depth=N`` is the upload window: the backend's ``prefetch``
+    starts each entry's host→device copy at once and up to N entries wait
+    in flight while earlier ones compute;
+  - ``fetch-window=K|eos|auto`` holds device outputs and brings a whole
+    window to the host in ONE batched device→host transfer; ``auto``
+    sizes the window from the measured fetch and buffer period;
+  - ``invoke-dynamic`` emits each output as a flexible tensor.
+
+The tracer (``trace.attach``) sees the upload and fetch crossings, the
+upload-window and fetch-window holds, and, with spans on, the batch,
+dispatch, compute, h2d and d2h spans of each invoke.
+
+Not ported yet (see ROADMAP.md): chain/stage fusion, the steady loop, mesh
+sharding, replicas, the AOT cache, rollout, the invoke watchdog and
+``fallback-framework``. Setting any of them to other than its default
+raises at construction instead of being ignored.
 """
 
 from __future__ import annotations
 
+import os
+import threading
 import time
 from collections import deque
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from nnstreamer_tpu_torch import meta as meta_mod
 from nnstreamer_tpu_torch.analysis import lockwitness
@@ -35,30 +51,35 @@ from nnstreamer_tpu_torch.analysis.schema import Prop
 from nnstreamer_tpu_torch.buffer import (
     Buffer,
     Event,
-    is_device_array,
+    concat_tensors,
+    is_backend_tensor,
     materialize_tensors,
+    nbytes_of,
     residency_of,
+    stack_tensors,
 )
 from nnstreamer_tpu_torch.caps import Caps
 from nnstreamer_tpu_torch.config import conf
 from nnstreamer_tpu_torch.filters.base import (
     FilterProperties,
+    PrefetchedInputs,
     acquire_framework,
     release_framework,
 )
 from nnstreamer_tpu_torch.log import ElementError, get_logger
 from nnstreamer_tpu_torch.pipeline.element import Element, FlowReturn, Pad, element_register
-from nnstreamer_tpu_torch.types import TensorFormat, TensorsConfig, TensorsInfo
+from nnstreamer_tpu_torch.types import (
+    TensorFormat,
+    TensorInfo,
+    TensorsConfig,
+    TensorsInfo,
+)
 
 log = get_logger("tensor_filter")
 
 #: JAX-package properties this element does not implement yet, with the
 #: value that means "off" (that value is accepted; any other raises)
 NOT_PORTED = {
-    "invoke_dynamic": False,
-    "batch_size": 1,
-    "feed_depth": 1,
-    "fetch_timeout_ms": 0,
     "loop_window": 0,
     "launch_depth": 1,
     "shard": "off",
@@ -74,10 +95,19 @@ NOT_PORTED = {
 
 
 def _is_off(key: str, value) -> bool:
-    off = NOT_PORTED[key]
-    if isinstance(off, bool):
-        return not value or str(value).lower() in ("0", "false", "no")
-    return str(value).strip().lower() == str(off)
+    return str(value).strip().lower() == str(NOT_PORTED[key])
+
+
+def _block_until_ready(tensors) -> None:
+    """Wait for the CUDA work that makes ``tensors``: one synchronise of
+    the current stream per device involved. CPU tensors are ready."""
+    for dev in {t.device for t in tensors
+                if isinstance(t, torch.Tensor) and t.is_cuda}:
+        torch.cuda.current_stream(dev).synchronize()
+
+
+def _shape(t) -> tuple:
+    return tuple(t.shape) if hasattr(t, "shape") else np.shape(t)
 
 
 @element_register
@@ -91,6 +121,7 @@ class TensorFilter(Element):
         "custom": Prop("str", doc="backend-specific options"),
         "accelerator": Prop("str"),
         "shared_tensor_filter_key": Prop("str"),
+        "invoke_dynamic": Prop("bool"),
         "input": Prop("str", doc="input dims override (with input-type)"),
         "inputtype": Prop("str"),
         "inputname": Prop("str"),
@@ -99,13 +130,16 @@ class TensorFilter(Element):
         "outputname": Prop("str"),
         "input_combination": Prop("str", doc="comma-separated indices"),
         "output_combination": Prop("str", doc="iN/oN tokens"),
+        "batch_size": Prop("int", doc="micro-batch N frames per invoke"),
+        "feed_depth": Prop("int", doc="upload-window in-flight prefetches"),
         "fetch_window": Prop(
             "str",
             validate=lambda v: (
-                None if str(v).strip().lower() == "eos"
+                None if str(v).strip().lower() in ("auto", "eos")
                 or str(v).strip().lstrip("-").isdigit()
-                else f"expected an integer or 'eos', got {v!r}"),
+                else f"expected an integer, 'auto' or 'eos', got {v!r}"),
             doc="device→host transfer amortizer"),
+        "fetch_timeout_ms": Prop("number"),
         "latency": Prop("bool"),
         "latency_report": Prop("bool"),
         "latency_e2e": Prop("bool"),
@@ -116,6 +150,14 @@ class TensorFilter(Element):
            for k in NOT_PORTED},
     }
 
+    #: fetch-window=auto bounds + fetch-overhead target (fetch cost ≤ ~25%
+    #: of window compute ⇒ K ≈ 4·t_fetch/t_batch)
+    _AUTO_WINDOW_MAX = 64
+    _AUTO_OVERHEAD = 0.25
+    #: the window auto holds while the stream is saturated (throughput
+    #: regime, no live consumer): the JAX package's hand-validated
+    #: constant, kept so both packages decide alike
+    _AUTO_SATURATED_WINDOW = 16
     #: fetch-window=eos memory backstop: flush after this many held buffers
     _EOS_WINDOW_CAP = 4096
 
@@ -128,26 +170,48 @@ class TensorFilter(Element):
                 self.name, "not supported by this package's tensor_filter: "
                 + ", ".join(f"{k.replace('_', '-')}={self.properties[k]}"
                             for k in on))
-        if str(self.properties.get("fetch_window", "")).lower() == "auto":
-            raise ElementError(self.name, "fetch-window=auto is not supported "
-                               "by this package's tensor_filter")
         self.fw = None
         self._fw_props: Optional[FilterProperties] = None
         self._in_info: Optional[TensorsInfo] = None
         self._out_info: Optional[TensorsInfo] = None
         self._in_config: Optional[TensorsConfig] = None
         self._latencies_us: deque = deque(maxlen=10)  # last-10 window (:981-987)
+        # per-buffer arrival → emit, batching wait and window holds
+        # included — the `latency-e2e` property
         self._e2e_us: deque = deque(maxlen=10)
         self._out_times: deque = deque(maxlen=50)
         self._qos_earliest: int = -1
         self._invoke_count = 0
-        # fetch-window: (buf, tensors, outputs) entries awaiting one
-        # batched device→host transfer
+        # micro-batching: (buf, tensors, inputs) rows awaiting one invoke
+        self._pending: List[tuple] = []
+        # fetch-window: (rows, buf, tensors, outputs) entries awaiting one
+        # batched device→host transfer, with their hold stamps (tracer)
         self._fetch_pending: List[tuple] = []
-        # serializes the hot loop with reload events (the invoke runs
-        # under it, by design)
+        self._fetch_t: List[float] = []
+        # upload window (feed-depth): (rows, buf, tensors, payload) entries
+        # whose payload is the backend's prefetch handle (or the raw
+        # inputs when it declined); rows is the micro-batch's rows
+        self._feed_pending: List[tuple] = []
+        self._feed_t: List[float] = []
+        self._auto_window = 2  # fetch-window=auto state
+        self._last_flush_t: Optional[float] = None
+        # fetch-window=auto regime detection: EWMAs of the idle gap
+        # between chain() calls and of the time spent inside chain(); a
+        # saturated feed has idle ≈ 0, a live feed idles between frames
+        self._arr_idle_ewma: Optional[float] = None
+        self._arr_busy_ewma: Optional[float] = None
+        self._chain_exit_t: Optional[float] = None
+        # span-mode per-invoke sync sampling (NNSTPU_TRACE_SYNC_SAMPLE)
+        self._sync_sample_n = 0
+        # serializes the hot loop, the fetch-timeout-ms timer's flush and
+        # reload events (the invoke runs under it, by design)
         self._window_lock = lockwitness.make_rlock(
             "filter.window", blocking_ok=True, invoke_ok=True)
+        # fetch-timeout-ms: one long-lived timer per filter; the chain
+        # path only stamps _last_activity, the callback re-arms itself
+        # until the stream actually goes quiet
+        self._flush_timer: Optional[threading.Timer] = None
+        self._last_activity = 0.0
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
@@ -156,6 +220,12 @@ class TensorFilter(Element):
         fw_name = str(self.properties.get("framework", "auto"))
         model = self.properties.get("model")
         models = str(model).split(",") if model else []
+        if any(m.startswith("mlagent://") for m in models):
+            # mlagent://model/<name>/<ver> → registered file path
+            # (mlagent_get_model_path_from parity, ml_agent.c:33-70)
+            from nnstreamer_tpu_torch.platform import resolve_model_uri
+
+            models = [resolve_model_uri(m) for m in models]
         fw_name = conf().resolve_alias(fw_name) or "auto"
         if fw_name in ("auto", ""):
             fw_name = self._detect_framework(models)
@@ -165,6 +235,8 @@ class TensorFilter(Element):
             custom=str(self.properties.get("custom", "")),
             accelerator=str(self.properties.get("accelerator", "")),
             shared_key=self.properties.get("shared_tensor_filter_key"),
+            invoke_dynamic=bool(self.properties.get("invoke_dynamic", False)),
+            feed_depth=self._feed_depth(),
         )
         # user input/output overrides (input=dims input-type=...; :894-1030)
         if self.properties.get("input") and self.properties.get("inputtype"):
@@ -190,11 +262,20 @@ class TensorFilter(Element):
         self._e2e_us.clear()
 
     def stop(self) -> None:
+        if self._flush_timer is not None:
+            self._flush_timer.cancel()
         with self._window_lock:
+            self._flush_timer = None
             if self.fw is not None:
                 release_framework(self.fw, self._fw_props.shared_key)
                 self.fw = None
+            self._pending = []
             self._fetch_pending = []
+            self._fetch_t = []
+            self._feed_pending = []
+            self._feed_t = []
+        self._auto_window = 2
+        self._last_flush_t = None
 
     def _detect_framework(self, models: List[str]) -> str:
         from nnstreamer_tpu_torch.filters.base import detect_framework
@@ -236,6 +317,11 @@ class TensorFilter(Element):
                         )
             elif self.fw is not None and self.fw.RESHAPABLE:
                 self._in_info, self._out_info = self.fw.set_input_info(in_info)
+        if self.properties.get("invoke_dynamic"):
+            # flexible output: each tensor carries its own meta header
+            return Caps.from_config(TensorsConfig(
+                TensorsInfo(format=TensorFormat.FLEXIBLE),
+                rate_n=config.rate_n, rate_d=config.rate_d))
         if self._out_info is None:
             raise ElementError(self.name, "cannot determine output info")
         out_info = self._out_info
@@ -256,9 +342,14 @@ class TensorFilter(Element):
     def _on_sink_event(self, pad: Pad, event: Event) -> None:
         if event.type == "reload-model":
             new_model = event.data.get("model")
-            # serialized with the hot loop: held window entries are
-            # emitted against the OLD model before the swap
+            # serialized with the hot loop: frames already batched or
+            # uploaded for the OLD model invoke against it, and held
+            # window entries are emitted, before the swap
             with self._window_lock:
+                if self._pending:
+                    self._flush_batch(self._batch_size())
+                if self._feed_pending:
+                    self._drain_feed()
                 if self._fetch_pending:
                     self._flush_fetch_window()
                 if new_model:
@@ -281,6 +372,33 @@ class TensorFilter(Element):
 
     # -- hot loop ----------------------------------------------------------
     def chain(self, pad: Pad, buf: Buffer) -> FlowReturn:
+        """Timing shim around the hot loop: tracks the idle/busy EWMAs the
+        fetch-window=auto regime detector reads (_stream_saturated)."""
+        t_in = time.perf_counter()
+        if self._chain_exit_t is not None:
+            idle = max(0.0, t_in - self._chain_exit_t)
+            self._arr_idle_ewma = (
+                idle if self._arr_idle_ewma is None
+                else 0.8 * self._arr_idle_ewma + 0.2 * idle)
+        try:
+            return self._chain_impl(pad, buf)
+        finally:
+            t_out = time.perf_counter()
+            busy = t_out - t_in
+            self._arr_busy_ewma = (
+                busy if self._arr_busy_ewma is None
+                else 0.8 * self._arr_busy_ewma + 0.2 * busy)
+            self._chain_exit_t = t_out
+
+    def _stream_saturated(self) -> bool:
+        """True when upstream never waits on us (idle ≪ busy): the
+        throughput/finite-stream regime where fetch-window growth cannot
+        hurt a live consumer (there is none pacing the stream)."""
+        return (self._arr_idle_ewma is not None
+                and self._arr_busy_ewma is not None
+                and self._arr_idle_ewma < 0.1 * self._arr_busy_ewma)
+
+    def _chain_impl(self, pad: Pad, buf: Buffer) -> FlowReturn:
         if self.fw is None:
             return FlowReturn.NOT_NEGOTIATED
         # QoS drop (tensor_filter.c:512 → FLOW_DROPPED)
@@ -288,7 +406,7 @@ class TensorFilter(Element):
             return FlowReturn.DROPPED
         if self._measuring():
             # arrival stamp for the e2e latency window (rides the buffer
-            # through fetch-window holds to _emit_now)
+            # through batching, upload and fetch-window holds to _emit_now)
             buf._nns_t_in = time.monotonic()
         tensors = list(buf.tensors)
         fmt = self._in_config.format if self._in_config else TensorFormat.STATIC
@@ -306,17 +424,179 @@ class TensorFilter(Element):
         # input-combination selection (:716-758)
         sel = self.properties.get("input_combination")
         inputs = [tensors[int(i)] for i in str(sel).split(",")] if sel else tensors
+        batch = self._batch_size()
         with self._window_lock:
-            outputs = self._invoke(inputs)
-            return self._emit(buf, tensors, outputs)
+            if batch > 1:
+                if self._pending and self._pending[-1][0] is buf:
+                    # on-error retry re-chains the batch's trigger buffer
+                    # and the failed flush restored the rows — replace the
+                    # trigger's row instead of duplicating the frame
+                    self._pending[-1] = (buf, tensors, inputs)
+                else:
+                    self._pending.append((buf, tensors, inputs))
+                if len(self._pending) < batch:
+                    self._arm_flush_timer()
+                    return FlowReturn.OK
+                ret = self._flush_batch(batch)
+            elif self._feed_depth() > 1:
+                ret = self._feed(None, buf, tensors, inputs)
+            else:
+                outputs = self._invoke(inputs)
+                ret = self._emit(buf, tensors, outputs)
+            if self._pending or self._fetch_pending or self._feed_pending:
+                self._arm_flush_timer()
+            return ret
 
     def _measuring(self) -> bool:
         return any(self.properties.get(k) for k in
                    ("latency", "throughput", "latency_report", "latency_e2e"))
 
-    def _invoke(self, inputs: List) -> List:
-        """One backend invoke. With latency measurement on, the outputs are
+    def _batch_size(self) -> int:
+        return int(self.properties.get("batch_size", 1) or 1)
+
+    # -- upload window (feed-depth) ----------------------------------------
+    def _feed_depth(self) -> int:
+        return int(self.properties.get("feed_depth", 1) or 1)
+
+    def _feed(self, rows, buf, tensors, inputs) -> FlowReturn:
+        """feed-depth > 1: start the host→device transfer NOW (backend
+        ``prefetch``, non-blocking) and park the entry in the bounded
+        in-flight queue; the oldest entry invokes once the queue holds
+        ``feed-depth`` uploads, so uploads overlap earlier compute."""
+        spans = self._spans()
+        t_pf = time.perf_counter() if spans is not None else 0.0
+        try:
+            handle = self.fw.prefetch(inputs)
+        except Exception as e:
+            raise ElementError(self.name, f"prefetch failed: {e}") from e
+        if handle is not None and any(not is_backend_tensor(x) for x in inputs):
+            host_bytes = nbytes_of(
+                [x for x in inputs if not is_backend_tensor(x)])
+            # the upload started here, not at invoke: bill it here
+            self._record_crossing("h2d", nbytes=host_bytes)
+            if spans is not None:
+                # the host side of the non-blocking upload (staging); the
+                # copy itself completes on the device's copy stream
+                spans.emit("h2d", "h2d", t_pf, time.perf_counter(),
+                           args={"element": self.name,
+                                 "nbytes": host_bytes})
+        if handle is None and not self._feed_pending:
+            # backend has no prefetch hook (or declined): nothing is in
+            # flight to overlap — invoke inline
+            return self._invoke_entry(rows, buf, tensors, inputs)
+        # a declined prefetch behind queued entries still joins the queue:
+        # bypassing it would reorder the stream
+        self._feed_pending.append(
+            (rows, buf, tensors, handle if handle is not None else inputs))
+        self._feed_t.append(time.perf_counter())
+        ret = FlowReturn.OK
+        while len(self._feed_pending) >= self._feed_depth():
+            ret = self._pop_feed()
+            if ret not in (FlowReturn.OK, FlowReturn.DROPPED):
+                break
+        return ret
+
+    def _pop_feed(self) -> FlowReturn:
+        """Invoke + emit the oldest in-flight upload. Its hold time is the
+        upload-window residency (tracer ``upload-window:<name>``);
+        `latency-e2e` includes it (the arrival stamp rides the buffer)."""
+        rows, buf, tensors, payload = self._feed_pending.pop(0)
+        t0 = self._feed_t.pop(0)
+        tracer = (getattr(self.pipeline, "tracer", None)
+                  if self.pipeline else None)
+        if tracer is not None:
+            tracer.record_residency(f"upload-window:{self.name}",
+                                    time.perf_counter() - t0)
+        return self._invoke_entry(rows, buf, tensors, payload)
+
+    def _drain_feed(self) -> FlowReturn:
+        """Invoke every in-flight upload in order (EOS, quiescence,
+        reload): no stranded frames."""
+        ret = FlowReturn.OK
+        while self._feed_pending:
+            ret = self._pop_feed()
+            if ret not in (FlowReturn.OK, FlowReturn.DROPPED):
+                break
+        return ret
+
+    def _invoke_entry(self, rows, buf, tensors, payload) -> FlowReturn:
+        """Invoke one queue entry: a single frame (rows None) or a whole
+        micro-batch (rows = the pending (buf, tensors, inputs) list)."""
+        if rows is None:
+            return self._emit(buf, tensors, self._invoke(payload))
+        outputs = self._invoke(payload, frames=len(rows))
+        return self._emit_batch_rows(rows, outputs)
+
+    # -- fetch-timeout-ms quiescence flush ---------------------------------
+    def _arm_flush_timer(self) -> None:
+        """Note activity for the quiescence timer when fetch-timeout-ms is
+        set. The chain path only stamps ``_last_activity``; the one timer
+        re-arms itself for the rest of the window until the stream is
+        quiet."""
+        t_ms = float(self.properties.get("fetch_timeout_ms", 0) or 0)
+        if t_ms <= 0:
+            return
+        self._last_activity = time.monotonic()
+        if self._flush_timer is None:
+            self._start_flush_timer(t_ms / 1000.0)
+
+    def _start_flush_timer(self, delay: float) -> None:
+        self._flush_timer = threading.Timer(delay, self._timeout_flush)
+        self._flush_timer.daemon = True
+        self._flush_timer.start()
+
+    def _timeout_flush(self) -> None:
+        """Quiescence expired: flush the partial micro-batch (padded), the
+        upload window and any held fetch window, so a live pipeline that
+        never sends EOS does not strand its trailing frames. Runs on the
+        timer thread under the window lock; a failure is posted to the bus
+        as the element's error."""
+        t = float(self.properties.get("fetch_timeout_ms", 0) or 0) / 1000.0
+        with self._window_lock:
+            self._flush_timer = None
+            if self.fw is None:  # stopped while the timer was in flight
+                return
+            remaining = self._last_activity + t - time.monotonic()
+            if remaining > 0.001:
+                if self._pending or self._fetch_pending or self._feed_pending:
+                    self._start_flush_timer(remaining)
+                return
+            try:
+                if self._pending:
+                    self._flush_batch(self._batch_size())
+                if self._feed_pending:
+                    self._drain_feed()
+                if self._fetch_pending:
+                    self._flush_fetch_window()
+            except Exception as e:  # noqa: BLE001 — timer thread: report
+                log.exception("[%s] fetch-timeout flush failed", self.name)
+                self.post_error(e)
+
+    # -- invoke ------------------------------------------------------------
+    def _invoke(self, inputs: List, frames: int = 1) -> List:
+        """One backend invoke. ``frames`` > 1 on micro-batched calls: the
+        measured time is divided per frame so the latency window keeps
+        per-buffer compute semantics (the batching wait is in
+        `latency-e2e`). With latency measurement on, the outputs are
         synchronised so the window holds compute time, not enqueue time."""
+        spans = self._spans()
+        device_fw = bool(getattr(self.fw, "DEVICE_CAPABLE", False))
+        if (device_fw and not isinstance(inputs, PrefetchedInputs)
+                and any(not is_backend_tensor(x) for x in inputs)):
+            # the backend uploads these host tensors inline, one transfer
+            # per invoke (prefetched entries were billed at prefetch)
+            self._record_crossing("h2d", nbytes=nbytes_of(
+                [x for x in inputs if not is_backend_tensor(x)]))
+        elif not device_fw and any(is_backend_tensor(x) for x in inputs):
+            # a host-only backend fed device tensors: ONE batched fetch,
+            # billed, instead of the backend's own per-input conversion
+            dev_bytes = nbytes_of([x for x in inputs if is_backend_tensor(x)])
+            t_m = time.perf_counter()
+            inputs = materialize_tensors(list(inputs))
+            self._record_crossing("d2h", nbytes=dev_bytes)
+            if spans is not None:
+                spans.emit("d2h", "d2h", t_m, time.perf_counter(),
+                           args={"element": self.name, "nbytes": dev_bytes})
         t0 = time.perf_counter()
         try:
             outputs = self.fw.invoke(inputs)
@@ -325,62 +605,197 @@ class TensorFilter(Element):
         except Exception as e:
             raise ElementError(self.name, f"invoke failed: {e}") from e
         self._invoke_count += 1
+        if spans is not None:
+            # invoke decomposition: `dispatch` is the backend call until
+            # its (async) launches return; a device sync after it puts
+            # the device compute on the filter's device track. The sync
+            # is SAMPLED (1 in NNSTPU_TRACE_SYNC_SAMPLE invokes, default
+            # 4), so span mode does not serialize every invoke; unsampled
+            # compute lands in the window drain's `device-drain` span.
+            t_disp = time.perf_counter()
+            spans.emit("dispatch", "dispatch", t0, t_disp,
+                       args={"element": self.name, "frames": frames})
+            dev_outs = [o for o in outputs if is_backend_tensor(o)]
+            s = max(1, int(os.environ.get(
+                "NNSTPU_TRACE_SYNC_SAMPLE", "4") or 1))
+            sampled = (self._sync_sample_n % s) == 0
+            self._sync_sample_n += 1
+            if dev_outs and sampled:
+                _block_until_ready(dev_outs)
+                t_done = time.perf_counter()
+                spans.emit("device-compute", "compute", t_disp, t_done,
+                           track=f"device:{self.name}",
+                           args={"element": self.name, "sync_sample": s})
+                # the same interval on THIS thread as a `sync` span, so
+                # the roll-up carves it out of the chain's self time
+                spans.emit("device-sync", "sync", t_disp, t_done,
+                           args={"element": self.name, "sync_sample": s})
         if self._measuring():
-            dev = [o for o in outputs if is_device_array(o)]
-            if dev:
-                import torch
-
-                torch.cuda.synchronize(dev[0].device)
+            _block_until_ready(outputs)
             if self._invoke_count > 1:  # the first invoke builds; keep it out
-                self._latencies_us.append((time.perf_counter() - t0) * 1e6)
+                self._latencies_us.append(
+                    (time.perf_counter() - t0) * 1e6 / frames)
             self._out_times.append(time.monotonic())
         return outputs
 
+    # -- fetch window --------------------------------------------------------
     def _emit(self, buf: Buffer, tensors: List, outputs: List) -> FlowReturn:
         if not outputs:
             # backend signalled per-frame drop (tensor_filter.c:843-845)
             return FlowReturn.DROPPED
         # this package has no residency planner yet, so every downstream
-        # element is a host consumer and the window always engages
+        # element is a host consumer and the window engages whenever the
+        # outputs are the backend's tensors
         window = self._fetch_window_size()
         if window > 1 and (
-            any(is_device_array(o) for o in outputs) or self._fetch_pending
+            any(is_backend_tensor(o) for o in outputs)
+            # host outputs join a non-empty window too: bypassing it would
+            # emit them ahead of earlier outputs still being held
+            or self._fetch_pending
         ):
-            if not self.properties.get("output_combination"):
-                # held entries must not pin the stream's input frames
-                nb = buf.with_tensors([])
-                t_in = getattr(buf, "_nns_t_in", None)
-                if t_in is not None:
-                    nb._nns_t_in = t_in
-                buf, tensors = nb, []
-            self._fetch_pending.append((buf, tensors, outputs))
+            buf, tensors = self._strip_for_window(buf, tensors)
+            self._fetch_pending.append((None, buf, tensors, outputs))
+            self._fetch_t.append(time.perf_counter())
             if len(self._fetch_pending) < window:
                 return FlowReturn.OK
             return self._flush_fetch_window()
         return self._emit_now(buf, tensors, outputs)
 
+    def _strip_for_window(self, buf: Buffer, tensors):
+        """Held window entries must not pin the stream's input frames in
+        host memory; inputs are only needed after the flush when
+        output-combination passes them through."""
+        if self.properties.get("output_combination"):
+            return buf, tensors
+        nb = buf.with_tensors([])
+        t_in = getattr(buf, "_nns_t_in", None)
+        if t_in is not None:
+            nb._nns_t_in = t_in
+        return nb, []
+
     def _fetch_window_size(self) -> int:
         prop = str(self.properties.get("fetch_window", 1)).strip().lower()
+        if prop == "auto":
+            return self._auto_window
         if prop == "eos":
             return self._EOS_WINDOW_CAP
         return int(prop or 1)
 
+    def _retune_auto_window(self, k: int, t_block: float, t_fetch: float) -> None:
+        """fetch-window=auto: pick the window so the per-window fetch stays
+        a small fraction (``_AUTO_OVERHEAD``) of the window's buffer
+        period, moving at most a doubling or a halving per flush. While
+        the stream is saturated (no live consumer pacing it) auto holds
+        ``_AUTO_SATURATED_WINDOW``; once the feed idles between frames
+        the ratio rule resumes. The JAX package's rule, step for step."""
+        if str(self.properties.get("fetch_window", 1)).strip().lower() != "auto":
+            return
+        now = time.perf_counter()
+        flush_gap = (now - self._last_flush_t
+                     if self._last_flush_t is not None else None)
+        # per-buffer wall period: covers dispatch + H2D + compute + feed
+        # gaps, whichever dominates
+        period = max(t_block / max(k, 1), 1e-6)
+        if flush_gap is not None:
+            period = max(period, (flush_gap - t_fetch) / max(k, 1))
+        self._last_flush_t = now
+        if self._stream_saturated():
+            self._auto_window = self._AUTO_SATURATED_WINDOW
+            return
+        want = t_fetch / (self._AUTO_OVERHEAD * period)
+        target = max(1, min(self._AUTO_WINDOW_MAX, int(round(want))))
+        w = max(1, self._auto_window)
+        if target > w:
+            self._auto_window = min(target, w * 2)
+        else:
+            self._auto_window = max(target, w // 2, 1)
+
     def _flush_fetch_window(self) -> FlowReturn:
         """Bring every held window entry to the host in ONE batched
-        device→host transfer, then emit them in order."""
+        device→host transfer, then emit them in order.
+
+        Entries are ``(None, buf, tensors, outputs)`` (one frame) or
+        ``(rows, None, None, outputs)`` (a micro-batch: rows are
+        ``(buf, tensors)`` pairs and ``outputs`` the whole batched
+        results, split per row only after the transfer, so the window
+        moves a few batched tensors instead of one per frame)."""
         pending, self._fetch_pending = self._fetch_pending, []
+        stamps, self._fetch_t = self._fetch_t, []
+        tracer = (getattr(self.pipeline, "tracer", None)
+                  if self.pipeline else None)
+        if tracer is not None:
+            now = time.perf_counter()
+            for ts in stamps:
+                # window hold = parked time between invoke and emit
+                tracer.record_residency(f"fetch-window:{self.name}",
+                                        now - ts)
         if not pending:
             return FlowReturn.OK
-        flat = materialize_tensors([o for _, _, outs in pending for o in outs])
-        k = 0
+        flat = [o for _, _, _, outputs in pending for o in outputs
+                if is_backend_tensor(o)]
+        fetched = iter(())
+        if flat:
+            got, dt_block, dt_fetch = self._drain_and_fetch(
+                flat, window=len(pending))
+            fetched = iter(got)
+            # retune in window ENTRIES (one entry is a whole batch on the
+            # micro-batch path)
+            self._retune_auto_window(len(pending), dt_block, dt_fetch)
         ret = FlowReturn.OK
-        for buf, tensors, outs in pending:
-            host = flat[k:k + len(outs)]
-            k += len(outs)
-            ret = self._emit_now(buf, tensors, host)
-            if ret not in (FlowReturn.OK, FlowReturn.DROPPED):
-                return ret
+        for rows, buf, tensors, outputs in pending:
+            outs = [next(fetched) if is_backend_tensor(o) else o
+                    for o in outputs]
+            if rows is None:
+                ret = self._emit_now(buf, tensors, outs)
+                if ret not in (FlowReturn.OK, FlowReturn.DROPPED):
+                    return ret
+                continue
+            for k, (rbuf, rtensors) in enumerate(rows):
+                ret = self._emit_now(rbuf, rtensors,
+                                     [o[k:k + 1] for o in outs])
+                if ret not in (FlowReturn.OK, FlowReturn.DROPPED):
+                    return ret
         return ret
+
+    def _drain_and_fetch(self, flat: List, always_drain: bool = True,
+                         window: Optional[int] = None):
+        """THE device→host drain + fetch every materialization site calls
+        (window flush, sync / invoke-dynamic materialization): waits once
+        for the newest output's stream (skipped when ``always_drain`` is
+        False and spans are off — the fetch's own wait suffices), brings
+        ``flat`` over in ONE batched transfer and bills the d2h crossing.
+        Returns ``(fetched, block_seconds, fetch_seconds)``."""
+        spans = self._spans()
+        t0 = time.perf_counter()
+        if always_drain or spans is not None:
+            _block_until_ready(flat[-1:])
+        t1 = time.perf_counter()
+        if spans is not None:
+            spans.emit("device-drain", "compute", t0, t1,
+                       track=f"device:{self.name}",
+                       args={"element": self.name})
+            spans.emit("drain-sync", "sync", t0, t1,
+                       args={"element": self.name})
+        fetched = materialize_tensors(flat)
+        t2 = time.perf_counter()
+        flat_bytes = nbytes_of(flat)
+        self._record_crossing("d2h", nbytes=flat_bytes)
+        if spans is not None:
+            args = {"element": self.name, "nbytes": flat_bytes}
+            if window is not None:
+                args["window"] = window
+            spans.emit("d2h", "d2h", t1, t2, args=args)
+        return fetched, t1 - t0, t2 - t1
+
+    def _materialize_outputs(self, outputs: List) -> List:
+        """ONE batched device→host fetch for every backend tensor in
+        ``outputs``."""
+        flat = [o for o in outputs if is_backend_tensor(o)]
+        if not flat:
+            return outputs
+        got, _, _ = self._drain_and_fetch(flat, always_drain=False)
+        fetched = iter(got)
+        return [next(fetched) if is_backend_tensor(o) else o for o in outputs]
 
     def _emit_now(self, buf: Buffer, tensors: List, outputs: List) -> FlowReturn:
         # output-combination (:850-869): 'iN' passthrough input N, 'oN' output N
@@ -394,9 +809,15 @@ class TensorFilter(Element):
                 else:
                     outs.append(outputs[int(tok[1:]) if tok.startswith("o") else int(tok)])
             outputs = outs
-        if self.properties.get("sync"):
-            # sync=1: materialize on THIS streaming thread
-            outputs = materialize_tensors(outputs)
+        if self.properties.get("sync") or self.properties.get("invoke_dynamic"):
+            # materialize on THIS streaming thread: sync=1 asks for it,
+            # and invoke-dynamic's flexible outputs are host bytes
+            outputs = self._materialize_outputs(outputs)
+        if self.properties.get("invoke_dynamic"):
+            # flexible output: wrap each tensor with a meta header (:906-917)
+            outputs = [meta_mod.wrap_flexible(
+                a, TensorInfo.from_np_shape(a.shape, a.dtype))
+                for a in (np.asarray(o) for o in outputs)]
         t_in = getattr(buf, "_nns_t_in", None)
         if t_in is not None:
             self._e2e_us.append((time.monotonic() - t_in) * 1e6)
@@ -404,8 +825,98 @@ class TensorFilter(Element):
         out_buf.meta["residency"] = residency_of(outputs)
         return self.push(out_buf)
 
+    # -- micro-batching ----------------------------------------------------
+    def _flush_batch(self, batch: int) -> FlowReturn:
+        """Invoke once over the pending frames, split results back per
+        frame (timestamps/meta preserved).
+
+        Frames with a leading batch dim of 1 are concatenated along it;
+        frames without one (a converter's single frame, the caps shape
+        verbatim) are stacked on a new axis. A partial batch is padded by
+        repeating the last frame so every invoke sees ONE input shape (one
+        build), and the padded rows are dropped after the invoke."""
+        pending, self._pending = self._pending, []
+        if not pending:
+            return FlowReturn.OK
+        for _, _, inp in pending:
+            for t in inp:
+                if len(_shape(t)) == 0:
+                    raise ElementError(
+                        self.name, "batch-size > 1 cannot batch scalar frames")
+        pad_frames = batch - len(pending) if len(pending) < batch else 0
+        spans = self._spans()
+        t_asm = time.perf_counter() if spans is not None else 0.0
+        stacked = []
+        for j in range(len(pending[0][2])):
+            parts = [p[2][j] for p in pending]
+            parts.extend([pending[-1][2][j]] * pad_frames)
+            if all(_shape(t) and _shape(t)[0] == 1 for t in parts):
+                stacked.append(concat_tensors(parts))
+            else:
+                stacked.append(stack_tensors(parts))
+        if spans is not None:
+            # micro-batch assembly (concat/stack + padding): the
+            # `batching_padding` leg of the host-stack attribution
+            spans.emit("batch-assemble", "batch", t_asm,
+                       time.perf_counter(),
+                       args={"element": self.name, "rows": len(pending),
+                             "pad": pad_frames})
+        if self._feed_depth() > 1:
+            # upload window: the assembled batch prefetches as ONE entry
+            # and invokes when the in-flight queue fills
+            return self._feed(pending, None, None, stacked)
+        try:
+            outputs = self._invoke(stacked, frames=len(pending))
+        except Exception:
+            # the rows survive the failure into the element's on-error
+            # policy: retry re-invokes the SAME batch, drop loses exactly
+            # the trigger frame
+            kind, _ = self.error_policy()
+            self._pending = (pending if kind in ("retry", "restart")
+                             else pending[:-1])
+            raise
+        return self._emit_batch_rows(pending, outputs)
+
+    def _emit_batch_rows(self, pending: List[tuple], outputs: List) -> FlowReturn:
+        """Post-invoke half of the micro-batch path (shared with the
+        upload-window pop): hold the BATCHED outputs as one fetch-window
+        entry, or split them back one row per frame (padded tail rows are
+        dropped). Rows of a device output are views into the one batched
+        tensor."""
+        if not outputs:
+            return FlowReturn.DROPPED
+        window = self._fetch_window_size()
+        if window > 1 and (
+            any(is_backend_tensor(o) for o in outputs) or self._fetch_pending
+        ):
+            rows = [self._strip_for_window(b, t) for b, t, _ in pending]
+            self._fetch_pending.append((rows, None, None, outputs))
+            self._fetch_t.append(time.perf_counter())
+            if len(self._fetch_pending) < window:
+                return FlowReturn.OK
+            return self._flush_fetch_window()
+        if self.properties.get("sync") or self.properties.get("invoke_dynamic"):
+            # one batched fetch before the split, not one per row
+            outputs = self._materialize_outputs(outputs)
+        ret = FlowReturn.OK
+        for k, (buf, tensors, _) in enumerate(pending):
+            ret = self._emit(buf, tensors, [o[k:k + 1] for o in outputs])
+            if ret not in (FlowReturn.OK, FlowReturn.DROPPED):
+                break
+        return ret
+
     def on_eos(self) -> None:
+        if self._flush_timer is not None:
+            self._flush_timer.cancel()
         with self._window_lock:
+            self._flush_timer = None
+            # order matters: a partial micro-batch may enter the upload
+            # window, whose drained invokes may enter the fetch window —
+            # flush upstream-most first so nothing strands in flight
+            if self._pending:
+                self._flush_batch(self._batch_size())
+            if self._feed_pending:
+                self._drain_feed()
             if self._fetch_pending:
                 self._flush_fetch_window()
 

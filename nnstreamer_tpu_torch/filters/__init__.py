@@ -5,4 +5,7 @@
 from nnstreamer_tpu_torch.filters.base import (  # noqa: F401
     FilterFramework,
     FilterProperties,
+    PrefetchedInputs,
+    register_custom_easy,
+    unregister_custom_easy,
 )

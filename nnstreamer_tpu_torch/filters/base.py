@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from nnstreamer_tpu_torch import registry
 from nnstreamer_tpu_torch.analysis import lockwitness
@@ -42,6 +42,9 @@ class FilterProperties:
     output_info: Optional[TensorsInfo] = None
     shared_key: Optional[str] = None  # shared-tensor-filter-key (:544-590)
     invoke_dynamic: bool = False  # flexible output per invoke (:135 invoke-dynamic)
+    #: the element's upload window (``feed-depth``): how many prefetched
+    #: inputs it keeps in flight, which sizes a backend's staging ring
+    feed_depth: int = 1
 
     @property
     def model_file(self) -> Optional[str]:
@@ -76,6 +79,20 @@ class FilterStatistics:
             self.total_invoke_num += 1
             self.total_invoke_latency_us += int(invoke_us)
             self.total_overhead_latency_us += int(overhead_us)
+
+
+class PrefetchedInputs(list):
+    """Inputs a backend's :meth:`FilterFramework.prefetch` started to
+    upload, passed back to ``invoke()`` in place of the host inputs. It
+    IS the input sequence (list subclass), so backends that ignore the
+    upload window keep working unchanged. ``donatable`` marks buffers the
+    prefetch itself created (no other element holds them); a backend may
+    attach what its invoke needs to consume them (the CUDA backend: the
+    copy's event)."""
+
+    def __init__(self, arrays, donatable: bool = False):
+        super().__init__(arrays)
+        self.donatable = donatable
 
 
 class FilterFramework:
@@ -122,6 +139,19 @@ class FilterFramework:
         input_info; outputs likewise. May return device-resident tensors
         when ASYNC."""
         raise NotImplementedError
+
+    def prefetch(self, inputs: Sequence[Any]) -> Optional[PrefetchedInputs]:
+        """Optional upload-window hook (the input-side mirror of the
+        element's fetch-window): START a non-blocking host→device transfer
+        for ``inputs`` NOW and return a handle that a later ``invoke()``
+        consumes without a second copy. The element's ``feed-depth=N``
+        keeps up to N handles in flight, so a batch's upload overlaps the
+        compute of the batches before it.
+
+        Return None to decline — the element then invokes inline. Must
+        NOT block on the transfer; the backend's invoke orders its compute
+        after it. Base: no prefetch support."""
+        return None
 
     def compile_stats(self) -> dict:
         """Build counters (the counterpart of the JAX backend's jit trace
@@ -259,3 +289,45 @@ def release_framework(fw: FilterFramework, shared_key: Optional[str] = None) -> 
                     return
                 del _shared_table[shared_key]
     fw.close()
+
+
+# --- custom-easy: in-process callable filters ------------------------------
+class _CustomEasyFramework(FilterFramework):
+    """Wraps a registered python callable
+    (NNS_custom_easy_register parity, tensor_filter_custom_easy.h:62)."""
+
+    NAME = "custom-easy"
+
+    def __init__(self, fn: Callable, in_info: TensorsInfo,
+                 out_info: TensorsInfo):
+        super().__init__()
+        self._fn = fn
+        self._in = in_info
+        self._out = out_info
+
+    def get_model_info(self):
+        return self._in, self._out
+
+    def invoke(self, inputs):
+        out = self._fn(inputs)
+        return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def register_custom_easy(
+    name: str,
+    fn: Callable[[Sequence[Any]], Sequence[Any]],
+    in_info: TensorsInfo,
+    out_info: TensorsInfo,
+) -> None:
+    """NNS_custom_easy_register: expose ``fn`` as filter model ``name`` for
+    ``tensor_filter framework=custom-easy model=<name>``. (The JAX
+    package's ``replica_safe`` flag waits for the replica pool.)"""
+
+    def factory():
+        return _CustomEasyFramework(fn, in_info, out_info)
+
+    registry.register(registry.CUSTOM_FILTER, name)(factory)
+
+
+def unregister_custom_easy(name: str) -> bool:
+    return registry.unregister(registry.CUSTOM_FILTER, name)

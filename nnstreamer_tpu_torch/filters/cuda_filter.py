@@ -11,6 +11,12 @@ a card that is asked for and absent makes ``open`` raise.
   - **async**: ``invoke`` enqueues CUDA work and returns CUDA tensors
     without synchronising; the element's fetch window or the sink
     materializes them;
+  - **upload window**: ``prefetch`` (the element's ``feed-depth`` > 1)
+    copies each host input into one of ``feed-depth + 1`` page-locked
+    staging buffers, allocated once per shape and dtype and reused, and
+    starts its upload on a dedicated copy stream; ``invoke`` makes the
+    compute stream wait for that copy's event. A staging buffer is
+    rewritten only after its last upload completed;
   - **on-device postproc**: ``custom=postproc:argmax|top1|softmax`` runs on
     the device, so only the small result crosses to the host;
   - **build counter**: one count per new input signature, the counterpart
@@ -33,7 +39,11 @@ import torch
 
 from nnstreamer_tpu_torch import registry
 from nnstreamer_tpu_torch.buffer import dtype_name
-from nnstreamer_tpu_torch.filters.base import FilterFramework, FilterProperties
+from nnstreamer_tpu_torch.filters.base import (
+    FilterFramework,
+    FilterProperties,
+    PrefetchedInputs,
+)
 from nnstreamer_tpu_torch.models import ModelBundle, get_model
 from nnstreamer_tpu_torch.types import TensorInfo, TensorsInfo
 
@@ -90,6 +100,43 @@ def pick_device(accelerator: str) -> torch.device:
     return torch.device("cuda")
 
 
+class _StagingRing:
+    """Page-locked host staging for the upload window: per (shape, dtype),
+    ``slots`` pinned buffers used round robin, each with the CUDA event of
+    the last upload that read it. :meth:`upload` waits for a slot's event
+    before it rewrites the slot, copies the host array in (host time),
+    and starts the non-blocking device copy on the copy stream."""
+
+    def __init__(self, device: torch.device, slots: int):
+        self.device = device
+        self.slots = max(2, int(slots))
+        self.stream = torch.cuda.Stream(device)
+        self._rings: Dict[tuple, list] = {}  # key -> [next, [(buf, evt)]]
+
+    def upload(self, x: np.ndarray) -> Tuple[torch.Tensor, Any]:
+        x = np.ascontiguousarray(x)
+        key = (x.shape, x.dtype.str)
+        ring = self._rings.get(key)
+        if ring is None:
+            src = torch.from_numpy(x)
+            ring = self._rings[key] = [0, [
+                (torch.empty(src.shape, dtype=src.dtype, pin_memory=True),
+                 None) for _ in range(self.slots)]]
+        i = ring[0]
+        ring[0] = (i + 1) % self.slots
+        buf, evt = ring[1][i]
+        if evt is not None:
+            evt.synchronize()  # the slot's previous upload has read it
+        np.copyto(buf.numpy(), x)
+        with torch.cuda.stream(self.stream):
+            dev = torch.empty(buf.shape, dtype=buf.dtype, device=self.device)
+            dev.copy_(buf, non_blocking=True)
+            evt = torch.cuda.Event()
+            evt.record(self.stream)
+        ring[1][i] = (buf, evt)
+        return dev, evt
+
+
 class TorchCudaFilter(FilterFramework):
     NAME = "torch_cuda"
     ASYNC = True
@@ -105,6 +152,7 @@ class TorchCudaFilter(FilterFramework):
         # input signatures seen so far: a new one counts one build, the
         # counterpart of the JAX backend's jit trace counter
         self._signatures: set = set()
+        self._staging: Optional[_StagingRing] = None
 
     # -- open/close --------------------------------------------------------
     def open(self, props: FilterProperties) -> None:
@@ -125,10 +173,12 @@ class TorchCudaFilter(FilterFramework):
         self._postproc_name = custom.get("postproc")
         self._bundle = get_model(model, custom, self._device)
         self._signatures = set()
+        self._staging = None
 
     def close(self) -> None:
         self._bundle = None
         self._postproc = None
+        self._staging = None
         super().close()
 
     # -- model info --------------------------------------------------------
@@ -156,9 +206,48 @@ class TorchCudaFilter(FilterFramework):
         return torch.from_numpy(np.ascontiguousarray(np.asarray(x))).to(
             self._device, non_blocking=True)
 
+    def prefetch(self, inputs: Sequence[Any]) -> PrefetchedInputs:
+        """Start every host input's upload NOW (see the module docstring):
+        pinned staging, a copy stream, one event per input. Tensors
+        already on the device pass through. On the CPU the handle holds
+        the inputs as tensors (there is nothing to copy)."""
+        if self._device.type != "cuda":
+            return PrefetchedInputs([self._to_device(x) for x in inputs],
+                                    donatable=True)
+        if self._staging is None:
+            self._staging = _StagingRing(
+                self._device, int(self.props.feed_depth) + 1)
+        xs, events = [], []
+        for x in inputs:
+            if isinstance(x, torch.Tensor):
+                xs.append(x.to(self._device, non_blocking=True))
+                continue
+            dev, evt = self._staging.upload(np.asarray(x))
+            xs.append(dev)
+            events.append(evt)
+        handle = PrefetchedInputs(xs, donatable=True)
+        handle.events = events
+        return handle
+
+    def _consume(self, handle: PrefetchedInputs) -> List[torch.Tensor]:
+        """The compute stream waits for the handle's uploads, and each
+        uploaded tensor is marked used on it: it was allocated on the copy
+        stream, and without the mark the caching allocator could hand its
+        memory to the next upload while the model still reads it."""
+        compute = torch.cuda.current_stream(self._device)
+        for evt in getattr(handle, "events", ()):
+            compute.wait_event(evt)
+        for x in handle:
+            if x.is_cuda:
+                x.record_stream(compute)
+        return list(handle)
+
     def invoke(self, inputs: Sequence[Any]) -> List[Any]:
         t0 = time.perf_counter()
-        xs = [self._to_device(x) for x in inputs]
+        if isinstance(inputs, PrefetchedInputs) and self._device.type == "cuda":
+            xs = self._consume(inputs)
+        else:
+            xs = [self._to_device(x) for x in inputs]
         self._signatures.add(tuple((tuple(x.shape), dtype_name(x)) for x in xs))
         with torch.inference_mode():
             out = self._bundle.apply_fn(*xs)

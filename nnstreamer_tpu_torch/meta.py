@@ -26,7 +26,8 @@ Sparse payload (tensor_typedef.h:294-297, gsttensor_sparseutil.c:21-110):
 from __future__ import annotations
 
 import struct
-from typing import Tuple
+from dataclasses import dataclass, field
+from typing import List, Tuple
 
 import numpy as np
 
@@ -39,6 +40,62 @@ from nnstreamer_tpu_torch.types import (
 
 META_MAGIC = 0x54505553
 META_VERSION = 1
+
+# --- nntrace per-buffer span context (GstMeta-style attachment) -----------
+
+#: Buffer.meta key carrying the TraceContext — lives alongside the
+#: residency tag ("residency") the device lane stamps; rewraps
+#: (Buffer.with_tensors) copy meta, so the context follows the frame
+#: through transforms/filters.
+TRACE_CTX_META = "trace_ctx"
+
+
+@dataclass
+class TraceContext:
+    """Per-buffer nntrace span context: the buffer's stable id plus the
+    monotonic stack of spans currently open ON this buffer (name, t0
+    entries — pushed as each traced chain enters, discarded on exit).
+    A buffer crossing a queue is visible to two streaming threads at
+    once (upstream's exit races downstream's entry), so exits discard
+    their OWN entry rather than LIFO-popping — list append/remove are
+    GIL-atomic, and the stack reliably drains to empty once every chain
+    holding the buffer returns. Allocated ONLY when span tracing is
+    enabled; the hot path without spans never touches it
+    (guard-tested)."""
+
+    buffer_id: int
+    stack: List[Tuple[str, float]] = field(default_factory=list)
+
+    def push(self, name: str, t0: float) -> Tuple[str, float]:
+        entry = (name, t0)
+        self.stack.append(entry)
+        return entry
+
+    def discard(self, entry: Tuple[str, float]) -> None:
+        try:
+            self.stack.remove(entry)
+        except ValueError:
+            pass  # already removed (defensive: double-exit)
+
+    @property
+    def depth(self) -> int:
+        return len(self.stack)
+
+
+def ensure_trace_ctx(buf) -> TraceContext:
+    """The buffer's TraceContext, created on first use (span mode only —
+    call sites gate on the tracer's span ring being enabled). Foreign
+    buffers without a meta dict get a throwaway context (spans still
+    emit, the context just doesn't ride the buffer)."""
+    meta = getattr(buf, "meta", None)
+    if not isinstance(meta, dict):
+        return TraceContext(buffer_id=int(getattr(buf, "seqnum", 0)))
+    ctx = meta.get(TRACE_CTX_META)
+    if ctx is None:
+        ctx = TraceContext(buffer_id=int(getattr(buf, "seqnum", 0)))
+        meta[TRACE_CTX_META] = ctx
+    return ctx
+
 
 _HEADER_FMT = "<5I16I3I"
 HEADER_SIZE = struct.calcsize(_HEADER_FMT)  # 96

@@ -51,6 +51,7 @@ def _load_builtins() -> None:
     import importlib
 
     importlib.import_module("nnstreamer_tpu_torch.models.mobilenet_v2")
+    importlib.import_module("nnstreamer_tpu_torch.models.simple")
     importlib.import_module("nnstreamer_tpu_torch.models.vit")
 
 

@@ -19,6 +19,7 @@ import itertools
 import time
 from typing import Dict, List, Optional, Type
 
+from nnstreamer_tpu_torch import meta as meta_mod
 from nnstreamer_tpu_torch.analysis import lockwitness
 from nnstreamer_tpu_torch.analysis.schema import Prop
 from nnstreamer_tpu_torch.buffer import Buffer, Event
@@ -349,13 +350,68 @@ class Element:
 
     # -- dataflow hooks ----------------------------------------------------
     def _chain_guard(self, pad: Pad, buf: Buffer) -> FlowReturn:
-        """Chain wrapper: the error-policy dispatcher. Any exception
-        escaping chain() is routed through the element's ``on-error``
-        policy instead of unwinding the pusher's stack."""
+        """Chain wrapper: tracing plus the error-policy dispatcher. Any
+        exception escaping chain() is routed through the element's
+        ``on-error`` policy instead of unwinding the pusher's stack."""
         try:
-            return self.chain(pad, buf)
+            return self._chain_traced(pad, buf)
         except Exception as e:  # noqa: BLE001 — policy decides, not the stack
             return self._dispatch_error(pad, buf, e)
+
+    def _spans(self):
+        """The pipeline tracer's span flight-recorder, or None (spans off
+        or untraced) — the single cheap gate every span site checks (two
+        attribute reads when tracing is off)."""
+        p = self.pipeline
+        if p is None:
+            return None
+        t = p.tracer
+        return t.spans if t is not None else None
+
+    def _chain_traced(self, pad: Pad, buf: Buffer) -> FlowReturn:
+        tracer = getattr(self.pipeline, "tracer", None) if self.pipeline else None
+        if tracer is None:
+            return self.chain(pad, buf)
+        t0 = time.perf_counter()
+        # GstShark-interlatency role: stamp the buffer at its first
+        # traced chain; downstream chains record their age relative
+        # to it (rewrapping elements restart the clock — documented
+        # on Tracer.record_interlatency)
+        born = getattr(buf, "_nns_born_t", None)
+        if born is None:
+            try:
+                buf._nns_born_t = t0
+            except AttributeError:
+                pass  # slotted/foreign buffer: skip interlatency
+        else:
+            tracer.record_interlatency(self.name, t0 - born)
+        spans = tracer.spans
+        if spans is None:
+            ret = self.chain(pad, buf)
+            tracer.record_chain(self.name, t0, time.perf_counter())
+            return ret
+        # span mode: a per-buffer context (buffer id + open-span stack)
+        # rides the meta dict, and the chain itself becomes a span on
+        # this streaming thread's track — downstream chains that run
+        # inline on the same thread nest inside it
+        ctx = meta_mod.ensure_trace_ctx(buf)
+        entry = ctx.push(self.name, t0)
+        try:
+            ret = self.chain(pad, buf)
+        finally:
+            t1 = time.perf_counter()
+            # depth BEFORE discarding this entry: how many chains held
+            # the buffer while this one ran (queue hand-offs overlap) —
+            # the span-stack readout that rides into the trace args
+            depth = ctx.depth
+            ctx.discard(entry)
+            # emitted even when chain raises: a flight recorder that
+            # loses the crashing span is useless for the crash
+            spans.emit(self.name, "chain", t0, t1,
+                       args={"buf": ctx.buffer_id, "depth": depth})
+        tracer.record_chain(self.name, t0, t1)
+        return ret
+
 
     # -- error-policy runtime ---------------------------------------------
     #: first retry backoff; doubles per attempt (`retry-backoff-ms` prop)
@@ -368,10 +424,13 @@ class Element:
         return parse_error_policy(self.properties.get("on_error"))
 
     def _note_fault(self, action: str, err: Exception, **detail) -> None:
-        """Attribute a fault to this element on the bus record
+        """Attribute a fault to this element on the bus record and tracer
         (degradation is visible, never silent)."""
         if self.pipeline is None:
             return
+        tracer = getattr(self.pipeline, "tracer", None)
+        if tracer is not None:
+            tracer.record_fault(self.name, action)
         self.pipeline.bus.record_fault(self.name, action=action,
                                        error=err, **detail)
 
@@ -458,6 +517,20 @@ class Element:
         if not self.src_pads:
             return FlowReturn.OK
         return self.src_pads[pad_index].push(buf)
+
+    def _record_crossing(self, direction: str, n: int = 1,
+                         nbytes: int = 0, devices: int = 1) -> None:
+        """Attribute ``n`` link crossings ('h2d' | 'd2h') to this element
+        on the pipeline tracer. One pipelined multi-array transfer = one
+        crossing (the link bills round trips, not arrays); ``nbytes`` is
+        the payload it moved (buffer.nbytes_of over the transferred
+        arrays). ``devices`` > 1 marks a mesh-sharded transfer: the payload
+        splits evenly across that many shards, and the tracer banks the
+        per-device bytes alongside the total."""
+        tracer = getattr(self.pipeline, "tracer", None) if self.pipeline else None
+        if tracer is not None:
+            tracer.record_crossing(self.name, direction, n, nbytes=nbytes,
+                                   devices=devices)
 
     # -- negotiation hooks -------------------------------------------------
     def _on_sink_caps(self, pad: Pad, caps: Caps) -> None:

@@ -8,6 +8,7 @@ element messages) to the application thread.
 
 from __future__ import annotations
 
+import os
 import queue as _queue
 import threading
 import time
@@ -15,6 +16,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+from nnstreamer_tpu_torch import meta as meta_mod
 from nnstreamer_tpu_torch.analysis import lockwitness
 from nnstreamer_tpu_torch.buffer import Event
 from nnstreamer_tpu_torch.log import ElementError, get_logger
@@ -134,6 +136,7 @@ class Pipeline:
         self._sources_done = 0
         self._n_sources = 0
         self._n_sinks = 0
+        self.tracer = None  # set by trace.attach()
         self._abort_lock = lockwitness.make_lock("pipeline.abort")
         self._aborting = False
 
@@ -196,6 +199,14 @@ class Pipeline:
             for e in order:
                 e.change_state(target)
             if target == State.PLAYING:
+                # NNSTPU_TRACE_SPANS=1 with no tracer attached: auto-attach
+                # a span-enabled one, so the env var alone turns the span
+                # flight-recorder on (trace.attach is idempotent — an
+                # app-attached tracer just gains spans)
+                from nnstreamer_tpu_torch import trace as _trace
+
+                if os.environ.get(_trace.SPAN_ENV, "") == "1":
+                    _trace.attach(self, spans=True)
                 # the JAX package runs its fusion/residency planner here;
                 # this package has none yet, so every pad stays unplanned
                 # (device buffers flow, host consumers materialize)
@@ -305,6 +316,9 @@ class Pipeline:
             return
         consec_errors = 0
         while self._running.is_set():
+            tracer = self.tracer
+            spans = tracer.spans if tracer is not None else None
+            t_produce = time.perf_counter() if spans is not None else 0.0
             try:
                 buf = src.create()
             except Exception as e:  # noqa: BLE001 — source's on-error policy
@@ -318,6 +332,15 @@ class Pipeline:
                     return  # teardown unblock, not a real end-of-stream
                 self._send_src_eos(src)
                 return
+            if spans is not None:
+                # source-produce span: create() wall time, including any
+                # wait for data (appsrc pop) — the buffer acquires its
+                # trace context here, at the stream's true origin
+                ctx = meta_mod.ensure_trace_ctx(buf)
+                spans.emit(src.name, "source", t_produce,
+                           time.perf_counter(),
+                           args={"buf": ctx.buffer_id})
+            t_push = time.perf_counter() if spans is not None else 0.0
             try:
                 ret = src.push(buf)
             except ElementError as e:
@@ -327,6 +350,15 @@ class Pipeline:
                 log.exception("source %s crashed pushing", src.name)
                 self.post_fatal(src.name, e)
                 return
+            finally:
+                if spans is not None:
+                    # the source's push into the graph: downstream chain
+                    # spans nest inside, so this span's SELF time is the
+                    # per-frame pad/dispatch plumbing no chain owns
+                    # (attributed to python_dispatch in the roll-up)
+                    spans.emit("src-emit", "emit", t_push,
+                               time.perf_counter(),
+                               args={"element": src.name})
             if ret == FlowReturn.ERROR:
                 # downstream already dispatched its own policy (abort posts
                 # the attributed fatal) — don't double-post, just stop

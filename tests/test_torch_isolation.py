@@ -90,3 +90,37 @@ def test_scan_tells_the_packages_apart():
     assert not _forbidden("nnstreamer_tpu_torch.ops")
     assert not _forbidden("nnstreamer_tpu_torch")
     assert not _forbidden("jaxtyping")
+
+
+#: the modules of the slice that brought the tracer, the platform probe,
+#: the test models and filters and the rest of the basic elements
+SLICE_MODULES = (
+    "nnstreamer_tpu_torch.trace",
+    "nnstreamer_tpu_torch.platform",
+    "nnstreamer_tpu_torch.meta",
+    "nnstreamer_tpu_torch.models.simple",
+    "nnstreamer_tpu_torch.filters.base",
+    "nnstreamer_tpu_torch.filters.custom_easy",
+    "nnstreamer_tpu_torch.filters.passthrough",
+    "nnstreamer_tpu_torch.filters.cuda_filter",
+    "nnstreamer_tpu_torch.elements.basic",
+    "nnstreamer_tpu_torch.elements.filter",
+)
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_module_alone_loads_no_jax(module):
+    """Each module, imported alone in a fresh interpreter, pulls in
+    neither JAX nor the JAX package (the walk above imports them all
+    together, so an import one of them makes would hide behind another)."""
+    probe = (f"import sys, {module}\n"
+             "print(sorted(k for k in sys.modules if k in ('jax', 'flax', "
+             "'nnstreamer_tpu') or k.startswith(('jax.', 'jaxlib', 'flax.', "
+             "'nnstreamer_tpu.'))))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    path = os.path.join(ROOT, *module.split(".")) + ".py"
+    assert not [m for _, m in _imports(path) if _forbidden(m)]
