@@ -21,7 +21,11 @@ Phases, each printing one JSON line:
              the same block as three cuDNN convolutions
              (inverted_residual_conv, timed only: cudnn_chain_ms), then a
              float32 row, a prime 113x113 row and a row summing the 13
-             blocks (its bound is the sum of the per-block bounds);
+             blocks (its bound is the sum of the per-block bounds); then
+             the same rows at every stride-1 block shape of SSD-MobileNet
+             -v2 at 300 px (13, batch 32) and DeepLab-v3 at 257 px (10,
+             batch 16) with a sum per model, and normalize_u8 at the four
+             vision lines' frames, bit-equal to its plain version;
   stride2    the 4 stride-2 blocks as the main path runs them
              (inverted_residual_conv) against the plain version they ran
              before, both timed;
@@ -95,6 +99,32 @@ Phases, each printing one JSON line:
              128 frames per tensor): 6 flash_attention launches and 1
              normalize_u8 launch per forward, logits against the plain
              twin, frames per second and p50 batch latency;
+  detect     the SSD line at full width (300x300 RGB, width 1.0, 91
+             classes, 1917 anchors, fused:pallas, 32 frames per tensor)
+             into bounding_boxes mobilenet-ssd with split-batch=32: one
+             RGBA overlay per frame, the fused block launched 13 times and
+             normalize_u8 once per forward, boxes and scores against the
+             plain forward (the kernel's plain version in its place) held
+             to the bf16 noise floor (the fused:xla forward's distance
+             from the same plain forward: the kernel's mean distance at
+             most half of it, its max distance and per-anchor class
+             agreement no worse), the float32 forward's distance
+             reported, frames/s and p50 batch latency; then the
+             postproc:pp line into mobilenet-ssd-postprocess: its quads
+             bit-equal to the post-process of the kernel forward's raw
+             outputs, and their near agreement with the plain forward's
+             quads no worse than the fused:xla forward's;
+  segment    the DeepLab line (257x257, width 1.0, 21 classes, 16 frames
+             per tensor) into image_segment tflite-deeplab: 10 fused-block
+             launches and 1 normalize_u8 per forward, logits and per-pixel
+             classes held to the noise floor as in detect, frames/s; the
+             SSD and DeepLab lines each get a profile line of 4 more
+             batches (device time by kernel, idle share);
+  vision     PoseNet (257 px, 17 keypoints) into pose_estimation
+             heatmap-offset and YOLOv8 (320 px, width 0.25, depth 0.34, 80
+             classes) into bounding_boxes yolov8, 16 frames per tensor:
+             output shapes, finiteness, one overlay per frame, one
+             normalize_u8 per forward, frames/s;
 
   upload     the flagship line (fetch-window=4) at feed-depth 1, 2 and 4,
              each run twice (1, 2, 4, 4, 2, 1): frames per second per run
@@ -411,6 +441,52 @@ FUSED_TOL = 2.0 ** -6
 STRIDE2_TOL = 2.0 ** -4
 
 
+def _fused_row(torch, B, H, W, fw, gen, **label):
+    """One block shape: the kernel against its plain version at batch B
+    on random bf16 input, with its plan, registers, shared memory, CTAs
+    per SM, times (kernel, profiler device, plain, the three-cuDNN-call
+    chain) and bound. Emits the row; raises if the kernel disagrees."""
+    from nnstreamer_tpu_torch.ops.fused_block import (
+        _plan_tiles,
+        cast_folded,
+        fused_inverted_residual,
+        fused_kernel_attributes,
+        inverted_residual_conv,
+        inverted_residual_plain,
+    )
+
+    fwc = cast_folded(fw, torch.bfloat16, "cuda")
+    fwx = cast_folded(fw, torch.bfloat16, "cuda", torch.bfloat16)
+    Cin = fwc["w1"].shape[0] if "w1" in fwc else fwc["wd"].shape[1]
+    Ch, Cout = fwc["wd"].shape[1], fwc["w2"].shape[1]
+    x = torch.randn((B, H, W, Cin), generator=gen, device="cuda")
+    x = x.clamp(-3, 3).to(torch.bfloat16)
+    k = fused_inverted_residual(x, fwc)
+    p = inverted_residual_plain(x, fwc)
+    err = max_err(k, p)
+    ok = within(k, p, FUSED_TOL, FUSED_TOL)
+    plan = _plan_tiles(H, W, Cin, Ch, Cout, 2, "w1" in fwc)
+    row = {"kernel": "fused_inverted_residual", **label,
+           "shape": [B, H, W, Cin, Ch, Cout], "dtype": "bfloat16",
+           "max_abs_err": err, "atol": FUSED_TOL, "rtol": FUSED_TOL,
+           "ok": ok, "plan": plan._asdict(),
+           **fused_kernel_attributes(plan)}
+    row["ms"] = cuda_ms(lambda: fused_inverted_residual(x, fwc))
+    row["device_ms"] = device_ms(
+        torch, lambda: fused_inverted_residual(x, fwc), "fused_ir_")
+    row["plain_ms"] = cuda_ms(lambda: inverted_residual_plain(x, fwc),
+                              reps=10, warmup=2)
+    row["cudnn_chain_ms"] = cuda_ms(lambda: inverted_residual_conv(x, fwx))
+    nbytes, ops = _block_work(B, H, W, fwc)
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, "bfloat16")
+    row["tflops"] = ops / row["ms"] / 1e9
+    emit("kernel", **row)
+    if not ok:
+        raise AssertionError(f"fused block {label} at {row['shape']} "
+                             f"disagrees: {err}")
+    return row
+
+
 def check_fused_block(torch, results):
     from nnstreamer_tpu_torch.models.mobilenet_v2 import (
         MobileNetV2,
@@ -421,7 +497,6 @@ def check_fused_block(torch, results):
         cast_folded,
         fused_inverted_residual,
         fused_kernel_attributes,
-        inverted_residual_conv,
         inverted_residual_plain,
     )
 
@@ -436,40 +511,12 @@ def check_fused_block(torch, results):
     by = {"bytes": 0.0, "operations": 0.0}  # bound ms of each kind
     errs = []
     for i, H, W, fw in blocks:
-        fwc = cast_folded(fw, torch.bfloat16, "cuda")
-        fwx = cast_folded(fw, torch.bfloat16, "cuda", torch.bfloat16)
-        Cin = fwc["w1"].shape[0] if "w1" in fwc else fwc["wd"].shape[1]
-        Ch, Cout = fwc["wd"].shape[1], fwc["w2"].shape[1]
-        x = torch.randn((BATCH, H, W, Cin), generator=gen, device="cuda")
-        x = x.clamp(-3, 3).to(torch.bfloat16)
-        k = fused_inverted_residual(x, fwc)
-        p = inverted_residual_plain(x, fwc)
-        err = max_err(k, p)
-        ok = within(k, p, FUSED_TOL, FUSED_TOL)
-        plan = _plan_tiles(H, W, Cin, Ch, Cout, 2, "w1" in fwc)
-        row = {"kernel": "fused_inverted_residual", "block": i,
-               "shape": [BATCH, H, W, Cin, Ch, Cout], "dtype": "bfloat16",
-               "max_abs_err": err, "atol": FUSED_TOL, "rtol": FUSED_TOL,
-               "ok": ok, "plan": plan._asdict(),
-               **fused_kernel_attributes(plan)}
-        row["ms"] = cuda_ms(lambda: fused_inverted_residual(x, fwc))
-        row["device_ms"] = device_ms(
-            torch, lambda: fused_inverted_residual(x, fwc), "fused_ir_")
-        row["plain_ms"] = cuda_ms(lambda: inverted_residual_plain(x, fwc),
-                                  reps=10, warmup=2)
-        row["cudnn_chain_ms"] = cuda_ms(
-            lambda: inverted_residual_conv(x, fwx))
-        nbytes, ops = _block_work(BATCH, H, W, fwc)
-        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, "bfloat16")
-        row["tflops"] = ops / row["ms"] / 1e9
-        emit("kernel", **row)
-        if not ok:
-            raise AssertionError(f"fused block {i} disagrees: {err}")
+        row = _fused_row(torch, BATCH, H, W, fw, gen, block=i)
         for key in keys:  # a sum with a missing term is None
             tot[key] = None if tot[key] is None or row[key] is None \
                 else tot[key] + row[key]
         by[row["bound_by"]] += row["bound_ms"]
-        errs.append(err)
+        errs.append(row["max_abs_err"])
     # one shape in float32 against a float32 plain version (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -525,6 +572,7 @@ def check_fused_block(torch, results):
     emit("kernel", kernel="fused_inverted_residual", block="sum of 13",
          **results["fused_inverted_residual"])
     check_stride2(torch, model, gen)
+    check_vision_blocks(torch, results, gen)
 
 
 def check_stride2(torch, model, gen):
@@ -1570,6 +1618,423 @@ def check_vit(torch, results, workdir):
                              "forward")
 
 
+# -- the detection, segmentation and pose lines ----------------------------
+
+#: the four lines at full width (seed:0 weights from the port's numpy init):
+#: frame size, frames per tensor, and the model's own customs
+VISION = {
+    "ssd_mobilenet": {"size": 300, "fpt": 32, "custom": "classes:91"},
+    "deeplab_v3": {"size": 257, "fpt": 16, "custom": "classes:21"},
+    "posenet": {"size": 257, "fpt": 16, "custom": "keypoints:17"},
+    "yolov8": {"size": 320, "fpt": 16, "custom": "classes:80"},
+}
+#: batches per measured run of a line (after 2 warm-up batches)
+VISION_BATCHES = 8
+
+
+def _vision_model(name):
+    """The line's model at full width with the seed:0 weights its line
+    builds (the kernel rows' blocks)."""
+    import importlib
+
+    mod = importlib.import_module(f"nnstreamer_tpu_torch.models.{name}")
+    model = getattr(mod, {"ssd_mobilenet": "SSDMobileNetV2",
+                          "deeplab_v3": "DeepLabV3"}[name])()
+    mod.init_weights(model, 0)
+    return model
+
+
+def check_vision_blocks(torch, results, gen):
+    """The fused block at every stride-1 block shape of SSD (300 px,
+    batch 32) and DeepLab (257 px, batch 16), against its plain version,
+    each row with its plan, registers, shared memory, CTAs per SM, times,
+    bound and cuDNN chain; then normalize_u8 at the four lines' frames,
+    bit-equal to its plain version."""
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import kernel_block_shapes
+    from nnstreamer_tpu_torch.ops import normalize_u8, normalize_u8_plain
+    from nnstreamer_tpu_torch.ops.fused_block import fold_inverted_residual
+
+    keys = ("ms", "device_ms", "plain_ms", "cudnn_chain_ms", "bound_ms")
+    for name, want in (("ssd_mobilenet", 13), ("deeplab_v3", 10)):
+        cfg = VISION[name]
+        model = _vision_model(name)
+        shapes = kernel_block_shapes(model, cfg["size"])
+        if len(shapes) != want:
+            raise AssertionError(f"{name}: {len(shapes)} kernel blocks, "
+                                 f"expected {want}")
+        tot, errs = dict.fromkeys(keys, 0.0), []
+        for i, H, W, *_ in shapes:
+            row = _fused_row(torch, cfg["fpt"], H, W,
+                             fold_inverted_residual(model.blocks[i]), gen,
+                             model=name, block=i)
+            for key in keys:
+                tot[key] = None if tot[key] is None or row[key] is None \
+                    else tot[key] + row[key]
+            errs.append(row["max_abs_err"])
+        results[f"fused_{name}"] = dict(tot, max_abs_err=max(errs))
+        emit("kernel", kernel="fused_inverted_residual", model=name,
+             block=f"sum of {want}", batch=cfg["fpt"], **tot,
+             max_abs_err=max(errs))
+    for name, cfg in VISION.items():
+        s, fpt = cfg["size"], cfg["fpt"]
+        x = torch.randint(0, 256, (fpt, s, s, 3), generator=gen,
+                          device="cuda", dtype=torch.uint8)
+        scale = (1.0 / 255.0, 0.0) if name == "yolov8" else (1.0 / 127.5,
+                                                             -1.0)
+        k = normalize_u8(x, *scale, out_dtype=torch.bfloat16)
+        p = normalize_u8_plain(x, *scale, out_dtype=torch.bfloat16)
+        n = x.numel()
+        row = {"kernel": "normalize_u8", "model": name,
+               "shape": list(x.shape), "max_abs_err": max_err(k, p),
+               "tol": 0.0,
+               "ms": cuda_ms(lambda: normalize_u8(
+                   x, *scale, out_dtype=torch.bfloat16)),
+               "plain_ms": cuda_ms(lambda: normalize_u8_plain(
+                   x, *scale, out_dtype=torch.bfloat16)),
+               "bound_ms": bound_ms(3 * n, 2 * n, "float32")[0]}
+        emit("kernel", **row)
+        if row["max_abs_err"] != 0.0:
+            raise AssertionError(f"normalize_u8 at {name}'s frames: {row}")
+
+
+def _vision_frames(seed, n, size):
+    """n frames of 4x4 blocks of flat colour (different content each)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cell = -(-size // 4)
+    return [np.kron(rng.integers(0, 256, (4, 4, 3)),
+                    np.ones((cell, cell, 1)))[:size, :size].astype(np.uint8)
+            for _ in range(n)]
+
+
+def _vision_line(name, decoder, extra=""):
+    cfg = VISION[name]
+    s = cfg["size"]
+    return (f"appsrc name=src caps=video/x-raw,format=RGB,width={s},"
+            f"height={s},framerate=1000/1 "
+            f"! tensor_converter frames-per-tensor={cfg['fpt']} "
+            f"! tensor_filter name=f framework=jax model={name} "
+            f"custom=seed:0,{cfg['custom']}{extra} "
+            f"! queue ! tensor_decoder {decoder} split-batch={cfg['fpt']} "
+            f"! tensor_sink name=out")
+
+
+def _run_vision(torch, name, decoder, frames, extra="",
+                n_batches=VISION_BATCHES, warmup=N_WARMUP):
+    """Drive one line: ``warmup`` batches, then n_batches measured with
+    the launch counts zeroed just before. Returns (seconds, p50 batch ms,
+    launches, bundle, the measured run's overlays, objects per overlay)."""
+    from nnstreamer_tpu_torch.ops import _cuda
+
+    fpt, size = VISION[name]["fpt"], VISION[name]["size"]
+    d = _LineDriver(_vision_line(name, decoder, extra), frames,
+                    outputs_per_unit=fpt)
+    if warmup:
+        d.run(warmup)
+    _cuda.reset_launches()
+    secs, p50 = d.run(n_batches)
+    launches = dict(_cuda.LAUNCHES)
+    bundle = d.p["f"].fw._bundle
+    measured = d.p["out"].collected[warmup * fpt:]
+    objects = [len(b.meta.get("objects") or b.meta.get("keypoints") or ())
+               for b in measured]
+    outs = d.close()[warmup * fpt:]
+    if len(outs) != n_batches * fpt or any(
+            tuple(o.shape) != (size, size, 4) for o in outs):
+        raise AssertionError(f"{name}: expected {n_batches * fpt} "
+                             f"{size}x{size} RGBA overlays, got "
+                             f"{[tuple(o.shape) for o in outs[:3]]}... "
+                             f"({len(outs)})")
+    return secs, p50, launches, bundle, outs, objects
+
+
+def _profile_vision(torch, name, decoder, frames, extra=""):
+    """One more run of a line (4 batches, no warm-up: the model's weights
+    upload inside the window, the wall clock starts at the first push)
+    under torch.profiler."""
+    emit("profile", line=name + extra, batches=4, **device_profile(
+        torch, lambda: _run_vision(torch, name, decoder, frames, extra,
+                                   n_batches=4, warmup=0)[0]))
+
+
+def _check_launches(name, launches, fused, n_batches=VISION_BATCHES):
+    """The fused block ``fused`` times and normalize_u8 once per forward,
+    no other kernel."""
+    want = {"fused_inverted_residual": fused * n_batches,
+            "normalize_u8": n_batches}
+    got = {k: v for k, v in launches.items() if v}
+    if got != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{name}: launches per {n_batches} forwards "
+                             f"{launches}, expected {want}")
+
+
+def _near_agreement(got, want, tol=5e-3):
+    """The pp quads' near agreement (tests/test_fused_block.py::
+    test_ssd_zoo_fused_pp_custom) per frame: survivor counts within
+    max(3, n/10), the leading (up to 10) scores within ``tol`` and each
+    leading detection matched by one of the oracle's first lead + 3 with
+    its class, score and box (near-tied scores may swap order). Returns
+    (whether every frame holds it, frames whose leading classes are in
+    the same order, the largest count difference)."""
+    locs, cls, scr, num = (t.float().cpu() for t in got)
+    wl, wc, ws, wn = (t.float().cpu() for t in want)
+    ok, same_order, worst = True, 0, 0
+    for b in range(num.shape[0]):
+        n_got, n_want = int(num[b, 0]), int(wn[b, 0])
+        worst = max(worst, abs(n_got - n_want))
+        ok &= abs(n_got - n_want) <= max(3, n_want // 10)
+        lead = min(n_got, n_want, 10)
+        ok &= bool(((scr[b, :lead] - ws[b, :lead]).abs()
+                    <= tol + tol * ws[b, :lead].abs()).all())
+        same_order += bool((cls[b, :lead] == wc[b, :lead]).all())
+        for i in range(lead):
+            ok &= any(wc[b, j] == cls[b, i]
+                      and abs(float(ws[b, j] - scr[b, i])) <= tol
+                      and float((wl[b, j] - locs[b, i]).abs().max()) <= tol
+                      for j in range(min(lead + 3, wc.shape[1])))
+    return bool(ok), same_order, worst
+
+
+def _forwards(torch, name, bundle, x):
+    """The filter's own forward on ``x`` and, on the same weights, the
+    same folded forward with the kernel's plain version in its place
+    ('plain'), with every block as three convolutions ('xla', the JAX
+    package's fused:xla form) and in float32 ('f32', TF32 off)."""
+    import importlib
+
+    from nnstreamer_tpu_torch.models import preprocess_frames
+
+    mod = importlib.import_module(f"nnstreamer_tpu_torch.models.{name}")
+    m = bundle.module
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        pre = preprocess_frames(x, "pm1", m.dtype)
+        out = {"kernel": bundle.apply_fn(x)}
+        for mode in ("plain", "xla"):
+            out[mode] = mod._make_fused_apply(m, mode=mode)(pre)
+        out["f32"] = mod._make_fused_apply(
+            m, mode="plain", compute_dtype=torch.float32)(pre.float())
+    torch.cuda.synchronize()
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    return {k: v if isinstance(v, tuple) else (v,) for k, v in out.items()}
+
+
+#: the kernel forward against the plain forward, relative to the bf16
+#: noise floor: the xla forward's distance from the same plain forward
+#: (it rounds at other points in every block, as any second correct bf16
+#: implementation does). The kernel rounds where the plain version rounds,
+#: so its mean distance must stay below this share of the floor's
+NOISE_SHARE = 0.5
+
+
+def _agreement(torch, outs):
+    """Per output tensor: max and mean |a - plain| for a in kernel, xla
+    and f32, and the argmax agreement over the last axis. ``ok``: every
+    kernel output finite, its mean distance at most NOISE_SHARE of the
+    xla forward's, its max distance and argmax agreement no worse than
+    the xla forward's."""
+    rows, ok = [], True
+    for i, plain in enumerate(outs["plain"]):
+        row = {}
+        for a in ("kernel", "xla", "f32"):
+            d = (outs[a][i].float() - plain.float()).abs()
+            row[a] = {"max": float(d.max()), "mean": float(d.mean()),
+                      "argmax_agreement": float(
+                          (outs[a][i].argmax(-1) == plain.argmax(-1))
+                          .float().mean())}
+        k, x = row["kernel"], row["xla"]
+        row["finite"] = bool(torch.isfinite(outs["kernel"][i]).all())
+        row["ok"] = (row["finite"] and k["mean"] <= NOISE_SHARE * x["mean"]
+                     and k["max"] <= x["max"]
+                     and k["argmax_agreement"] >= x["argmax_agreement"])
+        ok = ok and row["ok"]
+        rows.append(row)
+    return ok, rows
+
+
+def check_detect(torch, results, workdir):
+    """SSD-MobileNet-v2 at 300 px into bounding_boxes mobilenet-ssd, then
+    its postproc:pp line into mobilenet-ssd-postprocess."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.models.ssd_mobilenet import (
+        generate_anchors,
+        pp_options,
+        ssd_postprocess,
+        write_box_priors,
+    )
+
+    name, cfg = "ssd_mobilenet", VISION["ssd_mobilenet"]
+    labels = os.path.join(workdir, "ssd_labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class{i}" for i in range(91)) + "\n")
+    priors = os.path.join(workdir, "box_priors.txt")
+    n_anchors = write_box_priors(priors, cfg["size"])
+    frames = _vision_frames(5, cfg["fpt"], cfg["size"])
+    wh = f"{cfg['size']}:{cfg['size']}"
+    secs, p50, launches, bundle, outs, objects = _run_vision(
+        torch, name,
+        f"mode=bounding_boxes option1=mobilenet-ssd option2={labels} "
+        f"option3={priors}:0.5 option4={wh} option5={wh}", frames,
+        extra=",fused:pallas")
+    _check_launches(name, launches, 13)
+    results["detect_launches"] = launches
+    x = torch.from_numpy(np.stack(frames)).cuda()
+    fw = _forwards(torch, name, bundle, x)
+    got = fw["kernel"]
+    ok, rows = _agreement(torch, fw)
+    ok = ok and (tuple(got[0].shape) == (cfg["fpt"], n_anchors, 1, 4)
+                 and tuple(got[1].shape) == (cfg["fpt"], n_anchors, 91))
+    emit("detect", line="ssd_mobilenet", frames=len(outs),
+         batches=VISION_BATCHES, frames_per_tensor=cfg["fpt"], seconds=secs,
+         fps=len(outs) / secs, p50_batch_latency_ms=p50, launches=launches,
+         anchors=n_anchors, boxes=rows[0], scores=rows[1],
+         noise_share=NOISE_SHARE, ok=ok,
+         within_flagship_tol=[within(g, w, MODEL_ATOL, MODEL_RTOL)
+                              for g, w in zip(got, fw["plain"])],
+         objects_per_frame=statistics.mean(objects), card=results["card"])
+    if not ok:
+        raise AssertionError("detect: SSD outputs stray from the plain "
+                             "forward beyond the bf16 noise floor")
+    _profile_vision(
+        torch, name,
+        f"mode=bounding_boxes option1=mobilenet-ssd option2={labels} "
+        f"option3={priors}:0.5 option4={wh} option5={wh}", frames,
+        extra=",fused:pallas")
+    # the pp line: the post-process on the device, four small tensors out
+    k, iou, thr = pp_options({})
+    secs, p50, launches, bundle, outs, objects = _run_vision(
+        torch, name,
+        f"mode=bounding_boxes option1=mobilenet-ssd-postprocess "
+        f"option2={labels} option3=0:1:2:3,50 option4={wh} option5={wh}",
+        frames, extra=",fused:pallas,postproc:pp", n_batches=4)
+    _check_launches(name, launches, 13, n_batches=4)
+    results["detect_pp_launches"] = launches
+    pri = torch.from_numpy(generate_anchors(cfg["size"])).cuda()
+    with torch.inference_mode():
+        got = bundle.apply_fn(x)
+        post = {a: ssd_postprocess(*fw[a], pri, k, iou, thr)
+                for a in ("kernel", "plain", "xla")}
+    torch.cuda.synchronize()
+    # the device post-process is exact: the pp line's quads are the
+    # post-process of the same kernel forward's raw outputs, bit for bit
+    exact = all(bool(torch.equal(g, w)) for g, w in zip(got, post["kernel"]))
+    # against the plain forward's quads: the near-agreement rule,
+    # reported, and held to the noise floor of the xla forward's quads
+    near, same_order, worst = _near_agreement(got, post["plain"])
+    x_near, x_same, x_worst = _near_agreement(post["xla"], post["plain"])
+    ok = exact and worst <= x_worst and same_order >= x_same
+    emit("detect", line="ssd_mobilenet postproc:pp", frames=len(outs),
+         batches=4, seconds=secs, fps=len(outs) / secs,
+         p50_batch_latency_ms=p50, launches=launches,
+         survivors=[int(v) for v in got[3][:, 0].tolist()],
+         survivors_plain=[int(v) for v in post["plain"][3][:, 0].tolist()],
+         exact=exact, near_agreement=near, largest_count_difference=worst,
+         leading_order_equal=same_order,
+         xla={"near_agreement": x_near, "largest_count_difference": x_worst,
+              "leading_order_equal": x_same},
+         ok=ok, objects_per_frame=statistics.mean(objects),
+         card=results["card"])
+    if not ok:
+        raise AssertionError("detect: the pp quads are not the post-process "
+                             "of the kernel forward, or stray from the "
+                             "plain forward's beyond the noise floor")
+
+
+def check_segment(torch, results):
+    """DeepLab-v3 at 257 px into image_segment tflite-deeplab."""
+    import numpy as np
+
+    name, cfg = "deeplab_v3", VISION["deeplab_v3"]
+    frames = _vision_frames(6, cfg["fpt"], cfg["size"])
+    secs, p50, launches, bundle, outs, _ = _run_vision(
+        torch, name, "mode=image_segment option1=tflite-deeplab", frames,
+        extra=",fused:pallas")
+    _check_launches(name, launches, 10)
+    results["segment_launches"] = launches
+    fw = _forwards(torch, name, bundle,
+                   torch.from_numpy(np.stack(frames)).cuda())
+    got = fw["kernel"][0]
+    s = cfg["size"]
+    ok, rows = _agreement(torch, fw)
+    ok = ok and tuple(got.shape) == (cfg["fpt"], s, s, 21)
+    emit("segment", line="deeplab_v3", frames=len(outs),
+         batches=VISION_BATCHES, frames_per_tensor=cfg["fpt"], seconds=secs,
+         fps=len(outs) / secs, p50_batch_latency_ms=p50, launches=launches,
+         logits=rows[0], noise_share=NOISE_SHARE, ok=ok,
+         within_flagship_tol=within(got, fw["plain"][0], MODEL_ATOL,
+                                    MODEL_RTOL),
+         distinct_classes=int(got.argmax(-1).unique().numel()),
+         card=results["card"])
+    if not ok:
+        raise AssertionError("segment: DeepLab logits stray from the plain "
+                             "forward beyond the bf16 noise floor")
+    _profile_vision(torch, name, "mode=image_segment option1=tflite-deeplab",
+                    frames, extra=",fused:pallas")
+
+
+#: COCO's 17 keypoints and their skeleton, as the pose decoder's
+#: metadata file (PoseNet emits 17 heatmaps; the decoder's default has 14)
+COCO_KEYPOINTS = (
+    ("nose", (1, 2)), ("l_eye", (0, 3)), ("r_eye", (0, 4)), ("l_ear", (1,)),
+    ("r_ear", (2,)), ("l_shoulder", (6, 7, 11)), ("r_shoulder", (5, 8, 12)),
+    ("l_elbow", (5, 9)), ("r_elbow", (6, 10)), ("l_wrist", (7,)),
+    ("r_wrist", (8,)), ("l_hip", (5, 12, 13)), ("r_hip", (6, 11, 14)),
+    ("l_knee", (11, 15)), ("r_knee", (12, 16)), ("l_ankle", (13,)),
+    ("r_ankle", (14,)))
+
+
+def check_vision(torch, results, workdir):
+    """PoseNet at 257 px into pose_estimation heatmap-offset, YOLOv8 at
+    320 px into bounding_boxes yolov8: outputs' shapes and finiteness, one
+    overlay per frame, frames per second."""
+    import numpy as np
+
+    labels = os.path.join(workdir, "coco_labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class{i}" for i in range(80)) + "\n")
+    pose = os.path.join(workdir, "coco_pose.txt")
+    with open(pose, "w") as f:  # label, then the keypoints it joins
+        f.write("\n".join(f"{n} {' '.join(map(str, c))}" for n, c in (
+            COCO_KEYPOINTS)) + "\n")
+    results["vision_launches"] = {}
+    for name, decoder, shapes in (
+            ("posenet", "mode=pose_estimation option1=257:257 "
+             f"option2=257:257 option3={pose} option4=heatmap-offset",
+             [(16, 17, 17, 17), (16, 17, 17, 34)]),
+            ("yolov8", f"mode=bounding_boxes option1=yolov8 "
+             f"option2={labels} option3=1:0.25:0.45 option4=320:320 "
+             "option5=320:320", [(16, 2100, 84)])):
+        cfg = VISION[name]
+        frames = _vision_frames(7, cfg["fpt"], cfg["size"])
+        secs, p50, launches, bundle, outs, objects = _run_vision(
+            torch, name, decoder, frames)
+        _check_launches(name, launches, 0)
+        for k, v in launches.items():
+            results["vision_launches"][k] = \
+                results["vision_launches"].get(k, 0) + v
+        with torch.inference_mode():
+            out = bundle.apply_fn(torch.from_numpy(np.stack(frames)).cuda())
+        out = out if isinstance(out, tuple) else (out,)
+        got = [tuple(t.shape) for t in out]
+        finite = all(bool(torch.isfinite(t).all()) for t in out)
+        ok = finite and got == shapes
+        emit("vision", line=name, frames=len(outs), batches=VISION_BATCHES,
+             frames_per_tensor=cfg["fpt"], seconds=secs,
+             fps=len(outs) / secs, p50_batch_latency_ms=p50,
+             launches=launches, shapes=got, finite=finite, ok=ok,
+             objects_per_frame=statistics.mean(objects),
+             card=results["card"])
+        if not ok:
+            raise AssertionError(f"vision: {name} outputs {got}, finite "
+                                 f"{finite}; expected {shapes}")
+
+
 # -- phase: the upload window on the flagship line --------------------------
 
 #: feed-depth values the upload phase drives, each run twice, in the order
@@ -1921,6 +2386,9 @@ def main() -> int:
     check_ring(torch, results)
     check_longctx(torch, results)
     check_vit(torch, results, workdir)
+    check_detect(torch, results, workdir)
+    check_segment(torch, results)
+    check_vision(torch, results, workdir)
     check_upload(torch, results, workdir)
     check_batch(torch, results)
     check_hostspans(torch, results, workdir)
@@ -1939,7 +2407,8 @@ def main() -> int:
     launches = {name: sum(results[run].get(name, 0) for run in (
         "launches", "stream_launches", "vit_launches", "ring_launches",
         "longctx_launches", "upload_launches", "batch_launches",
-        "hostspans_launches"))
+        "hostspans_launches", "detect_launches", "detect_pp_launches",
+        "segment_launches", "vision_launches"))
         for name in src}
     launches["arith_chain"] += results["arith_launches"]
     kernels = []
@@ -1953,6 +2422,9 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
             "device_ms": r.get("device_ms")})
+    # the fused block's rows at the SSD and DeepLab lines' shapes
+    kernels[0]["models"] = {name: results[f"fused_{name}"]
+                            for name in ("ssd_mobilenet", "deeplab_v3")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -69,6 +69,10 @@ def make_postproc(custom: Dict[str, str]):
             return torch.softmax(o.float(), dim=-1)
 
         return _softmax
+    if pp == "pp":
+        # the detection post-process of the pp models: their builders
+        # (ssd_mobilenet, yolov8) consume it, nothing to do here
+        return None
     if pp:
         raise ValueError(f"unknown postproc {pp!r}")
     return None

@@ -50,9 +50,9 @@ def register_model(name: str):
 def _load_builtins() -> None:
     import importlib
 
-    importlib.import_module("nnstreamer_tpu_torch.models.mobilenet_v2")
-    importlib.import_module("nnstreamer_tpu_torch.models.simple")
-    importlib.import_module("nnstreamer_tpu_torch.models.vit")
+    for mod in ("mobilenet_v2", "ssd_mobilenet", "deeplab_v3", "posenet",
+                "yolov8", "vit", "simple"):
+        importlib.import_module(f"nnstreamer_tpu_torch.models.{mod}")
 
 
 def load_or_init(module: torch.nn.Module, custom: Dict[str, str],
@@ -67,6 +67,44 @@ def load_or_init(module: torch.nn.Module, custom: Dict[str, str],
         module.load_state_dict(state)
     else:
         init_fn(module, int(custom.get("seed", 0)))
+
+
+def init_conv_bn(module: torch.nn.Module, seed: int) -> None:
+    """Deterministic weights from ``np.random.default_rng(seed)`` for a
+    model of convolutions and BatchNorms, module by module in registration
+    order: He-normal conv kernels (fan-in over the conv's group), conv
+    biases N(0, 0.1), BatchNorm scale, bias and running statistics that
+    are not the identity (as MobileNet-v2's ``init_weights``). A model
+    sets its heads' biases afterwards where it wants a prior.
+
+    Like every ``seed:`` init of this package it does NOT reproduce the
+    JAX package's flax init: carry flax variables across with
+    :mod:`models.convert` to run both packages on the same weights."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                shape = tuple(m.weight.shape)
+                fan_in = int(np.prod(shape[1:]))
+                m.weight.copy_(torch.from_numpy(rng.normal(
+                    0.0, np.sqrt(2.0 / fan_in), shape).astype(np.float32)))
+                if m.bias is not None:
+                    m.bias.copy_(torch.from_numpy(rng.normal(
+                        0.0, 0.1, m.bias.shape).astype(np.float32)))
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                for t, a in ((m.weight, rng.uniform(0.8, 1.2, n)),
+                             (m.bias, rng.normal(0.0, 0.1, n)),
+                             (m.running_mean, rng.normal(0.0, 0.1, n)),
+                             (m.running_var, rng.uniform(0.8, 1.2, n))):
+                    t.copy_(torch.from_numpy(a.astype(np.float32)))
+
+
+def batch_of(info: TensorsInfo) -> int:
+    """The batch of frames a model's input info carries: the leading dim
+    of an [B, H, W, C] tensor, 1 for one [H, W, C] frame."""
+    shape = info.tensors[0].np_shape()
+    return shape[0] if len(shape) == 4 else 1
 
 
 def preprocess_frames(x: torch.Tensor, scale: str = "pm1",

@@ -60,12 +60,22 @@ def _same_pad_nchw(x: torch.Tensor, k: int, stride: int,
     return F.pad(x, pads) if any(pads) else x
 
 
-def _conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d,
-             dtype: torch.dtype) -> torch.Tensor:
-    """NCHW conv ('SAME') then inference BatchNorm, in ``dtype``."""
+def _conv(x: torch.Tensor, conv: nn.Conv2d,
+          dtype: torch.dtype) -> torch.Tensor:
+    """NCHW conv ('SAME') in ``dtype``, plus its bias in ``dtype`` when it
+    has one (as flax adds a Conv's bias in the layer's dtype)."""
     k, s, d = conv.kernel_size[0], conv.stride[0], conv.dilation[0]
     y = F.conv2d(_same_pad_nchw(x.to(dtype), k, s, d), conv.weight.to(dtype),
                  stride=s, dilation=d, groups=conv.groups)
+    if conv.bias is not None:
+        y = y + conv.bias.to(dtype).reshape(1, -1, 1, 1)
+    return y
+
+
+def _conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d,
+             dtype: torch.dtype) -> torch.Tensor:
+    """NCHW conv ('SAME') then inference BatchNorm, in ``dtype``."""
+    y = _conv(x, conv, dtype)
     y = F.batch_norm(y.float(), bn.running_mean, bn.running_var, bn.weight,
                      bn.bias, training=False, eps=bn.eps)
     return y.to(dtype)
@@ -83,7 +93,7 @@ class InvertedResidual(nn.Module):
                  dilation: int = 1, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         hidden = in_ch * expand
-        self.stride, self.dtype = stride, dtype
+        self.stride, self.dilation, self.dtype = stride, dilation, dtype
         self.expand_conv = (nn.Conv2d(in_ch, hidden, 1, bias=False)
                             if expand != 1 else None)
         self.expand_bn = nn.BatchNorm2d(hidden) if expand != 1 else None
@@ -196,59 +206,100 @@ def init_weights(model: nn.Module, seed: int) -> None:
     model.load_state_dict(new)
 
 
-def _make_fused_apply(model: MobileNetV2, mode: str = "kernel",
-                      compute_dtype: torch.dtype = None):
-    """BN-folded forward, the counterpart of the JAX ``_make_fused_apply``.
-    ``mode``:
-      - 'kernel' (``fused:pallas``): stride-1 blocks through
-        :func:`fused_inverted_residual` (the kernel on CUDA, its plain
-        version on the CPU), stride-2 blocks through
-        :func:`inverted_residual_conv`, as the JAX package sends them to
-        ``inverted_residual_xla``;
+def fold_blocks(blocks, mode: str, compute_dtype: torch.dtype, device):
+    """Fold each :class:`InvertedResidual` once, for the BN-folded forwards
+    of the models built on these blocks (MobileNet-v2, SSD, DeepLab).
+    Returns (function, folded, stride, dilation) per block, the folded
+    weights cast once on ``device``. ``mode``:
+      - 'kernel' (``fused:pallas``): :func:`inverted_residual_auto` (the
+        stride-1 blocks to :func:`fused_inverted_residual`, the kernel on
+        CUDA and its plain version on the CPU; stride-2 blocks to
+        :func:`inverted_residual_conv`), dilated blocks to
+        :func:`inverted_residual_conv` directly, as the JAX DeepLab sends
+        them to ``inverted_residual_xla``;
       - 'xla' (``fused:xla``): every block through
         :func:`inverted_residual_conv`;
       - 'plain': the 'kernel' forward with the kernel's plain version in
-        its place (stride-1 blocks through :func:`inverted_residual_plain`,
-        stride-2 blocks through :func:`inverted_residual_conv` as in
-        'kernel'): the whole-model oracle on the card, which differs from
-        'kernel' only where the kernel runs.
-    Folding and the casts to the compute dtype happen once, here, on the
-    model's device."""
+        its place (the blocks the kernel would run through
+        :func:`inverted_residual_plain`, the others as in 'kernel'): the
+        whole-model oracle on the card, which differs from 'kernel' only
+        where the kernel runs.
+    The kernel reads float32 biases; the convolutions add theirs in the
+    compute dtype, so each block's biases are cast for its route."""
     from nnstreamer_tpu_torch.ops import fused_block as fb
 
     if mode not in ("kernel", "xla", "plain"):
         raise ValueError(f"unknown fused forward mode {mode!r}")
+    cd = compute_dtype
+    out = []
+    for blk in blocks:
+        kernel = fb.fused_block_eligible(blk.stride, blk.dilation)
+        if mode == "xla" or not kernel:
+            fn, bias_dtype = fb.inverted_residual_conv, cd
+            if mode == "kernel" and blk.dilation == 1:
+                fn = fb.inverted_residual_auto
+        elif mode == "plain":
+            fn, bias_dtype = fb.inverted_residual_plain, torch.float32
+        else:
+            fn, bias_dtype = fb.inverted_residual_auto, torch.float32
+        fw = fb.cast_folded(fb.fold_inverted_residual(blk), cd, device,
+                            bias_dtype)
+        out.append((fn, fw, blk.stride, blk.dilation))
+    return out
+
+
+def kernel_block_shapes(model, size: int):
+    """(index, H, W, Cin, Ch, Cout) of each block of ``model.blocks`` that
+    :func:`fold_blocks` sends to the fused-block kernel, for square
+    ``size`` input behind the stride-2 stem: the shapes the main path
+    gives the kernel."""
+    from nnstreamer_tpu_torch.ops.fused_block import fused_block_eligible
+
+    out, hw = [], -(-size // 2)
+    for i, blk in enumerate(model.blocks):
+        if fused_block_eligible(blk.stride, blk.dilation):
+            cin = blk.dw_conv.in_channels if blk.expand_conv is None \
+                else blk.expand_conv.in_channels
+            out.append((i, hw, hw, cin, blk.dw_conv.out_channels,
+                        blk.proj_conv.out_channels))
+        hw = -(-hw // blk.stride)
+    return out
+
+
+def run_blocks(y: torch.Tensor, blocks, compute_dtype: torch.dtype
+               ) -> torch.Tensor:
+    """Run :func:`fold_blocks`' blocks on an NHWC tensor."""
+    for fn, fw, stride, dilation in blocks:
+        y = fn(y, fw, stride=stride, dilation=dilation,
+               compute_dtype=compute_dtype)
+    return y
+
+
+def _make_fused_apply(model: MobileNetV2, mode: str = "kernel",
+                      compute_dtype: torch.dtype = None):
+    """BN-folded forward, the counterpart of the JAX ``_make_fused_apply``:
+    the blocks as :func:`fold_blocks` routes them for ``mode`` ('kernel',
+    'xla' or 'plain'); the stem, the head 1x1 conv, the pool and the Dense
+    layer are torch ops, as the JAX package computes them with XLA outside
+    any Pallas kernel. Folding and the casts to the compute dtype happen
+    once, here, on the model's device."""
+    from nnstreamer_tpu_torch.ops import fused_block as fb
+
     cd = compute_dtype or model.dtype
     dev = model.stem_conv.weight.device
 
-    def route(stride: int):
-        if mode == "xla" or stride != 1:
-            return fb.inverted_residual_conv, cd
-        if mode == "plain":
-            return fb.inverted_residual_plain, torch.float32
-        return fb.fused_inverted_residual, torch.float32
-
     with torch.no_grad():
-        k, b = fb.fold_conv_bn(model.stem_conv, model.stem_bn)
-        stem = fb.cast_folded({"w": k, "b": b}, cd, dev)
-        blocks = []
-        for blk in model.blocks:
-            fn, bias_dtype = route(blk.stride)
-            blocks.append((fn, fb.cast_folded(fb.fold_inverted_residual(blk),
-                                              cd, dev, bias_dtype),
-                           blk.stride))
+        stem = fb.fold_conv_bn_apply(model.stem_conv, model.stem_bn,
+                                     compute_dtype=cd, device=dev)
+        blocks = fold_blocks(model.blocks, mode, cd, dev)
         k, b = fb.fold_conv_bn(model.head_conv, model.head_bn)
         head = fb.cast_folded({"w": k[:, :, 0, 0].t(), "b": b}, cd, dev)
         dense_w = model.classifier.weight.detach().float().t().contiguous()
         dense_b = model.classifier.bias.detach().float()
 
     def forward(x: torch.Tensor) -> torch.Tensor:
-        y = _same_pad_nchw(x.to(cd).permute(0, 3, 1, 2), 3, 2)
-        y = F.conv2d(y, stem["w"], stride=2)
-        y = _relu6(y + stem["b"].to(cd).reshape(1, -1, 1, 1))
-        y = y.permute(0, 2, 3, 1).contiguous()  # NHWC for the blocks
-        for fn, fw, stride in blocks:
-            y = fn(y, fw, stride=stride, compute_dtype=cd)
+        y = stem(x).contiguous()  # NHWC for the blocks
+        y = run_blocks(y, blocks, cd)
         B, H, W, C = y.shape
         o = y.reshape(-1, C) @ head["w"] + head["b"].to(cd)
         o = _relu6(o).reshape(B, H * W, -1)

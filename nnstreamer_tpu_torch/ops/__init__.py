@@ -8,6 +8,9 @@ package's Pallas kernels.
   flash_attention           ops/attention.py     csrc/attention.cu
   flash_chunk               ops/attention.py     csrc/attention.cu
 
+``ops/detection.py`` holds the detection models' device post-process
+(top-k and greedy NMS), plain PyTorch as the JAX package's is plain XLA.
+
 ``flash_chunk`` is the per-hop update of :func:`ring_attention`; the
 sequence-parallel functions (ring and Ulysses) run over a
 ``parallel.Mesh`` axis.
@@ -28,10 +31,17 @@ from nnstreamer_tpu_torch.ops.attention import (  # noqa: F401
     ring_attention_plain,
     ulysses_attention,
 )
+from nnstreamer_tpu_torch.ops.detection import (  # noqa: F401
+    detection_postprocess,
+    ssd_decode_boxes,
+)
 from nnstreamer_tpu_torch.ops.fused_block import (  # noqa: F401
     fold_conv_bn,
+    fold_conv_bn_apply,
     fold_inverted_residual,
     fused_inverted_residual,
+    inverted_residual_auto,
+    inverted_residual_conv,
     inverted_residual_plain,
 )
 from nnstreamer_tpu_torch.ops.preprocess import (  # noqa: F401

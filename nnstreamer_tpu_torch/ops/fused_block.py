@@ -25,6 +25,11 @@ Three functions compute the block:
   - :func:`inverted_residual_conv`, the counterpart of
     ``inverted_residual_xla``: three convolutions, as the JAX package runs
     the stride-2 blocks and ``fused:xla`` outside any Pallas kernel.
+
+:func:`inverted_residual_auto` routes a block between the first and the
+last (the counterpart of the JAX function of that name), and
+:func:`fold_conv_bn_apply` is the one fold-then-conv helper of every
+BN-folded forward (MobileNet-v2, SSD, DeepLab, PoseNet).
 """
 
 from __future__ import annotations
@@ -199,6 +204,89 @@ def inverted_residual_conv(x: torch.Tensor, folded: Dict[str, Any], *,
     if residual:
         o = o + xc
     return o.permute(0, 2, 3, 1)
+
+
+def _activate(o: torch.Tensor, act) -> torch.Tensor:
+    if callable(act):
+        return act(o)
+    if act == "relu6":
+        return _relu6(o)
+    if act == "relu":
+        return F.relu(o)
+    if act is None:
+        return o
+    raise ValueError(f"unknown activation {act!r}")
+
+
+def fold_conv_bn_apply(conv: torch.nn.Conv2d,
+                       bn: Optional[torch.nn.BatchNorm2d] = None, *,
+                       act="relu6",
+                       compute_dtype: torch.dtype = torch.bfloat16,
+                       device=None):
+    """Fold one conv+BN pair once and return its apply, ``v -> out`` on
+    NHWC tensors: the TF "SAME" conv with the folded kernel (the conv's
+    own stride, dilation and groups), the folded bias, then ``act``
+    ('relu6' | 'relu' | None | a callable). ``bn=None`` applies the conv
+    as it is, with its own bias if it has one (the detection heads and the
+    class convs).
+
+    The counterpart of the JAX package's ``fold_conv_bn_apply``, the one
+    home of the fold-then-conv pattern of every BN-folded forward. It
+    rounds where the JAX function rounds: the conv's output in the compute
+    dtype, then ``+ b`` in the compute dtype as a separate add. The NHWC
+    tensor is viewed as channels-last NCHW (no copy) for ``F.conv2d``."""
+    cd = compute_dtype
+    if bn is None:
+        k = conv.weight.detach().float()
+        b = None if conv.bias is None else conv.bias.detach().float()
+    else:
+        k, b = fold_conv_bn(conv, bn)
+    w = k.to(device=device, dtype=cd).contiguous()
+    bias = None if b is None else b.to(device=device, dtype=cd).reshape(
+        1, -1, 1, 1)
+    ksize, stride = conv.kernel_size[0], conv.stride[0]
+    dilation, groups = conv.dilation[0], conv.groups
+    k_eff = (ksize - 1) * dilation + 1
+
+    def apply(v: torch.Tensor) -> torch.Tensor:
+        x = v.to(cd).permute(0, 3, 1, 2)  # NCHW view of the NHWC tensor
+        pt, pb = _same_pads(x.shape[2], stride, k_eff)
+        pl, pr = _same_pads(x.shape[3], stride, k_eff)
+        if pt or pb or pl or pr:
+            x = F.pad(x, (pl, pr, pt, pb))
+        o = F.conv2d(x, w, stride=stride, dilation=dilation, groups=groups)
+        if bias is not None:
+            o = o + bias
+        return _activate(o, act).permute(0, 2, 3, 1)
+
+    return apply
+
+
+def fused_block_eligible(stride: int, dilation: int = 1) -> bool:
+    """Whether a block runs the fused kernel: stride 1, undilated. The
+    kernel masks ragged row tiles and plans every map size itself, so
+    there is no counterpart of the JAX package's shape gate
+    (``_tiling_valid``, the tile budget) and no environment opt-out."""
+    return stride == 1 and dilation == 1
+
+
+def inverted_residual_auto(x: torch.Tensor, folded: Dict[str, Any], *,
+                           stride: int = 1, dilation: int = 1,
+                           residual: Optional[bool] = None,
+                           compute_dtype: torch.dtype = torch.bfloat16
+                           ) -> torch.Tensor:
+    """The counterpart of the JAX package's ``inverted_residual_auto``: a
+    block :func:`fused_block_eligible` accepts goes to
+    :func:`fused_inverted_residual` (the kernel on a CUDA tensor, its plain
+    version on a CPU one), every other block (stride 2, dilated) to
+    :func:`inverted_residual_conv`."""
+    if fused_block_eligible(stride, dilation):
+        return fused_inverted_residual(x, folded, stride=stride,
+                                       residual=residual,
+                                       compute_dtype=compute_dtype)
+    return inverted_residual_conv(x, folded, stride=stride,
+                                  dilation=dilation, residual=residual,
+                                  compute_dtype=compute_dtype)
 
 
 class FusedPlan(NamedTuple):

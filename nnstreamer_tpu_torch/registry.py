@@ -50,6 +50,9 @@ _BUILTINS: Dict[Tuple[str, str], str] = {
     (FILTER, "custom-easy"): "nnstreamer_tpu_torch.filters.custom_easy",
     (FILTER, "passthrough"): "nnstreamer_tpu_torch.filters.passthrough",
     (DECODER, "image_labeling"): "nnstreamer_tpu_torch.decoders.image_labeling",
+    (DECODER, "bounding_boxes"): "nnstreamer_tpu_torch.decoders.bounding_boxes",
+    (DECODER, "image_segment"): "nnstreamer_tpu_torch.decoders.image_segment",
+    (DECODER, "pose_estimation"): "nnstreamer_tpu_torch.decoders.pose_estimation",
 }
 
 

@@ -339,3 +339,96 @@ def test_launch_params_follow_the_c_layout():
             "P_DTYPE": _cuda.DTYPE_CODES[torch.float32],
             "P_SMEM": plan.smem}
     assert {k: params[idx[k]] for k in want} == want
+
+
+@pytest.mark.parametrize("model,size", [("ssd_mobilenet", 300),
+                                        ("deeplab_v3", 257)])
+def test_tile_plan_covers_ssd_and_deeplab_shapes(model, size):
+    """Every block shape the SSD (300 px) and DeepLab (257 px) lines give
+    the kernel — 150², 75², 38², 19², 10² and 129², 65², 33², 17², ragged
+    tiles and an expand-1 block among them — has a plan within the
+    kernel's limits, in bfloat16 and float32."""
+    import importlib
+
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import kernel_block_shapes
+
+    mod = importlib.import_module(f"nnstreamer_tpu_torch.models.{model}")
+    m = getattr(mod, {"ssd_mobilenet": "SSDMobileNetV2",
+                      "deeplab_v3": "DeepLabV3"}[model])()
+    shapes = kernel_block_shapes(m, size)
+    assert len(shapes) == (13 if model == "ssd_mobilenet" else 10)
+    for itemsize in (2, 4):
+        for _, H, W, cin, ch, cout in shapes:
+            _assert_plan_fits(H, W, cin, ch, cout, itemsize, expand=ch != cin)
+
+
+@pytest.mark.parametrize("stride,dilation,size", [
+    (1, 1, 19),   # the kernel's route (its plain version here)
+    (1, 1, 10),
+    (2, 1, 19),   # stride 2: the convolutions
+    (1, 2, 17),   # dilated (DeepLab's output-stride trick): the convolutions
+])
+def test_auto_matches_jax_auto(stride, dilation, size):
+    """inverted_residual_auto against the JAX inverted_residual_auto (on
+    the CPU its XLA path) at the new models' map sizes, float32."""
+    from nnstreamer_tpu.ops.fused_block import (
+        inverted_residual_auto as jax_auto,
+    )
+    from nnstreamer_tpu_torch.ops.fused_block import inverted_residual_auto
+
+    rng = np.random.default_rng(size + stride + dilation)
+    fw = _rand_folded(rng, 16, 96, 16, True)
+    x = rng.normal(0, 1, (2, size, size, 16)).astype(np.float32)
+    want = np.asarray(jax_auto(jnp.asarray(x), _jax(fw), stride=stride,
+                               dilation=dilation, compute_dtype=jnp.float32))
+    got = inverted_residual_auto(torch.from_numpy(x), _torch(fw),
+                                 stride=stride, dilation=dilation,
+                                 compute_dtype=torch.float32).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("k,stride,groups,dilation,act", [
+    (3, 2, 1, 1, "relu6"),   # a stem
+    (1, 1, 1, 1, "relu"),    # an ASPP 1x1 branch
+    (3, 1, 1, 6, "relu"),    # a dilated ASPP branch
+    (3, 2, 8, 1, "relu6"),   # a strided depthwise (PoseNet)
+    (3, 1, 1, 1, None),      # no activation
+])
+def test_fold_conv_bn_apply_matches_jax(k, stride, groups, dilation, act):
+    """fold_conv_bn_apply on a conv + BatchNorm against the JAX function
+    on the same weights (HWIO, flax's BatchNorm dicts), float32."""
+    from nnstreamer_tpu.ops.fused_block import (
+        fold_conv_bn_apply as jax_apply,
+    )
+    from nnstreamer_tpu_torch.ops.fused_block import fold_conv_bn_apply
+
+    rng = np.random.default_rng(k * 100 + stride * 10 + dilation)
+    cin, cout = 8, (8 if groups > 1 else 12)
+    conv = torch.nn.Conv2d(cin, cout, k, stride=stride, groups=groups,
+                           dilation=dilation, bias=False)
+    bn = torch.nn.BatchNorm2d(cout).eval()
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(
+            rng.normal(0, 0.3, conv.weight.shape).astype(np.float32)))
+        for t in (bn.weight, bn.bias, bn.running_mean):
+            t.copy_(torch.from_numpy(rng.normal(0, 0.5, cout).astype(
+                np.float32)))
+        bn.running_var.copy_(torch.from_numpy(
+            rng.uniform(0.5, 1.5, cout).astype(np.float32)))
+    params = {"c": {"kernel": jnp.asarray(
+        conv.weight.detach().numpy().transpose(2, 3, 1, 0))},
+        "b": {"scale": jnp.asarray(bn.weight.detach().numpy()),
+              "bias": jnp.asarray(bn.bias.detach().numpy())}}
+    stats = {"b": {"mean": jnp.asarray(bn.running_mean.numpy()),
+                   "var": jnp.asarray(bn.running_var.numpy())}}
+    x = rng.normal(0, 1, (2, 21, 21, cin)).astype(np.float32)
+    want = np.asarray(jax_apply(
+        jnp.asarray(x), params, stats, "c", "b", strides=(stride, stride),
+        groups=groups, dilation=(dilation, dilation), act=act,
+        compute_dtype=jnp.float32))
+    got = fold_conv_bn_apply(conv, bn, act=act,
+                             compute_dtype=torch.float32)(
+        torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)

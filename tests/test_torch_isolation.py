@@ -107,8 +107,25 @@ SLICE_MODULES = (
     "nnstreamer_tpu_torch.elements.filter",
 )
 
+#: the modules of the slice that brought the detection, segmentation and
+#: pose models, their device post-process and their decoders
+VISION_MODULES = (
+    "nnstreamer_tpu_torch.models.ssd_mobilenet",
+    "nnstreamer_tpu_torch.models.deeplab_v3",
+    "nnstreamer_tpu_torch.models.posenet",
+    "nnstreamer_tpu_torch.models.yolov8",
+    "nnstreamer_tpu_torch.models.convert",
+    "nnstreamer_tpu_torch.ops.detection",
+    "nnstreamer_tpu_torch.ops.fused_block",
+    "nnstreamer_tpu_torch.decoders.bounding_boxes",
+    "nnstreamer_tpu_torch.decoders.detections",
+    "nnstreamer_tpu_torch.decoders.rasterfont",
+    "nnstreamer_tpu_torch.decoders.image_segment",
+    "nnstreamer_tpu_torch.decoders.pose_estimation",
+)
 
-@pytest.mark.parametrize("module", SLICE_MODULES)
+
+@pytest.mark.parametrize("module", SLICE_MODULES + VISION_MODULES)
 def test_slice_module_alone_loads_no_jax(module):
     """Each module, imported alone in a fresh interpreter, pulls in
     neither JAX nor the JAX package (the walk above imports them all
