@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port (nnstreamer_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only slice,serve
 
 Phases, each printing one JSON line:
 
@@ -154,10 +155,39 @@ Phases, each printing one JSON line:
              roll-up and the filter's crossings; both span traces and a
              trace.torch_profile trace of the flagship line checked by
              validate_chrome_trace;
+  serve      the serving tier at full width: tensor_query_serversrc
+             serve=1 serve-batch=32 serve-queue-depth=256 ! tensor_filter
+             model=mobilenet_v2 (1.0, 224x224, 1001 classes) !
+             tensor_query_serversink, 8 client pipelines (appsrc !
+             tensor_query_client ! tensor_decoder image_labeling !
+             tensor_sink) pushing 32 seeded frames each at once: every
+             client gets exactly its own 32 replies in order, each label
+             equal to the direct forward's at batch 32 on the same
+             frames, and (a second run with no decoder) each reply's
+             logits within 0.15 abs + 0.05 rel of it, while the same
+             replies shifted by one row fall outside that band and each
+             client's frames carry at least two labels (so a mis-sliced
+             row would show; logits_bit_equal reported); 13 fused-block and
+             1 normalize_u8 launches per served batch; the serving report
+             (rows, sheds, replies, batch fill); requests/s and p50/p99
+             request latency from client push to client sink; then a
+             profile line of one more run (line=serve), a serve_overload
+             line (open-loop Poisson arrivals over the 8 clients at twice
+             the measured rate for 3 s, serve-queue-depth=32: queue-full
+             sheds, every admitted request answered once by its own
+             client, the first reply before the last push, admitted
+             p50/p99 and goodput), and a serve_lines
+             line (the three lines of examples/launch_lines_serving.txt
+             as written, model=add, 4 clients x 8 requests: exact);
 
 then one ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
 that last line. It needs a CUDA card: without one it exits 1 at once.
+
+``--only`` runs the named phases alone (``serve`` needs ``slice`` for
+its frames; ``stride2`` runs inside ``kernel``, the flagship's profile
+inside ``slice``, the overload and reference lines inside ``serve``) and
+ends after them, without the ``kernels`` and result lines.
 """
 
 from __future__ import annotations
@@ -2355,6 +2385,370 @@ def check_hostspans(torch, results, workdir):
                              "is missing or a kernel did not launch")
 
 
+# -- phase: the serving tier --------------------------------------------------
+
+#: rows per served batch, client pipelines, requests per client, and the
+#: admission bound of the measured run and of the 2x-overload run
+SERVE_BATCH = 32
+SERVE_CLIENTS = 8
+SERVE_PER_CLIENT = 32
+SERVE_DEPTH = 256
+OVERLOAD_DEPTH = 32
+OVERLOAD_S = 3.0
+SERVE_FRAME_CAPS = (f"other/tensors,num-tensors=1,dimensions=3:{SIZE}:{SIZE},"
+                    "types=uint8,framerate=0/1")
+
+
+def _serve_line(depth: int = SERVE_DEPTH) -> str:
+    """The serving line at full width: MobileNet-v2 1.0, 224x224, 1001
+    classes, 32 rows per batch assembled from every waiting client."""
+    return (f"tensor_query_serversrc id=srv port=0 serve=1 "
+            f"serve-batch={SERVE_BATCH} serve-queue-depth={depth} "
+            f"caps={SERVE_FRAME_CAPS} ! tensor_filter framework=jax "
+            "model=mobilenet_v2 custom=seed:0,fused:pallas "
+            "! tensor_query_serversink id=srv timeout=5")
+
+
+def _element(p, type_name: str):
+    return next(e for e in p.elements.values()
+                if e.ELEMENT_NAME == type_name)
+
+
+def _serve_frames(frames, client: int, n: int = SERVE_PER_CLIENT):
+    """Client ``client``'s frames: the flagship's seeded frames, from an
+    offset of its own."""
+    return [frames[(client * 17 + k) % len(frames)] for k in range(n)]
+
+
+def _run_serving(server_line, clients, client_caps, client_tail="",
+                 decoder="", traced=True):
+    """Play ``server_line`` and one client pipeline per entry of
+    ``clients`` (each ``(frames, offsets)``: the frames it pushes and, for
+    an open-loop run, the second after the start at which it pushes each;
+    None pushes them back to back), all started together in threads.
+    Returns (per-client results, the server's serving report, seconds from
+    the first push to the last reply, the served filter's forward and
+    device). Each frame's pts names its client and index, so a reply
+    names the request it answers."""
+    import threading
+
+    from nnstreamer_tpu_torch import trace
+    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    server = parse_launch(server_line)
+    tracer = trace.attach(server) if traced else None
+    server.play()
+    res = {}
+    t0 = [0.0]
+    # every client connected and playing before the first push; the
+    # barrier's action stamps the start all offsets count from
+    ready = threading.Barrier(
+        len(clients) + 1, timeout=60,
+        action=lambda: t0.__setitem__(0, time.perf_counter()))
+    try:
+        port = _element(server, "tensor_query_serversrc").port
+
+        def client(i, frames, offsets):
+            cl = parse_launch(
+                f"appsrc name=src caps={client_caps} ! tensor_query_client "
+                f"name=qc port={port} timeout=60 {client_tail} "
+                f"! {decoder}tensor_sink name=out")
+            arrived = {}
+            cl["out"].connect_new_data(
+                lambda b: arrived.__setitem__(b.pts, time.perf_counter()))
+            cl.play()
+            pushed = {}
+            try:
+                ready.wait()
+                for k, f in enumerate(frames):
+                    if offsets is not None:
+                        delay = t0[0] + offsets[k] - time.perf_counter()
+                        if delay > 0:
+                            time.sleep(delay)
+                    pts = i * 1_000_000 + k
+                    pushed[pts] = time.perf_counter()
+                    cl["src"].push_buffer(Buffer(tensors=[f], pts=pts))
+                cl["src"].end_of_stream()
+                ok = cl.bus.wait_eos(180)
+                res[i] = {"ok": ok, "error": cl.bus.error, "pushed": pushed,
+                          "arrived": arrived,
+                          "out": list(cl["out"].collected),
+                          "dropped": cl["qc"].error_stats["dropped"]}
+            finally:
+                cl.stop()
+
+        threads = [threading.Thread(target=client, args=(i, fr, off),
+                                    daemon=True)
+                   for i, (fr, off) in enumerate(clients)]
+        for t in threads:
+            t.start()
+        ready.wait()
+        for t in threads:
+            t.join(timeout=300)
+            if t.is_alive():
+                raise AssertionError("serve: a client pipeline hung")
+        last = max((max(r["arrived"].values()) for r in res.values()
+                    if r["arrived"]), default=t0[0])
+        fw = _element(server, "tensor_filter").fw
+        forward = (fw._bundle.apply_fn, fw._device)  # the backend closes
+    finally:
+        server.stop()
+    if len(res) != len(clients):
+        raise AssertionError(f"serve: {len(clients) - len(res)} client "
+                             "pipeline(s) failed to run")
+    for i, r in res.items():
+        if not r["ok"] or r["error"] is not None:
+            raise AssertionError(f"serve: client {i} failed: {r['error']}")
+    serving = next(iter(tracer.serving().values())) if traced else None
+    return res, serving, last - t0[0], forward
+
+
+def _latencies_ms(res) -> list:
+    return sorted((r["arrived"][k] - r["pushed"][k]) * 1e3
+                  for r in res.values() for k in r["arrived"])
+
+
+def _pct(sorted_vals, q: float):
+    if not sorted_vals:
+        return None
+    return sorted_vals[min(len(sorted_vals) - 1, int(q * len(sorted_vals)))]
+
+
+def _serve_launches(name, launches, batches):
+    if launches.get("fused_inverted_residual") != 13 * batches or \
+            launches.get("normalize_u8") != batches:
+        raise AssertionError(f"serve {name}: launches {launches} over "
+                             f"{batches} served batches")
+
+
+def _check_replies(name, res, n_per_client):
+    """Every client got exactly its own requests' replies, once each, in
+    the order it sent them."""
+    for i, r in res.items():
+        got = [b.pts for b in r["out"]]
+        want = sorted(r["pushed"])
+        if got != want or len(got) != n_per_client:
+            raise AssertionError(f"serve {name}: client {i} got pts "
+                                 f"{got[:5]}... for {want[:5]}...")
+
+
+def check_serve(torch, results, workdir):
+    """The serving tier at full width: 8 clients x 32 frames through the
+    continuous-batching server (labels and logits against the direct
+    forward at batch 32, launch counts per served batch, the serving
+    report, requests/s and request latency), one torch.profiler run, a
+    run at twice the measured capacity (open-loop Poisson arrivals,
+    serve-queue-depth=32: queue-full sheds, every admitted request
+    answered once by the right client), then the three reference serving
+    lines of examples/launch_lines_serving.txt as written."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.ops import _cuda
+
+    labels, frames = results["flag_labels"], results["flag_frames"]
+    names = [f"class{i}" for i in range(1001)]
+    decoder = f"tensor_decoder mode=image_labeling option1={labels} ! "
+    clients = [(_serve_frames(frames, i), None) for i in range(SERVE_CLIENTS)]
+    total = SERVE_CLIENTS * SERVE_PER_CLIENT
+    # warm-up: one client (cuDNN plans, the allocator), not measured
+    _run_serving(_serve_line(), clients[:1], SERVE_FRAME_CAPS,
+                 traced=False)
+    launches_all = {}
+
+    def add_launches(launches):
+        for k, v in launches.items():
+            launches_all[k] = launches_all.get(k, 0) + v
+
+    _cuda.reset_launches()
+    res, srv, secs, (forward, device) = _run_serving(
+        _serve_line(), clients, SERVE_FRAME_CAPS, decoder=decoder)
+    launches = dict(_cuda.LAUNCHES)
+    add_launches(launches)
+    _serve_launches("labels", launches, srv["batches"])
+    if srv["rows"] != total or srv["shed"] != 0 or srv["replies"] != total \
+            or not srv["batch_fill"] > 1:
+        raise AssertionError(f"serve: serving report {srv}")
+    _check_replies("labels", res, SERVE_PER_CLIENT)
+    # the direct forward of the same filter on each client's frames at
+    # batch 32: its labels, and its logits for the second run
+    want_logits = {}
+    with torch.inference_mode():
+        for i, (fr, _) in enumerate(clients):
+            x = torch.from_numpy(np.stack(fr)).to(device)
+            want_logits[i] = forward(x).float()
+    torch.cuda.synchronize()
+    label_ok, distinct = True, []
+    for i, r in res.items():
+        got = []
+        for b in r["out"]:
+            lab = b.meta["label"]
+            got.extend(lab if isinstance(lab, list) else [lab])
+        want = [names[j] for j in want_logits[i].argmax(-1).tolist()]
+        label_ok = label_ok and got == want
+        distinct.append(len(set(want)))
+    lat = _latencies_ms(res)
+    rps = total / secs
+    # the logits: the same run with no decoder at the clients
+    _cuda.reset_launches()
+    res2, srv2, secs2, _ = _run_serving(_serve_line(), clients,
+                                        SERVE_FRAME_CAPS)
+    launches2 = dict(_cuda.LAUNCHES)
+    add_launches(launches2)
+    _serve_launches("logits", launches2, srv2["batches"])
+    _check_replies("logits", res2, SERVE_PER_CLIENT)
+    logits_err, logits_ok, bit_equal = 0.0, True, True
+    shift_caught, rows_caught = True, 0
+    for i, r in res2.items():
+        want = want_logits[i]
+        got = torch.from_numpy(np.stack(
+            [np.asarray(b.tensors[0]).reshape(-1) for b in r["out"]])
+        ).to(want.device)
+        logits_err = max(logits_err, max_err(got, want))
+        logits_ok = logits_ok and got.shape == want.shape and \
+            within(got, want, 0.15, 0.05)
+        bit_equal = bit_equal and torch.equal(got, want)
+        # a demux off by one row must fail the same check: the replies
+        # shifted by one row, against the direct forward
+        shifted = got.roll(1, 0)
+        shift_caught = shift_caught and not within(shifted, want, 0.15, 0.05)
+        rows_caught += int((~((shifted - want).abs()
+                              <= 0.15 + 0.05 * want.abs()).all(-1)).sum())
+    lat2 = _latencies_ms(res2)
+    emit("serve", clients=SERVE_CLIENTS, requests=total,
+         serve_batch=SERVE_BATCH, seconds=secs, requests_per_s=rps,
+         p50_request_ms=_pct(lat, 0.5), p99_request_ms=_pct(lat, 0.99),
+         batches=srv["batches"], batch_fill=srv["batch_fill"],
+         padded_rows=srv["padded_rows"],
+         time_in_queue=srv["time_in_queue"], launches=launches,
+         labels_equal_direct_forward=label_ok,
+         distinct_labels_per_client=distinct,
+         logits_run={"seconds": secs2, "requests_per_s": total / secs2,
+                     "p50_request_ms": _pct(lat2, 0.5),
+                     "p99_request_ms": _pct(lat2, 0.99),
+                     "batches": srv2["batches"],
+                     "batch_fill": srv2["batch_fill"],
+                     "launches": launches2},
+         logits_max_abs_err=logits_err, logits_atol=0.15, logits_rtol=0.05,
+         logits_ok=logits_ok, logits_bit_equal=bit_equal,
+         shifted_by_one_fails=shift_caught,
+         shifted_rows_caught=rows_caught, card=results["card"])
+    if not label_ok or not logits_ok:
+        raise AssertionError("serve: a reply's label or logits disagree "
+                             "with the direct forward")
+    # the checks above could not see a mis-sliced row if every frame got
+    # the same class, or if neighbouring rows' logits lay within the band
+    if min(distinct) < 2 or not shift_caught:
+        raise AssertionError(
+            f"serve: the label and logits checks cannot tell rows apart "
+            f"(distinct labels per client {distinct}, replies shifted by "
+            f"one row pass: {not shift_caught})")
+
+    # one run under torch.profiler: device busy, idle share, device time
+    # by kernel
+    def run():
+        _cuda.reset_launches()
+        _, sp, s, _ = _run_serving(_serve_line(), clients, SERVE_FRAME_CAPS)
+        prof_launches = dict(_cuda.LAUNCHES)
+        add_launches(prof_launches)
+        _serve_launches("profile", prof_launches, sp["batches"])
+        return s
+
+    emit("profile", line="serve", requests=total,
+         **device_profile(torch, run))
+
+    # 2x the measured capacity, open loop: Poisson arrivals per client at
+    # 2 * rps / 8, for OVERLOAD_S seconds, queue bound 32
+    rate = 2.0 * rps / SERVE_CLIENTS
+    rng = np.random.default_rng(7)
+    over = []
+    for i in range(SERVE_CLIENTS):
+        offs = np.cumsum(rng.exponential(1.0 / rate, int(rate * OVERLOAD_S
+                                                        * 1.5) + 8))
+        offs = offs[offs < OVERLOAD_S]
+        over.append((_serve_frames(frames, i, len(offs)), list(offs)))
+    _cuda.reset_launches()
+    res3, srv3, secs3, _ = _run_serving(
+        _serve_line(depth=OVERLOAD_DEPTH), over, SERVE_FRAME_CAPS,
+        client_tail="on-error=drop max-in-flight=100000")
+    launches3 = dict(_cuda.LAUNCHES)
+    add_launches(launches3)
+    _serve_launches("overload", launches3, srv3["batches"])
+    offered = sum(len(r["pushed"]) for r in res3.values())
+    delivered = sum(len(r["out"]) for r in res3.values())
+    dropped = sum(r["dropped"] for r in res3.values())
+    own_once = all(
+        len({b.pts for b in r["out"]}) == len(r["out"])
+        and all(b.pts // 1_000_000 == i and b.pts in r["pushed"]
+                for b in r["out"])
+        for i, r in res3.items())
+    lat3 = _latencies_ms(res3)
+    first = min(min(r["pushed"].values()) for r in res3.values())
+    last_push = max(max(r["pushed"].values()) for r in res3.values())
+    # a batch must leave while the clients still send: a scheduler that
+    # ingests until its queue is empty answers nothing until they stop
+    first_reply = min((min(r["arrived"].values()) for r in res3.values()
+                       if r["arrived"]), default=float("inf"))
+    served_while_sending = first_reply < last_push
+    emit("serve_overload", target_rps=2.0 * rps,
+         offered_rps=offered / max(1e-9, last_push - first),
+         offered=offered, admitted=srv3["enqueued"], shed=srv3["shed"],
+         shed_reasons=srv3["shed_reasons"], replies=srv3["replies"],
+         delivered=delivered, client_drops=dropped,
+         admitted_p50_ms=_pct(lat3, 0.5), admitted_p99_ms=_pct(lat3, 0.99),
+         goodput_rps=delivered / secs3, seconds=secs3,
+         batches=srv3["batches"], batch_fill=srv3["batch_fill"],
+         replies_own_client_once=own_once,
+         served_while_sending=served_while_sending, launches=launches3,
+         card=results["card"])
+    if not (srv3["shed"] > 0 and srv3["shed_reasons"].get("queue-full", 0) > 0
+            and own_once and delivered == srv3["replies"] == srv3["enqueued"]
+            and delivered + dropped == offered and served_while_sending):
+        raise AssertionError("serve: the 2x run did not shed on queue-full, "
+                             "lost or misrouted an admitted request, or "
+                             "answered nothing while the clients sent")
+    results["serve_launches"] = launches_all
+    check_serve_lines(results)
+
+
+def check_serve_lines(results):
+    """The three lines of examples/launch_lines_serving.txt as written
+    (model=add on the card): 4 clients x 8 requests each, every answer
+    exactly x + 1, in order. The clients keep one request in flight and
+    retry a shed (the multi-tenant line's rate limit)."""
+    import numpy as np
+
+    with open(os.path.join(ROOT, "examples", "launch_lines_serving.txt"),
+              encoding="utf-8") as f:
+        lines = [ln.strip() for ln in f
+                 if ln.strip() and not ln.startswith("#")]
+    rows = []
+    for line in lines:
+        n = 8 if "dimensions=8" in line else 4
+        caps = (f"other/tensors,num-tensors=1,dimensions={n},"
+                "types=float32,framerate=0/1")
+        sid = line.split(" id=", 1)[1].split()[0]
+        clients = [([np.full(n, 10.0 * i + k, np.float32) for k in range(8)],
+                    None) for i in range(4)]
+        res, srv, secs, _ = _run_serving(
+            line, clients, caps,
+            client_tail="max-in-flight=1 on-error=retry:12 "
+                        "retry-backoff-ms=10")
+        ok = True
+        for i, r in res.items():
+            got = [np.asarray(b.tensors[0]).reshape(-1) for b in r["out"]]
+            want = [fr + 1 for fr in clients[i][0]]
+            ok = ok and len(got) == 8 and all(
+                np.array_equal(g, w) for g, w in zip(got, want))
+        rows.append({"id": sid, "exact": ok, "replies": srv["replies"],
+                     "shed": srv["shed"], "batches": srv["batches"],
+                     "batch_fill": srv["batch_fill"], "seconds": secs})
+    emit("serve_lines", lines=rows, card=results["card"])
+    if not all(r["exact"] and r["replies"] == 32 for r in rows):
+        raise AssertionError("serve_lines: a reference serving line did not "
+                             "answer exactly")
+
+
 def main() -> int:
     import torch
 
@@ -2376,22 +2770,38 @@ def main() -> int:
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     workdir = tempfile.mkdtemp(dir=workdir)
-    check_elementwise(torch, results)
-    check_fused_block(torch, results)
-    check_slice(torch, results, workdir)
-    check_transform(torch, results)
-    check_attention(torch, results)
-    check_stream(torch, results)
-    check_chunk(torch, results)
-    check_ring(torch, results)
-    check_longctx(torch, results)
-    check_vit(torch, results, workdir)
-    check_detect(torch, results, workdir)
-    check_segment(torch, results)
-    check_vision(torch, results, workdir)
-    check_upload(torch, results, workdir)
-    check_batch(torch, results)
-    check_hostspans(torch, results, workdir)
+    phases = {
+        "elementwise": lambda: check_elementwise(torch, results),
+        "kernel": lambda: check_fused_block(torch, results),
+        "slice": lambda: check_slice(torch, results, workdir),
+        "transform": lambda: check_transform(torch, results),
+        "attention": lambda: check_attention(torch, results),
+        "stream": lambda: check_stream(torch, results),
+        "chunk": lambda: check_chunk(torch, results),
+        "ring": lambda: check_ring(torch, results),
+        "longctx": lambda: check_longctx(torch, results),
+        "vit": lambda: check_vit(torch, results, workdir),
+        "detect": lambda: check_detect(torch, results, workdir),
+        "segment": lambda: check_segment(torch, results),
+        "vision": lambda: check_vision(torch, results, workdir),
+        "upload": lambda: check_upload(torch, results, workdir),
+        "batch": lambda: check_batch(torch, results),
+        "hostspans": lambda: check_hostspans(torch, results, workdir),
+        "serve": lambda: check_serve(torch, results, workdir),
+    }
+    only = None
+    if "--only" in sys.argv[1:]:
+        only = sys.argv[sys.argv.index("--only") + 1].split(",")
+        unknown = sorted(set(only) - set(phases))
+        if unknown:
+            print(f"chip_smoke: unknown phases {unknown}; phases are "
+                  f"{sorted(phases)}", file=sys.stderr)
+            return 2
+    for name, run in phases.items():
+        if only is None or name in only:
+            run()
+    if only is not None:
+        return 0
 
     src = {"fused_inverted_residual": "nnstreamer_tpu_torch/csrc/fused_block.cu",
            "normalize_u8": "nnstreamer_tpu_torch/csrc/preprocess.cu",
@@ -2408,7 +2818,7 @@ def main() -> int:
         "launches", "stream_launches", "vit_launches", "ring_launches",
         "longctx_launches", "upload_launches", "batch_launches",
         "hostspans_launches", "detect_launches", "detect_pp_launches",
-        "segment_launches", "vision_launches"))
+        "segment_launches", "vision_launches", "serve_launches"))
         for name in src}
     launches["arith_chain"] += results["arith_launches"]
     kernels = []

@@ -50,6 +50,9 @@ from nnstreamer_tpu_torch.types import TensorInfo, TensorsInfo
 #: custom keys of the JAX backend whose features this backend lacks
 _NOT_PORTED_CUSTOM = ("shard", "shard_devices", "tp_devices", "donate", "aot",
                       "arch")
+#: ``custom=aot:<v>`` values that turn the JAX backend's ahead-of-time
+#: compile off, which is what this backend always does: accepted
+_AOT_OFF = ("0", "false", "no")
 
 
 def make_postproc(custom: Dict[str, str]):
@@ -165,7 +168,8 @@ class TorchCudaFilter(FilterFramework):
         model = props.model_file
         if not model:
             raise ValueError("torch_cuda filter needs model=<zoo-name>")
-        bad = [k for k in _NOT_PORTED_CUSTOM if k in custom]
+        bad = [k for k in _NOT_PORTED_CUSTOM if k in custom
+               and not (k == "aot" and custom[k] in _AOT_OFF)]
         if bad:
             raise ValueError(f"custom={','.join(bad)} is not supported by the "
                              "torch_cuda backend")

@@ -22,8 +22,13 @@ sync every few invokes (to split dispatch from device compute).
 :meth:`Tracer.element_self_ms` splits the chain spans' self time by
 element.
 
-The JAX tracer's serving, controller, AOT-cache, rollout and cross-process
-request records belong to modules this package does not have yet.
+The serving tier's records (``serving()``: admission, shed, batch fill,
+pool wait, replies; the ``serving_wait_us`` and ``request_rtt_us``
+histograms), the nntrace-x request records (``tracex_report``,
+``clock_samples``) and the serving controller's decision log
+(``ctl_report``) are the JAX tracer's, under its keys and counter names.
+Its AOT-cache and rollout records belong to modules this package does
+not have yet.
 """
 
 from __future__ import annotations
@@ -35,8 +40,7 @@ import statistics
 import threading
 import time
 from collections import defaultdict, deque
-from dataclasses import dataclass
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 from nnstreamer_tpu_torch.analysis import lockwitness
 
@@ -322,10 +326,34 @@ class Tracer:
         # gates on one attribute read). Aggregate counters above stay on
         # either way.
         self.spans: Optional[SpanRing] = SpanRing() if spans else None
-        # metrics endpoint: fixed-log-bucket proctime histograms per
-        # element — always-on (one bit_length + two adds per sample),
-        # rendered as Prometheus text by metrics_text()
+        # metrics endpoint: fixed-log-bucket latency histograms — per
+        # element (proctime) and per serving (server, tenant) pool wait —
+        # always-on (one bit_length + two adds per sample), rendered as
+        # Prometheus text by metrics_text()
         self._hist: Dict[str, _Hist] = defaultdict(_Hist)
+        self._hist_serving: Dict[str, _Hist] = defaultdict(_Hist)
+        # serving controller decisions, keyed by query-server id: bounded
+        # per-server decision ring + latest knob values
+        self._ctl_log: Dict[str, dict] = {}
+        # serving-tier stats, keyed by the query-server id both serversrc
+        # and serversink share: queue depth / time-in-queue series,
+        # batch fill, shed counts and per-tenant goodput
+        self._serving: Dict[str, dict] = {}
+        # nntrace-x cross-process request records (client side): bounded
+        # recent window + tail-retained exemplars (the slowest requests
+        # and every shed survive the window rolling over), per-component
+        # series, clock samples for trace stitching, and a per-peer RTT
+        # histogram
+        self._tracex = {
+            "recent": deque(maxlen=256),
+            "slow": [],  # heap of (rtt_ms, seq, record) — top-N retained
+            "shed": deque(maxlen=128),
+            "clock_samples": deque(maxlen=256),
+            "components": defaultdict(_Series),
+            "count": 0,
+            "shed_count": 0,
+        }
+        self._hist_rpc: Dict[str, _Hist] = defaultdict(_Hist)
         # periodic metrics snapshots (time-series, not just end-of-run).
         # The ring is bounded: evictions are COUNTED (dropped_snapshots
         # in the series envelope) so a consumer can tell a quiet period
@@ -336,6 +364,20 @@ class Tracer:
         self._sampler: Optional[threading.Thread] = None
         self._sampler_stop: Optional[threading.Event] = None
         self._lock = lockwitness.make_lock("trace.tracer")
+
+    def _serving_entry(self, server: str) -> dict:
+        s = self._serving.get(server)
+        if s is None:
+            s = self._serving[server] = {
+                "enqueued": 0, "shed": 0, "batches": 0, "rows": 0,
+                "padded_rows": 0, "replies": 0, "reply_drops": 0,
+                "depth": _Series(), "wait": _Series(), "fill": _Series(),
+                "shed_reasons": defaultdict(int),
+                "tenants": defaultdict(lambda: {
+                    "enqueued": 0, "shed": 0, "replies": 0,
+                    "t_first": None, "t_last": None}),
+            }
+        return s
 
     def enable_spans(self, cap: Optional[int] = None) -> SpanRing:
         """Turn the span flight-recorder on (idempotent)."""
@@ -434,6 +476,203 @@ class Tracer:
             }
 
 
+    # -- serving tier (nnserve) --------------------------------------------
+    def record_serving_enqueue(self, server: str, tenant: str,
+                               depth: int) -> None:
+        """One request admitted into the serving pool; ``depth`` is the
+        pool's total waiting count AFTER the enqueue (queue-depth
+        series)."""
+        with self._lock:
+            s = self._serving_entry(server)
+            s["enqueued"] += 1
+            s["depth"].add(float(depth))
+            s["tenants"][tenant]["enqueued"] += 1
+
+    def record_serving_shed(self, server: str, tenant: str,
+                            reason: str) -> None:
+        """One request shed with SERVER_BUSY (queue-full / rate-limited /
+        unbatchable / draining)."""
+        with self._lock:
+            s = self._serving_entry(server)
+            s["shed"] += 1
+            s["shed_reasons"][reason] += 1
+            s["tenants"][tenant]["shed"] += 1
+
+    def record_serving_batch(self, server: str, fill: int,
+                             batch: int) -> None:
+        """One micro-batch assembled: ``fill`` valid rows padded to
+        ``batch`` (the fill series is the batch-fill ratio numerator)."""
+        with self._lock:
+            s = self._serving_entry(server)
+            s["batches"] += 1
+            s["rows"] += int(fill)
+            s["padded_rows"] += max(0, int(batch) - int(fill))
+            s["fill"].add(float(fill))
+
+    def record_serving_wait(self, server: str, seconds: float,
+                            tenant: str = "_default",
+                            trace_id: Optional[str] = None) -> None:
+        """Time one request spent in the admission pool before its batch
+        assembled (time-in-queue — where overload latency lives). Also
+        feeds the per-(server, tenant) metrics-endpoint histogram;
+        ``trace_id`` (nntrace-x sampled requests) becomes the bucket's
+        exemplar in the Prometheus text."""
+        with self._lock:
+            self._serving_entry(server)["wait"].add(seconds)
+            self._hist_serving[f"{server}|{tenant}"].add(seconds, trace_id)
+
+    def record_serving_reply(self, server: str, tenant: str) -> None:
+        """One reply routed back to its client (the goodput numerator;
+        per-tenant rates derive from first/last reply stamps)."""
+        now = time.monotonic()
+        with self._lock:
+            s = self._serving_entry(server)
+            s["replies"] += 1
+            t = s["tenants"][tenant]
+            t["replies"] += 1
+            if t["t_first"] is None:
+                t["t_first"] = now
+            t["t_last"] = now
+
+    def record_serving_reply_drop(self, server: str) -> None:
+        """A reply could not be delivered (client gone) — the serversink
+        drop counter the fault record mirrors."""
+        with self._lock:
+            self._serving_entry(server)["reply_drops"] += 1
+
+    # -- nntrace-x: cross-process request traces (client side) -------------
+    #: slowest-request exemplars retained past the recent window
+    TRACEX_SLOW_KEEP = 16
+
+    def record_request_trace(self, peer: str, record: Dict,
+                             sample=None) -> None:
+        """One sampled request's client-observed decomposition (the
+        :func:`nnstreamer_tpu_torch.edge.tracex.decompose` dict: rtt_ms,
+        network/queue/batch/device/reply components, optional shed
+        reason). ``peer`` labels the server (host:port) in the RTT
+        histogram; ``sample`` is the request's (t1,t2,t3,t4) clock
+        sample, banked for offline trace stitching. Head sampling bounds
+        how many requests get here; tail retention keeps the slow and
+        shed ones after the recent window rolls."""
+        import heapq
+
+        rec = dict(record)
+        rec["peer"] = peer
+        with self._lock:
+            tx = self._tracex
+            tx["count"] += 1
+            tx["recent"].append(rec)
+            if sample is not None:
+                tx["clock_samples"].append(tuple(int(v) for v in sample))
+            rtt = float(rec.get("rtt_ms", 0.0))
+            if rec.get("shed"):
+                tx["shed_count"] += 1
+                tx["shed"].append(rec)
+            else:
+                for k, v in rec.items():
+                    if k.endswith("_ms") and isinstance(v, (int, float)):
+                        tx["components"][k].add(float(v))
+                heapq.heappush(tx["slow"], (rtt, tx["count"], rec))
+                if len(tx["slow"]) > self.TRACEX_SLOW_KEEP:
+                    heapq.heappop(tx["slow"])  # evict the fastest
+            if rtt > 0:
+                self._hist_rpc[peer].add(rtt / 1e3, rec.get("trace_id"))
+
+    def clock_samples(self) -> List[tuple]:
+        """Banked (t1, t2, t3, t4) ns samples — the offset-estimation
+        input :func:`merge_chrome_traces` uses to stitch this process's
+        trace with its peer's."""
+        with self._lock:
+            return list(self._tracex["clock_samples"])
+
+    def tracex_report(self) -> Dict:
+        """The ``trace_x`` report section: per-component latency stats
+        over the sampled admitted requests, plus the retained slow/shed
+        exemplars (each carrying its trace_id — the handle
+        ``doctor --trace-request`` looks up in a merged trace)."""
+        with self._lock:
+            tx = self._tracex
+            slow = [r for _, _, r in sorted(tx["slow"], reverse=True)]
+            return {
+                "sampled": tx["count"],
+                "shed_sampled": tx["shed_count"],
+                "components_ms": {k: s.stats_raw()
+                                  for k, s in tx["components"].items()},
+                "slow_exemplars": slow,
+                "shed_exemplars": list(tx["shed"]),
+                "recent": list(tx["recent"])[-32:],
+            }
+
+    def serving(self) -> Dict[str, dict]:
+        """{server_id: {enqueued, shed, shed_reasons, batches, rows,
+        padded_rows, batch_fill, replies, reply_drops, queue_depth,
+        time_in_queue, per_tenant}} — plain dicts, safe to JSON."""
+        with self._lock:
+            out = {}
+            for server, s in self._serving.items():
+                tenants = {}
+                for name, t in s["tenants"].items():
+                    span = ((t["t_last"] - t["t_first"])
+                            if t["t_first"] is not None else 0.0)
+                    tenants[name] = {
+                        "enqueued": t["enqueued"], "shed": t["shed"],
+                        "replies": t["replies"],
+                        "goodput_rps": round((t["replies"] - 1) / span, 2)
+                        if span > 0 and t["replies"] > 1 else 0.0,
+                    }
+                out[server] = {
+                    "enqueued": s["enqueued"], "shed": s["shed"],
+                    "shed_reasons": dict(s["shed_reasons"]),
+                    "batches": s["batches"], "rows": s["rows"],
+                    "padded_rows": s["padded_rows"],
+                    "batch_fill": round(s["rows"] / s["batches"], 3)
+                    if s["batches"] else 0.0,
+                    "replies": s["replies"],
+                    "reply_drops": s["reply_drops"],
+                    "queue_depth": s["depth"].stats_raw(),
+                    "time_in_queue": s["wait"].stats(),
+                    "per_tenant": tenants,
+                }
+            return out
+
+    # -- nnctl: controller decisions ---------------------------------------
+    #: per-server decision-ring bound (oldest evicted, evictions counted)
+    CTL_DECISIONS_KEEP = 256
+
+    def record_ctl_decision(self, server: str, decision: Dict) -> None:
+        """One nnctl actuation: the decision dict (tick, rule, knob,
+        before→after, reason, observed metrics) appended to the server's
+        bounded ring; the latest knob values index the trajectory.
+        Rendered by ``doctor --ctl`` from a saved report."""
+        with self._lock:
+            entry = self._ctl_log.get(server)
+            if entry is None:
+                entry = self._ctl_log[server] = {
+                    "decisions": deque(maxlen=self.CTL_DECISIONS_KEEP),
+                    "dropped_decisions": 0,
+                    "knobs": {},
+                }
+            dq = entry["decisions"]
+            if len(dq) == dq.maxlen:
+                entry["dropped_decisions"] += 1
+            dq.append(dict(decision))
+            knob = decision.get("knob")
+            if knob:
+                entry["knobs"][str(knob)] = decision.get("after")
+
+    def ctl_report(self) -> Dict[str, dict]:
+        """The ``ctl`` report section: per-server decision log + latest
+        knob values (plain dicts, safe to JSON)."""
+        with self._lock:
+            return {
+                server: {
+                    "decisions": list(e["decisions"]),
+                    "dropped_decisions": e["dropped_decisions"],
+                    "knobs": dict(e["knobs"]),
+                }
+                for server, e in self._ctl_log.items()
+            }
+
     def top_residency(self, n: int = 3) -> List[Dict]:
         """The n worst edges by total parked time — the first place to
         look for a latency budget overrun (GstShark interlatency role,
@@ -486,15 +725,18 @@ class Tracer:
                     "per_element": {el: dict(c)
                                     for el, c in self._crossings_el.items()},
                 }
-            if self._hist or self._metrics_series:
+            if (self._hist or self._hist_serving or self._hist_rpc
+                    or self._metrics_series):
                 out["metrics"] = {
                     "histograms": {
                         "proctime_us": {el: h.to_dict()
                                         for el, h in self._hist.items()},
-                        # the JAX report's serving and request sections,
-                        # empty: this package has no serving tier yet
-                        "serving_wait_us": {},
-                        "request_rtt_us": {},
+                        "serving_wait_us": {
+                            key: h.to_dict()
+                            for key, h in self._hist_serving.items()},
+                        "request_rtt_us": {
+                            peer: h.to_dict()
+                            for peer, h in self._hist_rpc.items()},
                         "le_us": list(HIST_LE_US),
                     },
                     "series": list(self._metrics_series),
@@ -502,6 +744,14 @@ class Tracer:
                     # (no snapshots) from an evicted one (counter > 0)
                     "dropped_snapshots": self._series_dropped,
                 }
+            tracex_any = self._tracex["count"] or self._tracex["shed_count"]
+            ctl_any = bool(self._ctl_log)
+        if self._serving:
+            out["serving"] = self.serving()
+        if ctl_any:
+            out["ctl"] = self.ctl_report()
+        if tracex_any:
+            out["trace_x"] = self.tracex_report()
         return out
 
     # -- metrics endpoint (histograms + time-series snapshots) -------------
@@ -527,7 +777,8 @@ class Tracer:
 
     def _metrics_snapshot(self) -> Dict:
         """One time-series sample: cumulative counts + histogram-derived
-        percentiles per element, stamped relative to tracer start. Appended to the bounded series ring."""
+        percentiles per element and per serving pool, stamped relative to
+        tracer start. Appended to the bounded series ring."""
         snap: Dict = {"t_s": round(time.monotonic() - self._t_start, 3)}
         with self._lock:
             if self._hist:
@@ -536,6 +787,26 @@ class Tracer:
                          "p50_us": h.quantile_us(0.5),
                          "p99_us": h.quantile_us(0.99)}
                     for el, h in self._hist.items()}
+            if self._serving:
+                serving = {}
+                for server, s in self._serving.items():
+                    wait = _Hist()
+                    for key, h in self._hist_serving.items():
+                        if key.partition("|")[0] == server:
+                            wait.merge(h)
+                    serving[server] = {
+                        "admitted": s["enqueued"], "shed": s["shed"],
+                        "replies": s["replies"], "batches": s["batches"],
+                        "batch_fill": round(s["rows"] / s["batches"], 3)
+                        if s["batches"] else 0.0,
+                        "wait_p99_ms": round(wait.quantile_us(0.99) / 1e3, 3),
+                    }
+                snap["serving"] = serving
+            if self._ctl_log:
+                # knob trajectory sample: the controller's current knob
+                # values ride the periodic series
+                snap["ctl"] = {server: dict(e["knobs"])
+                               for server, e in self._ctl_log.items()}
             if len(self._metrics_series) == self._metrics_series.maxlen:
                 self._series_dropped += 1
             self._metrics_series.append(snap)
@@ -588,6 +859,11 @@ class Tracer:
                 "span tracing is off — attach(pipeline, spans=True) or "
                 f"{SPAN_ENV}=1")
         doc = self.spans.chrome_trace()
+        samples = self.clock_samples()
+        if samples:
+            # ship the banked NTP-style samples with the trace so
+            # merge_chrome_traces can stitch it against the peer's doc
+            doc["otherData"]["clock_samples_ns"] = [list(s) for s in samples]
         if path:
             with open(path, "w", encoding="utf-8") as f:
                 json.dump(doc, f)
@@ -753,7 +1029,8 @@ class Tracer:
     def summary(self) -> str:
         lines = []
         for name, e in sorted(self.report().items()):
-            if name in ("residency", "faults", "crossings", "metrics"):
+            if name in ("residency", "faults", "crossings", "metrics",
+                        "serving", "ctl", "trace_x"):
                 continue
             pt = e["proctime"]
             fps = e.get("fps")
@@ -855,44 +1132,6 @@ def validate_chrome_trace(trace) -> List[str]:
     return problems
 
 
-@dataclass
-class _OffsetEstimate:
-    """Clock offset between two monotonic clocks, from NTP-style
-    four-stamp samples (t1 local-send, t2 remote-recv, t3 remote-send,
-    t4 local-recv). ``offset_ns`` is LOCAL − REMOTE; ``err_ns`` is half
-    the round-trip delay of the best sample, a bound that holds for any
-    split of that delay between the two directions. (A copy of the JAX
-    package's ``edge/ntp.py`` estimate.)"""
-
-    offset_ns: int
-    delay_ns: int
-    err_ns: int
-    n_samples: int
-
-    def good(self, max_err_ns: int) -> bool:
-        return self.err_ns <= int(max_err_ns)
-
-
-def _estimate_offset(samples: Iterable[Tuple[int, int, int, int]]
-                     ) -> Optional[_OffsetEstimate]:
-    """The minimum-delay sample's offset ((t1−t2) + (t4−t3)) / 2, or None
-    when no sample is usable (empty, or non-causal stamps)."""
-    best = None
-    n = 0
-    for t1, t2, t3, t4 in samples:
-        if t4 < t1 or t3 < t2 or (t4 - t1) < (t3 - t2):
-            continue  # non-causal: corrupt or cross-paired stamps
-        n += 1
-        delay = (t4 - t1) - (t3 - t2)
-        if best is None or delay < best[0]:
-            best = (delay, ((t1 - t2) + (t4 - t3)) // 2)
-    if best is None:
-        return None
-    delay, offset = best
-    return _OffsetEstimate(offset_ns=int(offset), delay_ns=int(delay),
-                           err_ns=int(delay) // 2 + 1, n_samples=n)
-
-
 #: default clock-offset error bound past which merge_chrome_traces
 #: refuses to rebase (the asymmetry bound exceeds what a per-request
 #: waterfall could survive) and degrades to an unmerged-but-valid doc
@@ -904,7 +1143,8 @@ def merge_chrome_traces(client_doc, server_doc, samples=None,
     """Stitch a client and a server Chrome trace into ONE validated doc.
 
     The server's events are rebased into the client's timebase using an
-    NTP-style offset estimate (:func:`_estimate_offset`) over
+    NTP-style offset estimate
+    (:func:`nnstreamer_tpu_torch.edge.ntp.estimate_offset`) over
     ``samples`` — (t1,t2,t3,t4) perf_counter-ns exchanges, defaulting
     to the ``clock_samples_ns`` the client doc banked at export — mapped
     onto the docs' ``epoch_perf_ns`` ring anchors. The server process
@@ -929,7 +1169,9 @@ def merge_chrome_traces(client_doc, server_doc, samples=None,
     sod = server_doc.get("otherData") or {}
     if samples is None:
         samples = cod.get("clock_samples_ns") or []
-    est = _estimate_offset(tuple(s) for s in samples)
+    from nnstreamer_tpu_torch.edge import ntp
+
+    est = ntp.estimate_offset(tuple(s) for s in samples)
     reason = None
     if est is None:
         reason = "no usable clock samples"

@@ -125,7 +125,26 @@ VISION_MODULES = (
 )
 
 
-@pytest.mark.parametrize("module", SLICE_MODULES + VISION_MODULES)
+#: the modules of the slice that brought the transport, the serving tier
+#: and the query elements
+SERVING_MODULES = (
+    "nnstreamer_tpu_torch.testing.faults",
+    "nnstreamer_tpu_torch.edge.protocol",
+    "nnstreamer_tpu_torch.edge.tracex",
+    "nnstreamer_tpu_torch.edge.ntp",
+    "nnstreamer_tpu_torch.edge.handle",
+    "nnstreamer_tpu_torch.edge.fleet",
+    "nnstreamer_tpu_torch.serving.admission",
+    "nnstreamer_tpu_torch.serving.scheduler",
+    "nnstreamer_tpu_torch.serving.controller",
+    "nnstreamer_tpu_torch.analysis.plant",
+    "nnstreamer_tpu_torch.elements.query",
+    "nnstreamer_tpu_torch.elements.edge_elems",
+)
+
+
+@pytest.mark.parametrize("module",
+                         SLICE_MODULES + VISION_MODULES + SERVING_MODULES)
 def test_slice_module_alone_loads_no_jax(module):
     """Each module, imported alone in a fresh interpreter, pulls in
     neither JAX nor the JAX package (the walk above imports them all
