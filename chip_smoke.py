@@ -25,8 +25,10 @@ Phases, each printing one JSON line:
              blocks (its bound is the sum of the per-block bounds); then
              the same rows at every stride-1 block shape of SSD-MobileNet
              -v2 at 300 px (13, batch 32) and DeepLab-v3 at 257 px (10,
-             batch 16) with a sum per model, and normalize_u8 at the four
-             vision lines' frames, bit-equal to its plain version;
+             batch 16) with a sum per model, SSD's 13 again at batch 1
+             (the streams phase's detect-then-crop line), and
+             normalize_u8 at the four vision lines' frames, bit-equal to
+             its plain version;
   stride2    the 4 stride-2 blocks as the main path runs them
              (inverted_residual_conv) against the plain version they ran
              before, both timed;
@@ -179,13 +181,32 @@ Phases, each printing one JSON line:
              p50/p99 and goodput), and a serve_lines
              line (the three lines of examples/launch_lines_serving.txt
              as written, model=add, 4 clients x 8 requests: exact);
+  streams    three multi-stream lines at full width, each with its
+             frames/s, p50 latency, launches and crossings: two cameras
+             (appsrc ! tensor_converter frames-per-tensor=64, twice, into
+             tensor_merge option=3 ! the flagship's tensor_filter at batch
+             128 ! tensor_split tensorseg=64,64 ! image_labeling per
+             camera; 8 batches after 2 warm-up: each camera's labels equal
+             to the direct forward's of the merged frames, 13 fused-block
+             and 1 normalize_u8 launches, one h2d at the filter and one d2h
+             at the split per batch); detect, then crop (300 px frames one
+             per buffer ! tee, SSD ! tensor_region ! tensor_converter into
+             tensor_crop.info, the frame into tensor_crop.raw; 32 frames:
+             every frame's 4 crops byte-equal to the frame sliced at the
+             regions tensor_region gives on the direct forward of that
+             frame, 13 + 1 launches per frame; a profile line of 16 more
+             frames); and the gated live camera (tensor_if
+             TENSOR_AVERAGE_VALUE gt 16 between the converter and the
+             batch-size=32 filter of the batch phase, 256 frames of which
+             a seeded 64 are dark: exactly the bright frames labelled, in
+             order, with the frames-per-tensor=32 line's labels);
 
 then one ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
 that last line. It needs a CUDA card: without one it exits 1 at once.
 
 ``--only`` runs the named phases alone (``serve`` needs ``slice`` for
-its frames; ``stride2`` runs inside ``kernel``, the flagship's profile
+its frames; ``streams`` builds its own; ``stride2`` runs inside ``kernel``, the flagship's profile
 inside ``slice``, the overload and reference lines inside ``serve``) and
 ends after them, without the ``kernels`` and result lines.
 """
@@ -1685,7 +1706,13 @@ def check_vision_blocks(torch, results, gen):
     from nnstreamer_tpu_torch.ops.fused_block import fold_inverted_residual
 
     keys = ("ms", "device_ms", "plain_ms", "cudnn_chain_ms", "bound_ms")
-    for name, want in (("ssd_mobilenet", 13), ("deeplab_v3", 10)):
+    # SSD again at batch 1: the detect-then-crop line of the streams phase
+    # runs it one frame per buffer
+    for name, want, batch, key in (
+            ("ssd_mobilenet", 13, VISION["ssd_mobilenet"]["fpt"],
+             "ssd_mobilenet"),
+            ("deeplab_v3", 10, VISION["deeplab_v3"]["fpt"], "deeplab_v3"),
+            ("ssd_mobilenet", 13, 1, "ssd_mobilenet_batch1")):
         cfg = VISION[name]
         model = _vision_model(name)
         shapes = kernel_block_shapes(model, cfg["size"])
@@ -1694,16 +1721,16 @@ def check_vision_blocks(torch, results, gen):
                                  f"expected {want}")
         tot, errs = dict.fromkeys(keys, 0.0), []
         for i, H, W, *_ in shapes:
-            row = _fused_row(torch, cfg["fpt"], H, W,
+            row = _fused_row(torch, batch, H, W,
                              fold_inverted_residual(model.blocks[i]), gen,
                              model=name, block=i)
-            for key in keys:
-                tot[key] = None if tot[key] is None or row[key] is None \
-                    else tot[key] + row[key]
+            for k in keys:
+                tot[k] = None if tot[k] is None or row[k] is None \
+                    else tot[k] + row[k]
             errs.append(row["max_abs_err"])
-        results[f"fused_{name}"] = dict(tot, max_abs_err=max(errs))
+        results[f"fused_{key}"] = dict(tot, max_abs_err=max(errs))
         emit("kernel", kernel="fused_inverted_residual", model=name,
-             block=f"sum of {want}", batch=cfg["fpt"], **tot,
+             block=f"sum of {want}", batch=batch, **tot,
              max_abs_err=max(errs))
     for name, cfg in VISION.items():
         s, fpt = cfg["size"], cfg["fpt"]
@@ -2749,6 +2776,360 @@ def check_serve_lines(results):
                              "answer exactly")
 
 
+# -- phase: the multi-stream lines ---------------------------------------------
+
+#: frames per camera per merged batch (line A): two cameras make BATCH
+CAM_FPT = BATCH // 2
+#: line B's boxes per frame (tensor_region option1)
+CROP_TOP = 4
+#: line B's measured frames, one per buffer (after 2 warm-up frames)
+CROP_FRAMES = 32
+#: line C's frames and its dark share
+GATED_FRAMES = 256
+GATED_DARK = GATED_FRAMES // 4
+
+
+def _crossings_of(tracer) -> dict:
+    c = tracer.crossings()
+    return {"h2d": c["h2d"], "d2h": c["d2h"],
+            "per_element": {el: {"h2d": v["h2d"], "d2h": v["d2h"]}
+                            for el, v in c["per_element"].items()}}
+
+
+def _two_camera_line(labels: str) -> str:
+    cam = (f"appsrc name=c{{i}} caps=video/x-raw,format=RGB,width={SIZE},"
+           f"height={SIZE},framerate=1000/1 ! tensor_converter "
+           f"frames-per-tensor={CAM_FPT} ! m.sink_{{i}} ")
+    out = (f"s.src_{{i}} ! tensor_decoder mode=image_labeling "
+           f"option1={labels} ! tensor_sink name=o{{i}} ")
+    return (cam.format(i=0) + cam.format(i=1)
+            + "tensor_merge name=m mode=linear option=3 ! tensor_filter "
+            "name=f framework=jax model=mobilenet_v2 "
+            "custom=seed:0,postproc:argmax,fused:pallas ! tensor_split "
+            f"name=s tensorseg={CAM_FPT},{CAM_FPT} "
+            + out.format(i=0) + out.format(i=1))
+
+
+def _push_cameras(p, cams, batches, pts0, pushed):
+    """Push ``batches`` merged batches, the cameras interleaved batch by
+    batch (each appsrc queues and feeds its own streaming thread, so
+    neither camera waits on the other). ``pushed[k]`` becomes the time the
+    last frame of batch k went in."""
+    from nnstreamer_tpu_torch.buffer import Buffer
+
+    for k in range(pts0, pts0 + batches):
+        for i in range(2):
+            for j in range(CAM_FPT):
+                p[f"c{i}"].push_buffer(Buffer(tensors=[cams[i][j]],
+                                              pts=k * CAM_FPT + j))
+        pushed[k] = time.perf_counter()
+
+
+def _wait_for(counts, want, p, what):
+    deadline = time.monotonic() + 600
+    while min(counts()) < want:
+        if p.bus.error is not None:
+            raise RuntimeError(f"{what} failed: {p.bus.error.data}")
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{what}: outputs did not arrive")
+        time.sleep(0.001)
+
+
+def check_two_cameras(torch, labels, results):
+    """Line A: two cameras, CAM_FPT frames per tensor each, merged along
+    the frames dim into one MobileNet-v2 batch of BATCH and split back per
+    camera. Per merged batch: 13 fused-block and 1 normalize_u8 launches,
+    one h2d at the filter and one d2h at the split; each camera's labels
+    equal to the direct forward's of the merged frames."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch import trace
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    cams = [_vision_frames(10 + i, CAM_FPT, SIZE) for i in range(2)]
+    p = parse_launch(_two_camera_line(labels))
+    arrived = {}
+    for i in range(2):
+        p[f"o{i}"].connect_new_data(
+            lambda b, i=i: arrived.__setitem__((i, b.pts // CAM_FPT),
+                                               time.perf_counter()))
+    p.play()
+    pushed = {}
+    _push_cameras(p, cams, N_WARMUP, 0, pushed)
+    _wait_for(lambda: [len(p[f"o{i}"].collected) for i in range(2)],
+              N_WARMUP, p, "two cameras")
+    tracer = trace.attach(p)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    _push_cameras(p, cams, N_BATCHES, N_WARMUP, pushed)
+    _wait_for(lambda: [len(p[f"o{i}"].collected) for i in range(2)],
+              N_WARMUP + N_BATCHES, p, "two cameras")
+    secs = max(arrived.values()) - t0
+    launches = dict(_cuda.LAUNCHES)
+    crossings = _crossings_of(tracer)
+    forward = p["f"].fw._bundle.apply_fn
+    got = [[b.meta["label"] for b in p[f"o{i}"].collected[N_WARMUP:]]
+           for i in range(2)]
+    p["c0"].end_of_stream()
+    p["c1"].end_of_stream()
+    if not p.bus.wait_eos(120) or p.bus.error is not None:
+        raise RuntimeError(f"two cameras at EOS: {p.bus.error}")
+    p.stop()
+    merged = torch.from_numpy(np.stack(cams[0] + cams[1])).cuda()
+    with torch.inference_mode():
+        want = forward(merged).float().argmax(-1).tolist()
+    want = [[f"class{c}" for c in want[:CAM_FPT]],
+            [f"class{c}" for c in want[CAM_FPT:]]]
+    # the cameras' frames differ, and so do their labels: a split that
+    # swapped the cameras would show
+    labels_ok = want[0] != want[1] and all(
+        len(got[i]) == N_BATCHES and all(b == want[i] for b in got[i])
+        for i in range(2))
+    lat = [(max(arrived[(0, k)], arrived[(1, k)]) - pushed[k]) * 1e3
+           for k in range(N_WARMUP, N_WARMUP + N_BATCHES)]
+    per = crossings["per_element"]
+    counts_ok = (launches["fused_inverted_residual"] == 13 * N_BATCHES
+                 and launches["normalize_u8"] == N_BATCHES
+                 and crossings["h2d"] == N_BATCHES
+                 and crossings["d2h"] == N_BATCHES
+                 and per.get("s", {}).get("d2h") == N_BATCHES
+                 and per.get("f", {}).get("h2d") == N_BATCHES)
+    frames = N_BATCHES * BATCH
+    emit("streams", line="two_cameras", cameras=2,
+         frames_per_camera_per_tensor=CAM_FPT, batch=BATCH,
+         batches=N_BATCHES, frames=frames, seconds=secs, fps=frames / secs,
+         p50_batch_latency_ms=statistics.median(lat), launches=launches,
+         crossings=crossings, labels_equal_direct_forward=labels_ok,
+         distinct_labels=len({lb for cam in want for lb in cam}),
+         counts_ok=counts_ok, card=results["card"])
+    if not (labels_ok and counts_ok):
+        raise AssertionError("streams: two cameras' labels, launches or "
+                             "crossings are wrong")
+    return launches
+
+
+def _detect_crop_line(priors: str, size: int) -> str:
+    return (f"appsrc name=src caps=video/x-raw,format=RGB,width={size},"
+            f"height={size},framerate=1000/1 ! tensor_converter ! tee name=t "
+            "t. ! queue ! tensor_filter name=f framework=jax "
+            "model=ssd_mobilenet custom=seed:0,classes:91,fused:pallas "
+            f"! tensor_decoder name=dec mode=tensor_region "
+            f"option1={CROP_TOP} option3={priors}:0.5 "
+            f"option4={size}:{size} ! tensor_converter ! c.info "
+            "t. ! queue ! c.raw tensor_crop name=c ! tensor_sink name=out")
+
+
+def _expected_crops(torch, forward, frame, priors, size):
+    """The frame sliced at the regions the port's tensor_region decoder
+    gives on the direct forward of ``frame`` (the filter's input shape)."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.buffer import Buffer, materialize_tensors
+    from nnstreamer_tpu_torch.decoders.tensor_region import TensorRegion
+    from nnstreamer_tpu_torch.meta import unwrap_flexible
+    from nnstreamer_tpu_torch.types import (
+        TensorInfo,
+        TensorsConfig,
+        TensorsInfo,
+    )
+
+    with torch.inference_mode():
+        raw = materialize_tensors(list(forward(
+            torch.from_numpy(frame).cuda())))
+    dec = TensorRegion()
+    dec.init([str(CROP_TOP), None, f"{priors}:0.5", f"{size}:{size}"]
+             + [None] * 5)
+    cfg = TensorsConfig(TensorsInfo(tensors=[
+        TensorInfo.from_np_shape(r.shape, str(r.dtype)) for r in raw]), 0, 1)
+    dec.get_out_caps(cfg)
+    blob = dec.decode(Buffer(tensors=raw), cfg).tensors[0]
+    regions = unwrap_flexible(blob)[0].reshape(-1, 4).astype(np.int64)
+    return [frame[max(0, y):max(max(0, y), min(size, y + h)),
+                  max(0, x):max(max(0, x), min(size, x + w))]
+            for x, y, w, h in regions]
+
+
+def check_detect_crop(torch, workdir, results):
+    """Line B: SSD-MobileNet-v2 at 300 px, one frame per buffer, into
+    tensor_region (the top CROP_TOP boxes), the converter's flexible path
+    and tensor_crop.info; the frame itself into tensor_crop.raw. Every
+    frame's crops byte-equal the frame sliced at the regions the decoder
+    gives on the direct forward of that frame; 13 fused-block and 1
+    normalize_u8 launches per frame; then a profile of the line."""
+    from nnstreamer_tpu_torch import trace
+    from nnstreamer_tpu_torch.models.ssd_mobilenet import write_box_priors
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    size = VISION["ssd_mobilenet"]["size"]
+    priors = os.path.join(workdir, "streams_priors.txt")
+    write_box_priors(priors, size)
+    frames = _vision_frames(21, CROP_FRAMES, size)
+
+    def run(n, warm=N_WARMUP, traced=False):
+        from nnstreamer_tpu_torch.buffer import Buffer
+
+        p = parse_launch(_detect_crop_line(priors, size))
+        arrived = []
+        p["out"].connect_new_data(
+            lambda b: arrived.append(time.perf_counter()))
+        p.play()
+        for i in range(warm):
+            p["src"].push_buffer(Buffer(tensors=[frames[i]], pts=i))
+        _wait_for(lambda: [len(arrived)], warm, p, "detect-crop")
+        tracer = trace.attach(p) if traced else None
+        _cuda.reset_launches()
+        pushed = []
+        t0 = time.perf_counter()
+        for i in range(n):
+            p["src"].push_buffer(Buffer(tensors=[frames[i]], pts=warm + i))
+            pushed.append(time.perf_counter())
+        _wait_for(lambda: [len(arrived)], warm + n, p, "detect-crop")
+        secs = arrived[-1] - t0
+        launches = dict(_cuda.LAUNCHES)
+        lat = [(a - b) * 1e3 for a, b in zip(arrived[warm:], pushed)]
+        p["src"].end_of_stream()
+        if not p.bus.wait_eos(120) or p.bus.error is not None:
+            raise RuntimeError(f"detect-crop at EOS: {p.bus.error}")
+        crops = [b.tensors for b in p["out"].collected[warm:]]
+        forward = p["f"].fw._bundle.apply_fn
+        p.stop()
+        return secs, lat, launches, tracer, crops, forward
+
+    secs, lat, launches, tracer, crops, forward = run(CROP_FRAMES,
+                                                      traced=True)
+    crossings = _crossings_of(tracer)
+    exact, nonempty = True, 0
+    for frame, got in zip(frames, crops):
+        want = _expected_crops(torch, forward, frame, priors, size)
+        exact = exact and len(got) == len(want) == CROP_TOP and all(
+            g.shape == w.shape and g.tobytes() == w.tobytes()
+            for g, w in zip(got, want))
+        nonempty += sum(1 for g in got if g.size)
+    counts_ok = (launches["fused_inverted_residual"] == 13 * CROP_FRAMES
+                 and launches["normalize_u8"] == CROP_FRAMES
+                 and crossings["h2d"] == CROP_FRAMES
+                 and crossings["d2h"] == CROP_FRAMES)
+    emit("streams", line="detect_crop", frames=CROP_FRAMES,
+         frames_per_buffer=1, size=size, top=CROP_TOP, seconds=secs,
+         fps=CROP_FRAMES / secs, p50_frame_latency_ms=statistics.median(lat),
+         launches=launches, crossings=crossings, crops_byte_equal=exact,
+         nonempty_crops=nonempty, counts_ok=counts_ok, card=results["card"])
+    if not (exact and counts_ok and len(crops) == CROP_FRAMES
+            and nonempty > 0):
+        raise AssertionError("streams: detect-crop crops, launches or "
+                             "crossings are wrong (or every crop is empty)")
+    emit("profile", line="detect_crop", frames=CROP_FRAMES // 2,
+         **device_profile(torch, lambda: run(CROP_FRAMES // 2, warm=1)[0]))
+    return launches
+
+
+def _gated_line(labels: str, gate: bool, extra: str, fpt: int) -> str:
+    line = _flag_line(labels, extra, fpt=fpt)
+    if gate:
+        line = line.replace(
+            "! tensor_filter ",
+            "! tensor_if name=gate compared-value=TENSOR_AVERAGE_VALUE "
+            "compared-value-option=0 operator=gt supplied-value=16 "
+            "then=PASSTHROUGH else=SKIP ! tensor_filter ", 1)
+    return line
+
+
+def check_gated(torch, labels, results):
+    """Line C: the live camera (one frame per buffer, batch-size=32
+    fetch-timeout-ms=50 fetch-window=auto, as in check_batch) with
+    tensor_if skipping frames whose mean is not above 16. GATED_FRAMES
+    seeded frames, a seeded GATED_DARK of them dark: exactly the bright
+    frames are labelled, in order, with the labels of the
+    frames-per-tensor=32 line on the bright frames alone."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch import trace
+    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    rng = np.random.default_rng(31)
+    frames = _vision_frames(30, GATED_FRAMES, SIZE)
+    dark = set(rng.choice(GATED_FRAMES, GATED_DARK, replace=False).tolist())
+    for i in dark:
+        frames[i] = np.kron(rng.integers(0, 24, (4, 4, 3)), np.ones(
+            (SIZE // 4, SIZE // 4, 1))).astype(np.uint8)
+    bright = [i for i in range(GATED_FRAMES) if i not in dark]
+    if any(frames[i].mean() >= 16 for i in dark) or any(
+            frames[i].mean() <= 16 for i in bright):
+        raise AssertionError("streams: the seeded frames do not split at 16")
+    ref = _LineDriver(_gated_line(labels, False, "fetch-window=1",
+                                  LIVE_BATCH),
+                      [frames[i] for i in bright],
+                      outputs_per_unit=len(bright) // LIVE_BATCH)
+    ref.run(1)
+    ref.close()
+    want = _labels_of(ref.p)
+    live = (f"batch-size={LIVE_BATCH} fetch-timeout-ms={LIVE_TIMEOUT_MS} "
+            "fetch-window=auto")
+    p = parse_launch(_gated_line(labels, True, live, 1))
+    arrived = {}
+    p["out"].connect_new_data(
+        lambda b: arrived.__setitem__(b.pts, time.perf_counter()))
+    p.play()
+    # warm-up: one batch of bright frames, out of the counts
+    for i in range(LIVE_BATCH):
+        p["src"].push_buffer(Buffer(tensors=[frames[bright[i]]],
+                                    pts=-1 - i))
+    _wait_for(lambda: [len(arrived)], LIVE_BATCH, p, "gated")
+    tracer = trace.attach(p)
+    _cuda.reset_launches()
+    pushed = {}
+    t0 = time.perf_counter()
+    for i, f in enumerate(frames):
+        p["src"].push_buffer(Buffer(tensors=[f], pts=i))
+        pushed[i] = time.perf_counter()
+    _wait_for(lambda: [len(arrived)], LIVE_BATCH + len(bright), p, "gated")
+    secs = max(arrived.values()) - t0
+    launches = dict(_cuda.LAUNCHES)
+    crossings = _crossings_of(tracer)
+    p["src"].end_of_stream()
+    if not p.bus.wait_eos(120) or p.bus.error is not None:
+        raise RuntimeError(f"gated line at EOS: {p.bus.error}")
+    outs = p["out"].collected[LIVE_BATCH:]
+    p.stop()
+    got = [b.meta["label"] for b in outs]
+    got = [lb for g in got for lb in (g if isinstance(g, list) else [g])]
+    order = [b.pts for b in outs]
+    n_batches = len(bright) // LIVE_BATCH
+    lat = [(arrived[i] - pushed[i]) * 1e3 for i in bright]
+    ok = (order == bright and got == want
+          and launches["fused_inverted_residual"] == 13 * n_batches
+          and launches["normalize_u8"] == n_batches)
+    emit("streams", line="gated", frames=GATED_FRAMES, dark=len(dark),
+         labelled=len(got), labelled_in_order=order == bright,
+         labels_equal_fpt32=got == want, batch=LIVE_BATCH, seconds=secs,
+         fps_in=GATED_FRAMES / secs, fps_labelled=len(got) / secs,
+         p50_frame_latency_ms=statistics.median(lat), launches=launches,
+         crossings=crossings, card=results["card"])
+    if not ok:
+        raise AssertionError("streams: the gated line labelled other frames, "
+                             "other labels or launched other counts")
+    return launches
+
+
+def check_streams(torch, results, workdir):
+    """Lines A (two cameras), B (detect, then crop) and C (gated live
+    camera) at full width; their launches add up into streams_launches."""
+    labels = os.path.join(workdir, "streams_labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class{i}" for i in range(1001)) + "\n")
+    total = {}
+    for launches in (check_two_cameras(torch, labels, results),
+                     check_detect_crop(torch, workdir, results),
+                     check_gated(torch, labels, results)):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    results["streams_launches"] = total
+
+
 def main() -> int:
     import torch
 
@@ -2788,6 +3169,7 @@ def main() -> int:
         "batch": lambda: check_batch(torch, results),
         "hostspans": lambda: check_hostspans(torch, results, workdir),
         "serve": lambda: check_serve(torch, results, workdir),
+        "streams": lambda: check_streams(torch, results, workdir),
     }
     only = None
     if "--only" in sys.argv[1:]:
@@ -2818,7 +3200,8 @@ def main() -> int:
         "launches", "stream_launches", "vit_launches", "ring_launches",
         "longctx_launches", "upload_launches", "batch_launches",
         "hostspans_launches", "detect_launches", "detect_pp_launches",
-        "segment_launches", "vision_launches", "serve_launches"))
+        "segment_launches", "vision_launches", "serve_launches",
+        "streams_launches"))
         for name in src}
     launches["arith_chain"] += results["arith_launches"]
     kernels = []
@@ -2834,7 +3217,8 @@ def main() -> int:
             "device_ms": r.get("device_ms")})
     # the fused block's rows at the SSD and DeepLab lines' shapes
     kernels[0]["models"] = {name: results[f"fused_{name}"]
-                            for name in ("ssd_mobilenet", "deeplab_v3")}
+                            for name in ("ssd_mobilenet", "deeplab_v3",
+                                         "ssd_mobilenet_batch1")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

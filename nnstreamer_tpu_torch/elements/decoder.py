@@ -12,7 +12,7 @@ import numpy as np
 
 from nnstreamer_tpu_torch import registry
 from nnstreamer_tpu_torch.analysis.schema import Prop
-from nnstreamer_tpu_torch.buffer import Buffer, is_device_array, materialize_tensors
+from nnstreamer_tpu_torch.buffer import Buffer
 from nnstreamer_tpu_torch.caps import Caps
 from nnstreamer_tpu_torch.log import ElementError
 from nnstreamer_tpu_torch.pipeline.element import Element, FlowReturn, Pad, element_register
@@ -67,11 +67,10 @@ class TensorDecoder(Element):
     def chain(self, pad: Pad, buf: Buffer) -> FlowReturn:
         if self._dec is None or self._config is None:
             return FlowReturn.NOT_NEGOTIATED
-        if (any(is_device_array(t) for t in buf.tensors)
-                and not getattr(self._dec, "DEVICE_CAPABLE", False)):
-            # host decoder fed device tensors: ONE batched device→host
-            # transfer through the buffer seam
-            buf = buf.with_tensors(materialize_tensors(buf.tensors))
+        if not getattr(self._dec, "DEVICE_CAPABLE", False):
+            # a host decoder: the backend's tensors cross once, billed as
+            # the JAX element bills its fetch
+            buf = self._fetch_to_host(buf)
         split = int(self.properties.get("split_batch", 0) or 0)
         if split > 1:
             # split-batch=N: upstream micro-batching hands this element

@@ -5,7 +5,10 @@ dimchg / typecast / arithmetic / transpose / stand / clamp / padding, with the
 arithmetic option grammar ``[typecast:T,][per-channel:true@D,]add|mul|div:V[@C],...``
 (gsttensor_transform.c:753). The reference accelerates with ORC SIMD; here the
 host path is vectorized numpy, and ``acceleration=device`` routes eligible
-chains to the ``arith_chain`` CUDA kernel (ops/transform_ops.py).
+chains to the ``arith_chain`` CUDA kernel (ops/transform_ops.py). Host
+inputs go to ``cuda``, which must exist; ``acceleration=device:cpu`` (the
+grammar of the filter's ``accelerator=true:cpu``) asks for the CPU, where
+the kernel's plain version runs. A torch tensor input stays on its device.
 
 Option grammars use the reference's innermost-first dim indices: dim k maps
 to numpy axis (ndim-1-k).
@@ -37,14 +40,17 @@ class TensorTransform(Element):
     PROPERTY_SCHEMA = {
         "mode": Prop("enum", enum=MODES),
         "option": Prop("str", doc="mode-specific grammar"),
-        "acceleration": Prop("str", doc="device|pallas routes eligible "
-                                        "chains through the CUDA kernel"),
+        "acceleration": Prop("str", doc="device|pallas[:cpu] routes "
+                                        "eligible chains through the CUDA "
+                                        "kernel (:cpu: its plain version "
+                                        "on the CPU)"),
     }
 
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
         self._mode = str(self.properties.get("mode", ""))
         self._option = str(self.properties.get("option", ""))
+        self._accel_device: Optional[torch.device] = None  # set by start()
         if self._mode and self._mode not in MODES:
             raise ElementError(self.name, f"unknown transform mode {self._mode!r}")
 
@@ -95,6 +101,10 @@ class TensorTransform(Element):
             dims = d
         return TensorInfo(tuple(dims), dtype, t.name)
 
+    def start(self) -> None:
+        self._accel_device = (self._pick_accel_device()
+                              if self._device_accel() else None)
+
     # -- chain -------------------------------------------------------------
     def chain(self, pad: Pad, buf: Buffer) -> FlowReturn:
         if self._device_accel():
@@ -110,7 +120,21 @@ class TensorTransform(Element):
         ``acceleration`` property (gsttensor_transform.c), GPU edition.
         Outputs stay device-resident (async downstream)."""
         acc = str(self.properties.get("acceleration", "")).lower()
-        return acc in ("device", "pallas", "true", "1")
+        return acc.split(":")[0] in ("device", "pallas", "true", "1")
+
+    def _pick_accel_device(self) -> torch.device:
+        """The device host inputs go to: the CPU only when the property
+        asks for it (``device:cpu``), otherwise ``cuda``, which must
+        exist."""
+        target = str(self.properties.get("acceleration", "")).lower()
+        if target.partition(":")[2] == "cpu":
+            return torch.device("cpu")
+        if not torch.cuda.is_available():
+            raise ElementError(
+                self.name, "acceleration=device needs a CUDA device and "
+                "torch sees none; set acceleration=device:cpu to run the "
+                "chain's plain version on the CPU")
+        return torch.device("cuda")
 
     def _apply_device(self, buf: Buffer):
         """Device path ONLY where it bit-matches the numpy path:
@@ -151,15 +175,14 @@ class TensorTransform(Element):
         return None
 
     def _device_chain_inputs(self, buf: Buffer) -> List[torch.Tensor]:
-        """Per-tensor inputs for the device path: CUDA tensors pass straight
-        through; host tensors go to the default device — ``cuda`` when
-        torch sees a card, else the CPU, where ops.arith_chain runs its
-        plain version (the counterpart of jnp.asarray's default device)."""
-        dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        """Per-tensor inputs for the device path: torch tensors stay on
+        their device; host arrays go to the device :meth:`start` picked
+        (on the CPU ops.arith_chain runs its plain version)."""
+        dev = self._accel_device
         xs: List[torch.Tensor] = []
         for t in buf.tensors:
             if isinstance(t, torch.Tensor):
-                xs.append(t if t.is_cuda else t.to(dev))
+                xs.append(t)
                 continue
             if isinstance(t, (bytes, bytearray, memoryview)):
                 a = np.frombuffer(bytes(t), dtype=np.uint8).copy()

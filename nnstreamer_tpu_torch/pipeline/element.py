@@ -22,7 +22,13 @@ from typing import Dict, List, Optional, Type
 from nnstreamer_tpu_torch import meta as meta_mod
 from nnstreamer_tpu_torch.analysis import lockwitness
 from nnstreamer_tpu_torch.analysis.schema import Prop
-from nnstreamer_tpu_torch.buffer import Buffer, Event
+from nnstreamer_tpu_torch.buffer import (
+    Buffer,
+    Event,
+    is_backend_tensor,
+    materialize_tensors,
+    nbytes_of,
+)
 from nnstreamer_tpu_torch.caps import Caps
 from nnstreamer_tpu_torch.log import ElementError, get_logger
 
@@ -531,6 +537,18 @@ class Element:
         if tracer is not None:
             tracer.record_crossing(self.name, direction, n, nbytes=nbytes,
                                    devices=devices)
+
+    def _fetch_to_host(self, buf: Buffer) -> Buffer:
+        """``buf`` with the backend's tensors (``is_backend_tensor``)
+        brought to the host in one batched transfer, billed as one ``d2h``
+        crossing of this element; ``buf`` itself when it holds none. The
+        host elements call it before they read values, and pass the host
+        copy on, so a frame crosses once."""
+        dev = [t for t in buf.tensors if is_backend_tensor(t)]
+        if not dev:
+            return buf
+        self._record_crossing("d2h", nbytes=nbytes_of(dev))
+        return buf.with_tensors(materialize_tensors(buf.tensors))
 
     # -- negotiation hooks -------------------------------------------------
     def _on_sink_caps(self, pad: Pad, caps: Caps) -> None:

@@ -53,6 +53,13 @@ _BUILTINS: Dict[Tuple[str, str], str] = {
     (DECODER, "bounding_boxes"): "nnstreamer_tpu_torch.decoders.bounding_boxes",
     (DECODER, "image_segment"): "nnstreamer_tpu_torch.decoders.image_segment",
     (DECODER, "pose_estimation"): "nnstreamer_tpu_torch.decoders.pose_estimation",
+    (DECODER, "direct_video"): "nnstreamer_tpu_torch.decoders.direct_video",
+    (DECODER, "octet_stream"): "nnstreamer_tpu_torch.decoders.octet_stream",
+    (DECODER, "tensor_region"): "nnstreamer_tpu_torch.decoders.tensor_region",
+    (DECODER, "flexbuf"): "nnstreamer_tpu_torch.decoders.flexbuf",
+    (DECODER, "python3"): "nnstreamer_tpu_torch.decoders.python3",
+    (CONVERTER, "flexbuf"): "nnstreamer_tpu_torch.converters.flexbuf",
+    (CONVERTER, "python3"): "nnstreamer_tpu_torch.converters.python3",
 }
 
 

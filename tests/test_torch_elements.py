@@ -23,21 +23,24 @@ from nnstreamer_tpu_torch.buffer import Buffer as PortBuffer  # noqa: E402
 from nnstreamer_tpu_torch.log import ElementError  # noqa: E402
 
 
+#: the port's transform runs on the CPU only when asked: the JAX package
+#: says acceleration=device, the port acceleration=device:cpu
 @pytest.mark.parametrize("line,x,exact", [
     ("appsrc name=src caps=other/tensors,format=static,dimensions=128:8,"
      "types=uint8 ! tensor_transform mode=arithmetic "
-     "option=typecast:float32,add:-127.5,div:127.5 acceleration=device "
+     "option=typecast:float32,add:-127.5,div:127.5 acceleration={acc} "
      "! tensor_sink name=out",
      np.random.default_rng(6).integers(0, 256, (8, 128), np.uint8), True),
     ("appsrc name=src caps=other/tensors,format=static,dimensions=1024,"
      "types=float32 ! tensor_transform mode=clamp option=-1:1 "
-     "acceleration=device ! tensor_sink name=out",
+     "acceleration={acc} ! tensor_sink name=out",
      np.linspace(-2, 2, 1024, dtype=np.float32), False),
 ])
 def test_transform_line_matches(line, x, exact):
     outs = []
-    for mod, buf in ((jax_pipeline, JaxBuffer), (port_pipeline, PortBuffer)):
-        p = mod.parse_launch(line)
+    for mod, buf, acc in ((jax_pipeline, JaxBuffer, "device"),
+                          (port_pipeline, PortBuffer, "device:cpu")):
+        p = mod.parse_launch(line.format(acc=acc))
         p.play()
         p["src"].push_buffer(buf(tensors=[x]))
         got = p["out"].pull(timeout=30.0)
@@ -58,12 +61,36 @@ def test_transform_without_leading_cast_takes_numpy_path():
     p = port_pipeline.parse_launch(
         "appsrc name=src caps=other/tensors,format=static,dimensions=1024,"
         "types=int32 ! tensor_transform mode=arithmetic option=add:2 "
-        "acceleration=device ! tensor_sink name=out")
+        "acceleration=device:cpu ! tensor_sink name=out")
     p.play()
     p["src"].push_buffer(PortBuffer(tensors=[x]))
     got = p["out"].pull(timeout=30.0)
     p.stop()
     np.testing.assert_array_equal(np.asarray(got.tensors[0]), x + 2.0)
+
+
+@pytest.mark.parametrize("acc", ["device", "pallas", "true"])
+def test_transform_device_without_a_card_raises(acc, monkeypatch):
+    """acceleration=device on a host whose torch sees no card raises at
+    start unless the property asks for the CPU: the chain never moves to
+    the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    line = ("appsrc name=src caps=other/tensors,format=static,"
+            "dimensions=4,types=uint8 ! tensor_transform mode=arithmetic "
+            f"option=typecast:float32,add:1 acceleration={acc} "
+            "! tensor_sink name=out")
+    p = port_pipeline.parse_launch(line)
+    with pytest.raises(Exception, match="device:cpu"):
+        p.play()
+    p.stop()
+    p = port_pipeline.parse_launch(line.replace(
+        f"acceleration={acc}", f"acceleration={acc}:cpu"))
+    p.play()
+    p["src"].push_buffer(PortBuffer(tensors=[np.arange(4, dtype=np.uint8)]))
+    got = p["out"].pull(timeout=30.0)
+    p.stop()
+    np.testing.assert_array_equal(np.asarray(got.tensors[0]),
+                                  np.arange(4, dtype=np.float32) + 1)
 
 
 #: properties this package has ported since it first refused them: their

@@ -143,8 +143,32 @@ SERVING_MODULES = (
 )
 
 
-@pytest.mark.parametrize("module",
-                         SLICE_MODULES + VISION_MODULES + SERVING_MODULES)
+#: the modules of the slice that brought the multi-stream and flow
+#: elements, the converter's remaining paths and subplugins, the decoders
+#: they feed and the sensor sources
+STREAM_MODULES = (
+    "nnstreamer_tpu_torch.elements.mux",
+    "nnstreamer_tpu_torch.elements.flow",
+    "nnstreamer_tpu_torch.elements.sparse",
+    "nnstreamer_tpu_torch.elements.repo",
+    "nnstreamer_tpu_torch.elements.converter",
+    "nnstreamer_tpu_torch.elements.iio_debug",
+    "nnstreamer_tpu_torch.elements.platform_sources",
+    "nnstreamer_tpu_torch.elements.transform",
+    "nnstreamer_tpu_torch.converters",
+    "nnstreamer_tpu_torch.converters.flexbuf",
+    "nnstreamer_tpu_torch.converters.python3",
+    "nnstreamer_tpu_torch.pyscript",
+    "nnstreamer_tpu_torch.decoders.tensor_region",
+    "nnstreamer_tpu_torch.decoders.flexbuf",
+    "nnstreamer_tpu_torch.decoders.octet_stream",
+    "nnstreamer_tpu_torch.decoders.direct_video",
+    "nnstreamer_tpu_torch.decoders.python3",
+)
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES + VISION_MODULES
+                         + SERVING_MODULES + STREAM_MODULES)
 def test_slice_module_alone_loads_no_jax(module):
     """Each module, imported alone in a fresh interpreter, pulls in
     neither JAX nor the JAX package (the walk above imports them all
@@ -158,5 +182,7 @@ def test_slice_module_alone_loads_no_jax(module):
                          env=dict(os.environ, PYTHONPATH=ROOT))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
-    path = os.path.join(ROOT, *module.split(".")) + ".py"
+    path = os.path.join(ROOT, *module.split("."))
+    path = (os.path.join(path, "__init__.py") if os.path.isdir(path)
+            else path + ".py")
     assert not [m for _, m in _imports(path) if _forbidden(m)]
