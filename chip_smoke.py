@@ -188,8 +188,8 @@ Phases, each printing one JSON line:
              128 ! tensor_split tensorseg=64,64 ! image_labeling per
              camera; 8 batches after 2 warm-up: each camera's labels equal
              to the direct forward's of the merged frames, 13 fused-block
-             and 1 normalize_u8 launches, one h2d at the filter and one d2h
-             at the split per batch); detect, then crop (300 px frames one
+             and 1 normalize_u8 launches, one h2d and one d2h per batch,
+             both at the filter); detect, then crop (300 px frames one
              per buffer ! tee, SSD ! tensor_region ! tensor_converter into
              tensor_crop.info, the frame into tensor_crop.raw; 32 frames:
              every frame's 4 crops byte-equal to the frame sliced at the
@@ -200,13 +200,33 @@ Phases, each printing one JSON line:
              batch-size=32 filter of the batch phase, 256 frames of which
              a seeded 64 are dark: exactly the bright frames labelled, in
              order, with the frames-per-tensor=32 line's labels);
+  residency  the planner's lines at full width, 8 batches each after 2
+             warm-up: the flagship with the reference preamble
+             (tensor_transform typecast:float32,add:-127.5,div:127.5
+             before the filter) fused — the transform a passthrough shell,
+             its arithmetic in the filter through arith_chain (one launch
+             per batch, no normalize_u8), the uint8 frames uploaded
+             (19,267,584 B per batch) — and with fusion=off on the
+             transform (numpy on the host, 77,070,336 B of float32 per
+             batch): frames/s, p50, crossings at the filter, labels equal
+             between the two, the fused stage's output on the card
+             bit-equal to numpy's preamble, and a profile line of each;
+             the fused line into a tee of two sinks (one d2h per batch,
+             at the filter); and MobileNet-v2's logits through a queue
+             into a model=add filter (one h2d at the first filter and one
+             d2h at the second per batch, device_ok and memory:HBM on the
+             first filter's src pad, outputs the direct forward's + 1);
+             and the fused preamble into a model=add filter on 8-frame
+             float64, float16, int64 and uint32 buffers, types the kernel
+             does not read (converted to float32 first: output bit-equal
+             to numpy, one arith_chain launch per buffer);
 
 then one ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
 that last line. It needs a CUDA card: without one it exits 1 at once.
 
 ``--only`` runs the named phases alone (``serve`` needs ``slice`` for
-its frames; ``streams`` builds its own; ``stride2`` runs inside ``kernel``, the flagship's profile
+its frames; ``streams`` and ``residency`` build their own; ``stride2`` runs inside ``kernel``, the flagship's profile
 inside ``slice``, the overload and reference lines inside ``serve``) and
 ends after them, without the ``kernels`` and result lines.
 """
@@ -2839,7 +2859,8 @@ def check_two_cameras(torch, labels, results):
     """Line A: two cameras, CAM_FPT frames per tensor each, merged along
     the frames dim into one MobileNet-v2 batch of BATCH and split back per
     camera. Per merged batch: 13 fused-block and 1 normalize_u8 launches,
-    one h2d at the filter and one d2h at the split; each camera's labels
+    one h2d and one d2h, both at the filter (the residency boundary before
+    the split); each camera's labels
     equal to the direct forward's of the merged frames."""
     import numpy as np
 
@@ -2893,8 +2914,7 @@ def check_two_cameras(torch, labels, results):
                  and launches["normalize_u8"] == N_BATCHES
                  and crossings["h2d"] == N_BATCHES
                  and crossings["d2h"] == N_BATCHES
-                 and per.get("s", {}).get("d2h") == N_BATCHES
-                 and per.get("f", {}).get("h2d") == N_BATCHES)
+                 and per.get("f") == {"h2d": N_BATCHES, "d2h": N_BATCHES})
     frames = N_BATCHES * BATCH
     emit("streams", line="two_cameras", cameras=2,
          frames_per_camera_per_tensor=CAM_FPT, batch=BATCH,
@@ -3130,6 +3150,303 @@ def check_streams(torch, results, workdir):
     results["streams_launches"] = total
 
 
+# -- phase: the planner's transform fusion and residency lane ----------------
+
+#: the reference NNStreamer preamble (tests/test_elements.py:97)
+PREAMBLE = "typecast:float32,add:-127.5,div:127.5"
+
+
+def _preamble_line(labels: str, fusion: str = "auto") -> str:
+    """The flagship line with the preamble before the filter; fusion=off
+    on the transform keeps it a live host element."""
+    return (
+        f"appsrc name=src caps=video/x-raw,format=RGB,width={SIZE},"
+        f"height={SIZE},framerate=1000/1 "
+        f"! tensor_converter frames-per-tensor={BATCH} "
+        f"! tensor_transform name=tr mode=arithmetic option={PREAMBLE} "
+        f"fusion={fusion} "
+        "! tensor_filter name=f framework=jax model=mobilenet_v2 "
+        "custom=seed:0,postproc:argmax,fused:pallas "
+        f"! queue ! tensor_decoder mode=image_labeling option1={labels} "
+        "! tensor_sink name=out")
+
+
+def _fanout_line() -> str:
+    """The fused preamble filter into a tee of two sinks."""
+    return (
+        f"appsrc name=src caps=video/x-raw,format=RGB,width={SIZE},"
+        f"height={SIZE},framerate=1000/1 "
+        f"! tensor_converter frames-per-tensor={BATCH} "
+        f"! tensor_transform name=tr mode=arithmetic option={PREAMBLE} "
+        "! tensor_filter name=f framework=jax model=mobilenet_v2 "
+        "custom=seed:0,postproc:argmax,fused:pallas ! tee name=t "
+        "t. ! queue ! tensor_sink name=out t. ! queue ! tensor_sink name=o2")
+
+
+def _two_filter_line() -> str:
+    """MobileNet-v2's logits through a queue into a second filter."""
+    return (
+        f"appsrc name=src caps=video/x-raw,format=RGB,width={SIZE},"
+        f"height={SIZE},framerate=1000/1 "
+        f"! tensor_converter frames-per-tensor={BATCH} "
+        "! tensor_filter name=f1 framework=jax model=mobilenet_v2 "
+        "custom=seed:0,fused:pallas ! queue "
+        "! tensor_filter name=f2 framework=jax model=add custom=k:1 "
+        "! tensor_sink name=out")
+
+
+#: input types the arith kernel does not read: the fused preamble's
+#: leading typecast:float32 converts them before the launch
+WIDE_TYPES = ("float64", "float16", "int64", "uint32")
+WIDE_FRAMES = 8
+
+
+def _wide_line(dtype: str) -> str:
+    """Full-size frames of ``dtype`` through the preamble into a filter."""
+    return (
+        "appsrc name=src caps=other/tensors,num-tensors=1,"
+        f"dimensions=3:{SIZE}:{SIZE}:{WIDE_FRAMES},types={dtype},"
+        f"framerate=0/1 ! tensor_transform name=tr mode=arithmetic "
+        f"option={PREAMBLE} ! tensor_filter name=f framework=jax model=add "
+        "custom=k:1 ! tensor_sink name=out")
+
+
+def check_wide_inputs(torch, results, total):
+    """The fused preamble on frames of each type the arith kernel does not
+    read: the stage converts them to float32 and launches the kernel once
+    per buffer; the output is bit-equal to numpy's astype(float32), the
+    chain and the model's +1, and the upload carries the input's bytes."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch import trace
+    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    rng = np.random.default_rng(5)
+    shape = (WIDE_FRAMES, SIZE, SIZE, 3)
+    rows = {}
+    for dtype in WIDE_TYPES:
+        if dtype.startswith("float"):
+            x = (rng.normal(0, 300, shape) + 1 / 3).astype(dtype)
+        else:
+            x = rng.integers(2 ** 24, 2 ** 31, shape).astype(dtype)
+        p = parse_launch(_wide_line(dtype))
+        tracer = trace.attach(p)
+        _cuda.reset_launches()
+        p.play()
+        for k in range(2):
+            p["src"].push_buffer(Buffer(tensors=[x], pts=k))
+        p["src"].end_of_stream()
+        if not p.bus.wait_eos(120) or p.bus.error is not None:
+            raise RuntimeError(f"residency: the {dtype} line failed: "
+                               f"{p.bus.error}")
+        launches = dict(_cuda.LAUNCHES)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        outs = [np.asarray(b.tensors[0]) for b in p["out"].collected]
+        f = tracer.crossings()["per_element"].get("f", {})
+        fusions = tracer.fusions()
+        p.stop()
+        want = ((x.astype(np.float32) + np.float32(-127.5))
+                / np.float32(127.5)) + np.float32(1)
+        rows[dtype] = {
+            "fusions": fusions, "arith_chain": launches["arith_chain"],
+            "h2d_bytes": f.get("h2d_bytes", 0),
+            "bit_equal_numpy": len(outs) == 2 and all(
+                o.dtype == np.float32 and np.array_equal(o, want)
+                for o in outs)}
+        rows[dtype]["ok"] = (rows[dtype]["bit_equal_numpy"]
+                             and fusions == {"tr": "fused-into:f"}
+                             and launches["arith_chain"] == 2
+                             and f.get("h2d_bytes") == 2 * x.nbytes)
+    ok = all(r["ok"] for r in rows.values())
+    emit("residency", line="wide_inputs", frames=WIDE_FRAMES, buffers=2,
+         types=rows, ok=ok, card=results["card"])
+    if not ok:
+        raise AssertionError("residency: the fused preamble is wrong on an "
+                             "input type the kernel does not read")
+
+
+def _run_line(line, frames, n_batches, warm=N_WARMUP):
+    """Warm ``warm`` batches, then trace and time ``n_batches``; returns
+    (pipeline, tracer, seconds, p50 batch latency ms, the launches of the
+    timed run). The sink 'out' collects every buffer; the tracer holds
+    the planner's fusions and the timed run's crossings."""
+    from nnstreamer_tpu_torch import trace
+    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    p = parse_launch(line)
+    pushed, arrived = {}, {}
+    p["out"].connect_new_data(
+        lambda b: arrived.__setitem__(b.pts, time.perf_counter()))
+    fusions = trace.attach(p).fusions  # the planner records at play()
+    p.play()
+
+    def push(k0, n):
+        for i in range(k0 * BATCH, (k0 + n) * BATCH):
+            p["src"].push_buffer(Buffer(tensors=[frames[i % len(frames)]],
+                                        pts=i))
+            pushed[i] = time.perf_counter()
+        _wait_for(lambda: [len(p["out"].collected)], k0 + n, p, line[-40:])
+
+    push(0, warm)
+    tracer = trace.attach(p, replace=True)
+    tracer.fusions = fusions
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    push(warm, n_batches)
+    secs = max(arrived.values()) - t0
+    launches = dict(_cuda.LAUNCHES)
+    p["src"].end_of_stream()
+    if not p.bus.wait_eos(120) or p.bus.error is not None:
+        raise RuntimeError(f"residency line failed: {p.bus.error}")
+    lat = [(arrived[k] - pushed[k]) * 1e3 for k in arrived
+           if k >= warm * BATCH]
+    return p, tracer, secs, statistics.median(lat), launches
+
+
+def check_residency(torch, results, workdir):
+    """The flagship line with the preamble, fused (the transform runs
+    inside the filter through arith_chain, the upload carries uint8) and
+    unfused (fusion=off: numpy on the host, float32 uploaded); a tee
+    fan-out after the filter; two filters through a queue."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.ops import _cuda
+
+    labels = os.path.join(workdir, "residency_labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class{i}" for i in range(1001)) + "\n")
+    rng = np.random.default_rng(3)
+    frames = [np.kron(rng.integers(0, 256, (4, 4, 3)),
+                      np.ones((SIZE // 4, SIZE // 4, 1))).astype(np.uint8)
+              for _ in range(BATCH)]
+    frame_bytes = BATCH * SIZE * SIZE * 3
+    total = {}
+    runs = {}
+    for fusion in ("auto", "off"):
+        p, tracer, secs, p50, launches = _run_line(
+            _preamble_line(labels, fusion), frames, N_BATCHES)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        cr = tracer.crossings()
+        f = cr["per_element"].get("f", {})
+        stage = p["f"].fw._stage_pre
+        runs[fusion] = {
+            "fps": N_BATCHES * BATCH / secs, "p50_batch_latency_ms": p50,
+            "fusions": tracer.fusions(),
+            "h2d_bytes_per_batch": f.get("h2d_bytes", 0) / N_BATCHES,
+            "crossings": _crossings_of(tracer), "launches": launches,
+            "labels": [lab for b in p["out"].collected[-N_BATCHES:]
+                       for lab in b.meta["label"]]}
+        p.stop()
+        if fusion == "auto":
+            # the fused stage on the card against numpy's preamble on the
+            # same frames (its launches are not the line's)
+            x = np.stack(frames)
+            with torch.inference_mode():
+                got = stage(torch.from_numpy(x).cuda()).cpu().numpy()
+            want = ((x.astype(np.float32) + np.float32(-127.5))
+                    / np.float32(127.5))
+            runs[fusion]["stage_bit_equal_numpy"] = bool(
+                got.dtype == want.dtype and np.array_equal(got, want))
+    fused, unfused = runs["auto"], runs["off"]
+    labels_equal = fused["labels"] == unfused["labels"] and \
+        len(fused["labels"]) == N_BATCHES * BATCH
+    ok = (labels_equal and fused["stage_bit_equal_numpy"]
+          and fused["fusions"] == {"tr": "fused-into:f"}
+          and unfused["fusions"] == {}
+          and fused["h2d_bytes_per_batch"] == frame_bytes
+          and unfused["h2d_bytes_per_batch"] == frame_bytes * 4
+          and fused["launches"]["arith_chain"] == N_BATCHES
+          and unfused["launches"]["arith_chain"] == 0
+          and fused["launches"]["normalize_u8"] == 0
+          and fused["launches"]["fused_inverted_residual"] == 13 * N_BATCHES
+          and all(r["crossings"]["per_element"].get("f")
+                  == {"h2d": N_BATCHES, "d2h": N_BATCHES}
+                  and r["crossings"]["h2d"] == r["crossings"]["d2h"]
+                  == N_BATCHES for r in runs.values()))
+    distinct = len(set(fused["labels"]))
+    for r in runs.values():
+        r.pop("labels")
+    emit("residency", line="preamble", batches=N_BATCHES, batch=BATCH,
+         fused=fused, unfused=unfused, labels_equal=labels_equal,
+         distinct_labels=distinct, card=results["card"])
+    if not ok:
+        raise AssertionError("residency: the preamble lines are wrong")
+    for fusion in ("auto", "off"):
+        def run(fusion=fusion):
+            p, _, secs, _, _ = _run_line(_preamble_line(labels, fusion),
+                                         frames, 4, warm=0)
+            p.stop()
+            return secs
+
+        tag = "fused" if fusion == "auto" else "unfused"
+        emit("profile", line=f"preamble_{tag}", batches=4,
+             **device_profile(torch, run))
+
+    # the tee fan-out: one boundary at the filter serves both branches
+    p, tracer, secs, p50, launches = _run_line(_fanout_line(), frames,
+                                               N_BATCHES)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    cr = _crossings_of(tracer)
+    branches_equal = [np.asarray(b.tensors[0]).tolist()
+                      for b in p["out"].collected] == \
+        [np.asarray(b.tensors[0]).tolist() for b in p["o2"].collected]
+    p.stop()
+    fan_ok = (branches_equal and cr["d2h"] == N_BATCHES
+              and list(cr["per_element"]) == ["f"]
+              and cr["per_element"]["f"] == {"h2d": N_BATCHES,
+                                             "d2h": N_BATCHES}
+              and launches["arith_chain"] == N_BATCHES)
+    emit("residency", line="fanout", batches=N_BATCHES,
+         fps=N_BATCHES * BATCH / secs, p50_batch_latency_ms=p50,
+         crossings=cr, launches=launches, branches_equal=branches_equal,
+         ok=fan_ok, card=results["card"])
+    if not fan_ok:
+        raise AssertionError("residency: the fan-out fetched more than once "
+                             "per batch, or not at the filter")
+
+    # two filters through a queue: the logits stay on the card between them
+    p, tracer, secs, p50, launches = _run_line(_two_filter_line(), frames,
+                                               N_BATCHES)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    cr = _crossings_of(tracer)
+    src = p["f1"].src_pad
+    lane = {"f1_device_ok": src.device_ok,
+            "f1_caps_hbm": bool(src.caps is not None
+                                and src.caps.is_device_resident()),
+            "f2_device_ok": p["f2"].src_pad.device_ok}
+    out = torch.from_numpy(np.asarray(p["out"].collected[-1].tensors[0]))
+    forward = p["f1"].fw._bundle.apply_fn
+    p.stop()
+    with torch.inference_mode():
+        want = forward(torch.from_numpy(np.stack(frames)).cuda()).float().cpu()
+    err = max_err(out.float(), want + 1)
+    two_ok = (lane == {"f1_device_ok": True, "f1_caps_hbm": True,
+                       "f2_device_ok": False}
+              and cr["h2d"] == cr["d2h"] == N_BATCHES
+              and cr["per_element"].get("f1", {}).get("h2d") == N_BATCHES
+              and cr["per_element"].get("f2", {}).get("d2h") == N_BATCHES
+              and tuple(out.shape) == (BATCH, 1001)
+              and bool(torch.isfinite(out).all())
+              and within(out.float(), want + 1, MODEL_ATOL, MODEL_RTOL))
+    emit("residency", line="two_filters", batches=N_BATCHES,
+         fps=N_BATCHES * BATCH / secs, p50_batch_latency_ms=p50,
+         crossings=cr, lane=lane, launches=launches,
+         logits_plus_one_max_abs_err=err, ok=two_ok, card=results["card"])
+    if not two_ok:
+        raise AssertionError("residency: the two-filter line's lane, "
+                             "crossings or outputs are wrong")
+    check_wide_inputs(torch, results, total)
+    results["residency_launches"] = total
+
+
 def main() -> int:
     import torch
 
@@ -3170,6 +3487,7 @@ def main() -> int:
         "hostspans": lambda: check_hostspans(torch, results, workdir),
         "serve": lambda: check_serve(torch, results, workdir),
         "streams": lambda: check_streams(torch, results, workdir),
+        "residency": lambda: check_residency(torch, results, workdir),
     }
     only = None
     if "--only" in sys.argv[1:]:
@@ -3201,7 +3519,7 @@ def main() -> int:
         "longctx_launches", "upload_launches", "batch_launches",
         "hostspans_launches", "detect_launches", "detect_pp_launches",
         "segment_launches", "vision_launches", "serve_launches",
-        "streams_launches"))
+        "streams_launches", "residency_launches"))
         for name in src}
     launches["arith_chain"] += results["arith_launches"]
     kernels = []

@@ -47,9 +47,14 @@ def is_backend_tensor(x: Any) -> bool:
 
 
 def _device_of(parts: Sequence[Any]) -> Optional[torch.device]:
+    """Where a concatenation of ``parts`` stays: the CUDA device of any
+    CUDA part, else the CPU when any part is a torch tensor (the backend's
+    tensors on the CPU stay torch, as they do on the card), else None."""
     for p in parts:
         if is_device_array(p):
             return p.device
+    if any(isinstance(p, torch.Tensor) for p in parts):
+        return torch.device("cpu")
     return None
 
 
@@ -60,8 +65,8 @@ def _as_tensor(p: Any, device: torch.device) -> torch.Tensor:
 
 
 def concat_tensors(parts: Sequence[Any], axis: int = 0) -> Any:
-    """Concatenate tensors, staying on the device (``torch.cat``) when any
-    part is a CUDA tensor; host numpy otherwise."""
+    """Concatenate tensors, staying torch (``torch.cat``, on the device)
+    when any part is a torch tensor; host numpy otherwise."""
     dev = _device_of(parts)
     if dev is not None:
         return torch.cat([_as_tensor(p, dev) for p in parts], dim=axis)
@@ -70,9 +75,9 @@ def concat_tensors(parts: Sequence[Any], axis: int = 0) -> Any:
 
 def stack_tensors(parts: Sequence[Any], axis: int = 0) -> Any:
     """Stack tensors along a fresh axis — the no-leading-dim sibling of
-    :func:`concat_tensors`. Stays on the device (``torch.stack``) when any
-    part is a CUDA tensor, so device parts never round-trip through the
-    host."""
+    :func:`concat_tensors`. Stays torch (``torch.stack``, on the device)
+    when any part is a torch tensor, so device parts never round-trip
+    through the host."""
     dev = _device_of(parts)
     if dev is not None:
         return torch.stack([_as_tensor(p, dev) for p in parts], dim=axis)

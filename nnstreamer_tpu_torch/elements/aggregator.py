@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from nnstreamer_tpu_torch.analysis.schema import Prop
-from nnstreamer_tpu_torch.buffer import Buffer
+from nnstreamer_tpu_torch.buffer import Buffer, materialize_tensors, nbytes_of
 from nnstreamer_tpu_torch.caps import Caps
 from nnstreamer_tpu_torch.log import ElementError
 from nnstreamer_tpu_torch.pipeline.element import (
@@ -55,6 +55,16 @@ class TensorAggregator(Element):
             raise ElementError(self.name, "frames-in/frames-out must be positive")
         self._window: Deque = deque()  # per-frame arrays or tensors
         self._pts: Deque = deque()
+
+    # -- residency negotiation (memory:HBM lane) ---------------------------
+    # device in → device out (window and concat stay on the device), so
+    # residency flows THROUGH this element; when it is the last
+    # device-capable element before a host-only consumer it becomes the
+    # materialization boundary (chain() below)
+    DEVICE_TRANSPARENT = True
+
+    def accepts_device(self, pad: Pad) -> bool:
+        return True
 
     def transform_caps(self, pad: Pad, caps: Caps) -> Optional[Caps]:
         cfg = caps.to_config()
@@ -115,6 +125,13 @@ class TensorAggregator(Element):
                 out = torch.cat(group, dim=axis)
             else:
                 out = np.concatenate(group, axis=axis)
+            if (is_torch and self.src_pads
+                    and self.src_pads[0].device_ok is False):
+                # residency boundary: downstream is host-only — fetch the
+                # whole window here, once (the aggregator is the fetch
+                # amortizer on this line)
+                self._record_crossing("d2h", nbytes=nbytes_of([out]))
+                out = materialize_tensors([out])[0]
             pts = self._pts[0]
             flush = self.frames_flush if self.frames_flush > 0 else self.frames_out
             for _ in range(min(flush, len(self._window))):

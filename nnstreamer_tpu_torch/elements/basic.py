@@ -122,12 +122,21 @@ class TensorSink(Element):
     def connect_new_data(self, cb: Callable[[Buffer], None]) -> None:
         self.callbacks.append(cb)
 
+    def accepts_device(self, pad: Pad) -> bool:
+        # materialize=false: the app wants raw (possibly device-resident)
+        # buffers — this sink is a device-capable consumer; the default
+        # materializing sink is the host-only consumer that pulls the
+        # pipeline's materialization boundary upstream
+        return not self.properties.get("materialize", True)
+
     def chain(self, pad: Pad, buf: Buffer) -> FlowReturn:
         # sinks synchronize async device work by materializing on host unless
         # the app asked for raw (possibly device-resident) buffers
         if self.properties.get("materialize", True):
             if any(is_backend_tensor(t) for t in buf.tensors):
-                # no residency planner: the sink is where the d2h lands
+                # on a planned line the boundary upstream has fetched; the
+                # backend's tensors that still reach the sink (an
+                # unplanned graph) cross here, billed
                 self._record_crossing("d2h", nbytes=nbytes_of(
                     [t for t in buf.tensors if is_backend_tensor(t)]))
             # as_numpy brings every device tensor over in ONE batched
@@ -170,6 +179,7 @@ class QueueElement(Element):
 
     ELEMENT_NAME = "queue"
     ALIASES = ("queue2",)
+    DEVICE_TRANSPARENT = True  # thread boundary; tensor payloads untouched
     PROPERTY_SCHEMA = {
         "max_size_buffers": Prop("int", doc="bounded depth (default 16)"),
         "leaky": Prop("enum", enum=("no", "downstream"),
@@ -274,6 +284,10 @@ class Tee(Element):
     SURVEY.md §2.6 item 2)."""
 
     ELEMENT_NAME = "tee"
+    DEVICE_TRANSPARENT = True  # copy() shares tensor payloads
+    #: every branch receives a shallow copy sharing the SAME tensor
+    #: objects (routers like round_robin send each buffer to one branch)
+    DUPLICATES_BUFFERS = True
 
     def _setup_pads(self) -> None:
         self.add_sink_pad("sink")
@@ -300,6 +314,7 @@ class CapsFilter(Element):
     Prop: caps (Caps or string)."""
 
     ELEMENT_NAME = "capsfilter"
+    DEVICE_TRANSPARENT = True
     PROPERTY_SCHEMA = {"caps": Prop("caps", required=True)}
 
     def __init__(self, name=None, **props):
@@ -326,9 +341,10 @@ class CapsFilter(Element):
 @element_register
 class Identity(Element):
     """Pass-through; prop sleep_time (ns between buffers) for tests.
-    (The JAX package's full tensor_debug element is not ported.)"""
+    (``tensor_debug``, elements/iio_debug.py, is the inspecting one.)"""
 
     ELEMENT_NAME = "identity"
+    DEVICE_TRANSPARENT = True
     PROPERTY_SCHEMA = {
         "sleep_time": Prop("number", doc="ns between buffers"),
         "silent": Prop("bool"),

@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from nnstreamer_tpu_torch import registry
 from nnstreamer_tpu_torch.analysis.schema import Prop
@@ -64,6 +65,13 @@ class TensorDecoder(Element):
         self._config = caps.to_config()
         return self._dec.get_out_caps(self._config)
 
+    # -- residency negotiation (memory:HBM lane) ---------------------------
+    def accepts_device(self, pad: Pad) -> bool:
+        """Decoder subplugins are host math unless they declare
+        ``DEVICE_CAPABLE = True`` (then the backend's tensors flow in
+        untouched and split-batch slices them where they are)."""
+        return bool(getattr(self._dec, "DEVICE_CAPABLE", False))
+
     def chain(self, pad: Pad, buf: Buffer) -> FlowReturn:
         if self._dec is None or self._config is None:
             return FlowReturn.NOT_NEGOTIATED
@@ -76,13 +84,14 @@ class TensorDecoder(Element):
             # split-batch=N: upstream micro-batching hands this element
             # tensors with a leading batch dim; emit one decoded buffer per
             # frame, preserving order
-            arrs = [np.asarray(t) for t in buf.tensors]
+            arrs = [t if isinstance(t, torch.Tensor) else np.asarray(t)
+                    for t in buf.tensors]
             for a in arrs:
                 if a.ndim == 0 or a.shape[0] != split:
                     raise ElementError(
                         self.name,
                         f"split-batch={split} but tensor leading dim is "
-                        f"{np.shape(a)[:1]} (shape {np.shape(a)})",
+                        f"{tuple(a.shape)[:1]} (shape {tuple(a.shape)})",
                     )
             ret = FlowReturn.OK
             for b in range(split):

@@ -10,8 +10,10 @@ tensor_filter.c:366-478), QoS throttling (:512), shared-tensor-filter-key
 and hot model reload events.
 
 Invoke enqueues CUDA work and returns without synchronising: outputs flow
-downstream as CUDA tensors. The element's amortizers, as in the JAX
-package:
+downstream as CUDA tensors while everything downstream takes them
+(``device_ok`` on the src pad, the residency planner's verdict); where a
+host consumer follows, this filter is the materialization boundary and
+fetches them itself. The element's amortizers, as in the JAX package:
 
   - ``batch-size=N`` micro-batches N frames into one invoke (a partial
     batch at EOS or at the ``fetch-timeout-ms`` quiescence flush is padded
@@ -20,18 +22,24 @@ package:
     starts each entry's host→device copy at once and up to N entries wait
     in flight while earlier ones compute;
   - ``fetch-window=K|eos|auto`` holds device outputs and brings a whole
-    window to the host in ONE batched device→host transfer; ``auto``
-    sizes the window from the measured fetch and buffer period;
+    window to the host in ONE batched device→host transfer where this
+    filter is the boundary (or the graph is unplanned); ``auto`` sizes the
+    window from the measured fetch and buffer period;
   - ``invoke-dynamic`` emits each output as a flexible tensor.
+
+Stage fusion: the planner may install adjacent ``tensor_transform`` chains
+as pre/post stages on the backend (``install_fusion``); the upload then
+carries the transform's input bytes, caps map through the fused chain, and
+the stages are reinstalled on a reopened or reloaded backend.
 
 The tracer (``trace.attach``) sees the upload and fetch crossings, the
 upload-window and fetch-window holds, and, with spans on, the batch,
 dispatch, compute, h2d and d2h spans of each invoke.
 
-Not ported yet (see ROADMAP.md): chain/stage fusion, the steady loop, mesh
-sharding, replicas, the AOT cache, rollout, the invoke watchdog and
-``fallback-framework``. Setting any of them to other than its default
-raises at construction instead of being ignored.
+Not ported yet (see ROADMAP.md): chain fusion (filter→filter programs),
+the steady loop, mesh sharding, replicas, the AOT cache, rollout, the
+invoke watchdog and ``fallback-framework``. Setting any of them to other
+than its default raises at construction instead of being ignored.
 """
 
 from __future__ import annotations
@@ -212,6 +220,14 @@ class TensorFilter(Element):
         # until the stream actually goes quiet
         self._flush_timer: Optional[threading.Timer] = None
         self._last_activity = 0.0
+        # fusion-planner state: adjacent tensor_transform elements run as
+        # stages on this filter's backend (pipeline/planner.py). The
+        # element lists drive caps mapping; the spec lists reinstall the
+        # stages after a backend reopen (restart policy / reload-model)
+        self._fused_pre: List = []
+        self._fused_post: List = []
+        self._pre_specs: List[tuple] = []
+        self._post_specs: List[tuple] = []
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
@@ -260,6 +276,32 @@ class TensorFilter(Element):
         self._invoke_count = 0
         self._latencies_us.clear()
         self._e2e_us.clear()
+        # fused stages must survive a backend reopen (on-error=restart):
+        # the upstream transforms are passthrough shells, so running the
+        # reopened backend WITHOUT the stages would corrupt the stream
+        if fprops.shared_key and (self._pre_specs or self._post_specs):
+            # ...unless the reopen landed on a SHARED backend (a key added
+            # after a private fused epoch): the planner never fuses shared
+            # backends, so these specs are stale — drop them; the PLAYING
+            # replan reactivates the upstream transforms
+            log.warning("[%s] dropping fusion stages from a private epoch: "
+                        "backend is now shared (key=%r)", self.name,
+                        fprops.shared_key)
+            self._fused_pre, self._fused_post = [], []
+            self._pre_specs, self._post_specs = [], []
+        else:
+            self._reinstall_stages("reopened")
+
+    def _reinstall_stages(self, what: str) -> None:
+        """Put the installed stages back on a backend that was reopened or
+        reloaded; fail loudly when it declines — the fused-out transforms
+        cannot be restored mid-stream."""
+        if (self._pre_specs or self._post_specs) and not self.fw.fuse_stages(
+                self._pre_specs, self._post_specs):
+            raise ElementError(
+                self.name, f"{what} backend declined the installed fusion "
+                "stages; upstream transforms are fused-out and cannot be "
+                "restored mid-stream")
 
     def stop(self) -> None:
         if self._flush_timer is not None:
@@ -285,6 +327,69 @@ class TensorFilter(Element):
         except ValueError as e:
             raise ElementError(self.name, str(e)) from e
 
+    # -- fusion planner wiring (pipeline/planner.py) -----------------------
+    def install_fusion(self, pre: List, pre_specs: List[tuple],
+                       post: List, post_specs: List[tuple]) -> bool:
+        """Attach fused pre/post transform stages to the open backend.
+        Returns False (nothing changes anywhere) when the backend declines
+        — the planner then leaves the transforms active."""
+        if self.fw is None or not self.fw.fuse_stages(pre_specs, post_specs):
+            return False
+        self._fused_pre, self._fused_post = list(pre), list(post)
+        self._pre_specs, self._post_specs = list(pre_specs), list(post_specs)
+        return True
+
+    def clear_fusion(self) -> None:
+        self._fused_pre, self._fused_post = [], []
+        self._pre_specs, self._post_specs = [], []
+        if self.fw is not None:
+            self.fw.fuse_stages([], [])
+
+    def _map_info_through(self, info: TensorsInfo, chain: List) -> TensorsInfo:
+        """Map a TensorsInfo through a fused transform chain's per-tensor
+        info transforms (caps stay honest while the math runs on device)."""
+        if info.num_tensors == 0:
+            return info
+        for t in chain:
+            info = TensorsInfo(
+                tensors=[t._transform_info(ti) for ti in info],
+                format=info.format)
+        return info
+
+    # -- residency negotiation (memory:HBM lane) ---------------------------
+    def _fw_device_capable(self) -> bool:
+        return bool(getattr(self.fw, "DEVICE_CAPABLE", False))
+
+    def accepts_device(self, pad: Pad) -> bool:
+        return self._fw_device_capable()
+
+    def produces_device(self, pad: Pad) -> bool:
+        # sync=1 materializes every output in _emit_now, and invoke_dynamic
+        # wraps outputs into flexible host bytes — never stamp memory:HBM
+        # on a stream that will actually carry host data
+        return (self._fw_device_capable()
+                and not self.properties.get("sync")
+                and not self.properties.get("invoke_dynamic"))
+
+    def _src_device_ok(self):
+        """Downstream residency verdict for the (single) src pad: True =
+        hand device tensors through untouched, False = this filter is the
+        materialization boundary, None = unplanned."""
+        return self.src_pads[0].device_ok if self.src_pads else None
+
+    def _outputs_cross_here(self, strict: bool = False) -> bool:
+        """Will outputs land on the host AT this element? sync=1 and
+        invoke_dynamic always materialize here; otherwise the planner's
+        verdict decides. strict=True means definitely (a planned
+        boundary); strict=False also counts an undetermined lane
+        (device_ok None — unplanned graph, where the host consumers
+        fetch) — the window-engage predicate. THE single spelling of this
+        gate: every materialization site calls it."""
+        if self.properties.get("sync") or self.properties.get("invoke_dynamic"):
+            return True
+        ok = self._src_device_ok()
+        return ok is False if strict else ok is not True
+
     # -- negotiation -------------------------------------------------------
     def transform_caps(self, pad: Pad, caps: Caps) -> Optional[Caps]:
         """Fixed sink caps → src caps from the model's output info
@@ -302,6 +407,11 @@ class TensorFilter(Element):
             idx = [int(i) for i in str(sel).split(",")]
             in_info = TensorsInfo(tensors=[in_info.tensors[i] for i in idx],
                                   format=in_info.format)
+        if self._fused_pre:
+            # fused upstream transforms pass caps through untouched; the
+            # model sees the POST-stage info (the backend applies the
+            # stages on the device before the model)
+            in_info = self._map_info_through(in_info, self._fused_pre)
         if config.format == TensorFormat.STATIC and in_info.num_tensors > 0:
             if self._in_info is not None and self._in_info.num_tensors > 0:
                 if not (self._in_info == in_info):
@@ -336,6 +446,10 @@ class TensorFilter(Element):
                 else:
                     tensors.append(out_info.tensors[int(tok[1:]) if tok.startswith("o") else int(tok)])
             out_info = TensorsInfo(tensors=tensors)
+        if self._fused_post:
+            # fused downstream transforms run inside the backend: this
+            # filter's src caps already carry their effect
+            out_info = self._map_info_through(out_info, self._fused_post)
         return Caps.from_config(TensorsConfig(out_info, config.rate_n, config.rate_d))
 
     # -- events ------------------------------------------------------------
@@ -360,6 +474,9 @@ class TensorFilter(Element):
                         self.fw.props.model_files = list(
                             self._fw_props.model_files)
                 self.fw.handle_event("reload_model")
+                # the reload's close() dropped the installed stages while
+                # the claimed transforms stay passthrough shells
+                self._reinstall_stages("reloaded")
             self.post_message("model-reloaded", {"model": new_model})
             return
         super()._on_sink_event(pad, event)
@@ -643,11 +760,11 @@ class TensorFilter(Element):
         if not outputs:
             # backend signalled per-frame drop (tensor_filter.c:843-845)
             return FlowReturn.DROPPED
-        # this package has no residency planner yet, so every downstream
-        # element is a host consumer and the window engages whenever the
-        # outputs are the backend's tensors
+        # the window engages where outputs will actually cross to the
+        # host: downstream is not a negotiated device lane, or sync=1
+        # forces the materialization _emit_now would pay per buffer
         window = self._fetch_window_size()
-        if window > 1 and (
+        if window > 1 and self._outputs_cross_here() and (
             any(is_backend_tensor(o) for o in outputs)
             # host outputs join a non-empty window too: bypassing it would
             # emit them ahead of earlier outputs still being held
@@ -731,44 +848,80 @@ class TensorFilter(Element):
                                         now - ts)
         if not pending:
             return FlowReturn.OK
-        flat = [o for _, _, _, outputs in pending for o in outputs
-                if is_backend_tensor(o)]
-        fetched = iter(())
-        if flat:
-            got, dt_block, dt_fetch = self._drain_and_fetch(
-                flat, window=len(pending))
-            fetched = iter(got)
+        fetched, times = self._fetch_held(
+            [(outputs, [tensors or []] if rows is None
+              else [r for _, r in rows])
+             for rows, _, tensors, outputs in pending],
+            window=len(pending))
+        if times is not None:
             # retune in window ENTRIES (one entry is a whole batch on the
             # micro-batch path)
-            self._retune_auto_window(len(pending), dt_block, dt_fetch)
+            self._retune_auto_window(len(pending), *times)
         ret = FlowReturn.OK
-        for rows, buf, tensors, outputs in pending:
-            outs = [next(fetched) if is_backend_tensor(o) else o
-                    for o in outputs]
+        for (rows, buf, _, _), (outs, held) in zip(pending, fetched):
             if rows is None:
-                ret = self._emit_now(buf, tensors, outs)
+                ret = self._emit_now(buf, held[0], outs)
                 if ret not in (FlowReturn.OK, FlowReturn.DROPPED):
                     return ret
                 continue
-            for k, (rbuf, rtensors) in enumerate(rows):
+            for k, ((rbuf, _), rtensors) in enumerate(zip(rows, held)):
                 ret = self._emit_now(rbuf, rtensors,
                                      [o[k:k + 1] for o in outs])
                 if ret not in (FlowReturn.OK, FlowReturn.DROPPED):
                     return ret
         return ret
 
-    def _drain_and_fetch(self, flat: List, always_drain: bool = True,
+    def _fetch_held(self, entries: List[tuple],
+                    window: Optional[int] = None):
+        """ONE batched device→host fetch for held results at a boundary.
+
+        ``entries`` are ``(outputs, rows)``, ``rows`` the input tensor
+        lists of the frames behind those outputs. Every backend output
+        crosses, and so do the 'iN' passthrough inputs the
+        output-combination references when _emit_now will emit them
+        here; an unreferenced input is never emitted, so its bytes stay
+        put. The drain waits on the NEWEST output (held inputs were
+        uploaded before their invoke and are long ready); a fetch-window
+        flush (``window`` set) always drains. Returns the entries with
+        the host arrays swapped in, and ``(block_s, fetch_s)`` or None
+        when nothing was on the device."""
+        idxs = (self._ocomb_input_indices()
+                if self._ocomb_inputs_cross_here() else set())
+        flat = [o for outs, _ in entries for o in outs
+                if is_backend_tensor(o)]
+        anchor = flat[-1] if flat else None
+        flat += [t for _, rows in entries for rt in rows
+                 for i, t in enumerate(rt)
+                 if i in idxs and is_backend_tensor(t)]
+        if not flat:
+            return entries, None
+        got, dt_block, dt_fetch = self._drain_and_fetch(
+            flat, anchor=anchor, always_drain=window is not None,
+            window=window)
+        fetched = iter(got)
+        # swap back in the order flat was built: every entry's outputs
+        # first, then its held inputs
+        outs = [[next(fetched) if is_backend_tensor(o) else o for o in o_]
+                for o_, _ in entries]
+        rows = [[[next(fetched) if i in idxs and is_backend_tensor(t) else t
+                  for i, t in enumerate(rt)] for rt in r_]
+                for _, r_ in entries]
+        return list(zip(outs, rows)), (dt_block, dt_fetch)
+
+    def _drain_and_fetch(self, flat: List, anchor=None,
+                         always_drain: bool = True,
                          window: Optional[int] = None):
         """THE device→host drain + fetch every materialization site calls
-        (window flush, sync / invoke-dynamic materialization): waits once
-        for the newest output's stream (skipped when ``always_drain`` is
+        (window flush, boundary / sync / invoke-dynamic materialization):
+        waits once for ``anchor``'s stream (the newest invoke output,
+        default the last of ``flat``; skipped when ``always_drain`` is
         False and spans are off — the fetch's own wait suffices), brings
         ``flat`` over in ONE batched transfer and bills the d2h crossing.
         Returns ``(fetched, block_seconds, fetch_seconds)``."""
         spans = self._spans()
         t0 = time.perf_counter()
         if always_drain or spans is not None:
-            _block_until_ready(flat[-1:])
+            _block_until_ready([anchor] if anchor is not None else flat[-1:])
         t1 = time.perf_counter()
         if spans is not None:
             spans.emit("device-drain", "compute", t0, t1,
@@ -786,6 +939,27 @@ class TensorFilter(Element):
                 args["window"] = window
             spans.emit("d2h", "d2h", t1, t2, args=args)
         return fetched, t1 - t0, t2 - t1
+
+    def _ocomb_inputs_cross_here(self) -> bool:
+        """output-combination 'iN' passthrough inputs will be materialized
+        by _emit_now (sync=1 or this filter is the residency boundary):
+        the batch paths fetch them alongside the outputs in one transfer."""
+        return bool(self.properties.get("output_combination")) and \
+            self._outputs_cross_here(strict=True)
+
+    def _ocomb_input_indices(self) -> set:
+        """Input indices the output-combination spec references — the only
+        inputs whose bytes must cross at a boundary. Malformed tokens are
+        ignored here; _emit_now surfaces them."""
+        idxs = set()
+        for tok in str(self.properties.get("output_combination") or "").split(","):
+            tok = tok.strip()
+            if tok.startswith("i"):
+                try:
+                    idxs.add(int(tok[1:]))
+                except ValueError:
+                    pass
+        return idxs
 
     def _materialize_outputs(self, outputs: List) -> List:
         """ONE batched device→host fetch for every backend tensor in
@@ -809,9 +983,13 @@ class TensorFilter(Element):
                 else:
                     outs.append(outputs[int(tok[1:]) if tok.startswith("o") else int(tok)])
             outputs = outs
-        if self.properties.get("sync") or self.properties.get("invoke_dynamic"):
+        if self._outputs_cross_here(strict=True):
             # materialize on THIS streaming thread: sync=1 asks for it,
-            # and invoke-dynamic's flexible outputs are host bytes
+            # invoke-dynamic's flexible outputs are host bytes, or the
+            # planner made this filter the boundary (downstream is
+            # host-only). Runs on the COMBINED list so 'iN' passthrough
+            # inputs on the device cross here too, never leaking past
+            # the boundary
             outputs = self._materialize_outputs(outputs)
         if self.properties.get("invoke_dynamic"):
             # flexible output: wrap each tensor with a meta header (:906-917)
@@ -847,13 +1025,21 @@ class TensorFilter(Element):
         spans = self._spans()
         t_asm = time.perf_counter() if spans is not None else 0.0
         stacked = []
+        mixed_bytes = 0
         for j in range(len(pending[0][2])):
             parts = [p[2][j] for p in pending]
             parts.extend([pending[-1][2][j]] * pad_frames)
+            if any(is_backend_tensor(t) for t in parts):
+                # the backend's tensors stack where they are; host parts
+                # mixed in go up with the assembly, a crossing
+                mixed_bytes += nbytes_of(
+                    [t for t in parts if not is_backend_tensor(t)])
             if all(_shape(t) and _shape(t)[0] == 1 for t in parts):
                 stacked.append(concat_tensors(parts))
             else:
                 stacked.append(stack_tensors(parts))
+        if mixed_bytes:
+            self._record_crossing("h2d", nbytes=mixed_bytes)
         if spans is not None:
             # micro-batch assembly (concat/stack + padding): the
             # `batching_padding` leg of the host-stack attribution
@@ -886,7 +1072,7 @@ class TensorFilter(Element):
         if not outputs:
             return FlowReturn.DROPPED
         window = self._fetch_window_size()
-        if window > 1 and (
+        if window > 1 and self._outputs_cross_here() and (
             any(is_backend_tensor(o) for o in outputs) or self._fetch_pending
         ):
             rows = [self._strip_for_window(b, t) for b, t, _ in pending]
@@ -895,9 +1081,15 @@ class TensorFilter(Element):
             if len(self._fetch_pending) < window:
                 return FlowReturn.OK
             return self._flush_fetch_window()
-        if self.properties.get("sync") or self.properties.get("invoke_dynamic"):
-            # one batched fetch before the split, not one per row
-            outputs = self._materialize_outputs(outputs)
+        if self._outputs_cross_here(strict=True):
+            # the boundary (or sync=1 / invoke-dynamic) without a fetch
+            # window: ONE batched fetch of the batched outputs — and of
+            # the referenced 'iN' inputs the ocomb block re-emits —
+            # before the split, not one per row
+            [(outputs, held)], _ = self._fetch_held(
+                [(outputs, [tensors for _, tensors, _ in pending])])
+            pending = [(buf, tensors, inp) for (buf, _, inp), tensors
+                       in zip(pending, held)]
         ret = FlowReturn.OK
         for k, (buf, tensors, _) in enumerate(pending):
             ret = self._emit(buf, tensors, [o[k:k + 1] for o in outputs])

@@ -124,6 +124,7 @@ class TensorMux(_SyncCombiner):
     """Concatenate the tensor *lists* of N streams into one frame."""
 
     ELEMENT_NAME = "tensor_mux"
+    DEVICE_TRANSPARENT = True  # regroups tensors, never touches payloads
 
     def _combined_caps(self) -> Optional[Caps]:
         tensors: List[TensorInfo] = []
@@ -211,6 +212,7 @@ class TensorDemux(Element):
 
     ELEMENT_NAME = "tensor_demux"
     SINK_TEMPLATE = "other/tensors"
+    DEVICE_TRANSPARENT = True  # selects tensors, never touches payloads
     PROPERTY_SCHEMA = {
         "tensorpick": Prop("str", doc="'0,2' or grouped '0:1,2'"),
     }
@@ -350,6 +352,7 @@ class Join(Element):
     """N→1 first-come forwarding without synchronization (gstjoin.c)."""
 
     ELEMENT_NAME = "join"
+    DEVICE_TRANSPARENT = True
 
     def _setup_pads(self) -> None:
         self.add_src_pad("src")
@@ -374,6 +377,7 @@ class RoundRobin(Element):
 
     ELEMENT_NAME = "round_robin"
     ALIASES = ("tensor_distribute",)
+    DEVICE_TRANSPARENT = True
 
     def _setup_pads(self) -> None:
         self.add_sink_pad("sink")

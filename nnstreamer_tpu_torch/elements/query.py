@@ -1522,9 +1522,10 @@ class TensorQueryServerSink(Element):
         self.post_message("reply-dropped", {"client_id": cid})
 
     def _note_d2h(self, tensors) -> None:
-        """Bill the device-to-host copy of the outputs the filter left on
-        its device: this package has no residency planner, so the
-        serversink is where the reply's bytes leave the device."""
+        """Bill the device-to-host copy of outputs still on the device.
+        The serversink is a host consumer, so on a planned pipeline the
+        filter before it is the boundary and has fetched already; the
+        backend's tensors reach it only on an unplanned graph."""
         dev = [t for t in tensors if is_backend_tensor(t)]
         if dev:
             self._record_crossing("d2h", nbytes=nbytes_of(dev))

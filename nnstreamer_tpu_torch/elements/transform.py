@@ -8,7 +8,15 @@ host path is vectorized numpy, and ``acceleration=device`` routes eligible
 chains to the ``arith_chain`` CUDA kernel (ops/transform_ops.py). Host
 inputs go to ``cuda``, which must exist; ``acceleration=device:cpu`` (the
 grammar of the filter's ``accelerator=true:cpu``) asks for the CPU, where
-the kernel's plain version runs. A torch tensor input stays on its device.
+the kernel's plain version runs. A torch tensor input stays on its device,
+and the outputs stay there too unless this element is the pipeline's
+materialization boundary (the residency planner's verdict), where they
+cross to the host once.
+
+Next to a ``tensor_filter`` the fusion planner (pipeline/planner.py) may
+move an eligible chain into the filter's backend, where it runs on the
+device after the upload; the element is then a passthrough shell for caps
+and buffers (``fused-into:<filter>`` on the tracer).
 
 Option grammars use the reference's innermost-first dim indices: dim k maps
 to numpy axis (ndim-1-k).
@@ -22,7 +30,13 @@ import numpy as np
 import torch
 
 from nnstreamer_tpu_torch.analysis.schema import Prop
-from nnstreamer_tpu_torch.buffer import Buffer
+from nnstreamer_tpu_torch.buffer import (
+    Buffer,
+    is_backend_tensor,
+    materialize_tensors,
+    nbytes_of,
+    residency_of,
+)
 from nnstreamer_tpu_torch.caps import Caps
 from nnstreamer_tpu_torch.log import ElementError
 from nnstreamer_tpu_torch.pipeline.element import Element, FlowReturn, Pad, element_register
@@ -51,11 +65,42 @@ class TensorTransform(Element):
         self._mode = str(self.properties.get("mode", ""))
         self._option = str(self.properties.get("option", ""))
         self._accel_device: Optional[torch.device] = None  # set by start()
+        # set by the fusion planner: this element's math runs inside the
+        # named filter's backend; chain() is a passthrough shell until the
+        # next (re)plan (tracer shows `fused-into:<filter>`)
+        self._fused_into: Optional[str] = None
         if self._mode and self._mode not in MODES:
             raise ElementError(self.name, f"unknown transform mode {self._mode!r}")
 
+    # -- residency negotiation (memory:HBM lane) ---------------------------
+    def _statically_device_eligible(self) -> bool:
+        """The device-path gates evaluable without data: True when this
+        mode/option is GUARANTEED to run device-side with bit parity.
+        Only arithmetic qualifies — clamp's float32-input gate resolves at
+        runtime, so advertising residency for it could strip the upstream
+        boundary and then bail to per-buffer host math; clamp stays
+        conservative."""
+        if self._mode != "arithmetic":
+            return False
+        from nnstreamer_tpu_torch.pipeline.planner import transform_fusion_spec
+
+        return transform_fusion_spec(self, None, 1) is not None
+
+    def accepts_device(self, pad: Pad) -> bool:
+        if self._fused_into is not None:
+            return True  # passthrough shell
+        return self._device_accel() and self._statically_device_eligible()
+
+    def produces_device(self, pad: Pad) -> bool:
+        return (self._fused_into is None and self._device_accel()
+                and self._statically_device_eligible())
+
     # -- negotiation -------------------------------------------------------
     def transform_caps(self, pad: Pad, caps: Caps) -> Optional[Caps]:
+        if self._fused_into is not None:
+            # fused: the math happens inside the downstream filter's
+            # backend; caps (like buffers) pass through untouched
+            return caps
         config = caps.to_config()
         info = config.info
         if info.num_tensors == 0:  # flexible: per-buffer transform
@@ -107,10 +152,14 @@ class TensorTransform(Element):
 
     # -- chain -------------------------------------------------------------
     def chain(self, pad: Pad, buf: Buffer) -> FlowReturn:
+        if self._fused_into is not None:
+            return self.push(buf)  # fused: passthrough shell
         if self._device_accel():
             out = self._apply_device(buf)
             if out is not None:
                 return self.push(out)
+        # host math on the backend's tensors: one batched fetch, billed
+        buf = self._fetch_to_host(buf)
         outs = [self._apply(np.asarray(t)) for t in buf.as_numpy()]
         return self.push(buf.with_tensors(outs))
 
@@ -145,6 +194,7 @@ class TensorTransform(Element):
         A kernel fault raises: there is no fallback to numpy once a chain
         qualified."""
         from nnstreamer_tpu_torch.ops import arith_chain
+        from nnstreamer_tpu_torch.ops.fusion_stages import kernel_input
 
         mode, opt = self._mode, self._option
         if mode == "arithmetic" and "@" not in opt and "per-channel" not in opt:
@@ -163,16 +213,32 @@ class TensorTransform(Element):
                     return None  # mid-chain casts: numpy path
                 ops.append((k, float(v)))
             xs = self._device_chain_inputs(buf)
-            outs = [arith_chain(x, ops, out_dtype=torch.float32) for x in xs]
-            return buf.with_tensors(outs)
+            outs = [arith_chain(kernel_input(x), ops, out_dtype=torch.float32)
+                    for x in xs]
+            return self._finish_device(buf, outs)
         if mode == "clamp":
             xs = self._device_chain_inputs(buf)
             if any(x.dtype != torch.float32 for x in xs):
                 return None  # see cast gate above
             lo, hi = (float(x) for x in opt.split(":"))
             outs = [arith_chain(x, [], clamp=(lo, hi)) for x in xs]
-            return buf.with_tensors(outs)
+            return self._finish_device(buf, outs)
         return None
+
+    def _finish_device(self, buf: Buffer, outs: List) -> Buffer:
+        """Device-path emit: bill the upload of host inputs, and honor the
+        residency plan — fetch here (one batched transfer) when this
+        element is the boundary, else hand the tensors downstream
+        untouched."""
+        host = [t for t in buf.tensors if not is_backend_tensor(t)]
+        if host:
+            self._record_crossing("h2d", nbytes=nbytes_of(host))
+        if self.src_pads and self.src_pads[0].device_ok is False:
+            self._record_crossing("d2h", nbytes=nbytes_of(outs))
+            outs = materialize_tensors(outs)
+        nb = buf.with_tensors(outs)
+        nb.meta["residency"] = residency_of(outs)
+        return nb
 
     def _device_chain_inputs(self, buf: Buffer) -> List[torch.Tensor]:
         """Per-tensor inputs for the device path: torch tensors stay on

@@ -153,6 +153,17 @@ class FilterFramework:
         after it. Base: no prefetch support."""
         return None
 
+    def fuse_stages(self, pre_specs: Sequence[tuple],
+                    post_specs: Sequence[tuple]) -> bool:
+        """Fusion-planner hook: compose elementwise pre/post stages (spec
+        tuples from pipeline/planner.py) around this backend's model.
+        Returns True when installed — the planner then turns the
+        originating tensor_transform elements into passthrough shells.
+        Both lists empty = clear any installed stages (always succeeds on
+        the base). Base: stage fusion unsupported — the planner leaves
+        the chain un-fused, bit-identical behavior."""
+        return not pre_specs and not post_specs
+
     def compile_stats(self) -> dict:
         """Build counters (the counterpart of the JAX backend's jit trace
         count). Base backends build nothing per input signature."""

@@ -20,13 +20,18 @@ a card that is asked for and absent makes ``open`` raise.
   - **on-device postproc**: ``custom=postproc:argmax|top1|softmax`` runs on
     the device, so only the small result crosses to the host;
   - **build counter**: one count per new input signature, the counterpart
-    of the JAX backend's ``jit_traces``.
+    of the JAX backend's ``jit_traces``;
+  - **fused stages**: ``fuse_stages`` composes the planner's pre/post
+    transform stages (ops/fusion_stages.py) around the model: the
+    pre-stage runs on each input after its upload, on the stream the
+    model runs on, so the upload carries the transform's input bytes; the
+    post-stage runs on each output after the postproc.
 
 Model naming: zoo names (``mobilenet_v2``) with weights from
 ``custom=seed:<n>`` or ``custom=params:<file>.npz``. The JAX backend's
 ``.py``/``.jaxexport``/``.msgpack``/SavedModel sources, its mesh sharding,
-replicas, steady loop, AOT cache and stage/chain fusion are not ported;
-the custom keys that would ask for them raise.
+replicas, steady loop, AOT cache and chain fusion are not ported; the
+custom keys that would ask for them raise.
 """
 
 from __future__ import annotations
@@ -160,6 +165,10 @@ class TorchCudaFilter(FilterFramework):
         # counterpart of the JAX backend's jit trace counter
         self._signatures: set = set()
         self._staging: Optional[_StagingRing] = None
+        # fusion-planner stages (ops/fusion_stages.py): applied per input
+        # before the model and per output after the postproc
+        self._stage_pre = None
+        self._stage_post = None
 
     # -- open/close --------------------------------------------------------
     def open(self, props: FilterProperties) -> None:
@@ -187,7 +196,23 @@ class TorchCudaFilter(FilterFramework):
         self._bundle = None
         self._postproc = None
         self._staging = None
+        self._stage_pre = self._stage_post = None
         super().close()
+
+    def fuse_stages(self, pre_specs, post_specs) -> bool:
+        """Install (or clear, both empty) the planner's stages. Declines
+        only where the JAX backend does: when no model is open to compose
+        them with."""
+        if not pre_specs and not post_specs:
+            self._stage_pre = self._stage_post = None
+            return True
+        if self._bundle is None:
+            return False
+        from nnstreamer_tpu_torch.ops.fusion_stages import build_stage_fn
+
+        self._stage_pre = build_stage_fn(pre_specs)
+        self._stage_post = build_stage_fn(post_specs)
+        return True
 
     # -- model info --------------------------------------------------------
     def get_model_info(self) -> Tuple[Optional[TensorsInfo], Optional[TensorsInfo]]:
@@ -258,10 +283,18 @@ class TorchCudaFilter(FilterFramework):
             xs = [self._to_device(x) for x in inputs]
         self._signatures.add(tuple((tuple(x.shape), dtype_name(x)) for x in xs))
         with torch.inference_mode():
+            if self._stage_pre is not None:
+                # fused upstream tensor_transform chain, on the device
+                # after the upload (the planner's parity gates guarantee
+                # numpy equivalence)
+                xs = [self._stage_pre(x) for x in xs]
             out = self._bundle.apply_fn(*xs)
             if self._postproc is not None:
                 out = self._postproc(out)
         outs = list(out) if isinstance(out, (list, tuple)) else [out]
+        if self._stage_post is not None:
+            with torch.inference_mode():
+                outs = [self._stage_post(o) for o in outs]
         # async: no synchronise here; stats record enqueue time
         self.stats.record((time.perf_counter() - t0) * 1e6)
         return outs

@@ -23,7 +23,7 @@ Op = Tuple[str, float]  # ("add"|"mul"|"div", value)
 _OPCODES = {"add": 0, "mul": 1, "div": 2}
 #: the kernel's op-list capacity (csrc/transform_ops.cu kMaxOps)
 MAX_OPS = 16
-_IN_DTYPES = (torch.uint8, torch.int8, torch.uint16, torch.int16,
+IN_DTYPES = (torch.uint8, torch.int8, torch.uint16, torch.int16,
               torch.int32, torch.float32)
 _OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -77,7 +77,7 @@ def arith_chain(x: torch.Tensor, ops: Sequence[Op],
     _check_ops(ops)
     _cuda.require(len(ops) <= MAX_OPS,
                   f"arith_chain takes at most {MAX_OPS} ops, got {len(ops)}")
-    _cuda.require(x.dtype in _IN_DTYPES,
+    _cuda.require(x.dtype in IN_DTYPES,
                   f"arith_chain does not read {x.dtype}")
     _cuda.require(out_dtype in _OUT_DTYPES,
                   f"arith_chain does not write {out_dtype}")

@@ -29,7 +29,7 @@ from nnstreamer_tpu_torch.buffer import (
     materialize_tensors,
     nbytes_of,
 )
-from nnstreamer_tpu_torch.caps import Caps
+from nnstreamer_tpu_torch.caps import FEATURE_MEMORY_HBM, Caps
 from nnstreamer_tpu_torch.log import ElementError, get_logger
 
 log = get_logger("pipeline")
@@ -101,6 +101,17 @@ class Pad:
         self.caps: Optional[Caps] = None  # negotiated
         self.eos = False
         self.reserved = False  # claimed by a deferred link (parse forward ref)
+        # residency negotiation (set by pipeline.planner at PLAYING):
+        #   device_ok — src pads: everything downstream of this pad (looking
+        #     through residency-transparent elements) accepts the backend's
+        #     tensors as they are. None = unplanned (device buffers flow,
+        #     host consumers fetch for themselves); False = this element
+        #     is the materialization boundary.
+        #   device_resident — this src pad will actually carry device
+        #     buffers (producer produces AND downstream accepts); its caps
+        #     events get stamped with the memory:HBM feature.
+        self.device_ok: Optional[bool] = None
+        self.device_resident: bool = False
 
     # -- linking -----------------------------------------------------------
     def link(self, sink_pad: "Pad") -> None:
@@ -134,7 +145,15 @@ class Pad:
 
     def push_event(self, event: Event) -> None:
         if event.type == "caps":
-            self.caps = event.data["caps"]
+            caps = event.data["caps"]
+            if self.device_resident and not caps.has_feature(
+                    FEATURE_MEMORY_HBM):
+                # this edge was negotiated device-resident: downstream
+                # introspection reads residency off the caps (the JAX
+                # package's token, so its caps strings parse unchanged)
+                caps = caps.with_feature(FEATURE_MEMORY_HBM)
+                event = Event("caps", {"caps": caps})
+            self.caps = caps
         if event.type == "eos":
             self.eos = True
         if self.peer is not None:
@@ -173,6 +192,10 @@ class Element:
     ELEMENT_NAME: str = "element"
     SINK_TEMPLATE: Optional[str] = None  # caps string or None=ANY
     SRC_TEMPLATE: Optional[str] = None
+    #: residency-transparent: forwards buffers without touching tensor
+    #: payloads (queue/tee/identity/…) — the residency planner looks
+    #: THROUGH these when locating the materialization boundary
+    DEVICE_TRANSPARENT: bool = False
     #: property schema (nnlint NNST1xx): what this element understands.
     #: Merged over the MRO by analysis.schema.schema_for — subclasses add
     #: their own entries on top of these base ones.
@@ -524,6 +547,18 @@ class Element:
             return FlowReturn.OK
         return self.src_pads[pad_index].push(buf)
 
+    # -- residency negotiation (memory:HBM lane) ---------------------------
+    def accepts_device(self, pad: "Pad") -> bool:
+        """Sink-side advertisement: True when this element consumes the
+        backend's tensors untouched (no fetch to the host inside
+        chain()). Default: host-only."""
+        return False
+
+    def produces_device(self, pad: "Pad") -> bool:
+        """Src-side advertisement: True when this element's outputs on
+        ``pad`` can be the backend's tensors."""
+        return False
+
     def _record_crossing(self, direction: str, n: int = 1,
                          nbytes: int = 0, devices: int = 1) -> None:
         """Attribute ``n`` link crossings ('h2d' | 'd2h') to this element
@@ -543,7 +578,9 @@ class Element:
         brought to the host in one batched transfer, billed as one ``d2h``
         crossing of this element; ``buf`` itself when it holds none. The
         host elements call it before they read values, and pass the host
-        copy on, so a frame crosses once."""
+        copy on, so a frame crosses once. On a planned pipeline the
+        boundary upstream has fetched already and this is a no-op; it
+        serves unplanned graphs and elements driven by hand."""
         dev = [t for t in buf.tensors if is_backend_tensor(t)]
         if not dev:
             return buf

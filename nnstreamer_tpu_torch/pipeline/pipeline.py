@@ -137,8 +137,27 @@ class Pipeline:
         self._n_sources = 0
         self._n_sinks = 0
         self.tracer = None  # set by trace.attach()
+        # transform fusion into adjacent tensor_filter backends: 'auto'
+        # (default — fuse every bit-parity-eligible chain at the PLAYING
+        # transition) | 'off'. NNSTPU_FUSION=off disables globally;
+        # per-element `fusion=off` opts single elements out.
+        self.fusion: str = "auto"
         self._abort_lock = lockwitness.make_lock("pipeline.abort")
         self._aborting = False
+
+    @property
+    def chain_fusion(self) -> str:
+        """Whole-chain filter→filter fusion. This package has no chain
+        pass yet, so filters always run one by one: 'off' is the only
+        value, and setting any other raises (the JAX package's launch
+        code sets it to 'off' where it wants filters one by one)."""
+        return "off"
+
+    @chain_fusion.setter
+    def chain_fusion(self, value: str) -> None:
+        if str(value).lower() != "off":
+            raise ValueError(f"chain_fusion={value!r}: the chain fusion "
+                             "pass is not ported; only 'off' is honoured")
 
     # -- graph construction ------------------------------------------------
     def add(self, *elements: Element) -> None:
@@ -207,9 +226,15 @@ class Pipeline:
 
                 if os.environ.get(_trace.SPAN_ENV, "") == "1":
                     _trace.attach(self, spans=True)
-                # the JAX package runs its fusion/residency planner here;
-                # this package has none yet, so every pad stays unplanned
-                # (device buffers flow, host consumers materialize)
+                # PLAYING transition, pre-data: fuse eligible
+                # tensor_transform runs into adjacent filters' backends
+                # and negotiate per-pad device residency (the memory:HBM
+                # lane + single materialization boundary). Runs before
+                # the sources start, so no buffer is in flight while
+                # element roles change.
+                from nnstreamer_tpu_torch.pipeline.planner import plan_pipeline
+
+                plan_pipeline(self)
                 self._start_sources()
         else:
             self._stop_sources()

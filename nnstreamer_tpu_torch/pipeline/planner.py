@@ -1,0 +1,342 @@
+"""PLAYING-transition planner: transform fusion and device-residency lanes
+(counterpart of the JAX package's ``pipeline/planner.py``, its passes 1
+and 2).
+
+Run by Pipeline.set_state immediately before the sources start (no data
+in flight):
+
+1. **Fusion planner** — walks linear ``tensor_transform`` runs directly
+   pad-linked to a ``tensor_filter`` and installs the bit-parity-eligible
+   suffix/prefix in the filter's backend as pre/post stages
+   (ops/fusion_stages.py: the arithmetic through the ``arith_chain``
+   kernel, after the upload, on the stream the model runs on). Fused
+   transforms become passthrough shells, visible on the tracer as
+   ``fused-into:<filter>``. The eligibility gates are the transform's
+   device-path gates (leading float32 typecast for arithmetic, no
+   per-channel, no mid-chain casts, clamp needs a statically known
+   float32 input), so fused and unfused paths are bit-identical —
+   except ``stand``, whose float32 device accumulation against the host's
+   float64 two-pass is float-tolerance parity (~1e-6 relative); anything
+   else stays un-fused, with no behavior change.
+
+2. **Residency negotiation** — each pad advertises whether it accepts /
+   produces the backend's tensors (``Element.accepts_device`` /
+   ``produces_device``, the ``memory:HBM`` caps feature). Adjacent
+   device-capable elements hand CUDA tensors through untouched; the
+   planner marks exactly one materialization boundary
+   (``Pad.device_ok = False``) at the last device-capable element before a
+   host-only consumer, looking through residency-transparent elements
+   (queue/tee/…). The boundary element materializes with the filter's
+   fetch machinery, so the flagship transform→filter→decoder line does
+   ONE upload per batch and ONE fetch, at the filter, and a tee fan-out
+   fetches once for all its branches.
+
+The JAX package runs four more passes between these two, all fed by its
+cost-model analyzers, which this package has not ported: chain fusion
+(filter→filter programs), mesh sharding, the replica pool and the steady
+loop. Their properties raise at construction (elements/filter.py
+``NOT_PORTED``), so every filter here runs solo.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional
+
+import numpy as np
+
+from nnstreamer_tpu_torch.log import get_logger
+
+log = get_logger("planner")
+
+
+def plan_pipeline(pipeline) -> None:
+    """Run the planning passes. Idempotent — each PLAYING transition
+    re-plans from scratch (a PAUSED→PLAYING cycle or an edited graph gets
+    fresh decisions)."""
+    from nnstreamer_tpu_torch.elements.transform import TensorTransform
+
+    # shells always reset here; filter stages are cleared/rebuilt only
+    # when their plan actually changes
+    for e in pipeline.elements.values():
+        if isinstance(e, TensorTransform):
+            e._fused_into = None
+    # the JAX package's chain-fusion pass runs here, and its shard, pool
+    # and steady-loop passes between fusion and residency; they wait for
+    # the cost model (ROADMAP.md queue 1)
+    _plan_fusion(pipeline)
+    _plan_residency(pipeline)
+
+
+# --- fusion planning ------------------------------------------------------
+
+def _fusion_enabled(pipeline) -> bool:
+    if os.environ.get("NNSTPU_FUSION", "").lower() in ("0", "off", "false"):
+        return False
+    return str(getattr(pipeline, "fusion", "auto")).lower() != "off"
+
+
+def _elem_fusion_off(e) -> bool:
+    return str(e.properties.get("fusion", "auto")).lower() == "off"
+
+
+def transform_fusion_spec(transform, cur_dtype, batch: int):
+    """Eligibility of ONE transform for device-side fusion.
+
+    Returns ``(spec, out_dtype)`` or None. ``cur_dtype`` is the (possibly
+    unknown = None) dtype entering this stage; ``batch`` is the adjacent
+    filter's batch-size (stand is granularity-hazardous under filter
+    micro-batching: a fused stand would normalize over the whole batch
+    jointly while the unfused element normalizes per buffer).
+
+    Specs are plain tuples (hashable, backend-independent):
+      ("typecast", "<dtype name>")         — non-64-bit targets only
+      ("arith", (("add", v), …))           — leading typecast:float32 grammar
+      ("clamp", lo, hi)                    — float32 input required
+      ("stand", "default"|"dc-average")    — whole-tensor, float32 out
+    """
+    from nnstreamer_tpu_torch.types import TensorDType
+
+    mode, opt = transform._mode, transform._option
+    if mode == "typecast":
+        try:
+            dt = TensorDType.from_any(opt).np_dtype
+        except Exception:  # noqa: BLE001 — unparseable: not fusable
+            return None
+        if np.dtype(dt).itemsize == 8:
+            # 64-bit targets: the JAX package's gate (x64=off truncates),
+            # kept so both packages fuse the same chains
+            return None
+        return ("typecast", np.dtype(dt).name), np.dtype(dt)
+    if mode == "arithmetic":
+        # the device-path gates verbatim: no per-channel, leading
+        # typecast:float32, no mid-chain casts
+        if "@" in opt or "per-channel" in opt:
+            return None
+        toks = [t.strip() for t in opt.split(",") if t.strip()]
+        if not toks or not toks[0].startswith("typecast:"):
+            return None
+        try:
+            cast = TensorDType.from_any(toks[0].split(":")[1]).np_dtype
+        except Exception:  # noqa: BLE001
+            return None
+        if cast != np.float32:
+            return None
+        ops = []
+        for tok in toks[1:]:
+            k, _, v = tok.partition(":")
+            if k == "typecast" or k not in ("add", "mul", "div"):
+                return None
+            try:
+                ops.append((k, float(v)))
+            except ValueError:
+                # unparseable operand: not fusable — the error surfaces
+                # per-buffer through the element path, never from set_state
+                return None
+        return ("arith", tuple(ops)), np.dtype(np.float32)
+    if mode == "clamp":
+        # numpy clip on non-f32 promotes; only a statically-known float32
+        # input bit-matches the kernel's float32 clamp
+        if cur_dtype is None or np.dtype(cur_dtype) != np.float32:
+            return None
+        try:
+            lo, hi = (float(x) for x in opt.split(":"))
+        except Exception:  # noqa: BLE001
+            return None
+        return ("clamp", lo, hi), np.dtype(np.float32)
+    if mode == "stand":
+        if batch > 1:
+            return None  # per-buffer vs per-batch normalization hazard
+        parts = opt.split(":") if opt else ["default"]
+        if "per-channel" in parts:
+            return None
+        if parts[0] not in ("default", "dc-average"):
+            return None
+        return ("stand", parts[0]), np.dtype(np.float32)
+    return None
+
+
+def _chain_specs(chain: List, seed_dtype, batch: int) -> Optional[List[tuple]]:
+    """Specs for a whole transform chain (upstream→downstream order), or
+    None when any stage is ineligible."""
+    specs: List[tuple] = []
+    cur = seed_dtype
+    for t in chain:
+        r = transform_fusion_spec(t, cur, batch)
+        if r is None:
+            return None
+        spec, cur = r
+        specs.append(spec)
+    return specs
+
+
+def _walk_transform_chain(start_pad, upstream: bool) -> List:
+    """Collect the maximal run of singly-linked tensor_transform elements
+    from a pad, walking upstream (via sink pads) or downstream (via src
+    pads). Returned nearest-the-filter-first."""
+    from nnstreamer_tpu_torch.elements.transform import TensorTransform
+
+    chain = []
+    pad = start_pad.peer if start_pad is not None else None
+    while pad is not None:
+        e = pad.element
+        if (not isinstance(e, TensorTransform)
+                or len(e.sink_pads) != 1 or len(e.src_pads) != 1
+                or _elem_fusion_off(e)
+                # already claimed by another filter this plan (a transform
+                # between two filters is reachable from both — fusing it
+                # into both would apply its math twice)
+                or e._fused_into is not None):
+            break
+        chain.append(e)
+        nxt = e.sink_pads[0] if upstream else e.src_pads[0]
+        pad = nxt.peer
+    return chain
+
+
+def _info_dtype(info) -> Optional[np.dtype]:
+    """The single dtype of a TensorsInfo when all tensors agree, else None."""
+    if info is None or info.num_tensors == 0:
+        return None
+    dts = {t.dtype.np_dtype for t in info}
+    return np.dtype(next(iter(dts))) if len(dts) == 1 else None
+
+
+def _plan_fusion(pipeline) -> None:
+    """Per-filter transform fusion. Filter stages are cleared/rebuilt only
+    when their plan actually CHANGES."""
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
+
+    enabled = _fusion_enabled(pipeline)
+    tracer = getattr(pipeline, "tracer", None)
+    for f in pipeline.elements.values():
+        if not isinstance(f, TensorFilter):
+            continue
+        pre: List = []
+        pre_specs: List[tuple] = []
+        post: List = []
+        post_specs: List[tuple] = []
+        shared = bool(f.properties.get("shared_tensor_filter_key"))
+        eligible = (enabled and f.fw is not None and not _elem_fusion_off(f)
+                    and not shared
+                    and not (f.properties.get("invoke_dynamic")
+                             or f.properties.get("input_combination")
+                             or f.properties.get("output_combination")))
+        # combination indices and flexible output change per-tensor
+        # routing in ways the simple per-tensor stages can't mirror.
+        # Shared backends (shared_tensor_filter_key) are never fused:
+        # stages live on the framework object, which acquire_framework
+        # hands to EVERY filter sharing the key — installing (or
+        # clearing) stages for one filter would silently run them (or
+        # drop them) inside every sharer's invokes, while only this
+        # filter's upstream transforms became passthrough shells
+        if eligible:
+            batch = int(f.properties.get("batch_size", 1) or 1)
+
+            # pre-chain: nearest-first upstream walk, then the longest
+            # eligible SUFFIX adjacent to the filter (an ineligible stage
+            # cuts everything upstream of it, not the whole run)
+            up = _walk_transform_chain(
+                f.sink_pads[0] if f.sink_pads else None, upstream=True)
+            up.reverse()  # upstream→downstream order
+            for start in range(len(up)):
+                specs = _chain_specs(up[start:], None, batch)
+                if specs is not None:
+                    pre, pre_specs = up[start:], specs
+                    break
+
+            # post-chain: model-output dtype is known, so eligibility
+            # folds forward; an ineligible stage keeps the eligible PREFIX
+            down = _walk_transform_chain(
+                f.src_pads[0] if f.src_pads else None, upstream=False)
+            cur = _info_dtype(getattr(f, "_out_info", None))
+            for t in down:
+                r = transform_fusion_spec(t, cur, batch)
+                if r is None:
+                    break
+                spec, cur = r
+                post.append(t)
+                post_specs.append(spec)
+
+        if not pre and not post:
+            # shared backends are left untouched — unless THIS filter has
+            # an install on record (a key added after stages were planned
+            # onto the then-private backend): its own stale stages would
+            # otherwise keep running while the transforms go live again,
+            # applying their math twice
+            if not shared or f._pre_specs or f._post_specs:
+                f.clear_fusion()  # backend no-ops when nothing was installed
+            continue
+        if (pre_specs == f._pre_specs and post_specs == f._post_specs
+                and pre == f._fused_pre and post == f._fused_post):
+            installed = True  # unchanged plan: the installed stages hold
+        else:
+            installed = f.install_fusion(pre, pre_specs, post, post_specs)
+            if not installed:
+                f.clear_fusion()  # drop stale stages from a prior plan
+        if not installed:
+            log.info("[%s] backend declined stage fusion; chains stay "
+                     "un-fused", f.name)
+            continue
+        for t in pre + post:
+            t._fused_into = f.name
+            if tracer is not None:
+                tracer.record_fusion(t.name, f.name)
+        log.info("[%s] fused %d pre + %d post transform stage(s) into the "
+                 "backend", f.name, len(pre), len(post))
+
+
+# --- residency negotiation ------------------------------------------------
+
+def is_transparent(e) -> bool:
+    """Residency-transparent: forwards tensor payloads untouched. Fused
+    transforms are passthrough shells, hence transparent."""
+    return e.DEVICE_TRANSPARENT or getattr(e, "_fused_into", None) is not None
+
+
+def downstream_accepts_device(pad, _memo=None) -> bool:
+    """Does everything downstream of this src pad (looking through
+    transparent elements, across every branch) accept the backend's
+    tensors? A tee with one host-only branch answers False — one
+    materialization boundary serves all branches.
+
+    Verdicts memoize per element so reconverging (diamond) topologies —
+    tee branches rejoining at a mux — get the element's COMPUTED answer
+    on revisit, not a blanket False that would plant a premature
+    boundary. ``None`` in the memo marks in-progress: a true pad-linked
+    cycle conservatively stays host."""
+    peer = pad.peer
+    if peer is None:
+        return False
+    e = peer.element
+    if _memo is None:
+        _memo = {}
+    if e.accepts_device(peer):
+        return True
+    if not is_transparent(e):
+        return False
+    key = id(e)
+    if key in _memo:
+        v = _memo[key]
+        return False if v is None else v
+    _memo[key] = None  # in-progress
+    linked = [sp for sp in e.src_pads if sp.peer is not None]
+    verdict = bool(linked) and all(
+        downstream_accepts_device(sp, _memo) for sp in linked)
+    _memo[key] = verdict
+    return verdict
+
+
+def _plan_residency(pipeline) -> None:
+    # topo order (sources→sinks) so device_resident propagates forward
+    # through transparent forwarders: an edge is stamped memory:HBM only
+    # when device buffers will actually flow on it
+    for e in pipeline._topo_order():
+        upstream_dev = any(
+            sp.peer is not None and sp.peer.device_resident
+            for sp in e.sink_pads)
+        for sp in e.src_pads:
+            sp.device_ok = downstream_accepts_device(sp)
+            sp.device_resident = bool(
+                sp.device_ok and (e.produces_device(sp)
+                                  or (is_transparent(e) and upstream_dev)))

@@ -322,6 +322,8 @@ class Tracer:
                                            "h2d_bytes": 0, "d2h_bytes": 0}
         self._crossings_el: Dict[str, Dict[str, int]] = defaultdict(
             lambda: {"h2d": 0, "d2h": 0, "h2d_bytes": 0, "d2h_bytes": 0})
+        # fusion-planner decisions: {element: "fused-into:<filter>"}
+        self._fusion: Dict[str, str] = {}
         # nntrace span flight-recorder (None = spans off; every span site
         # gates on one attribute read). Aggregate counters above stay on
         # either way.
@@ -689,6 +691,17 @@ class Tracer:
         rows.sort(key=lambda r: r["total_ms"], reverse=True)
         return rows[:n]
 
+    def record_fusion(self, element_name: str, filter_name: str) -> None:
+        """The fusion planner folded ``element_name`` into
+        ``filter_name``'s backend — the element is now a passthrough
+        shell, visible here as ``fused-into:<filter>``."""
+        with self._lock:
+            self._fusion[element_name] = f"fused-into:{filter_name}"
+
+    def fusions(self) -> Dict[str, str]:
+        with self._lock:
+            return dict(self._fusion)
+
     def report(self) -> Dict[str, Dict]:
         """{element: {proctime, interlatency (arrival gap), src_latency
         (source→element age), fps}} plus a ``residency`` map of parked
@@ -725,6 +738,8 @@ class Tracer:
                     "per_element": {el: dict(c)
                                     for el, c in self._crossings_el.items()},
                 }
+            if self._fusion:
+                out["fusion"] = dict(self._fusion)
             if (self._hist or self._hist_serving or self._hist_rpc
                     or self._metrics_series):
                 out["metrics"] = {
@@ -1029,8 +1044,8 @@ class Tracer:
     def summary(self) -> str:
         lines = []
         for name, e in sorted(self.report().items()):
-            if name in ("residency", "faults", "crossings", "metrics",
-                        "serving", "ctl", "trace_x"):
+            if name in ("residency", "faults", "crossings", "fusion",
+                        "metrics", "serving", "ctl", "trace_x"):
                 continue
             pt = e["proctime"]
             fps = e.get("fps")

@@ -175,11 +175,11 @@ AGG_CASES = {
 }
 
 
-def _agg_line(shape, props):
+def _agg_line(shape, props, sink=""):
     dims = ":".join(str(d) for d in reversed(shape))
     return (f"appsrc name=src caps=other/tensors,format=static,"
             f"dimensions={dims},types=float32,framerate=30/1 "
-            f"! tensor_aggregator {props} ! tensor_sink name=out")
+            f"! tensor_aggregator {props} ! tensor_sink name=out {sink}")
 
 
 def _agg_run(mod, buffer_cls, line, chunks):
@@ -211,11 +211,14 @@ def _agg_run(mod, buffer_cls, line, chunks):
 def test_aggregator_windows_match(case, kind):
     """Windows, flush and frames_dim as the JAX element gives them: the
     same arrays, the same pts. torch tensors go through torch.split and
-    torch.cat and come out as torch tensors."""
+    torch.cat and come out as torch tensors into a sink that takes them
+    as they are (materialize=false: the aggregator is not the residency
+    boundary there)."""
     shape, props, n = AGG_CASES[case]
     rng = np.random.default_rng(8)
     chunks = [rng.normal(size=shape).astype(np.float32) for _ in range(n)]
-    line = _agg_line(shape, props)
+    line = _agg_line(shape, props,
+                     "materialize=false" if kind == "torch" else "")
     want = _agg_run(jax_pipeline, JaxBuffer, line, chunks)
     port_in = chunks if kind == "numpy" else [torch.from_numpy(c)
                                               for c in chunks]
@@ -226,6 +229,44 @@ def test_aggregator_windows_match(case, kind):
         assert isinstance(t, torch.Tensor) == (kind == "torch")
         np.testing.assert_array_equal(np.asarray(t), np.asarray(w.tensors[0]))
         assert g.pts == w.pts
+
+
+@pytest.mark.parametrize("case", sorted(AGG_CASES))
+def test_aggregator_is_the_boundary(case):
+    """Before a host sink the aggregator is the residency boundary: the
+    backend's tensors window on the backend and each window crosses once,
+    at the aggregator, as the JAX element fetches it."""
+    import jax.numpy as jnp
+
+    from nnstreamer_tpu import trace as jax_trace
+    from nnstreamer_tpu_torch import trace as port_trace
+
+    shape, props, n = AGG_CASES[case]
+    rng = np.random.default_rng(9)
+    chunks = [rng.normal(size=shape).astype(np.float32) for _ in range(n)]
+    line = _agg_line(shape, props).replace("tensor_aggregator",
+                                           "tensor_aggregator name=agg")
+    got = {}
+    for tag, mod, buf, dev, tr in (
+            ("jax", jax_pipeline, JaxBuffer, jnp.asarray, jax_trace),
+            ("port", port_pipeline, PortBuffer, torch.from_numpy, port_trace)):
+        p = mod.parse_launch(line)
+        tracer = tr.attach(p)
+        p.play()
+        for i, c in enumerate(chunks):
+            p["src"].push_buffer(buf(tensors=[dev(c.copy())], pts=i))
+        p["src"].end_of_stream()
+        assert p.bus.wait_eos(60)
+        assert p.bus.error is None, p.bus.error
+        got[tag] = ([np.asarray(b.tensors[0]) for b in p["out"].collected],
+                    tracer.crossings()["per_element"])
+        assert p["agg"].src_pad.device_ok is False
+        p.stop()
+    assert len(got["port"][0]) == len(got["jax"][0]) > 0
+    for g, w in zip(got["port"][0], got["jax"][0]):
+        np.testing.assert_array_equal(g, w)
+    assert got["port"][1] == got["jax"][1]
+    assert got["port"][1]["agg"]["d2h"] == len(got["port"][0])
 
 
 @pytest.mark.parametrize("case", sorted(AGG_CASES))

@@ -167,8 +167,17 @@ STREAM_MODULES = (
 )
 
 
+#: the modules of the slice that brought the planner's transform fusion
+#: and residency lane
+PLANNER_MODULES = (
+    "nnstreamer_tpu_torch.pipeline.planner",
+    "nnstreamer_tpu_torch.ops.fusion_stages",
+)
+
+
 @pytest.mark.parametrize("module", SLICE_MODULES + VISION_MODULES
-                         + SERVING_MODULES + STREAM_MODULES)
+                         + SERVING_MODULES + STREAM_MODULES
+                         + PLANNER_MODULES)
 def test_slice_module_alone_loads_no_jax(module):
     """Each module, imported alone in a fresh interpreter, pulls in
     neither JAX nor the JAX package (the walk above imports them all

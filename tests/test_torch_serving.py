@@ -1096,8 +1096,10 @@ def test_demux_of_an_argmax_output_gives_0d_rows(monkeypatch):
 
 
 def test_the_d2h_is_billed_once_per_batch():
-    """The serversink brings a batch's outputs to the host once: one d2h
-    crossing per served batch, at the sink, with the batch's bytes."""
+    """A batch's outputs come to the host once: one d2h crossing per
+    served batch, with the batch's bytes, at the filter — the residency
+    boundary before the serversink, a host consumer — and none at the
+    serversink."""
     server, tracer = _server(filt=ADD_FILTER, sid="d2h")
     try:
         cl = _client(server["ssrc"].port)
@@ -1108,10 +1110,12 @@ def test_the_d2h_is_billed_once_per_batch():
         assert cl.bus.wait_eos(20)
         cl.stop()
         batches = tracer.serving()["d2h"]["batches"]
-        cr = tracer.crossings()["per_element"]["sink"]
+        per = tracer.crossings()["per_element"]
     finally:
         server.stop()
     assert batches == 3
+    assert "sink" not in per
+    cr = per["f"]
     assert (cr["d2h"], cr["d2h_bytes"]) == (3, 3 * 8 * 4 * 4)
 
 

@@ -10,9 +10,9 @@
   - the same elements fed by a filter (``model=add``; the port's filter on
     the CPU with ``accelerator=true:cpu``, whose torch tensors count as
     the backend's, ``buffer.is_backend_tensor``): equal outputs and equal
-    h2d/d2h crossing counts and bytes. The JAX package bills the fetch at
-    the filter (its residency planner), the port at the host element that
-    takes the tensor; the totals are the same;
+    h2d/d2h crossing counts and bytes, per element: both packages' residency
+    planners make the filter the boundary and bill the fetch there, and a
+    tee fan-out fetches once for all its branches;
   - the fan-in line of examples/launch_lines.txt;
   - the three lines the port runs on the card, at a small size:
       A. two cameras merged into one MobileNet-v2 batch and split back per
@@ -385,18 +385,23 @@ FED = {
     "rate": ("tensor_rate framerate=10/1 ! tensor_sink name=o1", ("o1",)),
     "round_robin_join": ("round_robin name=r r. ! queue ! j. r. ! queue ! j. "
                          "join name=j ! tensor_sink name=o1", ("o1",)),
+    # the fan-out: one boundary at the filter serves both branches
+    "tee": ("tee name=t t. ! queue ! tensor_sink name=o1 "
+            "t. ! queue ! tensor_sink name=o2", ("o1", "o2")),
 }
 
 
 @pytest.mark.parametrize("case", sorted(FED))
 def test_filter_fed_crossings(case):
     """appsrc ! tensor_filter model=add ! <element>: the same outputs and
-    the same h2d/d2h crossing totals (count and bytes) in both packages."""
+    the same h2d/d2h crossings (count and bytes) in both packages, in
+    total and per element."""
     tail, sinks = FED[case]
 
     def go(pkg):
-        line = (f"appsrc name=src caps={C42} ! tensor_filter framework=jax "
-                f"model=add custom=k:1,aot:0 {pkg.cpu} ! {tail}")
+        line = (f"appsrc name=src caps={C42} ! tensor_filter name=f "
+                f"framework=jax model=add custom=k:1,aot:0 {pkg.cpu} "
+                f"! {tail}")
         pushes = []
         for i in range(3):
             pushes.append(("src", {"tensors": [np.full((2, 4), i, np.float32)],
@@ -407,7 +412,7 @@ def test_filter_fed_crossings(case):
                                      "pts": i * 10 ** 8}))
         return run(pkg, line, pushes, sinks, wait=10)
 
-    (jo, jc, jx, _), (po, pc, px, _) = both(go)
+    (jo, jc, jx, jp), (po, pc, px, pp) = both(go)
     if case == "round_robin_join":  # the queues race: compare as sets
         key = lambda o: sorted(float(b[0].sum()) for b in o["o1"])  # noqa: E731
         assert key(po) == key(jo)
@@ -415,6 +420,12 @@ def test_filter_fed_crossings(case):
         assert_same(po, jo)
     assert pc == jc
     assert px == jx and px["d2h"] > 0
+    per = pp.tracer.crossings()["per_element"]
+    assert per == jp.tracer.crossings()["per_element"]
+    if case == "tee":
+        # 3 buffers: 3 d2h and 96 B, all at the filter
+        assert per == {"f": {"h2d": 3, "d2h": 3, "h2d_bytes": 96,
+                             "d2h_bytes": 96}}
 
 
 def test_fan_in_launch_line():
@@ -496,7 +507,7 @@ def test_two_cameras_labels(weights):
     the frames take more than one label, and the line crosses once per
     merged batch each way."""
     msgpack, npz, _, labels, frames = weights
-    want, jx, _ = _run_two_cameras(JAX, _two_cameras(
+    want, jx, jper = _run_two_cameras(JAX, _two_cameras(
         JAX, f"params:{msgpack},postproc:argmax,{CUSTOM}", labels), frames)
     got, px, per = _run_two_cameras(PORT, _two_cameras(
         PORT, f"params:{npz},postproc:argmax,{CUSTOM}", labels), frames)
@@ -508,8 +519,10 @@ def test_two_cameras_labels(weights):
     assert px == jx
     n_batches = N_FRAMES // (2 * FPT)
     assert (px["h2d"], px["d2h"]) == (n_batches, n_batches)
-    # the port's one fetch is the split's
-    assert per["s"]["d2h"] == n_batches and per["f"]["d2h"] == 0
+    # the one fetch is the filter's, the residency boundary before the
+    # split, in both packages
+    assert per == jper
+    assert per["f"]["d2h"] == n_batches and "s" not in per
 
 
 def test_two_cameras_logits(weights):

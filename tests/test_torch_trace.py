@@ -7,9 +7,8 @@ the port's classes. The parity cases run the same ``model=add`` and
 ``custom-easy`` lines through both packages (the port's backend with
 ``accelerator=true:cpu``) and compare the tracer's report: the same keys,
 the same chain counts per element, and the same crossing counts and bytes
-per element. The lines hold a fetch window or ``sync=1``, so the filter
-is where outputs reach the host in both packages (the JAX package's
-residency planner, which would otherwise move that point, is not ported).
+per element. The lines end in a host sink, so both packages' residency
+planners make the filter the point where outputs reach the host.
 Timings are only checked for sign and order. The port's Chrome traces
 must pass both packages' ``validate_chrome_trace``.
 """
