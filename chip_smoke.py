@@ -220,13 +220,44 @@ Phases, each printing one JSON line:
              float64, float16, int64 and uint32 buffers, types the kernel
              does not read (converted to float32 first: output bit-equal
              to numpy, one arith_chain launch per buffer);
+  train      on-device training: a datarepo of 256 seeded 224x224x3 uint8
+             frames with one-hot labels over 1001 outputs (16 classes,
+             each a seeded mean colour plus noise) through datareposrc
+             epochs=3 ! tensor_trainer framework=jax model-config=
+             mobilenet_v2 (width 1.0, batch 32, lr 0.01, seed:0,
+             fused:pallas; 192 train and 64 validation samples an epoch)
+             ! tensor_sink: three 1:1:4 float64 reports, the training loss
+             falling from epoch 1 to 3, finite validation metrics, one
+             normalize_u8 launch per train and validation batch and 13
+             fused-block launches per validation batch (train); before
+             it, the first step on the card against the same step through
+             the port on the CPU, each of loss, running statistics and
+             weights within twice the CPU bf16 step's distance from the
+             CPU float32 step, and normalize_u8's bf16 frames against the
+             CPU preamble (train_step); after it, the validation forward
+             against the unfused eval forward of the current weights
+             (equal labels, within twice the bf16 forward's distance from
+             float32; the float32 kernel forward at 0.15 + 0.05·|p|; the
+             forward folded from the initial weights must fail:
+             train_refold); the saved weights served by tensor_filter
+             custom=params:<save>,fused:pallas on the validation frames,
+             labels equal to the trainer's last validation forward's,
+             logits within 0.15 + 0.05·|p| of them (their distance
+             reported), 13 + 1 launches per batch (train_serve); then
+             train step ms,
+             samples/s, validation frames/s, h2d bytes per batch and the
+             peak device memory from a trainer driven directly
+             (train_timing), and a profile line of 4 steps (every
+             profile line also sums device ms by kind: convolution,
+             GEMM, reduction, elementwise, copies, this package's
+             kernels);
 
 then one ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
 that last line. It needs a CUDA card: without one it exits 1 at once.
 
 ``--only`` runs the named phases alone (``serve`` needs ``slice`` for
-its frames; ``streams`` and ``residency`` build their own; ``stride2`` runs inside ``kernel``, the flagship's profile
+its frames; ``streams``, ``residency`` and ``train`` build their own; ``stride2`` runs inside ``kernel``, the flagship's profile
 inside ``slice``, the overload and reference lines inside ``serve``) and
 ends after them, without the ``kernels`` and result lines.
 """
@@ -836,10 +867,35 @@ def device_profile(torch, run) -> dict:
     wall_ms = secs * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     elementwise = sum(v for k, v in by_name.items() if "elementwise" in k)
+    kinds = {}
+    for k, v in by_name.items():
+        kinds[_device_kind(k)] = kinds.get(_device_kind(k), 0.0) + v / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms or None,
             "elementwise_ms": elementwise / 1e3 if busy_ms else None,
             "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
+            "by_kind_ms": kinds,
             "top_device": [{"name": k[:90], "ms": v / 1e3} for k, v in top]}
+
+
+def _device_kind(name: str) -> str:
+    """A device item's kind, by its name: this package's kernels, copies,
+    convolutions (cuDNN's forward, data- and weight-gradient kernels),
+    GEMMs, reductions, elementwise work, the rest."""
+    low = name.lower()
+    if any(k in low for k in ("fused_ir", "normalize_u8", "arith_chain",
+                              "flash_")):
+        return "package_kernels"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    if any(k in low for k in ("conv", "fprop", "dgrad", "wgrad")):
+        return "convolution"
+    if "gemm" in low or "cutlass" in low:
+        return "gemm"
+    if "reduce" in low:
+        return "reduction"
+    if "elementwise" in low or "copy_kernel" in low:
+        return "elementwise"
+    return "other"
 
 
 def check_transform(torch, results):
@@ -3447,6 +3503,348 @@ def check_residency(torch, results, workdir):
     results["residency_launches"] = total
 
 
+#: the training line (the reference's tests/test_training.py line at the
+#: flagship's width): 256 frames, per epoch 192 train (6 steps at batch
+#: 32) and 64 validation (2 batches), 3 epochs
+TRAIN = {"frames": 256, "train": 192, "val": 64, "epochs": 3, "batch": 32,
+         "classes": 16, "outputs": 1001, "lr": "0.01"}
+#: train steps timed after 2 warm-up steps, validation batches after 2
+TRAIN_TIMED, VAL_TIMED = 8, 4
+
+
+def _train_custom(**extra) -> dict:
+    return {"batch": str(TRAIN["batch"]), "lr": TRAIN["lr"],
+            "size": str(SIZE), "width": "1.0",
+            "classes": str(TRAIN["outputs"]), "seed": "0", **extra}
+
+
+def _custom_str(custom: dict) -> str:
+    return ",".join(f"{k}:{v}" for k, v in custom.items())
+
+
+def _train_repo(workdir):
+    """A datarepo of seeded uint8 224x224x3 frames with one-hot labels
+    over 1001 outputs: 16 classes, each a seeded mean colour, plus noise,
+    so the loss has something to learn. Returns (data, json, frames,
+    class ids)."""
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    n = TRAIN["frames"]
+    means = rng.integers(32, 224, (TRAIN["classes"], 3))
+    cls = rng.integers(0, TRAIN["classes"], n)
+    noise = rng.normal(0.0, 24.0, (n, SIZE, SIZE, 3))
+    frames = np.clip(means[cls][:, None, None, :] + noise, 0, 255).astype(
+        np.uint8)
+    onehot = np.zeros((n, TRAIN["outputs"]), np.float32)
+    onehot[np.arange(n), cls] = 1.0
+    data = os.path.join(workdir, "train.data")
+    meta = os.path.join(workdir, "train.json")
+    with open(data, "wb") as f:
+        for i in range(n):
+            f.write(frames[i].tobytes())
+            f.write(onehot[i].tobytes())
+    with open(meta, "w") as f:
+        json.dump({"gst_caps": (
+            "other/tensors,format=static,num_tensors=2,dimensions="
+            f"3:{SIZE}:{SIZE}.{TRAIN['outputs']},types=uint8.float32,"
+            "framerate=0/1"), "total_samples": n,
+            "sample_size": frames[0].nbytes + onehot[0].nbytes}, f)
+    return data, meta, frames, onehot
+
+
+def _trainer(torch, custom, n_train, n_val=0, epochs=1):
+    from nnstreamer_tpu_torch.trainers import TrainerProperties
+    from nnstreamer_tpu_torch.trainers.cuda_trainer import CudaTrainer
+
+    tr = CudaTrainer()
+    props = TrainerProperties(
+        model_config="mobilenet_v2", num_training_samples=n_train,
+        num_validation_samples=n_val, num_epochs=epochs, custom=custom)
+    tr.create(props)
+    tr.start(lambda e: None)
+    return tr, props
+
+
+def _set_dtype(torch, module, dtype) -> None:
+    """Run a zoo module's unfused and train forwards in ``dtype``."""
+    for m in module.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = dtype
+
+
+def _first_step(torch, frames, onehot, device, dtype=None):
+    """One train step of the line's first batch on a fresh trainer (seed:0
+    weights): (loss, state dict on the host)."""
+    custom = _train_custom(**({"device": "cpu"} if device == "cpu" else {}))
+    tr, props = _trainer(torch, custom, TRAIN["batch"])
+    if dtype is not None:
+        _set_dtype(torch, tr._bundle.module, dtype)
+    for i in range(TRAIN["batch"]):
+        tr.push_data([frames[i], onehot[i]])
+    state = {k: v.detach().float().cpu()
+             for k, v in tr._bundle.module.state_dict().items()
+             if "num_batches" not in k}
+    return props.training_loss, state
+
+
+def _step_dist(a, b) -> dict:
+    """Distances of two first steps (loss, state): the loss's, and the
+    largest over the running statistics and over the weights."""
+    def d(sel):
+        return max(float((a[1][k] - b[1][k]).abs().max()) for k in a[1]
+                   if sel(k))
+    return {"loss": abs(a[0] - b[0]),
+            "running_stats": d(lambda k: "running" in k),
+            "weights": d(lambda k: "running" not in k)}
+
+
+def check_train_step(torch, frames, onehot, results) -> None:
+    """The card's first train step against the same step through the port
+    on the CPU (the same seed:0 weights and 32 frames, the CPU's plain
+    float32 preamble): the loss, the running statistics and the updated
+    weights, each no farther from the CPU bfloat16 step than twice the CPU
+    bfloat16 step's distance from the CPU float32 step (the step's own
+    bf16 noise). Also how close normalize_u8's bfloat16 frames are to the
+    CPU's float32 preamble rounded to bfloat16."""
+    from nnstreamer_tpu_torch.ops.preprocess import normalize_u8
+
+    t0 = time.perf_counter()
+    card = _first_step(torch, frames, onehot, "cuda")
+    cpu = _first_step(torch, frames, onehot, "cpu")
+    cpu32 = _first_step(torch, frames, onehot, "cpu", torch.float32)
+    cpu_s = time.perf_counter() - t0
+    dist, noise = _step_dist(card, cpu), _step_dist(cpu, cpu32)
+    ok = all(dist[k] <= 2 * noise[k] for k in dist)
+    x = torch.from_numpy(frames[:TRAIN["batch"]])
+    kern = normalize_u8(x.cuda()).float().cpu()
+    plain = (x.float() / 127.5 - 1.0).to(torch.bfloat16).float()
+    diff = (kern - plain).abs()
+    ulp = torch.where(plain == 0, torch.ones_like(plain),
+                      2.0 ** (torch.floor(torch.log2(plain.abs())) - 7))
+    emit("train_step", losses={"card": card[0], "cpu_bf16": cpu[0],
+                               "cpu_f32": cpu32[0]},
+         card_vs_cpu_bf16=dist, cpu_bf16_vs_f32=noise, tolerance="2x noise",
+         ok=ok, preamble_elements=diff.numel(),
+         preamble_differ=int((diff > 0).sum()),
+         preamble_max_abs=float(diff.max()),
+         preamble_max_ulps=float((diff / ulp).max()), cpu_s=cpu_s,
+         card=results["card"])
+    if not ok:
+        raise AssertionError(f"train step: card vs CPU {dist}, noise {noise}")
+
+
+def _trained_serve_line(params: str) -> str:
+    return (f"appsrc name=src caps=video/x-raw,format=RGB,width={SIZE},"
+            f"height={SIZE},framerate=1000/1 ! tensor_converter "
+            f"frames-per-tensor={TRAIN['batch']} ! tensor_filter name=f "
+            f"framework=jax model=mobilenet_v2 "
+            f"custom=params:{params},fused:pallas ! tensor_sink name=out")
+
+
+def check_refold(torch, module, forward, x, results) -> None:
+    """The trainer's validation forward after training (fused:pallas,
+    bfloat16, refolded at the first validation batch after each epoch's
+    steps) against the unfused eval forward of the current weights: equal
+    labels, and its distance no more than twice the unfused bfloat16
+    forward's distance from the unfused float32 one (0.15 + 0.05·|p| lies
+    below this network's bf16 noise: reported). The same kernel forward
+    in float32 is held to 0.15 + 0.05·|p| and equal labels (TF32 off, as
+    the kernel phase leaves it in a whole run). The forward folded from
+    the initial weights must fail."""
+    from nnstreamer_tpu_torch.models import get_model, preprocess_frames
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import _make_fused_apply
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        val = forward(x).float()
+        unfused = module(preprocess_frames(x, "pm1", module.dtype)).float()
+        _set_dtype(torch, module, torch.float32)
+        pre32 = preprocess_frames(x, "pm1", torch.float32)
+        unfused32 = module(pre32).float()
+        _set_dtype(torch, module, torch.bfloat16)
+        kernel32 = _make_fused_apply(module, mode="kernel",
+                                     compute_dtype=torch.float32)(pre32)
+        stale = get_model("mobilenet_v2", _train_custom(fused="pallas"),
+                          "cuda").apply_fn(x).float()
+    torch.cuda.synchronize()
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    noise = max_err(unfused, unfused32)
+    err, stale_err = max_err(val, unfused), max_err(stale, unfused)
+
+    def labels_equal(a, b):
+        return bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+
+    ok = labels_equal(val, unfused) and err <= 2 * noise
+    ok32 = (labels_equal(kernel32, unfused32)
+            and within(kernel32, unfused32, 0.15, 0.05))
+    stale_fails = not (labels_equal(stale, unfused) and stale_err <= 2 * noise)
+    emit("train_refold", frames=int(x.shape[0]),
+         logits_max_abs=float(unfused.abs().max()),
+         val_vs_unfused_max_abs=err, bf16_noise=noise,
+         val_within_rule=within(val, unfused, 0.15, 0.05),
+         labels_equal=labels_equal(val, unfused), ok=ok,
+         f32_kernel_vs_unfused_max_abs=max_err(kernel32, unfused32),
+         f32_ok=ok32, stale_vs_unfused_max_abs=stale_err,
+         stale_labels_equal=int((stale.argmax(-1) == unfused.argmax(-1))
+                                .sum()),
+         stale_fails=stale_fails, card=results["card"])
+    if not (ok and ok32 and stale_fails):
+        raise AssertionError("train: the validation forward after training "
+                             "does not run the current weights")
+
+
+def time_training(torch, frames, onehot, results) -> None:
+    """Train step and validation times on a trainer driven directly (no
+    pipeline): the batch-completing push of each step (stack, one upload,
+    forward, backward, update, the loss read), after 2 warm-up steps, and
+    each validation batch after 2; the peak device memory; then a profile
+    of 4 more steps."""
+    custom = _train_custom(fused="pallas")
+    n_steps, n_val = 2 + TRAIN_TIMED, 2 + VAL_TIMED
+    torch.cuda.reset_peak_memory_stats()
+    tr, _ = _trainer(torch, custom, n_steps * TRAIN["batch"],
+                     n_val * TRAIN["batch"])
+    step_ms, val_ms = [], []
+    for i in range((n_steps + n_val) * TRAIN["batch"]):
+        j = i % TRAIN["frames"]
+        t0 = time.perf_counter()
+        tr.push_data([frames[j], onehot[j]])
+        if (i + 1) % TRAIN["batch"] == 0:
+            (step_ms if i < n_steps * TRAIN["batch"] else val_ms).append(
+                (time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    steps, vals = step_ms[2:], val_ms[2:]
+    per_batch_h2d = tr.stats["h2d_bytes"] / (tr.stats["steps"]
+                                              + tr.stats["val_batches"])
+    emit("train_timing", batch=TRAIN["batch"], steps_timed=len(steps),
+         step_ms_median=statistics.median(steps),
+         step_ms_min=min(steps), step_ms_max=max(steps),
+         samples_per_s=TRAIN["batch"] / statistics.median(steps) * 1e3,
+         first_val_ms_refold=val_ms[0], val_ms_median=statistics.median(vals),
+         val_frames_per_s=TRAIN["batch"] / statistics.median(vals) * 1e3,
+         h2d_bytes_per_batch=per_batch_h2d,
+         frame_bytes_per_batch=TRAIN["batch"] * SIZE * SIZE * 3,
+         syncs=tr.stats["syncs"], batches=tr.stats["steps"]
+         + tr.stats["val_batches"], max_memory_allocated=peak,
+         card=results["card"])
+    want = TRAIN["batch"] * (SIZE * SIZE * 3 + 8)
+    if per_batch_h2d != want or tr.stats["syncs"] != n_steps + n_val:
+        raise AssertionError(f"train: {per_batch_h2d} h2d bytes a batch "
+                             f"(want {want}), {tr.stats}")
+    tr2, _ = _trainer(torch, custom, 10 ** 6)
+
+    def run():
+        t0 = time.perf_counter()
+        for i in range(4 * TRAIN["batch"]):
+            tr2.push_data([frames[i], onehot[i]])
+        return time.perf_counter() - t0
+
+    run()  # warm-up steps
+    emit("profile", line="train", steps=4, card=results["card"],
+         **device_profile(torch, run))
+
+
+def check_train(torch, results, workdir):
+    """datareposrc ! tensor_trainer framework=jax (MobileNet-v2 1.0 at
+    224 px, 1001 outputs, batch 32, 3 epochs of 192 train and 64
+    validation samples, fused:pallas) ! tensor_sink, then the saved
+    weights served by the flagship's tensor_filter on the validation
+    frames; around it the first step against the CPU, the refold, and the
+    training's timing and profile."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    data, meta, frames, onehot = _train_repo(workdir)
+    check_train_step(torch, frames, onehot, results)
+    save = os.path.join(workdir, "mbv2.npz")
+    line = (f"datareposrc location={data} json={meta} "
+            f"epochs={TRAIN['epochs']} ! tensor_trainer name=tr "
+            f"framework=jax model-config=mobilenet_v2 model-save-path={save} "
+            f"num-inputs=1 num-labels=1 num-training-samples={TRAIN['train']} "
+            f"num-validation-samples={TRAIN['val']} epochs={TRAIN['epochs']} "
+            f"custom={_custom_str(_train_custom(fused='pallas'))} "
+            "! tensor_sink name=out")
+    p = parse_launch(line)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    p.play()
+    if not p.bus.wait_eos(600) or p.bus.error is not None:
+        raise RuntimeError(f"training line failed: {p.bus.error}")
+    secs = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    tr = p["tr"]._fw
+    module, forward, stats = tr._bundle.module, tr._bundle.apply_fn, \
+        dict(tr.stats)
+    reports = [np.asarray(b.tensors[0]) for b in p["out"].collected]
+    per_epoch = TRAIN["train"] // TRAIN["batch"], TRAIN["val"] // TRAIN["batch"]
+    steps, vals = per_epoch[0] * TRAIN["epochs"], per_epoch[1] * TRAIN["epochs"]
+    rep = [r.reshape(-1).tolist() for r in reports]
+    ok = (len(reports) == TRAIN["epochs"]
+          and all(r.shape == (4, 1, 1) and r.dtype == np.float64
+                  for r in reports)
+          and rep[-1][0] < rep[0][0]
+          and all(np.isfinite(r[2:]).all() for r in rep)
+          and launches["normalize_u8"] == steps + vals
+          and launches["fused_inverted_residual"] == 13 * vals
+          and stats["steps"] == steps and os.path.isfile(save))
+    emit("train", epochs=TRAIN["epochs"], seconds=secs,
+         samples=TRAIN["frames"] * TRAIN["epochs"],
+         reports=[dict(zip(("train_loss", "train_acc", "val_loss", "val_acc"),
+                           r)) for r in rep],
+         steps=stats["steps"], val_batches=stats["val_batches"],
+         h2d_bytes=stats["h2d_bytes"], syncs=stats["syncs"],
+         launches=launches, saved=os.path.getsize(save)
+         if os.path.isfile(save) else None, ok=ok, card=results["card"])
+    if not ok:
+        raise AssertionError(f"training line: {rep}, {launches}, {stats}")
+    x = torch.from_numpy(frames[TRAIN["train"]:]).cuda()
+    with torch.inference_mode():
+        last = torch.cat([forward(c) for c in x.split(TRAIN["batch"])])
+    trained = last.argmax(-1).cpu().tolist()
+    check_refold(torch, module, forward, x, results)
+    p.stop()
+
+    # serve what was trained
+    s = parse_launch(_trained_serve_line(save))
+    s.play()
+    _cuda.reset_launches()
+    for i in range(TRAIN["train"], TRAIN["frames"]):
+        s["src"].push_buffer(Buffer(tensors=[frames[i]], pts=i))
+    s["src"].end_of_stream()
+    if not s.bus.wait_eos(120) or s.bus.error is not None:
+        raise RuntimeError(f"serving line failed: {s.bus.error}")
+    serve_launches = dict(_cuda.LAUNCHES)
+    logits = torch.cat([torch.as_tensor(np.asarray(b.tensors[0])).reshape(
+        -1, TRAIN["outputs"]) for b in s["out"].collected])
+    served = logits.argmax(-1).tolist()
+    s.stop()
+    n_served = TRAIN["val"] // TRAIN["batch"]
+    same_shape = logits.shape == last.shape
+    serve_ok = (served == trained and same_shape
+                and within(logits, last.cpu(), 0.15, 0.05)
+                and serve_launches["fused_inverted_residual"] == 13 * n_served
+                and serve_launches["normalize_u8"] == n_served)
+    emit("train_serve", frames=len(served), labels_equal=served == trained,
+         distinct_labels=len(set(served)),
+         logits_max_abs_err=max_err(logits, last.cpu()) if same_shape
+         else None,
+         launches=serve_launches, ok=serve_ok, card=results["card"])
+    if not serve_ok:
+        raise AssertionError("the served weights' labels differ from the "
+                             "trainer's")
+    results["train_launches"] = {k: launches[k] + serve_launches[k]
+                                 for k in launches}
+    time_training(torch, frames, onehot, results)
+
+
 def main() -> int:
     import torch
 
@@ -3488,6 +3886,7 @@ def main() -> int:
         "serve": lambda: check_serve(torch, results, workdir),
         "streams": lambda: check_streams(torch, results, workdir),
         "residency": lambda: check_residency(torch, results, workdir),
+        "train": lambda: check_train(torch, results, workdir),
     }
     only = None
     if "--only" in sys.argv[1:]:
@@ -3519,7 +3918,7 @@ def main() -> int:
         "longctx_launches", "upload_launches", "batch_launches",
         "hostspans_launches", "detect_launches", "detect_pp_launches",
         "segment_launches", "vision_launches", "serve_launches",
-        "streams_launches", "residency_launches"))
+        "streams_launches", "residency_launches", "train_launches"))
         for name in src}
     launches["arith_chain"] += results["arith_launches"]
     kernels = []

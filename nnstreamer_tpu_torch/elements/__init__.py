@@ -4,6 +4,7 @@
 import nnstreamer_tpu_torch.elements.aggregator  # noqa: F401
 import nnstreamer_tpu_torch.elements.basic  # noqa: F401
 import nnstreamer_tpu_torch.elements.converter  # noqa: F401
+import nnstreamer_tpu_torch.elements.datarepo_elements  # noqa: F401
 import nnstreamer_tpu_torch.elements.decoder  # noqa: F401
 import nnstreamer_tpu_torch.elements.edge_elems  # noqa: F401
 import nnstreamer_tpu_torch.elements.filter  # noqa: F401
@@ -14,4 +15,5 @@ import nnstreamer_tpu_torch.elements.platform_sources  # noqa: F401
 import nnstreamer_tpu_torch.elements.query  # noqa: F401
 import nnstreamer_tpu_torch.elements.repo  # noqa: F401
 import nnstreamer_tpu_torch.elements.sparse  # noqa: F401
+import nnstreamer_tpu_torch.elements.trainer_element  # noqa: F401
 import nnstreamer_tpu_torch.elements.transform  # noqa: F401

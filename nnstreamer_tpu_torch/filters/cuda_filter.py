@@ -28,10 +28,12 @@ a card that is asked for and absent makes ``open`` raise.
     post-stage runs on each output after the postproc.
 
 Model naming: zoo names (``mobilenet_v2``) with weights from
-``custom=seed:<n>`` or ``custom=params:<file>.npz``. The JAX backend's
-``.py``/``.jaxexport``/``.msgpack``/SavedModel sources, its mesh sharding,
-replicas, steady loop, AOT cache and chain fusion are not ported; the
-custom keys that would ask for them raise.
+``custom=seed:<n>`` or ``custom=params:<path>`` (an ``.npz``, or what the
+trainer saved: a file or a directory), and embedded-Python ``.py`` model
+files (:func:`models.load_py_model`, the JAX backend's ``_load_py_model``).
+The JAX backend's ``.jaxexport``/``.msgpack``/SavedModel sources, its mesh
+sharding, replicas, steady loop, AOT cache and chain fusion are not
+ported; the custom keys that would ask for them raise.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from nnstreamer_tpu_torch.filters.base import (
     FilterProperties,
     PrefetchedInputs,
 )
-from nnstreamer_tpu_torch.models import ModelBundle, get_model
+from nnstreamer_tpu_torch.models import ModelBundle, get_model, load_py_model
 from nnstreamer_tpu_torch.types import TensorInfo, TensorsInfo
 
 #: custom keys of the JAX backend whose features this backend lacks
@@ -182,13 +184,16 @@ class TorchCudaFilter(FilterFramework):
         if bad:
             raise ValueError(f"custom={','.join(bad)} is not supported by the "
                              "torch_cuda backend")
-        if "." in model.rsplit("/", 1)[-1]:
+        is_py = model.endswith(".py")
+        if "." in model.rsplit("/", 1)[-1] and not is_py:
             raise ValueError(f"model {model!r}: the torch_cuda backend runs "
-                             "zoo models (weights via custom=params:<npz>)")
+                             "zoo models (weights via custom=params:<path>) "
+                             "and .py model files")
         self._device = pick_device(props.accelerator)
         self._postproc = make_postproc(custom)
         self._postproc_name = custom.get("postproc")
-        self._bundle = get_model(model, custom, self._device)
+        self._bundle = (load_py_model(model, custom, self._device) if is_py
+                        else get_model(model, custom, self._device))
         self._signatures = set()
         self._staging = None
 

@@ -6,15 +6,17 @@ when the bundle is built, plus an ``apply_fn(*inputs) -> output`` the
 filter calls per buffer. The zoo registers builders by name so pipelines
 can say ``tensor_filter framework=jax model=mobilenet_v2`` (the JAX
 package's launch lines run unchanged). Weights come from
-``custom=params:<file>.npz`` (a saved state dict, e.g. carried across from
-the JAX package by :mod:`models.convert`) or are made from
-``custom=seed:<n>`` with numpy.
+``custom=params:<path>`` (a saved state dict: an ``.npz`` carried across
+from the JAX package by :mod:`models.convert`, or what the trainer saved,
+a file or a directory holding one) or are made from ``custom=seed:<n>``
+with numpy. :func:`load_py_model` loads an embedded-Python model file.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -35,6 +37,14 @@ class ModelBundle:
     #: output info for a proposed input info (the counterpart of the JAX
     #: backend's jax.eval_shape probe) — computed from shapes, no launch
     infer_output: Optional[Callable[[TensorsInfo], TensorsInfo]] = None
+    #: training-mode forward ``train_apply_fn(x) -> (logits, new_state)``
+    #: for models with BatchNorm: the batch's statistics normalize, and
+    #: ``new_state`` holds the running statistics after flax's EMA as
+    #: (buffer, value) pairs that the train step writes after the
+    #: optimizer's update, as the JAX package's train apply returns new
+    #: ``batch_stats`` beside its output (so gradients reach parameters
+    #: only). None where the trainer differentiates ``apply_fn``.
+    train_apply_fn: Optional[Callable] = None
 
 
 def register_model(name: str):
@@ -55,18 +65,87 @@ def _load_builtins() -> None:
         importlib.import_module(f"nnstreamer_tpu_torch.models.{mod}")
 
 
+#: the file a saved state dict takes inside a checkpoint directory
+STATE_FILE = "state.npz"
+
+
+def save_state(state: Mapping[str, torch.Tensor], path: str) -> None:
+    """Write a state dict (parameters and running statistics) as an npz,
+    one array per key: to exactly ``path`` when it has an extension, else
+    into a directory ``path`` holding :data:`STATE_FILE` (the JAX
+    trainer's msgpack file and orbax directory, in one format)."""
+    if not os.path.splitext(path)[1]:
+        os.makedirs(path, exist_ok=True)
+        path = os.path.join(path, STATE_FILE)
+    arrays = {k: v.detach().cpu().numpy() for k, v in state.items()}
+    # through a file object: np.savez appends .npz to a name without it
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+
+
+def read_state(path: str) -> Dict[str, torch.Tensor]:
+    """A state dict written by :func:`save_state` (a file, or a directory
+    holding :data:`STATE_FILE`)."""
+    if os.path.isdir(path):
+        path = os.path.join(path, STATE_FILE)
+    with np.load(path) as z:
+        return {k: torch.from_numpy(np.array(z[k])) for k in z.files}
+
+
 def load_or_init(module: torch.nn.Module, custom: Dict[str, str],
                  init_fn: Callable[[torch.nn.Module, int], None]) -> None:
     """Shared builder plumbing: weights from a saved state dict
-    (``custom=params:<file>.npz``, one array per state-dict key) or
-    deterministic numpy init from ``custom=seed:<n>``."""
+    (``custom=params:<path>``, see :func:`read_state`) or deterministic
+    numpy init from ``custom=seed:<n>``."""
     params_path = custom.get("params")
     if params_path:
-        with np.load(params_path) as z:
-            state = {k: torch.from_numpy(np.array(z[k])) for k in z.files}
-        module.load_state_dict(state)
+        module.load_state_dict(read_state(params_path))
     else:
         init_fn(module, int(custom.get("seed", 0)))
+
+
+def weights_version(module: torch.nn.Module) -> int:
+    """How many times a trainer changed ``module``'s weights or running
+    statistics (see :func:`weights_changed`); 0 for a module as built."""
+    return getattr(module, "_weights_version", 0)
+
+
+def weights_changed(module: torch.nn.Module) -> None:
+    """Record that ``module``'s weights changed in place (a train step, a
+    restore): a forward that folded them refolds before its next call."""
+    module._weights_version = weights_version(module) + 1
+
+
+#: momentum of flax's ``nn.BatchNorm``, which the JAX zoo trains with
+BN_MOMENTUM = 0.99
+
+
+def batch_norm_train(y: torch.Tensor, bn: torch.nn.BatchNorm2d,
+                     dtype: torch.dtype, new_state: list,
+                     momentum: float = BN_MOMENTUM) -> torch.Tensor:
+    """Train-mode BatchNorm of an NCHW tensor as flax computes it
+    (``nn.BatchNorm(use_running_average=False)``, ``use_fast_variance``):
+    the batch's mean and variance in float32 over (N, H, W), the variance
+    as E[x²] − E[x]² clipped at 0 (biased), ``(x − mean) · rsqrt(var +
+    eps) · scale + bias`` in float32, rounded once to ``dtype``. The
+    running statistics' update, ``ra = momentum · ra + (1 − momentum) ·
+    batch`` with that same biased variance, is appended to ``new_state``
+    as (buffer, value) pairs, computed without gradient.
+
+    Not ``F.batch_norm(training=True)``: its momentum is the batch's
+    weight, and it updates ``running_var`` with the unbiased variance."""
+    x = y.float()
+    mean = x.mean(dim=(0, 2, 3))
+    var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    out = ((x - mean.reshape(1, -1, 1, 1)) * mul.reshape(1, -1, 1, 1)
+           + bn.bias.reshape(1, -1, 1, 1))
+    with torch.no_grad():
+        new_state.append((bn.running_mean, momentum * bn.running_mean
+                          + (1.0 - momentum) * mean))
+        new_state.append((bn.running_var, momentum * bn.running_var
+                          + (1.0 - momentum) * var))
+    return out.to(dtype)
 
 
 def init_conv_bn(module: torch.nn.Module, seed: int) -> None:
@@ -138,8 +217,10 @@ def resolve_fused_apply(custom: Dict[str, str], model, make_fused,
     BN-folded forward through the package's CUDA kernels (``make_fused``
     mode 'kernel'), ``xla`` the same folded forward as the JAX package's
     ``fused:xla`` computes it, outside any kernel (mode 'xla'). BN folds
-    once, here (at open).
-    Returns None when the custom key is absent."""
+    here (at open); MobileNet-v2's, the zoo model the trainer takes,
+    folds again after a trainer changed the weights
+    (:func:`weights_changed`). Returns None when the custom key is
+    absent."""
     fused = custom.get("fused")
     if fused is None:
         return None
@@ -152,6 +233,100 @@ def resolve_fused_apply(custom: Dict[str, str], model, make_fused,
         return raw(preprocess_frames(x, scale, model.dtype))
 
     return apply_fn
+
+
+class ParamTree(torch.nn.Module):
+    """An embedded-Python model's (nested) dict of tensors as a module:
+    each floating leaf a parameter under its key, any other leaf a buffer,
+    each nested dict a child. :meth:`tree` gives the dict back, holding
+    the module's own tensors, so ``.to(device)``, ``state_dict`` and an
+    optimizer over ``parameters()`` all see the model's weights."""
+
+    def __init__(self, tree: Mapping[str, Any]):
+        super().__init__()
+        self._keys = list(tree)
+        for k, v in tree.items():
+            if not isinstance(k, str) or not k or "." in k:
+                raise ValueError(f"model params key {k!r}: keys are "
+                                 "non-empty strings without '.'")
+            if isinstance(v, Mapping):
+                self.add_module(k, ParamTree(v))
+                continue
+            t = torch.as_tensor(v).detach().clone()
+            if t.is_floating_point():
+                self.register_parameter(k, torch.nn.Parameter(t))
+            else:
+                self.register_buffer(k, t)
+
+    def tree(self) -> Dict[str, Any]:
+        out = {}
+        for k in self._keys:
+            v = getattr(self, k)
+            out[k] = v.tree() if isinstance(v, ParamTree) else v
+        return out
+
+
+def _meta_infer(fn: Callable, module: ParamTree):
+    """Output info for a proposed input info, by running ``fn`` on meta
+    tensors (shapes and dtypes only, no data, no launch)."""
+    from nnstreamer_tpu_torch.buffer import dtype_name
+    from nnstreamer_tpu_torch.ops.fusion_stages import _torch_dtype
+    from nnstreamer_tpu_torch.types import TensorInfo
+
+    def infer(info: TensorsInfo) -> TensorsInfo:
+        params = _to_meta(module.tree())
+        xs = [torch.empty(t.np_shape(), device="meta",
+                          dtype=_torch_dtype(t.dtype.np_dtype))
+              for t in info.tensors]
+        with torch.no_grad():
+            out = fn(params, *xs)
+        outs = out if isinstance(out, (list, tuple)) else [out]
+        return TensorsInfo(tensors=[
+            TensorInfo.from_np_shape(tuple(o.shape), dtype_name(o))
+            for o in outs])
+
+    return infer
+
+
+def _to_meta(tree: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: _to_meta(v) if isinstance(v, dict) else v.detach().to("meta")
+            for k, v in tree.items()}
+
+
+def load_py_model(path: str, custom: Dict[str, str],
+                  device="cuda") -> ModelBundle:
+    """Embedded-Python model file (the JAX filter's ``_load_py_model``,
+    tensor_filter_python3 parity): the file defines ``make_model(custom)``
+    returning a :class:`ModelBundle`, or ``(apply_fn, params[, in_info[,
+    out_info]])`` with ``apply_fn(params, *inputs)`` a torch function and
+    ``params`` a (nested) dict of tensors or arrays. The params become a
+    :class:`ParamTree` on ``device``; ``custom=params:<path>`` replaces
+    them with a saved state (:func:`read_state`)."""
+    import importlib.util
+
+    name = os.path.basename(path).removesuffix(".py")
+    spec = importlib.util.spec_from_file_location(f"nns_torch_model_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if not hasattr(mod, "make_model"):
+        raise ValueError(f"{path} must define make_model(custom)")
+    res = mod.make_model(custom)
+    if isinstance(res, ModelBundle):
+        return res
+    fn, params = res[0], res[1]
+    module = ParamTree(params or {})
+    if custom.get("params"):
+        module.load_state_dict(read_state(custom["params"]))
+    module = module.to(torch.device(device))
+
+    def apply_fn(*xs):
+        return fn(module.tree(), *xs)
+
+    return ModelBundle(apply_fn=apply_fn, module=module,
+                       input_info=res[2] if len(res) > 2 else None,
+                       output_info=res[3] if len(res) > 3 else None,
+                       infer_output=_meta_infer(fn, module))
 
 
 def get_model(name: str, custom: Optional[Dict[str, str]] = None,

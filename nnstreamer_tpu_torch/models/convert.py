@@ -300,5 +300,8 @@ def from_jax_variables(variables: Mapping, model: Optional[str] = None
 
 
 def save_state_dict(state: Mapping[str, torch.Tensor], path: str) -> None:
-    """Write a state dict as the ``.npz`` that ``custom=params:`` loads."""
-    np.savez(path, **{k: v.detach().cpu().numpy() for k, v in state.items()})
+    """Write a state dict as the ``.npz`` that ``custom=params:`` loads
+    (:func:`models.save_state`)."""
+    from nnstreamer_tpu_torch.models import save_state
+
+    save_state(state, path)

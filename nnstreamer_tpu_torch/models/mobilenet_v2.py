@@ -7,10 +7,15 @@ the same ``CFG``, channel rounding and ``size``/``width``/``classes``
 customs and caps (``3:{size}:{size}:1`` uint8 in, ``{classes}:1`` float32
 out). Convolutions use TF/XLA 'SAME' padding, as flax does.
 
-Two forwards:
+Three forwards:
   - the module's own (unfused): conv + BatchNorm + relu6 layers, as the
     flax module computes them;
-  - :func:`_make_fused_apply`: BatchNorm folded once, the 13 stride-1
+  - the train forward (the bundle's ``train_apply_fn``, the flax module
+    with ``train=True``): the same layers with each BatchNorm normalizing
+    by the batch's statistics (:func:`models.batch_norm_train`), the
+    running statistics' EMA returned beside the logits;
+  - :func:`_make_fused_apply`: BatchNorm folded (again whenever a trainer
+    changed the weights since the last fold), the 13 stride-1
     inverted-residual blocks through the fused-block kernel on CUDA
     (``fused:pallas``; its plain version on the CPU) or every block through
     three convolutions (``fused:xla``, as the JAX package's ``fused:xla``
@@ -21,7 +26,7 @@ Two forwards:
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,10 +35,12 @@ from torch import nn
 
 from nnstreamer_tpu_torch.models import (
     ModelBundle,
+    batch_norm_train,
     load_or_init,
     preprocess_frames,
     register_model,
     resolve_fused_apply,
+    weights_version,
 )
 from nnstreamer_tpu_torch.types import TensorInfo, TensorsInfo
 
@@ -73,9 +80,14 @@ def _conv(x: torch.Tensor, conv: nn.Conv2d,
 
 
 def _conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d,
-             dtype: torch.dtype) -> torch.Tensor:
-    """NCHW conv ('SAME') then inference BatchNorm, in ``dtype``."""
+             dtype: torch.dtype, new_state: Optional[list] = None
+             ) -> torch.Tensor:
+    """NCHW conv ('SAME') then BatchNorm, in ``dtype``: inference
+    BatchNorm, or with ``new_state`` (a list) the train-mode BatchNorm,
+    which appends its running statistics' update there."""
     y = _conv(x, conv, dtype)
+    if new_state is not None:
+        return batch_norm_train(y, bn, dtype, new_state)
     y = F.batch_norm(y.float(), bn.running_mean, bn.running_var, bn.weight,
                      bn.bias, training=False, eps=bn.eps)
     return y.to(dtype)
@@ -104,13 +116,15 @@ class InvertedResidual(nn.Module):
         self.proj_bn = nn.BatchNorm2d(out_ch)
         self.use_residual = stride == 1 and in_ch == out_ch
 
-    def forward_nchw(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
+    def forward_nchw(self, x: torch.Tensor,
+                     new_state: Optional[list] = None) -> torch.Tensor:
+        """``new_state``: train-mode BatchNorms, see :func:`_conv_bn`."""
+        dt, ns = self.dtype, new_state
         h = x
         if self.expand_conv is not None:
-            h = _relu6(_conv_bn(h, self.expand_conv, self.expand_bn, dt))
-        h = _relu6(_conv_bn(h, self.dw_conv, self.dw_bn, dt))
-        h = _conv_bn(h, self.proj_conv, self.proj_bn, dt)
+            h = _relu6(_conv_bn(h, self.expand_conv, self.expand_bn, dt, ns))
+        h = _relu6(_conv_bn(h, self.dw_conv, self.dw_bn, dt, ns))
+        h = _conv_bn(h, self.proj_conv, self.proj_bn, dt, ns)
         if self.use_residual:
             h = h + x.to(dt)
         return h
@@ -156,15 +170,19 @@ class MobileNetV2(nn.Module):
         self.head_bn = nn.BatchNorm2d(last)
         self.classifier = nn.Linear(last, num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """NHWC float frames → float32 logits (the unfused forward)."""
-        dt = self.dtype
+    def forward(self, x: torch.Tensor,
+                new_state: Optional[list] = None) -> torch.Tensor:
+        """NHWC float frames → float32 logits (the unfused forward; with
+        ``new_state`` the train forward, see :func:`_conv_bn`). The pool
+        averages in float32 and rounds to the compute dtype, as
+        ``jnp.mean`` of a bfloat16 tensor does."""
+        dt, ns = self.dtype, new_state
         y = _relu6(_conv_bn(x.permute(0, 3, 1, 2), self.stem_conv,
-                            self.stem_bn, dt))
+                            self.stem_bn, dt, ns))
         for blk in self.blocks:
-            y = blk.forward_nchw(y)
-        y = _relu6(_conv_bn(y, self.head_conv, self.head_bn, dt))
-        y = y.float().mean(dim=(2, 3))  # global average pool
+            y = blk.forward_nchw(y, ns)
+        y = _relu6(_conv_bn(y, self.head_conv, self.head_bn, dt, ns))
+        y = y.float().mean(dim=(2, 3)).to(dt).float()  # global average pool
         return self.classifier(y)
 
 
@@ -282,29 +300,44 @@ def _make_fused_apply(model: MobileNetV2, mode: str = "kernel",
     'xla' or 'plain'); the stem, the head 1x1 conv, the pool and the Dense
     layer are torch ops, as the JAX package computes them with XLA outside
     any Pallas kernel. Folding and the casts to the compute dtype happen
-    once, here, on the model's device."""
+    here, on the model's device, and again at the first call after a
+    trainer changed the weights (:func:`models.weights_version`): the JAX
+    package folds inside the jitted forward from the variables it is
+    given, so its folded forward always runs the current weights. A model
+    nobody trains folds once."""
     from nnstreamer_tpu_torch.ops import fused_block as fb
 
     cd = compute_dtype or model.dtype
     dev = model.stem_conv.weight.device
+    f = {}
 
-    with torch.no_grad():
-        stem = fb.fold_conv_bn_apply(model.stem_conv, model.stem_bn,
-                                     compute_dtype=cd, device=dev)
-        blocks = fold_blocks(model.blocks, mode, cd, dev)
-        k, b = fb.fold_conv_bn(model.head_conv, model.head_bn)
-        head = fb.cast_folded({"w": k[:, :, 0, 0].t(), "b": b}, cd, dev)
-        dense_w = model.classifier.weight.detach().float().t().contiguous()
-        dense_b = model.classifier.bias.detach().float()
+    def fold() -> None:
+        with torch.no_grad():
+            k, b = fb.fold_conv_bn(model.head_conv, model.head_bn)
+            f.update(
+                version=weights_version(model),
+                stem=fb.fold_conv_bn_apply(model.stem_conv, model.stem_bn,
+                                           compute_dtype=cd, device=dev),
+                blocks=fold_blocks(model.blocks, mode, cd, dev),
+                head=fb.cast_folded({"w": k[:, :, 0, 0].t(), "b": b}, cd,
+                                    dev),
+                dense_w=model.classifier.weight.detach().float().t()
+                .contiguous(),
+                dense_b=model.classifier.bias.detach().float().clone())
+
+    fold()
 
     def forward(x: torch.Tensor) -> torch.Tensor:
-        y = stem(x).contiguous()  # NHWC for the blocks
-        y = run_blocks(y, blocks, cd)
+        if f["version"] != weights_version(model):
+            fold()
+        y = f["stem"](x).contiguous()  # NHWC for the blocks
+        y = run_blocks(y, f["blocks"], cd)
         B, H, W, C = y.shape
+        head = f["head"]
         o = y.reshape(-1, C) @ head["w"] + head["b"].to(cd)
         o = _relu6(o).reshape(B, H * W, -1)
         pooled = o.float().mean(dim=1).to(cd).float()
-        return pooled @ dense_w + dense_b
+        return pooled @ f["dense_w"] + f["dense_b"]
 
     return torch.no_grad()(forward)
 
@@ -329,11 +362,18 @@ def build(custom: Dict[str, str], device: torch.device) -> ModelBundle:
         def apply_fn(x):
             with torch.no_grad():
                 return model(preprocess_frames(x, "pm1", model.dtype))
+
+    def train_apply_fn(x):
+        new_state = []
+        logits = model(preprocess_frames(x, "pm1", model.dtype), new_state)
+        return logits, new_state
+
     return ModelBundle(
         apply_fn=apply_fn, module=model,
         input_info=TensorsInfo.from_strings(f"3:{size}:{size}:1", "uint8"),
         output_info=TensorsInfo.from_strings(f"{classes}:1", "float32"),
-        infer_output=lambda info: infer_output(info, classes))
+        infer_output=lambda info: infer_output(info, classes),
+        train_apply_fn=train_apply_fn)
 
 
 register_model("mobilenet_v2")(build)

@@ -47,6 +47,8 @@ _BUILTINS: Dict[Tuple[str, str], str] = {
     # package that name resolves to the torch/CUDA backend
     (FILTER, "jax"): "nnstreamer_tpu_torch.filters.cuda_filter",
     (FILTER, "torch_cuda"): "nnstreamer_tpu_torch.filters.cuda_filter",
+    (TRAINER, "jax"): "nnstreamer_tpu_torch.trainers.cuda_trainer",
+    (TRAINER, "torch_cuda"): "nnstreamer_tpu_torch.trainers.cuda_trainer",
     (FILTER, "custom-easy"): "nnstreamer_tpu_torch.filters.custom_easy",
     (FILTER, "passthrough"): "nnstreamer_tpu_torch.filters.passthrough",
     (DECODER, "image_labeling"): "nnstreamer_tpu_torch.decoders.image_labeling",

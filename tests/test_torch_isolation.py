@@ -1,4 +1,5 @@
-"""The port imports neither JAX/flax nor the JAX package.
+"""The port imports neither JAX/flax/optax/orbax nor the JAX package
+(the machine that runs it on the card has none of them).
 
 ``nnstreamer_tpu_torch`` starts with ``nnstreamer_tpu``: every check below
 matches the module name ``nnstreamer_tpu`` or the prefix
@@ -26,8 +27,9 @@ names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
 bad = sorted(k for k in sys.modules
-             if k in ("jax", "flax", "nnstreamer_tpu")
-             or k.startswith(("jax.", "jaxlib", "flax.", "nnstreamer_tpu.")))
+             if k in ("jax", "flax", "optax", "orbax", "nnstreamer_tpu")
+             or k.startswith(("jax.", "jaxlib", "flax.", "optax.", "orbax.",
+                              "nnstreamer_tpu.")))
 print(len(names), bad)
 """
 
@@ -43,9 +45,10 @@ def test_import_every_module_loads_no_jax():
 
 
 def _forbidden(module: str) -> bool:
-    return (module in ("jax", "jaxlib", "flax", "nnstreamer_tpu")
-            or module.startswith(("jax.", "jaxlib.", "flax.",
-                                  "nnstreamer_tpu.")))
+    return (module in ("jax", "jaxlib", "flax", "optax", "orbax",
+                       "nnstreamer_tpu")
+            or module.startswith(("jax.", "jaxlib.", "flax.", "optax.",
+                                  "orbax.", "nnstreamer_tpu.")))
 
 
 #: a dotted module path written as a string (registry tables, importlib)
@@ -87,6 +90,8 @@ def test_scan_tells_the_packages_apart():
     assert _forbidden("nnstreamer_tpu.ops")
     assert _forbidden("jax.numpy")
     assert _forbidden("flax")
+    assert _forbidden("optax")
+    assert _forbidden("orbax.checkpoint")
     assert not _forbidden("nnstreamer_tpu_torch.ops")
     assert not _forbidden("nnstreamer_tpu_torch")
     assert not _forbidden("jaxtyping")
@@ -175,17 +180,27 @@ PLANNER_MODULES = (
 )
 
 
+#: the modules of the slice that brought on-device training
+TRAINING_MODULES = (
+    "nnstreamer_tpu_torch.trainers",
+    "nnstreamer_tpu_torch.trainers.cuda_trainer",
+    "nnstreamer_tpu_torch.parallel.train",
+    "nnstreamer_tpu_torch.elements.trainer_element",
+    "nnstreamer_tpu_torch.elements.datarepo_elements",
+)
+
+
 @pytest.mark.parametrize("module", SLICE_MODULES + VISION_MODULES
                          + SERVING_MODULES + STREAM_MODULES
-                         + PLANNER_MODULES)
+                         + PLANNER_MODULES + TRAINING_MODULES)
 def test_slice_module_alone_loads_no_jax(module):
     """Each module, imported alone in a fresh interpreter, pulls in
     neither JAX nor the JAX package (the walk above imports them all
     together, so an import one of them makes would hide behind another)."""
     probe = (f"import sys, {module}\n"
              "print(sorted(k for k in sys.modules if k in ('jax', 'flax', "
-             "'nnstreamer_tpu') or k.startswith(('jax.', 'jaxlib', 'flax.', "
-             "'nnstreamer_tpu.'))))")
+             "'optax', 'orbax', 'nnstreamer_tpu') or k.startswith(('jax.', "
+             "'jaxlib', 'flax.', 'optax.', 'orbax.', 'nnstreamer_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=ROOT))
