@@ -251,13 +251,37 @@ Phases, each printing one JSON line:
              profile line also sums device ms by kind: convolution,
              GEMM, reduction, elementwise, copies, this package's
              kernels);
+  loop       the steady loop, each window one replay of a CUDA graph over
+             the filter's whole per-frame composition: line A (the
+             reference's loop leg, bench.py:669-677: one 224 px frame a
+             buffer into MobileNet-v2 fused:pallas, postproc:argmax,
+             loop-window=8 launch-depth=2; 512 frames) and line B (the
+             flagship at 128 frames a tensor, loop-window=4
+             launch-depth=2; 32 batches, then again with the reference
+             preamble fused, arith_chain inside the graph), each in turns
+             with the same line per-buffer on the same frames: labels
+             equal on every frame, no refusal, replays = windows, one h2d
+             crossing and one dispatch span a window, 13 fused-block and
+             1 normalize_u8 (B's preamble: 1 arith_chain) launches a frame
+             through the replays; frames/s per run with median and
+             spread, p50 frame latency, host ms per frame by span, capture
+             ms, the memory plan's predicted bytes against
+             max_memory_allocated (fails where the plan bills less), a
+             profile line of each form (after capture); A and B without
+             the argmax: windowed logits bit-equal to per-buffer ones on
+             every frame; A with its classifier negated and the weights'
+             version moved halfway: one recapture, the second half's
+             logits the per-buffer ones negated bit for bit, launches
+             counted through the replays plus the recapture's warm-up;
+             line C: loop-window=auto on A, resolved by the memory plan
+             against the card's memory;
 
 then one ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
 that last line. It needs a CUDA card: without one it exits 1 at once.
 
 ``--only`` runs the named phases alone (``serve`` needs ``slice`` for
-its frames; ``streams``, ``residency`` and ``train`` build their own; ``stride2`` runs inside ``kernel``, the flagship's profile
+its frames; ``streams``, ``residency``, ``train`` and ``loop`` build their own; ``stride2`` runs inside ``kernel``, the flagship's profile
 inside ``slice``, the overload and reference lines inside ``serve``) and
 ends after them, without the ``kernels`` and result lines.
 """
@@ -857,6 +881,12 @@ def device_profile(torch, run) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         secs = run()
+    return profile_stats(torch, prof, secs)
+
+
+def profile_stats(torch, prof, secs: float) -> dict:
+    """:func:`device_profile`'s numbers from a finished profiler over a
+    run of ``secs`` seconds."""
     by_name = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -3845,6 +3875,439 @@ def check_train(torch, results, workdir):
     time_training(torch, frames, onehot, results)
 
 
+# -- phase: the steady loop ------------------------------------------------
+
+#: line A (the reference's own loop leg, bench.py:669-677): one frame per
+#: buffer, 8 frames a window, 2 windows banked; line B: the flagship at
+#: 128 frames per tensor, 4 buffers a window, 8 windows a run (a window
+#: waits for 4 converted buffers before the card starts, so a short run
+#: measures that fill more than the steady state)
+LOOP_A = {"window": 8, "depth": 2, "frames": 512, "reps": 3}
+LOOP_B = {"window": 4, "depth": 2, "batches": 32, "reps": 2}
+
+
+def _loop_line_a(extra: str = "", raw: bool = False) -> str:
+    """Line A; ``raw`` leaves out the on-device argmax, so the sink
+    receives the logits."""
+    post = "" if raw else "postproc:argmax,"
+    return (
+        f"appsrc name=src caps=video/x-raw,format=RGB,width={SIZE},"
+        f"height={SIZE},framerate=1000/1 "
+        "! tensor_converter frames-per-tensor=1 "
+        "! tensor_filter name=f framework=jax model=mobilenet_v2 "
+        f"custom=seed:0,{post}fused:pallas {extra} "
+        "! tensor_sink name=out")
+
+
+def _loop_line_b(labels: str, extra: str = "", preamble: bool = False,
+                 raw: bool = False) -> str:
+    """The flagship (labels through image_labeling), per-buffer with its
+    fetch window or with ``extra``'s loop properties; ``preamble`` puts
+    the reference preamble before the filter, which fuses it; ``raw``
+    leaves out the argmax and the decoder, so the sink receives the
+    logits."""
+    pre = (f"! tensor_transform name=tr mode=arithmetic option={PREAMBLE} "
+           if preamble else "")
+    fw = "" if "loop-window" in extra else f"fetch-window={FETCH_WINDOW} "
+    post = "" if raw else "postproc:argmax,"
+    tail = ("" if raw else "! queue ! tensor_decoder mode=image_labeling "
+            f"option1={labels} ")
+    return (
+        f"appsrc name=src caps=video/x-raw,format=RGB,width={SIZE},"
+        f"height={SIZE},framerate=1000/1 "
+        f"! tensor_converter frames-per-tensor={BATCH} {pre}"
+        "! tensor_filter name=f framework=jax model=mobilenet_v2 "
+        f"custom=seed:0,{post}fused:pallas {fw}{extra} "
+        f"{tail}! tensor_sink name=out")
+
+
+def _loop_drive(torch, line, frames, n, spans=False, plan=False,
+                profile=False, midway=None):
+    """Play ``line``, set the launch counts to 0, push ``n`` frames (one a
+    buffer, cycling ``frames``; ``midway(p)`` is called after the first
+    half), EOS; returns a dict with the labels one per frame (the logits,
+    one row per frame, where the sink receives float outputs), seconds
+    from the first push to the last output, p50
+    latency of a frame (push to its output at the sink), the launches,
+    crossings at the filter, the span tracer's dispatch spans and
+    host-stack report (with ``spans``), the filter's loop state and its
+    backend's loop stats, (with ``plan``) the memory plan's predicted
+    bytes against the peak the card allocated, and (with ``profile``)
+    the device profile of the pushed frames' run — after play(), so a
+    window's capture is not in it."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    import numpy as np
+
+    from nnstreamer_tpu_torch import trace
+    from nnstreamer_tpu_torch.analysis.memplan import plan_memory
+    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    p = parse_launch(line)
+    tracer = trace.attach(p, spans=spans)
+    pushed, arrived = {}, {}
+    p["out"].connect_new_data(
+        lambda b: arrived.__setitem__(b.pts, time.perf_counter()))
+    p.play()
+    f = p["f"]
+    predicted = plan_memory(p) if plan else None
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    prof = (torch_profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA])
+            if profile else None)
+    if prof is not None:
+        prof.__enter__()
+    t0 = time.perf_counter()
+    for i in range(n):
+        if midway is not None and i == n // 2:
+            midway(p)
+        p["src"].push_buffer(Buffer(tensors=[frames[i % len(frames)]],
+                                    pts=i))
+        pushed[i] = time.perf_counter()
+    p["src"].end_of_stream()
+    if not p.bus.wait_eos(600) or p.bus.error is not None:
+        raise RuntimeError(f"loop line failed: {p.bus.error}")
+    secs = max(arrived.values()) - t0
+    if prof is not None:
+        torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    out = []
+    for b in p["out"].collected:
+        lab = b.meta.get("label")
+        t = np.asarray(b.tensors[0])
+        if lab is not None:
+            out.extend(lab if isinstance(lab, list) else [lab])
+        elif t.dtype.kind == "f":
+            out.append(t.reshape(-1, t.shape[-1]))
+        else:
+            out.extend(int(v) for v in t.reshape(-1))
+    if out and isinstance(out[0], np.ndarray):
+        out = np.concatenate(out)
+    cr = tracer.crossings()["per_element"].get("f", {})
+    r = {"labels": out, "seconds": secs,
+         "p50_latency_ms": statistics.median(
+             (arrived[k] - pushed[k]) * 1e3 for k in arrived),
+         "launches": launches, "crossings": cr,
+         "loop_state": f._loop_state, "loop_refused": f._loop_refused,
+         "loop_stats": (f.fw.loop_stats()
+                        if f._loop_state is not None else None)}
+    if prof is not None:
+        r["profile"] = profile_stats(torch, prof, secs)
+    if spans:
+        r["dispatch_spans"] = sum(1 for rec in tracer.spans.records()
+                                  if rec[2] == "dispatch")
+        r["host_stack"] = tracer.host_stack_report(n)
+    if plan:
+        row = next(x for x in predicted["rows"] if x["element"] == "f")
+        r["memory"] = {"predicted_bytes": predicted["total_bytes"],
+                       "params": predicted["param_bytes_total"],
+                       "derived": predicted["derived_bytes_total"],
+                       "activation": row["activation_bytes"],
+                       "loop_ring": row["loop_bytes"],
+                       "graph_pool": row["graph_bytes"],
+                       "feed": row["feed_bytes"],
+                       "fetch_window": row["window_bytes"],
+                       "budget": predicted["budget_bytes"],
+                       "budget_source": predicted["budget_source"],
+                       "max_memory_allocated": peak}
+        if peak > predicted["total_bytes"]:
+            raise AssertionError(f"the memory plan under-bills {line!r}: "
+                                 f"{r['memory']}")
+    p.stop()
+    return r
+
+
+def _loop_check(name, r, frames, window, want_labels, per_frame,
+                extra_rows=0):
+    """The window engaged as a CUDA graph (no refusal, replays = windows),
+    one h2d crossing per window, labels equal to per-buffer's on every
+    frame (``want_labels`` None: compared by the caller), and the
+    kernels' launches through the replays: ``per_frame`` launches of each
+    kernel per window row, and per row of ``extra_rows`` run outside the
+    replays (a recapture's warm-up)."""
+    import math
+
+    windows = math.ceil(frames / window)
+    st = r["loop_stats"]
+    bad = []
+    if r["loop_state"] is None or r["loop_refused"] is not None:
+        bad.append(f"loop not engaged: {r['loop_refused']}")
+    elif st["replays"] != windows:
+        bad.append(f"{st['replays']} replays for {windows} windows")
+    if r["crossings"].get("h2d") != windows:
+        bad.append(f"h2d {r['crossings']} for {windows} windows")
+    if "dispatch_spans" in r and r["dispatch_spans"] != windows:
+        bad.append(f"{r['dispatch_spans']} dispatch spans")
+    if want_labels is not None and r["labels"] != want_labels:
+        bad.append("labels differ from per-buffer")
+    for k, n in per_frame.items():
+        want = n * (windows * window + extra_rows)
+        if r["launches"].get(k) != want:
+            bad.append(f"{k}: {r['launches'].get(k)} launches, want {want}")
+    if bad:
+        raise AssertionError(f"loop line {name}: {bad}")
+    return windows
+
+
+def _fps_runs(runs):
+    """frames/s per run and their median and spread (max - min)."""
+    fps = [r["frames"] / r["seconds"] for r in runs]
+    return {"fps": fps, "median": statistics.median(fps),
+            "spread": max(fps) - min(fps),
+            "p50_latency_ms": [r["p50_latency_ms"] for r in runs]}
+
+
+def _bit_equal(name, got, want):
+    import numpy as np
+
+    if got.shape != want.shape or not np.array_equal(got, want):
+        err = (float(np.abs(got - want).max()) if got.shape == want.shape
+               else None)
+        raise AssertionError(f"{name}: logits {got.shape} differ from "
+                             f"{want.shape}, max abs {err}")
+
+
+def _loop_logits(torch, frames, labels, a_loop, b_loop, add, card):
+    """Lines A and B without the argmax: the windowed logits are
+    bit-equal to the per-buffer ones on every frame (the window runs the
+    same kernels at the same shapes). Then line A with its classifier
+    negated halfway, after the first half's windows were dispatched, and
+    the weights' version moved: the window recaptures once, the second
+    half's logits are the per-buffer ones negated, bit for bit, and the
+    recapture's warm-up launches are the only launches outside the
+    replays."""
+    from nnstreamer_tpu_torch.models import weights_changed
+    from nnstreamer_tpu_torch.ops.steady_loop import CudaGraphWindow
+
+    n_a, n_b = 256, 16 * BATCH
+    per_frame = {"fused_inverted_residual": 13, "normalize_u8": 1}
+    ref_a = _loop_drive(torch, _loop_line_a(raw=True), frames, n_a)
+    win_a = _loop_drive(torch, _loop_line_a(a_loop, raw=True), frames, n_a)
+    _loop_check("A logits", win_a, n_a, LOOP_A["window"], None, per_frame)
+    _bit_equal("line A windowed", win_a["labels"], ref_a["labels"])
+    ref_b = _loop_drive(torch, _loop_line_b(labels, raw=True), frames, n_b)
+    win_b = _loop_drive(torch, _loop_line_b(labels, b_loop, raw=True),
+                        frames, n_b)
+    _loop_check("B logits", win_b, n_b // BATCH, LOOP_B["window"], None,
+                per_frame)
+    _bit_equal("line B windowed", win_b["labels"], ref_b["labels"])
+
+    half, window = n_a // 2, LOOP_A["window"]
+
+    def negate_classifier(p):
+        fw = p["f"].fw
+        deadline = time.perf_counter() + 60
+        while fw.loop_stats()["replays"] < half // window:
+            if time.perf_counter() > deadline:
+                raise AssertionError("line A: the first half's windows "
+                                     "were not dispatched")
+            time.sleep(0.001)
+        m = fw._bundle.module
+        with torch.no_grad():
+            m.classifier.weight.neg_()
+            m.classifier.bias.neg_()
+        weights_changed(m)
+
+    flip = _loop_drive(torch, _loop_line_a(a_loop, raw=True), frames, n_a,
+                       midway=negate_classifier)
+    _loop_check("A weights moved", flip, n_a, window, None, per_frame,
+                extra_rows=CudaGraphWindow.WARMUP * window)
+    if flip["loop_stats"]["captures"] != 2:
+        raise AssertionError(f"line A weights moved: "
+                             f"{flip['loop_stats']['captures']} captures")
+    _bit_equal("line A before the weights moved", flip["labels"][:half],
+               ref_a["labels"][:half])
+    _bit_equal("line A after the weights moved", flip["labels"][half:],
+               -ref_a["labels"][half:])
+    for r in (win_a, win_b, flip):
+        add(r)
+    emit("loop", line="logits", frames_a=n_a, frames_b=n_b,
+         bit_equal=True,
+         logits_scale={"A": float(abs(ref_a["labels"]).max()),
+                       "B": float(abs(ref_b["labels"]).max())},
+         weights_moved={"at_frame": half,
+                        "captures": flip["loop_stats"]["captures"],
+                        "replays": flip["loop_stats"]["replays"],
+                        "capture_ms": flip["loop_stats"]["capture_ms"],
+                        "launches": flip["launches"], "bit_equal": True},
+         card=card)
+
+
+def check_loop(torch, results, workdir):
+    """Lines A, B and C with the window as a CUDA graph, each against
+    its per-buffer line on the same frames."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.analysis.loop import analyze_loop
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    rng = np.random.default_rng(0)
+    frames = [np.kron(rng.integers(0, 256, (4, 4, 3)),
+                      np.ones((SIZE // 4, SIZE // 4, 1))).astype(np.uint8)
+              for _ in range(BATCH)]
+    labels = os.path.join(workdir, "loop_labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class{i}" for i in range(1001)) + "\n")
+    a_loop = (f"loop-window={LOOP_A['window']} "
+              f"launch-depth={LOOP_A['depth']}")
+    b_loop = (f"loop-window={LOOP_B['window']} "
+              f"launch-depth={LOOP_B['depth']}")
+    n_a, n_b = LOOP_A["frames"], LOOP_B["batches"] * BATCH
+    launches = {}
+
+    def add(r):
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+    # warm-up: cuDNN plans and the allocator for both forms of each line
+    for line, n in ((_loop_line_a(), 64), (_loop_line_a(a_loop), 64),
+                    (_loop_line_b(labels), 2 * BATCH),
+                    (_loop_line_b(labels, b_loop), 8 * BATCH)):
+        _loop_drive(torch, line, frames, n)
+
+    # line A: per-buffer and windowed in turns (P, W, W, P, P, W)
+    runs = {"per_buffer": [], "windowed": []}
+    for kind in ("per_buffer", "windowed", "windowed", "per_buffer",
+                 "per_buffer", "windowed")[:2 * LOOP_A["reps"]]:
+        r = _loop_drive(torch, _loop_line_a(
+            a_loop if kind == "windowed" else ""), frames, n_a)
+        r["frames"] = n_a
+        runs[kind].append(r)
+    want = runs["per_buffer"][0]["labels"]
+    if any(r["labels"] != want for r in runs["per_buffer"]):
+        raise AssertionError("line A: per-buffer labels differ between runs")
+    for r in runs["windowed"]:
+        windows = _loop_check("A", r, n_a, LOOP_A["window"], want,
+                              {"fused_inverted_residual": 13,
+                               "normalize_u8": 1})
+        add(r)
+    spans_w = _loop_drive(torch, _loop_line_a(a_loop), frames, n_a,
+                          spans=True, plan=True)
+    _loop_check("A spans", spans_w, n_a, LOOP_A["window"], want,
+                {"fused_inverted_residual": 13, "normalize_u8": 1})
+    add(spans_w)
+    spans_p = _loop_drive(torch, _loop_line_a(), frames, n_a, spans=True,
+                          plan=True)
+    w0 = runs["windowed"][0]
+    emit("loop", line="A", frames=n_a, window=LOOP_A["window"],
+         depth=LOOP_A["depth"], windows=windows,
+         labels_equal=True, distinct_labels=len(set(want)),
+         replays=w0["loop_stats"]["replays"],
+         captures=w0["loop_stats"]["captures"],
+         capture_ms=w0["loop_stats"]["capture_ms"],
+         launches_per_replay=w0["loop_stats"]["launches_per_replay"],
+         launches=w0["launches"], per_buffer_launches=runs[
+             "per_buffer"][0]["launches"],
+         h2d_per_window=w0["crossings"]["h2d"] / windows,
+         d2h_per_window=w0["crossings"]["d2h"] / windows,
+         dispatch_spans_per_window=spans_w["dispatch_spans"] / windows,
+         windowed=_fps_runs(runs["windowed"]),
+         per_buffer=_fps_runs(runs["per_buffer"]),
+         host_ms_per_frame={"windowed": spans_w["host_stack"],
+                            "per_buffer": spans_p["host_stack"]},
+         memory={"windowed": spans_w["memory"],
+                 "per_buffer": spans_p["memory"]},
+         card=results["card"])
+
+    for kind, extra in (("windowed", a_loop), ("per_buffer", "")):
+        r = _loop_drive(torch, _loop_line_a(extra), frames, n_a // 2,
+                        profile=True)
+        emit("profile", line=f"loop_A_{kind}", frames=n_a // 2,
+             **r["profile"])
+
+    # line B: the flagship, per-buffer and windowed in turns (P, W, W, P)
+    runs = {"per_buffer": [], "windowed": []}
+    for kind in ("per_buffer", "windowed", "windowed",
+                 "per_buffer")[:2 * LOOP_B["reps"]]:
+        r = _loop_drive(torch, _loop_line_b(
+            labels, b_loop if kind == "windowed" else ""), frames, n_b)
+        r["frames"] = n_b
+        runs[kind].append(r)
+    want_b = runs["per_buffer"][0]["labels"]
+    for r in runs["windowed"]:
+        windows_b = _loop_check("B", r, LOOP_B["batches"], LOOP_B["window"],
+                                want_b, {"fused_inverted_residual": 13,
+                                         "normalize_u8": 1})
+        add(r)
+    # B with the reference preamble fused: arith_chain inside the graph
+    pre = _loop_drive(torch, _loop_line_b(labels, b_loop, preamble=True),
+                      frames, n_b, spans=True, plan=True)
+    _loop_check("B preamble", pre, LOOP_B["batches"], LOOP_B["window"],
+                want_b, {"arith_chain": 1, "fused_inverted_residual": 13})
+    if pre["launches"].get("normalize_u8"):
+        raise AssertionError("B preamble: normalize_u8 ran beside the "
+                             "fused preamble")
+    add(pre)
+    spans_bw = _loop_drive(torch, _loop_line_b(labels, b_loop), frames,
+                           n_b, spans=True, plan=True)
+    add(spans_bw)
+    spans_bp = _loop_drive(torch, _loop_line_b(labels), frames, n_b,
+                           spans=True, plan=True)
+    w0 = runs["windowed"][0]
+    emit("loop", line="B", frames=n_b, batches=LOOP_B["batches"],
+         window=LOOP_B["window"], depth=LOOP_B["depth"], windows=windows_b,
+         labels_equal=True, distinct_labels=len(set(want_b)),
+         replays=w0["loop_stats"]["replays"],
+         captures=w0["loop_stats"]["captures"],
+         capture_ms=w0["loop_stats"]["capture_ms"],
+         launches_per_replay=w0["loop_stats"]["launches_per_replay"],
+         launches=w0["launches"],
+         h2d_per_window=w0["crossings"]["h2d"] / windows_b,
+         dispatch_spans_per_window=spans_bw["dispatch_spans"] / windows_b,
+         windowed=_fps_runs(runs["windowed"]),
+         per_buffer=_fps_runs(runs["per_buffer"]),
+         host_ms_per_frame={"windowed": spans_bw["host_stack"],
+                            "per_buffer": spans_bp["host_stack"]},
+         memory={"windowed": spans_bw["memory"],
+                 "per_buffer": spans_bp["memory"]},
+         preamble={"launches": pre["launches"],
+                   "launches_per_replay": pre["loop_stats"][
+                       "launches_per_replay"],
+                   "replays": pre["loop_stats"]["replays"],
+                   "capture_ms": pre["loop_stats"]["capture_ms"],
+                   "fps": n_b / pre["seconds"], "labels_equal": True,
+                   "memory": pre["memory"]},
+         card=results["card"])
+
+    for kind, extra in (("windowed", b_loop), ("per_buffer", "")):
+        r = _loop_drive(torch, _loop_line_b(labels, extra), frames,
+                        8 * BATCH, profile=True)
+        emit("profile", line=f"loop_B_{kind}", batches=8, **r["profile"])
+
+    _loop_logits(torch, frames, labels, a_loop, b_loop, add,
+                 results["card"])
+
+    # line C: loop-window=auto on line A, resolved by the memory plan
+    # against the card's memory
+    auto = "loop-window=auto launch-depth=2"
+    p = parse_launch(_loop_line_a(auto))
+    v = analyze_loop(p, p["f"])
+    n_c = 256
+    c = _loop_drive(torch, _loop_line_a(auto), frames, n_c, plan=True)
+    _loop_check("C", c, n_c, v.window,
+                [want[i % len(frames)] for i in range(n_c)],
+                {"fused_inverted_residual": 13, "normalize_u8": 1})
+    add(c)
+    emit("loop", line="C", frames=n_c, verdict=v.code, window=v.window,
+         depth=v.depth, budget_source=c["memory"]["budget_source"],
+         budget=c["memory"]["budget"],
+         replays=c["loop_stats"]["replays"], labels_equal=True,
+         fps=n_c / c["seconds"], memory=c["memory"], card=results["card"])
+    if v.code != "NNST460" or c["loop_state"]["window"] != v.window:
+        raise AssertionError(f"line C: {v}, {c['loop_state']}")
+    results["loop_launches"] = launches
+
+
 def main() -> int:
     import torch
 
@@ -3887,6 +4350,7 @@ def main() -> int:
         "streams": lambda: check_streams(torch, results, workdir),
         "residency": lambda: check_residency(torch, results, workdir),
         "train": lambda: check_train(torch, results, workdir),
+        "loop": lambda: check_loop(torch, results, workdir),
     }
     only = None
     if "--only" in sys.argv[1:]:
@@ -3918,7 +4382,8 @@ def main() -> int:
         "longctx_launches", "upload_launches", "batch_launches",
         "hostspans_launches", "detect_launches", "detect_pp_launches",
         "segment_launches", "vision_launches", "serve_launches",
-        "streams_launches", "residency_launches", "train_launches"))
+        "streams_launches", "residency_launches", "train_launches",
+        "loop_launches"))
         for name in src}
     launches["arith_chain"] += results["arith_launches"]
     kernels = []

@@ -1,0 +1,436 @@
+"""Program-level static cost model (counterpart of the JAX package's
+``analysis/costmodel.py``).
+
+For each ``tensor_filter`` it costs the exact per-invoke composition the
+backend runs (fused pre/post stages, the model, the on-device postproc)
+at its negotiated (micro-batched) signature and returns
+
+  {flops, bytes_read, bytes_written, hbm_bytes, peak_live_bytes,
+   param_bytes, derived_bytes, input_bytes, output_bytes, method,
+   weak_type_hazards}
+
+The JAX package walks a jaxpr. Here ONE run of the composition's plain
+version on ``meta`` tensors gives everything: a meta tensor has a shape,
+a dtype and a storage but no data, so the run is data-free and launches
+nothing (the wrappers of the composition's kernels route meta tensors to
+their plain versions, ``ops/_cuda.plain_route``; the attention kernels'
+wrappers refuse them, so a model with attention is unmodeled here).
+
+  - flops: ``torch.utils.flop_counter.FlopCounterMode`` (matrix products
+    and convolutions at 2 per multiply-add, grouped convolutions by their
+    own weight shape) plus, as the jaxpr walk counts them, one per output
+    element of each pointwise op and dtype conversion and one per input
+    element of each reduction;
+  - boundary bytes: the inputs read and the outputs written;
+  - peak_live_bytes: a ``TorchDispatchMode`` counts the bytes of every
+    storage an op creates while a tensor still holds it (a view or an
+    in-place result adds nothing); the highest count, plus the params and
+    the inputs that are live throughout, is the peak — the counterpart of
+    ``make_jaxpr`` plus ``_liveness_peak``. It is the un-fused upper-ish
+    bound the reference's is: the plain composition materializes what the
+    kernels keep in shared memory.
+
+``derived_bytes`` (a key the JAX package has no need of) counts the
+tensors the forward keeps beyond the module's state — the BN-folded,
+cast weights a folded forward holds (``derived_bytes_of``); the JAX
+package folds inside its jitted forward, so there they are activations.
+
+``weak_type_hazards`` is always empty: torch has no weak types (the
+reference's own ``compiled`` branch returns the same). ``method=
+"compiled"``, ``static_report``/``render_cost_report`` (the ``nncost``
+CLI) and ``weak_type_promotions`` wait (ROADMAP.md queue 1 item 5).
+"""
+
+from __future__ import annotations
+
+import weakref
+from collections import OrderedDict
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+#: the JAX package's HBM capacity default — the budget when no card
+#: reports one (CPU lint hosts), kept so CPU verdicts match the JAX
+#: package's; override with NNSTPU_HBM_BYTES
+DEFAULT_HBM_BYTES = 16 * 2**30
+
+#: reductions, billed one flop per INPUT element (the jaxpr walk's rule)
+_REDUCTIONS = {
+    "sum", "mean", "amax", "amin", "max", "min", "argmax", "argmin",
+    "prod", "cumsum", "cumprod", "var", "std", "var_mean", "std_mean",
+    "logsumexp", "_softmax", "_log_softmax", "norm", "linalg_vector_norm",
+}
+
+
+class ShapeDtype(NamedTuple):
+    """A tensor's shape and numpy dtype, without data (the counterpart
+    of ``jax.ShapeDtypeStruct``)."""
+
+    shape: Tuple[int, ...]
+    dtype: np.dtype
+
+
+def _torch_dtype(dt) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, np.dtype(dt))).dtype
+
+
+class _LiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the bytes of storages created under it while a tensor holds
+    them, and the pointwise/reduction flops the FLOP counter leaves out."""
+
+    def __init__(self):
+        super().__init__()
+        self.cur = 0
+        self.peak = 0
+        self.extra_flops = 0
+        self._refs: Dict[int, List[int]] = {}  # storage -> [tensors, bytes]
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        flat_in = torch.utils._pytree.tree_leaves((args, kwargs))
+        ins = [t for t in flat_in if isinstance(t, torch.Tensor)]
+        outs = [t for t in torch.utils._pytree.tree_leaves(out)
+                if isinstance(t, torch.Tensor)]
+        name = func.overloadpacket.__name__
+        if torch.Tag.pointwise in func.tags or (
+                name == "_to_copy" and ins and outs
+                and outs[0].dtype != ins[0].dtype):
+            # a dtype conversion counts as the jaxpr walk counts its
+            # convert_element_type: one per element
+            self.extra_flops += sum(o.numel() for o in outs)
+        elif name in _REDUCTIONS:
+            self.extra_flops += sum(t.numel() for t in ins)
+        in_keys = {_storage_key(t) for t in ins}
+        for o in outs:
+            key = _storage_key(o)
+            ref = self._refs.get(key)
+            if ref is None:
+                if key in in_keys:
+                    continue  # a view of (or in place on) an outside tensor
+                ref = self._refs[key] = [0, o.untyped_storage().nbytes()]
+                self.cur += ref[1]
+                self.peak = max(self.peak, self.cur)
+            ref[0] += 1
+            weakref.finalize(o, self._release, key)
+        return out
+
+    def _release(self, key: int) -> None:
+        ref = self._refs.get(key)
+        if ref is None:
+            return
+        ref[0] -= 1
+        if ref[0] == 0:
+            self.cur -= ref[1]
+            del self._refs[key]
+
+
+def _storage_key(t: torch.Tensor) -> int:
+    return t.untyped_storage()._cdata
+
+
+def _tensors_of(params) -> List[torch.Tensor]:
+    if isinstance(params, torch.nn.Module):
+        return list(params.state_dict().values())
+    return [t for t in torch.utils._pytree.tree_leaves(params)
+            if isinstance(t, torch.Tensor)]
+
+
+def param_bytes_of(params) -> int:
+    """Bytes of a module's state (parameters and buffers) or of every
+    tensor leaf of a tree."""
+    return int(sum(t.numel() * t.element_size() for t in _tensors_of(params)))
+
+
+def derived_bytes_of(apply_fn, module) -> int:
+    """Bytes of the tensors a model's forward keeps beyond ``module``'s own
+    state: the BN-folded, cast weights that a folded forward holds in its
+    closure (and folds anew when a trainer moves the weights).
+    Walks the closures, ``__wrapped__`` chains, dicts, lists and tuples
+    reachable from ``apply_fn``, one count per storage."""
+    own = {_storage_key(t) for t in _tensors_of(module)}
+    seen, total, stack = set(), 0, [apply_fn]
+    while stack:
+        o = stack.pop()
+        if id(o) in seen or isinstance(o, torch.nn.Module):
+            continue
+        seen.add(id(o))
+        if isinstance(o, torch.Tensor):
+            key = _storage_key(o)
+            if key not in own:
+                own.add(key)
+                total += o.untyped_storage().nbytes()
+        elif isinstance(o, dict):
+            stack.extend(o.values())
+        elif isinstance(o, (list, tuple)):
+            stack.extend(o)
+        elif callable(o):
+            for cell in getattr(o, "__closure__", None) or ():
+                try:
+                    stack.append(cell.cell_contents)
+                except ValueError:  # an empty cell
+                    pass
+            if hasattr(o, "__wrapped__"):
+                stack.append(o.__wrapped__)
+    return int(total)
+
+
+def _shapes_nbytes(shapes: Sequence[ShapeDtype]) -> int:
+    return int(sum(int(np.prod(s.shape, dtype=np.int64))
+                   * np.dtype(s.dtype).itemsize for s in shapes))
+
+
+def program_cost(fn, params, shapes: Sequence[ShapeDtype],
+                 method: str = "auto") -> Dict[str, Any]:
+    """Cost one program at one signature: ``fn(params, *xs)`` runs on
+    meta tensors of ``shapes`` (``params`` on the meta device too)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    if method == "compiled":
+        raise NotImplementedError(
+            "cost method 'compiled' is not ported yet (ROADMAP.md queue 1 "
+            "item 5); use 'auto'")
+    if method not in ("auto", "meta"):
+        raise ValueError(f"unknown cost method {method!r}")
+    xs = [torch.empty(tuple(s.shape), dtype=_torch_dtype(s.dtype),
+                      device="meta") for s in shapes]
+    counter = FlopCounterMode(display=False)
+    live = _LiveBytes()
+    with torch.no_grad(), counter, live:
+        out = fn(params, *xs)
+    outs = [t for t in torch.utils._pytree.tree_leaves(out)
+            if isinstance(t, torch.Tensor)]
+    bytes_read = _shapes_nbytes(shapes)
+    bytes_written = int(sum(t.numel() * t.element_size() for t in outs))
+    p_bytes = param_bytes_of(params)
+    return {
+        "flops": int(counter.get_total_flops() + live.extra_flops),
+        "bytes_read": bytes_read,
+        "bytes_written": bytes_written,
+        "hbm_bytes": bytes_read + bytes_written,
+        "peak_live_bytes": int(p_bytes + bytes_read + live.peak),
+        "param_bytes": p_bytes,
+        "derived_bytes": int(getattr(fn, "derived_bytes", 0)),
+        "input_bytes": bytes_read,
+        "output_bytes": bytes_written,
+        "method": "meta",
+        "weak_type_hazards": [],
+    }
+
+
+# --------------------------------------------------------------------------
+# per-filter program construction
+# --------------------------------------------------------------------------
+
+#: bounded LRU of lint-built meta bundles (a zoo rebuild costs the numpy
+#: init of its weights)
+_BUNDLE_CACHE_MAX = 4
+_bundle_cache: "OrderedDict[Tuple[str, str], Any]" = OrderedDict()
+
+
+def meta_composition(model: str, custom: Dict[str, str], pre_specs=(),
+                     post_specs=()):
+    """(fn(params, *xs), module, input_info) of the per-invoke composition
+    a backend opened on (model, custom) runs — fused pre-stages, the
+    model, the postproc, fused post-stages — built on the ``meta``
+    device. Raises when the model cannot be built there."""
+    from nnstreamer_tpu_torch.filters.cuda_filter import compose, make_postproc
+    from nnstreamer_tpu_torch.models import get_model, load_py_model
+    from nnstreamer_tpu_torch.ops.fusion_stages import build_stage_fn
+
+    key = (str(model), str(sorted(custom.items())))
+    bundle = _bundle_cache.get(key)
+    if bundle is not None:
+        _bundle_cache.move_to_end(key)
+    else:
+        meta = torch.device("meta")
+        bundle = (load_py_model(model, custom, meta) if model.endswith(".py")
+                  else get_model(model, custom, meta))
+        _bundle_cache[key] = bundle
+        while len(_bundle_cache) > _BUNDLE_CACHE_MAX:
+            _bundle_cache.popitem(last=False)
+    post = make_postproc(custom)
+    stage_pre = build_stage_fn(list(pre_specs)) if pre_specs else None
+    stage_post = build_stage_fn(list(post_specs)) if post_specs else None
+    apply_fn = bundle.apply_fn
+
+    def run(params, *xs):
+        return compose(list(xs), stage_pre, apply_fn, post, stage_post)
+
+    run.derived_bytes = derived_bytes_of(apply_fn, bundle.module)
+    return run, bundle.module, bundle.input_info
+
+
+def _lint_time_program(e):
+    """(fn, params, input_info) for a filter whose backend is NOT open:
+    zoo and ``.py`` models rebuild deterministically from (model,
+    custom). None when the model cannot be rebuilt here (unmodeled rather
+    than guessed)."""
+    if str(e.properties.get("framework", "")) not in ("jax", "torch_cuda"):
+        return None
+    model = e.properties.get("model")
+    if not model:
+        return None
+    from nnstreamer_tpu_torch.filters.base import FilterProperties
+
+    cd = FilterProperties(custom=str(e.properties.get("custom", ""))
+                          ).custom_dict()
+    try:
+        return meta_composition(str(model), cd)
+    except Exception:  # noqa: BLE001 — unbuildable here: unmodeled
+        return None
+
+
+def filter_program(e):
+    """(fn(params, *xs), params, shapes) for a tensor_filter, or None when
+    the program cannot be modeled (non-torch backend, unknown input
+    shapes). Prefers the OPEN backend's composition (fused stages and
+    postproc — what actually runs); falls back to a rebuild at lint
+    time."""
+    prog = None
+    if e.fw is not None and hasattr(e.fw, "cost_program"):
+        prog = e.fw.cost_program()
+    if prog is None:
+        prog = _lint_time_program(e)
+    if prog is None:
+        return None
+    fn, params, bundle_in = prog
+    # the invoke signature is what ARRIVES at the sink pad (narrowed by
+    # input-combination): fused pre-stages run inside the program, so the
+    # program is fed the raw upstream tensors
+    in_info = _caps_input_info(e)
+    if in_info is not None:
+        sel = e.properties.get("input_combination")
+        if sel:
+            try:
+                from nnstreamer_tpu_torch.types import TensorsInfo
+
+                idx = [int(i) for i in str(sel).split(",")]
+                in_info = TensorsInfo(
+                    tensors=[in_info.tensors[i] for i in idx],
+                    format=in_info.format)
+            except Exception:  # noqa: BLE001 — bad spec: not modeled
+                return None
+    if in_info is None or in_info.num_tensors == 0:
+        in_info = (e._in_info if getattr(e, "_in_info", None) is not None
+                   and e._in_info.num_tensors > 0 else bundle_in)
+    if in_info is None or in_info.num_tensors == 0:
+        return None
+    batch = int(e.properties.get("batch_size", 1) or 1)
+    shapes = []
+    for t in in_info:
+        shape = tuple(int(d) for d in t.np_shape())
+        if any(d <= 0 for d in shape):
+            return None  # symbolic dims: variable-shape
+        shapes.append(_batched_shape(shape, batch, t.dtype.np_dtype))
+    return fn, params, shapes
+
+
+def _batched_shape(shape, batch: int, dtype) -> ShapeDtype:
+    """Mirror _flush_batch's assembly: leading dim 1 concatenates along
+    it; anything else stacks a fresh batch axis."""
+    if batch > 1:
+        if shape and shape[0] == 1:
+            shape = (batch,) + tuple(shape[1:])
+        else:
+            shape = (batch,) + tuple(shape)
+    return ShapeDtype(tuple(shape), np.dtype(dtype))
+
+
+def _caps_input_info(e):
+    """Negotiated/static sink caps as the input info of last resort:
+    live pad caps when the pipeline negotiated, else the dry-run
+    negotiation (lint time, nothing opened)."""
+    sink0 = e.sink_pads[0] if e.sink_pads else None
+    if sink0 is None:
+        return None
+    caps = getattr(sink0, "caps", None)
+    if caps is None and getattr(e, "pipeline", None) is not None:
+        from nnstreamer_tpu_torch.analysis import nego
+
+        caps = nego.dry_run_quiet_cached(e.pipeline).get(id(sink0))
+    if caps is None:
+        return None
+    try:
+        info = caps.to_config().info
+    except Exception:  # noqa: BLE001
+        return None
+    if info is None or info.num_tensors == 0:
+        return None
+    return info
+
+
+def filter_cost(e, method: str = "auto") -> Optional[Dict[str, Any]]:
+    """Per-invoke cost of a tensor_filter's composed program at its
+    negotiated (micro-batched) signature; None when unmodeled.
+
+    Memoized per element, keyed on everything that changes the program —
+    model/custom/batch, the fused stage specs and the resolved input
+    signature — so a replan or renegotiation invalidates naturally."""
+    prog = filter_program(e)
+    if prog is None:
+        return None
+    fn, params, shapes = prog
+    key = (
+        method,
+        str(e.properties.get("model")), str(e.properties.get("custom")),
+        tuple((tuple(s.shape), str(s.dtype)) for s in shapes),
+        tuple(getattr(e, "_pre_specs", ()) or ()),
+        tuple(getattr(e, "_post_specs", ()) or ()),
+    )
+    cache = e.__dict__.setdefault("_nncost_cache", {})
+    if key in cache:
+        hit = cache[key]
+        return dict(hit) if hit is not None else None
+    try:
+        cost = program_cost(fn, params, shapes, method=method)
+    except Exception:  # noqa: BLE001 — the meta run failed: unmodeled
+        # negative-cached: one analysis run asks several times
+        cache[key] = None
+        return None
+    cost["batch"] = int(e.properties.get("batch_size", 1) or 1)
+    cost["input_shapes"] = [tuple(s.shape) for s in shapes]
+    cache[key] = dict(cost)
+    return cost
+
+
+# --------------------------------------------------------------------------
+# compile-count prediction
+# --------------------------------------------------------------------------
+
+def predict_compiles(pipeline) -> Dict[str, Optional[int]]:
+    """Statically predicted builds (the backend's ``compile_stats``
+    ``jit_traces``) per device-capable filter for a steady-state run: ONE
+    per filter — one input signature (micro-batch padding pins it), or
+    one windowed program per (signature, window). ``None`` marks a filter
+    the model cannot pin: flexible or variable-shape upstream caps build
+    once per distinct shape."""
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
+
+    out: Dict[str, Optional[int]] = {}
+    for e in pipeline.elements.values():
+        if not isinstance(e, TensorFilter) or not e._fw_device_capable():
+            continue
+        out[e.name] = None if _variable_shape_upstream(e) else 1
+    return out
+
+
+def _variable_shape_upstream(e) -> bool:
+    """True when the caps reaching the filter's sink pad are flexible or
+    carry a symbolic dim — every distinct runtime shape rebuilds."""
+    from nnstreamer_tpu_torch.types import TensorFormat
+
+    sink0 = e.sink_pads[0] if e.sink_pads else None
+    if sink0 is None:
+        return False
+    caps = getattr(sink0, "caps", None)
+    if caps is None:
+        return False  # unknown statically: don't cry wolf
+    try:
+        cfg = caps.to_config()
+    except Exception:  # noqa: BLE001
+        return False
+    if cfg.format == TensorFormat.FLEXIBLE:
+        return True
+    return any(any(int(d) <= 0 for d in t.np_shape()) for t in cfg.info)

@@ -1,0 +1,343 @@
+"""Whole-pipeline device-memory planner — static OOM prediction
+(counterpart of the JAX package's ``analysis/memplan.py``).
+
+Composes the per-filter program costs (analysis/costmodel.py) with the
+pipeline-level in-flight state the runtime parks on the device:
+
+- **params**, counted ONCE per backend instance — filters sharing a
+  ``shared-tensor-filter-key`` share one loaded model, so N sharers must
+  not bill N×params — and beside them, once per backend too, the
+  **derived** weights the forward keeps (the BN-folded, cast copies,
+  costmodel ``derived_bytes``);
+- **upload window** (``feed-depth=N``): up to N assembled micro-batches
+  of inputs in flight on the device before the oldest invokes;
+- **program peak**: the invoke's own live-activation peak;
+- **fetch window** (``fetch-window=K|auto|eos``): up to K invokes'
+  outputs held on the device awaiting the batched fetch (``auto`` is
+  bounded by its saturated-regime constant, ``eos`` by the
+  ``_EOS_WINDOW_CAP`` backstop);
+- **steady-loop window ring** (``loop-window=N`` + ``launch-depth=K``):
+  up to K in-flight windows, each holding its staged N-frame input ring
+  and its stacked outputs awaiting the drain (billed only where the loop
+  actually engages — an ineligible or over-budget window falls back
+  per-buffer at PLAYING and bills nothing; multiple looped filters
+  resolve jointly, first-in-graph-order wins the budget). Where the
+  window runs as a CUDA graph (a backend on the card), the graph's
+  private memory pool is billed too: one composition peak for each of
+  the window's rows (the capture may reuse a row's memory for the next,
+  and this bill does not count on it) plus the window's stacked outputs;
+- **queues on memory:HBM edges**: a bounded queue on a device-resident
+  edge parks up to max-size-buffers device payloads (billed at the
+  element's runtime default of 16 when unset; skipped when the edge caps
+  cannot resolve statically);
+- **serving tier** (``tensor_query_serversrc serve=1``): the padded
+  micro-batch (serve-batch rows x the per-request caps bytes) plus the
+  bounded admission queue's held requests.
+
+The total is checked against the device budget: ``NNSTPU_HBM_BYTES``,
+else the card's memory (``torch.cuda.mem_get_info``), else the JAX
+package's default (16 GiB) under its own label, so CPU verdicts match
+the JAX package's. The JAX package's shard and replica-pool rows and its
+mesh budget wait (ROADMAP.md queue 1 item 4); this package refuses
+``shard=``/``replicas=`` at construction, so those rows never arise.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, List, Optional, Tuple
+
+from nnstreamer_tpu_torch.analysis.costmodel import (
+    DEFAULT_HBM_BYTES,
+    filter_cost,
+)
+
+
+def device_memory_budget(device_index: int = 0) -> Tuple[int, str]:
+    """(bytes, source) of one device's budget: the NNSTPU_HBM_BYTES
+    override, else the CUDA card's total memory, else the JAX package's
+    default."""
+    env = os.environ.get("NNSTPU_HBM_BYTES")
+    if env:
+        try:
+            return _parse_bytes(env), "NNSTPU_HBM_BYTES"
+        except ValueError:
+            # a malformed override must not crash a plan: fall through
+            pass
+    import torch
+
+    if torch.cuda.is_available() and device_index < torch.cuda.device_count():
+        return int(torch.cuda.mem_get_info(device_index)[1]), "cuda"
+    return DEFAULT_HBM_BYTES, "default-v5e"
+
+
+def _parse_bytes(s: str) -> int:
+    s = s.strip().upper()
+    mult = 1
+    for suffix, m in (("K", 2**10), ("M", 2**20), ("G", 2**30),
+                      ("T", 2**40)):
+        if s.endswith(suffix):
+            s, mult = s[:-1], m
+            break
+    return int(float(s) * mult)
+
+
+def _edge_bytes_resolver(pipeline):
+    """Shared caps→bytes resolution (live pad caps, else the dry-run
+    negotiation)."""
+    from nnstreamer_tpu_torch.analysis.residency import _Predictor
+
+    return _Predictor(pipeline, 1, "host")
+
+
+def plan_memory(pipeline, method: str = "auto",
+                loop_override: Optional[Dict[str, Tuple[int, int]]] = None
+                ) -> Dict[str, Any]:
+    """The whole-pipeline device-memory plan: rows per device-capable
+    filter, HBM-edge queue holdings, serving holdings, the shared-deduped
+    param total, the grand total and the budget.
+
+    ``loop_override`` maps element name → (loop-window, launch-depth):
+    the loop analyzer (analysis/loop.py) probes a PROSPECTIVE window's
+    ring against the budget (the NNST462 verdict / loop-window=auto
+    resolution). With an override, only the named elements bill a loop
+    ring; without one, each filter bills the window the RUNTIME will
+    engage (``runtime_loop_config``)."""
+    from nnstreamer_tpu_torch.elements.basic import QueueElement
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
+    from nnstreamer_tpu_torch.pipeline.planner import _plan_residency
+
+    all_src = [sp for e in pipeline.elements.values() for sp in e.src_pads]
+    if all_src and all(sp.device_ok is None for sp in all_src):
+        _plan_residency(pipeline)
+
+    sizes = _edge_bytes_resolver(pipeline)
+    rows: List[Dict[str, Any]] = []
+    unmodeled: List[str] = []
+    param_groups: Dict[Any, int] = {}
+    derived_groups: Dict[Any, int] = {}
+
+    for e in pipeline.elements.values():
+        if not isinstance(e, TensorFilter) or not e._fw_device_capable():
+            continue
+        cost = filter_cost(e, method=method)
+        if cost is None:
+            unmodeled.append(e.name)
+            continue
+        batch = max(1, cost["batch"])
+        # per-invoke transfer payloads come from the program's own
+        # signature (batch already folded into the shapes)
+        per_invoke_in = cost["input_bytes"]
+        per_invoke_out = cost["output_bytes"]
+        feed = max(1, int(e.properties.get("feed_depth", 1) or 1))
+        window = _window_entries(e)
+        if loop_override is not None:
+            loopw, loopk = loop_override.get(e.name, (1, 1))
+        else:
+            from nnstreamer_tpu_torch.analysis.loop import runtime_loop_config
+
+            loopw, loopk = runtime_loop_config(pipeline, e)
+        # the program's raw peak counts params and the consumed input
+        # batch among its live values; params bill ONCE per backend
+        # (below) and in-flight inputs via feed_bytes, so the row's own
+        # contribution is the ACTIVATION residual
+        activation = max(0, cost["peak_live_bytes"] - cost["param_bytes"]
+                         - cost["input_bytes"])
+        loop_bytes = graph_bytes = 0
+        if loopw > 1:
+            # up to launch-depth windows in flight, each holding its
+            # staged input ring AND its stacked outputs (the conservative
+            # peak). When the loop engages it owns both transfer
+            # amortizers: the feed/fetch holdings it bypasses bill zero
+            loop_bytes = loopk * loopw * (per_invoke_in + per_invoke_out)
+            feed = 1
+            window = 0
+            if _runs_on_card(e):
+                graph_bytes = loopw * (activation + per_invoke_out)
+        row = {
+            "element": e.name,
+            "param_bytes": cost["param_bytes"],
+            "derived_bytes": cost.get("derived_bytes", 0),
+            "peak_live_bytes": cost["peak_live_bytes"],
+            "activation_bytes": activation,
+            "feed_bytes": feed * per_invoke_in,
+            "window_bytes": window * per_invoke_out,
+            "loop_bytes": loop_bytes,
+            "graph_bytes": graph_bytes,
+            "feed_depth": feed,
+            "window_entries": window,
+            "loop_window": loopw,
+            "launch_depth": loopk,
+            "batch": batch,
+        }
+        row["total_bytes"] = (row["activation_bytes"] + row["feed_bytes"]
+                              + row["window_bytes"] + row["loop_bytes"]
+                              + row["graph_bytes"])
+        rows.append(row)
+        # params counted once per backend INSTANCE: an open shared
+        # framework is one object; at lint time the shared key is the
+        # best identity proxy
+        key = (id(e.fw) if e.fw is not None
+               else (e.properties.get("shared_tensor_filter_key")
+                     or f"__private__:{e.name}"))
+        param_groups[key] = max(param_groups.get(key, 0),
+                                cost["param_bytes"])
+        derived_groups[key] = max(derived_groups.get(key, 0),
+                                  row["derived_bytes"])
+
+    serving_rows = _serving_holdings(pipeline)
+
+    queue_rows = []
+    for e in pipeline.elements.values():
+        if not isinstance(e, QueueElement):
+            continue
+        sp = e.src_pads[0] if e.src_pads else None
+        if sp is None or not getattr(sp, "device_resident", False):
+            continue
+        # QueueElement's runtime default depth (16)
+        cap = int(e.properties.get("max_size_buffers", 16) or 0)
+        if cap <= 0:
+            continue  # unbounded: not a finite holding
+        b = sizes.pad_bytes(sp)
+        if b is None:
+            continue
+        queue_rows.append({"element": e.name, "capacity": cap,
+                           "bytes": cap * b})
+
+    param_total = sum(param_groups.values())
+    derived_total = sum(derived_groups.values())
+    total = (param_total + derived_total
+             + sum(r["total_bytes"] for r in rows)
+             + sum(q["bytes"] for q in queue_rows)
+             + sum(s["bytes"] for s in serving_rows))
+    budget, budget_src = device_memory_budget()
+    return {
+        "rows": rows,
+        "queues": queue_rows,
+        "serving": serving_rows,
+        "param_bytes_total": param_total,
+        "param_sharing_groups": len(param_groups),
+        "derived_bytes_total": derived_total,
+        "total_bytes": total,
+        "budget_bytes": budget,
+        "budget_source": budget_src,
+        "utilization": (total / budget) if budget else 0.0,
+        "unmodeled": unmodeled,
+    }
+
+
+def _runs_on_card(e) -> bool:
+    """Does this filter's backend run on the card? The open backend's
+    device, else its ``accelerator`` property, which means the card
+    unless it asks for the CPU."""
+    from nnstreamer_tpu_torch.filters.cuda_filter import wants_cpu
+
+    dev = getattr(e.fw, "_device", None) if e.fw is not None else None
+    if dev is not None:
+        return dev.type == "cuda"
+    return not wants_cpu(str(e.properties.get("accelerator", "") or ""))
+
+
+def _serving_holdings(pipeline) -> List[Dict[str, Any]]:
+    """Per ``serve=1`` query server: the padded micro-batch under assembly
+    (serve-batch rows) plus the bounded admission queue's held requests,
+    both at the per-REQUEST caps bytes."""
+    from nnstreamer_tpu_torch.analysis.residency import caps_nbytes
+    from nnstreamer_tpu_torch.caps import Caps
+    from nnstreamer_tpu_torch.elements.query import TensorQueryServerSrc
+
+    out: List[Dict[str, Any]] = []
+    for e in pipeline.elements.values():
+        if not isinstance(e, TensorQueryServerSrc) \
+                or not e.properties.get("serve"):
+            continue
+        caps_s = str(e.properties.get("caps", "") or "")
+        unit = caps_nbytes(Caps.from_string(caps_s)) if caps_s else None
+        if unit is None:
+            continue  # flexible/missing caps: serving refuses at start()
+        batch = max(1, int(e.properties.get("serve_batch", 1) or 1))
+        # the scheduler's runtime default depth (64); an explicit <= 0 is
+        # unbounded, not a finite holding this plan can bill
+        depth_prop = e.properties.get("serve_queue_depth", 64)
+        depth = int(depth_prop if depth_prop is not None else 64)
+        queue_bytes = depth * unit if depth > 0 else 0
+        out.append({
+            "element": e.name,
+            "serve_batch": batch,
+            "queue_depth": depth,
+            "unit_bytes": unit,
+            "batch_bytes": batch * unit,
+            "queue_bytes": queue_bytes,
+            "bytes": batch * unit + queue_bytes,
+        })
+    return out
+
+
+def fetch_window_size(e) -> int:
+    """A filter's configured fetch-window, resolved: plain ints as-is,
+    ``auto`` as its saturated-regime bound, ``eos`` as the backstop cap,
+    unparsable as 1."""
+    prop = str(e.properties.get("fetch_window", 1)).strip().lower()
+    if prop == "auto":
+        return type(e)._AUTO_SATURATED_WINDOW
+    if prop == "eos":
+        return type(e)._EOS_WINDOW_CAP
+    try:
+        return int(prop or 1)
+    except ValueError:
+        return 1
+
+
+def _window_entries(e) -> int:
+    """Held fetch-window entries the plan must budget for (a window of
+    0/1 holds nothing beyond the invoke output billed elsewhere)."""
+    k = fetch_window_size(e)
+    return k if k > 1 else 0
+
+
+def dominant_contributor(plan: Dict[str, Any]) -> Tuple[str, str, int]:
+    """(element, kind, bytes) of the single largest holding — the fix
+    hint targets it."""
+    best = ("pipeline", "params", plan["param_bytes_total"])
+    for r in plan["rows"]:
+        for kind in ("feed_bytes", "window_bytes", "loop_bytes",
+                     "graph_bytes", "activation_bytes"):
+            if r[kind] > best[2]:
+                best = (r["element"], kind.removesuffix("_bytes"), r[kind])
+    for q in plan["queues"]:
+        if q["bytes"] > best[2]:
+            best = (q["element"], "queue", q["bytes"])
+    for s in plan.get("serving", ()):
+        if s["bytes"] > best[2]:
+            best = (s["element"], "serving", s["bytes"])
+    return best
+
+
+def fix_hint(plan: Dict[str, Any]) -> str:
+    el, kind, nbytes = dominant_contributor(plan)
+    mb = nbytes / 2**20
+    if kind == "feed":
+        return (f"lower feed-depth on {el!r} (its upload window holds "
+                f"{mb:.0f} MB) or split the batch")
+    if kind == "window":
+        return (f"shrink fetch-window on {el!r} (its held outputs reach "
+                f"{mb:.0f} MB) or flush more often")
+    if kind == "loop":
+        return (f"shrink loop-window (or launch-depth) on {el!r} — its "
+                f"window ring + in-flight windows hold {mb:.0f} MB of "
+                f"device-resident frames")
+    if kind == "graph":
+        return (f"shrink loop-window on {el!r} — its window's CUDA graph "
+                f"holds {mb:.0f} MB of per-row activations")
+    if kind == "activation":
+        return (f"split batch-size on {el!r} (per-invoke activations peak "
+                f"at {mb:.0f} MB) or un-fuse its pre/post stages")
+    if kind == "queue":
+        return (f"cap max-size-buffers on {el!r} (its HBM edge parks "
+                f"{mb:.0f} MB) or move the queue past the boundary")
+    if kind == "serving":
+        return (f"lower serve-queue-depth (or serve-batch) on {el!r} — "
+                f"its admission pool holds {mb:.0f} MB of padded "
+                f"requests at capacity")
+    return (f"params total {mb:.0f} MB — share backends via "
+            f"shared-tensor-filter-key or quantize the checkpoint")

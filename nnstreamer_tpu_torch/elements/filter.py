@@ -32,14 +32,25 @@ as pre/post stages on the backend (``install_fusion``); the upload then
 carries the transform's input bytes, caps map through the fused chain, and
 the stages are reinstalled on a reopened or reloaded backend.
 
+Steady loop: ``loop-window=N|auto`` with ``launch-depth=K`` — where the
+loop analyzer (analysis/loop.py) verdicts NNST460 the planner installs the
+backend's window program (``install_loop``): frames collect into a window
+of N, a full window is ONE stacked upload, ONE dispatch (on the card one
+CUDA-graph replay) and, once K windows are banked, ONE drain of the oldest
+— the loop owns both transfer amortizers, so the batch/feed/fetch paths
+never see its frames. A partial window at EOS, at the ``fetch-timeout-ms``
+quiescence flush, on reload or on stop dispatches padded (the padded rows
+are never pushed). NNST461/462 and a declined window run per-buffer
+launches, loudly (``_loop_refused``).
+
 The tracer (``trace.attach``) sees the upload and fetch crossings, the
 upload-window and fetch-window holds, and, with spans on, the batch,
 dispatch, compute, h2d and d2h spans of each invoke.
 
 Not ported yet (see ROADMAP.md): chain fusion (filter→filter programs),
-the steady loop, mesh sharding, replicas, the AOT cache, rollout, the
-invoke watchdog and ``fallback-framework``. Setting any of them to other
-than its default raises at construction instead of being ignored.
+mesh sharding, replicas, the AOT cache, rollout, the invoke watchdog and
+``fallback-framework``. Setting any of them to other than its default
+raises at construction instead of being ignored.
 """
 
 from __future__ import annotations
@@ -88,8 +99,6 @@ log = get_logger("tensor_filter")
 #: JAX-package properties this element does not implement yet, with the
 #: value that means "off" (that value is accepted; any other raises)
 NOT_PORTED = {
-    "loop_window": 0,
-    "launch_depth": 1,
     "shard": "off",
     "mesh": "",
     "invoke_timeout_ms": 0,
@@ -154,6 +163,17 @@ class TensorFilter(Element):
         "throughput": Prop("bool"),
         "sync": Prop("bool", doc="materialize outputs on the streaming "
                                  "thread"),
+        "loop_window": Prop(
+            "str",
+            validate=lambda v: (
+                None if str(v).strip().lower() == "auto"
+                or str(v).strip().lstrip("-").isdigit()
+                else f"expected an integer or 'auto', got {v!r}"),
+            doc="steady loop: ONE dispatch per N frames (a CUDA-graph "
+                "window; auto = largest budget-feasible candidate)"),
+        "launch_depth": Prop(
+            "int",
+            doc="bank up to K un-synced window launches before draining"),
         **{k: Prop("any", doc="not supported in this package")
            for k in NOT_PORTED},
     }
@@ -228,6 +248,16 @@ class TensorFilter(Element):
         self._fused_post: List = []
         self._pre_specs: List[tuple] = []
         self._post_specs: List[tuple] = []
+        # steady-loop state (planner _plan_steady_loop, NNST460-licensed):
+        # {"window": N, "depth": K} while the window program is installed;
+        # frames collect in _loop_rows until a window fills, dispatched
+        # windows bank in _loop_inflight (up to K un-synced launches)
+        # until their drain. _loop_refused carries the (code, reason) of a
+        # loud per-buffer fallback.
+        self._loop_state: Optional[dict] = None
+        self._loop_rows: List[tuple] = []
+        self._loop_inflight: deque = deque()
+        self._loop_refused: Optional[tuple] = None
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
@@ -291,6 +321,15 @@ class TensorFilter(Element):
             self._pre_specs, self._post_specs = [], []
         else:
             self._reinstall_stages("reopened")
+        # the loop across a reopen: rebuilt on the fresh backend mid-stream
+        # (a decline falls back loudly per-buffer, numerically identical);
+        # a cold start drops it and the PLAYING replan re-decides
+        if self._loop_state is not None:
+            mid_stream = (self.pipeline is not None
+                          and getattr(self.pipeline.state, "name", "")
+                          == "PLAYING")
+            if not mid_stream or not self._rebuild_loop("reopened"):
+                self._loop_state = None
 
     def _reinstall_stages(self, what: str) -> None:
         """Put the installed stages back on a backend that was reopened or
@@ -308,6 +347,20 @@ class TensorFilter(Element):
             self._flush_timer.cancel()
         with self._window_lock:
             self._flush_timer = None
+            # banked windows were already dispatched: their frames exist
+            # on the device and downstream (sinks stop AFTER this filter)
+            # can still take them — emit rather than strand; a teardown
+            # hiccup is logged, never raised out of stop(). Undispatched
+            # partial rows are dropped like _pending (stop is not EOS)
+            if self._loop_inflight:
+                try:
+                    self._drain_loop()
+                except Exception:  # noqa: BLE001 — teardown best-effort
+                    log.warning("[%s] draining %d in-flight loop window(s) "
+                                "failed during stop()", self.name,
+                                len(self._loop_inflight), exc_info=True)
+            self._loop_rows = []
+            self._loop_inflight.clear()
             if self.fw is not None:
                 release_framework(self.fw, self._fw_props.shared_key)
                 self.fw = None
@@ -339,6 +392,41 @@ class TensorFilter(Element):
         self._pre_specs, self._post_specs = list(pre_specs), list(post_specs)
         return True
 
+    # -- steady-loop wiring (planner _plan_steady_loop) ---------------------
+    def install_loop(self, window: int, depth: int) -> bool:
+        """Install the window program on the open backend. Returns False
+        (per-buffer behavior, nothing changes) when the backend declines —
+        the loop fallback is always numerically safe."""
+        if self.fw is None or not self.fw.build_loop(
+                int(window), max(1, int(depth)), self._loop_in_info()):
+            return False
+        self._loop_state = {"window": int(window), "depth": max(1, int(depth))}
+        return True
+
+    def clear_loop(self) -> None:
+        self._loop_state = None
+        if self.fw is not None:
+            self.fw.build_loop(0)
+
+    def _rebuild_loop(self, what: str) -> bool:
+        """Rebuild the installed window on a reopened or reloaded backend;
+        a decline is a loud per-buffer fallback, never a failure."""
+        if self.fw.build_loop(self._loop_state["window"],
+                              self._loop_state["depth"],
+                              self._loop_in_info()):
+            return True
+        log.warning("[%s] %s backend declined the window program — "
+                    "per-buffer launches", self.name, what)
+        return False
+
+    def _loop_in_info(self) -> Optional[TensorsInfo]:
+        """The per-frame signature the window stacks, where it is known
+        statically (the sink caps, live or from the dry negotiation): the
+        backend checks and captures the window at it up front."""
+        from nnstreamer_tpu_torch.analysis.costmodel import _caps_input_info
+
+        return _caps_input_info(self)
+
     def clear_fusion(self) -> None:
         self._fused_pre, self._fused_post = [], []
         self._pre_specs, self._post_specs = [], []
@@ -358,16 +446,23 @@ class TensorFilter(Element):
 
     # -- residency negotiation (memory:HBM lane) ---------------------------
     def _fw_device_capable(self) -> bool:
-        return bool(getattr(self.fw, "DEVICE_CAPABLE", False))
+        if self.fw is not None:
+            return bool(getattr(self.fw, "DEVICE_CAPABLE", False))
+        # before the backend opens (static analysis) the framework
+        # property is the best hint
+        return str(self.properties.get("framework", "")) in ("jax",
+                                                              "torch_cuda")
 
     def accepts_device(self, pad: Pad) -> bool:
         return self._fw_device_capable()
 
     def produces_device(self, pad: Pad) -> bool:
-        # sync=1 materializes every output in _emit_now, and invoke_dynamic
-        # wraps outputs into flexible host bytes — never stamp memory:HBM
-        # on a stream that will actually carry host data
-        return (self._fw_device_capable()
+        # sync=1 materializes every output in _emit_now, invoke_dynamic
+        # wraps outputs into flexible host bytes and a looped filter
+        # drains its windows to the host — never stamp memory:HBM on a
+        # stream that will actually carry host data
+        return (self._loop_state is None
+                and self._fw_device_capable()
                 and not self.properties.get("sync")
                 and not self.properties.get("invoke_dynamic"))
 
@@ -460,6 +555,10 @@ class TensorFilter(Element):
             # uploaded for the OLD model invoke against it, and held
             # window entries are emitted, before the swap
             with self._window_lock:
+                if self._loop_rows:
+                    self._dispatch_loop_window()
+                if self._loop_inflight:
+                    self._drain_loop()
                 if self._pending:
                     self._flush_batch(self._batch_size())
                 if self._feed_pending:
@@ -477,6 +576,9 @@ class TensorFilter(Element):
                 # the reload's close() dropped the installed stages while
                 # the claimed transforms stay passthrough shells
                 self._reinstall_stages("reloaded")
+                if self._loop_state is not None and \
+                        not self._rebuild_loop("reloaded"):
+                    self._loop_state = None
             self.post_message("model-reloaded", {"model": new_model})
             return
         super()._on_sink_event(pad, event)
@@ -543,6 +645,14 @@ class TensorFilter(Element):
         inputs = [tensors[int(i)] for i in str(sel).split(",")] if sel else tensors
         batch = self._batch_size()
         with self._window_lock:
+            if self._loop_state is not None:
+                # steady loop: frames collect into the window; the loop
+                # owns both transfer amortizers, so the batch/feed/fetch
+                # paths below never see these frames
+                ret = self._loop_feed(buf, tensors, inputs)
+                if self._loop_rows or self._loop_inflight:
+                    self._arm_flush_timer()
+                return ret
             if batch > 1:
                 if self._pending and self._pending[-1][0] is buf:
                     # on-error retry re-chains the batch's trigger buffer
@@ -644,6 +754,149 @@ class TensorFilter(Element):
         outputs = self._invoke(payload, frames=len(rows))
         return self._emit_batch_rows(rows, outputs)
 
+    # -- steady loop (loop-window / launch-depth) ---------------------------
+    def _loop_feed(self, buf, tensors, inputs) -> FlowReturn:
+        """Collect one frame into the loop window; a full window
+        dispatches as ONE window program (ops/steady_loop.py). The
+        per-frame Python work here is one list append — the dispatch cost
+        is paid once per window."""
+        if self._loop_rows and self._loop_rows[-1][0] is buf:
+            # on-error retry re-chains the window's trigger buffer and the
+            # failed dispatch restored the rows — replace, don't duplicate
+            self._loop_rows[-1] = (buf, tensors, inputs)
+        else:
+            self._loop_rows.append((buf, tensors, inputs))
+        # >= : a failed dispatch may have restored rows on top of a frame
+        # that arrived since; the dispatch takes exactly ONE window's rows
+        if len(self._loop_rows) >= self._loop_state["window"]:
+            return self._dispatch_loop_window()
+        return FlowReturn.OK
+
+    def _restore_loop_rows(self, rows) -> None:
+        """A failed staging or dispatch: the window's frames survive into
+        the on-error policy — retry restores the whole window, drop loses
+        exactly the trigger frame."""
+        kind, _ = self.error_policy()
+        keep = rows if kind in ("retry", "restart") else rows[:-1]
+        self._loop_rows = list(keep) + self._loop_rows
+
+    def _dispatch_loop_window(self) -> FlowReturn:
+        """Stage + dispatch the collected window: stack the frames
+        (padding a partial window by repeating the last row, so every
+        window presents ONE program shape — padded rows are masked at
+        emit), ONE staged upload, ONE dispatch. The un-synced launch
+        banks in ``_loop_inflight``; the oldest drains once
+        ``launch-depth`` windows are in flight."""
+        from nnstreamer_tpu_torch.ops.steady_loop import (
+            LoopDeclined,
+            stack_window,
+        )
+
+        window = self._loop_state["window"]
+        rows, self._loop_rows = (self._loop_rows[:window],
+                                 self._loop_rows[window:])
+        if not rows:
+            return FlowReturn.OK
+        spans = self._spans()
+        t_asm = time.perf_counter() if spans is not None else 0.0
+        try:
+            slot = self.fw.loop_slot(rows[0][2], window)
+        except LoopDeclined as e:
+            return self._decline_loop(rows, str(e))
+        try:
+            stacked, n_valid = stack_window([r[2] for r in rows], window,
+                                            out=slot)
+        except ValueError as e:
+            raise ElementError(self.name, str(e))
+        if spans is not None:
+            spans.emit("batch-assemble", "batch", t_asm, time.perf_counter(),
+                       args={"element": self.name, "rows": n_valid,
+                             "pad": window - n_valid, "window": window})
+        host_bytes = nbytes_of(stacked)
+        t_h2d = time.perf_counter() if spans is not None else 0.0
+        try:
+            staged = self.fw.loop_stage(stacked)
+        except Exception as e:
+            self._restore_loop_rows(rows)
+            raise ElementError(self.name, f"loop staging failed: {e}") from e
+        # the whole (padded) window crosses in one staged upload
+        self._record_crossing("h2d", nbytes=host_bytes)
+        if spans is not None:
+            spans.emit("h2d", "h2d", t_h2d, time.perf_counter(),
+                       args={"element": self.name, "nbytes": host_bytes,
+                             "window": window})
+        t0 = time.perf_counter()
+        try:
+            outs = self.fw.loop_invoke(staged)
+        except Exception as e:
+            self._restore_loop_rows(rows)
+            raise ElementError(self.name, f"invoke failed: {e}") from e
+        self._invoke_count += 1
+        if spans is not None:
+            spans.emit("dispatch", "dispatch", t0, time.perf_counter(),
+                       args={"element": self.name, "frames": n_valid,
+                             "window": window})
+        if self._measuring():
+            _block_until_ready(outs)
+            if self._invoke_count > 1:  # the first window builds
+                self._latencies_us.append(
+                    (time.perf_counter() - t0) * 1e6 / n_valid)
+            self._out_times.append(time.monotonic())
+        meta = [self._strip_for_window(b, t) for b, t, _ in rows[:n_valid]]
+        self._loop_inflight.append((meta, n_valid, outs))
+        ret = FlowReturn.OK
+        while len(self._loop_inflight) >= self._loop_state["depth"]:
+            ret = self._drain_oldest_loop()
+            if ret not in (FlowReturn.OK, FlowReturn.DROPPED):
+                break
+        return ret
+
+    def _decline_loop(self, rows, reason: str) -> FlowReturn:
+        """The backend could not build the window at its first use (a
+        refused capture): fall back LOUDLY to per-buffer launches, as for
+        a window declined at install — banked windows drain first, then
+        this window's and every collected frame run one by one."""
+        log.warning("[%s] loop-window: %s — per-buffer launches",
+                    self.name, reason)
+        self._loop_refused = ("NNST460", reason)
+        ret = self._drain_loop()
+        self.clear_loop()
+        pending, self._loop_rows = list(rows) + self._loop_rows, []
+        for buf, tensors, inputs in pending:
+            if ret not in (FlowReturn.OK, FlowReturn.DROPPED):
+                break
+            ret = self._emit(buf, tensors, self._invoke(inputs))
+        return ret
+
+    def _drain_oldest_loop(self) -> FlowReturn:
+        """Drain the oldest banked window: one wait on its stacked
+        outputs, ONE fetch of the whole window, then emit the valid rows
+        in order — padded tail rows are never emitted."""
+        meta, n_valid, outs = self._loop_inflight.popleft()
+        flat = [o for o in outs if is_backend_tensor(o)]
+        if flat:
+            got, _, _ = self._drain_and_fetch(flat, window=len(meta))
+            fetched = iter(got)
+            outs = [next(fetched) if is_backend_tensor(o) else o
+                    for o in outs]
+        ret = FlowReturn.OK
+        for k in range(n_valid):
+            buf, tensors = meta[k]
+            ret = self._emit_now(buf, tensors, [o[k] for o in outs])
+            if ret not in (FlowReturn.OK, FlowReturn.DROPPED):
+                return ret
+        return ret
+
+    def _drain_loop(self) -> FlowReturn:
+        """Drain every banked window in dispatch order (EOS, quiescence,
+        reload, stop): no stranded frames."""
+        ret = FlowReturn.OK
+        while self._loop_inflight:
+            ret = self._drain_oldest_loop()
+            if ret not in (FlowReturn.OK, FlowReturn.DROPPED):
+                break
+        return ret
+
     # -- fetch-timeout-ms quiescence flush ---------------------------------
     def _arm_flush_timer(self) -> None:
         """Note activity for the quiescence timer when fetch-timeout-ms is
@@ -675,10 +928,16 @@ class TensorFilter(Element):
                 return
             remaining = self._last_activity + t - time.monotonic()
             if remaining > 0.001:
-                if self._pending or self._fetch_pending or self._feed_pending:
+                if (self._pending or self._fetch_pending
+                        or self._feed_pending or self._loop_rows
+                        or self._loop_inflight):
                     self._start_flush_timer(remaining)
                 return
             try:
+                if self._loop_rows:
+                    self._dispatch_loop_window()
+                if self._loop_inflight:
+                    self._drain_loop()
                 if self._pending:
                     self._flush_batch(self._batch_size())
                 if self._feed_pending:
@@ -1102,6 +1361,13 @@ class TensorFilter(Element):
             self._flush_timer.cancel()
         with self._window_lock:
             self._flush_timer = None
+            # the steady loop first: a partial window dispatches padded
+            # (padded rows masked, never emitted), then every banked
+            # launch drains in dispatch order
+            if self._loop_rows:
+                self._dispatch_loop_window()
+            if self._loop_inflight:
+                self._drain_loop()
             # order matters: a partial micro-batch may enter the upload
             # window, whose drained invokes may enter the fetch window —
             # flush upstream-most first so nothing strands in flight

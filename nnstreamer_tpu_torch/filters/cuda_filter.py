@@ -25,15 +25,25 @@ a card that is asked for and absent makes ``open`` raise.
     transform stages (ops/fusion_stages.py) around the model: the
     pre-stage runs on each input after its upload, on the stream the
     model runs on, so the upload carries the transform's input bytes; the
-    post-stage runs on each output after the postproc.
+    post-stage runs on each output after the postproc;
+  - **steady loop**: ``build_loop`` installs the window program of the
+    element's ``loop-window`` (ops/steady_loop.py): on the card one
+    replay of a CUDA graph per window of N frames, captured once per
+    (signature, window) — eagerly when the element knows the signature,
+    else at the first window — and recaptured when a trainer changed the
+    weights; on the CPU a Python loop over the window. ``loop_stage``
+    stages a stacked window, ``loop_invoke`` runs it;
+  - **cost program**: ``cost_program`` is the composition rebuilt on the
+    ``meta`` device, for the cost model (analysis/costmodel.py) and the
+    window's data-free check.
 
 Model naming: zoo names (``mobilenet_v2``) with weights from
 ``custom=seed:<n>`` or ``custom=params:<path>`` (an ``.npz``, or what the
 trainer saved: a file or a directory), and embedded-Python ``.py`` model
 files (:func:`models.load_py_model`, the JAX backend's ``_load_py_model``).
 The JAX backend's ``.jaxexport``/``.msgpack``/SavedModel sources, its mesh
-sharding, replicas, steady loop, AOT cache and chain fusion are not
-ported; the custom keys that would ask for them raise.
+sharding, replicas, AOT cache and chain fusion are not ported; the custom
+keys that would ask for them raise.
 """
 
 from __future__ import annotations
@@ -51,8 +61,16 @@ from nnstreamer_tpu_torch.filters.base import (
     FilterProperties,
     PrefetchedInputs,
 )
-from nnstreamer_tpu_torch.models import ModelBundle, get_model, load_py_model
+from nnstreamer_tpu_torch.log import get_logger
+from nnstreamer_tpu_torch.models import (
+    ModelBundle,
+    get_model,
+    load_py_model,
+    weights_version,
+)
 from nnstreamer_tpu_torch.types import TensorInfo, TensorsInfo
+
+log = get_logger("torch_cuda")
 
 #: custom keys of the JAX backend whose features this backend lacks
 _NOT_PORTED_CUSTOM = ("shard", "shard_devices", "tp_devices", "donate", "aot",
@@ -101,11 +119,17 @@ def _postproc_info(pp: Optional[str], info: TensorsInfo) -> TensorsInfo:
     return info
 
 
+def wants_cpu(accelerator: str) -> bool:
+    """Does ``accelerator`` (the tensor_filter property) ask for the CPU
+    (``true:cpu``) and name no card?"""
+    acc = (accelerator or "").lower()
+    return "cpu" in acc and not any(k in acc for k in ("gpu", "cuda"))
+
+
 def pick_device(accelerator: str) -> torch.device:
     """``accelerator`` (the tensor_filter property) → device: the CPU only
     when asked for (``true:cpu``), otherwise ``cuda``, which must exist."""
-    acc = (accelerator or "").lower()
-    if "cpu" in acc and not any(k in acc for k in ("gpu", "cuda")):
+    if wants_cpu(accelerator):
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError(
@@ -171,6 +195,15 @@ class TorchCudaFilter(FilterFramework):
         # before the model and per output after the postproc
         self._stage_pre = None
         self._stage_post = None
+        self._pre_specs: List[tuple] = []
+        self._post_specs: List[tuple] = []
+        self._custom: Dict[str, str] = {}
+        # steady-loop window program (ops/steady_loop.py): the installed
+        # window and launch depth, and on the card one captured graph per
+        # input signature
+        self._loop_window = 0
+        self._loop_depth = 1
+        self._loop_graphs: Dict[tuple, Any] = {}
 
     # -- open/close --------------------------------------------------------
     def open(self, props: FilterProperties) -> None:
@@ -190,6 +223,7 @@ class TorchCudaFilter(FilterFramework):
                              "zoo models (weights via custom=params:<path>) "
                              "and .py model files")
         self._device = pick_device(props.accelerator)
+        self._custom = custom
         self._postproc = make_postproc(custom)
         self._postproc_name = custom.get("postproc")
         self._bundle = (load_py_model(model, custom, self._device) if is_py
@@ -202,14 +236,20 @@ class TorchCudaFilter(FilterFramework):
         self._postproc = None
         self._staging = None
         self._stage_pre = self._stage_post = None
+        self._pre_specs, self._post_specs = [], []
+        self.build_loop(0)
         super().close()
 
     def fuse_stages(self, pre_specs, post_specs) -> bool:
         """Install (or clear, both empty) the planner's stages. Declines
         only where the JAX backend does: when no model is open to compose
         them with."""
+        # a captured window holds the composition it was captured with:
+        # it recaptures at the next window
+        self._loop_graphs = {}
         if not pre_specs and not post_specs:
             self._stage_pre = self._stage_post = None
+            self._pre_specs, self._post_specs = [], []
             return True
         if self._bundle is None:
             return False
@@ -217,6 +257,7 @@ class TorchCudaFilter(FilterFramework):
 
         self._stage_pre = build_stage_fn(pre_specs)
         self._stage_post = build_stage_fn(post_specs)
+        self._pre_specs, self._post_specs = list(pre_specs), list(post_specs)
         return True
 
     # -- model info --------------------------------------------------------
@@ -280,6 +321,13 @@ class TorchCudaFilter(FilterFramework):
                 x.record_stream(compute)
         return list(handle)
 
+    def _compose(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """:func:`compose` with this backend's stages, model and postproc,
+        on device tensors."""
+        with torch.inference_mode():
+            return compose(xs, self._stage_pre, self._bundle.apply_fn,
+                           self._postproc, self._stage_post)
+
     def invoke(self, inputs: Sequence[Any]) -> List[Any]:
         t0 = time.perf_counter()
         if isinstance(inputs, PrefetchedInputs) and self._device.type == "cuda":
@@ -287,22 +335,179 @@ class TorchCudaFilter(FilterFramework):
         else:
             xs = [self._to_device(x) for x in inputs]
         self._signatures.add(tuple((tuple(x.shape), dtype_name(x)) for x in xs))
-        with torch.inference_mode():
-            if self._stage_pre is not None:
-                # fused upstream tensor_transform chain, on the device
-                # after the upload (the planner's parity gates guarantee
-                # numpy equivalence)
-                xs = [self._stage_pre(x) for x in xs]
-            out = self._bundle.apply_fn(*xs)
-            if self._postproc is not None:
-                out = self._postproc(out)
-        outs = list(out) if isinstance(out, (list, tuple)) else [out]
-        if self._stage_post is not None:
-            with torch.inference_mode():
-                outs = [self._stage_post(o) for o in outs]
+        outs = self._compose(xs)
         # async: no synchronise here; stats record enqueue time
         self.stats.record((time.perf_counter() - t0) * 1e6)
         return outs
+
+    # -- cost program (analysis/costmodel.py) ------------------------------
+    def cost_program(self):
+        """(fn(params, *xs), params, input_info) — the per-invoke
+        composition (fused stages, model, postproc) rebuilt on the
+        ``meta`` device, data-free; None when the model cannot be built
+        there."""
+        from nnstreamer_tpu_torch.analysis.costmodel import meta_composition
+
+        if self._bundle is None:
+            return None
+        try:
+            fn, module, _ = meta_composition(
+                self.props.model_file, self._custom, self._pre_specs,
+                self._post_specs)
+        except Exception:  # noqa: BLE001 — not buildable on meta
+            return None
+        return fn, module, self._bundle.input_info
+
+    # -- steady loop (ops/steady_loop.py) ----------------------------------
+    def loop_supported(self) -> bool:
+        return self._bundle is not None
+
+    def build_loop(self, window: int, depth: int = 1,
+                   in_info: Optional[TensorsInfo] = None) -> bool:
+        """Install (window > 1) or clear (<= 1) the window program.
+        ``in_info`` is the per-frame input signature where the element
+        knows it statically: on the CPU the window is then checked
+        data-free on the meta device (a window that does not compose
+        declines here, and the element falls back per-buffer); on the
+        card its graph is captured now rather than at the first window,
+        and a capture that fails declines."""
+        from nnstreamer_tpu_torch.ops.steady_loop import (
+            LoopDeclined,
+            validate_window,
+        )
+
+        self._loop_graphs = {}
+        if window <= 1:
+            self._loop_window, self._loop_depth = 0, 1
+            return True
+        if not self.loop_supported():
+            return False
+        if in_info is not None and any(
+                int(d) <= 0 for t in in_info for d in t.np_shape()):
+            in_info = None
+        prog = (self.cost_program() if in_info is not None
+                and self._device.type != "cuda" else None)
+        solo_meta = (None if prog is None
+                     else (lambda xs, fn=prog[0]: fn(None, *xs)))
+        reason = validate_window(solo_meta, window, in_info)
+        if reason is not None:
+            log.warning("window program does not compose (%s); declining "
+                        "loop-window=%d", reason, window)
+            return False
+        self._loop_window, self._loop_depth = int(window), max(1, int(depth))
+        if in_info is not None and self._device.type == "cuda":
+            shapes = [(int(window),) + tuple(t.np_shape()) for t in in_info]
+            dtypes = [np.dtype(t.dtype.np_dtype) for t in in_info]
+            try:
+                self._loop_graph(shapes, dtypes)
+            except LoopDeclined as e:
+                log.warning("%s; declining loop-window=%d", e, window)
+                self._loop_window, self._loop_depth = 0, 1
+                self._loop_graphs = {}
+                return False
+        return True
+
+    def _loop_graph(self, shapes, dtypes):
+        """The captured window program for one signature (captured at its
+        first use; counted as one build)."""
+        from nnstreamer_tpu_torch.ops.steady_loop import (
+            CudaGraphWindow,
+            LoopDeclined,
+            build_window_fn,
+        )
+
+        key = tuple((tuple(s), np.dtype(d).str) for s, d in zip(shapes,
+                                                                 dtypes))
+        g = self._loop_graphs.get(key)
+        if g is None:
+            module = self._bundle.module
+            try:
+                g = CudaGraphWindow(
+                    build_window_fn(self._compose), shapes,
+                    [torch.from_numpy(np.empty(0, d)).dtype for d in dtypes],
+                    self._device, self._loop_depth + 1,
+                    version=lambda: weights_version(module))
+            except Exception as e:  # noqa: BLE001 — the capture refused
+                raise LoopDeclined(f"window capture failed: {e}") from e
+            self._loop_graphs[key] = g
+            self._signatures.add(("loop",) + key)
+        return g
+
+    def loop_slot(self, row: Sequence[Any], window: int):
+        """Where the element stacks a window whose first frame is ``row``:
+        on the card the next page-locked slot of the window's graph (so
+        the host copies the window once), on the CPU None (a fresh
+        array)."""
+        if self._device.type != "cuda" or self._loop_window <= 1:
+            return None
+        xs = [np.asarray(x) for x in row]
+        return self._loop_graph([(int(window),) + x.shape for x in xs],
+                                [x.dtype for x in xs]).slot()
+
+    def loop_stage(self, stacked: Sequence[Any]):
+        """Stage one stacked window: on the card into its graph's input
+        ring (through a page-locked slot, on the compute stream), on the
+        CPU as tensors. Returns the handle ``loop_invoke`` runs."""
+        if self._loop_window <= 1:
+            raise RuntimeError("no window program is installed")
+        if self._device.type != "cuda":
+            return [torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+                    for x in stacked]
+        g = self._loop_graph([np.shape(x) for x in stacked],
+                             [np.asarray(x).dtype for x in stacked])
+        g.stage(stacked)
+        return g
+
+    def loop_invoke(self, staged) -> List[Any]:
+        """ONE dispatch runs the whole window: one graph replay on the
+        card, the composition in a loop over the window on the CPU.
+        Returns the stacked outputs without synchronising."""
+        from nnstreamer_tpu_torch.ops.steady_loop import build_window_fn
+
+        t0 = time.perf_counter()
+        if isinstance(staged, list):
+            self._signatures.add(("loop",) + tuple(
+                (tuple(x.shape), dtype_name(x)) for x in staged))
+            outs = build_window_fn(self._compose)(staged)
+        else:
+            outs = staged.replay()
+        self.stats.record((time.perf_counter() - t0) * 1e6)
+        return outs
+
+    def loop_stats(self) -> Dict[str, Any]:
+        """Captures, replays, capture ms and the launches one replay
+        makes, summed over this backend's window graphs."""
+        gs = list(self._loop_graphs.values())
+        launches: Dict[str, int] = {}
+        for g in gs:
+            for k, n in g.launches.items():
+                launches[k] = launches.get(k, 0) + n
+        return {"captures": sum(g.captures for g in gs),
+                "replays": sum(g.replays for g in gs),
+                "capture_ms": sum(g.capture_ms for g in gs),
+                "launches_per_replay": launches}
+
+
+def _as_list(out) -> List[Any]:
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def compose(xs: Sequence[torch.Tensor], stage_pre, apply_fn, postproc,
+            stage_post) -> List[torch.Tensor]:
+    """The full per-invoke composition: the fused pre-stage per input
+    (the planner's parity gates guarantee numpy equivalence), the model,
+    the postproc, the fused post-stage per output. ``invoke``, the window
+    program and the cost model's meta run (analysis/costmodel.py) all run
+    this one function; a stage or postproc of None is skipped."""
+    if stage_pre is not None:
+        xs = [stage_pre(x) for x in xs]
+    out = apply_fn(*xs)
+    if postproc is not None:
+        out = postproc(out)
+    outs = _as_list(out)
+    if stage_post is not None:
+        outs = [stage_post(o) for o in outs]
+    return outs
 
 
 registry.register(registry.FILTER, "jax")(TorchCudaFilter)

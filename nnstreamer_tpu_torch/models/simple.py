@@ -31,7 +31,8 @@ def build_add(custom: Dict[str, str], device) -> ModelBundle:
     k = float(custom.get("k", 2.0))
 
     def apply_fn(x):
-        return x + torch.tensor(k, dtype=x.dtype, device=x.device)
+        # a fill on the device, not a host copy: capturable in a CUDA graph
+        return x + torch.full((), k, dtype=x.dtype, device=x.device)
 
     return _bundle(apply_fn)
 

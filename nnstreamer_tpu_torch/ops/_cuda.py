@@ -17,13 +17,17 @@ encoded by the driver's ``cuTensorMapEncodeTiled``, which
 ``cudaGetDriverEntryPoint`` (``...ByVersion`` from CUDA 12.5), so the
 library links only the runtime, as nvcc does by default.
 
-Each kernel wrapper counts its launches in :data:`LAUNCHES`, adding one
-where it launches its kernel and nowhere else, so a run can show that the
-main path went through the kernels.
+Each kernel wrapper counts its launches with :func:`count_launch`, adding
+one where it launches its kernel and nowhere else, so a run can show that
+the main path went through the kernels. The counts go to :data:`LAUNCHES`,
+except on a thread that is recording a CUDA graph
+(:func:`recording_launches`): there they go to that graph's own count,
+which each replay adds to :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -91,9 +95,34 @@ _lib_lock = threading.Lock()
 build_seconds = 0.0
 
 
+_recording = threading.local()
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name``: into :data:`LAUNCHES`, or into the
+    count of the graph this thread is recording."""
+    sink = getattr(_recording, "sink", None)
+    (LAUNCHES if sink is None else sink)[name] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, this thread's launches go to the yielded dict
+    (one key per kernel) instead of :data:`LAUNCHES`: a CUDA-graph capture
+    records launches without running them. Other threads still count
+    into :data:`LAUNCHES`."""
+    sink = dict.fromkeys(LAUNCHES, 0)
+    prev = getattr(_recording, "sink", None)
+    _recording.sink = sink
+    try:
+        yield sink
+    finally:
+        _recording.sink = prev
 
 
 def on_cpu(x: torch.Tensor) -> bool:
@@ -105,6 +134,15 @@ def on_cpu(x: torch.Tensor) -> bool:
     if x.device.type == "cuda":
         return False
     raise ValueError(f"no kernel for tensors on {x.device}")
+
+
+def plain_route(x: torch.Tensor) -> bool:
+    """:func:`on_cpu` for the wrappers of the kernels a filter's
+    composition runs (fused block, ``normalize_u8``, ``arith_chain``),
+    which also take ``meta`` tensors to their plain versions: the cost
+    model's data-free run of the composition (analysis/costmodel.py)
+    launches nothing. A CUDA tensor still goes to the kernel."""
+    return x.device.type == "meta" or on_cpu(x)
 
 
 def _sources():

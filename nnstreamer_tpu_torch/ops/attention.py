@@ -251,7 +251,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = False,
             sq, sk, d, _cuda.DTYPE_CODES[q.dtype], float(scale),
             int(bool(causal)), _cuda.stream_handle(q))
     _cuda.check(err, "flash_attention")
-    _cuda.LAUNCHES["flash_attention"] += 1
+    _cuda.count_launch("flash_attention")
     return out.reshape(q.shape)
 
 
@@ -304,7 +304,7 @@ def flash_chunk_cuda(q, k, v, m, l, acc, *, q_offset: int, k_offset: int,
             _cuda.DTYPE_CODES[q.dtype], int(q_offset), int(k_offset),
             float(scale), int(bool(causal)), _cuda.stream_handle(q))
     _cuda.check(err, "flash_chunk")
-    _cuda.LAUNCHES["flash_chunk"] += 1
+    _cuda.count_launch("flash_chunk")
     return m, l, acc
 
 

@@ -497,7 +497,7 @@ def fused_inverted_residual(x: torch.Tensor, folded: Dict[str, Any], *,
         return inverted_residual_conv(x, folded, stride=stride,
                                       residual=residual,
                                       compute_dtype=compute_dtype)
-    if _cuda.on_cpu(x):
+    if _cuda.plain_route(x):
         return inverted_residual_plain(x, folded, residual=residual,
                                        compute_dtype=compute_dtype)
     cd = compute_dtype
@@ -526,5 +526,5 @@ def fused_inverted_residual(x: torch.Tensor, folded: Dict[str, Any], *,
         with torch.cuda.device(dev):
             err = lib.nnstpu_fused_inverted_residual(*args)
     _cuda.check(err, "fused_inverted_residual")
-    _cuda.LAUNCHES["fused_inverted_residual"] += 1
+    _cuda.count_launch("fused_inverted_residual")
     return out

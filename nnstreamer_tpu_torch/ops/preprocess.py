@@ -29,7 +29,7 @@ def normalize_u8(x: torch.Tensor, scale: float = 1.0 / 127.5,
     """y = x * scale + offset, uint8 in, float32 or bfloat16 out,
     shape-preserving. Defaults map [0,255] → [-1,1) (the MobileNet
     preamble)."""
-    if _cuda.on_cpu(x):
+    if _cuda.plain_route(x):
         return normalize_u8_plain(x, scale, offset, out_dtype)
     _cuda.require(x.dtype == torch.uint8,
                   f"normalize_u8 takes uint8, got {x.dtype}")
@@ -45,5 +45,5 @@ def normalize_u8(x: torch.Tensor, scale: float = 1.0 / 127.5,
             float(offset), _cuda.DTYPE_CODES[out_dtype], vec_ok,
             _cuda.stream_handle(x))
     _cuda.check(err, "normalize_u8")
-    _cuda.LAUNCHES["normalize_u8"] += 1
+    _cuda.count_launch("normalize_u8")
     return y

@@ -72,7 +72,7 @@ def arith_chain(x: torch.Tensor, ops: Sequence[Op],
     (default: x.dtype). Accumulates in float32, which bit-matches numpy's
     float32 path for the chains tensor_transform routes here."""
     out_dtype = out_dtype or x.dtype
-    if _cuda.on_cpu(x):
+    if _cuda.plain_route(x):
         return arith_chain_plain(x, ops, out_dtype, clamp)
     _check_ops(ops)
     _cuda.require(len(ops) <= MAX_OPS,
@@ -96,5 +96,5 @@ def arith_chain(x: torch.Tensor, ops: Sequence[Op],
             int(clamp is not None), float(lo), float(hi), vec_ok,
             _cuda.stream_handle(x))
     _cuda.check(err, "arith_chain")
-    _cuda.LAUNCHES["arith_chain"] += 1
+    _cuda.count_launch("arith_chain")
     return y

@@ -31,11 +31,16 @@ in flight):
    ONE upload per batch and ONE fetch, at the filter, and a tee fan-out
    fetches once for all its branches.
 
-The JAX package runs four more passes between these two, all fed by its
-cost-model analyzers, which this package has not ported: chain fusion
-(filter→filter programs), mesh sharding, the replica pool and the steady
-loop. Their properties raise at construction (elements/filter.py
-``NOT_PORTED``), so every filter here runs solo.
+Between the two runs the **steady-loop planner**: every filter the loop
+analyzer (analysis/loop.py, fed by the cost model and the memory plan)
+verdicts NNST460 gets its window program installed (``install_loop``);
+NNST461/462 and a declining backend fall back LOUDLY to per-buffer
+launches. It runs before residency because a looped filter drains its
+windows to the host, which moves the materialization boundary.
+
+The JAX package's chain-fusion (filter→filter programs), mesh-sharding
+and replica-pool passes are not ported: their properties raise at
+construction (elements/filter.py ``NOT_PORTED``).
 """
 
 from __future__ import annotations
@@ -61,10 +66,10 @@ def plan_pipeline(pipeline) -> None:
     for e in pipeline.elements.values():
         if isinstance(e, TensorTransform):
             e._fused_into = None
-    # the JAX package's chain-fusion pass runs here, and its shard, pool
-    # and steady-loop passes between fusion and residency; they wait for
-    # the cost model (ROADMAP.md queue 1)
+    # the JAX package's chain-fusion pass runs here, and its shard and
+    # pool passes between fusion and the loop (ROADMAP.md queue 1)
     _plan_fusion(pipeline)
+    _plan_steady_loop(pipeline)
     _plan_residency(pipeline)
 
 
@@ -284,6 +289,101 @@ def _plan_fusion(pipeline) -> None:
                 tracer.record_fusion(t.name, f.name)
         log.info("[%s] fused %d pre + %d post transform stage(s) into the "
                  "backend", f.name, len(pre), len(post))
+
+
+# --- steady-loop planning (analysis/loop.py is the oracle) -----------------
+
+def _plan_steady_loop(pipeline) -> None:
+    """Install the window program on every filter the loop analyzer
+    verdicts NNST460; everything else falls back LOUDLY to per-buffer
+    launches — the fallback is numerically identical, so an ineligible or
+    declined loop is a warning, never an error."""
+    from nnstreamer_tpu_torch.analysis.loop import analyze_loops
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
+
+    filters = [e for e in pipeline.elements.values()
+               if isinstance(e, TensorFilter)]
+    if not filters:
+        return
+    # the eligibility gates (produces_device via _device_fed) must read
+    # THIS epoch's graph, not last epoch's decisions. State is neutralized
+    # (not torn down) so an UNCHANGED plan keeps its captured program
+    prior = {}
+    for f in filters:
+        prior[id(f)] = f._loop_state
+        f._loop_state = None
+    planned = set()
+    for v in analyze_loops(pipeline):
+        e = pipeline.elements.get(v.element)
+        if e is None:
+            continue
+        e._loop_refused = None
+        if v.code == "NNST460":
+            pv = prior.get(id(e))
+            if (pv == {"window": v.window, "depth": v.depth}
+                    and e.fw is not None
+                    and getattr(e.fw, "_loop_window", 0) == v.window):
+                e._loop_state = pv  # unchanged plan: program still valid
+                planned.add(id(e))
+                continue
+            if e.install_loop(v.window, v.depth):
+                planned.add(id(e))
+                log.info("[%s] steady loop installed: ONE dispatch per %d "
+                         "frames, launch-depth=%d", e.name, v.window,
+                         v.depth)
+                continue
+            e._loop_refused = ("NNST460",
+                               "backend declined the window program")
+            log.warning("[%s] loop-window: backend declined the window "
+                        "program — per-buffer launches", e.name)
+        else:
+            e._loop_refused = (v.code, v.message)
+            log.warning("[%s] loop-window falls back to per-buffer "
+                        "launches (%s): %s", e.name, v.code, v.message)
+    # filters whose window dissolved (edited graph, a flipped property, a
+    # fallback verdict this plan): tear the stale program down
+    for f in filters:
+        if id(f) not in planned and (prior.get(id(f)) is not None
+                                     or f._loop_state is not None):
+            f.clear_loop()
+    # the loop decision is MADE for this epoch: the crossing predictor
+    # reads installed state instead of re-deriving eligibility that an
+    # open backend may have declined
+    pipeline._loop_planned = True
+
+
+def upstream_fanout_holder(e):
+    """The nearest upstream element that hands the SAME tensor objects to
+    more than one consumer (a tee — possibly behind queues or other
+    residency-transparent forwarders): a sibling branch can still hold
+    the buffer this element receives. Keys on the element-declared
+    ``DUPLICATES_BUFFERS`` capability, NOT on pad count — routers and
+    splitters hand each buffer to exactly one consumer. Non-transparent
+    elements rewrap tensors, which ends the shared-ownership chain."""
+    seen = set()
+
+    def walk(el):
+        if el is None or id(el) in seen:
+            return None
+        seen.add(id(el))
+        if not is_transparent(el):
+            return None
+        if getattr(el, "DUPLICATES_BUFFERS", False) and \
+                sum(1 for sp in el.src_pads if sp.peer is not None) > 1:
+            return el
+        for p in el.sink_pads:
+            if p.peer is not None:
+                hit = walk(p.peer.element)
+                if hit is not None:
+                    return hit
+        return None
+
+    for p in e.sink_pads:
+        if p.peer is not None:
+            hit = walk(p.peer.element)
+            if hit is not None:
+                return hit
+    return None
 
 
 # --- residency negotiation ------------------------------------------------

@@ -1,0 +1,455 @@
+"""The port's cost model, memory plan and crossing predictor, on the CPU.
+
+The cost model (``analysis/costmodel.py``) runs the filter's plain
+composition once on ``meta`` tensors: flops from
+``torch.utils.flop_counter.FlopCounterMode`` plus the jaxpr walk's
+pointwise and reduction counts, the live-storage peak from a dispatch
+mode. It is held to what the reference's tests/test_costmodel.py asserts
+(MobileNet-v2 within 25% of MFU_TABLE.json's recorded count, a fused
+stage's flops, the plan's feed/fetch holdings and param sharing — cases
+the JAX package fails only because its jaxpr walk raises under this jax).
+The reference's passing byte-parity, compile-count, NNST800, budget and
+serving-plan cases run through both packages with equal results.
+
+Left out: the NNST7xx/8xx diagnostics through ``analyze_launch`` and
+donation (their analyzer registry and ``custom=donate`` are not ported),
+``static_report``/the roofline bottleneck, and the jaxpr-only cases.
+"""
+
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import nnstreamer_tpu.analysis.costmodel  # noqa: E402
+import nnstreamer_tpu.analysis.memplan  # noqa: E402
+import nnstreamer_tpu.analysis.residency  # noqa: E402
+import nnstreamer_tpu.buffer  # noqa: E402
+import nnstreamer_tpu.elements.filter  # noqa: E402
+import nnstreamer_tpu.pipeline  # noqa: E402
+import nnstreamer_tpu.trace  # noqa: E402
+import nnstreamer_tpu_torch.analysis.costmodel  # noqa: E402
+import nnstreamer_tpu_torch.analysis.memplan  # noqa: E402
+import nnstreamer_tpu_torch.analysis.residency  # noqa: E402
+import nnstreamer_tpu_torch.buffer  # noqa: E402
+import nnstreamer_tpu_torch.elements.filter  # noqa: E402
+import nnstreamer_tpu_torch.pipeline  # noqa: E402
+import nnstreamer_tpu_torch.trace  # noqa: E402
+from nnstreamer_tpu_torch.analysis.costmodel import (  # noqa: E402
+    ShapeDtype,
+    filter_cost,
+    meta_composition,
+    program_cost,
+)
+from nnstreamer_tpu_torch.analysis.memplan import plan_memory  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CAPS_F32 = ("other/tensors,num-tensors=1,dimensions=4:2,types=float32,"
+            "framerate=0/1")
+CAPS_U8 = ("other/tensors,num-tensors=1,dimensions=4:2,types=uint8,"
+           "framerate=0/1")
+PKGS = ("nnstreamer_tpu", "nnstreamer_tpu_torch")
+
+
+class Pkg:
+    def __init__(self, name):
+        mod = sys.modules
+        self.port = name == "nnstreamer_tpu_torch"
+        self.parse_launch = mod[f"{name}.pipeline"].parse_launch
+        self.trace = mod[f"{name}.trace"]
+        self.Buffer = mod[f"{name}.buffer"].Buffer
+        self.cost = mod[f"{name}.analysis.costmodel"]
+        self.memplan = mod[f"{name}.analysis.memplan"]
+        self.residency = mod[f"{name}.analysis.residency"]
+        self.TensorFilter = mod[f"{name}.elements.filter"].TensorFilter
+        self.cpu = "accelerator=true:cpu " if self.port else ""
+
+    def filt(self, extra="", name=None, k=1):
+        nm = f"name={name} " if name else ""
+        return (f"tensor_filter {nm}framework=jax model=add "
+                f"custom=k:{k},aot:0 {self.cpu}{extra}")
+
+    def run(self, p, bufs, src="src"):
+        for b in bufs:
+            p[src].push_buffer(b)
+        p[src].end_of_stream()
+        assert p.bus.wait_eos(30)
+        assert p.bus.error is None, p.bus.error.data
+
+
+@pytest.fixture(params=PKGS)
+def pkg(request):
+    return Pkg(request.param)
+
+
+@pytest.fixture
+def port():
+    return Pkg("nnstreamer_tpu_torch")
+
+
+def _add_program():
+    fn, module, _ = meta_composition("add", {"k": "1"})
+    return fn, module
+
+
+class TestProgramCost:
+    def test_add_flops_and_bytes(self):
+        fn, module = _add_program()
+        c = program_cost(fn, module, [ShapeDtype((2, 4), np.float32)])
+        assert c["flops"] == 8  # one add per element
+        assert c["bytes_read"] == c["bytes_written"] == 32
+        assert c["hbm_bytes"] == 64
+        assert c["param_bytes"] == 0
+        # the input, the 0-d k, the output
+        assert c["peak_live_bytes"] == 32 + 4 + 32
+        assert c["method"] == "meta" and c["weak_type_hazards"] == []
+
+    def test_compiled_method_waits(self):
+        fn, module = _add_program()
+        with pytest.raises(NotImplementedError, match="compiled"):
+            program_cost(fn, module, [ShapeDtype((2, 4), np.float32)],
+                         method="compiled")
+
+    def test_matmul_flops_and_params(self):
+        fn, module, _ = meta_composition("matmul", {"dim": "64"})
+        c = program_cost(fn, module, [ShapeDtype((8, 64), np.float32)])
+        # 2*8*64*64 for the product, 8*64 per cast (in and out)
+        assert c["flops"] == 2 * 8 * 64 * 64 + 2 * 8 * 64
+        assert c["param_bytes"] == 64 * 64 * 2  # bf16 W
+        assert c["output_bytes"] == 8 * 64 * 4
+
+    def test_peak_frees_dead_intermediates(self):
+        """A chain of elementwise ops holds two intermediates at a time,
+        not all of them: the peak counts storages while a tensor lives."""
+        def fn(params, x):
+            for _ in range(6):
+                x = x * 2.0
+            return x
+
+        c = program_cost(fn, {}, [ShapeDtype((256,), np.float32)])
+        assert c["flops"] == 6 * 256
+        assert c["peak_live_bytes"] <= 1024 + 2 * 1024
+
+    def test_meta_run_launches_nothing(self):
+        """The kernels' wrappers route meta tensors to their plain
+        versions: a MobileNet-v2 cost run adds no launch."""
+        from nnstreamer_tpu_torch.ops import _cuda
+
+        before = dict(_cuda.LAUNCHES)
+        fn, module, _ = meta_composition(
+            "mobilenet_v2", {"seed": "0", "size": "64", "width": "0.35",
+                             "classes": "16", "fused": "pallas"})
+        c = program_cost(fn, module, [ShapeDtype((2, 64, 64, 3), np.uint8)])
+        assert c["flops"] > 0 and c["output_bytes"] == 2 * 16 * 4
+        assert _cuda.LAUNCHES == before
+
+    def test_meta_route_only_for_the_composition_kernels(self):
+        """Meta tensors take the plain route of the composition's kernels
+        (fused block, normalize_u8, arith_chain); the one dispatch rule
+        still refuses them elsewhere, and a CPU tensor takes both."""
+        from nnstreamer_tpu_torch.ops import _cuda
+
+        meta = torch.zeros(2, device="meta")
+        assert _cuda.plain_route(meta)
+        assert _cuda.plain_route(torch.zeros(2))
+        with pytest.raises(ValueError, match="no kernel"):
+            _cuda.on_cpu(meta)
+
+
+class TestMfuTable:
+    def test_analyzer_flops_match_recorded_count(self):
+        """MobileNet-v2's modelled flops at the recorded row's batch lie
+        within 25% of MFU_TABLE.json's recorded count (81.9 GFLOPs at
+        batch 128) — the reference's own test, on the port's model."""
+        with open(os.path.join(REPO, "MFU_TABLE.json")) as f:
+            table = json.load(f)
+        row = next(r for r in table["rows"]
+                   if r["config"].startswith("mobilenet_v2 f32-params"))
+        fn, module, _ = meta_composition(
+            "mobilenet_v2", {"seed": "0", "fused": "pallas"})
+        c = program_cost(fn, module, [
+            ShapeDtype((row["batch"], 224, 224, 3), np.uint8)])
+        rec = row["gflops_per_batch"] * 1e9
+        assert abs(c["flops"] - rec) / rec < 0.25, (c["flops"], rec)
+        # float32 weights and BN statistics of MobileNet-v2 1.0
+        assert 13e6 < c["param_bytes"] < 15e6
+
+
+class TestFilterCost:
+    def test_fused_stages_included(self, port):
+        """A fused pre-stage's math shows up in the OPEN backend's cost:
+        cast (8) + mul (8) + the model's add (8)."""
+        p = port.parse_launch(
+            f"appsrc name=src caps={CAPS_U8} "
+            "! tensor_transform name=tr mode=arithmetic "
+            "option=typecast:float32,mul:2 "
+            f"! {port.filt(name='f')} ! tensor_sink name=out")
+        p.play()
+        try:
+            assert p["tr"]._fused_into == "f"
+            cost = filter_cost(p["f"])
+            assert cost is not None and cost["flops"] == 24
+            assert cost["input_bytes"] == 8  # uint8 frames cross
+        finally:
+            p.stop()
+
+    def test_lint_time_signature_from_dry_negotiation(self, port):
+        p = port.parse_launch(
+            f"appsrc caps={CAPS_F32} ! {port.filt('batch-size=4 ', 'f')} "
+            "! tensor_sink")
+        cost = filter_cost(p["f"])
+        assert cost["input_shapes"] == [(4, 2, 4)]
+        assert cost["flops"] == 32 and cost["batch"] == 4
+
+    def test_unbuildable_model_is_unmodeled(self, port):
+        p = port.parse_launch(
+            f"appsrc caps={CAPS_F32} ! tensor_filter name=f framework=jax "
+            "model=no_such_model_xyz ! tensor_sink")
+        assert filter_cost(p["f"]) is None
+
+
+class TestMemplan:
+    def test_shared_backend_params_counted_once(self, port):
+        def line(shared):
+            key = "shared-tensor-filter-key=K " if shared else ""
+            return (f"appsrc caps={CAPS_F32.replace('4:2', '512:4')} "
+                    "! tee name=t  "
+                    "t. ! queue ! tensor_filter name=fa framework=jax "
+                    f"model=matmul custom=dim:512 {key}! tensor_sink name=a  "
+                    "t. ! queue ! tensor_filter name=fb framework=jax "
+                    f"model=matmul custom=dim:512 {key}! tensor_sink name=b")
+
+        ps = plan_memory(port.parse_launch(line(True)))
+        pp = plan_memory(port.parse_launch(line(False)))
+        one = ps["rows"][0]["param_bytes"]
+        assert one == 512 * 512 * 2
+        assert ps["param_bytes_total"] == one
+        assert pp["param_bytes_total"] == 2 * one
+        assert ps["param_sharing_groups"] == 1
+        assert pp["param_sharing_groups"] == 2
+
+    def test_params_not_double_billed(self, port):
+        p = port.parse_launch(
+            f"appsrc caps={CAPS_F32.replace('4:2', '1024:4')} "
+            "! tensor_filter framework=jax model=matmul custom=dim:1024 "
+            "! tensor_sink")
+        plan = plan_memory(p)
+        params = plan["param_bytes_total"]
+        assert params > 1_000_000  # 1024^2 bf16
+        assert plan["total_bytes"] < 1.5 * params
+
+    def test_feed_and_window_holdings(self, port):
+        p = port.parse_launch(
+            f"appsrc caps={CAPS_F32} ! "
+            f"{port.filt('batch-size=2 feed-depth=4 fetch-window=8 ')} "
+            "! tensor_sink")
+        row = plan_memory(p)["rows"][0]
+        # 32 B/frame x batch 2 = 64 B/invoke
+        assert row["feed_bytes"] == 4 * 64
+        assert row["window_bytes"] == 8 * 64
+
+    def test_unconfigured_hbm_queue_billed_at_runtime_default(self, pkg):
+        p = pkg.parse_launch(
+            f"appsrc name=src caps={CAPS_F32} "
+            f"! {pkg.filt(name='f1')} ! queue name=q "
+            f"! {pkg.filt(name='f2', k=10)} ! tensor_sink")
+        p.play()
+        try:
+            deadline = time.time() + 10
+            while getattr(p["q"].src_pads[0], "caps", None) is None \
+                    and time.time() < deadline:
+                time.sleep(0.01)
+            plan = pkg.memplan.plan_memory(p)
+        finally:
+            p.stop()
+        q = [r for r in plan["queues"] if r["element"] == "q"]
+        assert q and q[0]["capacity"] == 16
+        assert q[0]["bytes"] == 16 * 32
+
+    def test_budget_env_override(self, pkg, monkeypatch):
+        monkeypatch.setenv("NNSTPU_HBM_BYTES", "2G")
+        assert pkg.memplan.device_memory_budget() == (2 * 2**30,
+                                                      "NNSTPU_HBM_BYTES")
+
+    def test_budget_env_malformed_never_raises(self, pkg, monkeypatch):
+        monkeypatch.setenv("NNSTPU_HBM_BYTES", "lots")
+        b, src = pkg.memplan.device_memory_budget()
+        assert b > 0 and src != "NNSTPU_HBM_BYTES"
+
+    def test_cpu_budget_matches_the_reference_default(self, monkeypatch):
+        monkeypatch.delenv("NNSTPU_HBM_BYTES", raising=False)
+        got = Pkg("nnstreamer_tpu_torch").memplan.device_memory_budget()
+        assert got == Pkg("nnstreamer_tpu").memplan.device_memory_budget()
+
+
+class TestMemplanServing:
+    SERVING = (
+        "tensor_query_serversrc id=mp port=0 serve=1 serve-batch=4 "
+        "serve-queue-depth=2048 caps=other/tensors,num-tensors=1,"
+        "dimensions=1024:1024,types=float32,framerate=0/1 "
+        "! {filt} ! tensor_query_serversink id=mp")
+
+    def _serving(self, pkg, line):
+        return pkg.memplan.plan_memory(pkg.parse_launch(
+            line.format(filt=pkg.filt())))["serving"]
+
+    def test_serving_holdings_billed(self, pkg):
+        srv = self._serving(pkg, self.SERVING)
+        assert len(srv) == 1 and srv[0]["element"].startswith(
+            "tensor_query_serversrc")
+        unit = 1024 * 1024 * 4
+        assert srv[0]["unit_bytes"] == unit
+        assert srv[0]["batch_bytes"] == 4 * unit
+        assert srv[0]["queue_bytes"] == 2048 * unit
+
+    def test_unbounded_queue_not_billed_as_finite(self, pkg):
+        srv = self._serving(pkg, self.SERVING.replace(
+            "serve-queue-depth=2048", "serve-queue-depth=0"))
+        assert srv[0]["queue_bytes"] == 0
+
+    def test_unset_depth_billed_at_scheduler_default(self, pkg):
+        srv = self._serving(pkg, self.SERVING.replace(
+            " serve-queue-depth=2048", ""))
+        assert srv[0]["queue_depth"] == 64
+
+    def test_packages_agree(self):
+        """Equal holdings (the auto-named element aside: each package
+        numbers its elements with its own counter)."""
+        got = [[{k: v for k, v in row.items() if k != "element"}
+                for row in self._serving(Pkg(n), self.SERVING)]
+               for n in PKGS]
+        assert got[0] == got[1]
+
+
+class TestCompileCountParity:
+    def _assert_parity(self, pkg, p):
+        pred = pkg.cost.predict_compiles(p)
+        checked = 0
+        for e in p.elements.values():
+            if not isinstance(e, pkg.TensorFilter) or e.fw is None:
+                continue
+            want = pred.get(e.name)
+            if want is None:
+                continue
+            assert e.fw.compile_stats()["jit_traces"] == want, e.name
+            checked += 1
+        assert checked
+
+    def test_flagship_fused_line(self, pkg):
+        p = pkg.parse_launch(
+            f"appsrc name=src caps={CAPS_U8} "
+            "! tensor_transform mode=arithmetic "
+            "option=typecast:float32,mul:2 "
+            f"! {pkg.filt()} ! queue ! tensor_sink name=out")
+        p.play()
+        pkg.run(p, [pkg.Buffer(tensors=[np.ones((2, 4), np.uint8)])
+                    for _ in range(3)])
+        self._assert_parity(pkg, p)
+        p.stop()
+
+    def test_filter_chain(self, pkg):
+        p = pkg.parse_launch(
+            f"appsrc name=src caps={CAPS_F32} ! {pkg.filt(name='f1')} "
+            f"! queue ! {pkg.filt(name='f2', k=10)} ! tensor_sink name=out")
+        p.play()
+        pkg.run(p, [pkg.Buffer(tensors=[np.ones((2, 4), np.float32)])
+                    for _ in range(4)])
+        self._assert_parity(pkg, p)
+        p.stop()
+
+    def test_batch_padding_keeps_one_signature(self, pkg):
+        p = pkg.parse_launch(
+            f"appsrc name=src caps={CAPS_F32} "
+            f"! {pkg.filt('batch-size=2 feed-depth=2 fetch-window=2 ')} "
+            "! tensor_sink name=out")
+        p.play()
+        pkg.run(p, [pkg.Buffer(tensors=[np.ones((2, 4), np.float32)])
+                    for _ in range(3)])
+        self._assert_parity(pkg, p)
+        fname = next(n for n in p.elements if n.startswith("tensor_filter"))
+        assert pkg.cost.predict_compiles(p) == {fname: 1}
+        p.stop()
+
+    def test_windowed_filter_one_build(self, pkg):
+        p = pkg.parse_launch(
+            f"appsrc name=src caps={CAPS_F32} "
+            f"! {pkg.filt('loop-window=4 ')} ! tensor_sink name=out")
+        p.play()
+        pkg.run(p, [pkg.Buffer(tensors=[np.ones((2, 4), np.float32)])
+                    for _ in range(6)])
+        self._assert_parity(pkg, p)
+        p.stop()
+
+
+class TestByteParity:
+    CASES = {
+        "single": (CAPS_F32, "", np.float32, 3, (96, 96)),
+        "fused_uint8_up_f32_down": (
+            CAPS_U8, "! tensor_transform mode=arithmetic "
+            "option=typecast:float32,mul:2 ", np.uint8, 2, (16, 64)),
+        "batched_padding": (CAPS_F32, None, np.float32, 3, (128, 128)),
+    }
+
+    @pytest.mark.parametrize("case", sorted(CASES))
+    def test_bytes(self, pkg, case):
+        caps, pre, dtype, n, (h2d, d2h) = self.CASES[case]
+        if pre is None:
+            filt = pkg.filt("batch-size=2 feed-depth=2 fetch-window=2 ")
+            pre = ""
+        else:
+            filt = pkg.filt()
+        tail = "! queue " if case.startswith("fused") else ""
+        p = pkg.parse_launch(f"appsrc name=src caps={caps} {pre}! {filt} "
+                             f"{tail}! tensor_sink name=out")
+        tracer = pkg.trace.attach(p)
+        p.play()
+        pkg.run(p, [pkg.Buffer(tensors=[np.ones((2, 4), dtype)])
+                    for _ in range(n)])
+        pred = pkg.residency.predict_crossings(p, n_buffers=n)
+        mismatches = pkg.residency.parity_mismatches(pred,
+                                                     tracer.crossings())
+        p.stop()
+        assert mismatches == []
+        assert (pred["h2d_bytes"], pred["d2h_bytes"]) == (h2d, d2h)
+
+
+class TestChurn:
+    def test_nnst800_variable_shape_upstream(self, pkg):
+        """f2's sink caps are the dynamic filter's FLEXIBLE output: every
+        distinct runtime shape rebuilds f2's program."""
+        p = pkg.parse_launch(
+            f"appsrc name=src caps={CAPS_F32} "
+            f"! {pkg.filt('invoke-dynamic=true ')} "
+            f"! tensor_filter name=f2 framework=jax model=passthrough "
+            f"custom=aot:0 {pkg.cpu}! tensor_sink name=out")
+        p.play()
+        try:
+            for _ in range(500):
+                if p["f2"].sink_pads[0].caps is not None:
+                    break
+                time.sleep(0.01)
+            assert pkg.cost._variable_shape_upstream(p["f2"])
+            assert pkg.cost.predict_compiles(p)["f2"] is None
+        finally:
+            p.stop()
+
+    def test_static_caps_are_not_variable(self, pkg):
+        p = pkg.parse_launch(
+            f"appsrc name=src caps={CAPS_F32} ! {pkg.filt(name='f')} "
+            "! tensor_sink name=out")
+        p.play()
+        try:
+            for _ in range(500):
+                if p["f"].sink_pads[0].caps is not None:
+                    break
+                time.sleep(0.01)
+            assert not pkg.cost._variable_shape_upstream(p["f"])
+        finally:
+            p.stop()

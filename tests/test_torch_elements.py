@@ -96,7 +96,7 @@ def test_transform_device_without_a_card_raises(acc, monkeypatch):
 #: properties this package has ported since it first refused them: their
 #: cases below now check that the element takes them
 PORTED_PROPS = ("batch-size=4", "feed-depth=2", "fetch-window=auto",
-                "invoke-dynamic=true")
+                "invoke-dynamic=true", "loop-window=8")
 
 
 @pytest.mark.parametrize("prop", [

@@ -190,9 +190,22 @@ TRAINING_MODULES = (
 )
 
 
+#: the modules of the slice that brought the steady loop and the cost
+#: model, memory plan and crossing predictor that license it
+LOOP_MODULES = (
+    "nnstreamer_tpu_torch.analysis.costmodel",
+    "nnstreamer_tpu_torch.analysis.memplan",
+    "nnstreamer_tpu_torch.analysis.residency",
+    "nnstreamer_tpu_torch.analysis.loop",
+    "nnstreamer_tpu_torch.analysis.nego",
+    "nnstreamer_tpu_torch.ops.steady_loop",
+)
+
+
 @pytest.mark.parametrize("module", SLICE_MODULES + VISION_MODULES
                          + SERVING_MODULES + STREAM_MODULES
-                         + PLANNER_MODULES + TRAINING_MODULES)
+                         + PLANNER_MODULES + TRAINING_MODULES
+                         + LOOP_MODULES)
 def test_slice_module_alone_loads_no_jax(module):
     """Each module, imported alone in a fresh interpreter, pulls in
     neither JAX nor the JAX package (the walk above imports them all
