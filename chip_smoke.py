@@ -275,13 +275,40 @@ Phases, each printing one JSON line:
              counted through the replays plus the recapture's warm-up;
              line C: loop-window=auto on A, resolved by the memory plan
              against the card's memory;
+  edge       the among-device transports, every label against the same
+             frames' (1,024 seeded frames, the seed:0 weights): (a) the
+             serve line with connect-type=HYBRID (the server announces its
+             bound TCP port on the port's MqttBroker and 8 clients
+             discover it) and over plain TCP, in turns H T T H H T:
+             labels equal to the direct forward, 13 fused-block and 1
+             normalize_u8 launches a served batch, requests/s, p50/p99
+             request latency and discovery ms (a HYBRID client's start
+             less a TCP client's), median and spread of 3 runs each; (b)
+             the MQTT camera line (appsrc ! tensor_converter
+             frames-per-tensor=128 ! mqttsink broker=embedded qos=1 into
+             mqttsrc qos=1 ! the flagship's filter with postproc:argmax):
+             1,024 frames as 8 messages a run, 3 runs, every frame once
+             and in order with the flagship line's labels, frames/s, p50
+             frame latency, bytes a message, duplicates received by the
+             broker and by the subscriber and dropped, host ms a message
+             (publish, broker fan-out, decode, filter), 13 + 1 launches a
+             message, and a profile line; (c) edgesink
+             connect-type=HYBRID into edgesrc connect-type=HYBRID ! the
+             same filter: labels equal, frames/s; (d) kernels 4 and 5
+             above head_dim 256 (the split body) at d 320, 384 and 512,
+             bf16 and float32, causal and not, at 8 heads x 1024, each
+             against its plain version at the attention and chunk phases'
+             tolerances (the chunk kernel at the diagonal, non-causal,
+             half-masked and, at d 384, future hops), with kernel,
+             device, plain, bound and (flash) SDPA ms;
 
 then one ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
 that last line. It needs a CUDA card: without one it exits 1 at once.
 
 ``--only`` runs the named phases alone (``serve`` needs ``slice`` for
-its frames; ``streams``, ``residency``, ``train`` and ``loop`` build their own; ``stride2`` runs inside ``kernel``, the flagship's profile
+its frames; ``streams``, ``residency``, ``train``, ``loop`` and ``edge``
+build their own; ``stride2`` runs inside ``kernel``, the flagship's profile
 inside ``slice``, the overload and reference lines inside ``serve``) and
 ends after them, without the ``kernels`` and result lines.
 """
@@ -2554,7 +2581,7 @@ def _serve_frames(frames, client: int, n: int = SERVE_PER_CLIENT):
 
 
 def _run_serving(server_line, clients, client_caps, client_tail="",
-                 decoder="", traced=True):
+                 decoder="", traced=True, client_connect=""):
     """Play ``server_line`` and one client pipeline per entry of
     ``clients`` (each ``(frames, offsets)``: the frames it pushes and, for
     an open-loop run, the second after the start at which it pushes each;
@@ -2562,7 +2589,10 @@ def _run_serving(server_line, clients, client_caps, client_tail="",
     Returns (per-client results, the server's serving report, seconds from
     the first push to the last reply, the served filter's forward and
     device). Each frame's pts names its client and index, so a reply
-    names the request it answers."""
+    names the request it answers. ``client_connect`` replaces the
+    clients' ``port=<the server's>`` (HYBRID: the broker and topic); each
+    client's result also gives the ms its pipeline took to start
+    (``play_ms``: connecting, and for HYBRID discovering, the server)."""
     import threading
 
     from nnstreamer_tpu_torch import trace
@@ -2585,12 +2615,14 @@ def _run_serving(server_line, clients, client_caps, client_tail="",
         def client(i, frames, offsets):
             cl = parse_launch(
                 f"appsrc name=src caps={client_caps} ! tensor_query_client "
-                f"name=qc port={port} timeout=60 {client_tail} "
-                f"! {decoder}tensor_sink name=out")
+                f"name=qc {client_connect or f'port={port}'} timeout=60 "
+                f"{client_tail} ! {decoder}tensor_sink name=out")
             arrived = {}
             cl["out"].connect_new_data(
                 lambda b: arrived.__setitem__(b.pts, time.perf_counter()))
+            t_play = time.perf_counter()
             cl.play()
+            play_ms = (time.perf_counter() - t_play) * 1e3
             pushed = {}
             try:
                 ready.wait()
@@ -2605,7 +2637,7 @@ def _run_serving(server_line, clients, client_caps, client_tail="",
                 cl["src"].end_of_stream()
                 ok = cl.bus.wait_eos(180)
                 res[i] = {"ok": ok, "error": cl.bus.error, "pushed": pushed,
-                          "arrived": arrived,
+                          "arrived": arrived, "play_ms": play_ms,
                           "out": list(cl["out"].collected),
                           "dropped": cl["qc"].error_stats["dropped"]}
             finally:
@@ -4308,6 +4340,542 @@ def check_loop(torch, results, workdir):
     results["loop_launches"] = launches
 
 
+# -- phase: the among-device transports ---------------------------------------
+
+#: the camera lines' frames: 8 messages of BATCH frames
+EDGE_FRAMES = 1024
+EDGE_RUNS = 3
+SERVE_TOPIC = "nns/edge/serve"
+CAM_TOPIC = "nns/edge/cam"
+PUB_TOPIC = "nns/edge/pub"
+#: head dims above the simple body's widest D (kernels 4 and 5 split the
+#: output's columns over the grid there): a ragged last slice and two
+#: multiples of 128, where the JAX package runs its Pallas kernel
+SPLIT_DIMS = (320, 384, 512)
+#: their shapes: 8 heads x 1024 rows (16 q tiles, 128 CTAs per slice, so
+#: the slices of a tile run side by side on the card)
+SPLIT_BH, SPLIT_SEQ = 8, 1024
+
+
+def _edge_frames():
+    """EDGE_FRAMES seeded 224x224 RGB frames of 4x4 blocks of flat colour,
+    one pattern a frame, so that a frame out of place shows in its label."""
+    import numpy as np
+
+    rng = np.random.default_rng(14)
+    blocks = rng.integers(0, 256, (EDGE_FRAMES, 4, 4, 3), dtype=np.uint8)
+    cell = SIZE // 4
+    return list(blocks.repeat(cell, axis=1).repeat(cell, axis=2))
+
+
+def _timed(obj, attr, sink, *, record=None):
+    """Replace ``obj.attr`` (a bound method) with one that appends its
+    host seconds to ``sink`` (and, with ``record``, ``record(args,
+    result)``'s value to ``sink`` instead of the time)."""
+    orig = getattr(obj, attr)
+
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        sink.append(record(a, out) if record else time.perf_counter() - t0)
+        return out
+
+    setattr(obj, attr, wrapper)
+
+
+def _fps_stats(runs):
+    med = statistics.median(runs)
+    return {"runs": runs, "median": med, "spread": max(runs) - min(runs)}
+
+
+def _flagship_indices(torch, labels, frames):
+    """The flagship line's labels on ``frames`` (8 batches of BATCH), as
+    class indices: what every transport line must reproduce."""
+    out, _, _, p = _drive(_flagship(labels), frames, EDGE_FRAMES // BATCH)
+    p.stop()
+    return [int(lab[len("class"):]) for b in out for lab in b]
+
+
+class _CameraLine:
+    """A publisher line (appsrc ! tensor_converter frames-per-tensor=BATCH
+    ! ``sink``) and a subscriber line (``src`` ! the flagship's filter
+    with postproc:argmax ! tensor_sink), both playing until close():
+    run() pushes frames and waits for their BATCH-frame buffers."""
+
+    def __init__(self, pub_sink, sub_src_of):
+        from nnstreamer_tpu_torch.pipeline import parse_launch
+
+        self.pub = parse_launch(
+            f"appsrc name=src caps=video/x-raw,format=RGB,width={SIZE},"
+            f"height={SIZE},framerate=1000/1 ! tensor_converter "
+            f"frames-per-tensor={BATCH} ! {pub_sink}")
+        self.pub.play()
+        self.sub = None
+        try:
+            self.sub = parse_launch(
+                f"{sub_src_of(self.pub)} ! tensor_filter name=f "
+                "framework=jax model=mobilenet_v2 "
+                "custom=seed:0,postproc:argmax,fused:pallas "
+                "! tensor_sink name=out")
+            self.arrived = {}
+            self.sub["out"].connect_new_data(
+                lambda b: self.arrived.__setitem__(b.pts,
+                                                   time.perf_counter()))
+            self.sub.play()
+        except BaseException:
+            self.close()
+            raise
+        self.pts = 0
+
+    def run(self, frames):
+        """Push ``frames`` (a whole number of buffers); returns (seconds
+        from the first push to the last buffer out, per-frame latency ms,
+        labels in order, the buffers' pts)."""
+        import numpy as np
+
+        from nnstreamer_tpu_torch.buffer import Buffer
+
+        n_out = len(frames) // BATCH
+        have = len(self.sub["out"].collected)
+        pushed = []
+        t0 = time.perf_counter()
+        for f in frames:
+            pushed.append(time.perf_counter())
+            self.pub["src"].push_buffer(Buffer(tensors=[f], pts=self.pts))
+            self.pts += 1
+        deadline = time.monotonic() + 300
+        while len(self.sub["out"].collected) < have + n_out:
+            for p in (self.pub, self.sub):
+                if p.bus.error is not None:
+                    raise RuntimeError(f"edge line failed: {p.bus.error.data}")
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"edge line: {len(self.sub['out'].collected) - have} of "
+                    f"{n_out} buffers arrived")
+            time.sleep(0.001)
+        time.sleep(0.05)  # a duplicate would land after the last one
+        outs = list(self.sub["out"].collected)[have:]
+        pts = [b.pts for b in outs]
+        first = self.pts - len(frames)
+        lat = [(self.arrived[first + (i // BATCH + 1) * BATCH - 1]
+                - pushed[i]) * 1e3 for i in range(len(frames))
+               if first + (i // BATCH + 1) * BATCH - 1 in self.arrived]
+        secs = max(self.arrived[q] for q in pts) - t0
+        labels = [int(x) for b in outs
+                  for x in np.asarray(b.tensors[0]).reshape(-1)]
+        return secs, lat, labels, pts
+
+    def close(self):
+        for p in (self.sub, self.pub):
+            if p is not None:
+                p.stop()
+
+
+def _check_camera_run(name, frames_n, first_pts, pts, labels, want):
+    """Every frame arrived once and in order: one buffer a BATCH frames,
+    each named by its last frame's pts, labels equal to the flagship's."""
+    want_pts = [first_pts + (k + 1) * BATCH - 1
+                for k in range(frames_n // BATCH)]
+    if pts != want_pts:
+        raise AssertionError(f"edge {name}: buffers {pts} for {want_pts}")
+    if labels != want:
+        bad = sum(a != b for a, b in zip(labels, want))
+        raise AssertionError(f"edge {name}: {bad} of {len(want)} labels "
+                             "differ from the flagship line's")
+
+
+def _edge_launches(name, launches, buffers):
+    if launches.get("fused_inverted_residual") != 13 * buffers or \
+            launches.get("normalize_u8") != buffers:
+        raise AssertionError(f"edge {name}: launches {launches} over "
+                             f"{buffers} forwards")
+
+
+def check_edge_serving(torch, results, frames, launches_all):
+    """(a) The serving line with connect-type=HYBRID (the server announces
+    its bound TCP port on the port's MqttBroker, the 8 clients discover
+    it) and over plain TCP, in turns (H T T H H T): labels equal to the
+    direct forward on the same frames, 13 + 1 launches a served batch,
+    requests/s, p50/p99 request latency and client start ms (which holds
+    discovery) per run."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.edge.mqtt import MqttBroker
+    from nnstreamer_tpu_torch.ops import _cuda
+
+    labels = results["edge_labels"]
+    names = [f"class{i}" for i in range(1001)]
+    decoder = f"tensor_decoder mode=image_labeling option1={labels} ! "
+    clients = [(_serve_frames(frames, i), None)
+               for i in range(SERVE_CLIENTS)]
+    total = SERVE_CLIENTS * SERVE_PER_CLIENT
+    broker = MqttBroker()
+    broker.start()
+    try:
+        hybrid_line = _serve_line().replace(
+            "tensor_query_serversrc id=srv port=0 ",
+            f"tensor_query_serversrc id=srv port=0 connect-type=HYBRID "
+            f"topic={SERVE_TOPIC} dest-host=localhost "
+            f"dest-port={broker.port} ", 1)
+        if hybrid_line == _serve_line():
+            raise AssertionError("edge: the serving line changed shape")
+        forms = {"hybrid": (hybrid_line,
+                            f"connect-type=HYBRID host=localhost "
+                            f"port={broker.port} topic={SERVE_TOPIC}"),
+                 "tcp": (_serve_line(), "")}
+        _run_serving(_serve_line(), clients[:1], SERVE_FRAME_CAPS,
+                     traced=False)  # warm-up, not measured
+        want = None
+        runs = {"hybrid": [], "tcp": []}
+        for form in ("hybrid", "tcp", "tcp", "hybrid", "hybrid", "tcp"):
+            line, connect = forms[form]
+            _cuda.reset_launches()
+            res, srv, secs, (forward, device) = _run_serving(
+                line, clients, SERVE_FRAME_CAPS, decoder=decoder,
+                client_connect=connect)
+            launches = dict(_cuda.LAUNCHES)
+            for k, v in launches.items():
+                launches_all[k] = launches_all.get(k, 0) + v
+            _serve_launches(f"edge {form}", launches, srv["batches"])
+            _check_replies(f"edge {form}", res, SERVE_PER_CLIENT)
+            if srv["rows"] != total or srv["shed"] != 0:
+                raise AssertionError(f"edge {form}: serving report {srv}")
+            if want is None:
+                with torch.inference_mode():
+                    want = {i: [names[j] for j in forward(
+                        torch.from_numpy(np.stack(fr)).to(device)
+                    ).float().argmax(-1).tolist()]
+                        for i, (fr, _) in enumerate(clients)}
+            ok = True
+            for i, r in res.items():
+                got = []
+                for b in r["out"]:
+                    lab = b.meta["label"]
+                    got.extend(lab if isinstance(lab, list) else [lab])
+                ok = ok and got == want[i]
+            if not ok:
+                raise AssertionError(f"edge {form}: a reply's label differs "
+                                     "from the direct forward's")
+            lat = _latencies_ms(res)
+            runs[form].append({
+                "requests_per_s": total / secs,
+                "p50_request_ms": _pct(lat, 0.5),
+                "p99_request_ms": _pct(lat, 0.99),
+                "client_start_ms": statistics.median(
+                    r["play_ms"] for r in res.values()),
+                "batches": srv["batches"], "launches": launches})
+    finally:
+        broker.close()
+    row = {}
+    for form, rs in runs.items():
+        row[form] = {key: _fps_stats([r[key] for r in rs])
+                     for key in ("requests_per_s", "p50_request_ms",
+                                 "p99_request_ms", "client_start_ms")}
+        row[form]["batches"] = [r["batches"] for r in rs]
+    row["discovery_ms"] = _fps_stats(
+        [h["client_start_ms"] - t["client_start_ms"]
+         for h, t in zip(runs["hybrid"], runs["tcp"])])
+    emit("edge", part="hybrid_serving", clients=SERVE_CLIENTS,
+         requests=total, serve_batch=SERVE_BATCH, order="H T T H H T",
+         labels_equal_direct_forward=True, **row, card=results["card"])
+
+
+def check_edge_mqtt(torch, results, frames, want, launches_all):
+    """(b) The MQTT camera line: appsrc ! tensor_converter
+    frames-per-tensor=128 ! mqttsink broker=embedded qos=1 into mqttsrc
+    qos=1 ! the flagship's filter (postproc:argmax): 1,024 frames as 8
+    messages a run, a warm-up run and EDGE_RUNS measured runs, then a
+    profiled one."""
+    from nnstreamer_tpu_torch.ops import _cuda
+
+    line = _CameraLine(
+        f"mqttsink name=sink broker=embedded port=0 topic={CAM_TOPIC} qos=1",
+        lambda pub: (f"mqttsrc name=msrc port={pub['sink'].port} "
+                     f"topic={CAM_TOPIC} qos=1"))
+    try:
+        deadline = time.monotonic() + 30
+        broker = line.pub["sink"]._broker
+        while not any(broker._subs.values()):
+            if time.monotonic() > deadline:
+                raise TimeoutError("edge mqtt: mqttsrc never subscribed")
+            time.sleep(0.01)
+        line.run(frames[:2 * BATCH])  # warm-up, not measured
+        spans = {"publish": [], "broker": [], "create": [], "recv": [],
+                 "filter": [], "bytes": []}
+        _timed(line.pub["sink"], "chain", spans["publish"])
+        _timed(broker, "_fanout", spans["broker"])
+        _timed(line.sub["f"], "chain", spans["filter"])
+        _timed(line.pub["sink"]._client, "publish", spans["bytes"],
+               record=lambda a, out: len(a[1]))
+        client = line.sub["msrc"]._client
+        recv_s = [0.0]
+        orig_recv, orig_create = client.recv, line.sub["msrc"].create
+
+        def recv(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig_recv(*a, **kw)
+            finally:
+                recv_s[0] += time.perf_counter() - t0
+
+        def create():
+            r0, t0 = recv_s[0], time.perf_counter()
+            buf = orig_create()
+            if buf is not None:
+                spans["create"].append(time.perf_counter() - t0
+                                       - (recv_s[0] - r0))
+            return buf
+
+        client.recv = recv
+        line.sub["msrc"].create = create
+        fps, lats = [], []
+        _cuda.reset_launches()
+        for _ in range(EDGE_RUNS):
+            first = line.pts
+            secs, lat, labels, pts = line.run(frames)
+            _check_camera_run("mqtt", len(frames), first, pts, labels, want)
+            fps.append(len(frames) / secs)
+            lats.extend(lat)
+        launches = dict(_cuda.LAUNCHES)
+        for k, v in launches.items():
+            launches_all[k] = launches_all.get(k, 0) + v
+        _edge_launches("mqtt", launches, EDGE_RUNS * len(frames) // BATCH)
+        msgs = EDGE_RUNS * len(frames) // BATCH
+        host = {k: 1e3 * sum(spans[k]) / msgs
+                for k in ("publish", "broker", "filter")}
+        host["decode"] = 1e3 * sum(spans["create"]) / msgs
+        dups = {"broker_received": broker.dups_received,
+                "subscriber_received": client.dups_received,
+                "subscriber_dropped": client.dups_dropped}
+
+        def profiled():
+            first = line.pts
+            secs, _, labels, pts = line.run(frames)
+            _check_camera_run("mqtt profile", len(frames), first, pts,
+                              labels, want)
+            return secs
+
+        prof = device_profile(torch, profiled)
+    finally:
+        line.close()
+    emit("edge", part="mqtt_camera", frames=len(frames),
+         messages_per_run=len(frames) // BATCH, qos=1,
+         fps=_fps_stats(fps), p50_frame_latency_ms=statistics.median(lats),
+         bytes_per_message=sorted(set(spans["bytes"])),
+         duplicates=dups, host_ms_per_message=host, launches=launches,
+         every_frame_once_in_order=True, labels_equal_flagship=True,
+         card=results["card"])
+    emit("profile", line="edge_mqtt", frames=len(frames), **prof,
+         card=results["card"])
+    # one publish a message, each the batch's tensor and a header of a few
+    # hundred bytes (its JSON meta's digits vary with pts and the epoch)
+    sizes = spans["bytes"]
+    if len(sizes) != msgs + len(frames) // BATCH or \
+            min(sizes) < BATCH * SIZE * SIZE * 3 or \
+            max(sizes) - BATCH * SIZE * SIZE * 3 > 1024:
+        raise AssertionError(f"edge mqtt: {len(sizes)} publishes of "
+                             f"{sorted(set(sizes))} bytes")
+
+
+def check_edge_pubsub(torch, results, frames, want, launches_all):
+    """(c) edgesink connect-type=HYBRID ! (TCP) ! edgesrc
+    connect-type=HYBRID ! the flagship's filter, the same frames."""
+    from nnstreamer_tpu_torch.edge.mqtt import MqttBroker
+    from nnstreamer_tpu_torch.ops import _cuda
+
+    broker = MqttBroker()
+    broker.start()
+    line = None
+    try:
+        line = _CameraLine(
+            f"edgesink name=es connect-type=HYBRID topic={PUB_TOPIC} "
+            f"dest-host=localhost dest-port={broker.port}",
+            lambda pub: (f"edgesrc name=esrc connect-type=HYBRID "
+                         f"host=localhost port={broker.port} "
+                         f"topic={PUB_TOPIC} timeout=30"))
+        deadline = time.monotonic() + 30
+        while not line.pub["es"]._server._conns:
+            if time.monotonic() > deadline:
+                raise TimeoutError("edge pubsub: edgesrc never connected")
+            time.sleep(0.01)
+        line.run(frames[:2 * BATCH])  # warm-up, not measured
+        fps = []
+        _cuda.reset_launches()
+        for _ in range(EDGE_RUNS):
+            first = line.pts
+            secs, _, labels, pts = line.run(frames)
+            _check_camera_run("pubsub", len(frames), first, pts, labels,
+                              want)
+            fps.append(len(frames) / secs)
+        launches = dict(_cuda.LAUNCHES)
+    finally:
+        if line is not None:
+            line.close()
+        broker.close()
+    for k, v in launches.items():
+        launches_all[k] = launches_all.get(k, 0) + v
+    _edge_launches("pubsub", launches, EDGE_RUNS * len(frames) // BATCH)
+    emit("edge", part="edgesink_edgesrc_hybrid", frames=len(frames),
+         fps=_fps_stats(fps), launches=launches, labels_equal_flagship=True,
+         card=results["card"])
+
+
+def check_edge_attention(torch, results):
+    """(d) Kernels 4 and 5 above head_dim 256 (the split body), bf16 and
+    float32, causal and not, against their plain versions at the
+    ``attention`` and ``chunk`` phases' tolerances; the chunk kernel on
+    carries from an earlier hop at the diagonal, a non-causal hop, a hop
+    whose first q tiles see none of the chunk (their CTAs pass m and l
+    through) and one wholly in the future (carries bit-identical). Every
+    flash case and every causal diagonal hop is timed."""
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.ops.attention import (
+        BLOCK_K,
+        flash_attention_cuda,
+        flash_attention_plain,
+        flash_chunk_cuda,
+        flash_chunk_plain,
+        flash_kernel_attributes,
+        head_dim_slices,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    bh, n = SPLIT_BH, SPLIT_SEQ
+    rows = {"flash_attention": [], "flash_chunk": []}
+    for d in SPLIT_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            atol, rtol = _tols(torch, dtype)
+            dt = _dtype_name(dtype)
+            q, k, v, k0, v0 = (torch.randn((bh, n, d), generator=gen,
+                                           device="cuda").to(dtype)
+                               for _ in range(5))
+            for causal in (False, True):
+                def kern():
+                    return flash_attention_cuda(q, k, v, causal=causal)
+
+                def plain():
+                    return flash_attention_plain(q, k, v, causal=causal,
+                                                 block_k=BLOCK_K)
+
+                def library():
+                    return F.scaled_dot_product_attention(
+                        q[None], k[None], v[None], is_causal=causal)
+
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                ok = (got.dtype == dtype
+                      and bool(torch.isfinite(got.float()).all())
+                      and within(got, want, atol, rtol))
+                nbytes, ops = attention_work(bh, n, n, d, causal,
+                                             itemsize=q.element_size())
+                row = {"kernel": "flash_attention", "d": d, "dtype": dt,
+                       "causal": causal, "shape": [bh, n, d],
+                       "slices": head_dim_slices(d),
+                       "max_abs_err": max_err(got, want), "atol": atol,
+                       "rtol": rtol, "ok": ok,
+                       "ms": cuda_ms(kern, reps=10),
+                       "device_ms": device_ms(torch, kern, "flash_fwd", 5),
+                       "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+                       "library_ms": cuda_ms(library, reps=10),
+                       **flash_kernel_attributes(d, dtype=dtype)}
+                row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, dt)
+                row["bytes"], row["ops"] = nbytes, ops
+                emit("edge", part="attention_split", **row,
+                     card=results["card"])
+                if not ok:
+                    raise AssertionError(f"flash_attention d {d}: {row}")
+                rows["flash_attention"].append(row)
+            scale = 1.0 / d ** 0.5
+            hops = [("diagonal", n, n, True), ("noncausal", n, 0, False),
+                    ("masked", 0, n // 2, True)]
+            if d == 384:
+                hops.append(("future", 0, n, True))
+            for case, q_off, k_off, causal in hops:
+                kw = dict(q_offset=q_off, k_offset=k_off, causal=causal,
+                          scale=scale)
+                carries = flash_chunk_plain(
+                    q, k0, v0, *_carries(torch, bh, n, d), q_offset=q_off,
+                    k_offset=q_off - n, causal=True, scale=scale)
+                before = [c.clone() for c in carries]
+                got = flash_chunk_cuda(q, k, v, *[c.clone() for c in carries],
+                                       **kw)
+                want = flash_chunk_plain(q, k, v, *carries, block_k=BLOCK_K,
+                                         **kw)
+                torch.cuda.synchronize()
+                out_got, out_want = (c[2] / c[1].clamp(min=1e-37)[..., None]
+                                     for c in (got, want))
+                m_err = max_err(got[0], want[0])
+                l_rel = float(((got[1] - want[1]).abs()
+                               / want[1].abs().clamp(min=1e-30)).max())
+                m_atol, l_rtol = ((CHUNK_M_ATOL, CHUNK_L_RTOL)
+                                  if dtype == torch.bfloat16
+                                  else (F32_ATOL, F32_RTOL))
+                if case == "future":
+                    ok = all(torch.equal(g.view(torch.int32),
+                                         c.view(torch.int32))
+                             for g, c in zip(got, before))
+                else:
+                    ok = (all(bool(torch.isfinite(c).all()) for c in got)
+                          and within(out_got, out_want, atol, rtol)
+                          and m_err <= m_atol and l_rel <= l_rtol)
+                row = {"kernel": "flash_chunk", "d": d, "dtype": dt,
+                       "case": case, "q_offset": q_off, "k_offset": k_off,
+                       "causal": causal, "shape": [bh, n, n, d],
+                       "slices": head_dim_slices(d),
+                       "max_abs_err": max_err(out_got, out_want),
+                       "atol": atol, "rtol": rtol, "m_max_abs_err": m_err,
+                       "m_atol": m_atol, "l_max_rel_err": l_rel,
+                       "l_rtol": l_rtol, "ok": ok,
+                       **flash_kernel_attributes(d, carry=True, dtype=dtype)}
+                if case == "diagonal":
+                    work = [c.clone() for c in carries]
+
+                    def kern():
+                        return flash_chunk_cuda(q, k, v, *work, **kw)
+
+                    nbytes, ops = attention_work(
+                        bh, n, n, d, causal, q_off, k_off, carries=True,
+                        itemsize=q.element_size())
+                    row.update(ms=cuda_ms(kern, reps=10),
+                               device_ms=device_ms(torch, kern,
+                                                   "flash_chunk", 5),
+                               plain_ms=cuda_ms(lambda: flash_chunk_plain(
+                                   q, k, v, *carries, block_k=BLOCK_K, **kw),
+                                   reps=3, warmup=1),
+                               library_ms=None, bytes=nbytes, ops=ops)
+                    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops,
+                                                                dt)
+                emit("edge", part="chunk_split", **row,
+                     card=results["card"])
+                if not ok:
+                    raise AssertionError(f"flash_chunk d {d}: {row}")
+                rows["flash_chunk"].append(row)
+    results["split_attention"] = rows
+
+
+def check_edge(torch, results, workdir):
+    """Phase ``edge``: the among-device transports serving and feeding
+    MobileNet-v2 (a HYBRID serving, b MQTT camera, c edgesink/edgesrc
+    HYBRID), then kernels 4 and 5 above head_dim 256 (d)."""
+    labels = os.path.join(workdir, "edge_labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class{i}" for i in range(1001)) + "\n")
+    results["edge_labels"] = labels
+    frames = _edge_frames()
+    want = _flagship_indices(torch, labels, frames)
+    if len(set(want)) < 2:
+        raise AssertionError("edge: the frames' labels cannot tell frames "
+                             "apart")
+    launches = {}
+    check_edge_serving(torch, results, frames[:BATCH], launches)
+    check_edge_mqtt(torch, results, frames, want, launches)
+    check_edge_pubsub(torch, results, frames, want, launches)
+    results["edge_launches"] = launches
+    check_edge_attention(torch, results)
+
+
 def main() -> int:
     import torch
 
@@ -4351,6 +4919,7 @@ def main() -> int:
         "residency": lambda: check_residency(torch, results, workdir),
         "train": lambda: check_train(torch, results, workdir),
         "loop": lambda: check_loop(torch, results, workdir),
+        "edge": lambda: check_edge(torch, results, workdir),
     }
     only = None
     if "--only" in sys.argv[1:]:
@@ -4383,7 +4952,7 @@ def main() -> int:
         "hostspans_launches", "detect_launches", "detect_pp_launches",
         "segment_launches", "vision_launches", "serve_launches",
         "streams_launches", "residency_launches", "train_launches",
-        "loop_launches"))
+        "loop_launches", "edge_launches"))
         for name in src}
     launches["arith_chain"] += results["arith_launches"]
     kernels = []
@@ -4397,6 +4966,14 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
             "device_ms": r.get("device_ms")})
+    # kernels 4 and 5 above head_dim 256 (the split body): every timed row
+    for row in kernels:
+        split = results.get("split_attention", {}).get(row["name"], [])
+        row["split_head_dims"] = [
+            {key: r[key] for key in (
+                "d", "dtype", "causal", "shape", "slices", "max_abs_err",
+                "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by")} for r in split if "ms" in r]
     # the fused block's rows at the SSD and DeepLab lines' shapes
     kernels[0]["models"] = {name: results[f"fused_{name}"]
                             for name in ("ssd_mobilenet", "deeplab_v3",

@@ -23,7 +23,11 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from nnstreamer_tpu_torch.types import NNS_TENSOR_SIZE_LIMIT, TensorsInfo
+from nnstreamer_tpu_torch.types import (
+    NNS_TENSOR_SIZE_LIMIT,
+    TensorDType,
+    TensorsInfo,
+)
 
 CLOCK_TIME_NONE: int = -1
 
@@ -98,12 +102,20 @@ def materialize_tensors(tensors: Sequence[Any]) -> List[Any]:
             host.copy_(t, non_blocking=True)
             pending.append((i, host, t.device))
         elif isinstance(t, torch.Tensor):
-            out[i] = t.numpy()
+            out[i] = _host_numpy(t)
     for dev in {d for _, _, d in pending}:
         torch.cuda.current_stream(dev).synchronize()
     for i, host, _ in pending:
-        out[i] = host.numpy()
+        out[i] = _host_numpy(host)
     return out
+
+
+def _host_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy (a view); bfloat16, which numpy lacks, as
+    ``ml_dtypes.bfloat16`` over the same bits (the types mapping's)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(TensorDType.BFLOAT16.np_dtype)
+    return t.numpy()
 
 
 def dtype_name(t: Any) -> str:

@@ -2,10 +2,10 @@
 (counterpart of the JAX package's ``converters/``).
 
 Parity: NNStreamerExternalConverter (nnstreamer_plugin_api_converter.h:41-85)
-and ext/nnstreamer/tensor_converter/{flexbuf,python3}; the JAX package's
-flatbuf and protobuf converters need the ``flatbuffers`` and
-``google.protobuf`` packages and are not ported yet. A converter subplugin
-is an object with:
+and ext/nnstreamer/tensor_converter/{flexbuf,python3,flatbuf,protobuf};
+the flatbuf and protobuf converters import the ``flatbuffers`` and
+``google.protobuf`` packages only when a stream reaches them. A converter
+subplugin is an object with:
 
     accepts(media_type: str) -> bool       # query_caps/is-supported parity
     get_out_config(caps) -> TensorsConfig  # get_out_caps parity

@@ -13,14 +13,18 @@
 //                      q_offset + row >= k_offset + col.
 //
 // q: (bh, sq, d), k, v: (bh, sk, d), bfloat16 or float32; m, l: (bh, sq)
-// and acc: (bh, sq, d) float32; any d from 1 to kMaxHeadDim, any sq and sk.
+// and acc: (bh, sq, d) float32; any d >= 1, any sq and sk.
 // The dtype and d pick the body and its instantiation (instance_of):
 //   - the tensor-core body, flash_tile<D, kCarry>: bfloat16 with d one of
 //     kTcDims (16, the long-context example's head dim, and the main-path
 //     32, 64 and 128), row strides and column bounds compile-time;
 //   - the simple body, flash_simple<NJ, kCarry>: float32 inputs, and bf16
 //     at every other d, at the least D = 16 * NJ of kSimpleDims not below
-//     d.
+//     d;
+//   - above kSliceCols (256), the simple body split over the head dim,
+//     flash_simple<16, kCarry, true>: the grid's third dimension cuts the
+//     output's columns into slices of kSliceCols, and each CTA forms the
+//     full scores and accumulates only its slice of p v.
 //     float32 stays float32: both products are float32 FMAs (no TF32 and
 //     no bf16 cast, which would miss the reference's tolerance).
 //
@@ -106,6 +110,20 @@
 // float32 exactly and zero-fill past sq, sk and d. The rounding points are
 // the tensor-core body's, with expf for exp and the output divided in
 // IEEE float32 before its one rounding to q's dtype.
+//
+// Above kSliceCols the q tile no longer fits beside p and a V stage (at d
+// 512 float32 it alone is 131 KB, the layout 230 KB against a CTA's 227
+// KB), so the split body keeps none of it: it stages q's 64 rows through
+// shared memory in the same kKc-column chunks as K, and a V stage holds
+// only the CTA's slice of columns (about 75 KB at every d). Every slice
+// computes the same scores in the same order, so m, l and p agree bit for
+// bit across slices and with the unsplit body; the split costs
+// ceil(d / 256) times the q kᵀ work and the reads of q and K, and is
+// meant to be right, not fast. The split chunk kernel reads the carried m
+// and l in every slice, so no slice may overwrite them in place: the first
+// slice writes the new m and l to scratch outputs (passing a future CTA's
+// rows through), and the launch copies them over the carries after the
+// kernel, in stream order (cudaMemcpyAsync, no extra kernel).
 #include <cuda.h>
 
 #include "common.cuh"
@@ -142,10 +160,11 @@ struct Tile {
 };
 
 // The instantiations (tests/test_torch_attention.py reads these lines):
-// the tensor-core body's D, and the simple body's D = 16 * NJ.
+// the tensor-core body's D, the simple body's D = 16 * NJ, and the output
+// columns a CTA of the split body writes (the last simple D).
 constexpr int kTcDims[] = {16, 32, 64, 128};
 constexpr int kSimpleDims[] = {32, 64, 128, 256};
-constexpr int kMaxHeadDim = 256;
+constexpr int kSliceCols = 256;
 
 // The tensor-core body's arguments (it reads q, k and v through its tensor
 // maps).
@@ -158,13 +177,17 @@ struct FlashArgs {
   float scale;
 };
 
-// The simple body's: the tensor-core body's, the inputs, head_dim and dtype.
+// The simple body's: the tensor-core body's, the inputs, head_dim and
+// dtype, and the split chunk kernel's new m and l (scratch, copied over
+// f.m and f.l after the kernel).
 struct SimpleArgs {
   FlashArgs f;       // f.o is cast to q's dtype
   const void* q;
   const void* k;
   const void* v;
   int d, bf16;
+  float* m_out;
+  float* l_out;
 };
 
 // -- PTX wrappers -----------------------------------------------------------
@@ -719,6 +742,15 @@ constexpr int simple_smem(int d, int D) {
   return 4 * (kSimpleQ * simple_qld(d) + kSimpleQ * kPld +
               simple_stage(d, D));
 }
+// The split body's, at every d: a kKc-column stage of q, p, and one stage
+// that holds a K chunk or kVk keys of the CTA's kSliceCols columns of V.
+constexpr int kSplitSmem =
+    4 * (kSimpleQ * kKld + kSimpleQ * kPld +
+         simple_stage(kSliceCols, kSliceCols));
+static_assert(kSliceCols == 16 * 16 &&
+                  kSliceCols == kSimpleDims[sizeof(kSimpleDims) /
+                                                sizeof(int) - 1],
+              "the split body runs the widest simple instantiation");
 
 __device__ __forceinline__ float load_f32(const void* p, long long i,
                                           int bf16) {
@@ -740,9 +772,11 @@ __device__ __forceinline__ float row_sum16(float v) {
 }
 
 // kCarry = false: flash_fwd_simple_kernel, true: flash_chunk_simple_kernel.
-// A thread's o columns are tx + 16 j, j < NJ; those at d or past it are
+// kSplit: the CTA writes only output columns [c_lo, c_lo + dw), its slice
+// blockIdx.z of kSliceCols (NJ is 16), and stages q like K. A thread's o
+// columns are c_lo + tx + 16 j, j < NJ; those at dw or past it are
 // computed from stage slack and never stored.
-template <int NJ, bool kCarry>
+template <int NJ, bool kCarry, bool kSplit>
 __device__ __forceinline__ void flash_simple(const SimpleArgs& in) {
   const FlashArgs& a = in.f;
   const int sq = a.sq, sk = a.sk, d = in.d, causal = a.causal, bf16 = in.bf16;
@@ -753,27 +787,43 @@ __device__ __forceinline__ void flash_simple(const SimpleArgs& in) {
   const int head = causal ? static_cast<int>(blockIdx.x) % bh
                           : static_cast<int>(blockIdx.x) / n_tiles;
   const int q0 = tile * kSimpleQ;
+  const int tid = static_cast<int>(threadIdx.x);
+  const int c_lo = kSplit ? static_cast<int>(blockIdx.z) * kSliceCols : 0;
+  const int dw = kSplit ? min(kSliceCols, d - c_lo) : d;
 
   int n_kb = (sk + kBlockK - 1) / kBlockK;
   if (causal) {
     const int last = a.q_offset + min(q0 + kSimpleQ, sq) - 1 - a.k_offset;
-    if (last < 0) return;  // every thread of the CTA, before any barrier
+    if (last < 0) {
+      // every thread of the CTA, before any barrier; the split chunk
+      // kernel's first slice passes its rows' m and l through to the
+      // scratch the launch copies back
+      if constexpr (kCarry && kSplit) {
+        if (blockIdx.z == 0 && tid < kSimpleQ && q0 + tid < sq) {
+          const long long r = static_cast<long long>(head) * sq + q0 + tid;
+          in.m_out[r] = a.m[r];
+          in.l_out[r] = a.l[r];
+        }
+      }
+      return;
+    }
     n_kb = min(n_kb, last / kBlockK + 1);
   }
 
   extern __shared__ float smem_f[];
-  const int qld = simple_qld(d);
-  float* qs = smem_f;                  // [kSimpleQ][qld]
+  const int qld = kSplit ? kKld : simple_qld(d);
+  float* qs = smem_f;                  // [kSimpleQ][qld]: q or its stage
   float* ps = qs + kSimpleQ * qld;     // [kSimpleQ][kPld]
-  float* st = ps + kSimpleQ * kPld;    // K: [kBlockK][kKld]; V: [kVk][d]
+  float* st = ps + kSimpleQ * kPld;    // K: [kBlockK][kKld]; V: [kVk][dw]
 
-  const int tid = static_cast<int>(threadIdx.x);
   const int ty = tid / 16, tx = tid % 16;
   const long long qbase = (static_cast<long long>(head) * sq + q0) * d;
   const long long kbase = static_cast<long long>(head) * sk * d;
-  for (int i = tid; i < kSimpleQ * d; i += kSimpleThreads) {
-    const int r = i / d, c = i - r * d;
-    qs[r * qld + c] = q0 + r < sq ? load_f32(in.q, qbase + i, bf16) : 0.0f;
+  if constexpr (!kSplit) {
+    for (int i = tid; i < kSimpleQ * d; i += kSimpleThreads) {
+      const int r = i / d, c = i - r * d;
+      qs[r * qld + c] = q0 + r < sq ? load_f32(in.q, qbase + i, bf16) : 0.0f;
+    }
   }
 
   float m[4], l[4], o[4][NJ];
@@ -792,13 +842,14 @@ __device__ __forceinline__ void flash_simple(const SimpleArgs& in) {
       l[i] = a.l[r];
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        if (tx + 16 * j < d) o[i][j] = a.acc[r * d + tx + 16 * j];
+        if (tx + 16 * j < dw) o[i][j] = a.acc[r * d + c_lo + tx + 16 * j];
     }
   }
 
   for (int kb = 0; kb < n_kb; ++kb) {
     const int k0 = kb * kBlockK;
-    // s = q kᵀ over the block's 128 keys, K staged kKc columns at a time
+    // s = q kᵀ over the block's 128 keys, K (and in the split body q)
+    // staged kKc columns at a time
     float s[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -806,7 +857,7 @@ __device__ __forceinline__ void flash_simple(const SimpleArgs& in) {
       for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
     for (int c0 = 0; c0 < d; c0 += kKc) {
       const int w = min(kKc, d - c0);
-      __syncthreads();  // the stage is free; q (first pass) is written
+      __syncthreads();  // the stages are free; q (first pass) is written
       for (int i = tid; i < kBlockK * kKc; i += kSimpleThreads) {
         const int r = i / kKc, c = i % kKc;
         st[r * kKld + c] =
@@ -815,12 +866,23 @@ __device__ __forceinline__ void flash_simple(const SimpleArgs& in) {
                                     c0 + c, bf16)
                 : 0.0f;
       }
+      if constexpr (kSplit) {
+        for (int i = tid; i < kSimpleQ * kKc; i += kSimpleThreads) {
+          const int r = i / kKc, c = i % kKc;
+          qs[r * kKld + c] =
+              q0 + r < sq && c < w
+                  ? load_f32(in.q, qbase + static_cast<long long>(r) * d +
+                                      c0 + c, bf16)
+                  : 0.0f;
+        }
+      }
       __syncthreads();
 #pragma unroll 4
       for (int c = 0; c < w; ++c) {
         float qv[4], kv[8];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = qs[(4 * ty + i) * qld + c0 + c];
+        for (int i = 0; i < 4; ++i)
+          qv[i] = qs[(4 * ty + i) * qld + (kSplit ? 0 : c0) + c];
 #pragma unroll
         for (int j = 0; j < 8; ++j) kv[j] = st[(tx + 16 * j) * kKld + c];
 #pragma unroll
@@ -856,13 +918,23 @@ __device__ __forceinline__ void flash_simple(const SimpleArgs& in) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j) o[i][j] *= corr;
     }
-    // o += p v, V staged kVk keys at a time
+    // o += p v, V (the CTA's dw columns of it) staged kVk keys at a time
     for (int v0 = 0; v0 < kBlockK && k0 + v0 < sk; v0 += kVk) {
       __syncthreads();  // p is written; the stage is free
       const long long vbase = kbase + static_cast<long long>(k0 + v0) * d;
       const int rows = min(kVk, sk - k0 - v0);
-      for (int i = tid; i < kVk * d; i += kSimpleThreads)
-        st[i] = i < rows * d ? load_f32(in.v, vbase + i, bf16) : 0.0f;
+      if constexpr (kSplit) {
+        for (int i = tid; i < kVk * dw; i += kSimpleThreads) {
+          const int r = i / dw, c = i - r * dw;
+          st[i] = r < rows ? load_f32(in.v, vbase + static_cast<long long>(
+                                                        r) * d + c_lo + c,
+                                      bf16)
+                           : 0.0f;
+        }
+      } else {
+        for (int i = tid; i < kVk * d; i += kSimpleThreads)
+          st[i] = i < rows * d ? load_f32(in.v, vbase + i, bf16) : 0.0f;
+      }
       __syncthreads();
 #pragma unroll 4
       for (int kk = 0; kk < kVk; ++kk) {
@@ -871,7 +943,7 @@ __device__ __forceinline__ void flash_simple(const SimpleArgs& in) {
         for (int i = 0; i < 4; ++i) pv[i] = ps[(4 * ty + i) * kPld + v0 + kk];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          const float vv = st[kk * d + tx + 16 * j];
+          const float vv = st[kk * dw + tx + 16 * j];
 #pragma unroll
           for (int i = 0; i < 4; ++i) o[i][j] = fmaf(pv[i], vv, o[i][j]);
         }
@@ -886,65 +958,77 @@ __device__ __forceinline__ void flash_simple(const SimpleArgs& in) {
     const long long r = static_cast<long long>(head) * sq + row;
     if constexpr (kCarry) {
       if (tx == 0) {
-        a.m[r] = m[i];
-        a.l[r] = l[i];
+        if constexpr (kSplit) {
+          if (blockIdx.z == 0) {
+            in.m_out[r] = m[i];
+            in.l_out[r] = l[i];
+          }
+        } else {
+          a.m[r] = m[i];
+          a.l[r] = l[i];
+        }
       }
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        if (tx + 16 * j < d) a.acc[r * d + tx + 16 * j] = o[i][j];
+        if (tx + 16 * j < dw) a.acc[r * d + c_lo + tx + 16 * j] = o[i][j];
     } else {
       const float den = fmaxf(l[i], 1e-37f);
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int col = tx + 16 * j;
-        if (col >= d) continue;
+        if (col >= dw) continue;
         const float y = __fdiv_rn(o[i][j], den);
         if (bf16)
-          a.o[r * d + col] = from_f32<__nv_bfloat16>(y);
+          a.o[r * d + c_lo + col] = from_f32<__nv_bfloat16>(y);
         else
-          reinterpret_cast<float*>(a.o)[r * d + col] = y;
+          reinterpret_cast<float*>(a.o)[r * d + c_lo + col] = y;
       }
     }
   }
 }
 
-template <int NJ>
+template <int NJ, bool kSplit>
 __global__ void __launch_bounds__(kSimpleThreads)
     flash_fwd_simple_kernel(const SimpleArgs a) {
-  flash_simple<NJ, false>(a);
+  flash_simple<NJ, false, kSplit>(a);
 }
 
-template <int NJ>
+template <int NJ, bool kSplit>
 __global__ void __launch_bounds__(kSimpleThreads)
     flash_chunk_simple_kernel(const SimpleArgs a) {
-  flash_simple<NJ, true>(a);
+  flash_simple<NJ, true, kSplit>(a);
 }
 
 // -- host side --------------------------------------------------------------
 
 // Which body and instantiation run head_dim d in the given dtype: the
 // tensor-core body for bf16 with d one of kTcDims, else the simple body at
-// the least D of kSimpleDims not below d. false when no kernel takes them.
+// the least D of kSimpleDims not below d, else (d above kSliceCols) the
+// split body in ceil(d / kSliceCols) slices. false when no kernel takes
+// them.
 struct Instance {
   bool tc;
   int D;
+  int slices;  // > 1: the split body
 };
 
 bool instance_of(int d, int dtype, Instance* in) {
-  if (d < 1 || d > kMaxHeadDim || (dtype != DT_BF16 && dtype != DT_F32))
-    return false;
+  if (d < 1 || (dtype != DT_BF16 && dtype != DT_F32)) return false;
   if (dtype == DT_BF16)
     for (int D : kTcDims)
       if (D == d) {
-        *in = {true, D};
+        *in = {true, D, 1};
         return true;
       }
   for (int D : kSimpleDims)
     if (D >= d) {
-      *in = {false, D};
+      *in = {false, D, 1};
       return true;
     }
-  return false;
+  const int slices = (d + kSliceCols - 1) / kSliceCols;
+  if (slices > 65535) return false;  // the grid's third dimension
+  *in = {false, kSliceCols, slices};
+  return true;
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1004,9 +1088,10 @@ bool make_map(CUtensorMap* map, const void* ptr, int rows, int bh) {
 template <int D, bool kCarry>
 constexpr auto tc_kernel =
     kCarry ? &flash_chunk_kernel<D> : &flash_fwd_kernel<D>;
-template <int NJ, bool kCarry>
+template <int NJ, bool kCarry, bool kSplit = false>
 constexpr auto simple_kernel =
-    kCarry ? &flash_chunk_simple_kernel<NJ> : &flash_fwd_simple_kernel<NJ>;
+    kCarry ? &flash_chunk_simple_kernel<NJ, kSplit>
+           : &flash_fwd_simple_kernel<NJ, kSplit>;
 
 // Dynamic shared memory above 48 KB needs the attribute, once per device
 // and kernel.
@@ -1049,6 +1134,29 @@ int launch_simple(const SimpleArgs& in, unsigned int grid, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The split body: `slices` CTAs along the grid's third dimension for each
+// q tile; the chunk kernel's new m and l land in scratch and are copied
+// over the carries after it, in stream order.
+template <bool kCarry>
+int launch_split(const SimpleArgs& in, unsigned int grid, int slices,
+                 int bh, cudaStream_t s) {
+  constexpr auto kernel = simple_kernel<16, kCarry, true>;
+  cudaError_t err = allow_smem<kernel>(kSplitSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (kCarry && (in.m_out == nullptr || in.l_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<dim3(grid, 1, static_cast<unsigned int>(slices)), kSimpleThreads,
+           kSplitSmem, s>>>(in);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !kCarry) return static_cast<int>(err);
+  const size_t bytes = static_cast<size_t>(bh) * in.f.sq * sizeof(float);
+  err = cudaMemcpyAsync(in.f.m, in.m_out, bytes, cudaMemcpyDeviceToDevice, s);
+  if (err == cudaSuccess)
+    err = cudaMemcpyAsync(in.f.l, in.l_out, bytes, cudaMemcpyDeviceToDevice,
+                          s);
+  return static_cast<int>(err);
+}
+
 // in.f.n_tiles and in.bf16 are set here.
 template <bool kCarry>
 int launch(SimpleArgs in, int bh, int dtype, cudaStream_t s) {
@@ -1063,6 +1171,8 @@ int launch(SimpleArgs in, int bh, int dtype, cudaStream_t s) {
   if (static_cast<long long>(bh) * a.n_tiles > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const unsigned int grid = static_cast<unsigned int>(a.n_tiles) * bh;
+  if (inst.slices > 1)
+    return launch_split<kCarry>(in, grid, inst.slices, bh, s);
   if (inst.tc) {
     switch (inst.D) {
       case 16: return launch_tc<16, kCarry>(in, bh, grid, s);
@@ -1118,8 +1228,13 @@ int attributes(int d, int dtype, int* out) {
   Instance in;
   if (!instance_of(d, dtype, &in))
     return static_cast<int>(cudaErrorInvalidValue);
-  out[3] = in.tc ? 1 : 0;
+  out[3] = in.tc ? 1 : (in.slices > 1 ? 2 : 0);
   out[4] = in.D;
+  if (in.slices > 1) {
+    constexpr auto kernel = simple_kernel<16, kCarry, true>;
+    return attributes_of(kernel, allow_smem<kernel>(kSplitSmem),
+                         kSimpleThreads, kSplitSmem, out);
+  }
   if (in.tc) {
     switch (in.D) {
       case 16: return attributes_tc<16, kCarry>(out);
@@ -1152,26 +1267,31 @@ NNSTPU_EXPORT int nnstpu_flash_attention(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const SimpleArgs in{{static_cast<__nv_bfloat16*>(o), nullptr, nullptr,
                        nullptr, sq, sk, 0, 0, 0, causal, scale},
-                      q, k, v, d, 0};
+                      q, k, v, d, 0, nullptr, nullptr};
   return launch<false>(in, bh, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // One ring hop: q (bh, sq, d), k, v (bh, sk, d) contiguous, of dtype
 // DT_BF16 or DT_F32, on 16-byte boundaries; m, l (bh, sq) and acc (bh, sq,
 // d) contiguous float32 carries, updated in place (ops/attention.py
-// flash_chunk_cuda checks and arranges it). q_offset and k_offset are the
-// global positions of q's and k's first rows; sk may be 0 (the carries
-// pass through, nothing is launched).
+// flash_chunk_cuda checks and arranges it). ml: for d above kSliceCols,
+// float32 scratch of 2 * bh * sq (the split kernel's new m, then l), else
+// unused. q_offset and k_offset are the global positions of q's and k's
+// first rows; sk may be 0 (the carries pass through, nothing is launched).
 NNSTPU_EXPORT int nnstpu_flash_chunk(const void* q, const void* k,
                                      const void* v, void* m, void* l,
-                                     void* acc, int bh, int sq, int sk, int d,
-                                     int dtype, int q_offset, int k_offset,
-                                     float scale, int causal, void* stream) {
+                                     void* acc, void* ml, int bh, int sq,
+                                     int sk, int d, int dtype, int q_offset,
+                                     int k_offset, float scale, int causal,
+                                     void* stream) {
   if (sk < 0) return static_cast<int>(cudaErrorInvalidValue);
+  float* m_out = static_cast<float*>(ml);
+  float* l_out =
+      m_out == nullptr ? nullptr : m_out + static_cast<size_t>(bh) * sq;
   const SimpleArgs in{{nullptr, static_cast<float*>(m), static_cast<float*>(l),
                        static_cast<float*>(acc), sq, sk, 0, q_offset,
                        k_offset, causal, scale},
-                      q, k, v, d, 0};
+                      q, k, v, d, 0, m_out, l_out};
   return launch<true>(in, bh, dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -1179,7 +1299,8 @@ NNSTPU_EXPORT int nnstpu_flash_chunk(const void* q, const void* k,
 // on the current device: out[0] registers per thread at launch (the
 // tensor-core body's warpgroups then move them with setmaxnreg), out[1]
 // dynamic shared memory bytes, out[2] resident CTAs per SM, out[3] 1 for
-// the tensor-core body and 0 for the simple one, out[4] its D.
+// the tensor-core body, 0 for the simple one and 2 for the split one,
+// out[4] its D (the split body's: the columns a CTA writes).
 NNSTPU_EXPORT int nnstpu_flash_attributes(int d, int carry, int dtype,
                                           int* out) {
   return carry ? attributes<true>(d, dtype, out)

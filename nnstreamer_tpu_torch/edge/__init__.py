@@ -9,12 +9,14 @@ event callbacks (CAPABILITY / NEW_DATA_RECEIVED parity), and NTP-style
 clock sync utilities.
 
 A copy of the JAX package's ``edge/`` (protocol, handle, fleet, tracex,
-ntp): the two packages put the same bytes on the wire, so a client of one
-talks to a server of the other. Device tensors never touch this layer:
-:func:`protocol.buffer_to_message` brings a frame's tensors to the host
-first. This layer is the IP side: among-device pipeline offload
-(tensor_query) and pub-sub streams (edgesrc/edgesink) over TCP. MQTT and
-hybrid discovery are not part of this package yet.
+ntp, mqtt, discovery): the two packages put the same bytes on the wire,
+so a client of one talks to a server of the other. Device tensors never
+touch this layer: :func:`protocol.buffer_to_message` brings a frame's
+tensors to the host first. This layer is the IP side: among-device
+pipeline offload (tensor_query), pub-sub streams (edgesrc/edgesink) over
+TCP or HYBRID (MQTT discovery of the TCP endpoint), and MQTT broker
+transport (mqtt.py). ``wiring.py``, the deployment analyzer's reader,
+is not part of this package yet.
 """
 
 from nnstreamer_tpu_torch.edge.handle import EdgeClient, EdgeServer  # noqa: F401

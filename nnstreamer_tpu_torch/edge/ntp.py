@@ -4,17 +4,58 @@ The reference's MQTT elements stamp outgoing messages with an NTP-derived
 epoch so receivers on other devices can align stream clocks
 (Documentation/synchronization-in-mqtt-elements.md).
 
-A copy of the JAX package's clock-offset estimate and :class:`ClockSync`
-(edgesrc's timestamp rebasing). Its SNTP client (``sntp_query``,
-``get_epoch``), which only the MQTT elements call, waits for them: this
-module opens no socket.
+We implement the same SNTP client exchange (mode 3 request → server
+transmit timestamp) with a fallback to the local clock when no NTP server
+is reachable (common in airgapped deployments and CI).
+
+A copy of the JAX package's module: the SNTP client (``sntp_query``,
+``get_epoch``, which mqttsink samples once at start when ``ntp=true``),
+the clock-offset estimate and :class:`ClockSync` (edgesrc's and mqttsrc's
+timestamp rebasing).
 """
 
 from __future__ import annotations
 
+import socket
+import struct
 import time
 from dataclasses import dataclass
-from typing import Iterable, Optional, Tuple
+from typing import Iterable, Optional, Sequence, Tuple
+
+# seconds between NTP epoch (1900) and Unix epoch (1970)
+NTP_DELTA = 2208988800
+DEFAULT_SERVERS = (("pool.ntp.org", 123),)
+
+
+def sntp_query(host: str, port: int = 123, timeout: float = 1.0) -> float:
+    """One SNTP exchange; returns the server's transmit time as a Unix
+    epoch float (ntputil_get_epoch, ntputil.c:140)."""
+    packet = bytearray(48)
+    packet[0] = (0 << 6) | (4 << 3) | 3  # LI=0, VN=4, mode=3 (client)
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.settimeout(timeout)
+        s.sendto(bytes(packet), (host, port))
+        data, _ = s.recvfrom(512)
+    if len(data) < 48:
+        raise ValueError("short NTP response")
+    secs, frac = struct.unpack("!II", data[40:48])  # transmit timestamp
+    return secs - NTP_DELTA + frac / 2**32
+
+
+def get_epoch(
+    servers: Optional[Sequence] = None, timeout: float = 1.0
+) -> int:
+    """Best-effort epoch in microseconds: first reachable NTP server wins,
+    else the local wall clock (the reference falls back the same way).
+    ``servers=[]`` explicitly skips the network and uses the local clock."""
+    for entry in DEFAULT_SERVERS if servers is None else servers:
+        host, port = entry if isinstance(entry, (tuple, list)) else (entry, 123)
+        try:
+            return int(sntp_query(str(host), int(port), timeout) * 1e6)
+        except (OSError, ValueError):
+            continue
+    return int(time.time() * 1e6)
+
 
 @dataclass
 class OffsetEstimate:

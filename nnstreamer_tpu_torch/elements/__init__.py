@@ -9,7 +9,9 @@ import nnstreamer_tpu_torch.elements.decoder  # noqa: F401
 import nnstreamer_tpu_torch.elements.edge_elems  # noqa: F401
 import nnstreamer_tpu_torch.elements.filter  # noqa: F401
 import nnstreamer_tpu_torch.elements.flow  # noqa: F401
+import nnstreamer_tpu_torch.elements.grpc_elems  # noqa: F401
 import nnstreamer_tpu_torch.elements.iio_debug  # noqa: F401
+import nnstreamer_tpu_torch.elements.mqtt_elems  # noqa: F401
 import nnstreamer_tpu_torch.elements.mux  # noqa: F401
 import nnstreamer_tpu_torch.elements.platform_sources  # noqa: F401
 import nnstreamer_tpu_torch.elements.query  # noqa: F401

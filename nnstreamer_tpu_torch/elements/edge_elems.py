@@ -7,8 +7,9 @@ buffer), edgesrc subscribes by connecting to the sink's host:port.
 Timestamps can be rebased with the NTP epoch carried per message
 (mqtt-hybrid sync model, Documentation/synchronization-in-mqtt-elements.md).
 
-A copy of the JAX package's elements, over TCP only: ``connect-type=HYBRID``
-needs MQTT discovery, which this package does not have yet, and raises.
+A copy of the JAX package's elements: over TCP, or ``connect-type=HYBRID``
+with the publisher's TCP endpoint announced and discovered over MQTT
+(``edge/discovery.py``); each package's sink feeds the other's source.
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ from nnstreamer_tpu_torch.caps import Caps
 from nnstreamer_tpu_torch.edge import protocol as proto
 from nnstreamer_tpu_torch.edge.handle import EdgeClient, EdgeServer
 from nnstreamer_tpu_torch.edge.ntp import ClockSync
-from nnstreamer_tpu_torch.elements.query import _hybrid_unported
 from nnstreamer_tpu_torch.log import ElementError
 from nnstreamer_tpu_torch.pipeline.element import (
     Element,
@@ -57,16 +57,25 @@ class EdgeSink(Element):
         self.add_sink_pad("sink")
 
     def start(self) -> None:
-        if str(self.properties.get("connect_type", "TCP")).upper() == \
-                "HYBRID":
-            raise _hybrid_unported(self.name)
         host = str(self.properties.get("host", "localhost"))
         port = int(self.properties.get("port", 0))
         self._server = EdgeServer(host=host, port=port, caps=self._caps_str)
         self._server.start()
+        if str(self.properties.get("connect_type", "TCP")).upper() == "HYBRID":
+            # hybrid mode: publish our TCP endpoint on the broker named by
+            # dest-host/dest-port (nnstreamer-edge HYBRID parity)
+            from nnstreamer_tpu_torch.edge.discovery import start_hybrid_announcer
+
+            self._announcer = start_hybrid_announcer(
+                self.name, self.properties, host, self._server.port
+            )
         self.post_message("server-started", {"port": self._server.port})
 
     def stop(self) -> None:
+        ann = getattr(self, "_announcer", None)
+        if ann is not None:
+            ann.close()
+            self._announcer = None
         if self._server is not None:
             self._server.close()
             self._server = None
@@ -117,9 +126,22 @@ class EdgeSrc(SourceElement):
     def start(self) -> None:
         host = str(self.properties.get("host", "localhost"))
         port = int(self.properties.get("port", 0))
-        if str(self.properties.get("connect_type", "TCP")).upper() == \
-                "HYBRID":
-            raise _hybrid_unported(self.name)
+        if str(self.properties.get("connect_type", "TCP")).upper() == "HYBRID":
+            from nnstreamer_tpu_torch.edge.discovery import discover
+
+            topic = str(self.properties.get("topic", ""))
+            if not topic or not port:
+                raise ElementError(
+                    self.name,
+                    "connect-type=HYBRID needs topic= and broker host=/port=",
+                )
+            try:
+                host, port = discover(
+                    host, port, topic,
+                    timeout=float(self.properties.get("timeout", 10.0)),
+                )
+            except Exception as e:
+                raise ElementError(self.name, f"hybrid discovery failed: {e}")
         if not port:
             raise ElementError(self.name, "edgesrc needs port=")
         self._client = EdgeClient(

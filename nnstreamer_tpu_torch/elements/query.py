@@ -16,10 +16,10 @@ one listener.
 A copy of the JAX package's elements over this package's transport and
 serving tier; the two packages' clients and servers talk to each other.
 The serversink brings a batch's outputs to the host once (one d2h per
-batch) before it slices them per client. Not part of this package yet:
-``connect-type=HYBRID`` (MQTT discovery), the replica pool
-(``replicas=N|auto``) — both raise — and sharded serve-batch placement
-into a ``shard=dp`` filter.
+batch) before it slices them per client. ``connect-type=HYBRID`` discovers
+the server's TCP endpoint over MQTT (``edge/discovery.py``). Not part of
+this package yet: the replica pool (``replicas=N|auto``, which raises) and
+sharded serve-batch placement into a ``shard=dp`` filter.
 """
 
 from __future__ import annotations
@@ -119,17 +119,6 @@ def _release_server(key: str) -> None:
         if _server_refs[key] <= 0:
             _server_table.pop(key).close()
             _server_refs.pop(key, None)
-
-
-def _hybrid_unported(element: str) -> ElementError:
-    """``connect-type=HYBRID`` discovers the server over MQTT
-    (``edge/discovery.py`` and ``edge/mqtt.py`` in the JAX package),
-    which this package does not have yet. Fail loudly; never fall back
-    to plain TCP."""
-    return ElementError(
-        element, "connect-type=HYBRID needs MQTT discovery "
-                 "(edge/discovery.py, edge/mqtt.py), which "
-                 "nnstreamer_tpu_torch does not have yet; use TCP")
 
 
 def _replicas_unported(element: str, value: str) -> ElementError:
@@ -264,8 +253,25 @@ class TensorQueryClient(Element):
             host, port = eps[0]
         ctype = str(self.properties.get("connect_type", "TCP")).upper()
         if ctype == "HYBRID":
-            raise _hybrid_unported(self.name)
-        if ctype != "TCP":
+            # nnstreamer-edge hybrid mode: host/port name the MQTT broker;
+            # the server's TCP endpoint is discovered from `topic`
+            from nnstreamer_tpu_torch.edge.discovery import discover
+
+            topic = str(self.properties.get("topic", ""))
+            if not topic or not port:
+                raise ElementError(
+                    self.name,
+                    "connect-type=HYBRID needs topic= and broker host=/port=",
+                )
+            try:
+                host, port = discover(
+                    host, port, topic,
+                    timeout=float(self.properties.get("timeout",
+                                                      QUERY_DEFAULT_TIMEOUT_SEC)),
+                )
+            except Exception as e:
+                raise ElementError(self.name, f"hybrid discovery failed: {e}")
+        elif ctype != "TCP":
             raise ElementError(
                 self.name,
                 f"unknown connect-type {ctype!r} (TCP or HYBRID)",
@@ -1276,9 +1282,6 @@ class TensorQueryServerSrc(SourceElement):
         return max(1, int(self.properties.get("serve_batch", 1) or 1))
 
     def start(self) -> None:
-        if str(self.properties.get("connect_type", "TCP")).upper() == \
-                "HYBRID":
-            raise _hybrid_unported(self.name)
         replicas = str(self.properties.get("replicas", "off")).strip().lower()
         if replicas not in ("", "off", "1"):
             raise _replicas_unported(self.name, replicas)
@@ -1300,6 +1303,14 @@ class TensorQueryServerSrc(SourceElement):
             raise ElementError(
                 self.name, "ctl=1 needs serve=1 (the controller steers "
                            "the serving scheduler's knobs)")
+        if str(self.properties.get("connect_type", "TCP")).upper() == "HYBRID":
+            # announce our bound TCP endpoint on the broker named by
+            # dest-host/dest-port so HYBRID clients can discover it
+            from nnstreamer_tpu_torch.edge.discovery import start_hybrid_announcer
+
+            self._announcer = start_hybrid_announcer(
+                self.name, self.properties, host, self._server.port
+            )
         from nnstreamer_tpu_torch.edge.fleet import RidFilter
 
         self._rid_filter = RidFilter()
@@ -1399,6 +1410,10 @@ class TensorQueryServerSrc(SourceElement):
             self._health_stop = None
         if self._server is not None:
             self._server.health_provider = None
+        ann = getattr(self, "_announcer", None)
+        if ann is not None:
+            ann.close()
+            self._announcer = None
         if self._ctl is not None:
             self._ctl.stop()
             self._ctl = None

@@ -84,7 +84,7 @@ _SIGNATURES = {
     "nnstpu_fused_inverted_residual": [_P, _P, _P, _I, _P],
     "nnstpu_fused_attributes": [_I, _LL, _P],
     "nnstpu_flash_attention": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
-    "nnstpu_flash_chunk": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    "nnstpu_flash_chunk": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
     "nnstpu_flash_attributes": [_I, _I, _I, _P],
 }
 

@@ -20,8 +20,9 @@ Single device:
     ``flash_chunk_pallas``. A CUDA tensor launches the hand-written kernel
     in ``csrc/attention.cu`` or raises; a CPU tensor runs the plain version
     at the kernel's own block size. The kernels take bfloat16 and float32
-    at any head_dim from 1 to :data:`MAX_HEAD_DIM` (:func:`kernel_instance`
-    names the body and instantiation each one runs);
+    at every head_dim from 1 up (:func:`kernel_instance` names the body and
+    instantiation each one runs; above :data:`SLICE_COLS` the output's
+    columns are split over the grid);
   - :func:`flash_attention_auto`: the model's entry point. A CUDA tensor
     always goes to the kernel, which takes ragged sequences: the JAX
     package's tiling gate (head_dim % 128, block divisibility, the VMEM
@@ -67,12 +68,13 @@ _NEG_INF = -1e30
 #: versions run at BLOCK_K, since p's bf16 rounding depends on the block
 BLOCK_Q = 128
 BLOCK_K = 128
-#: the kernels' instantiations (kTcDims, kSimpleDims, kMaxHeadDim in
+#: the kernels' instantiations (kTcDims, kSimpleDims, kSliceCols in
 #: csrc/attention.cu): the tensor-core body's D, the simple body's D, and
-#: the largest head_dim either takes
+#: the output columns one CTA of the split body writes, which takes every
+#: head_dim above the simple body's widest
 TC_HEAD_DIMS = (16, 32, 64, 128)
 SIMPLE_HEAD_DIMS = (32, 64, 128, 256)
-MAX_HEAD_DIM = 256
+SLICE_COLS = 256
 #: the dtypes the kernels read and write
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -196,19 +198,29 @@ def kernel_instance(d: int, dtype: torch.dtype):
     """``(body, D)``: the CTA body and instantiation the kernels run for
     head_dim ``d`` in ``dtype``, as ``instance_of`` in csrc/attention.cu
     picks them. The tensor-core body (wgmma, TMA) takes bf16 at ``d`` in
-    :data:`TC_HEAD_DIMS`; the simple body (float32 FMAs) takes the rest at
-    the least D of :data:`SIMPLE_HEAD_DIMS` not below ``d``."""
+    :data:`TC_HEAD_DIMS`; the simple body (float32 FMAs) takes the rest up
+    to the widest of :data:`SIMPLE_HEAD_DIMS`, at the least D not below
+    ``d``; above it the split body (``simple_split``) runs
+    :func:`head_dim_slices` CTAs per q tile, each writing ``D =``
+    :data:`SLICE_COLS` output columns (the last slice fewer)."""
     _check_kernel_dims("flash attention", d, dtype)
     if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
         return "tensor_core", d
+    if d > SIMPLE_HEAD_DIMS[-1]:
+        return "simple_split", SLICE_COLS
     return "simple", min(D for D in SIMPLE_HEAD_DIMS if D >= d)
+
+
+def head_dim_slices(d: int) -> int:
+    """CTAs per q tile along the grid's third dimension: 1 up to
+    :data:`SLICE_COLS`, then one per ``SLICE_COLS`` output columns."""
+    return 1 if d <= SLICE_COLS else -(-d // SLICE_COLS)
 
 
 def _check_kernel_dims(what: str, d: int, dtype: torch.dtype) -> None:
     _cuda.require(dtype in KERNEL_DTYPES, f"{what} takes bfloat16 or "
                   f"float32 on CUDA, got {dtype}")
-    _cuda.require(1 <= d <= MAX_HEAD_DIM, f"{what} takes head_dim 1 to "
-                  f"{MAX_HEAD_DIM}, got {d}")
+    _cuda.require(d >= 1, f"{what} takes head_dim of at least 1, got {d}")
 
 
 def _check_kernel_inputs(what: str, q, k, v) -> None:
@@ -222,9 +234,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = False,
     """Flash-attention forward through the hand-written CUDA kernel.
 
     q: (..., sq, d); k, v: (..., sk, d) with the same leading dims; bf16 or
-    float32, the output in their dtype; d from 1 to :data:`MAX_HEAD_DIM`;
-    any sq, sk. A CPU tensor runs :func:`flash_attention_plain` at the
-    kernel's ``BLOCK_K``."""
+    float32, the output in their dtype; any d from 1 up; any sq, sk. A CPU
+    tensor runs :func:`flash_attention_plain` at the kernel's
+    ``BLOCK_K``."""
     *lead, sq, d = q.shape
     sk = k.shape[-2]
     if _cuda.on_cpu(q):
@@ -259,11 +271,14 @@ def flash_chunk_cuda(q, k, v, m, l, acc, *, q_offset: int, k_offset: int,
                      causal: bool = False, scale: Optional[float] = None):
     """One chunk update through the hand-written CUDA kernel. Updates the
     carries IN PLACE and returns them: a caller that compares carries
-    clones them first.
+    clones them first. Above :data:`SLICE_COLS` every CTA of a q tile
+    reads the old m and l, so the kernel writes the new ones to scratch
+    allocated here, and the library copies them over the carries after
+    the kernel, in stream order.
 
-    q: (bh, sq, d); k, v: (bh, sk, d), bf16 or float32, d from 1 to
-    :data:`MAX_HEAD_DIM`, any sq and sk; m, l: (bh, sq) and acc: (bh, sq,
-    d), float32, contiguous and 16-byte aligned. A CPU tensor runs
+    q: (bh, sq, d); k, v: (bh, sk, d), bf16 or float32, any d from 1 up,
+    any sq and sk; m, l: (bh, sq) and acc: (bh, sq, d), float32,
+    contiguous and 16-byte aligned. A CPU tensor runs
     :func:`flash_chunk_plain` at the kernel's ``BLOCK_K`` and copies its
     result into the carries."""
     bh, sq, d = q.shape
@@ -296,11 +311,14 @@ def flash_chunk_cuda(q, k, v, m, l, acc, *, q_offset: int, k_offset: int,
     if bh == 0 or sq == 0 or sk == 0:
         return m, l, acc
     q, k, v = (_aligned(t) for t in (q, k, v))
+    ml = (torch.empty((2, bh, sq), dtype=torch.float32, device=q.device)
+          if head_dim_slices(d) > 1 else None)
     lib = _cuda.lib()
     with torch.cuda.device(q.device):
         err = lib.nnstpu_flash_chunk(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
-            l.data_ptr(), acc.data_ptr(), bh, sq, sk, d,
+            l.data_ptr(), acc.data_ptr(),
+            0 if ml is None else ml.data_ptr(), bh, sq, sk, d,
             _cuda.DTYPE_CODES[q.dtype], int(q_offset), int(k_offset),
             float(scale), int(bool(causal)), _cuda.stream_handle(q))
     _cuda.check(err, "flash_chunk")
@@ -320,7 +338,8 @@ def flash_kernel_attributes(d: int, carry: bool = False,
     _cuda.check(_cuda.lib().nnstpu_flash_attributes(
         d, int(bool(carry)), _cuda.DTYPE_CODES[dtype], out),
         "flash_kernel_attributes")
-    if (out[3] == 1) != (body == "tensor_core") or out[4] != D:
+    bodies = {0: "simple", 1: "tensor_core", 2: "simple_split"}
+    if bodies.get(out[3]) != body or out[4] != D:
         raise RuntimeError(f"the library runs head_dim {d} {dtype} on "
                            f"body {out[3]} at D {out[4]}, not {body} {D}")
     return {"registers": out[0], "dynamic_smem_bytes": out[1],

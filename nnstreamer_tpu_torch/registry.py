@@ -60,8 +60,12 @@ _BUILTINS: Dict[Tuple[str, str], str] = {
     (DECODER, "tensor_region"): "nnstreamer_tpu_torch.decoders.tensor_region",
     (DECODER, "flexbuf"): "nnstreamer_tpu_torch.decoders.flexbuf",
     (DECODER, "python3"): "nnstreamer_tpu_torch.decoders.python3",
+    (DECODER, "protobuf"): "nnstreamer_tpu_torch.decoders.protobuf",
+    (DECODER, "flatbuf"): "nnstreamer_tpu_torch.decoders.flatbuf",
     (CONVERTER, "flexbuf"): "nnstreamer_tpu_torch.converters.flexbuf",
     (CONVERTER, "python3"): "nnstreamer_tpu_torch.converters.python3",
+    (CONVERTER, "protobuf"): "nnstreamer_tpu_torch.converters.protobuf",
+    (CONVERTER, "flatbuf"): "nnstreamer_tpu_torch.converters.flatbuf",
 }
 
 

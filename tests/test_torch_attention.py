@@ -13,8 +13,10 @@ taken in another order, which can flip a bf16 rounding).
 
 import contextlib
 import ctypes
+import functools
 import os
 import re
+import unittest.mock as mock
 
 import numpy as np
 import pytest
@@ -224,10 +226,11 @@ def test_kernel_source_declares_the_wrapper_tile():
 
 
 def test_kernel_attributes_refuse_a_head_dim_without_a_kernel():
-    """The card-side query names only head dims a kernel takes; another one
-    is refused before the library is built or loaded."""
-    with pytest.raises(ValueError, match="head_dim 1 to 256, got 257"):
-        port_attn.flash_kernel_attributes(257)
+    """The card-side query names only head dims a kernel takes (every one
+    from 1 up); another one is refused before the library is built or
+    loaded."""
+    with pytest.raises(ValueError, match="head_dim of at least 1, got 0"):
+        port_attn.flash_kernel_attributes(0)
 
 
 def test_wrapper_counts_no_launch_on_cpu_and_refuses_other_devices():
@@ -244,7 +247,7 @@ def test_wrapper_counts_no_launch_on_cpu_and_refuses_other_devices():
 def test_kernel_is_built_and_bound():
     assert "attention.cu" in _cuda._sources()
     assert "nnstpu_flash_attention" in _cuda._SIGNATURES
-    assert port_attn.MAX_HEAD_DIM == 256
+    assert port_attn.SLICE_COLS == 256
     assert port_attn.KERNEL_DTYPES == (torch.bfloat16, torch.float32)
 
 
@@ -336,11 +339,11 @@ class _RecordingLib:
             code=code, scale=scale, causal=causal))
         return 0
 
-    def nnstpu_flash_chunk(self, q, k, v, m, l, acc, bh, sq, sk, d, code,
-                           q_offset, k_offset, scale, causal, stream):
+    def nnstpu_flash_chunk(self, q, k, v, m, l, acc, ml, bh, sq, sk, d,
+                           code, q_offset, k_offset, scale, causal, stream):
         self.calls.append(dict(
             q=_read(q, bh * sq * d, code), k=_read(k, bh * sk * d, code),
-            v=_read(v, bh * sk * d, code), carries=(m, l, acc),
+            v=_read(v, bh * sk * d, code), carries=(m, l, acc), ml=ml,
             shape=(bh, sq, sk, d), code=code, offsets=(q_offset, k_offset),
             scale=scale, causal=causal))
         return 0
@@ -395,15 +398,14 @@ def test_cuda_branch_passes_dtype_dim_and_rows(recording_lib, dtype, d):
     assert call["shape"] == (6, 40, 70, d) and call["code"] == code
     assert call["offsets"] == (70, 0) and call["scale"] == 0.5
     assert call["carries"] == tuple(c.data_ptr() for c in carries)
+    assert call["ml"] in (0, None)  # no scratch up to 256 columns
     np.testing.assert_array_equal(call["q"], q3.float().reshape(-1).numpy())
     assert _cuda.LAUNCHES["flash_chunk"] == 1
 
 
 def _refused_cases():
     f32, bf16 = torch.float32, torch.bfloat16
-    return {"d0": ((2, 16, 0), (f32,) * 3, "head_dim 1 to 256, got 0"),
-            "d257": ((2, 16, 257), (f32,) * 3, "head_dim 1 to 256, got 257"),
-            "d257_bf16": ((2, 16, 257), (bf16,) * 3, "got 257"),
+    return {"d0": ((2, 16, 0), (f32,) * 3, "head_dim of at least 1, got 0"),
             "float16": ((2, 16, 64), (torch.float16,) * 3,
                         "bfloat16 or float32 on CUDA, got torch.float16"),
             "mixed": ((2, 16, 64), (f32, bf16, f32), "of one dtype")}
@@ -425,7 +427,7 @@ def test_cuda_branch_refuses_what_no_kernel_takes(recording_lib, case, fn):
 
 
 @pytest.mark.parametrize("d,dtype", [(0, torch.float32),
-                                     (257, torch.bfloat16),
+                                     (-1, torch.bfloat16),
                                      (64, torch.float16)])
 def test_kernel_attributes_refuse_outside_the_limits(d, dtype):
     with pytest.raises(ValueError):
@@ -441,22 +443,31 @@ def _cu_table(name: str):
 
 def test_instantiation_table_matches_the_wrapper_limits():
     """The kernel source's instantiation tables are the wrapper's, every
-    entry has a launch case, and every head dim from 1 to the limit in
-    either dtype reaches one of them at a D not below it."""
+    entry has a launch case, every head dim up to the widest simple D in
+    either dtype reaches one of them at a D not below it, and every wider
+    one the split body in ceil(d / 256) slices of 256 columns."""
     tc, src = _cu_table("kTcDims")
     simple, _ = _cu_table("kSimpleDims")
     assert tc == port_attn.TC_HEAD_DIMS
     assert simple == port_attn.SIMPLE_HEAD_DIMS
-    limit = int(re.search(r"constexpr int kMaxHeadDim = (\d+);",
-                          src).group(1))
-    assert limit == port_attn.MAX_HEAD_DIM == simple[-1]
+    cols = int(re.search(r"constexpr int kSliceCols = (\d+);",
+                         src).group(1))
+    assert cols == port_attn.SLICE_COLS == simple[-1]
+    assert "kMaxHeadDim" not in src
     for D in tc:
         assert f"case {D}: return launch_tc<{D}, kCarry>" in src
     for D in simple:
         assert f"case {D}: return launch_simple<{D // 16}, kCarry>" in src
+    assert "return launch_split<kCarry>(in, grid, inst.slices, bh, s);" in src
     for dtype in port_attn.KERNEL_DTYPES:
-        for d in range(1, limit + 1):
+        for d in range(1, 3 * cols + 2):
             body, D = port_attn.kernel_instance(d, dtype)
+            slices = port_attn.head_dim_slices(d)
+            if d > cols:
+                assert (body, D) == ("simple_split", cols)
+                assert (slices - 1) * cols < d <= slices * cols
+                continue
+            assert slices == 1
             assert D >= d and D in (tc if body == "tensor_core" else simple)
             assert (body == "tensor_core") == (dtype == torch.bfloat16
                                                and d in tc)
@@ -469,3 +480,100 @@ def test_instantiation_table_matches_the_wrapper_limits():
     assert port_attn.kernel_instance(48, torch.bfloat16) == ("simple", 64)
     assert port_attn.kernel_instance(64, torch.float32) == ("simple", 64)
     assert port_attn.kernel_instance(20, torch.bfloat16) == ("simple", 32)
+    assert port_attn.kernel_instance(257, torch.bfloat16) == ("simple_split",
+                                                              256)
+    assert port_attn.head_dim_slices(512) == 2
+    assert port_attn.head_dim_slices(513) == 3
+
+
+# -- head dims above 256: the split body -----------------------------------
+
+#: head dims past the simple body's widest D: one column over, a ragged
+#: last slice, and two multiples of 128 (the Pallas kernel's tiling)
+SPLIT_DIMS = (257, 320, 384, 512)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", SPLIT_DIMS)
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_head_dims_match_jax_blockwise(dtype, d, causal):
+    """Above 256 the wrapper on a CPU tensor runs: its plain version
+    against the JAX package's blockwise recurrence at the kernels' 128-key
+    blocks, at a ragged query length."""
+    q, k, v = _qkv((2, 200, d), 50 + d, sk=256)
+    want = _jax(jax_attn.flash_attention, q, k, v, getattr(jnp, dtype),
+                causal=causal, block_size=port_attn.BLOCK_K)
+    got = _port(port_attn.flash_attention_cuda, q, k, v,
+                getattr(torch, dtype), causal=causal)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=ATOL)
+    else:
+        _assert_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("d", [d for d in SPLIT_DIMS if d % 128 == 0])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_head_dims_match_pallas_kernel_interpret(d, causal):
+    """Where the JAX package runs its Pallas kernel (d % 128 == 0), the
+    wrapper's plain version against it in interpret mode at the CUDA
+    kernel's 128-row, 128-key blocks, float32."""
+    q, k, v = _qkv((2, 256, d), 60 + d)
+    want = _jax(jax_attn.flash_attention_pallas, q, k, v, causal=causal,
+                block_q=port_attn.BLOCK_Q, block_k=port_attn.BLOCK_K,
+                interpret=True)
+    got = _port(port_attn.flash_attention_cuda, q, k, v, causal=causal)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def _pallas_chunk(*args, **kw):
+    from jax.experimental import pallas as pl
+
+    with mock.patch.object(pl, "pallas_call", functools.partial(
+            pl.pallas_call, interpret=True)):
+        return jax_attn.flash_chunk_pallas(
+            *(jnp.asarray(a) for a in args), **kw)
+
+
+@pytest.mark.parametrize("d", [d for d in SPLIT_DIMS if d % 128 == 0])
+def test_wide_chunk_matches_pallas_kernel_interpret(d):
+    """The chunk wrapper on a CPU tensor at d above 256 against the
+    Pallas chunk kernel in interpret mode at 128-row, 128-key blocks:
+    a past hop, then the diagonal hop on its carries, float32."""
+    bh, sq = 2, 256
+    scale = 1.0 / d ** 0.5
+    q, k0, v0, k, v = (_qkv((bh, sq, d), 80 + d + i)[0] for i in range(5))
+    fresh = (np.full((bh, sq), jax_attn._NEG_INF, np.float32),
+             np.zeros((bh, sq), np.float32), np.zeros((bh, sq, d), np.float32))
+    blocks = dict(block_q=port_attn.BLOCK_Q, block_k=port_attn.BLOCK_K)
+    hops = (dict(q_offset=sq, k_offset=0, causal=True, scale=scale),
+            dict(q_offset=sq, k_offset=sq, causal=True, scale=scale))
+    want = _pallas_chunk(q, k0, v0, *fresh, **hops[0], **blocks)
+    want = _pallas_chunk(q, k, v, *want, **hops[1], **blocks)
+    carries = [torch.from_numpy(c.copy()) for c in fresh]
+    tq, tk0, tv0, tk, tv = (torch.from_numpy(a) for a in (q, k0, v0, k, v))
+    port_attn.flash_chunk_cuda(tq, tk0, tv0, *carries, **hops[0])
+    got = port_attn.flash_chunk_cuda(tq, tk, tv, *carries, **hops[1])
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL,
+                                   rtol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", SPLIT_DIMS)
+def test_cuda_branch_passes_wide_head_dims(recording_lib, dtype, d):
+    """Above 256 the CUDA branch launches both kernels at the given head
+    dim, and hands the chunk kernel float32 scratch for the new m and l
+    (2 x bh x sq) apart from the carries it updates."""
+    tdt = getattr(torch, dtype)
+    q, k = (torch.zeros((3, s, d), dtype=tdt) for s in (40, 70))
+    out = port_attn.flash_attention_cuda(q, k, k)
+    assert out.shape == q.shape and out.dtype == tdt
+    carries = port_attn._fresh_carries(3, 40, d, "cpu")
+    port_attn.flash_chunk_cuda(q, k, k, *carries, q_offset=0, k_offset=0)
+    flash, chunk = recording_lib.calls
+    assert flash["shape"] == chunk["shape"] == (3, 40, 70, d)
+    assert chunk["carries"] == tuple(c.data_ptr() for c in carries)
+    assert chunk["ml"] not in (0, None)
+    assert chunk["ml"] not in chunk["carries"]
+    assert _cuda.LAUNCHES["flash_attention"] == 1
+    assert _cuda.LAUNCHES["flash_chunk"] == 1

@@ -7,7 +7,13 @@ traced, several tensors, flexible, a 0-d reply row, uint8 / float32 /
 int32), each package decodes the other's frames, a CPU ``torch.Tensor``
 encodes to the bytes of its numpy twin, and the handles and elements of
 one package talk to those of the other over loopback TCP (``port=0``).
-Comparisons are exact: the wire carries bytes, not rounded numbers.
+``connect-type=HYBRID`` (MQTT discovery of the TCP endpoint) runs across
+packages too: query offload and edgesink/edgesrc with the server or
+publisher of one package and the client of the other on either package's
+broker, the discovery timeout, a misconfigured element failing alike in
+both, the announce-host choice (its UDP probe faked) and the live
+directory. Comparisons are exact: the wire carries bytes, not rounded
+numbers.
 Every socket wait, ``pull`` and ``join`` below has a bound.
 """
 
@@ -429,24 +435,238 @@ def test_edgesink_to_edgesrc(pub_pkg, sub_pkg):
         np.testing.assert_array_equal(o, np.full(4, float(i), np.float32))
 
 
-@pytest.mark.parametrize("line", [
-    "appsrc caps=%s ! tensor_query_client port=1 connect-type=HYBRID "
-    "topic=t ! tensor_sink" % CAPS4,
-    "tensor_query_serversrc id=h port=0 connect-type=HYBRID topic=t "
-    "caps=%s ! tensor_query_serversink id=h" % CAPS4,
-    "appsrc caps=%s ! edgesink port=0 connect-type=HYBRID topic=t" % CAPS4,
-    "edgesrc port=1 connect-type=HYBRID topic=t ! tensor_sink",
-], ids=["query_client", "query_serversrc", "edgesink", "edgesrc"])
-def test_hybrid_refuses_and_names_the_missing_module(line):
-    """connect-type=HYBRID needs MQTT discovery, which the port does not
-    have: starting the element raises and names it; nothing falls back
-    to plain TCP."""
-    p = tpipeline.parse_launch(line)
+def _closed_port() -> int:
+    """A port nothing listens on: bound, then closed."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+#: connect-type=HYBRID started without a reachable broker (the clients
+#: discover through one) or without one named (the announcers): what each
+#: must say
+HYBRID_FAULTS = {
+    "query_client": ("appsrc caps=%s ! tensor_query_client port={port} "
+                     "connect-type=HYBRID topic=t timeout=2 ! tensor_sink"
+                     % CAPS4, "hybrid discovery failed"),
+    "query_serversrc": ("tensor_query_serversrc id=h{pkg} port=0 "
+                        "connect-type=HYBRID topic=t caps=%s ! "
+                        "tensor_query_serversink id=h{pkg}" % CAPS4,
+                        "needs topic= and broker dest-host=/dest-port="),
+    "edgesink": ("appsrc caps=%s ! edgesink port=0 connect-type=HYBRID "
+                 "topic=t" % CAPS4,
+                 "needs topic= and broker dest-host=/dest-port="),
+    "edgesrc": ("edgesrc port={port} connect-type=HYBRID topic=t timeout=2 "
+                "! tensor_sink", "hybrid discovery failed"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HYBRID_FAULTS))
+def test_hybrid_misconfigured_fails_alike(case):
+    """Starting a HYBRID element with no broker to reach, or none named,
+    raises in both packages with the same message; nothing falls back to
+    plain TCP."""
+    line, msg = HYBRID_FAULTS[case]
+    for pkg in PKG:
+        p = PKG[pkg]["pipeline"].parse_launch(
+            line.format(port=_closed_port(), pkg=pkg))
+        try:
+            with pytest.raises(Exception, match=msg):
+                p.play()
+        finally:
+            p.stop()
+
+
+@pytest.fixture
+def brokers():
+    """One running MqttBroker of each package, by package name."""
+    from nnstreamer_tpu.edge.mqtt import MqttBroker as JBroker
+    from nnstreamer_tpu_torch.edge.mqtt import MqttBroker as TBroker
+
+    bs = {"jax": JBroker(), "port": TBroker()}
+    for b in bs.values():
+        b.start()
+    yield bs
+    for b in bs.values():
+        b.close()
+
+
+#: (server or publisher, client or subscriber, broker) packages
+HYBRID_PAIRS = [("port", "port", "port"), ("jax", "port", "port"),
+                ("port", "jax", "jax")]
+
+
+@pytest.mark.parametrize("server_pkg,client_pkg,broker_pkg", HYBRID_PAIRS)
+def test_query_hybrid_loopback(doublers, brokers, server_pkg, client_pkg,
+                               broker_pkg):
+    """tensor_query_serversrc connect-type=HYBRID announces its bound TCP
+    port (port=0) on the broker; a HYBRID tensor_query_client of either
+    package discovers it there and gets its doubled frames back."""
+    bport = brokers[broker_pkg].port
+    sid = f"hyb{server_pkg}{client_pkg}"
+    srv = PKG[server_pkg]["pipeline"].parse_launch(
+        f"tensor_query_serversrc name=ssrc id={sid} port=0 "
+        f"connect-type=HYBRID topic=nns/hyb/ep dest-host=localhost "
+        f"dest-port={bport} caps={CAPS4} ! tensor_filter "
+        f"framework=custom-easy model=edge_double ! tensor_query_serversink "
+        f"id={sid}")
+    srv.play()
+    try:
+        assert srv["ssrc"].port > 0
+        k = PKG[client_pkg]
+        cl = k["pipeline"].parse_launch(
+            f"appsrc name=src caps={CAPS4} ! tensor_query_client "
+            f"connect-type=HYBRID host=localhost port={bport} "
+            "topic=nns/hyb/ep timeout=15 ! tensor_sink name=out")
+        cl.play()
+        try:
+            for i in range(3):
+                cl["src"].push_buffer(k["Buffer"](
+                    tensors=[np.full(4, float(i + 1), np.float32)], pts=i))
+            cl["src"].end_of_stream()
+            assert cl.bus.wait_eos(15)
+            assert cl.bus.error is None, cl.bus.error
+            outs = [np.asarray(b[0]).reshape(-1) for b in cl["out"].collected]
+        finally:
+            cl.stop()
+    finally:
+        srv.stop()
+    assert len(outs) == 3
+    for i, o in enumerate(outs):
+        np.testing.assert_array_equal(o, np.full(4, 2.0 * (i + 1),
+                                                 np.float32))
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_hybrid_discovery_timeout(brokers, pkg):
+    """A HYBRID client whose topic nobody announces on gives up after its
+    timeout, in both packages."""
+    p = PKG[pkg]["pipeline"].parse_launch(
+        f"appsrc name=src caps={CAPS4} ! tensor_query_client "
+        f"connect-type=HYBRID host=localhost port={brokers[pkg].port} "
+        "topic=nns/nobody/here timeout=1 ! tensor_sink name=out")
+    t0 = time.monotonic()
     try:
         with pytest.raises(Exception, match="discovery"):
             p.play()
     finally:
         p.stop()
+    assert time.monotonic() - t0 < 10
+
+
+@pytest.mark.parametrize("pub_pkg,sub_pkg,broker_pkg", HYBRID_PAIRS)
+def test_edgesink_edgesrc_hybrid(brokers, pub_pkg, sub_pkg, broker_pkg):
+    """edgesink connect-type=HYBRID announces its listener; an edgesrc
+    connect-type=HYBRID of either package discovers it and receives every
+    frame, in order."""
+    bport = brokers[broker_pkg].port
+    pk, sk = PKG[pub_pkg], PKG[sub_pkg]
+    pub = pk["pipeline"].parse_launch(
+        f"appsrc name=src caps={CAPS4} ! edgesink name=es "
+        "connect-type=HYBRID topic=nns/hyb/pub dest-host=localhost "
+        f"dest-port={bport}")
+    pub.play()
+    sub = None
+    try:
+        sub = sk["pipeline"].parse_launch(
+            f"edgesrc connect-type=HYBRID host=localhost port={bport} "
+            "topic=nns/hyb/pub timeout=15 ! tensor_sink name=out")
+        sub.play()
+        assert _wait_for(lambda: bool(pub["es"]._server._conns))
+        for i in range(3):
+            pub["src"].push_buffer(pk["Buffer"](
+                tensors=[np.full(4, float(i), np.float32)], pts=i))
+        assert _wait_for(lambda: len(sub["out"].collected) >= 3)
+        outs = [np.asarray(b[0]).reshape(-1) for b in sub["out"].collected]
+        pts = [b.pts for b in sub["out"].collected]
+    finally:
+        if sub is not None:
+            sub.stop()
+        pub.stop()
+    assert pts == [0, 1, 2]
+    for i, o in enumerate(outs):
+        np.testing.assert_array_equal(o, np.full(4, float(i), np.float32))
+
+
+class _FakeUdp:
+    """Stands in for ``socket.socket`` in resolve_announce_host: records
+    the address a UDP socket is connected to (which sends nothing) and
+    names ``local`` as the outbound interface, or refuses with OSError
+    when ``local`` is None (an unresolvable broker)."""
+
+    local = None
+    seen = []
+
+    def __init__(self, family, kind):
+        assert kind == socket.SOCK_DGRAM
+        self.addr = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def connect(self, addr):
+        _FakeUdp.seen.append(addr)
+        if _FakeUdp.local is None:
+            raise OSError("unresolvable")
+
+    def getsockname(self):
+        return (_FakeUdp.local, 5)
+
+
+@pytest.mark.parametrize("bind,broker,local,want", [
+    ("localhost", "broker.example", None, "localhost"),
+    ("127.0.0.1", "10.0.0.9", None, "127.0.0.1"),
+    ("10.1.2.3", "b.example", None, "10.1.2.3"),
+    ("0.0.0.0", "localhost", None, "127.0.0.1"),
+    ("0.0.0.0", "10.0.0.9", "10.9.8.7", "10.9.8.7"),
+    ("0.0.0.0", "no-such-host.invalid", None, "127.0.0.1"),
+    ("", "10.0.0.9", "10.9.8.7", "10.9.8.7"),
+], ids=["loopback", "loopback_ip", "concrete", "wildcard_local_broker",
+        "wildcard_outbound", "wildcard_unresolvable", "empty_outbound"])
+def test_announce_host_matches(monkeypatch, bind, broker, local, want):
+    """HYBRID announce address selection, in both packages alike: a
+    loopback or concrete bind is announced as it is; a wildcard bind
+    never literally — loopback for a local broker, else the outbound
+    interface toward the broker (a UDP connect, faked here so nothing
+    leaves the host), else loopback."""
+    from nnstreamer_tpu.edge.discovery import resolve_announce_host as jres
+    from nnstreamer_tpu_torch.edge.discovery import (
+        resolve_announce_host as tres,
+    )
+
+    monkeypatch.setattr(socket, "socket", _FakeUdp)
+    monkeypatch.setattr(_FakeUdp, "local", local)
+    monkeypatch.setattr(_FakeUdp, "seen", [])
+    got = {"jax": jres(bind, broker), "port": tres(bind, broker)}
+    assert got == {"jax": want, "port": want}
+    wildcard_remote = bind in ("0.0.0.0", "") and broker != "localhost"
+    assert _FakeUdp.seen == ([(broker, 1)] * 2 if wildcard_remote else [])
+
+
+def test_directory_tracks_live_announcers(brokers):
+    """The port's Directory lists every endpoint announced on its topic
+    (here by each package's announcer on the port's broker) and evicts
+    one that stops heartbeating after its TTL."""
+    from nnstreamer_tpu.edge.discovery import HybridAnnouncer as JAnn
+    from nnstreamer_tpu_torch.edge.discovery import Directory, HybridAnnouncer
+
+    bport = brokers["port"].port
+    d = Directory("localhost", bport, "nns/dir", ttl=1.5, timeout=5)
+    anns = [HybridAnnouncer("localhost", bport, "nns/dir", "127.0.0.1",
+                            4001),
+            JAnn("localhost", bport, "nns/dir", "127.0.0.1", 4002)]
+    try:
+        assert d.wait_for(2, timeout=5) == [("127.0.0.1", 4001),
+                                            ("127.0.0.1", 4002)]
+        anns.pop().close()
+        assert _wait_for(lambda: d.endpoints() == [("127.0.0.1", 4001)], 6)
+    finally:
+        for a in anns:
+            a.close()
+        d.close()
 
 
 def test_injected_partial_write_fails_the_send():

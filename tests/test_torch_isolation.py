@@ -202,10 +202,27 @@ LOOP_MODULES = (
 )
 
 
+#: the modules of the slice that brought the among-device transports:
+#: MQTT, HYBRID discovery and gRPC with its protobuf/flatbuf IDLs
+TRANSPORT_MODULES = (
+    "nnstreamer_tpu_torch.edge.mqtt",
+    "nnstreamer_tpu_torch.edge.discovery",
+    "nnstreamer_tpu_torch.elements.mqtt_elems",
+    "nnstreamer_tpu_torch.elements.grpc_elems",
+    "nnstreamer_tpu_torch.rpc",
+    "nnstreamer_tpu_torch.rpc.proto",
+    "nnstreamer_tpu_torch.rpc.flat",
+    "nnstreamer_tpu_torch.converters.protobuf",
+    "nnstreamer_tpu_torch.converters.flatbuf",
+    "nnstreamer_tpu_torch.decoders.protobuf",
+    "nnstreamer_tpu_torch.decoders.flatbuf",
+)
+
+
 @pytest.mark.parametrize("module", SLICE_MODULES + VISION_MODULES
                          + SERVING_MODULES + STREAM_MODULES
                          + PLANNER_MODULES + TRAINING_MODULES
-                         + LOOP_MODULES)
+                         + LOOP_MODULES + TRANSPORT_MODULES)
 def test_slice_module_alone_loads_no_jax(module):
     """Each module, imported alone in a fresh interpreter, pulls in
     neither JAX nor the JAX package (the walk above imports them all
@@ -223,3 +240,71 @@ def test_slice_module_alone_loads_no_jax(module):
     path = (os.path.join(path, "__init__.py") if os.path.isdir(path)
             else path + ".py")
     assert not [m for _, m in _imports(path) if _forbidden(m)]
+
+
+#: the machine with the card has no grpcio, protobuf or flatbuffers: the
+#: probe hides them (a None entry in sys.modules makes an import raise),
+#: imports the package and every element, then starts each element and
+#: subplugin that needs one of them
+_HIDDEN_PROBE = r"""
+import sys
+for name in ("grpc", "google.protobuf", "flatbuffers"):
+    sys.modules[name] = None
+import nnstreamer_tpu_torch
+import nnstreamer_tpu_torch.elements
+import nnstreamer_tpu_torch.rpc
+from nnstreamer_tpu_torch import registry
+from nnstreamer_tpu_torch.pipeline import parse_launch
+caps = "other/tensors,format=static,dimensions=4,types=float32"
+lines = {
+    "src_grpc": "tensor_src_grpc server=true port=0 ! tensor_sink",
+    "src_grpc_flat": "tensor_src_grpc server=true port=0 idl=flatbuf "
+                     "! tensor_sink",
+    "sink_grpc": f"appsrc caps={caps} ! tensor_sink_grpc server=true port=0",
+    "dec_protobuf": f"appsrc caps={caps} ! tensor_decoder mode=protobuf "
+                    "! tensor_sink",
+    "dec_flatbuf": f"appsrc caps={caps} ! tensor_decoder mode=flatbuf "
+                   "! tensor_sink",
+}
+for name, line in lines.items():
+    p = parse_launch(line)
+    try:
+        p.play()
+        print(name, "STARTED")
+    except Exception as e:
+        print(name, type(e).__name__, str(e).replace("\n", " "))
+    finally:
+        p.stop()
+for kind in ("protobuf", "flatbuf"):
+    conv = registry.get(registry.CONVERTER, kind)
+    try:
+        conv()
+        print("conv_" + kind, "STARTED")
+    except Exception as e:
+        print("conv_" + kind, type(e).__name__, str(e))
+print("grpc" in sys.modules and sys.modules["grpc"] is None)
+"""
+
+
+def test_port_imports_without_grpc_protobuf_or_flatbuffers():
+    """``import nnstreamer_tpu_torch`` and its elements work with grpc,
+    google.protobuf and flatbuffers missing; an element or subplugin that
+    needs one raises ElementError naming the package when it starts, and
+    none falls back to another transport or codec."""
+    out = subprocess.run([sys.executable, "-c", _HIDDEN_PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stderr
+    rows = dict(line.split(" ", 1) for line in out.stdout.splitlines()[:-1])
+    assert out.stdout.splitlines()[-1] == "True"
+    want = {"src_grpc": "grpcio", "src_grpc_flat": "grpcio",
+            "sink_grpc": "grpcio", "dec_protobuf": "protobuf",
+            "dec_flatbuf": "flatbuffers", "conv_protobuf": "protobuf",
+            "conv_flatbuf": "flatbuffers"}
+    assert set(rows) == set(want)
+    for name, package in want.items():
+        assert "STARTED" not in rows[name], name
+        assert rows[name].startswith("ElementError") or \
+            "ElementError" in rows[name], (name, rows[name])
+        assert f"needs the {package} package" in rows[name], (name,
+                                                              rows[name])
