@@ -213,9 +213,10 @@ Phases, each printing one JSON line:
              bit-equal to numpy's preamble, and a profile line of each;
              the fused line into a tee of two sinks (one d2h per batch,
              at the filter); and MobileNet-v2's logits through a queue
-             into a model=add filter (one h2d at the first filter and one
-             d2h at the second per batch, device_ok and memory:HBM on the
-             first filter's src pad, outputs the direct forward's + 1);
+             into a model=add filter with chain-fusion=off (one h2d at
+             the first filter and one d2h at the second per batch,
+             device_ok and memory:HBM on the first filter's src pad,
+             outputs the direct forward's + 1);
              and the fused preamble into a model=add filter on 8-frame
              float64, float16, int64 and uint32 buffers, types the kernel
              does not read (converted to float32 first: output bit-equal
@@ -301,14 +302,32 @@ Phases, each printing one JSON line:
              tolerances (the chunk kernel at the diagonal, non-causal,
              half-masked and, at d 384, future hops), with kernel,
              device, plain, bound and (flash) SDPA ms;
+  chain      whole-chain fusion on line K, the flagship's head
+             (MobileNet-v2 1.0, 224 px, 128 frames a tensor) ! queue ! a
+             typecast:float32,div:2.0 transform ! a bf16 1001x1001 matmul
+             with the argmax ! image_labeling: its NNST450 verdict; (a)
+             fused and chain-fusion=off in turns (F O O F F O), 8 batches
+             a run after 2 warm-up: labels equal to the off run's on
+             every frame, 13 fused-block, 1 normalize_u8 and 1
+             arith_chain launches a batch, one h2d at m and one d2h a
+             batch, h never invoked and m built once when fused, the
+             logits (no argmax) fused against off, frames/s and p50 batch
+             latency with median and spread, and a profile line; (b)
+             loop-window=4 launch-depth=2 on m: NNST460, one graph replay
+             a window over the whole composition, one capture, labels
+             equal; (c) arith_chain at the gap's 128x1001 float32 against
+             its plain version with kernel, device, plain, bound and
+             library (x / 2.0) ms; (d) the analyzer alone on an add chain
+             sized past the card's budget (NNST452) and the fixture's
+             12 GiB line, which the card's budget admits (NNST450);
 
 then one ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
 that last line. It needs a CUDA card: without one it exits 1 at once.
 
 ``--only`` runs the named phases alone (``serve`` needs ``slice`` for
-its frames; ``streams``, ``residency``, ``train``, ``loop`` and ``edge``
-build their own; ``stride2`` runs inside ``kernel``, the flagship's profile
+its frames; ``streams``, ``residency``, ``train``, ``loop``, ``edge`` and
+``chain`` build their own; ``stride2`` runs inside ``kernel``, the flagship's profile
 inside ``slice``, the overload and reference lines inside ``serve``) and
 ends after them, without the ``kernels`` and result lines.
 """
@@ -3302,7 +3321,10 @@ def _fanout_line() -> str:
 
 
 def _two_filter_line() -> str:
-    """MobileNet-v2's logits through a queue into a second filter."""
+    """MobileNet-v2's logits through a queue into a second filter, each
+    filter its own program (chain-fusion=off on the second: the lane
+    between two programs is what this line checks; the chain phase fuses
+    such a cascade)."""
     return (
         f"appsrc name=src caps=video/x-raw,format=RGB,width={SIZE},"
         f"height={SIZE},framerate=1000/1 "
@@ -3310,7 +3332,7 @@ def _two_filter_line() -> str:
         "! tensor_filter name=f1 framework=jax model=mobilenet_v2 "
         "custom=seed:0,fused:pallas ! queue "
         "! tensor_filter name=f2 framework=jax model=add custom=k:1 "
-        "! tensor_sink name=out")
+        "chain-fusion=off ! tensor_sink name=out")
 
 
 #: input types the arith kernel does not read: the fused preamble's
@@ -4876,6 +4898,336 @@ def check_edge(torch, results, workdir):
     check_edge_attention(torch, results)
 
 
+# -- phase: whole-chain fusion (the cascade, line K) --------------------------
+
+#: line K: 8 timed batches of BATCH frames a run after N_WARMUP, 3 runs of
+#: each form in turns (F O O F F O); the looped head's window and depth
+CHAIN_BATCHES = 8
+CHAIN_TURNS = ("auto", "off", "off", "auto", "auto", "off")
+CHAIN_LOOP = {"window": 4, "depth": 2, "batches": 8}
+#: the gap transform between the two models
+CHAIN_GAP = "typecast:float32,div:2.0"
+
+
+def _cascade_line(labels: str, extra: str = "", raw: bool = False) -> str:
+    """Line K: the flagship's head (MobileNet-v2 1.0 at 224 px, 128 frames
+    a tensor, no postproc) with a second model behind it — a gap
+    transform, then a bf16 1001x1001 product with the argmax — into the
+    labels; ``extra`` goes on the head, ``raw`` leaves out the argmax and
+    the decoder, so the sink receives the logits."""
+    post = "" if raw else ",postproc:argmax"
+    tail = ("" if raw else "! queue ! tensor_decoder mode=image_labeling "
+            f"option1={labels} ")
+    return (
+        f"appsrc name=src caps=video/x-raw,format=RGB,width={SIZE},"
+        f"height={SIZE},framerate=1000/1 "
+        f"! tensor_converter frames-per-tensor={BATCH} "
+        "! tensor_filter name=m framework=jax model=mobilenet_v2 "
+        f"custom=seed:0,fused:pallas {extra} "
+        f"! queue ! tensor_transform name=tr mode=arithmetic "
+        f"option={CHAIN_GAP} "
+        "! tensor_filter name=h framework=jax model=matmul "
+        f"custom=dim:1001,seed:1{post} {tail}! tensor_sink name=out")
+
+
+def _chain_run(torch, line, frames, n_batches, chain_fusion="auto",
+               warm=N_WARMUP, profile=False):
+    """Play line K with ``chain_fusion``, warm ``warm`` batches, set the
+    launch counts to 0, push ``n_batches`` timed batches and EOS; returns
+    the labels (or logits) of the timed batches, frames/s, p50 batch
+    latency, the launches, the crossings per element, the fusions, h's
+    invokes and m's builds during the timed run, the loop state and
+    stats, and (``profile``) the device profile of the timed run."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    import numpy as np
+
+    from nnstreamer_tpu_torch import trace
+    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    p = parse_launch(line)
+    p.chain_fusion = chain_fusion
+    pushed, arrived = {}, {}
+    p["out"].connect_new_data(
+        lambda b: arrived.__setitem__(b.pts, time.perf_counter()))
+    fusions = trace.attach(p).fusions  # the planner records at play()
+    p.play()
+
+    def push(k0, n):
+        for i in range(k0 * BATCH, (k0 + n) * BATCH):
+            p["src"].push_buffer(Buffer(tensors=[frames[i % len(frames)]],
+                                        pts=i))
+            pushed[i] = time.perf_counter()
+
+    if warm:
+        push(0, warm)
+        _wait_for(lambda: [len(p["out"].collected)], warm, p, "line K")
+    tracer = trace.attach(p, replace=True)
+    h_before = p["h"].fw.stats.total_invoke_num
+    builds_before = p["m"].fw.compile_stats()["jit_traces"]
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    prof = (torch_profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA])
+            if profile else None)
+    if prof is not None:
+        prof.__enter__()
+    t0 = time.perf_counter()
+    push(warm, n_batches)
+    p["src"].end_of_stream()
+    if not p.bus.wait_eos(600) or p.bus.error is not None:
+        raise RuntimeError(f"line K failed: {p.bus.error}")
+    secs = max(arrived.values()) - t0
+    if prof is not None:
+        torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+    launches = dict(_cuda.LAUNCHES)
+    out = []
+    for b in p["out"].collected[warm:]:
+        lab = b.meta.get("label")
+        out.extend(lab if lab is not None else [np.asarray(b.tensors[0])])
+    m = p["m"]
+    r = {"out": out, "fps": n_batches * BATCH / secs,
+         "p50_batch_latency_ms": statistics.median(
+             (arrived[k] - pushed[k]) * 1e3 for k in arrived
+             if k >= warm * BATCH),
+         "launches": launches, "crossings": _crossings_of(tracer),
+         "fusions": fusions(),
+         "h_invokes": p["h"].fw.stats.total_invoke_num - h_before,
+         "m_builds": m.fw.compile_stats()["jit_traces"] - builds_before,
+         "m_builds_total": m.fw.compile_stats()["jit_traces"],
+         "loop_state": m._loop_state, "loop_refused": m._loop_refused,
+         "loop_stats": (m.fw.loop_stats() if m._loop_state is not None
+                        else None)}
+    if prof is not None:
+        r["profile"] = profile_stats(torch, prof, secs)
+    p.stop()
+    return r
+
+
+def _chain_launches_ok(launches, rows) -> bool:
+    """13 fused-block, 1 normalize_u8 and 1 arith_chain launches per
+    batch row (the head's blocks and preamble, the gap)."""
+    return (launches.get("fused_inverted_residual") == 13 * rows
+            and launches.get("normalize_u8") == rows
+            and launches.get("arith_chain") == rows)
+
+
+def check_chain_gap(torch, results):
+    """(c) arith_chain at the gap's shape, 128 x 1001 float32, against its
+    plain version: bit-equal, kernel, device, plain, bound and (x / 2.0,
+    one PyTorch call computing the same) library ms."""
+    from nnstreamer_tpu_torch.ops import arith_chain, arith_chain_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(BATCH, 1001, generator=gen, device="cuda") * 8
+    ops = [("div", 2.0)]
+    k = arith_chain(x, ops, out_dtype=torch.float32)
+    want = arith_chain_plain(x, ops, out_dtype=torch.float32)
+    n = x.numel()
+    row = {"kernel": "arith_chain", "case": "chain_gap",
+           "shape": list(x.shape), "in": "float32", "ops": CHAIN_GAP,
+           "max_abs_err": max_err(k, want), "tol": 0.0,
+           "bit_equal": _bits_equal(torch, k, want),
+           "library_bit_equal": _bits_equal(torch, k, x / 2.0),
+           "ms": cuda_ms(lambda: arith_chain(x, ops, torch.float32)),
+           "device_ms": device_ms(
+               torch, lambda: arith_chain(x, ops, torch.float32),
+               "arith_chain"),
+           "plain_ms": cuda_ms(
+               lambda: arith_chain_plain(x, ops, torch.float32)),
+           "library_ms": cuda_ms(lambda: x / 2.0)}
+    row["bound_ms"], row["bound_by"] = bound_ms(8 * n, n, "float32")
+    emit("chain", part="gap_kernel", **row, card=results["card"])
+    if not row["bit_equal"]:
+        raise AssertionError(f"arith_chain at the chain gap: {row}")
+    results["arith_chain_gap"] = row
+
+
+def check_chain_budget(results):
+    """(d) NNST452 on the card: the analyzer alone (the line is never
+    played) on an add → add chain whose composed program holds about 1.5
+    times ``device_memory_budget()``; and the fixture's 12 GiB line, which
+    the card's budget admits (NNST450)."""
+    from nnstreamer_tpu_torch.analysis import analyze_launch
+    from nnstreamer_tpu_torch.analysis.memplan import device_memory_budget
+
+    budget, source = device_memory_budget()
+    # the composed run holds its input and both members' outputs: three
+    # frames of half the budget
+    rows = -(-budget // (2 * 4 * 1024 * 1024))
+    caps = ("other/tensors,num-tensors=1,"
+            f"dimensions=1024:1024:{rows},types=float32,framerate=0/1")
+    line = (f"appsrc caps={caps} ! tensor_filter name=f1 framework=jax "
+            "model=add custom=k:1 ! tensor_filter name=f2 framework=jax "
+            "model=add custom=k:10 ! tensor_sink")
+    over = [d for d in analyze_launch(line) if d.code.startswith("NNST45")]
+    with open(os.path.join(ROOT, "examples",
+                           "launch_lines_chains.txt")) as f:
+        fixture = [ln.strip() for ln in f
+                   if "dimensions=1536:1024:2048" in ln]
+    fix = [d for d in analyze_launch(fixture[0])
+           if d.code.startswith("NNST45")]
+    row = {"budget_bytes": budget, "budget_source": source,
+           "frame_bytes": rows * 4 * 1024 * 1024,
+           "over_budget": [(d.code, d.element, d.message) for d in over],
+           "fixture_12gib": [(d.code, d.message) for d in fix]}
+    emit("chain", part="budget", **row, card=results["card"])
+    if (source != "cuda" or [d.code for d in over] != ["NNST452"]
+            or [d.code for d in fix] != ["NNST450"]):
+        raise AssertionError(f"chain budget verdicts: {row}")
+
+
+def check_chain(torch, results, workdir):
+    """Phase ``chain``: (a) line K fused and with chain-fusion=off in
+    turns, (b) the looped head, (c) the gap kernel, (d) NNST452."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.analysis import analyze_launch
+    from nnstreamer_tpu_torch.analysis.loop import analyze_loop
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    labels = os.path.join(workdir, "chain_labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class{i}" for i in range(1001)) + "\n")
+    rng = np.random.default_rng(11)
+    frames = [np.kron(rng.integers(0, 256, (4, 4, 3)),
+                      np.ones((SIZE // 4, SIZE // 4, 1))).astype(np.uint8)
+              for _ in range(BATCH)]
+    verdict = [(d.code, d.element, d.message)
+               for d in analyze_launch(_cascade_line(labels))
+               if d.code.startswith("NNST45")]
+    if [v[0] for v in verdict] != ["NNST450"]:
+        raise AssertionError(f"line K: chain verdict {verdict}")
+    total = {}
+
+    def add(r):
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) fused and chain-fusion=off in turns
+    runs = {"auto": [], "off": []}
+    for cf in CHAIN_TURNS:
+        runs[cf].append(_chain_run(torch, _cascade_line(labels), frames,
+                                   CHAIN_BATCHES, chain_fusion=cf))
+    want = runs["off"][0]["out"]
+    n = CHAIN_BATCHES
+    bad = []
+    for cf, rs in runs.items():
+        for r in rs:
+            add(r)
+            if r["out"] != want or len(r["out"]) != n * BATCH:
+                bad.append(f"{cf}: labels differ from chain-fusion=off's")
+            if not _chain_launches_ok(r["launches"], n):
+                bad.append(f"{cf}: launches {r['launches']}")
+            cr = r["crossings"]
+            if cr["h2d"] != n or cr["d2h"] != n \
+                    or cr["per_element"].get("m", {}).get("h2d") != n:
+                bad.append(f"{cf}: crossings {cr}")
+    for r in runs["auto"]:
+        if (r["fusions"] != {"tr": "fused-into:m", "h": "fused-into:m"}
+                or r["h_invokes"] != 0 or r["m_builds_total"] != 1
+                or "h" in r["crossings"]["per_element"]):
+            bad.append(f"fused: {r['fusions']}, h invokes "
+                       f"{r['h_invokes']}, m builds {r['m_builds_total']}")
+    for r in runs["off"]:
+        if r["fusions"] != {"tr": "fused-into:h"} or r["h_invokes"] != n:
+            bad.append(f"off: {r['fusions']}, h invokes {r['h_invokes']}")
+    # the logits, fused against off, on the same frames
+    raw = {cf: _chain_run(torch, _cascade_line(labels, raw=True), frames,
+                          2, chain_fusion=cf, warm=0)
+           for cf in ("auto", "off")}
+    for r in raw.values():
+        add(r)
+    got = torch.from_numpy(np.concatenate(raw["auto"]["out"]))
+    ref = torch.from_numpy(np.concatenate(raw["off"]["out"]))
+    logits = {"shape": list(got.shape), "max_abs_err": max_err(got, ref),
+              "bit_equal": bool(torch.equal(got, ref)),
+              "finite": bool(torch.isfinite(got).all()),
+              "atol": MODEL_ATOL, "rtol": MODEL_RTOL}
+    if (tuple(got.shape) != (2 * BATCH, 1001) or not logits["finite"]
+            or not within(got, ref, MODEL_ATOL, MODEL_RTOL)):
+        bad.append(f"logits: {logits}")
+
+    def summary(rs):
+        fps = [r["fps"] for r in rs]
+        return {"fps": fps, "median_fps": statistics.median(fps),
+                "spread_fps": max(fps) - min(fps),
+                "p50_batch_latency_ms": [r["p50_batch_latency_ms"]
+                                         for r in rs],
+                "median_p50_ms": statistics.median(
+                    r["p50_batch_latency_ms"] for r in rs)}
+
+    f0, o0 = runs["auto"][0], runs["off"][0]
+    emit("chain", part="line_k", batches=n, batch=BATCH, verdict=verdict,
+         turns=list(CHAIN_TURNS), fused=summary(runs["auto"]),
+         off=summary(runs["off"]), labels_equal=not any(
+             "labels" in b for b in bad),
+         distinct_labels=len(set(want)),
+         launches_per_batch={k: v / n for k, v in f0["launches"].items()},
+         off_launches_per_batch={k: v / n
+                                 for k, v in o0["launches"].items()},
+         crossings_per_batch={el: {d: c[d] / n for d in c} for el, c in
+                              f0["crossings"]["per_element"].items()},
+         off_crossings_per_batch={el: {d: c[d] / n for d in c} for el, c in
+                                  o0["crossings"]["per_element"].items()},
+         fusions=f0["fusions"], off_fusions=o0["fusions"],
+         h_invokes={"fused": f0["h_invokes"], "off": o0["h_invokes"]},
+         m_builds=f0["m_builds_total"], logits=logits,
+         card=results["card"])
+    if bad:
+        raise AssertionError(f"line K: {bad}")
+
+    def run():
+        r = _chain_run(torch, _cascade_line(labels), frames, 4, warm=0)
+        add(r)
+        return 4 * BATCH / r["fps"]
+
+    emit("profile", line="chain", batches=4, **device_profile(torch, run))
+
+    # (b) the looped head: one graph replay a window over the whole
+    # composition
+    loop = (f"loop-window={CHAIN_LOOP['window']} "
+            f"launch-depth={CHAIN_LOOP['depth']}")
+    pk = parse_launch(_cascade_line(labels, loop))
+    lv = analyze_loop(pk, pk["m"])
+    nb = CHAIN_LOOP["batches"]
+    windows = nb // CHAIN_LOOP["window"]
+    _chain_run(torch, _cascade_line(labels, loop), frames, nb, warm=0)
+    lr = _chain_run(torch, _cascade_line(labels, loop), frames, nb, warm=0)
+    add(lr)
+    st = lr["loop_stats"] or {}
+    want_loop = [want[i % len(want)] for i in range(nb * BATCH)]
+    loop_ok = (lv.code == "NNST460" and lr["loop_refused"] is None
+               and lr["loop_state"] == {"window": CHAIN_LOOP["window"],
+                                        "depth": CHAIN_LOOP["depth"]}
+               and st.get("replays") == windows and st.get("captures") == 1
+               and lr["h_invokes"] == 0
+               and lr["fusions"] == {"tr": "fused-into:m",
+                                     "h": "fused-into:m"}
+               and lr["out"] == want_loop
+               and _chain_launches_ok(lr["launches"], nb)
+               and lr["crossings"]["per_element"].get("m", {}).get("h2d")
+               == windows)
+    emit("chain", part="loop", verdict=lv.code, window=CHAIN_LOOP["window"],
+         depth=CHAIN_LOOP["depth"], batches=nb, windows=windows,
+         replays=st.get("replays"), captures=st.get("captures"),
+         capture_ms=st.get("capture_ms"),
+         launches_per_replay=st.get("launches_per_replay"),
+         launches=lr["launches"], crossings=lr["crossings"],
+         h_invokes=lr["h_invokes"], labels_equal=lr["out"] == want_loop,
+         fps=lr["fps"], ok=loop_ok, card=results["card"])
+    if not loop_ok:
+        raise AssertionError(f"line K looped: {lv}, {lr['loop_refused']}, "
+                             f"{st}")
+    results["chain_launches"] = total
+    check_chain_gap(torch, results)
+    check_chain_budget(results)
+
+
 def main() -> int:
     import torch
 
@@ -4920,6 +5272,7 @@ def main() -> int:
         "train": lambda: check_train(torch, results, workdir),
         "loop": lambda: check_loop(torch, results, workdir),
         "edge": lambda: check_edge(torch, results, workdir),
+        "chain": lambda: check_chain(torch, results, workdir),
     }
     only = None
     if "--only" in sys.argv[1:]:
@@ -4952,7 +5305,7 @@ def main() -> int:
         "hostspans_launches", "detect_launches", "detect_pp_launches",
         "segment_launches", "vision_launches", "serve_launches",
         "streams_launches", "residency_launches", "train_launches",
-        "loop_launches", "edge_launches"))
+        "loop_launches", "edge_launches", "chain_launches"))
         for name in src}
     launches["arith_chain"] += results["arith_launches"]
     kernels = []
@@ -4975,6 +5328,10 @@ def main() -> int:
                 "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by")} for r in split if "ms" in r]
     # the fused block's rows at the SSD and DeepLab lines' shapes
+    # arith_chain at the cascade's gap (128 x 1001 float32)
+    kernels[2]["chain_gap"] = {key: results["arith_chain_gap"][key] for key in (
+        "shape", "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+        "bound_ms", "bound_by")}
     kernels[0]["models"] = {name: results[f"fused_{name}"]
                             for name in ("ssd_mobilenet", "deeplab_v3",
                                          "ssd_mobilenet_batch1")}

@@ -37,8 +37,11 @@ package folds inside its jitted forward, so there they are activations.
 
 ``weak_type_hazards`` is always empty: torch has no weak types (the
 reference's own ``compiled`` branch returns the same). ``method=
-"compiled"``, ``static_report``/``render_cost_report`` (the ``nncost``
-CLI) and ``weak_type_promotions`` wait (ROADMAP.md queue 1 item 5).
+"compiled"`` and ``weak_type_promotions`` wait (ROADMAP.md queue 1).
+
+:func:`static_report` turns the costs into a roofline table (the
+``validate --cost`` table and the NNST702 bottleneck) against
+:data:`ROOFLINE`, the H100's published peaks.
 """
 
 from __future__ import annotations
@@ -49,6 +52,19 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+#: roofline constants of the static report: one H100 SXM's published
+#: dense bf16 peak and memory rate (NVIDIA's data sheet) and the nominal
+#: rate of its PCIe 5.0 x16 host link each way. ``mfu`` is 1.0: no
+#: sustained fraction has been measured for this package, so the report's
+#: legs are the card's bounds, not a prediction of its times
+ROOFLINE = {
+    "peak_tflops": 989.0,
+    "mfu": 1.0,
+    "hbm_gbps": 3350.0,
+    "link_h2d_gbps": 64.0,
+    "link_d2h_gbps": 64.0,
+}
 
 #: the JAX package's HBM capacity default — the budget when no card
 #: reports one (CPU lint hosts), kept so CPU verdicts match the JAX
@@ -73,6 +89,12 @@ class ShapeDtype(NamedTuple):
 
 def _torch_dtype(dt) -> torch.dtype:
     return torch.from_numpy(np.empty(0, np.dtype(dt))).dtype
+
+
+def meta_tensors(shapes: Sequence[ShapeDtype]) -> List[torch.Tensor]:
+    """Data-free ``meta`` tensors of ``shapes``."""
+    return [torch.empty(tuple(s.shape), dtype=_torch_dtype(s.dtype),
+                        device="meta") for s in shapes]
 
 
 class _LiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
@@ -131,8 +153,13 @@ def _storage_key(t: torch.Tensor) -> int:
 
 
 def _tensors_of(params) -> List[torch.Tensor]:
+    """The tensors of a module's state, of every tensor leaf of a tree, or
+    of each member of a list or tuple of modules (a composed chain's
+    params)."""
     if isinstance(params, torch.nn.Module):
         return list(params.state_dict().values())
+    if isinstance(params, (list, tuple)):
+        return [t for p in params for t in _tensors_of(p)]
     return [t for t in torch.utils._pytree.tree_leaves(params)
             if isinstance(t, torch.Tensor)]
 
@@ -193,8 +220,7 @@ def program_cost(fn, params, shapes: Sequence[ShapeDtype],
             "item 5); use 'auto'")
     if method not in ("auto", "meta"):
         raise ValueError(f"unknown cost method {method!r}")
-    xs = [torch.empty(tuple(s.shape), dtype=_torch_dtype(s.dtype),
-                      device="meta") for s in shapes]
+    xs = meta_tensors(shapes)
     counter = FlopCounterMode(display=False)
     live = _LiveBytes()
     with torch.no_grad(), counter, live:
@@ -298,8 +324,14 @@ def filter_program(e):
     fn, params, bundle_in = prog
     # the invoke signature is what ARRIVES at the sink pad (narrowed by
     # input-combination): fused pre-stages run inside the program, so the
-    # program is fed the raw upstream tensors
-    in_info = _caps_input_info(e)
+    # program is fed the raw upstream tensors. A chain-fused SHELL's pads
+    # carry the COMPOSED stream (the head emits the end of the chain), so
+    # its model signature comes from the chain analyzer's composed
+    # annotation instead
+    if getattr(e, "_fused_into", None) is not None:
+        in_info = e.__dict__.get("_nnchain_in_info")
+    else:
+        in_info = _caps_input_info(e)
     if in_info is not None:
         sel = e.properties.get("input_combination")
         if sel:
@@ -315,6 +347,12 @@ def filter_program(e):
     if in_info is None or in_info.num_tensors == 0:
         in_info = (e._in_info if getattr(e, "_in_info", None) is not None
                    and e._in_info.num_tensors > 0 else bundle_in)
+    if in_info is None or in_info.num_tensors == 0:
+        # last resort: the chain analyzer's composed signature (the dry
+        # negotiation cannot resolve caps past a reshapable upstream
+        # model, but the stepwise composition knows what reaches an
+        # interior member — analysis/chain.py annotates it)
+        in_info = e.__dict__.get("_nnchain_in_info")
     if in_info is None or in_info.num_tensors == 0:
         return None
     batch = int(e.properties.get("batch_size", 1) or 1)
@@ -412,6 +450,9 @@ def predict_compiles(pipeline) -> Dict[str, Optional[int]]:
     for e in pipeline.elements.values():
         if not isinstance(e, TensorFilter) or not e._fw_device_capable():
             continue
+        if e._fused_into is not None:
+            out[e.name] = 0  # chain shell: the head's build covers it
+            continue
         out[e.name] = None if _variable_shape_upstream(e) else 1
     return out
 
@@ -434,3 +475,122 @@ def _variable_shape_upstream(e) -> bool:
     if cfg.format == TensorFormat.FLEXIBLE:
         return True
     return any(any(int(d) <= 0 for d in t.np_shape()) for t in cfg.info)
+
+
+# --------------------------------------------------------------------------
+# roofline report
+# --------------------------------------------------------------------------
+
+def static_report(pipeline, method: str = "auto",
+                  constants: Optional[Dict] = None) -> Dict[str, Any]:
+    """Whole-pipeline static cost table + roofline bottleneck prediction.
+
+    Per modeled filter: per-invoke flops/bytes and the roofline leg times
+    (compute at the peak times ``mfu``, memory traffic at the memory
+    rate, link crossings at the link rate — :data:`ROOFLINE` unless
+    ``constants`` overrides them). The bottleneck is the largest per-BUFFER
+    time across every element and resource: the static answer to "where
+    does the next millisecond go" before anything runs."""
+    from nnstreamer_tpu_torch.analysis.residency import predict_crossings
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
+
+    c = dict(ROOFLINE, **(constants or {}))
+    flops_per_s = c["peak_tflops"] * 1e12 * c["mfu"]
+    hbm_bps = c["hbm_gbps"] * 1e9
+    rows: List[Dict[str, Any]] = []
+    unmodeled: List[str] = []
+    try:
+        pred = predict_crossings(pipeline, n_buffers=1)
+    except Exception:  # noqa: BLE001 — crossing model is advisory;
+        # with NO byte prediction at all, every filter must take the
+        # signature-based link estimate below (a silent t_link=0 would
+        # misreport a link-bound pipeline compute-bound)
+        pred = {"per_element_bytes": {}, "bytes_unknown": [],
+                "unmodeled": [], "all_bytes_unknown": True}
+    link_b = pred.get("per_element_bytes", {})
+
+    for e in pipeline.elements.values():
+        if not isinstance(e, TensorFilter):
+            continue
+        cost = filter_cost(e, method=method)
+        if cost is None:
+            unmodeled.append(e.name)
+            continue
+        batch = max(1, cost["batch"])
+        eb = link_b.get(e.name, {})
+        link_estimated = (pred.get("all_bytes_unknown", False)
+                          or e.name in pred.get("bytes_unknown", ()))
+        t_compute = cost["flops"] / flops_per_s
+        t_hbm = cost["hbm_bytes"] / hbm_bps
+        # predict_crossings(n_buffers=1) bills ONE (padded) invoke for a
+        # batched filter, so these bytes are per-INVOKE — the same unit
+        # as the program cost; the shared `/ batch` below amortizes all
+        # three legs to per-buffer
+        if link_estimated:
+            # crossing bytes unresolved statically (typically the src
+            # caps of an unopened model): estimate from the program's
+            # own per-invoke signature — both directions billed here,
+            # an upper bound for mid-chain device-resident filters but
+            # exact for the common upload-invoke-fetch shape. A silent
+            # 0 would misreport a link-bound pipeline compute-bound.
+            t_link = (cost["input_bytes"] / (c["link_h2d_gbps"] * 1e9)
+                      + cost["output_bytes"] / (c["link_d2h_gbps"] * 1e9))
+        else:
+            t_link = (eb.get("h2d", 0) / (c["link_h2d_gbps"] * 1e9)
+                      + eb.get("d2h", 0) / (c["link_d2h_gbps"] * 1e9))
+        legs = {
+            "compute_ms": t_compute / batch * 1e3,
+            "hbm_ms": t_hbm / batch * 1e3,
+            "link_ms": t_link / batch * 1e3,
+        }
+        bound = max(legs, key=lambda k: legs[k])
+        rows.append(dict(
+            cost, element=e.name,
+            **{k: round(v, 6) for k, v in legs.items()},
+            link_estimated=link_estimated,
+            bound=bound.removesuffix("_ms")))
+    bottleneck = None
+    if rows:
+        worst = max(rows, key=lambda r: max(
+            r["compute_ms"], r["hbm_ms"], r["link_ms"]))
+        bottleneck = {
+            "element": worst["element"],
+            "resource": worst["bound"],
+            "per_buffer_ms": round(max(
+                worst["compute_ms"], worst["hbm_ms"], worst["link_ms"]), 6),
+        }
+    return {"rows": rows, "bottleneck": bottleneck, "unmodeled": unmodeled,
+            "constants": c, "crossings": pred}
+
+
+def render_cost_report(report: Dict[str, Any]) -> str:
+    """Text table for ``validate --cost`` / ``doctor --cost``."""
+    lines = []
+    hdr = (f"{'element':<16}{'GFLOP':>9}{'HBM MB':>10}{'peak MB':>10}"
+           f"{'param MB':>10}{'compute ms':>12}{'hbm ms':>10}"
+           f"{'link ms':>10}  bound")
+    lines.append(hdr)
+    lines.append("-" * len(hdr))
+    for r in report["rows"]:
+        lines.append(
+            f"{r['element']:<16}"
+            f"{r['flops'] / 1e9:>9.3f}"
+            f"{r['hbm_bytes'] / 2**20:>10.2f}"
+            f"{r['peak_live_bytes'] / 2**20:>10.2f}"
+            f"{r['param_bytes'] / 2**20:>10.2f}"
+            f"{r['compute_ms']:>12.3f}"
+            f"{r['hbm_ms']:>10.3f}"
+            + (f"{'~' + format(r['link_ms'], '.3f'):>10}"
+               if r.get("link_estimated")
+               else f"{r['link_ms']:>10.3f}")
+            + f"  {r['bound']}")
+    if report["unmodeled"]:
+        lines.append(f"unmodeled: {', '.join(report['unmodeled'])}")
+    b = report["bottleneck"]
+    if b:
+        lines.append(
+            f"bottleneck: {b['element']} ({b['resource']}-bound, "
+            f"~{b['per_buffer_ms']:.3f} ms/buffer "
+            f"→ ~{1e3 / b['per_buffer_ms'] if b['per_buffer_ms'] else 0:.0f}"
+            f" buffers/s)")
+    return "\n".join(lines)

@@ -17,10 +17,11 @@ NNST460:
            resolved window/depth.
   NNST461  loop-ineligible, naming the blocking reason: ``sync=1``,
            ``invoke-dynamic``, i/o-combination re-routing, micro-batch
-           (``batch-size>1``), a shared backend key, a serving head (the
-           scheduler owns batching), an invoke watchdog, variable-shape
-           upstream caps, an upstream fan-out holding the inputs, a
-           device-resident upstream lane, or a non-composable backend.
+           (``batch-size>1``), a chain-fused shell, a shared backend key,
+           a serving head (the scheduler owns batching), an invoke
+           watchdog, variable-shape upstream caps, an upstream fan-out
+           holding the inputs, a device-resident upstream lane, or a
+           non-composable backend.
            The filter falls back LOUDLY to per-buffer launches — never
            wrong output, never a silent no-op.
   NNST462  the window ring + launch-depth in-flight windows bust the
@@ -111,6 +112,9 @@ def static_blocker(e) -> Optional[str]:
     )
     from nnstreamer_tpu_torch.pipeline.planner import upstream_fanout_holder
 
+    if getattr(e, "_fused_into", None) is not None:
+        return ("chain-fused shell: its model already runs inside the "
+                "head's program (set loop-window on the chain head)")
     if e.properties.get("shared_tensor_filter_key"):
         return ("shared backend key: the windowed program lives on the "
                 "framework object every sharer invokes")
@@ -236,7 +240,7 @@ def _loop_fingerprint(pipeline) -> tuple:
         tuple(
             (id(e), str(sorted((k, str(v))
                                for k, v in e.properties.items())),
-             id(e.fw),
+             id(e.fw), e._fused_into,
              # an installed loop flips produces_device (host drain), so
              # the _device_fed gate of DOWNSTREAM filters depends on
              # it: epoch transitions must miss the memo
@@ -394,3 +398,10 @@ def analyze_loops(pipeline) -> List[LoopVerdict]:
         if v is not None:
             out.append(v)
     return out
+
+
+def loop_pass_body(ctx) -> None:
+    """The ``loop`` analyzer pass (analysis/passes.py): one NNST46x
+    diagnostic per filter that requests a window."""
+    for v in analyze_loops(ctx.pipeline):
+        ctx.emit(v.code, v.element, v.message, hint=v.hint)

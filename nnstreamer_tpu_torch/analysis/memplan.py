@@ -52,6 +52,9 @@ from nnstreamer_tpu_torch.analysis.costmodel import (
     filter_cost,
 )
 
+#: fraction of the budget above which NNST703 warns
+NEAR_BUDGET_FRACTION = 0.8
+
 
 def device_memory_budget(device_index: int = 0) -> Tuple[int, str]:
     """(bytes, source) of one device's budget: the NNSTPU_HBM_BYTES
@@ -91,11 +94,19 @@ def _edge_bytes_resolver(pipeline):
 
 
 def plan_memory(pipeline, method: str = "auto",
+                cost_override: Optional[Dict[str, Any]] = None,
                 loop_override: Optional[Dict[str, Tuple[int, int]]] = None
                 ) -> Dict[str, Any]:
     """The whole-pipeline device-memory plan: rows per device-capable
     filter, HBM-edge queue holdings, serving holdings, the shared-deduped
     param total, the grand total and the budget.
+
+    ``cost_override`` maps element name → cost dict (or None): the chain
+    analyzer (analysis/chain.py) plans a PROSPECTIVE whole-chain fusion
+    by replacing the chain members' rows with ONE composed row on the
+    head (a cost dict with every member's params billed once in its
+    ``param_bytes``) and dropping the fused members (None) — the NNST452
+    budget verdict before anything runs.
 
     ``loop_override`` maps element name → (loop-window, launch-depth):
     the loop analyzer (analysis/loop.py) probes a PROSPECTIVE window's
@@ -120,7 +131,16 @@ def plan_memory(pipeline, method: str = "auto",
     for e in pipeline.elements.values():
         if not isinstance(e, TensorFilter) or not e._fw_device_capable():
             continue
-        cost = filter_cost(e, method=method)
+        if cost_override is not None and e.name in cost_override:
+            cost = cost_override[e.name]
+            if cost is None:
+                continue  # fused chain member: billed by its head's row
+        else:
+            # a live chain SHELL still rows here with its solo cost: the
+            # head's cost_program is solo too, so head-solo + member-solo
+            # rows (params deduped per backend) approximate the composed
+            # footprint without double-billing
+            cost = filter_cost(e, method=method)
         if cost is None:
             unmodeled.append(e.name)
             continue

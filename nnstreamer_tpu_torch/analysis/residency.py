@@ -154,6 +154,15 @@ class _Predictor:
         res = _combine_res(ins)
 
         if isinstance(e, TensorFilter):
+            if e._fused_into is not None:
+                # chain-fused shell: its model runs inside the head's
+                # composed program — the interior link bills ZERO bytes
+                # (buffers pass through untouched); the chain's single
+                # boundary bills the COMPOSED output wherever the planner
+                # placed it (the head's caps carry the end-of-chain
+                # payload)
+                self.set_out(e, units, res)
+                return
             self._predict_filter(e, units, res)
             return
         if isinstance(e, TensorTransform):

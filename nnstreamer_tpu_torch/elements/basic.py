@@ -285,6 +285,9 @@ class Tee(Element):
 
     ELEMENT_NAME = "tee"
     DEVICE_TRANSPARENT = True  # copy() shares tensor payloads
+    #: tee taps may legitimately leave src pads unlinked (nnlint NNST002
+    #: exemption — declared, so subclasses keep it)
+    MAY_DANGLE_SRC = True
     #: every branch receives a shallow copy sharing the SAME tensor
     #: objects (routers like round_robin send each buffer to one branch)
     DUPLICATES_BUFFERS = True

@@ -32,6 +32,15 @@ as pre/post stages on the backend (``install_fusion``); the upload then
 carries the transform's input bytes, caps map through the fused chain, and
 the stages are reinstalled on a reopened or reloaded backend.
 
+Chain fusion: where the chain analyzer (analysis/chain.py) verdicts
+NNST450, the planner installs the downstream filters and the gap
+transforms between them on this filter's backend (``install_chain``): one
+invoke runs the whole chain, this filter's src caps carry the end of the
+chain, and each claimed filter becomes a shell that forwards buffers and
+caps untouched and invokes nothing (``fused-into:<head>`` on the tracer).
+``chain-fusion=off`` on a filter keeps it out of every chain. A reload on
+the head reinstalls the chain; a reload on a shell recomposes the head.
+
 Steady loop: ``loop-window=N|auto`` with ``launch-depth=K`` — where the
 loop analyzer (analysis/loop.py) verdicts NNST460 the planner installs the
 backend's window program (``install_loop``): frames collect into a window
@@ -47,10 +56,10 @@ The tracer (``trace.attach``) sees the upload and fetch crossings, the
 upload-window and fetch-window holds, and, with spans on, the batch,
 dispatch, compute, h2d and d2h spans of each invoke.
 
-Not ported yet (see ROADMAP.md): chain fusion (filter→filter programs),
-mesh sharding, replicas, the AOT cache, rollout, the invoke watchdog and
-``fallback-framework``. Setting any of them to other than its default
-raises at construction instead of being ignored.
+Not ported yet (see ROADMAP.md): mesh sharding, replicas, the AOT cache,
+rollout, the invoke watchdog and ``fallback-framework``. Setting any of
+them to other than its default raises at construction instead of being
+ignored.
 """
 
 from __future__ import annotations
@@ -104,7 +113,6 @@ NOT_PORTED = {
     "invoke_timeout_ms": 0,
     "fallback_framework": "",
     "fallback_after": 0,
-    "chain_fusion": "off",
     "rollout_model": "",
     "rollout_canary_frames": 0,
     "rollout_rollback": "off",
@@ -174,6 +182,8 @@ class TensorFilter(Element):
         "launch_depth": Prop(
             "int",
             doc="bank up to K un-synced window launches before draining"),
+        "chain_fusion": Prop("enum", enum=("auto", "off"),
+                             doc="per-element whole-chain fusion opt-out"),
         **{k: Prop("any", doc="not supported in this package")
            for k in NOT_PORTED},
     }
@@ -248,6 +258,17 @@ class TensorFilter(Element):
         self._fused_post: List = []
         self._pre_specs: List[tuple] = []
         self._post_specs: List[tuple] = []
+        # chain-fusion state (planner _plan_chain_fusion): set on a
+        # DOWNSTREAM member composed into a chain head's program — chain()
+        # is a passthrough shell until the next (re)plan, and
+        # is_transparent() counts the shell as residency-transparent
+        self._fused_into: Optional[str] = None
+        # set on the chain HEAD: the ordered downstream elements (gap
+        # transforms + member filters) whose caps effect this filter's src
+        # caps carry, and the installed stage list (reinstalled onto a
+        # reopened or reloaded backend, as _pre_specs are)
+        self._chain_tail_elems: List = []
+        self._chain_specs: List[tuple] = []
         # steady-loop state (planner _plan_steady_loop, NNST460-licensed):
         # {"window": N, "depth": K} while the window program is installed;
         # frames collect in _loop_rows until a window fills, dispatched
@@ -321,6 +342,26 @@ class TensorFilter(Element):
             self._pre_specs, self._post_specs = [], []
         else:
             self._reinstall_stages("reopened")
+        # the chain across a reopen: a MID-STREAM reopen (on-error=restart)
+        # reinstalls it — the members are live shells, so the reopened head
+        # running without the chain would drop their math — or fails
+        # loudly. On a cold start the PLAYING replan re-decides from
+        # scratch after every member reopened, so stale specs are dropped
+        # (raising would brick a restart whose point was to re-plan, e.g.
+        # after chain-fusion=off); so is a chain on a backend that is now
+        # shared (the planner never chain-fuses those)
+        if self._chain_specs:
+            mid_stream = (self.pipeline is not None
+                          and getattr(self.pipeline.state, "name", "")
+                          == "PLAYING")
+            if fprops.shared_key or not mid_stream:
+                self._chain_tail_elems, self._chain_specs = [], []
+            elif not self.fw.fuse_chain(self._chain_specs,
+                                        self._chain_in_shapes()):
+                raise ElementError(
+                    self.name, "reopened backend declined the installed "
+                    "chain composition; downstream chain members are "
+                    "fused-out shells and cannot be restored mid-stream")
         # the loop across a reopen: rebuilt on the fresh backend mid-stream
         # (a decline falls back loudly per-buffer, numerically identical);
         # a cold start drops it and the PLAYING replan re-decides
@@ -392,6 +433,79 @@ class TensorFilter(Element):
         self._pre_specs, self._post_specs = list(pre_specs), list(post_specs)
         return True
 
+    # -- chain-fusion wiring (planner _plan_chain_fusion) -------------------
+    def install_chain(self, tail_elems: List, stages: List[tuple]) -> bool:
+        """Attach a composed downstream chain (gap-transform stage runs +
+        whole-model stages) to the open backend. Returns False (nothing
+        changes anywhere) when the backend declines — the planner then
+        leaves every chain member live, per-filter behavior."""
+        if self.fw is None or not self.fw.fuse_chain(
+                stages, self._chain_in_shapes()):
+            return False
+        self._chain_tail_elems = list(tail_elems)
+        self._chain_specs = list(stages)
+        return True
+
+    def clear_chain(self) -> None:
+        self._chain_tail_elems, self._chain_specs = [], []
+        if self.fw is not None:
+            self.fw.fuse_chain([])
+
+    def _chain_in_shapes(self):
+        """The per-invoke input signature (micro-batched, as _flush_batch
+        assembles it) where it is known statically, for the backend's
+        data-free composition check; None otherwise."""
+        from nnstreamer_tpu_torch.analysis.costmodel import _batched_shape
+
+        info = self._loop_in_info()
+        if info is None or any(int(d) <= 0 for t in info
+                               for d in t.np_shape()):
+            return None
+        return [_batched_shape(tuple(int(d) for d in t.np_shape()),
+                               self._batch_size(), t.dtype.np_dtype)
+                for t in info]
+
+    def _recompose_chain_head(self) -> None:
+        """After this chain-fused shell's backend changed (reload-model),
+        rebuild the head's composition so the next invoke runs the CURRENT
+        tail model instead of the stale one. Fails loudly when the head
+        cannot recompose (the new model's shapes break the link) — a
+        silently stale composition is stream corruption."""
+        head = (self.pipeline.elements.get(self._fused_into)
+                if self.pipeline is not None else None)
+        if head is None or not head._chain_specs:
+            return
+        with head._window_lock:
+            if head.fw is None or not head.fw.fuse_chain(
+                    head._chain_specs, head._chain_in_shapes()):
+                raise ElementError(
+                    self.name,
+                    f"chain head {self._fused_into!r} could not recompose "
+                    f"after this member's reload (shape/dtype no longer "
+                    f"links, or the backend declined) — re-plan with "
+                    f"chain-fusion=off or reload a compatible model")
+
+    def _map_caps_through_chain(self, caps: Caps) -> Caps:
+        """Chain-head src caps: this filter emits the END of the fused
+        chain, so its out caps carry every claimed member's effect (gap
+        transforms map per-tensor info; member filters run their own caps
+        transform — the shells pass caps through untouched, so downstream
+        negotiates against what actually flows)."""
+        from nnstreamer_tpu_torch.elements.transform import TensorTransform
+
+        for m in self._chain_tail_elems:
+            if isinstance(m, TensorTransform):
+                cfg = caps.to_config()
+                info = TensorsInfo(
+                    tensors=[m._transform_info(t) for t in cfg.info],
+                    format=cfg.info.format)
+                caps = Caps.from_config(
+                    TensorsConfig(info, cfg.rate_n, cfg.rate_d))
+            else:
+                with m._window_lock:
+                    caps = m._transform_caps_locked(None, caps)
+        return caps
+
     # -- steady-loop wiring (planner _plan_steady_loop) ---------------------
     def install_loop(self, window: int, depth: int) -> bool:
         """Install the window program on the open backend. Returns False
@@ -460,8 +574,11 @@ class TensorFilter(Element):
         # sync=1 materializes every output in _emit_now, invoke_dynamic
         # wraps outputs into flexible host bytes and a looped filter
         # drains its windows to the host — never stamp memory:HBM on a
-        # stream that will actually carry host data
-        return (self._loop_state is None
+        # stream that will actually carry host data. A chain-fused shell
+        # produces nothing of its own: residency propagates through it by
+        # transparency (is_transparent), as through a fused transform
+        return (self._fused_into is None
+                and self._loop_state is None
                 and self._fw_device_capable()
                 and not self.properties.get("sync")
                 and not self.properties.get("invoke_dynamic"))
@@ -489,6 +606,10 @@ class TensorFilter(Element):
     def transform_caps(self, pad: Pad, caps: Caps) -> Optional[Caps]:
         """Fixed sink caps → src caps from the model's output info
         (gst_tensor_filter_configure_tensor tensor_filter.c:953)."""
+        if self._fused_into is not None:
+            # chain-fused shell: the head's src caps already carry this
+            # member's effect; caps (like buffers) pass through untouched
+            return caps
         with self._window_lock:
             return self._transform_caps_locked(pad, caps)
 
@@ -545,7 +666,13 @@ class TensorFilter(Element):
             # fused downstream transforms run inside the backend: this
             # filter's src caps already carry their effect
             out_info = self._map_info_through(out_info, self._fused_post)
-        return Caps.from_config(TensorsConfig(out_info, config.rate_n, config.rate_d))
+        out_caps = Caps.from_config(
+            TensorsConfig(out_info, config.rate_n, config.rate_d))
+        if self._chain_tail_elems:
+            # chain head: the emitted buffers are the END of the fused
+            # chain — map the caps through every claimed member
+            out_caps = self._map_caps_through_chain(out_caps)
+        return out_caps
 
     # -- events ------------------------------------------------------------
     def _on_sink_event(self, pad: Pad, event: Event) -> None:
@@ -573,12 +700,26 @@ class TensorFilter(Element):
                         self.fw.props.model_files = list(
                             self._fw_props.model_files)
                 self.fw.handle_event("reload_model")
-                # the reload's close() dropped the installed stages while
-                # the claimed transforms stay passthrough shells
+                # the reload's close() dropped the installed stages and
+                # chain while the claimed elements stay passthrough shells
                 self._reinstall_stages("reloaded")
+                if self._chain_specs and not self.fw.fuse_chain(
+                        self._chain_specs, self._chain_in_shapes()):
+                    raise ElementError(
+                        self.name, "reloaded backend declined the installed "
+                        "chain composition; downstream chain members are "
+                        "fused-out shells")
                 if self._loop_state is not None and \
                         not self._rebuild_loop("reloaded"):
                     self._loop_state = None
+            if self._fused_into is not None:
+                # chain-fused SHELL reloaded: its model runs inside the
+                # HEAD's composition, which still holds the old model —
+                # rebuild it (it resolves this reloaded backend; a captured
+                # window recaptures). Taken OUTSIDE this element's lock:
+                # head→member is the caps-mapping lock order, and inverting
+                # it here could deadlock a concurrent renegotiation
+                self._recompose_chain_head()
             self.post_message("model-reloaded", {"model": new_model})
             return
         super()._on_sink_event(pad, event)
@@ -593,6 +734,11 @@ class TensorFilter(Element):
     def chain(self, pad: Pad, buf: Buffer) -> FlowReturn:
         """Timing shim around the hot loop: tracks the idle/busy EWMAs the
         fetch-window=auto regime detector reads (_stream_saturated)."""
+        if self._fused_into is not None:
+            # chain-fused shell: this filter's model already ran inside
+            # the head's composition — buffers pass through untouched (no
+            # invoke, no batching, no windows)
+            return self.push(buf)
         t_in = time.perf_counter()
         if self._chain_exit_t is not None:
             idle = max(0.0, t_in - self._chain_exit_t)

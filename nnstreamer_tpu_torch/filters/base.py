@@ -164,6 +164,30 @@ class FilterFramework:
         the chain un-fused, bit-identical behavior."""
         return not pre_specs and not post_specs
 
+    def fuse_chain(self, stages: Sequence[tuple], in_shapes=None) -> bool:
+        """Chain-fusion hook (pipeline/planner.py): compose a DOWNSTREAM
+        filter chain — alternating elementwise stage runs and whole-model
+        :class:`ops.fusion_stages.ModelStage` entries — after this
+        backend's per-invoke program, so a pad-linked filter→filter chain
+        runs as ONE program (one upload, one dispatch, one fetch).
+        ``in_shapes`` is the per-invoke input signature where the element
+        knows it (for a data-free check of the composition).
+        Returns True when installed — the planner then turns the chain's
+        downstream members into passthrough shells. An empty list clears
+        any installed chain (always succeeds on the base). Base: chain
+        fusion unsupported — the planner leaves the chain un-fused,
+        per-filter behavior unchanged."""
+        return not stages
+
+    def chain_callable(self, meta: bool = False):
+        """Chain-composition hook: this backend's per-invoke program as a
+        ``list-of-tensors -> list-of-tensors`` callable (fused stages,
+        model, postproc) that an UPSTREAM head filter runs after its own,
+        or with ``meta`` the same program rebuilt on the ``meta`` device
+        (the head's data-free composition check); None when the program
+        cannot be composed. Base: not composable."""
+        return None
+
     def compile_stats(self) -> dict:
         """Build counters (the counterpart of the JAX backend's jit trace
         count). Base backends build nothing per input signature."""

@@ -19,13 +19,21 @@ a card that is asked for and absent makes ``open`` raise.
     rewritten only after its last upload completed;
   - **on-device postproc**: ``custom=postproc:argmax|top1|softmax`` runs on
     the device, so only the small result crosses to the host;
-  - **build counter**: one count per new input signature, the counterpart
-    of the JAX backend's ``jit_traces``;
+  - **build counter**: one count per new input signature of each installed
+    composition (a chain installed or changed is a new composition), the
+    counterpart of the JAX backend's ``jit_traces`` (``_jit_trace_count``);
   - **fused stages**: ``fuse_stages`` composes the planner's pre/post
     transform stages (ops/fusion_stages.py) around the model: the
     pre-stage runs on each input after its upload, on the stream the
     model runs on, so the upload carries the transform's input bytes; the
     post-stage runs on each output after the postproc;
+  - **chain fusion**: ``fuse_chain`` installs a downstream filter chain
+    (ops/fusion_stages.py ``build_chain_fn``: each tail backend's
+    ``chain_callable`` and the gap transforms' stages) after this
+    backend's postproc, so one invoke — and one window replay — runs the
+    whole composition; it first runs the composition on ``meta`` tensors
+    at this filter's signature and declines, with a warning, where a link
+    does not compose or a tail lives on another device;
   - **steady loop**: ``build_loop`` installs the window program of the
     element's ``loop-window`` (ops/steady_loop.py): on the card one
     replay of a CUDA graph per window of N frames, captured once per
@@ -42,8 +50,8 @@ Model naming: zoo names (``mobilenet_v2``) with weights from
 trainer saved: a file or a directory), and embedded-Python ``.py`` model
 files (:func:`models.load_py_model`, the JAX backend's ``_load_py_model``).
 The JAX backend's ``.jaxexport``/``.msgpack``/SavedModel sources, its mesh
-sharding, replicas, AOT cache and chain fusion are not ported; the custom
-keys that would ask for them raise.
+sharding, replicas and AOT cache are not ported; the custom keys that
+would ask for them raise.
 """
 
 from __future__ import annotations
@@ -198,6 +206,12 @@ class TorchCudaFilter(FilterFramework):
         self._pre_specs: List[tuple] = []
         self._post_specs: List[tuple] = []
         self._custom: Dict[str, str] = {}
+        # chain-fusion state: the installed stage list and the function it
+        # builds, run on the postproc's outputs; ``_composition`` counts the
+        # installed compositions, so a new one counts as a new build
+        self._chain_stages: Optional[List[tuple]] = None
+        self._chain_fn = None
+        self._composition = 0
         # steady-loop window program (ops/steady_loop.py): the installed
         # window and launch depth, and on the card one captured graph per
         # input signature
@@ -237,6 +251,7 @@ class TorchCudaFilter(FilterFramework):
         self._staging = None
         self._stage_pre = self._stage_post = None
         self._pre_specs, self._post_specs = [], []
+        self._chain_stages, self._chain_fn = None, None
         self.build_loop(0)
         super().close()
 
@@ -260,6 +275,98 @@ class TorchCudaFilter(FilterFramework):
         self._pre_specs, self._post_specs = list(pre_specs), list(post_specs)
         return True
 
+    def fuse_chain(self, stages, in_shapes=None) -> bool:
+        """Install (or clear, empty list) a chain-fusion stage list after
+        this backend's postproc. ``in_shapes`` is the per-invoke input
+        signature (ShapeDtype list) where the element knows it, else the
+        model's declared input info: the whole composition first runs on
+        ``meta`` tensors there, so a link that does not compose declines
+        HERE, with a warning, and the planner falls back un-fused instead
+        of the first invoke failing. A tail backend on another device
+        declines too."""
+        from nnstreamer_tpu_torch.ops.fusion_stages import build_chain_fn
+
+        # a captured window holds the composition it was captured with
+        self._loop_graphs = {}
+        if not stages:
+            if self._chain_stages:
+                self._chain_stages, self._chain_fn = None, None
+                self._composition += 1
+            return True
+        if self._bundle is None:
+            return False
+        for kind, payload in stages:
+            dev = (getattr(payload.backend(), "_device", None)
+                   if kind == "model" else None)
+            if dev is not None and dev != self._device:
+                log.warning("chain member %r runs on %s, this filter on %s; "
+                            "declining whole-chain fusion", payload.name,
+                            dev, self._device)
+                return False
+        fn = build_chain_fn(stages)
+        if fn is None:
+            return False
+        reason = self._chain_composes(stages, in_shapes)
+        if reason is not None:
+            log.warning("chain composition does not compose on meta tensors "
+                        "(%s); declining whole-chain fusion", reason)
+            return False
+        self._chain_stages, self._chain_fn = list(stages), fn
+        self._composition += 1
+        return True
+
+    def _chain_composes(self, stages, in_shapes) -> Optional[str]:
+        """None when this backend's program followed by ``stages`` runs on
+        ``meta`` tensors at the signature, else the reason it does not.
+        Without a known signature there is nothing to run: None."""
+        from nnstreamer_tpu_torch.analysis.costmodel import (
+            ShapeDtype,
+            meta_tensors,
+        )
+        from nnstreamer_tpu_torch.ops.fusion_stages import build_chain_fn
+
+        if in_shapes is None:
+            info = self.props.input_info or self._bundle.input_info
+            if info is None:
+                return None
+            in_shapes = [ShapeDtype(tuple(t.np_shape()),
+                                    np.dtype(t.dtype.np_dtype)) for t in info]
+        solo = self.chain_callable(meta=True)
+        tail = build_chain_fn(stages, meta=True)
+        if solo is None or tail is None:
+            return "a member's program cannot be built on the meta device"
+        try:
+            with torch.no_grad():
+                tail(solo(meta_tensors(in_shapes)))
+        except Exception as e:  # noqa: BLE001 — incomposable: decline
+            return str(e).splitlines()[0][:120] if str(e) else repr(e)
+        return None
+
+    def chain_callable(self, meta: bool = False):
+        """This backend's per-invoke program (fused stages, model,
+        postproc) as a list→list callable, which an UPSTREAM chain head
+        runs after its own; with ``meta`` the same program rebuilt on the
+        ``meta`` device (the head's composition check). None when no model
+        is open. An installed chain of this backend's own is not part of
+        it."""
+        if self._bundle is None:
+            return None
+        if meta:
+            prog = self.cost_program()
+            if prog is None:
+                return None
+            fn, params = prog[0], prog[1]
+            return lambda xs: _as_list(fn(params, *xs))
+        stage_pre, apply_fn = self._stage_pre, self._bundle.apply_fn
+        post, stage_post = self._postproc, self._stage_post
+        return lambda xs: compose(xs, stage_pre, apply_fn, post, stage_post)
+
+    @property
+    def _jit_trace_count(self) -> int:
+        """Builds so far: the counterpart of the JAX backend's jit trace
+        counter (``compile_stats()["jit_traces"]``)."""
+        return len(self._signatures)
+
     # -- model info --------------------------------------------------------
     def get_model_info(self) -> Tuple[Optional[TensorsInfo], Optional[TensorsInfo]]:
         in_info = self._bundle.input_info
@@ -276,7 +383,7 @@ class TorchCudaFilter(FilterFramework):
         return in_info, _postproc_info(self._postproc_name, out)
 
     def compile_stats(self) -> Dict[str, int]:
-        return {"jit_traces": len(self._signatures)}
+        return {"jit_traces": self._jit_trace_count}
 
     # -- hot path ----------------------------------------------------------
     def _to_device(self, x: Any) -> torch.Tensor:
@@ -323,10 +430,14 @@ class TorchCudaFilter(FilterFramework):
 
     def _compose(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """:func:`compose` with this backend's stages, model and postproc,
-        on device tensors."""
+        then the installed chain, on device tensors: the whole per-invoke
+        composition, which ``invoke`` and the window program run."""
         with torch.inference_mode():
-            return compose(xs, self._stage_pre, self._bundle.apply_fn,
+            outs = compose(xs, self._stage_pre, self._bundle.apply_fn,
                            self._postproc, self._stage_post)
+            if self._chain_fn is not None:
+                outs = self._chain_fn(outs)
+            return outs
 
     def invoke(self, inputs: Sequence[Any]) -> List[Any]:
         t0 = time.perf_counter()
@@ -334,7 +445,8 @@ class TorchCudaFilter(FilterFramework):
             xs = self._consume(inputs)
         else:
             xs = [self._to_device(x) for x in inputs]
-        self._signatures.add(tuple((tuple(x.shape), dtype_name(x)) for x in xs))
+        self._signatures.add((self._composition,) + tuple(
+            (tuple(x.shape), dtype_name(x)) for x in xs))
         outs = self._compose(xs)
         # async: no synchronise here; stats record enqueue time
         self.stats.record((time.perf_counter() - t0) * 1e6)
@@ -342,10 +454,13 @@ class TorchCudaFilter(FilterFramework):
 
     # -- cost program (analysis/costmodel.py) ------------------------------
     def cost_program(self):
-        """(fn(params, *xs), params, input_info) — the per-invoke
+        """(fn(params, *xs), params, input_info) — the SOLO per-invoke
         composition (fused stages, model, postproc) rebuilt on the
         ``meta`` device, data-free; None when the model cannot be built
-        there."""
+        there. An installed chain is not part of it: the chain analyzer
+        (analysis/chain.py) models the composed program with every
+        member's params billed once, while the solo costs stay
+        attributable to their elements."""
         from nnstreamer_tpu_torch.analysis.costmodel import meta_composition
 
         if self._bundle is None:
@@ -389,6 +504,12 @@ class TorchCudaFilter(FilterFramework):
                 and self._device.type != "cuda" else None)
         solo_meta = (None if prog is None
                      else (lambda xs, fn=prog[0]: fn(None, *xs)))
+        if solo_meta is not None and self._chain_stages:
+            from nnstreamer_tpu_torch.ops.fusion_stages import build_chain_fn
+
+            tail = build_chain_fn(self._chain_stages, meta=True)
+            solo_meta = (None if tail is None else
+                         (lambda xs, head=solo_meta: tail(_as_list(head(xs)))))
         reason = validate_window(solo_meta, window, in_info)
         if reason is not None:
             log.warning("window program does not compose (%s); declining "
@@ -430,7 +551,7 @@ class TorchCudaFilter(FilterFramework):
             except Exception as e:  # noqa: BLE001 — the capture refused
                 raise LoopDeclined(f"window capture failed: {e}") from e
             self._loop_graphs[key] = g
-            self._signatures.add(("loop",) + key)
+            self._signatures.add(("loop", self._composition) + key)
         return g
 
     def loop_slot(self, row: Sequence[Any], window: int):
@@ -466,7 +587,7 @@ class TorchCudaFilter(FilterFramework):
 
         t0 = time.perf_counter()
         if isinstance(staged, list):
-            self._signatures.add(("loop",) + tuple(
+            self._signatures.add(("loop", self._composition) + tuple(
                 (tuple(x.shape), dtype_name(x)) for x in staged))
             outs = build_window_fn(self._compose)(staged)
         else:

@@ -1,6 +1,7 @@
-"""Fused transform stages: the planner's spec tuples → one torch function
-(counterpart of the JAX package's ``ops/fusion_stages.py``,
-``build_stage_fn``).
+"""Fused transform stages: the planner's spec tuples → one torch function,
+and whole-chain stage lists → one list→list function (counterpart of the
+JAX package's ``ops/fusion_stages.py``: ``build_stage_fn``,
+``ModelStage`` and ``build_chain_fn``).
 
 The fusion planner (pipeline/planner.py) reduces eligible
 ``tensor_transform`` elements to plain spec tuples; this module turns a
@@ -23,6 +24,13 @@ uploads uint8 frames, not float32).
   - ``("stand", mode)`` is float32 ``mean`` and the population ``std``
     (``correction=0``, as ``jnp.std``) with ``max(std, 1e-10)``.
 
+Chain fusion (:func:`build_chain_fn`) composes a downstream filter's
+whole model after the head's program: a ``("model", ModelStage)`` stage
+calls the tail backend's ``chain_callable`` on the tensor list, and a
+``("stages", specs)`` run between two members goes through
+:func:`build_stage_fn`, so a gap transform's arithmetic is the same
+``arith_chain`` launch as a fused pre/post stage.
+
 Parity contract (gates enforced by the planner, mirror of the transform's
 device path): typecast, arith and clamp are bit-identical to the numpy
 element; stand accumulates in float32 on the device against the host
@@ -32,7 +40,7 @@ relative), as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -102,3 +110,86 @@ def _stand(x: torch.Tensor, mode: str) -> torch.Tensor:
         return y - mean
     std = torch.clamp(y.std(correction=0), min=1e-10)
     return (y - mean) / std
+
+
+class ModelStage:
+    """Whole-model composition stage (chain fusion): wraps a downstream
+    tensor_filter's backend so the chain planner can splice model B onto
+    model A's outputs inside the head's one program. Unlike the
+    elementwise spec tuples above, a model stage maps the whole tensor
+    LIST (a model may take several inputs and produce several outputs),
+    so :func:`build_chain_fn` — not :func:`build_stage_fn` — builds it.
+
+    The wrapped framework object is the identity: two stages are equal
+    when they wrap the SAME open backend, which is what lets the
+    planner's unchanged-plan check skip the rebuild on a PAUSED→PLAYING
+    cycle. The callable resolves lazily (``chain_callable``) so a rebuild
+    picks up the tail backend's current model, stages and postproc."""
+
+    def __init__(self, name: str, fw, element=None):
+        self.name = name
+        self.fw = fw
+        #: the owning tensor_filter element, when known: resolution
+        #: prefers ITS current backend so a tail restarted between plans
+        #: composes the live one, while equality stays pinned to the fw
+        #: captured at plan time
+        self.element = element
+
+    def __repr__(self) -> str:
+        return f"ModelStage({self.name!r})"
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, ModelStage) and other.fw is self.fw
+
+    def __hash__(self) -> int:
+        return id(self.fw)
+
+    def backend(self):
+        return getattr(self.element, "fw", None) or self.fw
+
+    def resolve(self, meta: bool = False) -> Optional[Callable]:
+        """The tail's per-invoke program as a list→list callable on its
+        own weights, or with ``meta`` its rebuild on the ``meta`` device
+        (the data-free composition check)."""
+        fn = getattr(self.backend(), "chain_callable", None)
+        return fn(meta=meta) if callable(fn) else None
+
+
+def build_chain_fn(stages: Sequence[tuple],
+                   meta: bool = False) -> Optional[Callable]:
+    """Chain-fusion stage list → one list→list torch function, or None
+    when any stage cannot be resolved (the planner then leaves the chain
+    un-fused). ``stages`` alternate:
+
+      ("stages", (<spec tuple>, ...))  — elementwise transform run
+                                         (applied per tensor)
+      ("model", ModelStage)            — a whole downstream model
+                                         (applied to the tensor list)
+
+    ``meta`` resolves every model stage on the ``meta`` device."""
+    if not stages:
+        return None
+    resolved: List[Tuple[str, Callable]] = []
+    for stage in stages:
+        kind, payload = stage[0], stage[1]
+        if kind == "stages":
+            fn = build_stage_fn(payload)
+            if fn is not None:
+                resolved.append(("elem", fn))
+        elif kind == "model":
+            fn = payload.resolve(meta=meta)
+            if fn is None:
+                return None
+            resolved.append(("model", fn))
+        else:
+            return None
+
+    def chain_fn(outs):
+        for kind, f in resolved:
+            if kind == "elem":
+                outs = [f(o) for o in outs]
+            else:
+                outs = f(outs)
+        return outs
+
+    return chain_fn

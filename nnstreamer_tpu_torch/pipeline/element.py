@@ -196,6 +196,11 @@ class Element:
     #: payloads (queue/tee/identity/…) — the residency planner looks
     #: THROUGH these when locating the materialization boundary
     DEVICE_TRANSPARENT: bool = False
+    #: declared capability: this element's src pads may legitimately stay
+    #: unlinked (tee taps). The dangling-pad lint (NNST002) honors the
+    #: declaration instead of hard-coding class names, so subclasses and
+    #: renames keep the exemption.
+    MAY_DANGLE_SRC: bool = False
     #: property schema (nnlint NNST1xx): what this element understands.
     #: Merged over the MRO by analysis.schema.schema_for — subclasses add
     #: their own entries on top of these base ones.

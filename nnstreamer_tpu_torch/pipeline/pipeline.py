@@ -142,22 +142,14 @@ class Pipeline:
         # transition) | 'off'. NNSTPU_FUSION=off disables globally;
         # per-element `fusion=off` opts single elements out.
         self.fusion: str = "auto"
+        # whole-chain filter→filter fusion: 'auto' (default — compose every
+        # NNST450 chain into its head at the PLAYING transition) | 'off'.
+        # NNSTPU_CHAIN_FUSION=off disables globally; per-element
+        # `chain-fusion=off` opts single filters out. Rides the `fusion`
+        # gate: fusion=off disables chain fusion too.
+        self.chain_fusion: str = "auto"
         self._abort_lock = lockwitness.make_lock("pipeline.abort")
         self._aborting = False
-
-    @property
-    def chain_fusion(self) -> str:
-        """Whole-chain filter→filter fusion. This package has no chain
-        pass yet, so filters always run one by one: 'off' is the only
-        value, and setting any other raises (the JAX package's launch
-        code sets it to 'off' where it wants filters one by one)."""
-        return "off"
-
-    @chain_fusion.setter
-    def chain_fusion(self, value: str) -> None:
-        if str(value).lower() != "off":
-            raise ValueError(f"chain_fusion={value!r}: the chain fusion "
-                             "pass is not ported; only 'off' is honoured")
 
     # -- graph construction ------------------------------------------------
     def add(self, *elements: Element) -> None:

@@ -1,9 +1,27 @@
-"""PLAYING-transition planner: transform fusion and device-residency lanes
-(counterpart of the JAX package's ``pipeline/planner.py``, its passes 1
-and 2).
+"""PLAYING-transition planner: chain fusion, transform fusion, steady-loop
+windows and device-residency lanes (counterpart of the JAX package's
+``pipeline/planner.py``).
 
 Run by Pipeline.set_state immediately before the sources start (no data
 in flight):
+
+0. **Chain-fusion planner** — consumes the static chain-composition
+   analyzer (analysis/chain.py, NNST45x): pad-linked ``tensor_filter``
+   chains connected through residency-transparent elements whose
+   composition the analyzer PROVED sound (NNST450 — the members compose
+   on meta tensors and the composed program fits the device budget) are
+   installed on the chain's head filter (``install_chain``): one invoke
+   runs the head's program, then each downstream model, with the gap
+   transforms between them as ``arith_chain`` stages. The downstream
+   members and gap transforms become passthrough shells
+   (``fused-into:<head>`` on the tracer), so a multi-filter line does one
+   upload, one dispatch and one fetch per buffer. Gated by
+   ``fusion=auto|off`` plus the dedicated ``chain-fusion=auto|off``
+   (pipeline attribute, per-element property, ``NNSTPU_CHAIN_FUSION``
+   env). A backend that declines the composition falls back un-fused —
+   per-filter behavior, no change. It plans FIRST: a gap transform the
+   chain claims is invisible to the per-filter walks below, so its math
+   runs exactly once.
 
 1. **Fusion planner** — walks linear ``tensor_transform`` runs directly
    pad-linked to a ``tensor_filter`` and installs the bit-parity-eligible
@@ -33,14 +51,15 @@ in flight):
 
 Between the two runs the **steady-loop planner**: every filter the loop
 analyzer (analysis/loop.py, fed by the cost model and the memory plan)
-verdicts NNST460 gets its window program installed (``install_loop``);
-NNST461/462 and a declining backend fall back LOUDLY to per-buffer
-launches. It runs before residency because a looped filter drains its
-windows to the host, which moves the materialization boundary.
+verdicts NNST460 gets its window program installed (``install_loop``)
+over its FINAL composition (stages and chain); NNST461/462 and a
+declining backend fall back LOUDLY to per-buffer launches. It runs before
+residency because a looped filter drains its windows to the host, which
+moves the materialization boundary.
 
-The JAX package's chain-fusion (filter→filter programs), mesh-sharding
-and replica-pool passes are not ported: their properties raise at
-construction (elements/filter.py ``NOT_PORTED``).
+The JAX package's mesh-sharding and replica-pool passes are not ported:
+their properties raise at construction (elements/filter.py
+``NOT_PORTED``).
 """
 
 from __future__ import annotations
@@ -54,20 +73,31 @@ from nnstreamer_tpu_torch.log import get_logger
 
 log = get_logger("planner")
 
+#: transform modes the fusion planner understands (subset of
+#: transform.MODES; everything else is an automatic un-fused fallback)
+FUSABLE_MODES = ("typecast", "arithmetic", "clamp", "stand")
+
 
 def plan_pipeline(pipeline) -> None:
     """Run the planning passes. Idempotent — each PLAYING transition
     re-plans from scratch (a PAUSED→PLAYING cycle or an edited graph gets
-    fresh decisions)."""
+    fresh decisions). Chain fusion plans FIRST (it claims whole filters
+    plus the gap transforms between them: a transform claimed by a chain
+    is invisible to the per-filter walks, so its math runs exactly once,
+    inside the composition), then per-filter transform fusion, the loop
+    and residency."""
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
     from nnstreamer_tpu_torch.elements.transform import TensorTransform
 
-    # shells always reset here; filter stages are cleared/rebuilt only
-    # when their plan actually changes
+    # shells always reset here (ONE home for the reset — the chain and
+    # transform planners both claim via _fused_into); backend programs
+    # are cleared/rebuilt only when their plan actually changes
     for e in pipeline.elements.values():
-        if isinstance(e, TensorTransform):
+        if isinstance(e, (TensorFilter, TensorTransform)):
             e._fused_into = None
-    # the JAX package's chain-fusion pass runs here, and its shard and
-    # pool passes between fusion and the loop (ROADMAP.md queue 1)
+    _plan_chain_fusion(pipeline)
+    # the JAX package's shard and pool passes run here (ROADMAP.md
+    # queue 1)
     _plan_fusion(pipeline)
     _plan_steady_loop(pipeline)
     _plan_residency(pipeline)
@@ -83,6 +113,75 @@ def _fusion_enabled(pipeline) -> bool:
 
 def _elem_fusion_off(e) -> bool:
     return str(e.properties.get("fusion", "auto")).lower() == "off"
+
+
+def _chain_fusion_enabled(pipeline) -> bool:
+    """Whole-chain fusion gate: rides the transform-fusion gate (fusion
+    off disables every planner optimization) plus its own
+    ``chain-fusion=auto|off`` pipeline attribute and
+    ``NNSTPU_CHAIN_FUSION`` env override."""
+    if not _fusion_enabled(pipeline):
+        return False
+    if os.environ.get("NNSTPU_CHAIN_FUSION", "").lower() in (
+            "0", "off", "false"):
+        return False
+    return str(getattr(pipeline, "chain_fusion", "auto")).lower() != "off"
+
+
+# --- chain-fusion planning (analysis/chain.py is the oracle) --------------
+
+def _plan_chain_fusion(pipeline) -> None:
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
+
+    filters = [e for e in pipeline.elements.values()
+               if isinstance(e, TensorFilter)]
+    if not filters:
+        return
+    tracer = getattr(pipeline, "tracer", None)
+    fused_heads = set()
+    if _chain_fusion_enabled(pipeline):
+        from nnstreamer_tpu_torch.analysis.chain import analyze_chains
+
+        for chain in analyze_chains(pipeline):
+            # the analyzer is the oracle: only NNST450 chains (proved
+            # composable AND inside the budget) are ever composed —
+            # NNST451/452/453 chains run per-filter, unchanged
+            if chain.code != "NNST450":
+                continue
+            head = chain.members[0]
+            for m in chain.members[1:]:
+                # a member's stages from an earlier per-filter epoch would
+                # run inside its chain callable on top of the gap stages
+                if m._pre_specs or m._post_specs:
+                    m.clear_fusion()
+            stages = chain.stage_list()
+            tail_elems = chain.claimed_elements()
+            if (stages == head._chain_specs
+                    and tail_elems == head._chain_tail_elems):
+                installed = True  # unchanged plan: the composition holds
+            else:
+                installed = head.install_chain(tail_elems, stages)
+                if not installed:
+                    head.clear_chain()  # drop a prior epoch's stale chain
+            if not installed:
+                log.info("[%s] backend declined whole-chain fusion; the "
+                         "chain stays per-filter", head.name)
+                continue
+            fused_heads.add(id(head))
+            for m in tail_elems:
+                m._fused_into = head.name
+                if tracer is not None:
+                    tracer.record_fusion(m.name, head.name)
+            log.info("[%s] chain-fused %d downstream filter(s) + %d gap "
+                     "transform(s) into one program (%s)", head.name,
+                     len(chain.members) - 1,
+                     sum(len(g) for g in chain.gaps), chain.label())
+    # heads whose chain dissolved (edited graph, gates flipped): tear the
+    # stale composition down so the solo program serves again
+    for f in filters:
+        if id(f) not in fused_heads and (f._chain_specs
+                                         or f._chain_tail_elems):
+            f.clear_chain()
 
 
 def transform_fusion_spec(transform, cur_dtype, batch: int):
@@ -208,14 +307,19 @@ def _info_dtype(info) -> Optional[np.dtype]:
 
 
 def _plan_fusion(pipeline) -> None:
-    """Per-filter transform fusion. Filter stages are cleared/rebuilt only
-    when their plan actually CHANGES."""
+    """Per-filter transform fusion. Shell reset happens in plan_pipeline
+    (shared with the chain planner, which claims elements first); filter
+    stages are cleared/rebuilt only when their plan actually CHANGES."""
     from nnstreamer_tpu_torch.elements.filter import TensorFilter
 
     enabled = _fusion_enabled(pipeline)
     tracer = getattr(pipeline, "tracer", None)
     for f in pipeline.elements.values():
         if not isinstance(f, TensorFilter):
+            continue
+        if f._fused_into is not None:
+            # chain-fused shell: its model runs inside the head's
+            # composition; it owns no program to fuse stages into
             continue
         pre: List = []
         pre_specs: List[tuple] = []

@@ -219,10 +219,23 @@ TRANSPORT_MODULES = (
 )
 
 
+#: the modules of the slice that brought the static analyzer, its lint
+#: CLI and whole-chain filter→filter fusion
+ANALYZER_MODULES = (
+    "nnstreamer_tpu_torch.analysis",
+    "nnstreamer_tpu_torch.analysis.registry",
+    "nnstreamer_tpu_torch.analysis.passes",
+    "nnstreamer_tpu_torch.analysis.chain",
+    "nnstreamer_tpu_torch.tools",
+    "nnstreamer_tpu_torch.tools.validate",
+)
+
+
 @pytest.mark.parametrize("module", SLICE_MODULES + VISION_MODULES
                          + SERVING_MODULES + STREAM_MODULES
                          + PLANNER_MODULES + TRAINING_MODULES
-                         + LOOP_MODULES + TRANSPORT_MODULES)
+                         + LOOP_MODULES + TRANSPORT_MODULES
+                         + ANALYZER_MODULES)
 def test_slice_module_alone_loads_no_jax(module):
     """Each module, imported alone in a fresh interpreter, pulls in
     neither JAX nor the JAX package (the walk above imports them all

@@ -12,9 +12,10 @@ src pad, ``memory:HBM`` on the same caps, equal crossings per element
 and the port must also meet the reference's own asserts. Each package
 uses its own ``HostSumDecoder`` / ``DeviceSumDecoder`` probe.
 
-Left out: the two ``TestResidencyLint`` cases (they need
-``tools/validate.py``, not ported) and the two ``TestChainFusedCrossingParity``
-cases (chain fusion engages nowhere in the reference under this jax).
+Held elsewhere: the two ``TestResidencyLint`` cases
+(tests/test_torch_analysis.py, with ``tools/validate.py``) and the two
+``TestChainFusedCrossingParity`` cases (tests/test_torch_chain.py, on the
+port alone: chain fusion engages nowhere in the reference under this jax).
 
 Beyond the reference's cases: fusion parity over every eligible grammar
 (fused ``assert_array_equal`` to unfused, port equal to JAX; ``stand`` at
@@ -183,12 +184,27 @@ def decoders():
 
 def plan_of(p) -> dict:
     """Each src pad's residency verdict and whether its caps carry
-    memory:HBM: {element.pad: (device_ok, device_resident, hbm)}."""
+    memory:HBM: {element.pad: (device_ok, device_resident, hbm)}. An
+    element named by its package's counter (``queue7``) is keyed by its
+    rank among those of its type in the line (``queue#0``): the counter
+    runs over every pipeline a test process built, and the two packages'
+    counters differ with the tests that ran before."""
+    import re
+
+    auto = {}
+    for name, e in p.elements.items():
+        m = re.fullmatch(re.escape(e.ELEMENT_NAME) + r"(\d+)", name)
+        if m:
+            auto.setdefault(e.ELEMENT_NAME, []).append((int(m.group(1)),
+                                                         name))
+    rename = {name: f"{kind}#{k}" for kind, names in auto.items()
+              for k, (_, name) in enumerate(sorted(names))}
     out = {}
     for name, e in p.elements.items():
         for sp in e.src_pads:
             hbm = sp.caps is not None and sp.caps.is_device_resident()
-            out[f"{name}.{sp.name}"] = (sp.device_ok, sp.device_resident, hbm)
+            out[f"{rename.get(name, name)}.{sp.name}"] = (
+                sp.device_ok, sp.device_resident, hbm)
     return out
 
 

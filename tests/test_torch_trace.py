@@ -32,6 +32,17 @@ from nnstreamer_tpu_torch.pipeline import parse_launch  # noqa: E402
 
 from test_torch_filter_props import PKGS, both  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _no_stale_lock_stats():
+    """The JAX tracer's report carries a ``locks`` section whenever its
+    lock witness holds statistics, which a sanitizer test run earlier in
+    the same process (tests/test_analysis.py) leaves behind: clear them,
+    so the report is the one this test's pipeline makes."""
+    from nnstreamer_tpu.analysis import lockwitness
+
+    lockwitness.reset()
+
 CAPS4 = ("other/tensors,num-tensors=1,dimensions=4:1,types=float32,"
          "framerate=0/1")
 
