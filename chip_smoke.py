@@ -320,14 +320,35 @@ Phases, each printing one JSON line:
              library (x / 2.0) ms; (d) the analyzer alone on an add chain
              sized past the card's budget (NNST452) and the fixture's
              12 GiB line, which the card's budget admits (NNST450);
+  robust     the flagship with the preamble fused, on the torch_cuda
+             backend, under this package's sanitizer: (a) invoke-hang on
+             the first 2 invokes (1.5 s against invoke-timeout-ms=1000,
+             fallback-framework=jax fallback-after=2 on-error=drop): 2
+             trips, the first batch dropped, a fresh jax instance with
+             the fused preamble serving the rest, logits bit-equal to an
+             unfaulted run, 13 fused-block and 1 arith_chain launches a
+             batch on the fallback, no NNST601 and no hard violation;
+             the watchdog worker on the streaming thread's stream at
+             feed-depth 1, 2 and 4; (b) frames/s and p50 batch latency
+             with the watchdog armed and without, and with the sanitizer
+             on and off, in turns (on off off on on off); (c) donate:1
+             against off at feed-depth 1 and 2: each invoke's peak above
+             its entry (max_memory_allocated, max_memory_reserved),
+             logits bit-equal, and the refusal behind a tee; (d) NNST600
+             on CUDA tensors (a tee into two acceleration=device
+             transforms, one writing in place) and the flagship, tee
+             line and line K with no violation; (e) the validate CLI on
+             examples/launch_lines_ctl.txt (each EXPECT) and the serve
+             line's static plant seed beside the serve phase's device ms
+             a row;
 
 then one ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
 that last line. It needs a CUDA card: without one it exits 1 at once.
 
 ``--only`` runs the named phases alone (``serve`` needs ``slice`` for
-its frames; ``streams``, ``residency``, ``train``, ``loop``, ``edge`` and
-``chain`` build their own; ``stride2`` runs inside ``kernel``, the flagship's profile
+its frames; ``streams``, ``residency``, ``train``, ``loop``, ``edge``,
+``chain`` and ``robust`` build their own; ``stride2`` runs inside ``kernel``, the flagship's profile
 inside ``slice``, the overload and reference lines inside ``serve``) and
 ends after them, without the ``kernels`` and result lines.
 """
@@ -2838,8 +2859,12 @@ def check_serve(torch, results, workdir):
         _serve_launches("profile", prof_launches, sp["batches"])
         return s
 
-    emit("profile", line="serve", requests=total,
-         **device_profile(torch, run))
+    prof = device_profile(torch, run)
+    emit("profile", line="serve", requests=total, **prof)
+    # the measured device ms a served row (robust phase prints the
+    # static plant seed beside it)
+    results["serve_row_device_ms"] = (
+        prof["device_busy_ms"] / total if prof["device_busy_ms"] else None)
 
     # 2x the measured capacity, open loop: Poisson arrivals per client at
     # 2 * rps / 8, for OVERLOAD_S seconds, queue bound 32
@@ -5228,6 +5253,560 @@ def check_chain(torch, results, workdir):
     check_chain_budget(results)
 
 
+#: the robust phase: the watchdog's deadline, each injected hang (longer
+#: than the deadline), the trips before the switch (fallback-after), the
+#: batches run on the fallback after it, and the order of the timed turns
+ROBUST_T_MS = 1000
+ROBUST_HANG_S = 1.5
+ROBUST_K = 2
+ROBUST_AFTER = 6
+ROBUST_TURNS = ("on", "off", "off", "on", "on", "off")
+#: codes the sanitizer reports as a warning, not a violation of the run
+SANITIZER_WARNINGS = ("NNST613",)
+
+
+def _robust_line(labels: str, extra: str = "", custom: str = "",
+                 raw: bool = False) -> str:
+    """The flagship with the preamble fused into the filter, on the
+    torch_cuda backend: ``extra`` goes on the filter, ``custom`` after its
+    custom string, ``raw`` sends the logits to the sink (no argmax, no
+    decoder)."""
+    post = "" if raw else ",postproc:argmax"
+    tail = ("" if raw else "! queue ! tensor_decoder mode=image_labeling "
+            f"option1={labels} ")
+    return (
+        f"appsrc name=src caps=video/x-raw,format=RGB,width={SIZE},"
+        f"height={SIZE},framerate=1000/1 "
+        f"! tensor_converter frames-per-tensor={BATCH} "
+        f"! tensor_transform name=tr mode=arithmetic option={PREAMBLE} "
+        "! tensor_filter name=f framework=torch_cuda model=mobilenet_v2 "
+        f"custom=seed:0,fused:pallas{post}{custom} {extra} "
+        f"{tail}! tensor_sink name=out")
+
+
+def _until(cond, what: str, timeout: float = 60.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"robust: {what}")
+        time.sleep(0.002)
+
+
+def _add_launches(total, launches) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _hard_violations(sanitizer) -> list:
+    return [(v.code, v.element, v.message[:200])
+            for v in sanitizer.violations()
+            if v.code not in SANITIZER_WARNINGS]
+
+
+def _logits_by_pts(p) -> dict:
+    import numpy as np
+
+    return {b.pts: np.asarray(b.tensors[0]) for b in p["out"].collected}
+
+
+def check_robust_trip(torch, labels, frames, total):
+    """(a) The watchdog trips, the filter switches, the labels stay right:
+    invoke-hang on the first ROBUST_K invokes (longer than the deadline),
+    each batch paced until its abandoned invoke has run; the first batch
+    is dropped, the K-th trip switches to a fresh ``jax`` instance that
+    serves that batch, and every delivered batch's logits are bit-equal
+    to an unfaulted run's. Then ROBUST_AFTER batches on the fallback with
+    the launch counts from 0."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+    from nnstreamer_tpu_torch.testing import faults
+
+    n = ROBUST_K + ROBUST_AFTER
+    p, _, _, _, launches = _run_line(_robust_line(labels, raw=True), frames,
+                                     n, warm=0)
+    _add_launches(total, launches)
+    want = _logits_by_pts(p)
+    p.stop()
+
+    wd = (f"invoke-timeout-ms={ROBUST_T_MS} fallback-framework=jax "
+          f"fallback-after={ROBUST_K} on-error=drop")
+    p = parse_launch(_robust_line(labels, wd, raw=True))
+    p.play()
+    f = p["f"]
+    primary = f.fw
+
+    def push(k):
+        for i in range(k * BATCH, (k + 1) * BATCH):
+            p["src"].push_buffer(Buffer(tensors=[frames[i % len(frames)]],
+                                        pts=i))
+
+    faults.install("invoke-hang", times=ROBUST_K, delay_s=ROBUST_HANG_S)
+    try:
+        t0 = time.perf_counter()
+        for k in range(ROBUST_K):
+            push(k)
+            _until(lambda: f.get_property("watchdog-trips") >= k + 1,
+                   f"trip {k + 1}")
+            # the abandoned invoke wakes and launches on the primary
+            _until(lambda: primary.stats.total_invoke_num >= k + 1,
+                   f"abandoned invoke {k + 1}")
+        _wait_for(lambda: [len(p["out"].collected)], ROBUST_K - 1, p,
+                  "robust switch")
+        switch_s = time.perf_counter() - t0
+    finally:
+        faults.clear()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    for k in range(ROBUST_K, n):
+        push(k)
+    _wait_for(lambda: [len(p["out"].collected)], n - 1, p, "robust")
+    torch.cuda.synchronize()
+    after = dict(_cuda.LAUNCHES)
+    _add_launches(total, after)
+    p["src"].end_of_stream()
+    if not p.bus.wait_eos(120) or p.bus.error is not None:
+        raise RuntimeError(f"robust trip line failed: {p.bus.error}")
+    got = _logits_by_pts(p)
+    kept = sorted(want)[1:]  # the first batch is the one the trips cost
+    bit_equal = sorted(got) == kept and all(
+        got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+        for k in kept)
+    labels_equal = sorted(got) == kept and all(
+        np.array_equal(got[k].argmax(-1), want[k].argmax(-1)) for k in kept)
+    row = {"timeout_ms": ROBUST_T_MS, "hang_s": ROBUST_HANG_S,
+           "fallback_after": ROBUST_K, "batches": n,
+           "watchdog_trips": f.get_property("watchdog-trips"),
+           "degraded_to": f.get_property("degraded-to"),
+           "error_stats": f.get_property("error-stats"),
+           "fault_actions": [r["action"] for r in p.bus.fault_record],
+           "delivered_batches": len(got), "dropped_pts": sorted(
+               set(want) - set(got)),
+           "fresh_instance": f.fw is not primary,
+           "fallback_preamble": bool(f.fw._pre_specs),
+           "primary_invokes": primary.stats.total_invoke_num,
+           "fallback_invokes": f.fw.stats.total_invoke_num,
+           "switch_s": switch_s, "logits_bit_equal": bit_equal,
+           "labels_equal": labels_equal,
+           "launches_after_switch": after,
+           "launches_per_batch_after_switch": {
+               k: v / ROBUST_AFTER for k, v in after.items()}}
+    p.stop()
+    ok = (row["watchdog_trips"] == ROBUST_K and row["degraded_to"] == "jax"
+          and row["error_stats"].get("dropped") == 1
+          and row["error_stats"].get("fallbacks") == 1
+          and row["fault_actions"] == ["watchdog-trip", "drop"] * (
+              ROBUST_K - 1) + ["watchdog-trip", "fallback"]
+          and row["dropped_pts"] == [sorted(want)[0]]
+          and row["fresh_instance"] and row["fallback_preamble"]
+          and row["primary_invokes"] == ROBUST_K
+          and bit_equal and labels_equal
+          and after.get("fused_inverted_residual") == 13 * ROBUST_AFTER
+          and after.get("arith_chain") == ROBUST_AFTER
+          and after.get("normalize_u8", 0) == 0)
+    return row, ok
+
+
+def check_robust_streams(torch, labels, frames, total):
+    """The watchdog's worker invokes on the streaming thread's CUDA stream
+    at feed-depth 1, 2 and 4 (no fault), with the labels of the unwatched
+    feed-depth=1 line."""
+    import threading
+
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
+
+    seen = []
+    orig_backend = TensorFilter._invoke_backend
+
+    def spy_backend(self, inputs):
+        seen.append(("caller", threading.current_thread().name,
+                     torch.cuda.current_stream().cuda_stream))
+        return orig_backend(self, inputs)
+
+    rows = {}
+    p, _, _, _, launches = _run_line(_robust_line(labels), frames, 2, warm=1)
+    _add_launches(total, launches)
+    want = [lab for b in p["out"].collected for lab in b.meta["label"]]
+    p.stop()
+    TensorFilter._invoke_backend = spy_backend
+    try:
+        for fd in (1, 2, 4):
+            seen.clear()
+            p = _robust_parse(labels, f"invoke-timeout-ms={ROBUST_T_MS} "
+                              f"feed-depth={fd}")
+            fw_invoke = p["f"].fw.invoke
+
+            def spy_invoke(inputs, _orig=fw_invoke):
+                seen.append(("invoke", threading.current_thread().name,
+                             torch.cuda.current_stream().cuda_stream))
+                return _orig(inputs)
+
+            p["f"].fw.invoke = spy_invoke
+            got = _robust_play(torch, p, frames, 3)
+            _add_launches(total, got["launches"])
+            callers = {s for w, _, s in seen if w == "caller"}
+            invokes = {s for w, _, s in seen if w == "invoke"}
+            threads = {t for w, t, _ in seen if w == "invoke"}
+            rows[fd] = {"caller_streams": sorted(callers),
+                        "invoke_streams": sorted(invokes),
+                        "invoke_threads": sorted(threads),
+                        "invokes": sum(1 for w, _, _ in seen
+                                       if w == "invoke"),
+                        "labels_equal": got["labels"] == want}
+    finally:
+        TensorFilter._invoke_backend = orig_backend
+    ok = all(r["caller_streams"] == r["invoke_streams"]
+             and len(r["invoke_streams"]) == 1
+             and r["invoke_threads"] == ["invoke-wd:f"]
+             and r["invokes"] == 3 and r["labels_equal"]
+             for r in rows.values())
+    return rows, ok
+
+
+def _robust_parse(labels, extra="", custom="", raw=False):
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    p = parse_launch(_robust_line(labels, extra, custom, raw))
+    p.play()
+    return p
+
+
+def _robust_play(torch, p, frames, n_batches):
+    """Push ``n_batches`` into a playing robust line, EOS, stop; returns
+    the labels (or logits), the launches and the sink's buffers."""
+    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    for i in range(n_batches * BATCH):
+        p["src"].push_buffer(Buffer(tensors=[frames[i % len(frames)]],
+                                    pts=i))
+    p["src"].end_of_stream()
+    if not p.bus.wait_eos(300) or p.bus.error is not None:
+        raise RuntimeError(f"robust line failed: {p.bus.error}")
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    outs = list(p["out"].collected)
+    p.stop()
+    labels = [lab for b in outs for lab in (b.meta.get("label") or [])]
+    return {"labels": labels, "launches": launches, "outs": outs}
+
+
+def _turns(run, turns=ROBUST_TURNS):
+    """``run(on)`` for each turn; per side: frames/s and p50 batch latency
+    of each run, their medians and spreads."""
+    out = {"on": [], "off": []}
+    for t in turns:
+        out[t].append(run(t == "on"))
+
+    def summary(rs):
+        fps = [r["fps"] for r in rs]
+        p50 = [r["p50_batch_latency_ms"] for r in rs]
+        return {"fps": fps, "median_fps": statistics.median(fps),
+                "spread_fps": max(fps) - min(fps),
+                "p50_batch_latency_ms": p50,
+                "median_p50_ms": statistics.median(p50),
+                "spread_p50_ms": max(p50) - min(p50)}
+
+    return {side: summary(rs) for side, rs in out.items()}
+
+
+def check_robust_donate(torch, labels, frames, total):
+    """(c) custom=donate:1 against off at feed-depth 1 and 2 on the raw
+    line: every invoke's peak above what was allocated at its entry
+    (``reset_peak_memory_stats`` before it, ``max_memory_allocated`` and
+    ``max_memory_reserved`` after), logits bit-equal."""
+    import numpy as np
+
+    rows = {}
+    outs = {}
+    for fd in (1, 2):
+        for donate in (False, True):
+            p = _robust_parse(labels, f"feed-depth={fd}",
+                              ",donate:1" if donate else "", raw=True)
+            fw = p["f"].fw
+            peaks = []
+            orig = fw.invoke
+
+            def spy(inputs, _orig=orig, _peaks=peaks):
+                base = torch.cuda.memory_allocated()
+                base_r = torch.cuda.memory_reserved()
+                torch.cuda.reset_peak_memory_stats()
+                out = _orig(inputs)
+                _peaks.append((torch.cuda.max_memory_allocated() - base,
+                               torch.cuda.max_memory_reserved() - base_r))
+                return out
+
+            fw.invoke = spy
+            got = _robust_play(torch, p, frames, 4)
+            _add_launches(total, got["launches"])
+            steady = peaks[1:]  # the first invoke builds
+            key = f"fd{fd}_{'on' if donate else 'off'}"
+            rows[key] = {
+                "donating": fw._donate,
+                "peak_alloc_bytes": [a for a, _ in steady],
+                "peak_reserved_growth_bytes": [r for _, r in steady],
+                "median_peak_alloc_bytes": statistics.median(
+                    a for a, _ in steady)}
+            outs[key] = np.concatenate([np.asarray(b.tensors[0])
+                                        for b in got["outs"]])
+    frame_bytes = BATCH * SIZE * SIZE * 3
+    for fd in (1, 2):
+        on, off = rows[f"fd{fd}_on"], rows[f"fd{fd}_off"]
+        rows[f"fd{fd}_fall_bytes"] = (off["median_peak_alloc_bytes"]
+                                      - on["median_peak_alloc_bytes"])
+        rows[f"fd{fd}_fall_minus_input_bytes"] = (
+            rows[f"fd{fd}_fall_bytes"] - frame_bytes)
+        rows[f"fd{fd}_bit_equal"] = bool(
+            outs[f"fd{fd}_on"].shape == outs[f"fd{fd}_off"].shape
+            and np.array_equal(outs[f"fd{fd}_on"], outs[f"fd{fd}_off"]))
+    rows["input_bytes"] = frame_bytes
+    ok = (rows["fd1_bit_equal"] and rows["fd2_bit_equal"]
+          and rows["fd1_on"]["donating"] and not rows["fd1_off"]["donating"]
+          and outs["fd1_on"].shape == (4 * BATCH, 1001))
+    return rows, ok
+
+
+def check_robust_tee_refusal(labels):
+    """A donate:1 filter behind a tee is refused at construction."""
+    from nnstreamer_tpu_torch.log import ElementError
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    line = (f"appsrc name=src caps=video/x-raw,format=RGB,width={SIZE},"
+            f"height={SIZE},framerate=1000/1 "
+            f"! tensor_converter frames-per-tensor={BATCH} ! tee name=t "
+            "t. ! queue ! tensor_filter name=f framework=torch_cuda "
+            "model=mobilenet_v2 custom=seed:0,fused:pallas,donate:1 "
+            "! tensor_sink name=out t. ! queue ! tensor_sink name=o2")
+    p = parse_launch(line)
+    try:
+        p.play()
+    except ElementError as e:
+        p.stop()
+        return str(e), "donate:1 is unsafe here" in str(e)
+    p.stop()
+    return "played", False
+
+
+def check_robust_nnst600(torch):
+    """(d) NNST600 on tensors on the card: a tee of CUDA tensors into two
+    ``tensor_transform acceleration=device`` branches, the first of which
+    writes its input in place (the reference's tee-aliasing case); the
+    violation names it. Without the write, no violation."""
+    from nnstreamer_tpu_torch.analysis import sanitizer
+    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.elements.transform import TensorTransform
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    caps = (f"other/tensors,num-tensors=1,dimensions=3:{SIZE}:{SIZE}:"
+            f"{BATCH},types=uint8,framerate=0/1")
+    line = (f"appsrc name=src caps={caps} ! tee name=t "
+            f"t. ! tensor_transform name=tr mode=arithmetic "
+            f"option={PREAMBLE} acceleration=device ! tensor_sink name=a "
+            f"t. ! queue ! tensor_transform name=tr2 mode=arithmetic "
+            f"option={PREAMBLE} acceleration=device ! tensor_sink name=b")
+    orig = TensorTransform._device_chain_inputs
+
+    def inplace(self, buf):
+        xs = orig(self, buf)
+        if self.name == "tr":
+            for x in xs:
+                x.add_(1)  # through the tee-shared tensor itself
+        return xs
+
+    rows = {}
+    for mutate in (True, False):
+        sanitizer.clear()
+        TensorTransform._device_chain_inputs = inplace if mutate else orig
+        try:
+            p = parse_launch(line)
+            p.play()
+            x = torch.randint(0, 255, (BATCH, SIZE, SIZE, 3),
+                              dtype=torch.uint8, device="cuda")
+            p["src"].push_buffer(Buffer(tensors=[x]))
+            p["src"].end_of_stream()
+            p.bus.wait_eos(60)
+            err = p.bus.error
+            p.stop()
+        finally:
+            TensorTransform._device_chain_inputs = orig
+        v = [(x.code, x.element) for x in sanitizer.violations()]
+        rows["inplace" if mutate else "clean"] = {
+            "violations": v, "bus_error": err is not None,
+            "message": next((x.message[:160] for x in
+                             sanitizer.violations()), None)}
+    sanitizer.clear()
+    ok = (rows["inplace"]["violations"] == [("NNST600", "tr")]
+          and rows["inplace"]["bus_error"]
+          and rows["clean"]["violations"] == []
+          and not rows["clean"]["bus_error"])
+    return rows, ok
+
+
+def check_robust_clean_lines(torch, labels, frames, total):
+    """(d) The flagship, the tee line and line K (the cascade) under the
+    sanitizer: zero violations (NNST613 is a warning and listed)."""
+    from nnstreamer_tpu_torch.analysis import sanitizer
+
+    rows = {}
+    for name, line in (("flagship", _robust_line(labels)),
+                       ("tee", _fanout_line()),
+                       ("line_k", _cascade_line(labels))):
+        sanitizer.clear()
+        p, _, _, _, launches = _run_line(line, frames, 2, warm=1)
+        _add_launches(total, launches)
+        p.stop()
+        rows[name] = {"hard": _hard_violations(sanitizer),
+                      "warnings": sorted({(v.code, v.element) for v in
+                                          sanitizer.violations()
+                                          if v.code in SANITIZER_WARNINGS})}
+    sanitizer.clear()
+    return rows, all(not r["hard"] for r in rows.values())
+
+
+def check_robust_ctl(results):
+    """(e) The ctl pass on the card: the validate CLI on the ctl fixture
+    file gives each line's EXPECT code; the serve phase's line's static
+    plant seed beside its measured device ms a row."""
+    import re
+
+    from nnstreamer_tpu_torch.analysis.plant import serving_launch_model
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    path = os.path.join(ROOT, "examples", "launch_lines_ctl.txt")
+    out = subprocess.run(
+        [sys.executable, "-m", "nnstreamer_tpu_torch.tools.validate",
+         "--json", "--file", path], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, env=dict(os.environ, PYTHONPATH=ROOT))
+    doc = json.loads(out.stdout)
+    expects, expect = [], None
+    with open(path) as f:
+        for raw in f:
+            line = raw.strip()
+            m = re.match(r"#\s*EXPECT:\s*(NNST\d+)", line)
+            if m:
+                expect = m.group(1)
+            elif line and not line.startswith("#"):
+                expects.append(expect)
+                expect = None
+    got = [sorted({d["code"] for d in r["diagnostics"]})
+           for r in doc["results"]]
+    p = parse_launch(_serve_line())
+    src = next(e for e in p.elements.values()
+               if e.ELEMENT_NAME == "tensor_query_serversrc")
+    seed = serving_launch_model(p, src)
+    row = {"exit": out.returncode, "expects": expects, "codes": got,
+           "serve_seed": seed,
+           "serve_measured_row_device_ms": results.get(
+               "serve_row_device_ms")}
+    ok = (out.returncode == 2 and len(got) == len(expects)
+          and all(e is None or e in g for e, g in zip(expects, got))
+          and seed is not None and seed["row_device_ms"] > 0)
+    return row, ok
+
+
+def check_robust(torch, results, workdir):
+    """Phase ``robust``: the flagship with the preamble fused, under this
+    package's sanitizer: (a) the watchdog trips, switches and keeps the
+    logits, the worker on the caller's stream; (b) the armed watchdog's
+    cost without a fault and the sanitizer's, each in turns; (c)
+    donation's peak and outputs; (d) NNST600 on the card and clean
+    lines; (e) the ctl pass."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.analysis import lockwitness, sanitizer
+
+    labels = os.path.join(workdir, "robust_labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class{i}" for i in range(1001)) + "\n")
+    rng = np.random.default_rng(16)
+    # three batches of distinct frames: the batches a run compares differ
+    frames = [np.kron(rng.integers(0, 256, (4, 4, 3)),
+                      np.ones((SIZE // 4, SIZE // 4, 1))).astype(np.uint8)
+              for _ in range(3 * BATCH)]
+    total = {}
+    bad = []
+    sanitizer.enable(True)
+    sanitizer.clear()
+    lockwitness.reset()
+    try:
+        trip, ok = check_robust_trip(torch, labels, frames, total)
+        trip_violations = [(v.code, v.element) for v in
+                           sanitizer.violations()]
+        trip["nnst601"] = sum(1 for c, _ in trip_violations
+                              if c == "NNST601")
+        trip["hard_violations"] = _hard_violations(sanitizer)
+        emit("robust", part="trip", **trip, card=results["card"])
+        if not ok or trip["nnst601"] or trip["hard_violations"]:
+            bad.append(f"trip: {trip}")
+        sanitizer.clear()
+        streams, ok = check_robust_streams(torch, labels, frames, total)
+        emit("robust", part="worker_stream", feed_depths=streams,
+             hard_violations=_hard_violations(sanitizer),
+             card=results["card"])
+        if not ok or _hard_violations(sanitizer):
+            bad.append(f"worker stream: {streams}")
+        sanitizer.clear()
+        donate, ok = check_robust_donate(torch, labels, frames, total)
+        refusal, refused = check_robust_tee_refusal(labels)
+        emit("robust", part="donate", **donate, tee_refusal=refusal,
+             hard_violations=_hard_violations(sanitizer),
+             card=results["card"])
+        if not ok or not refused or _hard_violations(sanitizer):
+            bad.append(f"donate: {donate}, tee: {refusal}")
+        nnst600, ok = check_robust_nnst600(torch)
+        emit("robust", part="nnst600_device", **nnst600,
+             card=results["card"])
+        if not ok:
+            bad.append(f"NNST600 on the card: {nnst600}")
+        clean, ok = check_robust_clean_lines(torch, labels, frames, total)
+        emit("robust", part="sanitized_lines", lines=clean,
+             card=results["card"])
+        if not ok:
+            bad.append(f"sanitized lines: {clean}")
+    finally:
+        sanitizer.enable(False)
+        sanitizer.clear()
+        lockwitness.reset()
+
+    # (b) the armed watchdog without a fault, and the sanitizer, in turns
+    def timed(extra, sanitize=False):
+        def run(on):
+            sanitizer.enable(sanitize and on)
+            try:
+                p, _, secs, p50, launches = _run_line(
+                    _robust_line(labels, extra if on else ""), frames,
+                    N_BATCHES)
+            finally:
+                sanitizer.enable(False)
+                sanitizer.clear()
+                lockwitness.reset()
+            _add_launches(total, launches)
+            p.stop()
+            return {"fps": N_BATCHES * BATCH / secs,
+                    "p50_batch_latency_ms": p50}
+        return run
+
+    wd = _turns(timed(f"invoke-timeout-ms={ROBUST_T_MS}"))
+    emit("robust", part="watchdog_cost", turns=list(ROBUST_TURNS),
+         batches=N_BATCHES, timeout_ms=ROBUST_T_MS, watchdog_on=wd["on"],
+         watchdog_off=wd["off"], card=results["card"])
+    san = _turns(timed("", sanitize=True))
+    emit("robust", part="sanitizer_cost", turns=list(ROBUST_TURNS),
+         batches=N_BATCHES, sanitizer_on=san["on"], sanitizer_off=san["off"],
+         card=results["card"])
+    ctl, ok = check_robust_ctl(results)
+    emit("robust", part="ctl", **ctl, card=results["card"])
+    if not ok:
+        bad.append(f"ctl: {ctl}")
+    results["robust_launches"] = total
+    if bad:
+        raise AssertionError(f"robust: {bad}")
+
+
 def main() -> int:
     import torch
 
@@ -5273,6 +5852,7 @@ def main() -> int:
         "loop": lambda: check_loop(torch, results, workdir),
         "edge": lambda: check_edge(torch, results, workdir),
         "chain": lambda: check_chain(torch, results, workdir),
+        "robust": lambda: check_robust(torch, results, workdir),
     }
     only = None
     if "--only" in sys.argv[1:]:
@@ -5305,7 +5885,8 @@ def main() -> int:
         "hostspans_launches", "detect_launches", "detect_pp_launches",
         "segment_launches", "vision_launches", "serve_launches",
         "streams_launches", "residency_launches", "train_launches",
-        "loop_launches", "edge_launches", "chain_launches"))
+        "loop_launches", "edge_launches", "chain_launches",
+        "robust_launches"))
         for name in src}
     launches["arith_chain"] += results["arith_launches"]
     kernels = []

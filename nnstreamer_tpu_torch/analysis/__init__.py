@@ -11,13 +11,17 @@ attribution and, for launch-line pipelines, a source span:
   steady-loop eligibility, deadlock detection, serving lints, compile
   churn, and the opt-in cost and memory passes.
 
+- **Sanitizer** (:mod:`analysis.sanitizer`, ``NNSTPU_SANITIZE=1``):
+  runtime checks for tee aliasing (NNST600), concurrent invokes (NNST601)
+  and un-billed materialization (NNST602), with the lock witness
+  (:mod:`analysis.lockwitness`, NNST610–613).
+
 Entry points: :func:`analyze` (constructed pipeline) and
 :func:`analyze_launch` (launch string — parse diagnostics included).
 ``tools/validate.py`` wraps these for the CLI/CI.
 
-The JAX package's runtime sanitizer, and its shard, thread, pool, fleet,
-controller, tuner, AOT and deploy passes, are not in this package
-(ROADMAP.md queue 1).
+The JAX package's shard, thread, pool, tuner, AOT and deploy passes are
+not in this package (ROADMAP.md queue 1).
 
 This ``__init__`` stays import-light (element modules import the schema
 from here); the heavier pass machinery loads on first use.
@@ -35,6 +39,7 @@ from nnstreamer_tpu_torch.analysis.diagnostics import (  # noqa: F401
     worst_severity,
 )
 from nnstreamer_tpu_torch.analysis.schema import Prop, schema_for  # noqa: F401
+from nnstreamer_tpu_torch.analysis import sanitizer  # noqa: F401
 
 
 def analyze(pipeline, passes=None, cost: bool = False,

@@ -18,15 +18,19 @@ order:
                           (eligible / ineligible / ring over the budget)
   deadlock     NNST5xx — bounded-queue diamonds, collect-pads starvation
   serving      NNST90x — serving misconfiguration
-  churn        NNST800 — variable-shape caps rebuilding a device program
+  fleet        NNST98x — hedging without an idempotent fleet (the
+                          rollout verdict NNST981 waits for rollout)
+  ctl          NNST95x — serving-controller SLO feasibility and pins
+  churn        NNST800 — variable-shape caps rebuilding a device program;
+               NNST802/803 — donation safety and missed donation
   costmodel    NNST701 — per-filter program cost (opt-in: a meta run of
                           every filter's program)
   memplan      NNST700/702/703 — whole-pipeline device-memory footprint vs
                           budget + roofline bottleneck (opt-in)
 
-The JAX package's shard, threads, pool, fleet, ctl, tuner, aot and
-deploy passes, its NNST801 weak-type walk and the NNST802/803 donation
-lints wait for the modules they read (ROADMAP.md queue 1).
+The JAX package's shard, threads, pool, tuner, aot and deploy passes and
+its NNST801 weak-type walk wait for the modules they read (ROADMAP.md
+queue 1).
 """
 
 from __future__ import annotations
@@ -502,6 +506,34 @@ def serving_pass(ctx: AnalysisContext) -> None:
                 span=getattr(e, "_prop_spans", {}).get("serve_batch"))
 
 
+# --- NNST98x: fleet resilience (nnfleet-r) -----------------------------------
+
+@analysis_pass("fleet")
+def fleet_pass(ctx: AnalysisContext) -> None:
+    """Fleet failover licensing (analysis/fleet.py): NNST980 hedging
+    without the endpoints= idempotent pairing (error — a hedge would be
+    double-invoked), NNST982 single-endpoint hedge no-op (warning). Free:
+    two dict reads per element."""
+    from nnstreamer_tpu_torch.analysis.fleet import fleet_pass_body
+
+    fleet_pass_body(ctx)
+
+
+# --- NNST95x: serving controller (nnctl) -------------------------------------
+
+@analysis_pass("ctl")
+def ctl_pass(ctx: AnalysisContext) -> None:
+    """Closed-loop controller feasibility (analysis/ctl.py): NNST950 SLO
+    statically infeasible per the plant model even at the best
+    serve-batch the controller bounds allow, NNST951 bounds excluding the
+    modeled optimum, NNST952 conflicting controller pins. Free on
+    pipelines without ``ctl=``/``slo-ms=``; the plant model runs only
+    when a controller or SLO is declared."""
+    from nnstreamer_tpu_torch.analysis.ctl import ctl_pass_body
+
+    ctl_pass_body(ctx)
+
+
 def _downstream_filter(e):
     """First tensor_filter reachable downstream of ``e`` (through any
     intermediate elements — queues, transforms, converters)."""
@@ -546,14 +578,22 @@ def _filter_signature_batch(filt):
 @analysis_pass("churn")
 def churn_pass(ctx: AnalysisContext) -> None:
     """NNST800: variable-shape caps reaching a device filter rebuild its
-    program per distinct shape. The JAX package's NNST802/803 (donation
-    safety) wait for ``custom=donate`` (ROADMAP.md queue 1)."""
+    program per distinct shape. NNST802: ``custom=donate:1`` behind a
+    fan-out (the filter refuses it at setup). NNST803: a host-fed private
+    filter whose inputs die after the invoke could donate them."""
     from nnstreamer_tpu_torch.analysis.costmodel import _variable_shape_upstream
     from nnstreamer_tpu_torch.elements.filter import TensorFilter
+    from nnstreamer_tpu_torch.pipeline.planner import (
+        donation_requested,
+        upstream_fanout_holder,
+    )
 
     for e in ctx.pipeline.elements.values():
         if not isinstance(e, TensorFilter) or not e._fw_device_capable():
             continue
+        custom = str(e.properties.get("custom", ""))
+        donating = donation_requested(custom)
+        holder = upstream_fanout_holder(e)
         if _variable_shape_upstream(e):
             ctx.emit(
                 "NNST800", e,
@@ -563,6 +603,36 @@ def churn_pass(ctx: AnalysisContext) -> None:
                 hint="pin the caps (fixed dims), declare input/input-type, "
                      "or batch via tensor_converter so one signature "
                      "reaches the backend")
+        if donating and holder is not None:
+            ctx.emit(
+                "NNST802", e,
+                f"custom=donate:1 but {holder.name!r} fans the stream out "
+                f"upstream: a sibling branch can still hold the input "
+                f"buffer the donating backend releases (tensor_filter "
+                f"refuses this at setup)",
+                hint=f"drop donate:1 on {e.name!r}, or move the tee below "
+                     f"the filter")
+        elif (not donating and holder is None
+                and not e.properties.get("shared_tensor_filter_key")
+                and "shard:" not in custom
+                and not _ocomb_references_inputs(e)
+                and e.sink_pads
+                and not (e.sink_pads[0].peer is not None
+                         and e.sink_pads[0].peer.device_resident)):
+            # host-fed private filter whose inputs die after the invoke:
+            # donation would free their device copy for the forward's
+            # activations instead of holding it through the invoke
+            ctx.emit(
+                "NNST803", e,
+                "inputs are dead after invoke (no fan-out holds them, no "
+                "output-combination re-emits them): custom=donate:1 would "
+                "let the backend reuse their device allocation")
+
+
+def _ocomb_references_inputs(e) -> bool:
+    return any(tok.strip().startswith("i")
+               for tok in str(e.properties.get("output_combination")
+                              or "").split(","))
 
 
 # --- NNST7xx: opt-in program cost & memory passes ----------------------------

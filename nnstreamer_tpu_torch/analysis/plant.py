@@ -21,11 +21,9 @@ so both now live here:
   static feasibility verdicts both evaluate — one model, audited in
   one place.
 
-A copy of the pure part of the JAX package's ``analysis/plant.py``. Its
-``serving_launch_model`` (the static seed derived from the cost model's
-report) waits for this package's cost model; until then the serving
-controller gets no static seed and steers on measurements alone, as the
-JAX controller does for a filter it cannot model.
+- :func:`serving_launch_model` — the static plant seed for one serving
+  graph: the per-row device+link cost of the filter behind a query
+  server, from the cost model's ``static_report``.
 
 Everything here is pure arithmetic over plain dicts: no wall clock, no
 RNG, results rounded to fixed precision — the controller's decision
@@ -183,3 +181,39 @@ def slo_optimal_batch(config: Dict, slo_ms: float,
         if pred["p99_ms"] <= float(slo_ms):
             best = b
     return best
+
+
+def serving_launch_model(pipeline, src,
+                         report: Optional[Dict] = None) -> Optional[Dict]:
+    """Static plant seed for one serving graph: the per-ROW device+link
+    cost of the filter downstream of ``src`` (a ``tensor_query_serversrc``),
+    derived from the cost model's static report at the launch line's
+    serve-batch.  ``report`` lets a caller with several query servers
+    reuse ONE ``static_report`` of the pipeline instead of re-walking
+    the whole graph per server.  None when the filter cannot be modeled
+    (custom backends, a program that does not run on meta tensors) —
+    callers skip the model-backed verdicts rather than guess."""
+    from nnstreamer_tpu_torch.analysis.costmodel import static_report
+    from nnstreamer_tpu_torch.analysis.passes import _downstream_filter
+
+    filt = _downstream_filter(src)
+    if filt is None:
+        return None
+    if report is None:
+        try:
+            report = static_report(pipeline)
+        except Exception:  # noqa: BLE001 — unmodelable: no static seed
+            return None
+    if filt.name in report.get("unmodeled", ()):
+        return None
+    row = next((r for r in report.get("rows", ())
+                if r["element"] == filt.name), None)
+    if row is None:
+        return None
+    base_batch = max(1, int(src.properties.get("serve_batch", 1) or 1))
+    _, serial = leg_times_ms(row)
+    return {
+        "row_device_ms": round(serial / base_batch, 6),
+        "base_batch": base_batch,
+        "filter": filt.name,
+    }

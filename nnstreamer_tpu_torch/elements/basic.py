@@ -17,7 +17,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
-from nnstreamer_tpu_torch.analysis import lockwitness
+from nnstreamer_tpu_torch.analysis import lockwitness, sanitizer
 from nnstreamer_tpu_torch.analysis.schema import Prop
 from nnstreamer_tpu_torch.buffer import (
     CLOCK_TIME_NONE,
@@ -303,6 +303,12 @@ class Tee(Element):
         return pad
 
     def chain(self, pad: Pad, buf: Buffer) -> FlowReturn:
+        if sanitizer.active():
+            # every branch shares these tensors: freeze host arrays and
+            # record torch tensors' version counters, so an in-place write
+            # downstream is attributed (NNST600) instead of silently
+            # corrupting sibling branches
+            sanitizer.freeze_buffer(buf)
         ret = FlowReturn.OK
         for sp in self.src_pads:
             r = sp.push(buf.copy())

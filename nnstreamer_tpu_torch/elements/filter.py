@@ -56,14 +56,35 @@ The tracer (``trace.attach``) sees the upload and fetch crossings, the
 upload-window and fetch-window holds, and, with spans on, the batch,
 dispatch, compute, h2d and d2h spans of each invoke.
 
-Not ported yet (see ROADMAP.md): mesh sharding, replicas, the AOT cache,
-rollout, the invoke watchdog and ``fallback-framework``. Setting any of
-them to other than its default raises at construction instead of being
-ignored.
+Invoke watchdog: ``invoke-timeout-ms=T`` runs each backend invoke on a
+persistent worker thread and abandons it past the deadline (a hung
+backend cannot wedge the streaming thread): the trip is counted
+(``watchdog-trips``), posted on the bus and the tracer, and raised into
+the ``on-error`` policy. After ``fallback-after`` (default 3) consecutive
+trips, ``fallback-framework=<name>|auto`` re-opens the model on a fresh
+backend instance carrying the installed preamble and chain
+(``degraded-to``); a backend that cannot carry them fails the switch
+loudly (``fallback-failed``). An abandoned invoke cannot be cancelled on
+the card: its kernels still run, on the stream the streaming thread
+invokes on (the worker adopts it), so the fallback's launches queue
+behind them; neither writes the inputs, so the fallback re-reads them
+unchanged. The loop analyzer refuses ``loop-window`` beside the watchdog
+(NNST461, as in the JAX package; per-buffer launches, ``_loop_refused``),
+so a CUDA-graph capture never runs while an abandoned invoke launches on
+another thread.
+
+Donation: ``custom=donate:1`` lets the backend drop a host-fed input's
+device buffer as soon as its first stage has read it; a donating filter
+behind a tee is refused at construction.
+
+Not ported yet (see ROADMAP.md): mesh sharding, replicas, the AOT cache
+and rollout. Setting any of them to other than its default raises at
+construction instead of being ignored.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -74,7 +95,7 @@ import numpy as np
 import torch
 
 from nnstreamer_tpu_torch import meta as meta_mod
-from nnstreamer_tpu_torch.analysis import lockwitness
+from nnstreamer_tpu_torch.analysis import lockwitness, sanitizer
 from nnstreamer_tpu_torch.analysis.schema import Prop
 from nnstreamer_tpu_torch.buffer import (
     Buffer,
@@ -110,9 +131,6 @@ log = get_logger("tensor_filter")
 NOT_PORTED = {
     "shard": "off",
     "mesh": "",
-    "invoke_timeout_ms": 0,
-    "fallback_framework": "",
-    "fallback_after": 0,
     "rollout_model": "",
     "rollout_canary_frames": 0,
     "rollout_rollback": "off",
@@ -133,6 +151,28 @@ def _block_until_ready(tensors) -> None:
 
 def _shape(t) -> tuple:
     return tuple(t.shape) if hasattr(t, "shape") else np.shape(t)
+
+
+def _caller_stream(fw):
+    """The current CUDA stream of the calling thread on ``fw``'s device,
+    or None for a backend off the card. The watchdog's worker invokes on
+    it, so an invoke runs on the same stream whichever thread makes it."""
+    dev = getattr(fw, "_device", None)
+    if isinstance(dev, torch.device) and dev.type == "cuda":
+        return torch.cuda.current_stream(dev)
+    return None
+
+
+def _worker_inputs(inputs):
+    """The list the watchdog's worker invokes with: a prefetched handle is
+    copied (its upload events and donation mark included), so a donating
+    backend that drops the worker's references leaves the element's list
+    whole for a fallback re-invoke of the same inputs."""
+    if not isinstance(inputs, PrefetchedInputs):
+        return inputs
+    own = PrefetchedInputs(inputs, donatable=inputs.donatable)
+    own.__dict__.update(inputs.__dict__)
+    return own
 
 
 @element_register
@@ -184,6 +224,9 @@ class TensorFilter(Element):
             doc="bank up to K un-synced window launches before draining"),
         "chain_fusion": Prop("enum", enum=("auto", "off"),
                              doc="per-element whole-chain fusion opt-out"),
+        "invoke_timeout_ms": Prop("number", doc="watchdog deadline"),
+        "fallback_framework": Prop("str", doc="backend name or 'auto'"),
+        "fallback_after": Prop("int"),
         **{k: Prop("any", doc="not supported in this package")
            for k in NOT_PORTED},
     }
@@ -279,6 +322,19 @@ class TensorFilter(Element):
         self._loop_rows: List[tuple] = []
         self._loop_inflight: deque = deque()
         self._loop_refused: Optional[tuple] = None
+        # invoke watchdog (`invoke-timeout-ms`) + graceful degradation
+        # (`fallback-framework`): trip counters and the degraded-to marker
+        self._watchdog_trips = 0
+        self._watchdog_consec = 0
+        self._degraded_to: Optional[str] = None
+        # (done_event, framework) of an abandoned (tripped) invoke still
+        # running on its worker thread — gates re-entry so one framework
+        # instance never runs two invokes concurrently
+        self._wd_busy: Optional[tuple] = None
+        # persistent watchdog worker (thread, queue): one long-lived thread
+        # serves every guarded invoke; a trip retires it and the next
+        # invoke spawns a replacement
+        self._wd_worker: Optional[tuple] = None
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
@@ -316,6 +372,25 @@ class TensorFilter(Element):
                 str(self.properties["output"]), str(self.properties["outputtype"]),
                 self.properties.get("outputname"),
             )
+        # donation safety (the NNST802 lint's runtime counterpart): a tee
+        # fan-out upstream — even behind queues — hands the SAME tensor
+        # objects to sibling branches, which may still hold the buffer a
+        # donating backend releases. Refuse at setup, loudly.
+        from nnstreamer_tpu_torch.pipeline.planner import (
+            donation_requested,
+            upstream_fanout_holder,
+        )
+
+        if donation_requested(self.properties.get("custom", "")):
+            holder = upstream_fanout_holder(self)
+            if holder is not None:
+                raise ElementError(
+                    self.name,
+                    f"custom=donate:1 is unsafe here: upstream "
+                    f"{holder.name!r} fans the stream out, so a sibling "
+                    f"branch can hold the input buffer a donating backend "
+                    f"releases — drop donate:1 or move the tee below this "
+                    f"filter")
         try:
             self.fw = acquire_framework(fw_name, fprops)
         except Exception as e:
@@ -327,6 +402,10 @@ class TensorFilter(Element):
         self._invoke_count = 0
         self._latencies_us.clear()
         self._e2e_us.clear()
+        # a restart re-opens the PRIMARY backend: degradation state resets
+        # (trip totals stay cumulative for visibility)
+        self._watchdog_consec = 0
+        self._degraded_to = None
         # fused stages must survive a backend reopen (on-error=restart):
         # the upstream transforms are passthrough shells, so running the
         # reopened backend WITHOUT the stages would corrupt the stream
@@ -386,6 +465,9 @@ class TensorFilter(Element):
     def stop(self) -> None:
         if self._flush_timer is not None:
             self._flush_timer.cancel()
+        if self._wd_worker is not None:
+            self._wd_worker[1].put(None)  # pill: the worker exits when free
+            self._wd_worker = None
         with self._window_lock:
             self._flush_timer = None
             # banked windows were already dispatched: their frames exist
@@ -1121,7 +1203,7 @@ class TensorFilter(Element):
                            args={"element": self.name, "nbytes": dev_bytes})
         t0 = time.perf_counter()
         try:
-            outputs = self.fw.invoke(inputs)
+            outputs = self._invoke_backend(inputs)
         except ElementError:
             raise
         except Exception as e:
@@ -1159,6 +1241,226 @@ class TensorFilter(Element):
                     (time.perf_counter() - t0) * 1e6 / frames)
             self._out_times.append(time.monotonic())
         return outputs
+
+    # -- invoke watchdog + graceful degradation ----------------------------
+    def _call_backend(self, fw, inputs: List) -> List:
+        """The raw backend call, carrying the invoke fault points
+        (testing/faults.py): ``invoke-raise`` fails it, ``invoke-hang``
+        stalls it on the host before the backend launches anything, so
+        the watchdog trips without a genuinely hung backend. With the
+        sanitizer on, the NNST601 busy gate wraps the call."""
+        from nnstreamer_tpu_torch.testing import faults
+
+        if faults.check("invoke-raise", self.name) is not None:
+            raise faults.FaultInjected(
+                f"injected invoke-raise in {self.name}")
+        f = faults.check("invoke-hang", self.name)
+        if f is not None:
+            time.sleep(f.delay_s)
+        if sanitizer.active():
+            # one framework instance, one invoke at a time: concurrent
+            # entry through a shared key or a tripped watchdog worker is
+            # a violation naming both elements
+            with sanitizer.invoke_gate(fw, self.name):
+                return fw.invoke(inputs)
+        return fw.invoke(inputs)
+
+    def _invoke_backend(self, inputs: List) -> List:
+        """The backend invoke under the optional watchdog.
+
+        ``invoke-timeout-ms=T``: the call runs on the worker thread (on
+        the caller's CUDA stream); past the deadline the streaming thread
+        abandons it, counts a trip, optionally degrades to
+        ``fallback-framework`` after ``fallback-after`` consecutive trips,
+        and raises so the element's ``on-error`` policy decides what
+        happens to the frame. Unset (the default): inline call, no
+        thread."""
+        t_ms = float(self.properties.get("invoke_timeout_ms", 0) or 0)
+        if t_ms <= 0:
+            outputs = self._call_backend(self.fw, inputs)
+            self._watchdog_consec = 0
+            return outputs
+        fw = self.fw
+        busy = self._wd_busy
+        if busy is not None:
+            evt, busy_fw = busy
+            if busy_fw is fw:
+                # a previously tripped invoke is STILL inside this backend:
+                # wait the deadline out for it; still busy counts as
+                # another trip, finished means its stale result is
+                # discarded and the fresh invoke proceeds
+                if not evt.wait(t_ms / 1e3):
+                    return self._on_watchdog_trip(t_ms, fw, inputs)
+            self._wd_busy = None
+        box: dict = {}
+        done = threading.Event()
+        in_q = self._wd_worker_queue()
+        in_q.put((fw, _worker_inputs(inputs), box, done, _caller_stream(fw)))
+        if not done.wait(t_ms / 1e3):
+            self._wd_busy = (done, fw)
+            # retire the stuck worker: the pill makes it exit once the
+            # hung call returns; the next invoke spawns a fresh one
+            in_q.put(None)
+            self._wd_worker = None
+            return self._on_watchdog_trip(t_ms, fw, inputs)
+        if "err" in box:
+            raise box["err"]
+        self._watchdog_consec = 0
+        return box["out"]
+
+    def _wd_worker_queue(self):
+        """The persistent watchdog worker's input queue (lazily spawned)."""
+        if self._wd_worker is not None:
+            return self._wd_worker[1]
+        import queue as _queue
+
+        in_q: "_queue.Queue" = _queue.Queue()
+
+        def loop():
+            while True:
+                item = in_q.get()
+                if item is None:
+                    return  # retired (trip) or stopped
+                fw, inputs, box, done, stream = item
+                try:
+                    with (torch.cuda.stream(stream) if stream is not None
+                          else contextlib.nullcontext()):
+                        box["out"] = self._call_backend(fw, inputs)
+                except Exception as e:  # noqa: BLE001 — rethrown by caller
+                    box["err"] = e
+                finally:
+                    done.set()
+
+        t = threading.Thread(target=loop, daemon=True,
+                             name=f"invoke-wd:{self.name}")
+        t.start()
+        self._wd_worker = (t, in_q)
+        return in_q
+
+    def _on_watchdog_trip(self, t_ms: float, fw, inputs: List) -> List:
+        """Count + surface one watchdog trip, then degrade to the fallback
+        backend (returns ITS outputs) or raise into the element's
+        on-error policy."""
+        self._watchdog_trips += 1
+        self._watchdog_consec += 1
+        self.error_stats["watchdog_trips"] = self._watchdog_trips
+        tracer = (getattr(self.pipeline, "tracer", None)
+                  if self.pipeline else None)
+        if tracer is not None:
+            tracer.record_fault(self.name, "watchdog-trip")
+        if self.pipeline is not None:
+            self.pipeline.bus.record_fault(
+                self.name, action="watchdog-trip", timeout_ms=t_ms,
+                consecutive=self._watchdog_consec, backend=fw.name)
+        self.post_message("watchdog-trip", {
+            "timeout_ms": t_ms, "consecutive": self._watchdog_consec})
+        log.warning("[%s] invoke watchdog tripped (%gms, %d consecutive)",
+                    self.name, t_ms, self._watchdog_consec)
+        if self._maybe_fallback():
+            return self._invoke_backend(inputs)
+        raise ElementError(
+            self.name,
+            f"invoke exceeded invoke-timeout-ms={t_ms:g} "
+            f"(trip {self._watchdog_trips}, backend {fw.name})")
+
+    def _maybe_fallback(self) -> bool:
+        """After ``fallback-after`` (default 3) consecutive watchdog trips,
+        re-open the model on a fresh instance of the fallback backend
+        (``fallback-framework=<name>|auto``; auto walks the configured
+        framework priority for the model's extension to the next
+        registered backend). One switchover per open; surfaced on the bus,
+        the tracer and the ``degraded-to`` property. The old backend is
+        NOT closed: the abandoned invoke may still run inside it on the
+        watchdog's worker thread. Kernels are built once per process
+        (ops/_cuda.py), so the fresh instance rebuilds none. The JAX
+        package also warms its AOT cache for a ``jax`` target here; this
+        package has no AOT cache yet (ROADMAP.md queue 1)."""
+        target = self.properties.get("fallback_framework")
+        if not target or self._degraded_to is not None:
+            return False
+        k = int(self.properties.get("fallback_after", 3) or 3)
+        if self._watchdog_consec < k:
+            return False
+        target = str(target)
+        if target == "auto":
+            target = self._next_priority_framework()
+            if target is None:
+                return False
+        from dataclasses import replace as _dc_replace
+
+        fprops = _dc_replace(self._fw_props, framework=target,
+                             shared_key=None)
+        try:
+            new_fw = acquire_framework(target, fprops)
+        except Exception as e:  # noqa: BLE001 — fallback open failed: report
+            self.post_message("fallback-failed",
+                              {"framework": target, "error": str(e)})
+            return False
+        if (self._pre_specs or self._post_specs) and not new_fw.fuse_stages(
+                self._pre_specs, self._post_specs):
+            # upstream transforms are fused-out passthroughs: a fallback
+            # backend that can't carry the stages would corrupt the stream
+            release_framework(new_fw, None)
+            self.post_message("fallback-failed", {
+                "framework": target,
+                "error": "fallback backend cannot carry the installed "
+                         "fusion stages"})
+            return False
+        if self._chain_specs and not new_fw.fuse_chain(
+                self._chain_specs, self._chain_in_shapes()):
+            # same contract for a chain head: downstream members are
+            # passthrough shells
+            release_framework(new_fw, None)
+            self.post_message("fallback-failed", {
+                "framework": target,
+                "error": "fallback backend cannot carry the installed "
+                         "chain composition"})
+            return False
+        old_name = self.fw.name if self.fw is not None else "?"
+        self.fw = new_fw
+        self._fw_props = fprops
+        in_info, out_info = new_fw.get_model_info()
+        self._in_info = fprops.input_info or in_info
+        self._out_info = fprops.output_info or out_info
+        self._invoke_count = 0
+        self._latencies_us.clear()
+        self._degraded_to = target
+        self._watchdog_consec = 0
+        self.error_stats["fallbacks"] = self.error_stats.get("fallbacks", 0) + 1
+        if self.pipeline is not None:
+            # the fallback backend may not be device-capable: re-plan
+            # residency so upstream device lanes move their
+            # materialization boundary (pad flags only — safe mid-stream)
+            from nnstreamer_tpu_torch.pipeline.planner import _plan_residency
+
+            _plan_residency(self.pipeline)
+        tracer = (getattr(self.pipeline, "tracer", None)
+                  if self.pipeline else None)
+        if tracer is not None:
+            tracer.record_fault(self.name, "fallback")
+        if self.pipeline is not None:
+            self.pipeline.bus.record_fault(
+                self.name, action="fallback",
+                from_framework=old_name, to_framework=target)
+        self.post_message("filter-degraded", {"from": old_name, "to": target})
+        log.warning("[%s] degraded to fallback framework %r (from %r)",
+                    self.name, target, old_name)
+        return True
+
+    def _next_priority_framework(self) -> Optional[str]:
+        """fallback-framework=auto: the next registered backend in the
+        configured priority list for the model's extension (the
+        detect_framework order)."""
+        from nnstreamer_tpu_torch import registry as reg
+
+        model = self._fw_props.model_file or ""
+        ext = os.path.splitext(model)[1].lstrip(".").lower()
+        cur = self.fw.name if self.fw is not None else ""
+        for cand in conf().framework_priority(ext):
+            cand = conf().resolve_alias(cand)
+            if cand and cand != cur and reg.get(reg.FILTER, cand) is not None:
+                return cand
+        return None
 
     # -- fetch window --------------------------------------------------------
     def _emit(self, buf: Buffer, tensors: List, outputs: List) -> FlowReturn:
@@ -1549,4 +1851,11 @@ class TensorFilter(Element):
         if key == "invoke_stats":
             s = self.fw.stats if self.fw else None
             return (s.total_invoke_num, s.total_invoke_latency_us) if s else (0, 0)
+        if key == "watchdog_trips":
+            # cumulative invoke-timeout-ms trips (watchdog visibility)
+            return self._watchdog_trips
+        if key == "degraded_to":
+            # fallback-framework switchover marker: the backend now
+            # serving, or None while the primary is healthy
+            return self._degraded_to
         return super().get_property(key)

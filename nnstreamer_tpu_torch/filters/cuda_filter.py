@@ -43,7 +43,20 @@ a card that is asked for and absent makes ``open`` raise.
     stages a stacked window, ``loop_invoke`` runs it;
   - **cost program**: ``cost_program`` is the composition rebuilt on the
     ``meta`` device, for the cost model (analysis/costmodel.py) and the
-    window's data-free check.
+    window's data-free check;
+  - **donation**: ``custom=donate:1`` donates the input buffers no other
+    element can hold — the device copy ``invoke`` makes of a host input,
+    and a prefetch handle's uploads (``donatable``); an upstream device
+    tensor is never donated. The composition drops its last reference to
+    a donated buffer as soon as the first stage (the fused pre-stage) has
+    read it, so the caching allocator can hand the block to the forward's
+    activations in the same invoke. Nothing is written in place, so the
+    outputs are bit-equal to ``donate`` off and a watchdog fallback that
+    re-invokes the same inputs reads them unchanged. A prefetched upload
+    was allocated on the copy stream and is marked used on the compute
+    stream, so the allocator reuses its block only once the compute
+    stream has passed that mark: its bytes leave ``memory_allocated`` at
+    once, but not the reserved pool.
 
 Model naming: zoo names (``mobilenet_v2``) with weights from
 ``custom=seed:<n>`` or ``custom=params:<path>`` (an ``.npz``, or what the
@@ -81,8 +94,7 @@ from nnstreamer_tpu_torch.types import TensorInfo, TensorsInfo
 log = get_logger("torch_cuda")
 
 #: custom keys of the JAX backend whose features this backend lacks
-_NOT_PORTED_CUSTOM = ("shard", "shard_devices", "tp_devices", "donate", "aot",
-                      "arch")
+_NOT_PORTED_CUSTOM = ("shard", "shard_devices", "tp_devices", "aot", "arch")
 #: ``custom=aot:<v>`` values that turn the JAX backend's ahead-of-time
 #: compile off, which is what this backend always does: accepted
 _AOT_OFF = ("0", "false", "no")
@@ -218,6 +230,8 @@ class TorchCudaFilter(FilterFramework):
         self._loop_window = 0
         self._loop_depth = 1
         self._loop_graphs: Dict[tuple, Any] = {}
+        # custom=donate:1 (see the module docstring)
+        self._donate = False
 
     # -- open/close --------------------------------------------------------
     def open(self, props: FilterProperties) -> None:
@@ -240,6 +254,9 @@ class TorchCudaFilter(FilterFramework):
         self._custom = custom
         self._postproc = make_postproc(custom)
         self._postproc_name = custom.get("postproc")
+        from nnstreamer_tpu_torch.pipeline.planner import donation_requested
+
+        self._donate = donation_requested(props.custom)
         self._bundle = (load_py_model(model, custom, self._device) if is_py
                         else get_model(model, custom, self._device))
         self._signatures = set()
@@ -392,14 +409,21 @@ class TorchCudaFilter(FilterFramework):
         return torch.from_numpy(np.ascontiguousarray(np.asarray(x))).to(
             self._device, non_blocking=True)
 
+    def _fresh(self, inputs: Sequence[Any]) -> bool:
+        """Will every input reach the device as a buffer of this invoke's
+        own (no upstream device tensor among them)?"""
+        return not any(isinstance(x, torch.Tensor) and x.device == self._device
+                       for x in inputs)
+
     def prefetch(self, inputs: Sequence[Any]) -> PrefetchedInputs:
         """Start every host input's upload NOW (see the module docstring):
         pinned staging, a copy stream, one event per input. Tensors
         already on the device pass through. On the CPU the handle holds
         the inputs as tensors (there is nothing to copy)."""
+        donatable = self._fresh(inputs)
         if self._device.type != "cuda":
             return PrefetchedInputs([self._to_device(x) for x in inputs],
-                                    donatable=True)
+                                    donatable=donatable)
         if self._staging is None:
             self._staging = _StagingRing(
                 self._device, int(self.props.feed_depth) + 1)
@@ -411,7 +435,7 @@ class TorchCudaFilter(FilterFramework):
             dev, evt = self._staging.upload(np.asarray(x))
             xs.append(dev)
             events.append(evt)
-        handle = PrefetchedInputs(xs, donatable=True)
+        handle = PrefetchedInputs(xs, donatable=donatable)
         handle.events = events
         return handle
 
@@ -428,26 +452,32 @@ class TorchCudaFilter(FilterFramework):
                 x.record_stream(compute)
         return list(handle)
 
-    def _compose(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def _compose(self, xs: Sequence[torch.Tensor],
+                 donate: bool = False) -> List[torch.Tensor]:
         """:func:`compose` with this backend's stages, model and postproc,
         then the installed chain, on device tensors: the whole per-invoke
         composition, which ``invoke`` and the window program run."""
         with torch.inference_mode():
             outs = compose(xs, self._stage_pre, self._bundle.apply_fn,
-                           self._postproc, self._stage_post)
+                           self._postproc, self._stage_post, donate=donate)
             if self._chain_fn is not None:
                 outs = self._chain_fn(outs)
             return outs
 
     def invoke(self, inputs: Sequence[Any]) -> List[Any]:
         t0 = time.perf_counter()
-        if isinstance(inputs, PrefetchedInputs) and self._device.type == "cuda":
+        prefetched = isinstance(inputs, PrefetchedInputs)
+        donate = self._donate and (inputs.donatable if prefetched
+                                   else self._fresh(inputs))
+        if prefetched and self._device.type == "cuda":
             xs = self._consume(inputs)
         else:
             xs = [self._to_device(x) for x in inputs]
+        if donate and prefetched:
+            inputs.clear()  # the caller's references to the donated uploads
         self._signatures.add((self._composition,) + tuple(
             (tuple(x.shape), dtype_name(x)) for x in xs))
-        outs = self._compose(xs)
+        outs = self._compose(xs, donate=donate)
         # async: no synchronise here; stats record enqueue time
         self.stats.record((time.perf_counter() - t0) * 1e6)
         return outs
@@ -614,14 +644,20 @@ def _as_list(out) -> List[Any]:
 
 
 def compose(xs: Sequence[torch.Tensor], stage_pre, apply_fn, postproc,
-            stage_post) -> List[torch.Tensor]:
+            stage_post, donate: bool = False) -> List[torch.Tensor]:
     """The full per-invoke composition: the fused pre-stage per input
     (the planner's parity gates guarantee numpy equivalence), the model,
     the postproc, the fused post-stage per output. ``invoke``, the window
     program and the cost model's meta run (analysis/costmodel.py) all run
-    this one function; a stage or postproc of None is skipped."""
+    this one function; a stage or postproc of None is skipped. With
+    ``donate`` the list ``xs`` holds the last references to the inputs:
+    it is emptied once the pre-stage has read them, which frees their
+    blocks for the model's activations."""
     if stage_pre is not None:
-        xs = [stage_pre(x) for x in xs]
+        staged = [stage_pre(x) for x in xs]
+        if donate:
+            xs.clear()
+        xs = staged
     out = apply_fn(*xs)
     if postproc is not None:
         out = postproc(out)

@@ -20,7 +20,7 @@ import time
 from typing import Dict, List, Optional, Type
 
 from nnstreamer_tpu_torch import meta as meta_mod
-from nnstreamer_tpu_torch.analysis import lockwitness
+from nnstreamer_tpu_torch.analysis import lockwitness, sanitizer
 from nnstreamer_tpu_torch.analysis.schema import Prop
 from nnstreamer_tpu_torch.buffer import (
     Buffer,
@@ -135,6 +135,11 @@ class Pad:
     # -- data flow (src->downstream) ---------------------------------------
     def push(self, buf: Buffer) -> FlowReturn:
         """Push a buffer downstream (src pads only)."""
+        if sanitizer.active():
+            # NNST602: backend tensors in, host out, no billed d2h → an
+            # un-billed materialization (checked at the push boundary,
+            # where the conversion is observable)
+            sanitizer.check_push(self.element, buf)
         peer = self.peer
         if peer is None:
             return FlowReturn.OK  # unlinked src: drop (gst would error; be lenient for taps)
@@ -387,8 +392,27 @@ class Element:
         """Chain wrapper: tracing plus the error-policy dispatcher. Any
         exception escaping chain() is routed through the element's
         ``on-error`` policy instead of unwinding the pusher's stack."""
+        if sanitizer.active():
+            return self._chain_sanitized(pad, buf)
         try:
             return self._chain_traced(pad, buf)
+        except Exception as e:  # noqa: BLE001 — policy decides, not the stack
+            return self._dispatch_error(pad, buf, e)
+
+    def _chain_sanitized(self, pad: Pad, buf: Buffer) -> FlowReturn:
+        """:meth:`_chain_guard` under the sanitizer: the chain runs inside
+        a frame, and a tee-shared torch tensor whose version counter this
+        chain moved is an NNST600 of this element, raised into its own
+        ``on-error`` policy."""
+        sanitizer.enter_chain(self, buf)
+        try:
+            try:
+                ret = self._chain_traced(pad, buf)
+            finally:
+                moved = sanitizer.exit_chain(self)
+            if moved is not None:
+                raise moved
+            return ret
         except Exception as e:  # noqa: BLE001 — policy decides, not the stack
             return self._dispatch_error(pad, buf, e)
 
@@ -479,6 +503,13 @@ class Element:
         abort      fatal bus message with backtrace, pipeline → ERROR with
                    EOS-style draining of healthy branches
         """
+        if sanitizer.active():
+            # a write into a tee-frozen array surfaces here as numpy's
+            # read-only ValueError: convert it to an attributed NNST600
+            # violation before the policy decides what to do with it
+            conv = sanitizer.intercept_chain_error(self, err)
+            if conv is not None:
+                err = conv
         kind, retries = self.error_policy()
         log.warning("[%s] chain error (policy=%s): %s", self.name, kind, err)
         if kind == "drop":
@@ -577,6 +608,8 @@ class Element:
         if tracer is not None:
             tracer.record_crossing(self.name, direction, n, nbytes=nbytes,
                                    devices=devices)
+        if sanitizer.active():
+            sanitizer.note_crossing(self, direction)
 
     def _fetch_to_host(self, buf: Buffer) -> Buffer:
         """``buf`` with the backend's tensors (``is_backend_tensor``)

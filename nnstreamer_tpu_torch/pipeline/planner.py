@@ -456,6 +456,18 @@ def _plan_steady_loop(pipeline) -> None:
     pipeline._loop_planned = True
 
 
+def donation_requested(custom) -> bool:
+    """Does a filter's ``custom`` string ask for input donation? Parses
+    through the SAME custom_dict() grammar the backend uses (whitespace
+    tolerated: ``donate: 1`` donates), so the safety gate and the NNST802
+    lint can never disagree with the runtime about whether the backend
+    will donate."""
+    from nnstreamer_tpu_torch.filters.base import FilterProperties
+
+    cd = FilterProperties(custom=str(custom or "")).custom_dict()
+    return cd.get("donate") in ("1", "true", "input")
+
+
 def upstream_fanout_holder(e):
     """The nearest upstream element that hands the SAME tensor objects to
     more than one consumer (a tee — possibly behind queues or other

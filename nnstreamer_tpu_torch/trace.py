@@ -767,6 +767,13 @@ class Tracer:
             out["ctl"] = self.ctl_report()
         if tracex_any:
             out["trace_x"] = self.tracex_report()
+        # lock observability: per-lock held/wait histograms on the
+        # HIST_LE_US contract. Present ONLY when the lock witness recorded
+        # something (sanitizer on + at least one witnessed acquisition) —
+        # sanitizer-off reports stay byte-identical.
+        locks = lockwitness.locks_report()
+        if locks:
+            out["locks"] = locks
         return out
 
     # -- metrics endpoint (histograms + time-series snapshots) -------------

@@ -2,7 +2,8 @@
 packages, on the CPU.
 
 Every case of the reference's tests/test_analysis.py but the runtime
-sanitizer's and ``doctor``'s (those modules are not in the port), and the
+sanitizer's (tests/test_torch_sanitizer.py) and ``doctor``'s (not in the
+port), and the
 two ``TestResidencyLint`` cases of its tests/test_residency.py, run
 through ``nnstreamer_tpu`` and ``nnstreamer_tpu_torch``: the same pipeline
 goes to each package's ``analyze``/``analyze_launch``, and each must give
@@ -12,14 +13,17 @@ parity cases play the line in each package (the port's filters with
 
 Then every line of ``examples/launch_lines.txt``,
 ``launch_lines_chains.txt`` and ``launch_lines_loop.txt`` through both
-analyzers: equal codes from the passes the port has (the JAX package's
-NNST802/803 donation lints wait for ``custom=donate``), and every line's
-``EXPECT`` code in the port. Where the reference shows its jax fault (the
-composition and the loop's memory plan cannot walk a jaxpr under this
-jax, so NNST450/452 become NNST451 and NNST462 becomes NNST460), the port
-is held to the line's ``EXPECT`` alone. Last, the port's ``validate``
-exit codes under ``--strict`` on the chains file (fails) and on its
-NNST450 line alone (clean).
+analyzers: equal codes, and every line's ``EXPECT`` code in the port.
+Where the reference shows its jax fault (the composition and the loop's
+memory plan cannot walk a jaxpr under this jax, so NNST450/452 become
+NNST451 and NNST462 becomes NNST460), the port is held to the line's
+``EXPECT`` alone. The same for ``launch_lines_ctl.txt`` and
+``launch_lines_fleet.txt``, where the reference's fault hides NNST950/951
+(its cost model raises, so the controller pass has no plant seed) and the
+codes of passes the port does not have yet are left out, each with its
+reason. Last, the port's ``validate`` exit codes under ``--strict`` on the
+chains file (fails) and on its NNST450 line alone (clean), and on the ctl
+file.
 """
 
 import os
@@ -33,6 +37,7 @@ pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 import nnstreamer_tpu.analysis  # noqa: E402
+import nnstreamer_tpu.analysis.plant  # noqa: E402
 import nnstreamer_tpu.analysis.residency  # noqa: E402
 import nnstreamer_tpu.buffer  # noqa: E402
 import nnstreamer_tpu.elements.basic  # noqa: E402
@@ -42,6 +47,7 @@ import nnstreamer_tpu.pipeline.pipeline  # noqa: E402
 import nnstreamer_tpu.tools.validate  # noqa: E402
 import nnstreamer_tpu.trace  # noqa: E402
 import nnstreamer_tpu_torch.analysis  # noqa: E402
+import nnstreamer_tpu_torch.analysis.plant  # noqa: E402
 import nnstreamer_tpu_torch.analysis.residency  # noqa: E402
 import nnstreamer_tpu_torch.buffer  # noqa: E402
 import nnstreamer_tpu_torch.elements.basic  # noqa: E402
@@ -504,9 +510,14 @@ class TestResidencyLint:
 
 # --- the fixture files through both analyzers ------------------------------
 
-#: codes of JAX-package passes the port does not have yet (the donation
-#: lints come with custom=donate)
-NOT_IN_PORT = {"NNST802", "NNST803"}
+#: codes of JAX-package passes and properties the port does not have yet,
+#: with what they wait for (ROADMAP.md queue 1)
+NOT_IN_PORT = {
+    "NNST620": "the thread-topology pass (analysis/threads.py) waits for "
+               "the replica pool",
+    "NNST981": "the filter refuses rollout-* at construction until rollout "
+               "is ported (the port gives NNST106 for the line)",
+}
 
 
 def fixture_lines(name):
@@ -529,11 +540,27 @@ FIXTURES = [(name, i, line, expect)
                          "launch_lines_loop.txt")
             for i, line, expect in fixture_lines(name)]
 
+#: the controller verdicts that need the cost model's plant seed
+CTL_MODEL_CODES = ("NNST950", "NNST951")
 
-@pytest.mark.parametrize("name,lineno,line,expect", FIXTURES,
-                         ids=[f"{n}:{i}" for n, i, _, _ in FIXTURES])
+#: the serving controller's and the fleet client's fixture files
+SERVING_FIXTURES = [(name, i, line, expect)
+                    for name in ("launch_lines_ctl.txt",
+                                 "launch_lines_fleet.txt")
+                    for i, line, expect in fixture_lines(name)]
+
+
+@pytest.mark.parametrize("name,lineno,line,expect",
+                         FIXTURES + SERVING_FIXTURES,
+                         ids=[f"{n}:{i}" for n, i, _, _ in
+                              FIXTURES + SERVING_FIXTURES])
 def test_fixture_codes_match_reference(name, lineno, line, expect):
-    got = sorted(d.code for d in PORT.analyze_launch(line))
+    diags = PORT.analyze_launch(line)
+    got = sorted(d.code for d in diags)
+    if expect in NOT_IN_PORT:
+        # the line sets a property the port's filter still refuses
+        assert got == ["NNST106"] and "rollout" in diags[0].message, diags
+        return
     if expect is not None:
         assert expect in got, (expect, got)
     ref = JAX.analyze_launch(line)
@@ -546,6 +573,10 @@ def test_fixture_codes_match_reference(name, lineno, line, expect):
         assert [c for c in got if c.startswith(family)] == [expect], got
         got = [c for c in got if not c.startswith(family)]
         want = [c for c in want if not c.startswith(family)]
+    if (name, lineno, line, expect) in SERVING_FIXTURES:
+        # the same fault hides every model-backed controller verdict, also
+        # on a line whose EXPECT is another code
+        got = [c for c in got if c not in CTL_MODEL_CODES]
     assert got == want, (got, want)
 
 
@@ -563,6 +594,46 @@ def test_reference_faults_where_expected():
     assert sorted(faulted) == [("launch_lines_chains.txt", "NNST450"),
                                ("launch_lines_chains.txt", "NNST452"),
                                ("launch_lines_loop.txt", "NNST462")]
+
+
+def test_reference_fault_hides_ctl_verdicts():
+    """On the ctl and fleet files the reference's jax fault hides exactly
+    the model-backed controller verdicts, NNST950 and NNST951: its
+    ``static_report`` raises inside ``program_cost``, so its
+    ``serving_launch_model`` gives no plant seed, while the port's gives
+    one and the line's EXPECT code."""
+    jplant = sys.modules["nnstreamer_tpu.analysis.plant"]
+    faulted = []
+    for name, i, line, expect in SERVING_FIXTURES:
+        ref = [d.code for d in JAX.analyze_launch(line)]
+        assert not set(ref) & set(CTL_MODEL_CODES), ref
+        if expect is None or expect in NOT_IN_PORT:
+            continue
+        if expect not in ref:
+            faulted.append((name, expect))
+            ports = [e for e in PORT.parse_launch(line).elements.values()
+                     if e.ELEMENT_NAME == "tensor_query_serversrc"]
+            seed = sys.modules["nnstreamer_tpu_torch.analysis.plant"] \
+                .serving_launch_model(ports[0].pipeline, ports[0])
+            assert seed is not None and seed["row_device_ms"] >= 0, seed
+            jp = JAX.parse_launch(line)
+            src = [e for e in jp.elements.values()
+                   if e.ELEMENT_NAME == "tensor_query_serversrc"][0]
+            assert jplant.serving_launch_model(jp, src) is None
+    assert sorted(faulted) == [("launch_lines_ctl.txt", "NNST950"),
+                               ("launch_lines_ctl.txt", "NNST951")]
+
+
+@pytest.mark.parametrize("name", ["launch_lines_ctl.txt",
+                                  "launch_lines_fleet.txt"])
+def test_validate_strict_on_serving_files(name):
+    """Each file fails ``--strict``; its one CLEAN line is strict-clean."""
+    path = os.path.join(ROOT, "examples", name)
+    assert PORT.validate.main(["--strict", "--file", path]) == 2
+    with open(path) as f:
+        text = f.read()
+    clean = re.search(r"# CLEAN\n([^#\n][^\n]*)", text).group(1)
+    assert PORT.validate.main(["--strict", clean]) == 0
 
 
 def test_validate_strict_on_chains_file():

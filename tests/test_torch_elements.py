@@ -96,7 +96,8 @@ def test_transform_device_without_a_card_raises(acc, monkeypatch):
 #: properties this package has ported since it first refused them: their
 #: cases below now check that the element takes them
 PORTED_PROPS = ("batch-size=4", "feed-depth=2", "fetch-window=auto",
-                "invoke-dynamic=true", "loop-window=8")
+                "invoke-dynamic=true", "loop-window=8",
+                "invoke-timeout-ms=10", "fallback-framework=auto")
 
 
 @pytest.mark.parametrize("prop", [

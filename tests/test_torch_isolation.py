@@ -231,11 +231,22 @@ ANALYZER_MODULES = (
 )
 
 
+#: the modules of the slice that brought the runtime sanitizer, the lock
+#: witness, the schedule fuzzer and the fleet and controller passes
+SANITIZER_MODULES = (
+    "nnstreamer_tpu_torch.analysis.sanitizer",
+    "nnstreamer_tpu_torch.analysis.lockwitness",
+    "nnstreamer_tpu_torch.testing.schedfuzz",
+    "nnstreamer_tpu_torch.analysis.fleet",
+    "nnstreamer_tpu_torch.analysis.ctl",
+)
+
+
 @pytest.mark.parametrize("module", SLICE_MODULES + VISION_MODULES
                          + SERVING_MODULES + STREAM_MODULES
                          + PLANNER_MODULES + TRAINING_MODULES
                          + LOOP_MODULES + TRANSPORT_MODULES
-                         + ANALYZER_MODULES)
+                         + ANALYZER_MODULES + SANITIZER_MODULES)
 def test_slice_module_alone_loads_no_jax(module):
     """Each module, imported alone in a fresh interpreter, pulls in
     neither JAX nor the JAX package (the walk above imports them all

@@ -12,8 +12,7 @@ memory plan's ring billing, the NNST462 verdict, ``auto`` resolution,
 joint resolution) are held on the port alone to what those tests assert.
 
 Left out: the tuner cases and the chain-fused head (their modules are not
-ported), the invoke watchdog (``invoke-timeout-ms`` raises at
-construction in the port) and the span-sampling cases (the sampling is
+ported) and the span-sampling cases (the sampling is
 the per-buffer path's, held by tests/test_torch_trace.py). A CUDA-graph
 window cannot be captured here: ``chip_smoke.py``'s ``loop`` phase holds
 it on the card.
@@ -267,6 +266,7 @@ FALLBACKS = {
     "invoke_dynamic": ("loop-window=4 invoke-dynamic=true ", "NNST461"),
     "shared_key": ("loop-window=4 shared-tensor-filter-key=lk1 ",
                    "NNST461"),
+    "watchdog": ("loop-window=4 invoke-timeout-ms=5000 ", "NNST461"),
 }
 
 
