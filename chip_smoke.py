@@ -2599,13 +2599,16 @@ SERVE_FRAME_CAPS = (f"other/tensors,num-tensors=1,dimensions=3:{SIZE}:{SIZE},"
                     "types=uint8,framerate=0/1")
 
 
-def _serve_line(depth: int = SERVE_DEPTH) -> str:
+def _serve_line(depth: int = SERVE_DEPTH, server_extra: str = "",
+                filter_extra: str = "") -> str:
     """The serving line at full width: MobileNet-v2 1.0, 224x224, 1001
-    classes, 32 rows per batch assembled from every waiting client."""
-    return (f"tensor_query_serversrc id=srv port=0 serve=1 "
+    classes, 32 rows per batch assembled from every waiting client;
+    ``server_extra`` and ``filter_extra`` go on the serversrc and the
+    filter."""
+    return (f"tensor_query_serversrc id=srv port=0 serve=1 {server_extra}"
             f"serve-batch={SERVE_BATCH} serve-queue-depth={depth} "
             f"caps={SERVE_FRAME_CAPS} ! tensor_filter framework=jax "
-            "model=mobilenet_v2 custom=seed:0,fused:pallas "
+            f"model=mobilenet_v2 custom=seed:0,fused:pallas {filter_extra}"
             "! tensor_query_serversink id=srv timeout=5")
 
 
@@ -2621,7 +2624,7 @@ def _serve_frames(frames, client: int, n: int = SERVE_PER_CLIENT):
 
 
 def _run_serving(server_line, clients, client_caps, client_tail="",
-                 decoder="", traced=True, client_connect=""):
+                 decoder="", traced=True, client_connect="", inspect=None):
     """Play ``server_line`` and one client pipeline per entry of
     ``clients`` (each ``(frames, offsets)``: the frames it pushes and, for
     an open-loop run, the second after the start at which it pushes each;
@@ -2632,7 +2635,9 @@ def _run_serving(server_line, clients, client_caps, client_tail="",
     names the request it answers. ``client_connect`` replaces the
     clients' ``port=<the server's>`` (HYBRID: the broker and topic); each
     client's result also gives the ms its pipeline took to start
-    (``play_ms``: connecting, and for HYBRID discovering, the server)."""
+    (``play_ms``: connecting, and for HYBRID discovering, the server).
+    ``inspect(server, tracer)`` runs after the last reply, before the
+    server stops."""
     import threading
 
     from nnstreamer_tpu_torch import trace
@@ -2695,6 +2700,8 @@ def _run_serving(server_line, clients, client_caps, client_tail="",
                 raise AssertionError("serve: a client pipeline hung")
         last = max((max(r["arrived"].values()) for r in res.values()
                     if r["arrived"]), default=t0[0])
+        if inspect is not None:
+            inspect(server, tracer)
         fw = _element(server, "tensor_filter").fw
         forward = (fw._bundle.apply_fn, fw._device)  # the backend closes
     finally:
@@ -4102,8 +4109,33 @@ def _loop_drive(torch, line, frames, n, spans=False, plan=False,
         if peak > predicted["total_bytes"]:
             raise AssertionError(f"the memory plan under-bills {line!r}: "
                                  f"{r['memory']}")
+        if f._loop_state is not None:
+            pool = _graph_pool_peak(torch, f.fw)
+            r["memory"]["graph_pool_measured"] = pool
+            # the graph pool's bill: never below what a capture keeps
+            # alive, and within twice of it
+            if not pool <= row["graph_bytes"] <= 2 * pool:
+                raise AssertionError(
+                    f"graph pool bill {row['graph_bytes']} B against "
+                    f"{pool} B measured on {line!r}")
     p.stop()
     return r
+
+
+def _graph_pool_peak(torch, fw) -> int:
+    """What one capture of the filter's window keeps alive: the window's
+    graph is dropped and captured again (warm-up runs, then the capture,
+    as at play) with the peak counter reset, and the peak live bytes above
+    what was allocated before it are the pool the capture needs. Taken
+    after the measured run, so its numbers are not in the run's."""
+    (g,) = fw._loop_graphs.values()
+    g.graph, g.outs = None, []  # the old capture's pool and outputs go
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    g.capture()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
 
 
 def _loop_check(name, r, frames, window, want_labels, per_frame,
@@ -4384,6 +4416,16 @@ def check_loop(torch, results, workdir):
          fps=n_c / c["seconds"], memory=c["memory"], card=results["card"])
     if v.code != "NNST460" or c["loop_state"]["window"] != v.window:
         raise AssertionError(f"line C: {v}, {c['loop_state']}")
+    # the memory plan's graph-pool bill against the pool one capture
+    # keeps alive (each run above asserted measured <= bill <= 2x)
+    pools = {name: {"bill": r["memory"]["graph_pool"],
+                    "measured": r["memory"]["graph_pool_measured"],
+                    "ratio": r["memory"]["graph_pool"]
+                    / r["memory"]["graph_pool_measured"]}
+             for name, r in (("A", spans_w), ("B", spans_bw),
+                             ("B_preamble", pre), ("C", c))}
+    emit("loop", line="graph_pool", pools=pools, card=results["card"])
+    results["graph_pool"] = pools
     results["loop_launches"] = launches
 
 
@@ -5420,10 +5462,10 @@ def check_robust_streams(torch, labels, frames, total):
     seen = []
     orig_backend = TensorFilter._invoke_backend
 
-    def spy_backend(self, inputs):
+    def spy_backend(self, inputs, replica=None):
         seen.append(("caller", threading.current_thread().name,
                      torch.cuda.current_stream().cuda_stream))
-        return orig_backend(self, inputs)
+        return orig_backend(self, inputs, replica=replica)
 
     rows = {}
     p, _, _, _, launches = _run_line(_robust_line(labels), frames, 2, warm=1)
@@ -5807,6 +5849,461 @@ def check_robust(torch, results, workdir):
         raise AssertionError(f"robust: {bad}")
 
 
+# -- phase: mesh sharding and the replica pool ---------------------------------
+
+#: the virtual devices of the phase: four mesh positions on the one card
+MESH_DEVICES = "cuda:0*4"
+#: the devices the validate CLI resolves the fixture files against
+MESH_LINT_DEVICES = "cuda:0*8"
+MESH_BATCHES = 4
+MESH_TURNS = ("on", "off", "off", "on", "on", "off")
+
+
+def _mesh_line(labels: str, extra: str = "", raw: bool = False) -> str:
+    """The flagship at full width with ``extra`` on the filter; ``raw``
+    leaves out the argmax and the decoder, so the sink receives the
+    logits."""
+    post = "" if raw else "postproc:argmax,"
+    tail = ("" if raw else "! queue ! tensor_decoder mode=image_labeling "
+            f"option1={labels} ")
+    return (
+        f"appsrc name=src caps=video/x-raw,format=RGB,width={SIZE},"
+        f"height={SIZE},framerate=1000/1 "
+        f"! tensor_converter frames-per-tensor={BATCH} "
+        "! tensor_filter name=f framework=jax model=mobilenet_v2 "
+        f"custom=seed:0,{post}fused:pallas {extra} "
+        f"{tail}! tensor_sink name=out")
+
+
+def _mesh_logits(line, frames, n=MESH_BATCHES):
+    """The raw line's logits of ``n`` batches pushed through to EOS (an
+    upload window holds its last entry until EOS), its launches, and the
+    pipeline (stopped by the caller)."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    p = parse_launch(line)
+    p.play()
+    _cuda.reset_launches()
+    for i in range(n * BATCH):
+        p["src"].push_buffer(Buffer(tensors=[frames[i % len(frames)]],
+                                    pts=i))
+    p["src"].end_of_stream()
+    if not p.bus.wait_eos(600) or p.bus.error is not None:
+        raise RuntimeError(f"mesh line failed: {p.bus.error}")
+    launches = dict(_cuda.LAUNCHES)
+    outs = [np.asarray(b.tensors[0]) for b in p["out"].collected]
+    return np.concatenate(outs), launches, p
+
+
+def _mesh_compare(torch, name, got, want):
+    """Labels equal on every frame, logits within the slice phase's
+    tolerance (atol 0.15, rtol 0.05)."""
+    g, w = torch.from_numpy(got), torch.from_numpy(want)
+    labels_equal = bool((g.argmax(-1) == w.argmax(-1)).all())
+    ok = g.shape == w.shape and within(g, w, 0.15, 0.05)
+    out = {"labels_equal": labels_equal, "logits_ok": ok,
+           "logits_max_abs_err": max_err(g, w),
+           "distinct_labels": len(set(w.argmax(-1).tolist()))}
+    if not (labels_equal and ok):
+        raise AssertionError(f"mesh {name}: against the unsharded run {out}")
+    return out
+
+
+def _mesh_launches(name, launches, per_batch, n=MESH_BATCHES):
+    want = {"fused_inverted_residual": 13 * per_batch * n,
+            "normalize_u8": per_batch * n}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"mesh {name}: launches {launches}, want {want}")
+
+
+def _kernel_streams(prof, workdir) -> list:
+    """The CUDA streams the fused-block kernels ran on, from the
+    profiler's trace."""
+    path = os.path.join(workdir, "mesh_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    os.remove(path)
+    return sorted({e.get("args", {}).get("stream") for e in events
+                   if e.get("cat") == "kernel"
+                   and "fused_ir" in e.get("name", "")} - {None})
+
+
+def check_mesh(torch, results, workdir):
+    """shard=dp|tp|dpxtp and replicas=4 over a mesh of virtual devices on
+    the one card (NNSTPU_TORCH_DEVICES=cuda:0*4), at full width: (a) dp
+    4x1 against unsharded (verdict, launches, labels and logits, frames/s
+    and p50 in turns, a profile with the shards' streams); (b) tp 1x2 and
+    dpxtp 2x2 (labels and logits, each position's weights against the
+    analyzer's bill, memory_allocated back at its entry value after an
+    invoke, the memory plan's cuda:0 row against max_memory_allocated);
+    (c) the serving line behind replicas=4 against replicas off in turns,
+    and serve-batches placed into a shard=dp filter; (d) the validate CLI
+    on the shard, pool and threads fixture files over cuda:0*8; (e) the
+    loop phase's graph-pool bills, when it ran in this call."""
+    prev = os.environ.get("NNSTPU_TORCH_DEVICES")
+    os.environ["NNSTPU_TORCH_DEVICES"] = MESH_DEVICES
+    try:
+        _check_mesh(torch, results, workdir)
+    finally:
+        if prev is None:
+            os.environ.pop("NNSTPU_TORCH_DEVICES", None)
+        else:
+            os.environ["NNSTPU_TORCH_DEVICES"] = prev
+
+
+def _check_mesh(torch, results, workdir):
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.analysis.memplan import plan_memory
+    from nnstreamer_tpu_torch.analysis.shard import (
+        analyze_shard,
+        shard_billing,
+    )
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    labels = os.path.join(workdir, "mesh_labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class{i}" for i in range(1001)) + "\n")
+    rng = np.random.default_rng(5)
+    frames = [np.kron(rng.integers(0, 256, (4, 4, 3)),
+                      np.ones((SIZE // 4, SIZE // 4, 1))).astype(np.uint8)
+              for _ in range(BATCH)]
+    card, total = results["card"], {}
+
+    def verdict(line):
+        p = parse_launch(line)
+        return analyze_shard(p, p["f"]).code
+
+    # (a) shard=dp mesh=4x1 against unsharded
+    dp = "shard=dp mesh=4x1"
+    base, launches, p = _mesh_logits(_mesh_line(labels, raw=True), frames)
+    p.stop()
+    _add_launches(total, launches)
+    code = verdict(_mesh_line(labels, dp, raw=True))
+    got, launches, p = _mesh_logits(_mesh_line(labels, dp, raw=True), frames)
+    state = p["f"]._shard_state
+    streams = [s.stream_id for s in p["f"].fw._mesh_streams]
+    p.stop()
+    _add_launches(total, launches)
+    if code != "NNST470" or state != {"mode": "dp", "dp": 4, "tp": 1}:
+        raise AssertionError(f"mesh dp: verdict {code}, installed {state}")
+    _mesh_launches("dp", launches, 4)
+    cmp_dp = _mesh_compare(torch, "dp", got, base)
+    # feed-depth 2: each shard's rows upload onto its row as they arrive
+    got, launches, p = _mesh_logits(
+        _mesh_line(labels, dp + " feed-depth=2", raw=True), frames)
+    prefetched = p["f"].fw._mesh_staging
+    p.stop()
+    _add_launches(total, launches)
+    _mesh_launches("dp feed-depth=2", launches, 4)
+    cmp_feed = _mesh_compare(torch, "dp feed-depth=2", got, base)
+    if not all(ring is not None for ring in prefetched):
+        raise AssertionError("mesh dp feed-depth=2: a row never prefetched")
+
+    def timed(extra):
+        def run(on):
+            p, _, secs, p50, launches = _run_line(
+                _mesh_line(labels, extra if on else ""), frames, N_BATCHES)
+            if on and p["f"]._shard_state is None:
+                raise AssertionError("mesh dp: the timed run is unsharded")
+            p.stop()
+            _add_launches(total, launches)
+            return {"fps": N_BATCHES * BATCH / secs,
+                    "p50_batch_latency_ms": p50}
+        return run
+
+    turns = _turns(timed(dp), MESH_TURNS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        p, _, secs, _, launches = _run_line(_mesh_line(labels, dp), frames,
+                                            MESH_BATCHES)
+    p.stop()
+    _add_launches(total, launches)
+    stats = profile_stats(torch, prof, secs)
+    kernel_streams = _kernel_streams(prof, workdir)
+    emit("mesh", part="dp", mesh="4x1", devices=MESH_DEVICES, verdict=code,
+         shard_state=state, rows_per_shard=BATCH // 4,
+         launches_per_batch={k: v // MESH_BATCHES for k, v in
+                             launches.items()},
+         **cmp_dp, feed_depth_2=cmp_feed, sharded=turns["on"],
+         unsharded=turns["off"],
+         turns=list(MESH_TURNS), batches=N_BATCHES, card=card)
+    emit("profile", line="mesh_dp_4x1", batches=MESH_BATCHES,
+         shard_streams=streams, fused_block_streams=kernel_streams, **stats)
+    if len(kernel_streams) < 4:
+        raise AssertionError(f"mesh dp: the fused block ran on streams "
+                             f"{kernel_streams}; the four shards each have "
+                             f"their own")
+
+    # (b) shard=tp mesh=1x2 and shard=dpxtp mesh=2x2
+    x = np.stack(frames)
+    for mode, mesh, rows in (("tp", "1x2", 1), ("dpxtp", "2x2", 2)):
+        extra = f"shard={mode} mesh={mesh}"
+        line = _mesh_line(labels, extra, raw=True)
+        code = verdict(line)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        got, launches, p = _mesh_logits(line, frames)
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        _add_launches(total, launches)
+        f = p["f"]
+        try:
+            state = f._shard_state
+            if code != "NNST470" or state is None or state["mode"] != mode:
+                raise AssertionError(f"mesh {mode}: verdict {code}, "
+                                     f"installed {state}")
+            _mesh_launches(mode, launches, rows)
+            cmp = _mesh_compare(torch, mode, got, base)
+            bill = shard_billing(p, f)
+            held = {f"{i},{j}": b
+                    for (i, j), b in f.fw.mesh_param_bytes().items()}
+            plan = plan_memory(p)
+            planned = plan["per_device_bytes"]["cuda:0"]
+            # memory_allocated after an invoke (its outputs dropped) is
+            # what it was at the invoke's entry: nothing gathered stays
+            f.fw.invoke([x])
+            torch.cuda.synchronize()
+            entry = torch.cuda.memory_allocated()
+            outs = f.fw.invoke([x])
+            torch.cuda.synchronize()
+            del outs
+            after = torch.cuda.memory_allocated()
+        finally:
+            p.stop()
+        emit("mesh", part=mode, mesh=mesh, devices=MESH_DEVICES,
+             verdict=code, shard_state=state, **cmp,
+             param_bytes_per_position=held,
+             billed_param_bytes_per_device=bill["param_bytes_per_device"],
+             memory_allocated_entry=entry, memory_allocated_after=after,
+             plan_cuda0_bytes=planned, max_memory_allocated=peak,
+             plan_over_measured=planned / peak if peak else None, card=card)
+        if set(held.values()) != {bill["param_bytes_per_device"]}:
+            raise AssertionError(f"mesh {mode}: positions hold {held}, the "
+                                 f"bill is {bill['param_bytes_per_device']}")
+        if after != entry:
+            raise AssertionError(f"mesh {mode}: memory_allocated {after} "
+                                 f"after an invoke, {entry} at its entry")
+        if planned < peak:
+            raise AssertionError(f"mesh {mode}: the plan's cuda:0 row "
+                                 f"{planned} is below the measured {peak}")
+
+    # (c) serving: replicas=4 against off in turns, and sharded placement
+    check_mesh_serving(torch, results, frames, labels, total)
+
+    # (d) the validate CLI on the fixture files over cuda:0*8
+    lint = _mesh_lint()
+    emit("mesh", part="validate", devices=MESH_LINT_DEVICES, files=lint,
+         card=card)
+
+    # (e) the graph pool's bill (the loop phase asserts it on each line)
+    emit("mesh", part="graph_pool",
+         pools=results.get("graph_pool", "the loop phase did not run"),
+         card=card)
+    results["mesh_launches"] = total
+
+
+def check_mesh_serving(torch, results, frames, labels, total):
+    """The serving line at full width behind replicas=4 (NNST960, every
+    replica takes a batch, every reply's label equal to replicas off,
+    requests/s and p50/p99 in turns), then serve-batches placed into a
+    shard=dp mesh=4x1 filter (one put per shard, the serversrc billing
+    the upload with its per-device split, labels equal)."""
+    from nnstreamer_tpu_torch.analysis.pool import analyze_pool
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+    from nnstreamer_tpu_torch.serving import scheduler as sched_mod
+
+    card = results["card"]
+    decoder = f"tensor_decoder mode=image_labeling option1={labels} ! "
+    clients = [(_serve_frames(frames, i), None) for i in range(SERVE_CLIENTS)]
+    n_req = SERVE_CLIENTS * SERVE_PER_CLIENT
+    pooled = _serve_line(server_extra="replicas=4 ")
+    verdicts = [v.code for v in analyze_pool(parse_launch(pooled))]
+    if verdicts != ["NNST960"]:
+        raise AssertionError(f"mesh serve: pool verdicts {verdicts}")
+    _run_serving(_serve_line(), clients[:1], SERVE_FRAME_CAPS, traced=False)
+    _run_serving(pooled, clients[:1], SERVE_FRAME_CAPS, traced=False)
+
+    def labels_of(res):
+        """Each client's replies' labels by request pts: every client got
+        exactly its own requests' replies, once each (a pool may answer
+        a client's batches out of order)."""
+        out = {}
+        for i, r in res.items():
+            got = {}
+            for b in r["out"]:
+                lab = b.meta["label"]
+                got[b.pts] = lab[0] if isinstance(lab, list) else lab
+            if sorted(got) != sorted(r["pushed"]) or \
+                    len(r["out"]) != SERVE_PER_CLIENT:
+                raise AssertionError(f"mesh serve: client {i} got pts "
+                                     f"{sorted(got)[:5]}... for "
+                                     f"{sorted(r['pushed'])[:5]}...")
+            out[i] = got
+        return out
+
+    runs = {"on": [], "off": []}
+    want = None
+    for t in MESH_TURNS:
+        seen = {}
+
+        def inspect(server, tracer, seen=seen):
+            src = _element(server, "tensor_query_serversrc")
+            filt = _element(server, "tensor_filter")
+            seen.update(pool=src._pool_state, replicas=filt._replica_state)
+
+        _cuda.reset_launches()
+        res, srv, secs, _ = _run_serving(
+            pooled if t == "on" else _serve_line(), clients,
+            SERVE_FRAME_CAPS, decoder=decoder, inspect=inspect)
+        launches = dict(_cuda.LAUNCHES)
+        _add_launches(total, launches)
+        _serve_launches(f"mesh {t}", launches, srv["batches"])
+        got = labels_of(res)
+        if want is None and t == "off":
+            want = got
+        lat = _latencies_ms(res)
+        run = {"requests_per_s": n_req / secs, "seconds": secs,
+               "p50_request_ms": _pct(lat, 0.5),
+               "p99_request_ms": _pct(lat, 0.99),
+               "batches": srv["batches"], "labels": got}
+        if t == "on":
+            split = srv.get("per_replica") or {}
+            run["per_replica"] = split
+            if seen.get("pool") != {"replicas": 4} or sorted(split) != [
+                    "0", "1", "2", "3"] or any(
+                    v["batches"] < 1 for v in split.values()):
+                raise AssertionError(f"mesh serve: pool {seen}, per-replica "
+                                     f"batches {split}")
+        runs[t].append(run)
+    for run in runs["on"] + runs["off"]:
+        if run.pop("labels") != want:
+            raise AssertionError("mesh serve: a reply's label differs from "
+                                 "the replicas=off run's")
+
+    def summary(rs, key):
+        vals = [r[key] for r in rs]
+        return {"runs": vals, "median": statistics.median(vals),
+                "spread": max(vals) - min(vals)}
+
+    emit("mesh", part="serve_replicas", replicas=4, devices=MESH_DEVICES,
+         verdict="NNST960", clients=SERVE_CLIENTS, requests=n_req,
+         serve_batch=SERVE_BATCH, turns=list(MESH_TURNS),
+         labels_equal_replicas_off=True,
+         per_replica_batches=[r["per_replica"] for r in runs["on"]],
+         replicas_rps=summary(runs["on"], "requests_per_s"),
+         off_rps=summary(runs["off"], "requests_per_s"),
+         replicas_p50_ms=summary(runs["on"], "p50_request_ms"),
+         off_p50_ms=summary(runs["off"], "p50_request_ms"),
+         replicas_p99_ms=summary(runs["on"], "p99_request_ms"),
+         off_p99_ms=summary(runs["off"], "p99_request_ms"), card=card)
+
+    # sharded serve-batch placement into a shard=dp mesh=4x1 filter
+    puts = []
+    orig = sched_mod.ServingScheduler._place_sharded
+
+    def counted(self, parts, placement):
+        arr, nb = orig(self, parts, placement)
+        puts.append(len(arr) if isinstance(arr, sched_mod.ShardedBatch)
+                    else 0)
+        return arr, nb
+
+    seen = {}
+
+    def inspect(server, tracer):
+        src = _element(server, "tensor_query_serversrc")
+        filt = _element(server, "tensor_filter")
+        cr = tracer.crossings()["per_element"]
+        seen.update(placement=src._pool_placement is filt,
+                    shard=filt._shard_state,
+                    src=cr.get(src.name, {}), filt=cr.get(filt.name, {}))
+
+    sched_mod.ServingScheduler._place_sharded = counted
+    try:
+        _cuda.reset_launches()
+        res, srv, secs, _ = _run_serving(
+            _serve_line(filter_extra="shard=dp mesh=4x1 "), clients,
+            SERVE_FRAME_CAPS, decoder=decoder, inspect=inspect)
+    finally:
+        sched_mod.ServingScheduler._place_sharded = orig
+    launches = dict(_cuda.LAUNCHES)
+    _add_launches(total, launches)
+    got = labels_of(res)
+    src_cr, f_cr = seen["src"], seen["filt"]
+    emit("mesh", part="serve_placement", mesh="4x1", devices=MESH_DEVICES,
+         placement=seen["placement"], shard_state=seen["shard"],
+         batches=srv["batches"], puts_per_batch=sorted(set(puts)),
+         serversrc_crossings=src_cr, filter_crossings=f_cr,
+         launches=launches, labels_equal_replicas_off=got == want,
+         requests_per_s=n_req / secs, card=card)
+    if not (seen["placement"] and seen["shard"] == {"mode": "dp", "dp": 4,
+                                                    "tp": 1}
+            and puts == [4] * srv["batches"] and got == want
+            and src_cr.get("h2d") == srv["batches"]
+            and src_cr.get("h2d_bytes_per_device", 0) * 4
+            == src_cr.get("h2d_bytes")
+            and not f_cr.get("h2d")
+            and launches.get("fused_inverted_residual")
+            == 13 * 4 * srv["batches"]):
+        raise AssertionError(f"mesh serve placement: {seen}, puts {puts}, "
+                             f"launches {launches}")
+
+
+def _mesh_lint() -> dict:
+    """``validate --strict`` (with ``--cost`` where the file asks) on the
+    shard, pool and threads fixture files over MESH_LINT_DEVICES: each
+    file fails, every EXPECT code appears, and the eligible line alone is
+    strict-clean."""
+    import contextlib
+    import io
+    import re
+
+    from nnstreamer_tpu_torch.tools import validate
+
+    prev = os.environ.get("NNSTPU_TORCH_DEVICES")
+    os.environ["NNSTPU_TORCH_DEVICES"] = MESH_LINT_DEVICES
+    out = {}
+    try:
+        for name, eligible in (("launch_lines_shard.txt", "NNST470"),
+                               ("launch_lines_pool.txt", "NNST960"),
+                               ("launch_lines_threads.txt", "NNST620")):
+            path = os.path.join(ROOT, "examples", name)
+            with open(path) as f:
+                text = f.read()
+            cost = ["--cost"] if "# ANALYZE: cost" in text else []
+            expects = [c for m in re.findall(r"# EXPECT: (\S+)", text)
+                       for c in m.split(",")]
+            lines = re.findall(rf"# EXPECT: {eligible}\n([^#\n][^\n]*)", text)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = validate.main(["--strict", "--verbose", *cost,
+                                    "--file", path])
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc_eligible = validate.main(["--strict", *cost, lines[0]])
+            found = set(re.findall(r"NNST\d{3}", buf.getvalue()))
+            missing = sorted(set(expects) - found)
+            out[name] = {"rc": rc, "eligible_rc": rc_eligible,
+                         "expected": sorted(set(expects)),
+                         "missing": missing}
+            if rc != 2 or rc_eligible != 0 or missing or len(lines) != 1:
+                raise AssertionError(f"mesh validate {name}: {out[name]}")
+    finally:
+        if prev is None:
+            os.environ.pop("NNSTPU_TORCH_DEVICES", None)
+        else:
+            os.environ["NNSTPU_TORCH_DEVICES"] = prev
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5853,6 +6350,7 @@ def main() -> int:
         "edge": lambda: check_edge(torch, results, workdir),
         "chain": lambda: check_chain(torch, results, workdir),
         "robust": lambda: check_robust(torch, results, workdir),
+        "mesh": lambda: check_mesh(torch, results, workdir),
     }
     only = None
     if "--only" in sys.argv[1:]:
@@ -5886,7 +6384,7 @@ def main() -> int:
         "segment_launches", "vision_launches", "serve_launches",
         "streams_launches", "residency_launches", "train_launches",
         "loop_launches", "edge_launches", "chain_launches",
-        "robust_launches"))
+        "robust_launches", "mesh_launches"))
         for name in src}
     launches["arith_chain"] += results["arith_launches"]
     kernels = []

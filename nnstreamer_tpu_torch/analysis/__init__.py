@@ -20,8 +20,8 @@ Entry points: :func:`analyze` (constructed pipeline) and
 :func:`analyze_launch` (launch string — parse diagnostics included).
 ``tools/validate.py`` wraps these for the CLI/CI.
 
-The JAX package's shard, thread, pool, tuner, AOT and deploy passes are
-not in this package (ROADMAP.md queue 1).
+The JAX package's tuner, AOT and deploy passes are not in this package
+(ROADMAP.md queue 1).
 
 This ``__init__`` stays import-light (element modules import the schema
 from here); the heavier pass machinery loads on first use.

@@ -230,8 +230,9 @@ def discover_chains(pipeline) -> List[FilterChain]:
 # --------------------------------------------------------------------------
 
 def _member_blocker(m, is_head: bool) -> Optional[str]:
-    if str(m.properties.get("shard", "off")).strip().lower() not in ("off",
-                                                                    ""):
+    from nnstreamer_tpu_torch.analysis.shard import requested_shard
+
+    if requested_shard(m) is not None:
         return ("shard= mesh placement on a member (a mesh-partitioned "
                 "program cannot splice into a composed single-device "
                 "chain — drop shard= or chain-fusion)")

@@ -23,9 +23,18 @@ pipeline-level in-flight state the runtime parks on the device:
   per-buffer at PLAYING and bills nothing; multiple looped filters
   resolve jointly, first-in-graph-order wins the budget). Where the
   window runs as a CUDA graph (a backend on the card), the graph's
-  private memory pool is billed too: one composition peak for each of
-  the window's rows (the capture may reuse a row's memory for the next,
-  and this bill does not count on it) plus the window's stacked outputs;
+  private memory pool is billed too: what one capture keeps alive, which
+  is one composition's activation peak (the pool hands the blocks a row
+  frees to the next row within the capture) plus the window's outputs;
+- **mesh partition** (``shard=dp|tp|dpxtp mesh=AxB``, analysis/shard.py):
+  an ENGAGED shard bills per mesh POSITION — inputs/outputs/activations
+  split their batch rows over the dp axis, params split channel dims
+  over tp and replicate over dp; under tp each dp row's computing device
+  also holds, for the length of an invoke, the leaves it gathers and
+  their folded copies. A refused shard bills single-device, never the
+  ask;
+- **replica pool** (``replicas=N``, analysis/pool.py): every replica holds
+  its own params, folded weights and serving batch on its device;
 - **queues on memory:HBM edges**: a bounded queue on a device-resident
   edge parks up to max-size-buffers device payloads (billed at the
   element's runtime default of 16 when unset; skipped when the edge caps
@@ -34,12 +43,17 @@ pipeline-level in-flight state the runtime parks on the device:
   micro-batch (serve-batch rows x the per-request caps bytes) plus the
   bounded admission queue's held requests.
 
-The total is checked against the device budget: ``NNSTPU_HBM_BYTES``,
-else the card's memory (``torch.cuda.mem_get_info``), else the JAX
-package's default (16 GiB) under its own label, so CPU verdicts match
-the JAX package's. The JAX package's shard and replica-pool rows and its
-mesh budget wait (ROADMAP.md queue 1 item 4); this package refuses
-``shard=``/``replicas=`` at construction, so those rows never arise.
+Every holding lands on a device of ``parallel/mesh.visible_devices()``:
+an unsharded filter, queue or server on the first, the positions of a
+mesh or a pool on theirs. Where a mesh or a pool repeats a device (a
+mesh of virtual devices over one card), that device's sum counts every
+position and replica on it (``per_device_bytes``). The plan's total is
+the BINDING per-device footprint, the largest such sum — with distinct
+devices, the first device's, as in the JAX package — checked against the
+per-device budget: ``NNSTPU_HBM_BYTES``, else the card's memory
+(``torch.cuda.mem_get_info``), else the JAX package's default (16 GiB)
+under its own label, so CPU verdicts match the JAX package's; over a
+mesh or a pool the smallest of its devices' budgets.
 """
 
 from __future__ import annotations
@@ -74,6 +88,44 @@ def device_memory_budget(device_index: int = 0) -> Tuple[int, str]:
     return DEFAULT_HBM_BYTES, "default-v5e"
 
 
+def _budget_of(dev) -> Tuple[int, str]:
+    """:func:`device_memory_budget` of one ``torch.device``: a CUDA
+    device's own, any other device the default's."""
+    index = (dev.index or 0) if getattr(dev, "type", "") == "cuda" else 1 << 30
+    return device_memory_budget(index)
+
+
+def mesh_memory_budget(n_devices: int) -> Tuple[int, str]:
+    """The BINDING per-device budget over the first ``n_devices`` visible
+    devices a mesh or a pool spans: the minimum of their budgets. With one
+    device this is exactly :func:`device_memory_budget`."""
+    devs = _plan_devices(max(1, int(n_devices)))
+    best: Optional[Tuple[int, str]] = None
+    for dev in devs[:max(1, int(n_devices))]:
+        b, src = _budget_of(dev)
+        if best is None or b < best[0]:
+            best = (b, src if n_devices <= 1 else f"{src}:min-of-"
+                    f"{n_devices}-devices")
+    return best
+
+
+def _plan_devices(n: int) -> List[Any]:
+    """The first ``n`` visible devices (at least one), padded with named
+    placeholders where fewer are visible (an ineligible ask the analyzers
+    refuse, billed all the same)."""
+    from nnstreamer_tpu_torch.parallel.mesh import visible_devices
+
+    try:
+        devs = list(visible_devices())
+    except ValueError:  # a malformed NNSTPU_TORCH_DEVICES
+        devs = []
+    if not devs:
+        import torch
+
+        devs = [torch.device("cpu")]
+    return devs + [f"device#{i}" for i in range(len(devs), n)]
+
+
 def _parse_bytes(s: str) -> int:
     s = s.strip().upper()
     mult = 1
@@ -95,7 +147,8 @@ def _edge_bytes_resolver(pipeline):
 
 def plan_memory(pipeline, method: str = "auto",
                 cost_override: Optional[Dict[str, Any]] = None,
-                loop_override: Optional[Dict[str, Tuple[int, int]]] = None
+                loop_override: Optional[Dict[str, Tuple[int, int]]] = None,
+                replica_override: Optional[Dict[str, int]] = None
                 ) -> Dict[str, Any]:
     """The whole-pipeline device-memory plan: rows per device-capable
     filter, HBM-edge queue holdings, serving holdings, the shared-deduped
@@ -113,7 +166,14 @@ def plan_memory(pipeline, method: str = "auto",
     ring against the budget (the NNST462 verdict / loop-window=auto
     resolution). With an override, only the named elements bill a loop
     ring; without one, each filter bills the window the RUNTIME will
-    engage (``runtime_loop_config``)."""
+    engage (``runtime_loop_config``).
+
+    ``replica_override`` maps element name → replica count N: the pool
+    analyzer (analysis/pool.py) probes a PROSPECTIVE replica pool against
+    the per-device budget (the NNST962 verdict / ``replicas=auto``).
+    Without one, each filter bills the count the RUNTIME will engage
+    (``runtime_filter_replicas``). Replica billing is the opposite of a
+    dp shard's: params and the serving batch REPLICATE per device."""
     from nnstreamer_tpu_torch.elements.basic import QueueElement
     from nnstreamer_tpu_torch.elements.filter import TensorFilter
     from nnstreamer_tpu_torch.pipeline.planner import _plan_residency
@@ -127,6 +187,16 @@ def plan_memory(pipeline, method: str = "auto",
     unmodeled: List[str] = []
     param_groups: Dict[Any, int] = {}
     derived_groups: Dict[Any, int] = {}
+    #: the device positions each param group is held at (one per mesh
+    #: position or replica)
+    group_positions: Dict[Any, List[Any]] = {}
+    #: per device: the rows' holdings and the transient tp gathers
+    per_device: Dict[str, int] = {}
+    mesh_devices = 1  # widest mesh or pool any row engages (budget span)
+    dev0 = str(_plan_devices(1)[0])
+
+    def hold(dev, nbytes: int) -> None:
+        per_device[str(dev)] = per_device.get(str(dev), 0) + int(nbytes)
 
     for e in pipeline.elements.values():
         if not isinstance(e, TensorFilter) or not e._fw_device_capable():
@@ -163,6 +233,40 @@ def plan_memory(pipeline, method: str = "auto",
         # contribution is the ACTIVATION residual
         activation = max(0, cost["peak_live_bytes"] - cost["param_bytes"]
                          - cost["input_bytes"])
+        # mesh partition (analysis/shard.py): an ENGAGED shard bills per
+        # position, mirroring the runtime fallback exactly (a refused
+        # shard bills single-device, never the ask). Shard and
+        # loop-window are mutually exclusive by the analyzer's gates.
+        from nnstreamer_tpu_torch.analysis.shard import (
+            runtime_shard_config,
+            shard_billing,
+        )
+
+        shard_cfg = runtime_shard_config(pipeline, e)
+        shard_bill = shard_billing(pipeline, e) if shard_cfg else None
+        shard_dp = int(shard_cfg["dp"]) if shard_bill else 1
+        shard_tp = int(shard_cfg["tp"]) if shard_bill else 1
+        shard_devices = int(shard_bill["devices"]) if shard_bill else 1
+        # replica pool (analysis/pool.py): params and the serving batch
+        # REPLICATE on every replica's device
+        if replica_override is not None:
+            replicas = int(replica_override.get(e.name, 1))
+        else:
+            from nnstreamer_tpu_torch.analysis.pool import (
+                runtime_filter_replicas,
+            )
+
+            replicas = runtime_filter_replicas(pipeline, e)
+        replicas = max(1, replicas)
+        span = max(shard_devices, replicas)
+        mesh_devices = max(mesh_devices, span)
+        if shard_dp > 1:
+            # per-POSITION view: dp splits the batch rows of inputs,
+            # outputs and the activation residual evenly (divisibility
+            # was the NNST470 proof)
+            per_invoke_in //= shard_dp
+            per_invoke_out //= shard_dp
+            activation //= shard_dp
         loop_bytes = graph_bytes = 0
         if loopw > 1:
             # up to launch-depth windows in flight, each holding its
@@ -173,7 +277,8 @@ def plan_memory(pipeline, method: str = "auto",
             feed = 1
             window = 0
             if _runs_on_card(e):
-                graph_bytes = loopw * (activation + per_invoke_out)
+                graph_bytes = graph_pool_bytes(activation, per_invoke_out,
+                                               loopw)
         row = {
             "element": e.name,
             "param_bytes": cost["param_bytes"],
@@ -190,18 +295,41 @@ def plan_memory(pipeline, method: str = "auto",
             "launch_depth": loopk,
             "batch": batch,
         }
+        if shard_bill is not None:
+            row["shard"] = dict(shard_cfg)
+            row["devices"] = shard_devices
+        if replicas > 1:
+            row["replicas"] = replicas
+            row["devices"] = replicas
         row["total_bytes"] = (row["activation_bytes"] + row["feed_bytes"]
                               + row["window_bytes"] + row["loop_bytes"]
                               + row["graph_bytes"])
+        positions = _plan_devices(span)[:span]
+        if shard_tp > 1:
+            # the gather: each dp row's computing device (its first tp
+            # position) holds the whole params and their folded copies
+            # for the length of an invoke; nothing folded stays between
+            # invokes
+            row["gather_bytes"] = cost["param_bytes"] + row["derived_bytes"]
+            row["derived_bytes"] = 0
+            for i in range(shard_dp):
+                hold(positions[i * shard_tp], row["gather_bytes"])
         rows.append(row)
+        for dev in positions:
+            hold(dev, row["total_bytes"])
         # params counted once per backend INSTANCE: an open shared
         # framework is one object; at lint time the shared key is the
-        # best identity proxy
+        # best identity proxy. A sharded filter bills its PER-POSITION
+        # param bytes (tp-split leaves / tp, the rest replicated); a
+        # replica pool its full params on each replica's device
         key = (id(e.fw) if e.fw is not None
                else (e.properties.get("shared_tensor_filter_key")
                      or f"__private__:{e.name}"))
-        param_groups[key] = max(param_groups.get(key, 0),
-                                cost["param_bytes"])
+        p_bytes = (shard_bill["param_bytes_per_device"]
+                   if shard_bill is not None else cost["param_bytes"])
+        if p_bytes > param_groups.get(key, -1):
+            param_groups[key] = p_bytes
+            group_positions[key] = positions
         derived_groups[key] = max(derived_groups.get(key, 0),
                                   row["derived_bytes"])
 
@@ -226,12 +354,18 @@ def plan_memory(pipeline, method: str = "auto",
 
     param_total = sum(param_groups.values())
     derived_total = sum(derived_groups.values())
-    total = (param_total + derived_total
-             + sum(r["total_bytes"] for r in rows)
-             + sum(q["bytes"] for q in queue_rows)
-             + sum(s["bytes"] for s in serving_rows))
-    budget, budget_src = device_memory_budget()
-    return {
+    for key, positions in group_positions.items():
+        for dev in positions:
+            hold(dev, param_groups[key] + derived_groups.get(key, 0))
+    hold(dev0, sum(q["bytes"] for q in queue_rows)
+         + sum(s["bytes"] for s in serving_rows))
+    # the plan's total is the BINDING per-device footprint: the largest
+    # device's sum (with distinct devices, the first device's, which
+    # carries every unsharded holding plus its shard of every sharded
+    # one). ``aggregate_bytes`` is every device's sum, informational
+    total = max(per_device.values()) if per_device else 0
+    budget, budget_src = mesh_memory_budget(mesh_devices)
+    out = {
         "rows": rows,
         "queues": queue_rows,
         "serving": serving_rows,
@@ -244,6 +378,21 @@ def plan_memory(pipeline, method: str = "auto",
         "utilization": (total / budget) if budget else 0.0,
         "unmodeled": unmodeled,
     }
+    if mesh_devices > 1:
+        out["mesh_devices"] = mesh_devices
+        out["aggregate_bytes"] = sum(per_device.values())
+        out["per_device_bytes"] = dict(per_device)
+    return out
+
+
+def graph_pool_bytes(activation: int, per_invoke_out: int,
+                     window: int) -> int:
+    """The bill of a window's CUDA-graph pool: what one capture keeps
+    alive. The rows of a window run one after another inside the
+    capture, and the private pool hands the blocks one row frees to the
+    next, so the pool holds ONE composition's activation peak, plus the
+    outputs of every row, which stay alive to the window's end."""
+    return int(activation + window * per_invoke_out)
 
 
 def _runs_on_card(e) -> bool:

@@ -16,8 +16,14 @@ order:
                           (fusable / blocked / over-budget / link mismatch)
   loop         NNST46x — steady-loop window eligibility verdicts
                           (eligible / ineligible / ring over the budget)
+  shard        NNST47x — mesh-partition verdicts (shard=dp|tp|dpxtp
+                          mesh=AxB: eligible / ineligible / reshard
+                          hazard)
   deadlock     NNST5xx — bounded-queue diamonds, collect-pads starvation
   serving      NNST90x — serving misconfiguration
+  threads      NNST62x — thread topology of a serving route, wait cycles
+                          and unbounded reply sends
+  pool         NNST96x — replica-serving eligibility verdicts
   fleet        NNST98x — hedging without an idempotent fleet (the
                           rollout verdict NNST981 waits for rollout)
   ctl          NNST95x — serving-controller SLO feasibility and pins
@@ -28,9 +34,8 @@ order:
   memplan      NNST700/702/703 — whole-pipeline device-memory footprint vs
                           budget + roofline bottleneck (opt-in)
 
-The JAX package's shard, threads, pool, tuner, aot and deploy passes and
-its NNST801 weak-type walk wait for the modules they read (ROADMAP.md
-queue 1).
+The JAX package's tuner, aot and deploy passes and its NNST801 weak-type
+walk wait for the modules they read (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -378,6 +383,20 @@ def loop_pass(ctx: AnalysisContext) -> None:
 
 # --- NNST5xx: deadlock / starvation ------------------------------------------
 
+# --- NNST47x: mesh partitioning (nnshard) ------------------------------------
+
+@analysis_pass("shard")
+def shard_pass(ctx: AnalysisContext) -> None:
+    """Static mesh-partition verdicts (analysis/shard.py): NNST470
+    shard-eligible (resolved layout + per-shard bytes), NNST471
+    ineligible naming the blocking dim/reason (loud unsharded fallback),
+    NNST472 resharding hazard on a memory:HBM edge between filters with
+    incompatible specs. Free on pipelines that never request shard=."""
+    from nnstreamer_tpu_torch.analysis.shard import shard_pass_body
+
+    shard_pass_body(ctx)
+
+
 @analysis_pass("deadlock")
 def deadlock_pass(ctx: AnalysisContext) -> None:
     from nnstreamer_tpu_torch.elements.basic import QueueElement
@@ -507,6 +526,33 @@ def serving_pass(ctx: AnalysisContext) -> None:
 
 
 # --- NNST98x: fleet resilience (nnfleet-r) -----------------------------------
+
+# --- NNST62x: thread topology (nnsan-c static side) --------------------------
+
+@analysis_pass("threads")
+def threads_pass(ctx: AnalysisContext) -> None:
+    """Static thread-topology lint (analysis/threads.py): NNST620
+    topology summary per serve=1 route (info), NNST621 bounded-capacity
+    wait cycle (replicas + unbounded reply send), NNST622 blocking-reply
+    hazard (serversink send with no timeout= bound)."""
+    from nnstreamer_tpu_torch.analysis.threads import threads_pass_body
+
+    threads_pass_body(ctx)
+
+
+# --- NNST96x: replica serving (nnpool) ---------------------------------------
+
+@analysis_pass("pool")
+def pool_pass(ctx: AnalysisContext) -> None:
+    """Replica-serving eligibility verdicts (analysis/pool.py): NNST960
+    eligible (resolved N + modeled per-device bytes), NNST961 ineligible
+    with the blocking reason (loud single-replica fallback), NNST962
+    replicas over the per-device budget. Free on pipelines that never
+    request ``replicas=``."""
+    from nnstreamer_tpu_torch.analysis.pool import pool_pass_body
+
+    pool_pass_body(ctx)
+
 
 @analysis_pass("fleet")
 def fleet_pass(ctx: AnalysisContext) -> None:

@@ -70,6 +70,10 @@ class _Predictor:
         self.state: Dict[int, State] = {}
         self.per: Dict[str, Dict[str, int]] = {}
         self.per_bytes: Dict[str, Dict[str, int]] = {}
+        # mesh-sharded filters only: the per-DEVICE slice of each billed
+        # crossing (total/dp — divisibility is the NNST470 proof), the
+        # static side of the tracer's `<dir>_bytes_per_device` counters
+        self.per_dev: Dict[str, Dict[str, int]] = {}
         self.unmodeled: List[str] = []
         self.bytes_unknown: List[str] = []
         self._capmap: Optional[Dict[int, object]] = None
@@ -130,6 +134,7 @@ class _Predictor:
         return {
             "per_element": self.per,
             "per_element_bytes": self.per_bytes,
+            "per_element_bytes_per_device": self.per_dev,
             "h2d": totals["h2d"], "d2h": totals["d2h"],
             "h2d_bytes": byte_totals["h2d"], "d2h_bytes": byte_totals["d2h"],
             "unmodeled": self.unmodeled,
@@ -145,6 +150,36 @@ class _Predictor:
         from nnstreamer_tpu_torch.pipeline.planner import is_transparent
 
         if isinstance(e, SourceElement):
+            from nnstreamer_tpu_torch.elements.query import TensorQueryServerSrc
+
+            if isinstance(e, TensorQueryServerSrc) \
+                    and e.properties.get("serve"):
+                # serving source: each emitted buffer is one PADDED
+                # serve-batch (the batched caps carry the serve-batch
+                # leading dim, so pad rows are modeled as the real
+                # bytes they cost — repeated-last-row padding crosses
+                # the link like any other row).  n_buffers counts
+                # BATCHES here.  With engaged sharded placement the
+                # batch crosses H2D at THIS element, straight into the
+                # per-shard layout, and flows on as device-resident.
+                placement = None
+                if getattr(e, "_pool_placement", None) is not None:
+                    try:
+                        placement = e._resolve_placement()
+                    except Exception:  # noqa: BLE001 — advisory model
+                        placement = None
+                if placement is not None:
+                    out_b = self.pad_bytes(
+                        e.src_pads[0] if e.src_pads else None)
+                    dp = int(placement["dp"])
+                    self.bill(e, "h2d", self.n_buffers,
+                              _mul(self.n_buffers, out_b))
+                    if out_b is not None and dp > 1:
+                        self.per_dev.setdefault(
+                            e.name, {"h2d": 0, "d2h": 0})["h2d"] += \
+                            (self.n_buffers * int(out_b)) // dp
+                    self.set_out(e, self.n_buffers, "device")
+                    return
             self.set_out(e, self.n_buffers, self.source_residency)
             return
         ins = self.in_states(e)
@@ -158,9 +193,9 @@ class _Predictor:
                 # chain-fused shell: its model runs inside the head's
                 # composed program — the interior link bills ZERO bytes
                 # (buffers pass through untouched); the chain's single
-                # boundary bills the COMPOSED output wherever the planner
-                # placed it (the head's caps carry the end-of-chain
-                # payload)
+                # boundary bills the COMPOSED output wherever the
+                # planner placed it (the head's caps already carry the
+                # end-of-chain payload)
                 self.set_out(e, units, res)
                 return
             self._predict_filter(e, units, res)
@@ -241,6 +276,26 @@ class _Predictor:
             self.bill(e, "d2h", windows, _mul(windows * loopw, out_b))
             self.set_out(e, units, "host")
             return
+        # mesh partition (analysis/shard.py): the dp axis an engaged
+        # shard splits each transfer across — runtime_shard_config IS
+        # the single shared resolution (installed ground truth once the
+        # planner decided, the static resolution at lint time), so this
+        # byte model can never diverge from the memplan/tuner billing
+        shard_dp = 1
+        if device_capable and units:
+            from nnstreamer_tpu_torch.analysis.shard import runtime_shard_config
+
+            scfg = runtime_shard_config(self.pipeline, e)
+            if scfg is not None:
+                shard_dp = int(scfg["dp"])
+
+        def bill_sharded(direction: str, n: int, nbytes) -> None:
+            self.bill(e, direction, n, nbytes)
+            if shard_dp > 1 and nbytes is not None:
+                self.per_dev.setdefault(
+                    e.name, {"h2d": 0, "d2h": 0})[direction] += \
+                    int(nbytes) // shard_dp
+
         # one invoke moves the whole assembled micro-batch, EOS padding
         # included (the padded rows are uploaded/fetched too)
         per_invoke_in = _mul(batch, in_b)
@@ -249,7 +304,7 @@ class _Predictor:
             if res != "device":
                 # inline upload / prefetch / mixed batch assembly: one
                 # pipelined put per invoke entry, billed at exactly one site
-                self.bill(e, "h2d", invokes, _mul(invokes, per_invoke_in))
+                bill_sharded("h2d", invokes, _mul(invokes, per_invoke_in))
         elif res != "host":
             # host-only backend fed device arrays: one pipelined fetch per
             # invoke (_invoke's billed materialize path)
@@ -262,7 +317,7 @@ class _Predictor:
         if device_capable and cross_here and invokes:
             window = e._fetch_window_size()
             flushes = math.ceil(invokes / window) if window > 1 else invokes
-            self.bill(e, "d2h", flushes, _mul(invokes, per_invoke_out))
+            bill_sharded("d2h", flushes, _mul(invokes, per_invoke_out))
         out_res = ("device" if device_capable and e.produces_device(
             e.src_pads[0] if e.src_pads else None) and not cross_here
             and (e.src_pads and e.src_pads[0].device_ok is True) else "host")
@@ -377,4 +432,15 @@ def parity_mismatches(predicted: Dict, tracer_crossings: Dict,
                 out.append(
                     f"{name}.{d}_bytes: predicted {pb.get(d, 0)}, "
                     f"traced {s.get(d + '_bytes', 0)}")
+        # mesh-sharded filters: the per-DEVICE slice of each crossing
+        # must match the tracer's sharded-transfer counters too (the
+        # static per-shard model vs the runtime's devices= billing)
+        pd = predicted.get("per_element_bytes_per_device", {}).get(name)
+        if pd is not None:
+            for d in ("h2d", "d2h"):
+                if pd.get(d, 0) != s.get(d + "_bytes_per_device", 0):
+                    out.append(
+                        f"{name}.{d}_bytes_per_device: predicted "
+                        f"{pd.get(d, 0)}, traced "
+                        f"{s.get(d + '_bytes_per_device', 0)}")
     return out

@@ -34,10 +34,37 @@ CLOCK_TIME_NONE: int = -1
 _buffer_ids = itertools.count()
 
 
+class ShardedBatch(list):
+    """One tensor placed over the dp rows of a ``shard=dp`` mesh: the list
+    of its row groups' tensors, group i on mesh row i (the sharded
+    serve-batch placement, serving/scheduler.py). The served filter takes
+    the groups as they are (filters/cuda_filter.py); any other element
+    reads it as the rows concatenated. Shape, dtype and bytes are the
+    whole tensor's."""
+
+    @property
+    def shape(self) -> tuple:
+        return ((sum(int(t.shape[0]) for t in self),)
+                + tuple(self[0].shape[1:]))
+
+    @property
+    def dtype(self):
+        return self[0].dtype
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self)
+
+    @property
+    def is_cuda(self) -> bool:
+        return all(t.is_cuda for t in self)
+
+
 def is_device_array(x: Any) -> bool:
-    """True for a torch tensor on a CUDA device — the single predicate
-    shared by every element that branches host vs device paths."""
-    return isinstance(x, torch.Tensor) and x.is_cuda
+    """True for a torch tensor on a CUDA device (or a batch sharded over
+    CUDA devices) — the single predicate shared by every element that
+    branches host vs device paths."""
+    return isinstance(x, (torch.Tensor, ShardedBatch)) and x.is_cuda
 
 
 def is_backend_tensor(x: Any) -> bool:
@@ -47,7 +74,7 @@ def is_backend_tensor(x: Any) -> bool:
     CPU included) for the filter's fetch window and the tracer's crossing
     counts, so a line run with ``accelerator=true:cpu`` windows and counts
     as it does on the card. On the CPU such a crossing moves nothing."""
-    return isinstance(x, torch.Tensor)
+    return isinstance(x, (torch.Tensor, ShardedBatch))
 
 
 def _device_of(parts: Sequence[Any]) -> Optional[torch.device]:
@@ -62,10 +89,16 @@ def _device_of(parts: Sequence[Any]) -> Optional[torch.device]:
     return None
 
 
+def as_torch(x: Any) -> torch.Tensor:
+    """``x`` as a torch tensor where it lies: a tensor as it is, an array
+    through ``torch.from_numpy`` (contiguous, no copy when it already is)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+
+
 def _as_tensor(p: Any, device: torch.device) -> torch.Tensor:
-    if isinstance(p, torch.Tensor):
-        return p.to(device)
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(p))).to(device)
+    return as_torch(p).to(device)
 
 
 def concat_tensors(parts: Sequence[Any], axis: int = 0) -> Any:
@@ -94,7 +127,8 @@ def materialize_tensors(tensors: Sequence[Any]) -> List[Any]:
     pinned host tensor, then each stream involved is synchronised once.
     Host torch tensors become numpy views; numpy and bytes pass through.
     A per-tensor ``.cpu()`` loop here would synchronise once per tensor."""
-    out = list(tensors)
+    out = [torch.cat([p.to(t[0].device) for p in t], dim=0)
+           if isinstance(t, ShardedBatch) else t for t in tensors]
     pending = []
     for i, t in enumerate(out):
         if is_device_array(t):
@@ -121,7 +155,7 @@ def _host_numpy(t: torch.Tensor) -> np.ndarray:
 def dtype_name(t: Any) -> str:
     """Element type name of a numpy array or torch tensor ('float32',
     'uint8', ...) — the spelling TensorDType accepts."""
-    if isinstance(t, torch.Tensor):
+    if isinstance(t, (torch.Tensor, ShardedBatch)):
         return str(t.dtype).replace("torch.", "")
     return np.dtype(t.dtype).name
 

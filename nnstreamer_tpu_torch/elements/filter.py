@@ -77,9 +77,27 @@ Donation: ``custom=donate:1`` lets the backend drop a host-fed input's
 device buffer as soon as its first stage has read it; a donating filter
 behind a tee is refused at construction.
 
-Not ported yet (see ROADMAP.md): mesh sharding, replicas, the AOT cache
-and rollout. Setting any of them to other than its default raises at
-construction instead of being ignored.
+Mesh partitioning (``shard=dp|tp|dpxtp mesh=AxB``): the PLAYING planner
+installs the mesh on the backend (``install_shard``) where
+analysis/shard.py verdicts NNST470; any other verdict, or a backend that
+declines, runs unsharded, loudly (``_shard_refused``), with the same
+outputs. A host transfer of a sharded filter is billed to the tracer with
+its per-device split.
+
+Replica serving (the query server's ``replicas=N``): the planner installs
+N copies of the model on the backend (``install_replicas``) and starts
+one worker thread per replica, each with a bounded inbox. A serve-batch
+the scheduler stamped with its least-loaded replica (``serve_replica``)
+goes to that replica's inbox and the streaming thread returns at once;
+the worker invokes (under the replica's CUDA stream, the fault points
+tagged ``<name>@rN``, the sanitizer's busy gate per replica),
+materializes and pushes downstream. A failed replica invoke runs the
+element's ``on-error`` policy off the streaming thread and tells the
+batch's clients now (SERVER_BUSY, ``replica-error``).
+
+Not ported yet (see ROADMAP.md): the AOT cache and rollout. Setting
+either to other than its default raises at construction instead of being
+ignored.
 """
 
 from __future__ import annotations
@@ -129,8 +147,6 @@ log = get_logger("tensor_filter")
 #: JAX-package properties this element does not implement yet, with the
 #: value that means "off" (that value is accepted; any other raises)
 NOT_PORTED = {
-    "shard": "off",
-    "mesh": "",
     "rollout_model": "",
     "rollout_canary_frames": 0,
     "rollout_rollback": "off",
@@ -227,6 +243,20 @@ class TensorFilter(Element):
         "invoke_timeout_ms": Prop("number", doc="watchdog deadline"),
         "fallback_framework": Prop("str", doc="backend name or 'auto'"),
         "fallback_after": Prop("int"),
+        "shard": Prop(
+            "enum", enum=("off", "dp", "tp", "dpxtp"),
+            doc="mesh-partitioned execution (NNST470-licensed): dp "
+                "splits the batch axis, tp splits wide channel params, "
+                "dpxtp both over a 2-D mesh"),
+        "mesh": Prop(
+            "str",
+            validate=lambda v: (
+                None if str(v).strip() == ""
+                or all(p.isdigit() and int(p) > 0
+                       for p in str(v).strip().lower().split("x"))
+                else f"expected AxB (e.g. 4x2) or N, got {v!r}"),
+            doc="shard mesh axes as dp x tp (e.g. mesh=4x2); empty = "
+                "all visible devices on the mode's own axis"),
         **{k: Prop("any", doc="not supported in this package")
            for k in NOT_PORTED},
     }
@@ -335,6 +365,19 @@ class TensorFilter(Element):
         # serves every guarded invoke; a trip retires it and the next
         # invoke spawns a replacement
         self._wd_worker: Optional[tuple] = None
+        # mesh-partition state (planner _plan_sharding, NNST470-licensed):
+        # {"mode", "dp", "tp"} while the placement is installed on the
+        # backend; _shard_refused carries the (code, reason) of a loud
+        # unsharded fallback
+        self._shard_state: Optional[dict] = None
+        self._shard_refused: Optional[tuple] = None
+        # replica-pool state (planner _plan_pool, NNST960-licensed):
+        # {"replicas": N} while the backend holds the replicas; one
+        # (thread, inbox) worker per replica; _replica_refused carries the
+        # (code, reason) of a loud single-replica fallback
+        self._replica_state: Optional[dict] = None
+        self._replica_refused: Optional[tuple] = None
+        self._replica_workers: List[tuple] = []
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
@@ -450,6 +493,32 @@ class TensorFilter(Element):
                           == "PLAYING")
             if not mid_stream or not self._rebuild_loop("reopened"):
                 self._loop_state = None
+        # the mesh and the replica pool across a reopen: rebuilt on the
+        # fresh backend mid-stream (a decline falls back loudly, with the
+        # same outputs); a cold start drops them and the PLAYING replan
+        # re-licenses through the analyzers
+        mid_stream = (self.pipeline is not None
+                      and getattr(self.pipeline.state, "name", "")
+                      == "PLAYING")
+        if self._shard_state is not None:
+            if not mid_stream:
+                self._shard_state = None
+            elif not self.fw.build_shard(self._shard_state):
+                log.warning("[%s] reopened backend declined the mesh "
+                            "placement — unsharded execution", self.name)
+                self._shard_state = None
+        if self._replica_state is not None:
+            if not mid_stream:
+                self._replica_state = None
+                self._stop_replica_workers()
+            elif not self.fw.build_replicas(
+                    self._replica_state["replicas"]):
+                self._drop_replica_pool(
+                    "reopened backend declined the replica pool")
+            else:
+                # a mid-stream reopen (on-error=restart) stopped the
+                # workers in stop(): the rebuilt pool needs fresh ones
+                self._start_replica_workers(self._replica_state["replicas"])
 
     def _reinstall_stages(self, what: str) -> None:
         """Put the installed stages back on a backend that was reopened or
@@ -465,6 +534,10 @@ class TensorFilter(Element):
     def stop(self) -> None:
         if self._flush_timer is not None:
             self._flush_timer.cancel()
+        # replica workers drain their queued serve-batches (assembled,
+        # clients waiting), then exit — before the backend is released
+        # under them; a hung replica is abandoned after the bounded join
+        self._stop_replica_workers()
         if self._wd_worker is not None:
             self._wd_worker[1].put(None)  # pill: the worker exits when free
             self._wd_worker = None
@@ -598,6 +671,186 @@ class TensorFilter(Element):
             return False
         self._loop_state = {"window": int(window), "depth": max(1, int(depth))}
         return True
+
+    # -- mesh-partition wiring (planner _plan_sharding) --------------------
+    def install_shard(self, cfg: dict) -> bool:
+        """Install the NNST470-licensed mesh placement on the open
+        backend. False (unsharded, nothing changes) when it declines."""
+        if self.fw is None or not self.fw.build_shard(dict(cfg)):
+            return False
+        self._shard_state = {"mode": str(cfg["mode"]),
+                             "dp": int(cfg["dp"]), "tp": int(cfg["tp"])}
+        return True
+
+    def clear_shard(self) -> None:
+        self._shard_state = None
+        if self.fw is not None:
+            self.fw.build_shard(None)
+
+    def _shard_devices(self) -> int:
+        """dp-axis width of the installed mesh — the shard count one host
+        payload splits across (billed per device on the tracer); 1 when
+        unsharded."""
+        state = self._shard_state
+        return int(state["dp"]) if state else 1
+
+    # -- replica-pool wiring (planner _plan_pool) --------------------------
+    def install_replicas(self, n: int) -> bool:
+        """Install the NNST960-licensed replica pool on the open backend
+        and start one dispatch worker per replica. False (single-replica,
+        nothing changes) when the backend declines."""
+        if self.fw is None or not self.fw.build_replicas(int(n)):
+            return False
+        self._replica_state = {"replicas": int(n)}
+        self._start_replica_workers(int(n))
+        return True
+
+    def clear_replicas(self) -> None:
+        self._replica_state = None
+        self._stop_replica_workers()
+        if self.fw is not None:
+            self.fw.build_replicas(0)
+
+    def _drop_replica_pool(self, why: str) -> None:
+        """Mid-stream pool teardown (reopen or fallback decline): clear
+        this filter's replica state AND the serving source's, so the
+        scheduler stops stamping ``serve_replica``."""
+        log.warning("[%s] %s — single-replica serving", self.name, why)
+        self._replica_state = None
+        self._stop_replica_workers()
+        from nnstreamer_tpu_torch.analysis.pool import serving_src_for_filter
+
+        src = serving_src_for_filter(self)
+        if src is not None and getattr(src, "_pool_state", None):
+            src.clear_pool()
+            src._pool_refused = ("NNST961", why)
+
+    def _start_replica_workers(self, n: int) -> None:
+        import queue as _queue
+
+        self._stop_replica_workers()
+        workers = []
+        for r in range(int(n)):
+            # bounded inbox: the streaming thread blocks (backpressure)
+            # rather than piling batches onto one replica
+            q: "_queue.Queue" = _queue.Queue(maxsize=2)
+            t = threading.Thread(target=self._replica_worker, args=(r, q),
+                                 daemon=True,
+                                 name=f"replica:{self.name}:r{r}")
+            t.start()
+            workers.append((t, q))
+        self._replica_workers = workers
+
+    def _stop_replica_workers(self) -> None:
+        import queue as _queue
+
+        workers, self._replica_workers = self._replica_workers, []
+        for _, q in workers:
+            q.put(None)  # pill after the queued batches: drain, then exit
+        cur = threading.current_thread()
+        for t, _ in workers:
+            if t is not cur:  # a worker tearing the pool down must not
+                t.join(timeout=5.0)  # join itself
+        # a dispatch can race the teardown and land behind the pill:
+        # shed those batches instead of stranding their clients
+        for _, q in workers:
+            while True:
+                try:
+                    item = q.get_nowait()
+                except _queue.Empty:
+                    break
+                try:
+                    if item is not None:
+                        self._shed_replica_batch(item[0], "draining")
+                finally:
+                    q.task_done()
+
+    def _shed_replica_batch(self, buf: Buffer, reason: str) -> None:
+        """Tell a stranded serve-batch's clients now (SERVER_BUSY with
+        ``reason``) and release the replica's in-flight slot."""
+        routes = buf.meta.get("serve_routes")
+        key = buf.meta.get("serve_server")
+        if not routes or key is None:
+            return
+        from nnstreamer_tpu_torch.elements.query import get_scheduler
+
+        sched = get_scheduler(str(key))
+        if sched is not None:
+            sched.shed_batch(routes, reason)
+            sched.note_reply_batch(None,
+                                   replica=buf.meta.get("serve_replica"))
+
+    def _replica_worker(self, r: int, q) -> None:
+        """One replica's dispatch loop: invoke on replica ``r`` under its
+        CUDA stream, materialize at the boundary, push downstream — all
+        off the streaming thread, so N replicas overlap their device legs
+        and a slow replica stalls only itself."""
+        while True:
+            item = q.get()
+            try:
+                if item is None:
+                    return
+                buf, tensors, inputs = item
+                lockwitness.handoff_recv(
+                    "filter.replica_inbox", item,
+                    [t for t in inputs if hasattr(t, "flags")])
+                stream = self.fw.replica_stream(r)
+                try:
+                    with (torch.cuda.stream(stream) if stream is not None
+                          else contextlib.nullcontext()):
+                        outputs = self._invoke(inputs, replica=r)
+                        self._emit_now(buf, tensors, outputs)
+                except Exception as e:  # noqa: BLE001 — worker thread:
+                    # the error must reach the policy machinery AND the
+                    # batch's waiting clients, never vanish with the thread
+                    try:
+                        self._replica_batch_error(r, buf, tensors, inputs,
+                                                  e)
+                    except Exception:  # noqa: BLE001 — the worker loop
+                        # must survive its own error path
+                        log.exception("[%s] replica %d error handling "
+                                      "failed", self.name, r)
+            finally:
+                q.task_done()
+
+    def _replica_batch_error(self, r: int, buf: Buffer, tensors, inputs,
+                             err) -> None:
+        """A replica worker's invoke failed: the element's on-error policy
+        off-thread — ``retry:<N>`` re-invokes the same batch with backoff,
+        ``drop`` sheds the batch's clients with SERVER_BUSY (reason
+        ``replica-error``), ``restart`` reopens the element and sheds this
+        batch, ``abort`` escalates to a pipeline fatal."""
+        kind, retries = self.error_policy()
+        if kind == "retry":
+            base = float(self.properties.get(
+                "retry_backoff_ms", self.DEFAULT_RETRY_BACKOFF_MS)) / 1e3
+            for attempt in range(retries):
+                self.error_stats["retries"] += 1
+                self._note_fault("retry", err, policy=kind, replica=r,
+                                 attempt=attempt + 1)
+                time.sleep(base * (2 ** attempt))
+                try:
+                    outputs = self._invoke(inputs, replica=r)
+                    self._emit_now(buf, tensors, outputs)
+                    return  # the retry cured it
+                except Exception as e2:  # noqa: BLE001 — next attempt
+                    err = e2
+            kind = "abort"  # exhausted: escalate like the inline path
+        self.error_stats["dropped"] += 1
+        self._note_fault("replica-error", err, replica=r,
+                         count=self.error_stats["dropped"])
+        self.post_message("replica-error", {
+            "replica": r, "error": str(err),
+            "dropped": self.error_stats["dropped"]})
+        # whatever the policy, THIS batch's clients learn now
+        self._shed_replica_batch(buf, "replica-error")
+        if kind == "drop":
+            return
+        if kind == "restart":
+            self._dispatch_error(None, None, err)
+            return
+        if self.pipeline is not None:  # abort
+            self.pipeline.post_fatal(self.name, err)
 
     def clear_loop(self) -> None:
         self._loop_state = None
@@ -794,6 +1047,19 @@ class TensorFilter(Element):
                 if self._loop_state is not None and \
                         not self._rebuild_loop("reloaded"):
                     self._loop_state = None
+                # the mesh and the replica pool re-place the reloaded
+                # model; a decline falls back loudly (the same outputs)
+                if self._shard_state is not None and \
+                        not self.fw.build_shard(self._shard_state):
+                    log.warning("[%s] reloaded backend declined the mesh "
+                                "placement — unsharded execution",
+                                self.name)
+                    self._shard_state = None
+                if self._replica_state is not None and \
+                        not self.fw.build_replicas(
+                            self._replica_state["replicas"]):
+                    self._drop_replica_pool(
+                        "reloaded backend declined the replica pool")
             if self._fused_into is not None:
                 # chain-fused SHELL reloaded: its model runs inside the
                 # HEAD's composition, which still holds the old model —
@@ -871,6 +1137,21 @@ class TensorFilter(Element):
         # input-combination selection (:716-758)
         sel = self.properties.get("input_combination")
         inputs = [tensors[int(i)] for i in str(sel).split(",")] if sel else tensors
+        # replica-pool dispatch: a serve-batch the scheduler stamped with
+        # its least-loaded replica goes to THAT replica's inbox and the
+        # streaming thread returns to assemble the next batch. Buffers
+        # without the stamp take the inline path on the solo model
+        rep = buf.meta.get("serve_replica")
+        workers = self._replica_workers
+        if rep is not None and self._replica_state is not None and workers:
+            item = (buf, tensors, inputs)
+            # the batch's host arrays cross to the worker here: a
+            # sender-side alias mutating them in flight is NNST612
+            lockwitness.handoff_send(
+                "filter.replica_inbox", item,
+                [t for t in inputs if hasattr(t, "flags")])
+            workers[int(rep) % len(workers)][1].put(item)
+            return FlowReturn.OK
         batch = self._batch_size()
         with self._window_lock:
             if self._loop_state is not None:
@@ -927,8 +1208,10 @@ class TensorFilter(Element):
         if handle is not None and any(not is_backend_tensor(x) for x in inputs):
             host_bytes = nbytes_of(
                 [x for x in inputs if not is_backend_tensor(x)])
-            # the upload started here, not at invoke: bill it here
-            self._record_crossing("h2d", nbytes=host_bytes)
+            # the upload started here, not at invoke: bill it here (split
+            # per shard when a mesh is installed)
+            self._record_crossing("h2d", nbytes=host_bytes,
+                                  devices=self._shard_devices())
             if spans is not None:
                 # the host side of the non-blocking upload (staging); the
                 # copy itself completes on the device's copy stream
@@ -1177,7 +1460,8 @@ class TensorFilter(Element):
                 self.post_error(e)
 
     # -- invoke ------------------------------------------------------------
-    def _invoke(self, inputs: List, frames: int = 1) -> List:
+    def _invoke(self, inputs: List, frames: int = 1,
+                replica: Optional[int] = None) -> List:
         """One backend invoke. ``frames`` > 1 on micro-batched calls: the
         measured time is divided per frame so the latency window keeps
         per-buffer compute semantics (the batching wait is in
@@ -1190,7 +1474,8 @@ class TensorFilter(Element):
             # the backend uploads these host tensors inline, one transfer
             # per invoke (prefetched entries were billed at prefetch)
             self._record_crossing("h2d", nbytes=nbytes_of(
-                [x for x in inputs if not is_backend_tensor(x)]))
+                [x for x in inputs if not is_backend_tensor(x)]),
+                devices=self._shard_devices())
         elif not device_fw and any(is_backend_tensor(x) for x in inputs):
             # a host-only backend fed device tensors: ONE batched fetch,
             # billed, instead of the backend's own per-input conversion
@@ -1203,7 +1488,7 @@ class TensorFilter(Element):
                            args={"element": self.name, "nbytes": dev_bytes})
         t0 = time.perf_counter()
         try:
-            outputs = self._invoke_backend(inputs)
+            outputs = self._invoke_backend(inputs, replica=replica)
         except ElementError:
             raise
         except Exception as e:
@@ -1243,29 +1528,42 @@ class TensorFilter(Element):
         return outputs
 
     # -- invoke watchdog + graceful degradation ----------------------------
-    def _call_backend(self, fw, inputs: List) -> List:
+    def _call_backend(self, fw, inputs: List,
+                      replica: Optional[int] = None) -> List:
         """The raw backend call, carrying the invoke fault points
         (testing/faults.py): ``invoke-raise`` fails it, ``invoke-hang``
         stalls it on the host before the backend launches anything, so
-        the watchdog trips without a genuinely hung backend. With the
-        sanitizer on, the NNST601 busy gate wraps the call."""
+        the watchdog trips without a genuinely hung backend. A replica
+        dispatch tags the fault point ``<name>@rN``, so a test can hang
+        ONE replica while its siblings stay healthy (``match=<name>``
+        still hits every replica). With the sanitizer on, the NNST601
+        busy gate wraps the call."""
         from nnstreamer_tpu_torch.testing import faults
 
-        if faults.check("invoke-raise", self.name) is not None:
-            raise faults.FaultInjected(
-                f"injected invoke-raise in {self.name}")
-        f = faults.check("invoke-hang", self.name)
+        tag = self.name if replica is None else f"{self.name}@r{replica}"
+        if faults.check("invoke-raise", tag) is not None:
+            raise faults.FaultInjected(f"injected invoke-raise in {tag}")
+        f = faults.check("invoke-hang", tag)
         if f is not None:
             time.sleep(f.delay_s)
+
+        def call():
+            return (fw.invoke(inputs) if replica is None
+                    else fw.invoke_replica(replica, inputs))
+
         if sanitizer.active():
             # one framework instance, one invoke at a time: concurrent
             # entry through a shared key or a tripped watchdog worker is
-            # a violation naming both elements
-            with sanitizer.invoke_gate(fw, self.name):
-                return fw.invoke(inputs)
-        return fw.invoke(inputs)
+            # a violation naming both elements. Replica invokes gate per
+            # REPLICA (each owns its own weights), so N workers on one
+            # instance are legal while two entries on ONE replica trip
+            gate = fw if replica is None else fw.replica_gate(replica)
+            with sanitizer.invoke_gate(gate, self.name):
+                return call()
+        return call()
 
-    def _invoke_backend(self, inputs: List) -> List:
+    def _invoke_backend(self, inputs: List,
+                        replica: Optional[int] = None) -> List:
         """The backend invoke under the optional watchdog.
 
         ``invoke-timeout-ms=T``: the call runs on the worker thread (on
@@ -1277,7 +1575,7 @@ class TensorFilter(Element):
         thread."""
         t_ms = float(self.properties.get("invoke_timeout_ms", 0) or 0)
         if t_ms <= 0:
-            outputs = self._call_backend(self.fw, inputs)
+            outputs = self._call_backend(self.fw, inputs, replica=replica)
             self._watchdog_consec = 0
             return outputs
         fw = self.fw
@@ -1295,7 +1593,8 @@ class TensorFilter(Element):
         box: dict = {}
         done = threading.Event()
         in_q = self._wd_worker_queue()
-        in_q.put((fw, _worker_inputs(inputs), box, done, _caller_stream(fw)))
+        in_q.put((fw, _worker_inputs(inputs), box, done, _caller_stream(fw),
+                  replica))
         if not done.wait(t_ms / 1e3):
             self._wd_busy = (done, fw)
             # retire the stuck worker: the pill makes it exit once the
@@ -1321,11 +1620,12 @@ class TensorFilter(Element):
                 item = in_q.get()
                 if item is None:
                     return  # retired (trip) or stopped
-                fw, inputs, box, done, stream = item
+                fw, inputs, box, done, stream, rep = item
                 try:
                     with (torch.cuda.stream(stream) if stream is not None
                           else contextlib.nullcontext()):
-                        box["out"] = self._call_backend(fw, inputs)
+                        box["out"] = self._call_backend(fw, inputs,
+                                                        replica=rep)
                 except Exception as e:  # noqa: BLE001 — rethrown by caller
                     box["err"] = e
                 finally:
@@ -1417,6 +1717,17 @@ class TensorFilter(Element):
                          "chain composition"})
             return False
         old_name = self.fw.name if self.fw is not None else "?"
+        # the mesh and the replica pool follow the swap or fall back
+        # loudly (the same outputs either way)
+        if self._shard_state is not None and not new_fw.build_shard(
+                self._shard_state):
+            log.warning("[%s] fallback backend declined the mesh "
+                        "placement — unsharded execution", self.name)
+            self._shard_state = None
+        if self._replica_state is not None and not new_fw.build_replicas(
+                self._replica_state["replicas"]):
+            self._drop_replica_pool(
+                "fallback backend declined the replica pool")
         self.fw = new_fw
         self._fw_props = fprops
         in_info, out_info = new_fw.get_model_info()
@@ -1639,7 +1950,8 @@ class TensorFilter(Element):
         fetched = materialize_tensors(flat)
         t2 = time.perf_counter()
         flat_bytes = nbytes_of(flat)
-        self._record_crossing("d2h", nbytes=flat_bytes)
+        self._record_crossing("d2h", nbytes=flat_bytes,
+                              devices=self._shard_devices())
         if spans is not None:
             args = {"element": self.name, "nbytes": flat_bytes}
             if window is not None:
@@ -1746,7 +2058,8 @@ class TensorFilter(Element):
             else:
                 stacked.append(stack_tensors(parts))
         if mixed_bytes:
-            self._record_crossing("h2d", nbytes=mixed_bytes)
+            self._record_crossing("h2d", nbytes=mixed_bytes,
+                                  devices=self._shard_devices())
         if spans is not None:
             # micro-batch assembly (concat/stack + padding): the
             # `batching_padding` leg of the host-stack attribution
@@ -1807,6 +2120,10 @@ class TensorFilter(Element):
     def on_eos(self) -> None:
         if self._flush_timer is not None:
             self._flush_timer.cancel()
+        # replica workers first: EOS must not overtake serve-batches still
+        # in a replica's inbox or mid-invoke
+        for _, q in self._replica_workers:
+            q.join()
         with self._window_lock:
             self._flush_timer = None
             # the steady loop first: a partial window dispatches padded

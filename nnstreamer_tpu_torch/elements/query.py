@@ -17,9 +17,12 @@ A copy of the JAX package's elements over this package's transport and
 serving tier; the two packages' clients and servers talk to each other.
 The serversink brings a batch's outputs to the host once (one d2h per
 batch) before it slices them per client. ``connect-type=HYBRID`` discovers
-the server's TCP endpoint over MQTT (``edge/discovery.py``). Not part of
-this package yet: the replica pool (``replicas=N|auto``, which raises) and
-sharded serve-batch placement into a ``shard=dp`` filter.
+the server's TCP endpoint over MQTT (``edge/discovery.py``). A serving
+source with ``replicas=N|auto`` dispatches its serve-batches over the
+served filter's replica pool (analysis/pool.py, the planner's
+``install_pool``); one whose served filter engaged ``shard=dp`` places
+each serve-batch straight into that filter's shards
+(``install_placement``).
 """
 
 from __future__ import annotations
@@ -119,18 +122,6 @@ def _release_server(key: str) -> None:
         if _server_refs[key] <= 0:
             _server_table.pop(key).close()
             _server_refs.pop(key, None)
-
-
-def _replicas_unported(element: str, value: str) -> ElementError:
-    """``replicas=N|auto`` clones the served program onto N devices
-    (the JAX package's ``analysis/pool.py`` and the planner's
-    ``install_pool``), which this package does not have yet (ROADMAP
-    queue 1 item 8). Fail loudly; never serve one replica in silence."""
-    return ElementError(
-        element, f"replicas={value} needs the replica pool "
-                 "(analysis/pool.py, install_pool; ROADMAP queue 1 item 8), "
-                 "which nnstreamer_tpu_torch does not have yet; use "
-                 "replicas=off")
 
 
 def get_server(key: str) -> Optional[EdgeServer]:
@@ -1237,8 +1228,10 @@ class TensorQueryServerSrc(SourceElement):
                 None if str(v).strip().lower() in ("", "auto", "off")
                 or str(v).strip().lstrip("-").isdigit()
                 else f"expected an integer, 'auto' or 'off', got {v!r}"),
-            doc="nnpool replica serving; only off (or 1) here — any other "
-                "value raises at start (the replica pool is not ported)"),
+            doc="nnpool replica serving (NNST960-licensed): copy the "
+                "served filter's model onto N devices and dispatch "
+                "serve-batches least-loaded-first (auto = largest "
+                "per-device-memory-feasible count; default off)"),
         "slo_ms": Prop("number", doc="declared per-request latency SLO "
                                      "(admitted p99 target, ms) — the "
                                      "nnctl feedback target and the "
@@ -1274,6 +1267,14 @@ class TensorQueryServerSrc(SourceElement):
         self._health_stop = None
         self._health_thread = None
         self._rid_filter = None
+        # nnpool state (planner _plan_pool): {"replicas": N} while the
+        # NNST960-licensed pool is engaged; _pool_refused carries the
+        # (code, reason) of a loud single-replica fallback; the placement
+        # target is the served filter whose engaged shard=dp layout
+        # serve-batches land in directly
+        self._pool_state: Optional[dict] = None
+        self._pool_refused = None
+        self._pool_placement = None  # the served TensorFilter, or None
 
     def _serving_enabled(self) -> bool:
         return bool(self.properties.get("serve"))
@@ -1282,9 +1283,6 @@ class TensorQueryServerSrc(SourceElement):
         return max(1, int(self.properties.get("serve_batch", 1) or 1))
 
     def start(self) -> None:
-        replicas = str(self.properties.get("replicas", "off")).strip().lower()
-        if replicas not in ("", "off", "1"):
-            raise _replicas_unported(self.name, replicas)
         host = str(self.properties.get("host", "localhost"))
         port = int(self.properties.get("port", 0))
         self._key = str(self.properties.get("id", "0"))
@@ -1417,6 +1415,8 @@ class TensorQueryServerSrc(SourceElement):
         if self._ctl is not None:
             self._ctl.stop()
             self._ctl = None
+        self._pool_state = None
+        self._pool_placement = None
         with _server_lock:
             if _sched_table.get(self._key) is self._sched:
                 _sched_table.pop(self._key, None)
@@ -1429,6 +1429,56 @@ class TensorQueryServerSrc(SourceElement):
         if self._server is not None:
             _release_server(self._key)
             self._server = None
+
+    # -- nnpool wiring (planner _plan_pool) --------------------------------
+    def install_pool(self, replicas: int) -> None:
+        """Engage the NNST960-licensed replica pool on the scheduler (the
+        served filter's backend already holds the replicas)."""
+        self._pool_state = {"replicas": int(replicas)}
+        if self._sched is not None:
+            self._sched.configure_pool(replicas=int(replicas))
+
+    def clear_pool(self) -> None:
+        self._pool_state = None
+        if self._sched is not None:
+            self._sched.configure_pool(replicas=1)
+
+    def install_placement(self, filt) -> None:
+        """Engage sharded serve-batch placement: each assembled batch's
+        row groups land straight on ``filt``'s ``shard=dp`` mesh rows, one
+        put per shard, no host stack of the whole batch. The resolver
+        re-reads the LIVE state per batch, so a mid-stream fallback on the
+        filter degrades to the host stack."""
+        self._pool_placement = filt
+        if self._sched is not None:
+            self._sched.configure_pool(placement_fn=self._resolve_placement)
+
+    def clear_placement(self) -> None:
+        self._pool_placement = None
+        if self._sched is not None:
+            self._sched.configure_pool(placement_fn=None)
+
+    def _resolve_placement(self):
+        """The served filter's engaged dp layout — {"mesh", "dp",
+        "element"} — or None."""
+        filt = self._pool_placement
+        if filt is None:
+            return None
+        state = getattr(filt, "_shard_state", None)
+        fw = filt.fw
+        mesh = getattr(fw, "_mesh", None) if fw is not None else None
+        if not state or state.get("mode") != "dp" or mesh is None:
+            return None
+        dp = int(state.get("dp", 1))
+        if dp <= 1:
+            return None
+        return {"mesh": mesh, "dp": dp, "element": filt.name}
+
+    def produces_device(self, pad) -> bool:
+        # engaged sharded placement emits device tensors (the served
+        # filter's own shards): advertise the memory:HBM lane so the
+        # residency plan and the byte model see the device edge
+        return self._pool_placement is not None
 
     @property
     def port(self) -> int:
@@ -1676,5 +1726,6 @@ class TensorQueryServerSink(Element):
             # batch fully demuxed: ack the scheduler (nnctl drain
             # feedback for pended serve-batch changes, and the per-launch
             # device window measurement from the filter's stamps)
-            sched.note_reply_batch(buf.meta.get("serve_invoke"))
+            sched.note_reply_batch(buf.meta.get("serve_invoke"),
+                                   replica=buf.meta.get("serve_replica"))
         return FlowReturn.OK if delivered else FlowReturn.DROPPED

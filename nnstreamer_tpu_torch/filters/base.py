@@ -188,6 +188,50 @@ class FilterFramework:
         cannot be composed. Base: not composable."""
         return None
 
+    # -- mesh partitioning (analysis/shard.py, NNST470-licensed) -----------
+    def shard_supported(self) -> bool:
+        """Can this backend place its program over a device mesh
+        (``tensor_filter shard=dp|tp|dpxtp mesh=AxB``)? Base: no."""
+        return False
+
+    def build_shard(self, cfg: Optional[dict]) -> bool:
+        """Install (``cfg`` = {"mode", "dp", "tp"}) or clear (None/empty)
+        the NNST470-licensed mesh placement. A False return makes the
+        element fall back LOUDLY to unsharded execution. Base: clearing
+        always succeeds, installing never does."""
+        return not cfg
+
+    # -- replica pool (analysis/pool.py, NNST960-licensed) -----------------
+    def replica_supported(self) -> bool:
+        """Can this backend copy its model per device (the replica-serving
+        tier)? Base: no — backends are presumed stateful."""
+        return False
+
+    def build_replicas(self, n: int) -> bool:
+        """Install (n > 1) or clear (n <= 1) the replica pool. False
+        (single-replica serving) when the backend declines."""
+        return n <= 1
+
+    def replica_count(self) -> int:
+        """Installed replica count (0 = no pool)."""
+        return 0
+
+    def invoke_replica(self, replica: int, inputs: Sequence[Any]
+                       ) -> List[Any]:
+        """Invoke on replica ``replica``. Base: the plain invoke."""
+        return self.invoke(inputs)
+
+    def replica_gate(self, replica: int):
+        """The object the NNST601 sanitizer busy gate keys on for one
+        replica's invokes (each replica owns its own weights, so
+        concurrent invokes on DIFFERENT replicas are legal). Base: the
+        framework itself."""
+        return self
+
+    def replica_stream(self, replica: int):
+        """The CUDA stream replica ``replica`` runs on, or None."""
+        return None
+
     def compile_stats(self) -> dict:
         """Build counters (the counterpart of the JAX backend's jit trace
         count). Base backends build nothing per input signature."""
@@ -334,11 +378,13 @@ class _CustomEasyFramework(FilterFramework):
     NAME = "custom-easy"
 
     def __init__(self, fn: Callable, in_info: TensorsInfo,
-                 out_info: TensorsInfo):
+                 out_info: TensorsInfo, replica_safe: bool = False):
         super().__init__()
         self._fn = fn
         self._in = in_info
         self._out = out_info
+        self._replica_safe = bool(replica_safe)
+        self._replica_tokens: List[object] = []
 
     def get_model_info(self):
         return self._in, self._out
@@ -347,19 +393,49 @@ class _CustomEasyFramework(FilterFramework):
         out = self._fn(inputs)
         return list(out) if isinstance(out, (list, tuple)) else [out]
 
+    # -- replica pool: a callable registered replica_safe=True declares
+    # itself a pure function — N "replicas" share it, and concurrent
+    # invokes from the per-replica workers are legal
+    def replica_supported(self) -> bool:
+        return self._replica_safe
+
+    def build_replicas(self, n: int) -> bool:
+        if n <= 1:
+            self._replica_tokens = []
+            return True
+        if not self._replica_safe:
+            return False
+        from types import SimpleNamespace
+
+        # namespace tokens: the sanitizer's busy gate writes its marker
+        # attribute onto the gate object
+        self._replica_tokens = [SimpleNamespace(name=f"{self.NAME}[r{r}]")
+                                for r in range(int(n))]
+        return True
+
+    def replica_count(self) -> int:
+        return len(self._replica_tokens)
+
+    def replica_gate(self, replica: int):
+        toks = self._replica_tokens
+        return toks[replica] if 0 <= replica < len(toks) else self
+
 
 def register_custom_easy(
     name: str,
     fn: Callable[[Sequence[Any]], Sequence[Any]],
     in_info: TensorsInfo,
     out_info: TensorsInfo,
+    replica_safe: bool = False,
 ) -> None:
     """NNS_custom_easy_register: expose ``fn`` as filter model ``name`` for
-    ``tensor_filter framework=custom-easy model=<name>``. (The JAX
-    package's ``replica_safe`` flag waits for the replica pool.)"""
+    ``tensor_filter framework=custom-easy model=<name>``.
+    ``replica_safe=True`` declares ``fn`` a pure function safe to invoke
+    concurrently from the replica pool's per-replica workers."""
 
     def factory():
-        return _CustomEasyFramework(fn, in_info, out_info)
+        return _CustomEasyFramework(fn, in_info, out_info,
+                                    replica_safe=replica_safe)
 
     registry.register(registry.CUSTOM_FILTER, name)(factory)
 

@@ -58,25 +58,55 @@ a card that is asked for and absent makes ``open`` raise.
     stream has passed that mark: its bytes leave ``memory_allocated`` at
     once, but not the reserved pool.
 
+  - **mesh** (``build_shard``, the element's NNST470-licensed ``shard=``,
+    or the legacy ``custom=shard:dp|tp|dpxtp[,shard_devices:N]
+    [,tp_devices:T]``): a (dp, tp) mesh over ``parallel/mesh.py``'s
+    devices, where a device may repeat (``NNSTPU_TORCH_DEVICES=cuda:0*4``
+    runs four mesh positions on one card). dp splits each input's rows
+    over the dp rows of the mesh: row group i runs on dp row i's device,
+    under that row's own CUDA stream (so the rows of one card overlap),
+    through the same kernels as the solo forward, with that row's own
+    copy of the weights; the outputs are gathered onto row 0's device
+    after the caller's stream waited for every row's. ``prefetch`` places
+    each row group on its row as it uploads. tp holds each param leaf the
+    rule of ``parallel/mesh.tp_leaf_sharded`` splits as tp slices along
+    its output-channel dim, one per mesh position, and every other leaf
+    whole on every position; the solo weights leave the device meanwhile.
+    Where a layer reads a leaf, the row gathers it onto the device it
+    computes on: each invoke rebuilds the model around the gathered
+    leaves (``models.build_with_state``), BatchNorm folds there (exact,
+    since the scale is per output channel), the forward runs with the
+    fused block's weight cache off (``ops.fused_block.transient_weights``)
+    and everything gathered is freed when the invoke returns. The
+    activations replicate over tp, as XLA's partitioner leaves them
+    around a kernel it cannot split, so one position of each row
+    computes them; splitting the compute itself is later work;
+  - **replicas** (``build_replicas``, the query server's NNST960-licensed
+    ``replicas=``): N copies of the model, replica r on the r-th visible
+    device with its own weights and CUDA stream; ``invoke_replica`` runs
+    one serve-batch there. Replica 0 on this backend's device is the solo
+    model itself.
+
 Model naming: zoo names (``mobilenet_v2``) with weights from
 ``custom=seed:<n>`` or ``custom=params:<path>`` (an ``.npz``, or what the
 trainer saved: a file or a directory), and embedded-Python ``.py`` model
 files (:func:`models.load_py_model`, the JAX backend's ``_load_py_model``).
-The JAX backend's ``.jaxexport``/``.msgpack``/SavedModel sources, its mesh
-sharding, replicas and AOT cache are not ported; the custom keys that
-would ask for them raise.
+The JAX backend's ``.jaxexport``/``.msgpack``/SavedModel sources and its
+AOT cache are not ported; the custom keys that would ask for them raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
+from types import SimpleNamespace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from nnstreamer_tpu_torch import registry
-from nnstreamer_tpu_torch.buffer import dtype_name
+from nnstreamer_tpu_torch.buffer import ShardedBatch, as_torch, dtype_name
 from nnstreamer_tpu_torch.filters.base import (
     FilterFramework,
     FilterProperties,
@@ -85,6 +115,7 @@ from nnstreamer_tpu_torch.filters.base import (
 from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.models import (
     ModelBundle,
+    build_with_state,
     get_model,
     load_py_model,
     weights_version,
@@ -94,7 +125,7 @@ from nnstreamer_tpu_torch.types import TensorInfo, TensorsInfo
 log = get_logger("torch_cuda")
 
 #: custom keys of the JAX backend whose features this backend lacks
-_NOT_PORTED_CUSTOM = ("shard", "shard_devices", "tp_devices", "aot", "arch")
+_NOT_PORTED_CUSTOM = ("aot", "arch")
 #: ``custom=aot:<v>`` values that turn the JAX backend's ahead-of-time
 #: compile off, which is what this backend always does: accepted
 _AOT_OFF = ("0", "false", "no")
@@ -232,6 +263,25 @@ class TorchCudaFilter(FilterFramework):
         self._loop_graphs: Dict[tuple, Any] = {}
         # custom=donate:1 (see the module docstring)
         self._donate = False
+        # mesh (see the module docstring): the installed Mesh, its recipe,
+        # whether the element's planner installed it (build_shard) rather
+        # than custom=shard:, the dp path's per-row bundles, the tp path's
+        # placed leaves, the per-row streams and staging, and the solo
+        # weights parked on the host while tp holds them split
+        self._mesh = None
+        self._shard_spec: Optional[dict] = None
+        self._shard_installed = False
+        self._mesh_bundles: List[ModelBundle] = []
+        self._mesh_params: Optional[Dict[str, Any]] = None
+        self._mesh_streams: List[Any] = []
+        self._mesh_staging: List[Optional[_StagingRing]] = []
+        self._solo_state: Optional[Dict[str, torch.Tensor]] = None
+        # replica pool: per replica its device, bundle, stream and the
+        # sanitizer's busy-gate token
+        self._replica_devices: List[torch.device] = []
+        self._replica_bundles: List[ModelBundle] = []
+        self._replica_streams: List[Any] = []
+        self._replica_tokens: List[Any] = []
 
     # -- open/close --------------------------------------------------------
     def open(self, props: FilterProperties) -> None:
@@ -261,8 +311,44 @@ class TorchCudaFilter(FilterFramework):
                         else get_model(model, custom, self._device))
         self._signatures = set()
         self._staging = None
+        self._open_legacy_shard(custom)
+
+    def _open_legacy_shard(self, custom: Dict[str, str]) -> None:
+        """``custom=shard:dp|tp|dpxtp[,shard_devices:N][,tp_devices:T]``:
+        the mesh at open, over the first N visible devices (all when N is
+        0 or absent); fewer than two devices runs unsharded, with a
+        warning, as the JAX backend does."""
+        self._mesh, self._shard_spec, self._shard_installed = None, None, False
+        sh = custom.get("shard")
+        if not sh:
+            return
+        if sh not in ("dp", "tp", "dpxtp"):
+            raise ValueError(
+                f"unknown shard mode {sh!r} (supported: dp, tp, dpxtp)")
+        from nnstreamer_tpu_torch.parallel.mesh import (
+            mesh_from_spec,
+            visible_devices,
+        )
+
+        n = int(custom.get("shard_devices", "0") or 0)
+        devs = visible_devices()
+        if n:
+            devs = devs[:n]
+        if len(devs) < 2:
+            log.warning("shard:%s requested but only %d device(s) visible; "
+                        "running unsharded", sh, len(devs))
+            return
+        # an explicit tp_devices:0 passes through so mesh_from_spec
+        # rejects it (only absence defaults to 2)
+        raw_tp = str(custom.get("tp_devices", "")).strip()
+        spec = {"mode": sh, "shard_devices": len(devs),
+                "tp_devices": int(raw_tp) if raw_tp else 2}
+        self._install_mesh(mesh_from_spec(spec, devs), spec)
 
     def close(self) -> None:
+        self._solo_state = None  # nothing to restore
+        self._clear_mesh()
+        self.build_replicas(0)
         self._bundle = None
         self._postproc = None
         self._staging = None
@@ -404,16 +490,14 @@ class TorchCudaFilter(FilterFramework):
 
     # -- hot path ----------------------------------------------------------
     def _to_device(self, x: Any) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x.to(self._device, non_blocking=True)
-        return torch.from_numpy(np.ascontiguousarray(np.asarray(x))).to(
-            self._device, non_blocking=True)
+        return as_torch(x).to(self._device, non_blocking=True)
 
     def _fresh(self, inputs: Sequence[Any]) -> bool:
         """Will every input reach the device as a buffer of this invoke's
         own (no upstream device tensor among them)?"""
-        return not any(isinstance(x, torch.Tensor) and x.device == self._device
-                       for x in inputs)
+        return not any(isinstance(x, ShardedBatch) or (
+            isinstance(x, torch.Tensor) and x.device == self._device)
+            for x in inputs)
 
     def prefetch(self, inputs: Sequence[Any]) -> PrefetchedInputs:
         """Start every host input's upload NOW (see the module docstring):
@@ -421,6 +505,8 @@ class TorchCudaFilter(FilterFramework):
         already on the device pass through. On the CPU the handle holds
         the inputs as tensors (there is nothing to copy)."""
         donatable = self._fresh(inputs)
+        if self._mesh is not None:
+            return self._prefetch_mesh(inputs)
         if self._device.type != "cuda":
             return PrefetchedInputs([self._to_device(x) for x in inputs],
                                     donatable=donatable)
@@ -465,6 +551,8 @@ class TorchCudaFilter(FilterFramework):
             return outs
 
     def invoke(self, inputs: Sequence[Any]) -> List[Any]:
+        if self._mesh is not None:
+            return self._invoke_mesh(inputs)
         t0 = time.perf_counter()
         prefetched = isinstance(inputs, PrefetchedInputs)
         donate = self._donate and (inputs.donatable if prefetched
@@ -503,9 +591,336 @@ class TorchCudaFilter(FilterFramework):
             return None
         return fn, module, self._bundle.input_info
 
+    # -- mesh (analysis/shard.py, NNST470-licensed) ------------------------
+    def shard_supported(self) -> bool:
+        """The mesh needs a model to re-place, and no installed chain,
+        window or replica pool owning the program; a mesh from
+        ``custom=shard:`` owns the placement already."""
+        return (self._bundle is not None
+                and not self._chain_stages
+                and self._loop_window == 0
+                and not self._replica_devices
+                and (self._mesh is None or self._shard_installed))
+
+    def build_shard(self, cfg) -> bool:
+        """Install (or clear, ``cfg`` falsy) the NNST470-licensed mesh of
+        ``cfg`` = {"mode", "dp", "tp"} over the first dp·tp visible
+        devices. Declines (False) when the program cannot be placed — the
+        element then runs unsharded, numerically the same."""
+        if not cfg:
+            if self._shard_installed:
+                self._clear_mesh()
+            return True
+        if not self.shard_supported():
+            return False
+        from nnstreamer_tpu_torch.parallel.mesh import mesh_from_axes
+
+        dp, tp = int(cfg["dp"]), int(cfg["tp"])
+        try:
+            self._install_mesh(mesh_from_axes(dp, tp), {
+                "mode": str(cfg.get("mode", "dp")),
+                "shard_devices": dp * tp, "tp_devices": tp})
+        except Exception as e:  # noqa: BLE001 — a failed install declines
+            # (the element falls back loudly unsharded), never leaves a
+            # half-placed backend behind
+            self._clear_mesh()
+            log.warning("mesh install failed (%s); declining shard "
+                        "(unsharded execution)",
+                        str(e).splitlines()[0][:120])
+            return False
+        self._shard_installed = True
+        return True
+
+    def _install_mesh(self, mesh, spec: dict) -> None:
+        """Place the solo model over ``mesh`` (see the module docstring):
+        per dp row a bundle when tp is 1, else the placed leaves with the
+        solo weights parked on the host."""
+        from nnstreamer_tpu_torch.parallel.mesh import (
+            row_device,
+            shard_params_for_tp,
+        )
+
+        self._clear_mesh()
+        dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+        module = self._bundle.module
+        rows = [row_device(mesh, r) for r in range(dp)]
+        if tp == 1:
+            self._mesh_bundles = [
+                self._bundle if r == 0 and dev == self._device
+                else self._copy_bundle(dev) for r, dev in enumerate(rows)]
+        else:
+            self._mesh_params = shard_params_for_tp(mesh, module)
+            self._solo_state = {k: v.detach().to("cpu", copy=True)
+                                for k, v in module.state_dict().items()}
+            self._bundle = self._build(torch.device("meta"), {
+                k: torch.empty_like(v, device="meta")
+                for k, v in self._solo_state.items()})
+        from nnstreamer_tpu_torch.ops._cuda import side_stream
+
+        self._mesh_streams = [side_stream(dev, f"mesh-row{r}")
+                              if dev.type == "cuda" else None
+                              for r, dev in enumerate(rows)]
+        self._mesh_staging = [None] * dp
+        self._mesh, self._shard_spec = mesh, dict(spec)
+        self._loop_graphs = {}
+
+    def _clear_mesh(self) -> None:
+        """Back to the solo model: the parked weights return to the device."""
+        if self._solo_state is not None:
+            self._bundle = self._build(self._device, {
+                k: v.to(self._device) for k, v in self._solo_state.items()})
+        self._mesh, self._shard_spec, self._shard_installed = None, None, False
+        self._mesh_bundles, self._mesh_params = [], None
+        self._mesh_streams, self._mesh_staging = [], []
+        self._solo_state = None
+
+    def _build(self, device, state) -> ModelBundle:
+        return build_with_state(self.props.model_file, self._custom, device,
+                                state)
+
+    def _copy_bundle(self, device) -> ModelBundle:
+        """The solo model rebuilt on ``device`` around its own copy of the
+        solo weights."""
+        return self._build(device, {
+            k: v.detach().to(device, copy=True)
+            for k, v in self._bundle.module.state_dict().items()})
+
+    def mesh_param_bytes(self) -> Dict[tuple, int]:
+        """Bytes of weights each mesh position holds: {(i, j): bytes}."""
+        from nnstreamer_tpu_torch.analysis.costmodel import param_bytes_of
+        from nnstreamer_tpu_torch.parallel.mesh import mesh_positions
+
+        if self._mesh is None:
+            return {}
+        if self._mesh_params is None:
+            return {(r, 0): param_bytes_of(b.module)
+                    for r, b in enumerate(self._mesh_bundles)}
+        return {pos: sum(leaf.nbytes_at(pos)
+                         for leaf in self._mesh_params.values())
+                for pos in mesh_positions(self._mesh)}
+
+    def _mesh_rows(self, inputs: Sequence[Any]) -> List[List[Any]]:
+        """Each input's rows split into dp groups (host arrays or tensors
+        as given): ``[row][input]``."""
+        dp = self._mesh.shape["dp"]
+        out: List[List[Any]] = [[] for _ in range(dp)]
+        for x in inputs:
+            if isinstance(x, ShardedBatch) and len(x) == dp:
+                for r in range(dp):  # placed on the rows already
+                    out[r].append(x[r])
+                continue
+            if isinstance(x, ShardedBatch):
+                x = torch.cat([p.to(x[0].device) for p in x], dim=0)
+            n = int(x.shape[0]) if len(np.shape(x)) else 0
+            if n % dp:
+                raise ValueError(
+                    f"sharded inference needs the batch (leading dim {n}) "
+                    f"to divide the dp axis ({dp}): size batch-size or "
+                    f"frames-per-tensor to a multiple of {dp}")
+            g = n // dp
+            for r in range(dp):
+                out[r].append(x[r * g:(r + 1) * g])
+        return out
+
+    def _prefetch_mesh(self, inputs: Sequence[Any]) -> PrefetchedInputs:
+        """Start each row group's upload onto its mesh row now, from a
+        page-locked staging ring of that row's (on the CPU: slices).
+        The handle holds ``[row][input]`` tensors and per row the events
+        of its uploads."""
+        from nnstreamer_tpu_torch.parallel.mesh import row_device
+
+        rows = self._mesh_rows(inputs)
+        placed, events = [], []
+        for r, xs in enumerate(rows):
+            dev = row_device(self._mesh, r)
+            if dev.type != "cuda":
+                placed.append([as_torch(x).to(dev) for x in xs])
+                events.append([])
+                continue
+            ring = self._mesh_staging[r]
+            if ring is None:
+                ring = self._mesh_staging[r] = _StagingRing(
+                    dev, int(self.props.feed_depth) + 1)
+            ts, evs = [], []
+            for x in xs:
+                if isinstance(x, torch.Tensor):
+                    ts.append(x.to(dev, non_blocking=True))
+                    continue
+                t, evt = ring.upload(np.asarray(x))
+                ts.append(t)
+                evs.append(evt)
+            placed.append(ts)
+            events.append(evs)
+        handle = PrefetchedInputs(placed, donatable=self._fresh(inputs))
+        handle.mesh_events = events
+        return handle
+
+    def _invoke_mesh(self, inputs: Sequence[Any]) -> List[Any]:
+        """One invoke over the mesh: every dp row computes its row group
+        on its own stream; the outputs are gathered onto row 0's device,
+        on the caller's stream there."""
+        from nnstreamer_tpu_torch.parallel.mesh import row_device
+
+        t0 = time.perf_counter()
+        mesh = self._mesh
+        dp = mesh.shape["dp"]
+        if isinstance(inputs, PrefetchedInputs) and hasattr(inputs,
+                                                            "mesh_events"):
+            rows, events = list(inputs), inputs.mesh_events
+        else:
+            rows, events = self._mesh_rows(inputs), [[] for _ in range(dp)]
+        out_dev = row_device(mesh, 0)
+        caller = (torch.cuda.current_stream(out_dev)
+                  if out_dev.type == "cuda" else None)
+        per_row = []
+        for r in range(dp):
+            dev, stream = row_device(mesh, r), self._mesh_streams[r]
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                if stream is not None:
+                    if caller is not None and caller.device == dev:
+                        stream.wait_stream(caller)
+                    for evt in events[r]:
+                        stream.wait_event(evt)
+                xs = []
+                for x in rows[r]:
+                    t = as_torch(x).to(dev, non_blocking=True)
+                    if stream is not None and t.is_cuda:
+                        t.record_stream(stream)
+                    xs.append(t)
+                if r == 0:
+                    self._signatures.add((self._composition, "mesh") + tuple(
+                        (tuple(x.shape), dtype_name(x)) for x in xs))
+                per_row.append(self._run_row(r, xs, dev))
+        if caller is not None:
+            # the gather and the caller's consumers read the rows'
+            # outputs: order the caller's stream after every row's, and
+            # keep their blocks from reuse until it has passed
+            for stream in self._mesh_streams:
+                if stream is not None:
+                    caller.wait_stream(stream)
+            for o in per_row:
+                for t in o:
+                    if t.is_cuda:
+                        t.record_stream(caller)
+        outs = per_row[0] if dp == 1 else [
+            torch.cat([o[i].to(out_dev, non_blocking=True) for o in per_row],
+                      dim=0) for i in range(len(per_row[0]))]
+        self.stats.record((time.perf_counter() - t0) * 1e6)
+        return outs
+
+    def _run_row(self, r: int, xs: List[torch.Tensor],
+                 dev: torch.device) -> List[torch.Tensor]:
+        """dp row ``r``'s forward on its device: its own bundle (tp 1), or
+        a bundle built around the leaves gathered from the row's
+        positions, which lives for this call only."""
+        from nnstreamer_tpu_torch.ops.fused_block import transient_weights
+
+        if self._mesh_params is None:
+            return self._compose_with(self._mesh_bundles[r].apply_fn, xs)
+        with transient_weights():
+            bundle = self._build(dev, {
+                k: leaf.gather(r, dev)
+                for k, leaf in self._mesh_params.items()})
+            outs = self._compose_with(bundle.apply_fn, xs)
+            del bundle
+        return outs
+
+    def _compose_with(self, apply_fn, xs) -> List[torch.Tensor]:
+        with torch.inference_mode():
+            return compose(list(xs), self._stage_pre, apply_fn,
+                           self._postproc, self._stage_post)
+
+    # -- replica pool (analysis/pool.py, NNST960-licensed) -----------------
+    def replica_supported(self) -> bool:
+        """Replicas need a model to copy, and no chain, window or mesh
+        owning the program."""
+        return (self._bundle is not None and not self._chain_stages
+                and self._loop_window == 0 and self._mesh is None)
+
+    def replica_count(self) -> int:
+        return len(self._replica_devices)
+
+    def replica_gate(self, replica: int):
+        toks = self._replica_tokens
+        return toks[replica] if 0 <= replica < len(toks) else self
+
+    def replica_stream(self, replica: int):
+        """Replica ``replica``'s CUDA stream (None off the card): its
+        worker runs the invoke and the fetch under it."""
+        if 0 <= replica < len(self._replica_streams):
+            return self._replica_streams[replica]
+        return None
+
+    def build_replicas(self, n: int) -> bool:
+        """Install (n > 1) or clear (<= 1) the replica pool over the first
+        n visible devices. Declines (False) when the program cannot be
+        copied or fewer devices are visible — the server then serves from
+        one replica, numerically the same."""
+        if n <= 1:
+            self._replica_devices, self._replica_bundles = [], []
+            self._replica_streams, self._replica_tokens = [], []
+            return True
+        if not self.replica_supported():
+            return False
+        from nnstreamer_tpu_torch.parallel.mesh import visible_devices
+
+        devs = visible_devices()
+        if len(devs) < n:
+            return False
+        devs = devs[:n]
+        try:
+            bundles = [self._bundle if r == 0 and dev == self._device
+                       else self._copy_bundle(dev)
+                       for r, dev in enumerate(devs)]
+        except Exception as e:  # noqa: BLE001 — placement failed: decline
+            log.warning("replica placement failed (%s); declining replicas "
+                        "(single-replica serving)",
+                        str(e).splitlines()[0][:120])
+            return False
+        self._replica_devices, self._replica_bundles = devs, bundles
+        from nnstreamer_tpu_torch.ops._cuda import side_stream
+
+        self._replica_streams = [side_stream(d, f"replica{r}")
+                                 if d.type == "cuda" else None
+                                 for r, d in enumerate(devs)]
+        # namespace tokens: the sanitizer's busy gate writes its marker
+        # attribute onto the gate object
+        self._replica_tokens = [SimpleNamespace(name=f"{self.NAME}[r{r}]")
+                                for r in range(n)]
+        return True
+
+    def invoke_replica(self, replica: int, inputs: Sequence[Any]
+                       ) -> List[Any]:
+        """One serve-batch on replica ``replica``: its inputs go to its
+        device and its forward runs on its stream; the outputs return
+        unsynchronised, ordered after that stream for the caller's."""
+        t0 = time.perf_counter()
+        dev = self._replica_devices[replica]
+        stream = self._replica_streams[replica]
+        caller = torch.cuda.current_stream(dev) if stream is not None else None
+        own = caller is None or caller == stream
+        if not own:
+            stream.wait_stream(caller)
+        with (torch.cuda.stream(stream) if not own
+              else contextlib.nullcontext()):
+            xs = [as_torch(x).to(dev, non_blocking=True) for x in inputs]
+            self._signatures.add((self._composition,) + tuple(
+                (tuple(x.shape), dtype_name(x)) for x in xs))
+            outs = self._compose_with(
+                self._replica_bundles[replica].apply_fn, xs)
+        if not own:
+            caller.wait_stream(stream)
+            for t in outs:
+                if t.is_cuda:
+                    t.record_stream(caller)
+        self.stats.record((time.perf_counter() - t0) * 1e6)
+        return outs
+
     # -- steady loop (ops/steady_loop.py) ----------------------------------
     def loop_supported(self) -> bool:
-        return self._bundle is not None
+        return (self._bundle is not None and self._mesh is None
+                and not self._replica_devices)
 
     def build_loop(self, window: int, depth: int = 1,
                    in_info: Optional[TensorsInfo] = None) -> bool:

@@ -1,8 +1,7 @@
 """custom-easy framework shim: ``tensor_filter framework=custom-easy
 model=<registered-name>`` resolves models registered via
 ``register_custom_easy`` (tensor_filter_custom_easy.h:62 parity;
-counterpart of the JAX package's ``filters/custom_easy.py`` without its
-replica-pool hooks)."""
+counterpart of the JAX package's ``filters/custom_easy.py``)."""
 
 from __future__ import annotations
 
@@ -45,6 +44,26 @@ class CustomEasyResolver(FilterFramework):
 
     def invoke(self, inputs):
         return self._inner.invoke(inputs)
+
+    # -- replica pool: delegate to the registered model's own declaration
+    # (replica_safe=True at register_custom_easy)
+    def replica_supported(self) -> bool:
+        return self._inner is not None and self._inner.replica_supported()
+
+    def build_replicas(self, n: int) -> bool:
+        if self._inner is None:
+            return n <= 1
+        return self._inner.build_replicas(n)
+
+    def replica_count(self) -> int:
+        return self._inner.replica_count() if self._inner else 0
+
+    def invoke_replica(self, replica: int, inputs):
+        return self._inner.invoke_replica(replica, inputs)
+
+    def replica_gate(self, replica: int):
+        return (self._inner.replica_gate(replica)
+                if self._inner is not None else self)
 
 
 registry.register(registry.FILTER, "custom-easy")(CustomEasyResolver)

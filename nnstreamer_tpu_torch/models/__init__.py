@@ -15,6 +15,7 @@ with numpy. :func:`load_py_model` loads an embedded-Python model file.
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Mapping, Optional
 
@@ -92,11 +93,21 @@ def read_state(path: str) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.array(z[k])) for k in z.files}
 
 
+#: the state a zoo build function takes instead of its own
+#: (see :func:`build_with_state`)
+_given = threading.local()
+
+
 def load_or_init(module: torch.nn.Module, custom: Dict[str, str],
                  init_fn: Callable[[torch.nn.Module, int], None]) -> None:
     """Shared builder plumbing: weights from a saved state dict
     (``custom=params:<path>``, see :func:`read_state`) or deterministic
-    numpy init from ``custom=seed:<n>``."""
+    numpy init from ``custom=seed:<n>`` — or, inside
+    :func:`build_with_state`, that call's state, assigned as it is."""
+    given = getattr(_given, "state", None)
+    if given is not None:
+        module.load_state_dict(given, assign=True)
+        return
     params_path = custom.get("params")
     if params_path:
         module.load_state_dict(read_state(params_path))
@@ -316,7 +327,10 @@ def load_py_model(path: str, custom: Dict[str, str],
         return res
     fn, params = res[0], res[1]
     module = ParamTree(params or {})
-    if custom.get("params"):
+    given = getattr(_given, "state", None)
+    if given is not None:
+        module.load_state_dict(given, assign=True)
+    elif custom.get("params"):
         module.load_state_dict(read_state(custom["params"]))
     module = module.to(torch.device(device))
 
@@ -327,6 +341,22 @@ def load_py_model(path: str, custom: Dict[str, str],
                        input_info=res[2] if len(res) > 2 else None,
                        output_info=res[3] if len(res) > 3 else None,
                        infer_output=_meta_infer(fn, module))
+
+
+def build_with_state(model: str, custom: Dict[str, str], device,
+                     state: Mapping[str, torch.Tensor]) -> ModelBundle:
+    """The bundle of ``model`` (a zoo name or a ``.py`` file) built on
+    ``device`` with ``state`` as its weights: the tensors are assigned to
+    the module, not copied, so a state already on ``device`` is used in
+    place (the mesh path's per-position copies and its per-invoke gathered
+    weights, filters/cuda_filter.py). No seed init runs."""
+    _given.state = state
+    try:
+        if str(model).endswith(".py"):
+            return load_py_model(model, custom, device)
+        return get_model(model, custom, device)
+    finally:
+        _given.state = None
 
 
 def get_model(name: str, custom: Optional[Dict[str, str]] = None,

@@ -191,9 +191,9 @@ def init_weights(model: nn.Module, seed: int) -> None:
     convs, BatchNorm scale/bias and running statistics that are not the
     identity, a small random classifier with zero-mean rows.
 
-    This does NOT reproduce the JAX package's ``seed:`` weights: those come
-    from flax's initializers and ``jax.random``, which this package cannot
-    run. To run both packages on the same weights, carry the flax variables
+    This does NOT reproduce the JAX package's ``seed:`` weights: flax's
+    initializers and ``jax.random`` make those, and this package cannot
+    run them. To run both packages on the same weights, carry the flax variables
     across with :func:`models.convert.from_jax_variables` and load them
     with ``custom=params:<file>.npz``."""
     rng = np.random.default_rng(seed)

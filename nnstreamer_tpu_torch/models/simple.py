@@ -11,7 +11,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from nnstreamer_tpu_torch.models import ModelBundle, register_model
+from nnstreamer_tpu_torch.models import ModelBundle, load_or_init, register_model
 from nnstreamer_tpu_torch.types import TensorInfo, TensorsInfo
 
 
@@ -58,9 +58,9 @@ def build_scaler(custom: Dict[str, str], device) -> ModelBundle:
 
 
 class _MatMul(torch.nn.Module):
-    def __init__(self, w: np.ndarray):
+    def __init__(self, n: int):
         super().__init__()
-        self.register_buffer("w", torch.from_numpy(w))
+        self.register_buffer("w", torch.zeros((n, n), dtype=torch.float32))
 
 
 @register_model("matmul")
@@ -70,8 +70,14 @@ def build_matmul(custom: Dict[str, str], device) -> ModelBundle:
     ``custom=seed:<s>`` (the JAX package draws it from PRNGKey(0), so the
     two packages' W differ)."""
     n = int(custom.get("dim", 512))
-    rng = np.random.default_rng(int(custom.get("seed", 0)))
-    module = _MatMul(rng.standard_normal((n, n)).astype(np.float32))
+
+    def init(m: _MatMul, seed: int) -> None:
+        rng = np.random.default_rng(seed)
+        m.w.copy_(torch.from_numpy(
+            rng.standard_normal((n, n)).astype(np.float32)))
+
+    module = _MatMul(n)
+    load_or_init(module, custom, init)
     module = module.to(device=device, dtype=torch.bfloat16)
 
     def apply_fn(x):

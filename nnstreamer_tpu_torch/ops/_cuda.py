@@ -96,6 +96,8 @@ build_seconds = 0.0
 
 
 _recording = threading.local()
+#: the replica pool's workers launch from several threads at once
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -107,7 +109,8 @@ def count_launch(name: str) -> None:
     """One launch of kernel ``name``: into :data:`LAUNCHES`, or into the
     count of the graph this thread is recording."""
     sink = getattr(_recording, "sink", None)
-    (LAUNCHES if sink is None else sink)[name] += 1
+    with _count_lock:
+        (LAUNCHES if sink is None else sink)[name] += 1
 
 
 @contextlib.contextmanager
@@ -226,6 +229,25 @@ def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} "
                            f"({torch.cuda.get_device_name()})")
+
+
+#: the named side streams, one per (device, name) a process
+_streams: dict = {}
+_streams_lock = threading.Lock()
+
+
+def side_stream(device: torch.device, name: str) -> "torch.cuda.Stream":
+    """The CUDA stream ``name`` on ``device``, made once a process and
+    reused after: the first GEMM on a stream makes cuBLAS allocate a
+    workspace for that stream (32 MiB on the H100) that lives as long as
+    the process, so a stream made anew for each window capture or each
+    mesh install would hold one more workspace each time."""
+    key = (str(device), name)
+    with _streams_lock:
+        s = _streams.get(key)
+        if s is None:
+            s = _streams[key] = torch.cuda.Stream(device)
+        return s
 
 
 def stream_handle(x: torch.Tensor) -> int:

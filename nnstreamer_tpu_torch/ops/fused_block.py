@@ -34,8 +34,10 @@ BN-folded forward (MobileNet-v2, SSD, DeepLab, PoseNet).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -434,6 +436,24 @@ class _Weights(NamedTuple):
 #: used only while the dict still holds the very tensors it was made from
 _WEIGHTS: Dict[tuple, _Weights] = {}
 _WEIGHTS_MAX = 256
+#: the replica pool's workers prepare weights from several threads
+_WEIGHTS_LOCK = threading.Lock()
+#: set on a thread inside :func:`transient_weights`
+_TRANSIENT = threading.local()
+
+
+@contextlib.contextmanager
+def transient_weights():
+    """Inside it, this thread's calls prepare their weights anew and keep
+    nothing in the cache: for folded dicts that live one invoke (the tp
+    mesh path's gathered weights, filters/cuda_filter.py), which the cache
+    would otherwise hold alive after their forward returned."""
+    prev = getattr(_TRANSIENT, "on", False)
+    _TRANSIENT.on = True
+    try:
+        yield
+    finally:
+        _TRANSIENT.on = prev
 
 
 def _weights(folded: Dict[str, Any], cd: torch.dtype, device) -> _Weights:
@@ -455,9 +475,12 @@ def _weights(folded: Dict[str, Any], cd: torch.dtype, device) -> _Weights:
     ptrs = tuple(fw[k].data_ptr() if k in fw else 0
                  for k in ("w1", "b1", "wd", "bd", "w2", "b2"))
     w = _Weights(tuple(folded.items()), fw, ptrs, Cin, Ch, Cout, {})
-    if len(_WEIGHTS) >= _WEIGHTS_MAX:
-        _WEIGHTS.pop(next(iter(_WEIGHTS)))
-    _WEIGHTS[key] = w
+    if getattr(_TRANSIENT, "on", False):
+        return w
+    with _WEIGHTS_LOCK:
+        if len(_WEIGHTS) >= _WEIGHTS_MAX:
+            _WEIGHTS.pop(next(iter(_WEIGHTS)))
+        _WEIGHTS[key] = w
     return w
 
 

@@ -154,7 +154,7 @@ class CudaGraphWindow:
         self.graph = None
         self.outs = []
         stream = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        side = _cuda.side_stream(self.device, "loop-warmup")
         side.wait_stream(stream)
         t0 = time.perf_counter()
         with torch.cuda.stream(side), torch.inference_mode():

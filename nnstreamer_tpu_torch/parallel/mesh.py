@@ -16,22 +16,47 @@ mesh, and ``make_mesh(sp=4, devices=[torch.device("cuda", 0)] * 4)`` runs a
 real four-shard ring on one card, where moving a shard between two places
 on the same device is passing the tensor along.
 
-The default devices are every visible CUDA device; with no card the caller
-must pass ``devices=``. The grammar functions (:func:`resolve_shard_axes`,
+The device list is :func:`visible_devices`, the one place that decides
+it: ``NNSTPU_TORCH_DEVICES`` when set (``cuda:0*8``, ``cpu*8``,
+``cuda:0,cuda:1``: comma-separated devices, each optionally repeated
+``*N`` times; the counterpart of ``--xla_force_host_platform_device_count``),
+else every CUDA device, else the single-device view ``[cpu]``. It is read
+on every call, never cached. A mesh built with no ``devices=`` takes that
+list, but refuses the single-device CPU view: with no card and nothing
+set, pass ``devices=``. The grammar functions (:func:`resolve_shard_axes`,
 :func:`mesh_from_spec`, :func:`mesh_from_axes`) resolve exactly as the
-reference's do; the placement functions of its dp/tp filter path
-(``shard_batch``, ``shard_params_for_tp``, ``param_shardings``,
-``tp_leaf_sharded``) are not ported yet.
+reference's do.
+
+Placement (the dp/tp filter path, ``filters/cuda_filter.py``): a batch
+splits its leading rows over the dp axis (:func:`shard_batch`); a param
+leaf splits its output-channel dim over the tp axis where
+:func:`tp_leaf_sharded` says so and is replicated otherwise
+(:func:`shard_params_for_tp`). A placed leaf is a :class:`PlacedLeaf`:
+one torch tensor per mesh position, not a ``DTensor`` (that needs process
+groups, which one process over repeated devices does not have). The
+output-channel dim of a torch leaf is the first of a convolution's or a
+linear layer's weight (the second of a transposed convolution's) and the
+last of any other tensor, which is where the reference's flax layouts
+(HWIO kernels, (in, out) dense weights, ``x @ w``) keep it; so the same
+leaves split in both packages and the per-shard byte bills agree.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+import os
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from nnstreamer_tpu_torch.buffer import as_torch
+
 AXES = ("dp", "tp", "sp")
+
+#: the device list every mesh, analyzer and memory plan of this package
+#: reads (see the module docstring)
+DEVICES_ENV = "NNSTPU_TORCH_DEVICES"
 
 
 class Mesh:
@@ -67,18 +92,60 @@ def _device_array(devs: Sequence[torch.device], shape: Tuple[int, ...]):
     return arr.reshape(shape)
 
 
+def parse_devices(spec: str) -> List[torch.device]:
+    """``cuda:0*8`` / ``cpu*8`` / ``cuda:0,cuda:1`` → the device list."""
+    out: List[torch.device] = []
+    for item in str(spec).split(","):
+        item = item.strip()
+        if not item:
+            continue
+        name, _, count = item.partition("*")
+        try:
+            n = int(count) if count.strip() else 1
+            dev = torch.device(name.strip())
+        except (ValueError, RuntimeError) as e:
+            raise ValueError(f"{DEVICES_ENV}={spec!r}: bad item {item!r} "
+                             f"(want e.g. cuda:0*8, cpu*8 or cuda:0,cuda:1)"
+                             ) from e
+        if n < 1:
+            raise ValueError(f"{DEVICES_ENV}={spec!r}: count {n} < 1")
+        out.extend([dev] * n)
+    if not out:
+        raise ValueError(f"{DEVICES_ENV}={spec!r} names no device")
+    return out
+
+
+def _cuda_count() -> int:
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
 def visible_devices() -> List[torch.device]:
-    """Every visible CUDA device; raises when there is none (pass
-    ``devices=`` to build a mesh on the CPU)."""
-    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if n == 0:
-        raise RuntimeError("no CUDA device visible: pass devices= (e.g. "
-                           "[torch.device('cpu')] * n) for a mesh on the CPU")
-    return [torch.device("cuda", i) for i in range(n)]
+    """The device list (see the module docstring): ``NNSTPU_TORCH_DEVICES``
+    when set, else every CUDA device, else ``[cpu]``. Read anew on every
+    call."""
+    spec = os.environ.get(DEVICES_ENV, "").strip()
+    if spec:
+        return parse_devices(spec)
+    n = _cuda_count()
+    if n:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cpu")]
+
+
+def visible_device_count() -> int:
+    """``len(visible_devices())``: the count the shard and pool analyzers
+    resolve a mesh or a replica count against."""
+    return len(visible_devices())
 
 
 def _devices(devices: Optional[Sequence]) -> List[torch.device]:
-    return list(devices) if devices is not None else visible_devices()
+    if devices is not None:
+        return list(devices)
+    if not os.environ.get(DEVICES_ENV, "").strip() and _cuda_count() == 0:
+        raise RuntimeError("no CUDA device visible: pass devices= (e.g. "
+                           "[torch.device('cpu')] * n) or set "
+                           f"{DEVICES_ENV} for a mesh on the CPU")
+    return visible_devices()
 
 
 def make_mesh(
@@ -201,3 +268,151 @@ def mesh_from_axes(dp: int, tp: int, devices: Optional[Sequence] = None) -> Mesh
         raise ValueError(f"mesh {dp}x{tp} needs {dp * tp} devices, have "
                          f"{len(devs)}")
     return Mesh(_device_array(devs, (dp, tp, 1)))
+
+
+# --------------------------------------------------------------------------
+# placement (the dp/tp filter path)
+# --------------------------------------------------------------------------
+
+def mesh_positions(mesh: Mesh) -> List[Tuple[int, int]]:
+    """The (dp, tp) positions of a (dp, tp, sp=1) mesh, row-major."""
+    dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+    return [(i, j) for i in range(dp) for j in range(tp)]
+
+
+def position_device(mesh: Mesh, pos: Tuple[int, int]) -> torch.device:
+    return mesh.devices[pos[0], pos[1], 0]
+
+
+def row_device(mesh: Mesh, row: int) -> torch.device:
+    """The device a dp row computes on: its first tp position (the
+    activations replicate over tp, so one position computes them)."""
+    return mesh.devices[row, 0, 0]
+
+
+def shard_batch(mesh: Mesh, batch: Any) -> Any:
+    """Place a batch onto the mesh, sharded over dp (leading axis): each
+    tensor (or array) of ``batch`` — one, or a list or tuple of them —
+    becomes a list of ``dp`` tensors, row group ``i`` on dp row ``i``'s
+    device, copied non-blocking. The leading dim must divide by dp."""
+    dp = mesh.shape["dp"]
+
+    def place(x):
+        t = as_torch(x)
+        n = int(t.shape[0]) if t.dim() else 0
+        if n % dp:
+            raise ValueError(f"batch leading dim {n} does not divide the dp "
+                             f"axis ({dp})")
+        g = n // dp
+        return [t[i * g:(i + 1) * g].to(row_device(mesh, i),
+                                        non_blocking=True)
+                for i in range(dp)]
+
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(place(x) for x in batch)
+    return place(batch)
+
+
+def channel_dims(params: Any) -> Dict[str, int]:
+    """State-dict key → output-channel dim of each leaf of ``params`` (a
+    module, or a dict of tensors, whose channel dim is the last): 0 for a
+    convolution's or a linear layer's weight, 1 for a transposed
+    convolution's, -1 for every other leaf."""
+    if not isinstance(params, torch.nn.Module):
+        return {k: -1 for k in param_leaves(params)}
+    out = {k: -1 for k in params.state_dict()}
+    for name, m in params.named_modules():
+        w = f"{name}.weight" if name else "weight"
+        if w not in out:
+            continue
+        if isinstance(m, torch.nn.modules.conv._ConvTransposeNd):
+            out[w] = 1
+        elif isinstance(m, (torch.nn.modules.conv._ConvNd, torch.nn.Linear)):
+            out[w] = 0
+    return out
+
+
+def param_leaves(params: Any) -> Dict[str, torch.Tensor]:
+    """State-dict key → tensor of a module, or of a flat dict of tensors."""
+    if isinstance(params, torch.nn.Module):
+        return dict(params.state_dict())
+    return {str(k): v for k, v in dict(params).items()}
+
+
+def tp_leaf_sharded(leaf, tp: int, dim: int = -1) -> bool:
+    """THE tp placement rule, as a predicate: does a tp axis of width
+    ``tp`` SPLIT this param leaf along its output-channel dim ``dim`` (vs
+    replicate it)? The single source the runtime placement
+    (:func:`shard_params_for_tp`, :func:`param_shardings`) and the static
+    per-shard byte bill (``analysis/shard.py``) both read."""
+    return (tp > 1 and hasattr(leaf, "ndim") and leaf.ndim >= 2
+            and leaf.shape[dim] >= 2 and leaf.shape[dim] % tp == 0)
+
+
+def _param_spec(path: str, leaf, dim: int = -1) -> Tuple[Optional[str], ...]:
+    """TP sharding spec of one leaf, as a PartitionSpec-like tuple: the
+    output-channel dim ``dim`` of a weight matrix or kernel wide enough
+    to split says ``'tp'``, every other dim None; a leaf that stays whole
+    is ``()``. Callers gate it with :func:`tp_leaf_sharded`."""
+    if hasattr(leaf, "ndim") and leaf.ndim >= 2 and leaf.shape[dim] >= 2:
+        spec: List[Optional[str]] = [None] * leaf.ndim
+        spec[dim % leaf.ndim] = "tp"
+        return tuple(spec)
+    return ()
+
+
+@dataclass
+class PlacedLeaf:
+    """One param leaf over a (dp, tp) mesh: ``shards[i][j]`` is the
+    tensor mesh position (i, j) holds — the whole leaf when ``dim`` is
+    None (replicated), else its j-th slice along ``dim``."""
+
+    shards: List[List[torch.Tensor]]
+    dim: Optional[int]
+
+    def gather(self, row: int, device: torch.device) -> torch.Tensor:
+        """The whole leaf on ``device``, from dp row ``row``'s positions:
+        their slices concatenated along ``dim`` (a fresh tensor the
+        caller owns), or the replicated tensor itself."""
+        parts = self.shards[row]
+        if self.dim is None:
+            return parts[0].to(device, non_blocking=True)
+        return torch.cat([p.to(device, non_blocking=True) for p in parts],
+                         dim=self.dim)
+
+    def nbytes_at(self, pos: Tuple[int, int]) -> int:
+        t = self.shards[pos[0]][pos[1]]
+        return t.numel() * t.element_size()
+
+
+def shard_params_for_tp(mesh: Mesh, params: Any) -> Dict[str, PlacedLeaf]:
+    """Place a params tree (a module's state, or a dict of tensors) over
+    the mesh with channel-dim tp sharding: a leaf the rule splits is cut
+    into tp slices, slice j on every position (i, j); any other leaf is
+    copied whole to every position. Replicated over dp either way."""
+    dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+    dims = channel_dims(params)
+    out: Dict[str, PlacedLeaf] = {}
+    for key, leaf in param_leaves(params).items():
+        leaf = leaf.detach()
+        dim = dims.get(key, -1)
+        split = tp_leaf_sharded(leaf, tp, dim)
+        d = dim % leaf.ndim if split else None
+        parts = (list(torch.chunk(leaf, tp, dim=d)) if split
+                 else [leaf] * tp)
+        out[key] = PlacedLeaf(
+            shards=[[parts[j].to(position_device(mesh, (i, j)),
+                                 copy=True).contiguous()
+                     for j in range(tp)] for i in range(dp)],
+            dim=d)
+    return out
+
+
+def param_shardings(mesh: Mesh, params: Any) -> Dict[str, Tuple]:
+    """The spec tree matching :func:`shard_params_for_tp`'s placement:
+    state-dict key → the leaf's spec tuple (``()`` when replicated)."""
+    tp = mesh.shape["tp"]
+    dims = channel_dims(params)
+    return {key: (_param_spec(key, leaf, dims.get(key, -1))
+                  if tp_leaf_sharded(leaf, tp, dims.get(key, -1)) else ())
+            for key, leaf in param_leaves(params).items()}

@@ -57,9 +57,15 @@ declining backend fall back LOUDLY to per-buffer launches. It runs before
 residency because a looped filter drains its windows to the host, which
 moves the materialization boundary.
 
-The JAX package's mesh-sharding and replica-pool passes are not ported:
-their properties raise at construction (elements/filter.py
-``NOT_PORTED``).
+Before the loop, the **mesh** and **pool** planners: every filter the
+shard analyzer (analysis/shard.py) verdicts NNST470 gets its mesh
+installed (``install_shard``); every serving source the pool analyzer
+(analysis/pool.py) verdicts NNST960 gets its served filter's replicas and
+its scheduler's least-loaded dispatch (``install_replicas``,
+``install_pool``), and a serving source whose served filter engaged
+``shard=dp`` places each serve-batch straight into the filter's shards
+(``install_placement``). Every other verdict, and a declining backend,
+falls back LOUDLY to unsharded / single-replica execution.
 """
 
 from __future__ import annotations
@@ -96,9 +102,15 @@ def plan_pipeline(pipeline) -> None:
         if isinstance(e, (TensorFilter, TensorTransform)):
             e._fused_into = None
     _plan_chain_fusion(pipeline)
-    # the JAX package's shard and pool passes run here (ROADMAP.md
-    # queue 1)
     _plan_fusion(pipeline)
+    # mesh partitioning plans after the fusion passes (a chain-claimed
+    # filter can't shard; the analyzer's cheap gates encode that) and
+    # before the loop (shard and loop-window are mutually exclusive)
+    _plan_sharding(pipeline)
+    # the replica pool plans after sharding (the pool analyzer's gates
+    # read the shard decision) and wires the sharded serve-batch
+    # placement for serving sources whose served filter engaged shard=dp
+    _plan_pool(pipeline)
     _plan_steady_loop(pipeline)
     _plan_residency(pipeline)
 
@@ -393,6 +405,160 @@ def _plan_fusion(pipeline) -> None:
                 tracer.record_fusion(t.name, f.name)
         log.info("[%s] fused %d pre + %d post transform stage(s) into the "
                  "backend", f.name, len(pre), len(post))
+
+
+# --- mesh-partition planning (analysis/shard.py is the oracle) --------------
+
+def _plan_sharding(pipeline) -> None:
+    """Install the mesh placement on every filter the shard analyzer
+    verdicts NNST470; everything else falls back LOUDLY to unsharded
+    execution — numerically identical, so an ineligible or declined shard
+    is a warning, never an error. NNST472 (reshard hazard) is advisory:
+    the edge still flows, the downstream filter pays the re-split."""
+    from nnstreamer_tpu_torch.analysis.shard import analyze_shards
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
+
+    filters = [e for e in pipeline.elements.values()
+               if isinstance(e, TensorFilter)]
+    if not filters:
+        return
+    # neutralize this epoch's state (the analyzer's resolution must read
+    # THIS graph, not last epoch's decisions); an UNCHANGED plan
+    # restores it without rebuilding the compiled program
+    from nnstreamer_tpu_torch.analysis.loop import requested_window
+
+    prior = {}
+    for f in filters:
+        prior[id(f)] = f._shard_state
+        f._shard_state = None
+        f.__dict__.pop("_nnshard_cache", None)
+        # a PRIOR epoch's installed window whose property flipped off
+        # must not veto this epoch's shard decision: the loop planner's
+        # own teardown runs AFTER this pass, but shard_supported() reads
+        # the backend's installed window — tear the stale program down
+        # here (when the window IS still requested, the analyzer's
+        # loop-interaction gate blocks the shard instead)
+        if (f.fw is not None and getattr(f.fw, "_loop_window", 0) > 0
+                and requested_window(f) == 1):
+            f.clear_loop()
+    planned = set()
+    for v in analyze_shards(pipeline):
+        e = pipeline.elements.get(v.element)
+        if e is None or v.code == "NNST472":
+            continue  # hazards are advisory, not install decisions
+        e._shard_refused = None
+        if v.code == "NNST470":
+            pv = prior.get(id(e))
+            if (pv == v.config and e.fw is not None
+                    and getattr(e.fw, "_shard_installed", False)):
+                e._shard_state = pv  # unchanged plan: program still valid
+                planned.add(id(e))
+                continue
+            if e.install_shard(v.config):
+                planned.add(id(e))
+                log.info("[%s] mesh placement installed: shard=%s over a "
+                         "%dx%d mesh (rows land on their shard at upload)",
+                         e.name, v.config["mode"], v.config["dp"],
+                         v.config["tp"])
+                continue
+            e._shard_refused = ("NNST470",
+                                "backend declined the mesh placement")
+            log.warning("[%s] shard=: backend declined the mesh "
+                        "placement — unsharded execution", e.name)
+        else:
+            e._shard_refused = (v.code, v.message)
+            log.warning("[%s] shard= falls back to unsharded execution "
+                        "(%s): %s", e.name, v.code, v.message)
+    # filters whose mesh dissolved (edited graph, prop flipped, a
+    # fallback verdict this plan): tear the stale placement down
+    for f in filters:
+        if id(f) not in planned and (prior.get(id(f)) is not None
+                                     or f._shard_state is not None):
+            f.clear_shard()
+    # marks the shard decision as MADE for this epoch: the crossing
+    # predictor and the memory plan read installed state (ground truth)
+    # instead of re-deriving a resolution an open backend may have
+    # declined
+    pipeline._shard_planned = True
+
+
+# --- replica-pool planning (analysis/pool.py is the oracle) ----------------
+
+def _plan_pool(pipeline) -> None:
+    """Install the NNST960-licensed replica pool on every serving
+    source the pool analyzer licenses, and wire sharded serve-batch
+    placement wherever the served filter engaged ``shard=dp``;
+    everything else falls back LOUDLY to single-replica / host-stacked
+    serving — numerically identical, so an ineligible or declined pool
+    is a warning, never an error."""
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
+    from nnstreamer_tpu_torch.elements.query import TensorQueryServerSrc
+
+    srcs = [e for e in pipeline.elements.values()
+            if isinstance(e, TensorQueryServerSrc)]
+    if not srcs:
+        pipeline._pool_planned = True
+        return
+    from nnstreamer_tpu_torch.analysis.pool import analyze_pool
+
+    # neutralize this epoch's state (the analyzer's resolution must
+    # read THIS graph, not last epoch's decisions)
+    for e in srcs:
+        e._pool_refused = None
+        e.clear_pool()
+    pipeline.__dict__.pop("_nnpool_cache", None)
+    engaged_filters = set()
+    for v in analyze_pool(pipeline):
+        e = pipeline.elements.get(v.element)
+        if e is None:
+            continue
+        if v.code != "NNST960":
+            e._pool_refused = (v.code, v.message)
+            log.warning("[%s] replicas= falls back to single-replica "
+                        "serving (%s): %s", e.name, v.code, v.message)
+            continue
+        filt = pipeline.elements.get(v.filter or "")
+        if filt is None:
+            continue
+        if filt.install_replicas(v.replicas):
+            e.install_pool(v.replicas)
+            engaged_filters.add(id(filt))
+            log.info("[%s] replica pool installed: %d per-device "
+                     "replicas of %r, least-loaded dispatch", e.name,
+                     v.replicas, filt.name)
+        else:
+            e._pool_refused = ("NNST960",
+                               "backend declined the replica pool")
+            log.warning("[%s] replicas=: backend declined the replica "
+                        "pool — single-replica serving", e.name)
+    # filters whose pool dissolved (edited graph, prop flipped, a
+    # fallback verdict this plan): tear the stale programs down
+    for f in pipeline.elements.values():
+        if isinstance(f, TensorFilter) and id(f) not in engaged_filters \
+                and f._replica_state is not None:
+            f.clear_replicas()
+    # sharded-placement wiring: a serving source whose served filter
+    # engaged shard=dp gets its serve-batches placed straight into the
+    # sharded layout (licensed by the filter's own NNST470 verdict —
+    # the resolver re-reads live state per batch)
+    from nnstreamer_tpu_torch.analysis.pool import served_filter
+
+    for e in srcs:
+        filt = (served_filter(e)
+                if e.properties.get("serve") else None)
+        state = getattr(filt, "_shard_state", None) if filt else None
+        if state and state.get("mode") == "dp" \
+                and int(state.get("dp", 1)) > 1:
+            e.install_placement(filt)
+            log.info("[%s] sharded serve-batch placement engaged: rows "
+                     "land on %r's %dx%d mesh at H2D time", e.name,
+                     filt.name, state["dp"], state["tp"])
+        else:
+            e.clear_placement()
+    # marks the pool decision as MADE for this epoch: the memplan
+    # billing reads installed state (ground truth) instead of
+    # re-deriving a resolution an open backend may have declined
+    pipeline._pool_planned = True
 
 
 # --- steady-loop planning (analysis/loop.py is the oracle) -----------------

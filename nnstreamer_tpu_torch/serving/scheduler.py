@@ -17,14 +17,17 @@ one input signature; padded rows carry no route and are dropped at the
 serversink demux.
 
 A copy of the JAX package's scheduler. The batch is stacked on the host
-(numpy) and the filter uploads it. Parts of the JAX scheduler wait for
-modules this package does not have yet: the replica pool's
-least-loaded dispatch and sharded serve-batch placement (both for a
-``replicas=N`` / ``shard=dp`` filter), the AOT warm-up of a pended
-serve-batch, and the rollout canary's wait tap. One change: each
-ingest drains only the requests queued when it began (the JAX scheduler
-drains until the queue is empty, which under overload holds every batch
-back until arrivals stop).
+(numpy) and the filter uploads it, except where the served filter engaged
+``shard=dp`` (sharded placement, :meth:`configure_pool`): then each
+shard's row group is stacked and put on its mesh row, one put per shard.
+With a replica pool (``replicas=N``) each batch is stamped with the
+least-loaded replica (fewest un-acked batches, round robin among ties),
+whose worker in the filter runs it. Parts of the JAX scheduler wait for
+modules this package does not have yet: the AOT warm-up of a pended
+serve-batch and the rollout canary's wait tap. One change: each ingest
+drains only the requests queued when it began (the JAX scheduler drains
+until the queue is empty, which under overload holds every batch back
+until arrivals stop).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from nnstreamer_tpu_torch.analysis import lockwitness
-from nnstreamer_tpu_torch.buffer import Buffer
+from nnstreamer_tpu_torch.buffer import Buffer, ShardedBatch
 from nnstreamer_tpu_torch.edge import protocol as proto
 from nnstreamer_tpu_torch.edge import tracex
 from nnstreamer_tpu_torch.log import get_logger
@@ -60,6 +63,14 @@ SHED_CTL_PREDICTED = "ctl_predicted_miss"
 META_ROUTES = "serve_routes"
 META_FILL = "serve_fill"
 META_BATCH = "serve_batch"
+#: replica-pool meta (nnpool): the least-loaded replica this batch was
+#: dispatched to, and the server id the filter's worker error path uses
+#: to reach this scheduler (shed-on-replica-failure)
+META_REPLICA = "serve_replica"
+META_SERVER = "serve_server"
+#: shed reason for batches whose replica invoke failed (the filter's
+#: worker sheds the batch's clients instead of letting them time out)
+SHED_REPLICA_ERROR = "replica-error"
 #: shed reason for a hedged resend whose original was already admitted
 #: here (nnfleet-r): the request id (`_rid`) was seen before, so this
 #: copy is acknowledged-but-not-invoked — the idempotence guarantee that
@@ -165,6 +176,21 @@ class ServingScheduler:
         self._inflight_t: List[float] = []
         self.inflight_expire_s = 10.0
         self._sink_feedback = False  # becomes True at the first sink ack
+        # nnpool replica pool (planner-installed, NNST960-licensed):
+        # per-replica in-flight windows (assemble stamps) drive the
+        # least-loaded dispatch — the sink ack (note_reply_batch with the
+        # batch's replica) drains them; a batch that never reaches the
+        # sink EXPIRES like the global window, so a hung replica reads as
+        # loaded (the pool routes around it) but never wedges forever
+        self._replicas = 1
+        self._replica_inflight: List[List[float]] = []
+        self._replica_rr = 0  # round-robin tiebreak among least-loaded
+        # nnpool sharded-placement mode: a callable resolving the served
+        # filter's ENGAGED dp layout ({"mesh", "dp", "element"}) or None —
+        # re-read per batch so a mid-stream fallback degrades to the host
+        # stack, never errors
+        self._placement_fn = None
+        self._placement_warned = False
         # predictive-shed gate (nnctl): None = off; else the plant-priced
         # admission bound {slo_ms, cycle_ms} the controller recalibrates
         self._ctl_gate: Optional[Dict[str, float]] = None
@@ -408,13 +434,28 @@ class ServingScheduler:
         pad = target - valid
         now = time.perf_counter()
         n_tensors = len(rows[0].tensors)
+        placement = self._resolve_placement(target)
         stacked = []
+        placed_bytes = 0
         for j in range(n_tensors):
             parts = [r.tensors[j] for r in rows]
             parts.extend([rows[-1].tensors[j]] * pad)
-            # host stack: the filter uploads the batch (through its
-            # feed-depth staging when that is set)
-            stacked.append(np.stack(parts, axis=0))
+            if placement is not None:
+                arr, nb = self._place_sharded(parts, placement)
+                stacked.append(arr)
+                placed_bytes += nb
+            else:
+                # host stack: the filter uploads the batch (through its
+                # feed-depth staging when that is set)
+                stacked.append(np.stack(parts, axis=0))
+        if placement is not None and placed_bytes and \
+                self.element is not None:
+            # the batch crossed HERE, straight into the shards (one put
+            # per shard): bill the h2d on the serversrc with its
+            # per-device split; the filter sees its own layout and bills
+            # nothing
+            self.element._record_crossing(
+                "h2d", nbytes=placed_bytes, devices=placement["dp"])
         now_ns = time.perf_counter_ns()
         routes = []
         for r in rows:
@@ -459,10 +500,120 @@ class ServingScheduler:
                     spans.emit("serve-wait", "serving", r.t_arrival, now,
                                track=f"serving:{self.stats_key}",
                                aid=r.seq, args=args)
+        meta = {META_ROUTES: routes, META_FILL: valid,
+                META_BATCH: target, META_SERVER: self.stats_key}
+        replica = self._pick_replica(now)
+        if replica is not None:
+            meta[META_REPLICA] = replica
+            spans = tracer.spans if tracer is not None else None
+            if spans is not None:
+                # per-replica serving track: the dispatch decision next
+                # to the replica's device lane in Perfetto
+                spans.emit("serve-dispatch", "serving", now,
+                           time.perf_counter(),
+                           track=f"serving:{self.stats_key}:r{replica}",
+                           args={"replica": replica, "fill": valid,
+                                 "batch": target})
         return Buffer(
             tensors=stacked, pts=rows[0].pts, duration=rows[0].duration,
-            meta={META_ROUTES: routes, META_FILL: valid,
-                  META_BATCH: target})
+            meta=meta)
+
+    # -- nnpool: replica pool + sharded placement --------------------------
+    def configure_pool(self, replicas: Optional[int] = None,
+                       placement_fn=None) -> None:
+        """Install (or clear) the planner's nnpool decisions: the
+        NNST960-licensed replica count and/or the sharded-placement
+        resolver for an NNST470-engaged ``shard=dp`` served filter."""
+        with self._lock:
+            if replicas is not None:
+                n = max(1, int(replicas))
+                self._replicas = n
+                self._replica_inflight = ([[] for _ in range(n)]
+                                          if n > 1 else [])
+                self._replica_rr = 0
+            if placement_fn is not None or replicas is None:
+                self._placement_fn = placement_fn
+                self._placement_warned = False
+
+    def _pick_replica(self, now: float) -> Optional[int]:
+        """Least-loaded-first dispatch: the replica with the fewest
+        unacked in-flight batches takes the next one (round robin among
+        ties). A hung replica's window stays outstanding until the expiry
+        sweep, so the pool routes around it."""
+        with self._lock:
+            n = self._replicas
+            if n <= 1 or not self._replica_inflight:
+                return None
+            self._expire_inflight_locked(now)
+            r = min(range(n),
+                    key=lambda i: (len(self._replica_inflight[i]),
+                                   (i - self._replica_rr) % n))
+            self._replica_rr = (r + 1) % n
+            self._replica_inflight[r].append(now)
+        tracer = self._tracer()
+        if tracer is not None:
+            tracer.record_serving_replica(self.stats_key, r)
+        return r
+
+    def shed_batch(self, routes, reason: str) -> None:
+        """Shed every client of one assembled batch (the filter's replica
+        worker calls this when a replica invoke fails): each route's
+        client gets SERVER_BUSY with the reason NOW instead of timing
+        out."""
+        for route in routes or ():
+            meta = dict(route.get("meta") or {})
+            self._shed(int(route["client_id"]),
+                       str(route.get("tenant", "_default")), meta,
+                       reason, ctx=route.get("trace"))
+
+    def _resolve_placement(self, target: int):
+        """The engaged sharded-placement layout for THIS batch, or None
+        (host stack). Re-resolved per batch: a mid-stream fallback on the
+        served filter degrades to the host path, never errors."""
+        fn = self._placement_fn
+        if fn is None:
+            return None
+        try:
+            placement = fn()
+        except Exception:  # noqa: BLE001 — resolver raced a teardown
+            placement = None
+        if placement is None:
+            return None
+        dp = int(placement.get("dp", 1))
+        if dp <= 1 or target % dp:
+            return None  # indivisible batch: host stack, filter re-splits
+        return placement
+
+    def _place_sharded(self, parts: List, placement) -> tuple:
+        """Place one input tensor's rows straight into the served filter's
+        dp layout: each shard's row GROUP stacks on the host and is put on
+        its mesh row's device, one put per shard — no host stack of the
+        whole batch. Returns (per-row tensors, bytes moved); the filter
+        takes the list of row tensors as its own layout. Falls back to the
+        host stack on any placement failure (warned once)."""
+        import torch
+
+        from nnstreamer_tpu_torch.parallel.mesh import row_device
+
+        mesh, dp = placement["mesh"], int(placement["dp"])
+        g = len(parts) // dp
+        try:
+            rows, nbytes = [], 0
+            for i in range(dp):
+                block = np.stack(parts[i * g:(i + 1) * g], axis=0)
+                nbytes += block.nbytes
+                t = torch.from_numpy(block)
+                dev = row_device(mesh, i)
+                rows.append(t.pin_memory().to(dev, non_blocking=True)
+                            if dev.type == "cuda" else t.to(dev))
+            return ShardedBatch(rows), nbytes
+        except Exception as e:  # noqa: BLE001 — degrade, don't drop
+            if not self._placement_warned:
+                self._placement_warned = True
+                log.warning("sharded serve-batch placement failed (%s); "
+                            "falling back to the host stack",
+                            str(e).splitlines()[0][:120])
+            return np.stack(parts, axis=0), 0
 
     # -- nnctl hot knobs + measurement window ------------------------------
     def _expire_inflight_locked(self, now: float) -> None:
@@ -473,6 +624,9 @@ class ServingScheduler:
         cutoff = now - self.inflight_expire_s
         while self._inflight_t and self._inflight_t[0] < cutoff:
             self._inflight_t.pop(0)
+        for lst in self._replica_inflight:
+            while lst and lst[0] < cutoff:
+                lst.pop(0)
 
     def _maybe_apply_pending_locked(self) -> None:
         """Apply a pended serve-batch once the in-flight window drained.
@@ -559,15 +713,23 @@ class ServingScheduler:
                 self._ctl_gate = {"slo_ms": float(slo_ms),
                                   "cycle_ms": float(cycle_ms)}
 
-    def note_reply_batch(self, invoke_win: Optional[Dict] = None) -> None:
+    def note_reply_batch(self, invoke_win: Optional[Dict] = None,
+                         replica: Optional[int] = None) -> None:
         """Serversink ack: one emitted batch fully demuxed.  Drives (a)
         the in-flight drain count gating pended serve-batch changes,
-        and (b) the per-launch device window measurement
-        (``serve_invoke`` stamps) the controller's LiveFeed consumes."""
+        (b) the per-launch device window measurement (``serve_invoke``
+        stamps) the controller's LiveFeed consumes, and (c) the
+        per-replica in-flight window the least-loaded dispatch reads
+        (``replica`` = the batch's ``serve_replica`` stamp)."""
         with self._lock:
             self._sink_feedback = True
             if self._inflight_t:
                 self._inflight_t.pop(0)
+            if replica is not None and 0 <= int(replica) < len(
+                    self._replica_inflight):
+                lst = self._replica_inflight[int(replica)]
+                if lst:
+                    lst.pop(0)
             if invoke_win:
                 t0 = invoke_win.get("t0_ns")
                 t1 = invoke_win.get("t1_ns")
@@ -639,7 +801,16 @@ class ServingScheduler:
             win["last_shed"] = shed_now
             tenant_rates = {t: self.admission.tenant_rate(t)
                             for t in sorted(tenants)}
-            return {
+            pool = {}
+            if self._replicas > 1:
+                # nnpool view for the controller: the plant model divides
+                # the device leg by the ACTIVE replica count
+                pool = {
+                    "replicas": self._replicas,
+                    "replica_inflight": [len(lst) for lst in
+                                         self._replica_inflight],
+                }
+            return dict(pool, **{
                 "waits_ms": waits,
                 "device_ms": devs,
                 "assemble_t": asm,
@@ -653,7 +824,7 @@ class ServingScheduler:
                 "serve_batch_pending": self._batch_pending,
                 "linger_ms": round(self.linger_s * 1e3, 3),
                 "queue_depth": self.admission.queue_depth,
-            }
+            })
 
     # -- drain -------------------------------------------------------------
     def shutdown(self) -> int:

@@ -4,7 +4,8 @@
 A pipeline is checked before PLAYING by ``nnstreamer_tpu_torch.analysis``'s
 pass pipeline: graph structure, property schemas, static caps dry-run
 negotiation, residency/crossing prediction, fusion safety, whole-chain
-composition, steady-loop eligibility and queue/mux deadlock detection —
+composition, steady-loop eligibility, mesh and replica-pool eligibility,
+serving thread topology and queue/mux deadlock detection —
 every finding a stable ``NNSTxxx`` code with element attribution and (for
 launch-line pipelines) a source span.
 

@@ -378,6 +378,9 @@ class Tracer:
                 "tenants": defaultdict(lambda: {
                     "enqueued": 0, "shed": 0, "replies": 0,
                     "t_first": None, "t_last": None}),
+                # nnpool per-replica dispatch counters — empty (and absent
+                # from reports) on replicas=off servers
+                "replicas": defaultdict(int),
             }
         return s
 
@@ -536,6 +539,12 @@ class Tracer:
                 t["t_first"] = now
             t["t_last"] = now
 
+    def record_serving_replica(self, server: str, replica: int) -> None:
+        """One serve-batch dispatched to replica ``replica`` (the nnpool
+        least-loaded decision) — the per-replica load split."""
+        with self._lock:
+            self._serving_entry(server)["replicas"][int(replica)] += 1
+
     def record_serving_reply_drop(self, server: str) -> None:
         """A reply could not be delivered (client gone) — the serversink
         drop counter the fault record mirrors."""
@@ -635,6 +644,11 @@ class Tracer:
                     "time_in_queue": s["wait"].stats(),
                     "per_tenant": tenants,
                 }
+                if s["replicas"]:
+                    # nnpool only: replicas=off reports carry no key
+                    out[server]["per_replica"] = {
+                        str(r): {"batches": n}
+                        for r, n in sorted(s["replicas"].items())}
             return out
 
     # -- nnctl: controller decisions ---------------------------------------

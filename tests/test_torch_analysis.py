@@ -23,7 +23,13 @@ NNST451 and NNST462 becomes NNST460), the port is held to the line's
 codes of passes the port does not have yet are left out, each with its
 reason. Last, the port's ``validate`` exit codes under ``--strict`` on the
 chains file (fails) and on its NNST450 line alone (clean), and on the ctl
-file.
+file; and the mesh, pool and thread-topology files (``launch_lines_shard``,
+``_pool``, ``_threads``) on 8 devices in both packages (the port's
+``NNSTPU_TORCH_DEVICES=cpu*8``): every EXPECT code in the port, the
+reference's codes where its jax fault does not rewrite them, each file
+failing ``--strict`` and its eligible line strict-clean, and the
+over-budget shard line's per-device row over distinct and repeated
+devices.
 """
 
 import os
@@ -47,6 +53,7 @@ import nnstreamer_tpu.pipeline.pipeline  # noqa: E402
 import nnstreamer_tpu.tools.validate  # noqa: E402
 import nnstreamer_tpu.trace  # noqa: E402
 import nnstreamer_tpu_torch.analysis  # noqa: E402
+import nnstreamer_tpu_torch.analysis.memplan  # noqa: E402
 import nnstreamer_tpu_torch.analysis.plant  # noqa: E402
 import nnstreamer_tpu_torch.analysis.residency  # noqa: E402
 import nnstreamer_tpu_torch.buffer  # noqa: E402
@@ -513,8 +520,6 @@ class TestResidencyLint:
 #: codes of JAX-package passes and properties the port does not have yet,
 #: with what they wait for (ROADMAP.md queue 1)
 NOT_IN_PORT = {
-    "NNST620": "the thread-topology pass (analysis/threads.py) waits for "
-               "the replica pool",
     "NNST981": "the filter refuses rollout-* at construction until rollout "
                "is ported (the port gives NNST106 for the line)",
 }
@@ -644,3 +649,100 @@ def test_validate_strict_on_chains_file():
                if expect == "NNST450"]
     assert len(fusable) == 1
     assert PORT.validate.main(["--strict", fusable[0]]) == 0
+
+
+# --- the mesh, pool and thread-topology fixture files ----------------------
+
+#: the files of the mesh (NNST47x), replica-pool (NNST96x) and
+#: thread-topology (NNST62x) passes; the first two are linted with the cost
+#: passes (their ``# ANALYZE: cost``), on 8 devices in both packages
+MESH_FIXTURES = ("launch_lines_shard.txt", "launch_lines_pool.txt",
+                 "launch_lines_threads.txt")
+
+
+def fixture_expects(name):
+    """(line number, launch line, every EXPECT code) of one fixture."""
+    out, expect = [], []
+    with open(os.path.join(ROOT, "examples", name)) as f:
+        for i, raw in enumerate(f, 1):
+            line = raw.strip()
+            m = re.match(r"#\s*EXPECT:\s*(\S+)", line)
+            if m:
+                expect = m.group(1).split(",")
+            elif line and not line.startswith("#"):
+                out.append((i, line, expect))
+                expect = []
+    return out
+
+
+@pytest.fixture
+def eight_devices(monkeypatch):
+    """The port's counterpart of the conftest's 8 virtual devices."""
+    monkeypatch.setenv("NNSTPU_TORCH_DEVICES", "cpu*8")
+
+
+@pytest.mark.parametrize(
+    "name,lineno,line,expect",
+    [(n, i, line, e) for n in MESH_FIXTURES
+     for i, line, e in fixture_expects(n)],
+    ids=[f"{n}:{i}" for n in MESH_FIXTURES for i, _, _ in
+         fixture_expects(n)])
+def test_mesh_and_pool_fixture_codes_match_reference(
+        eight_devices, name, lineno, line, expect):
+    """Every EXPECT code of the line in the port, and the reference's code
+    list where the reference passes. Its jax fault (the cost model raises
+    in ``program_cost``) leaves it no NNST70x verdict, and its pool probe,
+    with no plan, licenses (NNST960) the pool the line's budget refuses
+    (NNST962): those two families are the line's EXPECT alone in the
+    port."""
+    cost = name != "launch_lines_threads.txt"
+    got = sorted(d.code for d in PORT.analyze_launch(line, cost=cost))
+    for code in expect:
+        assert code in got, (code, got)
+    want = sorted(d.code for d in JAX.analyze_launch(line, cost=cost))
+    assert not [c for c in want if c.startswith("NNST70")], want
+    got = [c for c in got if not c.startswith("NNST70")]
+    if "NNST962" in expect:
+        assert "NNST960" in want and "NNST962" not in want
+        want = [c for c in want if c != "NNST960"]
+        got = [c for c in got if c != "NNST962"]
+    assert got == want, (got, want)
+
+
+@pytest.mark.parametrize("name,eligible", [
+    ("launch_lines_shard.txt", "NNST470"),
+    ("launch_lines_pool.txt", "NNST960"),
+    ("launch_lines_threads.txt", "NNST620")])
+def test_validate_strict_on_mesh_and_pool_files(eight_devices, name,
+                                                eligible):
+    """What the reference's ``nnshard``/``nnpool``/``nnsan-c`` steps of
+    ci.sh assert, through the port's CLI on 8 devices: the file fails
+    ``--strict`` (with ``--cost`` where the file asks for it) and its one
+    eligible line alone is strict-clean."""
+    path = os.path.join(ROOT, "examples", name)
+    cost = ["--cost"] if name != "launch_lines_threads.txt" else []
+    assert PORT.validate.main(["--strict", *cost, "--file", path]) == 2
+    lines = [line for _, line, e in fixture_expects(name)
+             if e == [eligible]]
+    assert len(lines) == 1
+    assert PORT.validate.main(["--strict", *cost, lines[0]]) == 0
+
+
+def test_repeated_device_row_of_the_over_budget_shard_line(monkeypatch):
+    """The shard file's over-budget line planned over eight distinct
+    devices and over one device repeated eight times: each distinct
+    device holds one position's share, the repeated one all eight — the
+    sum the distinct devices hold together."""
+    line = [line for _, line, e in fixture_expects("launch_lines_shard.txt")
+            if e == ["NNST700"]][0]
+    plan_memory = sys.modules["nnstreamer_tpu_torch.analysis.memplan"] \
+        .plan_memory
+    monkeypatch.setenv("NNSTPU_TORCH_DEVICES",
+                       ",".join(f"cuda:{i}" for i in range(8)))
+    distinct = plan_memory(PORT.parse_launch(line))
+    monkeypatch.setenv("NNSTPU_TORCH_DEVICES", "cuda:0*8")
+    one = plan_memory(PORT.parse_launch(line))
+    assert len(distinct["per_device_bytes"]) == 8
+    assert one["per_device_bytes"] == {"cuda:0": one["total_bytes"]}
+    assert one["total_bytes"] == distinct["aggregate_bytes"]
+    assert distinct["total_bytes"] * 8 == distinct["aggregate_bytes"]

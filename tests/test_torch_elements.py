@@ -97,7 +97,8 @@ def test_transform_device_without_a_card_raises(acc, monkeypatch):
 #: cases below now check that the element takes them
 PORTED_PROPS = ("batch-size=4", "feed-depth=2", "fetch-window=auto",
                 "invoke-dynamic=true", "loop-window=8",
-                "invoke-timeout-ms=10", "fallback-framework=auto")
+                "invoke-timeout-ms=10", "fallback-framework=auto",
+                "shard=dp")
 
 
 @pytest.mark.parametrize("prop", [

@@ -1143,17 +1143,19 @@ def test_serving_properties():
 
 @pytest.mark.parametrize("replicas", ["2", "4", "auto"])
 def test_replicas_refuses_and_names_the_missing_pool(replicas):
-    """replicas=N|auto needs the replica pool, which the port does not
-    have: starting the server raises and names it; nothing serves one
-    replica in silence."""
-    from nnstreamer_tpu_torch.log import ElementError
-
-    p = parse_launch(f"tensor_query_serversrc id=rp port=0 serve=1 "
-                     f"serve-batch=8 replicas={replicas} caps={CAPS4} "
-                     "! tensor_query_serversink id=rp")
+    """replicas=N|auto with no served filter: there is nothing to copy,
+    so the planner refuses the pool (NNST961) and the refusal names the
+    missing filter; the server runs single-replica, never a pool in
+    silence."""
+    p = parse_launch(f"tensor_query_serversrc name=ssrc id=rp port=0 "
+                     f"serve=1 serve-batch=8 replicas={replicas} "
+                     f"caps={CAPS4} ! tensor_query_serversink id=rp")
     try:
-        with pytest.raises(ElementError, match="replica pool"):
-            p.play()
+        p.play()
+        code, why = p["ssrc"]._pool_refused
+        assert code == "NNST961"
+        assert "no downstream tensor_filter" in why
+        assert p["ssrc"]._pool_state is None
     finally:
         p.stop()
 

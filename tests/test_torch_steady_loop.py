@@ -495,18 +495,37 @@ class TestStaticHonesty:
     def test_memplan_bills_the_graph_pool_on_the_card(self, port):
         """A filter that runs on the card (no ``accelerator=true:cpu``)
         runs its window as a CUDA graph, whose private pool is billed at
-        one composition peak and one output per window row; on the CPU
-        the window is a loop over the composition and bills no pool."""
+        what one capture keeps alive — one composition's activation peak
+        (the pool reuses a row's blocks for the next) and one output per
+        window row; on the CPU the window is a loop over the composition
+        and bills no pool."""
         card = port.line().replace(port.cpu, "")
         rows = [next(r for r in plan_memory(port.parse_launch(line))["rows"]
                      if r["element"] == "f") for line in (card, port.line())]
         on_card, on_cpu = rows
         assert on_card["loop_bytes"] == on_cpu["loop_bytes"] == 4 * (32 + 32)
-        assert on_card["graph_bytes"] == 4 * (on_card["activation_bytes"]
-                                              + 32)
+        assert on_card["graph_bytes"] == (on_card["activation_bytes"]
+                                           + 4 * 32)
         assert on_card["graph_bytes"] > 0 and on_cpu["graph_bytes"] == 0
         assert on_card["total_bytes"] == (on_cpu["total_bytes"]
                                           + on_card["graph_bytes"])
+
+    def test_graph_pool_bill_is_one_peak_plus_the_outputs(self, port):
+        """The graph pool's bill on a small window: one composition's
+        activation peak, not one per row — a window four times as long
+        adds only its rows' outputs."""
+        from nnstreamer_tpu_torch.analysis.memplan import graph_pool_bytes
+
+        assert graph_pool_bytes(1000, 8, 4) == 1032
+        assert graph_pool_bytes(1000, 8, 16) == 1128
+        card = port.line().replace(port.cpu, "")
+        rows = {w: next(r for r in plan_memory(port.parse_launch(
+            card.replace("loop-window=4", f"loop-window={w}")))["rows"]
+            if r["element"] == "f") for w in (4, 16)}
+        a = rows[4]["activation_bytes"]
+        assert a > 0 and rows[16]["activation_bytes"] == a
+        assert rows[4]["graph_bytes"] == a + 4 * 32
+        assert rows[16]["graph_bytes"] == a + 16 * 32
 
     def test_memplan_bills_folded_weights_once(self, port):
         """MobileNet-v2's folded forward keeps BN-folded, cast copies of
