@@ -251,7 +251,13 @@ Phases, each printing one JSON line:
              (train_timing), and a profile line of 4 steps (every
              profile line also sums device ms by kind: convolution,
              GEMM, reduction, elementwise, copies, this package's
-             kernels);
+             kernels); then the sharded trainer (train_mesh): the same
+             line's first 32 frames, 3 steps, under custom=mesh:1 (dp 4)
+             and mesh:1,tp:2 (dp 2 x tp 2) over cuda:0*4 against the
+             unsharded trainer within twice its bf16 noise (the same
+             steps at float32), replicas equal, the trained weights
+             through the flagship's filter, step ms in turns, and a
+             profile line of 2 dp 4 steps;
   loop       the steady loop, each window one replay of a CUDA graph over
              the filter's whole per-frame composition: line A (the
              reference's loop leg, bench.py:669-677: one 224 px frame a
@@ -341,6 +347,14 @@ Phases, each printing one JSON line:
              examples/launch_lines_ctl.txt (each EXPECT) and the serve
              line's static plant seed beside the serve phase's device ms
              a row;
+  mesh       shard=dp|tp|dpxtp and replicas=4 over cuda:0*4 (see
+             check_mesh);
+  tune       the autotuner (see check_tune): the flagship's static
+             search twice (counts, prune codes, the chosen config, the
+             signature), the card's host constants, a measured search
+             with them, the chosen config's labels against the
+             baseline's, validate --tune in a subprocess and the cost
+             method compiled at batch 128 against the meta method;
 
 then one ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -348,7 +362,7 @@ that last line. It needs a CUDA card: without one it exits 1 at once.
 
 ``--only`` runs the named phases alone (``serve`` needs ``slice`` for
 its frames; ``streams``, ``residency``, ``train``, ``loop``, ``edge``,
-``chain`` and ``robust`` build their own; ``stride2`` runs inside ``kernel``, the flagship's profile
+``chain``, ``robust``, ``mesh`` and ``tune`` build their own; ``stride2`` runs inside ``kernel``, the flagship's profile
 inside ``slice``, the overload and reference lines inside ``serve``) and
 ends after them, without the ``kernels`` and result lines.
 """
@@ -3698,10 +3712,7 @@ def _first_step(torch, frames, onehot, device, dtype=None):
         _set_dtype(torch, tr._bundle.module, dtype)
     for i in range(TRAIN["batch"]):
         tr.push_data([frames[i], onehot[i]])
-    state = {k: v.detach().float().cpu()
-             for k, v in tr._bundle.module.state_dict().items()
-             if "num_batches" not in k}
-    return props.training_loss, state
+    return props.training_loss, _host_state(tr._bundle.module)
 
 
 def _step_dist(a, b) -> dict:
@@ -3959,6 +3970,243 @@ def check_train(torch, results, workdir):
     results["train_launches"] = {k: launches[k] + serve_launches[k]
                                  for k in launches}
     time_training(torch, frames, onehot, results)
+    check_train_mesh(torch, frames, onehot, results, workdir)
+
+
+#: the sharded trainer (phase train, train_mesh): the training line's
+#: first 32 frames, one step an epoch for 3 epochs, over four mesh
+#: positions on the one card
+TRAIN_MESH = {"frames": 32, "epochs": 3, "devices": "cuda:0*4",
+              "meshes": {"dp4x1": ("mesh:1", 4, 1),
+                         "dp2x2": ("mesh:1,tp:2", 2, 2)},
+              "timed_steps": 4}
+
+
+def _mesh_repo(workdir, frames, onehot):
+    """The first TRAIN_MESH["frames"] samples as a datarepo of their own."""
+    n = TRAIN_MESH["frames"]
+    data = os.path.join(workdir, "mesh_train.data")
+    meta = os.path.join(workdir, "mesh_train.json")
+    with open(data, "wb") as f:
+        for i in range(n):
+            f.write(frames[i].tobytes())
+            f.write(onehot[i].tobytes())
+    with open(meta, "w") as f:
+        json.dump({"gst_caps": (
+            "other/tensors,format=static,num_tensors=2,dimensions="
+            f"3:{SIZE}:{SIZE}.{TRAIN['outputs']},types=uint8.float32,"
+            "framerate=0/1"), "total_samples": n,
+            "sample_size": frames[0].nbytes + onehot[0].nbytes}, f)
+    return data, meta
+
+
+def _host_state(module) -> dict:
+    return {k: v.detach().float().cpu() for k, v in
+            module.state_dict().items() if "num_batches" not in k}
+
+
+def _mesh_train_line(torch, data, meta, custom, save):
+    """datareposrc ! tensor_trainer over the mesh repo, one step an
+    epoch: (the loss of each step, the trained state on the host, the
+    trainer's step, the launches)."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    n, e = TRAIN_MESH["frames"], TRAIN_MESH["epochs"]
+    p = parse_launch(
+        f"datareposrc location={data} json={meta} epochs={e} "
+        f"! tensor_trainer name=tr framework=jax model-config=mobilenet_v2 "
+        f"model-save-path={save} num-inputs=1 num-labels=1 "
+        f"num-training-samples={n} num-validation-samples=0 epochs={e} "
+        f"custom={_custom_str(custom)} ! tensor_sink name=out")
+    _cuda.reset_launches()
+    p.play()
+    if not p.bus.wait_eos(600) or p.bus.error is not None:
+        raise RuntimeError(f"mesh training line failed: {p.bus.error}")
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    losses = [float(np.asarray(b.tensors[0]).reshape(-1)[0])
+              for b in p["out"].collected]
+    tr = p["tr"]._fw
+    state, step = _host_state(tr._bundle.module), tr._step
+    p.stop()
+    return losses, state, step, launches
+
+
+def _run_dist(a, b) -> dict:
+    """Distances of two runs (losses a step, state): the largest of the
+    losses', and the largest over the weights and over the running
+    statistics."""
+    def d(sel):
+        return max(float((a[1][k] - b[1][k]).abs().max()) for k in a[1]
+                   if sel(k))
+    return {"loss": max(abs(x - y) for x, y in zip(a[0], b[0])),
+            "weights": d(lambda k: "running" not in k),
+            "running_stats": d(lambda k: "running" in k)}
+
+
+def _replicas_equal(torch, step) -> bool:
+    """Every copy of a leaf equals dp row 0's at its tp column, bit for
+    bit (a replicated leaf's copies all equal position (0, 0)'s)."""
+    return all(torch.equal(leaf.shards[i][j],
+                           leaf.shards[0][j if leaf.dim is not None else 0])
+               for leaf in step.placed.values()
+               for i in range(step.dp) for j in range(step.tp))
+
+
+def _served_logits(torch, frames, save):
+    """The flagship's filter (fused:pallas) on the frames after the mesh
+    repo's, with ``save``'s weights: (logits, launches)."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    s = parse_launch(_trained_serve_line(save))
+    s.play()
+    _cuda.reset_launches()
+    lo = TRAIN_MESH["frames"]
+    for i in range(lo, lo + 2 * TRAIN["batch"]):
+        s["src"].push_buffer(Buffer(tensors=[frames[i]], pts=i))
+    s["src"].end_of_stream()
+    if not s.bus.wait_eos(120) or s.bus.error is not None:
+        raise RuntimeError(f"serving line failed: {s.bus.error}")
+    launches = dict(_cuda.LAUNCHES)
+    logits = torch.cat([torch.as_tensor(np.asarray(b.tensors[0])).reshape(
+        -1, TRAIN["outputs"]) for b in s["out"].collected])
+    s.stop()
+    return logits.float(), launches
+
+
+def check_train_mesh(torch, frames, onehot, results, workdir) -> None:
+    """The sharded trainer at full width (MobileNet-v2 1.0, 224 px, 1001
+    outputs, batch 32, seed:0): datareposrc ! tensor_trainer
+    custom=mesh:1 (dp 4, 8 rows a position) and custom=mesh:1,tp:2 (dp 2 x
+    tp 2) over NNSTPU_TORCH_DEVICES=cuda:0*4, 3 steps on the same batch,
+    each held against the unsharded trainer's line on it: each step's
+    loss, the weights and the running statistics after the last step no
+    farther from it than twice the unsharded bfloat16 run's distance from
+    the same steps at float32 (the step's own bf16 noise; the CPU tests
+    hold the step at float64, where that noise is 1e-16), and the dp
+    replicas equal bit for bit. Then the trained weights through the
+    flagship's filter: fused-block and normalize_u8 launches, logits no
+    farther from the unsharded-trained weights' than twice the float32-
+    trained weights' distance from them. Last, step ms sharded against
+    unsharded in turns (a finding, not a gate)."""
+    data, meta = _mesh_repo(workdir, frames, onehot)
+    n, e = TRAIN_MESH["frames"], TRAIN_MESH["epochs"]
+    card = results["card"]
+    runs, total = {}, {}
+    save = {}
+    save["off"] = os.path.join(workdir, "mesh_off.npz")
+    loss, state, _, _ = _mesh_train_line(torch, data, meta, _train_custom(),
+                                         save["off"])
+    runs["off"] = (loss, state)
+    # the unsharded steps at float32: the noise floor of the bf16 step
+    tr, props = _trainer(torch, _train_custom(), n, epochs=e)
+    _set_dtype(torch, tr._bundle.module, torch.float32)
+    losses32 = []
+    for _ in range(e):
+        for i in range(n):
+            tr.push_data([frames[i], onehot[i]])
+        losses32.append(props.training_loss)
+    save["f32"] = os.path.join(workdir, "mesh_f32.npz")
+    tr.save(save["f32"])
+    runs["f32"] = (losses32, _host_state(tr._bundle.module))
+    noise = _run_dist(runs["off"], runs["f32"])
+    prev = os.environ.get("NNSTPU_TORCH_DEVICES")
+    os.environ["NNSTPU_TORCH_DEVICES"] = TRAIN_MESH["devices"]
+    try:
+        checks = {}
+        for name, (custom, dp, tp) in TRAIN_MESH["meshes"].items():
+            save[name] = os.path.join(workdir, f"mesh_{name}.npz")
+            loss, state, step, launches = _mesh_train_line(
+                torch, data, meta, _train_custom(**dict(
+                    kv.split(":") for kv in custom.split(","))), save[name])
+            _add_launches(total, launches)
+            runs[name] = (loss, state)
+            dist = _run_dist(runs[name], runs["off"])
+            checks[name] = {
+                "mesh": [step.dp, step.tp], "losses": loss,
+                "vs_unsharded": dist,
+                "replicas_equal": _replicas_equal(torch, step),
+                "ok": all(dist[k] <= 2 * noise[k] for k in dist),
+                "launches": launches}
+            if ((step.dp, step.tp) != (dp, tp)
+                    or not checks[name]["replicas_equal"]
+                    or not checks[name]["ok"] or len(loss) != e
+                    or launches["normalize_u8"] != e * dp):
+                raise AssertionError(f"train_mesh {name}: {checks[name]}, "
+                                     f"noise {noise}")
+        # the trained weights through the flagship's filter
+        served = {k: _served_logits(torch, frames, save[k]) for k in save}
+        serve_noise = max_err(served["off"][0], served["f32"][0])
+        for name in TRAIN_MESH["meshes"]:
+            logits, launches = served[name]
+            _add_launches(total, launches)
+            err = max_err(logits, served["off"][0])
+            checks[name]["serve"] = {
+                "logits_max_abs_err": err, "launches": launches,
+                "labels_equal": int((logits.argmax(-1) == served["off"][0]
+                                     .argmax(-1)).sum()),
+                "frames": int(logits.shape[0])}
+            if (err > 2 * serve_noise
+                    or launches["fused_inverted_residual"] == 0
+                    or launches["normalize_u8"] == 0):
+                raise AssertionError(f"train_mesh {name} serve: "
+                                     f"{checks[name]['serve']}, noise "
+                                     f"{serve_noise}")
+        step_ms = _mesh_step_turns(torch, frames, onehot)
+        # where a dp 4 step's time goes
+        tr, _ = _trainer(torch, _train_custom(mesh="1"), 10 ** 6)
+
+        def run():
+            t0 = time.perf_counter()
+            for i in range(2 * TRAIN["batch"]):
+                tr.push_data([frames[i], onehot[i]])
+            return time.perf_counter() - t0
+
+        run()  # warm-up steps
+        emit("profile", line="train_mesh_dp4x1", steps=2, card=card,
+             **device_profile(torch, run))
+    finally:
+        if prev is None:
+            os.environ.pop("NNSTPU_TORCH_DEVICES", None)
+        else:
+            os.environ["NNSTPU_TORCH_DEVICES"] = prev
+    results["train_mesh_launches"] = total
+    emit("train_mesh", devices=TRAIN_MESH["devices"], steps=e,
+         batch=TRAIN["batch"], unsharded_losses=runs["off"][0],
+         f32_losses=runs["f32"][0], bf16_noise=noise,
+         serve_bf16_noise=serve_noise, tolerance="2x noise",
+         meshes=checks, step_ms_turns=step_ms, card=card)
+
+
+def _mesh_step_turns(torch, frames, onehot) -> dict:
+    """Train step ms on trainers driven directly (the batch's 32 pushes,
+    the loss read the sync), unsharded and over each mesh in turns (off,
+    dp4x1, dp2x2, dp2x2, dp4x1, off), after 2 warm-up steps a trainer:
+    each turn's median."""
+    order = ["off"] + list(TRAIN_MESH["meshes"])
+    order = order + order[::-1]
+    out = {k: [] for k in order}
+    b = TRAIN["batch"]
+    for name in order:
+        extra = {} if name == "off" else dict(
+            kv.split(":") for kv in TRAIN_MESH["meshes"][name][0].split(","))
+        tr, _ = _trainer(torch, _train_custom(**extra), 10 ** 6)
+        ms = []
+        for s in range(2 + TRAIN_MESH["timed_steps"]):
+            t0 = time.perf_counter()
+            for i in range(b):
+                j = (s * b + i) % TRAIN["frames"]
+                tr.push_data([frames[j], onehot[j]])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[name].append(statistics.median(ms[2:]))
+    return out
 
 
 # -- phase: the steady loop ------------------------------------------------
@@ -6304,6 +6552,261 @@ def _mesh_lint() -> dict:
     return out
 
 
+# -- phase: the autotuner --------------------------------------------------
+
+#: the measured search (phase tune, part c): the flagship at 32 frames a
+#: tensor over feed-depth x fetch-window (batch-size > 1 would stack a
+#: fifth axis the port's MobileNet-v2 refuses: NNST853), the top 3
+#: measured 3 times each over 1024 frames
+TUNE_MEASURED = {"fpt": 32, "space": {"feed_depth": [1, 2, 4],
+                                     "fetch_window": [1, 4]},
+                 "top_k": 3, "repeats": 3, "n_frames": 1024}
+#: host constants: invokes timed, flushes timed
+TUNE_CALIBRATE = {"invokes": 30, "flushes": 30}
+
+
+def _tune_line(labels: str, fpt: int = 0) -> str:
+    return _flag_line(labels, fpt=fpt or BATCH)
+
+
+def _calibrate_host(torch, labels, frames) -> dict:
+    """The card's two host constants of the tuner's objective: one
+    launch's host dispatch through the port's filter (the backend's
+    invoke on a frame batch already on the card, timed on the host clock
+    without waiting for the device, the device idle before each), and one
+    fetch-window flush's sync (``materialize_tensors`` of FETCH_WINDOW
+    finished invokes' outputs, the device idle: the flush's own cost)."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.buffer import materialize_tensors
+
+    _, _, _, p = _drive(_tune_line(labels), frames, 2)
+    fw = p["f"].fw
+    x = torch.from_numpy(np.stack(frames[:BATCH])).cuda()
+    dispatch, flush = [], []
+    for _ in range(3):
+        fw.invoke([x])  # warm
+    for _ in range(TUNE_CALIBRATE["invokes"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fw.invoke([x])
+        dispatch.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(TUNE_CALIBRATE["flushes"]):
+        outs = [o for _ in range(FETCH_WINDOW) for o in fw.invoke([x])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        materialize_tensors(outs)
+        flush.append((time.perf_counter() - t0) * 1e3)
+    p.stop()
+    return {"dispatch_ms_per_launch": statistics.median(dispatch),
+            "sync_ms_per_flush": statistics.median(flush),
+            "dispatch_ms_spread": [min(dispatch), max(dispatch)],
+            "sync_ms_spread": [min(flush), max(flush)],
+            "batch": BATCH, "fetch_window": FETCH_WINDOW}
+
+
+def _labels_with_point(line, point, frames, n_batches: int):
+    """The labels a line gives with a tuner point applied, one entry a
+    buffer."""
+    from nnstreamer_tpu_torch.analysis.tuner import apply_point
+    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    p = parse_launch(line)
+    apply_point(p, point)
+    p.play()
+    for i in range(n_batches * BATCH):
+        p["src"].push_buffer(Buffer(tensors=[frames[i % len(frames)]], pts=i))
+    p["src"].end_of_stream()
+    if not p.bus.wait_eos(600) or p.bus.error is not None:
+        raise RuntimeError(f"tuned line failed: {p.bus.error}")
+    labels = [b.meta["label"] for b in p["out"].collected]
+    p.stop()
+    return labels
+
+
+def check_tune(torch, results, workdir):
+    """The autotuner on the card: (a) the static search of the flagship
+    line over its whole space (counts by fate and prune code, the chosen
+    config, seconds; the accounting invariant, and two runs signing
+    alike); (b) the card's host constants (one launch's dispatch, one
+    flush's sync); (c) tune_report with measurement on over
+    TUNE_MEASURED's space with the card's constants, every measured point
+    launching the fused block and normalize_u8 (predicted and measured
+    orderings, static_choice_confirmed: a finding, not a gate); (d) the
+    chosen config, and the static choice where it differs, against the
+    baseline on the same frames, labels equal; (e)
+    ``python -m nnstreamer_tpu_torch.tools.validate --tune --json`` on the
+    flagship in a subprocess (the measured phase off by
+    NNSTPU_TUNE_MEASURE=0): exit 0 and one JSON document; (f) the cost
+    method ``compiled`` of MobileNet-v2 at batch 128 against the meta
+    method's flops (within 25%), its peak beside max_memory_allocated."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.analysis import tuner
+    from nnstreamer_tpu_torch.analysis.costmodel import (
+        ShapeDtype,
+        composition,
+        meta_composition,
+        program_cost,
+    )
+    from nnstreamer_tpu_torch.ops import _cuda
+
+    card = results["card"]
+    labels = os.path.join(workdir, "tune_labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class{i}" for i in range(1001)) + "\n")
+    rng = np.random.default_rng(9)
+    frames = [np.kron(rng.integers(0, 256, (4, 4, 3)),
+                      np.ones((SIZE // 4, SIZE // 4, 1))).astype(np.uint8)
+              for _ in range(BATCH)]
+    line = _tune_line(labels)
+
+    # (a) the static search, twice
+    reps, secs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        reps.append(tuner.tune_report(line, measure=False))
+        secs.append(time.perf_counter() - t0)
+    rep = reps[0]
+    c = rep["counts"]
+    static_ok = (c["pruned"] + c["evaluated"] + c["validated"]
+                 == c["enumerated"] == len(rep["points"]) > 0
+                 and reps[0]["signature"] == reps[1]["signature"]
+                 and json.dumps(reps[0], sort_keys=True)
+                 == json.dumps(reps[1], sort_keys=True))
+    emit("tune", part="static", enumerated=c["enumerated"],
+         pruned=c["pruned"], pruned_by_code=rep["pruned_by_code"],
+         survivors=c["evaluated"] + c["validated"],
+         space={k: len(v) for k, v in rep["space"].items()},
+         chosen=rep.get("chosen", {}).get("launch_fragment"),
+         predicted=rep.get("chosen", {}).get("predicted"),
+         headroom_pct=rep.get("headroom_pct"), seconds=secs,
+         signature=rep["signature"]["digest"], ok=static_ok, card=card)
+    if not static_ok:
+        raise AssertionError(f"tune static: {c}, signatures "
+                             f"{[r['signature'] for r in reps]}")
+
+    # (b) the card's host constants
+    consts = _calibrate_host(torch, labels, frames)
+    emit("tune", part="constants", **consts,
+         reference_defaults={k: tuner.TUNE_CONSTANTS[k] for k in (
+             "dispatch_ms_per_launch", "sync_ms_per_flush")}, card=card)
+    constants = {k: consts[k] for k in ("dispatch_ms_per_launch",
+                                        "sync_ms_per_flush")}
+
+    # (c) the measured search over the reduced space
+    total, per_point = {}, []
+
+    def measure(launch, point, n_frames):
+        _cuda.reset_launches()
+        got = tuner.measure_launch(launch, point, n_frames,
+                                   repeats=TUNE_MEASURED["repeats"])
+        launches = dict(_cuda.LAUNCHES)
+        _add_launches(total, launches)
+        per_point.append({"config": dict(point), "launches": launches})
+        return got
+
+    mline = _tune_line(labels, TUNE_MEASURED["fpt"])
+    t0 = time.perf_counter()
+    mrep = tuner.tune_report(mline, top_k=TUNE_MEASURED["top_k"],
+                             space=TUNE_MEASURED["space"],
+                             constants=constants, measure=measure,
+                             n_frames=TUNE_MEASURED["n_frames"])
+    msecs = time.perf_counter() - t0
+    ranked = sorted((e for e in mrep["points"] if "rank" in e),
+                    key=lambda e: e["rank"])
+    measured = [e for e in ranked if "measured" in e]
+    launched = all(pp["launches"]["fused_inverted_residual"] > 0
+                   and pp["launches"]["normalize_u8"] > 0
+                   for pp in per_point)
+    mc = mrep["counts"]
+    emit("tune", part="measured", line_fpt=TUNE_MEASURED["fpt"],
+         space=TUNE_MEASURED["space"], counts=mc, constants=constants,
+         predicted_order=[tuner.config_fragment(e["config"])
+                          for e in ranked],
+         predicted_fps=[e["predicted"]["modeled_fps"] for e in ranked],
+         measured_order=[tuner.config_fragment(e["config"]) for e in sorted(
+             measured, key=lambda e: -e["measured"]["fps"])],
+         measured_fps={tuner.config_fragment(e["config"]):
+                       e["measured"]["fps"] for e in measured},
+         chosen=mrep.get("chosen", {}).get("launch_fragment"),
+         static_choice_confirmed=mrep.get("chosen", {}).get(
+             "static_choice_confirmed"),
+         launches=per_point, seconds=msecs, card=card)
+    if (len(measured) != min(TUNE_MEASURED["top_k"], len(ranked))
+            or not mrep["measure"]["ran"] or not launched
+            or mc["pruned"] + mc["evaluated"] + mc["validated"]
+            != mc["enumerated"]):
+        raise AssertionError(f"tune measured: {mc}, {per_point}")
+
+    # (d) the chosen config, and the static choice where the measured
+    # one differs from it, against the baseline on the same frames
+    chosen = mrep["chosen"]["config"]
+    base = mrep["baseline"]["config"]
+    tried = [chosen] + [e["config"] for e in ranked[:1]
+                        if e["config"] != chosen]
+    _cuda.reset_launches()
+    want = _labels_with_point(mline, base, frames, 2)
+    got = [_labels_with_point(mline, pt, frames, 2) for pt in tried]
+    _add_launches(total, dict(_cuda.LAUNCHES))
+    n_buffers = 2 * BATCH // TUNE_MEASURED["fpt"]
+    same = len(want) == n_buffers and all(g == want for g in got)
+    emit("tune", part="chosen_vs_baseline", configs=tried, baseline=base,
+         frames=2 * BATCH, buffers=len(want), labels_equal=same,
+         labels_differ=[sum(a != b for a, b in zip(g, want)) for g in got],
+         card=card)
+    if not same:
+        raise AssertionError(f"tune: {tried} and the baseline {base} "
+                             "label the frames differently")
+
+    # (e) the CLI in a subprocess
+    env = dict(os.environ, NNSTPU_TUNE_MEASURE="0")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nnstreamer_tpu_torch.tools.validate",
+         "--tune", "--json", line], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=600)
+    cli_secs = time.perf_counter() - t0
+    try:
+        doc = json.loads(proc.stdout)
+    except ValueError:
+        doc = None
+    cli_ok = (proc.returncode == 0 and doc is not None
+              and doc["signature"] == rep["signature"])
+    emit("tune", part="cli", rc=proc.returncode, seconds=cli_secs,
+         parsed=doc is not None, same_signature_as_a=cli_ok,
+         stderr_tail=proc.stderr[-400:], card=card)
+    if not cli_ok:
+        raise AssertionError(f"validate --tune: rc {proc.returncode}, "
+                             f"{proc.stderr[-2000:]}")
+
+    # (f) the compiled cost of MobileNet-v2 at batch 128
+    custom = {"seed": "0", "fused": "pallas"}
+    shapes = [ShapeDtype((BATCH, SIZE, SIZE, 3), np.dtype(np.uint8))]
+    fn, module, _ = meta_composition("mobilenet_v2", custom)
+    meta = program_cost(fn, module, shapes)
+    fn, module, _ = composition("mobilenet_v2", custom, device="cuda")
+    torch.cuda.synchronize()
+    base_alloc = torch.cuda.memory_allocated()
+    compiled = program_cost(fn, module, shapes, method="compiled")
+    peak_alloc = torch.cuda.max_memory_allocated()
+    rel = abs(compiled["flops"] - meta["flops"]) / meta["flops"]
+    del fn, module
+    emit("tune", part="compiled_cost", batch=BATCH,
+         flops_compiled=compiled["flops"], flops_meta=meta["flops"],
+         flops_rel_diff=rel, kernel_launches=compiled["kernel_launches"],
+         peak_live_bytes=compiled["peak_live_bytes"],
+         max_memory_allocated=peak_alloc,
+         memory_allocated_at_entry=base_alloc,
+         hbm_bytes_accessed=compiled["hbm_bytes"],
+         meta_peak_live_bytes=meta["peak_live_bytes"], card=card)
+    if rel >= 0.25 or compiled["kernel_launches"] == 0:
+        raise AssertionError(f"compiled cost: {compiled['flops']} against "
+                             f"meta {meta['flops']}")
+    results["tune_launches"] = total
+
+
 def main() -> int:
     import torch
 
@@ -6351,6 +6854,7 @@ def main() -> int:
         "chain": lambda: check_chain(torch, results, workdir),
         "robust": lambda: check_robust(torch, results, workdir),
         "mesh": lambda: check_mesh(torch, results, workdir),
+        "tune": lambda: check_tune(torch, results, workdir),
     }
     only = None
     if "--only" in sys.argv[1:]:
@@ -6384,7 +6888,8 @@ def main() -> int:
         "segment_launches", "vision_launches", "serve_launches",
         "streams_launches", "residency_launches", "train_launches",
         "loop_launches", "edge_launches", "chain_launches",
-        "robust_launches", "mesh_launches"))
+        "robust_launches", "mesh_launches", "train_mesh_launches",
+        "tune_launches"))
         for name in src}
     launches["arith_chain"] += results["arith_launches"]
     kernels = []

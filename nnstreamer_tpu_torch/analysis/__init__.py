@@ -9,7 +9,8 @@ attribution and, for launch-line pipelines, a source span:
   graph structure, property schemas, static caps dry-run negotiation,
   residency/crossing prediction, fusion safety, whole-chain composition,
   steady-loop eligibility, deadlock detection, serving lints, compile
-  churn, and the opt-in cost and memory passes.
+  churn, the opt-in cost and memory passes, and the explicit-only tuner
+  pass (:mod:`analysis.tuner`, NNST850–853; ``validate --tune``).
 
 - **Sanitizer** (:mod:`analysis.sanitizer`, ``NNSTPU_SANITIZE=1``):
   runtime checks for tee aliasing (NNST600), concurrent invokes (NNST601)
@@ -20,7 +21,7 @@ Entry points: :func:`analyze` (constructed pipeline) and
 :func:`analyze_launch` (launch string — parse diagnostics included).
 ``tools/validate.py`` wraps these for the CLI/CI.
 
-The JAX package's tuner, AOT and deploy passes are not in this package
+The JAX package's AOT and deploy passes are not in this package
 (ROADMAP.md queue 1).
 
 This ``__init__`` stays import-light (element modules import the schema

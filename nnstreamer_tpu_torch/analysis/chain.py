@@ -225,6 +225,14 @@ def discover_chains(pipeline) -> List[FilterChain]:
     return chains
 
 
+def fusable_chains(pipeline) -> List[FilterChain]:
+    """Structurally eligible chains (discovery and the member/link gates,
+    no composition): what the tuner keys the ``chain-fusion`` knob on. A
+    chain here may still be pruned by NNST452/453 once composed."""
+    return [c for c in discover_chains(pipeline)
+            if c.blocked is None and _first_member_blocker(c) is None]
+
+
 # --------------------------------------------------------------------------
 # member / link gates (NNST451 reasons)
 # --------------------------------------------------------------------------

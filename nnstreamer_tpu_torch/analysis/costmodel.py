@@ -35,9 +35,23 @@ tensors the forward keeps beyond the module's state — the BN-folded,
 cast weights a folded forward holds (``derived_bytes_of``); the JAX
 package folds inside its jitted forward, so there they are activations.
 
-``weak_type_hazards`` is always empty: torch has no weak types (the
-reference's own ``compiled`` branch returns the same). ``method=
-"compiled"`` and ``weak_type_promotions`` wait (ROADMAP.md queue 1).
+``weak_type_hazards`` (NNST801) comes from the same meta run: torch has
+no weak types, so :class:`_LiveBytes` follows the tensors that descend
+from the stream inputs and flags an op where one of them meets a Python
+scalar and comes out in a wider dtype (uint8 ``x * 2.5`` → float32), the
+counterpart of the jaxpr walk's weak-typed ``convert_element_type``
+(:func:`weak_type_promotions`).
+
+``method="compiled"`` runs the program once, concretely, on the device
+its parameters live on (the JAX method asks XLA for the compiled
+program's cost and memory analyses): flops by ``FlopCounterMode`` and the
+pointwise rule above over the run, bytes accessed as every op's inputs
+and outputs, the peak from the CUDA allocator (``max_memory_allocated``
+above its value at entry; on the CPU the live-storage count). A kernel
+launched through ``ctypes`` is invisible to the dispatcher, so each
+kernel wrapper bills its plain version's flops at the launch's shapes,
+counted once on meta tensors (:func:`ops._cuda.bill_launch`). Build the
+program on a device with :func:`composition`.
 
 :func:`static_report` turns the costs into a roofline table (the
 ``validate --cost`` table and the NNST702 bottleneck) against
@@ -101,12 +115,19 @@ class _LiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
     """Counts the bytes of storages created under it while a tensor holds
     them, and the pointwise/reduction flops the FLOP counter leaves out."""
 
-    def __init__(self):
+    def __init__(self, stream_inputs: Sequence[torch.Tensor] = ()):
         super().__init__()
         self.cur = 0
         self.peak = 0
         self.extra_flops = 0
+        #: every op's input and output bytes (the compiled method's
+        #: bytes accessed)
+        self.accessed = 0
+        #: NNST801 findings, in op order
+        self.hazards: List[str] = []
         self._refs: Dict[int, List[int]] = {}  # storage -> [tensors, bytes]
+        self._stream: set = set()  # ids of tensors that descend from xs
+        self._mark_stream(stream_inputs)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -115,6 +136,8 @@ class _LiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
         ins = [t for t in flat_in if isinstance(t, torch.Tensor)]
         outs = [t for t in torch.utils._pytree.tree_leaves(out)
                 if isinstance(t, torch.Tensor)]
+        self.accessed += sum(t.numel() * t.element_size() for t in ins + outs)
+        self._follow_stream(flat_in, ins, outs)
         name = func.overloadpacket.__name__
         if torch.Tag.pointwise in func.tags or (
                 name == "_to_copy" and ins and outs
@@ -138,6 +161,33 @@ class _LiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
             weakref.finalize(o, self._release, key)
         return out
 
+    def _mark_stream(self, tensors) -> None:
+        for t in tensors:
+            if id(t) not in self._stream:
+                self._stream.add(id(t))
+                weakref.finalize(t, self._stream.discard, id(t))
+
+    def _follow_stream(self, flat_in, ins, outs) -> None:
+        """Mark what descends from a stream input, and flag a Python
+        scalar that widens it: every tensor input of the op has the
+        stream tensor's dtype, and the output's is wider (or as wide and
+        another), as the jaxpr walk flags a weak-typed conversion."""
+        src = [t for t in ins if id(t) in self._stream]
+        if not src:
+            return
+        self._mark_stream(outs)
+        if not outs or not any(isinstance(a, (bool, int, float, complex))
+                               for a in flat_in):
+            return
+        old = src[0].dtype
+        if any(t.dtype != old for t in ins):
+            return  # a tensor operand promoted it, not the scalar
+        new = outs[0].dtype
+        if new != old and new.itemsize >= old.itemsize:
+            self.hazards.append(
+                f"{_dtype_name(old)} stream promoted to {_dtype_name(new)} "
+                f"by a python scalar (weak-type)")
+
     def _release(self, key: int) -> None:
         ref = self._refs.get(key)
         if ref is None:
@@ -146,6 +196,26 @@ class _LiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
         if ref[0] == 0:
             self.cur -= ref[1]
             del self._refs[key]
+
+
+def _dtype_name(dt: torch.dtype) -> str:
+    """numpy's name of a torch dtype (``uint8``, ``float32``), the
+    spelling of the reference's hazard messages."""
+    return str(dt).removeprefix("torch.")
+
+
+def weak_type_promotions(fn, params, shapes: Sequence[ShapeDtype]
+                         ) -> List[str]:
+    """NNST801 hazards of ``fn(params, *xs)`` at ``shapes``: a Python
+    scalar that widens data descended from the stream inputs (e.g. a
+    uint8 stream promoted to float32 by ``x * 2.5``), 4x the bytes and a
+    program other than the caps promise. One meta run (``params`` on the
+    meta device); :func:`program_cost` reports the same list."""
+    xs = meta_tensors(shapes)
+    live = _LiveBytes(xs)
+    with torch.no_grad(), live:
+        fn(params, *xs)
+    return list(live.hazards)
 
 
 def _storage_key(t: torch.Tensor) -> int:
@@ -211,18 +281,18 @@ def _shapes_nbytes(shapes: Sequence[ShapeDtype]) -> int:
 def program_cost(fn, params, shapes: Sequence[ShapeDtype],
                  method: str = "auto") -> Dict[str, Any]:
     """Cost one program at one signature: ``fn(params, *xs)`` runs on
-    meta tensors of ``shapes`` (``params`` on the meta device too)."""
+    meta tensors of ``shapes`` (``params`` on the meta device too), or,
+    with ``method="compiled"``, once concretely on the device ``params``
+    live on (see the module docstring)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     if method == "compiled":
-        raise NotImplementedError(
-            "cost method 'compiled' is not ported yet (ROADMAP.md queue 1 "
-            "item 5); use 'auto'")
+        return _compiled_cost(fn, params, shapes)
     if method not in ("auto", "meta"):
         raise ValueError(f"unknown cost method {method!r}")
     xs = meta_tensors(shapes)
     counter = FlopCounterMode(display=False)
-    live = _LiveBytes()
+    live = _LiveBytes(xs)
     with torch.no_grad(), counter, live:
         out = fn(params, *xs)
     outs = [t for t in torch.utils._pytree.tree_leaves(out)
@@ -241,7 +311,106 @@ def program_cost(fn, params, shapes: Sequence[ShapeDtype],
         "input_bytes": bytes_read,
         "output_bytes": bytes_written,
         "method": "meta",
-        "weak_type_hazards": [],
+        "weak_type_hazards": list(live.hazards),
+    }
+
+
+#: (kernel, argument shapes and values) -> the plain version's flops
+_plain_flops: Dict[tuple, int] = {}
+
+
+def _leaf_key(a):
+    if isinstance(a, torch.Tensor):
+        return (tuple(a.shape), a.dtype)
+    return a if isinstance(a, (bool, int, float, str, torch.dtype,
+                               type(None))) else type(a).__name__
+
+
+class _KernelBill:
+    """The flops of the kernels launched during a concrete run: each
+    launch adds its plain version's count at the launch's shapes, taken
+    once per (kernel, shapes) on meta tensors with every dispatch mode of
+    the run set aside (the sink of :func:`ops._cuda.billing`)."""
+
+    def __init__(self):
+        self.flops = 0
+        self.launches = 0
+
+    def __call__(self, name: str, plain, args, kwargs) -> None:
+        from torch.utils._python_dispatch import _disable_current_modes
+        from torch.utils.flop_counter import FlopCounterMode
+
+        leaves = torch.utils._pytree.tree_leaves((args, kwargs))
+        key = (name, tuple(_leaf_key(a) for a in leaves))
+        n = _plain_flops.get(key)
+        if n is None:
+            with _disable_current_modes():
+                margs, mkw = torch.utils._pytree.tree_map(
+                    lambda a: torch.empty_like(a, device="meta")
+                    if isinstance(a, torch.Tensor) else a, (args, kwargs))
+                counter = FlopCounterMode(display=False)
+                live = _LiveBytes()
+                with torch.no_grad(), counter, live:
+                    plain(*margs, **mkw)
+                n = _plain_flops[key] = int(counter.get_total_flops()
+                                            + live.extra_flops)
+        self.flops += n
+        self.launches += 1
+
+
+def _params_device(params) -> torch.device:
+    tensors = _tensors_of(params)
+    return tensors[0].device if tensors else torch.device("cpu")
+
+
+def _compiled_cost(fn, params, shapes: Sequence[ShapeDtype]
+                   ) -> Dict[str, Any]:
+    """``method="compiled"``: one concrete run of ``fn(params, *xs)`` on
+    zeros of ``shapes`` on the device of ``params``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from nnstreamer_tpu_torch.ops import _cuda
+
+    dev = _params_device(params)
+    if dev.type == "meta":
+        raise ValueError("cost method 'compiled' runs the program: build "
+                         "it on a device (composition(..., device=))")
+    xs = [torch.zeros(tuple(sh.shape), dtype=_torch_dtype(sh.dtype),
+                      device=dev) for sh in shapes]
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        entry = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    counter = FlopCounterMode(display=False)
+    live = _LiveBytes(xs)
+    bill = _KernelBill()
+    with torch.no_grad(), counter, live, _cuda.billing(bill):
+        out = fn(params, *xs)
+    if cuda:
+        torch.cuda.synchronize(dev)
+        above = torch.cuda.max_memory_allocated(dev) - entry
+    else:
+        above = live.peak
+    outs = [t for t in torch.utils._pytree.tree_leaves(out)
+            if isinstance(t, torch.Tensor)]
+    bytes_read = _shapes_nbytes(shapes)
+    bytes_written = int(sum(t.numel() * t.element_size() for t in outs))
+    p_bytes = param_bytes_of(params)
+    return {
+        "flops": int(counter.get_total_flops() + live.extra_flops
+                     + bill.flops),
+        "bytes_read": bytes_read,
+        "bytes_written": bytes_written,
+        "hbm_bytes": int(live.accessed),
+        "peak_live_bytes": int(p_bytes + bytes_read + above),
+        "param_bytes": p_bytes,
+        "derived_bytes": int(getattr(fn, "derived_bytes", 0)),
+        "input_bytes": bytes_read,
+        "output_bytes": bytes_written,
+        "method": "compiled",
+        "weak_type_hazards": list(live.hazards),
+        "kernel_launches": bill.launches,
     }
 
 
@@ -261,21 +430,31 @@ def meta_composition(model: str, custom: Dict[str, str], pre_specs=(),
     a backend opened on (model, custom) runs — fused pre-stages, the
     model, the postproc, fused post-stages — built on the ``meta``
     device. Raises when the model cannot be built there."""
+    return composition(model, custom, pre_specs, post_specs, "meta")
+
+
+def composition(model: str, custom: Dict[str, str], pre_specs=(),
+                post_specs=(), device="meta"):
+    """:func:`meta_composition` built on ``device``: with real weights
+    (``custom``'s seed or params) on a CPU or a card, it is what
+    ``method="compiled"`` runs. Meta builds are cached (LRU)."""
     from nnstreamer_tpu_torch.filters.cuda_filter import compose, make_postproc
     from nnstreamer_tpu_torch.models import get_model, load_py_model
     from nnstreamer_tpu_torch.ops.fusion_stages import build_stage_fn
 
+    device = torch.device(device)
     key = (str(model), str(sorted(custom.items())))
-    bundle = _bundle_cache.get(key)
+    bundle = _bundle_cache.get(key) if device.type == "meta" else None
     if bundle is not None:
         _bundle_cache.move_to_end(key)
     else:
-        meta = torch.device("meta")
-        bundle = (load_py_model(model, custom, meta) if model.endswith(".py")
-                  else get_model(model, custom, meta))
-        _bundle_cache[key] = bundle
-        while len(_bundle_cache) > _BUNDLE_CACHE_MAX:
-            _bundle_cache.popitem(last=False)
+        bundle = (load_py_model(model, custom, device)
+                  if model.endswith(".py") else get_model(model, custom,
+                                                          device))
+        if device.type == "meta":
+            _bundle_cache[key] = bundle
+            while len(_bundle_cache) > _BUNDLE_CACHE_MAX:
+                _bundle_cache.popitem(last=False)
     post = make_postproc(custom)
     stage_pre = build_stage_fn(list(pre_specs)) if pre_specs else None
     stage_post = build_stage_fn(list(post_specs)) if post_specs else None

@@ -30,12 +30,15 @@ order:
   churn        NNST800 — variable-shape caps rebuilding a device program;
                NNST802/803 — donation safety and missed donation
   costmodel    NNST701 — per-filter program cost (opt-in: a meta run of
-                          every filter's program)
+                          every filter's program); NNST801 — a python
+                          scalar widening stream data in that run
   memplan      NNST700/702/703 — whole-pipeline device-memory footprint vs
                           budget + roofline bottleneck (opt-in)
+  tuner        NNST850/851/852 — the static tune of the launch line's
+                          config space (explicit only: ``passes=["tuner"]``)
 
-The JAX package's tuner, aot and deploy passes and its NNST801 weak-type
-walk wait for the modules they read (ROADMAP.md queue 1).
+The JAX package's aot and deploy passes wait for the modules they read
+(ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -702,6 +705,13 @@ def costmodel_pass(ctx: AnalysisContext) -> None:
             f"peak live {cost['peak_live_bytes'] / 2**20:.2f} MB, "
             f"params {cost['param_bytes'] / 2**20:.2f} MB "
             f"[{cost['method']}]")
+        for hazard in cost.get("weak_type_hazards", ()):
+            ctx.emit(
+                "NNST801", e,
+                f"python scalar leaked into the device program: {hazard}",
+                hint="make the scalar a tensor of the stream's dtype "
+                     "(torch.full((), v, dtype=x.dtype)) so the program "
+                     "dtype is pinned")
 
 
 @analysis_pass("memplan", opt_in=True)
@@ -743,6 +753,72 @@ def memplan_pass(ctx: AnalysisContext) -> None:
             f"~{b['per_buffer_ms']:.3f} ms/buffer → "
             f"~{1e3 / b['per_buffer_ms'] if b['per_buffer_ms'] else 0:.0f} "
             f"buffers/s ceiling)")
+
+
+# --- NNST85x: autotuner (nntune) — explicit-only ----------------------------
+
+@analysis_pass("tuner", opt_in=True, explicit=True)
+def tuner_pass(ctx: AnalysisContext) -> None:
+    """Static tune of the launch line's config space (no measured runs):
+
+    NNST851  search summary (enumerated/pruned/survivor counts and the
+             best modeled config)
+    NNST850  dominated config in use: the static model predicts at
+             least ``headroom_warn_pct`` headroom over the line's
+             current knobs
+    NNST852  every enumerated point was pruned — no statically feasible
+             configuration exists for this graph
+
+    Explicit-only (never part of ``--cost``): it evaluates the whole
+    space. Needs the launch source to re-parse per point; API-built
+    pipelines are skipped (``validate --tune`` is the full CLI)."""
+    from nnstreamer_tpu_torch.analysis.tuner import (
+        TUNE_CONSTANTS,
+        config_fragment,
+        tune_report,
+    )
+
+    if ctx.source is None:
+        return  # no launch line to re-parse: the tuner cannot search
+    try:
+        rep = tune_report(ctx.source, measure=False)
+    except Exception:  # noqa: BLE001 — pass bodies never raise; broken
+        # lines are already diagnosed by the construction passes
+        return
+    counts = rep.get("counts", {})
+    if not counts.get("enumerated"):
+        return  # nothing tunable
+    survivors = counts["evaluated"] + counts["validated"]
+    if survivors == 0:
+        ctx.emit(
+            "NNST852", "pipeline",
+            f"every enumerated tuning point is statically infeasible "
+            f"({counts['enumerated']} pruned: "
+            + ", ".join(f"{k} x{v}"
+                        for k, v in rep["pruned_by_code"].items())
+            + ") — no configuration of this graph fits the device",
+            hint="raise the budget (NNSTPU_HBM_BYTES), shrink the model, "
+                 "or split the batch upstream")
+        return
+    chosen = rep["chosen"]
+    ctx.emit(
+        "NNST851", "pipeline",
+        f"tuner: {counts['enumerated']} points enumerated, "
+        f"{counts['pruned']} statically pruned, {survivors} evaluated; "
+        f"best modeled config: {chosen['launch_fragment']} "
+        f"(~{chosen['predicted']['modeled_fps']:.0f} frames/s, "
+        f"{chosen['predicted']['bound']}-bound)")
+    headroom = rep.get("headroom_pct")
+    if headroom is not None and headroom >= TUNE_CONSTANTS[
+            "headroom_warn_pct"]:
+        base = rep["baseline"]
+        ctx.emit(
+            "NNST850", "pipeline",
+            f"dominated config in use: the static model predicts "
+            f"{headroom:.0f}% headroom over the current knobs "
+            f"({config_fragment(base['config'])})",
+            hint=f"try: {chosen['launch_fragment']} (validate --tune "
+                 f"validates the top candidates with measured runs)")
 
 
 def _upstream_set(pad) -> set:

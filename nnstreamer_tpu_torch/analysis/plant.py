@@ -6,11 +6,11 @@ roofline-leg arithmetic inline; the nnctl controller needs the SAME
 model as its *plant* — the thing its actuations are priced against —
 so both now live here:
 
-- :data:`OBJECTIVE_CONSTANTS` — the PROFILE.md-derived host constants
-  (per-launch python dispatch, per-flush sync) the tuner objective
-  amortizes.  ``analysis/tuner.py`` re-exports them as
-  ``TUNE_CONSTANTS`` (same keys, same values — the tuner's signed
-  report is unchanged).
+- :data:`OBJECTIVE_CONSTANTS` — the host constants (per-launch
+  dispatch, per-flush sync) the tuner objective amortizes: the JAX
+  package's defaults, not a measurement of this package.
+  ``analysis/tuner.py`` re-exports them as ``TUNE_CONSTANTS``; a card's
+  own values go in through ``tune_report(constants=)``.
 - :func:`leg_times_ms` — one static-report row → (device, serial) leg
   times, the per-invoke arithmetic ``predict_point`` used inline.
 - :func:`predict_latency` — the serving-tier latency plant:
@@ -34,13 +34,15 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-#: host-side objective constants — order-of-magnitude numbers from the
-#: recorded profiling campaign (PROFILE.md rounds 3-7: ~12 ms/batch
-#: python dispatch stack, low-ms per-flush sync).  The tuner re-exports
-#: these as TUNE_CONSTANTS; absolute accuracy matters less than the
+#: host-side objective constants: the JAX package's defaults, kept as
+#: the static default so the ctl and tuner verdicts on the CPU match the
+#: reference's tests. They are NOT a measurement of this package: the
+#: card's own per-launch dispatch and per-flush sync are measured by
+#: ``chip_smoke.py``'s ``tune`` phase (PERF.md) and passed to
+#: ``tune_report(constants=)``. Absolute accuracy matters less than the
 #: ordering they induce.
 OBJECTIVE_CONSTANTS = {
-    "dispatch_ms_per_launch": 12.0,   # host python stack per program launch
+    "dispatch_ms_per_launch": 12.0,   # host stack per program launch
     "sync_ms_per_flush": 2.0,         # per fetch-window flush (d2h sync)
     "headroom_warn_pct": 25.0,        # NNST850 threshold
 }

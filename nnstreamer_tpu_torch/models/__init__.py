@@ -14,6 +14,7 @@ with numpy. :func:`load_py_model` loads an embedded-Python model file.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 from dataclasses import dataclass
@@ -130,24 +131,54 @@ def weights_changed(module: torch.nn.Module) -> None:
 #: momentum of flax's ``nn.BatchNorm``, which the JAX zoo trains with
 BN_MOMENTUM = 0.99
 
+#: the calling thread's BatchNorm reduction (see :func:`reduced_batch_stats`)
+_bn_reduce = threading.local()
+
+
+@contextlib.contextmanager
+def reduced_batch_stats(fn):
+    """Within the block, :func:`batch_norm_train` on this thread takes its
+    statistics through ``fn(Σx, Σx², count) -> (Σx, Σx², count)``, the
+    sums over every row group of a dp mesh (``parallel/train.py``)."""
+    prev = getattr(_bn_reduce, "fn", None)
+    _bn_reduce.fn = fn
+    try:
+        yield
+    finally:
+        _bn_reduce.fn = prev
+
 
 def batch_norm_train(y: torch.Tensor, bn: torch.nn.BatchNorm2d,
                      dtype: torch.dtype, new_state: list,
                      momentum: float = BN_MOMENTUM) -> torch.Tensor:
     """Train-mode BatchNorm of an NCHW tensor as flax computes it
     (``nn.BatchNorm(use_running_average=False)``, ``use_fast_variance``):
-    the batch's mean and variance in float32 over (N, H, W), the variance
-    as E[x²] − E[x]² clipped at 0 (biased), ``(x − mean) · rsqrt(var +
-    eps) · scale + bias`` in float32, rounded once to ``dtype``. The
+    the batch's mean and variance in float32 (float64 for a float64
+    tensor) over (N, H, W), the variance as E[x²] − E[x]² clipped at 0
+    (biased), ``(x − mean) · rsqrt(var + eps) · scale + bias`` in that
+    type, rounded once to ``dtype``. The
     running statistics' update, ``ra = momentum · ra + (1 − momentum) ·
     batch`` with that same biased variance, is appended to ``new_state``
     as (buffer, value) pairs, computed without gradient.
 
     Not ``F.batch_norm(training=True)``: its momentum is the batch's
-    weight, and it updates ``running_var`` with the unbiased variance."""
-    x = y.float()
-    mean = x.mean(dim=(0, 2, 3))
-    var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    weight, and it updates ``running_var`` with the unbiased variance.
+
+    Inside :func:`reduced_batch_stats` (a dp mesh's row, ``parallel/
+    train.py``) the statistics are the whole batch's, as GSPMD takes them:
+    this row group's Σx, Σx² and count, summed over every row group
+    before the division, with autograd through the sums."""
+    x = y if y.dtype == torch.float64 else y.float()
+    reduce_stats = getattr(_bn_reduce, "fn", None)
+    if reduce_stats is None:
+        mean = x.mean(dim=(0, 2, 3))
+        sq = (x * x).mean(dim=(0, 2, 3))
+    else:
+        s1, s2, n = reduce_stats(x.sum(dim=(0, 2, 3)),
+                                 (x * x).sum(dim=(0, 2, 3)),
+                                 x.numel() // x.shape[1])
+        mean, sq = s1 / n, s2 / n
+    var = torch.clamp(sq - mean * mean, min=0.0)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     out = ((x - mean.reshape(1, -1, 1, 1)) * mul.reshape(1, -1, 1, 1)
            + bn.bias.reshape(1, -1, 1, 1))

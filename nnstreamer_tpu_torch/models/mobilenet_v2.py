@@ -175,14 +175,16 @@ class MobileNetV2(nn.Module):
         """NHWC float frames → float32 logits (the unfused forward; with
         ``new_state`` the train forward, see :func:`_conv_bn`). The pool
         averages in float32 and rounds to the compute dtype, as
-        ``jnp.mean`` of a bfloat16 tensor does."""
+        ``jnp.mean`` of a bfloat16 tensor does; the classifier runs in its
+        weights' dtype (float32 as built)."""
         dt, ns = self.dtype, new_state
         y = _relu6(_conv_bn(x.permute(0, 3, 1, 2), self.stem_conv,
                             self.stem_bn, dt, ns))
         for blk in self.blocks:
             y = blk.forward_nchw(y, ns)
         y = _relu6(_conv_bn(y, self.head_conv, self.head_bn, dt, ns))
-        y = y.float().mean(dim=(2, 3)).to(dt).float()  # global average pool
+        y = y.float().mean(dim=(2, 3)).to(dt)  # global average pool
+        y = y.to(self.classifier.weight.dtype)
         return self.classifier(y)
 
 

@@ -128,6 +128,34 @@ def recording_launches():
         _recording.sink = prev
 
 
+#: per thread: where launched kernels bill their plain versions' cost
+#: (see :func:`billing`)
+_bill = threading.local()
+
+
+@contextlib.contextmanager
+def billing(sink):
+    """Within the block, each kernel this thread launches calls
+    ``sink(name, plain, args, kwargs)`` with its plain version and the
+    launch's arguments: a ``ctypes`` launch is invisible to the
+    dispatcher, so the cost model's concrete run (method ``compiled``)
+    counts the kernels' work this way."""
+    prev = getattr(_bill, "sink", None)
+    _bill.sink = sink
+    try:
+        yield sink
+    finally:
+        _bill.sink = prev
+
+
+def bill_launch(name: str, plain, *args, **kwargs) -> None:
+    """A launch of kernel ``name``, computing ``plain(*args, **kwargs)``:
+    handed to the thread's :func:`billing` sink, if any."""
+    sink = getattr(_bill, "sink", None)
+    if sink is not None:
+        sink(name, plain, args, kwargs)
+
+
 def on_cpu(x: torch.Tensor) -> bool:
     """The one dispatch rule of every kernel wrapper: the plain PyTorch
     version runs only for a tensor on the CPU; a CUDA tensor goes to the

@@ -264,6 +264,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = False,
             int(bool(causal)), _cuda.stream_handle(q))
     _cuda.check(err, "flash_attention")
     _cuda.count_launch("flash_attention")
+    _cuda.bill_launch("flash_attention", flash_attention_plain, q, k, v,
+                      causal=causal, scale=scale, block_k=BLOCK_K)
     return out.reshape(q.shape)
 
 
@@ -323,6 +325,9 @@ def flash_chunk_cuda(q, k, v, m, l, acc, *, q_offset: int, k_offset: int,
             float(scale), int(bool(causal)), _cuda.stream_handle(q))
     _cuda.check(err, "flash_chunk")
     _cuda.count_launch("flash_chunk")
+    _cuda.bill_launch("flash_chunk", flash_chunk_plain, q, k, v, m, l, acc,
+                      q_offset=q_offset, k_offset=k_offset, causal=causal,
+                      scale=scale, block_k=BLOCK_K)
     return m, l, acc
 
 

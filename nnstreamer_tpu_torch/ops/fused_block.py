@@ -550,4 +550,6 @@ def fused_inverted_residual(x: torch.Tensor, folded: Dict[str, Any], *,
             err = lib.nnstpu_fused_inverted_residual(*args)
     _cuda.check(err, "fused_inverted_residual")
     _cuda.count_launch("fused_inverted_residual")
+    _cuda.bill_launch("fused_inverted_residual", inverted_residual_plain, x,
+                      folded, residual=bool(residual), compute_dtype=cd)
     return out

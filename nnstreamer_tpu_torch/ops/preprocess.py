@@ -46,4 +46,6 @@ def normalize_u8(x: torch.Tensor, scale: float = 1.0 / 127.5,
             _cuda.stream_handle(x))
     _cuda.check(err, "normalize_u8")
     _cuda.count_launch("normalize_u8")
+    _cuda.bill_launch("normalize_u8", normalize_u8_plain, x, scale, offset,
+                      out_dtype)
     return y

@@ -97,4 +97,6 @@ def arith_chain(x: torch.Tensor, ops: Sequence[Op],
             _cuda.stream_handle(x))
     _cuda.check(err, "arith_chain")
     _cuda.count_launch("arith_chain")
+    _cuda.bill_launch("arith_chain", arith_chain_plain, x, ops, out_dtype,
+                      clamp)
     return y

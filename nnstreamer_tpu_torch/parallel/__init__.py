@@ -1,8 +1,9 @@
 """Multi-device parallelism (counterpart of the JAX package's
 ``parallel/``): device meshes with dp/tp/sp axes, driven by one process,
-and the placement of batches and weights over them (the filter's
-``shard=``). The sequence-parallel attention that runs over an sp axis is
-in ``ops/attention.py``.
+the placement of batches and weights over them (the filter's ``shard=``)
+and the train step, sharded over a mesh (``parallel/train.py``). The
+sequence-parallel attention that runs over an sp axis is in
+``ops/attention.py``.
 """
 
 from nnstreamer_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -19,3 +20,4 @@ from nnstreamer_tpu_torch.parallel.mesh import (  # noqa: F401
     visible_device_count,
     visible_devices,
 )
+from nnstreamer_tpu_torch.parallel.train import make_train_step  # noqa: F401,E402

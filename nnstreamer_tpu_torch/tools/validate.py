@@ -15,8 +15,9 @@ Library use: ``issues = validate(parse_launch("..."))`` — each issue is
 :class:`Diagnostic` objects.
 
 CLI exit codes (CI gating): 0 clean / 1 warnings / 2 errors; ``--strict``
-promotes warnings to errors. The JAX package's ``--tune``, ``--aot`` and
-``--deploy`` wait with their analyses (ROADMAP.md queue 1).
+promotes warnings to errors. ``--tune`` hands the invocation to the
+autotuner's CLI (:func:`analysis.tuner.tune_main`). The JAX package's
+``--aot`` and ``--deploy`` wait with their analyses (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -61,11 +62,20 @@ def main(argv=None) -> int:
     passes (NNST70x) and prints the per-element cost table and roofline
     bottleneck. ``--json`` emits one deterministic JSON document (code /
     severity / member / element / span / path / line / fix-hint per
-    diagnostic) instead of text — exit codes unchanged. Exit 0 clean /
-    1 warnings / 2 errors (``--strict``: warnings exit 2)."""
+    diagnostic) instead of text — exit codes unchanged. ``--tune`` hands
+    the whole invocation to the autotuner's CLI (static config-space
+    search and measured top-K validation; its own flags --objective,
+    --top-k, --json, --no-measure apply, and ``NNSTPU_TUNE_MEASURE=0``
+    skips the measured phase; exit 0, or 2 on a broken line or a fully
+    pruned space). Exit 0 clean / 1 warnings / 2 errors (``--strict``:
+    warnings exit 2)."""
     import sys
 
     args = list(sys.argv[1:] if argv is None else argv)
+    if "--tune" in args:
+        from nnstreamer_tpu_torch.analysis.tuner import tune_main
+
+        return tune_main([a for a in args if a != "--tune"])
     strict = "--strict" in args
     verbose = "--verbose" in args
     cost = "--cost" in args

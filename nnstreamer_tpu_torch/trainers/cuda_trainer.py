@@ -16,7 +16,13 @@ model_config accepts a zoo name (``mobilenet_v2``) or a ``.py`` file with
 ``device:cpu`` to train on the CPU (the tests; the JAX trainer hands the
 key to its model, which ignores it, so one launch line runs
 through both packages). Without it the trainer runs on ``cuda`` and raises
-when torch sees no card. ``mesh:`` (a sharded step) raises.
+when torch sees no card. ``mesh:1`` trains with the sharded step
+(:class:`parallel.train.MeshTrainStep`) over ``make_mesh(tp=N)`` of the
+visible devices (``tp:N``, default 1; dp = devices / N;
+``NNSTPU_TORCH_DEVICES`` names them, as for the filter's ``shard=``):
+each flush places the batch's rows on the mesh, and validation,
+``save`` and the refold read the model's own module, which gets the
+trained weights after every step.
 
 A zoo model trains through its ``train_apply_fn`` (BatchNorm by the
 batch's statistics, running statistics by flax's EMA); MobileNet-v2 has
@@ -90,6 +96,7 @@ class CudaTrainer(TrainerFramework):
         self._device = None
         self._opt = None
         self._step = None
+        self._mesh = None
         self._eval_step = None
         self._batch: List[List[np.ndarray]] = []
         self._val_batch: List[List[np.ndarray]] = []
@@ -110,17 +117,10 @@ class CudaTrainer(TrainerFramework):
     # -- lifecycle ----------------------------------------------------------
     def create(self, props: TrainerProperties) -> None:
         from nnstreamer_tpu_torch.models import get_model, load_py_model
-        from nnstreamer_tpu_torch.parallel.train import (
-            make_eval_step,
-            make_train_step,
-        )
+        from nnstreamer_tpu_torch.parallel.train import make_eval_step
 
         super().create(props)
         custom = dict(props.custom)
-        if custom.get("mesh"):
-            raise NotImplementedError(
-                "custom=mesh (a sharded train step) is not ported to the "
-                "torch/CUDA trainer (ROADMAP queue 1 item 4)")
         cfg = props.model_config
         if not cfg:
             raise ValueError("trainer needs model-config=<zoo-name|.py>")
@@ -142,15 +142,41 @@ class CudaTrainer(TrainerFramework):
             custom.get("optimizer", "sgd"), self._bundle.module.parameters(),
             float(custom.get("lr", 1e-3)), float(custom.get("momentum", 0.9)))
         self._loss_kind = custom.get("loss", "softmax_xent")
-        # models with BatchNorm expose train_apply_fn: grads flow only
-        # through the parameters, running statistics update by EMA
-        has_bn = self._bundle.train_apply_fn is not None
-        self._step = make_train_step(
-            self._bundle.train_apply_fn if has_bn else self._bundle.apply_fn,
-            self._opt, loss=self._loss_kind, has_batch_stats=has_bn)
+        self._mesh = None
+        if custom.get("mesh"):
+            from nnstreamer_tpu_torch.parallel.mesh import make_mesh
+
+            self._mesh = make_mesh(tp=int(custom.get("tp", 1)))
+        self._custom = custom
+        self._step = self._make_step()
         # validation always runs the inference-mode apply (frozen batch stats)
         self._eval_step = make_eval_step(self._bundle.apply_fn,
                                          loss=self._loss_kind)
+
+    def _make_step(self):
+        """The train step: over the mesh when ``custom=mesh:1``. Models
+        with BatchNorm expose train_apply_fn: grads flow only through the
+        parameters, running statistics update by EMA."""
+        from nnstreamer_tpu_torch.parallel.train import make_train_step
+
+        b = self._bundle
+        has_bn = b.train_apply_fn is not None
+        return make_train_step(
+            b.train_apply_fn if has_bn else b.apply_fn, self._opt,
+            mesh=self._mesh, loss=self._loss_kind, has_batch_stats=has_bn,
+            module=b.module, replicate=self._template)
+
+    def _template(self):
+        """A fresh (apply, module) pair of the trained model on the
+        ``meta`` device, for one dp row of the sharded step (which
+        replaces every tensor of it)."""
+        from nnstreamer_tpu_torch.models import build_with_state
+
+        custom = {k: v for k, v in self._custom.items() if k != "fused"}
+        state = {k: torch.empty_like(v, device="meta")
+                 for k, v in self._bundle.module.state_dict().items()}
+        b = build_with_state(self.props.model_config, custom, "meta", state)
+        return (b.train_apply_fn or b.apply_fn), b.module
 
     def destroy(self) -> None:
         self._bundle = self._opt = self._step = self._eval_step = None
@@ -306,6 +332,8 @@ class CudaTrainer(TrainerFramework):
 
         self._bundle.module.load_state_dict(read_state(path))
         weights_changed(self._bundle.module)
+        if self._step is not None and self._mesh is not None:
+            self._step = self._make_step()  # re-place the restored weights
         log.info("restored params from %s", path)
 
 

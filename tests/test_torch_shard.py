@@ -14,7 +14,7 @@ numpy at rtol=1e-6 in both. The reference's memory-plan cases fail there
 — with distinct device names (``cuda:0,...,cuda:7``, never run), where the
 port's rows must equal what the reference's tests assert, and with one
 repeated device, where each device's row sums every position on it. The
-tuner cases wait for the tuner. Last, the small MobileNet-v2 of
+tuner cases are in tests/test_torch_tuner.py. Last, the small MobileNet-v2 of
 tests/test_torch_pipeline.py on the same weights: the port under
 ``shard=dp mesh=4x1`` and ``shard=tp mesh=1x2`` against the JAX line
 under the same ``shard=`` with ``fused:xla``.

@@ -11,8 +11,8 @@ builds. The cases the reference fails only through its cost model (the
 memory plan's ring billing, the NNST462 verdict, ``auto`` resolution,
 joint resolution) are held on the port alone to what those tests assert.
 
-Left out: the tuner cases and the chain-fused head (their modules are not
-ported) and the span-sampling cases (the sampling is
+Left out: the tuner cases (tests/test_torch_tuner.py holds them), the
+chain-fused head (its module is not ported) and the span-sampling cases (the sampling is
 the per-buffer path's, held by tests/test_torch_trace.py). A CUDA-graph
 window cannot be captured here: ``chip_smoke.py``'s ``loop`` phase holds
 it on the card.

@@ -795,14 +795,19 @@ def test_trainer_without_cpu_key_needs_a_card(tmp_path, monkeypatch):
         CudaTrainer().create(TrainerProperties(model_config=str(model)))
 
 
-@pytest.mark.parametrize("custom,match", [
-    ({"mesh": "1"}, "ROADMAP queue 1 item 4"),
+@pytest.mark.parametrize("custom,shape", [
+    ({"mesh": "1"}, (4, 1)),
+    ({"mesh": "1", "tp": "2"}, (2, 2)),
 ])
-def test_trainer_raises_for_what_is_not_ported(tmp_path, custom, match):
+def test_trainer_takes_a_mesh(tmp_path, monkeypatch, custom, shape):
+    """``custom=mesh:1[,tp:N]`` builds the sharded step over the visible
+    devices (tests/test_torch_train_mesh.py holds what it computes)."""
     _, model = mlp_models(tmp_path)
-    with pytest.raises(NotImplementedError, match=match):
-        CudaTrainer().create(TrainerProperties(model_config=str(model),
-                                               custom=_cpu(custom)))
+    monkeypatch.setenv("NNSTPU_TORCH_DEVICES", "cpu*4")
+    tr = CudaTrainer()
+    tr.create(TrainerProperties(model_config=str(model),
+                                custom=_cpu(custom)))
+    assert (tr._step.dp, tr._step.tp) == shape
 
 
 @pytest.mark.parametrize("model", ["ssd_mobilenet", "deeplab_v3", "posenet",
@@ -814,8 +819,23 @@ def test_trainer_names_models_without_a_train_forward(model):
 
 
 def test_train_step_with_a_mesh_raises():
+    """A mesh step raises on a batch its dp width does not divide (the
+    JAX package's ``shard_batch``), and trains on one it does."""
+    from nnstreamer_tpu_torch.models import ParamTree
+    from nnstreamer_tpu_torch.parallel.mesh import make_mesh
     from nnstreamer_tpu_torch.parallel.train import make_train_step
 
-    opt = torch.optim.SGD([torch.zeros(1, requires_grad=True)], lr=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        make_train_step(lambda x: x, opt, mesh=object())
+    def model():
+        m = ParamTree({"w": np.ones((FEAT, CLASSES), np.float32)})
+        return (lambda x: x @ m.w), m
+
+    _, module = model()
+    opt = torch.optim.SGD(module.parameters(), lr=0.1)
+    step = make_train_step(None, opt, loss="mse", module=module,
+                           replicate=model, mesh=make_mesh(
+                               dp=4, devices=[torch.device("cpu")] * 4))
+    x, y = torch.ones(6, FEAT), torch.zeros(6, CLASSES)
+    with pytest.raises(ValueError, match="does not divide"):
+        step((x, y))
+    assert float(step((x[:4], y[:4]))["loss"]) == pytest.approx(FEAT ** 2)
+    assert float(module.w.max()) < 1.0
