@@ -355,6 +355,29 @@ Phases, each printing one JSON line:
              with them, the chosen config's labels against the
              baseline's, validate --tune in a subprocess and the cost
              method compiled at batch 128 against the meta method;
+  aot        the compile cache (see check_aot): the flagship with aot:1
+             over a fresh cache, a miss (the worker child builds on the
+             card) then a hit, against an aot:0 play — logits bit-equal,
+             13 + 1 launches a batch, the open and first-output ms, the
+             worker's and the load's ms, then the open and first-output
+             ms of aot:0 against a hit in turns; the preamble-fused
+             flagship and
+             line K (a miss then a hit each, line K also against aot:0),
+             a loop-window=4 flagship keyed apart, a damaged entry
+             quarantined and rebuilt, a budget under the entry's
+             hbm_bytes refused (the play on the kernels, built in
+             process); validate --aot over examples/launch_lines_aot.txt
+             (every EXPECT, then the WARM line played and linted twice:
+             strict-clean, byte-identical); the tracer's aot_report;
+  rollout    safe rollout (see check_rollout): the flagship on checkpoint
+             A (seed 0, models.save_state) with aot:1, a rollout-model
+             event to B (seed 1): promoted after a 64-frame canary and
+             labelling as a line opened on B (flip ms); a B whose first
+             invoke faults rolls back to A, a cache hit, labelling as A
+             (rollback ms); rollout_report;
+  deploy     validate --deploy on every examples/fleet/*.deploy (each its
+             header's verdict), doctor --json and doctor --aot (the card,
+             nvcc, the built library);
 
 then one ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -362,7 +385,9 @@ that last line. It needs a CUDA card: without one it exits 1 at once.
 
 ``--only`` runs the named phases alone (``serve`` needs ``slice`` for
 its frames; ``streams``, ``residency``, ``train``, ``loop``, ``edge``,
-``chain``, ``robust``, ``mesh`` and ``tune`` build their own; ``stride2`` runs inside ``kernel``, the flagship's profile
+``chain``, ``robust``, ``mesh``, ``tune``, ``aot``, ``rollout`` and
+``deploy`` build their own; ``stride2`` runs inside ``kernel``, the
+flagship's profile
 inside ``slice``, the overload and reference lines inside ``serve``) and
 ends after them, without the ``kernels`` and result lines.
 """
@@ -6807,6 +6832,545 @@ def check_tune(torch, results, workdir):
     results["tune_launches"] = total
 
 
+# -- phase: the compile cache (filters/aot.py) --------------------------------
+
+#: batches each play of the aot and rollout phases pushes
+AOT_BATCHES = 2
+#: the order of the timed open turns of the aot phase
+AOT_TURNS = ("aot0", "hit", "hit", "aot0", "aot0", "hit", "hit", "aot0")
+#: the rollout canary's window (frames = the filter's input buffers)
+ROLLOUT_CANARY = 64
+
+
+def _aot_custom(extra: str = "") -> str:
+    return f"seed:0,postproc:argmax,fused:pallas,aot:1{extra}"
+
+
+def _aot_cascade_line(labels: str, aot: str = "1") -> str:
+    """Line K (the cascade of the chain phase) with the head's cache
+    gate ``aot``."""
+    return _cascade_line(labels).replace(
+        "custom=seed:0,fused:pallas", f"custom=seed:0,fused:pallas,aot:{aot}")
+
+
+def _aot_play(torch, line, frames, n_batches=AOT_BATCHES, name="f",
+              logits=True):
+    """Parse and play ``line``, push ``n_batches`` batches and EOS: the
+    labels, the launches of the run, the ms from the parse to the end of
+    ``play()`` (the filter's open) and to the first output, the tracer's
+    aot section of ``name`` and, with ``logits``, the model logits of the
+    program the filter ran (the loaded entry's or the in-process build's)
+    on the first batch, computed after the launches were read."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch import trace
+    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    first = []
+    t0 = time.perf_counter()
+    p = parse_launch(line)
+    tracer = trace.attach(p)
+    p["out"].connect_new_data(
+        lambda b: first.append(time.perf_counter()) if not first else None)
+    p.play()
+    t_play = time.perf_counter()
+    for i in range(n_batches * BATCH):
+        p["src"].push_buffer(Buffer(tensors=[frames[i % len(frames)]], pts=i))
+    p["src"].end_of_stream()
+    if not p.bus.wait_eos(600) or p.bus.error is not None:
+        raise RuntimeError(f"aot play failed: {p.bus.error}")
+    t_end = time.perf_counter()
+    launches = dict(_cuda.LAUNCHES)
+    out = [lab for b in p["out"].collected for lab in b.meta["label"]]
+    fw = p[name].fw
+    r = {"labels": out, "launches": launches,
+         "open_ms": (t_play - t0) * 1e3, "first_ms": (first[0] - t0) * 1e3,
+         "seconds": t_end - t0,
+         "aot": (tracer.report().get("aot") or {}).get(name, {}),
+         "builds": fw.compile_stats()["jit_traces"],
+         "from_cache": any(fw._aot_tried.values()),
+         "loop_state": p[name]._loop_state,
+         "loop_refused": p[name]._loop_refused}
+    if logits:
+        x = torch.from_numpy(np.stack(frames[:BATCH])).cuda()
+        with torch.inference_mode():
+            r["logits"] = fw._bundle.apply_fn(x).float().cpu()
+    p.stop()
+    return r
+
+
+def _aot_outcomes(r) -> list:
+    return [e["outcome"] for e in r["aot"].get("events", [])]
+
+
+def _aot_check(name, r, outcomes, per_batch, n=AOT_BATCHES):
+    got = _aot_outcomes(r)
+    if got != outcomes:
+        raise AssertionError(f"aot {name}: outcomes {got}, want {outcomes}")
+    for k, v in per_batch.items():
+        if r["launches"].get(k, 0) != v * n:
+            raise AssertionError(f"aot {name}: {r['launches']}, want "
+                                 f"{per_batch} per batch")
+
+
+def _aot_summary(r) -> dict:
+    ev = r["aot"].get("events", [])
+    return {"open_ms": r["open_ms"], "first_ms": r["first_ms"],
+            "outcomes": [e["outcome"] for e in ev],
+            "compile_ms": sum(e["compile_ms"] for e in ev),
+            "load_ms": sum(e["load_ms"] for e in ev),
+            "launches": r["launches"], "builds": r["builds"]}
+
+
+def _add_into(total, launches) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _spawn(args, env):
+    """Start ``python -m <args>`` from the checkout's root (a child that
+    runs beside the caller's work: each costs seconds to start)."""
+    return subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _collect(proc, timeout=300):
+    """(rc, stdout, stderr) of a :func:`_spawn` child; kills it at the
+    timeout."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    return proc.returncode, out, err
+
+
+def _aot_lint_fixture():
+    """The fixture's lines and their EXPECT codes."""
+    path = os.path.join(ROOT, "examples", "launch_lines_aot.txt")
+    lines, expects, expect = [], [], None
+    with open(path) as f:
+        for raw in f:
+            s = raw.strip()
+            if s.startswith("# EXPECT:"):
+                expect = s.split(":", 1)[1].strip().split(",")
+            elif s and not s.startswith("#"):
+                lines.append(s)
+                expects.append(expect)
+                expect = None
+    return path, lines, expects
+
+
+def _aot_lint(env, cold) -> dict:
+    """validate --aot over examples/launch_lines_aot.txt (``cold``: the
+    child started on a cold cache at the phase's start): each line's
+    codes hold its EXPECT; then the WARM line played once in this
+    process, linted twice warm in two children side by side:
+    strict-clean, byte-identical."""
+    path, lines, expects = _aot_lint_fixture()
+    rc, out, err = _collect(cold)
+    doc = json.loads(out)
+    codes = [sorted({d["code"] for d in r["diagnostics"]})
+             for r in doc["results"]]
+    missing = [(i, e) for i, (e, c) in enumerate(zip(expects, codes))
+               if e is not None and not set(e) <= set(c)]
+    if missing or len(codes) != len(lines):
+        raise AssertionError(f"validate --aot: EXPECT missing {missing} in "
+                             f"{codes}")
+    # the WARM line: one play on the card warms its entry
+    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    import numpy as np
+
+    warm = lines[0]
+    p = parse_launch(warm.replace("! tensor_sink", "! tensor_sink name=out")
+                     .replace("appsrc ", "appsrc name=src ", 1))
+    p.play()
+    p["src"].push_buffer(Buffer(tensors=[np.zeros((2, 4), np.float32)]))
+    p["src"].end_of_stream()
+    if not p.bus.wait_eos(120):
+        raise RuntimeError("the WARM line did not reach EOS")
+    p.stop()
+    t0 = time.perf_counter()
+    runs = [_collect(p) for p in [
+        _spawn(["nnstreamer_tpu_torch.tools.validate", "--aot", "--strict",
+                "--verbose", warm], env) for _ in range(2)]]
+    warm_s = time.perf_counter() - t0
+    if runs[0][0] != 0 or runs[0][1] != runs[1][1] \
+            or "1/1 predicted warm" not in runs[0][1]:
+        raise AssertionError(f"warm lint: rc {runs[0][0]}, "
+                             f"{runs[0][1][-800:]}{runs[0][2][-800:]}")
+    return {"lines": len(lines), "codes": codes, "cold_rc": rc,
+            "warm_rc": runs[0][0], "warm_byte_identical": True,
+            "warm_lints_s": warm_s}
+
+
+def check_aot(torch, results, workdir):
+    """The compile cache on the card: the flagship with ``aot:1`` over a
+    fresh cache (a miss whose worker child builds on the card, then a
+    hit), its logits bit-equal to an ``aot:0`` play, 13 fused-block and 1
+    normalize_u8 launches a batch in each play; the preamble-fused
+    flagship and line K with entries of their own, each a hit on its
+    second play; a loop-window=4 flagship keyed apart from the solo
+    entry; a corrupted entry quarantined and recompiled; a budget below
+    the entry's hbm_bytes refused, the play still on the kernels;
+    ``validate --aot`` over examples/launch_lines_aot.txt."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.filters import aot
+    from nnstreamer_tpu_torch.filters.cuda_filter import TorchCudaFilter
+
+    labels, frames = _phase_frames(torch, results, workdir)
+    card = results["card"]
+    old = os.environ.get("NNSTPU_AOT_CACHE")
+    # validate --aot over the fixture on a cold cache of its own, in a
+    # child that runs beside the plays
+    lint_env = dict(os.environ, NNSTPU_AOT_CACHE=os.path.join(workdir,
+                                                              "aot-lint"))
+    cold_lint = _spawn(["nnstreamer_tpu_torch.tools.validate", "--aot",
+                        "--json", "--file", _aot_lint_fixture()[0]],
+                       lint_env)
+    os.environ["NNSTPU_AOT_CACHE"] = os.path.join(workdir, "aot")
+    total: dict = {}
+    try:
+        solo = _labeling_line(labels, "mobilenet_v2", _aot_custom())
+        r0 = _aot_play(torch, solo.replace("aot:1", "aot:0"), frames)
+        miss = _aot_play(torch, solo, frames)
+        worker = dict(aot.LAST_WORKER)
+        hit = _aot_play(torch, solo, frames)
+        per = {"fused_inverted_residual": 13, "normalize_u8": 1}
+        _aot_check("aot:0", r0, [], per)
+        _aot_check("miss", miss, ["miss-compiled"], per)
+        _aot_check("hit", hit, ["hit"], per)
+        for r in (miss, hit):
+            if r["labels"] != r0["labels"] or r["builds"] != 0 \
+                    or not r["from_cache"]:
+                raise AssertionError("aot: the cached program's labels or "
+                                     "builds differ from aot:0's")
+            if not torch.equal(r["logits"], r0["logits"]):
+                raise AssertionError(
+                    "aot: logits not bit-equal to aot:0's (max abs "
+                    f"{max_err(r['logits'], r0['logits'])})")
+        for r in (r0, miss, hit):
+            _add_into(total, r["launches"])
+        emit("aot", part="flagship", aot0=_aot_summary(r0),
+             miss=_aot_summary(miss), hit=_aot_summary(hit), worker=worker,
+             logits_bit_equal=True, batches=AOT_BATCHES, card=card)
+        # the open and first-output ms in turns (aot:0 hit hit aot:0 x2):
+        # the first plays above also paid the process's first cuDNN and
+        # allocator warm-up, which the turns do not
+        turns = {"aot0": [], "hit": []}
+        for mode in AOT_TURNS:
+            r = _aot_play(torch, solo if mode == "hit" else
+                          solo.replace("aot:1", "aot:0"), frames,
+                          logits=False)
+            _aot_check(f"turn {mode}", r, ["hit"] if mode == "hit" else [],
+                       per)
+            if r["labels"] != r0["labels"]:
+                raise AssertionError(f"aot turn {mode}: labels differ")
+            _add_into(total, r["launches"])
+            turns[mode].append((r["open_ms"], r["first_ms"]))
+        emit("aot", part="turns", order=list(AOT_TURNS),
+             open_ms={k: [o for o, _ in v] for k, v in turns.items()},
+             first_ms={k: [f for _, f in v] for k, v in turns.items()},
+             card=card)
+
+        # the preamble-fused flagship and line K: entries of their own
+        pre = _preamble_line(labels).replace(
+            "custom=seed:0,postproc:argmax,fused:pallas",
+            f"custom={_aot_custom()}")
+        pre_runs = [_aot_play(torch, pre, frames, logits=False)
+                    for _ in range(2)]
+        per_pre = {"fused_inverted_residual": 13, "normalize_u8": 0,
+                   "arith_chain": 1}
+        _aot_check("preamble miss", pre_runs[0], ["miss-compiled"], per_pre)
+        _aot_check("preamble hit", pre_runs[1], ["hit"], per_pre)
+        k_runs = [_aot_play(torch, _aot_cascade_line(labels, a), frames,
+                            name="m", logits=False) for a in ("0", "1", "1")]
+        per_k = {"fused_inverted_residual": 13, "normalize_u8": 1,
+                 "arith_chain": 1}
+        _aot_check("line K aot:0", k_runs[0], [], per_k)
+        _aot_check("line K miss", k_runs[1], ["miss-compiled"], per_k)
+        _aot_check("line K hit", k_runs[2], ["hit"], per_k)
+        if any(r["labels"] != r0["labels"] for r in pre_runs) or any(
+                r["labels"] != k_runs[0]["labels"] for r in k_runs[1:]):
+            raise AssertionError("aot: preamble or line K labels differ")
+        for r in pre_runs + k_runs:
+            _add_into(total, r["launches"])
+        # the loop-window=4 flagship keys apart from the solo entry
+        loop = _aot_play(torch, _loop_line_b(
+            labels, "loop-window=4 launch-depth=2").replace(
+                "custom=seed:0,postproc:argmax,fused:pallas",
+                f"custom={_aot_custom()}"), frames, logits=False)
+        ev = loop["aot"].get("events", [])
+        if _aot_outcomes(loop) != ["miss-compiled"] or \
+                ev[0]["spec"].get("loop_window") != 4 or \
+                loop["labels"] != r0["labels"]:
+            raise AssertionError(f"aot loop: {_aot_outcomes(loop)} "
+                                 f"{ev[:1]} {loop['loop_state']} "
+                                 f"{loop['loop_refused']}")
+        _add_into(total, loop["launches"])
+        keys = {e["key"] for r in (miss, pre_runs[0], k_runs[1], loop)
+                for e in r["aot"]["events"]}
+        emit("aot", part="entries", preamble=[_aot_summary(r)
+                                             for r in pre_runs],
+             line_k=[_aot_summary(r) for r in k_runs],
+             loop=_aot_summary(loop), distinct_keys=len(keys),
+             entries=len(aot.cache_entries()),
+             entry_bytes=[r["size"] for r in aot.cache_entries()],
+             card=card)
+        if len(keys) != 4:
+            raise AssertionError(f"aot: {len(keys)} distinct keys, want 4")
+
+        # a corrupted entry is quarantined, then recompiled
+        row = next(r for r in aot.cache_entries()
+                   if r["custom"] == _aot_custom() and not r["spec"]
+                   and r["shapes"] == [[[BATCH, SIZE, SIZE, 3], "uint8"]])
+        with open(row["path"], "wb") as f:
+            f.write(b"damaged")
+        bad = _aot_play(torch, solo, frames, logits=False)
+        _aot_check("quarantine", bad, ["miss-compiled"], per)
+        if aot.quarantined_entries() != [row["file"]]:
+            raise AssertionError(f"aot: quarantine "
+                                 f"{aot.quarantined_entries()}")
+        # a budget below the entry's footprint: refused, built in process
+        hbm = aot.entry_meta(row["path"])["hbm_bytes"]
+        real = TorchCudaFilter._aot_budget
+        TorchCudaFilter._aot_budget = lambda self, n=1: hbm - 1
+        try:
+            refused = _aot_play(torch, solo, frames, logits=False)
+        finally:
+            TorchCudaFilter._aot_budget = real
+        _aot_check("refused", refused, ["refused-budget"], per)
+        if refused["labels"] != r0["labels"] or refused["builds"] != 1:
+            raise AssertionError("aot: the refused play's labels differ")
+        for r in (bad, refused):
+            _add_into(total, r["launches"])
+        emit("aot", part="housekeeping", quarantine=_aot_summary(bad),
+             quarantined=aot.quarantined_entries(), hbm_bytes=hbm,
+             refused=_aot_summary(refused), card=card)
+
+        # validate --aot over the fixture
+        os.environ["NNSTPU_AOT_CACHE"] = lint_env["NNSTPU_AOT_CACHE"]
+        lint = _aot_lint(lint_env, cold_lint)
+        emit("aot", part="validate", **lint, card=card)
+        os.environ["NNSTPU_AOT_CACHE"] = os.path.join(workdir, "aot")
+        emit("aot", part="report", aot_report=miss["aot"],
+             hit_report=hit["aot"], card=card)
+    finally:
+        if cold_lint.poll() is None:
+            cold_lint.kill()
+            cold_lint.communicate()
+        if old is None:
+            os.environ.pop("NNSTPU_AOT_CACHE", None)
+        else:
+            os.environ["NNSTPU_AOT_CACHE"] = old
+    results["aot_launches"] = total
+
+
+def _phase_frames(torch, results, workdir):
+    """The flagship's labels file and frames: the slice phase's when it
+    ran, else made here as it makes them."""
+    import numpy as np
+
+    if "flag_frames" in results:
+        return results["flag_labels"], results["flag_frames"]
+    labels = os.path.join(workdir, "labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class{i}" for i in range(1001)) + "\n")
+    rng = np.random.default_rng(0)
+    frames = [np.kron(rng.integers(0, 256, (4, 4, 3)),
+                      np.ones((SIZE // 4, SIZE // 4, 1))).astype(np.uint8)
+              for _ in range(BATCH)]
+    return labels, frames
+
+
+# -- phase: safe rollout --------------------------------------------------------
+
+def _rollout_line(labels: str, model: str, extra: str = "") -> str:
+    """The flagship on checkpoint ``model`` with the cache on, each
+    output emitted as its invoke returns (no fetch window)."""
+    return _labeling_line(
+        labels, model, "arch:mobilenet_v2,postproc:argmax,fused:pallas,aot:1"
+    ).replace(f"fetch-window={FETCH_WINDOW} ", f"{extra} ")
+
+
+def _rollout_run(torch, labels, frames, a, b, n_after, fault=False):
+    """Open the flagship on checkpoint ``a``, push 2 batches, send a
+    ``rollout-model`` event naming ``b`` (``fault``: B's first invoke
+    raises through testing/faults.py), push ``n_after`` batches, EOS.
+    Returns the labels per batch, the launches, the tracer report."""
+    from nnstreamer_tpu_torch import trace
+    from nnstreamer_tpu_torch.buffer import Buffer, Event
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+    from nnstreamer_tpu_torch.testing import faults
+
+    p = parse_launch(_rollout_line(
+        labels, a, f"rollout-canary-frames={ROLLOUT_CANARY}"))
+    tracer = trace.attach(p)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    p.play()
+
+    def push(k0, n):
+        for i in range(k0 * BATCH, (k0 + n) * BATCH):
+            p["src"].push_buffer(Buffer(tensors=[frames[i % len(frames)]],
+                                        pts=i))
+
+    push(0, 2)
+    _wait_for(lambda: [len(p["out"].collected)], 2, p, "rollout")
+    if fault:
+        faults.install("invoke-raise", times=1, match="f")
+    t0 = time.perf_counter()
+    p["f"].sink_pad.receive_event(Event("rollout-model", {"model": b}))
+    event_s = time.perf_counter() - t0
+    try:
+        push(2, n_after)
+        p["src"].end_of_stream()
+        if not p.bus.wait_eos(600) or p.bus.error is not None:
+            raise RuntimeError(f"rollout line failed: {p.bus.error}")
+    finally:
+        faults.clear()
+    launches = dict(_cuda.LAUNCHES)
+    out = [b.meta["label"] for b in p["out"].collected]
+    rep = tracer.report()
+    p.stop()
+    return out, launches, rep, event_s
+
+
+def check_rollout(torch, results, workdir):
+    """Safe rollout on the card: the flagship on checkpoint A (seed 0,
+    ``models.save_state``) with ``aot:1``; a ``rollout-model`` event moves
+    it to B (seed 1). A clean B is promoted after a 64-frame canary and
+    then labels as a line opened on B; a B whose first invoke faults
+    rolls back to A, whose reload is a compile-cache hit, and then labels
+    as A."""
+    from nnstreamer_tpu_torch.models import build_bundle, save_state
+
+    labels, frames = _phase_frames(torch, results, workdir)
+    card = results["card"]
+    ckpt = {}
+    for tag, seed in (("a", 0), ("b", 1)):
+        bundle = build_bundle("mobilenet_v2",
+                              {"seed": str(seed), "fused": "pallas"}, "cuda")
+        ckpt[tag] = os.path.join(workdir, f"mbv2_{tag}.npz")
+        save_state(bundle.module.state_dict(), ckpt[tag])
+        del bundle
+    old = os.environ.get("NNSTPU_AOT_CACHE")
+    os.environ["NNSTPU_AOT_CACHE"] = os.path.join(workdir, "aot-rollout")
+    total: dict = {}
+    try:
+        want = {}
+        for tag in ("a", "b"):
+            r = _aot_play(torch, _rollout_line(labels, ckpt[tag]), frames,
+                          logits=False)
+            _add_into(total, r["launches"])
+            want[tag] = r["labels"][:BATCH]
+        if want["a"] == want["b"]:
+            raise AssertionError("rollout: checkpoints A and B label alike")
+        n_after = ROLLOUT_CANARY + 2
+        out, launches, rep, flip_s = _rollout_run(
+            torch, labels, frames, ckpt["a"], ckpt["b"], n_after)
+        _add_into(total, launches)
+        ro = rep["rollout"]["f"]
+        started = [e for e in ro["events"] if e["decision"] == "started"][0]
+        if (ro["promoted"], ro["rolled_back"]) != (1, 0) or \
+                out[-1] != want["b"] or out[0] != want["a"]:
+            raise AssertionError(f"rollout: clean B {ro}")
+        per = launches.get("fused_inverted_residual", 0) / 13
+        if per != len(out) or launches.get("normalize_u8") != len(out):
+            raise AssertionError(f"rollout: launches {launches} for "
+                                 f"{len(out)} batches")
+        emit("rollout", part="promote", batches=len(out),
+             canary_frames=ROLLOUT_CANARY, flip_ms=started["flip_ms"],
+             event_ms=flip_s * 1e3, decisions=[e["decision"]
+                                               for e in ro["events"]],
+             aot=[(e["outcome"], e["compile_ms"], e["load_ms"])
+                  for e in rep["aot"]["f"]["events"]],
+             launches=launches, labels_equal_b=True, card=card)
+        out, launches, rep, _ = _rollout_run(
+            torch, labels, frames, ckpt["a"], ckpt["b"], 4, fault=True)
+        _add_into(total, launches)
+        ro = rep["rollout"]["f"]
+        rb = [e for e in ro["events"] if e["decision"] == "rolled-back"]
+        outcomes = [e["outcome"] for e in rep["aot"]["f"]["events"]]
+        if not rb or ro["promoted"] or outcomes[-1] != "hit" or \
+                out[-1] != want["a"]:
+            raise AssertionError(f"rollout: faulted B {ro} {outcomes}")
+        emit("rollout", part="rollback", batches=len(out),
+             rollback_ms=rb[0]["rollback_ms"], reason=rb[0]["reason"],
+             frames_used=rb[0]["frames_used"], aot=outcomes,
+             launches=launches, labels_equal_a=True, card=card)
+        emit("rollout", part="report", rollout_report=rep["rollout"],
+             card=card)
+    finally:
+        if old is None:
+            os.environ.pop("NNSTPU_AOT_CACHE", None)
+        else:
+            os.environ["NNSTPU_AOT_CACHE"] = old
+    results["rollout_launches"] = total
+
+
+# -- phase: the deployment analyzer and doctor -----------------------------------
+
+def check_deploy(torch, results, workdir):
+    """``validate --deploy`` on each of examples/fleet/*.deploy in one
+    child (each gives the verdict its header names, the clean spec
+    none), and beside it ``doctor --json`` and ``doctor --aot``: the
+    card, nvcc and the built kernel library."""
+    import glob
+
+    card = results["card"]
+    env = dict(os.environ, NNSTPU_AOT_CACHE=os.path.join(workdir,
+                                                         "aot-deploy"))
+    specs = sorted(glob.glob(os.path.join(ROOT, "examples", "fleet",
+                                          "*.deploy")))
+    args = ["nnstreamer_tpu_torch.tools.validate", "--json"]
+    for spec in specs:
+        args += ["--deploy", spec]
+    t0 = time.perf_counter()
+    children = [_spawn(args, env),
+                _spawn(["nnstreamer_tpu_torch.tools.doctor", "--json"], env),
+                _spawn(["nnstreamer_tpu_torch.tools.doctor", "--aot"], env)]
+    (rc, out, err), doc_json, doc_aot = [_collect(c) for c in children]
+    secs = time.perf_counter() - t0
+    doc = json.loads(out)
+    verdicts = {}
+    for spec, res in zip(specs, doc["results"]):
+        with open(spec) as f:
+            head = f.readline()
+        want = [c for c in ("NNST991", "NNST992", "NNST993", "NNST994",
+                            "NNST995", "NNST996") if c in head]
+        got = sorted({d["code"] for d in res["diagnostics"]
+                      if d["code"].startswith("NNST99")})
+        verdicts[os.path.basename(spec)] = got
+        if not set(want) <= set(got) or "NNST990" not in got or (
+                not want and set(got) != {"NNST990"}):
+            raise AssertionError(f"validate --deploy {spec}: {got}, want "
+                                 f"{want}")
+    emit("deploy", part="validate", specs=len(specs), verdicts=verdicts,
+         exit=doc["exit"], card=card)
+    rep = json.loads(doc_json[1])
+    aot_rc, aot_out, aot_err = doc_aot
+    k = rep["kernels"]
+    name = torch.cuda.get_device_name(0)
+    if not (any(name in d for d in rep["devices"]) and k["nvcc"]
+            and k["built"] and rep["hw"]["has_gpu"] and aot_rc == 0
+            and "AOT cache" in aot_out):
+        raise AssertionError(f"doctor: {rep['devices']} {k} "
+                             f"{aot_out[-400:]}{aot_err[-400:]}")
+    emit("deploy", part="doctor", devices=rep["devices"], kernels=k,
+         torch=rep["torch"], aot=aot_out.splitlines()[:3],
+         children_s=secs, card=card)
+
+
 def main() -> int:
     import torch
 
@@ -6855,6 +7419,9 @@ def main() -> int:
         "robust": lambda: check_robust(torch, results, workdir),
         "mesh": lambda: check_mesh(torch, results, workdir),
         "tune": lambda: check_tune(torch, results, workdir),
+        "aot": lambda: check_aot(torch, results, workdir),
+        "rollout": lambda: check_rollout(torch, results, workdir),
+        "deploy": lambda: check_deploy(torch, results, workdir),
     }
     only = None
     if "--only" in sys.argv[1:]:
@@ -6889,7 +7456,7 @@ def main() -> int:
         "streams_launches", "residency_launches", "train_launches",
         "loop_launches", "edge_launches", "chain_launches",
         "robust_launches", "mesh_launches", "train_mesh_launches",
-        "tune_launches"))
+        "tune_launches", "aot_launches", "rollout_launches"))
         for name in src}
     launches["arith_chain"] += results["arith_launches"]
     kernels = []

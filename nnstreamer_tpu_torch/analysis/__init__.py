@@ -21,8 +21,10 @@ Entry points: :func:`analyze` (constructed pipeline) and
 :func:`analyze_launch` (launch string — parse diagnostics included).
 ``tools/validate.py`` wraps these for the CLI/CI.
 
-The JAX package's AOT and deploy passes are not in this package
-(ROADMAP.md queue 1).
+The explicit-only compile-cache pass (:mod:`analysis.aot`, NNST970–972;
+``validate --aot``) and the fleet deployment analyzer
+(:mod:`analysis.deploy`, NNST990–996; ``validate --deploy``) complete
+the JAX package's set.
 
 This ``__init__`` stays import-light (element modules import the schema
 from here); the heavier pass machinery loads on first use.

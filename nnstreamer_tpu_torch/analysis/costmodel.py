@@ -439,7 +439,7 @@ def composition(model: str, custom: Dict[str, str], pre_specs=(),
     (``custom``'s seed or params) on a CPU or a card, it is what
     ``method="compiled"`` runs. Meta builds are cached (LRU)."""
     from nnstreamer_tpu_torch.filters.cuda_filter import compose, make_postproc
-    from nnstreamer_tpu_torch.models import get_model, load_py_model
+    from nnstreamer_tpu_torch.models import build_bundle
     from nnstreamer_tpu_torch.ops.fusion_stages import build_stage_fn
 
     device = torch.device(device)
@@ -448,9 +448,7 @@ def composition(model: str, custom: Dict[str, str], pre_specs=(),
     if bundle is not None:
         _bundle_cache.move_to_end(key)
     else:
-        bundle = (load_py_model(model, custom, device)
-                  if model.endswith(".py") else get_model(model, custom,
-                                                          device))
+        bundle = build_bundle(model, custom, device)
         if device.type == "meta":
             _bundle_cache[key] = bundle
             while len(_bundle_cache) > _BUNDLE_CACHE_MAX:

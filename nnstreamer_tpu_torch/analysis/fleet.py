@@ -1,25 +1,24 @@
 """nnfleet-r static licensing (NNST98x; counterpart of the JAX package's
-``analysis/fleet.py``): failover and hedging.
+``analysis/fleet.py``): rollout + failover/hedging.
 
-The fleet client's hedging has configurations that *cannot* work — not
-"slow", but semantically broken — detectable from properties alone:
+The fleet client's hedging and the tensor_filter rollout canary both
+have configurations that *cannot* work — not "slow", but semantically
+broken — and both are detectable from properties alone:
 
   NNST980  error    hedge-after-ms without an ``endpoints=`` fleet: the
                     legacy single-connection path stamps no ``_rid``, so
                     the server cannot deduplicate a hedged resend — the
                     same frame would be invoked twice (and billed twice
                     by admission control).
+  NNST981  error    rollout-rollback=auto with rollout-canary-frames=0:
+                    the canary window is what observes the regression;
+                    with zero frames watched, the auto-rollback decision
+                    is unreachable and a bad model B serves forever.
   NNST982  warning  endpoints= with exactly one entry plus hedging: the
                     client takes the legacy single-connection path
                     (byte-identical wire), so the hedge knob is a no-op.
 
-The JAX package's NNST981 (``rollout-rollback=auto`` with a zero canary
-window) reads the filter's ``rollout-*`` properties, which this package's
-tensor_filter refuses at construction until rollout is ported (ROADMAP.md
-queue 1): such a line never reaches the passes, so the check waits with
-rollout.
-
-Free: two dict reads per element, no cost model.
+Free: two dict reads per element, no cost model, no compile.
 """
 
 from __future__ import annotations
@@ -29,11 +28,14 @@ from nnstreamer_tpu_torch.analysis.registry import AnalysisContext
 
 def fleet_pass_body(ctx: AnalysisContext) -> None:
     from nnstreamer_tpu_torch.edge.fleet import parse_endpoints
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
     from nnstreamer_tpu_torch.elements.query import TensorQueryClient
 
     for e in ctx.pipeline.elements.values():
         if isinstance(e, TensorQueryClient):
             _check_hedge(ctx, e, parse_endpoints)
+        elif isinstance(e, TensorFilter):
+            _check_rollout(ctx, e)
 
 
 def _check_hedge(ctx: AnalysisContext, e, parse_endpoints) -> None:
@@ -72,3 +74,29 @@ def _check_hedge(ctx: AnalysisContext, e, parse_endpoints) -> None:
              "_rid and the server's RidFilter acks duplicates with "
              "SERVER_BUSY detail=hedge-duplicate",
         span=getattr(e, "_prop_spans", {}).get("hedge_after_ms"))
+
+
+def _check_rollout(ctx: AnalysisContext, e) -> None:
+    configured = (e.properties.get("rollout_model")
+                  or e.properties.get("rollout_canary_frames") is not None
+                  or e.properties.get("rollout_rollback"))
+    if not configured:
+        return
+    rollback = str(e.properties.get("rollout_rollback", "auto") or "auto")
+    if rollback != "auto":
+        return
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
+
+    canary = int(e.properties.get("rollout_canary_frames",
+                                  TensorFilter.ROLLOUT_CANARY_FRAMES) or 0)
+    if canary > 0:
+        return
+    ctx.emit(
+        "NNST981", e,
+        "rollout-rollback=auto with rollout-canary-frames=0: no frame "
+        "is ever watched after the flip, so the regression that would "
+        "trigger the rollback can never be observed — a bad model B "
+        "serves forever",
+        hint="set rollout-canary-frames>0 (default 64) or "
+             "rollout-rollback=off if the flip is meant to be final",
+        span=getattr(e, "_prop_spans", {}).get("rollout_canary_frames"))

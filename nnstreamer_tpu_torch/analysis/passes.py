@@ -24,8 +24,9 @@ order:
   threads      NNST62x — thread topology of a serving route, wait cycles
                           and unbounded reply sends
   pool         NNST96x — replica-serving eligibility verdicts
-  fleet        NNST98x — hedging without an idempotent fleet (the
-                          rollout verdict NNST981 waits for rollout)
+  fleet        NNST98x — rollout/hedging licensing (hedge without
+                          idempotent pairing, unreachable auto-rollback,
+                          single-endpoint hedge no-op)
   ctl          NNST95x — serving-controller SLO feasibility and pins
   churn        NNST800 — variable-shape caps rebuilding a device program;
                NNST802/803 — donation safety and missed donation
@@ -36,9 +37,11 @@ order:
                           budget + roofline bottleneck (opt-in)
   tuner        NNST850/851/852 — the static tune of the launch line's
                           config space (explicit only: ``passes=["tuner"]``)
-
-The JAX package's aot and deploy passes wait for the modules they read
-(ROADMAP.md queue 1).
+  aot          NNST97x — compile-cache compile-point summary, cold-start
+                          warnings, stale-entry detection (explicit only:
+                          stats the on-disk cache)
+  deploy       NNST99x — fleet deployment verdicts over a deploy spec
+                          (explicit only: ``validate --deploy``)
 """
 
 from __future__ import annotations
@@ -817,7 +820,7 @@ def tuner_pass(ctx: AnalysisContext) -> None:
             f"dominated config in use: the static model predicts "
             f"{headroom:.0f}% headroom over the current knobs "
             f"({config_fragment(base['config'])})",
-            hint=f"try: {chosen['launch_fragment']} (validate --tune "
+            hint=f"try: {chosen['launch_fragment']} (doctor --tune "
                  f"validates the top candidates with measured runs)")
 
 
@@ -849,3 +852,40 @@ def _drops_frames(e) -> bool:
     if isinstance(e, TensorIf):
         return "SKIP" in (e.then_action, e.else_action)
     return False
+
+
+# --- NNST97x: the compile cache (nnaot) — explicit-only ------------------
+
+@analysis_pass("aot", opt_in=True, explicit=True)
+def aot_pass(ctx: AnalysisContext) -> None:
+    """Compile-cache verdicts (analysis/aot.py): NNST970
+    compile-point summary with predicted warm/cold outcome per
+    planner-resolved program, NNST971 cold-start warning (element +
+    missing key dimensions + estimated in-line build cost), NNST972
+    stale/quarantined entries that can never be loaded again.
+
+    Explicit-only (``validate --aot`` / ``doctor --aot``): it stats the
+    on-disk cache, so default analyzer output stays byte-identical —
+    and zero NNST97x on pipelines whose AOT gate is off."""
+    from nnstreamer_tpu_torch.analysis.aot import aot_pass_body
+
+    aot_pass_body(ctx)
+
+
+# --- NNST99x: fleet deployment lint (nndeploy) — explicit-only --------------
+
+@analysis_pass("deploy", opt_in=True, explicit=True)
+def deploy_pass(ctx: AnalysisContext) -> None:
+    """Fleet-level deployment verdicts (analysis/deploy.py): NNST990
+    summary, NNST991 broken wiring, NNST992 cross-process signature
+    mismatch, NNST993 fleet SLO infeasibility, NNST994 per-device HBM
+    overcommit from co-resident members, NNST995 rollout hazards,
+    NNST996 cold-start exposure.
+
+    Explicit-only (``validate --deploy <spec>`` / ``doctor --deploy``):
+    its subject is a :class:`analysis.deploy.Fleet` built from a deploy
+    spec, not a single pipeline — on a regular pipeline it is a no-op,
+    so default analyzer output stays byte-identical."""
+    from nnstreamer_tpu_torch.analysis.deploy import deploy_pass_body
+
+    deploy_pass_body(ctx)

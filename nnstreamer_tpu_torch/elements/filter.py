@@ -95,9 +95,16 @@ materializes and pushes downstream. A failed replica invoke runs the
 element's ``on-error`` policy off the streaming thread and tells the
 batch's clients now (SERVER_BUSY, ``replica-error``).
 
-Not ported yet (see ROADMAP.md): the AOT cache and rollout. Setting
-either to other than its default raises at construction instead of being
-ignored.
+Safe rollout (``rollout-model``, ``rollout-canary-frames``,
+``rollout-rollback``): a ``rollout-model`` sink event prefetches model B
+into the compile cache while A serves, drains and flips to B through the
+reload-model machinery, then watches ``rollout-canary-frames`` frames
+(default 64) on the pipeline's fault ledger and, behind a serving source,
+the admitted p99 since the flip. A clean window promotes B; a regression
+(or an invoke that raises inside the window) rolls back to A, whose
+program is still in the cache (``rollout-rollback=auto``), or records the
+verdict and keeps B (``off``). Each decision goes to the tracer's
+``rollout`` section and the bus.
 """
 
 from __future__ import annotations
@@ -143,19 +150,6 @@ from nnstreamer_tpu_torch.types import (
 )
 
 log = get_logger("tensor_filter")
-
-#: JAX-package properties this element does not implement yet, with the
-#: value that means "off" (that value is accepted; any other raises)
-NOT_PORTED = {
-    "rollout_model": "",
-    "rollout_canary_frames": 0,
-    "rollout_rollback": "off",
-}
-
-
-def _is_off(key: str, value) -> bool:
-    return str(value).strip().lower() == str(NOT_PORTED[key])
-
 
 def _block_until_ready(tensors) -> None:
     """Wait for the CUDA work that makes ``tensors``: one synchronise of
@@ -257,9 +251,24 @@ class TensorFilter(Element):
                 else f"expected AxB (e.g. 4x2) or N, got {v!r}"),
             doc="shard mesh axes as dp x tp (e.g. mesh=4x2); empty = "
                 "all visible devices on the mode's own axis"),
-        **{k: Prop("any", doc="not supported in this package")
-           for k in NOT_PORTED},
+        "rollout_model": Prop(
+            "str",
+            doc="safe versioned hot-swap candidate (model B): prefetched "
+                "into the compile cache, drained-and-flipped on the "
+                "'rollout-model' sink event, then canaried (nnfleet-r)"),
+        "rollout_canary_frames": Prop(
+            "int",
+            doc="canary window after the flip: N frames watched on the "
+                "fault ledger + admitted-p99 before the candidate is "
+                "promoted (0 = no canary — NNST981 under rollback=auto)"),
+        "rollout_rollback": Prop(
+            "enum", enum=("auto", "off"),
+            doc="auto rolls back to the pre-flip model on a canary "
+                "regression (a warm compile-cache load)"),
     }
+
+    #: default canary window (frames) when `rollout-canary-frames` unset
+    ROLLOUT_CANARY_FRAMES = 64
 
     #: fetch-window=auto bounds + fetch-overhead target (fetch cost ≤ ~25%
     #: of window compute ⇒ K ≈ 4·t_fetch/t_batch)
@@ -274,14 +283,17 @@ class TensorFilter(Element):
 
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
-        on = [k for k in NOT_PORTED
-              if k in self.properties and not _is_off(k, self.properties[k])]
-        if on:
-            raise ElementError(
-                self.name, "not supported by this package's tensor_filter: "
-                + ", ".join(f"{k.replace('_', '-')}={self.properties[k]}"
-                            for k in on))
         self.fw = None
+        # per-thread invoke-window stamps (serve_invoke reply headers):
+        # replica workers invoke concurrently, so the stamps an _emit_now
+        # pairs with its outputs must be THIS thread's
+        self._inv_tls = threading.local()
+        # rollout canary state: set by the 'rollout-model' sink event
+        # after the drain-and-flip to model B, cleared on promote /
+        # rollback. {old_model, model, frames_left, baseline_faults,
+        # baseline_p99, since, rollback, sched} — chain() checks it per
+        # frame (two counter reads when quiet, never a lock)
+        self._rollout: Optional[dict] = None
         self._fw_props: Optional[FilterProperties] = None
         self._in_info: Optional[TensorsInfo] = None
         self._out_info: Optional[TensorsInfo] = None
@@ -534,6 +546,9 @@ class TensorFilter(Element):
     def stop(self) -> None:
         if self._flush_timer is not None:
             self._flush_timer.cancel()
+        # an armed canary dies with the stream — the flipped model stays
+        # (stop is not a verdict; the decision ring already has 'started')
+        self._rollout = None
         # replica workers drain their queued serve-batches (assembled,
         # clients waiting), then exit — before the backend is released
         # under them; a hung replica is abandoned after the bounded join
@@ -670,6 +685,7 @@ class TensorFilter(Element):
                 int(window), max(1, int(depth)), self._loop_in_info()):
             return False
         self._loop_state = {"window": int(window), "depth": max(1, int(depth))}
+        self._drain_aot_events()
         return True
 
     # -- mesh-partition wiring (planner _plan_sharding) --------------------
@@ -680,6 +696,7 @@ class TensorFilter(Element):
             return False
         self._shard_state = {"mode": str(cfg["mode"]),
                              "dp": int(cfg["dp"]), "tp": int(cfg["tp"])}
+        self._drain_aot_events()
         return True
 
     def clear_shard(self) -> None:
@@ -703,6 +720,7 @@ class TensorFilter(Element):
             return False
         self._replica_state = {"replicas": int(n)}
         self._start_replica_workers(int(n))
+        self._drain_aot_events()
         return True
 
     def clear_replicas(self) -> None:
@@ -710,6 +728,41 @@ class TensorFilter(Element):
         self._stop_replica_workers()
         if self.fw is not None:
             self.fw.build_replicas(0)
+
+    def _drain_aot_events(self) -> None:
+        """Forward the backend's compile-cache outcome records (hit/miss/
+        load-ms/compile-ms per resolution) to the pipeline tracer's
+        ``aot`` section. Cheap when there is nothing to drain — called
+        from the invoke path and the composition install points."""
+        take = getattr(self.fw, "take_aot_events", None)
+        if take is None:
+            return
+        events = take()
+        if not events:
+            return
+        tracer = (getattr(self.pipeline, "tracer", None)
+                  if self.pipeline is not None else None)
+        if tracer is not None and hasattr(tracer, "record_aot"):
+            for ev in events:
+                tracer.record_aot(self.name, ev)
+
+    def _prefetch_swap_aot(self, model: Optional[str] = None) -> None:
+        """Warm the compile cache for an incoming model swap (reload-model's
+        model B, or the fallback framework re-opening the current model)
+        BEFORE the serving backend is torn down: the child process builds
+        while frames still flow, and the swapped-in program's first invoke
+        is a cache load. Best effort — a backend without the hook, or a
+        failed prefetch, just pays the cold start."""
+        pf = getattr(self.fw, "aot_prefetch", None)
+        if pf is None:
+            return
+        try:
+            pf(model)
+        except Exception as e:  # noqa: BLE001 — warmup must never break
+            # the swap machinery it exists to accelerate
+            log.warning("[%s] AOT swap prefetch failed (%s)", self.name,
+                        str(e).splitlines()[0][:120])
+        self._drain_aot_events()
 
     def _drop_replica_pool(self, why: str) -> None:
         """Mid-stream pool teardown (reopen or fallback decline): clear
@@ -1011,8 +1064,17 @@ class TensorFilter(Element):
 
     # -- events ------------------------------------------------------------
     def _on_sink_event(self, pad: Pad, event: Event) -> None:
+        if event.type == "rollout-model":
+            self._handle_rollout_event(pad, event)
+            return
         if event.type == "reload-model":
             new_model = event.data.get("model")
+            if new_model:
+                # prefetch model B's program(s) into the compile cache
+                # while model A STILL SERVES — before taking the window
+                # lock, so the hot loop keeps streaming through the child
+                # build; the reopened backend's first invoke then LOADS
+                self._prefetch_swap_aot(str(new_model))
             # serialized with the hot loop: frames already batched or
             # uploaded for the OLD model invoke against it, and held
             # window entries are emitted, before the swap
@@ -1068,9 +1130,186 @@ class TensorFilter(Element):
                 # head→member is the caps-mapping lock order, and inverting
                 # it here could deadlock a concurrent renegotiation
                 self._recompose_chain_head()
+            self._drain_aot_events()
             self.post_message("model-reloaded", {"model": new_model})
             return
         super()._on_sink_event(pad, event)
+
+    # -- nnfleet-r safe rollout --------------------------------------------
+    def _handle_rollout_event(self, pad: Pad, event: Event) -> None:
+        """Safe versioned hot-swap: AOT-prefetch + drain + flip to model B
+        (the reload-model machinery, reused as it is), then arm the canary
+        window — N frames watched on the pipeline fault ledger and the
+        serving tier's admitted-p99. A regression inside the window rolls
+        back to A (``rollout-rollback=auto``): A's program is still in the
+        compile cache, so the rollback is a warm load, not a build."""
+        new_model = str(event.data.get("model")
+                        or self.properties.get("rollout_model") or "")
+        if not new_model:
+            raise ElementError(
+                self.name,
+                "rollout-model event without a candidate: set "
+                "rollout-model= or carry model in the event data")
+        old_model = str(self.properties.get("model") or "")
+        canary = int(event.data.get(
+            "canary_frames",
+            self.properties.get("rollout_canary_frames",
+                                self.ROLLOUT_CANARY_FRAMES)
+            or 0))
+        rollback = str(event.data.get(
+            "rollback",
+            self.properties.get("rollout_rollback", "auto") or "auto"))
+        sched = self._rollout_sched()
+        now = time.monotonic()
+        # pre-flip baselines: the monotonic fault counter (ring length
+        # lies once it wraps) and the last-30s admitted-p99
+        baseline_faults = self._bus_fault_total()
+        baseline_p99 = (sched.recent_wait_p99(now - 30.0)
+                        if sched is not None else None)
+        slo_ms = 0
+        if sched is not None:
+            slo_ms = int(sched.health_snapshot().get("slo_ms", 0) or 0)
+        t0 = time.perf_counter()
+        try:
+            self._on_sink_event(pad, Event("reload-model",
+                                           {"model": new_model}))
+        except Exception as e:  # noqa: BLE001 — a flip that failed half-
+            # way must not strand the pipeline on a broken backend: put
+            # A back (warm AOT load) and surface the decision
+            log.warning("[%s] rollout flip to %s failed (%s) — restoring "
+                        "%s", self.name, new_model, e, old_model)
+            self._on_sink_event(pad, Event("reload-model",
+                                           {"model": old_model}))
+            self._record_rollout({
+                "decision": "rolled-back", "model": new_model,
+                "old_model": old_model, "reason": f"flip failed: {e}",
+                "frames_used": 0, "flip_ms": round(
+                    (time.perf_counter() - t0) * 1e3, 3)})
+            self._note_rollout_fault()
+            self.post_message("rollout-rolled-back", {
+                "model": new_model, "old_model": old_model,
+                "reason": f"flip failed: {e}"})
+            return
+        flip_ms = round((time.perf_counter() - t0) * 1e3, 3)
+        started = {
+            "decision": "started", "model": new_model,
+            "old_model": old_model, "canary_frames": canary,
+            "rollback": rollback, "flip_ms": flip_ms,
+            "baseline_p99_ms": baseline_p99, "slo_ms": slo_ms,
+        }
+        self._record_rollout(started)
+        self.post_message("rollout-started", dict(started))
+        if canary <= 0:
+            # no canary window: the flip IS the promotion (the NNST981
+            # hazard when rollback=auto — nothing can ever trigger it)
+            self._record_rollout({
+                "decision": "promoted", "model": new_model,
+                "old_model": old_model, "frames_used": 0,
+                "reason": "no canary window"})
+            self.post_message("rollout-promoted", {"model": new_model})
+            return
+        self._rollout = {
+            "old_model": old_model, "model": new_model,
+            "frames_left": canary, "canary_frames": canary,
+            "baseline_faults": baseline_faults,
+            "baseline_p99": baseline_p99, "slo_ms": slo_ms,
+            "since": now, "rollback": rollback, "sched": sched,
+        }
+
+    def _rollout_sched(self):
+        """The serving scheduler feeding this filter's admitted-p99 canary
+        leg, or None (fault-ledger-only canary outside the serving tier)."""
+        from nnstreamer_tpu_torch.analysis.pool import serving_src_for_filter
+
+        src = serving_src_for_filter(self)
+        return getattr(src, "_sched", None) if src is not None else None
+
+    def _bus_fault_total(self) -> int:
+        bus = (getattr(self.pipeline, "bus", None)
+               if self.pipeline is not None else None)
+        if bus is None or not hasattr(bus, "fault_total"):
+            return 0
+        return bus.fault_total()
+
+    def _record_rollout(self, event: dict) -> None:
+        tracer = (getattr(self.pipeline, "tracer", None)
+                  if self.pipeline is not None else None)
+        if tracer is not None and hasattr(tracer, "record_rollout"):
+            tracer.record_rollout(self.name, event)
+
+    def _note_rollout_fault(self) -> None:
+        tracer = (getattr(self.pipeline, "tracer", None)
+                  if self.pipeline is not None else None)
+        if tracer is not None:
+            tracer.record_fault(self.name, "rollout-rollback")
+        if self.pipeline is not None:
+            self.pipeline.bus.record_fault(
+                self.name, "rollout-rollback", "model restored")
+
+    def _rollout_tick(self, pad: Pad) -> None:
+        """Per-frame canary check (active rollout only): the pipeline-wide
+        monotonic fault counter must not advance, and the admitted-p99
+        since the flip must stay under the SLO gate (or 2x the pre-flip
+        baseline when no SLO is configured). Cheap: two counter reads,
+        plus a bounded percentile over the scheduler's recent-wait ring
+        when serving."""
+        ro = self._rollout
+        if ro is None:
+            return
+        fault_delta = self._bus_fault_total() - ro["baseline_faults"]
+        if fault_delta > 0:
+            self._rollout_regressed(
+                pad, f"fault ledger advanced (+{fault_delta}) during "
+                     f"canary", fault_delta=fault_delta)
+            return
+        sched = ro["sched"]
+        if sched is not None:
+            p99 = sched.recent_wait_p99(ro["since"])
+            gate = float(ro["slo_ms"] or 0.0)
+            if gate <= 0.0 and ro["baseline_p99"]:
+                gate = 2.0 * float(ro["baseline_p99"])
+            if p99 is not None and gate > 0.0 and p99 > gate:
+                self._rollout_regressed(
+                    pad, f"admitted p99 {p99:.1f}ms over gate "
+                         f"{gate:.1f}ms during canary", p99_ms=p99)
+                return
+        ro["frames_left"] -= 1
+        if ro["frames_left"] <= 0:
+            self._rollout = None
+            done = {
+                "decision": "promoted", "model": ro["model"],
+                "old_model": ro["old_model"],
+                "frames_used": ro["canary_frames"],
+                "p99_ms": (sched.recent_wait_p99(ro["since"])
+                           if sched is not None else None),
+            }
+            self._record_rollout(done)
+            self.post_message("rollout-promoted", dict(done))
+
+    def _rollout_regressed(self, pad: Pad, reason: str, **observed) -> None:
+        """Canary verdict: regression. ``rollback=auto`` restores model A
+        through the same drain-and-flip (warm AOT load — milliseconds);
+        ``rollback=off`` records the verdict and keeps B serving."""
+        ro, self._rollout = self._rollout, None
+        frames_used = ro["canary_frames"] - ro["frames_left"]
+        if ro["rollback"] != "auto":
+            rec = {"decision": "regressed", "model": ro["model"],
+                   "old_model": ro["old_model"], "reason": reason,
+                   "frames_used": frames_used, **observed}
+            self._record_rollout(rec)
+            self.post_message("rollout-regressed", dict(rec))
+            return
+        t0 = time.perf_counter()
+        self._on_sink_event(pad, Event("reload-model",
+                                       {"model": ro["old_model"]}))
+        rec = {"decision": "rolled-back", "model": ro["model"],
+               "old_model": ro["old_model"], "reason": reason,
+               "frames_used": frames_used,
+               "rollback_ms": round((time.perf_counter() - t0) * 1e3, 3),
+               **observed}
+        self._record_rollout(rec)
+        self._note_rollout_fault()
+        self.post_message("rollout-rolled-back", dict(rec))
 
     def on_upstream_event(self, pad: Pad, event: Event) -> None:
         if event.type == "qos":
@@ -1094,7 +1333,27 @@ class TensorFilter(Element):
                 idle if self._arr_idle_ewma is None
                 else 0.8 * self._arr_idle_ewma + 0.2 * idle)
         try:
-            return self._chain_impl(pad, buf)
+            try:
+                ret = self._chain_impl(pad, buf)
+            except Exception as e:  # noqa: BLE001 — the canary absorbs the
+                # failing frame: an invoke raise during an armed rollout
+                # is the regression the window exists to catch — rolling
+                # back (and dropping this one frame) keeps the stream
+                # alive on model A instead of killing the pipeline
+                if (self._rollout is not None
+                        and self._rollout["rollback"] == "auto"):
+                    self._rollout_regressed(
+                        pad, f"invoke raised during canary: {e}")
+                    if buf.meta.get("serve_routes"):
+                        # serving batch: tell the waiting clients NOW
+                        # (SERVER_BUSY) — a silent drop would strand them
+                        # until their own timeout
+                        self._shed_replica_batch(buf, "rollout-rollback")
+                    return FlowReturn.DROPPED
+                raise
+            if self._rollout is not None:
+                self._rollout_tick(pad)
+            return ret
         finally:
             t_out = time.perf_counter()
             busy = t_out - t_in
@@ -1343,10 +1602,17 @@ class TensorFilter(Element):
             self._restore_loop_rows(rows)
             raise ElementError(self.name, f"invoke failed: {e}") from e
         self._invoke_count += 1
+        self._drain_aot_events()
+        self._inv_tls.t0 = t0
+        self._inv_tls.disp = 0.0
+        self._inv_tls.done = 0.0
+        self._inv_tls.replica = None
         if spans is not None:
-            spans.emit("dispatch", "dispatch", t0, time.perf_counter(),
+            t_disp = time.perf_counter()
+            spans.emit("dispatch", "dispatch", t0, t_disp,
                        args={"element": self.name, "frames": n_valid,
                              "window": window})
+            self._inv_tls.disp = t_disp
         if self._measuring():
             _block_until_ready(outs)
             if self._invoke_count > 1:  # the first window builds
@@ -1494,6 +1760,15 @@ class TensorFilter(Element):
         except Exception as e:
             raise ElementError(self.name, f"invoke failed: {e}") from e
         self._invoke_count += 1
+        self._drain_aot_events()
+        # invoke window for the serving reply headers (serve_invoke): bare
+        # float stamps, per THREAD (replica workers invoke concurrently —
+        # _emit_now must pair outputs with ITS thread's stamps); span mode
+        # adds the dispatch/compute split below
+        self._inv_tls.t0 = t0
+        self._inv_tls.disp = 0.0
+        self._inv_tls.done = 0.0
+        self._inv_tls.replica = replica
         if spans is not None:
             # invoke decomposition: `dispatch` is the backend call until
             # its (async) launches return; a device sync after it puts
@@ -1519,6 +1794,8 @@ class TensorFilter(Element):
                 # the roll-up carves it out of the chain's self time
                 spans.emit("device-sync", "sync", t_disp, t_done,
                            args={"element": self.name, "sync_sample": s})
+                self._inv_tls.done = t_done
+            self._inv_tls.disp = t_disp
         if self._measuring():
             _block_until_ready(outputs)
             if self._invoke_count > 1:  # the first invoke builds; keep it out
@@ -1672,9 +1949,9 @@ class TensorFilter(Element):
         the tracer and the ``degraded-to`` property. The old backend is
         NOT closed: the abandoned invoke may still run inside it on the
         watchdog's worker thread. Kernels are built once per process
-        (ops/_cuda.py), so the fresh instance rebuilds none. The JAX
-        package also warms its AOT cache for a ``jax`` target here; this
-        package has no AOT cache yet (ROADMAP.md queue 1)."""
+        (ops/_cuda.py), so the fresh instance rebuilds none. A ``jax`` or
+        ``torch_cuda`` target's compile-cache entries are warmed first
+        from the old backend (``_prefetch_swap_aot``)."""
         target = self.properties.get("fallback_framework")
         if not target or self._degraded_to is not None:
             return False
@@ -1688,6 +1965,11 @@ class TensorFilter(Element):
                 return False
         from dataclasses import replace as _dc_replace
 
+        if target in ("jax", "torch_cuda"):
+            # the fallback target rebuilds the same model — warm its
+            # cache entries from the OLD backend (still open, still
+            # serving) so the swapped-in program loads at the next invoke
+            self._prefetch_swap_aot()
         fprops = _dc_replace(self._fw_props, framework=target,
                              shared_key=None)
         try:
@@ -2020,6 +2302,26 @@ class TensorFilter(Element):
             self._e2e_us.append((time.monotonic() - t_in) * 1e6)
         out_buf = buf.with_tensors(outputs)
         out_buf.meta["residency"] = residency_of(outputs)
+        if "serve_routes" in out_buf.meta or "_tracex" in out_buf.meta:
+            # the serving/query reply path turns this window into the
+            # request's device stage(s) (elements/query.py). t1 is stamped
+            # HERE, so a boundary materialization above is inside the
+            # window. The disp/done stamps only exist in span mode — >=
+            # guards drop stale ones from an earlier span-mode invoke
+            t_inv0 = getattr(self._inv_tls, "t0", 0.0)
+            if t_inv0:
+                win = {"t0_ns": int(t_inv0 * 1e9)}
+                disp = getattr(self._inv_tls, "disp", 0.0)
+                if disp >= t_inv0:
+                    win["disp_ns"] = int(disp * 1e9)
+                    done = getattr(self._inv_tls, "done", 0.0)
+                    if done >= disp:
+                        win["done_ns"] = int(done * 1e9)
+                win["t1_ns"] = time.perf_counter_ns()
+                rep = getattr(self._inv_tls, "replica", None)
+                if rep is not None:
+                    win["replica"] = int(rep)
+                out_buf.meta["serve_invoke"] = win
         return self.push(out_buf)
 
     # -- micro-batching ----------------------------------------------------

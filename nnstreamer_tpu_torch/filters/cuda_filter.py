@@ -87,17 +87,39 @@ a card that is asked for and absent makes ``open`` raise.
     one serve-batch there. Replica 0 on this backend's device is the solo
     model itself.
 
+  - **compile cache** (``custom=aot:1``, or ``NNSTPU_AOT=1``;
+    filters/aot.py): ``open`` builds only a skeleton of the model on the
+    ``meta`` device (``models.skeleton_bundle``: shapes for negotiation,
+    no weights), and the first invoke of each input signature resolves
+    its key (the signature and the composition: fused stages, chain,
+    window, mesh, replica placement) in the cache — or, on a miss, has a
+    child process (filters/aot_worker.py) build the entry on this device
+    first. The entry is the models' state folded and cast by that child;
+    its bundles are swapped in for the skeleton (a chain tail's for the
+    tail's own skeleton) and the filter composes around them with its own
+    code, as it does in process. Nothing is folded, no seed is drawn and
+    no ``nvcc`` runs in this process. A miss the child could not fill
+    (``miss-failed``) or an entry over the memory budget
+    (``refused-budget``) builds in process, through the same kernels.
+    ``aot_prefetch`` warms an entry without loading it (reload-model's
+    model B, a pended serve-batch); ``take_aot_events`` drains the
+    outcome records the element forwards to the tracer.
+
 Model naming: zoo names (``mobilenet_v2``) with weights from
 ``custom=seed:<n>`` or ``custom=params:<path>`` (an ``.npz``, or what the
-trainer saved: a file or a directory), and embedded-Python ``.py`` model
-files (:func:`models.load_py_model`, the JAX backend's ``_load_py_model``).
-The JAX backend's ``.jaxexport``/``.msgpack``/SavedModel sources and its
-AOT cache are not ported; the custom keys that would ask for them raise.
+trainer saved: a file or a directory), checkpoint files
+(``model=<file> custom=arch:<zoo-name>``: what ``models.save_state``
+wrote, where the JAX backend reads a flax ``.msgpack``), and
+embedded-Python ``.py`` model files (:func:`models.load_py_model`, the JAX
+backend's ``_load_py_model``). The JAX backend's ``.jaxexport`` and
+SavedModel sources are not ported.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import threading
 import time
 from types import SimpleNamespace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -114,21 +136,26 @@ from nnstreamer_tpu_torch.filters.base import (
 )
 from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.models import (
+    FoldedState,
     ModelBundle,
+    build_bundle,
     build_with_state,
-    get_model,
-    load_py_model,
+    restore_folded,
+    skeleton_bundle,
     weights_version,
 )
 from nnstreamer_tpu_torch.types import TensorInfo, TensorsInfo
 
 log = get_logger("torch_cuda")
 
-#: custom keys of the JAX backend whose features this backend lacks
-_NOT_PORTED_CUSTOM = ("aot", "arch")
-#: ``custom=aot:<v>`` values that turn the JAX backend's ahead-of-time
-#: compile off, which is what this backend always does: accepted
-_AOT_OFF = ("0", "false", "no")
+
+def _aot_enabled(custom: Dict[str, str]) -> bool:
+    """The compile cache's gate: ``custom=aot:0|1`` first, then
+    ``NNSTPU_AOT=0|1``, else off (the JAX backend turns it on by default
+    on a TPU, where an in-process compile degrades its transfer link;
+    nothing here degrades, so the default is off)."""
+    v = custom.get("aot", os.environ.get("NNSTPU_AOT", ""))
+    return str(v).strip().lower() in ("1", "true", "yes")
 
 
 def make_postproc(custom: Dict[str, str]):
@@ -273,6 +300,7 @@ class TorchCudaFilter(FilterFramework):
         self._shard_installed = False
         self._mesh_bundles: List[ModelBundle] = []
         self._mesh_params: Optional[Dict[str, Any]] = None
+        self._mesh_pending = False
         self._mesh_streams: List[Any] = []
         self._mesh_staging: List[Optional[_StagingRing]] = []
         self._solo_state: Optional[Dict[str, torch.Tensor]] = None
@@ -282,6 +310,23 @@ class TorchCudaFilter(FilterFramework):
         self._replica_bundles: List[ModelBundle] = []
         self._replica_streams: List[Any] = []
         self._replica_tokens: List[Any] = []
+        # compile cache (see the module docstring): whether this open
+        # wants it, whether the bundle is still the meta skeleton, per key
+        # (kind, signature) whether the cache served it, and the outcome
+        # records the element drains
+        self._aot_wanted = False
+        self._skeleton = False
+        self._aot_tried: Dict[tuple, bool] = {}
+        self._aot_events: List[Dict] = []
+        self._model_name: Optional[str] = None
+        self._custom_str = ""
+        # the last solo invoke's signature; it survives a reload, so the
+        # swap's prefetch warms the signature the stream runs at
+        self._last_sig: Optional[tuple] = None
+        # replica pool under the cache: per serve-batch signature whether
+        # the cache served every replica
+        self._replica_served: Dict[tuple, bool] = {}
+        self._replica_lock = threading.Lock()
 
     # -- open/close --------------------------------------------------------
     def open(self, props: FilterProperties) -> None:
@@ -289,17 +334,8 @@ class TorchCudaFilter(FilterFramework):
         custom = props.custom_dict()
         model = props.model_file
         if not model:
-            raise ValueError("torch_cuda filter needs model=<zoo-name>")
-        bad = [k for k in _NOT_PORTED_CUSTOM if k in custom
-               and not (k == "aot" and custom[k] in _AOT_OFF)]
-        if bad:
-            raise ValueError(f"custom={','.join(bad)} is not supported by the "
-                             "torch_cuda backend")
-        is_py = model.endswith(".py")
-        if "." in model.rsplit("/", 1)[-1] and not is_py:
-            raise ValueError(f"model {model!r}: the torch_cuda backend runs "
-                             "zoo models (weights via custom=params:<path>) "
-                             "and .py model files")
+            raise ValueError("torch_cuda filter needs model=<zoo-name|"
+                             ".py|checkpoint with custom=arch:>")
         self._device = pick_device(props.accelerator)
         self._custom = custom
         self._postproc = make_postproc(custom)
@@ -307,8 +343,20 @@ class TorchCudaFilter(FilterFramework):
         from nnstreamer_tpu_torch.pipeline.planner import donation_requested
 
         self._donate = donation_requested(props.custom)
-        self._bundle = (load_py_model(model, custom, self._device) if is_py
-                        else get_model(model, custom, self._device))
+        self._model_name, self._custom_str = model, props.custom or ""
+        self._aot_wanted = _aot_enabled(custom)
+        self._aot_tried = {}
+        self._skeleton = False
+        if self._aot_wanted:
+            try:
+                self._bundle = skeleton_bundle(model, custom)
+                self._skeleton = True
+            except Exception as e:  # noqa: BLE001 — not buildable on meta
+                log.info("no skeleton of %s (%s); building in process",
+                         model, str(e).splitlines()[0][:120] if str(e)
+                         else repr(e))
+        if not self._skeleton:
+            self._bundle = build_bundle(model, custom, self._device)
         self._signatures = set()
         self._staging = None
         self._open_legacy_shard(custom)
@@ -349,6 +397,7 @@ class TorchCudaFilter(FilterFramework):
         self._solo_state = None  # nothing to restore
         self._clear_mesh()
         self.build_replicas(0)
+        self._aot_tried, self._skeleton = {}, False
         self._bundle = None
         self._postproc = None
         self._staging = None
@@ -363,8 +412,10 @@ class TorchCudaFilter(FilterFramework):
         only where the JAX backend does: when no model is open to compose
         them with."""
         # a captured window holds the composition it was captured with:
-        # it recaptures at the next window
+        # it recaptures at the next window; a resolved cache key held the
+        # old composition and re-resolves per signature
         self._loop_graphs = {}
+        self._aot_tried = {}
         if not pre_specs and not post_specs:
             self._stage_pre = self._stage_post = None
             self._pre_specs, self._post_specs = [], []
@@ -389,8 +440,10 @@ class TorchCudaFilter(FilterFramework):
         declines too."""
         from nnstreamer_tpu_torch.ops.fusion_stages import build_chain_fn
 
-        # a captured window holds the composition it was captured with
+        # a captured window holds the composition it was captured with,
+        # and a resolved cache key the composition it was keyed on
         self._loop_graphs = {}
+        self._aot_tried = {}
         if not stages:
             if self._chain_stages:
                 self._chain_stages, self._chain_fn = None, None
@@ -451,7 +504,9 @@ class TorchCudaFilter(FilterFramework):
         runs after its own; with ``meta`` the same program rebuilt on the
         ``meta`` device (the head's composition check). None when no model
         is open. An installed chain of this backend's own is not part of
-        it."""
+        it. The real program reads the backend at each call: under the
+        compile cache a head's entry may swap this backend's skeleton for
+        its loaded bundle first, else the first call builds in process."""
         if self._bundle is None:
             return None
         if meta:
@@ -460,9 +515,9 @@ class TorchCudaFilter(FilterFramework):
                 return None
             fn, params = prog[0], prog[1]
             return lambda xs: _as_list(fn(params, *xs))
-        stage_pre, apply_fn = self._stage_pre, self._bundle.apply_fn
-        post, stage_post = self._postproc, self._stage_post
-        return lambda xs: compose(xs, stage_pre, apply_fn, post, stage_post)
+        return lambda xs: compose(xs, self._stage_pre,
+                                  self._real_bundle().apply_fn,
+                                  self._postproc, self._stage_post)
 
     @property
     def _jit_trace_count(self) -> int:
@@ -563,12 +618,200 @@ class TorchCudaFilter(FilterFramework):
             xs = [self._to_device(x) for x in inputs]
         if donate and prefetched:
             inputs.clear()  # the caller's references to the donated uploads
-        self._signatures.add((self._composition,) + tuple(
-            (tuple(x.shape), dtype_name(x)) for x in xs))
+        sig = self._last_sig = tuple((tuple(x.shape), dtype_name(x))
+                                     for x in xs)
+        if not (self._aot_wanted and self._maybe_load_aot(sig)):
+            # the in-process program: a new signature counts one build
+            self._real_bundle()
+            self._signatures.add((self._composition,) + sig)
         outs = self._compose(xs, donate=donate)
         # async: no synchronise here; stats record enqueue time
         self.stats.record((time.perf_counter() - t0) * 1e6)
         return outs
+
+    # -- compile cache (filters/aot.py) ------------------------------------
+    def _declared_sig(self) -> Optional[tuple]:
+        """The signature the filter's input info declares (negotiation's,
+        else the model's), when every dim is known."""
+        info = None
+        if self.props is not None and self.props.input_info is not None:
+            info = self.props.input_info
+        elif self._bundle is not None:
+            info = self._bundle.input_info
+        if info is None:
+            return None
+        sig = tuple((tuple(int(d) for d in t.np_shape()),
+                     np.dtype(t.dtype.np_dtype).name) for t in info)
+        if any(d <= 0 for shape, _ in sig for d in shape):
+            return None
+        return sig
+
+    def _real_bundle(self) -> ModelBundle:
+        """The bundle with its weights: while the open bundle is the
+        skeleton (no cache program was adopted yet), the in-process
+        build."""
+        if not self._skeleton:
+            return self._bundle
+        self._bundle = build_bundle(self._model_name, self._custom,
+                                    self._device)
+        self._skeleton = False
+        return self._bundle
+
+    def _adopt(self, program) -> None:
+        """Swap a loaded entry's bundles in: while the open bundle is the
+        skeleton its head model becomes the bundle, and each chain tail's
+        goes to the tail's backend while that one is a skeleton too. A
+        real bundle stays: an entry of the same model, weights and custom
+        holds the same state, whatever its signature or composition."""
+        if self._skeleton:
+            self._bundle, self._skeleton = program.head, False
+        for i, tail in program.tails.items():
+            fw = self._chain_stages[i][1].backend()
+            if getattr(fw, "_skeleton", False):
+                fw._bundle, fw._skeleton = tail, False
+
+    def _resolve(self, key: tuple, sig: tuple, spec: Optional[dict],
+                 adopt, shard: Optional[dict] = None, device=None,
+                 n_devices: int = 1) -> bool:
+        """Whether the cache serves ``key`` (resolved once per key): the
+        entry filters/aot.py loads or compiles goes to ``adopt``; False
+        for the in-process build (no reproducible composition, a miss the
+        worker could not fill, an entry over the budget)."""
+        if key not in self._aot_tried:
+            from nnstreamer_tpu_torch.filters import aot
+
+            program = None
+            if spec is not None:
+                program = aot.maybe_aot_compile(
+                    self._model_name, self._custom_str, list(sig),
+                    shard=shard, device=device or self._device, spec=spec,
+                    budget_bytes=self._aot_budget(n_devices),
+                    observer=self._record_aot_event)
+            else:
+                log.info("AOT skipped for %s: composition not reproducible "
+                         "out of process", self._model_name)
+            if program is not None:
+                adopt(program)
+            self._aot_tried[key] = program is not None
+        return self._aot_tried[key]
+
+    def _maybe_load_aot(self, sig: tuple) -> bool:
+        """Whether the cache serves the solo (or mesh) program of
+        signature ``sig``; else the in-process build runs."""
+        shard = self._shard_spec if self._mesh is not None else None
+        return self._resolve(
+            ("mesh" if shard else "solo",) + sig, sig,
+            self._composition_spec(), self._adopt, shard=shard,
+            n_devices=shard["shard_devices"] if shard else 1)
+
+    def _composition_spec(self) -> Optional[Dict]:
+        """The planner-resolved composition of this backend's per-invoke
+        program as a JSON-able dict — the cache-key dimensions beyond
+        (model, custom, signature, platform), which the lint predicts,
+        and the chain's models the worker builds: fused stage specs, the
+        chain, donation. None when the
+        composition cannot be reproduced out of process (a chain tail on
+        another backend). Loop, mesh and replica dims are added by their
+        callers."""
+        spec: Dict = {}
+        if self._pre_specs:
+            spec["stages_pre"] = [list(s) for s in self._pre_specs]
+        if self._post_specs:
+            spec["stages_post"] = [list(s) for s in self._post_specs]
+        if self._chain_stages:
+            chain = self._chain_spec()
+            if chain is None:
+                return None
+            spec["chain"] = chain
+        if self._donate:
+            spec["donate"] = True
+        return spec
+
+    def _chain_spec(self) -> Optional[List]:
+        """The installed chain for the key and the worker: elementwise
+        runs as they are; a model stage as its tail's (model, custom,
+        content fingerprints of its model and its ``params:`` file, own
+        fused stage specs). None when a tail is not a rebuildable backend
+        of this package."""
+        from nnstreamer_tpu_torch.filters import aot
+
+        out: List = []
+        for kind, payload in self._chain_stages:
+            if kind == "stages":
+                out.append(["stages", [list(s) for s in payload]])
+                continue
+            fw = payload.backend()
+            if (not isinstance(fw, TorchCudaFilter) or not fw._model_name
+                    or fw._bundle is None or fw._mesh is not None):
+                return None
+            entry = {"model": fw._model_name, "custom": fw._custom_str,
+                     # the tail's CONTENT rides the key: the head's model
+                     # fingerprint alone would miss a tail edit
+                     "fingerprint": aot._model_fingerprint(fw._model_name)}
+            params = aot.params_fingerprint(fw._custom_str)
+            if params:
+                entry["params"] = params
+            if fw._pre_specs:
+                entry["stages_pre"] = [list(s) for s in fw._pre_specs]
+            if fw._post_specs:
+                entry["stages_post"] = [list(s) for s in fw._post_specs]
+            out.append(["model", entry])
+        return out
+
+    def _aot_budget(self, n_devices: int = 1) -> Optional[int]:
+        """The live per-device memory budget a cache hit must fit
+        (analysis/memplan) — an entry that no longer fits is a MISS, not an
+        out-of-memory error at PLAYING."""
+        try:
+            from nnstreamer_tpu_torch.analysis import memplan
+
+            if n_devices > 1:
+                return memplan.mesh_memory_budget(n_devices)[0]
+            return memplan._budget_of(self._device)[0]
+        except Exception:  # noqa: BLE001 — no budget known: no gate
+            return None
+
+    def take_aot_events(self) -> List[Dict]:
+        """Drain the per-call cache outcome records (the owning element
+        forwards them to the pipeline tracer's ``aot`` section)."""
+        ev, self._aot_events = self._aot_events, []
+        return ev
+
+    def _record_aot_event(self, event: Dict) -> None:
+        self._aot_events.append(event)
+        del self._aot_events[:-64]  # bounded: drained per invoke
+
+    def aot_prefetch(self, model: Optional[str] = None,
+                     shapes=None) -> bool:
+        """Warm the cache for ``model`` (default: the current one) WITHOUT
+        loading it: the child builds the entry while the CURRENT model
+        still serves, so the next open, reload or swap of that model is a
+        hit. ``shapes``: the signatures to warm (default: those resolved
+        so far, else the last invoke's, else the declared one). True when
+        one entry is warm."""
+        if self._bundle is None or not _aot_enabled(self._custom):
+            return False
+        spec = self._composition_spec()
+        if spec is None:
+            return False
+        sigs = (list(shapes) if shapes is not None else
+                [k[1:] for k in self._aot_tried if k[0] in ("solo", "mesh")])
+        if not sigs:
+            sig = self._last_sig or self._declared_sig()
+            if sig is None:
+                return False
+            sigs = [sig]
+        from nnstreamer_tpu_torch.filters import aot
+
+        shard = self._shard_spec if self._mesh is not None else None
+        warm = False
+        for sig in sigs:
+            ok = aot.prefetch_compile(
+                model or self._model_name, self._custom_str, list(sig),
+                shard=shard, spec=spec, observer=self._record_aot_event,
+                device=self._device)
+            warm = warm or ok
+        return warm
 
     # -- cost program (analysis/costmodel.py) ------------------------------
     def cost_program(self):
@@ -634,15 +877,31 @@ class TorchCudaFilter(FilterFramework):
     def _install_mesh(self, mesh, spec: dict) -> None:
         """Place the solo model over ``mesh`` (see the module docstring):
         per dp row a bundle when tp is 1, else the placed leaves with the
-        solo weights parked on the host."""
+        solo weights parked on the host. Under the compile cache the mesh
+        program's entry is keyed by the invoke signature: with none known
+        yet, the placement waits for the first invoke or prefetch."""
+        self._clear_mesh()
+        self._mesh, self._shard_spec = mesh, dict(spec)
+        self._mesh_pending = self._skeleton and self._aot_wanted
+        if not self._mesh_pending:
+            self._place_mesh(None)
+
+    def _place_mesh(self, sig: Optional[tuple]) -> None:
         from nnstreamer_tpu_torch.parallel.mesh import (
             row_device,
             shard_params_for_tp,
         )
 
-        self._clear_mesh()
+        mesh, spec = self._mesh, self._shard_spec
+        self._mesh_pending = False
         dp, tp = mesh.shape["dp"], mesh.shape["tp"]
-        module = self._bundle.module
+        if self._skeleton and self._aot_wanted and sig is not None:
+            # the mesh program of the cache: its state, placed below
+            self._resolve(
+                ("mesh",) + sig, sig, self._composition_spec(), self._adopt,
+                shard=dict(spec), device=row_device(mesh, 0),
+                n_devices=int(spec["shard_devices"]))
+        module = self._real_bundle().module
         rows = [row_device(mesh, r) for r in range(dp)]
         if tp == 1:
             self._mesh_bundles = [
@@ -661,8 +920,13 @@ class TorchCudaFilter(FilterFramework):
                               if dev.type == "cuda" else None
                               for r, dev in enumerate(rows)]
         self._mesh_staging = [None] * dp
-        self._mesh, self._shard_spec = mesh, dict(spec)
         self._loop_graphs = {}
+
+    def _mesh_ready(self, inputs: Sequence[Any]) -> None:
+        """A mesh waiting for its first signature is placed now."""
+        if self._mesh_pending:
+            self._place_mesh(tuple((tuple(np.shape(x)), dtype_name(x))
+                                   for x in inputs))
 
     def _clear_mesh(self) -> None:
         """Back to the solo model: the parked weights return to the device."""
@@ -670,11 +934,18 @@ class TorchCudaFilter(FilterFramework):
             self._bundle = self._build(self._device, {
                 k: v.to(self._device) for k, v in self._solo_state.items()})
         self._mesh, self._shard_spec, self._shard_installed = None, None, False
+        self._mesh_pending = False
         self._mesh_bundles, self._mesh_params = [], None
         self._mesh_streams, self._mesh_staging = [], []
         self._solo_state = None
 
     def _build(self, device, state) -> ModelBundle:
+        """The model rebuilt on ``device`` around ``state``: a bundle the
+        compile cache restored rebuilds from its folded state."""
+        recipe = getattr(self._bundle, "recipe", None)
+        if recipe is not None:
+            return restore_folded(recipe, FoldedState.unflatten(state),
+                                  self._custom, device)
         return build_with_state(self.props.model_file, self._custom, device,
                                 state)
 
@@ -729,6 +1000,7 @@ class TorchCudaFilter(FilterFramework):
         of its uploads."""
         from nnstreamer_tpu_torch.parallel.mesh import row_device
 
+        self._mesh_ready(inputs)
         rows = self._mesh_rows(inputs)
         placed, events = [], []
         for r, xs in enumerate(rows):
@@ -768,6 +1040,7 @@ class TorchCudaFilter(FilterFramework):
                                                             "mesh_events"):
             rows, events = list(inputs), inputs.mesh_events
         else:
+            self._mesh_ready(inputs)
             rows, events = self._mesh_rows(inputs), [[] for _ in range(dp)]
         out_dev = row_device(mesh, 0)
         caller = (torch.cuda.current_stream(out_dev)
@@ -857,6 +1130,7 @@ class TorchCudaFilter(FilterFramework):
         n visible devices. Declines (False) when the program cannot be
         copied or fewer devices are visible — the server then serves from
         one replica, numerically the same."""
+        self._replica_served = {}
         if n <= 1:
             self._replica_devices, self._replica_bundles = [], []
             self._replica_streams, self._replica_tokens = [], []
@@ -869,15 +1143,18 @@ class TorchCudaFilter(FilterFramework):
         if len(devs) < n:
             return False
         devs = devs[:n]
-        try:
-            bundles = [self._bundle if r == 0 and dev == self._device
-                       else self._copy_bundle(dev)
-                       for r, dev in enumerate(devs)]
-        except Exception as e:  # noqa: BLE001 — placement failed: decline
-            log.warning("replica placement failed (%s); declining replicas "
-                        "(single-replica serving)",
-                        str(e).splitlines()[0][:120])
-            return False
+        if self._skeleton and self._aot_wanted:
+            # under the compile cache each replica loads its bundle at its
+            # first serve-batch signature (invoke_replica); none is copied
+            bundles = [None] * n
+        else:
+            try:
+                bundles = self._copy_replicas(devs)
+            except Exception as e:  # noqa: BLE001 — placement failed
+                log.warning("replica placement failed (%s); declining "
+                            "replicas (single-replica serving)",
+                            str(e).splitlines()[0][:120])
+                return False
         self._replica_devices, self._replica_bundles = devs, bundles
         from nnstreamer_tpu_torch.ops._cuda import side_stream
 
@@ -889,6 +1166,64 @@ class TorchCudaFilter(FilterFramework):
         self._replica_tokens = [SimpleNamespace(name=f"{self.NAME}[r{r}]")
                                 for r in range(n)]
         return True
+
+    def _copy_replicas(self, devs) -> List[ModelBundle]:
+        """The solo model's copies for the replicas that hold no bundle
+        yet (each replica keeps one it has)."""
+        bundle = self._real_bundle()
+        held = self._replica_bundles or [None] * len(devs)
+        return [b if b is not None
+                else bundle if r == 0 and dev == self._device
+                else self._copy_bundle(dev)
+                for r, (b, dev) in enumerate(zip(held, devs))]
+
+    def _replica_program(self, replica: int, sig: tuple):
+        """Replica ``replica``'s run function for serve-batch signature
+        ``sig``: under the compile cache each replica device's entry is
+        resolved once per signature (keyed with the placement, the serve
+        batch and the replica's index: warm scale-up is N loads) and the
+        first one loaded becomes that replica's bundle; a replica the
+        cache did not serve gets the in-process copy."""
+        if sig not in self._replica_served:
+            with self._replica_lock:
+                if sig not in self._replica_served:
+                    self._replica_served[sig] = self._replica_aot(sig)
+        if self._replica_bundles[replica] is None:
+            with self._replica_lock:
+                if self._replica_bundles[replica] is None:
+                    self._replica_bundles = self._copy_replicas(
+                        self._replica_devices)
+        bundle = self._replica_bundles[replica]
+        return lambda xs: self._compose_with(bundle.apply_fn, xs)
+
+    def _replica_aot(self, sig: tuple) -> bool:
+        """Whether the cache served every replica device at ``sig``."""
+        if not self._aot_wanted:
+            return False
+        spec = self._composition_spec()
+        if spec is None:
+            return False
+        spec["placement"] = "replica"
+        spec["serve_batch"] = [list(s) for s, _ in sig]
+        n = len(self._replica_devices)
+        for r, dev in enumerate(self._replica_devices):
+            if not self._resolve(
+                    ("replica", r) + sig, sig, dict(spec, device_index=r),
+                    lambda program, r=r: self._adopt_replica(r, program),
+                    device=dev, n_devices=n):
+                return False
+        log.info("replica pool warm-started from the compile cache: %d "
+                 "programs for %s %s", n, self._model_name, sig)
+        return True
+
+    def _adopt_replica(self, replica: int, program) -> None:
+        """A loaded entry's head becomes replica ``replica``'s bundle when
+        it has none (replica 0 on this backend's device is the solo model:
+        a skeleton there takes it too)."""
+        if self._replica_bundles[replica] is None:
+            self._replica_bundles[replica] = program.head
+        if replica == 0 and self._replica_devices[0] == self._device:
+            self._adopt(program)
 
     def invoke_replica(self, replica: int, inputs: Sequence[Any]
                        ) -> List[Any]:
@@ -905,10 +1240,12 @@ class TorchCudaFilter(FilterFramework):
         with (torch.cuda.stream(stream) if not own
               else contextlib.nullcontext()):
             xs = [as_torch(x).to(dev, non_blocking=True) for x in inputs]
-            self._signatures.add((self._composition,) + tuple(
-                (tuple(x.shape), dtype_name(x)) for x in xs))
-            outs = self._compose_with(
-                self._replica_bundles[replica].apply_fn, xs)
+            sig = tuple((tuple(x.shape), dtype_name(x)) for x in xs)
+            run = self._replica_program(replica, sig)
+            if not self._replica_served[sig]:
+                self._signatures.add((self._composition,) + sig)
+            with torch.inference_mode():
+                outs = run(xs)
         if not own:
             caller.wait_stream(stream)
             for t in outs:
@@ -961,6 +1298,10 @@ class TorchCudaFilter(FilterFramework):
                         "loop-window=%d", reason, window)
             return False
         self._loop_window, self._loop_depth = int(window), max(1, int(depth))
+        if in_info is not None and self._aot_wanted:
+            self._loop_program(tuple(
+                (tuple(int(d) for d in t.np_shape()),
+                 np.dtype(t.dtype.np_dtype).name) for t in in_info))
         if in_info is not None and self._device.type == "cuda":
             shapes = [(int(window),) + tuple(t.np_shape()) for t in in_info]
             dtypes = [np.dtype(t.dtype.np_dtype) for t in in_info]
@@ -972,6 +1313,21 @@ class TorchCudaFilter(FilterFramework):
                 self._loop_graphs = {}
                 return False
         return True
+
+    def _loop_program(self, sig: tuple) -> bool:
+        """Whether the cache serves the window's program for per-frame
+        signature ``sig``: keyed with the window and the launch depth, so a
+        re-planned window re-resolves; the capture happens after the
+        load. A miss the worker cannot fill builds in process."""
+        spec = self._composition_spec()
+        if spec is not None:
+            spec.update(loop_window=self._loop_window,
+                        launch_depth=self._loop_depth)
+        served = self._resolve(
+            ("loop", self._loop_window, self._loop_depth) + sig, sig, spec,
+            self._adopt)
+        self._real_bundle()
+        return served
 
     def _loop_graph(self, shapes, dtypes):
         """The captured window program for one signature (captured at its
@@ -986,7 +1342,11 @@ class TorchCudaFilter(FilterFramework):
                                                                  dtypes))
         g = self._loop_graphs.get(key)
         if g is None:
-            module = self._bundle.module
+            if self._aot_wanted:
+                self._loop_program(tuple(
+                    (tuple(s[1:]), np.dtype(d).name)
+                    for s, d in zip(shapes, dtypes)))
+            module = self._real_bundle().module
             try:
                 g = CudaGraphWindow(
                     build_window_fn(self._compose), shapes,
@@ -1032,8 +1392,10 @@ class TorchCudaFilter(FilterFramework):
 
         t0 = time.perf_counter()
         if isinstance(staged, list):
-            self._signatures.add(("loop", self._composition) + tuple(
-                (tuple(x.shape), dtype_name(x)) for x in staged))
+            if not (self._aot_wanted and self._loop_program(tuple(
+                    (tuple(x.shape[1:]), dtype_name(x)) for x in staged))):
+                self._signatures.add(("loop", self._composition) + tuple(
+                    (tuple(x.shape), dtype_name(x)) for x in staged))
             outs = build_window_fn(self._compose)(staged)
         else:
             outs = staged.replay()

@@ -47,6 +47,15 @@ class ModelBundle:
     #: ``batch_stats`` beside its output (so gradients reach parameters
     #: only). None where the trainer differentiates ``apply_fn``.
     train_apply_fn: Optional[Callable] = None
+    #: ``folded() -> (state, recipe)``: the state the forward computes
+    #: with as flat tensors (BatchNorm folded and cast where the forward
+    #: folds) and the JSON recipe :func:`restore_folded` rebuilds the
+    #: forward from. None where the forward reads the module as built
+    #: (the compile cache, filters/aot.py, then keeps the state dict)
+    folded: Optional[Callable[[], tuple]] = None
+    #: the recipe of a bundle rebuilt by :func:`restore_folded` (its module
+    #: is a :class:`FoldedState`), else None
+    recipe: Optional[dict] = None
 
 
 def register_model(name: str):
@@ -98,6 +107,10 @@ def read_state(path: str) -> Dict[str, torch.Tensor]:
 #: (see :func:`build_with_state`)
 _given = threading.local()
 
+#: :data:`_given`'s state that means "no weights at all": the skeleton
+#: build (:func:`skeleton_bundle`) leaves the meta module uninitialised
+_SKELETON = object()
+
 
 def load_or_init(module: torch.nn.Module, custom: Dict[str, str],
                  init_fn: Callable[[torch.nn.Module, int], None]) -> None:
@@ -106,6 +119,8 @@ def load_or_init(module: torch.nn.Module, custom: Dict[str, str],
     numpy init from ``custom=seed:<n>`` — or, inside
     :func:`build_with_state`, that call's state, assigned as it is."""
     given = getattr(_given, "state", None)
+    if given is _SKELETON:
+        return
     if given is not None:
         module.load_state_dict(given, assign=True)
         return
@@ -269,11 +284,15 @@ def resolve_fused_apply(custom: Dict[str, str], model, make_fused,
     if fused not in ("pallas", "xla"):
         raise ValueError(f"unknown fused mode {fused!r} (use fused:pallas "
                          "or fused:xla)")
+    if getattr(_given, "state", None) is _SKELETON:
+        return _skeleton_forward  # nothing to fold: no weights
     raw = make_fused(model, mode="kernel" if fused == "pallas" else "xla")
 
     def apply_fn(x):
         return raw(preprocess_frames(x, scale, model.dtype))
 
+    if hasattr(raw, "folded"):
+        apply_fn.folded = raw.folded
     return apply_fn
 
 
@@ -359,7 +378,9 @@ def load_py_model(path: str, custom: Dict[str, str],
     fn, params = res[0], res[1]
     module = ParamTree(params or {})
     given = getattr(_given, "state", None)
-    if given is not None:
+    if given is _SKELETON:
+        pass
+    elif given is not None:
         module.load_state_dict(given, assign=True)
     elif custom.get("params"):
         module.load_state_dict(read_state(custom["params"]))
@@ -374,20 +395,95 @@ def load_py_model(path: str, custom: Dict[str, str],
                        infer_output=_meta_infer(fn, module))
 
 
+def build_bundle(model: str, custom: Dict[str, str],
+                 device="cuda") -> ModelBundle:
+    """The bundle of a model source on ``device``: an embedded-Python
+    ``.py`` file, a checkpoint file (what :func:`save_state` wrote) of the
+    zoo model ``custom=arch:<zoo-name>`` names (the JAX backend's
+    ``.msgpack`` + ``arch:``), or a zoo name."""
+    if str(model).endswith(".py"):
+        return load_py_model(model, custom, device)
+    arch = custom.get("arch")
+    if arch:
+        return get_model(arch, dict(custom, params=model), device)
+    if "." in os.path.basename(str(model)):
+        raise ValueError(f"model {model!r}: the torch_cuda backend runs "
+                         "zoo models (weights via custom=params:<path>), "
+                         "checkpoint files with custom=arch:<zoo-name> and "
+                         ".py model files")
+    return get_model(model, custom, device)
+
+
 def build_with_state(model: str, custom: Dict[str, str], device,
                      state: Mapping[str, torch.Tensor]) -> ModelBundle:
-    """The bundle of ``model`` (a zoo name or a ``.py`` file) built on
+    """The bundle of ``model`` (see :func:`build_bundle`) built on
     ``device`` with ``state`` as its weights: the tensors are assigned to
     the module, not copied, so a state already on ``device`` is used in
     place (the mesh path's per-position copies and its per-invoke gathered
-    weights, filters/cuda_filter.py). No seed init runs."""
+    weights, filters/cuda_filter.py). No seed init runs and no checkpoint
+    is read."""
     _given.state = state
     try:
-        if str(model).endswith(".py"):
-            return load_py_model(model, custom, device)
-        return get_model(model, custom, device)
+        return build_bundle(model, custom, device)
     finally:
         _given.state = None
+
+
+def skeleton_bundle(model: str, custom: Dict[str, str]) -> ModelBundle:
+    """The bundle of ``model`` on the ``meta`` device with no weights: no
+    seed draw, no checkpoint read, no fold of real data. Its input and
+    output info and ``infer_output`` answer negotiation; its forward
+    computes nothing (the filter's stand-in until a compile-cache entry
+    or an in-process build supplies the real program)."""
+    _given.state = _SKELETON
+    try:
+        with torch.device("meta"):
+            return build_bundle(model, custom, torch.device("meta"))
+    finally:
+        _given.state = None
+
+
+def _skeleton_forward(*xs):
+    raise RuntimeError("a skeleton bundle (models.skeleton_bundle) has no "
+                       "weights to run")
+
+
+class FoldedState(torch.nn.Module):
+    """The module of a bundle rebuilt from a folded state: each tensor a
+    buffer (``.`` in a name becomes ``__``). :meth:`tensors` gives the
+    state back under its own names."""
+
+    def __init__(self, state: Mapping[str, torch.Tensor]):
+        super().__init__()
+        self._names = list(state)
+        for k, v in state.items():
+            self.register_buffer(k.replace(".", "__"), v)
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        return {k: getattr(self, k.replace(".", "__")) for k in self._names}
+
+    @staticmethod
+    def unflatten(state: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """A state dict of this module under the folded state's own names
+        (they hold no ``__``)."""
+        return {k.replace("__", "."): v for k, v in state.items()}
+
+
+def restore_folded(recipe: dict, state: Mapping[str, torch.Tensor],
+                   custom: Dict[str, str], device) -> ModelBundle:
+    """The bundle a :attr:`ModelBundle.folded` state and recipe describe,
+    on ``device`` (the state's tensors are used as given: move them
+    first). Its ``recipe`` is set, its module is a :class:`FoldedState`,
+    and it folds nothing."""
+    if recipe.get("kind") != "mobilenet_v2":
+        raise ValueError(f"no restore for folded state kind "
+                         f"{recipe.get('kind')!r}")
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import restore
+
+    bundle = restore(dict(state), recipe, custom, torch.device(device))
+    bundle.recipe = dict(recipe)
+    return bundle
 
 
 def get_model(name: str, custom: Optional[Dict[str, str]] = None,
@@ -398,4 +494,3 @@ def get_model(name: str, custom: Optional[Dict[str, str]] = None,
     if name not in _zoo:
         raise ValueError(f"unknown model {name!r}; zoo: {sorted(_zoo)}")
     return _zoo[name](custom or {}, torch.device(device))
-

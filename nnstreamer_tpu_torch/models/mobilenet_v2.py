@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from nnstreamer_tpu_torch.models import (
+    FoldedState,
     ModelBundle,
     batch_norm_train,
     load_or_init,
@@ -295,6 +296,75 @@ def run_blocks(y: torch.Tensor, blocks, compute_dtype: torch.dtype
     return y
 
 
+#: the block functions a folded state's recipe names (:func:`fold_state`)
+_BLOCK_ROUTES = ("inverted_residual_auto", "inverted_residual_conv",
+                 "inverted_residual_plain")
+
+
+def fold_state(model: MobileNetV2, mode: str, compute_dtype: torch.dtype,
+               device):
+    """The BN-folded forward's state: (flat tensors, JSON recipe). The
+    tensors are folded and cast once, on ``device``, as :func:`fold_blocks`
+    and :func:`fused_block.fold_conv_bn_weights` do; the recipe holds what
+    :func:`folded_forward` needs besides them (each block's route, stride
+    and dilation, the stem's geometry, the compute dtype)."""
+    from nnstreamer_tpu_torch.ops import fused_block as fb
+
+    cd = compute_dtype
+    flat: Dict[str, torch.Tensor] = {}
+    with torch.no_grad():
+        flat["stem.w"], flat["stem.b"] = fb.fold_conv_bn_weights(
+            model.stem_conv, model.stem_bn, compute_dtype=cd, device=device)
+        recipe = {"kind": "mobilenet_v2", "mode": mode,
+                  "compute_dtype": str(cd).replace("torch.", ""),
+                  "stem": fb.conv_geometry(model.stem_conv), "blocks": []}
+        for i, (fn, fw, stride, dilation) in enumerate(
+                fold_blocks(model.blocks, mode, cd, device)):
+            route = next(r for r in _BLOCK_ROUTES if getattr(fb, r) is fn)
+            recipe["blocks"].append({"route": route, "stride": stride,
+                                     "dilation": dilation})
+            for k, v in fw.items():
+                flat[f"blocks.{i}.{k}"] = v
+        k, b = fb.fold_conv_bn(model.head_conv, model.head_bn)
+        head = fb.cast_folded({"w": k[:, :, 0, 0].t(), "b": b}, cd, device)
+        flat["head.w"], flat["head.b"] = head["w"], head["b"]
+        flat["dense_w"] = (model.classifier.weight.detach().float().t()
+                           .contiguous())
+        flat["dense_b"] = model.classifier.bias.detach().float().clone()
+    return flat, recipe
+
+
+def folded_forward(flat: Dict[str, torch.Tensor], recipe: dict):
+    """The BN-folded forward over a folded state (:func:`fold_state`):
+    NHWC compute-dtype frames → float32 logits. Folds nothing."""
+    from nnstreamer_tpu_torch.ops import fused_block as fb
+
+    cd = getattr(torch, recipe["compute_dtype"])
+    stem = fb.conv_apply(flat["stem.w"], flat["stem.b"], **recipe["stem"],
+                         compute_dtype=cd)
+    blocks = []
+    for i, blk in enumerate(recipe["blocks"]):
+        if blk["route"] not in _BLOCK_ROUTES:
+            raise ValueError(f"unknown block route {blk['route']!r}")
+        pre = f"blocks.{i}."
+        fw = {k[len(pre):]: v for k, v in flat.items() if k.startswith(pre)}
+        blocks.append((getattr(fb, blk["route"]), fw, blk["stride"],
+                       blk["dilation"]))
+    head_w, head_b = flat["head.w"], flat["head.b"]
+    dense_w, dense_b = flat["dense_w"], flat["dense_b"]
+
+    def forward(x: torch.Tensor) -> torch.Tensor:
+        y = stem(x).contiguous()  # NHWC for the blocks
+        y = run_blocks(y, blocks, cd)
+        B, H, W, C = y.shape
+        o = y.reshape(-1, C) @ head_w + head_b.to(cd)
+        o = _relu6(o).reshape(B, H * W, -1)
+        pooled = o.float().mean(dim=1).to(cd).float()
+        return pooled @ dense_w + dense_b
+
+    return torch.no_grad()(forward)
+
+
 def _make_fused_apply(model: MobileNetV2, mode: str = "kernel",
                       compute_dtype: torch.dtype = None):
     """BN-folded forward, the counterpart of the JAX ``_make_fused_apply``:
@@ -302,46 +372,35 @@ def _make_fused_apply(model: MobileNetV2, mode: str = "kernel",
     'xla' or 'plain'); the stem, the head 1x1 conv, the pool and the Dense
     layer are torch ops, as the JAX package computes them with XLA outside
     any Pallas kernel. Folding and the casts to the compute dtype happen
-    here, on the model's device, and again at the first call after a
-    trainer changed the weights (:func:`models.weights_version`): the JAX
-    package folds inside the jitted forward from the variables it is
-    given, so its folded forward always runs the current weights. A model
-    nobody trains folds once."""
-    from nnstreamer_tpu_torch.ops import fused_block as fb
-
+    here (:func:`fold_state`), on the model's device, and again at the
+    first call after a trainer changed the weights
+    (:func:`models.weights_version`): the JAX package folds inside the
+    jitted forward from the variables it is given, so its folded forward
+    always runs the current weights. A model nobody trains folds once.
+    ``forward.folded()`` gives the current folded state and recipe."""
     cd = compute_dtype or model.dtype
     dev = model.stem_conv.weight.device
     f = {}
 
     def fold() -> None:
-        with torch.no_grad():
-            k, b = fb.fold_conv_bn(model.head_conv, model.head_bn)
-            f.update(
-                version=weights_version(model),
-                stem=fb.fold_conv_bn_apply(model.stem_conv, model.stem_bn,
-                                           compute_dtype=cd, device=dev),
-                blocks=fold_blocks(model.blocks, mode, cd, dev),
-                head=fb.cast_folded({"w": k[:, :, 0, 0].t(), "b": b}, cd,
-                                    dev),
-                dense_w=model.classifier.weight.detach().float().t()
-                .contiguous(),
-                dense_b=model.classifier.bias.detach().float().clone())
+        flat, recipe = fold_state(model, mode, cd, dev)
+        f.update(version=weights_version(model), flat=flat, recipe=recipe,
+                 fwd=folded_forward(flat, recipe))
 
     fold()
 
     def forward(x: torch.Tensor) -> torch.Tensor:
         if f["version"] != weights_version(model):
             fold()
-        y = f["stem"](x).contiguous()  # NHWC for the blocks
-        y = run_blocks(y, f["blocks"], cd)
-        B, H, W, C = y.shape
-        head = f["head"]
-        o = y.reshape(-1, C) @ head["w"] + head["b"].to(cd)
-        o = _relu6(o).reshape(B, H * W, -1)
-        pooled = o.float().mean(dim=1).to(cd).float()
-        return pooled @ f["dense_w"] + f["dense_b"]
+        return f["fwd"](x)
 
-    return torch.no_grad()(forward)
+    def folded():
+        if f["version"] != weights_version(model):
+            fold()
+        return f["flat"], f["recipe"]
+
+    forward.folded = folded
+    return forward
 
 
 def infer_output(in_info: TensorsInfo, classes: int) -> TensorsInfo:
@@ -360,6 +419,7 @@ def build(custom: Dict[str, str], device: torch.device) -> ModelBundle:
     load_or_init(model, custom, init_weights)
     model = model.to(device).eval()
     apply_fn = resolve_fused_apply(custom, model, _make_fused_apply)
+    folded = getattr(apply_fn, "folded", None)
     if apply_fn is None:
         def apply_fn(x):
             with torch.no_grad():
@@ -375,7 +435,27 @@ def build(custom: Dict[str, str], device: torch.device) -> ModelBundle:
         input_info=TensorsInfo.from_strings(f"3:{size}:{size}:1", "uint8"),
         output_info=TensorsInfo.from_strings(f"{classes}:1", "float32"),
         infer_output=lambda info: infer_output(info, classes),
-        train_apply_fn=train_apply_fn)
+        train_apply_fn=train_apply_fn, folded=folded)
+
+
+def restore(state: Dict[str, torch.Tensor], recipe: dict,
+            custom: Dict[str, str], device: torch.device) -> ModelBundle:
+    """The ``fused:`` bundle around a folded state (:func:`fold_state`)
+    already on ``device``: the compile cache's load (filters/aot.py)."""
+    size = int(custom.get("size", 224))
+    classes = int(state["dense_b"].shape[0])
+    fwd = folded_forward(state, recipe)
+    cd = getattr(torch, recipe["compute_dtype"])
+
+    def apply_fn(x):
+        return fwd(preprocess_frames(x, "pm1", cd))
+
+    return ModelBundle(
+        apply_fn=apply_fn, module=FoldedState(state),
+        input_info=TensorsInfo.from_strings(f"3:{size}:{size}:1", "uint8"),
+        output_info=TensorsInfo.from_strings(f"{classes}:1", "float32"),
+        infer_output=lambda info: infer_output(info, classes),
+        folded=lambda: (state, recipe))
 
 
 register_model("mobilenet_v2")(build)

@@ -238,6 +238,13 @@ def _build(out_dir: str) -> str:
     return lib_path
 
 
+def library_built() -> bool:
+    """Is the kernel library of this tree's sources built already (so the
+    first :func:`lib` loads it without ``nvcc``)?"""
+    return os.path.exists(os.path.join(BUILD_ROOT, _digest(),
+                                       "libnnstpu_kernels.so"))
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib

@@ -237,6 +237,20 @@ def fold_conv_bn_apply(conv: torch.nn.Conv2d,
     rounds where the JAX function rounds: the conv's output in the compute
     dtype, then ``+ b`` in the compute dtype as a separate add. The NHWC
     tensor is viewed as channels-last NCHW (no copy) for ``F.conv2d``."""
+    w, bias = fold_conv_bn_weights(conv, bn, compute_dtype=compute_dtype,
+                                   device=device)
+    return conv_apply(w, bias, **conv_geometry(conv), act=act,
+                      compute_dtype=compute_dtype)
+
+
+def fold_conv_bn_weights(conv: torch.nn.Conv2d,
+                         bn: Optional[torch.nn.BatchNorm2d] = None, *,
+                         compute_dtype: torch.dtype = torch.bfloat16,
+                         device=None):
+    """The (kernel, bias) :func:`fold_conv_bn_apply` convolves with: the
+    folded OIHW kernel in the compute dtype and the folded bias as
+    [1, C, 1, 1] in the compute dtype (None for a bias-free conv without
+    BatchNorm)."""
     cd = compute_dtype
     if bn is None:
         k = conv.weight.detach().float()
@@ -246,8 +260,22 @@ def fold_conv_bn_apply(conv: torch.nn.Conv2d,
     w = k.to(device=device, dtype=cd).contiguous()
     bias = None if b is None else b.to(device=device, dtype=cd).reshape(
         1, -1, 1, 1)
-    ksize, stride = conv.kernel_size[0], conv.stride[0]
-    dilation, groups = conv.dilation[0], conv.groups
+    return w, bias
+
+
+def conv_geometry(conv: torch.nn.Conv2d) -> Dict[str, int]:
+    """The geometry :func:`conv_apply` needs besides the weights."""
+    return {"ksize": conv.kernel_size[0], "stride": conv.stride[0],
+            "dilation": conv.dilation[0], "groups": conv.groups}
+
+
+def conv_apply(w: torch.Tensor, bias: Optional[torch.Tensor], *,
+               ksize: int, stride: int, dilation: int, groups: int,
+               act="relu6", compute_dtype: torch.dtype = torch.bfloat16):
+    """The apply of :func:`fold_conv_bn_apply` around given folded weights
+    (:func:`fold_conv_bn_weights`), for a forward rebuilt from a saved
+    folded state (filters/aot.py)."""
+    cd = compute_dtype
     k_eff = (ksize - 1) * dilation + 1
 
     def apply(v: torch.Tensor) -> torch.Tensor:

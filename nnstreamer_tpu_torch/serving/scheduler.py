@@ -22,9 +22,11 @@ A copy of the JAX package's scheduler. The batch is stacked on the host
 shard's row group is stacked and put on its mesh row, one put per shard.
 With a replica pool (``replicas=N``) each batch is stamped with the
 least-loaded replica (fewest un-acked batches, round robin among ties),
-whose worker in the filter runs it. Parts of the JAX scheduler wait for
-modules this package does not have yet: the AOT warm-up of a pended
-serve-batch and the rollout canary's wait tap. One change: each ingest
+whose worker in the filter runs it. A pended serve-batch change warms
+the served program's compile-cache entry at the new batch in a background
+thread (the filter's ``aot_prefetch``), and the admitted pool waits feed
+the rollout canary's since-the-flip p99 (``recent_wait_p99``), as in the
+JAX scheduler. One change: each ingest
 drains only the requests queued when it began (the JAX scheduler drains
 until the queue is empty, which under overload holds every batch back
 until arrivals stop).
@@ -32,7 +34,9 @@ until arrivals stop).
 
 from __future__ import annotations
 
+import threading
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -157,11 +161,14 @@ class ServingScheduler:
         from nnstreamer_tpu_torch.edge.fleet import RidFilter
 
         self.rid_filter = RidFilter()
-        # nnfleet-r health tap (non-draining — ctl_window stays the
-        # controller's exclusive drain): _health_last prices the shed
-        # rate between health broadcasts
+        # nnfleet-r health/canary taps (both non-draining — ctl_window
+        # stays the controller's exclusive drain): _health_last prices the
+        # shed rate between health broadcasts; _wait_recent keeps
+        # timestamped admitted pool-waits for the rollout canary's
+        # since-the-flip p99
         self._health_last = {"t": time.perf_counter(), "enqueued": 0,
                              "shed": 0, "permille": 0}
+        self._wait_recent: deque = deque(maxlen=512)
         # nnctl hot-knob state: a serve-batch change is PENDED while any
         # batch built at the old shape is still in flight (the serversink
         # acks each demuxed batch via note_reply_batch) — every emitted
@@ -194,9 +201,13 @@ class ServingScheduler:
         # predictive-shed gate (nnctl): None = off; else the plant-priced
         # admission bound {slo_ms, cycle_ms} the controller recalibrates
         self._ctl_gate: Optional[Dict[str, float]] = None
-        # the last assembled row signature (the JAX scheduler warms the
-        # served program's AOT entry at a pended serve-batch from it)
+        # compile-cache warm path: the last assembled row signature lets
+        # a serve-batch change prefetch the served program's entry at the
+        # NEW batch shape while old-shape batches still serve (one
+        # background thread at a time — a stampede of compile workers
+        # would thrash the cache budget)
         self._last_row_sig: Optional[Tuple] = None
+        self._aot_prefetching = False
         # controller-facing measurement window (drained per tick by the
         # LiveFeed): pool waits, per-launch device windows (sink acks),
         # assemble timestamps, per-tenant arrival counts
@@ -478,6 +489,11 @@ class ServingScheduler:
             waits.extend((now - r.t_arrival) * 1e3 for r in rows)
             if len(waits) > 2048:
                 del waits[:-2048]
+            # canary tap (non-draining): timestamped copies so the
+            # rollout canary reads a since-the-flip p99 without stealing
+            # the controller's measurement window
+            self._wait_recent.extend(
+                (now, (now - r.t_arrival) * 1e3) for r in rows)
         tracer = self._tracer()
         if tracer is not None:
             tracer.record_serving_batch(self.stats_key, valid, target)
@@ -691,10 +707,48 @@ class ServingScheduler:
                     self.batch = b
                     self._batch_pending = None
                     out["serve_batch"] = b
-        # (the JAX scheduler warms the served program's AOT cache at a
-        # pended serve-batch here; this package compiles nothing ahead of
-        # time, so the new shape is built at its first batch)
+        if batch is not None and "serve_batch" in out \
+                and max(1, int(batch)) != self.batch:
+            # pended change: warm the served program's cache entry at the
+            # NEW batch shape NOW, off the actuation path — by the time
+            # the in-flight window drains and the shape flips, the first
+            # new-shape batch loads instead of building under load
+            self._prefetch_serve_batch(max(1, int(batch)))
         return out
+
+    def _prefetch_serve_batch(self, b: int) -> None:
+        """Background-build the served filter's program at serve-batch
+        ``b`` in the compile cache's worker (filters/aot.prefetch_compile
+        via the filter's ``aot_prefetch``). Best effort — no served
+        filter, no cache gate, or no signature seen yet all decline
+        silently; streaming never depends on it."""
+        sig = self._last_row_sig
+        if sig is None or self.element is None or self._aot_prefetching:
+            return
+        try:
+            from nnstreamer_tpu_torch.analysis.passes import (
+                _downstream_filter,
+            )
+
+            f = _downstream_filter(self.element)
+        except Exception:  # noqa: BLE001 — no graph context (unit test)
+            return
+        pf = getattr(getattr(f, "fw", None), "aot_prefetch", None)
+        if pf is None:
+            return
+        shapes = [tuple(((int(b),) + tuple(s), d) for s, d in sig)]
+        self._aot_prefetching = True
+
+        def work():
+            try:
+                pf(shapes=shapes)
+            except Exception:  # noqa: BLE001 — warm path only
+                pass
+            finally:
+                self._aot_prefetching = False
+
+        threading.Thread(target=work, name="nnaot-prefetch",
+                         daemon=True).start()
 
     def set_tenant_rate(self, tenant: str, rate: Optional[float] = None,
                         burst: Optional[float] = None) -> Dict[str, float]:
@@ -738,6 +792,16 @@ class ServingScheduler:
                     devs.append((t1 - t0) / 1e6)
                     if len(devs) > 512:
                         del devs[:-512]
+
+    def recent_wait_p99(self, since: float) -> Optional[float]:
+        """p99 (ms) of admitted pool-waits assembled after perf-counter
+        time ``since`` — the rollout canary's latency source. None when
+        nothing was admitted in the window yet."""
+        with self._lock:
+            vals = sorted(w for t, w in self._wait_recent if t >= since)
+        if not vals:
+            return None
+        return vals[min(len(vals) - 1, int(0.99 * len(vals)))]
 
     def health_snapshot(self) -> Dict[str, int]:
         """Live headroom for the capability health TLV (edge/fleet.py

@@ -16,8 +16,9 @@ Library use: ``issues = validate(parse_launch("..."))`` — each issue is
 
 CLI exit codes (CI gating): 0 clean / 1 warnings / 2 errors; ``--strict``
 promotes warnings to errors. ``--tune`` hands the invocation to the
-autotuner's CLI (:func:`analysis.tuner.tune_main`). The JAX package's
-``--aot`` and ``--deploy`` wait with their analyses (ROADMAP.md queue 1).
+autotuner's CLI (:func:`analysis.tuner.tune_main`); ``--aot`` adds the
+compile-cache pass and ``--deploy <spec>`` lints a fleet deployment
+spec.
 """
 
 from __future__ import annotations
@@ -55,12 +56,19 @@ def validate_launch(description: str) -> List[Issue]:
 
 def main(argv=None) -> int:
     """``python -m nnstreamer_tpu_torch.tools.validate [--strict]
-    [--verbose] [--cost] [--json] [--file <path>] '<launch line>' …``
+    [--verbose] [--cost] [--aot] [--tune] [--json] [--file <path>]
+    [--deploy <spec>] '<launch line>' …``
 
     ``--file`` reads launch lines (one per line, '#' comments) from a
     file. ``--cost`` additionally runs the opt-in static cost and memory
     passes (NNST70x) and prints the per-element cost table and roofline
-    bottleneck. ``--json`` emits one deterministic JSON document (code /
+    bottleneck. ``--aot`` additionally runs the explicit NNST97x
+    compile-cache pass (compile-point summary, cold-start and stale-entry
+    warnings — it stats the on-disk cache, so it never runs unasked).
+    ``--deploy <spec>`` lints a fleet deployment spec (repeatable): the
+    NNST99x pass over every member pipeline plus the fleet verdicts, each
+    finding cited at ``<spec>:<line>``. ``--json`` emits one
+    deterministic JSON document (code /
     severity / member / element / span / path / line / fix-hint per
     diagnostic) instead of text — exit codes unchanged. ``--tune`` hands
     the whole invocation to the autotuner's CLI (static config-space
@@ -80,9 +88,12 @@ def main(argv=None) -> int:
     verbose = "--verbose" in args
     cost = "--cost" in args
     as_json = "--json" in args
+    aot = "--aot" in args
     args = [a for a in args
-            if a not in ("--strict", "--verbose", "--cost", "--json")]
+            if a not in ("--strict", "--verbose", "--cost", "--aot",
+                         "--json")]
     descs: List[str] = []
+    deploys: List[str] = []
     while args:
         a = args.pop(0)
         if a == "--file":
@@ -94,20 +105,33 @@ def main(argv=None) -> int:
                     line = line.strip()
                     if line and not line.startswith("#"):
                         descs.append(line)
+        elif a == "--deploy":
+            if not args:
+                print("--deploy needs a spec path", file=sys.stderr)
+                return 2
+            deploys.append(args.pop(0))
         elif a.startswith("--"):
             print(f"unknown option {a!r}", file=sys.stderr)
             return 2
         else:
             descs.append(a)
-    if not descs:
+    if not descs and not deploys:
         print("usage: python -m nnstreamer_tpu_torch.tools.validate "
-              "[--strict] [--verbose] [--cost] [--json] [--file <path>] "
-              "'<launch description>' [...]", file=sys.stderr)
+              "[--strict] [--verbose] [--cost] [--aot] [--json] "
+              "[--file <path>] [--deploy <spec>] '<launch description>' "
+              "[...]", file=sys.stderr)
         return 2
     rc = 0
     results = []
+    for spec_path in deploys:
+        from nnstreamer_tpu_torch.analysis.deploy import analyze_deploy
+
+        diags, _fleet = analyze_deploy(spec_path)
+        rc = max(rc, _report(spec_path, diags, strict, verbose, as_json,
+                             results))
     for desc in descs:
-        diags, pipe = analyze_launch_with_pipeline(desc, cost=cost)
+        diags, pipe = analyze_launch_with_pipeline(
+            desc, cost=cost, extra=["aot"] if aot else None)
         rc = max(rc, _report(desc, diags, strict, verbose, as_json,
                              results))
         if cost and not as_json and pipe is not None:
@@ -122,8 +146,9 @@ def main(argv=None) -> int:
 
 def _report(source: str, diags, strict: bool, verbose: bool,
             as_json: bool, results: list) -> int:
-    """Render one launch line's diagnostics and return its exit code. In
-    ``--json`` mode the line is appended to ``results`` instead."""
+    """Render one lint subject's diagnostics (a launch line or a deploy
+    spec) and return its exit code. In ``--json`` mode the subject is
+    appended to ``results`` instead."""
     rc = exit_code(diags, strict=strict)
     if as_json:
         results.append({

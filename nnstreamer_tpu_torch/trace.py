@@ -26,9 +26,10 @@ The serving tier's records (``serving()``: admission, shed, batch fill,
 pool wait, replies; the ``serving_wait_us`` and ``request_rtt_us``
 histograms), the nntrace-x request records (``tracex_report``,
 ``clock_samples``) and the serving controller's decision log
-(``ctl_report``) are the JAX tracer's, under its keys and counter names.
-Its AOT-cache and rollout records belong to modules this package does
-not have yet.
+(``ctl_report``) are the JAX tracer's, under its keys and counter names,
+as are the compile cache's outcome records (``record_aot``,
+``aot_report``; filters/aot.py) and the rollout canary's decisions
+(``record_rollout``, ``rollout_report``; elements/filter.py).
 """
 
 from __future__ import annotations
@@ -337,6 +338,17 @@ class Tracer:
         # serving controller decisions, keyed by query-server id: bounded
         # per-server decision ring + latest knob values
         self._ctl_log: Dict[str, dict] = {}
+        # compile-cache outcomes, keyed by element: bounded per-element
+        # event ring (hit/miss/prefetch with load vs compile milliseconds)
+        # + running counters — the warm-start audit trail `doctor --aot`
+        # renders; elements drain the backend's observer events here
+        self._aot_log: Dict[str, dict] = {}
+        # rollout decisions, keyed by element: bounded ring of canary
+        # outcomes (promoted / rolled-back with the observed fault delta
+        # and admitted-p99) — the audit trail `doctor --rollout` renders;
+        # stays empty (and absent from reports) when no rollout ever ran,
+        # so default reports are byte-identical
+        self._rollout_log: Dict[str, dict] = {}
         # serving-tier stats, keyed by the query-server id both serversrc
         # and serversink share: queue depth / time-in-queue series,
         # batch fill, shed counts and per-tenant goodput
@@ -716,6 +728,127 @@ class Tracer:
         with self._lock:
             return dict(self._fusion)
 
+    AOT_EVENTS_KEEP = 128
+
+    def record_aot(self, element: str, event: Dict) -> None:
+        """One AOT cache outcome for ``element``: hit / miss-compiled /
+        refused-budget / prefetch-* with the measured load vs compile
+        milliseconds, appended to the element's bounded ring with
+        running counters. Rendered by ``doctor --aot``."""
+        with self._lock:
+            entry = self._aot_log.get(element)
+            if entry is None:
+                entry = self._aot_log[element] = {
+                    "events": deque(maxlen=self.AOT_EVENTS_KEEP),
+                    "dropped_events": 0,
+                    "hits": 0, "misses": 0, "refused": 0, "prefetch": 0,
+                    "load_ms": 0.0, "compile_ms": 0.0,
+                }
+            dq = entry["events"]
+            if len(dq) == dq.maxlen:
+                entry["dropped_events"] += 1
+            dq.append(dict(event))
+            outcome = str(event.get("outcome", ""))
+            if outcome == "hit":
+                entry["hits"] += 1
+            elif outcome == "refused-budget":
+                entry["refused"] += 1
+            elif outcome.startswith("prefetch"):
+                entry["prefetch"] += 1
+            elif outcome.startswith("miss"):
+                entry["misses"] += 1
+            entry["load_ms"] += float(event.get("load_ms", 0.0) or 0.0)
+            entry["compile_ms"] += float(
+                event.get("compile_ms", 0.0) or 0.0)
+
+    def aot_report(self) -> Dict[str, dict]:
+        """The ``aot`` report section: per-element cache outcomes —
+        hit/miss/refused/prefetch counts, cumulative load vs compile
+        milliseconds, and the bounded event ring (plain dicts, safe to
+        JSON)."""
+        with self._lock:
+            return {
+                el: {
+                    "hits": e["hits"], "misses": e["misses"],
+                    "refused": e["refused"], "prefetch": e["prefetch"],
+                    "load_ms": round(e["load_ms"], 3),
+                    "compile_ms": round(e["compile_ms"], 3),
+                    "events": list(e["events"]),
+                    "dropped_events": e["dropped_events"],
+                }
+                for el, e in self._aot_log.items()
+            }
+
+    ROLLOUT_EVENTS_KEEP = 64
+
+    def record_rollout(self, element: str, event: Dict) -> None:
+        """One nnfleet-r rollout decision for ``element``: started /
+        promoted / rolled-back / regressed, with the candidate model, the
+        canary window consumed, the fault-ledger delta and the observed
+        admitted-p99 — appended to the element's bounded ring with
+        running counters. Rendered by ``doctor --rollout``."""
+        with self._lock:
+            entry = self._rollout_log.get(element)
+            if entry is None:
+                entry = self._rollout_log[element] = {
+                    "events": deque(maxlen=self.ROLLOUT_EVENTS_KEEP),
+                    "dropped_events": 0,
+                    "started": 0, "promoted": 0, "rolled_back": 0,
+                }
+            dq = entry["events"]
+            if len(dq) == dq.maxlen:
+                entry["dropped_events"] += 1
+            dq.append(dict(event))
+            decision = str(event.get("decision", ""))
+            if decision == "started":
+                entry["started"] += 1
+            elif decision == "promoted":
+                entry["promoted"] += 1
+            elif decision == "rolled-back":
+                entry["rolled_back"] += 1
+
+    def rollout_report(self) -> Dict[str, dict]:
+        """The ``rollout`` report section: per-element canary decisions —
+        started/promoted/rolled-back counters plus the bounded event ring
+        (plain dicts, safe to JSON)."""
+        with self._lock:
+            return {
+                el: {
+                    "started": e["started"], "promoted": e["promoted"],
+                    "rolled_back": e["rolled_back"],
+                    "events": list(e["events"]),
+                    "dropped_events": e["dropped_events"],
+                }
+                for el, e in self._rollout_log.items()
+            }
+
+    def record_fusion(self, element_name: str, filter_name: str) -> None:
+        """The fusion planner folded ``element_name`` into
+        ``filter_name``'s XLA program — the element is now a passthrough
+        shell, visible here as ``fused-into:<filter>``."""
+        with self._lock:
+            self._fusion[element_name] = f"fused-into:{filter_name}"
+
+    def fusions(self) -> Dict[str, str]:
+        with self._lock:
+            return dict(self._fusion)
+
+    def top_residency(self, n: int = 3) -> List[Dict]:
+        """The n worst edges by total parked time — the first place to
+        look for a latency budget overrun (GstShark interlatency role,
+        reference tools/tracing/README.md)."""
+        with self._lock:
+            rows = []
+            for edge, s in self._residency.items():
+                st = s.stats()
+                if not st.get("count"):
+                    continue
+                st["edge"] = edge
+                st["total_ms"] = round(s.total * 1e3, 3)  # exact sum
+                rows.append(st)
+        rows.sort(key=lambda r: r["total_ms"], reverse=True)
+        return rows[:n]
+
     def report(self) -> Dict[str, Dict]:
         """{element: {proctime, interlatency (arrival gap), src_latency
         (source→element age), fps}} plus a ``residency`` map of parked
@@ -775,10 +908,16 @@ class Tracer:
                 }
             tracex_any = self._tracex["count"] or self._tracex["shed_count"]
             ctl_any = bool(self._ctl_log)
+            aot_any = bool(self._aot_log)
+            rollout_any = bool(self._rollout_log)
         if self._serving:
             out["serving"] = self.serving()
         if ctl_any:
             out["ctl"] = self.ctl_report()
+        if aot_any:
+            out["aot"] = self.aot_report()
+        if rollout_any:
+            out["rollout"] = self.rollout_report()
         if tracex_any:
             out["trace_x"] = self.tracex_report()
         # lock observability: per-lock held/wait histograms on the

@@ -2,8 +2,8 @@
 packages, on the CPU.
 
 Every case of the reference's tests/test_analysis.py but the runtime
-sanitizer's (tests/test_torch_sanitizer.py) and ``doctor``'s (not in the
-port), and the
+sanitizer's (tests/test_torch_sanitizer.py), ``doctor --lint`` through
+each package's own ``tools/doctor.py``, and the
 two ``TestResidencyLint`` cases of its tests/test_residency.py, run
 through ``nnstreamer_tpu`` and ``nnstreamer_tpu_torch``: the same pipeline
 goes to each package's ``analyze``/``analyze_launch``, and each must give
@@ -517,14 +517,6 @@ class TestResidencyLint:
 
 # --- the fixture files through both analyzers ------------------------------
 
-#: codes of JAX-package passes and properties the port does not have yet,
-#: with what they wait for (ROADMAP.md queue 1)
-NOT_IN_PORT = {
-    "NNST981": "the filter refuses rollout-* at construction until rollout "
-               "is ported (the port gives NNST106 for the line)",
-}
-
-
 def fixture_lines(name):
     """(line number, launch line, EXPECT code or None) of one fixture."""
     out, expect = [], None
@@ -562,14 +554,10 @@ SERVING_FIXTURES = [(name, i, line, expect)
 def test_fixture_codes_match_reference(name, lineno, line, expect):
     diags = PORT.analyze_launch(line)
     got = sorted(d.code for d in diags)
-    if expect in NOT_IN_PORT:
-        # the line sets a property the port's filter still refuses
-        assert got == ["NNST106"] and "rollout" in diags[0].message, diags
-        return
     if expect is not None:
         assert expect in got, (expect, got)
     ref = JAX.analyze_launch(line)
-    want = sorted(d.code for d in ref if d.code not in NOT_IN_PORT)
+    want = sorted(d.code for d in ref)
     if expect is not None and expect not in want:
         # the reference's jax fault rewrote its verdict: the port gives
         # the EXPECT code alone in that family (NNST45x or NNST46x), and
@@ -612,7 +600,7 @@ def test_reference_fault_hides_ctl_verdicts():
     for name, i, line, expect in SERVING_FIXTURES:
         ref = [d.code for d in JAX.analyze_launch(line)]
         assert not set(ref) & set(CTL_MODEL_CODES), ref
-        if expect is None or expect in NOT_IN_PORT:
+        if expect is None:
             continue
         if expect not in ref:
             faulted.append((name, expect))
@@ -627,6 +615,16 @@ def test_reference_fault_hides_ctl_verdicts():
             assert jplant.serving_launch_model(jp, src) is None
     assert sorted(faulted) == [("launch_lines_ctl.txt", "NNST950"),
                                ("launch_lines_ctl.txt", "NNST951")]
+
+
+def test_doctor_lint(pkg):
+    import importlib
+
+    main = importlib.import_module(f"{pkg.name}.tools.doctor").main
+    assert main(["--lint", f"appsrc caps={CAPS_F32} ! tensor_sink"]) == 0
+    assert main(["--lint", "--strict",
+                 f"appsrc caps={CAPS_F32} ! {pkg.filt()} feed-dept=2 "
+                 "! tensor_sink"]) == 2
 
 
 @pytest.mark.parametrize("name", ["launch_lines_ctl.txt",

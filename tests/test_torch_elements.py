@@ -98,7 +98,7 @@ def test_transform_device_without_a_card_raises(acc, monkeypatch):
 PORTED_PROPS = ("batch-size=4", "feed-depth=2", "fetch-window=auto",
                 "invoke-dynamic=true", "loop-window=8",
                 "invoke-timeout-ms=10", "fallback-framework=auto",
-                "shard=dp")
+                "shard=dp", "rollout-model=other")
 
 
 @pytest.mark.parametrize("prop", [

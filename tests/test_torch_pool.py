@@ -13,7 +13,8 @@ harness and client. The four cases the reference fails only through its
 cost model (NNST962, ``replicas=auto`` and the two memory-plan cases)
 are held on the port alone to what they assert, with distinct device
 names (``cuda:0,...``, never run) where the reference's per-device
-semantics apply. The ``doctor`` case waits for ``tools/doctor.py``.
+semantics apply. The ``doctor`` case renders each package's pooled
+report with its own ``tools/doctor.py``.
 Every client thread and pipeline wait is bounded; ports are ``port=0``.
 """
 
@@ -473,6 +474,29 @@ class TestPoolLoopback:
             assert got == [1.0, 2.0, 3.0, 4.0]
         finally:
             server.stop()
+
+    def test_doctor_serving_renders_per_replica(self, pkg, tmp_path):
+        """doctor --serving round-trips a pooled report and prints the
+        per-replica batch split."""
+        import json
+
+        import importlib
+
+        doctor = importlib.import_module(
+            ("nnstreamer_tpu_torch" if pkg.port else "nnstreamer_tpu")
+            + ".tools.doctor")
+        server, tracer = pkg.server("doc")
+        try:
+            ok, err, outs, _ = pkg.drive(server["ssrc"].port, list(range(8)))
+            assert ok and err is None
+            rep = {"serving": tracer.serving()}
+        finally:
+            server.stop()
+        path = tmp_path / "report.json"
+        path.write_text(json.dumps(rep, default=str))
+        assert doctor.main(["--serving", str(path)]) == 0
+        text = doctor.render_serving(rep)
+        assert "replicas (nnpool)" in text and "r0=" in text
 
     def test_replicas_off_report_byte_identical(self, pkg):
         server, tracer = pkg.server("norep", extra="")

@@ -8,8 +8,9 @@ blocking under a lock, NNST612 handoff mutation, NNST613 a lock across an
 invoke, the lock contracts and the tracer's ``locks`` section) run through
 ``nnstreamer_tpu`` and ``nnstreamer_tpu_torch``, each with its own
 sanitizer switched on and the other package's switched off in the
-fixture. Left out: the replica-pool and rollout cases (the port has
-neither yet, ROADMAP.md queue 1), ``doctor --locks`` (not ported) and the
+fixture, ``doctor --locks`` through each package's own
+``tools/doctor.py``. Left out: the replica-pool and rollout cases (the
+rollout canary's own cases are tests/test_torch_rollout.py's) and the
 timing gate ``test_witness_overhead_under_10pct``.
 
 Then the port alone: NNST600 on torch tensors through the version
@@ -664,6 +665,20 @@ class TestLockObservability:
         with lk:
             pass
         assert "locks" not in pkg.trace.Tracer().report()
+
+    def test_doctor_locks_renders(self, san, tmp_path, capsys):
+        import importlib
+        import json
+
+        doctor = importlib.import_module(f"{san.name}.tools.doctor")
+        lk = san.lockwitness.make_lock("test.render")
+        with lk:
+            pass
+        path = tmp_path / "r.json"
+        path.write_text(json.dumps(san.trace.Tracer().report(), default=str))
+        assert doctor.main(["--locks", str(path)]) == 0
+        out = capsys.readouterr().out
+        assert "test.render" in out and "p95" in out
 
 
 class TestOverhead:

@@ -21,11 +21,10 @@ the parity is split:
 
 The port's device list is ``NNSTPU_TORCH_DEVICES=cpu*8`` (set for every
 test), the counterpart of the conftest's 8 virtual JAX devices; lines
-that the measured phase plays name ``accelerator=true:cpu``. Waiting:
-``test_doctor_delegates_tune`` (``tools/doctor.py`` is not ported, ROADMAP
-queue 1 item 7). The NNST850 hint names ``validate --tune`` where the
-reference's names ``doctor --tune``. Both packages' element-name
-counters are emptied at the module's end.
+that the measured phase plays name ``accelerator=true:cpu``. The NNST850
+hint names ``doctor --tune``, as the reference's does, and
+``tools/doctor.py --tune`` delegates to the tuner. Both packages'
+element-name counters are emptied at the module's end.
 """
 
 import json
@@ -403,7 +402,7 @@ class TestTunerCodes:
         d = by_code(diags, "NNST850")
         assert d and d[0].severity == "warning"
         assert "headroom" in d[0].message
-        assert "validate --tune" in d[0].hint
+        assert "doctor --tune" in d[0].hint
 
     def test_nnst852_fully_pruned_space(self, monkeypatch):
         monkeypatch.setenv("NNSTPU_HBM_BYTES", "1")
@@ -478,6 +477,12 @@ class TestCli:
         from nnstreamer_tpu_torch.tools import validate
 
         assert validate.main(["--tune", "--no-measure", LINE]) == 0
+        assert "nntune:" in capsys.readouterr().out
+
+    def test_doctor_delegates_tune(self, capsys):
+        from nnstreamer_tpu_torch.tools import doctor
+
+        assert doctor.main(["--tune", "--no-measure", LINE]) == 0
         assert "nntune:" in capsys.readouterr().out
 
     def test_fully_pruned_line_exits_2(self, monkeypatch, capsys):
