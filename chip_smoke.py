@@ -378,6 +378,20 @@ Phases, each printing one JSON line:
   deploy     validate --deploy on every examples/fleet/*.deploy (each its
              header's verdict), doctor --json and doctor --aot (the card,
              nvcc, the built library);
+  import     imported model files (see check_import): the zoo's
+             MobileNet-v2 1.0 (seed 0, 224 px, 1001 classes) written as a
+             .tflite and an .onnx (size, write ms), each streamed through
+             the image-labeling line with framework=jax at batch 128 —
+             the preamble fused, custom=preproc:norm:-127.5:127.5, and
+             batch:native — labels equal to the zoo's float32 forward on
+             the CPU, logits max abs err against it, one arith_chain and
+             no fused-block launch a batch, frames/s and p50 batch
+             latency beside the zoo flagship's on the same frames;
+             precision:default (TF32) against highest, then both
+             invoked at once from two threads, each held to its serial
+             logits and the TF32 flags restored after; the .tflite line
+             with aot:1 (a miss, then a hit, logits bit-equal to aot:0);
+             SingleShot(model=<tflite>) on one frame; the phase's seconds;
 
 then one ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -385,8 +399,8 @@ that last line. It needs a CUDA card: without one it exits 1 at once.
 
 ``--only`` runs the named phases alone (``serve`` needs ``slice`` for
 its frames; ``streams``, ``residency``, ``train``, ``loop``, ``edge``,
-``chain``, ``robust``, ``mesh``, ``tune``, ``aot``, ``rollout`` and
-``deploy`` build their own; ``stride2`` runs inside ``kernel``, the
+``chain``, ``robust``, ``mesh``, ``tune``, ``aot``, ``rollout``,
+``deploy`` and ``import`` build their own; ``stride2`` runs inside ``kernel``, the
 flagship's profile
 inside ``slice``, the overload and reference lines inside ``serve``) and
 ends after them, without the ``kernels`` and result lines.
@@ -7371,6 +7385,307 @@ def check_deploy(torch, results, workdir):
          children_s=secs, card=card)
 
 
+# -- phase: imported model files (.tflite, .onnx) ---------------------------
+
+#: the zoo model the imported files are written from: MobileNet-v2 1.0,
+#: 224 px, 1001 classes, seed 0 (testing/model_files.py)
+IMPORT_MODEL = {"seed": "0"}
+#: the imported lines' float32 logits (TF32 off) against the zoo's float32
+#: forward on the CPU over the same weights (BatchNorm folded into the
+#: .tflite, unfolded in the .onnx): the sums differ in order only
+IMPORT_ATOL = 1e-3
+
+
+def _import_line(model: str, labels: str, custom: str = "",
+                 preamble: bool = True) -> str:
+    """The reference's image-labeling line on an imported file, the
+    logits teed to a sink of their own."""
+    head = (f"appsrc name=src caps=video/x-raw,format=RGB,width={SIZE},"
+            f"height={SIZE},framerate=1000/1 "
+            f"! tensor_converter frames-per-tensor={BATCH} ")
+    if preamble:
+        head += f"! tensor_transform name=tr mode=arithmetic option={PREAMBLE} "
+    cust = f" custom={custom}" if custom else ""
+    return (head + f"! tensor_filter name=f framework=jax model={model}{cust} "
+            "! tee name=t t. ! queue ! tensor_sink name=raw "
+            f"t. ! queue ! tensor_decoder mode=image_labeling option1={labels} "
+            "! tensor_sink name=out")
+
+
+def _import_run(torch, line, frames, n_batches=N_BATCHES, warm=N_WARMUP):
+    """Play ``line`` with one tracer from ``play()`` on, warm ``warm``
+    batches, then time ``n_batches``: frames/s, p50 batch latency, the
+    timed run's launches, the planner's fusions, the filter's compile-cache
+    outcomes, every label and the last batch's logits."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch import trace
+    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    t_open = time.perf_counter()
+    p = parse_launch(line)
+    pushed, arrived = {}, {}
+    p["out"].connect_new_data(
+        lambda b: arrived.__setitem__(b.pts, time.perf_counter()))
+    tracer = trace.attach(p)
+    p.play()
+
+    def push(k0, n):
+        for i in range(k0 * BATCH, (k0 + n) * BATCH):
+            p["src"].push_buffer(Buffer(tensors=[frames[i % len(frames)]],
+                                        pts=i))
+            pushed[i] = time.perf_counter()
+        _wait_for(lambda: [len(p["out"].collected)], k0 + n, p, line[-40:])
+
+    push(0, warm)
+    first_s = time.perf_counter() - t_open
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    push(warm, n_batches)
+    secs = max(arrived.values()) - t0
+    launches = dict(_cuda.LAUNCHES)
+    p["src"].end_of_stream()
+    if not p.bus.wait_eos(120) or p.bus.error is not None:
+        raise RuntimeError(f"import line failed: {p.bus.error}")
+    lat = [(arrived[k] - pushed[k]) * 1e3 for k in arrived
+           if k >= warm * BATCH]
+    aot_events = ((tracer.report().get("aot") or {}).get("f", {})
+                  .get("events", []))
+    r = {"fps": n_batches * BATCH / secs,
+         "p50_batch_latency_ms": statistics.median(lat),
+         "open_to_warm_s": first_s, "launches": launches,
+         "fusions": tracer.fusions(),
+         "aot": [e["outcome"] for e in aot_events],
+         "labels": [lab for b in p["out"].collected for lab in
+                    b.meta["label"]],
+         "logits": np.asarray(p["raw"].collected[-1].tensors[0])}
+    p.stop()
+    return r
+
+
+def check_import(torch, results, workdir):
+    """Imported model files on the card: the zoo's MobileNet-v2 written
+    as a .tflite and an .onnx (testing/model_files.py), each streamed
+    through the image-labeling line with ``framework=jax`` — the graph
+    lowered to torch ops (cuDNN convolutions, TF32 off), its image
+    preamble on the arith_chain kernel — with the preamble fused, with
+    ``preproc:norm:-127.5:127.5`` and with ``batch:native``; beside the
+    zoo flagship (fused:pallas, bf16) on the same frames; TF32 against
+    float32; the compile cache; the single-shot API."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.single import SingleShot
+    from nnstreamer_tpu_torch.testing import model_files
+
+    t_phase = time.perf_counter()
+    labels = os.path.join(workdir, "import_labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class{i}" for i in range(1001)) + "\n")
+    files = {}
+    for kind, write in (("tflite", model_files.write_mobilenet_v2_tflite),
+                        ("onnx", model_files.write_mobilenet_v2_onnx)):
+        path = os.path.join(workdir, f"mobilenet_v2.{kind}")
+        t0 = time.perf_counter()
+        write(path, IMPORT_MODEL)
+        files[kind] = {"path": path, "bytes": os.path.getsize(path),
+                       "write_ms": (time.perf_counter() - t0) * 1e3}
+    rng = np.random.default_rng(5)
+    frames = [np.kron(rng.integers(0, 256, (4, 4, 3)),
+                      np.ones((SIZE // 4, SIZE // 4, 1))).astype(np.uint8)
+              for _ in range(BATCH)]
+    # the reference: the zoo module's float32 forward on the CPU, on the
+    # frames the preamble makes
+    x = ((np.stack(frames).astype(np.float32) + np.float32(-127.5))
+         / np.float32(127.5))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = model_files.zoo_module(IMPORT_MODEL)(
+            torch.from_numpy(x)).numpy()
+    ref_s = time.perf_counter() - t0
+    want_labels = [f"class{i}" for i in want.argmax(-1)]
+    emit("import", part="files", tflite={k: v for k, v in
+                                          files["tflite"].items()
+                                          if k != "path"},
+         onnx={k: v for k, v in files["onnx"].items() if k != "path"},
+         cpu_reference_s=ref_s, distinct_labels=len(set(want_labels)),
+         card=results["card"])
+
+    total = {}
+    failures = []
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def judge(name, r, preamble, n_batches=N_BATCHES):
+        err = max_err(torch.from_numpy(r["logits"]).float(),
+                      torch.from_numpy(want).float())
+        row = {"fps": r["fps"], "p50_batch_latency_ms":
+               r["p50_batch_latency_ms"], "open_to_warm_s":
+               r["open_to_warm_s"], "max_abs_err": err,
+               "atol": IMPORT_ATOL, "fusions": r["fusions"],
+               "launches": r["launches"], "aot": r["aot"],
+               "labels_equal": bool(r["labels"]) and r["labels"] ==
+               want_labels * (len(r["labels"]) // BATCH)}
+        ok = (row["labels_equal"] and err <= IMPORT_ATOL
+              and r["logits"].shape == (BATCH, 1001)
+              and bool(np.isfinite(r["logits"]).all())
+              and r["launches"].get("arith_chain", 0) == n_batches
+              and r["launches"].get("fused_inverted_residual", 0) == 0
+              and r["launches"].get("normalize_u8", 0) == 0
+              and r["fusions"] == ({"tr": "fused-into:f"} if preamble
+                                   else {}))
+        row["ok"] = ok
+        if not ok:
+            failures.append(name)
+        return row
+
+    runs = {}
+    variants = (("fused", "", True),
+                ("preproc", "preproc:norm:-127.5:127.5", False),
+                ("native", "batch:native", True))
+    for kind in ("tflite", "onnx"):
+        for name, custom, preamble in variants:
+            r = _import_run(torch, _import_line(files[kind]["path"], labels,
+                                                custom, preamble), frames)
+            add(r["launches"])
+            runs[f"{kind}_{name}"] = (r, judge(f"{kind}_{name}", r,
+                                               preamble))
+            emit("import", line=f"{kind}_{name}", custom=custom,
+                 batches=N_BATCHES, batch=BATCH,
+                 **runs[f"{kind}_{name}"][1], card=results["card"])
+
+    # the zoo flagship (fused:pallas, bf16) on the same frames and line
+    p, _, secs, p50, launches = _run_line(_preamble_line(labels), frames,
+                                          N_BATCHES)
+    add(launches)
+    flag_labels = [lab for b in p["out"].collected[-N_BATCHES:]
+                   for lab in b.meta["label"]]
+    p.stop()
+    emit("import", line="zoo_flagship", fps=N_BATCHES * BATCH / secs,
+         p50_batch_latency_ms=p50, launches=launches,
+         label_agreement_f32_reference=sum(
+             a == b for a, b in zip(flag_labels, want_labels * N_BATCHES))
+         / len(flag_labels), card=results["card"])
+
+    def run_imported():
+        r = _import_run(torch, _import_line(files["tflite"]["path"], labels),
+                        frames, n_batches=4, warm=0)
+        return 4 * BATCH / r["fps"]
+
+    emit("profile", line="import_tflite_fused", batches=4,
+         **device_profile(torch, run_imported))
+
+    # TF32 (precision:default) against float32 (the default, highest)
+    r = _import_run(torch, _import_line(files["tflite"]["path"], labels,
+                                        "precision:default"), frames)
+    add(r["launches"])
+    base = runs["tflite_fused"][0]
+    tf32_gap = float(np.abs(r["logits"] - base["logits"]).max())
+    emit("import", line="tflite_precision_default",
+         fps=r["fps"], fps_highest=base["fps"],
+         p50_batch_latency_ms=r["p50_batch_latency_ms"],
+         logits_gap_to_highest=tf32_gap,
+         labels_equal_highest=r["labels"] == base["labels"],
+         card=results["card"])
+    if not (np.isfinite(r["logits"]).all()
+            and r["launches"].get("arith_chain", 0) == N_BATCHES):
+        failures.append("tflite_precision_default")
+
+    # invokes of both precisions at once, from two threads (as replicas
+    # or two imported filters run them): each keeps its own precision,
+    # and the process's TF32 flags are as they were after both have left
+    import threading
+
+    from nnstreamer_tpu_torch.tools.import_tflite import load_tflite
+
+    xs = torch.from_numpy(x).cuda()
+    bundles = {p: load_tflite(files["tflite"]["path"], {"precision": p},
+                              device="cuda") for p in ("highest", "default")}
+    serial = {p: b.apply_fn(xs).float().cpu() for p, b in bundles.items()}
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    got = {p: [] for p in bundles}
+
+    def loop(p):
+        for _ in range(8):
+            got[p].append(bundles[p].apply_fn(xs))
+
+    threads = [threading.Thread(target=loop, args=(p,)) for p in bundles]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    torch.cuda.synchronize()
+    errs = {p: max(float((o.float().cpu() - serial[p]).abs().max())
+                   for o in outs) if outs else float("inf")
+            for p, outs in got.items()}
+    gap = float((serial["default"] - serial["highest"]).abs().max())
+    conc = {"iterations": {p: len(v) for p, v in got.items()},
+            "max_abs_err_to_serial": errs, "atol_highest": 1e-5,
+            "tf32_gap": gap, "flags_restored": flags == (
+                torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)}
+    conc["ok"] = (all(n == 8 for n in conc["iterations"].values())
+                  and errs["highest"] <= 1e-5 and errs["default"] < gap / 10
+                  and conc["flags_restored"])
+    emit("import", line="precisions_concurrent", **conc,
+         card=results["card"])
+    if not conc["ok"]:
+        failures.append("precisions_concurrent")
+
+    # the compile cache: aot:1 over a fresh cache, a miss then a hit
+    old = os.environ.get("NNSTPU_AOT_CACHE")
+    os.environ["NNSTPU_AOT_CACHE"] = os.path.join(workdir, "import-aot")
+    try:
+        aot_rows = {}
+        for tag in ("miss", "hit"):
+            r = _import_run(torch, _import_line(files["tflite"]["path"],
+                                                labels, "aot:1"), frames,
+                            n_batches=2, warm=1)
+            add(r["launches"])
+            aot_rows[tag] = {
+                "outcomes": r["aot"], "open_to_warm_s": r["open_to_warm_s"],
+                "bit_equal_aot0": bool(np.array_equal(
+                    r["logits"], base["logits"])),
+                "labels_equal": r["labels"] == want_labels * 3}
+    finally:
+        if old is None:
+            os.environ.pop("NNSTPU_AOT_CACHE", None)
+        else:
+            os.environ["NNSTPU_AOT_CACHE"] = old
+    aot_ok = (aot_rows["miss"]["outcomes"] == ["miss-compiled"]
+              and aot_rows["hit"]["outcomes"] == ["hit"]
+              and all(v["bit_equal_aot0"] and v["labels_equal"]
+                      for v in aot_rows.values()))
+    emit("import", line="tflite_aot", **aot_rows, ok=aot_ok,
+         card=results["card"])
+    if not aot_ok:
+        failures.append("tflite_aot")
+
+    # the single-shot API on one frame
+    with SingleShot(model=files["tflite"]["path"], framework="jax") as s:
+        outs = [s.invoke(x[0])[0] for _ in range(5)]
+        single = {"label_equal": int(np.argmax(outs[-1])) == int(
+                      want[0].argmax()),
+                  "max_abs_err": float(np.abs(
+                      outs[-1].reshape(-1) - want[0]).max()),
+                  "latency_us": s.latency_us, "device": str(s.fw._device)}
+    emit("import", line="single_shot", **single, card=results["card"])
+    if not (single["label_equal"] and single["max_abs_err"] <= IMPORT_ATOL
+            and single["device"].startswith("cuda")):
+        failures.append("single_shot")
+
+    results["import_launches"] = total
+    emit("import", part="summary", failures=failures,
+         seconds=time.perf_counter() - t_phase, card=results["card"])
+    if failures:
+        raise AssertionError(f"import: {failures} failed their checks")
+
+
 def main() -> int:
     import torch
 
@@ -7422,6 +7737,7 @@ def main() -> int:
         "aot": lambda: check_aot(torch, results, workdir),
         "rollout": lambda: check_rollout(torch, results, workdir),
         "deploy": lambda: check_deploy(torch, results, workdir),
+        "import": lambda: check_import(torch, results, workdir),
     }
     only = None
     if "--only" in sys.argv[1:]:
@@ -7434,6 +7750,8 @@ def main() -> int:
     for name, run in phases.items():
         if only is None or name in only:
             run()
+    emit("summary", phases=only or list(phases),
+         seconds=time.perf_counter() - t0, card=card)
     if only is not None:
         return 0
 
@@ -7456,7 +7774,8 @@ def main() -> int:
         "streams_launches", "residency_launches", "train_launches",
         "loop_launches", "edge_launches", "chain_launches",
         "robust_launches", "mesh_launches", "train_mesh_launches",
-        "tune_launches", "aot_launches", "rollout_launches"))
+        "tune_launches", "aot_launches", "rollout_launches",
+        "import_launches"))
         for name in src}
     launches["arith_chain"] += results["arith_launches"]
     kernels = []

@@ -215,7 +215,10 @@ def params_fingerprint(custom: str) -> str:
 #: the package): an edit to any of it must be a miss, as a kernel
 #: source's edit is through the library's digest
 CODE_FILES = ("models", "ops/fused_block.py", "ops/fusion_stages.py",
-              "filters/aot.py", "filters/aot_worker.py")
+              "filters/aot.py", "filters/aot_worker.py",
+              "tools/_import_common.py", "tools/onnx_lite.py",
+              "tools/import_onnx.py", "tools/tflite_fb.py",
+              "tools/import_tflite.py")
 
 
 def code_digest(root: Optional[str] = None) -> str:

@@ -109,10 +109,15 @@ Model naming: zoo names (``mobilenet_v2``) with weights from
 ``custom=seed:<n>`` or ``custom=params:<path>`` (an ``.npz``, or what the
 trainer saved: a file or a directory), checkpoint files
 (``model=<file> custom=arch:<zoo-name>``: what ``models.save_state``
-wrote, where the JAX backend reads a flax ``.msgpack``), and
+wrote, where the JAX backend reads a flax ``.msgpack``),
 embedded-Python ``.py`` model files (:func:`models.load_py_model`, the JAX
-backend's ``_load_py_model``). The JAX backend's ``.jaxexport`` and
-SavedModel sources are not ported.
+backend's ``_load_py_model``), and ``.tflite`` / ``.onnx`` model files
+(tools/import_tflite.py, tools/import_onnx.py: the graph lowered to torch
+ops, its image preamble on the ``arith_chain`` kernel, with
+``custom=precision:highest|default``, ``quant:int8``, ``carrier:``,
+``qmode:``, ``preproc:norm:<add>:<div>`` and ``batch:native`` as in the
+JAX backend). The JAX backend's ``.jaxexport`` and SavedModel sources
+are not ported.
 """
 
 from __future__ import annotations
@@ -335,7 +340,8 @@ class TorchCudaFilter(FilterFramework):
         model = props.model_file
         if not model:
             raise ValueError("torch_cuda filter needs model=<zoo-name|"
-                             ".py|checkpoint with custom=arch:>")
+                             ".py|.tflite|.onnx|checkpoint with "
+                             "custom=arch:>")
         self._device = pick_device(props.accelerator)
         self._custom = custom
         self._postproc = make_postproc(custom)

@@ -131,6 +131,15 @@ def load_or_init(module: torch.nn.Module, custom: Dict[str, str],
         init_fn(module, int(custom.get("seed", 0)))
 
 
+def given_state() -> Optional[Mapping[str, torch.Tensor]]:
+    """The state :func:`build_with_state` passes the build in progress
+    (None outside one, and for a skeleton build): for model builds that
+    place their weights themselves (the imported graphs,
+    tools/_import_common.graph_bundle)."""
+    given = getattr(_given, "state", None)
+    return None if given is _SKELETON else given
+
+
 def weights_version(module: torch.nn.Module) -> int:
     """How many times a trainer changed ``module``'s weights or running
     statistics (see :func:`weights_changed`); 0 for a module as built."""
@@ -400,17 +409,32 @@ def build_bundle(model: str, custom: Dict[str, str],
     """The bundle of a model source on ``device``: an embedded-Python
     ``.py`` file, a checkpoint file (what :func:`save_state` wrote) of the
     zoo model ``custom=arch:<zoo-name>`` names (the JAX backend's
-    ``.msgpack`` + ``arch:``), or a zoo name."""
-    if str(model).endswith(".py"):
+    ``.msgpack`` + ``arch:``), a ``.tflite`` or ``.onnx`` model file (the
+    importers, tools/import_tflite.py and tools/import_onnx.py, as the
+    JAX backend's ``build_bundle`` routes them), or a zoo name. The
+    filter, the compile cache's worker and ``single.SingleShot`` all
+    build through here."""
+    name = str(model)
+    if name.endswith(".py"):
         return load_py_model(model, custom, device)
+    if name.endswith(".tflite"):
+        from nnstreamer_tpu_torch.tools.import_tflite import load_tflite
+
+        return load_tflite(name, custom, device)
+    if name.endswith(".onnx"):
+        from nnstreamer_tpu_torch.tools.import_onnx import load_onnx
+
+        return load_onnx(name, custom, device)
     arch = custom.get("arch")
     if arch:
         return get_model(arch, dict(custom, params=model), device)
-    if "." in os.path.basename(str(model)):
+    if "." in os.path.basename(name):
         raise ValueError(f"model {model!r}: the torch_cuda backend runs "
                          "zoo models (weights via custom=params:<path>), "
-                         "checkpoint files with custom=arch:<zoo-name> and "
-                         ".py model files")
+                         "checkpoint files with custom=arch:<zoo-name>, "
+                         ".py model files and .tflite/.onnx model files "
+                         "(the JAX backend's .jaxexport and SavedModel "
+                         "sources are not ported)")
     return get_model(model, custom, device)
 
 

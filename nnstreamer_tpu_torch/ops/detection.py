@@ -44,15 +44,18 @@ def _pairwise_iou(boxes: torch.Tensor) -> torch.Tensor:
 def _nms_valid(boxes: torch.Tensor, iou_thr: float) -> torch.Tensor:
     """Greedy suppression over score-sorted (B, k, 4) boxes → bool (B, k).
     Step i kills every later box that overlaps box i while box i is still
-    valid; the loop runs on the device (no ``.item()``)."""
+    valid; the loop runs on the device (no ``.item()``) and updates no
+    tensor in place, so it also runs under ``torch.func.vmap`` (an
+    imported graph's TFLite_Detection_PostProcess, tools/import_tflite)."""
     k = boxes.shape[-2]
     later = torch.ones((k, k), dtype=torch.bool,
-                       device=boxes.device).triu_(1)
+                       device=boxes.device).triu(1)
     kill = (_pairwise_iou(boxes) > iou_thr) & later
     valid = torch.ones(boxes.shape[:-1], dtype=torch.bool,
                        device=boxes.device)
     for i in range(k - 1):
-        valid[..., i + 1:] &= ~(kill[..., i, i + 1:] & valid[..., i, None])
+        # kill[..., i, j] is False for j <= i: only later boxes change
+        valid = valid & ~(kill[..., i, :] & valid[..., i, None])
     return valid
 
 

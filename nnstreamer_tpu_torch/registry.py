@@ -50,6 +50,18 @@ _BUILTINS: Dict[Tuple[str, str], str] = {
     (TRAINER, "jax"): "nnstreamer_tpu_torch.trainers.cuda_trainer",
     (TRAINER, "torch_cuda"): "nnstreamer_tpu_torch.trainers.cuda_trainer",
     (FILTER, "custom-easy"): "nnstreamer_tpu_torch.filters.custom_easy",
+    (FILTER, "python3"): "nnstreamer_tpu_torch.filters.python3",
+    (FILTER, "torch"): "nnstreamer_tpu_torch.filters.torch_filter",
+    (FILTER, "pytorch"): "nnstreamer_tpu_torch.filters.torch_filter",
+    # the CPU-runtime backends: registered always, each raises at open()
+    # by name where its runtime is not installed
+    (FILTER, "tensorflow-lite"): "nnstreamer_tpu_torch.filters.tflite_filter",
+    (FILTER, "tensorflow2-lite"): "nnstreamer_tpu_torch.filters.tflite_filter",
+    (FILTER, "tensorflow1-lite"): "nnstreamer_tpu_torch.filters.tflite_filter",
+    (FILTER, "tflite"): "nnstreamer_tpu_torch.filters.tflite_filter",
+    (FILTER, "tensorflow"): "nnstreamer_tpu_torch.filters.tflite_filter",
+    (FILTER, "onnxruntime"): "nnstreamer_tpu_torch.filters.onnx_filter",
+    (FILTER, "onnx"): "nnstreamer_tpu_torch.filters.onnx_filter",
     (FILTER, "passthrough"): "nnstreamer_tpu_torch.filters.passthrough",
     (DECODER, "image_labeling"): "nnstreamer_tpu_torch.decoders.image_labeling",
     (DECODER, "bounding_boxes"): "nnstreamer_tpu_torch.decoders.bounding_boxes",

@@ -780,7 +780,9 @@ def test_filter_still_rejects_other_model_files(tmp_path):
     from nnstreamer_tpu_torch.filters.base import FilterProperties
     from nnstreamer_tpu_torch.filters.cuda_filter import TorchCudaFilter
 
-    props = FilterProperties(model_files=[str(tmp_path / "m.onnx")],
+    # .onnx and .tflite files open through the importers; a .jaxexport
+    # artifact is a source this backend does not run
+    props = FilterProperties(model_files=[str(tmp_path / "m.jaxexport")],
                              accelerator="true:cpu")
     with pytest.raises(ValueError, match=r"\.py model files"):
         TorchCudaFilter().open(props)
