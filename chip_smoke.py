@@ -382,8 +382,9 @@ Phases, each printing one JSON line:
              MobileNet-v2 1.0 (seed 0, 224 px, 1001 classes) written as a
              .tflite and an .onnx (size, write ms), each streamed through
              the image-labeling line with framework=jax at batch 128 —
-             the preamble fused, custom=preproc:norm:-127.5:127.5, and
-             batch:native — labels equal to the zoo's float32 forward on
+             the preamble fused, and for the .tflite also
+             custom=preproc:norm:-127.5:127.5 and batch:native — labels
+             equal to the zoo's float32 forward on
              the CPU, logits max abs err against it, one arith_chain and
              no fused-block launch a batch, frames/s and p50 batch
              latency beside the zoo flagship's on the same frames;
@@ -392,6 +393,28 @@ Phases, each printing one JSON line:
              logits and the TF32 flags restored after; the .tflite line
              with aot:1 (a miss, then a hit, logits bit-equal to aot:0);
              SingleShot(model=<tflite>) on one frame; the phase's seconds;
+  train_vision  tensor_trainer framework=jax on SSD-MobileNet-v2 (300 px,
+             width 1.0, 91 classes), DeepLab-v3 (257 px, 21 classes),
+             PoseNet (257 px, 17 keypoints) and YOLOv8 (320 px, width
+             0.25, 80 classes) at full width from seed:0 (see
+             check_train_vision): loss:mse against labels of the head's
+             shape from the CPU's float32 forward, batch 16, 4 steps and
+             one validation batch through appsrc ! tensor_trainer
+             (fused:pallas: SSD's and DeepLab's validation on the
+             fused-block kernel, every batch's frames on normalize_u8);
+             each model's first step on the card in float32 against the
+             CPU's (forward, weight and running-statistics updates, loss;
+             the CPU's bfloat16 step must fail the same limits), the
+             card's bf16 forward within the bf16 noise, normalize_u8 at
+             the line's frames bit-equal to its plain version, the
+             validation batch against the unfused float32 forward; step
+             ms, samples/s, validation frames/s, idle share over 4 steps;
+  custom     user C and Lua filters on the card's lines (see
+             check_custom): the flagship followed by the codegen 'c'
+             passthrough .so, built with g++ against native/include,
+             labels equal to the flagship alone, frames/s, p50 and d2h
+             bytes a batch; model=add on the card into a framework=lua
+             script on small tensors;
 
 then one ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -400,7 +423,7 @@ that last line. It needs a CUDA card: without one it exits 1 at once.
 ``--only`` runs the named phases alone (``serve`` needs ``slice`` for
 its frames; ``streams``, ``residency``, ``train``, ``loop``, ``edge``,
 ``chain``, ``robust``, ``mesh``, ``tune``, ``aot``, ``rollout``,
-``deploy`` and ``import`` build their own; ``stride2`` runs inside ``kernel``, the
+``deploy``, ``import``, ``train_vision`` and ``custom`` build their own; ``stride2`` runs inside ``kernel``, the
 flagship's profile
 inside ``slice``, the overload and reference lines inside ``serve``) and
 ends after them, without the ``kernels`` and result lines.
@@ -7471,10 +7494,12 @@ def check_import(torch, results, workdir):
     as a .tflite and an .onnx (testing/model_files.py), each streamed
     through the image-labeling line with ``framework=jax`` — the graph
     lowered to torch ops (cuDNN convolutions, TF32 off), its image
-    preamble on the arith_chain kernel — with the preamble fused, with
-    ``preproc:norm:-127.5:127.5`` and with ``batch:native``; beside the
-    zoo flagship (fused:pallas, bf16) on the same frames; TF32 against
-    float32; the compile cache; the single-shot API."""
+    preamble on the arith_chain kernel — with the preamble fused (both
+    files), and the .tflite file also with ``preproc:norm:-127.5:127.5``
+    and with ``batch:native`` (the .onnx importer ignores both, as the
+    JAX one does); beside the zoo flagship (fused:pallas, bf16) on the
+    same frames; TF32 against float32; the compile cache; the single-shot
+    API."""
     import numpy as np
 
     from nnstreamer_tpu_torch.single import SingleShot
@@ -7548,7 +7573,8 @@ def check_import(torch, results, workdir):
                 ("preproc", "preproc:norm:-127.5:127.5", False),
                 ("native", "batch:native", True))
     for kind in ("tflite", "onnx"):
-        for name, custom, preamble in variants:
+        for name, custom, preamble in variants[:3 if kind == "tflite"
+                                               else 1]:
             r = _import_run(torch, _import_line(files[kind]["path"], labels,
                                                 custom, preamble), frames)
             add(r["launches"])
@@ -7685,6 +7711,521 @@ def check_import(torch, results, workdir):
     if failures:
         raise AssertionError(f"import: {failures} failed their checks")
 
+# -- phase: training the vision models ---------------------------------------
+
+#: each vision model at full width, its customs, and how many of its
+#: blocks the fused-block kernel runs a validation batch
+TRAIN_VISION = {
+    "ssd_mobilenet": {"size": 300, "custom": "width:1.0,classes:91",
+                      "kernel_blocks": 13},
+    "deeplab_v3": {"size": 257, "custom": "width:1.0,classes:21",
+                   "kernel_blocks": 10},
+    "posenet": {"size": 257, "custom": "width:1.0,keypoints:17",
+                "kernel_blocks": 0},
+    "yolov8": {"size": 320, "custom": "width:0.25,classes:80",
+               "kernel_blocks": 0},
+}
+#: batch, train steps and validation batches of the line; timed steps and
+#: validation batches after 2 warm-up steps and 1 validation batch; the
+#: first step's batch on the card and the CPU
+TV = {"batch": 16, "steps": 4, "val": 1, "timed": 4, "val_timed": 2,
+      "first": 4, "lr": "0.0001"}
+
+
+#: the card's float32 first step against the CPU's (no TF32): the largest
+#: relative distance of the train forward's outputs, of the step's change
+#: of the weights and of the running statistics, and of the loss. The
+#: CPU's bfloat16 step is the control: it must lie farther than each
+#: limit, so the limits tell a path one rounding off from a right one
+TV_F32_LIMITS = {"forward": 1e-3, "weights_update": 1e-1,
+                 "running_stats_update": 1e-3, "loss": 1e-4}
+#: the card's bfloat16 forward (the line's) and its validation batch are
+#: held within this many times the CPU bfloat16 run's distance from the
+#: CPU float32 run (the bf16 noise of the same arithmetic)
+TV_NOISE_FACTOR = 2.0
+
+
+def _tv_custom(name, **extra) -> dict:
+    cfg = TRAIN_VISION[name]
+    custom = dict(kv.split(":") for kv in cfg["custom"].split(","))
+    return {"size": str(cfg["size"]), "batch": str(TV["batch"]),
+            "lr": TV["lr"], "loss": "mse", "seed": "0", **custom, **extra}
+
+
+def _tv_frames(name, n):
+    import numpy as np
+
+    size = TRAIN_VISION[name]["size"]
+    return np.random.default_rng(21).integers(0, 256, (n, size, size, 3),
+                                               dtype=np.uint8)
+
+
+def _tv_trainer(torch, name, custom, n_train, n_val=0):
+    from nnstreamer_tpu_torch.trainers import TrainerProperties
+    from nnstreamer_tpu_torch.trainers.cuda_trainer import CudaTrainer
+
+    tr = CudaTrainer()
+    props = TrainerProperties(model_config=name, num_training_samples=n_train,
+                              num_validation_samples=n_val, custom=custom)
+    tr.create(props)
+    tr.start(lambda e: None)
+    return tr, props
+
+
+def _host(torch, out) -> list:
+    """A model's output (a tensor or a tuple) as float64 host tensors."""
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    return [o.detach().double().cpu() for o in outs]
+
+
+def _rel(a: list, b: list) -> float:
+    """||a − b|| / ||b|| over lists of host tensors."""
+    num = sum(float(((x - y) ** 2).sum()) for x, y in zip(a, b))
+    den = sum(float((y ** 2).sum()) for y in b)
+    return (num / den) ** 0.5 if den else float(num > 0)
+
+
+def _rel_cols(a: list, b: list) -> float:
+    """The largest :func:`_rel` of one output's column (its last axis:
+    a box coordinate, a class, a keypoint) over the outputs, so a column
+    of small values (YOLOv8's scores beside its pixel boxes) counts."""
+    return max(_rel([x[..., j]], [y[..., j]]) for x, y in zip(a, b)
+               for j in range(y.shape[-1]))
+
+
+class _TvRun:
+    """One model's first step on a fresh trainer (seed:0 weights) over
+    the first ``TV['first']`` frames, on the card (the zoo's bfloat16) or
+    on the CPU, its layers in ``dtype`` when given: the train forward's
+    outputs on those frames (no step taken), then the step's loss and the
+    state before and after it, all on the host."""
+
+    def __init__(self, torch, name, frames, device, dtype=None):
+        n = TV["first"]
+        extra = {"batch": str(n)}
+        if device == "cpu":
+            extra["device"] = "cpu"
+        self.tr, self.props = _tv_trainer(torch, name,
+                                          _tv_custom(name, **extra), n)
+        module = self.tr._bundle.module
+        if dtype is not None:
+            _set_dtype(torch, module, dtype)
+        with torch.no_grad():
+            out, _ = self.tr._bundle.train_apply_fn(
+                torch.from_numpy(frames[:n]).to(device))
+        self.outputs = _host(torch, out)
+        self.before = self._state()
+        self.frames = frames[:n]
+
+    def _state(self) -> dict:
+        return {k: v.detach().double().cpu() for k, v
+                in self.tr._bundle.module.state_dict().items()
+                if v.is_floating_point()}
+
+    def step(self, labels) -> None:
+        for i, f in enumerate(self.frames):
+            self.tr.push_data([f, labels[i % len(labels)]])
+        self.loss = self.props.training_loss
+        self.after = self._state()
+        self.tr.destroy()
+
+    def delta(self, running: bool) -> list:
+        """The step's change of the weights (or the running statistics)."""
+        return [self.after[k] - self.before[k] for k in sorted(self.after)
+                if ("running" in k) == running]
+
+
+def _tv_first_steps(torch, name, frames) -> tuple:
+    """The first step on the card against the same module's float32 step
+    on the CPU, from the same seed:0 weights on the same 4 frames: the
+    train forward's outputs, the step's change of the weights and of the
+    running statistics (relative norms), and the loss (relative). The
+    card's step in float32 (TF32 off) is held within TV_F32_LIMITS, and
+    the CPU's bfloat16 step must lie outside them (the control); the
+    card's bfloat16 forward, the line's, is held within TV_NOISE_FACTOR
+    times the CPU bfloat16 forward's distance. The labels are the CPU
+    float32 forward's outputs (the tensor the loss reads) plus N(0, 0.5)
+    noise, independent of the card; sample i takes label i % 4. Returns
+    (labels, readings, ok)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    cpu32 = _TvRun(torch, name, frames, "cpu", torch.float32)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card32 = _TvRun(torch, name, frames, "cuda", torch.float32)
+        card16 = _TvRun(torch, name, frames, "cuda")
+        cpu16 = _TvRun(torch, name, frames, "cpu")
+        rng = np.random.default_rng(21)
+        labels = [(o + rng.normal(0.0, 0.5, o.shape)).astype(np.float32)
+                  for o in cpu32.outputs[0].numpy()]
+        for r in (cpu32, card32, card16, cpu16):
+            r.step(labels)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+    def dist(r, key):
+        if key == "forward":
+            return _rel_cols(r.outputs, cpu32.outputs)
+        if key == "loss":
+            return abs(r.loss - cpu32.loss) / abs(cpu32.loss)
+        running = key == "running_stats_update"
+        return _rel(r.delta(running), cpu32.delta(running))
+
+    losses = [cpu32.loss, card32.loss, card16.loss, cpu16.loss]
+    ok = bool(np.isfinite(losses).all())
+    readings = {"losses": dict(zip(("cpu_f32", "card_f32", "card_bf16",
+                                    "cpu_bf16"), losses)),
+                "batch": TV["first"]}
+    for key, limit in TV_F32_LIMITS.items():
+        got, control = dist(card32, key), dist(cpu16, key)
+        readings[key] = {"card_f32_vs_cpu_f32": got,
+                         "cpu_bf16_vs_f32": control, "limit": limit,
+                         "card_bf16_vs_cpu_f32": dist(card16, key)}
+        ok = ok and got <= limit < control
+    fwd = readings["forward"]
+    fwd["bf16_limit"] = TV_NOISE_FACTOR * fwd["cpu_bf16_vs_f32"]
+    ok = ok and fwd["card_bf16_vs_cpu_f32"] <= fwd["bf16_limit"]
+    readings["seconds"] = time.perf_counter() - t0
+    return labels, readings, ok
+
+
+def _tv_preamble(torch, name, frames) -> dict:
+    """normalize_u8 at the line's batch of frames, bit-equal to its plain
+    version (the same two roundings)."""
+    from nnstreamer_tpu_torch.ops import normalize_u8, normalize_u8_plain
+
+    x = torch.from_numpy(frames[:TV["batch"]]).cuda()
+    scale = (1.0 / 255.0, 0.0) if name == "yolov8" else (1.0 / 127.5, -1.0)
+    return {"shape": list(x.shape), "scale": list(scale), "tol": 0.0,
+            "max_abs_err": max_err(
+                normalize_u8(x, *scale, out_dtype=torch.bfloat16),
+                normalize_u8_plain(x, *scale, out_dtype=torch.bfloat16))}
+
+
+def _tv_validation(torch, name, fw, frames, labels, n_train, n_val,
+                   reported) -> dict:
+    """The trained line's validation forward (``fused:pallas``: the
+    fused-block kernel for SSD and DeepLab) run again on its validation
+    batch with its trained weights: its mse against the line's reported
+    validation loss (1e-3 relative), and its outputs (by column,
+    _rel_cols) against the unfused forward of the same weights in float32
+    on the CPU, within
+    TV_NOISE_FACTOR times the CPU's unfused bfloat16 forward's distance
+    from it."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.models import build_with_state
+
+    x = frames[n_train:n_train + n_val]
+    y = np.stack([labels[i % len(labels)]
+                  for i in range(n_train, n_train + n_val)])
+    with torch.no_grad():
+        card = _host(torch, fw._bundle.apply_fn(torch.from_numpy(x).cuda()))
+    state = {k: v.detach().cpu()
+             for k, v in fw._bundle.module.state_dict().items()}
+    twin = build_with_state(name, _tv_custom(name, device="cpu"), "cpu",
+                            state)
+    outs = {}
+    for key, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        _set_dtype(torch, twin.module, dtype)
+        outs[key] = _host(torch, twin.apply_fn(torch.from_numpy(x)))
+    mse = float(((card[0] - torch.from_numpy(y).double()) ** 2).mean())
+    got = _rel_cols(card, outs["f32"])
+    noise = _rel_cols(outs["bf16"], outs["f32"])
+    row = {"frames": n_val, "card_vs_cpu_f32": got,
+           "cpu_bf16_vs_f32": noise, "limit": TV_NOISE_FACTOR * noise,
+           "loss_rerun": mse, "loss_reported": reported}
+    row["ok"] = bool(got <= row["limit"] and reported is not None
+                     and abs(mse - reported) <= 1e-3 * abs(reported))
+    return row
+
+
+def _tv_line(name, label_shape, n_train, n_val) -> str:
+    cfg = TRAIN_VISION[name]
+    label_dims = ":".join(str(d) for d in reversed(label_shape))
+    caps = ("other/tensors,format=static,num_tensors=2,dimensions="
+            f"3:{cfg['size']}:{cfg['size']}.{label_dims},"
+            "types=uint8.float32,framerate=0/1")
+    return (f"appsrc name=src caps={caps} ! tensor_trainer name=tr "
+            f"framework=jax model-config={name} num-inputs=1 num-labels=1 "
+            f"num-training-samples={n_train} "
+            f"num-validation-samples={n_val} epochs=1 "
+            f"custom={_custom_str(_tv_custom(name, fused='pallas'))} "
+            "! tensor_sink name=out")
+
+
+def _tv_timing(torch, name, frames, labels) -> dict:
+    """Train step and validation times on a trainer driven directly: the
+    batch-completing push of each step (stack, one upload, forward,
+    backward, update, the loss read) after 2 warm-up steps, each
+    validation batch after 1; then the idle share over 4 more steps."""
+    b = TV["batch"]
+    n_steps, n_val = 2 + TV["timed"], 1 + TV["val_timed"]
+    tr, _ = _tv_trainer(torch, name, _tv_custom(name, fused="pallas"),
+                        n_steps * b, n_val * b)
+    step_ms, val_ms = [], []
+    for i in range((n_steps + n_val) * b):
+        t0 = time.perf_counter()
+        tr.push_data([frames[i % len(frames)], labels[i % 4]])
+        if (i + 1) % b == 0:
+            torch.cuda.synchronize()
+            (step_ms if i < n_steps * b else val_ms).append(
+                (time.perf_counter() - t0) * 1e3)
+    steps, vals = step_ms[2:], val_ms[1:]
+    tr2, _ = _tv_trainer(torch, name, _tv_custom(name, fused="pallas"),
+                         10 ** 6)
+
+    def run():
+        t0 = time.perf_counter()
+        for i in range(4 * b):
+            tr2.push_data([frames[i % len(frames)], labels[i % 4]])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run()  # warm-up steps
+    prof = device_profile(torch, run)
+    return {"step_ms_median": statistics.median(steps),
+            "step_ms_min": min(steps), "step_ms_max": max(steps),
+            "samples_per_s": b / statistics.median(steps) * 1e3,
+            "val_ms_median": statistics.median(vals),
+            "val_frames_per_s": b / statistics.median(vals) * 1e3,
+            "idle_share_4_steps": prof["idle_share"],
+            "device_busy_ms_4_steps": prof["device_busy_ms"],
+            "wall_ms_4_steps": prof["wall_ms"],
+            "by_kind_ms": prof["by_kind_ms"]}
+
+
+def check_train_vision(torch, results):
+    """The four BatchNorm vision models trained at full width from their
+    seed:0 weights through ``appsrc ! tensor_trainer framework=jax
+    model-config=<name> custom=...,loss:mse,fused:pallas ! tensor_sink``:
+    4 steps of batch 16 and one validation batch, against labels of the
+    head's shape from the CPU's float32 forward (see _tv_first_steps).
+    Each model is held on (1) its first step on the card against the same
+    module's float32 step on the CPU in this process: the train forward's
+    outputs, the step's change of the weights and of the running
+    statistics, and the loss, the card's float32 step within
+    TV_F32_LIMITS, which the CPU's bfloat16 step must exceed, and the
+    card's bfloat16 forward within TV_NOISE_FACTOR times the CPU's
+    bfloat16 forward's distance (_tv_first_steps); (2) normalize_u8 at
+    the line's frames, bit-equal to its plain version (a train-mode
+    BatchNorm after the bias-free stem hides a scale or offset error of
+    the preamble from the outputs); (3) the line: its launches —
+    normalize_u8 once a batch (steps and validation), the fused-block
+    kernel 13 (SSD) or 10 (DeepLab) times a validation batch — and finite
+    reports; (4) the line's validation batch through its fused forward
+    against the unfused float32 forward on the CPU (_tv_validation); then
+    the timing on a trainer driven directly."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    t_phase = time.perf_counter()
+    total, failures = {}, []
+    b = TV["batch"]
+    n_train, n_val = TV["steps"] * b, TV["val"] * b
+    for name, cfg in TRAIN_VISION.items():
+        frames = _tv_frames(name, n_train + n_val)
+        labels, first, first_ok = _tv_first_steps(torch, name, frames)
+        preamble = _tv_preamble(torch, name, frames)
+
+        p = parse_launch(_tv_line(name, labels[0].shape, n_train, n_val))
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        p.play()
+        for i in range(n_train + n_val):
+            p["src"].push_buffer(Buffer(tensors=[frames[i], labels[i % 4]],
+                                        pts=i))
+        p["src"].end_of_stream()
+        if not p.bus.wait_eos(600) or p.bus.error is not None:
+            raise RuntimeError(f"train_vision {name}: {p.bus.error}")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        stats = dict(p["tr"]._fw.stats)
+        reports = [np.asarray(r.tensors[0]).reshape(-1).tolist()
+                   for r in p["out"].collected]
+        report = dict(zip(("train_loss", "train_acc", "val_loss",
+                           "val_acc"), reports[0])) if reports else None
+        val = _tv_validation(torch, name, p["tr"]._fw, frames, labels,
+                             n_train, n_val,
+                             report["val_loss"] if report else None)
+        p.stop()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        batches = TV["steps"] + TV["val"]
+        ok = (first_ok and val["ok"]
+              and preamble["max_abs_err"] <= preamble["tol"]
+              and len(reports) == 1 and np.isfinite(reports[0]).all()
+              and stats["steps"] == TV["steps"]
+              and stats["val_batches"] == TV["val"]
+              and launches.get("normalize_u8", 0) == batches
+              and launches.get("fused_inverted_residual", 0)
+              == cfg["kernel_blocks"] * TV["val"])
+        row = {"model": name, "size": cfg["size"], "custom": cfg["custom"],
+               "batch": b, "first_step": first, "preamble": preamble,
+               "validation": val, "line_seconds": secs, "report": report,
+               "steps": stats["steps"], "val_batches": stats["val_batches"],
+               "h2d_bytes_per_batch": stats["h2d_bytes"] / batches,
+               "launches": launches, "ok": ok}
+        if ok:
+            row.update(_tv_timing(torch, name, frames, labels))
+        else:
+            failures.append(name)
+        emit("train_vision", **row, card=results["card"])
+    results["train_vision_launches"] = total
+    emit("train_vision", part="summary", failures=failures,
+         launches=total, seconds=time.perf_counter() - t_phase,
+         card=results["card"])
+    if failures:
+        raise AssertionError(f"train_vision: {failures} failed their checks")
+
+
+# -- phase: user C and Lua filters -------------------------------------------
+
+CUSTOM_BATCHES = 8
+LUA_SCRIPT = """
+inputTensorsInfo = { num = 1, dim = {{16, 1, 1, 1},}, type = {'float32',} }
+outputTensorsInfo = { num = 1, dim = {{16, 1, 1, 1},}, type = {'float32',} }
+function nnstreamer_invoke()
+  local inp = input_tensor(1)
+  local out = output_tensor(1)
+  for i = 1, 16 do
+    out[i] = inp[i] * 2.0 + 0.5
+  end
+end
+"""
+
+
+def _build_passthrough_so(workdir) -> str:
+    """The codegen 'c' passthrough, built with g++ against native/include
+    (raises when g++ is missing or the build fails)."""
+    import shutil
+
+    from nnstreamer_tpu_torch.tools import codegen
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("custom: no g++ on this machine")
+    src = os.path.join(workdir, "genfilter.c")
+    so = os.path.join(workdir, "libgenfilter.so")
+    with open(src, "w") as f:
+        f.write(codegen.generate("c", "genfilter"))
+    out = subprocess.run([gxx, "-O2", "-fPIC", "-shared",
+                          f"-I{os.path.join(ROOT, 'native', 'include')}",
+                          src, "-o", so], capture_output=True, text=True,
+                         timeout=120)
+    if out.returncode != 0:
+        raise RuntimeError(f"custom: g++ failed: {out.stderr[-2000:]}")
+    return so
+
+
+def _custom_flag_line(labels: str, so: str = "") -> str:
+    """The flagship labeling line (argmax on the card), the C passthrough
+    between the filter and the decoder when ``so`` names one."""
+    lib = f"! tensor_filter name=c framework=custom model={so} " if so else ""
+    return (f"appsrc name=src caps=video/x-raw,format=RGB,width={SIZE},"
+            f"height={SIZE},framerate=1000/1 "
+            f"! tensor_converter frames-per-tensor={BATCH} "
+            "! tensor_filter name=f framework=jax model=mobilenet_v2 "
+            "custom=seed:0,postproc:argmax,fused:pallas "
+            f"{lib}! queue ! tensor_decoder mode=image_labeling "
+            f"option1={labels} ! tensor_sink name=out")
+
+
+def check_custom(torch, results, workdir):
+    """The flagship line followed by a user C library (the codegen 'c'
+    passthrough, built here), labels equal to the flagship alone, with
+    frames/s, p50 batch latency and the d2h bytes a batch; then model=add
+    on the card into a framework=lua script on 16-float tensors, outputs
+    against numpy."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.pipeline import parse_launch
+
+    t_phase = time.perf_counter()
+    labels, frames = _phase_frames(torch, results, workdir)
+    t0 = time.perf_counter()
+    so = _build_passthrough_so(workdir)
+    build_s = time.perf_counter() - t0
+    total, failures = {}, []
+    rows = {}
+    for tag, lib in (("flagship", ""), ("flagship_custom_so", so)):
+        p, tracer, secs, p50, launches = _run_line(
+            _custom_flag_line(labels, lib), frames, CUSTOM_BATCHES)
+        cross = tracer.crossings()
+        labs = _labels_of(p)[-CUSTOM_BATCHES * BATCH:]
+        p.stop()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        rows[tag] = {"fps": CUSTOM_BATCHES * BATCH / secs,
+                     "p50_batch_latency_ms": p50, "launches": launches,
+                     "d2h_per_batch": cross["d2h"] / CUSTOM_BATCHES,
+                     "d2h_bytes_per_batch": cross["d2h_bytes"]
+                     / CUSTOM_BATCHES, "labels": labs}
+    a, c = rows["flagship"], rows["flagship_custom_so"]
+    so_ok = (c["labels"] == a["labels"] and len(c["labels"])
+             == CUSTOM_BATCHES * BATCH and c["d2h_per_batch"] == 1
+             and c["launches"].get("fused_inverted_residual", 0)
+             == 13 * CUSTOM_BATCHES
+             and c["launches"].get("normalize_u8", 0) == CUSTOM_BATCHES)
+    emit("custom", line="flagship_custom_so", so_build_s=build_s,
+         batches=CUSTOM_BATCHES, batch=BATCH,
+         labels_equal_flagship=c["labels"] == a["labels"],
+         **{k: v for k, v in c.items() if k != "labels"},
+         flagship={k: v for k, v in a.items() if k != "labels"},
+         ok=so_ok, card=results["card"])
+    if not so_ok:
+        failures.append("flagship_custom_so")
+
+    # model=add on the card into a Lua script: one host read a buffer
+    line = ("appsrc name=src caps=other/tensors,format=static,num-tensors=1,"
+            "dimensions=16,types=float32,framerate=0/1 "
+            "! tensor_filter name=m framework=jax model=add custom=k:1 "
+            "! tensor_filter name=f framework=lua ! tensor_sink name=out")
+    from nnstreamer_tpu_torch import trace
+
+    rng = np.random.default_rng(7)
+    xs = [rng.normal(size=16).astype(np.float32) for _ in range(32)]
+    p = parse_launch(line)
+    p["f"].set_property("model", LUA_SCRIPT)
+    tracer = trace.attach(p)
+    p.play()
+    t0 = time.perf_counter()
+    for i, x in enumerate(xs):
+        p["src"].push_buffer(Buffer(tensors=[x], pts=i))
+    p["src"].end_of_stream()
+    if not p.bus.wait_eos(120) or p.bus.error is not None:
+        raise RuntimeError(f"custom: lua line failed: {p.bus.error}")
+    secs = time.perf_counter() - t0
+    outs = [np.asarray(b.tensors[0]).reshape(-1) for b in p["out"].collected]
+    cross = tracer.crossings()
+    m_dev = str(p["m"].fw._device)
+    p.stop()
+    err = max((float(np.abs(o - ((x + 1) * 2.0 + 0.5)).max())
+               for o, x in zip(outs, xs)), default=float("inf"))
+    lua_ok = (len(outs) == len(xs) and err == 0.0
+              and cross["d2h"] == len(xs) and m_dev.startswith("cuda"))
+    emit("custom", line="add_lua", buffers=len(outs), max_abs_err=err,
+         d2h=cross["d2h"], h2d=cross["h2d"], model_device=m_dev,
+         buffers_per_s=len(outs) / secs, ok=lua_ok, card=results["card"])
+    if not lua_ok:
+        failures.append("add_lua")
+    results["custom_launches"] = total
+    emit("custom", part="summary", failures=failures,
+         seconds=time.perf_counter() - t_phase, card=results["card"])
+    if failures:
+        raise AssertionError(f"custom: {failures} failed their checks")
+
 
 def main() -> int:
     import torch
@@ -7738,6 +8279,8 @@ def main() -> int:
         "rollout": lambda: check_rollout(torch, results, workdir),
         "deploy": lambda: check_deploy(torch, results, workdir),
         "import": lambda: check_import(torch, results, workdir),
+        "train_vision": lambda: check_train_vision(torch, results),
+        "custom": lambda: check_custom(torch, results, workdir),
     }
     only = None
     if "--only" in sys.argv[1:]:
@@ -7747,11 +8290,15 @@ def main() -> int:
             print(f"chip_smoke: unknown phases {unknown}; phases are "
                   f"{sorted(phases)}", file=sys.stderr)
             return 2
+    phase_seconds = {}
     for name, run in phases.items():
         if only is None or name in only:
+            t_run = time.perf_counter()
             run()
+            phase_seconds[name] = time.perf_counter() - t_run
     emit("summary", phases=only or list(phases),
-         seconds=time.perf_counter() - t0, card=card)
+         seconds=time.perf_counter() - t0, phase_seconds=phase_seconds,
+         card=card)
     if only is not None:
         return 0
 
@@ -7775,7 +8322,7 @@ def main() -> int:
         "loop_launches", "edge_launches", "chain_launches",
         "robust_launches", "mesh_launches", "train_mesh_launches",
         "tune_launches", "aot_launches", "rollout_launches",
-        "import_launches"))
+        "import_launches", "train_vision_launches", "custom_launches"))
         for name in src}
     launches["arith_chain"] += results["arith_launches"]
     kernels = []

@@ -442,7 +442,7 @@ def _restore(meta: dict, name: str, model: str, custom: Dict[str, str],
 
 def load(path: str, device=None, budget_bytes: Optional[int] = None):
     """Load a cached program into THIS process on ``device`` (default: the
-    card when there is one, else the CPU). Returns a :class:`Program` or
+    card, see :func:`default_device`). Returns a :class:`Program` or
     None. ``budget_bytes`` is the memplan gate: an entry whose recorded
     ``hbm_bytes`` exceeds it is REFUSED (a miss, not an out-of-memory
     error at PLAYING). An unreadable entry is quarantined instead of
@@ -452,9 +452,16 @@ def load(path: str, device=None, budget_bytes: Optional[int] = None):
 
 
 def default_device():
+    """The device of a call that names none: the card, which must exist
+    (as the filter's ``pick_device``). The CPU runs only when the caller
+    passes it."""
     import torch
 
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "the compile cache (filters/aot.py) builds and loads on a CUDA "
+            "device and torch sees none; pass device='cpu' to use the CPU")
+    return torch.device("cuda")
 
 
 def _load(path: str, device=None, budget_bytes: Optional[int] = None):

@@ -115,8 +115,8 @@ backend's ``_load_py_model``), and ``.tflite`` / ``.onnx`` model files
 (tools/import_tflite.py, tools/import_onnx.py: the graph lowered to torch
 ops, its image preamble on the ``arith_chain`` kernel, with
 ``custom=precision:highest|default``, ``quant:int8``, ``carrier:``,
-``qmode:``, ``preproc:norm:<add>:<div>`` and ``batch:native`` as in the
-JAX backend). The JAX backend's ``.jaxexport`` and SavedModel sources
+``qmode:``, and for ``.tflite`` files ``preproc:norm:<add>:<div>`` and
+``batch:native``, as in the JAX backend). The JAX backend's ``.jaxexport`` and SavedModel sources
 are not ported.
 """
 

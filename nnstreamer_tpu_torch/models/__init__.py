@@ -152,6 +152,32 @@ def weights_changed(module: torch.nn.Module) -> None:
     module._weights_version = weights_version(module) + 1
 
 
+def refolding(model: torch.nn.Module, fold: Callable[[], tuple]
+              ) -> Callable:
+    """The forward ``fold()`` builds from ``model``'s weights (a
+    BN-folded forward), built again at the first call after a trainer
+    changed them (:func:`weights_changed`): the JAX package folds inside
+    the jitted forward from the variables it is given, so its folded
+    forward always runs the current weights. ``fold()`` returns
+    ``(forward, state)``; where the state is not None,
+    ``forward.folded()`` gives the current one (:attr:`ModelBundle.folded`,
+    refolded first when the weights changed)."""
+    f = {}
+
+    def current() -> dict:
+        version = weights_version(model)
+        if f.get("version") != version:
+            (f["fwd"], f["state"]), f["version"] = fold(), version
+        return f
+
+    def forward(x):
+        return current()["fwd"](x)
+
+    if current()["state"] is not None:
+        forward.folded = lambda: current()["state"]
+    return forward
+
+
 #: momentum of flax's ``nn.BatchNorm``, which the JAX zoo trains with
 BN_MOMENTUM = 0.99
 

@@ -14,8 +14,11 @@ centres and, upsampling, applies no antialias; its counterpart is
 the edges where the JAX resize renormalises its weights to the same
 result.
 
-Two forwards, as in ``models/mobilenet_v2.py``: the module's own
-(unfused), and :func:`_make_fused_apply` (BatchNorm folded once; the 10
+Three forwards, as in ``models/mobilenet_v2.py``: the module's own
+(unfused); the train forward (the bundle's ``train_apply_fn``: the
+backbone's and the ASPP's BatchNorms by the batch's statistics,
+:func:`models.batch_norm_train`); and :func:`_make_fused_apply`
+(BatchNorm folded, again after a trainer changed the weights; the 10
 stride-1 undilated blocks through the fused-block kernel on CUDA with
 ``fused:pallas``; the 3 stride-2 and 4 dilated blocks, and every
 ``fused:xla`` block, through three convolutions; the ASPP's conv+BN
@@ -24,7 +27,7 @@ branches folded too).
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +39,7 @@ from nnstreamer_tpu_torch.models import (
     init_conv_bn,
     load_or_init,
     preprocess_frames,
+    refolding,
     register_model,
     resolve_fused_apply,
 )
@@ -72,15 +76,18 @@ class ASPP(nn.Module):
                                       bias=False)
         self.project_bn = nn.BatchNorm2d(out_ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        outs = [F.relu(_conv_bn(x, c, bn, dt))
+    def forward(self, x: torch.Tensor,
+                new_state: Optional[list] = None) -> torch.Tensor:
+        """``new_state``: train-mode BatchNorms, see
+        :func:`models.mobilenet_v2._conv_bn`."""
+        dt, ns = self.dtype, new_state
+        outs = [F.relu(_conv_bn(x, c, bn, dt, ns))
                 for c, bn in zip(self.branches, self.branch_bns)]
         g = x.float().mean(dim=(2, 3), keepdim=True).to(dt)
-        g = F.relu(_conv_bn(g, self.pool_conv, self.pool_bn, dt))
+        g = F.relu(_conv_bn(g, self.pool_conv, self.pool_bn, dt, ns))
         outs.append(g.expand(-1, -1, x.shape[2], x.shape[3]))
         return F.relu(_conv_bn(torch.cat(outs, dim=1), self.project_conv,
-                               self.project_bn, dt))
+                               self.project_bn, dt, ns))
 
 
 class DeepLabV3(nn.Module):
@@ -118,16 +125,17 @@ class DeepLabV3(nn.Module):
         self.aspp = ASPP(ch, dtype=dtype)
         self.classifier = nn.Conv2d(256, num_classes, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                new_state: Optional[list] = None) -> torch.Tensor:
         """NHWC float frames → float32 (B, H, W, classes) logits (the
-        unfused forward)."""
-        dt = self.dtype
+        unfused forward; with ``new_state`` the train forward)."""
+        dt, ns = self.dtype, new_state
         in_hw = (x.shape[1], x.shape[2])
         y = _relu6(_conv_bn(x.permute(0, 3, 1, 2), self.stem_conv,
-                            self.stem_bn, dt))
+                            self.stem_bn, dt, ns))
         for blk in self.blocks:
-            y = blk.forward_nchw(y)
-        y = _conv(self.aspp(y), self.classifier, torch.float32)
+            y = blk.forward_nchw(y, ns)
+        y = _conv(self.aspp(y, ns), self.classifier, torch.float32)
         return _resize(y.permute(0, 2, 3, 1), in_hw)
 
 
@@ -151,7 +159,14 @@ def _make_fused_apply(model: DeepLabV3, mode: str = "kernel",
     :func:`models.mobilenet_v2.fold_blocks` routes them for ``mode``
     ('kernel', 'xla' or 'plain'; dilated blocks to the convolutions), the
     ASPP's five conv+BN pairs fold too, and the class conv (biased,
-    float32) and the resize run as the module runs them."""
+    float32) and the resize run as the module runs them. It folds again
+    at the first call after a trainer changed the weights
+    (:func:`models.refolding`)."""
+    return refolding(model,
+                     lambda: (_fold(model, mode, compute_dtype), None))
+
+
+def _fold(model: DeepLabV3, mode: str, compute_dtype):
     from nnstreamer_tpu_torch.ops.fused_block import fold_conv_bn_apply
 
     cd = compute_dtype or model.dtype
@@ -195,6 +210,11 @@ def build(custom: Dict[str, str], device: torch.device) -> ModelBundle:
             with torch.no_grad():
                 return model(preprocess_frames(x, "pm1", model.dtype))
 
+    def train_apply_fn(x):
+        new_state = []
+        out = model(preprocess_frames(x, "pm1", model.dtype), new_state)
+        return out, new_state
+
     def infer_output(info: TensorsInfo) -> TensorsInfo:
         h, w = info.tensors[0].np_shape()[-3:-1]
         return TensorsInfo(tensors=[TensorInfo.from_np_shape(
@@ -205,7 +225,7 @@ def build(custom: Dict[str, str], device: torch.device) -> ModelBundle:
         input_info=TensorsInfo.from_strings(f"3:{size}:{size}:1", "uint8"),
         output_info=TensorsInfo.from_strings(f"{classes}:{size}:{size}:1",
                                              "float32"),
-        infer_output=infer_output)
+        infer_output=infer_output, train_apply_fn=train_apply_fn)
 
 
 register_model("deeplab_v3")(build)

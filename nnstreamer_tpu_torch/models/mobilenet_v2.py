@@ -39,9 +39,9 @@ from nnstreamer_tpu_torch.models import (
     batch_norm_train,
     load_or_init,
     preprocess_frames,
+    refolding,
     register_model,
     resolve_fused_apply,
-    weights_version,
 )
 from nnstreamer_tpu_torch.types import TensorInfo, TensorsInfo
 
@@ -376,31 +376,17 @@ def _make_fused_apply(model: MobileNetV2, mode: str = "kernel",
     first call after a trainer changed the weights
     (:func:`models.weights_version`): the JAX package folds inside the
     jitted forward from the variables it is given, so its folded forward
-    always runs the current weights. A model nobody trains folds once.
-    ``forward.folded()`` gives the current folded state and recipe."""
+    always runs the current weights (:func:`models.refolding`). A model
+    nobody trains folds once. ``forward.folded()`` gives the current
+    folded state and recipe."""
     cd = compute_dtype or model.dtype
     dev = model.stem_conv.weight.device
-    f = {}
 
-    def fold() -> None:
+    def fold():
         flat, recipe = fold_state(model, mode, cd, dev)
-        f.update(version=weights_version(model), flat=flat, recipe=recipe,
-                 fwd=folded_forward(flat, recipe))
+        return folded_forward(flat, recipe), (flat, recipe)
 
-    fold()
-
-    def forward(x: torch.Tensor) -> torch.Tensor:
-        if f["version"] != weights_version(model):
-            fold()
-        return f["fwd"](x)
-
-    def folded():
-        if f["version"] != weights_version(model):
-            fold()
-        return f["flat"], f["recipe"]
-
-    forward.folded = folded
-    return forward
+    return refolding(model, fold)
 
 
 def infer_output(in_info: TensorsInfo, classes: int) -> TensorsInfo:

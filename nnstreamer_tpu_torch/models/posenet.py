@@ -11,8 +11,11 @@ two float32 heads:
 matching the decoder's ``heatmap-offset`` mode. K defaults to 17 (COCO
 keypoints); 257x257 input gives a 17x17 grid.
 
-Two forwards: the module's own (unfused), and :func:`_make_fused_apply`
-(``fused:xla``/``fused:pallas``: every BatchNorm folded into its conv).
+Three forwards: the module's own (unfused), the train forward (the
+bundle's ``train_apply_fn``: every BatchNorm by the batch's statistics,
+:func:`models.batch_norm_train`), and :func:`_make_fused_apply`
+(``fused:xla``/``fused:pallas``: every BatchNorm folded into its conv,
+again after a trainer changed the weights).
 The v1 blocks have no expand conv and no residual, so the fused-block
 kernel does not apply: every mode runs the folded convolutions, as the
 JAX package's does.
@@ -20,7 +23,7 @@ JAX package's does.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -31,6 +34,7 @@ from nnstreamer_tpu_torch.models import (
     init_conv_bn,
     load_or_init,
     preprocess_frames,
+    refolding,
     register_model,
     resolve_fused_apply,
 )
@@ -56,9 +60,11 @@ class SeparableConv(nn.Module):
         self.pw_conv = nn.Conv2d(in_ch, out_ch, 1, bias=False)
         self.pw_bn = nn.BatchNorm2d(out_ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _relu6(_conv_bn(x, self.dw_conv, self.dw_bn, self.dtype))
-        return _relu6(_conv_bn(x, self.pw_conv, self.pw_bn, self.dtype))
+    def forward(self, x: torch.Tensor,
+                new_state: Optional[list] = None) -> torch.Tensor:
+        dt, ns = self.dtype, new_state
+        x = _relu6(_conv_bn(x, self.dw_conv, self.dw_bn, dt, ns))
+        return _relu6(_conv_bn(x, self.pw_conv, self.pw_bn, dt, ns))
 
 
 class PoseNet(nn.Module):
@@ -89,14 +95,15 @@ class PoseNet(nn.Module):
         self.heatmap_head = nn.Conv2d(ch, num_keypoints, 1)
         self.offset_head = nn.Conv2d(ch, 2 * num_keypoints, 1)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, new_state: Optional[list] = None):
         """NHWC float frames → (heatmaps, offsets), float32 NHWC (the
-        unfused forward). The heatmaps are raw logits: the decoder applies
-        the sigmoid."""
+        unfused forward; with ``new_state`` the train forward, see
+        :func:`models.mobilenet_v2._conv_bn`). The heatmaps are raw
+        logits: the decoder applies the sigmoid."""
         y = _relu6(_conv_bn(x.permute(0, 3, 1, 2), self.stem_conv,
-                            self.stem_bn, self.dtype))
+                            self.stem_bn, self.dtype, new_state))
         for blk in self.blocks:
-            y = blk(y)
+            y = blk(y, new_state)
         return tuple(_conv(y, h, torch.float32).permute(0, 2, 3, 1)
                      .contiguous()
                      for h in (self.heatmap_head, self.offset_head))
@@ -112,11 +119,16 @@ def _make_fused_apply(model: PoseNet, mode: str = "xla",
     each separable block is folded-dw-conv → relu6 → folded-1x1 → relu6,
     the heads float32 convs with bias. ``mode`` is accepted for the
     ``fused:pallas|xla`` wiring and changes nothing: there is no kernel for
-    v1 blocks."""
-    from nnstreamer_tpu_torch.ops.fused_block import fold_conv_bn_apply
-
+    v1 blocks. It folds again at the first call after a trainer changed
+    the weights (:func:`models.refolding`)."""
     if mode not in ("kernel", "xla", "plain"):
         raise ValueError(f"unknown fused forward mode {mode!r}")
+    return refolding(model, lambda: (_fold(model, compute_dtype), None))
+
+
+def _fold(model: PoseNet, compute_dtype):
+    from nnstreamer_tpu_torch.ops.fused_block import fold_conv_bn_apply
+
     cd = compute_dtype or model.dtype
     dev = model.stem_conv.weight.device
 
@@ -153,6 +165,12 @@ def build(custom: Dict[str, str], device: torch.device) -> ModelBundle:
         def apply_fn(x):
             with torch.no_grad():
                 return model(preprocess_frames(x, "pm1", model.dtype))
+
+    def train_apply_fn(x):
+        new_state = []
+        out = model(preprocess_frames(x, "pm1", model.dtype), new_state)
+        return out, new_state
+
     grid = -(-size // 16)  # four SAME-padded stride-2 convs: ceil(size/16)
 
     def infer_output(info: TensorsInfo) -> TensorsInfo:
@@ -168,7 +186,7 @@ def build(custom: Dict[str, str], device: torch.device) -> ModelBundle:
         output_info=TensorsInfo.from_strings(
             f"{keypoints}:{grid}:{grid}:1.{2 * keypoints}:{grid}:{grid}:1",
             "float32.float32"),
-        infer_output=infer_output)
+        infer_output=infer_output, train_apply_fn=train_apply_fn)
 
 
 register_model("posenet")(build)

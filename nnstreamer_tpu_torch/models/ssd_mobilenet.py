@@ -14,20 +14,24 @@ The anchor ("box prior") generator reproduces the tflite SSD convention
 and ``write_box_priors`` writes the 4-line ycenter/xcenter/h/w file the
 decoder's option3 reads, so model and decoder agree on anchors.
 
-Two forwards, as in ``models/mobilenet_v2.py``: the module's own
-(unfused), and :func:`_make_fused_apply` (BatchNorm folded once; the 13
-stride-1 blocks through the fused-block kernel on CUDA with
-``fused:pallas``, the 4 stride-2 blocks and every ``fused:xla`` block
-through three convolutions). The 12 head convolutions are plain
-``F.conv2d`` with bias, as the JAX package computes them outside any
-Pallas kernel. Each head's NCHW output is permuted to NHWC before it is
+Three forwards, as in ``models/mobilenet_v2.py``: the module's own
+(unfused); the train forward (the bundle's ``train_apply_fn``: every
+BatchNorm of the backbone and the extra blocks by the batch's statistics,
+:func:`models.batch_norm_train`, the raw ``(boxes, scores)`` out, also
+for a ``postproc:pp`` bundle, as in the JAX package); and
+:func:`_make_fused_apply` (BatchNorm folded, again after a trainer
+changed the weights; the 13 stride-1 blocks through the fused-block
+kernel on CUDA with ``fused:pallas``, the 4 stride-2 blocks and every
+``fused:xla`` block through three convolutions). The 12 head convolutions
+are plain ``F.conv2d`` with bias, as the JAX package computes them
+outside any Pallas kernel. Each head's NCHW output is permuted to NHWC before it is
 flattened, so the anchors come in the priors file's (y, x, anchor) order.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +43,7 @@ from nnstreamer_tpu_torch.models import (
     init_conv_bn,
     load_or_init,
     preprocess_frames,
+    refolding,
     register_model,
     resolve_fused_apply,
 )
@@ -136,10 +141,11 @@ class _ExtraBlock(nn.Module):
                                      bias=False)
         self.expand_bn = nn.BatchNorm2d(out_ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
-        x = _relu6(_conv_bn(x, self.reduce_conv, self.reduce_bn, self.dtype))
-        return _relu6(_conv_bn(x, self.expand_conv, self.expand_bn,
-                               self.dtype))
+    def forward(self, x: torch.Tensor,
+                new_state: Optional[list] = None) -> torch.Tensor:  # NCHW
+        dt, ns = self.dtype, new_state
+        x = _relu6(_conv_bn(x, self.reduce_conv, self.reduce_bn, dt, ns))
+        return _relu6(_conv_bn(x, self.expand_conv, self.expand_bn, dt, ns))
 
 
 class SSDMobileNetV2(nn.Module):
@@ -188,21 +194,23 @@ class SSDMobileNetV2(nn.Module):
             nn.Conv2d(c, _anchors_per_cell(i) * num_classes, 3)
             for i, c in enumerate(tap_ch))
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, new_state: Optional[list] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """NHWC float frames → (boxes (B, N, 1, 4), logits (B, N, C)),
-        float32 (the unfused forward)."""
-        dt = self.dtype
+        float32 (the unfused forward; with ``new_state`` the train
+        forward, see :func:`models.mobilenet_v2._conv_bn`)."""
+        dt, ns = self.dtype, new_state
         y = _relu6(_conv_bn(x.permute(0, 3, 1, 2), self.stem_conv,
-                            self.stem_bn, dt))
+                            self.stem_bn, dt, ns))
         taps = []
         for i, blk in enumerate(self.blocks):
-            y = blk.forward_nchw(y)
+            y = blk.forward_nchw(y, ns)
             if i == self.TAP_BLOCK:
                 taps.append(y)
-        y = _relu6(_conv_bn(y, self.head_conv, self.head_bn, dt))
+        y = _relu6(_conv_bn(y, self.head_conv, self.head_bn, dt, ns))
         taps.append(y)
         for extra in self.extras:
-            y = extra(y)
+            y = extra(y, ns)
             taps.append(y)
         return _assemble(
             [_conv(f, h, dt).permute(0, 2, 3, 1)
@@ -250,7 +258,13 @@ def _make_fused_apply(model: SSDMobileNetV2, mode: str = "kernel",
     every backbone and extra-block BatchNorm folds into its conv, the
     blocks go where :func:`models.mobilenet_v2.fold_blocks` routes them for
     ``mode`` ('kernel', 'xla' or 'plain'), and the SSD heads (bias convs,
-    no BatchNorm) run as they are."""
+    no BatchNorm) run as they are. It folds again at the first call after
+    a trainer changed the weights (:func:`models.refolding`)."""
+    return refolding(model,
+                     lambda: (_fold(model, mode, compute_dtype), None))
+
+
+def _fold(model: SSDMobileNetV2, mode: str, compute_dtype):
     from nnstreamer_tpu_torch.ops.fused_block import fold_conv_bn_apply
 
     cd = compute_dtype or model.dtype
@@ -339,6 +353,12 @@ def build(custom: Dict[str, str], device: torch.device) -> ModelBundle:
         def apply_fn(x):
             with torch.no_grad():
                 return model(preprocess_frames(x, "pm1", model.dtype))
+
+    def train_apply_fn(x):
+        new_state = []
+        out = model(preprocess_frames(x, "pm1", model.dtype), new_state)
+        return out, new_state
+
     n = num_anchors(size)
     in_info = TensorsInfo.from_strings(f"3:{size}:{size}:1", "uint8")
 
@@ -354,7 +374,8 @@ def build(custom: Dict[str, str], device: torch.device) -> ModelBundle:
             apply_fn=pp_apply, module=model, input_info=in_info,
             output_info=TensorsInfo.from_strings(
                 f"4:{k}:1.{k}:1.{k}:1.1:1", "float32.float32.float32.float32"),
-            infer_output=lambda info: _pp_info(batch_of(info), k))
+            infer_output=lambda info: _pp_info(batch_of(info), k),
+            train_apply_fn=train_apply_fn)
 
     def infer_output(info: TensorsInfo) -> TensorsInfo:
         b, n = batch_of(info), num_anchors(info.tensors[0].np_shape()[-3])
@@ -366,7 +387,7 @@ def build(custom: Dict[str, str], device: torch.device) -> ModelBundle:
         apply_fn=apply_fn, module=model, input_info=in_info,
         output_info=TensorsInfo.from_strings(
             f"4:1:{n}:1.{classes}:{n}:1", "float32.float32"),
-        infer_output=infer_output)
+        infer_output=infer_output, train_apply_fn=train_apply_fn)
 
 
 register_model("ssd_mobilenet")(build)

@@ -12,12 +12,15 @@ option3=1, scaled output) then nc class scores, already sigmoided.
 
 It reaches no kernel but the uint8 preamble's ``normalize_u8``: the JAX
 package runs it outside any Pallas kernel. ``postproc:pp`` adds the
-device-side top-k + NMS of ``ops/detection.py``.
+device-side top-k + NMS of ``ops/detection.py``. The train forward (the
+bundle's ``train_apply_fn``, also a ``pp`` bundle's, as in the JAX
+package) takes every ``ConvBNSiLU``'s BatchNorm by the batch's
+statistics (:func:`models.batch_norm_train`) and returns the rows.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -49,8 +52,11 @@ class ConvBNSiLU(nn.Module):
                               bias=False)
         self.bn = nn.BatchNorm2d(out_ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.silu(_conv_bn(x, self.conv, self.bn, self.dtype))
+    def forward(self, x: torch.Tensor,
+                new_state: Optional[list] = None) -> torch.Tensor:
+        """``new_state``: train-mode BatchNorm, see
+        :func:`models.mobilenet_v2._conv_bn`."""
+        return F.silu(_conv_bn(x, self.conv, self.bn, self.dtype, new_state))
 
 
 class Bottleneck(nn.Module):
@@ -61,8 +67,9 @@ class Bottleneck(nn.Module):
         self.cv2 = ConvBNSiLU(out_ch, out_ch, 3, dtype=dtype)
         self.residual = shortcut and in_ch == out_ch
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.cv2(self.cv1(x))
+    def forward(self, x: torch.Tensor,
+                new_state: Optional[list] = None) -> torch.Tensor:
+        y = self.cv2(self.cv1(x, new_state), new_state)
         return y + x if self.residual else y
 
 
@@ -78,13 +85,14 @@ class C2f(nn.Module):
                                for _ in range(n))
         self.cv2 = ConvBNSiLU((2 + n) * half, out_ch, 1, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        outs = list(torch.chunk(self.cv1(x), 2, dim=1))
+    def forward(self, x: torch.Tensor,
+                new_state: Optional[list] = None) -> torch.Tensor:
+        outs = list(torch.chunk(self.cv1(x, new_state), 2, dim=1))
         b = outs[-1]
         for m in self.m:
-            b = m(b)
+            b = m(b, new_state)
             outs.append(b)
-        return self.cv2(torch.cat(outs, dim=1))
+        return self.cv2(torch.cat(outs, dim=1), new_state)
 
 
 class SPPF(nn.Module):
@@ -97,11 +105,12 @@ class SPPF(nn.Module):
         self.cv1 = ConvBNSiLU(in_ch, half, 1, dtype=dtype)
         self.cv2 = ConvBNSiLU(4 * half, out_ch, 1, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        outs = [self.cv1(x)]
+    def forward(self, x: torch.Tensor,
+                new_state: Optional[list] = None) -> torch.Tensor:
+        outs = [self.cv1(x, new_state)]
         for _ in range(3):  # SAME: padded with -inf, as flax's max_pool
             outs.append(F.max_pool2d(outs[-1], 5, stride=1, padding=2))
-        return self.cv2(torch.cat(outs, dim=1))
+        return self.cv2(torch.cat(outs, dim=1), new_state)
 
 
 def _upsample2(x: torch.Tensor) -> torch.Tensor:
@@ -145,19 +154,28 @@ class YoloV8(nn.Module):
         self.cls_heads = nn.ModuleList(nn.Conv2d(c, num_classes, 1)
                                        for c in feats)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """NHWC float frames → float32 (B, cells, 4 + nc) rows."""
-        cv, c2 = self.convs, self.c2fs
-        y = cv[1](cv[0](x.permute(0, 3, 1, 2).to(self.dtype)))
-        y = c2[0](y)
-        p3 = c2[1](cv[2](y))
-        p4 = c2[2](cv[3](p3))
-        p5 = self.sppf(c2[3](cv[4](p4)))
+    def forward(self, x: torch.Tensor,
+                new_state: Optional[list] = None) -> torch.Tensor:
+        """NHWC float frames → float32 (B, cells, 4 + nc) rows (with
+        ``new_state`` the train forward)."""
+        ns = new_state
+
+        def cv(i, y):
+            return self.convs[i](y, ns)
+
+        def c2(i, y):
+            return self.c2fs[i](y, ns)
+
+        y = cv(1, cv(0, x.permute(0, 3, 1, 2).to(self.dtype)))
+        y = c2(0, y)
+        p3 = c2(1, cv(2, y))
+        p4 = c2(2, cv(3, p3))
+        p5 = self.sppf(c2(3, cv(4, p4)), ns)
         # PAN neck: top-down then bottom-up
-        t4 = c2[4](torch.cat([_upsample2(p5), p4], dim=1))
-        t3 = c2[5](torch.cat([_upsample2(t4), p3], dim=1))
-        b4 = c2[6](torch.cat([cv[5](t3), t4], dim=1))
-        b5 = c2[7](torch.cat([cv[6](b4), p5], dim=1))
+        t4 = c2(4, torch.cat([_upsample2(p5), p4], dim=1))
+        t3 = c2(5, torch.cat([_upsample2(t4), p3], dim=1))
+        b4 = c2(6, torch.cat([cv(5, t3), t4], dim=1))
+        b5 = c2(7, torch.cat([cv(6, b4), p5], dim=1))
         rows = []
         for feat, stride, bh, ch in zip((t3, b4, b5), self.STRIDES,
                                         self.box_heads, self.cls_heads):
@@ -184,17 +202,25 @@ def num_cells(size: int) -> int:
     return (size // 8) ** 2 + (size // 16) ** 2 + (size // 32) ** 2
 
 
-#: head weights' std: this net's SiLU features are small (about 1 over the
-#: square root of their width), so std 1 gives the logits a spread of
-#: about 1, as SSD's 0.006 does its relu6 features
+#: class-head weights' std: this net's SiLU features are small (about 1
+#: over the square root of their width), so std 1 gives the class logits
+#: a spread of about 1, as SSD's 0.006 does its relu6 features
 _HEAD_STD = 1.0
 
 
 def init_weights(model: YoloV8, seed: int) -> None:
     """:func:`models.init_conv_bn`, then the detection heads as SSD's
-    (:func:`models.ssd_mobilenet.init_heads`)."""
+    (:func:`models.ssd_mobilenet.init_heads`), the box heads' weights
+    scaled to flax's default (lecun-normal) std, 1 over the square root
+    of their fan-in: the train forward's batch-normalised features are
+    about 1, so at std 1 the box logits would spread about that square
+    root and the rows' exp(clamp(logit, -10, 8)) sizes would reach the
+    clamp, which the JAX package's seed init does not do."""
     init_conv_bn(model, seed)
     init_heads(model.box_heads, model.cls_heads, seed + 1, _HEAD_STD)
+    with torch.no_grad():
+        for h in model.box_heads:
+            h.weight.mul_(h.weight[0].numel() ** -0.5)
 
 
 def build(custom: Dict[str, str], device: torch.device) -> ModelBundle:
@@ -213,6 +239,11 @@ def build(custom: Dict[str, str], device: torch.device) -> ModelBundle:
     @torch.no_grad()
     def apply_fn(x):
         return model(preprocess_frames(x, "unit", model.dtype))
+
+    def train_apply_fn(x):
+        new_state = []
+        out = model(preprocess_frames(x, "unit", model.dtype), new_state)
+        return out, new_state
 
     in_info = TensorsInfo.from_strings(f"3:{size}:{size}:1", "uint8")
 
@@ -240,7 +271,8 @@ def build(custom: Dict[str, str], device: torch.device) -> ModelBundle:
             apply_fn=pp_apply, module=model, input_info=in_info,
             output_info=TensorsInfo.from_strings(
                 f"4:{k}:1.{k}:1.{k}:1.1:1", "float32.float32.float32.float32"),
-            infer_output=lambda info: _pp_info(batch_of(info), k))
+            infer_output=lambda info: _pp_info(batch_of(info), k),
+            train_apply_fn=train_apply_fn)
 
     def infer_output(info: TensorsInfo) -> TensorsInfo:
         cells = num_cells(info.tensors[0].np_shape()[-3])
@@ -251,7 +283,7 @@ def build(custom: Dict[str, str], device: torch.device) -> ModelBundle:
         apply_fn=apply_fn, module=model, input_info=in_info,
         output_info=TensorsInfo.from_strings(
             f"{4 + classes}:{num_cells(size)}:1", "float32"),
-        infer_output=infer_output)
+        infer_output=infer_output, train_apply_fn=train_apply_fn)
 
 
 register_model("yolov8")(build)

@@ -53,17 +53,38 @@ def _wide(logits: torch.Tensor) -> torch.Tensor:
     return logits if logits.dtype == torch.float64 else logits.float()
 
 
+def _xent(logits: torch.Tensor, y: torch.Tensor,
+          reduction: str = "mean") -> torch.Tensor:
+    """optax's ``softmax_cross_entropy_with_integer_labels`` reduced: the
+    class on the LAST axis, one integer label for every other position.
+    Labels of any other shape raise ``ValueError``, as optax does (the
+    trainer's labels are one int a sample: a dense head's (N, ..., C)
+    output trains under ``loss:mse``)."""
+    if tuple(y.shape) != tuple(logits.shape[:-1]):
+        raise ValueError(
+            f"softmax_xent takes integer labels of shape logits.shape[:-1]: "
+            f"logits {tuple(logits.shape)}, labels {tuple(y.shape)} (a "
+            f"dense head trains under loss:mse)")
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           y.reshape(-1).long(), reduction=reduction)
+
+
+def _first(out):
+    """A model's output collapsed to its first tensor (SSD's boxes,
+    PoseNet's heatmaps), as the JAX package's loss reads a tuple."""
+    return out[0] if isinstance(out, tuple) else out
+
+
 def _loss_and_acc(logits, y, loss: str):
-    """Shared train/eval metric math; a (logits, state) tuple is collapsed
-    to its logits. ``softmax_xent`` takes integer labels (the mean of
-    optax's ``softmax_cross_entropy_with_integer_labels``); ``mse``
-    compares the float32 (float64) logits with the label tensor as it is, and its
+    """Shared train/eval metric math on a model's output (a tuple is
+    collapsed to its first tensor). ``softmax_xent`` takes integer labels
+    (:func:`_xent`, the mean of optax's
+    ``softmax_cross_entropy_with_integer_labels``); ``mse`` compares the
+    float32 (float64) logits with the label tensor as it is, and its
     accuracy is the negative loss, as in the JAX package."""
-    if isinstance(logits, tuple):
-        logits = logits[0]
-    logits = _wide(logits)
+    logits = _wide(_first(logits))
     if loss == "softmax_xent":
-        l = F.cross_entropy(logits, y.long())
+        l = _xent(logits, y)
         acc = (logits.argmax(-1) == y).float().mean()
     else:
         l = torch.mean((logits - y) ** 2)
@@ -75,10 +96,9 @@ def _loss_sums(logits, y, loss: str):
     """One row group's share of :func:`_loss_and_acc`: (the loss summed
     over its elements, the element count, the correct labels), so the
     rows' sums divide once by the whole batch's count."""
-    logits = _wide(logits)
+    logits = _wide(_first(logits))
     if loss == "softmax_xent":
-        return (F.cross_entropy(logits, y.long(), reduction="sum"),
-                logits.shape[0],
+        return (_xent(logits, y, reduction="sum"), y.numel(),
                 (logits.argmax(-1) == y).float().sum())
     d = (logits - y) ** 2
     return d.sum(), d.numel(), None
@@ -117,7 +137,7 @@ def make_train_step(apply_fn: Callable, optimizer: torch.optim.Optimizer,
     def step(batch) -> Dict[str, torch.Tensor]:
         x, y = batch
         out = apply_fn(x)
-        l, acc = _loss_and_acc(out, y, loss)
+        l, acc = _loss_and_acc(out[0] if has_batch_stats else out, y, loss)
         l.backward()
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
@@ -250,7 +270,7 @@ class MeshTrainStep:
                 out = torch.func.functional_call(
                     self._rows[r],
                     {f"net.{k}": v for k, v in tensors.items()}, (x,))
-            logits = out[0] if isinstance(out, tuple) else out
+            logits = out[0] if self.has_batch_stats else out
             keys = {id(v): k for k, v in tensors.items()}
             # running statistics after the batch, by state key
             stats = ([(keys[id(buf)], value) for buf, value in out[1]]

@@ -63,6 +63,8 @@ _BUILTINS: Dict[Tuple[str, str], str] = {
     (FILTER, "onnxruntime"): "nnstreamer_tpu_torch.filters.onnx_filter",
     (FILTER, "onnx"): "nnstreamer_tpu_torch.filters.onnx_filter",
     (FILTER, "passthrough"): "nnstreamer_tpu_torch.filters.passthrough",
+    (FILTER, "custom"): "nnstreamer_tpu_torch.filters.custom",
+    (FILTER, "lua"): "nnstreamer_tpu_torch.filters.lua_filter",
     (DECODER, "image_labeling"): "nnstreamer_tpu_torch.decoders.image_labeling",
     (DECODER, "bounding_boxes"): "nnstreamer_tpu_torch.decoders.bounding_boxes",
     (DECODER, "image_segment"): "nnstreamer_tpu_torch.decoders.image_segment",

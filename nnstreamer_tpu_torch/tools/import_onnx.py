@@ -25,9 +25,9 @@ Unsupported ops raise with the op name. Layout is ONNX-native NCHW;
 convs and matmuls run with TF32 off on a card by default
 (``custom=precision:default`` turns it on).
 
-Beyond the JAX importer, ``custom=preproc:norm:<add>:<div>`` and
-``batch:native`` work here as they do for .tflite files (the JAX
-``load_onnx`` reads neither).
+``custom=preproc:`` and ``batch:native``, which the .tflite importer
+reads, change nothing here, as in the JAX ``load_onnx``: the importer
+logs one warning naming them.
 """
 
 from __future__ import annotations
@@ -580,14 +580,20 @@ def load_onnx(path: str, custom: Optional[Dict[str, str]] = None,
 
     ``custom=precision:default`` lets the card use TF32;
     ``custom=qmode:float`` is the no-rounding reference mode for
-    QOperator graphs (see OnnxGraph.qmode); ``preproc:`` and
-    ``batch:native`` as for .tflite files."""
+    QOperator graphs (see OnnxGraph.qmode). The .tflite importer's
+    ``preproc:`` and ``batch:native`` are ignored, as the JAX importer
+    ignores them."""
     from nnstreamer_tpu_torch.tools._import_common import (
         graph_bundle,
         make_batch1_apply,
     )
 
-    custom = custom or {}
+    custom = dict(custom or {})
+    ignored = [f"{k}:{custom.pop(k)}" for k in ("preproc", "batch")
+               if k in custom and (k != "batch" or custom[k] == "native")]
+    if ignored:
+        log.warning("%s: the .onnx importer ignores %s (the .tflite "
+                    "importer's options)", path, ", ".join(ignored))
     g = OnnxGraph(path, precision=custom.get("precision", "highest"),
                   qmode=str(custom.get("qmode", "exact")))
     graph_ranks = [len(vi.dims) for vi in g.g.inputs]
@@ -595,8 +601,7 @@ def load_onnx(path: str, custom: Optional[Dict[str, str]] = None,
     # sequence dim the graph contracts over — see make_batch1_apply
     batch1 = bool(g.g.inputs) and all(
         vi.dims and vi.dims[0] == 1 for vi in g.g.inputs)
-    apply_fn = make_batch1_apply(g.apply, graph_ranks, batch1,
-                                 native=custom.get("batch") == "native")
+    apply_fn = make_batch1_apply(g.apply, graph_ranks, batch1)
     log.info("imported %s: %d nodes, %d initializers", path,
              len(g.g.nodes), len(g.g.initializers))
     return graph_bundle(g, apply_fn, custom, device)

@@ -9,7 +9,8 @@ float32 parameters, the optimizer's update in place. Epoch bookkeeping
 emits the same EPOCH_COMPLETION / TRAINING_COMPLETION events the element
 contract requires.
 
-model_config accepts a zoo name (``mobilenet_v2``) or a ``.py`` file with
+model_config accepts a zoo name (``mobilenet_v2``, ``ssd_mobilenet``,
+``deeplab_v3``, ``posenet``, ``yolov8``, ...) or a ``.py`` file with
 ``make_model(custom)`` (:func:`models.load_py_model`); custom keys:
 ``batch:<n>``, ``lr:<f>``, ``optimizer:sgd|adam|adamw``, ``momentum:<f>``
 (sgd, default 0.9), ``loss:softmax_xent|mse``, plus model keys, and
@@ -24,14 +25,19 @@ each flush places the batch's rows on the mesh, and validation,
 ``save`` and the refold read the model's own module, which gets the
 trained weights after every step.
 
-A zoo model trains through its ``train_apply_fn`` (BatchNorm by the
-batch's statistics, running statistics by flax's EMA); MobileNet-v2 has
-one. The other BatchNorm models of the zoo (SSD, DeepLab, PoseNet, YOLOv8)
-have one in the JAX package and not yet here, so the trainer raises for
-them by name. A ``.py`` model trains every parameter through its
-``apply_fn``. Validation runs the bundle's inference ``apply_fn`` (with
-``fused:pallas`` the fused-block kernel, folded again at the first
-validation batch after the weights changed).
+A zoo model with BatchNorm trains through its ``train_apply_fn``
+(BatchNorm by the batch's statistics, running statistics by flax's EMA):
+MobileNet-v2, SSD-MobileNet-v2, DeepLab-v3, PoseNet and YOLOv8, a
+``postproc:pp`` bundle through its raw model's. The loss reads a model's
+first output (SSD's boxes, PoseNet's heatmaps), as the JAX package's
+does; under ``softmax_xent`` the labels become one int a sample, so a
+dense head (SSD, DeepLab, PoseNet, YOLOv8) trains under ``loss:mse``
+against a label tensor of the head's shape, and ``softmax_xent`` on it
+raises ``ValueError`` as optax does. A ``.py`` model trains every
+parameter through its ``apply_fn``. Validation runs the bundle's
+inference ``apply_fn`` (with ``fused:pallas`` the fused-block kernel for
+MobileNet-v2, SSD and DeepLab, folded again at the first validation batch
+after the weights changed).
 
 ``save`` writes the parameters and running statistics as one npz
 (:func:`models.save_state`): exactly the file named when the path has an
@@ -51,11 +57,6 @@ from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.trainers import TrainerEvent, TrainerFramework, TrainerProperties
 
 log = get_logger("trainer.torch_cuda")
-
-#: zoo models whose BatchNorm train forward the JAX package has and this
-#: package does not yet (ROADMAP queue 1 item 7)
-_NO_TRAIN_FORWARD = ("ssd_mobilenet", "ssd_mobilenet_v2", "deeplab_v3",
-                     "deeplabv3", "posenet", "yolov8")
 
 #: optax.adamw's default weight decay (torch.optim.AdamW's is 1e-2)
 _ADAMW_WEIGHT_DECAY = 1e-4
@@ -128,11 +129,6 @@ class CudaTrainer(TrainerFramework):
         if cfg.endswith(".py"):
             self._bundle = load_py_model(cfg, custom, self._device)
         else:
-            if cfg.lower() in _NO_TRAIN_FORWARD:
-                raise NotImplementedError(
-                    f"training {cfg}: its BatchNorm train forward is not "
-                    "ported to the torch/CUDA backend yet (ROADMAP queue 1 "
-                    "item 7); mobilenet_v2 and .py models train")
             self._bundle = get_model(cfg, custom, self._device)
         if props.model_load_path:
             self.restore(props.model_load_path)

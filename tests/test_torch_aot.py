@@ -334,7 +334,8 @@ def _sequence(mod, compile_fn, cache_root, monkeypatch):
     k1 = next(r for r in rows if r["custom"] == "k:1")
     with open(k1["path"], "wb") as f:
         f.write(b"rotted")
-    log.append(("load-corrupt", mod.load(k1["path"]) is None,
+    loaded = mod.load(k1["path"], DEV) if mod is aot else mod.load(k1["path"])
+    log.append(("load-corrupt", loaded is None,
                 os.path.exists(k1["path"]), len(mod.quarantined_entries())))
     step("k:1")  # the slot repopulates through a fresh worker
     # age k:2's last load an hour back, budget for exactly one entry
@@ -839,3 +840,20 @@ def test_chain_under_the_cache_swaps_in_the_tails_state(aot_cache,
     assert len(got) == len(want) == 2
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+def test_no_device_needs_a_card(tmp_path, monkeypatch):
+    """A call that names no device builds and loads on the card: without
+    one it raises by name (the filter's device pick does the same), and
+    the CPU runs only when it is passed."""
+    monkeypatch.setenv("NNSTPU_AOT_CACHE", str(tmp_path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        aot.default_device()
+    with pytest.raises(RuntimeError, match="sees none"):
+        aot.maybe_aot_compile("add", "k:1", SIG)
+    with pytest.raises(RuntimeError, match="sees none"):
+        aot.prefetch_compile("add", "k:1", SIG)
+    with pytest.raises(RuntimeError, match="sees none"):
+        aot.load(str(tmp_path / "absent.nnstpu-torch"))
+    assert aot.load(str(tmp_path / "absent.nnstpu-torch"), DEV) is None

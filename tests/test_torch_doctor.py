@@ -196,7 +196,7 @@ def test_doctor_aot_lists_entries_quarantine_and_report(aot_cache, tmp_path,
     entry = aot.cache_entries()[0]["path"]
     with open(entry, "wb") as f:
         f.write(b"junk")
-    assert aot.load(entry) is None
+    assert aot.load(entry, "cpu") is None
     assert doctor.main(["--aot"]) == 0
     assert "quarantine: 1 unreadable entry" in capsys.readouterr().out
     assert doctor.main(["--aot-purge"]) == 0

@@ -800,8 +800,11 @@ def test_image_labeling_line_through_both_packages(files, onnx_files, kind,
                                                    rng):
     """The reference's image-labeling line on the written MobileNet-v2:
     the transform fused into the filter in both packages (the same
-    plan), the same labels and logits; the port's own
-    ``preproc:norm:-127.5:127.5`` form gives the same outputs."""
+    plan), the same labels and logits. On a .tflite file the
+    ``preproc:norm:-127.5:127.5`` form gives the same outputs in both
+    packages; on a .onnx file both importers ignore ``preproc:`` and
+    ``batch:native``, and the two packages agree on what the graph makes
+    of the raw frames."""
     path = files["mbv2"] if kind == "tflite" else onnx_files["mbv2"]
     u8, x = _mbv2_frames(rng, 3)
     jl, jlab, jf = _run_line("nnstreamer_tpu", _labeling_line(path), u8)
@@ -814,16 +817,44 @@ def test_image_labeling_line_through_both_packages(files, onnx_files, kind,
     with torch.no_grad():
         want = zoo(torch.from_numpy(x)).numpy()
     _same_model_logits(pl, want)
-    ql, qlab, qf = _run_line("nnstreamer_tpu_torch",
-                             _labeling_line(path, "preproc"), u8)
-    # the same arith_chain on the same frames: bit-equal
-    assert qf == {} and qlab == plab
-    np.testing.assert_array_equal(ql, pl)
-    if kind == "tflite":  # the JAX importer reads preproc: for .tflite
-        kl, klab, _ = _run_line("nnstreamer_tpu",
-                                _labeling_line(path, "preproc"), u8)
-        assert klab == qlab
-        _same_model_logits(ql, kl)
+    if kind == "tflite":  # both importers read preproc: for .tflite
+        line = _labeling_line(path, "preproc")
+        ql, qlab, qf = _run_line("nnstreamer_tpu_torch", line, u8)
+        # the same arith_chain on the same frames: bit-equal
+        assert qf == {} and qlab == plab
+        np.testing.assert_array_equal(ql, pl)
+    else:
+        line = _labeling_line(path, "preproc", custom="batch:native")
+        ql, qlab, qf = _run_line("nnstreamer_tpu_torch", line, u8)
+        assert qf == {}
+    kl, klab, _ = _run_line("nnstreamer_tpu", line, u8)
+    assert klab == qlab
+    _same_model_logits(ql, kl)
+
+
+def test_onnx_importer_ignores_the_tflite_options(onnx_files, caplog):
+    """``preproc:`` and ``batch:native`` change nothing on a .onnx file
+    (the JAX ``load_onnx`` reads neither): the same input info and
+    outputs as without them, and one warning naming both."""
+    import logging
+
+    from nnstreamer_tpu_torch.tools.import_onnx import load_onnx
+
+    path = onnx_files["small"]
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(3, 3, 32, 32)).astype(np.float32))
+    plain = load_onnx(path, {}, device="cpu")
+    with caplog.at_level(logging.WARNING, logger="nnstreamer_tpu_torch"):
+        opts = load_onnx(path, {"preproc": "norm:-127.5:127.5",
+                                "batch": "native"}, device="cpu")
+    warned = [r.getMessage() for r in caplog.records
+              if "ignores" in r.getMessage()]
+    assert len(warned) == 1
+    assert "preproc:norm:-127.5:127.5" in warned[0]
+    assert "batch:native" in warned[0]
+    assert opts.input_info == plain.input_info
+    np.testing.assert_array_equal(opts.apply_fn(x).numpy(),
+                                  plain.apply_fn(x).numpy())
 
 
 def test_compile_cache_serves_an_imported_file(files, rng, tmp_path,

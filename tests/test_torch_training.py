@@ -665,6 +665,7 @@ def test_refold_after_training(monkeypatch, stale):
     and float32 rounding grows through the 17 blocks: 7.4e-4 at logits of
     6.7). Folded once (no refold), it fails: the stale logits lie 5.8
     away."""
+    import nnstreamer_tpu_torch.models as port_models
     import nnstreamer_tpu_torch.models.mobilenet_v2 as port_mbv2
 
     tr, _ = _train(dict(MB_CUSTOM, lr="0.05"), 4)
@@ -672,7 +673,8 @@ def test_refold_after_training(monkeypatch, stale):
     _set_dtype(module, torch.float32)
     folded = port_mbv2._make_fused_apply(module, mode="xla")
     if stale:
-        monkeypatch.setattr(port_mbv2, "weights_version", lambda m: 0)
+        # the refold rule reads the version here (models.refolding)
+        monkeypatch.setattr(port_models, "weights_version", lambda m: 0)
     for s in _colour_samples(16):
         tr.push_data(s)
     x = preprocess_frames(torch.from_numpy(np.stack(
@@ -689,12 +691,14 @@ def test_trainer_validation_runs_current_weights(monkeypatch, stale):
     """The trainer's validation forward (fused:xla, bfloat16) after
     training equals a fold of the current weights made then, exactly;
     folded once, it does not."""
+    import nnstreamer_tpu_torch.models as port_models
     import nnstreamer_tpu_torch.models.mobilenet_v2 as port_mbv2
 
     tr, props = _train(dict(MB_CUSTOM, lr="0.05", fused="xla"), 4,
                        num_validation_samples=4)
     if stale:
-        monkeypatch.setattr(port_mbv2, "weights_version", lambda m: 0)
+        # the refold rule reads the version here (models.refolding)
+        monkeypatch.setattr(port_models, "weights_version", lambda m: 0)
     samples = _colour_samples(20)
     for s in samples:
         tr.push_data(s)
@@ -810,14 +814,6 @@ def test_trainer_takes_a_mesh(tmp_path, monkeypatch, custom, shape):
     tr.create(TrainerProperties(model_config=str(model),
                                 custom=_cpu(custom)))
     assert (tr._step.dp, tr._step.tp) == shape
-
-
-@pytest.mark.parametrize("model", ["ssd_mobilenet", "deeplab_v3", "posenet",
-                                   "yolov8"])
-def test_trainer_names_models_without_a_train_forward(model):
-    with pytest.raises(NotImplementedError, match=model):
-        CudaTrainer().create(TrainerProperties(model_config=model,
-                                               custom={"device": "cpu"}))
 
 
 def test_train_step_with_a_mesh_raises():
