@@ -350,11 +350,12 @@ Phases, each printing one JSON line:
   mesh       shard=dp|tp|dpxtp and replicas=4 over cuda:0*4 (see
              check_mesh);
   tune       the autotuner (see check_tune): the flagship's static
-             search twice (counts, prune codes, the chosen config, the
+             search (counts, prune codes, the chosen config, the
              signature), the card's host constants, a measured search
              with them, the chosen config's labels against the
-             baseline's, validate --tune in a subprocess and the cost
-             method compiled at batch 128 against the meta method;
+             baseline's, validate --tune in a subprocess (the second
+             run: the in-process search's report and signature) and the
+             cost method compiled at batch 128 against the meta method;
   aot        the compile cache (see check_aot): the flagship with aot:1
              over a fresh cache, a miss (the worker child builds on the
              card) then a hit, against an aot:0 play — logits bit-equal,
@@ -415,6 +416,31 @@ Phases, each printing one JSON line:
              labels equal to the flagship alone, frames/s, p50 and d2h
              bytes a batch; model=add on the card into a framework=lua
              script on small tensors;
+  native     the native pipeline core and framework=pjrt (see
+             check_native): the port's core (g++, no cmake), the
+             TorchScript op library (csrc/torch_ops.cc) and the native
+             executable filter (csrc/native_exec.cc) built beside the
+             kernels' nvcc at the start, each build's seconds (the
+             device line's native_build_s the wall time of both); while
+             the flagship's program builds in the worker child, each
+             kernel through its op (a trace of its wrapper)
+             bit-equal to its ctypes route at the flagship's shapes (the 13
+             stride-1 blocks at batch 128, normalize_u8 on 128 frames); the
+             frozen add program (k:1.5) through tools/pjrt_native.py's
+             default mode in a child that imports no torch, exact; the
+             flagship with no Python in the frame path (videotestsrc !
+             tensor_converter frames-per-tensor=128 ! tensor_filter
+             framework=pjrt on native_aot_compile's frozen MobileNet-v2 !
+             tensor_decoder image_labeling ! appsink; 8 batches after 1):
+             13 fused-block and 1 normalize_u8 launches a batch counted in
+             C by the op library, labels equal to the port's Python flagship
+             line on the same testsrc frames, one batch's logits (a program
+             without the argmax) within 0.15 + 0.05·|p| of the plain forward
+             and against the Python forward; the same graph with the Python
+             filter as a register_callback_filter backend, labels equal;
+             frames/s and p50 batch interval of both native lines, frames/s
+             and p50 batch latency of the Python line, and run_ab's native
+             and Python medians;
 
 then one ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -423,7 +449,8 @@ that last line. It needs a CUDA card: without one it exits 1 at once.
 ``--only`` runs the named phases alone (``serve`` needs ``slice`` for
 its frames; ``streams``, ``residency``, ``train``, ``loop``, ``edge``,
 ``chain``, ``robust``, ``mesh``, ``tune``, ``aot``, ``rollout``,
-``deploy``, ``import``, ``train_vision`` and ``custom`` build their own; ``stride2`` runs inside ``kernel``, the
+``deploy``, ``import``, ``train_vision``, ``custom`` and ``native`` build
+their own; ``stride2`` runs inside ``kernel``, the
 flagship's profile
 inside ``slice``, the overload and reference lines inside ``serve``) and
 ends after them, without the ``kernels`` and result lines.
@@ -438,6 +465,8 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import wait as futures_wait
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -6690,9 +6719,8 @@ def _labels_with_point(line, point, frames, n_batches: int):
 def check_tune(torch, results, workdir):
     """The autotuner on the card: (a) the static search of the flagship
     line over its whole space (counts by fate and prune code, the chosen
-    config, seconds; the accounting invariant, and two runs signing
-    alike); (b) the card's host constants (one launch's dispatch, one
-    flush's sync); (c) tune_report with measurement on over
+    config, seconds; the accounting invariant); (b) the card's host
+    constants (one launch's dispatch, one flush's sync); (c) tune_report with measurement on over
     TUNE_MEASURED's space with the card's constants, every measured point
     launching the fused block and normalize_u8 (predicted and measured
     orderings, static_choice_confirmed: a finding, not a gate); (d) the
@@ -6700,7 +6728,9 @@ def check_tune(torch, results, workdir):
     baseline on the same frames, labels equal; (e)
     ``python -m nnstreamer_tpu_torch.tools.validate --tune --json`` on the
     flagship in a subprocess (the measured phase off by
-    NNSTPU_TUNE_MEASURE=0): exit 0 and one JSON document; (f) the cost
+    NNSTPU_TUNE_MEASURE=0): exit 0 and one JSON document, (a)'s report to
+    the byte and its signature, so two runs of the static search agree;
+    (f) the cost
     method ``compiled`` of MobileNet-v2 at batch 128 against the meta
     method's flops (within 25%), its peak beside max_memory_allocated."""
     import numpy as np
@@ -6724,19 +6754,14 @@ def check_tune(torch, results, workdir):
               for _ in range(BATCH)]
     line = _tune_line(labels)
 
-    # (a) the static search, twice
-    reps, secs = [], []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        reps.append(tuner.tune_report(line, measure=False))
-        secs.append(time.perf_counter() - t0)
-    rep = reps[0]
+    # (a) the static search (its second run, the CLI's in (e), must give
+    # the same signature and report)
+    t0 = time.perf_counter()
+    rep = tuner.tune_report(line, measure=False)
+    secs = [time.perf_counter() - t0]
     c = rep["counts"]
     static_ok = (c["pruned"] + c["evaluated"] + c["validated"]
-                 == c["enumerated"] == len(rep["points"]) > 0
-                 and reps[0]["signature"] == reps[1]["signature"]
-                 and json.dumps(reps[0], sort_keys=True)
-                 == json.dumps(reps[1], sort_keys=True))
+                 == c["enumerated"] == len(rep["points"]) > 0)
     emit("tune", part="static", enumerated=c["enumerated"],
          pruned=c["pruned"], pruned_by_code=rep["pruned_by_code"],
          survivors=c["evaluated"] + c["validated"],
@@ -6746,8 +6771,7 @@ def check_tune(torch, results, workdir):
          headroom_pct=rep.get("headroom_pct"), seconds=secs,
          signature=rep["signature"]["digest"], ok=static_ok, card=card)
     if not static_ok:
-        raise AssertionError(f"tune static: {c}, signatures "
-                             f"{[r['signature'] for r in reps]}")
+        raise AssertionError(f"tune static: {c}")
 
     # (b) the card's host constants
     consts = _calibrate_host(torch, labels, frames)
@@ -6834,11 +6858,16 @@ def check_tune(torch, results, workdir):
         doc = json.loads(proc.stdout)
     except ValueError:
         doc = None
-    cli_ok = (proc.returncode == 0 and doc is not None
-              and doc["signature"] == rep["signature"])
+    # the second run of the static search: the same signature and the
+    # same whole report as (a)'s
+    same_sig = doc is not None and doc["signature"] == rep["signature"]
+    same_report = doc is not None and doc == json.loads(
+        json.dumps(rep, sort_keys=True))
+    cli_ok = proc.returncode == 0 and same_sig and same_report
     emit("tune", part="cli", rc=proc.returncode, seconds=cli_secs,
-         parsed=doc is not None, same_signature_as_a=cli_ok,
-         stderr_tail=proc.stderr[-400:], card=card)
+         parsed=doc is not None, same_signature_as_a=same_sig,
+         same_report_as_a=same_report, stderr_tail=proc.stderr[-400:],
+         card=card)
     if not cli_ok:
         raise AssertionError(f"validate --tune: rc {proc.returncode}, "
                              f"{proc.stderr[-2000:]}")
@@ -8227,6 +8256,263 @@ def check_custom(torch, results, workdir):
         raise AssertionError(f"custom: {failures} failed their checks")
 
 
+# -- phase: the native pipeline core and framework=pjrt ----------------------
+
+NATIVE_BATCHES = 8
+NATIVE_CUSTOM = "seed:0,postproc:argmax,fused:pallas"
+NATIVE_AB_REPS = 10
+
+
+def _build_native() -> dict:
+    """The port's core, then the native executable filter and the op
+    library it links (compiled side by side); each build's seconds (0
+    where it was built)."""
+    from nnstreamer_tpu_torch import native_rt
+
+    t0 = time.perf_counter()
+    runner = native_rt.build_exec()
+    return {"runner": runner, "wall_s": time.perf_counter() - t0,
+            **{f"{k}_s": native_rt.build_seconds.get(k, 0.0)
+               for k in ("core", "ops", "exec")}}
+
+
+def _op_route_rows(torch) -> list:
+    """Each kernel through its TorchScript op (a trace of the wrapper)
+    against its ctypes route on the same input, at the flagship's shapes:
+    the 13 stride-1 blocks at batch 128 and normalize_u8 on 128 frames."""
+    from nnstreamer_tpu_torch.filters import aot
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import MobileNetV2, init_weights
+    from nnstreamer_tpu_torch.ops.fused_block import (
+        cast_folded,
+        fused_inverted_residual,
+    )
+    from nnstreamer_tpu_torch.ops.preprocess import normalize_u8
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    model = MobileNetV2(num_classes=1001)
+    init_weights(model, 0)
+    rows = []
+
+    def compare(name, fn, x, **label):
+        with torch.no_grad(), aot.quiet_jit():
+            traced = torch.jit.trace(fn, (x,), check_trace=False)
+        want, got = fn(x), traced(x)
+        torch.cuda.synchronize()
+        ops_in_graph = sum(n.kind() == f"nnstpu_torch::{name}"
+                           for n in traced.graph.nodes())
+        rows.append({"kernel": name, **label, "shape": list(x.shape),
+                     "bits_equal": _bits_equal(torch, got, want),
+                     "max_abs_err": max_err(got, want),
+                     "ops_in_graph": ops_in_graph})
+
+    for i, H, W, fw in _blocks(model, 1):
+        fwc = cast_folded(fw, torch.bfloat16, "cuda")
+        cin = fwc["w1"].shape[0] if "w1" in fwc else fwc["wd"].shape[1]
+        x = torch.randn((BATCH, H, W, cin), generator=gen, device="cuda")
+        compare("fused_inverted_residual",
+                lambda t, fwc=fwc: fused_inverted_residual(t, fwc),
+                x.clamp(-3, 3).to(torch.bfloat16), block=i)
+    u8 = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=gen,
+                       device="cuda", dtype=torch.uint8)
+    compare("normalize_u8", lambda t: normalize_u8(t), u8)
+    return rows
+
+
+def _native_logits(torch, runner, frames, workdir) -> dict:
+    """One batch through a native program without the argmax (appsrc
+    ! framework=pjrt ! appsink; the worker's build run in this process)
+    against the port's Python forward (fused:pallas) and its plain twin,
+    as check_slice holds the filter."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.filters import aot_worker
+    from nnstreamer_tpu_torch.models import get_model, preprocess_frames
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import _make_fused_apply
+    from nnstreamer_tpu_torch.tools import pjrt_native
+
+    x_np = np.stack(frames)
+    path = os.path.join(workdir, "mbv2_logits.pjrt")
+    aot_worker.build_frozen({"model": "mobilenet_v2",
+                             "custom": "seed:0,fused:pallas",
+                             "shapes": [[list(x_np.shape), "uint8"]],
+                             "device": "cuda", "out": path})
+    (out,), = pjrt_native.run_native(path, [[x_np]], runner=runner)
+    got = torch.from_numpy(out.view(np.float32).reshape(len(frames), -1))
+    bundle = get_model("mobilenet_v2", {"seed": "0", "fused": "pallas"},
+                       "cuda")
+    x = torch.from_numpy(x_np).cuda()
+    with torch.inference_mode():
+        py = bundle.apply_fn(x).float().cpu()
+        pre = preprocess_frames(x, "pm1", bundle.module.dtype)
+        plain = _make_fused_apply(bundle.module, mode="plain")(pre).float()
+    plain = plain.cpu()
+    return {"logits_max_abs_err": max_err(got, plain), "logits_atol": 0.15,
+            "logits_rtol": 0.05, "logits_ok": bool(
+                torch.isfinite(got).all()) and within(got, plain, 0.15, 0.05),
+            "python_forward_max_abs_err": max_err(got, py),
+            "python_forward_bits_equal": _bits_equal(torch, got, py)}
+
+
+def _native_add(runner, workdir) -> dict:
+    """``native_aot_compile("add", "k:1.5", ...)`` through pjrt_native's
+    default mode in a child process: check_max_err must be 0.0."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.filters import aot
+
+    path = aot.native_aot_compile("add", "k:1.5", [((4, 4), "float32")])
+    if path is None:
+        raise RuntimeError("native: the add program did not build")
+    x = np.random.default_rng(0).normal(0, 1, (4, 4)).astype(np.float32)
+    want = os.path.join(workdir, "native_add_want.npy")
+    np.save(want, x + 1.5)
+    spec = os.path.join(workdir, "native_add.json")
+    with open(spec, "w") as f:
+        json.dump({"exec": path, "frames": 4, "seed": 0,
+                   "check_path": want, "runner": runner}, f)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "nnstreamer_tpu_torch.tools.pjrt_native", spec],
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    if r.returncode != 0:
+        raise RuntimeError(f"native: add program failed: {r.stderr[-2000:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    out["child_s"] = time.perf_counter() - t0
+    return out
+
+
+def check_native(torch, results, workdir):
+    """The native pipeline core and framework=pjrt on the card (see the
+    module docstring's ``native``)."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch import native_rt
+    from nnstreamer_tpu_torch.filters import aot
+    from nnstreamer_tpu_torch.ops import _cuda, _script_ops
+    from nnstreamer_tpu_torch.single import SingleShot
+    from nnstreamer_tpu_torch.tools import pjrt_native
+    from nnstreamer_tpu_torch.types import TensorInfo, TensorsInfo
+
+    t_phase = time.perf_counter()
+    card = results["card"]
+    failures = []
+    # built beside the kernels at the start (main), else here
+    fut = results.get("native_build")
+    builds = dict(fut.result() if fut is not None else _build_native())
+    runner = builds.pop("runner")
+    emit("native", part="build", **builds, card=card)
+
+    labels = os.path.join(workdir, "native_labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class{i}" for i in range(1001)) + "\n")
+    n_all = (NATIVE_BATCHES + 1) * BATCH
+    frames = [pjrt_native.testsrc_frame(i) for i in range(n_all)]
+    # the flagship's program builds in the worker child while this process
+    # checks the op route and one batch's logits (nothing here is timed)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        program = pool.submit(aot.native_aot_compile, "mobilenet_v2",
+                              NATIVE_CUSTOM,
+                              [((BATCH, SIZE, SIZE, 3), "uint8")])
+        rows = _op_route_rows(torch)
+        logits = _native_logits(torch, runner, frames[BATCH:2 * BATCH],
+                                workdir)
+        path = program.result()
+    if path is None:
+        raise RuntimeError("native: the flagship program did not build")
+    compile_s, worker = time.perf_counter() - t0, dict(aot.LAST_WORKER)
+    for row in rows:
+        emit("native", part="op_route", **row, card=card)
+    if not all(r["bits_equal"] and r["ops_in_graph"] == 1 for r in rows):
+        failures.append("op_route")
+
+    add = _native_add(runner, workdir)
+    add_ok = add.get("check_max_err") == 0.0 and not add["python_torch"]
+    emit("native", part="add", **add, ok=add_ok, card=card)
+    if not add_ok:
+        failures.append("add")
+
+    # the flagship with no Python in the frame path, counted in C
+    _script_ops.reset_launches()
+    native_iv = []
+    fps, native_labels = pjrt_native.run_flagship(
+        path, labels, NATIVE_BATCHES, BATCH, runner=runner, timeout=120,
+        intervals=native_iv)
+    counted = _script_ops.launches()
+    n_batches = NATIVE_BATCHES + 1  # the warm-up batch runs the program too
+    launches_ok = (counted["fused_inverted_residual"] == 13 * n_batches
+                   and counted["normalize_u8"] == n_batches)
+    native_flat = [lab for b in native_labels for lab in b]
+
+    # the port's Python flagship (check_slice's line) on the same frames
+    p, _tracer, py_secs, py_p50, py_launches = _run_line(
+        _flag_line(labels, "fetch-window=1"), frames, NATIVE_BATCHES, warm=1)
+    py_flat = _labels_of(p)[-NATIVE_BATCHES * BATCH:]
+    p.stop()
+    labels_ok = native_flat == py_flat and len(native_flat) == \
+        NATIVE_BATCHES * BATCH
+
+    # the callback route: the port's Python filter inside the native graph
+    single = SingleShot(model="mobilenet_v2", framework="jax",
+                        custom=NATIVE_CUSTOM)
+    name = "torch_flagship_cb"
+    native_rt.register_callback_filter(
+        name, lambda xs: single.invoke(xs[0]),
+        TensorsInfo(tensors=[TensorInfo(dims=(3, SIZE, SIZE, BATCH),
+                                        dtype="uint8")]),
+        TensorsInfo(tensors=[TensorInfo(dims=(BATCH,), dtype="int32")]))
+    try:
+        _cuda.reset_launches()
+        cb_iv = []
+        cb_fps, cb_labels = pjrt_native.run_flagship(
+            path, labels, NATIVE_BATCHES, BATCH, framework=name,
+            timeout=120, intervals=cb_iv)
+        cb_launches = dict(_cuda.LAUNCHES)
+    finally:
+        native_rt.unregister_filter(name)
+        single.close()
+    cb_flat = [lab for b in cb_labels for lab in b]
+    cb_ok = (cb_flat == native_flat
+             and cb_launches["fused_inverted_residual"] == 13 * n_batches
+             and cb_launches["normalize_u8"] == n_batches)
+
+    ab = pjrt_native.run_ab({"exec": path, "model": "mobilenet_v2",
+                             "custom_model": NATIVE_CUSTOM,
+                             "reps": NATIVE_AB_REPS, "runner": runner})
+    ms = lambda iv: statistics.median(iv) * 1e3  # noqa: E731
+    emit("native", part="flagship", batches=NATIVE_BATCHES, batch=BATCH,
+         warmup_batches=1, program=os.path.basename(path),
+         program_bytes=os.path.getsize(path), compile_s=compile_s,
+         worker=worker, launches_counted_in_c=counted,
+         launches_per_batch={k: v / n_batches for k, v in counted.items()},
+         launches_ok=launches_ok, labels_equal_python=labels_ok,
+         distinct_labels=len(set(native_flat)), **logits,
+         native={"fps": fps, "p50_batch_interval_ms": ms(native_iv)},
+         callback={"fps": cb_fps, "p50_batch_interval_ms": ms(cb_iv),
+                   "labels_equal_native": cb_flat == native_flat,
+                   "launches": cb_launches},
+         python={"fps": NATIVE_BATCHES * BATCH / py_secs,
+                 "p50_batch_latency_ms": py_p50, "launches": py_launches},
+         run_ab=ab, card=card)
+    if not launches_ok:
+        failures.append("launches")
+    if not labels_ok:
+        failures.append("labels")
+    if not logits["logits_ok"]:
+        failures.append("logits")
+    if not cb_ok:
+        failures.append("callback")
+    results["native_launches"] = {
+        k: counted[k] + cb_launches.get(k, 0) for k in counted}
+    results["native_op_launches"] = counted
+    emit("native", part="summary", failures=failures,
+         seconds=time.perf_counter() - t_phase, card=card)
+    if failures:
+        raise AssertionError(f"native: {failures} failed their checks")
+
+
+
 def main() -> int:
     import torch
 
@@ -8237,13 +8523,6 @@ def main() -> int:
     from nnstreamer_tpu_torch.ops import _cuda
 
     card = nvidia_smi()
-    t0 = time.perf_counter()
-    _cuda.lib()
-    emit("device", nvidia_smi=card, torch=torch.__version__,
-         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count(),
-         kernel_build_s=time.perf_counter() - t0,
-         nvcc_s=_cuda.build_seconds)
     results = {"card": card}
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
@@ -8281,6 +8560,7 @@ def main() -> int:
         "import": lambda: check_import(torch, results, workdir),
         "train_vision": lambda: check_train_vision(torch, results),
         "custom": lambda: check_custom(torch, results, workdir),
+        "native": lambda: check_native(torch, results, workdir),
     }
     only = None
     if "--only" in sys.argv[1:]:
@@ -8290,6 +8570,26 @@ def main() -> int:
             print(f"chip_smoke: unknown phases {unknown}; phases are "
                   f"{sorted(phases)}", file=sys.stderr)
             return 2
+    t0 = time.perf_counter()
+    # the native phase's three libraries (g++, at low priority) build on
+    # the CPU beside the kernels' nvcc, and are done before any phase
+    # measures
+    native_build = None
+    if only is None or "native" in only:
+        pool = ThreadPoolExecutor(1)
+        native_build = pool.submit(_build_native)
+        pool.shutdown(wait=False)
+    _cuda.lib()
+    kernel_build_s = time.perf_counter() - t0
+    if native_build is not None:
+        futures_wait([native_build])
+    emit("device", nvidia_smi=card, torch=torch.__version__,
+         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), kernel_build_s=kernel_build_s,
+         nvcc_s=_cuda.build_seconds,
+         native_build_s=(None if native_build is None
+                         else time.perf_counter() - t0))
+    results["native_build"] = native_build
     phase_seconds = {}
     for name, run in phases.items():
         if only is None or name in only:
@@ -8322,7 +8622,8 @@ def main() -> int:
         "loop_launches", "edge_launches", "chain_launches",
         "robust_launches", "mesh_launches", "train_mesh_launches",
         "tune_launches", "aot_launches", "rollout_launches",
-        "import_launches", "train_vision_launches", "custom_launches"))
+        "import_launches", "train_vision_launches", "custom_launches",
+        "native_launches"))
         for name in src}
     launches["arith_chain"] += results["arith_launches"]
     kernels = []
@@ -8336,6 +8637,12 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
             "device_ms": r.get("device_ms")})
+    # rows 1 and 2 also run as TorchScript ops (csrc/torch_ops.cc) in the
+    # native line: those launches, counted in C, are in "launches" too
+    for row in kernels:
+        if row["name"] in results.get("native_op_launches", {}):
+            row["torchscript_op_launches"] = \
+                results["native_op_launches"][row["name"]]
     # kernels 4 and 5 above head_dim 256 (the split body): every timed row
     for row in kernels:
         split = results.get("split_attention", {}).get(row["name"], [])

@@ -28,7 +28,16 @@ from nnstreamer_tpu_torch.types import (  # noqa: F401
     parse_dimension,
 )
 from nnstreamer_tpu_torch.caps import Caps  # noqa: F401
-from nnstreamer_tpu_torch.buffer import Buffer  # noqa: F401
+
+
+def __getattr__(name: str):
+    # Buffer imports torch: loaded on first use, so a process that drives
+    # only the native core (tools/pjrt_native.py) imports no torch
+    if name == "Buffer":
+        from nnstreamer_tpu_torch.buffer import Buffer
+
+        return Buffer
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def parse_launch(description: str):

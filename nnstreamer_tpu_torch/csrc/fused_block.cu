@@ -833,60 +833,67 @@ int launch_fma(const FmaArgs& a, long long smem, cudaStream_t s) {
 
 }  // namespace
 
-// One launch. x and out per call; everything else, fixed for a block and
-// an input shape, in the host array p (ops/fused_block.py _launch_params,
-// built once and cached): the weight pointers w1, b1, wd, bd, w2, b2, then
-// B, H, W, Cin, Ch, Cout, the plan (R, CoT, Cc, variant, WM, grid), expand,
-// residual, dtype and the plan's shared-memory bytes. bfloat16 uses R, Cc,
-// variant, WM and grid (persistent CTAs); float32 uses R, CoT, Cc. Each
-// path checks the limits its memory safety depends on and returns
-// cudaErrorInvalidValue for a plan that breaks them.
+// One launch, from both routes to the kernel: the ctypes wrapper
+// (ops/fused_block.py, its arrays built once per block and input shape)
+// and the TorchScript op (csrc/torch_ops.cc, which passes the plan through
+// unread). x and out; w the weight pointers {w1, b1, wd, bd, w2, b2} (w1
+// and b1 null for an expand-1 block); d the shape {B, H, W, Cin, Ch,
+// Cout}; dtype the compute dtype's code; f the plan in the F_* order below
+// (ops/fused_block.py _launch_fields writes it): R, CoT, Cc, variant, WM,
+// grid, residual and the plan's shared-memory bytes. bfloat16 uses R, Cc,
+// variant, WM and grid (persistent CTAs: the card's resident CTAs, capped
+// here at the work items); float32 uses R, CoT, Cc. Each path checks the
+// limits its memory safety depends on and returns cudaErrorInvalidValue
+// for a plan that breaks them.
 enum {
-  P_W1, P_B1, P_WD, P_BD, P_W2, P_B2, P_B, P_H, P_W, P_CIN, P_CH, P_COUT, P_R,
-  P_COT, P_CC, P_VARIANT, P_WM, P_GRID, P_EXPAND, P_RESIDUAL, P_DTYPE, P_SMEM,
-  P_COUNT
+  F_R, F_COT, F_CC, F_VARIANT, F_WM, F_GRID, F_RESIDUAL, F_SMEM, F_COUNT
 };
 
 NNSTPU_EXPORT int nnstpu_fused_inverted_residual(const void* x, void* out,
-                                                 const long long* p, int n,
+                                                 const void* const* w,
+                                                 const long long* d, int dtype,
+                                                 const long long* f, int n,
                                                  void* stream) {
-  if (n != P_COUNT) return static_cast<int>(cudaErrorInvalidValue);
-  if (p[P_B] <= 0 || p[P_H] <= 0) return 0;
-  auto ptr = [&](int k) { return reinterpret_cast<const void*>(static_cast<uintptr_t>(p[k])); };
-  auto num = [&](int k) { return static_cast<int>(p[k]); };
+  if (n != F_COUNT) return static_cast<int>(cudaErrorInvalidValue);
+  if (d[0] <= 0 || d[1] <= 0) return 0;
+  const int expand = w[0] != nullptr;
+  if (expand != (w[1] != nullptr) || (!expand && d[3] != d[4]) ||
+      (f[F_RESIDUAL] && d[3] != d[5]))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto num = [&](long long v) { return static_cast<int>(v); };
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p[P_DTYPE] == DT_BF16) {
+  if (dtype == DT_BF16) {
     TcArgs a;
     a.x = static_cast<const bf16*>(x);
-    a.w1 = static_cast<const bf16*>(ptr(P_W1));
-    a.b1 = static_cast<const float*>(ptr(P_B1));
-    a.wd = static_cast<const bf16*>(ptr(P_WD));
-    a.bd = static_cast<const float*>(ptr(P_BD));
-    a.w2 = static_cast<const bf16*>(ptr(P_W2));
-    a.b2 = static_cast<const float*>(ptr(P_B2));
+    a.w1 = static_cast<const bf16*>(w[0]);
+    a.b1 = static_cast<const float*>(w[1]);
+    a.wd = static_cast<const bf16*>(w[2]);
+    a.bd = static_cast<const float*>(w[3]);
+    a.w2 = static_cast<const bf16*>(w[4]);
+    a.b2 = static_cast<const float*>(w[5]);
     a.out = static_cast<bf16*>(out);
-    a.B = num(P_B), a.H = num(P_H), a.W = num(P_W), a.Cin = num(P_CIN);
-    a.Ch = num(P_CH), a.Cout = num(P_COUT);
-    a.R = num(P_R), a.Cc = num(P_CC), a.WM = num(P_WM);
-    a.expand = num(P_EXPAND), a.residual = num(P_RESIDUAL);
-    return static_cast<int>(launch_tc(a, num(P_VARIANT), num(P_GRID), p[P_SMEM], s));
+    a.B = num(d[0]), a.H = num(d[1]), a.W = num(d[2]), a.Cin = num(d[3]);
+    a.Ch = num(d[4]), a.Cout = num(d[5]);
+    a.R = num(f[F_R]), a.Cc = num(f[F_CC]), a.WM = num(f[F_WM]);
+    a.expand = expand, a.residual = num(f[F_RESIDUAL]);
+    return static_cast<int>(launch_tc(a, num(f[F_VARIANT]), num(f[F_GRID]), f[F_SMEM], s));
   }
-  if (p[P_DTYPE] == DT_F32) {
+  if (dtype == DT_F32) {
     FmaArgs a;
     a.x = static_cast<const float*>(x);
-    a.w1 = static_cast<const float*>(ptr(P_W1));
-    a.b1 = static_cast<const float*>(ptr(P_B1));
-    a.wd = static_cast<const float*>(ptr(P_WD));
-    a.bd = static_cast<const float*>(ptr(P_BD));
-    a.w2 = static_cast<const float*>(ptr(P_W2));
-    a.b2 = static_cast<const float*>(ptr(P_B2));
+    a.w1 = static_cast<const float*>(w[0]);
+    a.b1 = static_cast<const float*>(w[1]);
+    a.wd = static_cast<const float*>(w[2]);
+    a.bd = static_cast<const float*>(w[3]);
+    a.w2 = static_cast<const float*>(w[4]);
+    a.b2 = static_cast<const float*>(w[5]);
     a.out = static_cast<float*>(out);
-    a.B = num(P_B), a.H = num(P_H), a.W = num(P_W), a.Cin = num(P_CIN);
-    a.Ch = num(P_CH), a.Cout = num(P_COUT);
-    a.R = num(P_R), a.CoT = num(P_COT), a.Cc = num(P_CC);
+    a.B = num(d[0]), a.H = num(d[1]), a.W = num(d[2]), a.Cin = num(d[3]);
+    a.Ch = num(d[4]), a.Cout = num(d[5]);
+    a.R = num(f[F_R]), a.CoT = num(f[F_COT]), a.Cc = num(f[F_CC]);
     a.n_row_tiles = (a.H + a.R - 1) / a.R;
-    a.expand = num(P_EXPAND), a.residual = num(P_RESIDUAL);
-    return static_cast<int>(launch_fma(a, p[P_SMEM], s));
+    a.expand = expand, a.residual = num(f[F_RESIDUAL]);
+    return static_cast<int>(launch_fma(a, f[F_SMEM], s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

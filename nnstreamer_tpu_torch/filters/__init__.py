@@ -2,10 +2,15 @@
 (counterpart of the JAX package's ``filters``; the backend is
 ``filters/cuda_filter.py``, registered as ``jax`` and ``torch_cuda``)."""
 
-from nnstreamer_tpu_torch.filters.base import (  # noqa: F401
-    FilterFramework,
-    FilterProperties,
-    PrefetchedInputs,
-    register_custom_easy,
-    unregister_custom_easy,
-)
+_BASE = ("FilterFramework", "FilterProperties", "PrefetchedInputs",
+         "register_custom_easy", "unregister_custom_easy")
+
+
+def __getattr__(name: str):
+    # filters.base imports torch: loaded on first use, so the native
+    # harness (tools/pjrt_native.py) reads sig_tokens without torch
+    if name in _BASE:
+        from nnstreamer_tpu_torch.filters import base
+
+        return getattr(base, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -52,6 +52,7 @@ the least recently loaded entry first (a load touches st_mtime).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import io
@@ -61,6 +62,7 @@ import stat
 import subprocess
 import sys
 import time
+import warnings
 import zipfile
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -91,6 +93,11 @@ SUFFIX = ".nnstpu-torch"
 #: ``observer`` callback on maybe_aot_compile
 EVENTS_KEEP = 256
 EVENTS: "deque[Dict[str, Any]]" = deque(maxlen=EVENTS_KEEP)
+
+#: a native program (native_aot_compile) and its signature sidecar: one
+#: entry of two files
+NATIVE_SUFFIX = ".pjrt"
+SIG_SUFFIX = ".sig"
 
 #: the array in an entry that holds its meta as JSON bytes
 _META = "__meta__"
@@ -211,10 +218,12 @@ def params_fingerprint(custom: str) -> str:
     return "" if hit is None else f"sha256:{hit}"
 
 
-#: this package's Python that builds or restores an entry (relative to
-#: the package): an edit to any of it must be a miss, as a kernel
-#: source's edit is through the library's digest
+#: this package's code that builds or restores an entry, or that a
+#: native program records (the kernels' TorchScript ops), relative to the
+#: package: an edit to any of it must be a miss, as a kernel source's
+#: edit is through the library's digest
 CODE_FILES = ("models", "ops/fused_block.py", "ops/fusion_stages.py",
+              "ops/preprocess.py", "ops/_script_ops.py", "csrc/torch_ops.cc",
               "filters/aot.py", "filters/aot_worker.py",
               "tools/_import_common.py", "tools/onnx_lite.py",
               "tools/import_onnx.py", "tools/tflite_fb.py",
@@ -515,8 +524,9 @@ def cache_entries() -> List[Dict[str, Any]]:
     out: List[Dict[str, Any]] = []
     for name in os.listdir(d):
         path = os.path.join(d, name)
-        if not os.path.isfile(path):
-            continue
+        if name.endswith(NATIVE_SUFFIX + SIG_SUFFIX) \
+                or not os.path.isfile(path):
+            continue  # a native program's sidecar rides its program's row
         try:
             st = os.stat(path)
         except OSError:
@@ -525,6 +535,12 @@ def cache_entries() -> List[Dict[str, Any]]:
             "key": name.split(".", 1)[0], "file": name, "path": path,
             "size": int(st.st_size), "last_load": float(st.st_mtime),
         }
+        if name.endswith(NATIVE_SUFFIX):
+            row["native"] = True
+            try:
+                row["size"] += int(os.stat(path + SIG_SUFFIX).st_size)
+            except OSError:
+                pass
         if name.endswith(SUFFIX):
             meta = entry_meta(path) or {}
             row.update({
@@ -561,6 +577,11 @@ def enforce_cache_budget() -> int:
             os.unlink(r["path"])
         except OSError:
             continue
+        if r.get("native"):  # the pair goes together
+            try:
+                os.unlink(r["path"] + SIG_SUFFIX)
+            except OSError:
+                pass
         total -= r["size"]
         evicted += 1
         log.info("AOT cache evicted %s (%.1f MiB, least recently loaded)",
@@ -570,7 +591,8 @@ def enforce_cache_budget() -> int:
 
 def purge_cache(include_quarantine: bool = True) -> int:
     """Remove every entry of this package (``doctor --aot-purge``);
-    returns the count. The JAX package's entries stay."""
+    returns the count (a native program and its sidecar count once). The
+    JAX package's entries stay."""
     removed = 0
     d = cache_dir()
     for name in os.listdir(d):
@@ -578,7 +600,7 @@ def purge_cache(include_quarantine: bool = True) -> int:
         if os.path.isfile(path):
             try:
                 os.unlink(path)
-                removed += 1
+                removed += not name.endswith(NATIVE_SUFFIX + SIG_SUFFIX)
             except OSError:
                 pass
     q = os.path.join(d, "quarantine")
@@ -698,6 +720,60 @@ def _event(model, key, shapes, spec) -> Dict[str, Any]:
             "sig": [[list(s), d] for s, d in shapes],
             "spec": dict(spec) if spec else {},
             "outcome": "", "load_ms": 0.0, "compile_ms": 0.0}
+
+
+@contextlib.contextmanager
+def quiet_jit():
+    """``torch.jit``'s trace, freeze, save and load warn that they are
+    deprecated (torch 2.13), and the trace that it records sizes as
+    constants: silenced within, where a native program is built or
+    loaded, and nowhere else. A native program is fixed-shape (its
+    sidecar states the shapes), so recording the sizes is right."""
+    import torch
+
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", category=DeprecationWarning,
+                                message=r"`torch\.jit\.\w+` is deprecated")
+        warnings.filterwarnings("ignore", category=torch.jit.TracerWarning)
+        yield
+
+
+def native_aot_compile(
+    model: str,
+    custom: str,
+    shapes: Sequence[Tuple[Tuple[int, ...], str]],
+    device=None,
+) -> Optional[str]:
+    """Build the program the native executable filter runs
+    (``framework=pjrt``, csrc/native_exec.cc): the worker traces the
+    model's forward with its postproc folded in, as the filter runs it,
+    and freezes it, so the weights are constants and its signature is
+    exactly the stream tensors. On a CUDA device the trace goes through
+    the kernels' TorchScript ops (ops/_script_ops.py); on the CPU it
+    records their plain versions. Writes ``<key>.pjrt`` (a TorchScript
+    archive) and ``<key>.pjrt.sig`` (the JAX package's signature format)
+    and returns the program's path, or None when the worker failed.
+
+    The key carries the device's platform and the runtime fingerprint
+    (the kernels' digest among it). ``device`` defaults to the card
+    (:func:`default_device`)."""
+    device = device if device is not None else default_device()
+    key = cache_key(model, f"{custom}|frozen", shapes, platform_of(device))
+    path = os.path.join(cache_dir(), f"{key}{NATIVE_SUFFIX}")
+    if os.path.exists(path) and os.path.exists(path + SIG_SUFFIX):
+        return path
+    out = _run_worker(
+        {"model": model, "custom": custom,
+         "shapes": [[list(s), d] for s, d in shapes],
+         "device": str(device), "freeze": True, "out": path},
+        path, "native AOT")
+    if out is None or not os.path.exists(path + SIG_SUFFIX):
+        return None
+    try:
+        enforce_cache_budget()
+    except Exception:  # noqa: BLE001 — housekeeping must not fail AOT
+        pass
+    return out
 
 
 def prefetch_compile(

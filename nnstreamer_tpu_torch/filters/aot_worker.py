@@ -31,6 +31,7 @@ the calling process).
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 
@@ -184,10 +185,82 @@ def build(spec: dict) -> dict:
             "bytes": _nbytes(arrays)}
 
 
+def build_frozen(spec: dict) -> dict:
+    """The native program ``spec`` describes (``"freeze": true``): the
+    forward traced on the spec's device (through the kernels' TorchScript
+    ops on a card, their plain versions on the CPU), frozen, saved to
+    ``spec["out"]`` with its signature sidecar beside it, both atomically.
+    Returns the worker's report."""
+    import torch
+
+    from nnstreamer_tpu_torch.filters import aot
+    from nnstreamer_tpu_torch.filters.cuda_filter import make_postproc
+    from nnstreamer_tpu_torch.filters.sig_tokens import TOKEN_OF_NP
+    from nnstreamer_tpu_torch.models import build_bundle
+
+    t0 = time.perf_counter()
+    device = torch.device(spec["device"])
+    if device.type == "cuda":
+        from nnstreamer_tpu_torch.ops import _script_ops
+
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(device)
+        _script_ops.load()  # the kernel library and the op library
+    t_kernels = time.perf_counter()
+    custom = aot.custom_dict(spec["custom"])
+    bundle = build_bundle(spec["model"], custom, device)
+    apply_fn, post = bundle.apply_fn, make_postproc(custom)
+
+    class Program(torch.nn.Module):
+        """The forward as the filter runs it: the model, then its
+        postproc. Its tensors are the forward's, which the trace records
+        as constants."""
+
+        def forward(self, *xs):
+            out = apply_fn(*xs)
+            return post(out) if post is not None else out
+
+    rng = np.random.default_rng(0)
+    xs = []
+    for shape, dt in spec["shapes"]:
+        a = (rng.integers(0, 256, shape) if np.dtype(dt).kind in "ui"
+             else rng.normal(size=shape)).astype(dt)
+        xs.append(torch.from_numpy(a).to(device))
+    with torch.no_grad(), aot.quiet_jit():
+        traced = torch.jit.trace(Program(), tuple(xs), check_trace=False)
+        frozen = torch.jit.freeze(traced.eval(), optimize_numerics=False)
+        outs = frozen(*xs)
+    outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t_trace = time.perf_counter()
+    out = spec["out"]
+    tmp = f"{out}.tmp.{os.getpid()}"
+    with aot.quiet_jit():
+        torch.jit.save(frozen, tmp)
+    sig = ["nnstpu-pjrt-sig v1"]
+    sig += [_sig_line("in", np.dtype(dt), shape)
+            for shape, dt in spec["shapes"]]
+    sig += ["out %s %d %s" % (TOKEN_OF_NP[str(o.dtype).split(".")[-1]],
+                              o.dim(), " ".join(str(d) for d in o.shape))
+            for o in outs]
+    with open(f"{out}.sig.tmp.{os.getpid()}", "w") as f:
+        f.write("\n".join(sig) + "\n")
+    os.replace(tmp, out)
+    os.replace(f"{out}.sig.tmp.{os.getpid()}", f"{out}.sig")
+    t_end = time.perf_counter()
+    return {"kernels_ms": (t_kernels - t0) * 1e3,
+            "trace_ms": (t_trace - t_kernels) * 1e3,
+            "write_ms": (t_end - t_trace) * 1e3,
+            "worker_ms": (t_end - t0) * 1e3,
+            "bytes": os.path.getsize(out)}
+
+
 def main() -> int:
     t0 = time.perf_counter()
     spec = json.loads(sys.stdin.read())
-    report = build(spec)
+    report = build_frozen(spec) if spec.get("freeze") else build(spec)
     # the child's whole life but the interpreter's own start: imports,
     # the kernel build, the fold, the check and the write
     report["process_ms"] = (time.perf_counter() - t0) * 1e3

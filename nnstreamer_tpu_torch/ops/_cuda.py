@@ -81,7 +81,7 @@ _SIGNATURES = {
     "nnstpu_normalize_u8": [_P, _P, _LL, _F, _F, _I, _I, _P],
     "nnstpu_arith_chain": [_P, _P, _LL, _I, _I, _P, _P, _I, _I, _F, _F, _I,
                            _P],
-    "nnstpu_fused_inverted_residual": [_P, _P, _P, _I, _P],
+    "nnstpu_fused_inverted_residual": [_P, _P, _P, _P, _I, _P, _I, _P],
     "nnstpu_fused_attributes": [_I, _LL, _P],
     "nnstpu_flash_attention": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
     "nnstpu_flash_chunk": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
@@ -258,6 +258,26 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = handle
         return _lib
+
+
+def refuse_tracing(what: str) -> None:
+    """Raise under ``torch.jit.trace``: the tracer cannot see a ``ctypes``
+    launch and would record the kernel's output as a constant, so a saved
+    program would answer every input with the traced one's result. The
+    wrappers on the flagship's path take the TorchScript ops
+    (ops/_script_ops.py) under tracing instead."""
+    if torch.jit.is_tracing():
+        raise RuntimeError(
+            f"{what}: a ctypes kernel launch cannot be traced (torch.jit.trace "
+            "would record its output as a constant); trace through the "
+            "TorchScript op route (ops/_script_ops.py)")
+
+
+def launcher(what: str) -> ctypes.CDLL:
+    """:func:`lib` for a launch of kernel ``what``
+    (:func:`refuse_tracing` first)."""
+    refuse_tracing(what)
+    return lib()
 
 
 def check(err: int, what: str) -> None:

@@ -256,7 +256,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = False,
     out = torch.empty_like(q3)
     if bh == 0 or sq == 0:
         return out.reshape(q.shape)
-    lib = _cuda.lib()
+    lib = _cuda.launcher("flash_attention")
     with torch.cuda.device(q.device):
         err = lib.nnstpu_flash_attention(
             q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), bh,
@@ -315,7 +315,7 @@ def flash_chunk_cuda(q, k, v, m, l, acc, *, q_offset: int, k_offset: int,
     q, k, v = (_aligned(t) for t in (q, k, v))
     ml = (torch.empty((2, bh, sq), dtype=torch.float32, device=q.device)
           if head_dim_slices(d) > 1 else None)
-    lib = _cuda.lib()
+    lib = _cuda.launcher("flash_chunk")
     with torch.cuda.device(q.device):
         err = lib.nnstpu_flash_chunk(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),

@@ -38,7 +38,7 @@ import contextlib
 import ctypes
 import functools
 import threading
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -512,22 +512,34 @@ def _weights(folded: Dict[str, Any], cd: torch.dtype, device) -> _Weights:
     return w
 
 
+def _launch_fields(w: _Weights, H: int, W: int, residual: bool,
+                   cd: torch.dtype, dev: int) -> List[int]:
+    """The plan of one block and input size in the C entry point's F_*
+    order (csrc/fused_block.cu): R, CoT, Cc, variant, WM, grid, residual,
+    shared-memory bytes. The grid is the card's resident CTAs (the kernel
+    caps it at the batch's work items). Both routes to the kernel pass it:
+    the ctypes launch below and the TorchScript op under tracing."""
+    plan = _plan_tiles(H, W, w.Cin, w.Ch, w.Cout, torch.finfo(cd).bits // 8,
+                       w.ptrs[0] != 0)
+    grid = _resident_ctas(plan, dev) if plan.kind == "tc" else 0
+    return [plan.R, plan.CoT, plan.Cc, plan.variant, plan.WM, grid,
+            int(residual), plan.smem]
+
+
 def _launch_params(w: _Weights, B: int, H: int, W: int, residual: bool,
                    cd: torch.dtype, dev: int):
-    """The C entry point's fixed arguments for one block and input shape
-    (csrc/fused_block.cu, the P_* order), as a host array built once."""
+    """The C entry point's fixed arguments for one block and input shape,
+    as host arrays built once: the weight pointers, the shape (B, H, W,
+    Cin, Ch, Cout), the dtype code and :func:`_launch_fields`."""
     key = (B, H, W, residual, cd, dev)
     params = w.launches.get(key)
     if params is None:
-        expand = w.ptrs[0] != 0
-        plan = _plan_tiles(H, W, w.Cin, w.Ch, w.Cout,
-                           torch.finfo(cd).bits // 8, expand)
-        grid = min(B * -(-H // plan.R), _resident_ctas(plan, dev)) \
-            if plan.kind == "tc" else 0
-        vals = (*w.ptrs, B, H, W, w.Cin, w.Ch, w.Cout, plan.R, plan.CoT,
-                plan.Cc, plan.variant, plan.WM, grid, int(expand),
-                int(residual), _cuda.DTYPE_CODES[cd], plan.smem)
-        params = w.launches[key] = (ctypes.c_longlong * len(vals))(*vals)
+        fields = _launch_fields(w, H, W, residual, cd, dev)
+        params = w.launches[key] = (
+            (ctypes.c_void_p * 6)(*[p or None for p in w.ptrs]),
+            (ctypes.c_longlong * 6)(B, H, W, w.Cin, w.Ch, w.Cout),
+            _cuda.DTYPE_CODES[cd],
+            (ctypes.c_longlong * len(fields))(*fields), len(fields))
     return params
 
 
@@ -543,7 +555,9 @@ def fused_inverted_residual(x: torch.Tensor, folded: Dict[str, Any], *,
     stride-2 block runs :func:`inverted_residual_conv`. The weights are
     cast and checked once per folded dict, and the plan and the launch
     arguments once per input shape, so a call costs the input checks and
-    one launch."""
+    one launch. Under ``torch.jit.trace`` a CUDA tensor takes the
+    TorchScript op (ops/_script_ops.py) with the same plan, which the trace
+    records."""
     if stride != 1:
         return inverted_residual_conv(x, folded, stride=stride,
                                       residual=residual,
@@ -563,14 +577,18 @@ def fused_inverted_residual(x: torch.Tensor, folded: Dict[str, Any], *,
         residual = Cin == w.Cout
     _cuda.require(not residual or Cin == w.Cout, "residual needs Cin == Cout")
     xc = x if x.dtype == cd and x.is_contiguous() else x.to(cd).contiguous()
-    out = torch.empty((B, H, W, w.Cout), dtype=cd, device=x.device)
     dev = x.device.index
     if dev is None:
         dev = torch.cuda.current_device()
+    if torch.jit.is_tracing():  # a launch the trace records
+        from nnstreamer_tpu_torch.ops import _script_ops
+
+        return _script_ops.fused_inverted_residual(
+            xc, w.tensors, _launch_fields(w, H, W, bool(residual), cd, dev))
+    out = torch.empty((B, H, W, w.Cout), dtype=cd, device=x.device)
     params = _launch_params(w, B, H, W, bool(residual), cd, dev)
-    lib = _cuda.lib()
-    args = (xc.data_ptr(), out.data_ptr(), params, len(params),
-            _cuda.stream_handle(x))
+    lib = _cuda.launcher("fused_inverted_residual")
+    args = (xc.data_ptr(), out.data_ptr(), *params, _cuda.stream_handle(x))
     if torch.cuda.current_device() == dev:
         err = lib.nnstpu_fused_inverted_residual(*args)
     else:

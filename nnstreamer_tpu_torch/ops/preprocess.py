@@ -6,7 +6,9 @@ one pass: read uint8, convert, scale and offset, write the compute dtype.
 On a CUDA tensor :func:`normalize_u8` launches the hand-written kernel in
 ``csrc/preprocess.cu``; on a CPU tensor it runs :func:`normalize_u8_plain`.
 Unlike the Pallas kernel, the CUDA kernel takes every size (no
-``size % 1024`` gate).
+``size % 1024`` gate). Under ``torch.jit.trace`` a CUDA tensor reaches the
+kernel through its TorchScript op (ops/_script_ops.py), which the trace
+records.
 """
 
 from __future__ import annotations
@@ -36,9 +38,13 @@ def normalize_u8(x: torch.Tensor, scale: float = 1.0 / 127.5,
     _cuda.require(out_dtype in (torch.float32, torch.bfloat16),
                   f"normalize_u8 writes float32 or bfloat16, not {out_dtype}")
     x = x.contiguous()
+    if torch.jit.is_tracing():  # a launch the trace records
+        from nnstreamer_tpu_torch.ops import _script_ops
+
+        return _script_ops.normalize_u8(x, scale, offset, out_dtype)
     y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     vec_ok = int(x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
-    lib = _cuda.lib()
+    lib = _cuda.launcher("normalize_u8")
     with torch.cuda.device(x.device):
         err = lib.nnstpu_normalize_u8(
             x.data_ptr(), y.data_ptr(), x.numel(), float(scale),

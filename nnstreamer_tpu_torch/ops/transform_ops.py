@@ -87,7 +87,7 @@ def arith_chain(x: torch.Tensor, ops: Sequence[Op],
     vals = (ctypes.c_float * MAX_OPS)(*[float(v) for _, v in ops])
     lo, hi = clamp if clamp is not None else (0.0, 0.0)
     vec_ok = int(x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
-    lib = _cuda.lib()
+    lib = _cuda.launcher("arith_chain")
     with torch.cuda.device(x.device):
         err = lib.nnstpu_arith_chain(
             x.data_ptr(), y.data_ptr(), x.numel(),

@@ -415,7 +415,8 @@ def render_aot_cache() -> str:
              f"(budget {aot.cache_max_bytes() / 2**20:.0f} MiB)"]
     for r in rows:
         spec = r.get("spec") or {}
-        dims = ",".join(sorted(spec)) if spec else "solo"
+        dims = ("native" if r.get("native")
+                else ",".join(sorted(spec)) if spec else "solo")
         age = ((now - r["created"]) / 3600.0
                if r.get("created") else float("nan"))
         last = (now - r["last_load"]) / 60.0

@@ -39,6 +39,7 @@ from nnstreamer_tpu_torch.ops.fused_block import (  # noqa: E402
     _TC_MAX_PIXELS,
     _TC_VARIANTS,
     _TC_WARPS,
+    _launch_fields,
     _launch_params,
     _plan_tiles,
     _tc_smem,
@@ -319,26 +320,35 @@ def test_weights_are_cast_once_per_folded_dict():
 
 
 def test_launch_params_follow_the_c_layout():
-    """The cached argument array has the C entry point's P_* order."""
+    """The cached argument arrays follow the C entry point's layout
+    (csrc/fused_block.cu): the weight pointers, the shape, the dtype code
+    and the plan in its F_* order, which the TorchScript op route passes
+    on unread (the same fields, _launch_fields)."""
     src = open(os.path.join(_cuda.CSRC, "fused_block.cu")).read()
-    names = re.findall(r"P_[A-Z0-9]+", re.search(
-        r"enum \{\s*(P_W1.*?P_COUNT)\s*\};", src, re.S).group(1))
-    assert names[-1] == "P_COUNT"
+    names = re.findall(r"F_[A-Z0-9]+", re.search(
+        r"enum \{\s*(F_R,.*?F_COUNT)\s*\};", src, re.S).group(1))
+    assert names[-1] == "F_COUNT"
     idx = {n: i for i, n in enumerate(names)}
+    entry = re.search(r"int nnstpu_fused_inverted_residual\((.*?)\)", src,
+                      re.S).group(1)
+    assert entry.count(",") + 1 == len(
+        _cuda._SIGNATURES["nnstpu_fused_inverted_residual"]) == 8
     w = _weights(_torch(_rand_folded(np.random.default_rng(10), 8, 48, 8,
                                      True)), torch.float32,
                  torch.device("cpu"))
     params = _launch_params(w, 3, 9, 11, True, torch.float32, 0)
-    assert len(params) == idx["P_COUNT"]
     assert params is _launch_params(w, 3, 9, 11, True, torch.float32, 0)
+    ptrs, dims, dtype, fields, n = params
+    assert [p or 0 for p in ptrs] == list(w.ptrs) and w.ptrs[0] != 0
+    assert list(dims) == [3, 9, 11, 8, 48, 8]
+    assert dtype == _cuda.DTYPE_CODES[torch.float32]
+    assert n == len(fields) == idx["F_COUNT"]
     plan = _plan_tiles(9, 11, 8, 48, 8, 4, True)
-    want = {"P_W1": w.ptrs[0], "P_W2": w.ptrs[4], "P_B2": w.ptrs[5],
-            "P_B": 3, "P_H": 9, "P_W": 11, "P_CIN": 8, "P_CH": 48,
-            "P_COUT": 8, "P_R": plan.R, "P_COT": plan.CoT, "P_CC": plan.Cc,
-            "P_VARIANT": -1, "P_GRID": 0, "P_EXPAND": 1, "P_RESIDUAL": 1,
-            "P_DTYPE": _cuda.DTYPE_CODES[torch.float32],
-            "P_SMEM": plan.smem}
-    assert {k: params[idx[k]] for k in want} == want
+    want = {"F_R": plan.R, "F_COT": plan.CoT, "F_CC": plan.Cc,
+            "F_VARIANT": -1, "F_GRID": 0, "F_RESIDUAL": 1,
+            "F_SMEM": plan.smem}
+    assert {k: fields[idx[k]] for k in want} == want
+    assert list(fields) == _launch_fields(w, 9, 11, True, torch.float32, 0)
 
 
 @pytest.mark.parametrize("model,size", [("ssd_mobilenet", 300),
