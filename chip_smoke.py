@@ -89,15 +89,17 @@ Phases, each printing one JSON line:
              with the ring as its attention (64 flash_chunk launches)
              against the filter's flash forward, and both forwards' ms;
              and a profile line of 5 ring calls;
-  longctx    examples/long_context.py's three steps at its own sizes:
-             its stream line (128 one-frame buffers to one window, dim 32,
-             2 heads: bf16 at head_dim 16) against the plain-attention twin,
-             with its flash_attention launch; ring attention on float32
-             (2, 1024, 32) and Ulysses on float32 (2, 8, 1024, 32), causal,
-             over make_mesh(sp=8, devices=[cuda:0] * 8), each against
-             plain_attention at the reference's atol 3e-5 with its kernel's
-             launches; then the reference tests' float32 ring (d 16 and 8)
-             and Ulysses (d 16) shapes the same way;
+  longctx    examples/long_context.py's three steps at its own sizes, run
+             by the port's runner (nnstreamer_tpu_torch/examples/
+             long_context.py): its stream line (128 one-frame buffers to
+             one window, dim 32, 2 heads: bf16 at head_dim 16) against the
+             plain-attention twin, with its flash_attention launch; ring
+             attention on float32 (2, 1024, 32) and Ulysses on float32
+             (2, 8, 1024, 32), causal, over make_mesh(sp=8,
+             devices=[cuda:0] * 8), each against plain_attention at the
+             reference's atol 3e-5 with its kernel's launches; then the
+             reference tests' float32 ring (d 16 and 8) and Ulysses (d 16)
+             shapes the same way;
   vit        the ViT-S/16 labeling line (224x224, depth 6, 1000 classes,
              128 frames per tensor): 6 flash_attention launches and 1
              normalize_u8 launch per forward, logits against the plain
@@ -442,6 +444,29 @@ Phases, each printing one JSON line:
              and p50 batch latency of the Python line, and run_ab's native
              and Python medians;
 
+  probes     first the MFU table's fused:pallas forward (kernels 1 and 2)
+             against its plain version at batch 128, 256 and 512 (the
+             flagship's tolerance and the bf16 noise floor); then the
+             port's measurement tools: tools/mfu_table.py's table
+             (MobileNet-v2 at batch 128/256/512 with float32 and bf16
+             weights, fused:xla and fused:pallas, NCHW frames; ViT-S/16 at
+             batch 32 and 128; the causal 8x8192x128 bf16 flash kernel
+             against the blockwise plain version; the quant rows only
+             where their file is in the checkout), each row's device ms by
+             chained differencing on CUDA graphs, TFLOP/s and MFU against
+             989 TFLOP/s, none unreliable; tools/mbv2_breakdown.py's 12
+             rows, per-stage deltas and depthwise share;
+             tools/multistream_probe.py's three legs at 1, 2, 4 and 8
+             streams; the tables in build/probes/; the launches the
+             timed graphs' replays made are printed apart and stay out of
+             the kernels line;
+  examples   the seven runners of nnstreamer_tpu_torch/examples on the
+             card at their examples' sizes (the .tflite runner on the
+             full-width MobileNet-v2 file testing/model_files.py writes),
+             each with its outputs checked, its seconds and its launches;
+             classification's labels and detection's objects equal to the
+             same runner's on the CPU;
+
 then one ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
 that last line. It needs a CUDA card: without one it exits 1 at once.
@@ -449,7 +474,8 @@ that last line. It needs a CUDA card: without one it exits 1 at once.
 ``--only`` runs the named phases alone (``serve`` needs ``slice`` for
 its frames; ``streams``, ``residency``, ``train``, ``loop``, ``edge``,
 ``chain``, ``robust``, ``mesh``, ``tune``, ``aot``, ``rollout``,
-``deploy``, ``import``, ``train_vision``, ``custom`` and ``native`` build
+``deploy``, ``import``, ``train_vision``, ``custom``, ``native``,
+``probes`` and ``examples`` build
 their own; ``stride2`` runs inside ``kernel``, the
 flagship's profile
 inside ``slice``, the overload and reference lines inside ``serve``) and
@@ -1729,8 +1755,6 @@ def check_ring(torch, results):
 
 # -- phase: examples/long_context.py on the card ----------------------------
 
-#: the example's stream line (bf16, dim 32 over 2 heads: head_dim 16)
-LONGCTX = {"seq": 128, "feat": 16, "dim": 32, "depth": 1, "heads": 2}
 #: the example's sequence-parallel steps: sp=8 on one card, float32
 LONGCTX_SP = 8
 #: float32 ring and Ulysses against plain attention: the reference's
@@ -1740,7 +1764,8 @@ SP_F32_ATOL = 3e-5
 
 def check_longctx(torch, results):
     """The three steps of examples/long_context.py at its own sizes through
-    the port: the stream line (128 one-frame buffers aggregated to one
+    the port's runner (nnstreamer_tpu_torch/examples/long_context.py, on
+    the card): the stream line (128 one-frame buffers aggregated to one
     window, the stream transformer at dim 32, 2 heads, bf16) against its
     plain-attention twin; ring_attention on float32 (2, 1024, 32) and
     ulysses_attention on float32 (2, 8, 1024, 32), causal, over
@@ -1752,7 +1777,8 @@ def check_longctx(torch, results):
     flash forward at BLOCK_K (p rounded at the same blocks) at ATTN_TOL."""
     import numpy as np
 
-    from nnstreamer_tpu_torch.buffer import Buffer
+    from nnstreamer_tpu_torch.examples import long_context
+    from nnstreamer_tpu_torch.models import get_model
     from nnstreamer_tpu_torch.models.vit import StreamTransformer
     from nnstreamer_tpu_torch.ops import _cuda
     from nnstreamer_tpu_torch.ops.attention import (
@@ -1765,38 +1791,27 @@ def check_longctx(torch, results):
         ulysses_attention,
     )
     from nnstreamer_tpu_torch.parallel import make_mesh
-    from nnstreamer_tpu_torch.pipeline import parse_launch
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    seq, feat = LONGCTX["seq"], LONGCTX["feat"]
-    rng = np.random.default_rng(0)
-    frames = [rng.normal(size=feat).astype(np.float32) for _ in range(seq)]
-    p = parse_launch(
-        f"appsrc name=src caps=other/tensors,format=static,dimensions={feat},"
-        f"types=float32 ! tensor_aggregator frames_in=1 frames_out={seq} "
-        f"frames_dim=1 ! tensor_filter name=f framework=jax "
-        f"model=stream_transformer custom=seed:0,{_custom(LONGCTX)} "
-        f"! tensor_sink name=out")
-    p.play()
-    _cuda.reset_launches()
-    for f in frames:
-        p["src"].push_buffer(Buffer(tensors=[f]))
-    buf = p["out"].pull(timeout=300.0)
-    launches = dict(_cuda.LAUNCHES)
-    bundle = p["f"].fw._bundle
-    p.stop()
-    if buf is None:
-        raise AssertionError("longctx: the stream line gave no output")
-    got = torch.as_tensor(np.asarray(buf.tensors[0])).float()
-    twin = _plain_twin(bundle.module, StreamTransformer, LONGCTX)
+    run = long_context.main([])
+    got = torch.as_tensor(run["stream"]).float()
+    # the runner's model (bf16, dim 32 over 2 heads: head_dim 16) and its
+    # plain-attention twin on the same seed weights
+    custom = dict(kv.split(":") for kv in
+                  long_context.STREAM_CUSTOM.split(","))
+    cfg = {k: int(v) for k, v in custom.items() if k != "seed"}
+    seq, feat = cfg["seq"], cfg["feat"]
+    twin = _plain_twin(get_model("stream_transformer", custom).module,
+                       StreamTransformer, cfg)
     with torch.inference_mode():
-        want = twin(torch.from_numpy(np.stack(frames)).cuda()[None])
+        want = twin(torch.from_numpy(np.stack(run["frames"])).cuda()[None])
     want = want.float().cpu()
+    launches = run["launches"]["stream"]
     ok = (tuple(got.shape) == (1, seq, feat)
           and bool(torch.isfinite(got).all())
           and within(got, want, MODEL_ATOL, MODEL_RTOL)
-          and launches["flash_attention"] == LONGCTX["depth"])
-    hd = LONGCTX["dim"] // LONGCTX["heads"]
+          and launches["flash_attention"] == cfg["depth"])
+    hd = cfg["dim"] // cfg["heads"]
     emit("longctx", step="stream_line", shape=list(got.shape), head_dim=hd,
          dtype="bfloat16", launches=launches,
          out_max_abs_err=max_err(got, want), out_atol=MODEL_ATOL,
@@ -1804,12 +1819,10 @@ def check_longctx(torch, results):
          kernel=flash_kernel_attributes(hd, dtype=torch.bfloat16))
     if not ok:
         raise AssertionError(f"longctx stream line: {launches}")
-    total = launches
+    total = dict(launches)
 
     mesh = make_mesh(sp=LONGCTX_SP,
                      devices=[torch.device("cuda", 0)] * LONGCTX_SP)
-    q = torch.from_numpy(rng.normal(size=(2, 1024, 32))).float().cuda()
-    qh = torch.from_numpy(rng.normal(size=(2, 8, 1024, 32))).float().cuda()
     gen = torch.Generator(device="cuda").manual_seed(7)
 
     def randn(shape, dtype=torch.float32):
@@ -1821,12 +1834,38 @@ def check_longctx(torch, results):
     def plain_flash(a, b, c, causal):
         return flash_attention_plain(a, b, c, causal=causal, block_k=BLOCK_K)
 
-    # (step, function, q = k = v or three tensors, causal, launch counted,
-    # plain version); float32 against plain_attention at SP_F32_ATOL
-    steps = [("ring", ring_attention, (q, q, q), True, "flash_chunk",
-              plain_attention),
-             ("ulysses", ulysses_attention, (qh, qh, qh), True,
-              "flash_attention", plain_attention)]
+    # the runner's two sequence-parallel steps: its outputs and launches
+    for step, fn, x, kernel in (
+            ("ring", ring_attention, run["q"], "flash_chunk"),
+            ("ulysses", ulysses_attention, run["qh"], "flash_attention")):
+        a = torch.from_numpy(x).float().cuda()
+        out, launches = run[step], run["launches"][step]
+        ref = plain_attention(a, a, a, causal=True)
+        ok = (out.shape == a.shape and out.dtype == a.dtype
+              and bool(torch.isfinite(out).all())
+              and within(out, ref, SP_F32_ATOL, 0.0) and launches[kernel] > 0)
+
+        def call(fn=fn, a=a):
+            return fn(a, a, a, mesh, "sp", causal=True)
+
+        emit("longctx", step=step, shape=list(a.shape), causal=True,
+             dtype="float32", sp=LONGCTX_SP, launches=launches,
+             plain="plain_attention",
+             max_abs_err_vs_plain=max_err(out, ref), atol=SP_F32_ATOL,
+             rtol=0.0, ok=ok, ms=cuda_ms(call, reps=5, warmup=1),
+             # the kernel's own time per launch, and its instantiation
+             kernel_device_ms=device_ms(
+                 torch, call, "flash_chunk" if step == "ring" else
+                 "flash_fwd", calls=2),
+             kernel=flash_kernel_attributes(a.shape[-1], carry=step == "ring",
+                                            dtype=a.dtype))
+        if not ok:
+            raise AssertionError(f"longctx {step}: {launches}")
+        total = {kk: total[kk] + launches[kk] for kk in total}
+
+    # (step, function, three tensors, causal, launch counted, plain
+    # version); float32 against plain_attention at SP_F32_ATOL
+    steps = []
     for causal in (False, True):
         steps += [(f"ref_ring_d16_{'causal' if causal else 'full'}",
                    ring_attention, [randn((2, 256, 16)) for _ in range(3)],
@@ -1862,27 +1901,12 @@ def check_longctx(torch, results):
         ok = (out.shape == a.shape and out.dtype == a.dtype
               and bool(torch.isfinite(out.float()).all())
               and within(out, ref, atol, rtol) and launches[kernel] > 0)
-        row = {"step": step, "shape": list(a.shape), "causal": causal,
-               "dtype": _dtype_name(a.dtype), "sp": LONGCTX_SP,
-               "launches": launches, "plain": plain.__name__,
-               "max_abs_err_vs_plain": max_err(out, ref),
-               "atol": atol, "rtol": rtol, "ok": ok}
-        if step in ("ring", "ulysses"):
-            def call():
-                return fn(a, b, c, mesh, "sp", causal=causal)
-
-            row["ms"] = cuda_ms(call, reps=5, warmup=1)
-            # the kernel's own time per launch, and its instantiation
-            row["kernel_device_ms"] = device_ms(
-                torch, call, "flash_chunk" if step == "ring" else "flash_fwd",
-                calls=2)
-            row["kernel"] = flash_kernel_attributes(
-                a.shape[-1], carry=step == "ring", dtype=a.dtype)
-        emit("longctx", **row)
+        emit("longctx", step=step, shape=list(a.shape), causal=causal,
+             dtype=_dtype_name(a.dtype), sp=LONGCTX_SP, launches=launches,
+             plain=plain.__name__, max_abs_err_vs_plain=max_err(out, ref),
+             atol=atol, rtol=rtol, ok=ok)
         if not ok:
             raise AssertionError(f"longctx {step}: {launches}")
-        if step in ("ring", "ulysses"):
-            total = {kk: total[kk] + launches[kk] for kk in total}
     results["longctx_launches"] = total
 
 
@@ -8513,6 +8537,256 @@ def check_native(torch, results, workdir):
 
 
 
+# -- phases: the measurement tools and the example runners ------------------
+
+#: the MFU table's rows the probes phase must print, measured
+MFU_ROWS = tuple(
+    f"{name}@{b}" for b in (128, 256, 512) for name in (
+        "mobilenet_v2 f32-params uint8-in",
+        "mobilenet_v2 bf16-params uint8-in",
+        "mobilenet_v2 fused:xla (BN-folded)",
+        "mobilenet_v2 fused:pallas (BN-folded, kernels)")) + (
+    "mobilenet_v2 f32-params NCHW-in(+device permute)@128",
+    "vit_s16 bf16@32", "vit_s16 bf16@128",
+    "flash-attn cuda causal 8x8192x128 bf16 (interleaved)@8",
+    "flash-attn blockwise b256 causal 8x8192x128 bf16 (interleaved)@8")
+MS_STREAMS = (1, 2, 4, 8)
+
+
+def check_probes(torch, results):
+    """The port's three measurement tools on the card, each printing one
+    line per row: tools/mfu_table.py's whole table (the quant section runs
+    only where its file is in the checkout; the line names the path it
+    skipped), every row with device ms, TFLOP/s and MFU against 989 TFLOP/s
+    and none unreliable; tools/mbv2_breakdown.py's rows, per-stage deltas
+    and depthwise share; tools/multistream_probe.py at 1, 2, 4 and 8
+    streams. The tables go to build/probes/. Before the table, the
+    fused:pallas forward is held against its plain version at each of the
+    table's batches (:func:`_probe_forwards_agree`). Launches: the
+    wrappers' own (warm-ups, counting), which join the kernels line; the
+    launches the timed graphs' replays made (launches per apply times
+    applies replayed) are printed apart, as ``graph_launches``."""
+    import math
+
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.tools import (
+        mbv2_breakdown,
+        mfu_table,
+        multistream_probe,
+    )
+
+    out_dir = os.path.join(ROOT, "build", "probes")
+    card = results["card"]
+    t0 = time.perf_counter()
+    _probe_forwards_agree(torch, card)
+    _cuda.reset_launches()
+    before = mfu_table.card_stamp()
+    rows = mfu_table.build_rows()
+    table = mfu_table.table(rows, before, mfu_table.card_stamp())
+    clean = mfu_table.save(table, os.path.join(out_dir,
+                                               "MFU_TABLE.cuda.json"))
+    graph = {}
+    for r in rows:
+        emit("probes", probe="mfu_table", **r)
+        _add_into(graph, r.get("graph_launches", {}))
+    seen = {f"{r['config']}@{r.get('batch')}": r for r in rows}
+    bad = [k for k in MFU_ROWS if k not in seen or any(
+        f not in seen[k] for f in ("device_ms_per_batch", "tflops_per_sec",
+                                   "mfu_pct"))]
+    bad += [k for k, r in seen.items() if r.get("unreliable")
+            or "error" in r or not r.get("card", {}).get("power.limit")]
+    mfu_s = time.perf_counter() - t0
+    emit("probes", probe="mfu_table", rows=len(rows), clean=clean,
+         quant=table["quant_tflite"], card_before=table["card_before"],
+         card_after=table["card_after"], seconds=mfu_s, failed=bad,
+         card=card)
+    if bad or not clean:
+        raise AssertionError(f"probes: mfu_table rows failed: {bad}")
+
+    t1 = time.perf_counter()
+    br = mbv2_breakdown.run()
+    with open(os.path.join(out_dir, "MBV2_BREAKDOWN.cuda.json"), "w") as f:
+        json.dump(br, f, indent=1)
+    for r in br["rows"]:
+        emit("probes", probe="mbv2_breakdown", **r)
+    ok = (len(br["rows"]) == 12 and len(br["per_stage_delta_ms"]) == 7
+          and math.isfinite(br["depthwise_share_pct"])
+          and all(r["device_ms_per_batch"] > 0 for r in br["rows"]))
+    emit("probes", probe="mbv2_breakdown", batch=br["batch"],
+         per_stage_delta_ms=br["per_stage_delta_ms"],
+         depthwise_share_pct=br["depthwise_share_pct"],
+         full_ms=br["full_ms"], card_after=br["card"], ok=ok,
+         seconds=time.perf_counter() - t1, card=card)
+    if not ok:
+        raise AssertionError("probes: the breakdown is incomplete")
+
+    t2 = time.perf_counter()
+    ms = multistream_probe.run(MS_STREAMS)
+    ok = all(math.isfinite(ms[leg][str(s)]) and ms[leg][str(s)] > 0
+             for leg in ("ms_host", "ms_dev", "native_spin")
+             for s in MS_STREAMS)
+    emit("probes", probe="multistream", **ms, ok=ok,
+         seconds=time.perf_counter() - t2)
+    if not ok:
+        raise AssertionError(f"probes: multistream legs: {ms}")
+    total = dict(_cuda.LAUNCHES)
+    results["probes_launches"] = total
+    emit("probes", launches=total, graph_launches=graph,
+         seconds=time.perf_counter() - t0)
+    for k in ("fused_inverted_residual", "normalize_u8", "flash_attention"):
+        if total.get(k, 0) == 0:
+            raise AssertionError(f"probes: {k} was never launched")
+
+
+#: the MFU table's MobileNet-v2 batches, each held before it is timed
+PROBE_BATCHES = (128, 256, 512)
+
+
+def _probe_forwards_agree(torch, card):
+    """The MFU table's fused:pallas forward (kernels 1 and 2; the same
+    zoo model, seed 0) at each of its batches, against the same folded
+    forward with the kernels' plain versions in their place: within the
+    flagship's limit (MODEL_ATOL, MODEL_RTOL) and the bf16 noise floor of
+    :func:`_agreement` (the fused:xla forward's distance from plain). One
+    line per batch; raises if a batch fails."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.models import get_model
+
+    bundle = get_model("mobilenet_v2", {"seed": "0", "fused": "pallas"},
+                       "cuda")
+    rng = np.random.default_rng(1)
+    bad = []
+    for b in PROBE_BATCHES:
+        x = torch.from_numpy(rng.integers(0, 256, (b, 224, 224, 3),
+                                          np.uint8)).cuda()
+        fw = _forwards(torch, "mobilenet_v2", bundle, x)
+        ok, rows = _agreement(torch, fw)
+        tol = within(fw["kernel"][0], fw["plain"][0], MODEL_ATOL, MODEL_RTOL)
+        emit("probes", probe="forward_check", batch=b,
+             logits=rows[0], within_flagship_tol=tol, atol=MODEL_ATOL,
+             rtol=MODEL_RTOL, noise_share=NOISE_SHARE, ok=ok and tol,
+             card=card)
+        if not (ok and tol):
+            bad.append(b)
+        del x, fw
+    del bundle
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"probes: the fused:pallas forward strays from "
+                             f"its plain version at batch {bad}")
+
+
+#: per runner: the kernels it must launch on the card
+EXAMPLE_KERNELS = {
+    "long_context": ("flash_attention", "flash_chunk"),
+    "classification": ("normalize_u8",),
+    "detection": ("normalize_u8",),
+    "query_offload": (),
+    "training": (),
+    "native_pipeline": (),
+    "tflite_models": (),
+}
+
+
+def _example_ok(torch, name, out) -> bool:
+    """What each runner's output must be on the card."""
+    import numpy as np
+
+    if name == "long_context":
+        return (out["stream"].shape == (1, 128, 16)
+                and bool(np.isfinite(out["stream"]).all())
+                and tuple(out["ring"].shape) == (2, 1024, 32)
+                and tuple(out["ulysses"].shape) == (2, 8, 1024, 32)
+                and bool(torch.isfinite(out["ring"]).all())
+                and bool(torch.isfinite(out["ulysses"]).all()))
+    if name == "classification":
+        return len(out) == 2 and all(
+            len(b) == 4 and all(lab.startswith("class") for lab in b)
+            for b in out)
+    if name == "detection":
+        return out["overlay"].shape == (96, 96, 4) and \
+            out["overlay"].dtype == np.uint8
+    if name == "query_offload":
+        return len(out) == 3 and all(
+            np.array_equal(r, np.full(4, (i + 1) * 10.0, np.float32))
+            for i, r in enumerate(out))
+    if name == "training":
+        return (out["saved"] and len(out["epochs"]) == 3
+                and all(np.isfinite(e).all() for e in out["epochs"]))
+    if name == "native_pipeline":
+        return out == [(i, 3 * i) for i in range(4)]
+    return len(out) == 4 and all(o.shape == (1, 1001)
+                                 and np.isfinite(o).all() for o in out)
+
+
+#: box corners of a detection on the card against the CPU's, in pixels
+#: of the 96x96 overlay (bf16 on the card, float32 on the CPU)
+BOX_PX_TOL = 2
+
+
+def _example_matches_cpu(name, out, cpu) -> dict:
+    """The classification and detection runners on the card against the
+    same runner with ``--device cpu``: labels equal; objects equal in
+    number and class, boxes within BOX_PX_TOL pixels."""
+    if name == "classification":
+        return {"labels_equal_cpu": out == cpu, "ok": out == cpu}
+    got, want = out["objects"], cpu["objects"]
+    same = len(got) == len(want) and all(
+        g["class_id"] == w["class_id"] for g, w in zip(got, want))
+    px = max((abs(g[k] - w[k]) for g, w in zip(got, want)
+              for k in ("x", "y", "width", "height")), default=0)
+    return {"objects": len(got), "objects_cpu": len(want),
+            "classes_equal_cpu": same, "box_max_px_diff": px,
+            "ok": same and px <= BOX_PX_TOL}
+
+
+def check_examples(torch, results, workdir):
+    """The seven runners of nnstreamer_tpu_torch/examples on the card, at
+    their examples' sizes, each with the kernel launches it made (counts
+    set to 0 just before it and read just after) and its output checked;
+    classification and detection also against the same runner on the CPU
+    (:func:`_example_matches_cpu`, outside the counted run); the .tflite
+    runner on the full-width MobileNet-v2 file that testing/model_files.py
+    writes."""
+    import contextlib
+    import importlib
+    import io
+
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.testing import model_files
+
+    tflite = os.path.join(workdir, "mobilenet_v2.tflite")
+    model_files.write_mobilenet_v2_tflite(tflite, {"seed": "0"})
+    args = {"tflite_models": [tflite, "4"]}
+    total = {}
+    for name, kernels in EXAMPLE_KERNELS.items():
+        mod = importlib.import_module(f"nnstreamer_tpu_torch.examples.{name}")
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            out = mod.main(args.get(name, []))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        _add_into(total, launches)
+        ok = _example_ok(torch, name, out) and all(
+            launches[k] > 0 for k in kernels)
+        vs_cpu = {}
+        if name in ("classification", "detection"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                cpu = mod.main(["--device", "cpu"])
+            vs_cpu = _example_matches_cpu(name, out, cpu)
+            ok = ok and vs_cpu["ok"]
+        emit("examples", runner=name, seconds=secs, launches=launches,
+             printed=printed.getvalue().strip().splitlines(),
+             vs_cpu=vs_cpu, ok=ok, card=results["card"])
+        if not ok:
+            raise AssertionError(f"examples: {name} failed: {launches}")
+    results["examples_launches"] = total
+
+
 def main() -> int:
     import torch
 
@@ -8561,6 +8835,8 @@ def main() -> int:
         "train_vision": lambda: check_train_vision(torch, results),
         "custom": lambda: check_custom(torch, results, workdir),
         "native": lambda: check_native(torch, results, workdir),
+        "probes": lambda: check_probes(torch, results),
+        "examples": lambda: check_examples(torch, results, workdir),
     }
     only = None
     if "--only" in sys.argv[1:]:
@@ -8623,7 +8899,7 @@ def main() -> int:
         "robust_launches", "mesh_launches", "train_mesh_launches",
         "tune_launches", "aot_launches", "rollout_launches",
         "import_launches", "train_vision_launches", "custom_launches",
-        "native_launches"))
+        "native_launches", "probes_launches", "examples_launches"))
         for name in src}
     launches["arith_chain"] += results["arith_launches"]
     kernels = []

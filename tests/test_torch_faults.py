@@ -380,11 +380,25 @@ def _flagship_run(extra="", custom=MBV2, hang=0, delay=0.6, pace=0.0):
     """Play the line, arm ``hang`` invoke-hang faults, push the frames
     (pacing each of the first ``hang`` batches by ``pace`` seconds, so an
     abandoned invoke finishes before the next batch) and return the
-    pipeline and the logits per delivered batch."""
+    pipeline, the logits per delivered batch and the seconds of each
+    backend call the filter made (``_call_backend``, what the watchdog
+    times; a hung call's seconds include its injected stall)."""
     faults = PORT.faults
     faults.clear()
     p = PORT.parse_launch(_flagship_line(extra, custom))
     p.play()
+    calls = []
+    f = p["f"]
+    call_backend = f._call_backend
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return call_backend(*args, **kwargs)
+        finally:
+            calls.append(time.perf_counter() - t0)
+
+    f._call_backend = timed
     if hang:
         faults.install("invoke-hang", times=hang, delay_s=delay)
     try:
@@ -398,23 +412,43 @@ def _flagship_run(extra="", custom=MBV2, hang=0, delay=0.6, pace=0.0):
         faults.clear()
     assert p.bus.error is None, p.bus.error
     outs = [(b.pts, np.asarray(b.tensors[0])) for b in p["out"].collected]
-    return p, outs
+    return p, outs, calls
+
+
+#: the watchdog's deadline against the unfaulted run's slowest backend
+#: call, between a floor and a cap: an honest invoke of this small model
+#: (10-25 ms alone, the first included: the model is built at play) on a
+#: loaded CPU must never trip it, and a stalled unfaulted run must not
+#: stretch the faulted one (each trip costs 2.5 deadlines)
+DEADLINE_FACTOR, DEADLINE_FLOOR_S, DEADLINE_CAP_S = 10.0, 1.0, 3.0
+
+
+def _watchdog_timing(calls):
+    """(deadline ms, injected hang s, pace s) from an unfaulted run's
+    backend call seconds: the hang twice the deadline (it trips), the
+    pace the hang plus half a deadline (the abandoned call, stall and
+    invoke, ends before the next batch)."""
+    deadline = min(DEADLINE_CAP_S,
+                   max(DEADLINE_FLOOR_S, DEADLINE_FACTOR * max(calls)))
+    return deadline * 1e3, 2.0 * deadline, 2.5 * deadline
 
 
 @pytest.mark.parametrize("extra", [
     "", "feed-depth=2", "custom-donate", "feed-depth=2 custom-donate"])
 def test_flagship_switch_after_two_trips_is_bit_equal(extra):
-    """Two hung invokes (0.6 s against a 150 ms deadline, each paced out
-    before the next batch) trip the watchdog twice: the first batch is
-    dropped, the second switches to a fresh ``jax`` instance that carries
-    the fused preamble and serves it, and every delivered batch is
-    bit-equal to an unfaulted run's."""
+    """Two hung invokes (twice the deadline, each paced out before the
+    next batch) trip the watchdog twice: the first batch is dropped, the
+    second switches to a fresh ``jax`` instance that carries the fused
+    preamble and serves it, and every delivered batch is bit-equal to an
+    unfaulted run's. The deadline is ten times the unfaulted run's
+    slowest backend call, within [1 s, 3 s] (:func:`_watchdog_timing`)."""
     custom = MBV2 + (",donate:1" if "custom-donate" in extra else "")
     extra = extra.replace("custom-donate", "")
-    _, want = _flagship_run(extra, custom)
-    wd = ("invoke-timeout-ms=150 fallback-framework=jax fallback-after=2 "
-          f"on-error=drop {extra}")
-    p, got = _flagship_run(wd, custom, hang=2, pace=0.9)
+    _, want, calls = _flagship_run(extra, custom)
+    t_ms, hang_s, pace_s = _watchdog_timing(calls)
+    wd = (f"invoke-timeout-ms={t_ms:.0f} fallback-framework=jax "
+          f"fallback-after=2 on-error=drop {extra}")
+    p, got, _ = _flagship_run(wd, custom, hang=2, delay=hang_s, pace=pace_s)
     try:
         f = p["f"]
         assert f.get_property("watchdog-trips") == 2
@@ -434,10 +468,13 @@ def test_flagship_switch_after_two_trips_is_bit_equal(extra):
 
 def test_failed_switch_is_loud():
     """A fallback backend that cannot be opened posts fallback-failed,
-    and the trip reaches the on-error policy."""
-    p, got = _flagship_run(
-        "invoke-timeout-ms=150 fallback-framework=no_such_backend "
-        "fallback-after=1 on-error=drop", hang=1, pace=0.9)
+    and the trip reaches the on-error policy (deadline, hang and pace as
+    :func:`_watchdog_timing` derives them from an unfaulted run)."""
+    _, _, calls = _flagship_run()
+    t_ms, hang_s, pace_s = _watchdog_timing(calls)
+    p, got, _ = _flagship_run(
+        f"invoke-timeout-ms={t_ms:.0f} fallback-framework=no_such_backend "
+        "fallback-after=1 on-error=drop", hang=1, delay=hang_s, pace=pace_s)
     try:
         f = p["f"]
         assert f.get_property("degraded-to") is None
