@@ -49,13 +49,15 @@ Phases, each printing one JSON line:
              values of 8-bit inputs and all 65,536 of 16-bit ones, for the
              launch lines' chains, at a ragged size and an unaligned base);
   attention  the flash-attention kernel against its plain version (the
-             blockwise recurrence at the kernel's 128-key blocks) at causal
-             8x8192x128 (the stream line), 768x197x64 (ViT-S/16 at batch
-             128), a ragged causal 3x1000x32 and 4x777x64 and a ragged
-             non-causal 2x333x128 (each head dim on both mask paths), in
-             float32 at the reference's test shapes, in bf16 and float32 at
-             head dims 8, 16, 24, 48, 96 and 256 with ragged and unequal
-             sequences, and in float32 at causal 8x4096x128: max error
+             blockwise recurrence at the instance's key block: 128 keys,
+             64 for bf16 from head_dim 256 up) at causal 8x8192x128 (the
+             stream line), 768x197x64 (ViT-S/16 at batch 128), causal
+             4x8192x256 (the stream line at head_dim 256), a ragged causal
+             3x1000x32 and 4x777x64 and a ragged non-causal 2x333x128
+             (each head dim on both mask paths), in float32 at the
+             reference's test shapes, in bf16 and float32 at head dims 8,
+             16, 24, 48, 96 and 256 with ragged and unequal sequences, and
+             in float32 at causal 8x4096x128: max error
              against the stated tolerance (float32 at 2e-5 abs + 2e-5
              rel, TF32 off); for the timed shapes kernel, device, plain and
              bound ms, and the time of torch's scaled_dot_product_attention
@@ -70,9 +72,11 @@ Phases, each printing one JSON line:
              twin of the model whose attention is the plain version; then
              a profile line of 2 more windows;
   chunk      the ring's chunk kernel against its plain version (the chunk
-             recurrence at the kernel's 128-key blocks) at the stream line's
+             recurrence at the instance's key block) at the stream line's
              sp=4 shard, 8x2048x128, on carries from an earlier hop: the
-             diagonal, past, future and non-causal hops, and two ragged
+             diagonal, past, future and non-causal hops, the diagonal,
+             past and future hops at the head_dim 256 line's shard
+             4x2048x256, and two ragged
              causal cases (3x1000x32 with offsets); then the diagonal, past,
              partly masked and future hops at 3x300x300 for head dims 8, 16,
              24, 48, 96 and 256 in bf16 and float32; a future hop leaves
@@ -89,6 +93,15 @@ Phases, each printing one JSON line:
              with the ring as its attention (64 flash_chunk launches)
              against the filter's flash forward, and both forwards' ms;
              and a profile line of 5 ring calls;
+  stream256  the stream line at head_dim 256 (dim 1024 over 4 heads: the
+             tensor-core body in 64-key tiles): 4 windows after a warm-up
+             window, windows per second, p50 window latency, 4
+             flash_attention launches per forward, the output against the
+             plain-attention twin; then one ring call at its attention
+             shape, causal 4x8192x256 over the sp=4 mesh (16 flash_chunk
+             launches), against the plain ring at ATTN_TOL and the flash
+             kernel at the ring's own tolerance, with ring, plain ring,
+             flash and SDPA ms;
   longctx    examples/long_context.py's three steps at its own sizes, run
              by the port's runner (nnstreamer_tpu_torch/examples/
              long_context.py): its stream line (128 one-frame buffers to
@@ -303,13 +316,17 @@ Phases, each printing one JSON line:
              (publish, broker fan-out, decode, filter), 13 + 1 launches a
              message, and a profile line; (c) edgesink
              connect-type=HYBRID into edgesrc connect-type=HYBRID ! the
-             same filter: labels equal, frames/s; (d) kernels 4 and 5
-             above head_dim 256 (the split body) at d 320, 384 and 512,
-             bf16 and float32, causal and not, at 8 heads x 1024, each
-             against its plain version at the attention and chunk phases'
-             tolerances (the chunk kernel at the diagonal, non-causal,
-             half-masked and, at d 384, future hops), with kernel,
-             device, plain, bound and (flash) SDPA ms;
+             same filter: labels equal, frames/s;
+  wide       kernels 4 and 5 from head_dim 256 up (the tensor-core body
+             at 256 and the split bodies above) at d 256, 320, 384 and
+             512, bf16 and float32, causal and not, at 8 heads x 1024,
+             each against its plain version at the instance's key block
+             and the attention and chunk phases' tolerances (the chunk
+             kernel at the diagonal, non-causal and half-masked hops and
+             the future hop, carries bit-identical, in bf16 and at d 384
+             in float32), with kernel, device, plain, bound and (flash)
+             SDPA ms and each instance's registers, shared memory, CTAs
+             per SM, body and key block;
   chain      whole-chain fusion on line K, the flagship's head
              (MobileNet-v2 1.0, 224 px, 128 frames a tensor) ! queue ! a
              typecast:float32,div:2.0 transform ! a bf16 1001x1001 matmul
@@ -1166,7 +1183,7 @@ def check_transform(torch, results):
 # -- phase: the attention kernel against its plain version -----------------
 
 #: |kernel - plain| <= ATTN_TOL + ATTN_TOL * |plain|: both round p to bf16
-#: at the same running max (the same 128-key blocks, BLOCK_K) and the
+#: at the same running max (the same key blocks, key_block) and the
 #: output once; only the order of the float32 sums and exp's last bits
 #: differ, which can flip a bf16 rounding of p or of the output (1 ulp =
 #: 2^-8 relative) — allow 4
@@ -1176,6 +1193,10 @@ ATTN_TOL = 2.0 ** -6
 #: 8x8192x128 attention shape: head_dim 1024 / 8 = 128
 STREAM = {"seq": 8192, "feat": 64, "dim": 1024, "depth": 4, "heads": 8}
 STREAM_CHUNK = 512
+#: the same line at head_dim 256 (1024 / 4), the tensor-core body's widest
+#: D, a common head width of public models; its windows after one warm-up
+STREAM_HD256 = {**STREAM, "heads": 4}
+STREAM_HD256_WINDOWS = 4
 #: ViT-S/16 (bench_suite.py, tools/mfu_table.py), depth 6
 VIT = {"size": SIZE, "patch": 16, "depth": 6, "dim": 384, "heads": 6,
        "classes": 1000}
@@ -1249,10 +1270,10 @@ def check_attention(torch, results):
     import torch.nn.functional as F
 
     from nnstreamer_tpu_torch.ops.attention import (
-        BLOCK_K,
         flash_attention_cuda,
         flash_attention_plain,
         flash_kernel_attributes,
+        key_block,
     )
 
     # float32 products in float32 on both sides: the plain version's
@@ -1268,6 +1289,11 @@ def check_attention(torch, results):
               bf16, True, True),
              ("vit", (BATCH * VIT["heads"], vit_tokens, vit_hd), None, False,
               bf16, True, True),
+             # the head_dim 256 stream line's shape: timed apart from the
+             # main-path sum, which keeps the shapes of earlier rows
+             ("stream_hd256", (STREAM_HD256["heads"], STREAM_HD256["seq"],
+                               STREAM_HD256["dim"] // STREAM_HD256["heads"]),
+              None, True, bf16, True, False),
              ("ragged", (3, 1000, 32), None, True, bf16, False, False),
              ("ragged64", (4, 777, 64), None, True, bf16, False, False),
              ("noncausal128", (2, 333, 128), None, False, bf16, False,
@@ -1298,8 +1324,7 @@ def check_attention(torch, results):
             return flash_attention_cuda(q, k, v, causal=causal)
 
         def plain():
-            return flash_attention_plain(q, k, v, causal=causal,
-                                         block_k=BLOCK_K)
+            return flash_attention_plain(q, k, v, causal=causal)
 
         got, want = kern(), plain()
         torch.cuda.synchronize()
@@ -1309,7 +1334,7 @@ def check_attention(torch, results):
               and within(got, want, atol, rtol))
         row = {"kernel": "flash_attention", "case": case,
                "shape": list(shape), "sk": kshape[-2], "causal": causal,
-               "dtype": _dtype_name(dtype), "block_k": BLOCK_K,
+               "dtype": _dtype_name(dtype), "block_k": key_block(d, dtype),
                "max_abs_err": err, "atol": atol, "rtol": rtol, "ok": ok,
                **flash_kernel_attributes(d, dtype=dtype)}
         if timed:
@@ -1337,6 +1362,10 @@ def check_attention(torch, results):
         if not ok:
             raise AssertionError(f"flash_attention disagrees: {row}")
         tot["err"] = max(tot["err"], err)
+        if case == "stream_hd256":
+            results["flash_attention_hd256"] = {key: row[key] for key in (
+                "shape", "block_k", "max_abs_err", "ms", "device_ms",
+                "plain_ms", "library_ms", "bound_ms", "bound_by")}
     b_ms, b_by = bound_ms(tot["bytes"], tot["ops"], "bfloat16")
     results["flash_attention"] = {
         "ms": tot["ms"], "device_ms": tot["device_ms"],
@@ -1347,29 +1376,24 @@ def check_attention(torch, results):
 def _plain_twin(module, cls, cfg):
     """A second instance of the filter's model with the kernel's plain
     version as its attention, on the same weights: the oracle."""
-    import functools
+    from nnstreamer_tpu_torch.ops.attention import flash_attention_plain
 
-    from nnstreamer_tpu_torch.ops.attention import (
-        BLOCK_K,
-        flash_attention_plain,
-    )
-
-    twin = cls(**cfg, attention=functools.partial(flash_attention_plain,
-                                                  block_k=BLOCK_K))
+    # the plain version at each call's own key block (key_block)
+    twin = cls(**cfg, attention=flash_attention_plain)
     twin.load_state_dict(module.state_dict())
     return twin.to("cuda").eval()
 
 
 # -- phase: the long-context stream line -----------------------------------
 
-def _stream_line() -> str:
-    feat, seq = STREAM["feat"], STREAM["seq"]
+def _stream_line(cfg=STREAM) -> str:
+    feat, seq = cfg["feat"], cfg["seq"]
     return (f"appsrc name=src caps=other/tensors,format=static,"
             f"dimensions={feat}:{STREAM_CHUNK},types=float32 "
             f"! tensor_aggregator name=agg frames_in={STREAM_CHUNK} "
             f"frames_out={seq} "
             f"frames_dim=1 ! tensor_filter name=f framework=jax "
-            f"model=stream_transformer custom=seed:0,{_custom(STREAM)} "
+            f"model=stream_transformer custom=seed:0,{_custom(cfg)} "
             f"! tensor_sink name=out")
 
 
@@ -1438,8 +1462,8 @@ class _LineDriver:
 class _StreamDriver(_LineDriver):
     """The stream line: one unit is one window's 512-frame chunks."""
 
-    def __init__(self, window, spans=False):
-        super().__init__(_stream_line(),
+    def __init__(self, window, spans=False, cfg=STREAM):
+        super().__init__(_stream_line(cfg),
                          [window[i:i + STREAM_CHUNK]
                           for i in range(0, len(window), STREAM_CHUNK)],
                          spans=spans)
@@ -1520,21 +1544,24 @@ def _carries(torch, bh, sq, d):
 
 def check_chunk(torch, results):
     from nnstreamer_tpu_torch.ops.attention import (
-        BLOCK_K,
         flash_chunk_cuda,
         flash_chunk_plain,
         flash_kernel_attributes,
+        key_block,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(5)
     bh, n = STREAM["heads"], STREAM["seq"] // SP
     d = STREAM["dim"] // STREAM["heads"]
+    bh2 = STREAM_HD256["heads"]
+    d2 = STREAM_HD256["dim"] // bh2
     bf16, f32 = torch.bfloat16, torch.float32
 
     # (case, q/k/v/earlier-chunk shapes, q_offset, k_offset, causal, dtype,
     # timed): the ring's shard 2 at its hops, on carries from an earlier hop
-    # over a past chunk, so they are non-zero; then two ragged causal cases,
+    # over a past chunk, so they are non-zero, at head_dim 128 and at the
+    # head_dim 256 line's shard; then two ragged causal cases,
     # the second with its first q tiles wholly before the chunk; then every
     # hop at every head dim of WIDE_DIMS in both dtypes, ragged: the
     # diagonal, a past chunk, one whose first rows see none of it, and one
@@ -1543,6 +1570,11 @@ def check_chunk(torch, results):
              ("past", (bh, n, n, d), 2 * n, n, True, bf16, True),
              ("future", (bh, n, n, d), 2 * n, 3 * n, True, bf16, True),
              ("noncausal", (bh, n, n, d), 2 * n, n, False, bf16, True),
+             ("hd256_diagonal", (bh2, n, n, d2), 2 * n, 2 * n, True, bf16,
+              True),
+             ("hd256_past", (bh2, n, n, d2), 2 * n, n, True, bf16, True),
+             ("hd256_future", (bh2, n, n, d2), 2 * n, 3 * n, True, bf16,
+              True),
              ("ragged", (3, 1000, 1000, 32), 1000, 700, True, bf16, False),
              ("ragged_head", (3, 1000, 1000, 32), 0, 300, True, bf16, False)]
     for hd in WIDE_DIMS:
@@ -1568,7 +1600,7 @@ def check_chunk(torch, results):
             k_offset=q_off - sk if causal else 0, causal=causal, scale=scale)
         before = [c.clone() for c in carries]
         got = flash_chunk_cuda(q, k, v, *[c.clone() for c in carries], **kw)
-        want = flash_chunk_plain(q, k, v, *carries, block_k=BLOCK_K, **kw)
+        want = flash_chunk_plain(q, k, v, *carries, **kw)
         torch.cuda.synchronize()
         out_got, out_want = (c[2] / c[1].clamp(min=1e-37)[..., None]
                              for c in (got, want))
@@ -1590,7 +1622,7 @@ def check_chunk(torch, results):
                   and m_err <= m_atol and l_rel <= l_rtol)
         row = {"kernel": "flash_chunk", "case": case, "shape": [b, sq, sk, hd],
                "q_offset": q_off, "k_offset": k_off, "causal": causal,
-               "dtype": _dtype_name(dtype), "block_k": BLOCK_K,
+               "dtype": _dtype_name(dtype), "block_k": key_block(hd, dtype),
                "max_abs_err": err, "atol": atol, "rtol": rtol,
                "m_max_abs_err": m_err, "m_atol": m_atol,
                "l_max_rel_err": l_rel, "l_rtol": l_rtol, "ok": ok,
@@ -1606,7 +1638,7 @@ def check_chunk(torch, results):
             row["ms"] = cuda_ms(kern)
             row["device_ms"] = device_ms(torch, kern, "flash_chunk")
             row["plain_ms"] = cuda_ms(lambda: flash_chunk_plain(
-                q, k, v, *carries, block_k=BLOCK_K, **kw), reps=5, warmup=1)
+                q, k, v, *carries, **kw), reps=5, warmup=1)
             nbytes, ops = attention_work(b, sq, sk, hd, causal, q_off, k_off,
                                          carries=True,
                                          itemsize=q.element_size())
@@ -1624,16 +1656,21 @@ def check_chunk(torch, results):
     # see none of it, and the sum is then null)
     hops = {"diagonal": SP, "past": SP * (SP - 1) // 2,
             "future": SP * (SP - 1) // 2}
-    tot = {key: sum(rows[c][key] * k for c, k in hops.items())
-           for key in ("ms", "plain_ms", "bytes", "ops")}
-    dev = [rows[c]["device_ms"] for c in hops]
-    b_ms, b_by = bound_ms(tot["bytes"], tot["ops"], "bfloat16")
-    results["flash_chunk"] = {
-        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "library_ms": None,
-        "device_ms": None if None in dev else sum(
-            x * k for x, k in zip(dev, hops.values())),
-        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-        "bound_ms": b_ms, "bound_by": b_by, "hops": hops}
+    for key, prefix in (("flash_chunk", ""), ("flash_chunk_hd256", "hd256_")):
+        tot = {k: sum(rows[prefix + c][k] * n_hops
+                      for c, n_hops in hops.items())
+               for k in ("ms", "plain_ms", "bytes", "ops")}
+        dev = [rows[prefix + c]["device_ms"] for c in hops]
+        b_ms, b_by = bound_ms(tot["bytes"], tot["ops"], "bfloat16")
+        results[key] = {
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "library_ms": None,
+            "device_ms": None if None in dev else sum(
+                x * n_hops for x, n_hops in zip(dev, hops.values())),
+            "max_abs_err": max(r["max_abs_err"] for c, r in rows.items()
+                               if c.startswith(prefix)),
+            "bound_ms": b_ms, "bound_by": b_by, "hops": hops,
+            "shape": rows[prefix + "diagonal"]["shape"],
+            "block_k": rows[prefix + "diagonal"]["block_k"]}
 
 
 # -- phase: sequence-parallel attention over an sp mesh on the card --------
@@ -1753,6 +1790,110 @@ def check_ring(torch, results):
     results["ring_launches"] = launches
 
 
+# -- phase: the stream line at head_dim 256 ---------------------------------
+
+def check_stream256(torch, results):
+    """The stream line over 4 heads (head_dim 256, the tensor-core body in
+    64-key tiles) against its plain-attention twin, then one ring call at
+    its attention shape against the plain ring."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.models.vit import StreamTransformer
+    from nnstreamer_tpu_torch.ops import _cuda
+    from nnstreamer_tpu_torch.ops.attention import (
+        flash_attention_cuda,
+        flash_kernel_attributes,
+        key_block,
+        ring_attention,
+        ring_attention_plain,
+    )
+    from nnstreamer_tpu_torch.parallel import make_mesh
+
+    cfg = STREAM_HD256
+    seq, feat, heads = cfg["seq"], cfg["feat"], cfg["heads"]
+    hd = cfg["dim"] // heads
+    bf16 = torch.bfloat16
+    window = np.random.default_rng(4).normal(
+        size=(seq, feat)).astype(np.float32)
+    drv = _StreamDriver(window, cfg=cfg)
+    drv.run(1)
+    _cuda.reset_launches()
+    secs, p50 = drv.run(STREAM_HD256_WINDOWS)
+    launches = dict(_cuda.LAUNCHES)
+    if launches["flash_attention"] != cfg["depth"] * STREAM_HD256_WINDOWS:
+        raise AssertionError(f"stream256: launch counts per "
+                             f"{STREAM_HD256_WINDOWS} forwards: {launches}")
+    bundle = drv.p["f"].fw._bundle
+    outs = drv.close()
+    twin = _plain_twin(bundle.module, StreamTransformer, cfg)
+    x = torch.from_numpy(window).cuda()
+    with torch.inference_mode():
+        got = bundle.apply_fn(x).float()
+        want = twin(x[None]).float()
+    torch.cuda.synchronize()
+    last = np.asarray(outs[-1])
+    finite = bool(torch.isfinite(got).all()) and bool(np.isfinite(last).all())
+    ok = (finite and tuple(got.shape) == (1, seq, feat)
+          and last.shape == (1, seq, feat)
+          and within(got, want, MODEL_ATOL, MODEL_RTOL))
+    emit("stream256", head_dim=hd, heads=heads, windows=STREAM_HD256_WINDOWS,
+         seconds=secs, windows_per_s=STREAM_HD256_WINDOWS / secs,
+         frames_per_s=STREAM_HD256_WINDOWS * seq / secs,
+         p50_window_latency_ms=p50, launches=launches,
+         plain_block_k=key_block(hd, bf16),
+         out_max_abs_err=max_err(got, want), out_atol=MODEL_ATOL,
+         out_rtol=MODEL_RTOL, out_ok=ok, finite=finite, outputs=len(outs),
+         kernel=flash_kernel_attributes(hd, dtype=bf16), card=results["card"])
+    if not ok:
+        raise AssertionError("stream256 output disagrees with the plain "
+                             "forward or is not finite")
+
+    # one ring call at the line's attention shape: 16 hops over sp=4
+    mesh = make_mesh(sp=SP, devices=[torch.device("cuda", 0)] * SP)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = (torch.randn((heads, seq, hd), generator=gen, device="cuda")
+               .to(bf16) for _ in range(3))
+
+    def ring():
+        return ring_attention(q, k, v, mesh, "sp", causal=True)
+
+    def plain():
+        return ring_attention_plain(q, k, v, mesh, "sp", causal=True)
+
+    def flash():
+        return flash_attention_cuda(q, k, v, causal=True)
+
+    def library():
+        return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                              is_causal=True)
+
+    _cuda.reset_launches()
+    got = ring()
+    torch.cuda.synchronize()
+    ring_launches = dict(_cuda.LAUNCHES)
+    want, ref = plain(), flash()
+    torch.cuda.synchronize()
+    ok = (bool(torch.isfinite(got.float()).all())
+          and within(got, want, ATTN_TOL, ATTN_TOL)
+          and within(got, ref, XCHECK_TOL, XCHECK_TOL)
+          and ring_launches["flash_chunk"] == SP * SP
+          and ring_launches["flash_attention"] == 0)
+    emit("stream256", part="ring", shape=[heads, seq, hd], causal=True,
+         dtype="bfloat16", sp=SP, launches=ring_launches,
+         max_abs_err_vs_plain_ring=max_err(got, want), atol=ATTN_TOL,
+         rtol=ATTN_TOL, max_abs_err_vs_flash=max_err(got, ref),
+         xcheck_tol=XCHECK_TOL, ok=ok, ring_ms=cuda_ms(ring, reps=10),
+         plain_ring_ms=cuda_ms(plain, reps=1, warmup=1),
+         flash_ms=cuda_ms(flash, reps=10), sdpa_ms=cuda_ms(library, reps=10),
+         kernel=flash_kernel_attributes(hd, carry=True, dtype=bf16),
+         card=results["card"])
+    if not ok:
+        raise AssertionError(f"stream256 ring: {ring_launches}")
+    results["stream256_launches"] = {
+        name: launches[name] + ring_launches[name] for name in launches}
+
+
 # -- phase: examples/long_context.py on the card ----------------------------
 
 #: the example's sequence-parallel steps: sp=8 on one card, float32
@@ -1774,7 +1915,8 @@ def check_longctx(torch, results):
     the reference's float32 ring and Ulysses test shapes the same way, and
     ring and Ulysses at every head dim of WIDE_DIMS in both dtypes: float32
     against plain_attention, bf16 against the plain ring and the plain
-    flash forward at BLOCK_K (p rounded at the same blocks) at ATTN_TOL."""
+    flash forward at the instance's key block (p rounded at the same
+    blocks) at ATTN_TOL."""
     import numpy as np
 
     from nnstreamer_tpu_torch.examples import long_context
@@ -1782,7 +1924,6 @@ def check_longctx(torch, results):
     from nnstreamer_tpu_torch.models.vit import StreamTransformer
     from nnstreamer_tpu_torch.ops import _cuda
     from nnstreamer_tpu_torch.ops.attention import (
-        BLOCK_K,
         flash_attention_plain,
         flash_kernel_attributes,
         plain_attention,
@@ -1832,7 +1973,7 @@ def check_longctx(torch, results):
         return ring_attention_plain(a, b, c, mesh, "sp", causal=causal)
 
     def plain_flash(a, b, c, causal):
-        return flash_attention_plain(a, b, c, causal=causal, block_k=BLOCK_K)
+        return flash_attention_plain(a, b, c, causal=causal)
 
     # the runner's two sequence-parallel steps: its outputs and launches
     for step, fn, x, kernel in (
@@ -4800,10 +4941,11 @@ EDGE_RUNS = 3
 SERVE_TOPIC = "nns/edge/serve"
 CAM_TOPIC = "nns/edge/cam"
 PUB_TOPIC = "nns/edge/pub"
-#: head dims above the simple body's widest D (kernels 4 and 5 split the
-#: output's columns over the grid there): a ragged last slice and two
-#: multiples of 128, where the JAX package runs its Pallas kernel
-SPLIT_DIMS = (320, 384, 512)
+#: head dims from 256 up: the tensor-core body's widest D (bf16), then,
+#: where kernels 4 and 5 split the output's columns over the grid, a
+#: ragged last slice and two multiples of 128, where the JAX package runs
+#: its Pallas kernel
+SPLIT_DIMS = (256, 320, 384, 512)
 #: their shapes: 8 heads x 1024 rows (16 q tiles, 128 CTAs per slice, so
 #: the slices of a tile run side by side on the card)
 SPLIT_BH, SPLIT_SEQ = 8, 1024
@@ -5172,24 +5314,26 @@ def check_edge_pubsub(torch, results, frames, want, launches_all):
          card=results["card"])
 
 
-def check_edge_attention(torch, results):
-    """(d) Kernels 4 and 5 above head_dim 256 (the split body), bf16 and
-    float32, causal and not, against their plain versions at the
-    ``attention`` and ``chunk`` phases' tolerances; the chunk kernel on
-    carries from an earlier hop at the diagonal, a non-causal hop, a hop
-    whose first q tiles see none of the chunk (their CTAs pass m and l
-    through) and one wholly in the future (carries bit-identical). Every
-    flash case and every causal diagonal hop is timed."""
+def check_wide_attention(torch, results):
+    """Phase ``wide``: kernels 4 and 5 from head_dim 256 up (the
+    tensor-core body at 256 and the split bodies above), bf16 and float32,
+    causal and not, against their plain versions at the instance's key
+    block and the ``attention`` and ``chunk`` phases' tolerances; the
+    chunk kernel on carries from an earlier hop at the diagonal, a
+    non-causal hop, a hop whose first q tiles see none of the chunk (their
+    CTAs pass m and l through) and one wholly in the future (carries
+    bit-identical; every bf16 head dim and float32 at 384). Every flash
+    case and every causal diagonal hop is timed."""
     import torch.nn.functional as F
 
     from nnstreamer_tpu_torch.ops.attention import (
-        BLOCK_K,
         flash_attention_cuda,
         flash_attention_plain,
         flash_chunk_cuda,
         flash_chunk_plain,
         flash_kernel_attributes,
         head_dim_slices,
+        key_block,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5208,8 +5352,7 @@ def check_edge_attention(torch, results):
                     return flash_attention_cuda(q, k, v, causal=causal)
 
                 def plain():
-                    return flash_attention_plain(q, k, v, causal=causal,
-                                                 block_k=BLOCK_K)
+                    return flash_attention_plain(q, k, v, causal=causal)
 
                 def library():
                     return F.scaled_dot_product_attention(
@@ -5225,6 +5368,7 @@ def check_edge_attention(torch, results):
                 row = {"kernel": "flash_attention", "d": d, "dtype": dt,
                        "causal": causal, "shape": [bh, n, d],
                        "slices": head_dim_slices(d),
+                       "block_k": key_block(d, dtype),
                        "max_abs_err": max_err(got, want), "atol": atol,
                        "rtol": rtol, "ok": ok,
                        "ms": cuda_ms(kern, reps=10),
@@ -5234,15 +5378,14 @@ def check_edge_attention(torch, results):
                        **flash_kernel_attributes(d, dtype=dtype)}
                 row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, dt)
                 row["bytes"], row["ops"] = nbytes, ops
-                emit("edge", part="attention_split", **row,
-                     card=results["card"])
+                emit("wide", part="attention", **row, card=results["card"])
                 if not ok:
                     raise AssertionError(f"flash_attention d {d}: {row}")
                 rows["flash_attention"].append(row)
             scale = 1.0 / d ** 0.5
             hops = [("diagonal", n, n, True), ("noncausal", n, 0, False),
                     ("masked", 0, n // 2, True)]
-            if d == 384:
+            if d == 384 or dtype == torch.bfloat16:
                 hops.append(("future", 0, n, True))
             for case, q_off, k_off, causal in hops:
                 kw = dict(q_offset=q_off, k_offset=k_off, causal=causal,
@@ -5253,8 +5396,7 @@ def check_edge_attention(torch, results):
                 before = [c.clone() for c in carries]
                 got = flash_chunk_cuda(q, k, v, *[c.clone() for c in carries],
                                        **kw)
-                want = flash_chunk_plain(q, k, v, *carries, block_k=BLOCK_K,
-                                         **kw)
+                want = flash_chunk_plain(q, k, v, *carries, **kw)
                 torch.cuda.synchronize()
                 out_got, out_want = (c[2] / c[1].clamp(min=1e-37)[..., None]
                                      for c in (got, want))
@@ -5276,6 +5418,7 @@ def check_edge_attention(torch, results):
                        "case": case, "q_offset": q_off, "k_offset": k_off,
                        "causal": causal, "shape": [bh, n, n, d],
                        "slices": head_dim_slices(d),
+                       "block_k": key_block(d, dtype),
                        "max_abs_err": max_err(out_got, out_want),
                        "atol": atol, "rtol": rtol, "m_max_abs_err": m_err,
                        "m_atol": m_atol, "l_max_rel_err": l_rel,
@@ -5294,23 +5437,22 @@ def check_edge_attention(torch, results):
                                device_ms=device_ms(torch, kern,
                                                    "flash_chunk", 5),
                                plain_ms=cuda_ms(lambda: flash_chunk_plain(
-                                   q, k, v, *carries, block_k=BLOCK_K, **kw),
+                                   q, k, v, *carries, **kw),
                                    reps=3, warmup=1),
                                library_ms=None, bytes=nbytes, ops=ops)
                     row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops,
                                                                 dt)
-                emit("edge", part="chunk_split", **row,
-                     card=results["card"])
+                emit("wide", part="chunk", **row, card=results["card"])
                 if not ok:
                     raise AssertionError(f"flash_chunk d {d}: {row}")
                 rows["flash_chunk"].append(row)
-    results["split_attention"] = rows
+    results["wide_attention"] = rows
 
 
 def check_edge(torch, results, workdir):
     """Phase ``edge``: the among-device transports serving and feeding
     MobileNet-v2 (a HYBRID serving, b MQTT camera, c edgesink/edgesrc
-    HYBRID), then kernels 4 and 5 above head_dim 256 (d)."""
+    HYBRID)."""
     labels = os.path.join(workdir, "edge_labels.txt")
     with open(labels, "w") as f:
         f.write("\n".join(f"class{i}" for i in range(1001)) + "\n")
@@ -5325,7 +5467,6 @@ def check_edge(torch, results, workdir):
     check_edge_mqtt(torch, results, frames, want, launches)
     check_edge_pubsub(torch, results, frames, want, launches)
     results["edge_launches"] = launches
-    check_edge_attention(torch, results)
 
 
 # -- phase: whole-chain fusion (the cascade, line K) --------------------------
@@ -8810,7 +8951,9 @@ def main() -> int:
         "stream": lambda: check_stream(torch, results),
         "chunk": lambda: check_chunk(torch, results),
         "ring": lambda: check_ring(torch, results),
+        "stream256": lambda: check_stream256(torch, results),
         "longctx": lambda: check_longctx(torch, results),
+        "wide": lambda: check_wide_attention(torch, results),
         "vit": lambda: check_vit(torch, results, workdir),
         "detect": lambda: check_detect(torch, results, workdir),
         "segment": lambda: check_segment(torch, results),
@@ -8890,7 +9033,8 @@ def main() -> int:
            "flash_chunk": "nnstreamer_tpu/ops/attention.py:347"}
     # launches summed over the main-path runs of every line
     launches = {name: sum(results[run].get(name, 0) for run in (
-        "launches", "stream_launches", "vit_launches", "ring_launches",
+        "launches", "stream_launches", "stream256_launches",
+        "vit_launches", "ring_launches",
         "longctx_launches", "upload_launches", "batch_launches",
         "hostspans_launches", "detect_launches", "detect_pp_launches",
         "segment_launches", "vision_launches", "serve_launches",
@@ -8919,14 +9063,22 @@ def main() -> int:
         if row["name"] in results.get("native_op_launches", {}):
             row["torchscript_op_launches"] = \
                 results["native_op_launches"][row["name"]]
-    # kernels 4 and 5 above head_dim 256 (the split body): every timed row
+    # kernels 4 and 5 from head_dim 256 up: the head_dim 256 stream line's
+    # shapes (the flash call, one ring call's 16 hops), then every timed
+    # row of the wide phase
+    kernels[3]["stream_hd256"] = results["flash_attention_hd256"]
+    kernels[4]["stream_hd256"] = {
+        key: results["flash_chunk_hd256"][key] for key in (
+            "shape", "block_k", "max_abs_err", "ms", "device_ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by", "hops")}
     for row in kernels:
-        split = results.get("split_attention", {}).get(row["name"], [])
-        row["split_head_dims"] = [
+        wide = results.get("wide_attention", {}).get(row["name"], [])
+        row["wide_head_dims"] = [
             {key: r[key] for key in (
-                "d", "dtype", "causal", "shape", "slices", "max_abs_err",
-                "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by")} for r in split if "ms" in r]
+                "d", "dtype", "causal", "shape", "slices", "block_k",
+                "body", "max_abs_err", "ms", "device_ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by")}
+            for r in wide if "ms" in r]
     # the fused block's rows at the SSD and DeepLab lines' shapes
     # arith_chain at the cascade's gap (128 x 1001 float32)
     kernels[2]["chain_gap"] = {key: results["arith_chain_gap"][key] for key in (

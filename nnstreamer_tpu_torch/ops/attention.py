@@ -19,10 +19,10 @@ Single device:
     wrappers, counterparts of ``flash_attention_pallas`` and
     ``flash_chunk_pallas``. A CUDA tensor launches the hand-written kernel
     in ``csrc/attention.cu`` or raises; a CPU tensor runs the plain version
-    at the kernel's own block size. The kernels take bfloat16 and float32
-    at every head_dim from 1 up (:func:`kernel_instance` names the body and
-    instantiation each one runs; above :data:`SLICE_COLS` the output's
-    columns are split over the grid);
+    at the kernel's own key block (:func:`key_block`). The kernels take
+    bfloat16 and float32 at every head_dim from 1 up (:func:`kernel_instance`
+    names the body and instantiation each one runs; above
+    :data:`SLICE_COLS` the output's columns are split over the grid);
   - :func:`flash_attention_auto`: the model's entry point. A CUDA tensor
     always goes to the kernel, which takes ragged sequences: the JAX
     package's tiling gate (head_dim % 128, block divisibility, the VMEM
@@ -64,17 +64,25 @@ from nnstreamer_tpu_torch.ops import _cuda
 _NEG_INF = -1e30
 
 #: the kernel's tile (``kBlockQ``/``kBlockK`` in csrc/attention.cu): query
-#: rows per CTA, 64 per consumer warpgroup, and keys per K/V tile; the plain
-#: versions run at BLOCK_K, since p's bf16 rounding depends on the block
+#: rows per CTA of the tensor-core bodies, 64 per consumer warpgroup, and
+#: keys per K/V tile of the simple body and of the tensor-core body up to
+#: head_dim 128; p's bf16 rounding depends on the key block, so the plain
+#: versions run at each instance's own (:func:`key_block`)
 BLOCK_Q = 128
 BLOCK_K = 128
-#: the kernels' instantiations (kTcDims, kSimpleDims, kSliceCols in
-#: csrc/attention.cu): the tensor-core body's D, the simple body's D, and
-#: the output columns one CTA of the split body writes, which takes every
-#: head_dim above the simple body's widest
-TC_HEAD_DIMS = (16, 32, 64, 128)
+#: the kernels' instantiations (kTcDims, kTcKeyBlocks, kSimpleDims,
+#: kSliceCols, kPanelCols, kSplitKeyBlock in csrc/attention.cu): the
+#: tensor-core body's D and the keys of its K/V tiles at each; the simple
+#: body's D; the output columns one CTA of either split body writes (the
+#: splits take every head_dim above the simple body's widest); the
+#: head-dim panel of the tensor-core split, which takes bf16 at multiples
+#: of it, and its key block
+TC_HEAD_DIMS = (16, 32, 64, 128, 256)
+TC_KEY_BLOCKS = (128, 128, 128, 128, 64)
 SIMPLE_HEAD_DIMS = (32, 64, 128, 256)
 SLICE_COLS = 256
+PANEL_COLS = 64
+SPLIT_KEY_BLOCK = 64
 #: the dtypes the kernels read and write
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -111,9 +119,11 @@ def _block_attn(q, k, v, m, l, acc, scale, causal_mask=None):
 
 
 def flash_chunk_plain(q, k, v, m, l, acc, *, q_offset: int, k_offset: int,
-                      causal: bool, scale: float, block_k: int = BLOCK_K):
+                      causal: bool, scale: float,
+                      block_k: Optional[int] = None):
     """Fold the attention of ``q`` against one K/V chunk into the carries,
-    over key blocks of ``block_k``; returns new (m, l, acc).
+    over key blocks of ``block_k`` (default: the chunk kernel's own,
+    :func:`key_block`); returns new (m, l, acc).
 
     q: (bh, sq, d); k, v: (bh, sk, d); m, l: (bh, sq) float32; acc:
     (bh, sq, d) float32. Query row ``i`` sits at global position
@@ -124,6 +134,8 @@ def flash_chunk_plain(q, k, v, m, l, acc, *, q_offset: int, k_offset: int,
     ``block_k``; ``block_k = sk`` is the JAX package's XLA hop (one block
     over the whole chunk)."""
     sq, sk = q.shape[-2], k.shape[-2]
+    if block_k is None:
+        block_k = key_block(q.shape[-1], q.dtype)
     n_kb = -(-sk // block_k)
     if causal:
         # floor division: the difference is negative for a future chunk
@@ -152,11 +164,12 @@ def _normalize(l, acc, dtype):
 
 def flash_attention_plain(q, k, v, *, causal: bool = False,
                           scale: Optional[float] = None,
-                          block_k: int = BLOCK_K):
+                          block_k: Optional[int] = None):
     """Blockwise attention over key blocks of ``block_k``, the last one
     shorter when ``block_k`` does not divide the key length: one
     :func:`flash_chunk_plain` from fresh carries at offsets 0. The flash
-    kernel's plain version, compared with it at its own ``block_k``."""
+    kernel's plain version, at the kernel's own key block by default
+    (:func:`key_block`)."""
     *lead, sq, d = q.shape
     sk = k.shape[-2]
     q3 = q.reshape(-1, sq, d)
@@ -194,21 +207,44 @@ def plain_attention(q, k, v, *, causal: bool = False,
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
+def _tc_split(d: int, dtype: torch.dtype) -> bool:
+    return (dtype == torch.bfloat16 and d > SLICE_COLS
+            and d % PANEL_COLS == 0)
+
+
 def kernel_instance(d: int, dtype: torch.dtype):
     """``(body, D)``: the CTA body and instantiation the kernels run for
     head_dim ``d`` in ``dtype``, as ``instance_of`` in csrc/attention.cu
     picks them. The tensor-core body (wgmma, TMA) takes bf16 at ``d`` in
-    :data:`TC_HEAD_DIMS`; the simple body (float32 FMAs) takes the rest up
-    to the widest of :data:`SIMPLE_HEAD_DIMS`, at the least D not below
-    ``d``; above it the split body (``simple_split``) runs
-    :func:`head_dim_slices` CTAs per q tile, each writing ``D =``
-    :data:`SLICE_COLS` output columns (the last slice fewer)."""
+    :data:`TC_HEAD_DIMS`, and its split (``tensor_core_split``) bf16 above
+    :data:`SLICE_COLS` at multiples of :data:`PANEL_COLS`; the simple body
+    (float32 FMAs) takes the rest up to the widest of
+    :data:`SIMPLE_HEAD_DIMS`, at the least D not below ``d``, and above it
+    its split (``simple_split``). A split runs :func:`head_dim_slices`
+    CTAs per q tile, each writing ``D =`` :data:`SLICE_COLS` output
+    columns (the last slice fewer)."""
     _check_kernel_dims("flash attention", d, dtype)
     if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
         return "tensor_core", d
+    if _tc_split(d, dtype):
+        return "tensor_core_split", SLICE_COLS
     if d > SIMPLE_HEAD_DIMS[-1]:
         return "simple_split", SLICE_COLS
     return "simple", min(D for D in SIMPLE_HEAD_DIMS if D >= d)
+
+
+def key_block(d: int, dtype: torch.dtype) -> int:
+    """Keys per K/V tile of the instance that head_dim ``d`` in ``dtype``
+    runs: :data:`TC_KEY_BLOCKS` on the tensor-core body,
+    :data:`SPLIT_KEY_BLOCK` on its split, :data:`BLOCK_K` on the simple
+    body (and for any dtype no kernel takes). A bf16 p is rounded at the
+    running max of its key block, so this is the block the kernel's plain
+    version runs at."""
+    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+        return TC_KEY_BLOCKS[TC_HEAD_DIMS.index(d)]
+    if _tc_split(d, dtype):
+        return SPLIT_KEY_BLOCK
+    return BLOCK_K
 
 
 def head_dim_slices(d: int) -> int:
@@ -235,13 +271,12 @@ def flash_attention_cuda(q, k, v, *, causal: bool = False,
 
     q: (..., sq, d); k, v: (..., sk, d) with the same leading dims; bf16 or
     float32, the output in their dtype; any d from 1 up; any sq, sk. A CPU
-    tensor runs :func:`flash_attention_plain` at the kernel's
-    ``BLOCK_K``."""
+    tensor runs :func:`flash_attention_plain` at the kernel's key block
+    (:func:`key_block`)."""
     *lead, sq, d = q.shape
     sk = k.shape[-2]
     if _cuda.on_cpu(q):
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                     block_k=BLOCK_K)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     _check_kernel_inputs("flash_attention", q, k, v)
     scale = _scale(d, scale)
     _cuda.require(k.shape == v.shape and tuple(k.shape[:-2]) == tuple(lead)
@@ -265,7 +300,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = False,
     _cuda.check(err, "flash_attention")
     _cuda.count_launch("flash_attention")
     _cuda.bill_launch("flash_attention", flash_attention_plain, q, k, v,
-                      causal=causal, scale=scale, block_k=BLOCK_K)
+                      causal=causal, scale=scale)
     return out.reshape(q.shape)
 
 
@@ -281,14 +316,14 @@ def flash_chunk_cuda(q, k, v, m, l, acc, *, q_offset: int, k_offset: int,
     q: (bh, sq, d); k, v: (bh, sk, d), bf16 or float32, any d from 1 up,
     any sq and sk; m, l: (bh, sq) and acc: (bh, sq, d), float32,
     contiguous and 16-byte aligned. A CPU tensor runs
-    :func:`flash_chunk_plain` at the kernel's ``BLOCK_K`` and copies its
-    result into the carries."""
+    :func:`flash_chunk_plain` at the kernel's key block (:func:`key_block`)
+    and copies its result into the carries."""
     bh, sq, d = q.shape
     sk = k.shape[-2]
     if _cuda.on_cpu(q):
         new = flash_chunk_plain(q, k, v, m, l, acc, q_offset=q_offset,
                                 k_offset=k_offset, causal=causal,
-                                scale=_scale(d, scale), block_k=BLOCK_K)
+                                scale=_scale(d, scale))
         for carry, value in zip((m, l, acc), new):
             if value is not carry:
                 carry.copy_(value)
@@ -327,7 +362,7 @@ def flash_chunk_cuda(q, k, v, m, l, acc, *, q_offset: int, k_offset: int,
     _cuda.count_launch("flash_chunk")
     _cuda.bill_launch("flash_chunk", flash_chunk_plain, q, k, v, m, l, acc,
                       q_offset=q_offset, k_offset=k_offset, causal=causal,
-                      scale=scale, block_k=BLOCK_K)
+                      scale=scale)
     return m, l, acc
 
 
@@ -335,20 +370,25 @@ def flash_kernel_attributes(d: int, carry: bool = False,
                             dtype: torch.dtype = torch.bfloat16) -> dict:
     """What the instantiation that head_dim ``d`` in ``dtype`` reaches (the
     chunk kernel's with ``carry``) asks of the current CUDA device:
-    registers per thread at launch (the tensor-core body's warpgroups then
-    trade them with ``setmaxnreg``), dynamic shared memory and resident
-    CTAs per SM, with the body and its D (:func:`kernel_instance`)."""
+    registers per thread at launch (the tensor-core bodies' warpgroups
+    then trade them with ``setmaxnreg``), dynamic shared memory and
+    resident CTAs per SM, with the body, its D (:func:`kernel_instance`)
+    and its key block (:func:`key_block`)."""
     body, D = kernel_instance(d, dtype)
-    out = (ctypes.c_int * 5)()
+    block = key_block(d, dtype)
+    out = (ctypes.c_int * 6)()
     _cuda.check(_cuda.lib().nnstpu_flash_attributes(
         d, int(bool(carry)), _cuda.DTYPE_CODES[dtype], out),
         "flash_kernel_attributes")
-    bodies = {0: "simple", 1: "tensor_core", 2: "simple_split"}
-    if bodies.get(out[3]) != body or out[4] != D:
+    bodies = {0: "simple", 1: "tensor_core", 2: "simple_split",
+              3: "tensor_core_split"}
+    if bodies.get(out[3]) != body or out[4] != D or out[5] != block:
         raise RuntimeError(f"the library runs head_dim {d} {dtype} on "
-                           f"body {out[3]} at D {out[4]}, not {body} {D}")
+                           f"body {out[3]} at D {out[4]} with {out[5]}-key "
+                           f"tiles, not {body} {D} with {block}")
     return {"registers": out[0], "dynamic_smem_bytes": out[1],
-            "ctas_per_sm": out[2], "body": body, "instance_d": D}
+            "ctas_per_sm": out[2], "body": body, "instance_d": D,
+            "key_block": block}
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -440,10 +480,10 @@ def ring_attention(q, k, v, mesh, axis_name: str = "sp", *,
 
 def ring_attention_plain(q, k, v, mesh, axis_name: str = "sp", *,
                          causal: bool = False, scale: Optional[float] = None,
-                         block_k: int = BLOCK_K):
+                         block_k: Optional[int] = None):
     """:func:`ring_attention` with every hop through
-    :func:`flash_chunk_plain` at ``block_k``: the plain version of the
-    whole ring."""
+    :func:`flash_chunk_plain` at ``block_k`` (default: the chunk kernel's
+    own): the plain version of the whole ring."""
     def update(*args, **kw):
         return flash_chunk_plain(*args, block_k=block_k, **kw)
 

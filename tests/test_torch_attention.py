@@ -1,8 +1,10 @@
 """The port's single-device attention against the JAX package's.
 
 On the CPU the kernel wrapper runs its plain version (the blockwise
-recurrence at the kernel's 128-key blocks); chip_smoke.py holds the CUDA
-kernel against that plain version on the card. The same numpy inputs go
+recurrence at the key block of the kernel instance the same shape would
+run: 128 keys, 64 for bf16 from head_dim 256 up on the tensor cores);
+chip_smoke.py holds the CUDA kernel against that plain version on the
+card. The same numpy inputs go
 through the JAX functions — ``flash_attention_pallas`` in interpret mode,
 as the JAX package's own tests run it (tests/test_ops.py) — and through
 the port. float32 cases are held at the JAX tests' atol 2e-5; bfloat16 cases
@@ -263,11 +265,12 @@ WIDE_DIMS = (1, 8, 16, 20, 24, 33, 48, 96, 100, 200, 256)
 @pytest.mark.parametrize("causal", [False, True])
 def test_every_head_dim_matches_jax_blockwise(dtype, d, causal):
     """The wrapper on a CPU tensor against the JAX package's XLA route
-    (its blockwise recurrence) at the kernels' 128-key blocks, so that a
-    bf16 p is rounded at the same running max."""
+    (its blockwise recurrence) at the key block of the instance that runs
+    the shape, so that a bf16 p is rounded at the same running max."""
     q, k, v = _qkv((2, 256, d), 20 + d)
     want = _jax(jax_attn.flash_attention, q, k, v, getattr(jnp, dtype),
-                causal=causal, block_size=port_attn.BLOCK_K)
+                causal=causal,
+                block_size=port_attn.key_block(d, getattr(torch, dtype)))
     got = _port(port_attn.flash_attention_cuda, q, k, v,
                 getattr(torch, dtype), causal=causal)
     if dtype == "float32":
@@ -285,6 +288,46 @@ def test_every_head_dim_ragged_matches_jax(d, sq, sk):
     want = _jax(jax_attn.plain_attention, q, k, v, causal=True)
     got = _port(port_attn.flash_attention_cuda, q, k, v, causal=True)
     np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+#: the stream transformer at head_dim 256 (dim 512 over 2 heads, the
+#: stream line's leg at dim 1024 over 4 heads cut to a small size): float32
+#: at the example-width test's 1e-4, bf16 at the JAX package's bf16 logit
+#: tolerance (tests/test_fused_block.py), as tests/test_torch_vit.py holds
+#: the bf16 zoo builders
+HD256_TOLS = {"float32": (1e-4, 1e-4), "bfloat16": (0.15, 0.05)}
+
+
+@pytest.mark.parametrize("dtype", sorted(HD256_TOLS))
+def test_stream_transformer_at_head_dim_256_matches_flax(dtype):
+    """The StreamTransformer at head_dim 256 (dim 512, 2 heads, seq 128,
+    depth 1), causal, through the kernel wrapper (on the CPU its plain
+    version at the instance's key block: 64 keys in bf16, 128 in float32)
+    against flax on the same weights, carried by convert.py."""
+    from nnstreamer_tpu.models import vit as jax_vit
+    from nnstreamer_tpu_torch.models.convert import from_jax_variables
+    from nnstreamer_tpu_torch.models.vit import StreamTransformer
+
+    cfg = dict(seq=128, feat=16, dim=512, depth=1, heads=2)
+    assert cfg["dim"] // cfg["heads"] == 256
+    rng = np.random.default_rng(41)
+    model = jax_vit.StreamTransformer(dtype=getattr(jnp, dtype), causal=True,
+                                      **cfg)
+    x = rng.normal(size=(2, 128, 16)).astype(np.float32)
+    variables = jax.jit(model.init)(jax.random.PRNGKey(5), jnp.asarray(x))
+    variables = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + rng.normal(0, 0.02, a.shape).astype(
+            np.float32), jax.device_get(variables))
+    want = np.asarray(model.apply(variables, jnp.asarray(x)).astype(
+        jnp.float32))
+    port = StreamTransformer(dtype=getattr(torch, dtype), causal=True, **cfg,
+                             attention=port_attn.flash_attention_cuda)
+    port.load_state_dict(from_jax_variables(variables))
+    with torch.no_grad():
+        got = port.eval()(torch.from_numpy(x)).float().numpy()
+    assert got.shape == want.shape == (2, 128, 16)
+    atol, rtol = HD256_TOLS[dtype]
+    np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
 
 
 def test_stream_transformer_at_the_example_width_matches_flax():
@@ -442,37 +485,56 @@ def _cu_table(name: str):
 
 
 def test_instantiation_table_matches_the_wrapper_limits():
-    """The kernel source's instantiation tables are the wrapper's, every
+    """The kernel source's instantiation tables are the wrapper's (the
+    tensor-core body's D and key block at each, the simple body's D, the
+    splits' columns, the tensor-core split's panel and key block), every
     entry has a launch case, every head dim up to the widest simple D in
     either dtype reaches one of them at a D not below it, and every wider
-    one the split body in ceil(d / 256) slices of 256 columns."""
+    one a split body in ceil(d / 256) slices of 256 columns: the
+    tensor-core split for bf16 at multiples of 64, the simple split
+    otherwise. Each instance's key block is the one key_block names."""
     tc, src = _cu_table("kTcDims")
+    tc_blocks, _ = _cu_table("kTcKeyBlocks")
     simple, _ = _cu_table("kSimpleDims")
     assert tc == port_attn.TC_HEAD_DIMS
+    assert tc_blocks == port_attn.TC_KEY_BLOCKS
     assert simple == port_attn.SIMPLE_HEAD_DIMS
-    cols = int(re.search(r"constexpr int kSliceCols = (\d+);",
-                         src).group(1))
+    consts = {name: int(v) for name, v in
+              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    cols = consts["kSliceCols"]
     assert cols == port_attn.SLICE_COLS == simple[-1]
+    assert consts["kPanelCols"] == port_attn.PANEL_COLS
+    assert consts["kSplitKeyBlock"] == port_attn.SPLIT_KEY_BLOCK
+    assert consts["kBlockK"] == port_attn.BLOCK_K
     assert "kMaxHeadDim" not in src
     for D in tc:
         assert f"case {D}: return launch_tc<{D}, kCarry>" in src
     for D in simple:
         assert f"case {D}: return launch_simple<{D // 16}, kCarry>" in src
-    assert "return launch_split<kCarry>(in, grid, inst.slices, bh, s);" in src
+    assert ("return launch_split<kCarry>(in, inst.body, grid, inst.slices, "
+            "bh, s);") in src
+    bf16 = torch.bfloat16
     for dtype in port_attn.KERNEL_DTYPES:
         for d in range(1, 3 * cols + 2):
             body, D = port_attn.kernel_instance(d, dtype)
             slices = port_attn.head_dim_slices(d)
+            block = port_attn.key_block(d, dtype)
             if d > cols:
-                assert (body, D) == ("simple_split", cols)
+                tc_split = dtype == bf16 and d % port_attn.PANEL_COLS == 0
+                assert (body, D) == ("tensor_core_split" if tc_split
+                                     else "simple_split", cols)
+                assert block == (port_attn.SPLIT_KEY_BLOCK if tc_split
+                                 else port_attn.BLOCK_K)
                 assert (slices - 1) * cols < d <= slices * cols
                 continue
             assert slices == 1
             assert D >= d and D in (tc if body == "tensor_core" else simple)
-            assert (body == "tensor_core") == (dtype == torch.bfloat16
-                                               and d in tc)
+            assert (body == "tensor_core") == (dtype == bf16 and d in tc)
             if body == "tensor_core":
                 assert D == d
+                assert block == tc_blocks[tc.index(d)]
+            else:
+                assert block == port_attn.BLOCK_K
     assert port_attn.kernel_instance(64, torch.bfloat16) == ("tensor_core",
                                                              64)
     assert port_attn.kernel_instance(16, torch.bfloat16) == ("tensor_core", 16)
@@ -482,6 +544,18 @@ def test_instantiation_table_matches_the_wrapper_limits():
     assert port_attn.kernel_instance(20, torch.bfloat16) == ("simple", 32)
     assert port_attn.kernel_instance(257, torch.bfloat16) == ("simple_split",
                                                               256)
+    assert port_attn.kernel_instance(256, bf16) == ("tensor_core", 256)
+    assert port_attn.kernel_instance(256, torch.float32) == ("simple", 256)
+    assert port_attn.kernel_instance(192, bf16) == ("simple", 256)
+    for d in (320, 384, 512):
+        assert port_attn.kernel_instance(d, bf16) == ("tensor_core_split", 256)
+        assert port_attn.kernel_instance(d, torch.float32) == ("simple_split",
+                                                               256)
+        assert port_attn.key_block(d, bf16) == 64
+    assert port_attn.key_block(256, bf16) == 64
+    assert port_attn.key_block(128, bf16) == 128
+    assert port_attn.key_block(256, torch.float32) == 128
+    assert port_attn.key_block(256, torch.float64) == 128
     assert port_attn.head_dim_slices(512) == 2
     assert port_attn.head_dim_slices(513) == 3
 
@@ -498,11 +572,12 @@ SPLIT_DIMS = (257, 320, 384, 512)
 @pytest.mark.parametrize("causal", [False, True])
 def test_wide_head_dims_match_jax_blockwise(dtype, d, causal):
     """Above 256 the wrapper on a CPU tensor runs: its plain version
-    against the JAX package's blockwise recurrence at the kernels' 128-key
-    blocks, at a ragged query length."""
+    against the JAX package's blockwise recurrence at the instance's key
+    block, at a ragged query length."""
     q, k, v = _qkv((2, 200, d), 50 + d, sk=256)
     want = _jax(jax_attn.flash_attention, q, k, v, getattr(jnp, dtype),
-                causal=causal, block_size=port_attn.BLOCK_K)
+                causal=causal,
+                block_size=port_attn.key_block(d, getattr(torch, dtype)))
     got = _port(port_attn.flash_attention_cuda, q, k, v,
                 getattr(torch, dtype), causal=causal)
     if dtype == "float32":
@@ -511,7 +586,12 @@ def test_wide_head_dims_match_jax_blockwise(dtype, d, causal):
         _assert_bf16_close(got, want)
 
 
-@pytest.mark.parametrize("d", [d for d in SPLIT_DIMS if d % 128 == 0])
+#: head dims from 256 up where the JAX package runs its Pallas kernel
+#: (d % 128 == 0): the tensor-core body at 256 and its split above in bf16
+PALLAS_WIDE_DIMS = (256,) + tuple(d for d in SPLIT_DIMS if d % 128 == 0)
+
+
+@pytest.mark.parametrize("d", PALLAS_WIDE_DIMS)
 @pytest.mark.parametrize("causal", [False, True])
 def test_wide_head_dims_match_pallas_kernel_interpret(d, causal):
     """Where the JAX package runs its Pallas kernel (d % 128 == 0), the
@@ -534,7 +614,25 @@ def _pallas_chunk(*args, **kw):
             *(jnp.asarray(a) for a in args), **kw)
 
 
-@pytest.mark.parametrize("d", [d for d in SPLIT_DIMS if d % 128 == 0])
+@pytest.mark.parametrize("d", PALLAS_WIDE_DIMS)
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_bf16_head_dims_match_pallas_kernel_interpret(d, causal):
+    """bf16 from head_dim 256 up, where the tensor cores take it: the
+    wrapper's plain version against the Pallas kernel in interpret mode at
+    the instance's blocks (128 q rows, 64 keys), so that p is rounded at
+    the same running max."""
+    block = port_attn.key_block(d, torch.bfloat16)
+    assert block == 64
+    q, k, v = _qkv((2, 256, d), 70 + d)
+    want = _jax(jax_attn.flash_attention_pallas, q, k, v, jnp.bfloat16,
+                causal=causal, block_q=port_attn.BLOCK_Q, block_k=block,
+                interpret=True)
+    got = _port(port_attn.flash_attention_cuda, q, k, v, torch.bfloat16,
+                causal=causal)
+    _assert_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("d", PALLAS_WIDE_DIMS)
 def test_wide_chunk_matches_pallas_kernel_interpret(d):
     """The chunk wrapper on a CPU tensor at d above 256 against the
     Pallas chunk kernel in interpret mode at 128-row, 128-key blocks:
@@ -559,11 +657,12 @@ def test_wide_chunk_matches_pallas_kernel_interpret(d):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", SPLIT_DIMS)
+@pytest.mark.parametrize("d", (256,) + SPLIT_DIMS)
 def test_cuda_branch_passes_wide_head_dims(recording_lib, dtype, d):
-    """Above 256 the CUDA branch launches both kernels at the given head
-    dim, and hands the chunk kernel float32 scratch for the new m and l
-    (2 x bh x sq) apart from the carries it updates."""
+    """From 256 up the CUDA branch launches both kernels at the given head
+    dim; above 256 (a split body) it hands the chunk kernel float32
+    scratch for the new m and l (2 x bh x sq) apart from the carries it
+    updates, and at 256 (one slice) none."""
     tdt = getattr(torch, dtype)
     q, k = (torch.zeros((3, s, d), dtype=tdt) for s in (40, 70))
     out = port_attn.flash_attention_cuda(q, k, k)
@@ -573,7 +672,20 @@ def test_cuda_branch_passes_wide_head_dims(recording_lib, dtype, d):
     flash, chunk = recording_lib.calls
     assert flash["shape"] == chunk["shape"] == (3, 40, 70, d)
     assert chunk["carries"] == tuple(c.data_ptr() for c in carries)
-    assert chunk["ml"] not in (0, None)
-    assert chunk["ml"] not in chunk["carries"]
+    if port_attn.head_dim_slices(d) == 1:
+        assert chunk["ml"] in (0, None)
+    else:
+        assert chunk["ml"] not in (0, None)
+        assert chunk["ml"] not in chunk["carries"]
     assert _cuda.LAUNCHES["flash_attention"] == 1
     assert _cuda.LAUNCHES["flash_chunk"] == 1
+
+
+def test_attention_probe_raises_without_a_card(monkeypatch):
+    """tools/attention_probe.py times the kernels on a card and nowhere
+    else: without one it raises before it builds or times anything."""
+    from nnstreamer_tpu_torch.tools import attention_probe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch sees none"):
+        attention_probe.main(["--dims", "256"])

@@ -75,7 +75,8 @@ def _fresh(bh, sq, d):
 
 
 #: the port's two plain routes to the chunk: the recurrence at the Pallas
-#: test's blocks, and the kernel wrapper on a CPU tensor (BLOCK_K keys)
+#: test's blocks, and the kernel wrapper on a CPU tensor (the instance's
+#: key block: BLOCK_K keys at these head dims)
 def _plain_at(block_k):
     def fn(*args, **kw):
         return port_attn.flash_chunk_plain(*args, block_k=block_k, **kw)
@@ -226,6 +227,34 @@ def test_chunk_plain_at_kernel_block_matches_pallas_kernel(dtype, offsets):
         np.testing.assert_allclose(_out(*got), _out(*want), atol=ATOL)
     else:
         _assert_bf16_close(_out(*got), _out(*want))
+
+
+@pytest.mark.parametrize("d", [256, 384, 512])
+def test_wide_bf16_chunk_wrapper_matches_pallas_kernel(d):
+    """From head_dim 256 up bf16 runs on the tensor cores in 64-key tiles:
+    the chunk wrapper on CPU tensors (its plain version at the instance's
+    key block) against the Pallas chunk kernel in interpret mode at 128-row,
+    64-key blocks, a past hop and then the diagonal hop on its carries."""
+    bh, sq = 2, 256
+    block = port_attn.key_block(d, torch.bfloat16)
+    assert block == 64
+    scale = 1.0 / d ** 0.5
+    q, k, v, k0, v0 = (_np((bh, sq, d), 90 + d + i) for i in range(5))
+    first = dict(q_offset=sq, k_offset=0, causal=True, scale=scale)
+    hop = dict(q_offset=sq, k_offset=sq, causal=True, scale=scale)
+    jq, jk, jv, jk0, jv0 = (jnp.asarray(a, jnp.bfloat16)
+                            for a in (q, k, v, k0, v0))
+    blocks = dict(block_q=port_attn.BLOCK_Q, block_k=block)
+    want = _pallas_chunk(jq, jk0, jv0, *_fresh(bh, sq, d), **first, **blocks)
+    want = _pallas_chunk(jq, jk, jv, *want, **hop, **blocks)
+    tq, tk, tv, tk0, tv0 = (_t(a, torch.bfloat16) for a in (q, k, v, k0, v0))
+    carries = list(map(_t, _fresh(bh, sq, d)))
+    port_attn.flash_chunk_cuda(tq, tk0, tv0, *carries, **first)
+    got = port_attn.flash_chunk_cuda(tq, tk, tv, *carries, **hop)
+    got, want = [_f32(x) for x in got], [_f32(x) for x in want]
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g, w, atol=ATOL, rtol=ATOL)
+    _assert_bf16_close(_out(*got), _out(*want))
 
 
 def test_chunk_wrapper_updates_in_place_and_counts_no_launch_on_cpu():
