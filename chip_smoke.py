@@ -20,29 +20,39 @@ Phases, each printing one JSON line:
              row per stride-1 block of MobileNet-v2 at batch 128, with its
              plan, registers, shared memory and CTAs per SM and the time of
              the same block as three cuDNN convolutions
-             (inverted_residual_conv, timed only: cudnn_chain_ms), then a
-             float32 row, a prime 113x113 row and a row summing the 13
-             blocks (its bound is the sum of the per-block bounds); then
-             the same rows at every stride-1 block shape of SSD-MobileNet
-             -v2 at 300 px (13, batch 32) and DeepLab-v3 at 257 px (10,
-             batch 16) with a sum per model, SSD's 13 again at batch 1
-             (the streams phase's detect-then-crop line), and
-             normalize_u8 at the four vision lines' frames, bit-equal to
-             its plain version;
-  stride2    the 4 stride-2 blocks as the main path runs them
-             (inverted_residual_conv) against the plain version they ran
-             before, both timed;
+             (inverted_residual_conv, timed only: cudnn_chain_ms, the
+             library column), then a float32 row, a prime 113x113 row, a
+             row summing the 13 and, after the stride2 phase, one summing
+             all 17 blocks the forward launches (its bound is the sum of
+             the per-block bounds); then the same rows at every block
+             shape of SSD-MobileNet-v2 at 300 px (17, batch 32) and
+             DeepLab-v3 at 257 px (13, batch 16; its 4 dilated blocks run
+             the convolutions) with a sum per model, SSD's 17 again at
+             batch 1 (the streams phase's detect-then-crop line), their
+             stride-2 rows under stride2, and normalize_u8 at the four
+             vision lines' frames, bit-equal to its plain version;
+  stride2    the kernel's stride-2 body at MobileNet-v2's 4 stride-2
+             blocks (112, 56, 28 and 14 to half) at batch 128 against its
+             plain version at the fused block's tolerance, with the kernel
+             phase's columns, the cuDNN chain held to the plain version at
+             its own looser tolerance, and a sum of 4 against its bound;
+             SSD's (150, 75, 38, 19) and DeepLab's (129, 65, 33) stride-2
+             rows (even and odd maps: TF SAME pads (0, 1) and (1, 1)); the
+             float32 body at all 11 shapes at batch 2 (1e-4, TF32 off);
   slice      the flagship image-labeling line through the port's
              parse_launch at full width (MobileNet-v2 1.0, 224x224 RGB,
              1001 classes, 128 frames per tensor): one label per frame,
-             the fused-block kernel launched 13 times and normalize_u8 once
+             the fused-block kernel launched 17 times and normalize_u8 once
              per forward, the filter's logits against the same forward with
              the kernel's plain version in its place (mode 'plain'), the
              fused:xla forward's distance from it (reported), frames per
              second and p50 batch latency;
   profile    one more run of the line under torch.profiler: device time
              by kernel, the PyTorch elementwise kernels' sum and the
-             device's idle share;
+             device's idle share; then (line=flagship_forward) the
+             filter's forward alone, 4 times on one batch on the card: a
+             forward's device ms and the fused block's by body (stride 1,
+             stride 2);
   transform  tensor_transform acceleration=device bit-equal to numpy;
              (the kernel phase also holds arith_chain bit-equal to its
              plain version for every input and output dtype, on all 256
@@ -120,7 +130,7 @@ Phases, each printing one JSON line:
   detect     the SSD line at full width (300x300 RGB, width 1.0, 91
              classes, 1917 anchors, fused:pallas, 32 frames per tensor)
              into bounding_boxes mobilenet-ssd with split-batch=32: one
-             RGBA overlay per frame, the fused block launched 13 times and
+             RGBA overlay per frame, the fused block launched 17 times and
              normalize_u8 once per forward, boxes and scores against the
              plain forward (the kernel's plain version in its place) held
              to the bf16 noise floor (the fused:xla forward's distance
@@ -133,7 +143,7 @@ Phases, each printing one JSON line:
              outputs, and their near agreement with the plain forward's
              quads no worse than the fused:xla forward's;
   segment    the DeepLab line (257x257, width 1.0, 21 classes, 16 frames
-             per tensor) into image_segment tflite-deeplab: 10 fused-block
+             per tensor) into image_segment tflite-deeplab: 13 fused-block
              launches and 1 normalize_u8 per forward, logits and per-pixel
              classes held to the noise floor as in detect, frames/s; the
              SSD and DeepLab lines each get a profile line of 4 more
@@ -184,7 +194,7 @@ Phases, each printing one JSON line:
              logits within 0.15 abs + 0.05 rel of it, while the same
              replies shifted by one row fall outside that band and each
              client's frames carry at least two labels (so a mis-sliced
-             row would show; logits_bit_equal reported); 13 fused-block and
+             row would show; logits_bit_equal reported); 17 fused-block and
              1 normalize_u8 launches per served batch; the serving report
              (rows, sheds, replies, batch fill); requests/s and p50/p99
              request latency from client push to client sink; then a
@@ -202,14 +212,14 @@ Phases, each printing one JSON line:
              tensor_merge option=3 ! the flagship's tensor_filter at batch
              128 ! tensor_split tensorseg=64,64 ! image_labeling per
              camera; 8 batches after 2 warm-up: each camera's labels equal
-             to the direct forward's of the merged frames, 13 fused-block
+             to the direct forward's of the merged frames, 17 fused-block
              and 1 normalize_u8 launches, one h2d and one d2h per batch,
              both at the filter); detect, then crop (300 px frames one
              per buffer ! tee, SSD ! tensor_region ! tensor_converter into
              tensor_crop.info, the frame into tensor_crop.raw; 32 frames:
              every frame's 4 crops byte-equal to the frame sliced at the
              regions tensor_region gives on the direct forward of that
-             frame, 13 + 1 launches per frame; a profile line of 16 more
+             frame, 17 + 1 launches per frame; a profile line of 16 more
              frames); and the gated live camera (tensor_if
              TENSOR_AVERAGE_VALUE gt 16 between the converter and the
              batch-size=32 filter of the batch phase, 256 frames of which
@@ -244,7 +254,7 @@ Phases, each printing one JSON line:
              fused:pallas; 192 train and 64 validation samples an epoch)
              ! tensor_sink: three 1:1:4 float64 reports, the training loss
              falling from epoch 1 to 3, finite validation metrics, one
-             normalize_u8 launch per train and validation batch and 13
+             normalize_u8 launch per train and validation batch and 17
              fused-block launches per validation batch (train); before
              it, the first step on the card against the same step through
              the port on the CPU, each of loss, running statistics and
@@ -259,7 +269,7 @@ Phases, each printing one JSON line:
              custom=params:<save>,fused:pallas on the validation frames,
              labels equal to the trainer's last validation forward's,
              logits within 0.15 + 0.05·|p| of them (their distance
-             reported), 13 + 1 launches per batch (train_serve); then
+             reported), 17 + 1 launches per batch (train_serve); then
              train step ms,
              samples/s, validation frames/s, h2d bytes per batch and the
              peak device memory from a trainer driven directly
@@ -283,7 +293,7 @@ Phases, each printing one JSON line:
              preamble fused, arith_chain inside the graph), each in turns
              with the same line per-buffer on the same frames: labels
              equal on every frame, no refusal, replays = windows, one h2d
-             crossing and one dispatch span a window, 13 fused-block and
+             crossing and one dispatch span a window, 17 fused-block and
              1 normalize_u8 (B's preamble: 1 arith_chain) launches a frame
              through the replays; frames/s per run with median and
              spread, p50 frame latency, host ms per frame by span, capture
@@ -302,7 +312,7 @@ Phases, each printing one JSON line:
              serve line with connect-type=HYBRID (the server announces its
              bound TCP port on the port's MqttBroker and 8 clients
              discover it) and over plain TCP, in turns H T T H H T:
-             labels equal to the direct forward, 13 fused-block and 1
+             labels equal to the direct forward, 17 fused-block and 1
              normalize_u8 launches a served batch, requests/s, p50/p99
              request latency and discovery ms (a HYBRID client's start
              less a TCP client's), median and spread of 3 runs each; (b)
@@ -313,7 +323,7 @@ Phases, each printing one JSON line:
              and in order with the flagship line's labels, frames/s, p50
              frame latency, bytes a message, duplicates received by the
              broker and by the subscriber and dropped, host ms a message
-             (publish, broker fan-out, decode, filter), 13 + 1 launches a
+             (publish, broker fan-out, decode, filter), 17 + 1 launches a
              message, and a profile line; (c) edgesink
              connect-type=HYBRID into edgesrc connect-type=HYBRID ! the
              same filter: labels equal, frames/s;
@@ -333,7 +343,7 @@ Phases, each printing one JSON line:
              with the argmax ! image_labeling: its NNST450 verdict; (a)
              fused and chain-fusion=off in turns (F O O F F O), 8 batches
              a run after 2 warm-up: labels equal to the off run's on
-             every frame, 13 fused-block, 1 normalize_u8 and 1
+             every frame, 17 fused-block, 1 normalize_u8 and 1
              arith_chain launches a batch, one h2d at m and one d2h a
              batch, h never invoked and m built once when fused, the
              logits (no argmax) fused against off, frames/s and p50 batch
@@ -351,7 +361,7 @@ Phases, each printing one JSON line:
              fallback-framework=jax fallback-after=2 on-error=drop): 2
              trips, the first batch dropped, a fresh jax instance with
              the fused preamble serving the rest, logits bit-equal to an
-             unfaulted run, 13 fused-block and 1 arith_chain launches a
+             unfaulted run, 17 fused-block and 1 arith_chain launches a
              batch on the fallback, no NNST601 and no hard violation;
              the watchdog worker on the streaming thread's stream at
              feed-depth 1, 2 and 4; (b) frames/s and p50 batch latency
@@ -378,7 +388,7 @@ Phases, each printing one JSON line:
   aot        the compile cache (see check_aot): the flagship with aot:1
              over a fresh cache, a miss (the worker child builds on the
              card) then a hit, against an aot:0 play — logits bit-equal,
-             13 + 1 launches a batch, the open and first-output ms, the
+             17 + 1 launches a batch, the open and first-output ms, the
              worker's and the load's ms, then the open and first-output
              ms of aot:0 against a hit in turns; the preamble-fused
              flagship and
@@ -443,15 +453,16 @@ Phases, each printing one JSON line:
              device line's native_build_s the wall time of both); while
              the flagship's program builds in the worker child, each
              kernel through its op (a trace of its wrapper)
-             bit-equal to its ctypes route at the flagship's shapes (the 13
-             stride-1 blocks at batch 128, normalize_u8 on 128 frames); the
+             bit-equal to its ctypes route at the flagship's shapes (its 17
+             blocks, 4 of them stride 2, at batch 128, normalize_u8 on 128
+             frames); the
              frozen add program (k:1.5) through tools/pjrt_native.py's
              default mode in a child that imports no torch, exact; the
              flagship with no Python in the frame path (videotestsrc !
              tensor_converter frames-per-tensor=128 ! tensor_filter
              framework=pjrt on native_aot_compile's frozen MobileNet-v2 !
              tensor_decoder image_labeling ! appsink; 8 batches after 1):
-             13 fused-block and 1 normalize_u8 launches a batch counted in
+             17 fused-block and 1 normalize_u8 launches a batch counted in
              C by the op library, labels equal to the port's Python flagship
              line on the same testsrc frames, one batch's logits (a program
              without the argmax) within 0.15 + 0.05·|p| of the plain forward
@@ -510,6 +521,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import wait as futures_wait
+from functools import lru_cache
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -775,18 +787,22 @@ def _block_work(B, H, W, fwc, stride: int = 1):
 #: the order of the float32 sums differs, which flips an occasional bf16
 #: rounding (1 ulp = 2^-8 relative) — allow 4
 FUSED_TOL = 2.0 ** -6
-#: stride-2 blocks, inverted_residual_conv against the plain version: the
-#: convolutions round each conv's output to bf16 before its bias add and
-#: cuDNN sums the depthwise products unrounded, two more roundings per
-#: stage than the plain version's: a few bf16 ulps of values up to 8
+#: stride-2 blocks, inverted_residual_conv (the library column, fused:xla's
+#: route) against the plain version: the convolutions round each conv's
+#: output to bf16 before its bias add and cuDNN sums the depthwise products
+#: unrounded, two more roundings per stage than the plain version's: a few
+#: bf16 ulps of values up to 8
 STRIDE2_TOL = 2.0 ** -4
 
 
-def _fused_row(torch, B, H, W, fw, gen, **label):
+def _fused_row(torch, B, H, W, fw, gen, stride: int = 1, **label):
     """One block shape: the kernel against its plain version at batch B
     on random bf16 input, with its plan, registers, shared memory, CTAs
     per SM, times (kernel, profiler device, plain, the three-cuDNN-call
-    chain) and bound. Emits the row; raises if the kernel disagrees."""
+    chain inverted_residual_conv: the library column) and bound. Emits the
+    row (phase ``kernel``, ``stride2`` for a stride-2 block, which also
+    holds the cuDNN chain against the plain version at STRIDE2_TOL);
+    raises if the kernel disagrees."""
     from nnstreamer_tpu_torch.ops.fused_block import (
         _plan_tiles,
         cast_folded,
@@ -802,30 +818,49 @@ def _fused_row(torch, B, H, W, fw, gen, **label):
     Ch, Cout = fwc["wd"].shape[1], fwc["w2"].shape[1]
     x = torch.randn((B, H, W, Cin), generator=gen, device="cuda")
     x = x.clamp(-3, 3).to(torch.bfloat16)
-    k = fused_inverted_residual(x, fwc)
-    p = inverted_residual_plain(x, fwc)
+    k = fused_inverted_residual(x, fwc, stride=stride)
+    p = inverted_residual_plain(x, fwc, stride=stride)
     err = max_err(k, p)
-    ok = within(k, p, FUSED_TOL, FUSED_TOL)
-    plan = _plan_tiles(H, W, Cin, Ch, Cout, 2, "w1" in fwc)
+    ok = k.shape == p.shape and within(k, p, FUSED_TOL, FUSED_TOL)
+    plan = _plan_tiles(H, W, Cin, Ch, Cout, 2, "w1" in fwc, stride)
     row = {"kernel": "fused_inverted_residual", **label,
-           "shape": [B, H, W, Cin, Ch, Cout], "dtype": "bfloat16",
+           "shape": [B, H, W, Cin, Ch, Cout], "stride": stride,
+           "out_shape": list(k.shape), "dtype": "bfloat16",
            "max_abs_err": err, "atol": FUSED_TOL, "rtol": FUSED_TOL,
            "ok": ok, "plan": plan._asdict(),
            **fused_kernel_attributes(plan)}
-    row["ms"] = cuda_ms(lambda: fused_inverted_residual(x, fwc))
+    if stride == 2:
+        conv = inverted_residual_conv(x, fwx, stride=2)
+        row["conv_max_abs_err"] = max_err(conv, p)
+        row["conv_ok"] = conv.shape == p.shape and within(
+            conv, p, STRIDE2_TOL, STRIDE2_TOL)
+        ok = ok and row["conv_ok"]
+    row["ms"] = cuda_ms(lambda: fused_inverted_residual(x, fwc, stride=stride))
     row["device_ms"] = device_ms(
-        torch, lambda: fused_inverted_residual(x, fwc), "fused_ir_")
-    row["plain_ms"] = cuda_ms(lambda: inverted_residual_plain(x, fwc),
-                              reps=10, warmup=2)
-    row["cudnn_chain_ms"] = cuda_ms(lambda: inverted_residual_conv(x, fwx))
-    nbytes, ops = _block_work(B, H, W, fwc)
+        torch, lambda: fused_inverted_residual(x, fwc, stride=stride),
+        "fused_ir_")
+    row["plain_ms"] = cuda_ms(
+        lambda: inverted_residual_plain(x, fwc, stride=stride), reps=10,
+        warmup=2)
+    row["cudnn_chain_ms"] = cuda_ms(
+        lambda: inverted_residual_conv(x, fwx, stride=stride))
+    nbytes, ops = _block_work(B, H, W, fwc, stride)
     row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, "bfloat16")
     row["tflops"] = ops / row["ms"] / 1e9
-    emit("kernel", **row)
+    emit("stride2" if stride == 2 else "kernel", **row)
     if not ok:
         raise AssertionError(f"fused block {label} at {row['shape']} "
-                             f"disagrees: {err}")
+                             f"stride {stride} disagrees: {row}")
     return row
+
+
+def _add_rows(tot, by, row, keys):
+    """Add one block row's times into ``tot`` (a sum with a missing term
+    is None) and its bound into ``by`` (bound ms by kind)."""
+    for key in keys:
+        tot[key] = None if tot[key] is None or row[key] is None \
+            else tot[key] + row[key]
+    by[row["bound_by"]] += row["bound_ms"]
 
 
 def check_fused_block(torch, results):
@@ -853,10 +888,7 @@ def check_fused_block(torch, results):
     errs = []
     for i, H, W, fw in blocks:
         row = _fused_row(torch, BATCH, H, W, fw, gen, block=i)
-        for key in keys:  # a sum with a missing term is None
-            tot[key] = None if tot[key] is None or row[key] is None \
-                else tot[key] + row[key]
-        by[row["bound_by"]] += row["bound_ms"]
+        _add_rows(tot, by, row, keys)
         errs.append(row["max_abs_err"])
     # one shape in float32 against a float32 plain version (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -901,6 +933,15 @@ def check_fused_block(torch, results):
     if not ok:
         raise AssertionError(f"fused block at 113x113 disagrees: {err}")
     errs.append(err)
+    emit("kernel", kernel="fused_inverted_residual", block="sum of 13",
+         stride=1, **tot, max_abs_err=max(errs[:13]), bound_ms_by_kind=by)
+    # the stride-2 blocks, then the sum of all 17 (the forward's launches)
+    tot2, by2 = check_stride2(torch, model, gen)
+    for key in keys:
+        tot[key] = None if tot[key] is None or tot2[key] is None \
+            else tot[key] + tot2[key]
+    errs.append(tot2["max_abs_err"])
+    by = {k: by[k] + by2[k] for k in by}
     # the bound is the sum of per-block bounds (each block is bound by
     # bytes or by operations on its own); bound_by names the kind that
     # holds the larger part of it
@@ -910,52 +951,80 @@ def check_fused_block(torch, results):
         "max_abs_err": max(errs), "bound_ms": tot["bound_ms"],
         "bound_by": max(by, key=by.get), "bound_ms_by_kind": by,
         "library_ms": None}
-    emit("kernel", kernel="fused_inverted_residual", block="sum of 13",
-         **results["fused_inverted_residual"])
-    check_stride2(torch, model, gen)
+    emit("kernel", kernel="fused_inverted_residual",
+         block=f"sum of {kernel_blocks()}", **results["fused_inverted_residual"])
     check_vision_blocks(torch, results, gen)
 
 
 def check_stride2(torch, model, gen):
-    """The 4 stride-2 blocks: the convolutions the main path runs
-    (inverted_residual_conv) against the plain version they ran before,
-    with both timed."""
+    """The 4 stride-2 blocks of MobileNet-v2 at batch 128 through the
+    kernel's stride-2 body against its plain version (rows as the kernel
+    phase's, the cuDNN chain as the library column and held to the plain
+    version too), their sum against the ~0.036 ms bound; then the float32
+    body at every stride-2 shape of the flagship, SSD (150, 75, 38, 19:
+    even and odd maps) and DeepLab (129, 65, 33: odd) at batch 2, TF32
+    off, at 1e-4. SSD's and DeepLab's bf16 rows come from
+    check_vision_blocks (phase stride2 too). Returns the bf16 sums and
+    bound ms by kind."""
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import kernel_block_shapes
     from nnstreamer_tpu_torch.ops.fused_block import (
+        _plan_tiles,
+        _same_pads,
         cast_folded,
-        inverted_residual_conv,
+        fold_inverted_residual,
+        fused_inverted_residual,
+        fused_kernel_attributes,
         inverted_residual_plain,
     )
 
     blocks = _blocks(model, 2)
     if len(blocks) != 4:
         raise AssertionError(f"expected 4 stride-2 blocks, got {len(blocks)}")
-    tot = {"conv_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    keys = ("ms", "device_ms", "plain_ms", "cudnn_chain_ms", "bound_ms")
+    tot = dict.fromkeys(keys, 0.0)
+    by = {"bytes": 0.0, "operations": 0.0}
+    errs = []
     for i, H, W, fw in blocks:
-        fwc = cast_folded(fw, torch.bfloat16, "cuda")
-        fwx = cast_folded(fw, torch.bfloat16, "cuda", torch.bfloat16)
-        Cin = fwc["w1"].shape[0]
-        x = torch.randn((BATCH, H, W, Cin), generator=gen, device="cuda")
-        x = x.clamp(-3, 3).to(torch.bfloat16)
-        got = inverted_residual_conv(x, fwx, stride=2)
-        want = inverted_residual_plain(x, fwc, stride=2)
-        ok = (tuple(got.shape) == tuple(want.shape)
-              and within(got, want, STRIDE2_TOL, STRIDE2_TOL))
-        nbytes, ops = _block_work(BATCH, H, W, fwc, stride=2)
-        row = {"block": i, "shape": [BATCH, H, W, Cin, fwc["wd"].shape[1],
-                                     fwc["w2"].shape[1]],
-               "max_abs_err": max_err(got, want), "atol": STRIDE2_TOL,
-               "rtol": STRIDE2_TOL, "ok": ok,
-               "conv_ms": cuda_ms(lambda: inverted_residual_conv(
-                   x, fwx, stride=2)),
-               "plain_ms": cuda_ms(lambda: inverted_residual_plain(
-                   x, fwc, stride=2), reps=10, warmup=2),
-               "bound_ms": bound_ms(nbytes, ops, "bfloat16")[0]}
+        row = _fused_row(torch, BATCH, H, W, fw, gen, stride=2, block=i)
+        _add_rows(tot, by, row, keys)
+        errs.append(row["max_abs_err"])
+    tot["max_abs_err"] = max(errs)
+    emit("stride2", kernel="fused_inverted_residual", block="sum of 4",
+         **tot, bound_ms_by_kind=by)
+    # the float32 body, the checks' dtype, at every stride-2 shape
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cases = [("mobilenet_v2", i, H, W, fw) for i, H, W, fw in blocks]
+    for name in ("ssd_mobilenet", "deeplab_v3"):
+        m = _vision_model(name)
+        cases += [(name, i, H, W, fold_inverted_residual(m.blocks[i]))
+                  for i, H, W, *_, stride in kernel_block_shapes(
+                      m, VISION[name]["size"]) if stride == 2]
+    bad = []
+    for name, i, H, W, fw in cases:
+        fwc = cast_folded(fw, torch.float32, "cuda")
+        Cin = fwc["w1"].shape[0] if "w1" in fwc else fwc["wd"].shape[1]
+        x = torch.randn((2, H, W, Cin), generator=gen, device="cuda")
+        k = fused_inverted_residual(x, fwc, stride=2,
+                                    compute_dtype=torch.float32)
+        p = inverted_residual_plain(x, fwc, stride=2,
+                                    compute_dtype=torch.float32)
+        ok = k.shape == p.shape and within(k, p, 1e-4, 1e-4)
+        plan = _plan_tiles(H, W, Cin, fwc["wd"].shape[1], fwc["w2"].shape[1],
+                           4, "w1" in fwc, 2)
+        row = {"kernel": "fused_inverted_residual", "model": name,
+               "block": i, "shape": [2, H, W, Cin, fwc["wd"].shape[1],
+                                     fwc["w2"].shape[1]], "stride": 2,
+               "pads": [_same_pads(H, 2, 3), _same_pads(W, 2, 3)],
+               "dtype": "float32", "max_abs_err": max_err(k, p),
+               "atol": 1e-4, "rtol": 1e-4, "ok": ok, "plan": plan._asdict(),
+               **fused_kernel_attributes(plan)}
         emit("stride2", **row)
         if not ok:
-            raise AssertionError(f"stride-2 block {i} disagrees: {row}")
-        for key in tot:
-            tot[key] += row[key]
-    emit("stride2", block="sum of 4", **tot)
+            bad.append(row)
+    if bad:
+        raise AssertionError(f"fused block float32 stride 2 disagrees: {bad}")
+    return tot, by
 
 
 # -- phase: the flagship slice ---------------------------------------------
@@ -1039,7 +1108,7 @@ def check_slice(torch, results, workdir):
     names = {f"class{i}" for i in range(1001)}
     if not all(lab in names for b in out for lab in b):
         raise AssertionError("a label is not from the labels file")
-    if launches["fused_inverted_residual"] != 13 * N_BATCHES or \
+    if launches["fused_inverted_residual"] != kernel_blocks() * N_BATCHES or \
             launches["normalize_u8"] != N_BATCHES:
         raise AssertionError(f"launch counts per {N_BATCHES} forwards: "
                              f"{launches}")
@@ -1060,6 +1129,7 @@ def check_slice(torch, results, workdir):
     torch.cuda.synchronize()
     finite = bool(torch.isfinite(got).all())
     ok = finite and within(got, plain, 0.15, 0.05)
+    results["flag_classes"] = got.argmax(-1).tolist()
     xla_agree = float((xla.argmax(-1) == plain.argmax(-1)).float().mean())
     agree = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
     emit("slice", frames=n_frames, batches=len(out), seconds=secs,
@@ -1074,6 +1144,7 @@ def check_slice(torch, results, workdir):
     if not ok:
         raise AssertionError("filter logits disagree with the plain forward")
     profile_slice(torch, labels, frames)
+    profile_forward(torch, forward, x)
 
 
 def profile_slice(torch, labels, frames, n_batches: int = 4) -> None:
@@ -1085,6 +1156,45 @@ def profile_slice(torch, labels, frames, n_batches: int = 4) -> None:
 
     emit("profile", line="flagship", batches=n_batches,
          **device_profile(torch, run))
+
+
+def profile_forward(torch, forward, x, n: int = 4) -> None:
+    """The flagship's forward alone (the filter's own apply on one batch of
+    frames already on the card, no pipeline around it) n times under
+    torch.profiler: device time by kind, the fused block's device ms by
+    body (stride 1, stride 2; each forward launches it kernel_blocks()
+    times) and a forward's device ms (busy / n)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        forward(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                forward(x)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    stats = profile_stats(torch, prof, secs)
+    fused, count = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"fused_ir_(?:tc_kernel<\d+, \d+, (\d)>|fma_kernel)",
+                      e.key)
+        if m:
+            body = f"stride{m.group(1)}" if m.group(1) else "float32"
+            us = getattr(e, "self_device_time_total", 0) or 0
+            fused[body] = fused.get(body, 0.0) + us / 1e3
+            count[body] = count.get(body, 0) + e.count
+    busy = stats["device_busy_ms"]
+    emit("profile", line="flagship_forward", forwards=n,
+         batch=int(x.shape[0]), fused_block_ms=fused,
+         fused_block_launches=count, kernel_blocks=kernel_blocks(),
+         forward_device_ms=busy / n if busy else None, **stats)
 
 
 def device_profile(torch, run) -> dict:
@@ -2138,12 +2248,31 @@ def _vision_model(name):
     return model
 
 
+@lru_cache(maxsize=None)
+def kernel_blocks(name: str = "mobilenet_v2") -> int:
+    """The fused-block launches of one forward of a line's model at its
+    line's size: the blocks kernel_block_shapes sends to the kernel (17
+    for MobileNet-v2 and SSD, stride-2 blocks included; 13 for DeepLab,
+    whose 4 dilated blocks run the convolutions)."""
+    import importlib
+
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import kernel_block_shapes
+
+    mod = importlib.import_module(f"nnstreamer_tpu_torch.models.{name}")
+    model = getattr(mod, {"mobilenet_v2": "MobileNetV2",
+                          "ssd_mobilenet": "SSDMobileNetV2",
+                          "deeplab_v3": "DeepLabV3"}[name])()
+    size = SIZE if name == "mobilenet_v2" else VISION[name]["size"]
+    return len(kernel_block_shapes(model, size))
+
+
 def check_vision_blocks(torch, results, gen):
-    """The fused block at every stride-1 block shape of SSD (300 px,
-    batch 32) and DeepLab (257 px, batch 16), against its plain version,
-    each row with its plan, registers, shared memory, CTAs per SM, times,
-    bound and cuDNN chain; then normalize_u8 at the four lines' frames,
-    bit-equal to its plain version."""
+    """The fused block at every block shape SSD (300 px, batch 32; 17) and
+    DeepLab (257 px, batch 16; 13, the dilated 4 are not the kernel's)
+    give it, against its plain version, each row with its plan, registers,
+    shared memory, CTAs per SM, times, bound and cuDNN chain (the
+    stride-2 rows under phase stride2); then normalize_u8 at the four
+    lines' frames, bit-equal to its plain version."""
     from nnstreamer_tpu_torch.models.mobilenet_v2 import kernel_block_shapes
     from nnstreamer_tpu_torch.ops import normalize_u8, normalize_u8_plain
     from nnstreamer_tpu_torch.ops.fused_block import fold_inverted_residual
@@ -2152,24 +2281,26 @@ def check_vision_blocks(torch, results, gen):
     # SSD again at batch 1: the detect-then-crop line of the streams phase
     # runs it one frame per buffer
     for name, want, batch, key in (
-            ("ssd_mobilenet", 13, VISION["ssd_mobilenet"]["fpt"],
+            ("ssd_mobilenet", (13, 4), VISION["ssd_mobilenet"]["fpt"],
              "ssd_mobilenet"),
-            ("deeplab_v3", 10, VISION["deeplab_v3"]["fpt"], "deeplab_v3"),
-            ("ssd_mobilenet", 13, 1, "ssd_mobilenet_batch1")):
+            ("deeplab_v3", (10, 3), VISION["deeplab_v3"]["fpt"],
+             "deeplab_v3"),
+            ("ssd_mobilenet", (13, 4), 1, "ssd_mobilenet_batch1")):
         cfg = VISION[name]
         model = _vision_model(name)
         shapes = kernel_block_shapes(model, cfg["size"])
-        if len(shapes) != want:
-            raise AssertionError(f"{name}: {len(shapes)} kernel blocks, "
+        got = tuple(sum(s[-1] == st for s in shapes) for st in (1, 2))
+        if got != want:
+            raise AssertionError(f"{name}: {got} stride-1/2 kernel blocks, "
                                  f"expected {want}")
+        want = sum(want)
         tot, errs = dict.fromkeys(keys, 0.0), []
-        for i, H, W, *_ in shapes:
+        by = {"bytes": 0.0, "operations": 0.0}
+        for i, H, W, *_, stride in shapes:
             row = _fused_row(torch, batch, H, W,
                              fold_inverted_residual(model.blocks[i]), gen,
-                             model=name, block=i)
-            for k in keys:
-                tot[k] = None if tot[k] is None or row[k] is None \
-                    else tot[k] + row[k]
+                             stride=stride, model=name, block=i)
+            _add_rows(tot, by, row, keys)
             errs.append(row["max_abs_err"])
         results[f"fused_{key}"] = dict(tot, max_abs_err=max(errs))
         emit("kernel", kernel="fused_inverted_residual", model=name,
@@ -2382,7 +2513,7 @@ def check_detect(torch, results, workdir):
         f"mode=bounding_boxes option1=mobilenet-ssd option2={labels} "
         f"option3={priors}:0.5 option4={wh} option5={wh}", frames,
         extra=",fused:pallas")
-    _check_launches(name, launches, 13)
+    _check_launches(name, launches, kernel_blocks("ssd_mobilenet"))
     results["detect_launches"] = launches
     x = torch.from_numpy(np.stack(frames)).cuda()
     fw = _forwards(torch, name, bundle, x)
@@ -2413,7 +2544,7 @@ def check_detect(torch, results, workdir):
         f"mode=bounding_boxes option1=mobilenet-ssd-postprocess "
         f"option2={labels} option3=0:1:2:3,50 option4={wh} option5={wh}",
         frames, extra=",fused:pallas,postproc:pp", n_batches=4)
-    _check_launches(name, launches, 13, n_batches=4)
+    _check_launches(name, launches, kernel_blocks("ssd_mobilenet"), n_batches=4)
     results["detect_pp_launches"] = launches
     pri = torch.from_numpy(generate_anchors(cfg["size"])).cuda()
     with torch.inference_mode():
@@ -2455,7 +2586,7 @@ def check_segment(torch, results):
     secs, p50, launches, bundle, outs, _ = _run_vision(
         torch, name, "mode=image_segment option1=tflite-deeplab", frames,
         extra=",fused:pallas")
-    _check_launches(name, launches, 10)
+    _check_launches(name, launches, kernel_blocks("deeplab_v3"))
     results["segment_launches"] = launches
     fw = _forwards(torch, name, bundle,
                    torch.from_numpy(np.stack(frames)).cuda())
@@ -2653,7 +2784,7 @@ def check_upload(torch, results, workdir):
                  labels=len(got), labels_equal=got == ref_labels)
             raise AssertionError(f"upload: feed-depth={d} run is wrong")
     runs_n = 2 * len(FEED_DEPTHS)
-    if launches.get("fused_inverted_residual") != 13 * N_BATCHES * runs_n \
+    if launches.get("fused_inverted_residual") != kernel_blocks() * N_BATCHES * runs_n \
             or launches.get("normalize_u8") != N_BATCHES * runs_n:
         raise AssertionError(f"upload: launch counts {launches}")
     results["upload_launches"] = launches
@@ -2750,7 +2881,7 @@ def check_batch(torch, results):
     timer_labels = got[(2 + n_units) * LIVE_BATCH:]
     ok = (live_labels == want and len(timer_labels) == 40
           and timer_labels == want[:40]
-          and launches.get("fused_inverted_residual") == 13 * n_units
+          and launches.get("fused_inverted_residual") == kernel_blocks() * n_units
           and launches.get("normalize_u8") == n_units)
     results["batch_launches"] = launches
     emit("batch", frames=n_units * LIVE_BATCH, batch=LIVE_BATCH,
@@ -2848,7 +2979,7 @@ def check_hostspans(torch, results, workdir):
          launches=launches, card=results["card"])
     if problems or not spans_valid or not flag["elements"] \
             or not stream["elements"] \
-            or launches.get("fused_inverted_residual") != 13 * N_BATCHES \
+            or launches.get("fused_inverted_residual") != kernel_blocks() * N_BATCHES \
             or launches.get("flash_attention") != \
             STREAM["depth"] * N_BATCHES:
         raise AssertionError("hostspans: a trace is invalid, an element "
@@ -2887,10 +3018,30 @@ def _element(p, type_name: str):
                 if e.ELEMENT_NAME == type_name)
 
 
-def _serve_frames(frames, client: int, n: int = SERVE_PER_CLIENT):
-    """Client ``client``'s frames: the flagship's seeded frames, from an
-    offset of its own."""
-    return [frames[(client * 17 + k) % len(frames)] for k in range(n)]
+def _serve_frames(frames, client: int, n: int = SERVE_PER_CLIENT,
+                  order=None):
+    """Client ``client``'s frames: the flagship's seeded frames (in
+    ``order``, a list of their indices, if given), from an offset of its
+    own."""
+    order = order or range(len(frames))
+    return [frames[order[(client * 17 + k) % len(order)]] for k in range(n)]
+
+
+def _class_spread(classes) -> list:
+    """Frame indices ordered so that each class recurs at even intervals
+    (the i-th of a class's n frames at key (i + 0.5) / n): any window of
+    the order holds each class in proportion to its share of the frames,
+    so every client's window holds two classes whenever the frames carry
+    a second class of a window's share. With random weights the flagship
+    gives its frames two or three classes, unevenly; a window of the
+    frames in their own order can hold one."""
+    counts, seen, keys = {}, {}, []
+    for c in classes:
+        counts[c] = counts.get(c, 0) + 1
+    for i, c in enumerate(classes):
+        seen[c] = seen.get(c, 0) + 1
+        keys.append(((seen[c] - 0.5) / counts[c], i))
+    return [i for _, i in sorted(keys)]
 
 
 def _run_serving(server_line, clients, client_caps, client_tail="",
@@ -2998,7 +3149,7 @@ def _pct(sorted_vals, q: float):
 
 
 def _serve_launches(name, launches, batches):
-    if launches.get("fused_inverted_residual") != 13 * batches or \
+    if launches.get("fused_inverted_residual") != kernel_blocks() * batches or \
             launches.get("normalize_u8") != batches:
         raise AssertionError(f"serve {name}: launches {launches} over "
                              f"{batches} served batches")
@@ -3031,7 +3182,12 @@ def check_serve(torch, results, workdir):
     labels, frames = results["flag_labels"], results["flag_frames"]
     names = [f"class{i}" for i in range(1001)]
     decoder = f"tensor_decoder mode=image_labeling option1={labels} ! "
-    clients = [(_serve_frames(frames, i), None) for i in range(SERVE_CLIENTS)]
+    # each client's frames from an order that spreads the classes the
+    # filter gave the frames in the slice phase, so that a reply shifted
+    # by one row changes a label in every client (the check below)
+    order = _class_spread(results["flag_classes"])
+    clients = [(_serve_frames(frames, i, order=order), None)
+               for i in range(SERVE_CLIENTS)]
     total = SERVE_CLIENTS * SERVE_PER_CLIENT
     # warm-up: one client (cuDNN plans, the allocator), not measured
     _run_serving(_serve_line(), clients[:1], SERVE_FRAME_CAPS,
@@ -3297,7 +3453,7 @@ def _wait_for(counts, want, p, what):
 def check_two_cameras(torch, labels, results):
     """Line A: two cameras, CAM_FPT frames per tensor each, merged along
     the frames dim into one MobileNet-v2 batch of BATCH and split back per
-    camera. Per merged batch: 13 fused-block and 1 normalize_u8 launches,
+    camera. Per merged batch: 17 fused-block and 1 normalize_u8 launches,
     one h2d and one d2h, both at the filter (the residency boundary before
     the split); each camera's labels
     equal to the direct forward's of the merged frames."""
@@ -3349,7 +3505,7 @@ def check_two_cameras(torch, labels, results):
     lat = [(max(arrived[(0, k)], arrived[(1, k)]) - pushed[k]) * 1e3
            for k in range(N_WARMUP, N_WARMUP + N_BATCHES)]
     per = crossings["per_element"]
-    counts_ok = (launches["fused_inverted_residual"] == 13 * N_BATCHES
+    counts_ok = (launches["fused_inverted_residual"] == kernel_blocks() * N_BATCHES
                  and launches["normalize_u8"] == N_BATCHES
                  and crossings["h2d"] == N_BATCHES
                  and crossings["d2h"] == N_BATCHES
@@ -3414,7 +3570,7 @@ def check_detect_crop(torch, workdir, results):
     tensor_region (the top CROP_TOP boxes), the converter's flexible path
     and tensor_crop.info; the frame itself into tensor_crop.raw. Every
     frame's crops byte-equal the frame sliced at the regions the decoder
-    gives on the direct forward of that frame; 13 fused-block and 1
+    gives on the direct forward of that frame; 17 fused-block and 1
     normalize_u8 launches per frame; then a profile of the line."""
     from nnstreamer_tpu_torch import trace
     from nnstreamer_tpu_torch.models.ssd_mobilenet import write_box_priors
@@ -3466,7 +3622,7 @@ def check_detect_crop(torch, workdir, results):
             g.shape == w.shape and g.tobytes() == w.tobytes()
             for g, w in zip(got, want))
         nonempty += sum(1 for g in got if g.size)
-    counts_ok = (launches["fused_inverted_residual"] == 13 * CROP_FRAMES
+    counts_ok = (launches["fused_inverted_residual"] == kernel_blocks("ssd_mobilenet") * CROP_FRAMES
                  and launches["normalize_u8"] == CROP_FRAMES
                  and crossings["h2d"] == CROP_FRAMES
                  and crossings["d2h"] == CROP_FRAMES)
@@ -3560,7 +3716,7 @@ def check_gated(torch, labels, results):
     n_batches = len(bright) // LIVE_BATCH
     lat = [(arrived[i] - pushed[i]) * 1e3 for i in bright]
     ok = (order == bright and got == want
-          and launches["fused_inverted_residual"] == 13 * n_batches
+          and launches["fused_inverted_residual"] == kernel_blocks() * n_batches
           and launches["normalize_u8"] == n_batches)
     emit("streams", line="gated", frames=GATED_FRAMES, dark=len(dark),
          labelled=len(got), labelled_in_order=order == bright,
@@ -3806,7 +3962,7 @@ def check_residency(torch, results, workdir):
           and fused["launches"]["arith_chain"] == N_BATCHES
           and unfused["launches"]["arith_chain"] == 0
           and fused["launches"]["normalize_u8"] == 0
-          and fused["launches"]["fused_inverted_residual"] == 13 * N_BATCHES
+          and fused["launches"]["fused_inverted_residual"] == kernel_blocks() * N_BATCHES
           and all(r["crossings"]["per_element"].get("f")
                   == {"h2d": N_BATCHES, "d2h": N_BATCHES}
                   and r["crossings"]["h2d"] == r["crossings"]["d2h"]
@@ -4176,7 +4332,7 @@ def check_train(torch, results, workdir):
           and rep[-1][0] < rep[0][0]
           and all(np.isfinite(r[2:]).all() for r in rep)
           and launches["normalize_u8"] == steps + vals
-          and launches["fused_inverted_residual"] == 13 * vals
+          and launches["fused_inverted_residual"] == kernel_blocks() * vals
           and stats["steps"] == steps and os.path.isfile(save))
     emit("train", epochs=TRAIN["epochs"], seconds=secs,
          samples=TRAIN["frames"] * TRAIN["epochs"],
@@ -4213,7 +4369,7 @@ def check_train(torch, results, workdir):
     same_shape = logits.shape == last.shape
     serve_ok = (served == trained and same_shape
                 and within(logits, last.cpu(), 0.15, 0.05)
-                and serve_launches["fused_inverted_residual"] == 13 * n_served
+                and serve_launches["fused_inverted_residual"] == kernel_blocks() * n_served
                 and serve_launches["normalize_u8"] == n_served)
     emit("train_serve", frames=len(served), labels_equal=served == trained,
          distinct_labels=len(set(served)),
@@ -4705,7 +4861,7 @@ def _loop_logits(torch, frames, labels, a_loop, b_loop, add, card):
     from nnstreamer_tpu_torch.ops.steady_loop import CudaGraphWindow
 
     n_a, n_b = 256, 16 * BATCH
-    per_frame = {"fused_inverted_residual": 13, "normalize_u8": 1}
+    per_frame = {"fused_inverted_residual": kernel_blocks(), "normalize_u8": 1}
     ref_a = _loop_drive(torch, _loop_line_a(raw=True), frames, n_a)
     win_a = _loop_drive(torch, _loop_line_a(a_loop, raw=True), frames, n_a)
     _loop_check("A logits", win_a, n_a, LOOP_A["window"], None, per_frame)
@@ -4803,13 +4959,13 @@ def check_loop(torch, results, workdir):
         raise AssertionError("line A: per-buffer labels differ between runs")
     for r in runs["windowed"]:
         windows = _loop_check("A", r, n_a, LOOP_A["window"], want,
-                              {"fused_inverted_residual": 13,
+                              {"fused_inverted_residual": kernel_blocks(),
                                "normalize_u8": 1})
         add(r)
     spans_w = _loop_drive(torch, _loop_line_a(a_loop), frames, n_a,
                           spans=True, plan=True)
     _loop_check("A spans", spans_w, n_a, LOOP_A["window"], want,
-                {"fused_inverted_residual": 13, "normalize_u8": 1})
+                {"fused_inverted_residual": kernel_blocks(), "normalize_u8": 1})
     add(spans_w)
     spans_p = _loop_drive(torch, _loop_line_a(), frames, n_a, spans=True,
                           plan=True)
@@ -4851,14 +5007,14 @@ def check_loop(torch, results, workdir):
     want_b = runs["per_buffer"][0]["labels"]
     for r in runs["windowed"]:
         windows_b = _loop_check("B", r, LOOP_B["batches"], LOOP_B["window"],
-                                want_b, {"fused_inverted_residual": 13,
+                                want_b, {"fused_inverted_residual": kernel_blocks(),
                                          "normalize_u8": 1})
         add(r)
     # B with the reference preamble fused: arith_chain inside the graph
     pre = _loop_drive(torch, _loop_line_b(labels, b_loop, preamble=True),
                       frames, n_b, spans=True, plan=True)
     _loop_check("B preamble", pre, LOOP_B["batches"], LOOP_B["window"],
-                want_b, {"arith_chain": 1, "fused_inverted_residual": 13})
+                want_b, {"arith_chain": 1, "fused_inverted_residual": kernel_blocks()})
     if pre["launches"].get("normalize_u8"):
         raise AssertionError("B preamble: normalize_u8 ran beside the "
                              "fused preamble")
@@ -4911,7 +5067,7 @@ def check_loop(torch, results, workdir):
     c = _loop_drive(torch, _loop_line_a(auto), frames, n_c, plan=True)
     _loop_check("C", c, n_c, v.window,
                 [want[i % len(frames)] for i in range(n_c)],
-                {"fused_inverted_residual": 13, "normalize_u8": 1})
+                {"fused_inverted_residual": kernel_blocks(), "normalize_u8": 1})
     add(c)
     emit("loop", line="C", frames=n_c, verdict=v.code, window=v.window,
          depth=v.depth, budget_source=c["memory"]["budget_source"],
@@ -5079,7 +5235,7 @@ def _check_camera_run(name, frames_n, first_pts, pts, labels, want):
 
 
 def _edge_launches(name, launches, buffers):
-    if launches.get("fused_inverted_residual") != 13 * buffers or \
+    if launches.get("fused_inverted_residual") != kernel_blocks() * buffers or \
             launches.get("normalize_u8") != buffers:
         raise AssertionError(f"edge {name}: launches {launches} over "
                              f"{buffers} forwards")
@@ -5089,7 +5245,7 @@ def check_edge_serving(torch, results, frames, launches_all):
     """(a) The serving line with connect-type=HYBRID (the server announces
     its bound TCP port on the port's MqttBroker, the 8 clients discover
     it) and over plain TCP, in turns (H T T H H T): labels equal to the
-    direct forward on the same frames, 13 + 1 launches a served batch,
+    direct forward on the same frames, 17 + 1 launches a served batch,
     requests/s, p50/p99 request latency and client start ms (which holds
     discovery) per run."""
     import numpy as np
@@ -5580,9 +5736,9 @@ def _chain_run(torch, line, frames, n_batches, chain_fusion="auto",
 
 
 def _chain_launches_ok(launches, rows) -> bool:
-    """13 fused-block, 1 normalize_u8 and 1 arith_chain launches per
+    """17 fused-block, 1 normalize_u8 and 1 arith_chain launches per
     batch row (the head's blocks and preamble, the gap)."""
-    return (launches.get("fused_inverted_residual") == 13 * rows
+    return (launches.get("fused_inverted_residual") == kernel_blocks() * rows
             and launches.get("normalize_u8") == rows
             and launches.get("arith_chain") == rows)
 
@@ -5949,7 +6105,7 @@ def check_robust_trip(torch, labels, frames, total):
           and row["fresh_instance"] and row["fallback_preamble"]
           and row["primary_invokes"] == ROBUST_K
           and bit_equal and labels_equal
-          and after.get("fused_inverted_residual") == 13 * ROBUST_AFTER
+          and after.get("fused_inverted_residual") == kernel_blocks() * ROBUST_AFTER
           and after.get("arith_chain") == ROBUST_AFTER
           and after.get("normalize_u8", 0) == 0)
     return row, ok
@@ -6418,7 +6574,7 @@ def _mesh_compare(torch, name, got, want):
 
 
 def _mesh_launches(name, launches, per_batch, n=MESH_BATCHES):
-    want = {"fused_inverted_residual": 13 * per_batch * n,
+    want = {"fused_inverted_residual": kernel_blocks() * per_batch * n,
             "normalize_u8": per_batch * n}
     got = {k: launches.get(k, 0) for k in want}
     if got != want:
@@ -6757,7 +6913,7 @@ def check_mesh_serving(torch, results, frames, labels, total):
             == src_cr.get("h2d_bytes")
             and not f_cr.get("h2d")
             and launches.get("fused_inverted_residual")
-            == 13 * 4 * srv["batches"]):
+            == kernel_blocks() * 4 * srv["batches"]):
         raise AssertionError(f"mesh serve placement: {seen}, puts {puts}, "
                              f"launches {launches}")
 
@@ -7245,7 +7401,7 @@ def _aot_lint(env, cold) -> dict:
 def check_aot(torch, results, workdir):
     """The compile cache on the card: the flagship with ``aot:1`` over a
     fresh cache (a miss whose worker child builds on the card, then a
-    hit), its logits bit-equal to an ``aot:0`` play, 13 fused-block and 1
+    hit), its logits bit-equal to an ``aot:0`` play, 17 fused-block and 1
     normalize_u8 launches a batch in each play; the preamble-fused
     flagship and line K with entries of their own, each a hit on its
     second play; a loop-window=4 flagship keyed apart from the solo
@@ -7275,7 +7431,7 @@ def check_aot(torch, results, workdir):
         miss = _aot_play(torch, solo, frames)
         worker = dict(aot.LAST_WORKER)
         hit = _aot_play(torch, solo, frames)
-        per = {"fused_inverted_residual": 13, "normalize_u8": 1}
+        per = {"fused_inverted_residual": kernel_blocks(), "normalize_u8": 1}
         _aot_check("aot:0", r0, [], per)
         _aot_check("miss", miss, ["miss-compiled"], per)
         _aot_check("hit", hit, ["hit"], per)
@@ -7318,13 +7474,13 @@ def check_aot(torch, results, workdir):
             f"custom={_aot_custom()}")
         pre_runs = [_aot_play(torch, pre, frames, logits=False)
                     for _ in range(2)]
-        per_pre = {"fused_inverted_residual": 13, "normalize_u8": 0,
+        per_pre = {"fused_inverted_residual": kernel_blocks(), "normalize_u8": 0,
                    "arith_chain": 1}
         _aot_check("preamble miss", pre_runs[0], ["miss-compiled"], per_pre)
         _aot_check("preamble hit", pre_runs[1], ["hit"], per_pre)
         k_runs = [_aot_play(torch, _aot_cascade_line(labels, a), frames,
                             name="m", logits=False) for a in ("0", "1", "1")]
-        per_k = {"fused_inverted_residual": 13, "normalize_u8": 1,
+        per_k = {"fused_inverted_residual": kernel_blocks(), "normalize_u8": 1,
                  "arith_chain": 1}
         _aot_check("line K aot:0", k_runs[0], [], per_k)
         _aot_check("line K miss", k_runs[1], ["miss-compiled"], per_k)
@@ -7515,7 +7671,7 @@ def check_rollout(torch, results, workdir):
         if (ro["promoted"], ro["rolled_back"]) != (1, 0) or \
                 out[-1] != want["b"] or out[0] != want["a"]:
             raise AssertionError(f"rollout: clean B {ro}")
-        per = launches.get("fused_inverted_residual", 0) / 13
+        per = launches.get("fused_inverted_residual", 0) / kernel_blocks()
         if per != len(out) or launches.get("normalize_u8") != len(out):
             raise AssertionError(f"rollout: launches {launches} for "
                                  f"{len(out)} batches")
@@ -7907,17 +8063,18 @@ def check_import(torch, results, workdir):
 
 # -- phase: training the vision models ---------------------------------------
 
-#: each vision model at full width, its customs, and how many of its
-#: blocks the fused-block kernel runs a validation batch
+#: each vision model at full width, its customs, and whether the
+#: fused-block kernel runs its blocks (kernel_blocks counts them) in a
+#: validation batch
 TRAIN_VISION = {
     "ssd_mobilenet": {"size": 300, "custom": "width:1.0,classes:91",
-                      "kernel_blocks": 13},
+                      "fused": True},
     "deeplab_v3": {"size": 257, "custom": "width:1.0,classes:21",
-                   "kernel_blocks": 10},
+                   "fused": True},
     "posenet": {"size": 257, "custom": "width:1.0,keypoints:17",
-                "kernel_blocks": 0},
+                "fused": False},
     "yolov8": {"size": 320, "custom": "width:0.25,classes:80",
-               "kernel_blocks": 0},
+               "fused": False},
 }
 #: batch, train steps and validation batches of the line; timed steps and
 #: validation batches after 2 warm-up steps and 1 validation batch; the
@@ -8211,7 +8368,7 @@ def check_train_vision(torch, results):
     BatchNorm after the bias-free stem hides a scale or offset error of
     the preamble from the outputs); (3) the line: its launches —
     normalize_u8 once a batch (steps and validation), the fused-block
-    kernel 13 (SSD) or 10 (DeepLab) times a validation batch — and finite
+    kernel 17 (SSD) or 13 (DeepLab) times a validation batch — and finite
     reports; (4) the line's validation batch through its fused forward
     against the unfused float32 forward on the CPU (_tv_validation); then
     the timing on a trainer driven directly."""
@@ -8262,7 +8419,7 @@ def check_train_vision(torch, results):
               and stats["val_batches"] == TV["val"]
               and launches.get("normalize_u8", 0) == batches
               and launches.get("fused_inverted_residual", 0)
-              == cfg["kernel_blocks"] * TV["val"])
+              == (kernel_blocks(name) if cfg["fused"] else 0) * TV["val"])
         row = {"model": name, "size": cfg["size"], "custom": cfg["custom"],
                "batch": b, "first_step": first, "preamble": preamble,
                "validation": val, "line_seconds": secs, "report": report,
@@ -8370,7 +8527,7 @@ def check_custom(torch, results, workdir):
     so_ok = (c["labels"] == a["labels"] and len(c["labels"])
              == CUSTOM_BATCHES * BATCH and c["d2h_per_batch"] == 1
              and c["launches"].get("fused_inverted_residual", 0)
-             == 13 * CUSTOM_BATCHES
+             == kernel_blocks() * CUSTOM_BATCHES
              and c["launches"].get("normalize_u8", 0) == CUSTOM_BATCHES)
     emit("custom", line="flagship_custom_so", so_build_s=build_s,
          batches=CUSTOM_BATCHES, batch=BATCH,
@@ -8444,7 +8601,8 @@ def _build_native() -> dict:
 def _op_route_rows(torch) -> list:
     """Each kernel through its TorchScript op (a trace of the wrapper)
     against its ctypes route on the same input, at the flagship's shapes:
-    the 13 stride-1 blocks at batch 128 and normalize_u8 on 128 frames."""
+    its 17 blocks (13 stride-1, 4 stride-2) at batch 128 and normalize_u8
+    on 128 frames."""
     from nnstreamer_tpu_torch.filters import aot
     from nnstreamer_tpu_torch.models.mobilenet_v2 import MobileNetV2, init_weights
     from nnstreamer_tpu_torch.ops.fused_block import (
@@ -8470,13 +8628,16 @@ def _op_route_rows(torch) -> list:
                      "max_abs_err": max_err(got, want),
                      "ops_in_graph": ops_in_graph})
 
-    for i, H, W, fw in _blocks(model, 1):
-        fwc = cast_folded(fw, torch.bfloat16, "cuda")
-        cin = fwc["w1"].shape[0] if "w1" in fwc else fwc["wd"].shape[1]
-        x = torch.randn((BATCH, H, W, cin), generator=gen, device="cuda")
-        compare("fused_inverted_residual",
-                lambda t, fwc=fwc: fused_inverted_residual(t, fwc),
-                x.clamp(-3, 3).to(torch.bfloat16), block=i)
+    for stride in (1, 2):
+        for i, H, W, fw in _blocks(model, stride):
+            fwc = cast_folded(fw, torch.bfloat16, "cuda")
+            cin = fwc["w1"].shape[0] if "w1" in fwc else fwc["wd"].shape[1]
+            x = torch.randn((BATCH, H, W, cin), generator=gen, device="cuda")
+            compare("fused_inverted_residual",
+                    lambda t, fwc=fwc, s=stride: fused_inverted_residual(
+                        t, fwc, stride=s),
+                    x.clamp(-3, 3).to(torch.bfloat16), block=i,
+                    stride=stride)
     u8 = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=gen,
                        device="cuda", dtype=torch.uint8)
     compare("normalize_u8", lambda t: normalize_u8(t), u8)
@@ -8606,7 +8767,8 @@ def check_native(torch, results, workdir):
         intervals=native_iv)
     counted = _script_ops.launches()
     n_batches = NATIVE_BATCHES + 1  # the warm-up batch runs the program too
-    launches_ok = (counted["fused_inverted_residual"] == 13 * n_batches
+    launches_ok = (counted["fused_inverted_residual"]
+                   == kernel_blocks() * n_batches
                    and counted["normalize_u8"] == n_batches)
     native_flat = [lab for b in native_labels for lab in b]
 
@@ -8639,7 +8801,7 @@ def check_native(torch, results, workdir):
         single.close()
     cb_flat = [lab for b in cb_labels for lab in b]
     cb_ok = (cb_flat == native_flat
-             and cb_launches["fused_inverted_residual"] == 13 * n_batches
+             and cb_launches["fused_inverted_residual"] == kernel_blocks() * n_batches
              and cb_launches["normalize_u8"] == n_batches)
 
     ab = pjrt_native.run_ab({"exec": path, "model": "mobilenet_v2",

@@ -26,9 +26,20 @@ wrappers refuse them, so a model with attention is unmodeled here).
     storage an op creates while a tensor still holds it (a view or an
     in-place result adds nothing); the highest count, plus the params and
     the inputs that are live throughout, is the peak — the counterpart of
-    ``make_jaxpr`` plus ``_liveness_peak``. It is the un-fused upper-ish
-    bound the reference's is: the plain composition materializes what the
-    kernels keep in shared memory.
+    ``make_jaxpr`` plus ``_liveness_peak``. The fused block's wrapper runs
+    its plain version inside ``ops._cuda.kernel_resident`` and bills only
+    its output, as the reference's walk sees a ``pallas_call`` as one
+    equation: the kernel keeps its 6x-wide hidden tensor in shared memory
+    (MobileNet-v2's first stride-2 block would otherwise bill 308 MB of
+    bf16 at batch 128 that the card never holds). The other plain ops
+    materialize what they allocate, an upper-ish bound as the
+    reference's is. For a filter on the card (``card=True``) each
+    storage bills the block the CUDA caching allocator carves for it
+    from a fresh segment (:func:`card_block_bytes`; a CUDA graph's
+    private pool starts empty) and a convolution bills cuDNN's workspace
+    for the call (:func:`cudnn_workspace_bytes`): with both, the plan
+    holds what ``max_memory_allocated`` sees of a forward, whose peak on
+    MobileNet-v2 is inside the stem's convolution.
 
 ``derived_bytes`` (a key the JAX package has no need of) counts the
 tensors the forward keeps beyond the module's state — the BN-folded,
@@ -66,6 +77,8 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from nnstreamer_tpu_torch.ops import _cuda
 
 #: roofline constants of the static report: one H100 SXM's published
 #: dense bf16 peak and memory rate (NVIDIA's data sheet) and the nominal
@@ -111,12 +124,56 @@ def meta_tensors(shapes: Sequence[ShapeDtype]) -> List[torch.Tensor]:
                         device="meta") for s in shapes]
 
 
+#: the CUDA caching allocator's rules for large requests
+#: (c10/cuda/CUDACachingAllocator.cpp): from 10 MiB up a request takes a
+#: segment of its own, rounded up to 2 MiB, and keeps the whole segment
+#: when at most 1 MiB would be left over
+_SEGMENT_ROUND = 2 << 20
+_LARGE_ALLOC = 10 << 20
+_SPLIT_LEFTOVER = 1 << 20
+
+
+def card_block_bytes(n: int) -> int:
+    """The bytes the card's caching allocator counts for an ``n``-byte
+    storage taken from a fresh segment: from 10 MiB up, the 2 MiB-rounded
+    segment when the block keeps it whole; else ``n`` (the allocator's
+    512-byte rounding of every request is left out: it moves a bill by
+    less than 512 B a storage)."""
+    if n >= _LARGE_ALLOC:
+        seg = -(-n // _SEGMENT_ROUND) * _SEGMENT_ROUND
+        if seg - n <= _SPLIT_LEFTOVER:
+            return seg
+    return n
+
+
+def cudnn_workspace_bytes(func, args) -> int:
+    """The workspace cuDNN takes for one convolution on the card: for a
+    16-bit input whose channel count is no multiple of 8 (the stems'
+    3), its tensor-core kernels read 8-channel vectors, so it copies the
+    input widened to 8 channels (``nhwcAddPaddingKernel``) for the call;
+    the request carries cuDNN's own scratch beside the copy, so it bills
+    up to the allocator's 2 MiB segment. 0 for every other op."""
+    if func is not torch.ops.aten.convolution.default:
+        return 0
+    x, groups = args[0], args[8]
+    if (x.dim() != 4 or x.dtype not in (torch.bfloat16, torch.float16)
+            or groups != 1 or x.shape[1] % 8 == 0):
+        return 0
+    n, c, h, w = x.shape
+    ws = n * h * w * (-(-c // 8) * 8) * x.element_size()
+    return -(-ws // _SEGMENT_ROUND) * _SEGMENT_ROUND
+
+
 class _LiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
     """Counts the bytes of storages created under it while a tensor holds
-    them, and the pointwise/reduction flops the FLOP counter leaves out."""
+    them, and the pointwise/reduction flops the FLOP counter leaves out.
+    ``card``: bill storages and convolutions as the card holds them
+    (:func:`card_block_bytes`, :func:`cudnn_workspace_bytes`)."""
 
-    def __init__(self, stream_inputs: Sequence[torch.Tensor] = ()):
+    def __init__(self, stream_inputs: Sequence[torch.Tensor] = (),
+                 card: bool = False):
         super().__init__()
+        self.card = card
         self.cur = 0
         self.peak = 0
         self.extra_flops = 0
@@ -147,6 +204,8 @@ class _LiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
             self.extra_flops += sum(o.numel() for o in outs)
         elif name in _REDUCTIONS:
             self.extra_flops += sum(t.numel() for t in ins)
+        if _cuda.in_kernel_resident():
+            return out  # a kernel's on-chip intermediate, not device memory
         in_keys = {_storage_key(t) for t in ins}
         for o in outs:
             key = _storage_key(o)
@@ -154,11 +213,16 @@ class _LiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
             if ref is None:
                 if key in in_keys:
                     continue  # a view of (or in place on) an outside tensor
-                ref = self._refs[key] = [0, o.untyped_storage().nbytes()]
+                nbytes = o.untyped_storage().nbytes()
+                ref = self._refs[key] = [
+                    0, card_block_bytes(nbytes) if self.card else nbytes]
                 self.cur += ref[1]
                 self.peak = max(self.peak, self.cur)
             ref[0] += 1
             weakref.finalize(o, self._release, key)
+        if self.card:  # live beside the call's output while it runs
+            self.peak = max(self.peak, self.cur + cudnn_workspace_bytes(
+                func, args))
         return out
 
     def _mark_stream(self, tensors) -> None:
@@ -279,11 +343,12 @@ def _shapes_nbytes(shapes: Sequence[ShapeDtype]) -> int:
 
 
 def program_cost(fn, params, shapes: Sequence[ShapeDtype],
-                 method: str = "auto") -> Dict[str, Any]:
+                 method: str = "auto", card: bool = False) -> Dict[str, Any]:
     """Cost one program at one signature: ``fn(params, *xs)`` runs on
     meta tensors of ``shapes`` (``params`` on the meta device too), or,
     with ``method="compiled"``, once concretely on the device ``params``
-    live on (see the module docstring)."""
+    live on (see the module docstring). ``card``: the meta run bills its
+    peak as the card holds it (a filter on the card)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     if method == "compiled":
@@ -292,7 +357,7 @@ def program_cost(fn, params, shapes: Sequence[ShapeDtype],
         raise ValueError(f"unknown cost method {method!r}")
     xs = meta_tensors(shapes)
     counter = FlopCounterMode(display=False)
-    live = _LiveBytes(xs)
+    live = _LiveBytes(xs, card=card)
     with torch.no_grad(), counter, live:
         out = fn(params, *xs)
     outs = [t for t in torch.utils._pytree.tree_leaves(out)
@@ -583,12 +648,15 @@ def filter_cost(e, method: str = "auto") -> Optional[Dict[str, Any]]:
     Memoized per element, keyed on everything that changes the program —
     model/custom/batch, the fused stage specs and the resolved input
     signature — so a replan or renegotiation invalidates naturally."""
+    from nnstreamer_tpu_torch.analysis.memplan import _runs_on_card
+
     prog = filter_program(e)
     if prog is None:
         return None
     fn, params, shapes = prog
+    card = _runs_on_card(e)
     key = (
-        method,
+        method, card,
         str(e.properties.get("model")), str(e.properties.get("custom")),
         tuple((tuple(s.shape), str(s.dtype)) for s in shapes),
         tuple(getattr(e, "_pre_specs", ()) or ()),
@@ -599,7 +667,7 @@ def filter_cost(e, method: str = "auto") -> Optional[Dict[str, Any]]:
         hit = cache[key]
         return dict(hit) if hit is not None else None
     try:
-        cost = program_cost(fn, params, shapes, method=method)
+        cost = program_cost(fn, params, shapes, method=method, card=card)
     except Exception:  # noqa: BLE001 — the meta run failed: unmodeled
         # negative-cached: one analysis run asks several times
         cache[key] = None

@@ -1,21 +1,31 @@
-// One stride-1 MobileNet-v2 inverted-residual block, BatchNorm pre-folded:
-//   expand 1x1 + bias + relu6 -> depthwise 3x3 SAME + bias + relu6
-//   -> project 1x1 + bias (+ residual when Cin == Cout),
+// One MobileNet-v2 inverted-residual block, BatchNorm pre-folded:
+//   expand 1x1 + bias + relu6 -> depthwise 3x3 SAME, stride 1 or 2,
+//   + bias + relu6 -> project 1x1 + bias (+ residual when the stride is 1
+//   and Cin == Cout),
 // NHWC, compute dtype bfloat16 on the main path (float32 in checks),
-// float32 biases, float32 accumulation.
+// float32 biases, float32 accumulation. Input [B, H, W, Cin], output
+// [B, Ho, Wo, Cout] with Ho = ceil(H / stride), Wo = ceil(W / stride).
 //
 // Replaces the Pallas kernel nnstreamer_tpu/ops/fused_block.py::
-// fused_inverted_residual (bodies _block_kernel and _block_kernel_batched).
-// The Pallas kernel keeps the 6x-wide hidden tensor in VMEM; so does this
-// one, in shared memory: each block reads its input once (plus a two-row
-// halo where a map is cut into row tiles) and writes its output once.
+// fused_inverted_residual (bodies _block_kernel and _block_kernel_batched)
+// and, at stride 2, that function's route to inverted_residual_xla (three
+// XLA convolutions: the Pallas kernel has no stride-2 body). The Pallas
+// kernel keeps the 6x-wide hidden tensor in VMEM; so does this one, in
+// shared memory: each block reads its input once (plus a halo where a map
+// is cut into row tiles) and writes its output once.
 //
-// Bound on the H100. The block moves B*H*W*(Cin+Cout) elements and does
-// 2*B*H*W*(Cin*Ch + 9*Ch + Ch*Cout) operations. The 112x112 expand=1 block
-// is bound by bytes (about 0.05 ms at batch 128); the 14x14 and 7x7 blocks
-// with Ch >= 384 by the bf16 tensor-core rate; the rest sit near the
-// ridge. Both 1x1 products are about 90% of the operations, so they run
-// on the tensor cores.
+// Bound on the H100. The block moves B*(H*W*Cin + Ho*Wo*Cout) elements and
+// does 2*B*(H*W*Cin*Ch + Ho*Wo*(9*Ch + Ch*Cout)) operations. The 112x112
+// expand=1 block is bound by bytes (about 0.05 ms at batch 128); the 14x14
+// and 7x7 blocks with Ch >= 384 by the bf16 tensor-core rate; the rest sit
+// near the ridge. Both 1x1 products are about 90% of the operations, so
+// they run on the tensor cores. The four stride-2 blocks of MobileNet-v2
+// at batch 128 are bound at about 0.036 ms together, three by bytes: the
+// first (112x112x16 -> 56x56x24, hidden 96) reads 51 MB and writes 19 MB,
+// while its hidden tensor alone would be 308 MB of bf16 in device memory.
+// Stride 2 keeps that tensor in shared memory too, so what the block moves
+// is its input and output; the expand runs on every input pixel (4x the
+// output pixels), which keeps the 1x1 products' share of the work.
 //
 // bfloat16 design (fused_ir_tc_kernel). 512 threads (16 warps of at most
 // 128 registers, so that loops waiting on shared memory have warps to hide
@@ -47,6 +57,15 @@
 //           another's expand or depthwise;
 //   3. + b2, round to bf16, residual add in bf16 (the input is still in
 //      shared memory), staged in shared memory and stored 16 B wide.
+// Stride 2 (the template argument S; pads pt, pl from the plan): an item's
+// R output rows r0.. read input rows 2*r0 - pt .. 2*(r0+R-1) - pt + 2, so
+// consecutive tiles share one input row and its expand is computed twice
+// (1 row in 2R+1). The hidden tile is [(2R+1) x (2*Wo+1) x Cc], its pad
+// columns and off-image rows post-activation zeros as at stride 1 (TF
+// SAME: pads (0, 1) on an even map, (1, 1) on an odd one, never
+// PyTorch's symmetric padding=1). The depthwise walks 4-output-pixel
+// segments reading 9 hidden values a segment row; the project and the
+// epilogue run over R*Wo pixels. There is no residual at stride 2.
 // Shared-memory rows are padded by 8 elements, so the 8 row addresses of
 // each ldmatrix fall in distinct banks; ragged Cin, Cout and hidden chunks
 // are zero-padded in shared memory, never read out of bounds. Index loops
@@ -55,7 +74,8 @@
 //
 // float32 (fused_ir_fma_kernel): the checks' dtype, on no main path. The
 // first version's body stays for it: FMA loops over shared memory, one CTA
-// per (image, R rows, CoT output channels), accumulators in registers.
+// per (image, R output rows, CoT output channels), accumulators in
+// registers; the stride and pads are runtime values there.
 //
 // Rounding points, as the JAX kernel: expand sum in f32, +b1, relu6, round
 // to the compute dtype; each depthwise product tap*wd rounded to the
@@ -80,7 +100,7 @@ __device__ __forceinline__ float relu6(float v) {
 // ---------------------------------------------------------------------------
 
 constexpr int kFmaThreads = 256;
-constexpr int kAcc = 32;  // accumulators per thread: R*W*CoT <= 8192
+constexpr int kAcc = 32;  // accumulators per thread: R*Wo*CoT <= 8192
 
 struct FmaArgs {
   const float* x;
@@ -92,6 +112,7 @@ struct FmaArgs {
   const float* b2;
   float* out;
   int B, H, W, Cin, Ch, Cout;
+  int Ho, Wo, stride, pt, pl;  // output map, stride, SAME pads before
   int R, CoT, Cc;
   int n_row_tiles;
   int expand, residual;
@@ -106,26 +127,29 @@ __global__ void __launch_bounds__(kFmaThreads) fused_ir_fma_kernel(FmaArgs a) {
   float* __restrict__ out = a.out;
 
   const int H = a.H, W = a.W, Cin = a.Cin, Ch = a.Ch, Cout = a.Cout;
+  const int Wo = a.Wo, S = a.stride;
   const int R = a.R, CoT = a.CoT, Cc = a.Cc;
-  const int W2 = W + 2;
+  const int HR = (R - 1) * S + 3;   // hidden rows of a tile
+  const int Wh = (Wo - 1) * S + 3;  // hidden columns, pads included
   const int tid = threadIdx.x;
   const int b = blockIdx.x / a.n_row_tiles;
-  const int y0 = (blockIdx.x % a.n_row_tiles) * R;
+  const int y0 = (blockIdx.x % a.n_row_tiles) * R;  // first output row
+  const int g0 = y0 * S - a.pt;                      // image row of hidden row 0
   const int co0 = blockIdx.y * CoT;
   const int nco = min(CoT, Cout - co0);
-  const int rows = min(R, H - y0);  // valid output rows of this tile
+  const int rows = min(R, a.Ho - y0);  // valid output rows of this tile
 
-  float* xs = reinterpret_cast<float*>(smem_raw);  // [(R+2), W, Cin]
-  float* hid = xs + (R + 2) * W * Cin;             // [(R+2), W+2, Cc]
-  float* dw = hid + (R + 2) * W2 * Cc;             // [R, W, Cc]
-  float* w1s = dw + R * W * Cc;                    // [Cin, Cc]
+  float* xs = reinterpret_cast<float*>(smem_raw);  // [HR, W, Cin]
+  float* hid = xs + HR * W * Cin;                  // [HR, Wh, Cc]
+  float* dw = hid + HR * Wh * Cc;                  // [R, Wo, Cc]
+  float* w1s = dw + R * Wo * Cc;                   // [Cin, Cc]
   float* w2s = w1s + Cin * Cc;                     // [Cc, CoT]
 
-  // 1. input rows y0-1 .. y0+R, zero outside the image
+  // 1. input rows g0 .. g0+HR-1, zero outside the image
   const long long img = static_cast<long long>(b) * H * W;
   const int row_elems = W * Cin;
-  for (int i = tid; i < (R + 2) * row_elems; i += kFmaThreads) {
-    const int gy = y0 - 1 + i / row_elems;
+  for (int i = tid; i < HR * row_elems; i += kFmaThreads) {
+    const int gy = g0 + i / row_elems;
     xs[i] = (gy >= 0 && gy < H)
                 ? x[(img + static_cast<long long>(gy) * W) * Cin + i % row_elems]
                 : 0.0f;
@@ -134,7 +158,7 @@ __global__ void __launch_bounds__(kFmaThreads) fused_ir_fma_kernel(FmaArgs a) {
   float acc[kAcc];
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.0f;
-  const int n_out = R * W * nco;
+  const int n_out = R * Wo * nco;
 
   for (int c0 = 0; c0 < Ch; c0 += Cc) {
     const int nc = min(Cc, Ch - c0);
@@ -153,12 +177,12 @@ __global__ void __launch_bounds__(kFmaThreads) fused_ir_fma_kernel(FmaArgs a) {
     __syncthreads();
 
     // 2a. expand the halo window; post-activation zeros off the image
-    for (int i = tid; i < (R + 2) * W2 * Cc; i += kFmaThreads) {
+    for (int i = tid; i < HR * Wh * Cc; i += kFmaThreads) {
       const int c = i % Cc;
       const int q = i / Cc;
-      const int gx = q % W2 - 1;
-      const int r = q / W2;
-      const int gy = y0 - 1 + r;
+      const int gx = q % Wh - a.pl;
+      const int r = q / Wh;
+      const int gy = g0 + r;
       float h = 0.0f;
       if (c < nc && gy >= 0 && gy < H && gx >= 0 && gx < W) {
         const float* xp = xs + (r * W + gx) * Cin;
@@ -175,18 +199,18 @@ __global__ void __launch_bounds__(kFmaThreads) fused_ir_fma_kernel(FmaArgs a) {
     __syncthreads();
 
     // 2b. depthwise 3x3 in the JAX kernel's tap order (dy outer, dx inner)
-    for (int i = tid; i < R * W * Cc; i += kFmaThreads) {
+    for (int i = tid; i < R * Wo * Cc; i += kFmaThreads) {
       const int c = i % Cc;
       const int q = i / Cc;
-      const int col = q % W;
-      const int r = q / W;
+      const int col = q % Wo;
+      const int r = q / Wo;
       float s = 0.0f;
       if (c < nc) {
 #pragma unroll
         for (int dy = 0; dy < 3; ++dy) {
 #pragma unroll
           for (int dx = 0; dx < 3; ++dx) {
-            const float tap = hid[((r + dy) * W2 + col + dx) * Cc + c];
+            const float tap = hid[((r * S + dy) * Wh + col * S + dx) * Cc + c];
             s = __fadd_rn(s, __fmul_rn(tap, wd[(dy * 3 + dx) * Ch + c0 + c]));
           }
         }
@@ -210,16 +234,18 @@ __global__ void __launch_bounds__(kFmaThreads) fused_ir_fma_kernel(FmaArgs a) {
     }
   }
 
-  // 3. epilogue: + b2, residual add, store valid rows
+  // 3. epilogue: + b2, residual add (stride 1: the output pixel is the
+  // input pixel), store valid rows
+  const long long img_out = static_cast<long long>(b) * a.Ho * Wo;
 #pragma unroll
   for (int j = 0; j < kAcc; ++j) {
     const int i = tid + j * kFmaThreads;
     if (i < n_out) {
       const int co = i % nco;
       const int p = i / nco;
-      const int r = p / W;
+      const int r = p / Wo;
       if (r < rows) {
-        const long long pix = img + static_cast<long long>(y0 + r) * W + p % W;
+        const long long pix = img_out + static_cast<long long>(y0 + r) * Wo + p % Wo;
         float o = acc[j] + a.b2[co0 + co];
         if (a.residual) o = o + x[pix * Cin + co0 + co];
         out[pix * Cout + co0 + co] = o;
@@ -228,9 +254,10 @@ __global__ void __launch_bounds__(kFmaThreads) fused_ir_fma_kernel(FmaArgs a) {
   }
 }
 
-long long fma_smem(int H, int W, int Cin, int R, int CoT, int Cc) {
-  (void)H;
-  return 4LL * ((R + 2) * W * Cin + (R + 2) * (W + 2) * Cc + R * W * Cc +
+long long fma_smem(int W, int Cin, int R, int CoT, int Cc, int stride) {
+  const int Wo = (W + stride - 1) / stride;
+  const long long HR = (R - 1) * stride + 3, Wh = (Wo - 1) * stride + 3;
+  return 4LL * (HR * W * Cin + HR * Wh * Cc + static_cast<long long>(R) * Wo * Cc +
                 Cin * Cc + Cc * CoT);
 }
 
@@ -268,14 +295,17 @@ struct Layout {
   int hid_stride;    // elements per hidden pixel (Cc + 8)
   int dw_stride;     // elements per depthwise-output pixel (Cc + 8)
   int st_stride;     // elements per staged output pixel (CoutP + 8)
+  int HR, Wh;        // hidden tile rows and columns
   long long xs;      // bytes of one input buffer
   long long w2, wd, b1, bd, wbuf;  // offsets in a weight buffer; its bytes
   long long hid, st, b2, total;    // offsets from the start; total bytes
 };
 
 __host__ __device__ inline Layout make_layout(int H, int W, int Cin, int Cout,
-                                              int R, int Cc, int expand) {
+                                              int R, int Cc, int expand,
+                                              int stride) {
   Layout L;
+  const int Wo = (W + stride - 1) / stride;
   L.CinP = round_up(Cin, 16);
   L.CoutP = round_up(Cout, 16);
   L.xs_stride = L.CinP + 8;
@@ -284,8 +314,10 @@ __host__ __device__ inline Layout make_layout(int H, int W, int Cin, int Cout,
   L.hid_stride = Cc + 8;
   L.dw_stride = Cc + 8;
   L.st_stride = L.CoutP + 8;
-  const int in_rows = (R + 2 < H ? R + 2 : H);
-  const int mr = round_up(R * W, 16);
+  L.HR = (R - 1) * stride + 3;
+  L.Wh = (Wo - 1) * stride + 3;
+  const int in_rows = (L.HR < H ? L.HR : H);
+  const int mr = round_up(R * Wo, 16);
   const int stage = L.dw_stride > L.st_stride ? L.dw_stride : L.st_stride;
   L.xs = align16(2LL * round_up(in_rows * W, 16) * L.xs_stride);
   L.w2 = expand ? align16(2LL * L.CinP * L.w1_stride) : 0;
@@ -294,7 +326,7 @@ __host__ __device__ inline Layout make_layout(int H, int W, int Cin, int Cout,
   L.bd = L.b1 + align16(4LL * Cc);
   L.wbuf = L.bd + align16(4LL * Cc);
   L.hid = 2 * L.xs + 2 * L.wbuf;
-  L.st = L.hid + align16(2LL * (R + 2) * (W + 2) * L.hid_stride);
+  L.st = L.hid + align16(2LL * L.HR * L.Wh * L.hid_stride);
   L.b2 = L.st + align16(2LL * mr * stage);
   L.total = L.b2 + align16(4LL * L.CoutP);
   return L;
@@ -310,6 +342,7 @@ struct TcArgs {
   const float* b2;
   bf16* out;
   int B, H, W, Cin, Ch, Cout;
+  int Ho, Wo, pt, pl;  // output map, SAME pads before (rows, columns)
   int R, Cc, WM;
   int n_row_tiles, n_items, n_chunks;
   int expand, residual;
@@ -393,18 +426,21 @@ __device__ __forceinline__ int fast_div(int q, uint32_t m) {
   return m ? static_cast<int>(__umulhi(static_cast<uint32_t>(q), m)) : q;
 }
 
-// Work item -> (image, first output row, output rows, staged input rows).
+// Work item -> (image, first output row, output rows, image row of hidden
+// row 0, staged input rows [ylo, yhi)).
 struct Item {
-  int b, y0, rows, ylo, yhi;
+  int b, y0, rows, g0, ylo, yhi;
 };
 
+template <int S>
 __device__ __forceinline__ Item item_of(const TcArgs& a, int item) {
   Item it;
   it.b = item / a.n_row_tiles;
   it.y0 = (item - it.b * a.n_row_tiles) * a.R;
-  it.rows = min(a.R, a.H - it.y0);
-  it.ylo = max(it.y0 - 1, 0);
-  it.yhi = min(it.y0 + a.R + 1, a.H);
+  it.rows = min(a.R, a.Ho - it.y0);
+  it.g0 = it.y0 * S - a.pt;
+  it.ylo = max(it.g0, 0);
+  it.yhi = min(it.g0 + (it.rows - 1) * S + 3, a.H);
   return it;
 }
 
@@ -480,14 +516,15 @@ __device__ __forceinline__ void stage_w(const TcArgs& a, int k, unsigned char* w
   }
 }
 
-template <int FM, int FN>
+template <int FM, int FN, int S>
 __global__ void __launch_bounds__(kThreads, 1) fused_ir_tc_kernel(TcArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout& L = a.L;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;
-  const int W = a.W, Cc = a.Cc, Ch = a.Ch, Cout = a.Cout;
-  const int W2 = W + 2;
+  const int W = a.W, Wo = a.Wo, Cc = a.Cc, Ch = a.Ch, Cout = a.Cout;
+  const int Wh = L.Wh;  // hidden tile columns: W + 2 at stride 1
+  const int pl = S == 1 ? 1 : a.pl;
   const int pairs = Cc / 2;
   const int hs = L.hid_stride;
   const int n16 = Cc / 16;  // k steps of the project, n tiles of the expand
@@ -509,18 +546,18 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ir_tc_kernel(TcArgs a) {
   for (int i = tid; i < Cout; i += kThreads) b2s[i] = a.b2[i];
 
   int item = blockIdx.x;
-  stage_x(a, item_of(a, item), xbuf(0));
+  stage_x(a, item_of<S>(a, item), xbuf(0));
   stage_w(a, 0, wbuf(0));
   cp_async_commit();
 
   float acc[FM][FN][2][4];
   int gchunk = 0;
   for (int xb = 0; item < a.n_items; item += gridDim.x, xb ^= 1) {
-    const Item it = item_of(a, item);
+    const Item it = item_of<S>(a, item);
     const bf16* xs = xbuf(xb);
-    const int hr0 = it.ylo - (it.y0 - 1);  // hidden row of staged row 0
+    const int hr0 = it.ylo - it.g0;  // hidden row of staged row 0
     const int n_in = (it.yhi - it.ylo) * W;
-    const int n_out = it.rows * W;
+    const int n_out = it.rows * Wo;
     const int mt = (n_out + 15) / 16;
 #pragma unroll
     for (int i = 0; i < FM; ++i)
@@ -541,19 +578,24 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ir_tc_kernel(TcArgs a) {
 
       // prefetch: the next item's rows, the next chunk's weights
       if (k == 0 && item + static_cast<int>(gridDim.x) < a.n_items)
-        stage_x(a, item_of(a, item + gridDim.x), xbuf(xb ^ 1));
+        stage_x(a, item_of<S>(a, item + gridDim.x), xbuf(xb ^ 1));
       if (a.n_chunks > 1 &&
           (k + 1 < a.n_chunks || item + static_cast<int>(gridDim.x) < a.n_items))
         stage_w(a, (k + 1) % a.n_chunks, wbuf(wcur ^ 1));
       cp_async_commit();
 
-      if (k == 0) {  // hidden rows outside the image: post-activation zeros
-        for (int side = 0; side < 2; ++side) {
-          const int hr = side == 0 ? 0 : it.rows + 1;
-          const int gy = it.y0 - 1 + hr;
-          if (gy >= 0 && gy < a.H) continue;
-          uint4* row = reinterpret_cast<uint4*>(hid + hr * W2 * hs);
-          for (int i = tid; i < W2 * hs / 8; i += kThreads) row[i] = make_uint4(0, 0, 0, 0);
+      if (k == 0) {  // hidden rows the depthwise reads outside the image:
+                     // post-activation zeros (above hr0, and from the
+                     // last staged row to the tile's last read row)
+        const int hr_end = (it.rows - 1) * S + 3;
+        const int hr_in = hr0 + it.yhi - it.ylo;
+        const int nz = hr0 + (hr_end > hr_in ? hr_end - hr_in : 0);
+        const int row16 = Wh * hs / 8;  // a hidden row in 16-byte units
+        for (int i = tid; i < nz * row16; i += kThreads) {
+          const int zr = i / row16;
+          const int hr = zr < hr0 ? zr : hr_in + zr - hr0;
+          reinterpret_cast<uint4*>(hid + hr * Wh * hs)[i - zr * row16] =
+              make_uint4(0, 0, 0, 0);
         }
       }
 
@@ -589,7 +631,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ir_tc_kernel(TcArgs a) {
             const int p = mi * 16 + g + h * 8;
             if (p >= n_in) continue;
             const int pr = fast_div(p, mW);
-            bf16* dst = hid + ((hr0 + pr) * W2 + p - pr * W + 1) * hs;
+            bf16* dst = hid + ((hr0 + pr) * Wh + p - pr * W + pl) * hs;
 #pragma unroll
             for (int t = 0; t < 2; ++t) {
               if (t == 1 && !two) break;
@@ -610,7 +652,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ir_tc_kernel(TcArgs a) {
           const int pr = fast_div(p, mW), hr = hr0 + pr, col = p - pr * W;
           uint4 u = make_uint4(0, 0, 0, 0);
           if (ch < cin) u = *reinterpret_cast<const uint4*>(xs + p * xst + ch);
-          *reinterpret_cast<uint4*>(hid + (hr * W2 + col + 1) * hs + 8 * v) = u;
+          *reinterpret_cast<uint4*>(hid + (hr * Wh + col + pl) * hs + 8 * v) = u;
         });
       } else {
         const int cin = a.Cin, xst = L.xs_stride;
@@ -619,15 +661,17 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ir_tc_kernel(TcArgs a) {
           const int pr = fast_div(p, mW), hr = hr0 + pr, col = p - pr * W;
           bf162 u = __floats2bfloat162_rn(0.0f, 0.0f);
           if (ch < cin) u = *reinterpret_cast<const bf162*>(xs + p * xst + ch);
-          *reinterpret_cast<bf162*>(hid + (hr * W2 + col + 1) * hs + 2 * j) = u;
+          *reinterpret_cast<bf162*>(hid + (hr * Wh + col + pl) * hs + 2 * j) = u;
         });
       }
       __syncthreads();
 
-      // 2b. depthwise 3x3: groups of `pairs` threads, one channel pair per
-      // thread, its 9 weights in registers; a group walks 4-pixel row
-      // segments, reading each hidden value once per segment row
+      // 2b. depthwise 3x3 at stride S: groups of `pairs` threads, one
+      // channel pair per thread, its 9 weights in registers; a group walks
+      // 4-output-pixel row segments, reading each hidden value once per
+      // segment row
       if (tid < (kThreads / pairs) * pairs) {
+        constexpr int kSpan = (kSeg - 1) * S + 3;  // hidden columns a segment reads
         const int ngrp = kThreads / pairs, grp = tid / pairs, j = tid - grp * pairs;
         const int hsp = hs / 2;  // hidden pixel stride in channel pairs
         const bf162* h2 = reinterpret_cast<const bf162*>(hid) + j;
@@ -639,23 +683,24 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ir_tc_kernel(TcArgs a) {
         const int ch = 2 * j;
         const float bx = bds[ch], by = bds[ch + 1];
         const bool vx = c0 + ch < Ch, vy = c0 + ch + 1 < Ch;
-        const int nseg = (W + kSeg - 1) / kSeg;
+        const int nseg = (Wo + kSeg - 1) / kSeg;
         const uint32_t mseg = magic(nseg);
         const bf162 zero = __floats2bfloat162_rn(0.0f, 0.0f);
         for (int sg = grp; sg < it.rows * nseg; sg += ngrp) {
           const int r = fast_div(sg, mseg), x0 = (sg - r * nseg) * kSeg;
+          const int hx0 = x0 * S;  // hidden column of the segment's first tap
           float ax[kSeg] = {}, ay[kSeg] = {};
 #pragma unroll
           for (int dy = 0; dy < 3; ++dy) {
-            const bf162* hrow = h2 + ((r + dy) * W2 + x0) * hsp;
-            bf162 hv[kSeg + 2];
+            const bf162* hrow = h2 + ((r * S + dy) * Wh + hx0) * hsp;
+            bf162 hv[kSpan];
 #pragma unroll
-            for (int q = 0; q < kSeg + 2; ++q) hv[q] = x0 + q < W2 ? hrow[q * hsp] : zero;
+            for (int q = 0; q < kSpan; ++q) hv[q] = hx0 + q < Wh ? hrow[q * hsp] : zero;
 #pragma unroll
             for (int dx = 0; dx < 3; ++dx) {
 #pragma unroll
               for (int q = 0; q < kSeg; ++q) {
-                const float2 f = __bfloat1622float2(mul_rn(hv[q + dx], wv[dy * 3 + dx]));
+                const float2 f = __bfloat1622float2(mul_rn(hv[q * S + dx], wv[dy * 3 + dx]));
                 ax[q] = __fadd_rn(ax[q], f.x);
                 ay[q] = __fadd_rn(ay[q], f.y);
               }
@@ -663,10 +708,10 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ir_tc_kernel(TcArgs a) {
           }
 #pragma unroll
           for (int q = 0; q < kSeg; ++q) {
-            if (x0 + q >= W) break;
+            if (x0 + q >= Wo) break;
             const float ox = vx ? relu6(ax[q] + bx) : 0.0f;
             const float oy = vy ? relu6(ay[q] + by) : 0.0f;
-            *reinterpret_cast<bf162*>(dws + (r * W + x0 + q) * L.dw_stride + ch) =
+            *reinterpret_cast<bf162*>(dws + (r * Wo + x0 + q) * L.dw_stride + ch) =
                 __floats2bfloat162_rn(ox, oy);
           }
         }
@@ -703,7 +748,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ir_tc_kernel(TcArgs a) {
       }
     }
 
-    // 3. epilogue: + b2, round, residual add in bf16, stage, store 16 B wide
+    // 3. epilogue: + b2, round, residual add in bf16 (stride 1), stage,
+    // store 16 B wide
     __syncthreads();  // every warp is done reading the depthwise output
     bf16* st = dws;
     const int xoff = (it.y0 - it.ylo) * W;  // staged pixel of output pixel 0
@@ -724,7 +770,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ir_tc_kernel(TcArgs a) {
             const int co = nj * 16 + e * 8 + 2 * tq;
             bf162 o = __floats2bfloat162_rn(acc[i][j][e][2 * h] + b2s[co],
                                             acc[i][j][e][2 * h + 1] + b2s[co + 1]);
-            if (a.residual) {
+            if (S == 1 && a.residual) {
               const float2 of = __bfloat1622float2(o);
               const float2 xf = __bfloat1622float2(
                   *reinterpret_cast<const bf162*>(xs + (xoff + p) * L.xs_stride + co));
@@ -736,7 +782,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ir_tc_kernel(TcArgs a) {
       }
     }
     __syncthreads();
-    bf16* dst = a.out + (static_cast<long long>(it.b) * a.H + it.y0) * W * Cout;
+    bf16* dst = a.out + (static_cast<long long>(it.b) * a.Ho + it.y0) * Wo * Cout;
     if (a.vec_o) {
       const int sst = L.st_stride;
       for_rows(n_out, Cout / 8, [&](int p, int v) {
@@ -753,33 +799,41 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ir_tc_kernel(TcArgs a) {
   cp_async_wait_all();  // nothing left in flight at exit
 }
 
-const void* tc_kernel(int variant) {
+// Kernel index: variant v at stride s is v + kNumVariants * (s - 1); the
+// float32 kernel (either stride) is kFmaIndex.
+constexpr int kFmaIndex = 2 * kNumVariants;
+
+template <int S>
+const void* tc_kernel_s(int variant) {
   switch (variant) {
-    case 0: return reinterpret_cast<const void*>(&fused_ir_tc_kernel<2, 1>);
-    case 1: return reinterpret_cast<const void*>(&fused_ir_tc_kernel<2, 2>);
-    case 2: return reinterpret_cast<const void*>(&fused_ir_tc_kernel<1, 3>);
-    case 3: return reinterpret_cast<const void*>(&fused_ir_tc_kernel<1, 5>);
-    case 4: return reinterpret_cast<const void*>(&fused_ir_tc_kernel<1, 6>);
+    case 0: return reinterpret_cast<const void*>(&fused_ir_tc_kernel<2, 1, S>);
+    case 1: return reinterpret_cast<const void*>(&fused_ir_tc_kernel<2, 2, S>);
+    case 2: return reinterpret_cast<const void*>(&fused_ir_tc_kernel<1, 3, S>);
+    case 3: return reinterpret_cast<const void*>(&fused_ir_tc_kernel<1, 5, S>);
+    case 4: return reinterpret_cast<const void*>(&fused_ir_tc_kernel<1, 6, S>);
     default: return nullptr;
   }
 }
 
+const void* kernel_fn(int idx) {
+  if (idx == kFmaIndex) return reinterpret_cast<const void*>(&fused_ir_fma_kernel);
+  return idx < kNumVariants ? tc_kernel_s<1>(idx) : tc_kernel_s<2>(idx - kNumVariants);
+}
+
 // The largest dynamic shared memory a CTA may take, allowed once per
-// device and kernel (index kNumVariants is the float32 kernel).
-cudaError_t allow_smem(int variant) {
-  static bool done[64][kNumVariants + 1] = {};
+// device and kernel.
+cudaError_t allow_smem(int idx) {
+  static bool done[64][kFmaIndex + 1] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev < 64 && done[dev][variant]) return cudaSuccess;
-  const void* fn = variant < kNumVariants
-                       ? tc_kernel(variant)
-                       : reinterpret_cast<const void*>(&fused_ir_fma_kernel);
+  if (dev < 64 && done[dev][idx]) return cudaSuccess;
   int max_smem = 0;
   err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
-  if (err == cudaSuccess && dev < 64) done[dev][variant] = true;
+    err = cudaFuncSetAttribute(kernel_fn(idx), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               max_smem);
+  if (err == cudaSuccess && dev < 64) done[dev][idx] = true;
   return err;
 }
 
@@ -787,17 +841,29 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-int launch_tc(TcArgs& a, int variant, int grid, long long smem, cudaStream_t s) {
+template <int S>
+void launch_tc_s(const TcArgs& a, int variant, int grid, size_t bytes, cudaStream_t s) {
+  switch (variant) {
+    case 0: fused_ir_tc_kernel<2, 1, S><<<grid, kThreads, bytes, s>>>(a); break;
+    case 1: fused_ir_tc_kernel<2, 2, S><<<grid, kThreads, bytes, s>>>(a); break;
+    case 2: fused_ir_tc_kernel<1, 3, S><<<grid, kThreads, bytes, s>>>(a); break;
+    case 3: fused_ir_tc_kernel<1, 5, S><<<grid, kThreads, bytes, s>>>(a); break;
+    case 4: fused_ir_tc_kernel<1, 6, S><<<grid, kThreads, bytes, s>>>(a); break;
+  }
+}
+
+int launch_tc(TcArgs& a, int variant, int stride, int grid, long long smem,
+              cudaStream_t s) {
   if (variant < 0 || variant >= kNumVariants || grid < 1) return cudaErrorInvalidValue;
   const int FM = kVariants[variant][0], FN = kVariants[variant][1];
   if (a.Cc < 16 || a.Cc > kMaxCc || a.Cc % 16 || a.R < 1 || a.WM < 1 ||
       a.WM > kWarps || kWarps % a.WM)
     return cudaErrorInvalidValue;
-  a.L = make_layout(a.H, a.W, a.Cin, a.Cout, a.R, a.Cc, a.expand);
-  const int mt = (a.R * a.W + 15) / 16;
+  a.L = make_layout(a.H, a.W, a.Cin, a.Cout, a.R, a.Cc, a.expand, stride);
+  const int mt = (a.R * a.Wo + 15) / 16;
   if (mt > FM * a.WM || a.L.CoutP / 16 > FN * (kWarps / a.WM) || smem < a.L.total)
     return cudaErrorInvalidValue;
-  a.n_row_tiles = (a.H + a.R - 1) / a.R;
+  a.n_row_tiles = (a.Ho + a.R - 1) / a.R;
   a.n_items = a.B * a.n_row_tiles;
   a.n_chunks = (a.Ch + a.Cc - 1) / a.Cc;
   a.vec_x = a.Cin % 8 == 0 && aligned16(a.x);
@@ -805,25 +871,22 @@ int launch_tc(TcArgs& a, int variant, int grid, long long smem, cudaStream_t s) 
             aligned16(a.bd) && (!a.expand || (aligned16(a.w1) && aligned16(a.b1)));
   a.vec_o = a.Cout % 8 == 0 && aligned16(a.out);
   if (grid > a.n_items) grid = a.n_items;
-  const cudaError_t err = allow_smem(variant);
+  const cudaError_t err = allow_smem(variant + kNumVariants * (stride - 1));
   if (err != cudaSuccess) return err;
   const size_t bytes = static_cast<size_t>(smem);
-  switch (variant) {
-    case 0: fused_ir_tc_kernel<2, 1><<<grid, kThreads, bytes, s>>>(a); break;
-    case 1: fused_ir_tc_kernel<2, 2><<<grid, kThreads, bytes, s>>>(a); break;
-    case 2: fused_ir_tc_kernel<1, 3><<<grid, kThreads, bytes, s>>>(a); break;
-    case 3: fused_ir_tc_kernel<1, 5><<<grid, kThreads, bytes, s>>>(a); break;
-    case 4: fused_ir_tc_kernel<1, 6><<<grid, kThreads, bytes, s>>>(a); break;
-  }
+  if (stride == 1)
+    launch_tc_s<1>(a, variant, grid, bytes, s);
+  else
+    launch_tc_s<2>(a, variant, grid, bytes, s);
   return cudaGetLastError();
 }
 
 int launch_fma(const FmaArgs& a, long long smem, cudaStream_t s) {
   if (a.R < 1 || a.CoT < 1 || a.Cc < 1 ||
-      static_cast<long long>(a.R) * a.W * a.CoT > static_cast<long long>(kFmaThreads) * kAcc ||
-      smem < fma_smem(a.H, a.W, a.Cin, a.R, a.CoT, a.Cc))
+      static_cast<long long>(a.R) * a.Wo * a.CoT > static_cast<long long>(kFmaThreads) * kAcc ||
+      smem < fma_smem(a.W, a.Cin, a.R, a.CoT, a.Cc, a.stride))
     return cudaErrorInvalidValue;
-  const cudaError_t err = allow_smem(kNumVariants);
+  const cudaError_t err = allow_smem(kFmaIndex);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned int>(a.B) * a.n_row_tiles,
                   (a.Cout + a.CoT - 1) / a.CoT);
@@ -831,30 +894,60 @@ int launch_fma(const FmaArgs& a, long long smem, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// TF "SAME" padding of a 3x3 window at `stride`: the pad before the map
+// (the other goes after it).
+long long same_pad_before(long long size, long long stride) {
+  const long long out = (size + stride - 1) / stride;
+  const long long total = (out - 1) * stride + 3 - size;
+  return total > 0 ? total / 2 : 0;
+}
+
 }  // namespace
 
 // One launch, from both routes to the kernel: the ctypes wrapper
 // (ops/fused_block.py, its arrays built once per block and input shape)
 // and the TorchScript op (csrc/torch_ops.cc, which passes the plan through
-// unread). x and out; w the weight pointers {w1, b1, wd, bd, w2, b2} (w1
-// and b1 null for an expand-1 block); d the shape {B, H, W, Cin, Ch,
+// unread). x [B, H, W, Cin] and out [B, Ho, Wo, Cout]
+// (nnstpu_fused_output_hw); w the weight pointers {w1, b1, wd, bd, w2, b2}
+// (w1 and b1 null for an expand-1 block); d the shape {B, H, W, Cin, Ch,
 // Cout}; dtype the compute dtype's code; f the plan in the F_* order below
 // (ops/fused_block.py _launch_fields writes it): R, CoT, Cc, variant, WM,
-// grid, residual and the plan's shared-memory bytes. bfloat16 uses R, Cc,
+// grid, residual, the plan's shared-memory bytes, the stride (1 or 2) and
+// the SAME pads before the rows and the columns. bfloat16 uses R, Cc,
 // variant, WM and grid (persistent CTAs: the card's resident CTAs, capped
 // here at the work items); float32 uses R, CoT, Cc. Each path checks the
 // limits its memory safety depends on and returns cudaErrorInvalidValue
-// for a plan that breaks them.
+// for a plan that breaks them; the pads must be the SAME pads of the
+// stride, and only a stride-1 block adds the residual.
 enum {
-  F_R, F_COT, F_CC, F_VARIANT, F_WM, F_GRID, F_RESIDUAL, F_SMEM, F_COUNT
+  F_R, F_COT, F_CC, F_VARIANT, F_WM, F_GRID, F_RESIDUAL, F_SMEM, F_STRIDE,
+  F_PADT, F_PADL, F_COUNT
 };
+
+// The output map of a plan on an H x W input: hw = {Ho, Wo}. Returns
+// cudaErrorInvalidValue for a plan the launch would refuse for its
+// geometry (field count, stride, pads).
+NNSTPU_EXPORT int nnstpu_fused_output_hw(long long H, long long W,
+                                         const long long* f, int n,
+                                         long long* hw) {
+  if (n != F_COUNT) return static_cast<int>(cudaErrorInvalidValue);
+  const long long s = f[F_STRIDE];
+  if ((s != 1 && s != 2) || H < 0 || W < 0 || f[F_PADT] != same_pad_before(H, s) ||
+      f[F_PADL] != same_pad_before(W, s) || (f[F_RESIDUAL] && s != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  hw[0] = (H + s - 1) / s;
+  hw[1] = (W + s - 1) / s;
+  return 0;
+}
 
 NNSTPU_EXPORT int nnstpu_fused_inverted_residual(const void* x, void* out,
                                                  const void* const* w,
                                                  const long long* d, int dtype,
                                                  const long long* f, int n,
                                                  void* stream) {
-  if (n != F_COUNT) return static_cast<int>(cudaErrorInvalidValue);
+  long long hw[2];
+  const int bad = nnstpu_fused_output_hw(d[1], d[2], f, n, hw);
+  if (bad) return bad;
   if (d[0] <= 0 || d[1] <= 0) return 0;
   const int expand = w[0] != nullptr;
   if (expand != (w[1] != nullptr) || (!expand && d[3] != d[4]) ||
@@ -862,6 +955,7 @@ NNSTPU_EXPORT int nnstpu_fused_inverted_residual(const void* x, void* out,
     return static_cast<int>(cudaErrorInvalidValue);
   auto num = [&](long long v) { return static_cast<int>(v); };
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int stride = num(f[F_STRIDE]);
   if (dtype == DT_BF16) {
     TcArgs a;
     a.x = static_cast<const bf16*>(x);
@@ -874,9 +968,12 @@ NNSTPU_EXPORT int nnstpu_fused_inverted_residual(const void* x, void* out,
     a.out = static_cast<bf16*>(out);
     a.B = num(d[0]), a.H = num(d[1]), a.W = num(d[2]), a.Cin = num(d[3]);
     a.Ch = num(d[4]), a.Cout = num(d[5]);
+    a.Ho = num(hw[0]), a.Wo = num(hw[1]);
+    a.pt = num(f[F_PADT]), a.pl = num(f[F_PADL]);
     a.R = num(f[F_R]), a.Cc = num(f[F_CC]), a.WM = num(f[F_WM]);
     a.expand = expand, a.residual = num(f[F_RESIDUAL]);
-    return static_cast<int>(launch_tc(a, num(f[F_VARIANT]), num(f[F_GRID]), f[F_SMEM], s));
+    return static_cast<int>(
+        launch_tc(a, num(f[F_VARIANT]), stride, num(f[F_GRID]), f[F_SMEM], s));
   }
   if (dtype == DT_F32) {
     FmaArgs a;
@@ -890,8 +987,10 @@ NNSTPU_EXPORT int nnstpu_fused_inverted_residual(const void* x, void* out,
     a.out = static_cast<float*>(out);
     a.B = num(d[0]), a.H = num(d[1]), a.W = num(d[2]), a.Cin = num(d[3]);
     a.Ch = num(d[4]), a.Cout = num(d[5]);
+    a.Ho = num(hw[0]), a.Wo = num(hw[1]), a.stride = stride;
+    a.pt = num(f[F_PADT]), a.pl = num(f[F_PADL]);
     a.R = num(f[F_R]), a.CoT = num(f[F_COT]), a.Cc = num(f[F_CC]);
-    a.n_row_tiles = (a.H + a.R - 1) / a.R;
+    a.n_row_tiles = (a.Ho + a.R - 1) / a.R;
     a.expand = expand, a.residual = num(f[F_RESIDUAL]);
     return static_cast<int>(launch_fma(a, f[F_SMEM], s));
   }
@@ -900,19 +999,19 @@ NNSTPU_EXPORT int nnstpu_fused_inverted_residual(const void* x, void* out,
 
 // What the kernel of a plan asks of the current device: out = {registers
 // per thread, dynamic shared memory bytes, resident CTAs per SM}.
-// variant < 0 is the float32 kernel.
-NNSTPU_EXPORT int nnstpu_fused_attributes(int variant, long long smem, int* out) {
-  const int idx = variant < 0 ? kNumVariants : variant;
-  if (idx > kNumVariants) return static_cast<int>(cudaErrorInvalidValue);
-  const void* fn = idx < kNumVariants ? tc_kernel(idx)
-                                      : reinterpret_cast<const void*>(&fused_ir_fma_kernel);
-  const int threads = idx < kNumVariants ? kThreads : kFmaThreads;
+// variant < 0 is the float32 kernel; stride picks the bfloat16 body.
+NNSTPU_EXPORT int nnstpu_fused_attributes(int variant, int stride, long long smem,
+                                          int* out) {
+  if (variant >= kNumVariants || (stride != 1 && stride != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int idx = variant < 0 ? kFmaIndex : variant + kNumVariants * (stride - 1);
+  const int threads = idx == kFmaIndex ? kFmaThreads : kThreads;
   cudaError_t err = allow_smem(idx);
   cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel_fn(idx));
   int ctas = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, threads,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel_fn(idx), threads,
                                                         static_cast<size_t>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = attr.numRegs;

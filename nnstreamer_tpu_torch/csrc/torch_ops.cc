@@ -37,6 +37,8 @@ int nnstpu_fused_inverted_residual(const void* x, void* out,
                                    const void* const* w, const long long* d,
                                    int dtype, const long long* f, int n,
                                    void* stream);
+int nnstpu_fused_output_hw(long long H, long long W, const long long* f, int n,
+                           long long* hw);
 }
 
 namespace {
@@ -95,7 +97,14 @@ at::Tensor fused_inverted_residual(const at::Tensor& x,
   check_weight(b2, x, "b2", at::kFloat);
   TORCH_CHECK(wd.dim() == 2 && wd.size(0) == 9, "wd must be [9, Ch]");
   TORCH_CHECK(w2.dim() == 2 && w2.size(0) == Ch, "w2 must be [Ch, Cout]");
-  at::Tensor out = at::empty({B, H, W, Cout}, xc.options());
+  // the output map (stride 2 halves it) as the kernel library computes it
+  long long hw[2];
+  TORCH_CHECK(nnstpu_fused_output_hw(
+                  H, W, reinterpret_cast<const long long*>(plan.data()),
+                  static_cast<int>(plan.size()), hw) == 0,
+              "fused_inverted_residual: the plan's stride or pads do not fit "
+              "a ", H, "x", W, " input");
+  at::Tensor out = at::empty({B, hw[0], hw[1], Cout}, xc.options());
   const void* w[6] = {expand ? w1->data_ptr() : nullptr,
                       expand ? b1->data_ptr() : nullptr,
                       wd.data_ptr(), bd.data_ptr(), w2.data_ptr(),

@@ -18,9 +18,9 @@ Three forwards, as in ``models/mobilenet_v2.py``: the module's own
 (unfused); the train forward (the bundle's ``train_apply_fn``: the
 backbone's and the ASPP's BatchNorms by the batch's statistics,
 :func:`models.batch_norm_train`); and :func:`_make_fused_apply`
-(BatchNorm folded, again after a trainer changed the weights; the 10
-stride-1 undilated blocks through the fused-block kernel on CUDA with
-``fused:pallas``; the 3 stride-2 and 4 dilated blocks, and every
+(BatchNorm folded, again after a trainer changed the weights; the 13
+undilated blocks, 10 stride-1 and 3 stride-2, through the fused-block
+kernel on CUDA with ``fused:pallas``; the 4 dilated blocks, and every
 ``fused:xla`` block, through three convolutions; the ASPP's conv+BN
 branches folded too).
 """

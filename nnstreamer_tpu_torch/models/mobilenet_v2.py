@@ -15,13 +15,15 @@ Three forwards:
     by the batch's statistics (:func:`models.batch_norm_train`), the
     running statistics' EMA returned beside the logits;
   - :func:`_make_fused_apply`: BatchNorm folded (again whenever a trainer
-    changed the weights since the last fold), the 13 stride-1
-    inverted-residual blocks through the fused-block kernel on CUDA
-    (``fused:pallas``; its plain version on the CPU) or every block through
-    three convolutions (``fused:xla``, as the JAX package's ``fused:xla``
-    runs ``inverted_residual_xla``); the stem, the 4 stride-2 blocks, the
-    head 1x1 conv, the pool and the Dense layer are torch ops, as the JAX
-    package computes them with XLA outside any Pallas kernel.
+    changed the weights since the last fold), all 17 inverted-residual
+    blocks, the 4 stride-2 ones included, through the fused-block kernel
+    on CUDA (``fused:pallas``; its plain version on the CPU) or every block
+    through three convolutions (``fused:xla``, as the JAX package's
+    ``fused:xla`` runs ``inverted_residual_xla``); the stem, the head 1x1
+    conv, the pool and the Dense layer are torch ops, as the JAX package
+    computes them with XLA outside any Pallas kernel. (The JAX package's
+    ``fused:pallas`` runs its 4 stride-2 blocks through XLA: its Pallas
+    kernel has no stride-2 body.)
 """
 
 from __future__ import annotations
@@ -232,12 +234,14 @@ def fold_blocks(blocks, mode: str, compute_dtype: torch.dtype, device):
     of the models built on these blocks (MobileNet-v2, SSD, DeepLab).
     Returns (function, folded, stride, dilation) per block, the folded
     weights cast once on ``device``. ``mode``:
-      - 'kernel' (``fused:pallas``): :func:`inverted_residual_auto` (the
-        stride-1 blocks to :func:`fused_inverted_residual`, the kernel on
-        CUDA and its plain version on the CPU; stride-2 blocks to
-        :func:`inverted_residual_conv`), dilated blocks to
+      - 'kernel' (``fused:pallas``): the undilated blocks, stride 1 and 2,
+        to :func:`inverted_residual_auto` and through it to
+        :func:`fused_inverted_residual` (the kernel on CUDA, its plain
+        version on the CPU); dilated blocks to
         :func:`inverted_residual_conv` directly, as the JAX DeepLab sends
-        them to ``inverted_residual_xla``;
+        them to ``inverted_residual_xla``. (The JAX forward also sends its
+        stride-2 blocks to ``inverted_residual_xla``: the Pallas kernel has
+        no stride-2 body, the port's kernel has one.)
       - 'xla' (``fused:xla``): every block through
         :func:`inverted_residual_conv`;
       - 'plain': the 'kernel' forward with the kernel's plain version in
@@ -254,11 +258,9 @@ def fold_blocks(blocks, mode: str, compute_dtype: torch.dtype, device):
     cd = compute_dtype
     out = []
     for blk in blocks:
-        kernel = fb.fused_block_eligible(blk.stride, blk.dilation)
-        if mode == "xla" or not kernel:
+        if mode == "xla" or not fb.fused_block_eligible(blk.stride,
+                                                        blk.dilation):
             fn, bias_dtype = fb.inverted_residual_conv, cd
-            if mode == "kernel" and blk.dilation == 1:
-                fn = fb.inverted_residual_auto
         elif mode == "plain":
             fn, bias_dtype = fb.inverted_residual_plain, torch.float32
         else:
@@ -270,10 +272,10 @@ def fold_blocks(blocks, mode: str, compute_dtype: torch.dtype, device):
 
 
 def kernel_block_shapes(model, size: int):
-    """(index, H, W, Cin, Ch, Cout) of each block of ``model.blocks`` that
-    :func:`fold_blocks` sends to the fused-block kernel, for square
-    ``size`` input behind the stride-2 stem: the shapes the main path
-    gives the kernel."""
+    """(index, H, W, Cin, Ch, Cout, stride) of each block of
+    ``model.blocks`` that :func:`fold_blocks` sends to the fused-block
+    kernel, for square ``size`` input behind the stride-2 stem (H, W: the
+    block's input map): the shapes the main path gives the kernel."""
     from nnstreamer_tpu_torch.ops.fused_block import fused_block_eligible
 
     out, hw = [], -(-size // 2)
@@ -282,7 +284,7 @@ def kernel_block_shapes(model, size: int):
             cin = blk.dw_conv.in_channels if blk.expand_conv is None \
                 else blk.expand_conv.in_channels
             out.append((i, hw, hw, cin, blk.dw_conv.out_channels,
-                        blk.proj_conv.out_channels))
+                        blk.proj_conv.out_channels, blk.stride))
         hw = -(-hw // blk.stride)
     return out
 

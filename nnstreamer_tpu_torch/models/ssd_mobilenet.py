@@ -20,9 +20,9 @@ BatchNorm of the backbone and the extra blocks by the batch's statistics,
 :func:`models.batch_norm_train`, the raw ``(boxes, scores)`` out, also
 for a ``postproc:pp`` bundle, as in the JAX package); and
 :func:`_make_fused_apply` (BatchNorm folded, again after a trainer
-changed the weights; the 13 stride-1 blocks through the fused-block
-kernel on CUDA with ``fused:pallas``, the 4 stride-2 blocks and every
-``fused:xla`` block through three convolutions). The 12 head convolutions
+changed the weights; the 17 backbone blocks, 13 stride-1 and 4
+stride-2, through the fused-block kernel on CUDA with ``fused:pallas``,
+every ``fused:xla`` block through three convolutions). The 12 head convolutions
 are plain ``F.conv2d`` with bias, as the JAX package computes them
 outside any Pallas kernel. Each head's NCHW output is permuted to NHWC before it is
 flattened, so the anchors come in the priors file's (y, x, anchor) order.

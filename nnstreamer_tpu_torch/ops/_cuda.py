@@ -82,7 +82,7 @@ _SIGNATURES = {
     "nnstpu_arith_chain": [_P, _P, _LL, _I, _I, _P, _P, _I, _I, _F, _F, _I,
                            _P],
     "nnstpu_fused_inverted_residual": [_P, _P, _P, _P, _I, _P, _I, _P],
-    "nnstpu_fused_attributes": [_I, _LL, _P],
+    "nnstpu_fused_attributes": [_I, _I, _LL, _P],
     "nnstpu_flash_attention": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
     "nnstpu_flash_chunk": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
     "nnstpu_flash_attributes": [_I, _I, _I, _P],
@@ -154,6 +154,29 @@ def bill_launch(name: str, plain, *args, **kwargs) -> None:
     sink = getattr(_bill, "sink", None)
     if sink is not None:
         sink(name, plain, args, kwargs)
+
+
+#: per thread: depth of :func:`kernel_resident` blocks
+_resident = threading.local()
+
+
+@contextlib.contextmanager
+def kernel_resident():
+    """Within the block, this thread runs a kernel's plain version in the
+    kernel's place on ``meta`` tensors (the cost model's data-free run):
+    what the plain version allocates there is what the kernel keeps on
+    chip, in shared memory and registers, so analysis/costmodel.py's
+    live-bytes count leaves it out (:func:`in_kernel_resident`)."""
+    prev = getattr(_resident, "depth", 0)
+    _resident.depth = prev + 1
+    try:
+        yield
+    finally:
+        _resident.depth = prev
+
+
+def in_kernel_resident() -> bool:
+    return getattr(_resident, "depth", 0) > 0
 
 
 def on_cpu(x: torch.Tensor) -> bool:

@@ -13,18 +13,18 @@ expand == 1), ``wd`` [9, Ch] tap-major, ``w2`` [Ch, Cout], float32 biases
 ``b1``/``bd``/``b2``.
 
 Three functions compute the block:
-  - :func:`fused_inverted_residual`, the kernel's wrapper: a stride-1
-    block on a CUDA tensor launches the kernel for every shape (it masks
-    ragged tiles itself, so there is no counterpart of
-    ``_tiling_valid``/``fused_block_eligible``); a CPU tensor runs the
-    plain version; a stride-2 block goes to :func:`inverted_residual_conv`,
-    as the JAX function sends it to ``inverted_residual_xla``;
+  - :func:`fused_inverted_residual`, the kernel's wrapper: a stride-1 or
+    stride-2 block on a CUDA tensor launches the kernel for every shape
+    (it masks ragged tiles itself, so there is no counterpart of
+    ``_tiling_valid`` or of the JAX function's stride-2 route to
+    ``inverted_residual_xla``: the kernel has a stride-2 body); a CPU
+    tensor runs the plain version;
   - :func:`inverted_residual_plain`, the kernel's plain version: the
     kernel's rounding points spelled out in PyTorch (the CPU tests' path
     and the kernel's oracle on the card);
   - :func:`inverted_residual_conv`, the counterpart of
-    ``inverted_residual_xla``: three convolutions, as the JAX package runs
-    the stride-2 blocks and ``fused:xla`` outside any Pallas kernel.
+    ``inverted_residual_xla``: three convolutions, as ``fused:xla`` and
+    the dilated blocks run outside any kernel.
 
 :func:`inverted_residual_auto` routes a block between the first and the
 last (the counterpart of the JAX function of that name), and
@@ -170,7 +170,8 @@ def inverted_residual_conv(x: torch.Tensor, folded: Dict[str, Any], *,
                            ) -> torch.Tensor:
     """The block as three convolutions on NHWC tensors — the counterpart of
     the JAX package's ``inverted_residual_xla``, which runs outside any
-    Pallas kernel (the stride-2 and dilated blocks, and ``fused:xla``).
+    Pallas kernel (the dilated blocks and ``fused:xla``; the JAX package
+    also sends its stride-2 blocks there, the port's kernel runs them).
 
     The NHWC tensors are viewed as channels-last NCHW (no copy) for
     ``F.conv2d``: the 1x1 convs and the depthwise conv (``groups=Ch``) with
@@ -293,11 +294,12 @@ def conv_apply(w: torch.Tensor, bias: Optional[torch.Tensor], *,
 
 
 def fused_block_eligible(stride: int, dilation: int = 1) -> bool:
-    """Whether a block runs the fused kernel: stride 1, undilated. The
+    """Whether a block runs the fused kernel: stride 1 or 2, undilated. The
     kernel masks ragged row tiles and plans every map size itself, so
     there is no counterpart of the JAX package's shape gate
-    (``_tiling_valid``, the tile budget) and no environment opt-out."""
-    return stride == 1 and dilation == 1
+    (``_tiling_valid``, the tile budget, its stride-1 rule) and no
+    environment opt-out."""
+    return stride in (1, 2) and dilation == 1
 
 
 def inverted_residual_auto(x: torch.Tensor, folded: Dict[str, Any], *,
@@ -308,8 +310,9 @@ def inverted_residual_auto(x: torch.Tensor, folded: Dict[str, Any], *,
     """The counterpart of the JAX package's ``inverted_residual_auto``: a
     block :func:`fused_block_eligible` accepts goes to
     :func:`fused_inverted_residual` (the kernel on a CUDA tensor, its plain
-    version on a CPU one), every other block (stride 2, dilated) to
-    :func:`inverted_residual_conv`."""
+    version on a CPU one), every other block (dilated) to
+    :func:`inverted_residual_conv`. The JAX function also sends stride-2
+    blocks to its convolutions; the port's kernel runs them."""
     if fused_block_eligible(stride, dilation):
         return fused_inverted_residual(x, folded, stride=stride,
                                        residual=residual,
@@ -332,25 +335,34 @@ class FusedPlan(NamedTuple):
     variant: int   # index into _TC_VARIANTS ("tc"); -1 ("fma")
     WM: int        # warps along pixels; the rest along channels ("tc")
     smem: int      # dynamic shared memory bytes per CTA
+    stride: int = 1  # the depthwise stride (1 or 2)
 
 
 def _r16(v: int) -> int:
     return -(-v // 16) * 16
 
 
+def _hidden_tile(R: int, W: int, stride: int) -> Tuple[int, int]:
+    """(rows, columns) of the hidden tile behind R output rows of a W-wide
+    input: the depthwise window's input rows and the padded map's width
+    (R + 2 and W + 2 at stride 1)."""
+    return (R - 1) * stride + 3, (-(-W // stride) - 1) * stride + 3
+
+
 def _tc_smem(H: int, W: int, Cin: int, Cout: int, R: int, Cc: int,
-             expand: bool) -> int:
+             expand: bool, stride: int = 1) -> int:
     """Dynamic shared memory of the bfloat16 kernel: two input buffers,
     two weight buffers, the hidden tile, the depthwise output (aliased by
     the output stage) and b2. Keep in step with csrc/fused_block.cu
     make_layout, which refuses a launch given less."""
     cin_p, cout_p = _r16(Cin), _r16(Cout)
-    xs = _r16(2 * _r16(min(R + 2, H) * W) * (cin_p + 8))
+    hr, wh = _hidden_tile(R, W, stride)
+    xs = _r16(2 * _r16(min(hr, H) * W) * (cin_p + 8))
     wd = (_r16(2 * cin_p * (Cc + 8)) if expand else 0) + _r16(
         2 * Cc * (cout_p + 8))
     wbuf = wd + _r16(2 * 9 * Cc) + 2 * _r16(4 * Cc)
-    hid = _r16(2 * (R + 2) * (W + 2) * (Cc + 8))
-    stage = _r16(2 * _r16(R * W) * max(Cc + 8, cout_p + 8))
+    hid = _r16(2 * hr * wh * (Cc + 8))
+    stage = _r16(2 * _r16(R * -(-W // stride)) * max(Cc + 8, cout_p + 8))
     return 2 * xs + 2 * wbuf + hid + stage + _r16(4 * cout_p)
 
 
@@ -369,51 +381,65 @@ def _tc_fit(R: int, W: int, Cout: int) -> Optional[Tuple[int, int]]:
 
 @functools.lru_cache(maxsize=None)
 def _plan_tiles(H: int, W: int, Cin: int, Ch: int, Cout: int,
-                itemsize: int, expand: bool = True) -> FusedPlan:
+                itemsize: int, expand: bool = True,
+                stride: int = 1) -> FusedPlan:
     """The launch plan for one block shape (cached: the per-call host path
-    is a lookup).
+    is a lookup). R counts output rows, of the Ho x Wo output map.
 
-    bfloat16 (itemsize 2): the most rows per work item with R*W at most
-    ``_TC_MAX_PIXELS`` (whole images at 14x14 and 7x7, so nothing is
-    recomputed; 4-14 rows at 28x28 and up), split evenly over H; the hidden
-    chunk that pads Ch least (largest first); the variant with the fewest
-    accumulators that covers R*W x Cout; all within ``_SMEM_BUDGET``,
-    shrinking the chunk and then R.
+    bfloat16 (itemsize 2): the most rows per work item with R*Wo at most
+    ``_TC_MAX_PIXELS`` (whole images at 14x14 and 7x7 outputs, so nothing
+    is recomputed; 4-14 rows at 28x28 and up), split evenly over Ho; the
+    hidden chunk that pads Ch least (largest first); the variant with the
+    fewest accumulators that covers R*Wo x Cout; all within
+    ``_SMEM_BUDGET``, shrinking the chunk and then R. At stride 2 an
+    item stages 2R+1 input rows, four times the pixels of its output, so
+    the hidden chunks of 32 channels and more come first over every R and
+    16 only where none of them fits: a taller tile would save one
+    recomputed input row in 2R+1, a narrower chunk costs a pass over the
+    staged input per 16 channels.
 
-    float32 (itemsize 4): R*W*CoT fits the FMA kernel's register
+    float32 (itemsize 4): R*Wo*CoT fits the FMA kernel's register
     accumulators (``_MAX_OUTPUTS``); the shared-memory tiles fit the budget,
     shrinking the hidden chunk first and then the row tile."""
+    if stride not in (1, 2):
+        raise ValueError(f"fused block: no kernel for stride {stride}")
+    Ho, Wo = -(-H // stride), -(-W // stride)
     if itemsize == 2:
         chunks = sorted(_TC_CHUNKS, key=lambda c: (-(-Ch // c) * c - Ch, -c))
-        rows = sorted({-(-H // n) for n in range(1, H + 1)}, reverse=True)
-        for r in rows:
-            if r > 1 and r * W > _TC_MAX_PIXELS:
-                continue
-            fit = _tc_fit(r, W, Cout)
-            if fit is None:
-                continue
-            for cc in chunks:
-                smem = _tc_smem(H, W, Cin, Cout, r, cc, expand)
-                if smem <= _SMEM_BUDGET:
-                    return FusedPlan("tc", r, cc, Cout, fit[0], fit[1], smem)
+        tiers = [chunks] if stride == 1 else [
+            [c for c in chunks if c >= 32], [16]]
+        rows = sorted({-(-Ho // n) for n in range(1, Ho + 1)}, reverse=True)
+        for tier in tiers:
+            for r in rows:
+                if r > 1 and r * Wo > _TC_MAX_PIXELS:
+                    continue
+                fit = _tc_fit(r, Wo, Cout)
+                if fit is None:
+                    continue
+                for cc in tier:
+                    smem = _tc_smem(H, W, Cin, Cout, r, cc, expand, stride)
+                    if smem <= _SMEM_BUDGET:
+                        return FusedPlan("tc", r, cc, Cout, fit[0], fit[1],
+                                         smem, stride)
         raise ValueError(f"fused block: no bfloat16 plan for H={H} W={W} "
-                         f"Cin={Cin} Ch={Ch} Cout={Cout} within "
-                         f"{_SMEM_BUDGET} bytes of shared memory and "
+                         f"Cin={Cin} Ch={Ch} Cout={Cout} stride={stride} "
+                         f"within {_SMEM_BUDGET} bytes of shared memory and "
                          f"{_TC_WARPS} warps of {_TC_VARIANTS} fragments")
     if itemsize != 4:
         raise ValueError(f"fused block: no kernel for itemsize {itemsize}")
-    if W > _MAX_OUTPUTS:
-        raise ValueError(f"fused block: width {W} exceeds the kernel's "
-                         f"{_MAX_OUTPUTS}-output tile")
-    cot = min(Cout, _MAX_OUTPUTS // W)
-    r_max = min(H, max(1, _MAX_OUTPUTS // (W * cot)))
-    n_tiles = -(-H // r_max)
-    r = -(-H // n_tiles)  # even split of H into the fewest tiles
+    if Wo > _MAX_OUTPUTS:
+        raise ValueError(f"fused block: output width {Wo} exceeds the "
+                         f"kernel's {_MAX_OUTPUTS}-output tile")
+    cot = min(Cout, _MAX_OUTPUTS // Wo)
+    r_max = min(Ho, max(1, _MAX_OUTPUTS // (Wo * cot)))
+    n_tiles = -(-Ho // r_max)
+    r = -(-Ho // n_tiles)  # even split of Ho into the fewest tiles
     cc = min(32, Ch)
 
     def smem(r, cc):
-        return 4 * ((r + 2) * W * Cin + (r + 2) * (W + 2) * cc
-                    + r * W * cc + Cin * cc + cc * cot)
+        hr, wh = _hidden_tile(r, W, stride)
+        return 4 * (hr * W * Cin + hr * wh * cc + r * Wo * cc + Cin * cc
+                    + cc * cot)
 
     while smem(r, cc) > _SMEM_BUDGET:
         if cc > 8:
@@ -425,15 +451,15 @@ def _plan_tiles(H: int, W: int, Cin: int, Ch: int, Cout: int,
                 f"fused block: H={H} W={W} Cin={Cin} needs "
                 f"{smem(r, cc)} bytes of shared memory per CTA, more "
                 f"than {_SMEM_BUDGET}")
-    return FusedPlan("fma", r, cc, cot, -1, 0, smem(r, cc))
+    return FusedPlan("fma", r, cc, cot, -1, 0, smem(r, cc), stride)
 
 
 def fused_kernel_attributes(plan: FusedPlan) -> dict:
     """What the kernel of ``plan`` asks of the current CUDA device:
     registers per thread, dynamic shared memory and resident CTAs per SM."""
     out = (ctypes.c_int * 3)()
-    _cuda.check(_cuda.lib().nnstpu_fused_attributes(plan.variant, plan.smem,
-                                                    out),
+    _cuda.check(_cuda.lib().nnstpu_fused_attributes(plan.variant, plan.stride,
+                                                    plan.smem, out),
                 "fused_kernel_attributes")
     return dict(zip(("registers", "dynamic_smem_bytes", "ctas_per_sm"), out))
 
@@ -513,28 +539,31 @@ def _weights(folded: Dict[str, Any], cd: torch.dtype, device) -> _Weights:
 
 
 def _launch_fields(w: _Weights, H: int, W: int, residual: bool,
-                   cd: torch.dtype, dev: int) -> List[int]:
+                   cd: torch.dtype, dev: int, stride: int = 1) -> List[int]:
     """The plan of one block and input size in the C entry point's F_*
     order (csrc/fused_block.cu): R, CoT, Cc, variant, WM, grid, residual,
-    shared-memory bytes. The grid is the card's resident CTAs (the kernel
-    caps it at the batch's work items). Both routes to the kernel pass it:
-    the ctypes launch below and the TorchScript op under tracing."""
+    shared-memory bytes, the stride and the SAME pads before the rows and
+    the columns. The grid is the card's resident CTAs (the kernel caps it
+    at the batch's work items). Both routes to the kernel pass it: the
+    ctypes launch below and the TorchScript op under tracing, whose output
+    map the C side derives from the same fields."""
     plan = _plan_tiles(H, W, w.Cin, w.Ch, w.Cout, torch.finfo(cd).bits // 8,
-                       w.ptrs[0] != 0)
+                       w.ptrs[0] != 0, stride)
     grid = _resident_ctas(plan, dev) if plan.kind == "tc" else 0
     return [plan.R, plan.CoT, plan.Cc, plan.variant, plan.WM, grid,
-            int(residual), plan.smem]
+            int(residual), plan.smem, stride, _same_pads(H, stride, 3)[0],
+            _same_pads(W, stride, 3)[0]]
 
 
 def _launch_params(w: _Weights, B: int, H: int, W: int, residual: bool,
-                   cd: torch.dtype, dev: int):
+                   cd: torch.dtype, dev: int, stride: int = 1):
     """The C entry point's fixed arguments for one block and input shape,
     as host arrays built once: the weight pointers, the shape (B, H, W,
     Cin, Ch, Cout), the dtype code and :func:`_launch_fields`."""
-    key = (B, H, W, residual, cd, dev)
+    key = (B, H, W, residual, cd, dev, stride)
     params = w.launches.get(key)
     if params is None:
-        fields = _launch_fields(w, H, W, residual, cd, dev)
+        fields = _launch_fields(w, H, W, residual, cd, dev, stride)
         params = w.launches[key] = (
             (ctypes.c_void_p * 6)(*[p or None for p in w.ptrs]),
             (ctypes.c_longlong * 6)(B, H, W, w.Cin, w.Ch, w.Cout),
@@ -551,20 +580,29 @@ def fused_inverted_residual(x: torch.Tensor, folded: Dict[str, Any], *,
     """Run one inverted-residual block as a single fused kernel.
 
     x: [B, H, W, Cin]; folded: w1/b1 (absent for expand=1), wd [9, Ch],
-    bd, w2 [Ch, Cout], b2. Returns [B, H, W, Cout] in compute_dtype. A
-    stride-2 block runs :func:`inverted_residual_conv`. The weights are
+    bd, w2 [Ch, Cout], b2; stride 1 or 2 (TF "SAME" pads). Returns
+    [B, ceil(H/stride), ceil(W/stride), Cout] in compute_dtype; only a
+    stride-1 block with Cin == Cout adds the residual. The weights are
     cast and checked once per folded dict, and the plan and the launch
     arguments once per input shape, so a call costs the input checks and
     one launch. Under ``torch.jit.trace`` a CUDA tensor takes the
     TorchScript op (ops/_script_ops.py) with the same plan, which the trace
     records."""
-    if stride != 1:
-        return inverted_residual_conv(x, folded, stride=stride,
-                                      residual=residual,
-                                      compute_dtype=compute_dtype)
+    _cuda.require(stride in (1, 2),
+                  f"fused block runs stride 1 or 2, not {stride}")
     if _cuda.plain_route(x):
-        return inverted_residual_plain(x, folded, residual=residual,
-                                       compute_dtype=compute_dtype)
+        if x.device.type != "meta":
+            return inverted_residual_plain(x, folded, stride=stride,
+                                           residual=residual,
+                                           compute_dtype=compute_dtype)
+        # the cost model's run: the kernel keeps the hidden tensor and the
+        # depthwise output on chip, and its one allocation in device
+        # memory is its output, as a pallas_call is one equation of a jaxpr
+        with _cuda.kernel_resident():
+            out = inverted_residual_plain(x, folded, stride=stride,
+                                          residual=residual,
+                                          compute_dtype=compute_dtype)
+        return torch.empty_like(out)
     cd = compute_dtype
     _cuda.require(cd in (torch.float32, torch.bfloat16),
                   f"fused block computes in float32 or bfloat16, not {cd}")
@@ -574,8 +612,9 @@ def fused_inverted_residual(x: torch.Tensor, folded: Dict[str, Any], *,
     _cuda.require(Cin == w.Cin, f"x has {Cin} channels, the block takes "
                   f"{w.Cin}")
     if residual is None:
-        residual = Cin == w.Cout
-    _cuda.require(not residual or Cin == w.Cout, "residual needs Cin == Cout")
+        residual = stride == 1 and Cin == w.Cout
+    _cuda.require(not residual or (stride == 1 and Cin == w.Cout),
+                  "residual needs stride 1 and Cin == Cout")
     xc = x if x.dtype == cd and x.is_contiguous() else x.to(cd).contiguous()
     dev = x.device.index
     if dev is None:
@@ -584,9 +623,11 @@ def fused_inverted_residual(x: torch.Tensor, folded: Dict[str, Any], *,
         from nnstreamer_tpu_torch.ops import _script_ops
 
         return _script_ops.fused_inverted_residual(
-            xc, w.tensors, _launch_fields(w, H, W, bool(residual), cd, dev))
-    out = torch.empty((B, H, W, w.Cout), dtype=cd, device=x.device)
-    params = _launch_params(w, B, H, W, bool(residual), cd, dev)
+            xc, w.tensors,
+            _launch_fields(w, H, W, bool(residual), cd, dev, stride))
+    out = torch.empty((B, -(-H // stride), -(-W // stride), w.Cout),
+                      dtype=cd, device=x.device)
+    params = _launch_params(w, B, H, W, bool(residual), cd, dev, stride)
     lib = _cuda.launcher("fused_inverted_residual")
     args = (xc.data_ptr(), out.data_ptr(), *params, _cuda.stream_handle(x))
     if torch.cuda.current_device() == dev:
@@ -597,5 +638,6 @@ def fused_inverted_residual(x: torch.Tensor, folded: Dict[str, Any], *,
     _cuda.check(err, "fused_inverted_residual")
     _cuda.count_launch("fused_inverted_residual")
     _cuda.bill_launch("fused_inverted_residual", inverted_residual_plain, x,
-                      folded, residual=bool(residual), compute_dtype=cd)
+                      folded, stride=stride, residual=bool(residual),
+                      compute_dtype=cd)
     return out

@@ -180,6 +180,101 @@ class TestProgramCost:
         with pytest.raises(ValueError, match="no kernel"):
             _cuda.on_cpu(meta)
 
+    @pytest.mark.parametrize("stride,size", [(1, 16), (2, 16), (2, 15)])
+    def test_fused_block_bills_its_output_not_its_hidden_tensor(
+            self, stride, size):
+        """The meta run bills the fused block as the card holds it: its
+        output in device memory, its hidden tensor and depthwise output on
+        chip (the reference's walk sees a pallas_call as one equation).
+        The flops stay the plain version's; the plain version called
+        directly still bills what it materializes."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from nnstreamer_tpu_torch.ops import _cuda
+        from nnstreamer_tpu_torch.ops.fused_block import (
+            fused_inverted_residual,
+            inverted_residual_plain,
+        )
+
+        cin, ch, cout, B = 16, 96, 24, 2
+        rng = np.random.default_rng(5)
+        fw = {k: torch.from_numpy(rng.normal(0, 0.3, s).astype(np.float32))
+              .to("meta") for k, s in (("w1", (cin, ch)), ("b1", (ch,)),
+                                       ("wd", (9, ch)), ("bd", (ch,)),
+                                       ("w2", (ch, cout)), ("b2", (cout,)))}
+        shape = [ShapeDtype((B, size, size, cin), np.float32)]
+        out_bytes = B * (-(-size // stride)) ** 2 * cout * 2
+
+        def kernel(params, x):
+            return fused_inverted_residual(x, params, stride=stride)
+
+        def plain(params, x):
+            return inverted_residual_plain(x, params, stride=stride)
+
+        k = program_cost(kernel, fw, shape)
+        p = program_cost(plain, fw, shape)
+        base = k["param_bytes"] + k["bytes_read"]
+        assert k["output_bytes"] == p["output_bytes"] == out_bytes
+        assert k["peak_live_bytes"] == base + out_bytes
+        # the plain version materializes the hidden tensor (B*H*W*Ch)
+        assert p["peak_live_bytes"] > base + B * size * size * ch * 2
+        assert k["flops"] == p["flops"] > 0
+        assert not _cuda.in_kernel_resident()
+        # outside the cost model the scope changes nothing
+        with FlopCounterMode(display=False):
+            got = fused_inverted_residual(
+                torch.zeros((B, size, size, cin), device="meta"), fw,
+                stride=stride, compute_dtype=torch.float32)
+        assert got.device.type == "meta" and got.dtype == torch.float32
+
+    def test_card_blocks_follow_the_caching_allocator(self):
+        """For a filter on the card each storage bills the block the CUDA
+        caching allocator keeps from a fresh segment: from 10 MiB up the
+        2 MiB-rounded segment when at most 1 MiB would be left over (the
+        sizes of the flagship's batch-128 stem: the preamble's float32
+        output, the padded input, the stem's output, cuDNN's widened
+        copy), else the request."""
+        from nnstreamer_tpu_torch.analysis.costmodel import card_block_bytes
+
+        mib = 1 << 20
+        assert card_block_bytes(32) == 32
+        assert card_block_bytes(9 * mib + 1) == 9 * mib + 1
+        assert card_block_bytes(77_070_336) == 77_594_624
+        assert card_block_bytes(38_880_000) == 39_845_888
+        assert card_block_bytes(102_760_448) == 102_760_448  # 49 x 2 MiB
+        assert card_block_bytes(103_680_000) == 103_680_000  # 1.12 MiB over
+
+    @pytest.mark.parametrize("dtype,cin,groups,want", [
+        ("bfloat16", 3, 1, 1), ("float16", 3, 1, 1), ("float32", 3, 1, 0),
+        ("bfloat16", 8, 1, 0), ("bfloat16", 6, 3, 0)])
+    def test_card_bills_cudnns_widened_stem_input(self, dtype, cin, groups,
+                                                  want):
+        """A 16-bit convolution whose input channels are no multiple of 8
+        (the stems' 3) bills cuDNN's copy of its input widened to 8
+        channels beside its output, up to the allocator's 2 MiB segment,
+        for a filter on the card only."""
+        from nnstreamer_tpu_torch.analysis.costmodel import (
+            cudnn_workspace_bytes,
+        )
+
+        dt = getattr(torch, dtype)
+        w = torch.empty((8, cin // groups, 3, 3), dtype=dt, device="meta")
+
+        def conv(params, x):
+            return torch.nn.functional.conv2d(
+                x.to(dt).permute(0, 3, 1, 2), w, stride=2, groups=groups)
+
+        shape = [ShapeDtype((4, 33, 33, cin), np.float32)]
+        host, card = (program_cost(conv, {}, shape, card=c)
+                      for c in (False, True))
+        ws = -(-4 * 33 * 33 * 8 * 2 // (2 << 20)) * (2 << 20)
+        assert card["peak_live_bytes"] - host["peak_live_bytes"] == want * ws
+        x = torch.empty((4, cin, 33, 33), dtype=dt, device="meta")
+        args = (x, w, None, [2, 2], [0, 0], [1, 1], False, [0, 0], groups)
+        assert cudnn_workspace_bytes(torch.ops.aten.convolution.default,
+                                     args) == want * ws
+        assert cudnn_workspace_bytes(torch.ops.aten.add.Tensor, args) == 0
+
 
 class TestMfuTable:
     def test_analyzer_flops_match_recorded_count(self):

@@ -3,9 +3,9 @@
 The same folded weights and inputs (numpy, from a seed) go through the JAX
 Pallas kernel in interpret mode and its XLA path, and through the port's
 ``fused_inverted_residual`` — which on a CPU tensor runs
-``inverted_residual_plain`` (stride 1) or ``inverted_residual_conv``
-(stride 2); chip_smoke.py holds the CUDA kernel against that plain version
-on the card. ``inverted_residual_conv`` is held against the JAX
+``inverted_residual_plain`` at stride 1 and 2 (the JAX function sends a
+stride-2 block to ``inverted_residual_xla``); chip_smoke.py holds the CUDA
+kernel against that plain version on the card. ``inverted_residual_conv`` is held against the JAX
 ``inverted_residual_xla``. Tolerances are the JAX package's own
 (tests/test_fused_block.py): float32 compute, 1e-4 against the folded
 paths, 2e-4 against the flax module; bfloat16 compute at 2^-6 absolute and
@@ -42,6 +42,7 @@ from nnstreamer_tpu_torch.ops.fused_block import (  # noqa: E402
     _launch_fields,
     _launch_params,
     _plan_tiles,
+    _same_pads,
     _tc_smem,
     _weights,
     fold_inverted_residual,
@@ -96,6 +97,57 @@ def test_block_matches_jax_kernel_and_xla(stride, expand, size, cin, cout):
     assert got.shape == want_xla.shape
     np.testing.assert_allclose(got, want_xla, atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(got, want_kernel, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("expand,size,cin,cout", [
+    (6, 8, 8, 16),    # even map: SAME pads (0, 1)
+    (6, 9, 8, 8),     # odd map: pads (1, 1); Cin == Cout, no residual
+    (6, 14, 16, 24),  # the flagship's first stride-2 block, narrow
+    (1, 10, 16, 16),  # expand=1
+    (1, 7, 8, 8),     # expand=1, odd
+])
+def test_stride2_block_matches_jax(dtype, expand, size, cin, cout):
+    """A stride-2 block through the port's fused_inverted_residual (on the
+    CPU its plain version, the kernel's oracle on the card) against the
+    JAX fused_inverted_residual(stride=2) and inverted_residual_xla, on
+    the same folded weights: float32 at 1e-4; bfloat16 at 2^-4, since the
+    JAX function's convolutions round each conv's output to bf16 before
+    its bias add (chip_smoke.py STRIDE2_TOL)."""
+    rng = np.random.default_rng(40 + size + expand)
+    ch = cin * expand
+    fw = _rand_folded(rng, cin, ch, cout, expand != 1)
+    x = rng.normal(0, 1, (2, size, size, cin)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    xj = jnp.asarray(x).astype(jdt)
+    want_xla = np.asarray(inverted_residual_xla(
+        xj, _jax(fw), stride=2, compute_dtype=jdt).astype(jnp.float32))
+    want_kernel = np.asarray(jax_fused(
+        xj, _jax(fw), stride=2, interpret=True,
+        compute_dtype=jdt).astype(jnp.float32))
+    got = fused_inverted_residual(torch.from_numpy(x).to(tdt), _torch(fw),
+                                  stride=2, compute_dtype=tdt)
+    assert got.dtype == tdt
+    assert tuple(got.shape) == want_xla.shape == (
+        2, -(-size // 2), -(-size // 2), cout)
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -4
+    np.testing.assert_allclose(got.float().numpy(), want_xla, atol=tol,
+                               rtol=tol)
+    np.testing.assert_allclose(got.float().numpy(), want_kernel, atol=tol,
+                               rtol=tol)
+
+
+def test_stride_must_be_1_or_2():
+    """The kernel has stride-1 and stride-2 bodies and no other; a
+    stride-2 block with Cin == Cout adds no residual."""
+    fw = _torch(_rand_folded(np.random.default_rng(12), 8, 48, 8, True))
+    x = torch.zeros((1, 8, 8, 8))
+    with pytest.raises(ValueError, match="stride 1 or 2"):
+        fused_inverted_residual(x, fw, stride=3, compute_dtype=torch.float32)
+    # on the CPU the plain version decides: stride 2 never adds the input
+    out = fused_inverted_residual(x + 1, fw, stride=2,
+                                  compute_dtype=torch.float32)
+    assert tuple(out.shape) == (1, 4, 4, 8)
 
 
 def test_prime_size_matches():
@@ -176,23 +228,27 @@ def _mbv2_stride1_shapes(size=224, width=1.0):
     return out
 
 
-def _assert_plan_fits(H, W, cin, ch, cout, itemsize, expand=True):
-    """The plan's limits, as the kernel checks them before a launch."""
-    plan = _plan_tiles(H, W, cin, ch, cout, itemsize, expand)
+def _assert_plan_fits(H, W, cin, ch, cout, itemsize, expand=True, stride=1):
+    """The plan's limits, as the kernel checks them before a launch (R
+    counts rows of the ceil(H/stride) x ceil(W/stride) output)."""
+    plan = _plan_tiles(H, W, cin, ch, cout, itemsize, expand, stride)
+    Ho, Wo = -(-H // stride), -(-W // stride)
+    assert plan.stride == stride
     assert plan.smem <= _SMEM_BUDGET
-    assert 1 <= plan.R <= H and 1 <= plan.Cc
+    assert 1 <= plan.R <= Ho and 1 <= plan.Cc
     if itemsize == 4:
         assert plan.kind == "fma" and 1 <= plan.CoT <= cout
-        assert plan.R * W * plan.CoT <= _MAX_OUTPUTS
+        assert plan.R * Wo * plan.CoT <= _MAX_OUTPUTS
         return plan
     fm, fn = _TC_VARIANTS[plan.variant]
     assert plan.kind == "tc" and plan.CoT == cout
     assert plan.Cc % 16 == 0 and plan.Cc <= 64
-    assert plan.R == 1 or plan.R * W <= _TC_MAX_PIXELS
-    # the warps' 16x16 project fragments cover R*W pixels x Cout channels
-    assert -(-plan.R * W // 16) <= fm * plan.WM
+    assert plan.R == 1 or plan.R * Wo <= _TC_MAX_PIXELS
+    # the warps' 16x16 project fragments cover R*Wo pixels x Cout channels
+    assert -(-plan.R * Wo // 16) <= fm * plan.WM
     assert -(-cout // 16) <= fn * (_TC_WARPS // plan.WM)
-    assert plan.smem == _tc_smem(H, W, cin, cout, plan.R, plan.Cc, expand)
+    assert plan.smem == _tc_smem(H, W, cin, cout, plan.R, plan.Cc, expand,
+                                 stride)
     return plan
 
 
@@ -212,8 +268,42 @@ def test_tile_plan_covers_every_main_path_shape():
     assert plan.R * 113 <= _TC_MAX_PIXELS
 
 
+def test_tile_plan_covers_the_stride2_shapes():
+    """MobileNet-v2's 4 stride-2 blocks (112, 56, 28 and 14 to half) have
+    a plan within the kernel's limits in bfloat16 and float32; the 14x14
+    -> 7x7 block takes whole images, and no bf16 plan stages more than
+    2R+1 input rows for R output rows."""
+    m = MobileNetV2(num_classes=8)
+    shapes, hw = [], 112
+    for blk in m.blocks:
+        if blk.stride == 2:
+            shapes.append((hw, blk.expand_conv.in_channels,
+                           blk.dw_conv.out_channels,
+                           blk.proj_conv.out_channels))
+        hw = -(-hw // blk.stride)
+    assert shapes == [(112, 16, 96, 24), (56, 24, 144, 32),
+                      (28, 32, 192, 64), (14, 96, 576, 160)]
+    for itemsize in (2, 4):
+        for H, cin, ch, cout in shapes:
+            plan = _assert_plan_fits(H, H, cin, ch, cout, itemsize,
+                                     stride=2)
+            if itemsize == 2 and H == 14:
+                assert plan.R == 7
+            if itemsize == 2:  # wider chunks first at stride 2
+                assert plan.Cc >= 32
+    # odd maps: SSD's 75 and 19, DeepLab's 129, 65 and 33
+    for H, cin, ch, cout in ((75, 24, 144, 32), (19, 96, 576, 160),
+                             (129, 16, 96, 24), (65, 24, 144, 32),
+                             (33, 32, 192, 64)):
+        for itemsize in (2, 4):
+            _assert_plan_fits(H, H, cin, ch, cout, itemsize, stride=2)
+    with pytest.raises(ValueError, match="stride 3"):
+        _plan_tiles(16, 16, 8, 48, 8, 2, True, 3)
+
+
 def test_kernel_variants_match_the_source():
-    """The planner's (FM, FN) table is the kernel's instantiation table."""
+    """The planner's (FM, FN) table is the kernel's instantiation table,
+    at both strides."""
     src = open(os.path.join(_cuda.CSRC, "fused_block.cu")).read()
     table = re.search(r"kVariants\[\]\[2\] = \{(.*?)\};", src).group(1)
     pairs = tuple(tuple(int(v) for v in m)
@@ -221,7 +311,10 @@ def test_kernel_variants_match_the_source():
     assert pairs == _TC_VARIANTS
     for v, (fm, fn) in enumerate(_TC_VARIANTS):
         assert f"case {v}: return reinterpret_cast<const void*>(" \
-               f"&fused_ir_tc_kernel<{fm}, {fn}>);" in src
+               f"&fused_ir_tc_kernel<{fm}, {fn}, S>);" in src
+        assert f"case {v}: fused_ir_tc_kernel<{fm}, {fn}, S><<<" in src
+    assert "tc_kernel_s<1>(idx)" in src and "tc_kernel_s<2>(" in src
+    assert "launch_tc_s<1>(" in src and "launch_tc_s<2>(" in src
 
 
 #: (stride, expand, dilation, size, cin, cout, residual)
@@ -346,9 +439,47 @@ def test_launch_params_follow_the_c_layout():
     plan = _plan_tiles(9, 11, 8, 48, 8, 4, True)
     want = {"F_R": plan.R, "F_COT": plan.CoT, "F_CC": plan.Cc,
             "F_VARIANT": -1, "F_GRID": 0, "F_RESIDUAL": 1,
-            "F_SMEM": plan.smem}
+            "F_SMEM": plan.smem, "F_STRIDE": 1, "F_PADT": 1, "F_PADL": 1}
+    assert set(want) | {"F_WM", "F_COUNT"} == set(idx)
     assert {k: fields[idx[k]] for k in want} == want
     assert list(fields) == _launch_fields(w, 9, 11, True, torch.float32, 0)
+
+
+@pytest.mark.parametrize("H,W,pads", [(8, 8, (0, 0)), (9, 11, (1, 1)),
+                                      (10, 7, (0, 1)), (113, 112, (1, 0))])
+def test_launch_fields_carry_stride_and_pads(monkeypatch, H, W, pads):
+    """At stride 2 the launch fields carry the stride and the TF SAME pads
+    before the rows and the columns, (0, 1) on an even size and (1, 1) on
+    an odd one (PyTorch's symmetric padding=1 is wrong at every even
+    size), and the stride-2 plan; the cached arrays are keyed by stride.
+    The bfloat16 grid (the card's resident CTAs) is faked here."""
+    from nnstreamer_tpu_torch.ops import fused_block as fb
+
+    monkeypatch.setattr(fb, "_resident_ctas", lambda plan, dev: 132)
+    src = open(os.path.join(_cuda.CSRC, "fused_block.cu")).read()
+    names = re.findall(r"F_[A-Z0-9]+", re.search(
+        r"enum \{\s*(F_R,.*?F_COUNT)\s*\};", src, re.S).group(1))
+    idx = {n: i for i, n in enumerate(names)}
+    for size, pad in ((H, pads[0]), (W, pads[1])):
+        assert _same_pads(size, 2, 3) == (pad, 1)
+        assert _same_pads(size, 1, 3) == (1, 1)
+    for cd in (torch.float32, torch.bfloat16):
+        w = _weights(_torch(_rand_folded(np.random.default_rng(11), 8, 48, 16,
+                                         True)), cd, torch.device("cpu"))
+        s2 = _launch_params(w, 2, H, W, False, cd, 0, 2)
+        s1 = _launch_params(w, 2, H, W, False, cd, 0)
+        assert s2 is not s1 and s2 is _launch_params(w, 2, H, W, False, cd,
+                                                     0, 2)
+        fields = list(s2[3])
+        assert fields == _launch_fields(w, H, W, False, cd, 0, 2)
+        assert (fields[idx["F_STRIDE"]], fields[idx["F_PADT"]],
+                fields[idx["F_PADL"]]) == (2, *pads)
+        assert list(s1[3])[idx["F_STRIDE"]:] == [1, 1, 1]
+        plan = _plan_tiles(H, W, 8, 48, 16, torch.finfo(cd).bits // 8, True,
+                           2)
+        assert fields[idx["F_R"]] == plan.R
+        assert fields[idx["F_SMEM"]] == plan.smem
+        assert fields[idx["F_RESIDUAL"]] == 0
 
 
 @pytest.mark.parametrize("model,size", [("ssd_mobilenet", 300),
@@ -356,8 +487,8 @@ def test_launch_params_follow_the_c_layout():
 def test_tile_plan_covers_ssd_and_deeplab_shapes(model, size):
     """Every block shape the SSD (300 px) and DeepLab (257 px) lines give
     the kernel — 150², 75², 38², 19², 10² and 129², 65², 33², 17², ragged
-    tiles and an expand-1 block among them — has a plan within the
-    kernel's limits, in bfloat16 and float32."""
+    tiles, an expand-1 block and the stride-2 blocks (odd maps among them)
+    — has a plan within the kernel's limits, in bfloat16 and float32."""
     import importlib
 
     from nnstreamer_tpu_torch.models.mobilenet_v2 import kernel_block_shapes
@@ -366,16 +497,19 @@ def test_tile_plan_covers_ssd_and_deeplab_shapes(model, size):
     m = getattr(mod, {"ssd_mobilenet": "SSDMobileNetV2",
                       "deeplab_v3": "DeepLabV3"}[model])()
     shapes = kernel_block_shapes(m, size)
-    assert len(shapes) == (13 if model == "ssd_mobilenet" else 10)
+    assert len(shapes) == (17 if model == "ssd_mobilenet" else 13)
+    assert sum(s[-1] == 2 for s in shapes) == (
+        4 if model == "ssd_mobilenet" else 3)
     for itemsize in (2, 4):
-        for _, H, W, cin, ch, cout in shapes:
-            _assert_plan_fits(H, W, cin, ch, cout, itemsize, expand=ch != cin)
+        for _, H, W, cin, ch, cout, stride in shapes:
+            _assert_plan_fits(H, W, cin, ch, cout, itemsize, expand=ch != cin,
+                              stride=stride)
 
 
 @pytest.mark.parametrize("stride,dilation,size", [
     (1, 1, 19),   # the kernel's route (its plain version here)
     (1, 1, 10),
-    (2, 1, 19),   # stride 2: the convolutions
+    (2, 1, 19),   # stride 2: the kernel's route (JAX: its convolutions)
     (1, 2, 17),   # dilated (DeepLab's output-stride trick): the convolutions
 ])
 def test_auto_matches_jax_auto(stride, dilation, size):
@@ -442,3 +576,15 @@ def test_fold_conv_bn_apply_matches_jax(k, stride, groups, dilation, act):
         torch.from_numpy(x)).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_probe_tool_runs_only_on_a_card():
+    """tools/fused_block_probe.py (the plan sweep and the memory probe)
+    raises without a card, as the port's other probes do."""
+    from nnstreamer_tpu_torch.tools import fused_block_probe
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    for probe in ("plans", "memory"):
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            fused_block_probe.main([probe])

@@ -93,16 +93,16 @@ def test_xla_forward_matches_jax_fused_xla(flax_model):
 
 
 @pytest.mark.parametrize("mode,fused,conv,plain", [
-    ("kernel", 13, 4, 0),
+    ("kernel", 17, 0, 0),
     ("xla", 0, 17, 0),
-    ("plain", 0, 4, 13),
+    ("plain", 0, 0, 17),
 ])
 def test_fused_forward_routes_blocks(monkeypatch, mode, fused, conv, plain):
-    """Which function each of the 17 blocks goes to: in 'kernel' mode the
-    13 stride-1 blocks to fused_inverted_residual and the 4 stride-2
-    blocks to inverted_residual_conv, and inverted_residual_plain only from
-    inside the kernel's wrapper (its CPU path), never from the forward; in
-    'plain' mode (the kernel-mode forward's oracle) the stride-1 blocks to
+    """Which function each of the 17 blocks goes to: in 'kernel' mode all
+    17, the 13 stride-1 and the 4 stride-2 blocks, to
+    fused_inverted_residual, and inverted_residual_plain only from inside
+    the kernel's wrapper (its CPU path), never from the forward; in
+    'plain' mode (the kernel-mode forward's oracle) every block to
     inverted_residual_plain itself; in 'xla' mode every block to
     inverted_residual_conv."""
     from nnstreamer_tpu_torch.models.mobilenet_v2 import init_weights
@@ -135,12 +135,16 @@ def test_fused_forward_routes_blocks(monkeypatch, mode, fused, conv, plain):
         0, 1, (1, 32, 32, 3)).astype(np.float32))
     out = forward(x)
     assert tuple(out.shape) == (1, 8) and bool(torch.isfinite(out).all())
-    assert calls["fused"] == [1] * fused
-    assert sorted(calls["conv"]) == [1] * (conv - 4) + [2] * 4
-    if mode == "kernel":  # the wrapper's CPU path, once per stride-1 block
-        assert calls["plain"] == [1] * 13 and calls["plain_outside"] == 0
+    strides = [1] * 13 + [2] * 4  # each block once, whichever route
+    assert sorted(calls["fused"]) == (strides if fused else [])
+    assert sorted(calls["conv"]) == (strides if conv else [])
+    assert len(calls["fused"]) == fused and len(calls["conv"]) == conv
+    if mode == "kernel":  # the wrapper's CPU path, once per block
+        assert calls["plain"] == calls["fused"]
+        assert calls["plain_outside"] == 0
     else:
         assert len(calls["plain"]) == calls["plain_outside"] == plain
+        assert sorted(calls["plain"]) == (strides if plain else [])
 
 
 def test_params_npz_round_trip(flax_model, tmp_path):

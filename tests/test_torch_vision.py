@@ -146,19 +146,19 @@ def test_tree_names_its_model(name):
 
 
 @pytest.mark.parametrize("name,mode,fused,conv,plain", [
-    ("ssd", "kernel", 13, 4, 0),
-    ("ssd", "plain", 0, 4, 13),
+    ("ssd", "kernel", 17, 0, 0),
+    ("ssd", "plain", 0, 0, 17),
     ("ssd", "xla", 0, 17, 0),
-    ("deeplab", "kernel", 10, 7, 0),
-    ("deeplab", "plain", 0, 7, 10),
+    ("deeplab", "kernel", 13, 4, 0),
+    ("deeplab", "plain", 0, 4, 13),
     ("deeplab", "xla", 0, 17, 0),
 ])
 def test_fused_forward_routes_blocks(monkeypatch, name, mode, fused, conv,
                                      plain):
-    """Which function each block goes to: in 'kernel' mode the stride-1
-    undilated blocks to fused_inverted_residual (13 for SSD, 10 for
-    DeepLab) through inverted_residual_auto, the stride-2 and dilated ones
-    to inverted_residual_conv (4 and 7), and inverted_residual_plain only
+    """Which function each block goes to: in 'kernel' mode the undilated
+    blocks, stride 1 and 2, to fused_inverted_residual (17 for SSD, 13 for
+    DeepLab) through inverted_residual_auto, the dilated ones to
+    inverted_residual_conv (0 and 4), and inverted_residual_plain only
     from inside the kernel's wrapper (its CPU path); in 'plain' mode the
     kernel's blocks to inverted_residual_plain itself; in 'xla' mode every
     block to inverted_residual_conv."""
@@ -206,25 +206,33 @@ def test_fused_forward_routes_blocks(monkeypatch, name, mode, fused, conv,
 
 
 @pytest.mark.parametrize("name,size,blocks", [
-    ("ssd", 300, [(150, 32, 32, 16), (75, 24, 144, 24), (38, 32, 192, 32),
-                  (38, 32, 192, 32), (19, 64, 384, 64), (19, 64, 384, 64),
-                  (19, 64, 384, 64), (19, 64, 384, 96), (19, 96, 576, 96),
-                  (19, 96, 576, 96), (10, 160, 960, 160),
-                  (10, 160, 960, 160), (10, 160, 960, 320)]),
-    ("deeplab", 257, [(129, 32, 32, 16), (65, 24, 144, 24),
-                      (33, 32, 192, 32), (33, 32, 192, 32),
-                      (17, 64, 384, 64), (17, 64, 384, 64),
-                      (17, 64, 384, 64), (17, 64, 384, 96),
-                      (17, 96, 576, 96), (17, 96, 576, 96)]),
+    ("ssd", 300, [(150, 32, 32, 16, 1), (150, 16, 96, 24, 2),
+                  (75, 24, 144, 24, 1), (75, 24, 144, 32, 2),
+                  (38, 32, 192, 32, 1), (38, 32, 192, 32, 1),
+                  (38, 32, 192, 64, 2), (19, 64, 384, 64, 1),
+                  (19, 64, 384, 64, 1), (19, 64, 384, 64, 1),
+                  (19, 64, 384, 96, 1), (19, 96, 576, 96, 1),
+                  (19, 96, 576, 96, 1), (19, 96, 576, 160, 2),
+                  (10, 160, 960, 160, 1), (10, 160, 960, 160, 1),
+                  (10, 160, 960, 320, 1)]),
+    ("deeplab", 257, [(129, 32, 32, 16, 1), (129, 16, 96, 24, 2),
+                      (65, 24, 144, 24, 1), (65, 24, 144, 32, 2),
+                      (33, 32, 192, 32, 1), (33, 32, 192, 32, 1),
+                      (33, 32, 192, 64, 2), (17, 64, 384, 64, 1),
+                      (17, 64, 384, 64, 1), (17, 64, 384, 64, 1),
+                      (17, 64, 384, 96, 1), (17, 96, 576, 96, 1),
+                      (17, 96, 576, 96, 1)]),
 ])
 def test_kernel_block_shapes(name, size, blocks):
-    """The (H, Cin, Ch, Cout) of the blocks the kernel runs at full width,
-    from ``kernel_block_shapes`` (chip_smoke.py's kernel rows): the shapes
-    the main path gives the kernel."""
+    """The (H, Cin, Ch, Cout, stride) of the blocks the kernel runs at full
+    width, from ``kernel_block_shapes`` (chip_smoke.py's kernel rows): the
+    shapes the main path gives the kernel, the stride-2 blocks (odd maps
+    75, 19, 129, 65 and 33 among their inputs and outputs) included and
+    DeepLab's 4 dilated blocks left out."""
     from nnstreamer_tpu_torch.models.mobilenet_v2 import kernel_block_shapes
 
     m = getattr(_mod(_CASES[name][2]), _CASES[name][1])()
-    got = [(H, cin, ch, cout) for _, H, W, cin, ch, cout
+    got = [(H, cin, ch, cout, stride) for _, H, W, cin, ch, cout, stride
            in kernel_block_shapes(m, size)]
     assert got == blocks
 
