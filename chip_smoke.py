@@ -298,8 +298,15 @@ Phases, each printing one JSON line:
              through the replays; frames/s per run with median and
              spread, p50 frame latency, host ms per frame by span, capture
              ms, the memory plan's predicted bytes against
-             max_memory_allocated (fails where the plan bills less), a
-             profile line of each form (after capture); A and B without
+             max_memory_allocated (fails where the plan bills less), the
+             plan's graph-pool bill against the pool one recapture needs
+             (fails outside [pool, 2 pool]), with the bill's rows beside
+             the blocks live at the capture's peak (from the allocator's
+             history: each request, the bytes the allocator counts for
+             it, the frame that made it) and the pool's segments, and
+             what a private pool still holds once the first captures'
+             lines stopped (cuBLAS's workspace); a profile line of each
+             form (after capture); A and B without
              the argmax: windowed logits bit-equal to per-buffer ones on
              every frame; A with its classifier negated and the weights'
              version moved halfway: one recapture, the second half's
@@ -512,6 +519,7 @@ ends after them, without the ``kernels`` and result lines.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -4758,6 +4766,8 @@ def _loop_drive(torch, line, frames, n, spans=False, plan=False,
         r["memory"] = {"predicted_bytes": predicted["total_bytes"],
                        "params": predicted["param_bytes_total"],
                        "derived": predicted["derived_bytes_total"],
+                       "weight_rounding": predicted[
+                           "weight_rounding_bytes_total"],
                        "activation": row["activation_bytes"],
                        "loop_ring": row["loop_bytes"],
                        "graph_pool": row["graph_bytes"],
@@ -4770,8 +4780,10 @@ def _loop_drive(torch, line, frames, n, spans=False, plan=False,
             raise AssertionError(f"the memory plan under-bills {line!r}: "
                                  f"{r['memory']}")
         if f._loop_state is not None:
-            pool = _graph_pool_peak(torch, f.fw)
+            pool, blocks = _graph_pool_peak(torch, f.fw)
             r["memory"]["graph_pool_measured"] = pool
+            r["pool_blocks"] = blocks
+            r["graph_terms"] = row.get("graph_terms")
             # the graph pool's bill: never below what a capture keeps
             # alive, and within twice of it
             if not pool <= row["graph_bytes"] <= 2 * pool:
@@ -4782,20 +4794,114 @@ def _loop_drive(torch, line, frames, n, spans=False, plan=False,
     return r
 
 
-def _graph_pool_peak(torch, fw) -> int:
+def _graph_pool_peak(torch, fw):
     """What one capture of the filter's window keeps alive: the window's
     graph is dropped and captured again (warm-up runs, then the capture,
     as at play) with the peak counter reset, and the peak live bytes above
     what was allocated before it are the pool the capture needs. Taken
-    after the measured run, so its numbers are not in the run's."""
+    after the measured run, so its numbers are not in the run's. Returns
+    the peak and :func:`_pool_blocks`' listing of the same capture (the
+    allocator's history is recorded around it)."""
+    from nnstreamer_tpu_torch.ops import _cuda
+
     (g,) = fw._loop_graphs.values()
     g.graph, g.outs = None, []  # the old capture's pool and outputs go
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    g.capture()
-    torch.cuda.synchronize()
-    return torch.cuda.max_memory_allocated() - base
+    torch.cuda.memory._record_memory_history(
+        enabled="all", context="alloc", stacks="python", max_entries=200000)
+    try:
+        g.capture()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    warm = _cuda.side_stream(g.device, "loop-warmup").cuda_stream
+    return peak, _pool_blocks(torch, snap, g.graph.pool(), warm, peak)
+
+
+def _frame_at(frames) -> str:
+    """The innermost frame of an allocation in the port's code (else the
+    innermost frame), as file:line function."""
+    frames = frames or []
+    mine = [f for f in frames if "nnstreamer_tpu_torch" in f["filename"]]
+    f = (mine or frames or [{"filename": "?", "line": 0, "name": "?"}])[0]
+    path = f["filename"]
+    if "nnstreamer_tpu_torch" in path:
+        path = path[path.index("nnstreamer_tpu_torch"):]
+    else:
+        path = os.path.basename(path)
+    inner = f" < {frames[0]['name']}" if frames and frames[0] is not f else ""
+    return f"{path}:{f['line']} {f['name']}{inner}"
+
+
+def _pool_blocks(torch, snap, pool_id, warm_stream, peak) -> dict:
+    """The blocks of one window capture, from the allocator's history:
+    every allocation live at the capture's peak (the warm-up runs on the
+    ordinary pool, then the capture on the graph's private pool), by the
+    frame that made it and its size, each request beside the bytes the
+    allocator counts for it (``card_block_bytes``, the rule the memory
+    plan bills); the private pool's segments (what the card reserves for
+    it); and the rule's peak beside the measured one."""
+    from nnstreamer_tpu_torch.analysis.costmodel import card_block_bytes
+
+    def tag(ev):
+        return "warmup" if ev["stream"] == warm_stream else "capture"
+
+    trace = snap["device_traces"][torch.cuda.current_device()]
+    live, cur, top, at_top = {}, 0, 0, {}
+    each = {"warmup": [0, 0], "capture": [0, 0]}  # [now, peak] a stream
+    for ev in trace:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+            n = card_block_bytes(ev["size"])
+        elif ev["action"] == "free_requested" and ev["addr"] in live:
+            ev = live.pop(ev["addr"])
+            n = -card_block_bytes(ev["size"])
+        else:
+            continue
+        cur += n
+        t = each[tag(ev)]
+        t[0] += n
+        t[1] = max(t)
+        if cur > top:
+            top, at_top = cur, dict(live)
+    rows = {}
+    for ev in at_top.values():
+        key = (tag(ev), _frame_at(ev.get("frames")), int(ev["size"]))
+        n = rows.setdefault(key, [0, card_block_bytes(ev["size"])])
+        n[0] += 1
+    blocks = [{"stream": k[0], "at": k[1], "requested": k[2], "count": n,
+               "counted": c} for k, (n, c) in rows.items()]
+    blocks.sort(key=lambda b: -b["count"] * b["counted"])
+    segs = [s for s in snap["segments"]
+            if tuple(s.get("segment_pool_id") or ()) == tuple(pool_id)]
+    return {"rule_peak": top, "measured": peak,
+            "rule_peak_by_stream": {k: v[1] for k, v in each.items()},
+            "live_at_peak": blocks,
+            "pool_segments": [{"type": s["segment_type"],
+                               "bytes": s["total_size"],
+                               "active": s["active_size"]} for s in segs],
+            "pool_reserved": sum(s["total_size"] for s in segs)}
+
+
+def _pools_held(snap) -> list:
+    """The blocks still active in a private (graph) pool, by frame and
+    size, and each such pool's reserved bytes."""
+    held = []
+    for seg in snap["segments"]:
+        pid = tuple(seg.get("segment_pool_id") or ())
+        if not any(pid) or not seg["active_size"]:
+            continue
+        for b in seg["blocks"]:
+            if b["state"] != "inactive":
+                held.append({"pool": list(pid), "segment": seg["total_size"],
+                             "type": seg["segment_type"], "bytes": b["size"],
+                             "requested": b.get("requested_size"),
+                             "at": _frame_at(b.get("frames"))})
+    return held
 
 
 def _loop_check(name, r, frames, window, want_labels, per_frame,
@@ -4940,11 +5046,24 @@ def check_loop(torch, results, workdir):
         for k, v in r["launches"].items():
             launches[k] = launches.get(k, 0) + v
 
-    # warm-up: cuDNN plans and the allocator for both forms of each line
-    for line, n in ((_loop_line_a(), 64), (_loop_line_a(a_loop), 64),
-                    (_loop_line_b(labels), 2 * BATCH),
-                    (_loop_line_b(labels, b_loop), 8 * BATCH)):
-        _loop_drive(torch, line, frames, n)
+    # warm-up: cuDNN plans and the allocator for both forms of each line;
+    # the allocator's history of these first captures says what a graph
+    # pool still holds once every line has stopped (a cuBLAS workspace
+    # made inside a capture would stay in its pool)
+    torch.cuda.memory._record_memory_history(
+        enabled="all", context="alloc", stacks="python", max_entries=500000)
+    try:
+        for line, n in ((_loop_line_a(), 64), (_loop_line_a(a_loop), 64),
+                        (_loop_line_b(labels), 2 * BATCH),
+                        (_loop_line_b(labels, b_loop), 8 * BATCH)):
+            _loop_drive(torch, line, frames, n)
+        gc.collect()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    emit("loop", line="first_captures", held=_pools_held(snap),
+         card=results["card"])
 
     # line A: per-buffer and windowed in turns (P, W, W, P, P, W)
     runs = {"per_buffer": [], "windowed": []}
@@ -5084,6 +5203,15 @@ def check_loop(torch, results, workdir):
                     / r["memory"]["graph_pool_measured"]}
              for name, r in (("A", spans_w), ("B", spans_bw),
                              ("B_preamble", pre), ("C", c))}
+    # each line's bill by its rows beside the blocks its capture held
+    for name, r in (("A", spans_w), ("B", spans_bw), ("B_preamble", pre),
+                    ("C", c)):
+        emit("loop", line="graph_pool_blocks", of=name,
+             ratio=pools[name]["ratio"], bill=r["memory"]["graph_pool"],
+             bill_rows=dict(r["graph_terms"],
+                            feed=r["memory"]["feed"],
+                            fetch_window=r["memory"]["fetch_window"]),
+             pool=r["pool_blocks"], card=results["card"])
     emit("loop", line="graph_pool", pools=pools, card=results["card"])
     results["graph_pool"] = pools
     results["loop_launches"] = launches

@@ -33,13 +33,23 @@ wrappers refuse them, so a model with attention is unmodeled here).
     (MobileNet-v2's first stride-2 block would otherwise bill 308 MB of
     bf16 at batch 128 that the card never holds). The other plain ops
     materialize what they allocate, an upper-ish bound as the
-    reference's is. For a filter on the card (``card=True``) each
-    storage bills the block the CUDA caching allocator carves for it
-    from a fresh segment (:func:`card_block_bytes`; a CUDA graph's
-    private pool starts empty) and a convolution bills cuDNN's workspace
-    for the call (:func:`cudnn_workspace_bytes`): with both, the plan
+    reference's is. For a filter on the card (``card=True``) the run
+    bills what the card holds: ``normalize_u8`` and ``arith_chain`` bill
+    their outputs alone, as the fused block does (the frames reach the
+    model as the kernel writes them, in the compute dtype); each storage
+    bills the block the CUDA caching allocator carves for it from a fresh
+    segment (:func:`card_block_bytes`; a CUDA graph's private pool
+    starts empty); a convolution bills cuDNN's workspace
+    (:func:`cudnn_workspace_bytes`) and its layout copies
+    (:func:`cudnn_layout_bytes`) beside its output. With these the plan
     holds what ``max_memory_allocated`` sees of a forward, whose peak on
-    MobileNet-v2 is inside the stem's convolution.
+    MobileNet-v2 is inside the stem's convolution. The cost then also
+    carries ``output_sizes`` (each output's bytes), ``peak_terms`` (the
+    peak by those parts), ``gemm`` (whether a product ran on cuBLAS,
+    whose workspace a CUDA graph's first capture takes,
+    :func:`cublas_workspace_bytes`) and ``weight_blocks`` (the params and
+    derived weights as the ordinary pool may count them after earlier
+    work, :func:`held_block_bytes`).
 
 ``derived_bytes`` (a key the JAX package has no need of) counts the
 tensors the forward keeps beyond the module's state — the BN-folded,
@@ -71,6 +81,7 @@ program on a device with :func:`composition`.
 
 from __future__ import annotations
 
+import os
 import weakref
 from collections import OrderedDict
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -124,21 +135,39 @@ def meta_tensors(shapes: Sequence[ShapeDtype]) -> List[torch.Tensor]:
                         device="meta") for s in shapes]
 
 
-#: the CUDA caching allocator's rules for large requests
-#: (c10/cuda/CUDACachingAllocator.cpp): from 10 MiB up a request takes a
-#: segment of its own, rounded up to 2 MiB, and keeps the whole segment
-#: when at most 1 MiB would be left over
+#: the CUDA caching allocator's rules (c10/cuda/CUDACachingAllocator.cpp,
+#: without ``expandable_segments`` or ``roundup_power2_divisions``): a
+#: request rounds up to 512 bytes; up to 1 MiB it is carved from a shared
+#: 2 MiB small segment, up to 10 MiB from a 20 MiB large one, either way
+#: split off as it is; from 10 MiB up it takes a segment of its own,
+#: rounded up to 2 MiB, and keeps the whole segment when at most 1 MiB
+#: would be left over
+_BLOCK_ROUND = 512
 _SEGMENT_ROUND = 2 << 20
 _LARGE_ALLOC = 10 << 20
 _SPLIT_LEFTOVER = 1 << 20
 
+#: cuDNN's own scratch beside the widened copy of a stem's input
+#: (``nhwcAddPaddingKernel``): the workspace the flagship's stem requests
+#: is the copy and these bytes, at batch 1 and 128 alike (measured on the
+#: H100 with torch 2.11 and CUDA 12.8: chip_smoke.py's loop phase,
+#: ``graph_pool_blocks``)
+_CUDNN_PAD_SCRATCH = 4624
+
+#: aten ops that run on cuBLAS (``linear`` and ``matmul`` reach the
+#: dispatch mode as these)
+_GEMMS = frozenset({"mm", "addmm", "bmm", "baddbmm", "addbmm",
+                    "_addmm_activation", "mv", "addmv", "dot", "vdot"})
+
 
 def card_block_bytes(n: int) -> int:
-    """The bytes the card's caching allocator counts for an ``n``-byte
-    storage taken from a fresh segment: from 10 MiB up, the 2 MiB-rounded
-    segment when the block keeps it whole; else ``n`` (the allocator's
-    512-byte rounding of every request is left out: it moves a bill by
-    less than 512 B a storage)."""
+    """The bytes the card's caching allocator counts (``memory_allocated``)
+    for an ``n``-byte storage taken from a fresh segment: the request
+    rounded up to 512 bytes, or from 10 MiB up the 2 MiB-rounded segment
+    when the block keeps it whole."""
+    if n <= 0:
+        return 0
+    n = -(-n // _BLOCK_ROUND) * _BLOCK_ROUND
     if n >= _LARGE_ALLOC:
         seg = -(-n // _SEGMENT_ROUND) * _SEGMENT_ROUND
         if seg - n <= _SPLIT_LEFTOVER:
@@ -146,13 +175,26 @@ def card_block_bytes(n: int) -> int:
     return n
 
 
+def held_block_bytes(n: int) -> int:
+    """The most the card's allocator counts for an ``n``-byte storage that
+    the ordinary pool serves after earlier work (a backend's weights): a
+    request above 1 MiB may take a cached free block that the allocator
+    keeps whole because at most 1 MiB would be left over, so it bills
+    its 512-byte-rounded size and that 1 MiB, or its fresh segment where
+    that is more (:func:`card_block_bytes`)."""
+    n512 = -(-n // _BLOCK_ROUND) * _BLOCK_ROUND
+    if n512 > _SPLIT_LEFTOVER:
+        return max(card_block_bytes(n), n512 + _SPLIT_LEFTOVER)
+    return card_block_bytes(n)
+
+
 def cudnn_workspace_bytes(func, args) -> int:
-    """The workspace cuDNN takes for one convolution on the card: for a
-    16-bit input whose channel count is no multiple of 8 (the stems'
-    3), its tensor-core kernels read 8-channel vectors, so it copies the
-    input widened to 8 channels (``nhwcAddPaddingKernel``) for the call;
-    the request carries cuDNN's own scratch beside the copy, so it bills
-    up to the allocator's 2 MiB segment. 0 for every other op."""
+    """The workspace cuDNN takes for one convolution on the card, as the
+    allocator counts it: for a 16-bit input whose channel count is no
+    multiple of 8 (the stems' 3), its tensor-core kernels read 8-channel
+    vectors, so it copies the input widened to 8 channels
+    (``nhwcAddPaddingKernel``) beside a scratch of its own. 0 for every
+    other op."""
     if func is not torch.ops.aten.convolution.default:
         return 0
     x, groups = args[0], args[8]
@@ -160,15 +202,61 @@ def cudnn_workspace_bytes(func, args) -> int:
             or groups != 1 or x.shape[1] % 8 == 0):
         return 0
     n, c, h, w = x.shape
-    ws = n * h * w * (-(-c // 8) * 8) * x.element_size()
-    return -(-ws // _SEGMENT_ROUND) * _SEGMENT_ROUND
+    copy = n * h * w * (-(-c // 8) * 8) * x.element_size()
+    return card_block_bytes(copy + _CUDNN_PAD_SCRATCH)
+
+
+def _channels_last(t: torch.Tensor) -> bool:
+    """``t.suggest_memory_format()`` is channels-last: laid out so, and
+    not also contiguous (as a one-channel or 1x1 tensor is both)."""
+    return (t.is_contiguous(memory_format=torch.channels_last)
+            and not t.is_contiguous())
+
+
+def cudnn_layout_bytes(func, args) -> int:
+    """The copies one convolution on the card makes of its input and its
+    weight where they are not laid out in the memory format cuDNN runs it
+    in: channels-last when either of them is (a stem reads the frames'
+    NHWC, so its NCHW weight is copied), else contiguous. 0 for every
+    other op."""
+    if func is not torch.ops.aten.convolution.default:
+        return 0
+    x, w = args[0], args[1]
+    if x.dim() != 4:
+        return 0
+    cl = _channels_last(x) or _channels_last(w)
+    fmt = torch.channels_last if cl else torch.contiguous_format
+    return sum(card_block_bytes(t.numel() * t.element_size())
+               for t in (x, w) if not t.is_contiguous(memory_format=fmt))
+
+
+def cublas_workspace_bytes(capability=None) -> int:
+    """The workspace PyTorch gives cuBLAS for each (handle, stream) it runs
+    on, made at the first product there and kept for the life of the
+    process, as the allocator counts it: ``CUBLAS_WORKSPACE_CONFIG``'s
+    ``:KiB:count`` pairs summed, else PyTorch's default, 32 MiB on an
+    sm_90 card and 4 MiB x 2 + 16 KiB x 8 on others. ``capability``: the
+    card's (major, minor), by default the current card's, else sm_90's."""
+    spec = os.environ.get("CUBLAS_WORKSPACE_CONFIG", "")
+    pairs = [p for p in spec.split(":") if p]
+    if pairs and len(pairs) % 2 == 0 and all(p.isdigit() for p in pairs):
+        kib = sum(int(a) * int(b) for a, b in zip(pairs[::2], pairs[1::2]))
+        return card_block_bytes(kib << 10)
+    if capability is None:
+        capability = (torch.cuda.get_device_capability()
+                      if torch.cuda.is_available() else (9, 0))
+    if tuple(capability) == (9, 0):
+        return card_block_bytes(4096 * 8 << 10)
+    return card_block_bytes((4096 * 2 + 16 * 8) << 10)
 
 
 class _LiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
     """Counts the bytes of storages created under it while a tensor holds
     them, and the pointwise/reduction flops the FLOP counter leaves out.
     ``card``: bill storages and convolutions as the card holds them
-    (:func:`card_block_bytes`, :func:`cudnn_workspace_bytes`)."""
+    (:func:`card_block_bytes`, :func:`cudnn_workspace_bytes`,
+    :func:`cudnn_layout_bytes`), with the peak's parts in
+    ``peak_terms``."""
 
     def __init__(self, stream_inputs: Sequence[torch.Tensor] = (),
                  card: bool = False):
@@ -176,6 +264,14 @@ class _LiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
         self.card = card
         self.cur = 0
         self.peak = 0
+        #: the storages' requested bytes within ``cur``
+        self.cur_requested = 0
+        #: the peak as the storages' requests, the allocator's rounding of
+        #: them, and the call's cuDNN workspace and layout copies
+        self.peak_terms = {"storages": 0, "block_rounding": 0,
+                           "cudnn_workspace": 0, "cudnn_layout_copies": 0}
+        #: whether an op ran on cuBLAS
+        self.gemm = False
         self.extra_flops = 0
         #: every op's input and output bytes (the compiled method's
         #: bytes accessed)
@@ -204,6 +300,7 @@ class _LiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
             self.extra_flops += sum(o.numel() for o in outs)
         elif name in _REDUCTIONS:
             self.extra_flops += sum(t.numel() for t in ins)
+        self.gemm = self.gemm or name in _GEMMS
         if _cuda.in_kernel_resident():
             return out  # a kernel's on-chip intermediate, not device memory
         in_keys = {_storage_key(t) for t in ins}
@@ -215,15 +312,27 @@ class _LiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
                     continue  # a view of (or in place on) an outside tensor
                 nbytes = o.untyped_storage().nbytes()
                 ref = self._refs[key] = [
-                    0, card_block_bytes(nbytes) if self.card else nbytes]
+                    0, card_block_bytes(nbytes) if self.card else nbytes,
+                    nbytes]
                 self.cur += ref[1]
-                self.peak = max(self.peak, self.cur)
+                self.cur_requested += nbytes
+                self._top()
             ref[0] += 1
             weakref.finalize(o, self._release, key)
         if self.card:  # live beside the call's output while it runs
-            self.peak = max(self.peak, self.cur + cudnn_workspace_bytes(
-                func, args))
+            self._top(cudnn_workspace_bytes(func, args),
+                      cudnn_layout_bytes(func, args))
         return out
+
+    def _top(self, workspace: int = 0, layout: int = 0) -> None:
+        now = self.cur + workspace + layout
+        if now > self.peak:
+            self.peak = now
+            self.peak_terms = {
+                "storages": self.cur_requested,
+                "block_rounding": self.cur - self.cur_requested,
+                "cudnn_workspace": workspace,
+                "cudnn_layout_copies": layout}
 
     def _mark_stream(self, tensors) -> None:
         for t in tensors:
@@ -259,6 +368,7 @@ class _LiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
         ref[0] -= 1
         if ref[0] == 0:
             self.cur -= ref[1]
+            self.cur_requested -= ref[2]
             del self._refs[key]
 
 
@@ -304,12 +414,13 @@ def param_bytes_of(params) -> int:
     return int(sum(t.numel() * t.element_size() for t in _tensors_of(params)))
 
 
-def derived_bytes_of(apply_fn, module) -> int:
+def derived_bytes_of(apply_fn, module, size=int) -> int:
     """Bytes of the tensors a model's forward keeps beyond ``module``'s own
     state: the BN-folded, cast weights that a folded forward holds in its
     closure (and folds anew when a trainer moves the weights).
     Walks the closures, ``__wrapped__`` chains, dicts, lists and tuples
-    reachable from ``apply_fn``, one count per storage."""
+    reachable from ``apply_fn``, one count per storage; ``size`` maps a
+    storage's bytes to what is billed for it (:func:`held_block_bytes`)."""
     own = {_storage_key(t) for t in _tensors_of(module)}
     seen, total, stack = set(), 0, [apply_fn]
     while stack:
@@ -321,7 +432,7 @@ def derived_bytes_of(apply_fn, module) -> int:
             key = _storage_key(o)
             if key not in own:
                 own.add(key)
-                total += o.untyped_storage().nbytes()
+                total += size(o.untyped_storage().nbytes())
         elif isinstance(o, dict):
             stack.extend(o.values())
         elif isinstance(o, (list, tuple)):
@@ -358,13 +469,28 @@ def program_cost(fn, params, shapes: Sequence[ShapeDtype],
     xs = meta_tensors(shapes)
     counter = FlopCounterMode(display=False)
     live = _LiveBytes(xs, card=card)
-    with torch.no_grad(), counter, live:
+    with torch.no_grad(), counter, live, _cuda.billing_card(card):
         out = fn(params, *xs)
     outs = [t for t in torch.utils._pytree.tree_leaves(out)
             if isinstance(t, torch.Tensor)]
     bytes_read = _shapes_nbytes(shapes)
     bytes_written = int(sum(t.numel() * t.element_size() for t in outs))
     p_bytes = param_bytes_of(params)
+    card_terms = {}
+    if card:
+        # the outputs as the allocator counts them, one block each; the
+        # peak by its parts; whether cuBLAS ran (its workspace)
+        card_terms = {"output_sizes": [int(t.numel() * t.element_size())
+                                       for t in outs],
+                      "peak_terms": dict(live.peak_terms),
+                      "gemm": live.gemm,
+                      # the params and the derived weights as the ordinary
+                      # pool may count them
+                      "weight_blocks": int(sum(
+                          held_block_bytes(t.numel() * t.element_size())
+                          for t in _tensors_of(params)) + getattr(
+                              fn, "derived_blocks",
+                              getattr(fn, "derived_bytes", 0)))}
     return {
         "flops": int(counter.get_total_flops() + live.extra_flops),
         "bytes_read": bytes_read,
@@ -377,6 +503,7 @@ def program_cost(fn, params, shapes: Sequence[ShapeDtype],
         "output_bytes": bytes_written,
         "method": "meta",
         "weak_type_hazards": list(live.hazards),
+        **card_terms,
     }
 
 
@@ -527,6 +654,8 @@ def composition(model: str, custom: Dict[str, str], pre_specs=(),
         return compose(list(xs), stage_pre, apply_fn, post, stage_post)
 
     run.derived_bytes = derived_bytes_of(apply_fn, bundle.module)
+    run.derived_blocks = derived_bytes_of(apply_fn, bundle.module,
+                                          size=held_block_bytes)
     return run, bundle.module, bundle.input_info
 
 

@@ -8,7 +8,10 @@ pipeline-level in-flight state the runtime parks on the device:
   ``shared-tensor-filter-key`` share one loaded model, so N sharers must
   not bill N×params — and beside them, once per backend too, the
   **derived** weights the forward keeps (the BN-folded, cast copies,
-  costmodel ``derived_bytes``);
+  costmodel ``derived_bytes``); on the card both as the allocator may
+  count them after earlier work (``weight_rounding_bytes_total``:
+  512-byte blocks, and up to 1 MiB more for a weight above 1 MiB that a
+  cached block serves whole, costmodel ``held_block_bytes``);
 - **upload window** (``feed-depth=N``): up to N assembled micro-batches
   of inputs in flight on the device before the oldest invokes;
 - **program peak**: the invoke's own live-activation peak;
@@ -23,9 +26,12 @@ pipeline-level in-flight state the runtime parks on the device:
   per-buffer at PLAYING and bills nothing; multiple looped filters
   resolve jointly, first-in-graph-order wins the budget). Where the
   window runs as a CUDA graph (a backend on the card), the graph's
-  private memory pool is billed too: what one capture keeps alive, which
-  is one composition's activation peak (the pool hands the blocks a row
-  frees to the next row within the capture) plus the window's outputs;
+  private memory pool is billed too: what one capture keeps alive, as
+  the card's allocator counts it, which is one composition's activation
+  peak (the pool hands the blocks a row frees to the next row within the
+  capture) beside the earlier rows' outputs (:func:`graph_pool_bytes`);
+  and where the composition runs a product, cuBLAS's workspace, which
+  the first capture's products take in its pool and keep;
 - **mesh partition** (``shard=dp|tp|dpxtp mesh=AxB``, analysis/shard.py):
   an ENGAGED shard bills per mesh POSITION — inputs/outputs/activations
   split their batch rows over the dp axis, params split channel dims
@@ -59,10 +65,12 @@ mesh or a pool the smallest of its devices' budgets.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from nnstreamer_tpu_torch.analysis.costmodel import (
     DEFAULT_HBM_BYTES,
+    card_block_bytes,
+    cublas_workspace_bytes,
     filter_cost,
 )
 
@@ -187,6 +195,8 @@ def plan_memory(pipeline, method: str = "auto",
     unmodeled: List[str] = []
     param_groups: Dict[Any, int] = {}
     derived_groups: Dict[Any, int] = {}
+    #: on the card: the allocator's blocks around a group's weights
+    rounding_groups: Dict[Any, int] = {}
     #: the device positions each param group is held at (one per mesh
     #: position or replica)
     group_positions: Dict[Any, List[Any]] = {}
@@ -267,7 +277,8 @@ def plan_memory(pipeline, method: str = "auto",
             per_invoke_in //= shard_dp
             per_invoke_out //= shard_dp
             activation //= shard_dp
-        loop_bytes = graph_bytes = 0
+        loop_bytes = graph_bytes = cublas_bytes = 0
+        graph_terms = None
         if loopw > 1:
             # up to launch-depth windows in flight, each holding its
             # staged input ring AND its stacked outputs (the conservative
@@ -277,8 +288,19 @@ def plan_memory(pipeline, method: str = "auto",
             feed = 1
             window = 0
             if _runs_on_card(e):
-                graph_bytes = graph_pool_bytes(activation, per_invoke_out,
-                                               loopw)
+                outs = cost.get("output_sizes", [per_invoke_out])
+                graph_bytes = graph_pool_bytes(activation, outs, loopw)
+                # the first capture's products make cuBLAS's workspace on
+                # the capture stream, in that capture's pool, kept for the
+                # process: billed beside the pool, which a recapture needs
+                # without it
+                if cost.get("gemm"):
+                    cublas_bytes = cublas_workspace_bytes()
+                graph_terms = dict(
+                    cost.get("peak_terms", {"storages": activation}),
+                    outputs=graph_bytes - activation - GRAPH_CAPTURE_STATE,
+                    capture_state=GRAPH_CAPTURE_STATE,
+                    cublas_first_capture=cublas_bytes)
         row = {
             "element": e.name,
             "param_bytes": cost["param_bytes"],
@@ -289,12 +311,15 @@ def plan_memory(pipeline, method: str = "auto",
             "window_bytes": window * per_invoke_out,
             "loop_bytes": loop_bytes,
             "graph_bytes": graph_bytes,
+            "cublas_bytes": cublas_bytes,
             "feed_depth": feed,
             "window_entries": window,
             "loop_window": loopw,
             "launch_depth": loopk,
             "batch": batch,
         }
+        if graph_terms is not None:
+            row["graph_terms"] = graph_terms
         if shard_bill is not None:
             row["shard"] = dict(shard_cfg)
             row["devices"] = shard_devices
@@ -303,7 +328,7 @@ def plan_memory(pipeline, method: str = "auto",
             row["devices"] = replicas
         row["total_bytes"] = (row["activation_bytes"] + row["feed_bytes"]
                               + row["window_bytes"] + row["loop_bytes"]
-                              + row["graph_bytes"])
+                              + row["graph_bytes"] + row["cublas_bytes"])
         positions = _plan_devices(span)[:span]
         if shard_tp > 1:
             # the gather: each dp row's computing device (its first tp
@@ -332,6 +357,10 @@ def plan_memory(pipeline, method: str = "auto",
             group_positions[key] = positions
         derived_groups[key] = max(derived_groups.get(key, 0),
                                   row["derived_bytes"])
+        if shard_bill is None and "weight_blocks" in cost:
+            rounding_groups[key] = max(
+                rounding_groups.get(key, 0), cost["weight_blocks"]
+                - cost["param_bytes"] - cost.get("derived_bytes", 0))
 
     serving_rows = _serving_holdings(pipeline)
 
@@ -356,7 +385,8 @@ def plan_memory(pipeline, method: str = "auto",
     derived_total = sum(derived_groups.values())
     for key, positions in group_positions.items():
         for dev in positions:
-            hold(dev, param_groups[key] + derived_groups.get(key, 0))
+            hold(dev, param_groups[key] + derived_groups.get(key, 0)
+                 + rounding_groups.get(key, 0))
     hold(dev0, sum(q["bytes"] for q in queue_rows)
          + sum(s["bytes"] for s in serving_rows))
     # the plan's total is the BINDING per-device footprint: the largest
@@ -372,6 +402,7 @@ def plan_memory(pipeline, method: str = "auto",
         "param_bytes_total": param_total,
         "param_sharing_groups": len(param_groups),
         "derived_bytes_total": derived_total,
+        "weight_rounding_bytes_total": sum(rounding_groups.values()),
         "total_bytes": total,
         "budget_bytes": budget,
         "budget_source": budget_src,
@@ -385,14 +416,26 @@ def plan_memory(pipeline, method: str = "auto",
     return out
 
 
-def graph_pool_bytes(activation: int, per_invoke_out: int,
+#: what ``capture_begin`` allocates in the pool before the window runs:
+#: the default CUDA generator's philox seed and offset, one int64 each
+GRAPH_CAPTURE_STATE = 2 * card_block_bytes(8)
+
+
+def graph_pool_bytes(activation: int, out_sizes: Sequence[int],
                      window: int) -> int:
     """The bill of a window's CUDA-graph pool: what one capture keeps
-    alive. The rows of a window run one after another inside the
-    capture, and the private pool hands the blocks one row frees to the
-    next, so the pool holds ONE composition's activation peak, plus the
-    outputs of every row, which stay alive to the window's end."""
-    return int(activation + window * per_invoke_out)
+    alive, as the card's allocator counts it. The rows of a window run
+    one after another inside the capture, and the private pool hands the
+    blocks one row frees to the next (best fit: the same blocks), so the
+    pool holds the capture's state, then the larger of two moments: the
+    last row's activation peak beside the outputs of the rows before it,
+    and the window's end, every row's outputs beside their stack.
+    ``out_sizes``: the bytes of each output of one row."""
+    outs = sum(card_block_bytes(n) for n in out_sizes)
+    stacked = sum(card_block_bytes(window * n) for n in out_sizes)
+    return int(GRAPH_CAPTURE_STATE
+               + max(activation + (window - 1) * outs,
+                     window * outs + stacked))
 
 
 def _runs_on_card(e) -> bool:

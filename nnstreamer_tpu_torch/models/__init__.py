@@ -285,10 +285,13 @@ def preprocess_frames(x: torch.Tensor, scale: str = "pm1",
     [-1, 1); 'unit' → [0, 1)) and batch-dim fixup.
 
     A uint8 CUDA tensor goes through the ``normalize_u8`` kernel, which
-    writes the compute dtype directly; a CPU tensor computes the JAX
+    writes the compute dtype directly, and so does the cost model's
+    data-free run of a filter on the card; a CPU tensor computes the JAX
     package's expression as written, in float32."""
     if x.dtype == torch.uint8:
-        if x.is_cuda:
+        from nnstreamer_tpu_torch.ops import _cuda
+
+        if x.is_cuda or _cuda.bills_card(x):
             from nnstreamer_tpu_torch.ops.preprocess import normalize_u8
 
             scale_v, offset = ((1.0 / 127.5, -1.0) if scale == "pm1"

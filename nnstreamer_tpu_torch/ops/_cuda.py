@@ -179,6 +179,36 @@ def in_kernel_resident() -> bool:
     return getattr(_resident, "depth", 0) > 0
 
 
+def resident_output(plain, *args, **kwargs) -> torch.Tensor:
+    """The cost model's run of a kernel on ``meta`` tensors: ``plain`` in
+    the kernel's place under :func:`kernel_resident`, and the one storage
+    the kernel writes to device memory, its output."""
+    with kernel_resident():
+        out = plain(*args, **kwargs)
+    return torch.empty_like(out)
+
+
+@contextlib.contextmanager
+def billing_card(on: bool = True):
+    """Within the block, this thread's data-free run bills memory as the
+    card holds it (analysis/costmodel.py's ``card=True``): a kernel of the
+    composition that the card runs bills its output alone
+    (:func:`resident_output`), and the frames reach the model as the
+    card's preamble writes them (``models.preprocess_frames``)."""
+    prev = getattr(_resident, "card", False)
+    _resident.card = on
+    try:
+        yield
+    finally:
+        _resident.card = prev
+
+
+def bills_card(x: torch.Tensor) -> bool:
+    """Is ``x`` a ``meta`` tensor of a data-free run that bills for the
+    card (:func:`billing_card`)?"""
+    return x.device.type == "meta" and getattr(_resident, "card", False)
+
+
 def on_cpu(x: torch.Tensor) -> bool:
     """The one dispatch rule of every kernel wrapper: the plain PyTorch
     version runs only for a tensor on the CPU; a CUDA tensor goes to the

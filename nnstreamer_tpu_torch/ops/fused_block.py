@@ -598,11 +598,9 @@ def fused_inverted_residual(x: torch.Tensor, folded: Dict[str, Any], *,
         # the cost model's run: the kernel keeps the hidden tensor and the
         # depthwise output on chip, and its one allocation in device
         # memory is its output, as a pallas_call is one equation of a jaxpr
-        with _cuda.kernel_resident():
-            out = inverted_residual_plain(x, folded, stride=stride,
-                                          residual=residual,
-                                          compute_dtype=compute_dtype)
-        return torch.empty_like(out)
+        return _cuda.resident_output(inverted_residual_plain, x, folded,
+                                     stride=stride, residual=residual,
+                                     compute_dtype=compute_dtype)
     cd = compute_dtype
     _cuda.require(cd in (torch.float32, torch.bfloat16),
                   f"fused block computes in float32 or bfloat16, not {cd}")

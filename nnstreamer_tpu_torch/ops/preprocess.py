@@ -32,6 +32,9 @@ def normalize_u8(x: torch.Tensor, scale: float = 1.0 / 127.5,
     shape-preserving. Defaults map [0,255] → [-1,1) (the MobileNet
     preamble)."""
     if _cuda.plain_route(x):
+        if _cuda.bills_card(x):  # the kernel's one write: its output
+            return _cuda.resident_output(normalize_u8_plain, x, scale,
+                                         offset, out_dtype)
         return normalize_u8_plain(x, scale, offset, out_dtype)
     _cuda.require(x.dtype == torch.uint8,
                   f"normalize_u8 takes uint8, got {x.dtype}")

@@ -73,6 +73,9 @@ def arith_chain(x: torch.Tensor, ops: Sequence[Op],
     float32 path for the chains tensor_transform routes here."""
     out_dtype = out_dtype or x.dtype
     if _cuda.plain_route(x):
+        if _cuda.bills_card(x):  # the kernel's one write: its output
+            return _cuda.resident_output(arith_chain_plain, x, ops,
+                                         out_dtype, clamp)
         return arith_chain_plain(x, ops, out_dtype, clamp)
     _check_ops(ops)
     _cuda.require(len(ops) <= MAX_OPS,

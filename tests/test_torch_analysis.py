@@ -38,6 +38,10 @@ import sys
 
 import numpy as np
 import pytest
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 
 pytest.importorskip("torch")
 pytest.importorskip("jax")
@@ -101,17 +105,6 @@ class Pkg:
 
 JAX = Pkg("nnstreamer_tpu")
 PORT = Pkg("nnstreamer_tpu_torch")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _equal_name_counters():
-    """Each package names an unnamed element from its own counter
-    (``queue7``). This module builds more pipelines in one package than in
-    the other, so at its end it empties both counters: the cross-package
-    tests of a later file in the same process compare those names."""
-    yield
-    for name in ("nnstreamer_tpu", "nnstreamer_tpu_torch"):
-        sys.modules[f"{name}.pipeline.element"].Element._name_counters.clear()
 
 
 @pytest.fixture(params=[JAX, PORT], ids=["jax", "port"])

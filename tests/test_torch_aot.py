@@ -35,6 +35,10 @@ import textwrap
 
 import numpy as np
 import pytest
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 
 pytest.importorskip("torch")
 pytest.importorskip("jax")
@@ -77,16 +81,6 @@ def inproc_worker(monkeypatch):
 
     monkeypatch.setattr(aot, "_run_worker", run)
     return built
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _equal_name_counters():
-    """Both packages name unnamed elements from their own counters; this
-    module builds unnamed elements in both, so it empties both at its end
-    (a later file in the same process looks elements up by name)."""
-    yield
-    for name in ("nnstreamer_tpu", "nnstreamer_tpu_torch"):
-        sys.modules[f"{name}.pipeline.element"].Element._name_counters.clear()
 
 
 def compile_port(custom="k:1", sig=None, **kw):

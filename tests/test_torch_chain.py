@@ -43,6 +43,11 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_shared import jit_init  # noqa: E402
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 jax = pytest.importorskip("jax")
 
 import nnstreamer_tpu.analysis  # noqa: E402
@@ -96,17 +101,6 @@ class Pkg:
 JAX = Pkg("nnstreamer_tpu")
 PORT = Pkg("nnstreamer_tpu_torch")
 BOTH = pytest.mark.parametrize("pkg", [JAX, PORT], ids=["jax", "port"])
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _equal_name_counters():
-    """Each package names an unnamed element from its own counter
-    (``queue7``). This module builds more pipelines in one package than in
-    the other, so at its end it empties both counters: the cross-package
-    tests of a later file in the same process compare those names."""
-    yield
-    for name in ("nnstreamer_tpu", "nnstreamer_tpu_torch"):
-        sys.modules[f"{name}.pipeline.element"].Element._name_counters.clear()
 
 
 def chain_codes(pkg, line):
@@ -706,18 +700,11 @@ def cascade(tmp_path_factory):
     """(npz of the JAX zoo's seed:0 MobileNet-v2 for the port, labels,
     frames): the JAX package's own weights carried across with
     ``models/convert.py``."""
-    import jax.numpy as jnp
-
     import nnstreamer_tpu.models as jm
     from nnstreamer_tpu_torch.models.convert import (
         from_jax_variables,
         save_state_dict,
     )
-
-    def jit_init(model, seed, dummy):
-        # flax's init, jitted: the same variables as the eager init
-        return jax.jit(model.init)(jax.random.PRNGKey(seed),
-                                   jnp.zeros(dummy.shape, dummy.dtype))
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jm, "_init_on_cpu", jit_init)

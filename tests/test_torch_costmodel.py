@@ -33,6 +33,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 jax = pytest.importorskip("jax")
 
 import nnstreamer_tpu.analysis.costmodel  # noqa: E402
@@ -51,6 +55,7 @@ import nnstreamer_tpu_torch.pipeline  # noqa: E402
 import nnstreamer_tpu_torch.trace  # noqa: E402
 from nnstreamer_tpu_torch.analysis.costmodel import (  # noqa: E402
     ShapeDtype,
+    card_block_bytes as card_block,
     composition,
     filter_cost,
     meta_composition,
@@ -229,20 +234,70 @@ class TestProgramCost:
 
     def test_card_blocks_follow_the_caching_allocator(self):
         """For a filter on the card each storage bills the block the CUDA
-        caching allocator keeps from a fresh segment: from 10 MiB up the
+        caching allocator keeps from a fresh segment: every request
+        rounded up to 512 bytes (up to 1 MiB carved from a shared small
+        segment, up to 10 MiB from a large one); from 10 MiB up the
         2 MiB-rounded segment when at most 1 MiB would be left over (the
         sizes of the flagship's batch-128 stem: the preamble's float32
-        output, the padded input, the stem's output, cuDNN's widened
-        copy), else the request."""
+        output, the padded input, the stem's output, cuDNN's widened copy
+        and its scratch), else the request."""
         from nnstreamer_tpu_torch.analysis.costmodel import card_block_bytes
 
         mib = 1 << 20
-        assert card_block_bytes(32) == 32
-        assert card_block_bytes(9 * mib + 1) == 9 * mib + 1
+        assert card_block_bytes(0) == 0
+        assert card_block_bytes(4) == card_block_bytes(32) == 512
+        assert card_block_bytes(1728) == 2048  # the stem's weight copy
+        assert card_block_bytes(303_750) == 304_128  # the padded frame
+        assert card_block_bytes(mib) == mib
+        assert card_block_bytes(9 * mib + 1) == 9 * mib + 512
         assert card_block_bytes(77_070_336) == 77_594_624
         assert card_block_bytes(38_880_000) == 39_845_888
+        assert card_block_bytes(38_535_168) == 38_535_168  # 1.25 MiB over
         assert card_block_bytes(102_760_448) == 102_760_448  # 49 x 2 MiB
-        assert card_block_bytes(103_680_000) == 103_680_000  # 1.12 MiB over
+        assert card_block_bytes(103_684_624) == 103_685_120  # 1.12 MiB over
+
+    def test_held_weights_bill_a_cached_block_kept_whole(self):
+        """A weight the ordinary pool serves after earlier work may take a
+        cached block the allocator keeps whole (at most 1 MiB left over):
+        above 1 MiB it bills that 1 MiB more than its 512-byte-rounded
+        size (the flagship's head weight took a whole 2 MiB block on the
+        card), or its fresh segment where that is more; up to 1 MiB it
+        bills the small pool's block."""
+        from nnstreamer_tpu_torch.analysis.costmodel import held_block_bytes
+
+        mib = 1 << 20
+        assert held_block_bytes(1000) == 1024
+        assert held_block_bytes(mib) == mib
+        assert held_block_bytes(1_638_400) == 1_638_400 + mib
+        assert held_block_bytes(38_880_000) == 38_880_256 + mib
+        assert held_block_bytes(77_070_336) == 77_070_336 + mib
+
+    def test_card_run_rounds_small_and_large_storages(self):
+        """The meta run for the card bills a small storage as the small
+        pool's 512-byte block and a large one as its whole 2 MiB-rounded
+        segment, and splits its peak into the requests and the rounding;
+        for the CPU it bills the requests."""
+        mib = 1 << 20
+
+        def two(params, x):
+            small = x * 2  # 1000 bytes
+            big = torch.zeros(11 * mib + 100, dtype=torch.uint8,
+                              device=x.device)
+            return small, big
+
+        shape = [ShapeDtype((250,), np.float32)]
+        host, card = (program_cost(two, {}, shape, card=c)
+                      for c in (False, True))
+        base = host["param_bytes"] + host["bytes_read"]
+        assert host["peak_live_bytes"] == base + 1000 + 11 * mib + 100
+        assert card["peak_live_bytes"] == base + 1024 + 12 * mib
+        assert card["peak_terms"] == {
+            "storages": 1000 + 11 * mib + 100,
+            "block_rounding": 24 + mib - 100,
+            "cudnn_workspace": 0, "cudnn_layout_copies": 0}
+        assert card["output_sizes"] == [1000, 11 * mib + 100]
+        assert card["gemm"] is False
+        assert "peak_terms" not in host and "gemm" not in host
 
     @pytest.mark.parametrize("dtype,cin,groups,want", [
         ("bfloat16", 3, 1, 1), ("float16", 3, 1, 1), ("float32", 3, 1, 0),
@@ -251,9 +306,12 @@ class TestProgramCost:
                                                   want):
         """A 16-bit convolution whose input channels are no multiple of 8
         (the stems' 3) bills cuDNN's copy of its input widened to 8
-        channels beside its output, up to the allocator's 2 MiB segment,
-        for a filter on the card only."""
+        channels and cuDNN's scratch beside its output, as the allocator
+        counts them, for a filter on the card only; every convolution of
+        a channels-last input there bills the copy of its NCHW weight."""
         from nnstreamer_tpu_torch.analysis.costmodel import (
+            card_block_bytes,
+            cudnn_layout_bytes,
             cudnn_workspace_bytes,
         )
 
@@ -267,13 +325,104 @@ class TestProgramCost:
         shape = [ShapeDtype((4, 33, 33, cin), np.float32)]
         host, card = (program_cost(conv, {}, shape, card=c)
                       for c in (False, True))
-        ws = -(-4 * 33 * 33 * 8 * 2 // (2 << 20)) * (2 << 20)
-        assert card["peak_live_bytes"] - host["peak_live_bytes"] == want * ws
-        x = torch.empty((4, cin, 33, 33), dtype=dt, device="meta")
+        ws = card_block_bytes(4 * 33 * 33 * 8 * 2 + 4624)
+        weight = card_block_bytes(w.numel() * w.element_size())
+        assert card["peak_terms"]["cudnn_workspace"] == want * ws
+        assert card["peak_terms"]["cudnn_layout_copies"] == weight
+        assert card["peak_live_bytes"] - host["peak_live_bytes"] == (
+            want * ws + weight + card["peak_terms"]["block_rounding"])
+        x = torch.empty((4, 33, 33, cin), dtype=dt,
+                        device="meta").permute(0, 3, 1, 2)
         args = (x, w, None, [2, 2], [0, 0], [1, 1], False, [0, 0], groups)
-        assert cudnn_workspace_bytes(torch.ops.aten.convolution.default,
+        aten = torch.ops.aten
+        assert cudnn_workspace_bytes(aten.convolution.default,
                                      args) == want * ws
-        assert cudnn_workspace_bytes(torch.ops.aten.add.Tensor, args) == 0
+        assert cudnn_workspace_bytes(aten.add.Tensor, args) == 0
+        assert cudnn_layout_bytes(aten.convolution.default, args) == weight
+        # an NCHW input and weight: nothing copied
+        nchw = (x.contiguous(),) + args[1:]
+        assert cudnn_layout_bytes(aten.convolution.default, nchw) == 0
+
+    def test_card_run_bills_the_kernels_outputs_alone(self):
+        """For the card, ``normalize_u8`` and ``arith_chain`` bill their
+        outputs alone (the frames reach the model in the compute dtype, as
+        the kernel writes them); for the CPU the frames are the JAX
+        package's float32 expression and the chain's plain steps, as
+        before."""
+        from nnstreamer_tpu_torch.models import preprocess_frames
+        from nnstreamer_tpu_torch.ops.transform_ops import arith_chain
+
+        shape = [ShapeDtype((2, 16, 16, 3), np.uint8)]
+        px = 2 * 16 * 16 * 3
+
+        def frames(params, x):
+            return preprocess_frames(x, "pm1", torch.bfloat16)
+
+        def chain(params, x):
+            return arith_chain(x, [("add", -127.5), ("div", 127.5)],
+                               out_dtype=torch.float32)
+
+        host, card = (program_cost(frames, {}, shape, card=c)
+                      for c in (False, True))
+        base = host["param_bytes"] + host["bytes_read"]
+        assert card["output_sizes"] == [px * 2]  # bfloat16
+        assert card["peak_live_bytes"] == base + card_block(px * 2)
+        assert host["output_bytes"] == px * 4  # the float32 expression
+        assert host["peak_live_bytes"] >= base + 2 * px * 4
+        host, card = (program_cost(chain, {}, shape, card=c)
+                      for c in (False, True))
+        assert card["peak_live_bytes"] == base + card_block(px * 4)
+        assert host["peak_live_bytes"] >= base + 2 * px * 4
+
+    @pytest.mark.parametrize("model,window,where,billed", [
+        ("matmul", 4, "card", True), ("matmul", 1, "card", False),
+        ("matmul", 4, "cpu", False), ("add", 4, "card", False)])
+    def test_cublas_workspace_billed_for_a_product_in_a_capture(
+            self, port, model, window, where, billed):
+        """A windowed filter on the card whose composition runs a product
+        bills cuBLAS's workspace beside its graph pool: the first
+        capture's products take it in that capture's pool, and cuBLAS
+        keeps it. Per buffer, on the CPU, or without a product, no
+        workspace is billed."""
+        from nnstreamer_tpu_torch.analysis.costmodel import (
+            cublas_workspace_bytes,
+        )
+
+        cpu = port.cpu if where == "cpu" else ""
+        loop = f"loop-window={window} " if window > 1 else ""
+        p = port.parse_launch(
+            f"appsrc caps={CAPS_F32} ! tensor_filter name=f framework=jax "
+            f"model={model} custom=dim:4,aot:0 {cpu}{loop}! tensor_sink")
+        row = next(r for r in plan_memory(p)["rows"] if r["element"] == "f")
+        assert row["loop_window"] == window
+        want = cublas_workspace_bytes() if billed else 0
+        assert row["cublas_bytes"] == want
+        assert row["total_bytes"] == (
+            row["activation_bytes"] + row["feed_bytes"] + row["window_bytes"]
+            + row["loop_bytes"] + row["graph_bytes"] + want)
+        if where == "card" and window > 1:
+            terms = row["graph_terms"]
+            assert terms["cublas_first_capture"] == want
+            assert sum(v for k, v in terms.items()
+                       if k != "cublas_first_capture") == row["graph_bytes"]
+
+    @pytest.mark.parametrize("spec,capability,want", [
+        (None, (9, 0), 32 << 20), (None, (8, 0), (4096 * 2 + 16 * 8) << 10),
+        (":4096:8", (8, 0), 32 << 20), (":16:8", (9, 0), 128 << 10)])
+    def test_cublas_workspace_follows_pytorchs_rule(self, monkeypatch, spec,
+                                                    capability, want):
+        """cuBLAS's workspace for a (handle, stream): CUBLAS_WORKSPACE_CONFIG's
+        ``:KiB:count`` pairs summed, else PyTorch's default for the card
+        (32 MiB on sm_90, measured in a capture's pool on the H100)."""
+        from nnstreamer_tpu_torch.analysis.costmodel import (
+            cublas_workspace_bytes,
+        )
+
+        if spec is None:
+            monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+        else:
+            monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", spec)
+        assert cublas_workspace_bytes(capability) == want
 
 
 class TestMfuTable:
@@ -356,7 +505,11 @@ class TestMemplan:
         plan = plan_memory(p)
         params = plan["param_bytes_total"]
         assert params > 1_000_000  # 1024^2 bf16
-        assert plan["total_bytes"] < 1.5 * params
+        # on the card the 2 MiB weight may come from a cached block kept
+        # whole, up to 1 MiB larger: billed beside the params, once
+        assert plan["weight_rounding_bytes_total"] == 1 << 20
+        assert (plan["total_bytes"] - plan["weight_rounding_bytes_total"]
+                < 1.5 * params)
 
     def test_feed_and_window_holdings(self, port):
         p = port.parse_launch(
@@ -400,6 +553,59 @@ class TestMemplan:
         monkeypatch.delenv("NNSTPU_HBM_BYTES", raising=False)
         got = Pkg("nnstreamer_tpu_torch").memplan.device_memory_budget()
         assert got == Pkg("nnstreamer_tpu").memplan.device_memory_budget()
+
+
+class TestMemplanHostParity:
+    """The card's terms (the allocator's blocks, cuDNN's workspace and
+    layout copies, the kernels' outputs alone, the graph pool, cuBLAS's
+    workspace) apply only where the plan bills for the card: with the
+    port's filter on the CPU its rows stand to the JAX package's as they
+    did before those terms (the port's activation a few bytes above, as
+    its meta run and the jaxpr walk part ways on 0-d constants and on
+    when the fused stage's cast dies)."""
+
+    LINES = {
+        "add": (f"appsrc caps={CAPS_F32} ! {{filt}} ! tensor_sink", 4),
+        "add_windowed": (f"appsrc caps={CAPS_F32} ! {{filt}} ! tensor_sink",
+                         4),
+        "fused_uint8": (f"appsrc caps={CAPS_U8} ! tensor_transform "
+                        "mode=arithmetic option=typecast:float32,mul:2 "
+                        "! {filt} ! queue ! tensor_sink", 12),
+    }
+    SAME = ("param_bytes", "feed_bytes", "window_bytes", "loop_bytes")
+    APART = ("peak_live_bytes", "activation_bytes", "total_bytes")
+
+    @pytest.mark.parametrize("case", sorted(LINES))
+    def test_rows_stand_to_the_reference_as_before(self, case,
+                                                   monkeypatch):
+        # jax 0.9 moved Literal to jax.extend.core; the reference's cost
+        # model reads it from jax.core (ROADMAP queue 3 item 2)
+        import jax.extend.core
+
+        monkeypatch.setattr(jax.core, "Literal", jax.extend.core.Literal,
+                            raising=False)
+        line, apart = self.LINES[case]
+        rows = []
+        for name in PKGS:
+            pkg = Pkg(name)
+            extra = "loop-window=4 " if case == "add_windowed" else ""
+            p = pkg.parse_launch(line.format(filt=pkg.filt(extra, name="f")))
+            if case == "fused_uint8":
+                p.play()  # the planner fuses the stage into the filter
+            try:
+                plan = pkg.memplan.plan_memory(p)
+            finally:
+                if case == "fused_uint8":
+                    p.stop()
+            assert plan["unmodeled"] == []
+            row = next(r for r in plan["rows"] if r["element"] == "f")
+            rows.append(row)
+            if pkg.port:
+                assert row["graph_bytes"] == row["cublas_bytes"] == 0
+                assert "graph_terms" not in row
+        ref, got = rows
+        assert {k: got[k] for k in self.SAME} == {k: ref[k] for k in self.SAME}
+        assert [got[k] - ref[k] for k in self.APART] == [apart] * 3
 
 
 class TestMemplanServing:

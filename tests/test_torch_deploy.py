@@ -27,9 +27,12 @@ Both packages' element-name counters are emptied at the module's end.
 
 import json
 import os
-import sys
 
 import pytest
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 
 pytest.importorskip("torch")
 pytest.importorskip("jax")
@@ -45,15 +48,6 @@ from nnstreamer_tpu_torch.analysis.deploy import (  # noqa: E402
 from nnstreamer_tpu_torch.analysis.diagnostics import CODES  # noqa: E402
 from nnstreamer_tpu_torch.pipeline.element import State  # noqa: E402
 from nnstreamer_tpu_torch.tools import validate as validate_tool  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _equal_name_counters():
-    """Both packages name unnamed elements from their own counters; this
-    module builds pipelines in both, so it empties both at its end."""
-    yield
-    for name in ("nnstreamer_tpu", "nnstreamer_tpu_torch"):
-        sys.modules[f"{name}.pipeline.element"].Element._name_counters.clear()
 
 
 FLEET_DIR = os.path.join(os.path.dirname(__file__), "..", "examples",

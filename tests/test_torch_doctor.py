@@ -16,10 +16,13 @@ module's end.
 
 import json
 import os
-import sys
 
 import numpy as np
 import pytest
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 
 pytest.importorskip("torch")
 pytest.importorskip("jax")
@@ -36,15 +39,6 @@ CAPS = "other/tensors,num-tensors=1,dimensions=4:2,types=float32,framerate=0/1"
 LINE = (f"appsrc name=src caps={CAPS} ! tensor_filter name=f framework=jax "
         "model=add custom=k:1,aot:0 ! tensor_sink name=out")
 FLEET = os.path.join(REPO, "examples", "fleet")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _equal_name_counters():
-    """Both packages name unnamed elements from their own counters; this
-    module builds pipelines in both, so it empties both at its end."""
-    yield
-    for name in ("nnstreamer_tpu", "nnstreamer_tpu_torch"):
-        sys.modules[f"{name}.pipeline.element"].Element._name_counters.clear()
 
 
 @pytest.fixture

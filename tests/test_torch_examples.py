@@ -32,6 +32,11 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_shared import jit_init  # noqa: E402
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -48,19 +53,10 @@ RUNNERS = ("long_context", "classification", "detection", "query_offload",
 
 @pytest.fixture(scope="module")
 def jax_zoo():
-    """The JAX zoo's init jitted for the module (the same values as its
-    eager init): returns ``weights(zoo, custom)`` → an npz of the
+    """The JAX zoo's init jitted (the same values as its eager init, made
+    once a process): returns ``weights(zoo, custom)`` → an npz of the
     ``seed:0`` variables for the port."""
     import nnstreamer_tpu.models as jm
-
-    inits = {}
-
-    def jit_init(model, seed, dummy):
-        key = (repr(model), seed, tuple(dummy.shape))
-        if key not in inits:
-            inits[key] = jax.jit(model.init)(
-                jax.random.PRNGKey(seed), jnp.zeros(dummy.shape, dummy.dtype))
-        return inits[key]
 
     mp = pytest.MonkeyPatch()
     mp.setattr(jm, "_init_on_cpu", jit_init)

@@ -26,6 +26,10 @@ import pytest
 
 pytest.importorskip("grpc")
 torch = pytest.importorskip("torch")
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 jax = pytest.importorskip("jax")
 
 import ml_dtypes  # noqa: E402

@@ -11,6 +11,10 @@ import time
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 
 from nnstreamer_tpu_torch.tools._import_common import (  # noqa: E402
     _TF32_GATE, precision_scope)

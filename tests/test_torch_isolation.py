@@ -7,6 +7,8 @@ matches the module name ``nnstreamer_tpu`` or the prefix
 """
 
 import ast
+import json
+import multiprocessing
 import os
 import re
 import subprocess
@@ -242,24 +244,82 @@ SANITIZER_MODULES = (
 )
 
 
+#: what a fork server's child runs for one module: it records what of
+#: the port, the JAX package and JAX the interpreter held before the
+#: import (nothing, or the check means nothing) and what the import
+#: brought of the JAX package and JAX
+_ALONE = r"""
+import json, os, sys
+os.chdir({root!r})
+sys.path.insert(0, {root!r})
+
+def held(port):
+    return sorted(k for k in sys.modules
+                  if k in ("jax", "flax", "optax", "orbax", "nnstreamer_tpu")
+                  or k.startswith(("jax.", "jaxlib", "flax.", "optax.",
+                                   "orbax.", "nnstreamer_tpu."))
+                  if port or not k.startswith("nnstreamer_tpu_torch"))
+
+before = held(True)
+preloaded = "torch" in sys.modules and "numpy" in sys.modules
+import {module}
+with open({out!r}, "w") as fh:
+    json.dump({{"before": before, "preloaded": preloaded,
+               "loaded": held(False)}}, fh)
+"""
+
+
+@pytest.fixture(scope="module")
+def fork_server():
+    """One fork server for the module, which imports torch and numpy and
+    nothing of either package: each module's check forks a child of it,
+    a fresh interpreter but for those two imports, instead of paying a
+    torch import per module."""
+    from multiprocessing import forkserver
+
+    server = forkserver._forkserver
+    server._stop()  # a server another file started may hold other imports
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch", "numpy"])
+    yield ctx
+    server._stop()
+    ctx.set_forkserver_preload([])
+
+
+def _import_alone(ctx, module, tmp_path):
+    out = tmp_path / "alone.json"
+    code = _ALONE.format(root=ROOT, module=module, out=str(out))
+    child = ctx.Process(target=exec, args=(code, {"__name__": "alone"}))
+    child.start()
+    child.join(120)
+    if child.exitcode is None:
+        child.kill()
+        child.join()
+    assert child.exitcode == 0, f"importing {module} alone failed"
+    return json.loads(out.read_text())
+
+
+def test_fork_server_holds_torch_and_nothing_of_either_package(
+        fork_server, tmp_path):
+    """The fork server's children start with torch and numpy imported and
+    with nothing of the port, the JAX package or JAX."""
+    got = _import_alone(fork_server, "os", tmp_path)
+    assert got == {"before": [], "preloaded": True, "loaded": []}
+
+
 @pytest.mark.parametrize("module", SLICE_MODULES + VISION_MODULES
                          + SERVING_MODULES + STREAM_MODULES
                          + PLANNER_MODULES + TRAINING_MODULES
                          + LOOP_MODULES + TRANSPORT_MODULES
                          + ANALYZER_MODULES + SANITIZER_MODULES)
-def test_slice_module_alone_loads_no_jax(module):
-    """Each module, imported alone in a fresh interpreter, pulls in
+def test_slice_module_alone_loads_no_jax(module, fork_server, tmp_path):
+    """Each module, imported alone in an interpreter that holds nothing of
+    the port and nothing of JAX (a child of the fork server), pulls in
     neither JAX nor the JAX package (the walk above imports them all
     together, so an import one of them makes would hide behind another)."""
-    probe = (f"import sys, {module}\n"
-             "print(sorted(k for k in sys.modules if k in ('jax', 'flax', "
-             "'optax', 'orbax', 'nnstreamer_tpu') or k.startswith(('jax.', "
-             "'jaxlib', 'flax.', 'optax.', 'orbax.', 'nnstreamer_tpu.'))))")
-    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120,
-                         env=dict(os.environ, PYTHONPATH=ROOT))
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]", out.stdout
+    got = _import_alone(fork_server, module, tmp_path)
+    assert got["before"] == [], got
+    assert got["loaded"] == [], got
     path = os.path.join(ROOT, *module.split("."))
     path = (os.path.join(path, "__init__.py") if os.path.isdir(path)
             else path + ".py")

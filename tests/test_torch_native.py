@@ -18,6 +18,10 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 
 from nnstreamer_tpu import native_rt as jax_rt  # noqa: E402
 from nnstreamer_tpu.types import TensorInfo as JaxTensorInfo  # noqa: E402

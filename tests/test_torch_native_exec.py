@@ -26,6 +26,10 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 
 from nnstreamer_tpu.tools import pjrt_native as jax_pjrt  # noqa: E402
 from nnstreamer_tpu_torch import native_rt  # noqa: E402

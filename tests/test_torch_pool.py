@@ -26,6 +26,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 jax = pytest.importorskip("jax")
 
 import nnstreamer_tpu.analysis  # noqa: E402
@@ -59,18 +63,6 @@ from nnstreamer_tpu_torch.analysis import memplan  # noqa: E402
 PKGS = ("nnstreamer_tpu", "nnstreamer_tpu_torch")
 CAPS4 = "other/tensors,num-tensors=1,dimensions=4,types=float32,framerate=30/1"
 DISTINCT = ",".join(f"cuda:{i}" for i in range(8))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _equal_name_counters():
-    """Each package names an unnamed element from its own counter
-    (``queue7``). This module builds more unnamed elements in one package
-    than in the other, so at its end it empties both counters: the tests
-    of a later file in the same process look elements up by those
-    names."""
-    yield
-    for name in ("nnstreamer_tpu", "nnstreamer_tpu_torch"):
-        sys.modules[f"{name}.pipeline.element"].Element._name_counters.clear()
 
 
 @pytest.fixture(autouse=True)

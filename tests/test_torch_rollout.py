@@ -15,12 +15,15 @@ analyzer. Both packages' element-name counters are emptied at the module's
 end.
 """
 
-import sys
 import time
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 
 pytest.importorskip("torch")
 pytest.importorskip("jax")
@@ -65,15 +68,6 @@ def _wait(cond, timeout=8.0, what="condition"):
             return
         time.sleep(0.01)
     raise AssertionError(f"timed out waiting for {what}")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _equal_name_counters():
-    """Both packages name unnamed elements from their own counters; this
-    module builds unnamed elements in both, so it empties both at its end."""
-    yield
-    for name in ("nnstreamer_tpu", "nnstreamer_tpu_torch"):
-        sys.modules[f"{name}.pipeline.element"].Element._name_counters.clear()
 
 
 @pytest.fixture

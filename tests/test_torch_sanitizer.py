@@ -29,6 +29,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 pytest.importorskip("jax")
 
 import nnstreamer_tpu.analysis.lockwitness  # noqa: E402

@@ -27,6 +27,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 jax = pytest.importorskip("jax")
 
 import nnstreamer_tpu.analysis  # noqa: E402
@@ -58,18 +62,6 @@ CAPS_8x64 = ("other/tensors,num-tensors=1,dimensions=64:8,types=float32,"
 #: matmul has a (64, 64) bf16 param leaf — tp-shardable (64 % 8 == 0)
 MM = "tensor_filter name=f framework=jax model=matmul custom=dim:64,aot:0"
 ADD = "tensor_filter name=f framework=jax model=add custom=k:1,aot:0"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _equal_name_counters():
-    """Each package names an unnamed element from its own counter
-    (``queue7``). This module builds more unnamed elements in one package
-    than in the other, so at its end it empties both counters: the tests
-    of a later file in the same process look elements up by those
-    names."""
-    yield
-    for name in ("nnstreamer_tpu", "nnstreamer_tpu_torch"):
-        sys.modules[f"{name}.pipeline.element"].Element._name_counters.clear()
 
 
 @pytest.fixture(autouse=True)

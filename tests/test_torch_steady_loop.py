@@ -27,6 +27,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 jax = pytest.importorskip("jax")
 
 import nnstreamer_tpu.analysis.loop  # noqa: E402
@@ -495,37 +499,47 @@ class TestStaticHonesty:
     def test_memplan_bills_the_graph_pool_on_the_card(self, port):
         """A filter that runs on the card (no ``accelerator=true:cpu``)
         runs its window as a CUDA graph, whose private pool is billed at
-        what one capture keeps alive — one composition's activation peak
-        (the pool reuses a row's blocks for the next) and one output per
-        window row; on the CPU the window is a loop over the composition
-        and bills no pool."""
+        what one capture keeps alive, in the allocator's 512-byte blocks:
+        the capture's state (two 8-byte tensors), one composition's
+        activation peak (the pool reuses a row's blocks for the next)
+        beside the earlier rows' outputs; on the CPU the window is a loop
+        over the composition and bills no pool."""
         card = port.line().replace(port.cpu, "")
         rows = [next(r for r in plan_memory(port.parse_launch(line))["rows"]
                      if r["element"] == "f") for line in (card, port.line())]
         on_card, on_cpu = rows
         assert on_card["loop_bytes"] == on_cpu["loop_bytes"] == 4 * (32 + 32)
-        assert on_card["graph_bytes"] == (on_card["activation_bytes"]
-                                           + 4 * 32)
+        # the add's 32-byte output and its 0-d k, a 512-byte block each
+        assert on_card["activation_bytes"] == 2 * 512
+        assert on_cpu["activation_bytes"] == 32 + 4
+        # the window's end: four rows' outputs beside their 128-byte stack
+        assert on_card["graph_bytes"] == 2 * 512 + 4 * 512 + 512
         assert on_card["graph_bytes"] > 0 and on_cpu["graph_bytes"] == 0
-        assert on_card["total_bytes"] == (on_cpu["total_bytes"]
-                                          + on_card["graph_bytes"])
+        assert on_card["cublas_bytes"] == 0  # no product
+        assert on_card["total_bytes"] == (
+            on_cpu["total_bytes"] - on_cpu["activation_bytes"]
+            + on_card["activation_bytes"] + on_card["graph_bytes"])
 
     def test_graph_pool_bill_is_one_peak_plus_the_outputs(self, port):
         """The graph pool's bill on a small window: one composition's
         activation peak, not one per row — a window four times as long
-        adds only its rows' outputs."""
+        adds only its rows' outputs (or, where the outputs outweigh the
+        peak, the window's end: every row's output beside their stack)."""
         from nnstreamer_tpu_torch.analysis.memplan import graph_pool_bytes
 
-        assert graph_pool_bytes(1000, 8, 4) == 1032
-        assert graph_pool_bytes(1000, 8, 16) == 1128
+        assert graph_pool_bytes(100_000, [8], 4) == 1024 + 100_000 + 3 * 512
+        assert graph_pool_bytes(100_000, [8], 16) == 1024 + 100_000 + 15 * 512
+        assert graph_pool_bytes(1000, [8], 16) == 1024 + 16 * 512 + 512
+        assert graph_pool_bytes(1000, [8, 600], 4) == 1024 + max(
+            1000 + 3 * (512 + 1024), 4 * (512 + 1024) + 512 + 2560)
         card = port.line().replace(port.cpu, "")
         rows = {w: next(r for r in plan_memory(port.parse_launch(
             card.replace("loop-window=4", f"loop-window={w}")))["rows"]
             if r["element"] == "f") for w in (4, 16)}
         a = rows[4]["activation_bytes"]
         assert a > 0 and rows[16]["activation_bytes"] == a
-        assert rows[4]["graph_bytes"] == a + 4 * 32
-        assert rows[16]["graph_bytes"] == a + 16 * 32
+        assert rows[4]["graph_bytes"] == 1024 + 4 * 512 + 512
+        assert rows[16]["graph_bytes"] == 1024 + 16 * 512 + 512
 
     def test_memplan_bills_folded_weights_once(self, port):
         """MobileNet-v2's folded forward keeps BN-folded, cast copies of

@@ -40,6 +40,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 jax = pytest.importorskip("jax")
 
 import nnstreamer_tpu.buffer  # noqa: E402
@@ -701,10 +705,10 @@ def test_detect_then_crop_line(ssd):
     got, px = _run_detect_crop(PORT, _detect_crop_line(
         PORT, custom, priors), frames)
     import nnstreamer_tpu.models as jm
-    from test_torch_vision_lines import _jit_init
+    from test_torch_shared import jit_init
 
     with pytest.MonkeyPatch.context() as mp:  # the zoo's init, jitted
-        mp.setattr(jm, "_init_on_cpu", _jit_init)
+        mp.setattr(jm, "_init_on_cpu", jit_init)
         _, jx = _run_detect_crop(JAX, _detect_crop_line(
             JAX, "seed:0,size:96,width:0.35,classes:8", priors), frames)
     assert px == jx

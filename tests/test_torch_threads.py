@@ -22,6 +22,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 jax = pytest.importorskip("jax")
 
 import nnstreamer_tpu.analysis  # noqa: E402
@@ -41,18 +45,6 @@ import nnstreamer_tpu_torch.pipeline.element  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAPS4 = "other/tensors,num-tensors=1,dimensions=4,types=float32,framerate=0/1"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _equal_name_counters():
-    """Each package names an unnamed element from its own counter
-    (``queue7``). This module builds more unnamed elements in one package
-    than in the other, so at its end it empties both counters: the tests
-    of a later file in the same process look elements up by those
-    names."""
-    yield
-    for name in ("nnstreamer_tpu", "nnstreamer_tpu_torch"):
-        sys.modules[f"{name}.pipeline.element"].Element._name_counters.clear()
 
 
 @pytest.fixture(autouse=True)

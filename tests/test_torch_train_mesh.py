@@ -44,12 +44,16 @@ No element-name counter and no lock witness are read here; both packages'
 counters are emptied at the module's end.
 """
 
-import sys
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_shared import jit_init  # noqa: E402
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -68,17 +72,6 @@ SIZE, BATCH, CLASSES, WIDTH, LR, STEPS = 32, 8, 4, 0.35, 0.01, 3
 MESHES = {"dp4x1": (4, 1), "dp2x2": (2, 2)}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _equal_name_counters():
-    """Each package names an unnamed element from its own counter
-    (``queue7``). This module builds unnamed elements in both packages,
-    so at its end it empties both counters: the tests of a later file in
-    the same process look elements up by those names."""
-    yield
-    for name in ("nnstreamer_tpu", "nnstreamer_tpu_torch"):
-        sys.modules[f"{name}.pipeline.element"].Element._name_counters.clear()
-
-
 def _batches():
     rng = np.random.default_rng(5)
     return [(rng.integers(0, 255, (BATCH, SIZE, SIZE, 3), dtype=np.uint8),
@@ -88,9 +81,9 @@ def _batches():
 
 @pytest.fixture(scope="module")
 def flax_run():
-    """The flax variables (jitted init) and the JAX package's unsharded
-    and dp-8 mesh steps over the batches in float64 compute: (variables,
-    losses, state after, mesh losses, mesh state after)."""
+    """The flax variables (the shared jitted init) and the JAX package's
+    unsharded and dp-8 mesh steps over the batches in float64 compute:
+    (variables, losses, state after, mesh losses, mesh state after)."""
     import optax
 
     from nnstreamer_tpu.models import make_train_apply
@@ -101,8 +94,7 @@ def flax_run():
 
     init = FlaxMBV2(num_classes=CLASSES, width_mult=WIDTH,
                     dtype=jnp.float32)
-    v = jax.device_get(jax.jit(init.init)(
-        jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3))))
+    v = jax.device_get(jit_init(init, 0, jnp.zeros((1, SIZE, SIZE, 3))))
     out = [v]
     with jax.enable_x64(True):
         # every variable in float64 but the classifier's (flax's Dense

@@ -35,6 +35,12 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_shared import jit_init  # noqa: E402
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+    worker_torch_threads,
+)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -446,11 +452,6 @@ MB_CUSTOM = {"batch": "4", "size": "32", "width": "0.35", "classes": "4",
              "seed": "0", "lr": "0.01"}
 
 
-def _jit_init(model, seed, dummy):
-    return jax.jit(model.init)(jax.random.PRNGKey(seed),
-                               jnp.zeros(dummy.shape, dummy.dtype))
-
-
 def _mb_samples(n, seed=0, size=32, classes=4):
     rng = np.random.default_rng(seed)
     out = []
@@ -469,7 +470,7 @@ def jax_mobilenet(tmp_path_factory):
     import nnstreamer_tpu.models as jm
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jm, "_init_on_cpu", _jit_init)
+        mp.setattr(jm, "_init_on_cpu", jit_init)
         jt = JaxTrainer()
         jt.create(JaxProps(model_config="mobilenet_v2",
                            num_training_samples=100, custom=dict(MB_CUSTOM)))
@@ -543,7 +544,7 @@ def _flax_step_float32(size=32, batch=4):
     from nnstreamer_tpu.parallel.train import make_train_step
 
     model = FlaxMBV2(num_classes=4, width_mult=0.35, dtype=jnp.float32)
-    v = jax.device_get(_jit_init(model, 0, jnp.zeros((1, size, size, 3))))
+    v = jax.device_get(jit_init(model, 0, jnp.zeros((1, size, size, 3))))
     rng = np.random.default_rng(0)
     x = rng.integers(0, 255, (batch, size, size, 3), dtype=np.uint8)
     y = rng.integers(0, 4, batch).astype(np.int32)
@@ -619,6 +620,7 @@ def test_mobilenet_float32_step_matches_flax(flax_step_float32):
         assert float((du - dw).norm()) <= 0.05 * float(dw.norm()) + 1e-5, k
 
 
+@pytest.mark.usefixtures("worker_torch_threads")
 def test_mobilenet_float32_step_fails_with_torch_batchnorm(
         flax_step_float32, monkeypatch):
     """torch.nn.BatchNorm2d's train mode updates running_var with the
@@ -656,6 +658,7 @@ def _train(custom, n_steps, **props):
     return tr, props
 
 
+@pytest.mark.usefixtures("worker_torch_threads")
 @pytest.mark.parametrize("stale", [False, True])
 def test_refold_after_training(monkeypatch, stale):
     """A float32 folded forward built before training, called after it,

@@ -29,9 +29,13 @@ element-name counters are emptied at the module's end.
 
 import json
 import os
-import sys
 
 import pytest
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+    worker_torch_threads,
+)
 
 pytest.importorskip("torch")
 pytest.importorskip("jax")
@@ -99,17 +103,6 @@ MLINE = f"appsrc name=src caps={CAPS_8x64} ! {MM} ! tensor_sink name=out"
 @pytest.fixture(autouse=True)
 def _eight_devices(monkeypatch):
     monkeypatch.setenv("NNSTPU_TORCH_DEVICES", "cpu*8")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _equal_name_counters():
-    """Each package names an unnamed element from its own counter
-    (``queue7``). This module builds unnamed elements in both packages,
-    so at its end it empties both counters: the tests of a later file in
-    the same process look elements up by those names."""
-    yield
-    for name in ("nnstreamer_tpu", "nnstreamer_tpu_torch"):
-        sys.modules[f"{name}.pipeline.element"].Element._name_counters.clear()
 
 
 def codes(diags):
@@ -385,6 +378,7 @@ class TestRankingMatchesMeasured:
         assert static == measured == [16, 1]
         assert rep["chosen"]["static_choice_confirmed"] is True
 
+    @pytest.mark.usefixtures("worker_torch_threads")
     def test_compute_bound_pipeline(self):
         """512-wide matmul with the compute constant derated to a
         CPU-class rate: compute-bound, and the batch ordering it predicts
@@ -704,8 +698,10 @@ class TestLoopKnobs:
         assert fps(8) > fps(1) * 4
 
     def test_over_budget_loop_arm_pruned_before_compile(self, monkeypatch):
-        # fits the solo program but never an 8 x 32 B ring
-        monkeypatch.setenv("NNSTPU_HBM_BYTES", "400")
+        # fits the solo program (on the card: the output and the 0-d k
+        # in a 512-byte block each, and the 32 B input) but never a
+        # window's ring beside its graph pool (from 2.5 KiB up)
+        monkeypatch.setenv("NNSTPU_HBM_BYTES", "2000")
         rep = tune_report(self.LINE, measure=False)
         on = [e for e in rep["points"]
               if e["config"].get("loop_window", 1) != 1

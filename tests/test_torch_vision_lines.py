@@ -33,8 +33,12 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_shared import jit_init  # noqa: E402
+from test_torch_shared import (  # noqa: E402,F401 (fixtures)
+    equal_name_counters,
+    one_torch_thread,
+)
 jax = pytest.importorskip("jax")
-import jax.numpy as jnp  # noqa: E402
 
 from nnstreamer_tpu_torch.models.convert import (  # noqa: E402
     from_jax_variables,
@@ -56,19 +60,6 @@ MODELS = {
                   "pp_score:0.01"),
 }
 
-_INITS = {}
-
-
-def _jit_init(model, seed, dummy):
-    """The JAX zoo's init, jitted and kept per module: a raw and a pp
-    bundle of one configuration share their variables, as with seed:0."""
-    key = (repr(model), seed, tuple(dummy.shape))
-    if key not in _INITS:
-        _INITS[key] = jax.jit(model.init)(jax.random.PRNGKey(seed),
-                                          jnp.zeros(dummy.shape, dummy.dtype))
-    return _INITS[key]
-
-
 def _custom(spec):
     return dict(kv.split(":", 1) for kv in spec.split(","))
 
@@ -84,7 +75,7 @@ def _jax(name, tmp_path_factory):
 
         zoo, _, spec = MODELS[name]
         with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(jm, "_init_on_cpu", _jit_init)
+            mp.setattr(jm, "_init_on_cpu", jit_init)
             b = jm.get_model(zoo, {"seed": "0", **_custom(spec)})
         variables = jax.device_get(b.params)
         npz = str(tmp_path_factory.mktemp(name) / "w.npz")
